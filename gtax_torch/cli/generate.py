@@ -1,0 +1,137 @@
+"""Autoregressive video generation CLI (counterpart of gtax/cli/generate.py,
+same flag names and defaults).
+
+Usage:
+  python -m gtax_torch.cli.generate --total-frames 32 --noise_steps 100 \\
+      --dit_model_path dit.safetensors --vae_model_path vit-l-20.safetensors \\
+      --start_frame img.png [--use_actions] [--output_path video1.mp4]
+
+Empty --dit_model_path / --vae_model_path give random weights (a
+checkpoint-free smoke run). Runs on the card unless --device cpu. Flags of
+modes this port does not have yet are accepted and raise
+NotImplementedError when set (ServingConfig); the test-set prompt path
+needs the data slice, so a prompt comes from --start_frame.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+
+from gtax_torch.data.actions import forward_actions
+from gtax_torch.io.video import read_image, write_video
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="Video generation (gtax_torch)")
+    p.add_argument("--total-frames", type=int, default=32)
+    p.add_argument("--dit_model_path", type=str,
+                   default="checkpoints/dit.safetensors")
+    p.add_argument("--vae_model_path", type=str,
+                   default="checkpoints/vit-l-20.safetensors")
+    p.add_argument("--noise_steps", type=int, default=100)
+    p.add_argument("--use_actions", action="store_true")
+    p.add_argument("--output_path", type=str, default="video1.mp4")
+    p.add_argument("--batch", type=int, default=1,
+                   help="generate N videos of the same prompt in one "
+                        "rollout; N>1 writes <output_path stem>_i.<ext>")
+    p.add_argument("--batch_distinct", action="store_true",
+                   help="N different test-set prompts (needs the data "
+                        "slice; not ported yet)")
+    p.add_argument("--start_frame", type=str, default=None)
+    p.add_argument("--dtype", type=str, default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--attention_backend", type=str, default="fused",
+                   choices=["xla", "pallas", "fused", "fused_mlp",
+                            "fused_all"],
+                   help="fused / fused_all run the port's CUDA kernels; the "
+                        "others are not ported yet")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--pipeline_depth", type=int, default=1)
+    p.add_argument("--attn_broadcast", type=int, default=1)
+    p.add_argument("--benchmark_json", action="store_true",
+                   help="print a timing JSON line at the end")
+    p.add_argument("--quantize", choices=["none", "int8"], default="none")
+    p.add_argument("--no_incremental", action="store_true",
+                   help="disable incremental decoding (full-window steps)")
+    p.add_argument("--no_cond_cache", action="store_true",
+                   help="disable the conditioning cache")
+    p.add_argument("--no_unstack", action="store_true")
+    p.add_argument("--mesh_model", type=int, default=1)
+    p.add_argument("--mesh_data", type=int, default=1)
+    p.add_argument("--decode_chunk", type=int, default=None,
+                   help="decode at most N frames per VAE call")
+    p.add_argument("--aot_dir", type=str, default=None)
+    p.add_argument("--no_prewarm", action="store_true")
+    p.add_argument("--dit_model", type=str, default="DiT-S/2")
+    p.add_argument("--vae_model", type=str,
+                   default="vit-l-20-shallow-encoder")
+    p.add_argument("--device", type=str, default=None,
+                   help="cuda (default) or cpu")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    from gtax_torch.serving import ServingConfig, VideoGenerator
+
+    if args.start_frame is None or args.batch_distinct:
+        raise NotImplementedError(
+            "test-set prompts need the data slice, which is not ported yet; "
+            "pass --start_frame")
+    cfg = ServingConfig(
+        dtype=args.dtype, attention_backend=args.attention_backend,
+        quantize=args.quantize, unstack=not args.no_unstack,
+        cond_cache=not args.no_cond_cache,
+        incremental=not args.no_incremental,
+        pipeline_depth=args.pipeline_depth,
+        attn_broadcast=args.attn_broadcast, noise_steps=args.noise_steps,
+        mesh_data=args.mesh_data, mesh_model=args.mesh_model,
+        decode_chunk=args.decode_chunk, aot_dir=args.aot_dir,
+        dit_model=args.dit_model, vae_model=args.vae_model)
+    gen = VideoGenerator.load(args.dit_model_path, args.vae_model_path, cfg,
+                              device=args.device)
+    dit_cfg, vae_cfg = gen.dit_cfg, gen.vae_cfg
+    total_frames, n_prompt = args.total_frames, 1
+    print(f"We will generate {total_frames} frames, starting with "
+          f"{n_prompt} frames.")
+    print(f"Noise steps: {args.noise_steps}; stabilization 15; "
+          f"window {dit_cfg.max_frames}; actions={args.use_actions}")
+    frame = read_image(args.start_frame,
+                       (vae_cfg.input_height, vae_cfg.input_width))
+    video = np.tile(frame[None, None], (args.batch, 1, 1, 1, 1))
+    actions = (forward_actions(args.batch, total_frames)
+               if args.use_actions else None)
+    seed = args.seed if args.seed is not None else int(time.time())
+
+    t0 = time.perf_counter()
+    pixels = gen.generate(video, actions, num_frames=total_frames, seed=seed)
+    total_seconds = time.perf_counter() - t0
+    gen_seconds = gen.last_timings["rollout_s"]
+    if args.batch == 1:
+        write_video(args.output_path, pixels[0], fps=10)
+        print(f"generation saved to {args.output_path}.")
+    else:
+        stem, ext = os.path.splitext(args.output_path)
+        for i in range(args.batch):
+            write_video(f"{stem}_{i}{ext}", pixels[i], fps=10)
+        print(f"{args.batch} generations saved to {stem}_*{ext}.")
+    if args.benchmark_json:
+        n_gen = (total_frames - n_prompt) * args.batch
+        print(json.dumps({
+            "generated_frames": n_gen,
+            "noise_steps": args.noise_steps,
+            "seconds": gen_seconds,
+            "frames_per_sec": n_gen / gen_seconds,
+            "total_seconds_with_vae": total_seconds,
+            "device": str(gen.device),
+        }))
+    return pixels
+
+
+if __name__ == "__main__":
+    main()

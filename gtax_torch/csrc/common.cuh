@@ -1,0 +1,63 @@
+// Shared helpers of the port's hand-written sm_90a kernels.
+//
+// Every kernel here is bound through a plain C entry point (ctypes, see
+// gtax_torch/kernels/build.py): pointers and the stream arrive as void*,
+// sizes as int, and each entry returns cudaGetLastError() so the Python
+// wrapper can raise on a refused launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
+
+// round-to-nearest-even, the rounding of jnp.astype / torch .to(bfloat16)
+__device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16_rn(v); }
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Two neighbouring elements (c, c+1) of a row that is fp32 or bf16 in
+// memory; c is even, so both loads are naturally aligned.
+__device__ __forceinline__ float2 load_pair(const void* base, int is_f32,
+                                            size_t idx) {
+  if (is_f32) return *reinterpret_cast<const float2*>(
+      static_cast<const float*>(base) + idx);
+  return __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(
+          static_cast<const bf16*>(base) + idx));
+}
+
+__device__ __forceinline__ void store_pair(bf16* base, size_t idx, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(base + idx) = __floats2bfloat162_rn(a, b);
+}
+
+// Rotary embedding of one interleaved pair (x[c], x[c+1]) in fp32:
+// x * cos + rotate_half(x) * sin, rotate_half(x)[c] = -x[c+1],
+// rotate_half(x)[c+1] = x[c] (gtax/core/rope.py rotate_half).
+__device__ __forceinline__ float2 rope_pair(float2 x, const float* freqs) {
+  float s0, c0, s1, c1;
+  sincosf(freqs[0], &s0, &c0);
+  sincosf(freqs[1], &s1, &c1);
+  return make_float2(x.x * c0 + (-x.y) * s0, x.y * c1 + x.x * s1);
+}
+
+#define GTAX_ENTRY extern "C" __attribute__((visibility("default"))) int

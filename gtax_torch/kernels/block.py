@@ -1,0 +1,447 @@
+"""The DiT block's fused branches: CUDA kernels on the card, plain PyTorch
+on the CPU.
+
+Counterpart of gtax/kernels/block.py. Each public wrapper computes one
+whole branch of a SpatioTemporal DiT block,
+
+    out = x + gate * Branch(modulate(LN(x), shift, scale))
+
+with shift/scale/gate given per FRAME ((N, D), broadcast to the frame's S
+token rows). The tensor's device picks the path: a CPU tensor gets the
+branch's plain PyTorch version (`*_plain`, any float dtype), a CUDA tensor
+gets the hand-written sm_90a kernels of gtax_torch/csrc or an exception for
+a shape or dtype they do not take. There is no fallback and no switch.
+
+On the card a branch is a few launches of shared kernels: `ln_mod` (fp32
+LayerNorm + per-frame modulate -> bf16), `gemm_bf16` (tensor-core GEMM
+with an fp32 or fused epilogue), and the attention kernel of the branch
+(`attn_frame` or `attn_temporal`). Each wrapper counts its calls that
+launch kernels in its `launches` attribute.
+
+Rounding points (shared by kernels and plain versions, as in the TPU
+kernels): LN statistics, softmax and rope in fp32; the qkv product stays
+fp32 until after rope and is cast to the compute dtype after it;
+attention probabilities are cast to the compute dtype before PV; the
+branch output is cast once, o = cast(x32 + gate * (y + b)).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gtax_torch.core.rope import apply_rotary_emb as rope
+from gtax_torch.kernels import build
+
+MOD_EPS = 1e-6
+LN_EPS = 1e-6
+
+# gemm_bf16 epilogues (csrc/gemm_bf16.cu)
+EPI_F32 = 0
+EPI_BIAS_BF16 = 1
+EPI_BIAS_GELU_TANH = 2
+EPI_BIAS_BF16_GELU = 3
+EPI_BIAS_GATED = 4
+EPI_BIAS_BF16_RESID = 5
+
+
+# ----------------------------------------------------------- plain parts
+
+def ln32(x32: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
+    """LayerNorm without affine over the last dim, fp32 in and out."""
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    return (x32 - mean) * torch.rsqrt(var + eps)
+
+
+def mm32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w with the operands' values in fp32 and fp32 accumulation — for
+    bf16 operands, the products of a bf16 tensor-core GEMM."""
+    return torch.matmul(a.float(), w.float())
+
+
+def gelu_tanh32(h: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(approximate=True), term for term."""
+    return h * (0.5 * (1.0 + torch.tanh(
+        0.7978845608028654 * (h + 0.044715 * (h * h * h)))))
+
+
+def _modulated(x32, shift, scale, dtype):
+    """cast(LN(x) * (1 + scale + 1e-6) + shift), per-frame vectors."""
+    return (ln32(x32) * (1.0 + scale.float()[:, None] + MOD_EPS)
+            + shift.float()[:, None]).to(dtype)
+
+
+def attend_frames(q, k, v, dtype):
+    """Non-causal attention per frame: q/k/v (N, S, H, d) in the compute
+    dtype -> (N, S, H, d) in the compute dtype. fp32 scores and softmax,
+    probabilities cast to the compute dtype before PV."""
+    d = q.shape[-1]
+    s = torch.einsum("nqhd,nkhd->nhqk", q.float(), k.float()) * (1.0 / d**0.5)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = (e / e.sum(-1, keepdim=True)).to(dtype)
+    return torch.einsum("nhqk,nkhd->nqhd", p.float(), v.float()).to(dtype)
+
+
+def valid_bits(valid, T: int) -> int:
+    """Slot-validity mask as an int (bit j = slot j is a real frame); None
+    means every slot is valid. `valid` is a bool sequence or tensor; a CPU
+    tensor or a list keeps the host from waiting on the card."""
+    if valid is None:
+        return (1 << T) - 1
+    flags = valid.tolist() if isinstance(valid, torch.Tensor) else list(valid)
+    if len(flags) != T:
+        raise ValueError(f"valid has {len(flags)} slots, window has {T}")
+    return sum(1 << j for j, ok in enumerate(flags) if ok)
+
+
+def temporal_bias(valid, T: int, device) -> torch.Tensor:
+    """(T, T) additive mask of gtax temporal_preamble: causal, a key slot
+    open when valid or on the diagonal, -1e30 where closed."""
+    bits = valid_bits(valid, T)
+    ok = torch.tensor([bool(bits >> j & 1) for j in range(T)], device=device)
+    eye = torch.eye(T, dtype=torch.bool, device=device)
+    causal = torch.tril(torch.ones(T, T, dtype=torch.bool, device=device))
+    allow = causal & (ok[None, :] | eye)
+    return torch.where(allow, 0.0, -1e30).float()
+
+
+def attend_temporal(q, k, v, bias, dtype):
+    """Causal attention across frames at each site: q (B, I, S, H, d)
+    query frames, k/v (B, J, S, H, d) key frames in window-slot order,
+    bias (I, J) additive (its -1e30 entries zero the closed pairs)."""
+    d = q.shape[-1]
+    s = (torch.einsum("bishd,bjshd->bshij", q.float(), k.float())
+         * (1.0 / d**0.5) + bias)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = (e / e.sum(-1, keepdim=True)).to(dtype)
+    return torch.einsum("bshij,bjshd->bishd", p.float(), v.float()).to(dtype)
+
+
+# ------------------------------------------------------ plain branches
+
+def spatial_branch_plain(x, shift, scale, gate, qkv_w, out_w, out_b,
+                         rope_freqs, num_heads):
+    N, S, D = x.shape
+    dt, H = x.dtype, num_heads
+    x32 = x.float()
+    qkv = mm32(_modulated(x32, shift, scale, dt), qkv_w)
+    q, k, v = (t.reshape(N, S, H, D // H) for t in qkv.split(D, dim=-1))
+    f = rope_freqs[:, None, :]
+    o = attend_frames(rope(f, q).to(dt), rope(f, k).to(dt), v.to(dt), dt)
+    y = mm32(o.reshape(N, S, D), out_w) + out_b.float()
+    return (x32 + gate.float()[:, None] * y).to(dt)
+
+
+def mlp_branch_plain(x, shift, scale, gate, w1, b1, w2, b2):
+    dt = x.dtype
+    x32 = x.float()
+    h = mm32(_modulated(x32, shift, scale, dt), w1) + b1.float()
+    y = mm32(gelu_tanh32(h).to(dt), w2) + b2.float()
+    return (x32 + gate.float()[:, None] * y).to(dt)
+
+
+def temporal_branch_plain(x, shift, scale, gate, qkv_w, out_w, out_b,
+                          rope_freqs, valid, num_heads, n_frames,
+                          emit_kv=False):
+    N, S, D = x.shape
+    dt, H, T = x.dtype, num_heads, n_frames
+    B = N // T
+    x32 = x.float()
+    qkv = mm32(_modulated(x32, shift, scale, dt), qkv_w)
+    q, k, v = (t.reshape(B, T, S, H, D // H) for t in qkv.split(D, dim=-1))
+    f = rope_freqs[None, :, None, None, :]
+    kr, vb = rope(f, k).to(dt), v.to(dt)
+    o = attend_temporal(rope(f, q).to(dt), kr, vb,
+                        temporal_bias(valid, T, x.device), dt)
+    y = mm32(o.reshape(N, S, D), out_w) + out_b.float()
+    out = (x32 + gate.float()[:, None] * y).to(dt)
+    if emit_kv:
+        return out, kr.reshape(N, S, D), vb.reshape(N, S, D)
+    return out
+
+
+def temporal_step_plain(x, shift, scale, gate, qkv_w, out_w, out_b, k_ctx,
+                        v_ctx, rope_freqs, valid, num_heads, n_ctx,
+                        n_live=1):
+    N, S, D = x.shape
+    dt, H = x.dtype, num_heads
+    B, T = N // n_live, n_ctx + n_live
+    d = D // H
+    x32 = x.float()
+    qkv = mm32(_modulated(x32, shift, scale, dt), qkv_w)
+    q, k, v = (t.reshape(B, n_live, S, H, d) for t in qkv.split(D, dim=-1))
+    f = rope_freqs[n_ctx:T][None, :, None, None, :]
+    keys = torch.cat([k_ctx.reshape(B, n_ctx, S, H, d).to(dt),
+                      rope(f, k).to(dt)], dim=1)
+    vals = torch.cat([v_ctx.reshape(B, n_ctx, S, H, d).to(dt), v.to(dt)],
+                     dim=1)
+    bias = temporal_bias(valid, T, x.device)[n_ctx:]
+    o = attend_temporal(rope(f, q).to(dt), keys, vals, bias, dt)
+    y = mm32(o.reshape(N, S, D), out_w) + out_b.float()
+    return (x32 + gate.float()[:, None] * y).to(dt)
+
+
+# ------------------------------------------------------- kernel launches
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _need(cond: bool, what) -> None:
+    """Raise ValueError(what()) unless cond; `what` builds the message only
+    on failure (these checks run on every launch)."""
+    if not cond:
+        raise ValueError(f"CUDA kernel path: {what()}")
+
+
+def _desc(t):
+    return f"{t.dtype} {tuple(t.shape)} on {t.device}"
+
+
+def _check_rows(name, t, rows, D, dtype=torch.bfloat16):
+    """(rows, D) per-frame vectors: unit column stride, any row stride."""
+    _need(t.is_cuda and t.dtype == dtype and t.dim() == 2
+          and t.shape[0] == rows and t.shape[1] == D and t.stride(1) == 1,
+          lambda: f"{name} must be a CUDA {dtype} ({rows}, {D}) tensor with "
+                  f"unit column stride, got {_desc(t)}")
+
+
+def _check_mat(name, t, shape, dtype=torch.bfloat16):
+    _need(t.is_cuda and t.dtype == dtype and t.shape == shape
+          and t.is_contiguous(),
+          lambda: f"{name} must be a contiguous CUDA {dtype} {shape} "
+                  f"tensor, got {_desc(t)}")
+
+
+def _check_bias(name, b, n):
+    _need(b.is_cuda and b.dtype in (torch.bfloat16, torch.float32)
+          and b.numel() == n and b.is_contiguous(),
+          lambda: f"{name} must be a contiguous CUDA bf16/fp32 vector of "
+                  f"{n}, got {_desc(b)}")
+
+
+def launch_ln_mod(x, out, rows, D, S, mode, p0, p1, p_stride=0):
+    build.launch("gtax_ln_mod", x.data_ptr(), out.data_ptr(), p0.data_ptr(),
+                 p1.data_ptr(), rows, D, S, p_stride, mode, _stream(x))
+
+
+def launch_gemm(a, w, out, M, N, K, epi, bias=None, resid=None, gate=None,
+                S=1):
+    build.launch(
+        "gtax_gemm_bf16", a.data_ptr(), w.data_ptr(), out.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        int(bias is not None and bias.dtype == torch.float32),
+        None if resid is None else resid.data_ptr(),
+        None if gate is None else gate.data_ptr(),
+        0 if gate is None else gate.stride(0), M, N, K, S, epi, _stream(a))
+
+
+def launch_attn_frame(qkv, freqs, out, n_frames, S, D, num_heads, rot):
+    build.launch("gtax_attn_frame", qkv.data_ptr(),
+                 int(qkv.dtype == torch.float32), freqs.data_ptr(),
+                 out.data_ptr(), n_frames, S, D, num_heads, rot, _stream(qkv))
+
+
+def _check_branch(x, shift, scale, gate, D_out=None):
+    _need(x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 3
+          and x.is_contiguous(),
+          lambda: f"x must be a contiguous CUDA bf16 (N, S, D) tensor, got "
+                  f"{_desc(x)}")
+    N, S, D = x.shape
+    _need(D % 64 == 0, lambda: f"D={D} must be a multiple of 64")
+    for name, t in (("shift", shift), ("scale", scale), ("gate", gate)):
+        _check_rows(name, t, N, D)
+    return N, S, D
+
+
+def _modulate_cuda(x, shift, scale):
+    N, S, D = x.shape
+    _need(shift.stride(0) == scale.stride(0),
+          lambda: "shift and scale must share a row stride")
+    mod = torch.empty((N * S, D), dtype=torch.bfloat16, device=x.device)
+    launch_ln_mod(x, mod, N * S, D, S, 0, shift, scale, shift.stride(0))
+    return mod
+
+
+def _check_heads(D, num_heads, head_dims):
+    """The attention kernels are compiled for these head dims."""
+    _need(D % num_heads == 0 and D // num_heads in head_dims,
+          lambda: f"head dim of D={D} over {num_heads} heads must be one of "
+                  f"{head_dims}")
+    return D // num_heads
+
+
+def _check_hidden(Hd):
+    _need(Hd % 64 == 0, lambda: f"MLP width {Hd} must be a multiple of 64")
+
+
+def _check_freqs(freqs, rows, cols):
+    _check_mat("rope_freqs", freqs, (rows, cols), torch.float32)
+
+
+def _check_attn_weights(qkv_w, out_w, out_b, D):
+    _check_mat("qkv_w", qkv_w, (D, 3 * D))
+    _check_mat("out_w", out_w, (D, D))
+    _check_bias("out_b", out_b, D)
+
+
+# ------------------------------------------------------------- wrappers
+
+def fused_spatial_branch(x, shift, scale, gate, qkv_w, out_w, out_b,
+                         rope_freqs, num_heads):
+    """x: (N, S, D) per-frame token tiles; shift/scale/gate: (N, D);
+    qkv_w: (D, 3D); out_w: (D, D); out_b: (D,); rope_freqs: (S, head_dim)
+    pixel-axial table. Returns x + gate * SpatialAttention(modulate(LN(x))).
+
+    Replaces gtax/kernels/block.py fused_spatial_branch (pallas_call at
+    :846, body _kernel :214, core _spatial_attention_core :137). On the
+    card: ln_mod -> gemm (fp32 qkv) -> attn_frame (full-d rope on load) ->
+    gemm (+bias, gated residual): 4 launches. Bound: the 8 MB of qkv/out
+    weights at the serving row counts (bytes); see PERF.md for the
+    measured time against that bound."""
+    if x.device.type == "cpu":
+        return spatial_branch_plain(x, shift, scale, gate, qkv_w, out_w,
+                                    out_b, rope_freqs, num_heads)
+    N, S, D = _check_branch(x, shift, scale, gate)
+    _check_attn_weights(qkv_w, out_w, out_b, D)
+    d = _check_heads(D, num_heads, (32, 64))
+    _check_freqs(rope_freqs, S, d)
+    mod = _modulate_cuda(x, shift, scale)
+    qkv = torch.empty((N * S, 3 * D), dtype=torch.float32, device=x.device)
+    launch_gemm(mod, qkv_w, qkv, N * S, 3 * D, D, EPI_F32)
+    att = torch.empty((N * S, D), dtype=torch.bfloat16, device=x.device)
+    launch_attn_frame(qkv, rope_freqs, att, N, S, D, num_heads, d)
+    out = torch.empty_like(x)
+    launch_gemm(att, out_w, out, N * S, D, D, EPI_BIAS_GATED, bias=out_b,
+                resid=x, gate=gate, S=S)
+    fused_spatial_branch.launches += 1
+    return out
+
+
+fused_spatial_branch.launches = 0
+
+
+def fused_mlp_branch(x, shift, scale, gate, w1, b1, w2, b2):
+    """x: (N, S, D); shift/scale/gate: (N, D); w1: (D, H); w2: (H, D).
+    Returns x + gate * (fc2(gelu_tanh(fc1(modulate(LN(x))))) ).
+
+    Replaces gtax/kernels/block.py fused_mlp_branch (pallas_call at :779,
+    body _mlp_kernel :715). On the card: ln_mod -> gemm (+b1, tanh-GELU,
+    bf16) -> gemm (+b2, gated residual): 3 launches. Bound: the 16 MB of
+    fc1/fc2 weights at serving row counts (bytes); tensor-core rate at
+    prefill and VAE-size row counts."""
+    if x.device.type == "cpu":
+        return mlp_branch_plain(x, shift, scale, gate, w1, b1, w2, b2)
+    N, S, D = _check_branch(x, shift, scale, gate)
+    Hd = w1.shape[-1]
+    _check_hidden(Hd)
+    _check_mat("w1", w1, (D, Hd))
+    _check_mat("w2", w2, (Hd, D))
+    _check_bias("b1", b1, Hd)
+    _check_bias("b2", b2, D)
+    mod = _modulate_cuda(x, shift, scale)
+    h = torch.empty((N * S, Hd), dtype=torch.bfloat16, device=x.device)
+    launch_gemm(mod, w1, h, N * S, Hd, D, EPI_BIAS_GELU_TANH, bias=b1)
+    out = torch.empty_like(x)
+    launch_gemm(h, w2, out, N * S, D, Hd, EPI_BIAS_GATED, bias=b2, resid=x,
+                gate=gate, S=S)
+    fused_mlp_branch.launches += 1
+    return out
+
+
+fused_mlp_branch.launches = 0
+
+
+def _temporal_cuda(x, shift, scale, gate, qkv_w, out_w, out_b, rope_freqs,
+                   num_heads, B, n_q, q_off, bits, k_ctx=None, v_ctx=None,
+                   emit_kv=False):
+    N, S, D = x.shape
+    d = _check_heads(D, num_heads, (32, 64, 128))
+    T = q_off + n_q
+    _need(T <= 8, lambda: f"window of {T} frames: the kernel takes at most 8")
+    _check_attn_weights(qkv_w, out_w, out_b, D)
+    _check_freqs(rope_freqs, T, d)
+    mod = _modulate_cuda(x, shift, scale)
+    qkv = torch.empty((N * S, 3 * D), dtype=torch.float32, device=x.device)
+    launch_gemm(mod, qkv_w, qkv, N * S, 3 * D, D, EPI_F32)
+    att = torch.empty((N * S, D), dtype=torch.bfloat16, device=x.device)
+    kv_out = None
+    if emit_kv:
+        kv_out = (torch.empty_like(x), torch.empty_like(x))
+    build.launch(
+        "gtax_attn_temporal", qkv.data_ptr(), rope_freqs.data_ptr(),
+        None if k_ctx is None else k_ctx.data_ptr(),
+        None if v_ctx is None else v_ctx.data_ptr(), att.data_ptr(),
+        None if kv_out is None else kv_out[0].data_ptr(),
+        None if kv_out is None else kv_out[1].data_ptr(),
+        B, n_q, q_off, S, D, num_heads, bits, _stream(x))
+    out = torch.empty_like(x)
+    launch_gemm(att, out_w, out, N * S, D, D, EPI_BIAS_GATED, bias=out_b,
+                resid=x, gate=gate, S=S)
+    return out if kv_out is None else (out, *kv_out)
+
+
+def fused_temporal_branch(x, shift, scale, gate, qkv_w, out_w, out_b,
+                          rope_freqs, valid, num_heads, n_frames,
+                          emit_kv=False):
+    """x: (N = B*T, S, D) frame-major token tiles; shift/scale/gate:
+    (N, D); rope_freqs: (T, head_dim) temporal table; valid: (T,) bools or
+    None. Returns x + gate * TemporalCausalAttention(modulate(LN(x))), and
+    with emit_kv also the post-rope K and cast V rows (N, S, D) — the
+    context cache fused_temporal_step reads.
+
+    Replaces gtax/kernels/block.py fused_temporal_branch (pallas_call at
+    :687, body _temporal_kernel :253, core _temporal_attention_core :297,
+    mask temporal_preamble :615). On the card: ln_mod -> gemm (fp32 qkv)
+    -> attn_temporal (full window, optional K/V store) -> gemm (gated
+    residual): 4 launches. Bound: weight bytes."""
+    if x.device.type == "cpu":
+        return temporal_branch_plain(x, shift, scale, gate, qkv_w, out_w,
+                                     out_b, rope_freqs, valid, num_heads,
+                                     n_frames, emit_kv)
+    N, S, D = _check_branch(x, shift, scale, gate)
+    _need(N % n_frames == 0,
+          lambda: f"N={N} is not a multiple of T={n_frames}")
+    out = _temporal_cuda(x, shift, scale, gate, qkv_w, out_w, out_b,
+                         rope_freqs, num_heads, N // n_frames, n_frames, 0,
+                         valid_bits(valid, n_frames), emit_kv=emit_kv)
+    fused_temporal_branch.launches += 1
+    return out
+
+
+fused_temporal_branch.launches = 0
+
+
+def fused_temporal_step(x, shift, scale, gate, qkv_w, out_w, out_b, k_ctx,
+                        v_ctx, rope_freqs, valid, num_heads, n_ctx,
+                        n_live=1):
+    """Incremental temporal branch: x (B*n_live, S, D) = the live frames'
+    tokens at window slots n_ctx..n_ctx+n_live-1; k_ctx/v_ctx
+    (B*n_ctx*S, D) post-rope cache (fused_temporal_branch emit_kv);
+    rope_freqs (T, head_dim), T = n_ctx + n_live; valid (T,) or None.
+    Returns x + gate * CausalAttention_liveslots(modulate(LN(x))).
+
+    Replaces gtax/kernels/block.py fused_temporal_step (pallas_call at
+    :518/:548, body _temporal_step_kernel :463, core _temporal_step_core
+    :364). On the card: ln_mod -> gemm (fp32 qkv) -> attn_temporal (step
+    mode over the cache) -> gemm (gated residual): 4 launches. Bound:
+    weight bytes; the context cache adds ~1.2 MB per batch element."""
+    if x.device.type == "cpu":
+        return temporal_step_plain(x, shift, scale, gate, qkv_w, out_w,
+                                   out_b, k_ctx, v_ctx, rope_freqs, valid,
+                                   num_heads, n_ctx, n_live)
+    N, S, D = _check_branch(x, shift, scale, gate)
+    _need(N % n_live == 0,
+          lambda: f"N={N} is not a multiple of n_live={n_live}")
+    B = N // n_live
+    _need(n_ctx >= 1, lambda: "the step needs at least one context frame")
+    for name, t in (("k_ctx", k_ctx), ("v_ctx", v_ctx)):
+        _check_mat(name, t, (B * n_ctx * S, D))
+    out = _temporal_cuda(x, shift, scale, gate, qkv_w, out_w, out_b,
+                         rope_freqs, num_heads, B, n_live, n_ctx,
+                         valid_bits(valid, n_ctx + n_live), k_ctx, v_ctx)
+    fused_temporal_step.launches += 1
+    return out
+
+
+fused_temporal_step.launches = 0

@@ -1,0 +1,136 @@
+"""Build the port's CUDA kernels with nvcc and bind them with ctypes.
+
+The sources are `gtax_torch/csrc/*.cu` (plus the shared `*.cuh` headers).
+Each `.cu` file has a plain C interface, so no PyTorch header is compiled:
+every source goes to its own `nvcc -c` process, all started together, and
+one `nvcc -shared` links the objects into `libgtax_kernels.so`. The library
+lands in `gtax_torch/_build/<hash>/`, keyed by a hash of the sources and the
+flags, so an unchanged checkout builds once and a changed source rebuilds.
+The build runs at first use, inside the first wrapper call that launches a
+kernel (or `library()` called directly); a missing nvcc or a failed build
+raises.
+
+C entry points take pointers and the stream as `c_void_p` and sizes as
+`c_int`, and return `cudaGetLastError()`; `launch` raises on a nonzero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+LIB_NAME = "libgtax_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point -> argument types (see the GTAX_ENTRY functions in csrc/)
+SIGNATURES = {
+    # x, out, p0, p1, rows, D, S, p_stride, mode, stream
+    "gtax_ln_mod": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # A, B, C, bias, bias_f32, resid, gate, gate_stride, M, N, K, S, epi,
+    # stream
+    "gtax_gemm_bf16": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P),
+    # qkv, qkv_f32, freqs, out, n_frames, S, D, num_heads, rot, stream
+    "gtax_attn_frame": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _P),
+    # qkv, freqs, k_ctx, v_ctx, out, k_out, v_out, B, n_q, q_off, S, D,
+    # num_heads, valid_mask, stream
+    "gtax_attn_temporal": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _P),
+}
+
+_lib = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found (PATH or /usr/local/cuda/bin): the port's CUDA "
+        "kernels cannot be built")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/*.cu into the shared library unless the current
+    sources were built already; returns the library path."""
+    out = BUILD_DIR / _digest() / LIB_NAME
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_DIR))
+    try:
+        extra = ("-Xptxas", "-v") if verbose else ()
+        procs = []
+        for src in sources():
+            obj = tmp / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for src, _, proc in procs:
+            log, _ = proc.communicate()
+            if verbose and log:
+                print(f"[nvcc {src.name}]\n{log}")
+            if proc.returncode:
+                failed.append(f"{src.name}:\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        lib = tmp / LIB_NAME
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
+             *(str(obj) for _, obj, _ in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        out.parent.mkdir(parents=True, exist_ok=True)
+        os.replace(lib, out)  # atomic: concurrent builders race safely
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def library():
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call one C entry point; raise if it reports a CUDA error."""
+    rc = getattr(library(), name)(*args)
+    if rc:
+        raise RuntimeError(f"{name}: CUDA error {rc}")

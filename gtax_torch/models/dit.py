@@ -1,0 +1,354 @@
+"""Spatiotemporal DiT latent video denoiser (counterpart of
+gtax/models/dit.py), serving layout only.
+
+Blocks are a per-block list (gtax's unstacked serving layout); the port has
+no stacked `scan` layout. Every block branch goes through the fused-branch
+wrappers of gtax_torch.kernels.block, which launch the CUDA kernels for
+CUDA tensors and run their plain versions for CPU tensors.
+
+Parameter dict (float32 masters; Linear kernels are (in, out)):
+  patch_embed {kernel,bias}
+  t_embedder  {fc1{kernel,bias}, fc2{kernel,bias}}
+  external_cond {kernel,bias}               (iff external_cond_dim > 0)
+  spatial_rope_freqs  (head_dim//4,)   temporal_rope_freqs (head_dim//2,)
+  blocks: list of {s_adaln, t_adaln {kernel,bias} (D -> 6D),
+                   s_attn, t_attn {qkv{kernel}, out{kernel,bias}},
+                   s_mlp, t_mlp {fc1{kernel,bias}, fc2{kernel,bias}}}
+  final {adaln{kernel,bias}, linear{kernel,bias}}
+
+`valid` (the window's slot mask) is a (T,) bool sequence or CPU tensor, or
+None; per-batch (B, T) masks are not part of this slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from gtax_torch.core import rope
+from gtax_torch.kernels.block import (
+    fused_mlp_branch,
+    fused_spatial_branch,
+    fused_temporal_branch,
+    fused_temporal_step,
+)
+from gtax_torch.nn.layers import (
+    layer_norm,
+    linear,
+    modulate,
+    patchify_embed,
+    timestep_embedder,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class DiTConfig:
+    input_h: int = 18
+    input_w: int = 32
+    patch_size: int = 2
+    in_channels: int = 16
+    hidden_size: int = 1024
+    depth: int = 16
+    num_heads: int = 16
+    mlp_ratio: float = 4.0
+    external_cond_dim: int = 25
+    max_frames: int = 5
+
+    @property
+    def grid_h(self) -> int:
+        return self.input_h // self.patch_size
+
+    @property
+    def grid_w(self) -> int:
+        return self.input_w // self.patch_size
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def mlp_hidden(self) -> int:
+        return int(self.hidden_size * self.mlp_ratio)
+
+
+def dit_init(cfg: DiTConfig, generator: torch.Generator, device="cpu"):
+    """Initialise DiT params like gtax dit_init (reference
+    initialize_weights): linears normal(0.02) with zero bias, t_embedder
+    normal(0.01), adaLN heads ZERO (every block starts as the identity),
+    final adaLN normal(0.01), final linear normal(0.001). Random numbers come
+    from `generator`; they are not JAX's."""
+    D, H4, H6 = cfg.hidden_size, cfg.mlp_hidden, 6 * cfg.hidden_size
+    p, C = cfg.patch_size, cfg.in_channels
+
+    def lin(din, dout, std=0.02, bias=True, zero=False):
+        if zero:
+            w = torch.zeros((din, dout), device=device)
+        else:
+            w = torch.randn((din, dout), generator=generator,
+                            device=device) * std
+        prm = {"kernel": w}
+        if bias:
+            prm["bias"] = torch.zeros((dout,), device=device)
+        return prm
+
+    def branch():
+        return {
+            "adaln": lin(D, H6, zero=True),
+            "attn": {"qkv": lin(D, 3 * D, bias=False), "out": lin(D, D)},
+            "mlp": {"fc1": lin(D, H4), "fc2": lin(H4, D)},
+        }
+
+    blocks = []
+    for _ in range(cfg.depth):
+        s, t = branch(), branch()
+        blocks.append({
+            "s_adaln": s["adaln"], "s_attn": s["attn"], "s_mlp": s["mlp"],
+            "t_adaln": t["adaln"], "t_attn": t["attn"], "t_mlp": t["mlp"],
+        })
+    params = {
+        "patch_embed": lin(C * p * p, D),
+        "t_embedder": {"fc1": lin(256, D, std=0.01),
+                       "fc2": lin(D, D, std=0.01)},
+        "spatial_rope_freqs": rope.pixel_freqs(cfg.head_dim // 2,
+                                               max_freq=256.0).to(device),
+        "temporal_rope_freqs": rope.lang_freqs(cfg.head_dim).to(device),
+        "blocks": blocks,
+        "final": {"adaln": lin(D, 2 * D, std=0.01),
+                  "linear": lin(D, p * p * C, std=0.001)},
+    }
+    if cfg.external_cond_dim > 0:
+        params["external_cond"] = lin(cfg.external_cond_dim, D)
+    return params
+
+
+def _map_params(params, fn, path=()):
+    if isinstance(params, dict):
+        return {k: _map_params(v, fn, path + (k,)) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [_map_params(v, fn, path + (i,)) for i, v in enumerate(params)]
+    return fn(path, params)
+
+
+def cast_params_for_inference(params, dtype=torch.bfloat16):
+    """Pre-cast every floating weight to the compute dtype once for serving;
+    the rotary frequency tables stay fp32 (their phases would not survive
+    bf16)."""
+
+    def cast(path, leaf):
+        if path[-1] in ("spatial_rope_freqs", "temporal_rope_freqs"):
+            return leaf
+        return leaf.to(dtype) if leaf.is_floating_point() else leaf
+
+    return _map_params(params, cast)
+
+
+def params_to(params, device):
+    """Move every tensor of a param dict to `device`."""
+    return _map_params(params, lambda _, leaf: leaf.to(device))
+
+
+def _rope_tables(params, cfg: DiTConfig, T: int):
+    """(spatial (S, head_dim), temporal (T, head_dim)) fp32 tables."""
+    gh, gw = cfg.grid_h, cfg.grid_w
+    spatial = rope.axial_freqs(params["spatial_rope_freqs"].float(),
+                               (gh, gw), pixel=True).reshape(gh * gw, -1)
+    temporal = rope.temporal_rope_freqs(
+        torch.arange(T, device=params["temporal_rope_freqs"].device),
+        params["temporal_rope_freqs"])
+    return spatial.contiguous(), temporal.contiguous()
+
+
+def _embed(params, cfg, x, compute_dtype):
+    """Patch-embed (B, T, C, H, W) latents into (B*T, S, D) tokens."""
+    B, T, C, H, W = x.shape
+    h = patchify_embed(params["patch_embed"], x.reshape(B * T, C, H, W),
+                       cfg.patch_size, compute_dtype)
+    return h.reshape(B * T, cfg.grid_h * cfg.grid_w, cfg.hidden_size)
+
+
+def _split6(m, rows, D):
+    """(B, T, 6D) adaLN head output -> six (rows, D) views."""
+    return [a.reshape(rows, D) for a in m.split(D, dim=-1)]
+
+
+def _mlp(mp, h, sh, sc, g):
+    return fused_mlp_branch(h, sh, sc, g, mp["fc1"]["kernel"],
+                            mp["fc1"]["bias"], mp["fc2"]["kernel"],
+                            mp["fc2"]["bias"])
+
+
+def _spatial_pair(bp, h, m, rows, D, freqs, num_heads):
+    """Spatial attention + spatial MLP of one block."""
+    sh1, sc1, g1, sh2, sc2, g2 = _split6(m, rows, D)
+    ap = bp["s_attn"]
+    h = fused_spatial_branch(h, sh1, sc1, g1, ap["qkv"]["kernel"],
+                             ap["out"]["kernel"], ap["out"]["bias"], freqs,
+                             num_heads)
+    return _mlp(bp["s_mlp"], h, sh2, sc2, g2)
+
+
+def _cast_weights(bp, dtype):
+    """A block's GEMM weights in the compute dtype; returns bp itself once
+    cast_params_for_inference ran (the serving path)."""
+    if bp["s_attn"]["qkv"]["kernel"].dtype == dtype:
+        return bp
+    return _map_params(
+        bp, lambda path, leaf: leaf.to(dtype) if path[-1] == "kernel"
+        else leaf)
+
+
+def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
+              valid=None, compute_dtype=torch.bfloat16, mods=None):
+    """Full-window forward. x: (B, T, C, H, W) latents; t: (B, T) integer
+    noise levels; external_cond: optional (B, T, action_dim); valid:
+    optional (T,) mask of real frames. With `mods` (dit_cond output) the
+    adaLN heads are skipped and t/external_cond are ignored. Returns the
+    v-prediction, x's shape, float32."""
+    B, T = x.shape[:2]
+    D = cfg.hidden_size
+    if mods is None:
+        mods = dit_cond(params, cfg, t, external_cond, compute_dtype)
+    spatial, temporal = _rope_tables(params, cfg, T)
+    h = _embed(params, cfg, x, compute_dtype)
+    rows = B * T
+    for bp, m in zip(params["blocks"], mods["blocks"]):
+        bp = _cast_weights(bp, compute_dtype)
+        h = _spatial_pair(bp, h, m["s"], rows, D, spatial, cfg.num_heads)
+        th1, tc1, tg1, th2, tc2, tg2 = _split6(m["t"], rows, D)
+        ap = bp["t_attn"]
+        h = fused_temporal_branch(h, th1, tc1, tg1, ap["qkv"]["kernel"],
+                                  ap["out"]["kernel"], ap["out"]["bias"],
+                                  temporal, valid, cfg.num_heads, T)
+        h = _mlp(bp["t_mlp"], h, th2, tc2, tg2)
+    return _dit_head(params, cfg, h, mods["final"], B, T, compute_dtype)
+
+
+def _dit_head(params, cfg, h, final_mods, B, T, compute_dtype):
+    """FinalLayer + unpatchify (patch features ordered (ph, pw, channel))."""
+    gh, gw, p, C = cfg.grid_h, cfg.grid_w, cfg.patch_size, cfg.in_channels
+    shift, scale = final_mods.chunk(2, dim=-1)
+    h = h.reshape(B, T, gh, gw, cfg.hidden_size)
+    h = modulate(layer_norm(h), shift, scale)
+    h = linear(params["final"]["linear"], h, compute_dtype)
+    h = h.reshape(B, T, gh, gw, p, p, C).permute(0, 1, 6, 2, 4, 3, 5)
+    return h.reshape(B, T, C, gh * p, gw * p).float()
+
+
+def dit_cond(params, cfg: DiTConfig, t, external_cond=None,
+             compute_dtype=torch.bfloat16):
+    """Every conditioning-derived tensor of the forward: per block the
+    spatial/temporal adaLN head outputs, plus the FinalLayer adaLN.
+    t: (B, T) int; external_cond: optional (B, T, A). Returns
+    {"blocks": [{"s", "t"}: (B, T, 6D)], "final": (B, T, 2D)} in the
+    compute dtype."""
+    B, T = t.shape
+    c = timestep_embedder(params["t_embedder"], t.reshape(B * T),
+                          compute_dtype=compute_dtype)
+    c = c.reshape(B, T, cfg.hidden_size)
+    if external_cond is not None:
+        c = c + linear(params["external_cond"], external_cond, compute_dtype)
+    h = F.silu(c.float()).to(compute_dtype)
+    blocks = [{"s": linear(bp["s_adaln"], h, compute_dtype),
+               "t": linear(bp["t_adaln"], h, compute_dtype)}
+              for bp in params["blocks"]]
+    return {"blocks": blocks,
+            "final": linear(params["final"]["adaln"], h, compute_dtype)}
+
+
+def dit_prefill(params, cfg: DiTConfig, x_ctx, mods, valid_ctx,
+                compute_dtype=torch.bfloat16):
+    """Context prefill for incremental decoding: the blocks over the Tc
+    context frames only, returning each block's post-rope temporal (K, V)
+    rows, (B*Tc*S, D) in the compute dtype (the temporal branch's emit_kv
+    output)."""
+    B, Tc = x_ctx.shape[:2]
+    D, S = cfg.hidden_size, cfg.grid_h * cfg.grid_w
+    spatial, temporal = _rope_tables(params, cfg, Tc)
+    h = _embed(params, cfg, x_ctx, compute_dtype)
+    rows = B * Tc
+    kv = []
+    for bp, m in zip(params["blocks"], mods["blocks"]):
+        bp = _cast_weights(bp, compute_dtype)
+        h = _spatial_pair(bp, h, m["s"], rows, D, spatial, cfg.num_heads)
+        th1, tc1, tg1, th2, tc2, tg2 = _split6(m["t"], rows, D)
+        ap = bp["t_attn"]
+        h, kk, vv = fused_temporal_branch(
+            h, th1, tc1, tg1, ap["qkv"]["kernel"], ap["out"]["kernel"],
+            ap["out"]["bias"], temporal, valid_ctx, cfg.num_heads, Tc,
+            emit_kv=True)
+        kv.append((kk.reshape(B * Tc * S, D), vv.reshape(B * Tc * S, D)))
+        h = _mlp(bp["t_mlp"], h, th2, tc2, tg2)
+    return kv
+
+
+def dit_apply_step(params, cfg: DiTConfig, x_last, kv_cache, mods, valid,
+                   compute_dtype=torch.bfloat16):
+    """Incremental forward: only the window's last Tl slots through the
+    stack, temporal attention reading the prefilled context K/V. x_last:
+    (B, Tl, C, H, W); kv_cache: dit_prefill output; mods: dit_cond output
+    for the live rows; valid: full-window (T,) mask or None. Returns the
+    live frames' v-prediction, (B, Tl, C, H, W) float32."""
+    B, Tl = x_last.shape[:2]
+    D, T = cfg.hidden_size, cfg.max_frames
+    n_ctx = T - Tl
+    spatial, temporal = _rope_tables(params, cfg, T)
+    h = _embed(params, cfg, x_last, compute_dtype)
+    rows = B * Tl
+    for bp, m, (k_ctx, v_ctx) in zip(params["blocks"], mods["blocks"],
+                                     kv_cache):
+        bp = _cast_weights(bp, compute_dtype)
+        h = _spatial_pair(bp, h, m["s"], rows, D, spatial, cfg.num_heads)
+        th1, tc1, tg1, th2, tc2, tg2 = _split6(m["t"], rows, D)
+        ap = bp["t_attn"]
+        h = fused_temporal_step(h, th1, tc1, tg1, ap["qkv"]["kernel"],
+                                ap["out"]["kernel"], ap["out"]["bias"],
+                                k_ctx, v_ctx, temporal, valid, cfg.num_heads,
+                                n_ctx, n_live=Tl)
+        h = _mlp(bp["t_mlp"], h, th2, tc2, tg2)
+    return _dit_head(params, cfg, h, mods["final"], B, Tl, compute_dtype)
+
+
+def make_cond_fns(cfg: DiTConfig, compute_dtype=torch.bfloat16):
+    """(cond_fn, apply_fn) for the rollout's conditioning cache."""
+
+    def cond_fn(params, t, a):
+        return dit_cond(params, cfg, t, a, compute_dtype)
+
+    def apply_fn(params, x, mods, valid):
+        return dit_apply(params, cfg, x, valid=valid,
+                         compute_dtype=compute_dtype, mods=mods)
+
+    return cond_fn, apply_fn
+
+
+def make_incremental_fns(cfg: DiTConfig, compute_dtype=torch.bfloat16):
+    """(prefill_fn, step_fn) for the rollout's incremental decoding."""
+
+    def prefill_fn(params, x_ctx, mods_ctx, valid_ctx):
+        return dit_prefill(params, cfg, x_ctx, mods_ctx, valid_ctx,
+                           compute_dtype)
+
+    def step_fn(params, x_last, kv_cache, mods_last, valid):
+        return dit_apply_step(params, cfg, x_last, kv_cache, mods_last,
+                              valid, compute_dtype)
+
+    return prefill_fn, step_fn
+
+
+def DiT_S_2() -> DiTConfig:
+    """Flagship config, ~0.67B params."""
+    return DiTConfig(input_h=18, input_w=32, patch_size=2, hidden_size=1024,
+                     depth=16, num_heads=16, max_frames=5,
+                     external_cond_dim=25)
+
+
+def DiT_debug() -> DiTConfig:
+    """Tiny preset (pairs with 'vae-debug': latent 8ch on a 6x8 grid)."""
+    return DiTConfig(input_h=6, input_w=8, patch_size=2, in_channels=8,
+                     hidden_size=64, depth=2, num_heads=2, max_frames=5,
+                     external_cond_dim=25)
+
+
+DiT_MODELS = {"DiT-S/2": DiT_S_2, "DiT-debug": DiT_debug}

@@ -1,0 +1,211 @@
+"""Serving API: load checkpoints once, generate videos in one call
+(counterpart of gtax/serving.py).
+
+    from gtax_torch.serving import ServingConfig, VideoGenerator
+
+    gen = VideoGenerator.load("dit.safetensors", "vit-l-20.safetensors")
+    frames = gen.generate(prompt_frames, actions, num_frames=32, seed=0)
+    # frames: (B, num_frames, H, W, 3) uint8 numpy
+
+Defaults reproduce the reference sampling scheme exactly (stabilization 15,
+window 5, DDIM over noise_steps + 1) on the fused kernels with the
+conditioning cache and incremental decoding on. The generator runs on the
+card (`cuda`, in bf16) unless the caller passes device="cpu".
+
+Only this slice's options run: quantize="none", pipeline_depth=1,
+attn_broadcast=1, mesh_data = mesh_model = 1, aot_dir=None, unstack=True
+and the fused/fused_all backends. Any other value raises
+NotImplementedError (ROADMAP.md queues them).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from gtax_torch.io import safetensors_port as port
+from gtax_torch.models import dit as dit_mod
+from gtax_torch.models import vae as vae_mod
+from gtax_torch.sampling.diffusion import SamplerConfig, make_rollout
+from gtax_torch.train.trainer import decode_frames, encode_frames
+from gtax_torch.utils.platform import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    """Serving knobs, the same fields as gtax's."""
+    dtype: str = "bfloat16"
+    attention_backend: str = "fused"   # fused | fused_all (this slice)
+    quantize: str = "none"
+    unstack: bool = True
+    cond_cache: bool = True            # bit-exact adaLN trajectory precompute
+    incremental: bool = True           # context K/V prefill + last-frame steps
+    pipeline_depth: int = 1
+    attn_broadcast: int = 1
+    noise_steps: int = 100
+    mesh_data: int = 1
+    mesh_model: int = 1
+    # decode at most this many frames per VAE call (bounds decoder memory
+    # for long rollouts; the same output either way — the VAE is per frame)
+    decode_chunk: int | None = None
+    aot_dir: str | None = None
+    dit_model: str = "DiT-S/2"
+    vae_model: str = "vit-l-20-shallow-encoder"
+
+
+def _check_slice(cfg: ServingConfig) -> None:
+    unsupported = {
+        "quantize": (cfg.quantize, "none"),
+        "pipeline_depth": (cfg.pipeline_depth, 1),
+        "attn_broadcast": (cfg.attn_broadcast, 1),
+        "mesh_data": (cfg.mesh_data, 1),
+        "mesh_model": (cfg.mesh_model, 1),
+        "aot_dir": (cfg.aot_dir, None),
+        "unstack": (cfg.unstack, True),
+    }
+    for name, (value, allowed) in unsupported.items():
+        if value != allowed:
+            raise NotImplementedError(
+                f"ServingConfig.{name}={value!r} is not ported yet (only "
+                f"{allowed!r}); see ROADMAP.md")
+    if cfg.attention_backend not in ("fused", "fused_all"):
+        raise NotImplementedError(
+            f"attention_backend={cfg.attention_backend!r} is not ported yet "
+            "(fused / fused_all); see ROADMAP.md")
+    if cfg.dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"dtype must be bfloat16 or float32, got "
+                         f"{cfg.dtype!r}")
+
+
+def _to(a, device) -> torch.Tensor:
+    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+    return t.to(device)
+
+
+class VideoGenerator:
+    """Holds prepared params and the rollout."""
+
+    def __init__(self, dit_params, vae_params, cfg: ServingConfig =
+                 ServingConfig(), device=None):
+        _check_slice(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dit_cfg = dit_mod.DiT_MODELS[cfg.dit_model]()
+        self.vae_cfg = vae_mod.VAE_MODELS[cfg.vae_model]()
+        dtype = getattr(torch, cfg.dtype)
+        if self.device.type == "cuda" and dtype != torch.bfloat16:
+            raise NotImplementedError(
+                "the CUDA kernels compute in bfloat16; float32 runs only on "
+                "device='cpu'")
+        self._dtype = dtype
+        dit_params = dit_mod.params_to(dit_params, self.device)
+        vae_params = dit_mod.params_to(vae_params, self.device)
+        if dtype != torch.float32:
+            dit_params = dit_mod.cast_params_for_inference(dit_params, dtype)
+            vae_params = vae_mod.cast_params_for_inference(vae_params, dtype)
+        self.dit_params = dit_params
+        self.vae_params = vae_params
+
+        sampler = SamplerConfig(ddim_noise_steps=cfg.noise_steps,
+                                stabilization_level=15,
+                                schedule_clamp_min=1e-4)
+
+        def dit_fn(params, x, t, a, valid):
+            return dit_mod.dit_apply(params, self.dit_cfg, x, t, a, valid,
+                                     compute_dtype=dtype)
+
+        cond = incremental = None
+        if cfg.cond_cache:
+            cond = dit_mod.make_cond_fns(self.dit_cfg, dtype)
+            if cfg.incremental:
+                incremental = dit_mod.make_incremental_fns(self.dit_cfg,
+                                                           dtype)
+        self._rollout = make_rollout(dit_fn, self.dit_cfg.max_frames,
+                                     sampler, cond=cond,
+                                     incremental=incremental)
+        # stage timings of the most recent generate() call, seconds
+        self.last_timings = {}
+
+    @classmethod
+    def load(cls, dit_path: str, vae_path: str,
+             cfg: ServingConfig = ServingConfig(), device=None):
+        """Load reference-format safetensors checkpoints, or random weights
+        for an empty path (seeded: DiT 0, VAE 1)."""
+        dev = resolve_device(device)
+        dit_cfg = dit_mod.DiT_MODELS[cfg.dit_model]()
+        vae_cfg = vae_mod.VAE_MODELS[cfg.vae_model]()
+        if dit_path:
+            dit_params = port.load_dit(dit_path, dit_cfg)
+        else:
+            gen = torch.Generator(device=dev).manual_seed(0)
+            dit_params = dit_mod.dit_init(dit_cfg, gen, dev)
+        if vae_path:
+            vae_params = port.load_vae(vae_path, vae_cfg)
+        else:
+            gen = torch.Generator(device=dev).manual_seed(1)
+            vae_params = vae_mod.vae_init(vae_cfg, gen, dev)
+        return cls(dit_params, vae_params, cfg, dev)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _decode(self, lat):
+        """VAE-decode latents to uint8 pixels, in frame chunks when
+        cfg.decode_chunk is set."""
+        chunk = self.cfg.decode_chunk
+        T = lat.shape[1]
+        if chunk is None or chunk >= T:
+            return decode_frames(self.vae_params, self.vae_cfg, lat,
+                                 self._dtype)
+        return torch.cat([decode_frames(self.vae_params, self.vae_cfg,
+                                        lat[:, i:i + chunk], self._dtype)
+                          for i in range(0, T, chunk)], dim=1)
+
+    def generate(self, prompt_frames, actions=None, num_frames: int = 32,
+                 seed: int = 0, noise=None):
+        """prompt_frames: (B, T0, 3, H, W) float in [0, 1] (or (T0, 3, H,
+        W) for B=1); actions: (B, num_frames, 25) or None; noise: optional
+        pre-drawn (B, num_frames - T0, C, h, w) fresh-frame latents.
+        Returns (B, num_frames, H, W, 3) uint8 numpy pixels; num_frames
+        counts prompt + generated frames."""
+        dev = self.device
+        video = _to(prompt_frames, dev)
+        if video.dim() == 4:
+            video = video[None]
+        B, n_prompt = video.shape[:2]
+        if num_frames <= n_prompt:
+            raise ValueError(f"num_frames={num_frames} must exceed the "
+                             f"{n_prompt} prompt frames (it counts prompt + "
+                             "generated)")
+        if actions is not None:
+            actions = _to(actions, dev).float()
+            if actions.dim() == 2:
+                actions = actions[None]
+            if actions.shape[1] < num_frames:
+                raise ValueError(f"need actions for all {num_frames} frames")
+        if noise is not None:
+            noise = _to(noise, dev).float()
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            latents = encode_frames(self.vae_params, self.vae_cfg, video,
+                                    self._dtype)
+            self._sync()
+            t1 = time.perf_counter()
+            lat = self._rollout(self.dit_params, latents, actions, generator,
+                                num_gen_frames=num_frames - n_prompt,
+                                noise=noise)
+            self._sync()
+            t2 = time.perf_counter()
+            pix = self._decode(lat)
+            self._sync()
+            t3 = time.perf_counter()
+            pixels = pix.cpu().numpy()
+            t4 = time.perf_counter()
+        self.last_timings = {"encode_s": t1 - t0, "rollout_s": t2 - t1,
+                             "decode_s": t3 - t2, "fetch_s": t4 - t3}
+        return pixels

@@ -1,0 +1,154 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU with nvcc (sm_90a) and skips without
+one. The file imports neither JAX nor gtax, so it also runs where JAX is
+not installed:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+Inputs are full-width DiT-S/2 and ViT-L/20 shapes at two frames per call.
+Both sides compute in bf16 with fp32 accumulation; they differ only in
+summation order, which can flip a bf16 rounding of an intermediate or of
+the output. Tolerance: 2**-6 of the output's largest magnitude (four bf16
+ulps at the top of its range).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gtax_torch.core import rope
+from gtax_torch.kernels import block, vae_block
+
+D, H, HD = 1024, 16, 64
+S_DIT, S_VAE = 144, 576
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from gtax_torch.utils.platform import strict_matmul
+
+    strict_matmul()
+    return torch.device("cuda")
+
+
+def _rand(gen, shape, std=1.0, dtype=torch.bfloat16, device="cuda"):
+    a = gen.standard_normal(shape).astype(np.float32) * std
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+def _close(got, ref):
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = 2.0**-6 * max(1.0, ref.float().abs().max().item())
+    assert torch.isfinite(got.float()).all()
+    assert err <= tol, (err, tol)
+    return err
+
+
+def _branch_inputs(gen, N, S):
+    x = _rand(gen, (N, S, D))
+    mods = _rand(gen, (N, 6 * D), 0.5)  # split views, as dit_cond gives
+    shift, scale, gate = mods[:, :D], mods[:, D:2 * D], mods[:, 2 * D:3 * D]
+    return x, shift, scale, gate
+
+
+def _spatial_freqs():
+    f = rope.axial_freqs(rope.pixel_freqs(HD // 2, 256.0), (9, 16),
+                         pixel=True)
+    return f.reshape(S_DIT, HD).cuda()
+
+
+def _temporal_freqs(T):
+    return rope.temporal_rope_freqs(torch.arange(T),
+                                    rope.lang_freqs(HD)).cuda()
+
+
+def test_spatial_branch_kernel(cuda):
+    gen = np.random.default_rng(0)
+    x, sh, sc, g = _branch_inputs(gen, 2, S_DIT)
+    qkv_w, out_w = _rand(gen, (D, 3 * D), 0.02), _rand(gen, (D, D), 0.02)
+    out_b = _rand(gen, (D,), 0.02)
+    f = _spatial_freqs()
+    before = block.fused_spatial_branch.launches
+    got = block.fused_spatial_branch(x, sh, sc, g, qkv_w, out_w, out_b, f, H)
+    torch.cuda.synchronize()
+    assert block.fused_spatial_branch.launches == before + 1
+    _close(got, block.spatial_branch_plain(x, sh, sc, g, qkv_w, out_w, out_b,
+                                           f, H))
+
+
+def test_mlp_branch_kernel(cuda):
+    gen = np.random.default_rng(1)
+    x, sh, sc, g = _branch_inputs(gen, 2, S_DIT)
+    w1, w2 = _rand(gen, (D, 4 * D), 0.02), _rand(gen, (4 * D, D), 0.02)
+    b1, b2 = _rand(gen, (4 * D,), 0.02), _rand(gen, (D,), 0.02)
+    got = block.fused_mlp_branch(x, sh, sc, g, w1, b1, w2, b2)
+    _close(got, block.mlp_branch_plain(x, sh, sc, g, w1, b1, w2, b2))
+
+
+@pytest.mark.parametrize("valid", [None, [False, True, True, True, True]])
+def test_temporal_branch_kernel_emit_kv(cuda, valid):
+    gen = np.random.default_rng(2)
+    T = 5
+    x, sh, sc, g = _branch_inputs(gen, 2 * T, S_DIT)
+    qkv_w, out_w = _rand(gen, (D, 3 * D), 0.02), _rand(gen, (D, D), 0.02)
+    out_b = _rand(gen, (D,), 0.02, torch.float32)
+    f = _temporal_freqs(T)
+    args = (x, sh, sc, g, qkv_w, out_w, out_b, f, valid, H, T)
+    got = block.fused_temporal_branch(*args, emit_kv=True)
+    ref = block.temporal_branch_plain(*args, emit_kv=True)
+    for a, b in zip(got, ref):
+        _close(a, b)
+    _close(block.fused_temporal_branch(*args), ref[0])
+
+
+def test_temporal_step_kernel(cuda):
+    gen = np.random.default_rng(3)
+    B, n_ctx = 2, 4
+    x, sh, sc, g = _branch_inputs(gen, B, S_DIT)
+    qkv_w, out_w = _rand(gen, (D, 3 * D), 0.02), _rand(gen, (D, D), 0.02)
+    out_b = _rand(gen, (D,), 0.02)
+    k_ctx = _rand(gen, (B * n_ctx * S_DIT, D))
+    v_ctx = _rand(gen, (B * n_ctx * S_DIT, D))
+    valid = torch.tensor([False, False, True, True, True])
+    args = (x, sh, sc, g, qkv_w, out_w, out_b, k_ctx, v_ctx,
+            _temporal_freqs(n_ctx + 1), valid, H, n_ctx)
+    _close(block.fused_temporal_step(*args),
+           block.temporal_step_plain(*args))
+
+
+def test_vae_block_kernel(cuda):
+    gen = np.random.default_rng(4)
+    x = _rand(gen, (2, S_VAE, D))
+    ones = torch.ones(D, device="cuda")
+    ln = [ones + _rand(gen, (D,), 0.1, torch.float32),
+          _rand(gen, (D,), 0.1, torch.float32)] * 2
+    f = rope.axial_freqs(rope.pixel_freqs(HD // 4, 576.0), (18, 32),
+                         pixel=True).reshape(S_VAE, HD // 2).cuda()
+    args = (x, ln[0], ln[1], _rand(gen, (D, 3 * D), 0.03),
+            _rand(gen, (3 * D,), 0.02, torch.float32),
+            _rand(gen, (D, D), 0.03), _rand(gen, (D,), 0.02, torch.float32),
+            ln[2], ln[3], _rand(gen, (D, 4 * D), 0.03),
+            _rand(gen, (4 * D,), 0.02, torch.float32),
+            _rand(gen, (4 * D, D), 0.02),
+            _rand(gen, (D,), 0.02, torch.float32), f, H)
+    _close(vae_block.fused_vae_block(*args), vae_block.vae_block_plain(*args))
+
+
+def test_wrappers_reject_what_kernels_do_not_take(cuda):
+    gen = np.random.default_rng(5)
+    x, sh, sc, g = _branch_inputs(gen, 1, S_DIT)
+    w1 = _rand(gen, (D, 4 * D), 0.02)
+    b1 = _rand(gen, (4 * D,), 0.02)
+    w2, b2 = _rand(gen, (4 * D, D), 0.02), _rand(gen, (D,), 0.02)
+    with pytest.raises(ValueError, match="bf16"):
+        block.fused_mlp_branch(x.float(), sh, sc, g, w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="MLP width"):
+        block.fused_mlp_branch(x, sh, sc, g, w1[:, :96], b1[:96], w2[:96],
+                               b2)
+    qkv_w, out_w = _rand(gen, (D, 3 * D), 0.02), _rand(gen, (D, D), 0.02)
+    with pytest.raises(ValueError, match="head dim"):
+        block.fused_spatial_branch(x, sh, sc, g, qkv_w, out_w, b2,
+                                   _spatial_freqs(), 4)

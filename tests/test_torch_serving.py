@@ -1,0 +1,168 @@
+"""The slice as a whole: gtax_torch VideoGenerator.generate against gtax's,
+debug presets, fp32, on the CPU, with the same weights (weight bridge) and
+the same injected noise (torch and JAX draw different random numbers, so
+rollouts are compared only with injected noise, never by seed).
+
+Tolerances: pixels may differ by 1 LSB (fp32 summation order can move a
+value across a uint8 truncation boundary); latents within 1e-4 (fp32
+summation-order differences through three DDIM steps of a small DiT)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gtax import serving as jserving
+from gtax.kernels import attention as kattn
+from gtax.models import vae as jvae
+from gtax_torch import serving
+from gtax_torch.io import safetensors_port as port
+from tests.conftest import assert_close
+from tests.test_torch_models import _gtax_debug_params
+
+torch.set_num_threads(2)
+
+KW = dict(dtype="float32", noise_steps=3, dit_model="DiT-debug",
+          vae_model="vae-debug")
+N_FRAMES = 6
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode():
+    kattn.set_interpret(True)
+    yield
+    kattn.set_interpret(None)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(gtax generator, port generator) over the same weights."""
+    kattn.set_interpret(True)
+    _, jdit_params = _gtax_debug_params()
+    jv = jvae.vae_init(jax.random.PRNGKey(1), jvae.VAE_debug())
+    jv = jax.tree.map(lambda l: np.asarray(l + 0.01 if l.ndim == 1 else l),
+                      jv)
+    jgen = jserving.VideoGenerator(
+        jax.tree.map(jnp.asarray, jdit_params),
+        jax.tree.map(jnp.asarray, jv), jserving.ServingConfig(**KW))
+    gen = serving.VideoGenerator(
+        port.dit_from_gtax(jdit_params), port.vae_from_gtax(jv),
+        serving.ServingConfig(**KW), device="cpu")
+    return jgen, gen
+
+
+def _inputs(n_prompt, seed=0, B=1):
+    rng = np.random.default_rng(seed)
+    prompt = rng.random((B, n_prompt, 3, 48, 64), np.float32)
+    noise = rng.standard_normal(
+        (B, N_FRAMES - n_prompt, 8, 6, 8)).astype(np.float32)
+    acts = rng.standard_normal((B, N_FRAMES, 25)).astype(np.float32)
+    return prompt, noise, acts
+
+
+@pytest.mark.parametrize("n_prompt", [4, 2])
+def test_generate_matches_gtax(pair, n_prompt):
+    """n_prompt=2 leaves two padded slots in the first window (valid
+    mask)."""
+    jgen, gen = pair
+    prompt, noise, acts = _inputs(n_prompt)
+    ref = jgen.generate(prompt, acts, num_frames=N_FRAMES,
+                        noise=jnp.asarray(noise))
+    got = gen.generate(prompt, acts, num_frames=N_FRAMES, noise=noise)
+    assert got.shape == ref.shape == (1, N_FRAMES, 48, 64, 3)
+    assert got.dtype == np.uint8
+    assert np.abs(got.astype(np.int32) - ref.astype(np.int32)).max() <= 1
+
+
+def test_rollout_latents_match_gtax(pair):
+    jgen, gen = pair
+    prompt, noise, acts = _inputs(3, seed=1)
+    lat = np.array(jgen._encode(jgen.vae_params, jnp.asarray(prompt)))
+    ref = jgen._rollout(jgen.dit_params, jnp.asarray(lat), jnp.asarray(acts),
+                        jax.random.PRNGKey(0),
+                        num_gen_frames=N_FRAMES - 3,
+                        noise=jnp.asarray(noise))
+    got = gen._rollout(gen.dit_params, torch.from_numpy(lat),
+                       torch.from_numpy(acts), None, N_FRAMES - 3,
+                       noise=torch.from_numpy(noise))
+    assert_close(got, np.asarray(ref), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["full_window", "no_cond_cache"])
+def test_incremental_equals_full_window(pair, mode):
+    _, gen = pair
+    prompt, noise, acts = _inputs(2, seed=2)
+    cfg = (dict(incremental=False) if mode == "full_window"
+           else dict(cond_cache=False))
+    other = serving.VideoGenerator(
+        gen.dit_params, gen.vae_params,
+        dataclasses.replace(gen.cfg, **cfg), device="cpu")
+    lat = torch.randn(1, 2, 8, 6, 8, generator=torch.Generator().manual_seed(0))
+    a = gen._rollout(gen.dit_params, lat, torch.from_numpy(acts), None,
+                     N_FRAMES - 2, noise=torch.from_numpy(noise))
+    b = other._rollout(gen.dit_params, lat, torch.from_numpy(acts), None,
+                       N_FRAMES - 2, noise=torch.from_numpy(noise))
+    assert_close(a, b, atol=1e-5)
+
+
+def test_seeded_rollout_and_decode_chunk(pair):
+    _, gen = pair
+    prompt, _, _ = _inputs(4, seed=3, B=2)
+    a = gen.generate(prompt, num_frames=N_FRAMES, seed=5)
+    b = gen.generate(prompt, num_frames=N_FRAMES, seed=5)
+    np.testing.assert_array_equal(a, b)
+    assert set(gen.last_timings) == {"encode_s", "rollout_s", "decode_s",
+                                     "fetch_s"}
+    chunked = serving.VideoGenerator(
+        gen.dit_params, gen.vae_params,
+        dataclasses.replace(gen.cfg, decode_chunk=4), device="cpu")
+    np.testing.assert_array_equal(
+        chunked.generate(prompt, num_frames=N_FRAMES, seed=5), a)
+
+
+def test_generate_validates_inputs(pair):
+    _, gen = pair
+    prompt, _, _ = _inputs(4)
+    with pytest.raises(ValueError, match="actions"):
+        gen.generate(prompt, np.zeros((1, 3, 25), np.float32),
+                     num_frames=N_FRAMES)
+    with pytest.raises(ValueError, match="exceed"):
+        gen.generate(prompt, num_frames=4)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("quantize", "int8"), ("pipeline_depth", 2), ("attn_broadcast", 2),
+    ("mesh_data", 2), ("mesh_model", 2), ("aot_dir", "x"),
+    ("unstack", False), ("attention_backend", "xla")])
+def test_unported_options_raise(field, value):
+    cfg = serving.ServingConfig(**KW, **{field: value})
+    with pytest.raises(NotImplementedError, match=field):
+        serving.VideoGenerator.load("", "", cfg, device="cpu")
+
+
+def test_load_without_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.VideoGenerator.load("", "", serving.ServingConfig(**KW))
+
+
+def test_cli_generate_cpu(tmp_path):
+    from PIL import Image
+
+    from gtax_torch.cli import generate as cli
+
+    img = tmp_path / "start.png"
+    Image.fromarray(np.random.default_rng(0).integers(
+        0, 255, (48, 64, 3), dtype=np.uint8)).save(img)
+    out = tmp_path / "v.mp4"
+    pixels = cli.main([
+        "--total-frames", "3", "--noise_steps", "2", "--dit_model",
+        "DiT-debug", "--vae_model", "vae-debug", "--dit_model_path", "",
+        "--vae_model_path", "", "--use_actions", "--start_frame", str(img),
+        "--output_path", str(out), "--dtype", "float32", "--seed", "0",
+        "--device", "cpu"])
+    assert pixels.shape == (1, 3, 48, 64, 3)
+    assert out.exists() and out.stat().st_size > 0
