@@ -7,7 +7,9 @@
 // _vae_block_kernel: bf16 qkv in, rope on the first `rot` dims of a head).
 // Rounding points follow the TPU kernels: rope in fp32, q/k/v cast to bf16,
 // scores and softmax in fp32, probabilities cast to bf16 before PV, fp32
-// PV, bf16 output.
+// PV, then a bf16 output, or the fp32 sums themselves for the int8 spatial
+// branch, which quantizes them unrounded (gtax/kernels/quant.py
+// _spatial_kernel_q).
 // Bound: operations (S^2 * d per head) at S = 576, bytes at S = 144. This
 // first version runs the two products on the fp32 pipes, one warp per query
 // row: each block stages the head's roped K and V once in shared memory
@@ -25,8 +27,8 @@ constexpr int kQTile = 64;
 template <int HD>
 __global__ void __launch_bounds__(kWarps * 32)
     attn_frame_kernel(const void* __restrict__ qkv, int qkv_f32,
-                      const float* __restrict__ freqs, bf16* __restrict__ out,
-                      int S, int D, int rot) {
+                      const float* __restrict__ freqs, void* __restrict__ out,
+                      int out_f32, int S, int D, int rot) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int KS = HD + 2;  // padded K row (bf16 elements)
   bf16* Ks = reinterpret_cast<bf16*>(smem);
@@ -102,7 +104,12 @@ __global__ void __launch_bounds__(kWarps * 32)
         a0 = fmaf(p, v.x, a0);
         a1 = fmaf(p, v.y, a1);
       }
-      store_pair(out, (row0 + r) * D + (size_t)h * HD + c, a0, a1);
+      const size_t o = (row0 + r) * D + (size_t)h * HD + c;
+      if (out_f32)
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
+            make_float2(a0, a1);
+      else
+        store_pair(static_cast<bf16*>(out), o, a0, a1);
     }
     __syncwarp();
   }
@@ -115,8 +122,8 @@ size_t smem_bytes(int S) {
 }
 
 template <int HD>
-int launch(const void* qkv, int qkv_f32, const float* freqs, bf16* out,
-           int n_frames, int S, int D, int rot, cudaStream_t st) {
+int launch(const void* qkv, int qkv_f32, const float* freqs, void* out,
+           int out_f32, int n_frames, int S, int D, int rot, cudaStream_t st) {
   const size_t smem = smem_bytes<HD>(S);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
@@ -126,18 +133,18 @@ int launch(const void* qkv, int qkv_f32, const float* freqs, bf16* out,
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((S + kQTile - 1) / kQTile, D / HD, n_frames);
-  attn_frame_kernel<HD><<<grid, kWarps * 32, smem, st>>>(qkv, qkv_f32, freqs,
-                                                         out, S, D, rot);
+  attn_frame_kernel<HD><<<grid, kWarps * 32, smem, st>>>(
+      qkv, qkv_f32, freqs, out, out_f32, S, D, rot);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // qkv: (n_frames * S, 3D) fp32 (qkv_f32 = 1) or bf16; freqs: (S, rot) fp32
-// rotary table; out: (n_frames * S, D) bf16, head h in columns
-// [h * hd, (h + 1) * hd).
+// rotary table; out: (n_frames * S, D) fp32 (out_f32 = 1) or bf16, head h
+// in columns [h * hd, (h + 1) * hd).
 GTAX_ENTRY gtax_attn_frame(const void* qkv, int qkv_f32, const void* freqs,
-                           void* out, int n_frames, int S, int D,
+                           void* out, int out_f32, int n_frames, int S, int D,
                            int num_heads, int rot, void* stream) {
   if (n_frames <= 0 || S <= 0 || num_heads <= 0 || D % num_heads ||
       rot < 0 || rot % 2)
@@ -145,13 +152,12 @@ GTAX_ENTRY gtax_attn_frame(const void* qkv, int qkv_f32, const void* freqs,
   const int hd = D / num_heads;
   if (rot > hd) return (int)cudaErrorInvalidValue;
   const float* f = static_cast<const float*>(freqs);
-  bf16* o = static_cast<bf16*>(out);
   cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
     case 32:
-      return launch<32>(qkv, qkv_f32, f, o, n_frames, S, D, rot, st);
+      return launch<32>(qkv, qkv_f32, f, out, out_f32, n_frames, S, D, rot, st);
     case 64:
-      return launch<64>(qkv, qkv_f32, f, o, n_frames, S, D, rot, st);
+      return launch<64>(qkv, qkv_f32, f, out, out_f32, n_frames, S, D, rot, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -12,7 +12,8 @@
 // Rounding: rope in fp32, q/k/v cast to bf16, fp32 scores and softmax,
 // probabilities cast to bf16, PV accumulated in fp32 (the TPU kernel
 // rounded each product and partial sum to bf16; the bf16 tolerance covers
-// the difference).
+// the difference), stored as bf16 or, for the int8 temporal branches that
+// quantize the attention output, as the fp32 sums.
 // Bound: bytes. A window holds at most 8 frames, so each site-head does at
 // most 36 length-d dot products; the kernel reads q/k/v once with
 // coalesced 8-byte lane loads and keeps everything else in registers.
@@ -28,8 +29,9 @@ __global__ void __launch_bounds__(kWarps * 32)
     attn_temporal_kernel(const float* __restrict__ qkv,
                          const float* __restrict__ freqs,
                          const bf16* __restrict__ k_ctx,
-                         const bf16* __restrict__ v_ctx, bf16* __restrict__ out,
-                         bf16* __restrict__ k_out, bf16* __restrict__ v_out,
+                         const bf16* __restrict__ v_ctx, void* __restrict__ out,
+                         int out_f32, bf16* __restrict__ k_out,
+                         bf16* __restrict__ v_out,
                          int B, int n_q, int q_off, int S, int D, int H,
                          int valid_mask) {
   constexpr int P = HD >= 64 ? HD / 64 : 1;  // dim pairs per lane
@@ -154,19 +156,24 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       const int c = 2 * lane + 64 * p;
-      if (c < HD) store_pair(out, o + c, acc[p].x, acc[p].y);
+      if (c >= HD) continue;
+      if (out_f32)
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + o + c) = acc[p];
+      else
+        store_pair(static_cast<bf16*>(out), o + c, acc[p].x, acc[p].y);
     }
   }
 }
 
 template <int HD>
 int launch(const float* qkv, const float* freqs, const bf16* kc,
-           const bf16* vc, bf16* out, bf16* ko, bf16* vo, int B, int n_q,
-           int q_off, int S, int D, int H, int valid_mask, cudaStream_t st) {
+           const bf16* vc, void* out, int out_f32, bf16* ko, bf16* vo, int B,
+           int n_q, int q_off, int S, int D, int H, int valid_mask,
+           cudaStream_t st) {
   const int units = B * S * H;
   attn_temporal_kernel<HD><<<(units + kWarps - 1) / kWarps, kWarps * 32, 0,
-                             st>>>(qkv, freqs, kc, vc, out, ko, vo, B, n_q,
-                                   q_off, S, D, H, valid_mask);
+                             st>>>(qkv, freqs, kc, vc, out, out_f32, ko, vo, B,
+                                   n_q, q_off, S, D, H, valid_mask);
   return (int)cudaGetLastError();
 }
 
@@ -176,13 +183,14 @@ int launch(const float* qkv, const float* freqs, const bf16* kc,
 // n_q query frames sitting at window slots q_off .. q_off + n_q - 1;
 // freqs: (q_off + n_q, hd) fp32 temporal rotary table;
 // k_ctx/v_ctx: (B * q_off * S, D) bf16 roped context cache (q_off > 0);
+// out: (B * n_q * S, D) fp32 (out_f32 = 1) or bf16;
 // k_out/v_out: optional (B * n_q * S, D) bf16 outputs of the roped K and
 // cast V (the context cache a prefill emits); valid_mask: bit j = slot j
 // holds a real frame.
 GTAX_ENTRY gtax_attn_temporal(const void* qkv, const void* freqs,
                               const void* k_ctx, const void* v_ctx, void* out,
-                              void* k_out, void* v_out, int B, int n_q,
-                              int q_off, int S, int D, int num_heads,
+                              int out_f32, void* k_out, void* v_out, int B,
+                              int n_q, int q_off, int S, int D, int num_heads,
                               int valid_mask, void* stream) {
   if (B <= 0 || n_q <= 0 || q_off < 0 || n_q + q_off > kMaxT || S <= 0 ||
       num_heads <= 0 || D % num_heads ||
@@ -193,20 +201,19 @@ GTAX_ENTRY gtax_attn_temporal(const void* qkv, const void* freqs,
   const float* f = static_cast<const float*>(freqs);
   const bf16* kc = static_cast<const bf16*>(k_ctx);
   const bf16* vc = static_cast<const bf16*>(v_ctx);
-  bf16* o = static_cast<bf16*>(out);
   bf16* ko = static_cast<bf16*>(k_out);
   bf16* vo = static_cast<bf16*>(v_out);
   cudaStream_t st = (cudaStream_t)stream;
   switch (D / num_heads) {
     case 32:
-      return launch<32>(q, f, kc, vc, o, ko, vo, B, n_q, q_off, S, D,
-                        num_heads, valid_mask, st);
+      return launch<32>(q, f, kc, vc, out, out_f32, ko, vo, B, n_q, q_off, S,
+                        D, num_heads, valid_mask, st);
     case 64:
-      return launch<64>(q, f, kc, vc, o, ko, vo, B, n_q, q_off, S, D,
-                        num_heads, valid_mask, st);
+      return launch<64>(q, f, kc, vc, out, out_f32, ko, vo, B, n_q, q_off, S,
+                        D, num_heads, valid_mask, st);
     case 128:
-      return launch<128>(q, f, kc, vc, o, ko, vo, B, n_q, q_off, S, D,
-                         num_heads, valid_mask, st);
+      return launch<128>(q, f, kc, vc, out, out_f32, ko, vo, B, n_q, q_off, S,
+                         D, num_heads, valid_mask, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -50,6 +50,39 @@ __device__ __forceinline__ void store_pair(bf16* base, size_t idx, float a,
   *reinterpret_cast<__nv_bfloat162*>(base + idx) = __floats2bfloat162_rn(a, b);
 }
 
+// A bias vector that is fp32 or bf16 in memory, as the wrapper was given it.
+__device__ __forceinline__ float load_bias(const void* bias, int bias_f32,
+                                           int n) {
+  return bias_f32 ? static_cast<const float*>(bias)[n]
+                  : bf2f(static_cast<const bf16*>(bias)[n]);
+}
+
+// 16-byte global -> shared copy; src_bytes < 16 zero-fills the rest (the
+// GEMMs' ragged M rows pass 0).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Dynamic symmetric int8 of a row (gtax/kernels/quant.py _quant_rows):
+// s = max(amax, 1e-12) * (1/127), q = round_half_even(a * (1/s)); a
+// reciprocal then a multiply, each rounded once (no contraction).
+__device__ __forceinline__ float int8_scale(float amax) {
+  return __fmul_rn(fmaxf(amax, 1e-12f), 1.0f / 127.0f);
+}
+__device__ __forceinline__ signed char int8_round(float v, float inv_scale) {
+  return (signed char)__float2int_rn(__fmul_rn(v, inv_scale));
+}
+
 // Rotary embedding of one interleaved pair (x[c], x[c+1]) in fp32:
 // x * cos + rotate_half(x) * sin, rotate_half(x)[c] = -x[c+1],
 // rotate_half(x)[c+1] = x[c] (gtax/core/rope.py rotate_half).

@@ -41,20 +41,6 @@ union Smem {
   float c[BM][BN + CPAD];
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // jax.nn.gelu(approximate=True): x * (0.5 * (1 + tanh(sqrt(2/pi) *
 // (x + 0.044715 * x^3))))
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -66,12 +52,6 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 // <= 1.5e-7), erff is exact to a few ulp
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
-}
-
-__device__ __forceinline__ float load_bias(const void* bias, int bias_f32,
-                                           int n) {
-  return bias_f32 ? static_cast<const float*>(bias)[n]
-                  : bf2f(static_cast<const bf16*>(bias)[n]);
 }
 
 template <int EPI>

@@ -1,0 +1,53 @@
+// Dynamic symmetric int8 quantization of fp32 rows, one scale per (row,
+// group of G columns): the activation side of the W8A8 GEMMs.
+//
+// Replaces the in-kernel _quant_rows calls of the TPU int8 branch kernels
+// (gtax/kernels/quant.py _quant_rows, called by _qdot on the attention
+// output with G = D, and by _mlp_kernel_q on each H-chunk of the GELU
+// output with G = the chunk width).
+// Bound: bytes. One fp32 read and one int8 write per element. One block
+// per (row, group) reduces the abs-max in shared memory and then re-reads
+// its G values (from L1) to round them.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+// block b quantizes group b % n_groups of row b / n_groups; scale[b] is its
+// scale, so scale is (rows, n_groups) row-major
+__global__ void __launch_bounds__(kThreads)
+    quant_rows_kernel(const float* __restrict__ a, signed char* __restrict__ q,
+                      float* __restrict__ scale, int G) {
+  __shared__ float red[kThreads / 32];
+  const size_t off = (size_t)blockIdx.x * G;  // groups tile the rows
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float m = 0.f;
+  for (int c = threadIdx.x; c < G; c += kThreads) m = fmaxf(m, fabsf(a[off + c]));
+  m = warp_max(m);
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
+  m = red[0];
+#pragma unroll
+  for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, red[w]);
+  const float sc = int8_scale(m);
+  const float inv = __fdiv_rn(1.0f, sc);
+  for (int c = threadIdx.x; c < G; c += kThreads)
+    q[off + c] = int8_round(a[off + c], inv);
+  if (threadIdx.x == 0) scale[blockIdx.x] = sc;
+}
+
+}  // namespace
+
+// a: (rows, cols) fp32 row-major; q: (rows, cols) int8; scale: (rows,
+// cols / G) fp32.
+GTAX_ENTRY gtax_quant_rows(const void* a, void* q, void* scale, int rows,
+                           int cols, int G, void* stream) {
+  if (rows <= 0 || cols <= 0 || G <= 0 || cols % G)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)rows * (unsigned)(cols / G);
+  quant_rows_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const float*>(a), static_cast<signed char*>(q),
+      static_cast<float*>(scale), G);
+  return (int)cudaGetLastError();
+}

@@ -16,7 +16,9 @@ Layout mappings (torch state_dict -> port), as in gtax:
 The weight bridge (`dit_from_gtax`, `vae_from_gtax`) takes gtax parameter
 pytrees as nested dicts of numpy arrays, with stacked (leading depth axis)
 or unstacked (list of per-block dicts) blocks, so that both frameworks
-compute the same function from the same weights.
+compute the same function from the same weights. A W8A8 tree (gtax
+quantize_for_inference) carries across too: its int8 "kernel_q" leaves stay
+int8, every float leaf (scales, biases) becomes fp32.
 """
 
 from __future__ import annotations
@@ -241,10 +243,15 @@ def load_vae(path: str, cfg, verbose: bool = True):
 # --------------------------------------------------------- weight bridge
 
 def _tree_to_torch(tree):
+    """Float leaves -> fp32 tensors; integer leaves (W8A8 "kernel_q") keep
+    their dtype."""
     if isinstance(tree, dict):
         return {k: _tree_to_torch(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_tree_to_torch(v) for v in tree]
+    a = np.asarray(tree)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.from_numpy(a.copy())
     return _f32(tree)
 
 

@@ -65,21 +65,27 @@ def gelu_tanh32(h: torch.Tensor) -> torch.Tensor:
         0.7978845608028654 * (h + 0.044715 * (h * h * h)))))
 
 
-def _modulated(x32, shift, scale, dtype):
-    """cast(LN(x) * (1 + scale + 1e-6) + shift), per-frame vectors."""
+def modulated32(x32, shift, scale):
+    """LN(x) * (1 + scale + 1e-6) + shift in fp32, per-frame vectors."""
     return (ln32(x32) * (1.0 + scale.float()[:, None] + MOD_EPS)
-            + shift.float()[:, None]).to(dtype)
+            + shift.float()[:, None])
 
 
-def attend_frames(q, k, v, dtype):
+def _modulated(x32, shift, scale, dtype):
+    return modulated32(x32, shift, scale).to(dtype)
+
+
+def attend_frames(q, k, v, dtype, out_dtype=None):
     """Non-causal attention per frame: q/k/v (N, S, H, d) in the compute
-    dtype -> (N, S, H, d) in the compute dtype. fp32 scores and softmax,
-    probabilities cast to the compute dtype before PV."""
+    dtype -> (N, S, H, d) in out_dtype (default: the compute dtype). fp32
+    scores and softmax, probabilities cast to the compute dtype before PV,
+    fp32 PV sums."""
     d = q.shape[-1]
     s = torch.einsum("nqhd,nkhd->nhqk", q.float(), k.float()) * (1.0 / d**0.5)
     e = torch.exp(s - s.amax(-1, keepdim=True))
     p = (e / e.sum(-1, keepdim=True)).to(dtype)
-    return torch.einsum("nhqk,nkhd->nqhd", p.float(), v.float()).to(dtype)
+    return torch.einsum("nhqk,nkhd->nqhd", p.float(), v.float()).to(
+        out_dtype or dtype)
 
 
 def valid_bits(valid, T: int) -> int:
@@ -105,16 +111,18 @@ def temporal_bias(valid, T: int, device) -> torch.Tensor:
     return torch.where(allow, 0.0, -1e30).float()
 
 
-def attend_temporal(q, k, v, bias, dtype):
+def attend_temporal(q, k, v, bias, dtype, out_dtype=None):
     """Causal attention across frames at each site: q (B, I, S, H, d)
     query frames, k/v (B, J, S, H, d) key frames in window-slot order,
-    bias (I, J) additive (its -1e30 entries zero the closed pairs)."""
+    bias (I, J) additive (its -1e30 entries zero the closed pairs). Output
+    in out_dtype (default: the compute dtype)."""
     d = q.shape[-1]
     s = (torch.einsum("bishd,bjshd->bshij", q.float(), k.float())
          * (1.0 / d**0.5) + bias)
     e = torch.exp(s - s.amax(-1, keepdim=True))
     p = (e / e.sum(-1, keepdim=True)).to(dtype)
-    return torch.einsum("bshij,bjshd->bishd", p.float(), v.float()).to(dtype)
+    return torch.einsum("bshij,bjshd->bishd", p.float(), v.float()).to(
+        out_dtype or dtype)
 
 
 # ------------------------------------------------------ plain branches
@@ -220,9 +228,12 @@ def _check_bias(name, b, n):
                   f"{n}, got {_desc(b)}")
 
 
-def launch_ln_mod(x, out, rows, D, S, mode, p0, p1, p_stride=0):
-    build.launch("gtax_ln_mod", x.data_ptr(), out.data_ptr(), p0.data_ptr(),
-                 p1.data_ptr(), rows, D, S, p_stride, mode, _stream(x))
+def launch_ln_mod(x, out, rows, D, S, mode, p0, p1, p_stride=0,
+                  row_scale=None):
+    build.launch("gtax_ln_mod", x.data_ptr(), out.data_ptr(),
+                 None if row_scale is None else row_scale.data_ptr(),
+                 p0.data_ptr(), p1.data_ptr(), rows, D, S, p_stride, mode,
+                 _stream(x))
 
 
 def launch_gemm(a, w, out, M, N, K, epi, bias=None, resid=None, gate=None,
@@ -237,9 +248,25 @@ def launch_gemm(a, w, out, M, N, K, epi, bias=None, resid=None, gate=None,
 
 
 def launch_attn_frame(qkv, freqs, out, n_frames, S, D, num_heads, rot):
+    """qkv and out are fp32 or bf16, as allocated."""
     build.launch("gtax_attn_frame", qkv.data_ptr(),
                  int(qkv.dtype == torch.float32), freqs.data_ptr(),
-                 out.data_ptr(), n_frames, S, D, num_heads, rot, _stream(qkv))
+                 out.data_ptr(), int(out.dtype == torch.float32), n_frames, S,
+                 D, num_heads, rot, _stream(qkv))
+
+
+def launch_attn_temporal(qkv, freqs, out, B, n_q, q_off, S, D, num_heads,
+                         bits, k_ctx=None, v_ctx=None, kv_out=None):
+    """qkv fp32; out fp32 or bf16, as allocated; kv_out an optional (K, V)
+    pair of bf16 outputs."""
+    build.launch(
+        "gtax_attn_temporal", qkv.data_ptr(), freqs.data_ptr(),
+        None if k_ctx is None else k_ctx.data_ptr(),
+        None if v_ctx is None else v_ctx.data_ptr(), out.data_ptr(),
+        int(out.dtype == torch.float32),
+        None if kv_out is None else kv_out[0].data_ptr(),
+        None if kv_out is None else kv_out[1].data_ptr(),
+        B, n_q, q_off, S, D, num_heads, bits, _stream(qkv))
 
 
 def _check_branch(x, shift, scale, gate, D_out=None):
@@ -352,29 +379,27 @@ def fused_mlp_branch(x, shift, scale, gate, w1, b1, w2, b2):
 fused_mlp_branch.launches = 0
 
 
+def check_temporal(D, num_heads, T, rope_freqs):
+    """The temporal attention kernel's limits; returns the head dim."""
+    d = _check_heads(D, num_heads, (32, 64, 128))
+    _need(T <= 8, lambda: f"window of {T} frames: the kernel takes at most 8")
+    _check_freqs(rope_freqs, T, d)
+    return d
+
+
 def _temporal_cuda(x, shift, scale, gate, qkv_w, out_w, out_b, rope_freqs,
                    num_heads, B, n_q, q_off, bits, k_ctx=None, v_ctx=None,
                    emit_kv=False):
     N, S, D = x.shape
-    d = _check_heads(D, num_heads, (32, 64, 128))
-    T = q_off + n_q
-    _need(T <= 8, lambda: f"window of {T} frames: the kernel takes at most 8")
+    check_temporal(D, num_heads, q_off + n_q, rope_freqs)
     _check_attn_weights(qkv_w, out_w, out_b, D)
-    _check_freqs(rope_freqs, T, d)
     mod = _modulate_cuda(x, shift, scale)
     qkv = torch.empty((N * S, 3 * D), dtype=torch.float32, device=x.device)
     launch_gemm(mod, qkv_w, qkv, N * S, 3 * D, D, EPI_F32)
     att = torch.empty((N * S, D), dtype=torch.bfloat16, device=x.device)
-    kv_out = None
-    if emit_kv:
-        kv_out = (torch.empty_like(x), torch.empty_like(x))
-    build.launch(
-        "gtax_attn_temporal", qkv.data_ptr(), rope_freqs.data_ptr(),
-        None if k_ctx is None else k_ctx.data_ptr(),
-        None if v_ctx is None else v_ctx.data_ptr(), att.data_ptr(),
-        None if kv_out is None else kv_out[0].data_ptr(),
-        None if kv_out is None else kv_out[1].data_ptr(),
-        B, n_q, q_off, S, D, num_heads, bits, _stream(x))
+    kv_out = (torch.empty_like(x), torch.empty_like(x)) if emit_kv else None
+    launch_attn_temporal(qkv, rope_freqs, att, B, n_q, q_off, S, D,
+                         num_heads, bits, k_ctx, v_ctx, kv_out)
     out = torch.empty_like(x)
     launch_gemm(att, out_w, out, N * S, D, D, EPI_BIAS_GATED, bias=out_b,
                 resid=x, gate=gate, S=S)

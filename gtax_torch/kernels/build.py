@@ -34,18 +34,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types (see the GTAX_ENTRY functions in csrc/)
 SIGNATURES = {
-    # x, out, p0, p1, rows, D, S, p_stride, mode, stream
-    "gtax_ln_mod": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, out, row_scale, p0, p1, rows, D, S, p_stride, mode, stream
+    "gtax_ln_mod": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # A, B, C, bias, bias_f32, resid, gate, gate_stride, M, N, K, S, epi,
     # stream
     "gtax_gemm_bf16": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                        _P),
-    # qkv, qkv_f32, freqs, out, n_frames, S, D, num_heads, rot, stream
-    "gtax_attn_frame": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _P),
-    # qkv, freqs, k_ctx, v_ctx, out, k_out, v_out, B, n_q, q_off, S, D,
-    # num_heads, valid_mask, stream
-    "gtax_attn_temporal": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _P),
+    # A, B, C, sa, group, ws, bias, bias_f32, resid, gate, gate_stride, M,
+    # N, K, S, epi, stream
+    "gtax_gemm_s8": (_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                     _I, _I, _P),
+    # a, q, scale, rows, cols, G, stream
+    "gtax_quant_rows": (_P, _P, _P, _I, _I, _I, _P),
+    # qkv, qkv_f32, freqs, out, out_f32, n_frames, S, D, num_heads, rot,
+    # stream
+    "gtax_attn_frame": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # qkv, freqs, k_ctx, v_ctx, out, out_f32, k_out, v_out, B, n_q, q_off,
+    # S, D, num_heads, valid_mask, stream
+    "gtax_attn_temporal": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _P),
 }
 
 _lib = None

@@ -1,0 +1,410 @@
+"""W8A8 (int8 weights x int8 activations) twins of the fused DiT branches:
+CUDA kernels on the card, plain PyTorch on the CPU.
+
+Counterpart of gtax/kernels/quant.py, serving only (the emit_train
+residuals wait for the training slice). The scheme is gtax's:
+  - weights: symmetric per-output-column int8 with fp32 scales, computed
+    once by `quantize_weight` (gtax_torch.models.dit.quantize_for_inference);
+  - activations: symmetric per-row int8, quantized dynamically from fp32
+    (`quant_rows`: s = max(amax, 1e-12) * (1/127), q = round_half_even(
+    a * (1/s)));
+  - products accumulate exactly in int32 and are dequantized as
+    (acc * s_row) * s_col before any bias.
+The LN/modulate output is quantized from fp32 (it is never cast to bf16 on
+this path), and so is the attention output. The MLP's GELU output is
+requantized per H-chunk (`_mlp_chunks`: 8 chunks of 512 at H=4096), so fc2
+sums its chunks in fp32, each scaled by its own per-row scale, in chunk
+order. Everything else (LN statistics, rope, softmax, the gated residual)
+rounds where the bf16 branches of gtax_torch.kernels.block round.
+
+The tensor's device picks the path, as in block.py: a CPU tensor gets the
+plain version (`*_q_plain`), a CUDA tensor gets the sm_90a kernels of
+gtax_torch/csrc (`ln_mod` int8 mode, `gemm_s8`, `quant_rows`, and the
+fp32-output modes of `attn_frame` / `attn_temporal`) or an exception.
+Each wrapper counts its kernel-launching calls in `launches`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gtax_torch.core.rope import apply_rotary_emb as rope
+from gtax_torch.kernels import block, build
+from gtax_torch.kernels.block import (
+    _check_bias,
+    _check_branch,
+    _check_freqs,
+    _check_heads,
+    _check_hidden,
+    _check_mat,
+    _need,
+    _stream,
+    attend_frames,
+    attend_temporal,
+    gelu_tanh32,
+    modulated32,
+    temporal_bias,
+    valid_bits,
+)
+
+F32, I8 = torch.float32, torch.int8
+LN_MOD_INT8 = 2  # csrc/ln_mod.cu mode
+
+# gemm_s8 epilogues (csrc/gemm_s8.cu)
+EPI_F32 = 0
+EPI_BIAS_GELU_F32 = 1
+EPI_BIAS_GATED = 2
+
+# int8 products summed in fp32 are exact while every partial sum stays an
+# integer below 2**24: at most 1040 terms of 127 * 127
+MAX_EXACT_K = (2**24 - 1) // (127 * 127)
+
+
+# ----------------------------------------------------------- plain parts
+
+def quantize_weight(w):
+    """Symmetric per-output-column int8: w ~= q * s, s: (..., 1, dout)
+    fp32, for (din, dout) kernels and stacked (L, din, dout) arrays."""
+    w32 = w.float()
+    amax = w32.abs().amax(dim=-2, keepdim=True)
+    s = amax.clamp_min(1e-12) / 127.0
+    return torch.round(w32 / s).to(I8), s
+
+
+def quant_rows(a32, group=None):
+    """Dynamic symmetric int8 of fp32 rows, one scale per `group` columns
+    (default: the whole row). Returns (q int8 of a32's shape, s fp32 of
+    shape (..., cols // group)) with a ~= q * s."""
+    cols = a32.shape[-1]
+    G = group or cols
+    a = a32.reshape(*a32.shape[:-1], cols // G, G)
+    s = a.abs().amax(-1, keepdim=True).clamp_min(1e-12) * (1.0 / 127.0)
+    q = torch.round(a * (1.0 / s)).to(I8)
+    return q.reshape(a32.shape), s.squeeze(-1)
+
+
+def mm_int(q, w_q):
+    """Exact int8 product as fp32 values: the operands' int8 values in fp32
+    with fp32 accumulation (exact up to MAX_EXACT_K terms; on the card it
+    needs strict_matmul, i.e. no TF32)."""
+    if q.shape[-1] > MAX_EXACT_K:
+        raise ValueError(f"K={q.shape[-1]} exceeds the exact fp32 range of "
+                         f"int8 products ({MAX_EXACT_K})")
+    return torch.matmul(q.float(), w_q.float())
+
+
+def qdot(a32, w_q, w_s):
+    """fp32 rows -> per-row int8 -> int8 product -> (acc * s_row) * s_col
+    (gtax/kernels/quant.py _qdot)."""
+    q, sa = quant_rows(a32)
+    return mm_int(q, w_q) * sa * w_s.reshape(-1)
+
+
+def _mlp_chunks(h: int) -> int:
+    """gtax's H split for the int8 MLP: the largest of 8, 4, 2 whose chunk
+    width is a multiple of 128, else 1 (gtax/kernels/quant.py
+    _mlp_chunks)."""
+    for nc in (8, 4, 2):
+        if h % nc == 0 and (h // nc) % 128 == 0:
+            return nc
+    return 1
+
+
+def _gated(x32, gate, y, dtype):
+    return (x32 + gate.float()[:, None] * y).to(dtype)
+
+
+# ------------------------------------------------------ plain branches
+
+def spatial_branch_q_plain(x, shift, scale, gate, qkv_q, qkv_s, out_q,
+                           out_s, out_b, rope_freqs, num_heads):
+    N, S, D = x.shape
+    dt, H = x.dtype, num_heads
+    x32 = x.float()
+    qkv = qdot(modulated32(x32, shift, scale), qkv_q, qkv_s)
+    q, k, v = (t.reshape(N, S, H, D // H) for t in qkv.split(D, dim=-1))
+    f = rope_freqs[:, None, :]
+    o = attend_frames(rope(f, q).to(dt), rope(f, k).to(dt), v.to(dt), dt, F32)
+    y = qdot(o.reshape(N, S, D), out_q, out_s) + out_b.float()
+    return _gated(x32, gate, y, dt)
+
+
+def mlp_branch_q_plain(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
+                       b2):
+    x32 = x.float()
+    Hd = w1_q.shape[-1]
+    nc = _mlp_chunks(Hd)
+    G = Hd // nc
+    h = qdot(modulated32(x32, shift, scale), w1_q, w1_s) + b1.float()
+    hq, hs = quant_rows(gelu_tanh32(h), G)
+    acc = torch.zeros_like(x32)
+    for c in range(nc):  # chunk order, as the TPU kernel's grid
+        cols = slice(c * G, (c + 1) * G)
+        acc = acc + mm_int(hq[..., cols], w2_q[cols]) * hs[..., c:c + 1]
+    y = acc * w2_s.reshape(-1) + b2.float()
+    return _gated(x32, gate, y, x.dtype)
+
+
+def temporal_branch_q_plain(x, shift, scale, gate, qkv_q, qkv_s, out_q,
+                            out_s, out_b, rope_freqs, valid, num_heads,
+                            n_frames, emit_kv=False):
+    N, S, D = x.shape
+    dt, H, T = x.dtype, num_heads, n_frames
+    B = N // T
+    x32 = x.float()
+    qkv = qdot(modulated32(x32, shift, scale), qkv_q, qkv_s)
+    q, k, v = (t.reshape(B, T, S, H, D // H) for t in qkv.split(D, dim=-1))
+    f = rope_freqs[None, :, None, None, :]
+    kr, vb = rope(f, k).to(dt), v.to(dt)
+    o = attend_temporal(rope(f, q).to(dt), kr, vb,
+                        temporal_bias(valid, T, x.device), dt, F32)
+    y = qdot(o.reshape(N, S, D), out_q, out_s) + out_b.float()
+    out = _gated(x32, gate, y, dt)
+    if emit_kv:
+        return out, kr.reshape(N, S, D), vb.reshape(N, S, D)
+    return out
+
+
+def temporal_step_q_plain(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
+                          out_b, k_ctx, v_ctx, rope_freqs, valid, num_heads,
+                          n_ctx, n_live=1):
+    N, S, D = x.shape
+    dt, H = x.dtype, num_heads
+    B, T = N // n_live, n_ctx + n_live
+    d = D // H
+    x32 = x.float()
+    qkv = qdot(modulated32(x32, shift, scale), qkv_q, qkv_s)
+    q, k, v = (t.reshape(B, n_live, S, H, d) for t in qkv.split(D, dim=-1))
+    f = rope_freqs[n_ctx:T][None, :, None, None, :]
+    keys = torch.cat([k_ctx.reshape(B, n_ctx, S, H, d).to(dt),
+                      rope(f, k).to(dt)], dim=1)
+    vals = torch.cat([v_ctx.reshape(B, n_ctx, S, H, d).to(dt), v.to(dt)],
+                     dim=1)
+    bias = temporal_bias(valid, T, x.device)[n_ctx:]
+    o = attend_temporal(rope(f, q).to(dt), keys, vals, bias, dt, F32)
+    y = qdot(o.reshape(N, S, D), out_q, out_s) + out_b.float()
+    return _gated(x32, gate, y, dt)
+
+
+# ------------------------------------------------------- kernel launches
+
+def _check_scale(name, s, n):
+    _need(s.is_cuda and s.dtype == F32 and s.numel() == n
+          and s.is_contiguous(),
+          lambda: f"{name} must be a contiguous CUDA fp32 tensor of {n} "
+                  f"scales, got {block._desc(s)}")
+
+
+def _check_qlinear(name, w_q, w_s, din, dout):
+    _check_mat(f"{name}_q", w_q, (din, dout), I8)
+    _check_scale(f"{name}_s", w_s, dout)
+
+
+def _check_attn_weights_q(qkv_q, qkv_s, out_q, out_s, out_b, D):
+    _check_qlinear("qkv", qkv_q, qkv_s, D, 3 * D)
+    _check_qlinear("out", out_q, out_s, D, D)
+    _check_bias("out_b", out_b, D)
+
+
+def _ln_mod_q(x, shift, scale):
+    """int8 LN/modulate rows of x and their fp32 scales, (N*S, 1)."""
+    N, S, D = x.shape
+    _need(shift.stride(0) == scale.stride(0),
+          lambda: "shift and scale must share a row stride")
+    q = torch.empty((N * S, D), dtype=I8, device=x.device)
+    s = torch.empty((N * S, 1), dtype=F32, device=x.device)
+    block.launch_ln_mod(x, q, N * S, D, S, LN_MOD_INT8, shift, scale,
+                        shift.stride(0), row_scale=s)
+    return q, s
+
+
+def _quant_rows_cuda(a, group):
+    rows, cols = a.shape
+    q = torch.empty((rows, cols), dtype=I8, device=a.device)
+    s = torch.empty((rows, cols // group), dtype=F32, device=a.device)
+    build.launch("gtax_quant_rows", a.data_ptr(), q.data_ptr(), s.data_ptr(),
+                 rows, cols, group, _stream(a))
+    return q, s
+
+
+def _gemm_s8(a, sa, w_q, w_s, out, epi, bias=None, resid=None, gate=None,
+             S=1):
+    """out = epilogue(dequant(a @ w_q)); sa (M, K // group) row-group
+    scales, the group width following from sa's shape."""
+    M, K = a.shape
+    group = K // sa.shape[1]
+    _need(group <= MAX_EXACT_K and group % 64 == 0,
+          lambda: f"int8 K group of {group}: must be a multiple of 64 and at "
+                  f"most {MAX_EXACT_K}")
+    build.launch(
+        "gtax_gemm_s8", a.data_ptr(), w_q.data_ptr(), out.data_ptr(),
+        sa.data_ptr(), group, w_s.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        int(bias is not None and bias.dtype == F32),
+        None if resid is None else resid.data_ptr(),
+        None if gate is None else gate.data_ptr(),
+        0 if gate is None else gate.stride(0), M, w_q.shape[1], K, S, epi,
+        _stream(a))
+
+
+def _qkv_cuda(x, shift, scale, qkv_q, qkv_s):
+    """fp32 qkv rows (N*S, 3D) of the int8 qkv product."""
+    mq, ms = _ln_mod_q(x, shift, scale)
+    qkv = torch.empty((mq.shape[0], qkv_q.shape[1]), dtype=F32,
+                      device=x.device)
+    _gemm_s8(mq, ms, qkv_q, qkv_s, qkv, EPI_F32)
+    return qkv
+
+
+def _out_cuda(att, x, gate, out_q, out_s, out_b):
+    """x + gate * (int8 out-projection of the fp32 attention rows + b)."""
+    aq, as_ = _quant_rows_cuda(att, att.shape[1])
+    out = torch.empty_like(x)
+    _gemm_s8(aq, as_, out_q, out_s, out, EPI_BIAS_GATED, bias=out_b, resid=x,
+             gate=gate, S=x.shape[1])
+    return out
+
+
+# ------------------------------------------------------------- wrappers
+
+def fused_spatial_branch_q(x, shift, scale, gate, qkv_q, qkv_s, out_q,
+                           out_s, out_b, rope_freqs, num_heads):
+    """int8 twin of block.fused_spatial_branch: qkv_q (D, 3D) / out_q (D, D)
+    int8 with per-column fp32 scales qkv_s / out_s ((1, n) or (n,)).
+
+    Replaces gtax/kernels/quant.py fused_spatial_branch_q (pallas_call at
+    :368, body _spatial_kernel_q :91). On the card: ln_mod (int8 + row
+    scales) -> gemm_s8 (fp32 qkv) -> attn_frame (fp32 out) -> quant_rows
+    -> gemm_s8 (+bias, gated residual): 5 launches. Bound: the 4 MB of
+    int8 qkv/out weights at the serving row counts (bytes)."""
+    if x.device.type == "cpu":
+        return spatial_branch_q_plain(x, shift, scale, gate, qkv_q, qkv_s,
+                                      out_q, out_s, out_b, rope_freqs,
+                                      num_heads)
+    N, S, D = _check_branch(x, shift, scale, gate)
+    _check_attn_weights_q(qkv_q, qkv_s, out_q, out_s, out_b, D)
+    d = _check_heads(D, num_heads, (32, 64))
+    _check_freqs(rope_freqs, S, d)
+    qkv = _qkv_cuda(x, shift, scale, qkv_q, qkv_s)
+    att = torch.empty((N * S, D), dtype=F32, device=x.device)
+    block.launch_attn_frame(qkv, rope_freqs, att, N, S, D, num_heads, d)
+    out = _out_cuda(att, x, gate, out_q, out_s, out_b)
+    fused_spatial_branch_q.launches += 1
+    return out
+
+
+fused_spatial_branch_q.launches = 0
+
+
+def fused_mlp_branch_q(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
+                       b2):
+    """int8 twin of block.fused_mlp_branch: w1_q (D, H), w2_q (H, D) int8
+    with per-column fp32 scales; tanh-GELU; the hidden activation
+    requantized per H-chunk (_mlp_chunks).
+
+    Replaces gtax/kernels/quant.py fused_mlp_branch_q (pallas_call at :530,
+    body _mlp_kernel_q :267). On the card: ln_mod (int8) -> gemm_s8 (+b1,
+    tanh-GELU, fp32) -> quant_rows (one scale per row and chunk) ->
+    gemm_s8 (K grouped by chunk, +b2, gated residual): 4 launches. Bound:
+    the 8 MB of int8 fc1/fc2 weights at serving row counts (bytes)."""
+    if x.device.type == "cpu":
+        return mlp_branch_q_plain(x, shift, scale, gate, w1_q, w1_s, b1,
+                                  w2_q, w2_s, b2)
+    N, S, D = _check_branch(x, shift, scale, gate)
+    Hd = w1_q.shape[-1]
+    _check_hidden(Hd)
+    _check_qlinear("w1", w1_q, w1_s, D, Hd)
+    _check_qlinear("w2", w2_q, w2_s, Hd, D)
+    _check_bias("b1", b1, Hd)
+    _check_bias("b2", b2, D)
+    mq, ms = _ln_mod_q(x, shift, scale)
+    h = torch.empty((N * S, Hd), dtype=F32, device=x.device)
+    _gemm_s8(mq, ms, w1_q, w1_s, h, EPI_BIAS_GELU_F32, bias=b1)
+    hq, hs = _quant_rows_cuda(h, Hd // _mlp_chunks(Hd))
+    out = torch.empty_like(x)
+    _gemm_s8(hq, hs, w2_q, w2_s, out, EPI_BIAS_GATED, bias=b2, resid=x,
+             gate=gate, S=S)
+    fused_mlp_branch_q.launches += 1
+    return out
+
+
+fused_mlp_branch_q.launches = 0
+
+
+def _temporal_q_cuda(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
+                     out_b, rope_freqs, num_heads, B, n_q, q_off, bits,
+                     k_ctx=None, v_ctx=None, emit_kv=False):
+    N, S, D = x.shape
+    block.check_temporal(D, num_heads, q_off + n_q, rope_freqs)
+    _check_attn_weights_q(qkv_q, qkv_s, out_q, out_s, out_b, D)
+    qkv = _qkv_cuda(x, shift, scale, qkv_q, qkv_s)
+    att = torch.empty((N * S, D), dtype=F32, device=x.device)
+    kv_out = (torch.empty_like(x), torch.empty_like(x)) if emit_kv else None
+    block.launch_attn_temporal(qkv, rope_freqs, att, B, n_q, q_off, S, D,
+                               num_heads, bits, k_ctx, v_ctx, kv_out)
+    out = _out_cuda(att, x, gate, out_q, out_s, out_b)
+    return out if kv_out is None else (out, *kv_out)
+
+
+def fused_temporal_branch_q(x, shift, scale, gate, qkv_q, qkv_s, out_q,
+                            out_s, out_b, rope_freqs, valid, num_heads,
+                            n_frames, emit_kv=False):
+    """int8 twin of block.fused_temporal_branch (same arguments, int8
+    weights with per-column scales); with emit_kv also the post-rope K and
+    cast V rows, the context cache fused_temporal_step_q reads.
+
+    Replaces gtax/kernels/quant.py fused_temporal_branch_q (pallas_call at
+    :427, body _temporal_kernel_q :127). On the card: ln_mod (int8) ->
+    gemm_s8 (fp32 qkv) -> attn_temporal (full window, fp32 out, optional
+    K/V store) -> quant_rows -> gemm_s8 (gated residual): 5 launches.
+    Bound: int8 weight bytes."""
+    if x.device.type == "cpu":
+        return temporal_branch_q_plain(x, shift, scale, gate, qkv_q, qkv_s,
+                                       out_q, out_s, out_b, rope_freqs,
+                                       valid, num_heads, n_frames, emit_kv)
+    N, S, D = _check_branch(x, shift, scale, gate)
+    _need(N % n_frames == 0,
+          lambda: f"N={N} is not a multiple of T={n_frames}")
+    out = _temporal_q_cuda(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
+                           out_b, rope_freqs, num_heads, N // n_frames,
+                           n_frames, 0, valid_bits(valid, n_frames),
+                           emit_kv=emit_kv)
+    fused_temporal_branch_q.launches += 1
+    return out
+
+
+fused_temporal_branch_q.launches = 0
+
+
+def fused_temporal_step_q(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
+                          out_b, k_ctx, v_ctx, rope_freqs, valid, num_heads,
+                          n_ctx, n_live=1):
+    """int8 twin of block.fused_temporal_step: the live frames' rows
+    against the cached post-rope context K/V (bf16, from
+    fused_temporal_branch_q emit_kv).
+
+    Replaces gtax/kernels/quant.py fused_temporal_step_q (pallas_call at
+    :216/:243, body _temporal_step_kernel_q :163). On the card: ln_mod
+    (int8) -> gemm_s8 (fp32 qkv) -> attn_temporal (step mode, fp32 out) ->
+    quant_rows -> gemm_s8 (gated residual): 5 launches. Bound: int8 weight
+    bytes; the bf16 context cache adds ~1.2 MB per batch element."""
+    if x.device.type == "cpu":
+        return temporal_step_q_plain(x, shift, scale, gate, qkv_q, qkv_s,
+                                     out_q, out_s, out_b, k_ctx, v_ctx,
+                                     rope_freqs, valid, num_heads, n_ctx,
+                                     n_live)
+    N, S, D = _check_branch(x, shift, scale, gate)
+    _need(N % n_live == 0,
+          lambda: f"N={N} is not a multiple of n_live={n_live}")
+    B = N // n_live
+    _need(n_ctx >= 1, lambda: "the step needs at least one context frame")
+    for name, t in (("k_ctx", k_ctx), ("v_ctx", v_ctx)):
+        _check_mat(name, t, (B * n_ctx * S, D))
+    out = _temporal_q_cuda(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
+                           out_b, rope_freqs, num_heads, B, n_live, n_ctx,
+                           valid_bits(valid, n_ctx + n_live), k_ctx, v_ctx)
+    fused_temporal_step_q.launches += 1
+    return out
+
+
+fused_temporal_step_q.launches = 0

@@ -3,8 +3,10 @@ gtax/models/dit.py), serving layout only.
 
 Blocks are a per-block list (gtax's unstacked serving layout); the port has
 no stacked `scan` layout. Every block branch goes through the fused-branch
-wrappers of gtax_torch.kernels.block, which launch the CUDA kernels for
-CUDA tensors and run their plain versions for CPU tensors.
+wrappers of gtax_torch.kernels.block, or of gtax_torch.kernels.quant for
+W8A8 params (quantize_for_inference), which launch the CUDA kernels for
+CUDA tensors and run their plain versions for CPU tensors. The int8
+branches run at every batch size: the port has no paired-branch kernel.
 
 Parameter dict (float32 masters; Linear kernels are (in, out)):
   patch_embed {kernel,bias}
@@ -15,6 +17,8 @@ Parameter dict (float32 masters; Linear kernels are (in, out)):
                    s_attn, t_attn {qkv{kernel}, out{kernel,bias}},
                    s_mlp, t_mlp {fc1{kernel,bias}, fc2{kernel,bias}}}
   final {adaln{kernel,bias}, linear{kernel,bias}}
+W8A8 params replace a block Linear's "kernel" by "kernel_q" (int8) and
+"scale" (fp32, (1, out)).
 
 `valid` (the window's slot mask) is a (T,) bool sequence or CPU tensor, or
 None; per-batch (B, T) masks are not part of this slice.
@@ -28,12 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from gtax_torch.core import rope
-from gtax_torch.kernels.block import (
-    fused_mlp_branch,
-    fused_spatial_branch,
-    fused_temporal_branch,
-    fused_temporal_step,
-)
+from gtax_torch.kernels import block, quant
 from gtax_torch.nn.layers import (
     layer_norm,
     linear,
@@ -134,14 +133,43 @@ def _map_params(params, fn, path=()):
 def cast_params_for_inference(params, dtype=torch.bfloat16):
     """Pre-cast every floating weight to the compute dtype once for serving;
     the rotary frequency tables stay fp32 (their phases would not survive
-    bf16)."""
+    bf16), and so do the scales of W8A8 params (the int8 kernels read
+    fp32), should the params be quantized already."""
 
     def cast(path, leaf):
-        if path[-1] in ("spatial_rope_freqs", "temporal_rope_freqs"):
+        if path[-1] in ("spatial_rope_freqs", "temporal_rope_freqs", "scale"):
             return leaf
         return leaf.to(dtype) if leaf.is_floating_point() else leaf
 
     return _map_params(params, cast)
+
+
+def quantize_for_inference(params):
+    """W8A8 serving params (gtax quantize_for_inference with its default
+    adaln=True): every block's qkv/out/fc1/fc2 kernel of both halves and its
+    two adaLN heads become {"kernel_q": int8, "scale": fp32 (1, out)} plus
+    the bias. The embedders and the final layer stay in the compute dtype.
+    Apply after cast_params_for_inference; the result serves inference
+    only, and quantizing it again changes nothing."""
+
+    def qlin(d):
+        if "kernel_q" in d:
+            return d
+        q, s = quant.quantize_weight(d["kernel"])
+        return {"kernel_q": q, "scale": s,
+                **({"bias": d["bias"]} if "bias" in d else {})}
+
+    def qblock(bp):
+        nbp = {k: dict(v) for k, v in bp.items()}
+        for half in ("s", "t"):
+            for name in ("qkv", "out"):
+                nbp[f"{half}_attn"][name] = qlin(bp[f"{half}_attn"][name])
+            for name in ("fc1", "fc2"):
+                nbp[f"{half}_mlp"][name] = qlin(bp[f"{half}_mlp"][name])
+            nbp[f"{half}_adaln"] = qlin(bp[f"{half}_adaln"])
+        return nbp
+
+    return dict(params, blocks=[qblock(bp) for bp in params["blocks"]])
 
 
 def params_to(params, device):
@@ -173,26 +201,41 @@ def _split6(m, rows, D):
     return [a.reshape(rows, D) for a in m.split(D, dim=-1)]
 
 
+def _attn_weights(ap):
+    """(W8A8?, the weight arguments of the attention branch wrappers):
+    (qkv, out, out_b) in the compute dtype, or (qkv_q, qkv_s, out_q, out_s,
+    out_b)."""
+    qkv, out = ap["qkv"], ap["out"]
+    if "kernel_q" in qkv:
+        return True, (qkv["kernel_q"], qkv["scale"], out["kernel_q"],
+                      out["scale"], out["bias"])
+    return False, (qkv["kernel"], out["kernel"], out["bias"])
+
+
 def _mlp(mp, h, sh, sc, g):
-    return fused_mlp_branch(h, sh, sc, g, mp["fc1"]["kernel"],
-                            mp["fc1"]["bias"], mp["fc2"]["kernel"],
-                            mp["fc2"]["bias"])
+    f1, f2 = mp["fc1"], mp["fc2"]
+    if "kernel_q" in f1:
+        return quant.fused_mlp_branch_q(
+            h, sh, sc, g, f1["kernel_q"], f1["scale"], f1["bias"],
+            f2["kernel_q"], f2["scale"], f2["bias"])
+    return block.fused_mlp_branch(h, sh, sc, g, f1["kernel"], f1["bias"],
+                                  f2["kernel"], f2["bias"])
 
 
 def _spatial_pair(bp, h, m, rows, D, freqs, num_heads):
     """Spatial attention + spatial MLP of one block."""
     sh1, sc1, g1, sh2, sc2, g2 = _split6(m, rows, D)
-    ap = bp["s_attn"]
-    h = fused_spatial_branch(h, sh1, sc1, g1, ap["qkv"]["kernel"],
-                             ap["out"]["kernel"], ap["out"]["bias"], freqs,
-                             num_heads)
+    q8, w = _attn_weights(bp["s_attn"])
+    fn = quant.fused_spatial_branch_q if q8 else block.fused_spatial_branch
+    h = fn(h, sh1, sc1, g1, *w, freqs, num_heads)
     return _mlp(bp["s_mlp"], h, sh2, sc2, g2)
 
 
 def _cast_weights(bp, dtype):
     """A block's GEMM weights in the compute dtype; returns bp itself once
-    cast_params_for_inference ran (the serving path)."""
-    if bp["s_attn"]["qkv"]["kernel"].dtype == dtype:
+    cast_params_for_inference ran (the serving path) or for W8A8 blocks."""
+    qkv = bp["s_attn"]["qkv"]
+    if "kernel_q" in qkv or qkv["kernel"].dtype == dtype:
         return bp
     return _map_params(
         bp, lambda path, leaf: leaf.to(dtype) if path[-1] == "kernel"
@@ -217,10 +260,10 @@ def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
         bp = _cast_weights(bp, compute_dtype)
         h = _spatial_pair(bp, h, m["s"], rows, D, spatial, cfg.num_heads)
         th1, tc1, tg1, th2, tc2, tg2 = _split6(m["t"], rows, D)
-        ap = bp["t_attn"]
-        h = fused_temporal_branch(h, th1, tc1, tg1, ap["qkv"]["kernel"],
-                                  ap["out"]["kernel"], ap["out"]["bias"],
-                                  temporal, valid, cfg.num_heads, T)
+        q8, w = _attn_weights(bp["t_attn"])
+        fn = (quant.fused_temporal_branch_q if q8
+              else block.fused_temporal_branch)
+        h = fn(h, th1, tc1, tg1, *w, temporal, valid, cfg.num_heads, T)
         h = _mlp(bp["t_mlp"], h, th2, tc2, tg2)
     return _dit_head(params, cfg, h, mods["final"], B, T, compute_dtype)
 
@@ -273,11 +316,11 @@ def dit_prefill(params, cfg: DiTConfig, x_ctx, mods, valid_ctx,
         bp = _cast_weights(bp, compute_dtype)
         h = _spatial_pair(bp, h, m["s"], rows, D, spatial, cfg.num_heads)
         th1, tc1, tg1, th2, tc2, tg2 = _split6(m["t"], rows, D)
-        ap = bp["t_attn"]
-        h, kk, vv = fused_temporal_branch(
-            h, th1, tc1, tg1, ap["qkv"]["kernel"], ap["out"]["kernel"],
-            ap["out"]["bias"], temporal, valid_ctx, cfg.num_heads, Tc,
-            emit_kv=True)
+        q8, w = _attn_weights(bp["t_attn"])
+        fn = (quant.fused_temporal_branch_q if q8
+              else block.fused_temporal_branch)
+        h, kk, vv = fn(h, th1, tc1, tg1, *w, temporal, valid_ctx,
+                       cfg.num_heads, Tc, emit_kv=True)
         kv.append((kk.reshape(B * Tc * S, D), vv.reshape(B * Tc * S, D)))
         h = _mlp(bp["t_mlp"], h, th2, tc2, tg2)
     return kv
@@ -301,11 +344,10 @@ def dit_apply_step(params, cfg: DiTConfig, x_last, kv_cache, mods, valid,
         bp = _cast_weights(bp, compute_dtype)
         h = _spatial_pair(bp, h, m["s"], rows, D, spatial, cfg.num_heads)
         th1, tc1, tg1, th2, tc2, tg2 = _split6(m["t"], rows, D)
-        ap = bp["t_attn"]
-        h = fused_temporal_step(h, th1, tc1, tg1, ap["qkv"]["kernel"],
-                                ap["out"]["kernel"], ap["out"]["bias"],
-                                k_ctx, v_ctx, temporal, valid, cfg.num_heads,
-                                n_ctx, n_live=Tl)
+        q8, w = _attn_weights(bp["t_attn"])
+        fn = quant.fused_temporal_step_q if q8 else block.fused_temporal_step
+        h = fn(h, th1, tc1, tg1, *w, k_ctx, v_ctx, temporal, valid,
+               cfg.num_heads, n_ctx, n_live=Tl)
         h = _mlp(bp["t_mlp"], h, th2, tc2, tg2)
     return _dit_head(params, cfg, h, mods["final"], B, Tl, compute_dtype)
 

@@ -1,5 +1,5 @@
 """Primitive layers as functions over parameter dicts (counterpart of
-gtax/nn/layers.py, bf16 and fp32 paths).
+gtax/nn/layers.py, bf16, fp32 and int8 paths).
 
 Conventions, as in gtax: parameters are float32 masters (or pre-cast for
 serving); activations flow in a compute dtype; GEMMs take compute-dtype
@@ -10,7 +10,8 @@ These products run outside the fused kernels (patch embed, embedders,
 adaLN heads, final layer, the VAE's patch/quant/predictor layers), where
 gtax left them to XLA; here they go to torch.matmul on fp32 views of the
 compute-dtype operands, which keeps the fp32 accumulation exact on the
-card (platform.strict_matmul).
+card (platform.strict_matmul). The int8 adaLN heads of the W8A8 serving
+mode take the same route: gtax leaves them to XLA, not to a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -20,11 +21,21 @@ import math
 import torch
 import torch.nn.functional as F
 
+from gtax_torch.kernels import quant
+
 
 def linear(params, x, compute_dtype=torch.bfloat16):
-    """y = x @ kernel + bias, cast to the compute dtype."""
-    kernel = params["kernel"].to(compute_dtype)
-    y = torch.matmul(x.to(compute_dtype).float(), kernel.float())
+    """y = x @ kernel + bias, cast to the compute dtype.
+
+    W8A8 params (gtax_torch.models.dit.quantize_for_inference) carry an int8
+    "kernel_q" with per-column fp32 "scale": x is quantized per row from
+    fp32, the int8 product is exact (quant.mm_int) and dequantized as
+    (acc * s_row) * s_col, as gtax/nn/layers.py linear does."""
+    if "kernel_q" in params:
+        y = quant.qdot(x.float(), params["kernel_q"], params["scale"])
+    else:
+        kernel = params["kernel"].to(compute_dtype)
+        y = torch.matmul(x.to(compute_dtype).float(), kernel.float())
     if "bias" in params:
         y = y + params["bias"].float()
     return y.to(compute_dtype)

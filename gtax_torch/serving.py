@@ -12,7 +12,9 @@ window 5, DDIM over noise_steps + 1) on the fused kernels with the
 conditioning cache and incremental decoding on. The generator runs on the
 card (`cuda`, in bf16) unless the caller passes device="cpu".
 
-Only this slice's options run: quantize="none", pipeline_depth=1,
+quantize="int8" serves W8A8 params (quantize_for_inference, after the
+cast) through the int8 kernels of gtax_torch.kernels.quant. Only the
+options ported so far run: quantize "none" or "int8", pipeline_depth=1,
 attn_broadcast=1, mesh_data = mesh_model = 1, aot_dir=None, unstack=True
 and the fused/fused_all backends. Any other value raises
 NotImplementedError (ROADMAP.md queues them).
@@ -57,8 +59,11 @@ class ServingConfig:
 
 
 def _check_slice(cfg: ServingConfig) -> None:
+    if cfg.quantize not in ("none", "int8"):
+        raise NotImplementedError(
+            f"ServingConfig.quantize={cfg.quantize!r} is not ported (only "
+            "'none' and 'int8'); see ROADMAP.md")
     unsupported = {
-        "quantize": (cfg.quantize, "none"),
         "pipeline_depth": (cfg.pipeline_depth, 1),
         "attn_broadcast": (cfg.attn_broadcast, 1),
         "mesh_data": (cfg.mesh_data, 1),
@@ -106,6 +111,8 @@ class VideoGenerator:
         if dtype != torch.float32:
             dit_params = dit_mod.cast_params_for_inference(dit_params, dtype)
             vae_params = vae_mod.cast_params_for_inference(vae_params, dtype)
+        if cfg.quantize == "int8":
+            dit_params = dit_mod.quantize_for_inference(dit_params)
         self.dit_params = dit_params
         self.vae_params = vae_params
 

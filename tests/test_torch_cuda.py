@@ -10,7 +10,10 @@ Inputs are full-width DiT-S/2 and ViT-L/20 shapes at two frames per call.
 Both sides compute in bf16 with fp32 accumulation; they differ only in
 summation order, which can flip a bf16 rounding of an intermediate or of
 the output. Tolerance: 2**-6 of the output's largest magnitude (four bf16
-ulps at the top of its range).
+ulps at the top of its range). The int8 branches (W8A8) are held to the
+same bound: there the summation order can also flip an int8 rounding of
+an activation, which moves its row's outputs by less than that. Their
+int8 parts (quant_rows, the grouped int8 GEMM) agree bit for bit.
 """
 
 import numpy as np
@@ -18,7 +21,7 @@ import pytest
 import torch
 
 from gtax_torch.core import rope
-from gtax_torch.kernels import block, vae_block
+from gtax_torch.kernels import block, quant, vae_block
 
 D, H, HD = 1024, 16, 64
 S_DIT, S_VAE = 144, 576
@@ -152,3 +155,91 @@ def test_wrappers_reject_what_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         block.fused_spatial_branch(x, sh, sc, g, qkv_w, out_w, b2,
                                    _spatial_freqs(), 4)
+
+
+# ------------------------------------------------------------ int8 (W8A8)
+
+def _qweight(gen, shape, std):
+    return quant.quantize_weight(_rand(gen, shape, std))
+
+
+def test_int8_parts_bit_equal(cuda):
+    """quant_rows and the K-grouped int8 GEMM (fc2's form: 8 groups of
+    512) against the plain versions, bit for bit."""
+    gen = np.random.default_rng(10)
+    a = _rand(gen, (2 * S_DIT, 4 * D), 1.0, torch.float32)
+    q, s = quant._quant_rows_cuda(a, 512)
+    pq, ps = quant.quant_rows(a, 512)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    w_q, w_s = _qweight(gen, (4 * D, D), 0.02)
+    out = torch.empty((2 * S_DIT, D), dtype=torch.float32, device="cuda")
+    quant._gemm_s8(q, s, w_q, w_s, out, quant.EPI_F32)
+    acc = torch.zeros_like(out)
+    for g in range(8):
+        cols = slice(g * 512, (g + 1) * 512)
+        acc = acc + quant.mm_int(q[:, cols], w_q[cols]) * s[:, g:g + 1]
+    assert torch.equal(out, acc * w_s.reshape(-1))
+
+
+def test_spatial_branch_q_kernel(cuda):
+    gen = np.random.default_rng(11)
+    x, sh, sc, g = _branch_inputs(gen, 2, S_DIT)
+    args = (x, sh, sc, g, *_qweight(gen, (D, 3 * D), 0.02),
+            *_qweight(gen, (D, D), 0.02), _rand(gen, (D,), 0.02),
+            _spatial_freqs(), H)
+    before = quant.fused_spatial_branch_q.launches
+    got = quant.fused_spatial_branch_q(*args)
+    torch.cuda.synchronize()
+    assert quant.fused_spatial_branch_q.launches == before + 1
+    _close(got, quant.spatial_branch_q_plain(*args))
+
+
+def test_mlp_branch_q_kernel(cuda):
+    gen = np.random.default_rng(12)
+    x, sh, sc, g = _branch_inputs(gen, 2, S_DIT)
+    args = (x, sh, sc, g, *_qweight(gen, (D, 4 * D), 0.02),
+            _rand(gen, (4 * D,), 0.02), *_qweight(gen, (4 * D, D), 0.02),
+            _rand(gen, (D,), 0.02))
+    _close(quant.fused_mlp_branch_q(*args), quant.mlp_branch_q_plain(*args))
+
+
+@pytest.mark.parametrize("valid", [None, [False, True, True, True, True]])
+def test_temporal_branch_q_kernel_emit_kv(cuda, valid):
+    gen = np.random.default_rng(13)
+    T = 5
+    x, sh, sc, g = _branch_inputs(gen, 2 * T, S_DIT)
+    args = (x, sh, sc, g, *_qweight(gen, (D, 3 * D), 0.02),
+            *_qweight(gen, (D, D), 0.02),
+            _rand(gen, (D,), 0.02, torch.float32), _temporal_freqs(T), valid,
+            H, T)
+    got = quant.fused_temporal_branch_q(*args, emit_kv=True)
+    ref = quant.temporal_branch_q_plain(*args, emit_kv=True)
+    for a, b in zip(got, ref):
+        _close(a, b)
+
+
+def test_temporal_step_q_kernel(cuda):
+    gen = np.random.default_rng(14)
+    B, n_ctx = 2, 4
+    x, sh, sc, g = _branch_inputs(gen, B, S_DIT)
+    args = (x, sh, sc, g, *_qweight(gen, (D, 3 * D), 0.02),
+            *_qweight(gen, (D, D), 0.02), _rand(gen, (D,), 0.02),
+            _rand(gen, (B * n_ctx * S_DIT, D)),
+            _rand(gen, (B * n_ctx * S_DIT, D)), _temporal_freqs(n_ctx + 1),
+            torch.tensor([False, False, True, True, True]), H, n_ctx)
+    _close(quant.fused_temporal_step_q(*args),
+           quant.temporal_step_q_plain(*args))
+
+
+def test_int8_wrappers_reject_what_kernels_do_not_take(cuda):
+    gen = np.random.default_rng(15)
+    x, sh, sc, g = _branch_inputs(gen, 1, S_DIT)
+    w1_q, w1_s = _qweight(gen, (D, 4 * D), 0.02)
+    w2_q, w2_s = _qweight(gen, (4 * D, D), 0.02)
+    b1, b2 = _rand(gen, (4 * D,), 0.02), _rand(gen, (D,), 0.02)
+    with pytest.raises(ValueError, match="int8"):
+        quant.fused_mlp_branch_q(x, sh, sc, g, w1_q.float(), w1_s, b1, w2_q,
+                                 w2_s, b2)
+    with pytest.raises(ValueError, match="scales"):
+        quant.fused_mlp_branch_q(x, sh, sc, g, w1_q, w1_s[:, :8], b1, w2_q,
+                                 w2_s, b2)

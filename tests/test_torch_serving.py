@@ -20,6 +20,7 @@ from gtax.kernels import attention as kattn
 from gtax.models import vae as jvae
 from gtax_torch import serving
 from gtax_torch.io import safetensors_port as port
+from gtax_torch.models import dit
 from tests.conftest import assert_close
 from tests.test_torch_models import _gtax_debug_params
 
@@ -75,6 +76,61 @@ def test_generate_matches_gtax(pair, n_prompt):
     assert got.shape == ref.shape == (1, N_FRAMES, 48, 64, 3)
     assert got.dtype == np.uint8
     assert np.abs(got.astype(np.int32) - ref.astype(np.int32)).max() <= 1
+
+
+@pytest.fixture(scope="module")
+def pair_int8(pair):
+    """The W8A8 generators (quantize="int8") over the same weights."""
+    kattn.set_interpret(True)
+    jgen, gen = pair
+    cfg = dict(KW, quantize="int8")
+    _, jdit_params = _gtax_debug_params()
+    jgen8 = jserving.VideoGenerator(jax.tree.map(jnp.asarray, jdit_params),
+                                    jgen.vae_params,
+                                    jserving.ServingConfig(**cfg))
+    gen8 = serving.VideoGenerator(port.dit_from_gtax(jdit_params),
+                                  gen.vae_params, serving.ServingConfig(**cfg),
+                                  device="cpu")
+    return jgen8, gen8
+
+
+def test_generate_int8_matches_gtax(pair_int8):
+    """The int8 serving path end to end: gtax takes its paired int8 kernels
+    at B=1, the port its sequential ones; both quantize the same fp32
+    values, so pixels agree within 1 LSB as in bf16."""
+    jgen, gen = pair_int8
+    assert "kernel_q" in gen.dit_params["blocks"][0]["s_adaln"]
+    prompt, noise, acts = _inputs(4, seed=4)
+    ref = jgen.generate(prompt, acts, num_frames=N_FRAMES,
+                        noise=jnp.asarray(noise))
+    got = gen.generate(prompt, acts, num_frames=N_FRAMES, noise=noise)
+    assert got.shape == ref.shape and got.dtype == np.uint8
+    assert np.abs(got.astype(np.int32) - ref.astype(np.int32)).max() <= 1
+
+
+def test_int8_generator_from_quantized_params(pair):
+    """A bf16 quantize="int8" generator built from params that another one
+    already quantized holds the same params (int8 kernels, fp32 scales)
+    and generates the same pixels as one built from the unquantized
+    params: serving's cast leaves W8A8 leaves alone. Exact."""
+    _, gen = pair
+    cfg = serving.ServingConfig(**dict(KW, dtype="bfloat16", quantize="int8"))
+    first = serving.VideoGenerator(gen.dit_params, gen.vae_params, cfg,
+                                   device="cpu")
+    second = serving.VideoGenerator(first.dit_params, first.vae_params, cfg,
+                                    device="cpu")
+    flat = {}
+    for g in (first, second):
+        dit._map_params(g.dit_params,
+                        lambda p, leaf: flat.setdefault(p, []).append(leaf))
+    for path, (a, b) in flat.items():
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+        if path[-1] == "scale":
+            assert a.dtype == torch.float32, path
+    prompt, noise, acts = _inputs(4, seed=5)
+    np.testing.assert_array_equal(
+        second.generate(prompt, acts, num_frames=N_FRAMES, noise=noise),
+        first.generate(prompt, acts, num_frames=N_FRAMES, noise=noise))
 
 
 def test_rollout_latents_match_gtax(pair):
@@ -134,7 +190,7 @@ def test_generate_validates_inputs(pair):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("quantize", "int8"), ("pipeline_depth", 2), ("attn_broadcast", 2),
+    ("quantize", "int4"), ("pipeline_depth", 2), ("attn_broadcast", 2),
     ("mesh_data", 2), ("mesh_model", 2), ("aot_dir", "x"),
     ("unstack", False), ("attention_backend", "xla")])
 def test_unported_options_raise(field, value):
