@@ -6,13 +6,16 @@
 Phases (any failure exits nonzero and prints no result line):
   1. environment: torch version, device, `nvidia-smi` name and power limit;
   2. build: nvcc builds gtax_torch/csrc/*.cu for sm_90a (timed);
-  3. kernels: each of the nine kernel wrappers (five bf16, four int8
-     W8A8) at its main-path shapes (DiT-S/2 and ViT-L/20 widths) and at
-     batch 2, against its plain PyTorch version on the same inputs (bf16
-     both; tolerance 2**-6 of the output's largest magnitude, four bf16
-     ulps); CUDA-event times of the kernel, the plain version and a
-     library yardstick, with the L2 cache flushed before every timed call;
-     the bound from bytes and operations (bf16 and int8 peaks);
+  3. kernels: each of the twelve kernel wrappers (five bf16 and four
+     int8 W8A8 serving wrappers, three training backwards) at its
+     main-path shapes (DiT-S/2 and ViT-L/20 widths; the B=16 training step)
+     and at batch 2, and the forward branches' emit_train mode, against
+     the plain PyTorch versions on the same inputs (bf16 both; tolerance
+     2**-6 of each output's largest magnitude, four bf16 ulps);
+     CUDA-event times of the kernel, the plain version and a library
+     yardstick (for a backward: autograd's backward of the library
+     composite forward), with the L2 cache flushed before every timed
+     call; the bound from bytes and operations (bf16 and int8 peaks);
   4. end to end, bf16: VideoGenerator at full DiT-S/2 + ViT-L/20 width,
      B=1, 4 prompt frames + 2 generated, 100 noise steps, random seeded
      weights with nonzero adaLN heads, injected noise. The launch counters
@@ -28,7 +31,18 @@ Phases (any failure exits nonzero and prints no result line):
      gtax's 2e-2 at depth 2 on gtax's own weight regime carried to full
      width; reported beside it, that regime as written and the smoke's
      weights at depth 2 and full depth.
-Each end-to-end phase also traces one generated frame (`[profile]`).
+  6. training (`[train]`): a Trainer built from
+     configs/train_dit_actions.yaml's values (DiT-S/2 at full width and
+     depth, frozen ViT-L/20, B=16, bf16, fused_all, mu_bf16) with the cuts
+     TRAIN_CUTS prints, 3 steps through the training loop, with every
+     launch count zeroed before and read after: the three backward
+     wrappers 16/16/32 times a micro-step. Gates: finite losses and grad
+     norms, moved parameters, one B=2 micro-batch's gradients through the
+     kernels against the plain path (the xla_* branches under autograd) on
+     the card, and a depth-2 model's card gradients against the port's CPU
+     gradients (relative L2 per leaf, GRAD_TOL).
+Each end-to-end phase also traces one generated frame or train step
+(`[profile]`).
 `python -m gtax_torch.tools.step_profile` splits one denoise step into
 host and card time.
 
@@ -534,43 +548,300 @@ SOURCES = {
 }
 
 
+def measure(timer, name, label, kern, plain, lib, by, fl, *i8):
+    """Run the kernel and its plain version on the same inputs, hold every
+    output against the plain one (2**-6 of its largest magnitude), time
+    the kernel, the plain version and the library yardstick, and compute
+    the bound (by: bytes, fl: bf16 flops, i8: int8 ops)."""
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    err, tol, ratio = 0.0, 0.0, 0.0  # tol: that of the worst output
+    for a, b in zip(got, ref):
+        if not torch.isfinite(a.float()).all():
+            fail(f"{name} [{label}]: non-finite output")
+        e = (a.float() - b.float()).abs().max().item()
+        t = 2.0**-6 * max(1.0, b.float().abs().max().item())
+        err = max(err, e)
+        if e / t >= ratio:
+            ratio, tol = e / t, t
+    ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(lib)
+    bms, by_what = bound_ms(by, fl, *i8)
+    ops = f"{fl / 1e9:.2f} GFLOP" + (f", {i8[0] / 1e9:.2f} int8 GOP"
+                                      if i8 else "")
+    log(f"[kernel] {name:25s} {label:36s} max_abs_err={err:.3g} "
+        f"(worst output err/tol {ratio:.3g}, its tol {tol:.3g}) "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by_what}; "
+        f"{by / 1e6:.1f} MB, {ops})")
+    if not ratio <= 1.0:
+        fail(f"{name} [{label}] disagrees with its plain version: an output "
+             f"is off by {ratio:.3g} times its tolerance")
+    return {"max_abs_err": err, "tolerance": tol, "err_over_tol": ratio,
+            "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by_what,
+            "library_ms": lib_ms, "shape": label}
+
+
 def kernel_phase():
     timer = Timer()
     rows = {}
     for name, replaces, label, main, make in (kernel_cases()
                                               + int8_kernel_cases()):
-        # by: bytes, fl: bf16 flops, i8: int8 ops (int8 wrappers only)
-        kern, plain, lib, lib_desc, by, fl, *i8 = make()
-        got, ref = kern(), plain()
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        err, tol = 0.0, 0.0
-        for a, b in zip(got, ref):
-            if not torch.isfinite(a.float()).all():
-                fail(f"{name} [{label}]: non-finite output")
-            err = max(err, (a.float() - b.float()).abs().max().item())
-            tol = max(tol, 2.0**-6 * max(1.0, b.float().abs().max().item()))
-        ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(lib)
-        bms, by_what = bound_ms(by, fl, *i8)
-        ops = f"{fl / 1e9:.2f} GFLOP" + (f", {i8[0] / 1e9:.2f} int8 GOP"
-                                          if i8 else "")
-        log(f"[kernel] {name:23s} {label:34s} max_abs_err={err:.3g} "
-            f"(tol {tol:.3g}) ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by_what}; "
-            f"{by / 1e6:.1f} MB, {ops})")
-        if not err <= tol:
-            fail(f"{name} [{label}] disagrees with its plain version: "
-                 f"{err} > {tol}")
+        kern, plain, lib, lib_desc, *rest = make()
+        m = measure(timer, name, label, kern, plain, lib, *rest)
         if main:
-            rows[name] = {
-                "name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": replaces, "launches": None, "max_abs_err": err,
-                "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bms, "bound_by": by_what, "library_ms": lib_ms,
-                "library": lib_desc, "shape": label,
-            }
+            rows[name] = {"name": name, "route": "cuda",
+                          "source": SOURCES[name], "replaces": replaces,
+                          "launches": None, **m, "library": lib_desc}
     return rows
+
+
+# ------------------------------------------------------ training kernels
+
+BWD_SOURCE = "gtax_torch/kernels/backward.py"
+BWD_REPLACES = {
+    "fused_spatial_branch_bwd": "gtax/kernels/backward.py:386",
+    "fused_temporal_branch_bwd": "gtax/kernels/backward.py:632",
+    "fused_mlp_branch_bwd": "gtax/kernels/backward.py:709",
+}
+LIB_BWD = ("torch.autograd.grad (backward only) through F.layer_norm + "
+           "F.linear + {} + F.linear")
+
+
+def _leaves_grad(*tensors):
+    return [t.detach().clone().requires_grad_(True) for t in tensors]
+
+
+def train_kernel_cases():
+    """(name, label, main, builder) for the three backward wrappers and the
+    forward wrappers' emit_train mode, at the training step's shapes (B=16:
+    80 frames of 144 tokens) and at B=2; builder returns (kernel_fn,
+    plain_fn, library_fn, bytes, flops). A backward's inputs are its
+    forward's emit_train residuals, made once by the kernel forward; its
+    library yardstick is autograd's backward of the library composite
+    forward, timed alone (the forward runs once, outside the timing)."""
+    from gtax_torch.kernels import backward, block
+
+    F = torch.nn.functional
+    sfreqs = spatial_freqs()
+
+    def lib_mod(x, sh, sc):
+        ln = F.layer_norm(x, (D,), eps=1e-6)
+        return ln * (1 + sc[:, None]) + sh[:, None]
+
+    def lib_rope(t, f):
+        from gtax_torch.core import rope
+
+        f = f.to(t.dtype)
+        return t * torch.cos(f) + rope.rotate_half(t) * torch.sin(f)
+
+    def lib_backward(fwd, tensors, ct):
+        leaves = _leaves_grad(*tensors)
+        with torch.enable_grad():
+            out = fwd(*leaves)
+        return lambda: torch.autograd.grad(out, leaves, ct,
+                                           retain_graph=True)
+
+    def attn_inputs(seed, N, freqs_rows):
+        gen = np.random.default_rng(seed)
+        x, sh, sc, g = branch_inputs(gen, N, S_DIT)
+        qw, ow = rand(gen, (D, 3 * D), 0.02), rand(gen, (D, D), 0.02)
+        ob = rand(gen, (D,), 0.02, torch.float32)
+        return (x, sh, sc, g, qw, ow, ob), rand(gen, (N, S_DIT, D))
+
+    def attn_bytes(N, args):
+        x, sh, sc, g, qw, ow, ob = args
+        # in: x, ct, y, q, k, v, weights, per-frame vectors; out: dx, fp32
+        # dshift/dscale/dg, dW_qkv, dW_out, db
+        return (7 * nbytes(x) + nbytes(sh, sc, g, qw, ow)
+                + 3 * N * D * 4 + 4 * D * D * 4 + D * 4)
+
+    def spatial_bwd(N):
+        args, ct = attn_inputs(100 + N, N, S_DIT)
+        _, *res = block.fused_spatial_branch(*args, sfreqs, H,
+                                             emit_train=True)
+        bargs = (*args[:6], sfreqs, *res, ct, H)
+        x, sh, sc, g, qw, ow, ob = args
+
+        def fwd(x, sh, sc, g, qw, ow, ob):
+            qkv = library_linear(lib_mod(x, sh, sc), qw)
+            q, k, v = (t.view(N, S_DIT, H, HD).transpose(1, 2)
+                       for t in qkv.split(D, -1))
+            f = sfreqs[None, None]
+            o = F.scaled_dot_product_attention(lib_rope(q, f),
+                                               lib_rope(k, f), v)
+            y = library_linear(o.transpose(1, 2).reshape(N, S_DIT, D), ow,
+                               ob.bfloat16())
+            return x + g[:, None] * y
+
+        M = N * S_DIT
+        fl = 16 * M * D * D + 12 * N * H * S_DIT * S_DIT * HD
+        return (lambda: backward.fused_spatial_branch_bwd(*bargs),
+                lambda: backward.spatial_branch_bwd_plain(*bargs),
+                lib_backward(fwd, args, ct), attn_bytes(N, args), fl)
+
+    def temporal_bwd(B, valid, T=5):
+        N = B * T
+        args, ct = attn_inputs(200 + B, N, T)
+        f = temporal_freqs(T)
+        _, *res = block.fused_temporal_branch(*args, f, valid, H, T,
+                                              emit_train=True)
+        bargs = (*args[:6], f, valid, *res, ct, H, T)
+        bias = block.temporal_bias(valid, T, "cuda").bfloat16()
+
+        def fwd(x, sh, sc, g, qw, ow, ob):
+            qkv = library_linear(lib_mod(x, sh, sc), qw)
+            q, k, v = (t.view(B, T, S_DIT, H, HD).permute(0, 2, 3, 1, 4)
+                       for t in qkv.split(D, -1))
+            o = F.scaled_dot_product_attention(
+                lib_rope(q, f), lib_rope(k, f), v, attn_mask=bias)
+            y = library_linear(o.permute(0, 3, 1, 2, 4).reshape(N, S_DIT, D),
+                               ow, ob.bfloat16())
+            return x + g[:, None] * y
+
+        M = N * S_DIT
+        fl = 16 * M * D * D + 12 * B * S_DIT * H * (T * (T + 1) // 2) * HD
+        return (lambda: backward.fused_temporal_branch_bwd(*bargs),
+                lambda: backward.temporal_branch_bwd_plain(*bargs),
+                lib_backward(fwd, args, ct), attn_bytes(N, args), fl)
+
+    def mlp_bwd(N):
+        gen = np.random.default_rng(300 + N)
+        x, sh, sc, g = branch_inputs(gen, N, S_DIT)
+        w1, w2 = rand(gen, (D, 4 * D), 0.02), rand(gen, (4 * D, D), 0.02)
+        b1 = rand(gen, (4 * D,), 0.02, torch.float32)
+        b2 = rand(gen, (D,), 0.02, torch.float32)
+        ct = rand(gen, (N, S_DIT, D))
+        _, h1, y = block.fused_mlp_branch(x, sh, sc, g, w1, b1, w2, b2,
+                                          emit_train=True)
+        bargs = (x, sh, sc, g, w1, w2, h1, y, ct)
+
+        def fwd(x, sh, sc, g, w1, b1, w2, b2):
+            h = F.gelu(library_linear(lib_mod(x, sh, sc), w1, b1.bfloat16()),
+                       approximate="tanh")
+            return x + g[:, None] * library_linear(h, w2, b2.bfloat16())
+
+        M = N * S_DIT
+        by = (4 * nbytes(x) + nbytes(h1, sh, sc, g, w1, w2) + 3 * N * D * 4
+              + 2 * D * 4 * D * 4 + 5 * D * 4)
+        return (lambda: backward.fused_mlp_branch_bwd(*bargs),
+                lambda: backward.mlp_branch_bwd_plain(*bargs),
+                lib_backward(fwd, (x, sh, sc, g, w1, b1, w2, b2), ct), by,
+                8 * M * D * 4 * D)
+
+    def emit(kind, N):
+        gen = np.random.default_rng(400 + N)
+        x, sh, sc, g = branch_inputs(gen, N, S_DIT)
+        M = N * S_DIT
+        if kind == "fused_mlp_branch":
+            w1, w2 = rand(gen, (D, 4 * D), 0.02), rand(gen, (4 * D, D), 0.02)
+            b1, b2 = rand(gen, (4 * D,), 0.02), rand(gen, (D,), 0.02)
+            args = (x, sh, sc, g, w1, b1, w2, b2)
+
+            def lib():
+                h = F.gelu(library_linear(lib_mod(x, sh, sc), w1, b1),
+                           approximate="tanh")
+                return x + g[:, None] * library_linear(h, w2, b2)
+
+            return (lambda: block.fused_mlp_branch(*args, emit_train=True),
+                    lambda: block.mlp_branch_plain(*args, emit_train=True),
+                    lib, nbytes(*args) + 2 * nbytes(x) + M * 4 * D * 2,
+                    4 * M * D * 4 * D)
+        qw, ow = rand(gen, (D, 3 * D), 0.02), rand(gen, (D, D), 0.02)
+        ob = rand(gen, (D,), 0.02)
+        by = nbytes(x, sh, sc, g, qw, ow, ob) + 5 * nbytes(x)
+        if kind == "fused_spatial_branch":
+            args = (x, sh, sc, g, qw, ow, ob, sfreqs, H)
+
+            def lib():
+                qkv = library_linear(lib_mod(x, sh, sc), qw)
+                q, k, v = (t.view(N, S_DIT, H, HD).transpose(1, 2)
+                           for t in qkv.split(D, -1))
+                f = sfreqs[None, None]
+                o = F.scaled_dot_product_attention(
+                    lib_rope(q, f), lib_rope(k, f), v)
+                return x + g[:, None] * library_linear(
+                    o.transpose(1, 2).reshape(N, S_DIT, D), ow, ob)
+
+            return (
+                lambda: block.fused_spatial_branch(*args, emit_train=True),
+                lambda: block.spatial_branch_plain(*args, emit_train=True),
+                lib, by, 8 * M * D * D + 4 * N * H * S_DIT * S_DIT * HD)
+        T = 5
+        B = N // T
+        f = temporal_freqs(T)
+        valid = [False] + [True] * (T - 1)
+        args = (x, sh, sc, g, qw, ow, ob, f, valid, H, T)
+        mask = torch.tril(torch.ones(T, T, dtype=torch.bool, device="cuda"))
+
+        def lib():
+            qkv = library_linear(lib_mod(x, sh, sc), qw)
+            q, k, v = (t.view(B, T, S_DIT, H, HD).permute(0, 2, 3, 1, 4)
+                       for t in qkv.split(D, -1))
+            o = F.scaled_dot_product_attention(
+                lib_rope(q, f), lib_rope(k, f), v, attn_mask=mask)
+            return x + g[:, None] * library_linear(
+                o.permute(0, 3, 1, 2, 4).reshape(N, S_DIT, D), ow, ob)
+
+        return (lambda: block.fused_temporal_branch(*args, emit_train=True),
+                lambda: block.temporal_branch_plain(*args, emit_train=True),
+                lib, by,
+                8 * M * D * D + 4 * B * S_DIT * H * (T * (T + 1) // 2) * HD)
+
+    pad = [False, True, True, True, True]
+    return [
+        ("fused_spatial_branch_bwd", "train B=16 (N=80)", True,
+         lambda: spatial_bwd(80)),
+        ("fused_spatial_branch_bwd", "B=2 (N=10)", False,
+         lambda: spatial_bwd(10)),
+        ("fused_temporal_branch_bwd", "train B=16 T=5, valid all", True,
+         lambda: temporal_bwd(16, None)),
+        ("fused_temporal_branch_bwd", "B=16 T=5, slot 0 padded", False,
+         lambda: temporal_bwd(16, pad)),
+        ("fused_temporal_branch_bwd", "B=2 T=5, valid all", False,
+         lambda: temporal_bwd(2, None)),
+        ("fused_temporal_branch_bwd", "B=2 T=5, slot 0 padded", False,
+         lambda: temporal_bwd(2, pad)),
+        ("fused_mlp_branch_bwd", "train B=16 (11520 rows)", True,
+         lambda: mlp_bwd(80)),
+        ("fused_mlp_branch_bwd", "B=2 (1440 rows)", False,
+         lambda: mlp_bwd(10)),
+        ("fused_spatial_branch", "emit_train B=16 (N=80)", True,
+         lambda: emit("fused_spatial_branch", 80)),
+        ("fused_mlp_branch", "emit_train B=16 (11520 rows)", True,
+         lambda: emit("fused_mlp_branch", 80)),
+        ("fused_temporal_branch", "emit_train B=16 T=5, slot 0 padded",
+         True, lambda: emit("fused_temporal_branch", 80)),
+        ("fused_spatial_branch", "emit_train B=2 (N=10)", False,
+         lambda: emit("fused_spatial_branch", 10)),
+    ]
+
+
+def train_kernel_phase(rows):
+    """The backward wrappers' rows, and the emit_train mode of the forward
+    rows (kept as emit_train_* keys of those rows)."""
+    timer = Timer()
+    for name, label, main, make in train_kernel_cases():
+        kern, plain, lib, by, fl = make()
+        with torch.no_grad():
+            m = measure(timer, name, label, kern, plain, lib, by, fl)
+        if not main:
+            continue
+        if name in BWD_REPLACES:
+            what = {"fused_mlp_branch_bwd": "F.gelu"}.get(
+                name, "SDPA" if "spatial" in name else "SDPA(mask)")
+            rows[name] = {"name": name, "route": "cuda",
+                          "source": BWD_SOURCE,
+                          "replaces": BWD_REPLACES[name], "launches": None,
+                          **m, "library": LIB_BWD.format(what)}
+        else:
+            rows[name].update({f"emit_train_{k}": m[k] for k in (
+                "ms", "max_abs_err", "plain_ms", "bound_ms", "library_ms",
+                "shape")})
+        del kern, plain, lib
+        torch.cuda.empty_cache()
 
 
 # -------------------------------------------------------------- end to end
@@ -628,13 +899,44 @@ def kernel_wrappers():
         ("fused_vae_block", vae_block))}
 
 
-def profile_frame(gen, lat0, acts, nz, steps=4):
-    """torch.profiler over one generated frame at full depth (prefill +
-    steps + 1 denoise steps): device time by kernel and the device's busy
-    share of the wall time. Informational: a trace without device events
-    prints "not measured"."""
+def profile_device(fn, label, top=12):
+    """torch.profiler over one call of fn (warmed up first): device time by
+    kernel and the device's busy share of the wall time. Informational: a
+    trace without device events prints "not measured"."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = {}  # device-side events only: kernels, memcpy, memset
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            by_kernel[ev.key] = (us, ev.count)
+    if not by_kernel:
+        log(f"[profile] {label}: device time not measured (no CUDA events "
+            "traced)")
+        return
+    busy = sum(us for us, _ in by_kernel.values()) / 1e6
+    log(f"[profile] {label}: wall {wall * 1e3:.2f} ms, device busy "
+        f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%)")
+    for key, (us, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[
+            :top]:
+        log(f"[profile]   {us / 1e3:9.3f} ms {n:6d}x  {key[:90]}")
+
+
+def profile_frame(gen, lat0, acts, nz, steps=4):
+    """The device profile of one generated frame at full depth (prefill +
+    steps + 1 denoise steps)."""
     from gtax_torch.models import dit as dit_mod
     from gtax_torch.sampling.diffusion import SamplerConfig, make_rollout
 
@@ -645,34 +947,9 @@ def profile_frame(gen, lat0, acts, nz, steps=4):
                         incremental=dit_mod.make_incremental_fns(gen.dit_cfg,
                                                                  bf))
     with torch.inference_mode():
-        roll(gen.dit_params, lat0, acts, None, 1, nz)  # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            roll(gen.dit_params, lat0, acts, None, 1, nz)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-
-    by_kernel = {}  # device-side events only: kernels, memcpy, memset
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if us > 0:
-            by_kernel[ev.key] = (us, ev.count)
-    busy = sum(us for us, _ in by_kernel.values()) / 1e6
-    if not by_kernel:
-        log("[profile] device time not measured (no CUDA events traced)")
-        return
-    log(f"[profile] {gen.cfg.quantize}: one frame, {steps + 1} steps, depth "
-        f"{gen.dit_cfg.depth}: wall {wall * 1e3:.2f} ms, device busy "
-        f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%)")
-    for key, (us, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[
-            :12]:
-        log(f"[profile]   {us / 1e3:9.3f} ms {n:6d}x  {key[:90]}")
+        profile_device(lambda: roll(gen.dit_params, lat0, acts, None, 1, nz),
+                       f"{gen.cfg.quantize}: one frame, {steps + 1} steps, "
+                       f"depth {gen.dit_cfg.depth}")
 
 
 def drive_path(gen, label, path, rows, record, inputs):
@@ -838,6 +1115,224 @@ def end_to_end(rows):
     int8_vs_bf16(gen, gen8)
 
 
+# ------------------------------------------------------------- training
+
+TRAIN_CONFIG = "configs/train_dit_actions.yaml"
+# what the smoke changes in that config, and why
+TRAIN_CUTS = {
+    "dataset_type": ("dummy", "the GTA V clips are not in the repository; "
+                     "gtax's synthetic clips at 360x640"),
+    "vae_checkpoint": ("", "checkpoint not in the repository: random VAE"),
+    "pretrained_model": (None, "checkpoint not in the repository: random "
+                         "DiT, adaLN heads drawn nonzero"),
+    "max_steps": (3, "a few steps"),
+    "validation_steps": (0, "no validation run"),
+    "save_every": (0, "checkpoints are not ported yet"),
+    "use_wandb": (False, "no network"),
+}
+BWD_PATH = {"fused_spatial_branch_bwd": 16, "fused_temporal_branch_bwd": 16,
+            "fused_mlp_branch_bwd": 32}  # launches per micro-step
+TRAIN_PATH = ("fused_spatial_branch", "fused_mlp_branch",
+              "fused_temporal_branch", "fused_vae_block", *BWD_PATH)
+GRAD_TOL = 5e-2  # relative L2 per gradient leaf
+
+
+def read_flat_yaml(path):
+    """The `key: value` lines of a flat YAML config (PyYAML may be missing
+    on the card's machine): ints, floats, true/false, null, strings."""
+    out = {}
+    for line in open(path):
+        line = line.split("#", 1)[0].strip()
+        if not line:
+            continue
+        key, value = (part.strip() for part in line.split(":", 1))
+        low = value.lower()
+        if low in ("true", "false"):
+            out[key] = low == "true"
+        elif low in ("null", "~", ""):
+            out[key] = None
+        else:
+            for cast in (int, float, str):
+                try:
+                    out[key] = cast(value)
+                    break
+                except ValueError:
+                    continue
+    return out
+
+
+def train_wrappers():
+    from gtax_torch.kernels import backward, block, vae_block
+
+    mods = {"fused_vae_block": vae_block}
+    return {name: getattr(mods.get(name, backward if name in BWD_PATH
+                                   else block), name)
+            for name in TRAIN_PATH}
+
+
+def leaf_grads(params):
+    from gtax_torch.train.optim import leaves
+
+    return {path: p.grad.detach().float().clone()
+            for path, p in leaves(params) if p.grad is not None}
+
+
+def compare_grads(label, got, ref):
+    """Relative L2 error of every gradient leaf; fails above GRAD_TOL."""
+    rel = {path: ((got[path].cpu() - g).norm() / g.norm()).item()
+           for path, g in ((p, r.cpu()) for p, r in ref.items())
+           if g.norm() > 0}
+    if set(got) != set(ref):
+        fail(f"{label}: gradient leaves differ")
+    worst = max(rel, key=rel.get)
+    vals = sorted(rel.values())
+    log(f"[train] {label}: {len(rel)} leaves, relative L2 median "
+        f"{vals[len(vals) // 2]:.3g}, max {rel[worst]:.3g} at "
+        f"{'/'.join(map(str, worst))} (tol {GRAD_TOL})")
+    if not (all(math.isfinite(v) for v in vals) and rel[worst] <= GRAD_TOL):
+        fail(f"{label}: gradients disagree ({rel[worst]} > {GRAD_TOL})")
+
+
+def micro_grads(params, cfg, latents, acts, draws, loss_cfg, abar,
+                noise_range, plain=False):
+    """Gradients of one micro-batch's summed loss, for fixed draws."""
+    from gtax_torch.models import dit as dit_mod
+    from gtax_torch.sampling.diffusion import diffusion_forcing_loss
+    from gtax_torch.train.optim import leaves
+
+    for _, p in leaves(params):
+        p.grad = None
+
+    def fn(x, t, a, valid):
+        return dit_mod.dit_apply(params, cfg, x, t, a, valid,
+                                 plain_branches=plain)
+
+    _, total = diffusion_forcing_loss(fn, latents, acts, None, loss_cfg,
+                                      abar, noise_range, draws=draws)
+    total.backward()
+    return leaf_grads(params)
+
+
+def train_phase(rows):
+    from gtax_torch.data.dummy import DummyDataset
+    from gtax_torch.data.loader import DataLoader
+    from gtax_torch.models import dit as dit_mod
+    from gtax_torch.sampling.diffusion import draw_loss_noise
+    from gtax_torch.train.config import TrainingConfig
+    from gtax_torch.train.optim import decays, leaves
+    from gtax_torch.train.trainer import Trainer, encode_frames
+
+    raw = read_flat_yaml(TRAIN_CONFIG)
+    for key, (value, why) in TRAIN_CUTS.items():
+        log(f"[train] cut {key}: {raw.get(key)!r} -> {value!r} ({why})")
+        raw[key] = value
+    cfg = TrainingConfig.from_dict(raw)
+    steps, B = cfg.max_steps, cfg.batch_size
+    dcfg = dit_mod.DiT_MODELS[cfg.dit_model]()
+    params = dit_mod.dit_init(dcfg, torch.Generator(device="cuda")
+                              .manual_seed(cfg.seed), "cuda")
+    nonzero_adaln(params, 4)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, total_dataset_size=B * steps, dit_params=params)
+    del params
+    log(f"[train] {cfg.dit_model} ({dcfg.depth} blocks, D={dcfg.hidden_size})"
+        f" + {cfg.vae_model}, B={B}, accumulation "
+        f"{cfg.gradient_accumulation_steps}, {cfg.compute_dtype}, "
+        f"{cfg.attention_backend}, mu_bf16={cfg.mu_bf16}: trainer ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    watch = [path for path, _ in leaves(trainer.dit_params)
+             if decays(path)][::23]
+    before = {path: p.detach().clone() for path, p in
+              leaves(trainer.dit_params) if path in watch}
+    loader = DataLoader(DummyDataset("train", return_actions=True,
+                                     size=B * steps), B, seed=cfg.seed)
+    records = []
+
+    def report(tr, m):
+        mem = torch.cuda.max_memory_allocated() / 2**30
+        records.append(m)
+        log(f"[train] step {m['step']}: train_loss={m['train_loss']:.5g} "
+            f"grad_norm={m['grad_norm']:.5g} step_time_s="
+            f"{m['step_time_s']:.4f} mfu={m['mfu']:.4f} lr="
+            f"{m['learning_rate']:.3g} peak_memory={mem:.2f} GiB")
+
+    fns = train_wrappers()
+    micro_steps = cfg.gradient_accumulation_steps * steps
+    torch.cuda.reset_peak_memory_stats()
+    for fn in fns.values():
+        fn.launches = 0
+    trainer.training_loop(loader, None, callbacks=[report])
+    counts = {name: fn.launches for name, fn in fns.items()}
+    log(f"[train] launches over {steps} steps: {json.dumps(counts)}")
+    log("[train] backward launches per micro-step: " + ", ".join(
+        f"{name} {counts[name] // micro_steps}" for name in BWD_PATH))
+    if len(records) != steps or trainer.global_step != steps:
+        fail(f"train: {len(records)} records for {steps} steps")
+    for m in records:
+        if not (math.isfinite(m["train_loss"])
+                and math.isfinite(m["grad_norm"])):
+            fail(f"train: non-finite metrics {m}")
+    for name, n in counts.items():
+        if n <= 0:
+            fail(f"{name} was not launched on the train path")
+    for name, n in BWD_PATH.items():
+        if counts[name] != n * micro_steps:
+            fail(f"{name}: {counts[name]} launches, want {n} per micro-step")
+        rows[name]["launches"] = counts[name] // steps
+    for name in TRAIN_PATH[:3]:
+        rows[name]["train_launches"] = counts[name] // steps
+    moved = [not torch.equal(before[path], p) for path, p in
+             leaves(trainer.dit_params) if path in before]
+    log(f"[train] parameters moved: {sum(moved)} of {len(moved)} watched "
+        "leaves")
+    if not all(moved):
+        fail("train: parameters did not move")
+    batch = next(trainer.iter_device_batches(loader))
+    profile_device(lambda: trainer.train_step_sync(batch),
+                   f"one train step, B={B}, batch already on the card")
+    rows["train"] = {"step_time_s": [m["step_time_s"] for m in records],
+                     "mfu": [m["mfu"] for m in records],
+                     "peak_memory_gib":
+                         torch.cuda.max_memory_allocated() / 2**30}
+
+    # one B=2 micro-batch: the kernel path against the plain path (xla_*
+    # branches under autograd) on the card, at full width and depth
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b = next(iter(DataLoader(DummyDataset("train", return_actions=True,
+                                          size=2), 2, shuffle=False)))
+    with torch.no_grad():
+        lat = encode_frames(trainer.vae_params, trainer.vae_cfg,
+                            torch.from_numpy(b.video).cuda(), torch.bfloat16)
+    acts = torch.from_numpy(b.actions).cuda()
+    draws = draw_loss_noise(lat, trainer.loss_cfg, gen)
+    consts = (trainer.loss_cfg, trainer.alphas_cumprod, trainer.noise_range)
+    p = trainer.dit_params
+    t1 = time.perf_counter()
+    g_kernel = micro_grads(p, dcfg, lat, acts, draws, *consts)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    g_plain = micro_grads(p, dcfg, lat, acts, draws, *consts, plain=True)
+    torch.cuda.synchronize()
+    log(f"[train] B=2 micro-batch gradients: kernel path {t2 - t1:.3f} s, "
+        f"plain path {time.perf_counter() - t2:.3f} s")
+    compare_grads("B=2 kernel path vs plain path, full depth", g_kernel,
+                  g_plain)
+    del g_plain
+
+    # depth 2: the card's gradients against the port's CPU gradients
+    cfg2 = dataclasses.replace(dcfg, depth=2)
+    p2 = dict(p, blocks=p["blocks"][:2])
+    g_card = micro_grads(p2, cfg2, lat, acts, draws, *consts)
+    p2_cpu = dit_mod._map_params(
+        p2, lambda _, a: a.detach().cpu().requires_grad_(a.requires_grad))
+    g_cpu = micro_grads(p2_cpu, cfg2, lat.cpu(), acts.cpu(),
+                        {k: v.cpu() for k, v in draws.items()},
+                        consts[0], *(c.cpu() for c in consts[1:]))
+    compare_grads("depth 2, card vs CPU (plain versions)", g_card, g_cpu)
+    for _, q in leaves(p):
+        q.grad = None
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -861,12 +1356,15 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     with torch.inference_mode():
         rows = kernel_phase()
+    train_kernel_phase(rows)
     end_to_end(rows)
+    train_phase(rows)
+    train = rows.pop("train")
     for row in rows.values():
         for k, v in row.items():
             if isinstance(v, float) and not math.isfinite(v):
                 fail(f"{row['name']}: {k} is not finite")
-    log(json.dumps({"kernels": list(rows.values()),
+    log(json.dumps({"kernels": list(rows.values()), "train": train,
                     "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

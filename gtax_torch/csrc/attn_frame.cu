@@ -9,7 +9,10 @@
 // scores and softmax in fp32, probabilities cast to bf16 before PV, fp32
 // PV, then a bf16 output, or the fp32 sums themselves for the int8 spatial
 // branch, which quantizes them unrounded (gtax/kernels/quant.py
-// _spatial_kernel_q).
+// _spatial_kernel_q). For training (emit_train, the residuals of
+// gtax/kernels/block.py _spatial_attention_core's qkv_out) it also stores
+// the roped q and k and the cast v as bf16, exactly the values it attends
+// with.
 // Bound: operations (S^2 * d per head) at S = 576, bytes at S = 144. This
 // first version runs the two products on the fp32 pipes, one warp per query
 // row: each block stages the head's roped K and V once in shared memory
@@ -28,7 +31,9 @@ template <int HD>
 __global__ void __launch_bounds__(kWarps * 32)
     attn_frame_kernel(const void* __restrict__ qkv, int qkv_f32,
                       const float* __restrict__ freqs, void* __restrict__ out,
-                      int out_f32, int S, int D, int rot) {
+                      int out_f32, bf16* __restrict__ q_out,
+                      bf16* __restrict__ k_out, bf16* __restrict__ v_out,
+                      int S, int D, int rot) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int KS = HD + 2;  // padded K row (bf16 elements)
   bf16* Ks = reinterpret_cast<bf16*>(smem);
@@ -50,6 +55,11 @@ __global__ void __launch_bounds__(kWarps * 32)
     if (c < rot) k = rope_pair(k, freqs + (size_t)j * rot + c);
     store_pair(Ks, (size_t)j * KS + c, k.x, k.y);
     store_pair(Vs, (size_t)j * HD + c, v.x, v.y);
+    if (k_out != nullptr && blockIdx.x == 0) {  // one query tile stores K, V
+      const size_t o = (row0 + j) * D + (size_t)h * HD + c;
+      store_pair(k_out, o, k.x, k.y);
+      store_pair(v_out, o, v.x, v.y);
+    }
   }
   __syncthreads();
 
@@ -63,6 +73,8 @@ __global__ void __launch_bounds__(kWarps * 32)
       if (c < rot) q = rope_pair(q, freqs + (size_t)r * rot + c);
       qb[c] = bf16_round(q.x);
       qb[c + 1] = bf16_round(q.y);
+      if (q_out != nullptr)
+        store_pair(q_out, (row0 + r) * D + (size_t)h * HD + c, q.x, q.y);
     }
     __syncwarp();
     float qr[HD];
@@ -123,7 +135,8 @@ size_t smem_bytes(int S) {
 
 template <int HD>
 int launch(const void* qkv, int qkv_f32, const float* freqs, void* out,
-           int out_f32, int n_frames, int S, int D, int rot, cudaStream_t st) {
+           int out_f32, bf16* qo, bf16* ko, bf16* vo, int n_frames, int S,
+           int D, int rot, cudaStream_t st) {
   const size_t smem = smem_bytes<HD>(S);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
@@ -134,7 +147,7 @@ int launch(const void* qkv, int qkv_f32, const float* freqs, void* out,
   }
   const dim3 grid((S + kQTile - 1) / kQTile, D / HD, n_frames);
   attn_frame_kernel<HD><<<grid, kWarps * 32, smem, st>>>(
-      qkv, qkv_f32, freqs, out, out_f32, S, D, rot);
+      qkv, qkv_f32, freqs, out, out_f32, qo, ko, vo, S, D, rot);
   return (int)cudaGetLastError();
 }
 
@@ -142,22 +155,30 @@ int launch(const void* qkv, int qkv_f32, const float* freqs, void* out,
 
 // qkv: (n_frames * S, 3D) fp32 (qkv_f32 = 1) or bf16; freqs: (S, rot) fp32
 // rotary table; out: (n_frames * S, D) fp32 (out_f32 = 1) or bf16, head h
-// in columns [h * hd, (h + 1) * hd).
+// in columns [h * hd, (h + 1) * hd); q_out/k_out/v_out: all three null, or
+// (n_frames * S, D) bf16 outputs of the roped q, k and the cast v.
 GTAX_ENTRY gtax_attn_frame(const void* qkv, int qkv_f32, const void* freqs,
-                           void* out, int out_f32, int n_frames, int S, int D,
+                           void* out, int out_f32, void* q_out, void* k_out,
+                           void* v_out, int n_frames, int S, int D,
                            int num_heads, int rot, void* stream) {
   if (n_frames <= 0 || S <= 0 || num_heads <= 0 || D % num_heads ||
-      rot < 0 || rot % 2)
+      rot < 0 || rot % 2 || (q_out == nullptr) != (k_out == nullptr) ||
+      (q_out == nullptr) != (v_out == nullptr))
     return (int)cudaErrorInvalidValue;
+  bf16* qo = static_cast<bf16*>(q_out);
+  bf16* ko = static_cast<bf16*>(k_out);
+  bf16* vo = static_cast<bf16*>(v_out);
   const int hd = D / num_heads;
   if (rot > hd) return (int)cudaErrorInvalidValue;
   const float* f = static_cast<const float*>(freqs);
   cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
     case 32:
-      return launch<32>(qkv, qkv_f32, f, out, out_f32, n_frames, S, D, rot, st);
+      return launch<32>(qkv, qkv_f32, f, out, out_f32, qo, ko, vo, n_frames, S,
+                        D, rot, st);
     case 64:
-      return launch<64>(qkv, qkv_f32, f, out, out_f32, n_frames, S, D, rot, st);
+      return launch<64>(qkv, qkv_f32, f, out, out_f32, qo, ko, vo, n_frames, S,
+                        D, rot, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

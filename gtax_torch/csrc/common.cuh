@@ -93,4 +93,13 @@ __device__ __forceinline__ float2 rope_pair(float2 x, const float* freqs) {
   return make_float2(x.x * c0 + (-x.y) * s0, x.y * c1 + x.x * s1);
 }
 
+// Adjoint of rope_pair (gtax/nn/branches.py _rope_transpose): u * cos -
+// rotate_half(u * sin), i.e. (u[c] c0 + u[c+1] s1, u[c+1] c1 - u[c] s0).
+__device__ __forceinline__ float2 rope_pair_t(float2 u, const float* freqs) {
+  float s0, c0, s1, c1;
+  sincosf(freqs[0], &s0, &c0);
+  sincosf(freqs[1], &s1, &c1);
+  return make_float2(u.x * c0 + u.y * s1, u.y * c1 - u.x * s0);
+}
+
 #define GTAX_ENTRY extern "C" __attribute__((visibility("default"))) int

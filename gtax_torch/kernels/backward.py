@@ -1,0 +1,413 @@
+"""The DiT branch backwards: CUDA kernels on the card, plain PyTorch on the
+CPU.
+
+Counterpart of gtax/kernels/backward.py. Each public wrapper is the whole
+backward of one fused branch of gtax_torch.kernels.block,
+
+    out = x + g * y,  y = Branch(modulate(LN(x), shift, scale)) + bias,
+
+from the branch's emit_train residuals (post-rope q/k and cast v, or the
+pre-GELU h1; the pre-gate y) and the output cotangent ct. It returns
+(dx, dshift, dscale, dg, weight and bias gradients): dx in x's dtype, every
+other gradient fp32 (the autograd Functions of gtax_torch.nn.branches cast
+them to the parameters' dtypes, as gtax's custom_vjps do). The tensor's
+device picks the path: a CPU tensor gets the plain version (`*_plain`, any
+float dtype), a CUDA tensor gets the hand-written sm_90a kernels or an
+exception. Each wrapper counts its calls that launch kernels in
+`launches`.
+
+On the card a backward is a few launches of shared kernels: `gate_bwd` and
+`ln_mod_bwd` (csrc/branch_bwd.cu: the gated residual and LayerNorm +
+modulate backwards, with the per-frame sums in a fixed order), `gemm_bf16`
+with trans_b (dY @ W^T, with a bf16, fp32 or gelu' epilogue), `gemm_wgrad`
+(A^T @ B over the token rows, split into row chunks whose fp32 partials
+`reduce_rows` adds in order), `ln_mod` (the modulate recompute) and the
+attention backward (`attn_frame_bwd` / `attn_temporal_bwd`). No float
+atomics anywhere: a run is bit-equal to the next.
+
+Rounding points (shared by kernels and plain versions, as in the TPU
+kernels): elementwise math in fp32; GEMM operands in the compute dtype with
+fp32 sums; dy = ct * g, the attention output recompute, dO = dy @ W_out^T,
+dq/dk/dv, dh1 = gelu'(h1) * (dy @ W2^T) and the GELU value each rounded to
+the compute dtype once; bias gradients summed from the unrounded fp32
+values; dW and db in fp32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gtax_torch.core.rope import rotate_half
+from gtax_torch.kernels import block, build
+from gtax_torch.kernels.block import (
+    EPI_BF16,
+    EPI_DGELU,
+    EPI_F32,
+    LN_EPS,
+    MOD_EPS,
+    _check_branch,
+    _check_mat,
+    _desc,
+    _need,
+    _stream,
+    mm32,
+    modulated32,
+    temporal_bias,
+    valid_bits,
+)
+
+# Split-K target: enough weight-gradient blocks to fill 132 SMs twice
+_WGRAD_BLOCKS = 264
+_WGRAD_MIN_ROWS = 256
+
+
+# ----------------------------------------------------------- plain parts
+
+def gelu_tanh_val_grad32(h):
+    """(gelu(h), gelu'(h)) in fp32 from one tanh (gtax/kernels/backward.py
+    _gelu_tanh_val_grad32)."""
+    c, a = 0.7978845608028654, 0.044715
+    t = torch.tanh(c * (h + a * h * h * h))
+    du = c * (1.0 + 3.0 * a * h * h)
+    return 0.5 * h * (1.0 + t), 0.5 * (1.0 + t) + 0.5 * h * (1.0 - t * t) * du
+
+
+def rope_transpose32(freqs, u):
+    """Adjoint of the rotary embedding: u * cos - rotate_half(u * sin) in
+    fp32 (gtax/nn/branches.py _rope_transpose)."""
+    f = freqs.float()
+    return u * torch.cos(f) - rotate_half(u * torch.sin(f))
+
+
+def gate_bwd_plain(ct, g, y):
+    """out = x + g * y per frame: (ct32, dg (N, D), dy32) in fp32."""
+    ct32 = ct.float()
+    return ct32, (ct32 * y.float()).sum(1), ct32 * g.float()[:, None]
+
+
+def ln_mod_bwd_plain(x, scale, dmod32, ct32):
+    """vjp of modulate(LN(x), shift, scale) plus the residual cotangent:
+    (dx in x's dtype, dshift, dscale) with the per-frame sums in fp32 (the
+    shift's value is not needed: its gradient is dmod itself)."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    r = torch.rsqrt((x32 - mean).square().mean(-1, keepdim=True) + LN_EPS)
+    ln = (x32 - mean) * r
+    dln = dmod32 * (1.0 + scale.float()[:, None] + MOD_EPS)
+    dx32 = r * (dln - dln.mean(-1, keepdim=True)
+                - ln * (dln * ln).mean(-1, keepdim=True))
+    return ((ct32 + dx32).to(x.dtype), dmod32.sum(1), (dmod32 * ln).sum(1))
+
+
+def wgrad32(a, b):
+    """a^T @ b summed over every leading (token) axis, fp32."""
+    return torch.matmul(a.reshape(-1, a.shape[-1]).float().t(),
+                        b.reshape(-1, b.shape[-1]).float())
+
+
+def _attention_bwd_plain(q, k, v, dao, bias, dt, scale_attn, spec):
+    """The shared attention recompute + backward over einsum `spec`
+    ("query", "key", "probs" subscripts). Returns (ao, dq32, dk32, dv)."""
+    sq, sk, sp = spec
+    s = torch.einsum(f"{sq},{sk}->{sp}", q.float(), k.float()) * scale_attn
+    if bias is not None:
+        s = s + bias
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p32 = e / e.sum(-1, keepdim=True)
+    pb = p32.to(dt).float()
+    ao = torch.einsum(f"{sp},{sk}->{sq}", pb, v.float()).to(dt)
+    dp = torch.einsum(f"{sq},{sk}->{sp}", dao.float(), v.float())
+    ds = (p32 * (dp - (dp * p32).sum(-1, keepdim=True)) * scale_attn).to(dt)
+    dq = torch.einsum(f"{sp},{sk}->{sq}", ds.float(), k.float())
+    dk = torch.einsum(f"{sp},{sq}->{sk}", ds.float(), q.float())
+    dv = torch.einsum(f"{sp},{sq}->{sk}", pb, dao.float()).to(dt)
+    return ao, dq, dk, dv
+
+
+def _attn_branch_bwd_plain(x, shift, scale, g, qkv_w, out_w, y, ct, attn):
+    """Shared body of the attention-branch backwards; `attn(dao)` returns
+    (ao, dq, dk, dv) as (N, S, D) tensors (dq/dk fp32, rope adjoint
+    applied)."""
+    N, S, D = x.shape
+    dt = x.dtype
+    ct32, dg, dy32 = gate_bwd_plain(ct, g, y)
+    dy = dy32.to(dt)
+    dao = mm32(dy, out_w.t()).to(dt)
+    ao, dq, dk, dv = attn(dao)
+    dW_out = wgrad32(ao, dy)
+    db_out = dy32.sum((0, 1))
+    dqkv = torch.cat([dq, dk, dv.float()], dim=-1).to(dt)
+    mod = modulated32(x.float(), shift, scale).to(dt)
+    dW_qkv = wgrad32(mod, dqkv)
+    dmod32 = mm32(dqkv, qkv_w.t())
+    dx, dshift, dscale = ln_mod_bwd_plain(x, scale, dmod32, ct32)
+    return dx, dshift, dscale, dg, dW_qkv, dW_out, db_out
+
+
+def spatial_branch_bwd_plain(x, shift, scale, g, qkv_w, out_w, rope_freqs,
+                             qr, kr, vr, y, ct, num_heads):
+    N, S, D = x.shape
+    d = D // num_heads
+    shape = (N, S, num_heads, d)
+    f = rope_freqs[:, None, :]
+
+    def attn(dao):
+        ao, dq, dk, dv = _attention_bwd_plain(
+            qr.reshape(shape), kr.reshape(shape), vr.reshape(shape),
+            dao.reshape(shape), None, x.dtype, 1.0 / d**0.5,
+            ("nqhd", "nkhd", "nhqk"))
+        return (ao.reshape(N, S, D), rope_transpose32(f, dq).reshape(N, S, D),
+                rope_transpose32(f, dk).reshape(N, S, D), dv.reshape(N, S, D))
+
+    return _attn_branch_bwd_plain(x, shift, scale, g, qkv_w, out_w, y, ct,
+                                  attn)
+
+
+def temporal_branch_bwd_plain(x, shift, scale, g, qkv_w, out_w, rope_freqs,
+                              valid, qr, kr, vr, y, ct, num_heads, n_frames):
+    N, S, D = x.shape
+    T = n_frames
+    d = D // num_heads
+    shape = (N // T, T, S, num_heads, d)
+    f = rope_freqs[None, :, None, None, :]
+    bias = temporal_bias(valid, T, x.device)
+
+    def attn(dao):
+        ao, dq, dk, dv = _attention_bwd_plain(
+            qr.reshape(shape), kr.reshape(shape), vr.reshape(shape),
+            dao.reshape(shape), bias, x.dtype, 1.0 / d**0.5,
+            ("bishd", "bjshd", "bshij"))
+        return (ao.reshape(N, S, D), rope_transpose32(f, dq).reshape(N, S, D),
+                rope_transpose32(f, dk).reshape(N, S, D), dv.reshape(N, S, D))
+
+    return _attn_branch_bwd_plain(x, shift, scale, g, qkv_w, out_w, y, ct,
+                                  attn)
+
+
+def mlp_branch_bwd_plain(x, shift, scale, g, w1, w2, h1, y, ct):
+    dt = x.dtype
+    ct32, dg, dy32 = gate_bwd_plain(ct, g, y)
+    dy = dy32.to(dt)
+    ha32, gp32 = gelu_tanh_val_grad32(h1.float())
+    ha = ha32.to(dt)
+    dW2 = wgrad32(ha, dy)
+    db2 = dy32.sum((0, 1))
+    dh132 = gp32 * mm32(dy, w2.t())
+    dh1 = dh132.to(dt)
+    mod = modulated32(x.float(), shift, scale).to(dt)
+    dW1 = wgrad32(mod, dh1)
+    db1 = dh132.sum((0, 1))
+    dmod32 = mm32(dh1, w1.t())
+    dx, dshift, dscale = ln_mod_bwd_plain(x, scale, dmod32, ct32)
+    return dx, dshift, dscale, dg, dW1, db1, dW2, db2
+
+
+# ------------------------------------------------------- kernel launches
+
+def _empty(shape, like, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device=like.device)
+
+
+def reduce_rows(a):
+    """(R, C) fp32 -> (C,) fp32 column sums, rows added in order."""
+    out = _empty(a.shape[1:], a)
+    build.launch("gtax_reduce_rows", a.data_ptr(), out.data_ptr(),
+                 a.shape[0], a[0].numel(), _stream(a))
+    return out
+
+
+def wgrad(a, b):
+    """a (M, Ka)^T @ b (M, N) in fp32, M split into row chunks when the
+    (Ka/64) x (N/64) tiles alone would not fill the card; bf16 operands."""
+    M, Ka = a.shape
+    N = b.shape[1]
+    tiles = (Ka // 64) * (N // 64)
+    splits = max(1, min(-(-_WGRAD_BLOCKS // tiles), M // _WGRAD_MIN_ROWS))
+    chunk = -(-M // splits)
+    chunk = -(-chunk // 32) * 32
+    splits = -(-M // chunk)
+    part = _empty((splits, Ka, N), a)
+    build.launch("gtax_gemm_wgrad", a.data_ptr(), b.data_ptr(),
+                 part.data_ptr(), M, Ka, N, chunk, _stream(a))
+    return part[0] if splits == 1 else reduce_rows(part)
+
+
+def gate_bwd(ct, y, g, S):
+    """-> (dy bf16 (M, D), dg (N, D) fp32, db (D,) fp32)."""
+    M, D = ct.shape
+    N = M // S
+    dy = torch.empty_like(ct)
+    dg, dys = _empty((N, D), ct), _empty((N, D), ct)
+    build.launch("gtax_gate_bwd", ct.data_ptr(), y.data_ptr(), g.data_ptr(),
+                 g.stride(0), dy.data_ptr(), dg.data_ptr(), dys.data_ptr(),
+                 N, S, D, _stream(ct))
+    return dy, dg, reduce_rows(dys)
+
+
+def ln_mod_bwd(x, dmod, scale, ct, S):
+    """-> (dx bf16 (M, D), dshift, dscale (N, D) fp32)."""
+    M, D = dmod.shape
+    N = M // S
+    dx = torch.empty_like(ct)
+    dsh, dsc = _empty((N, D), x), _empty((N, D), x)
+    build.launch("gtax_ln_mod_bwd", x.data_ptr(), dmod.data_ptr(),
+                 scale.data_ptr(), scale.stride(0), ct.data_ptr(),
+                 dx.data_ptr(), dsh.data_ptr(), dsc.data_ptr(), N, S, D,
+                 _stream(x))
+    return dx, dsh, dsc
+
+
+def _check_bwd(x, shift, scale, g, residuals, ct):
+    N, S, D = _check_branch(x, shift, scale, g)
+    _need(D in (64, 128, 256, 512, 1024),
+          lambda: f"D={D}: the LayerNorm backward takes 64 .. 1024, powers "
+                  "of two")
+    for name, t in residuals + (("ct", ct),):
+        _need(t.is_cuda and t.dtype == torch.bfloat16 and t.is_contiguous()
+              and t.shape[:2] == (N, S),
+              lambda name=name, t=t: f"{name} must be a contiguous CUDA "
+              f"bf16 ({N}, {S}, ...) tensor, got {_desc(t)}")
+    return N, S, D
+
+
+def _attn_branch_bwd_cuda(x, shift, scale, g, qkv_w, out_w, y, ct,
+                          attention):
+    """Shared launch sequence of the attention-branch backwards;
+    `attention(dao, dqkv, ao)` launches the attention backward."""
+    N, S, D = x.shape
+    M = N * S
+    _check_mat("qkv_w", qkv_w, (D, 3 * D))
+    _check_mat("out_w", out_w, (D, D))
+    _need(shift.stride(0) == scale.stride(0),
+          lambda: "shift and scale must share a row stride")
+    dy, dg, db_out = gate_bwd(ct.reshape(M, D), y.reshape(M, D), g, S)
+    dao = torch.empty_like(dy)
+    block.launch_gemm(dy, out_w, dao, M, D, D, EPI_BF16, trans_b=True)
+    dqkv = _empty((M, 3 * D), x, torch.bfloat16)
+    ao = torch.empty_like(dy)
+    attention(dao, dqkv, ao)
+    dW_out = wgrad(ao, dy)
+    dW_qkv = wgrad(block._modulate_cuda(x, shift, scale), dqkv)
+    dmod = _empty((M, D), x)
+    block.launch_gemm(dqkv, qkv_w, dmod, M, D, 3 * D, EPI_F32, trans_b=True)
+    dx, dshift, dscale = ln_mod_bwd(x, dmod, scale, ct.reshape(M, D), S)
+    return (dx.reshape(N, S, D), dshift, dscale, dg, dW_qkv, dW_out, db_out)
+
+
+# ------------------------------------------------------------- wrappers
+
+def fused_spatial_branch_bwd(x, shift, scale, g, qkv_w, out_w, rope_freqs,
+                             qr, kr, vr, y, ct, num_heads):
+    """Whole spatial-attention-branch backward. x/ct/y/qr/kr/vr: (N, S, D);
+    shift/scale/g: (N, D); qkv_w: (D, 3D); out_w: (D, D); rope_freqs:
+    (S, head_dim). Returns (dx, dshift, dscale, dg, dW_qkv, dW_out, db_out).
+
+    Replaces gtax/kernels/backward.py fused_spatial_branch_bwd (pallas_call
+    at :386, body _spatial_bwd_kernel :208). On the card: gate_bwd,
+    reduce_rows (db_out), gemm dy @ W_out^T, attn_frame_bwd (recomputes P
+    and the attention output, writes dq/dk/dv), gemm_wgrad dW_out, ln_mod,
+    gemm_wgrad dW_qkv, gemm dqkv @ W_qkv^T, ln_mod_bwd: 9-11 launches.
+    Bound: operations (four token-row GEMMs of the forward's size, plus the
+    attention backward); see PERF.md for the measured time."""
+    if x.device.type == "cpu":
+        return spatial_branch_bwd_plain(x, shift, scale, g, qkv_w, out_w,
+                                        rope_freqs, qr, kr, vr, y, ct,
+                                        num_heads)
+    N, S, D = _check_bwd(x, shift, scale, g, (("qr", qr), ("kr", kr),
+                                              ("vr", vr), ("y", y)), ct)
+    d = block._check_heads(D, num_heads, (32, 64))
+    block._check_freqs(rope_freqs, S, d)
+
+    def attention(dao, dqkv, ao):
+        build.launch("gtax_attn_frame_bwd", qr.data_ptr(), kr.data_ptr(),
+                     vr.data_ptr(), dao.data_ptr(), rope_freqs.data_ptr(),
+                     dqkv.data_ptr(), ao.data_ptr(), N, S, D, num_heads, d,
+                     _stream(x))
+
+    out = _attn_branch_bwd_cuda(x, shift, scale, g, qkv_w, out_w, y, ct,
+                                attention)
+    fused_spatial_branch_bwd.launches += 1
+    return out
+
+
+fused_spatial_branch_bwd.launches = 0
+
+
+def fused_temporal_branch_bwd(x, shift, scale, g, qkv_w, out_w, rope_freqs,
+                              valid, qr, kr, vr, y, ct, num_heads, n_frames):
+    """Whole temporal-attention-branch backward. x/ct/y/qr/kr/vr:
+    (N = B*T, S, D) frame-major; shift/scale/g: (N, D); rope_freqs:
+    (T, head_dim); valid: (T,) bools or None. Returns (dx, dshift, dscale,
+    dg, dW_qkv, dW_out, db_out).
+
+    Replaces gtax/kernels/backward.py fused_temporal_branch_bwd
+    (pallas_call at :632, body _temporal_bwd_kernel :424, rope adjoint
+    _rope_transpose_rows :411). On the card: as the spatial backward, with
+    attn_temporal_bwd (causal, slot-validity bias) as the attention part.
+    Bound: operations (the four GEMMs; the attention part is bytes)."""
+    if x.device.type == "cpu":
+        return temporal_branch_bwd_plain(x, shift, scale, g, qkv_w, out_w,
+                                         rope_freqs, valid, qr, kr, vr, y, ct,
+                                         num_heads, n_frames)
+    N, S, D = _check_bwd(x, shift, scale, g, (("qr", qr), ("kr", kr),
+                                              ("vr", vr), ("y", y)), ct)
+    T = n_frames
+    _need(N % T == 0, lambda: f"N={N} is not a multiple of T={T}")
+    block.check_temporal(D, num_heads, T, rope_freqs)
+    bits = valid_bits(valid, T)
+
+    def attention(dao, dqkv, ao):
+        build.launch("gtax_attn_temporal_bwd", qr.data_ptr(), kr.data_ptr(),
+                     vr.data_ptr(), dao.data_ptr(), rope_freqs.data_ptr(),
+                     dqkv.data_ptr(), ao.data_ptr(), N // T, T, S, D,
+                     num_heads, bits, _stream(x))
+
+    out = _attn_branch_bwd_cuda(x, shift, scale, g, qkv_w, out_w, y, ct,
+                                attention)
+    fused_temporal_branch_bwd.launches += 1
+    return out
+
+
+fused_temporal_branch_bwd.launches = 0
+
+
+def fused_mlp_branch_bwd(x, shift, scale, g, w1, w2, h1, y, ct):
+    """Whole MLP-branch backward. x/ct/y: (N, S, D); h1: (N, S, H);
+    shift/scale/g: (N, D); w1: (D, H); w2: (H, D). Returns (dx, dshift,
+    dscale, dg, dW1, db1, dW2, db2).
+
+    Replaces gtax/kernels/backward.py fused_mlp_branch_bwd (pallas_call at
+    :709, body _mlp_bwd_kernel :132, GELU value and derivative from one tanh
+    _gelu_tanh_val_grad32 :116). On the card: gate_bwd, reduce_rows (db2),
+    gemm dy @ W2^T with the gelu' epilogue (writes dh1, gelu(h1) and the
+    per-tile sums of db1), reduce_rows (db1), gemm_wgrad dW2, ln_mod,
+    gemm_wgrad dW1, gemm dh1 @ W1^T, ln_mod_bwd: 9-10 launches. Bound:
+    operations (four GEMMs of the forward's fc1/fc2 size)."""
+    if x.device.type == "cpu":
+        return mlp_branch_bwd_plain(x, shift, scale, g, w1, w2, h1, y, ct)
+    N, S, D = _check_bwd(x, shift, scale, g, (("h1", h1), ("y", y)), ct)
+    Hd = w1.shape[-1]
+    block._check_hidden(Hd)
+    _check_mat("w1", w1, (D, Hd))
+    _check_mat("w2", w2, (Hd, D))
+    _need(shift.stride(0) == scale.stride(0),
+          lambda: "shift and scale must share a row stride")
+    M = N * S
+    ct2 = ct.reshape(M, D)
+    dy, dg, db2 = gate_bwd(ct2, y.reshape(M, D), g, S)
+    dh1 = _empty((M, Hd), x, torch.bfloat16)
+    ha = torch.empty_like(dh1)
+    part = _empty((-(-M // 64), Hd), x)
+    block.launch_gemm(dy, w2, dh1, M, Hd, D, EPI_DGELU, out2=ha,
+                      aux=h1.reshape(M, Hd), colsum=part, trans_b=True)
+    db1 = reduce_rows(part)
+    dW2 = wgrad(ha, dy)
+    dW1 = wgrad(block._modulate_cuda(x, shift, scale), dh1)
+    dmod = _empty((M, D), x)
+    block.launch_gemm(dh1, w1, dmod, M, D, Hd, EPI_F32, trans_b=True)
+    dx, dshift, dscale = ln_mod_bwd(x, dmod, scale, ct2, S)
+    fused_mlp_branch_bwd.launches += 1
+    return dx.reshape(N, S, D), dshift, dscale, dg, dW1, db1, dW2, db2
+
+
+fused_mlp_branch_bwd.launches = 0

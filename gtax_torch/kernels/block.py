@@ -18,6 +18,15 @@ with an fp32 or fused epilogue), and the attention kernel of the branch
 (`attn_frame` or `attn_temporal`). Each wrapper counts its calls that
 launch kernels in its `launches` attribute.
 
+For training, `emit_train=True` also returns the residuals the branch
+backwards consume (gtax's emit_train outputs): the post-rope q and k and the
+cast v of the attention branches, the pre-GELU fc1 output h1 of the MLP, and
+the pre-gate branch output y = proj + bias of both, each in the compute
+dtype. On the card the attention kernel stores q/k/v as it computes them and
+the last GEMM stores y beside the gated output (a second store of one
+epilogue; fc1's epilogue does the same for h1): no extra launch, and with
+emit_train off nothing changes for serving.
+
 Rounding points (shared by kernels and plain versions, as in the TPU
 kernels): LN statistics, softmax and rope in fp32; the qkv product stays
 fp32 until after rope and is cast to the compute dtype after it;
@@ -42,6 +51,10 @@ EPI_BIAS_GELU_TANH = 2
 EPI_BIAS_BF16_GELU = 3
 EPI_BIAS_GATED = 4
 EPI_BIAS_BF16_RESID = 5
+EPI_BF16 = 6
+EPI_BIAS_GATED_Y = 7
+EPI_BIAS_GELU_TANH_H = 8
+EPI_DGELU = 9
 
 
 # ----------------------------------------------------------- plain parts
@@ -128,29 +141,37 @@ def attend_temporal(q, k, v, bias, dtype, out_dtype=None):
 # ------------------------------------------------------ plain branches
 
 def spatial_branch_plain(x, shift, scale, gate, qkv_w, out_w, out_b,
-                         rope_freqs, num_heads):
+                         rope_freqs, num_heads, emit_train=False):
     N, S, D = x.shape
     dt, H = x.dtype, num_heads
     x32 = x.float()
     qkv = mm32(_modulated(x32, shift, scale, dt), qkv_w)
     q, k, v = (t.reshape(N, S, H, D // H) for t in qkv.split(D, dim=-1))
     f = rope_freqs[:, None, :]
-    o = attend_frames(rope(f, q).to(dt), rope(f, k).to(dt), v.to(dt), dt)
+    qr, kr, vb = rope(f, q).to(dt), rope(f, k).to(dt), v.to(dt)
+    o = attend_frames(qr, kr, vb, dt)
     y = mm32(o.reshape(N, S, D), out_w) + out_b.float()
-    return (x32 + gate.float()[:, None] * y).to(dt)
+    out = (x32 + gate.float()[:, None] * y).to(dt)
+    if emit_train:
+        return (out, *(t.reshape(N, S, D) for t in (qr, kr, vb)), y.to(dt))
+    return out
 
 
-def mlp_branch_plain(x, shift, scale, gate, w1, b1, w2, b2):
+def mlp_branch_plain(x, shift, scale, gate, w1, b1, w2, b2,
+                     emit_train=False):
     dt = x.dtype
     x32 = x.float()
     h = mm32(_modulated(x32, shift, scale, dt), w1) + b1.float()
     y = mm32(gelu_tanh32(h).to(dt), w2) + b2.float()
-    return (x32 + gate.float()[:, None] * y).to(dt)
+    out = (x32 + gate.float()[:, None] * y).to(dt)
+    if emit_train:
+        return out, h.to(dt), y.to(dt)
+    return out
 
 
 def temporal_branch_plain(x, shift, scale, gate, qkv_w, out_w, out_b,
                           rope_freqs, valid, num_heads, n_frames,
-                          emit_kv=False):
+                          emit_kv=False, emit_train=False):
     N, S, D = x.shape
     dt, H, T = x.dtype, num_heads, n_frames
     B = N // T
@@ -158,11 +179,12 @@ def temporal_branch_plain(x, shift, scale, gate, qkv_w, out_w, out_b,
     qkv = mm32(_modulated(x32, shift, scale, dt), qkv_w)
     q, k, v = (t.reshape(B, T, S, H, D // H) for t in qkv.split(D, dim=-1))
     f = rope_freqs[None, :, None, None, :]
-    kr, vb = rope(f, k).to(dt), v.to(dt)
-    o = attend_temporal(rope(f, q).to(dt), kr, vb,
-                        temporal_bias(valid, T, x.device), dt)
+    qr, kr, vb = rope(f, q).to(dt), rope(f, k).to(dt), v.to(dt)
+    o = attend_temporal(qr, kr, vb, temporal_bias(valid, T, x.device), dt)
     y = mm32(o.reshape(N, S, D), out_w) + out_b.float()
     out = (x32 + gate.float()[:, None] * y).to(dt)
+    if emit_train:
+        return (out, *(t.reshape(N, S, D) for t in (qr, kr, vb)), y.to(dt))
     if emit_kv:
         return out, kr.reshape(N, S, D), vb.reshape(N, S, D)
     return out
@@ -236,34 +258,44 @@ def launch_ln_mod(x, out, rows, D, S, mode, p0, p1, p_stride=0,
                  _stream(x))
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def launch_gemm(a, w, out, M, N, K, epi, bias=None, resid=None, gate=None,
-                S=1):
+                S=1, out2=None, aux=None, colsum=None, trans_b=False):
+    """out = epilogue(a @ w), or a @ w^T with trans_b (w stored (N, K));
+    out2/aux/colsum: the second output, the h1 input and the per-tile
+    column sums of the emit_train and gelu' epilogues."""
     build.launch(
         "gtax_gemm_bf16", a.data_ptr(), w.data_ptr(), out.data_ptr(),
-        None if bias is None else bias.data_ptr(),
-        int(bias is not None and bias.dtype == torch.float32),
-        None if resid is None else resid.data_ptr(),
-        None if gate is None else gate.data_ptr(),
-        0 if gate is None else gate.stride(0), M, N, K, S, epi, _stream(a))
+        _ptr(out2), _ptr(aux), _ptr(colsum), _ptr(bias),
+        int(bias is not None and bias.dtype == torch.float32), _ptr(resid),
+        _ptr(gate), 0 if gate is None else gate.stride(0), M, N, K, S, epi,
+        int(trans_b), _stream(a))
 
 
-def launch_attn_frame(qkv, freqs, out, n_frames, S, D, num_heads, rot):
-    """qkv and out are fp32 or bf16, as allocated."""
+def launch_attn_frame(qkv, freqs, out, n_frames, S, D, num_heads, rot,
+                      qkv_out=None):
+    """qkv and out are fp32 or bf16, as allocated; qkv_out an optional
+    (q, k, v) triple of bf16 outputs (the emit_train residuals)."""
+    q, k, v = qkv_out or (None, None, None)
     build.launch("gtax_attn_frame", qkv.data_ptr(),
                  int(qkv.dtype == torch.float32), freqs.data_ptr(),
-                 out.data_ptr(), int(out.dtype == torch.float32), n_frames, S,
-                 D, num_heads, rot, _stream(qkv))
+                 out.data_ptr(), int(out.dtype == torch.float32), _ptr(q),
+                 _ptr(k), _ptr(v), n_frames, S, D, num_heads, rot,
+                 _stream(qkv))
 
 
 def launch_attn_temporal(qkv, freqs, out, B, n_q, q_off, S, D, num_heads,
-                         bits, k_ctx=None, v_ctx=None, kv_out=None):
+                         bits, k_ctx=None, v_ctx=None, kv_out=None,
+                         q_out=None):
     """qkv fp32; out fp32 or bf16, as allocated; kv_out an optional (K, V)
-    pair of bf16 outputs."""
+    pair of bf16 outputs; q_out (with kv_out) the roped Q."""
     build.launch(
         "gtax_attn_temporal", qkv.data_ptr(), freqs.data_ptr(),
-        None if k_ctx is None else k_ctx.data_ptr(),
-        None if v_ctx is None else v_ctx.data_ptr(), out.data_ptr(),
-        int(out.dtype == torch.float32),
+        _ptr(k_ctx), _ptr(v_ctx), out.data_ptr(),
+        int(out.dtype == torch.float32), _ptr(q_out),
         None if kv_out is None else kv_out[0].data_ptr(),
         None if kv_out is None else kv_out[1].data_ptr(),
         B, n_q, q_off, S, D, num_heads, bits, _stream(qkv))
@@ -315,10 +347,11 @@ def _check_attn_weights(qkv_w, out_w, out_b, D):
 # ------------------------------------------------------------- wrappers
 
 def fused_spatial_branch(x, shift, scale, gate, qkv_w, out_w, out_b,
-                         rope_freqs, num_heads):
+                         rope_freqs, num_heads, emit_train=False):
     """x: (N, S, D) per-frame token tiles; shift/scale/gate: (N, D);
     qkv_w: (D, 3D); out_w: (D, D); out_b: (D,); rope_freqs: (S, head_dim)
-    pixel-axial table. Returns x + gate * SpatialAttention(modulate(LN(x))).
+    pixel-axial table. Returns x + gate * SpatialAttention(modulate(LN(x))),
+    or with emit_train (out, q, k, v, y), all (N, S, D).
 
     Replaces gtax/kernels/block.py fused_spatial_branch (pallas_call at
     :846, body _kernel :214, core _spatial_attention_core :137). On the
@@ -328,7 +361,7 @@ def fused_spatial_branch(x, shift, scale, gate, qkv_w, out_w, out_b,
     measured time against that bound."""
     if x.device.type == "cpu":
         return spatial_branch_plain(x, shift, scale, gate, qkv_w, out_w,
-                                    out_b, rope_freqs, num_heads)
+                                    out_b, rope_freqs, num_heads, emit_train)
     N, S, D = _check_branch(x, shift, scale, gate)
     _check_attn_weights(qkv_w, out_w, out_b, D)
     d = _check_heads(D, num_heads, (32, 64))
@@ -337,20 +370,25 @@ def fused_spatial_branch(x, shift, scale, gate, qkv_w, out_w, out_b,
     qkv = torch.empty((N * S, 3 * D), dtype=torch.float32, device=x.device)
     launch_gemm(mod, qkv_w, qkv, N * S, 3 * D, D, EPI_F32)
     att = torch.empty((N * S, D), dtype=torch.bfloat16, device=x.device)
-    launch_attn_frame(qkv, rope_freqs, att, N, S, D, num_heads, d)
+    res = tuple(torch.empty_like(x) for _ in range(4)) if emit_train else None
+    launch_attn_frame(qkv, rope_freqs, att, N, S, D, num_heads, d,
+                      qkv_out=res and res[:3])
     out = torch.empty_like(x)
-    launch_gemm(att, out_w, out, N * S, D, D, EPI_BIAS_GATED, bias=out_b,
-                resid=x, gate=gate, S=S)
+    launch_gemm(att, out_w, out, N * S, D, D,
+                EPI_BIAS_GATED_Y if emit_train else EPI_BIAS_GATED,
+                bias=out_b, resid=x, gate=gate, S=S, out2=res and res[3])
     fused_spatial_branch.launches += 1
-    return out
+    return (out, *res) if emit_train else out
 
 
 fused_spatial_branch.launches = 0
 
 
-def fused_mlp_branch(x, shift, scale, gate, w1, b1, w2, b2):
+def fused_mlp_branch(x, shift, scale, gate, w1, b1, w2, b2,
+                     emit_train=False):
     """x: (N, S, D); shift/scale/gate: (N, D); w1: (D, H); w2: (H, D).
-    Returns x + gate * (fc2(gelu_tanh(fc1(modulate(LN(x))))) ).
+    Returns x + gate * (fc2(gelu_tanh(fc1(modulate(LN(x))))) ), or with
+    emit_train (out, h1 (N, S, H), y (N, S, D)).
 
     Replaces gtax/kernels/block.py fused_mlp_branch (pallas_call at :779,
     body _mlp_kernel :715). On the card: ln_mod -> gemm (+b1, tanh-GELU,
@@ -358,7 +396,8 @@ def fused_mlp_branch(x, shift, scale, gate, w1, b1, w2, b2):
     fc1/fc2 weights at serving row counts (bytes); tensor-core rate at
     prefill and VAE-size row counts."""
     if x.device.type == "cpu":
-        return mlp_branch_plain(x, shift, scale, gate, w1, b1, w2, b2)
+        return mlp_branch_plain(x, shift, scale, gate, w1, b1, w2, b2,
+                                emit_train)
     N, S, D = _check_branch(x, shift, scale, gate)
     Hd = w1.shape[-1]
     _check_hidden(Hd)
@@ -368,12 +407,17 @@ def fused_mlp_branch(x, shift, scale, gate, w1, b1, w2, b2):
     _check_bias("b2", b2, D)
     mod = _modulate_cuda(x, shift, scale)
     h = torch.empty((N * S, Hd), dtype=torch.bfloat16, device=x.device)
-    launch_gemm(mod, w1, h, N * S, Hd, D, EPI_BIAS_GELU_TANH, bias=b1)
+    h1 = torch.empty_like(h) if emit_train else None
+    launch_gemm(mod, w1, h, N * S, Hd, D,
+                EPI_BIAS_GELU_TANH_H if emit_train else EPI_BIAS_GELU_TANH,
+                bias=b1, out2=h1)
     out = torch.empty_like(x)
-    launch_gemm(h, w2, out, N * S, D, Hd, EPI_BIAS_GATED, bias=b2, resid=x,
-                gate=gate, S=S)
+    y = torch.empty_like(x) if emit_train else None
+    launch_gemm(h, w2, out, N * S, D, Hd,
+                EPI_BIAS_GATED_Y if emit_train else EPI_BIAS_GATED, bias=b2,
+                resid=x, gate=gate, S=S, out2=y)
     fused_mlp_branch.launches += 1
-    return out
+    return (out, h1.reshape(N, S, Hd), y) if emit_train else out
 
 
 fused_mlp_branch.launches = 0
@@ -389,7 +433,7 @@ def check_temporal(D, num_heads, T, rope_freqs):
 
 def _temporal_cuda(x, shift, scale, gate, qkv_w, out_w, out_b, rope_freqs,
                    num_heads, B, n_q, q_off, bits, k_ctx=None, v_ctx=None,
-                   emit_kv=False):
+                   emit_kv=False, emit_train=False):
     N, S, D = x.shape
     check_temporal(D, num_heads, q_off + n_q, rope_freqs)
     _check_attn_weights(qkv_w, out_w, out_b, D)
@@ -397,39 +441,51 @@ def _temporal_cuda(x, shift, scale, gate, qkv_w, out_w, out_b, rope_freqs,
     qkv = torch.empty((N * S, 3 * D), dtype=torch.float32, device=x.device)
     launch_gemm(mod, qkv_w, qkv, N * S, 3 * D, D, EPI_F32)
     att = torch.empty((N * S, D), dtype=torch.bfloat16, device=x.device)
-    kv_out = (torch.empty_like(x), torch.empty_like(x)) if emit_kv else None
+    emitted = [torch.empty_like(x)
+               for _ in range(4 if emit_train else 2 if emit_kv else 0)]
     launch_attn_temporal(qkv, rope_freqs, att, B, n_q, q_off, S, D,
-                         num_heads, bits, k_ctx, v_ctx, kv_out)
+                         num_heads, bits, k_ctx, v_ctx,
+                         emitted[:2] or None,
+                         emitted[2] if emit_train else None)
     out = torch.empty_like(x)
-    launch_gemm(att, out_w, out, N * S, D, D, EPI_BIAS_GATED, bias=out_b,
-                resid=x, gate=gate, S=S)
-    return out if kv_out is None else (out, *kv_out)
+    launch_gemm(att, out_w, out, N * S, D, D,
+                EPI_BIAS_GATED_Y if emit_train else EPI_BIAS_GATED,
+                bias=out_b, resid=x, gate=gate, S=S,
+                out2=emitted[3] if emit_train else None)
+    if emit_train:  # (out, q, k, v, y), as gtax returns them
+        k, v, q, y = emitted
+        return out, q, k, v, y
+    return (out, *emitted) if emit_kv else out
 
 
 def fused_temporal_branch(x, shift, scale, gate, qkv_w, out_w, out_b,
                           rope_freqs, valid, num_heads, n_frames,
-                          emit_kv=False):
+                          emit_kv=False, emit_train=False):
     """x: (N = B*T, S, D) frame-major token tiles; shift/scale/gate:
     (N, D); rope_freqs: (T, head_dim) temporal table; valid: (T,) bools or
     None. Returns x + gate * TemporalCausalAttention(modulate(LN(x))), and
     with emit_kv also the post-rope K and cast V rows (N, S, D) — the
-    context cache fused_temporal_step reads.
+    context cache fused_temporal_step reads — or with emit_train
+    (out, q, k, v, y) (not both).
 
     Replaces gtax/kernels/block.py fused_temporal_branch (pallas_call at
     :687, body _temporal_kernel :253, core _temporal_attention_core :297,
     mask temporal_preamble :615). On the card: ln_mod -> gemm (fp32 qkv)
     -> attn_temporal (full window, optional K/V store) -> gemm (gated
     residual): 4 launches. Bound: weight bytes."""
+    if emit_kv and emit_train:
+        raise ValueError("emit_kv and emit_train are exclusive")
     if x.device.type == "cpu":
         return temporal_branch_plain(x, shift, scale, gate, qkv_w, out_w,
                                      out_b, rope_freqs, valid, num_heads,
-                                     n_frames, emit_kv)
+                                     n_frames, emit_kv, emit_train)
     N, S, D = _check_branch(x, shift, scale, gate)
     _need(N % n_frames == 0,
           lambda: f"N={N} is not a multiple of T={n_frames}")
     out = _temporal_cuda(x, shift, scale, gate, qkv_w, out_w, out_b,
                          rope_freqs, num_heads, N // n_frames, n_frames, 0,
-                         valid_bits(valid, n_frames), emit_kv=emit_kv)
+                         valid_bits(valid, n_frames), emit_kv=emit_kv,
+                         emit_train=emit_train)
     fused_temporal_branch.launches += 1
     return out
 

@@ -31,28 +31,44 @@ LIB_NAME = "libgtax_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argument types (see the GTAX_ENTRY functions in csrc/)
 SIGNATURES = {
     # x, out, row_scale, p0, p1, rows, D, S, p_stride, mode, stream
     "gtax_ln_mod": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # A, B, C, bias, bias_f32, resid, gate, gate_stride, M, N, K, S, epi,
-    # stream
-    "gtax_gemm_bf16": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _P),
+    # A, B, C, C2, aux, colsum, bias, bias_f32, resid, gate, gate_stride, M,
+    # N, K, S, epi, trans_b, stream
+    "gtax_gemm_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                       _I, _I, _I, _I, _P),
+    # A, B, C, M, Ka, N, chunk, stream
+    "gtax_gemm_wgrad": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # in, out, R, C, stream
+    "gtax_reduce_rows": (_P, _P, _I, _L, _P),
+    # ct, y, gate, gate_stride, dy, dg, dysum, F, S, D, stream
+    "gtax_gate_bwd": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P),
+    # x, dmod, scale, p_stride, ct, dx, dshift, dscale, F, S, D, stream
+    "gtax_ln_mod_bwd": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
     # A, B, C, sa, group, ws, bias, bias_f32, resid, gate, gate_stride, M,
     # N, K, S, epi, stream
     "gtax_gemm_s8": (_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                      _I, _I, _P),
     # a, q, scale, rows, cols, G, stream
     "gtax_quant_rows": (_P, _P, _P, _I, _I, _I, _P),
-    # qkv, qkv_f32, freqs, out, out_f32, n_frames, S, D, num_heads, rot,
+    # qkv, qkv_f32, freqs, out, out_f32, q_out, k_out, v_out, n_frames, S,
+    # D, num_heads, rot, stream
+    "gtax_attn_frame": (_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _P),
+    # qkv, freqs, k_ctx, v_ctx, out, out_f32, q_out, k_out, v_out, B, n_q,
+    # q_off, S, D, num_heads, valid_mask, stream
+    "gtax_attn_temporal": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _I, _I, _P),
+    # q, k, v, dout, freqs, dqkv, ao, n_frames, S, D, num_heads, rot, stream
+    "gtax_attn_frame_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _P),
+    # q, k, v, dout, freqs, dqkv, ao, B, T, S, D, num_heads, valid_mask,
     # stream
-    "gtax_attn_frame": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # qkv, freqs, k_ctx, v_ctx, out, out_f32, k_out, v_out, B, n_q, q_off,
-    # S, D, num_heads, valid_mask, stream
-    "gtax_attn_temporal": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                           _I, _I, _I, _P),
+    "gtax_attn_temporal_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _P),
 }
 
 _lib = None

@@ -1,12 +1,20 @@
 """Spatiotemporal DiT latent video denoiser (counterpart of
-gtax/models/dit.py), serving layout only.
+gtax/models/dit.py).
 
-Blocks are a per-block list (gtax's unstacked serving layout); the port has
-no stacked `scan` layout. Every block branch goes through the fused-branch
-wrappers of gtax_torch.kernels.block, or of gtax_torch.kernels.quant for
-W8A8 params (quantize_for_inference), which launch the CUDA kernels for
-CUDA tensors and run their plain versions for CPU tensors. The int8
-branches run at every batch size: the port has no paired-branch kernel.
+Blocks are a per-block list (gtax's unstacked layout, which gtax also
+trains in by default: `unstack_train`); the port has no stacked `scan`
+layout. Every block branch goes through the fused-branch wrappers of
+gtax_torch.kernels.block, or of gtax_torch.kernels.quant for W8A8 params
+(quantize_for_inference), which launch the CUDA kernels for CUDA tensors
+and run their plain versions for CPU tensors. The int8 branches run at
+every batch size: the port has no paired-branch kernel.
+
+Training: dit_apply is differentiable. Its bf16/fp32 branches are the
+trainable branches of gtax_torch.nn.branches (gtax's `fused_all` backend:
+the fused forward with emit_train and the whole-branch backward kernels);
+with `plain_branches=True` they are the plain `xla_*` forwards under
+autograd instead, the reference the kernel path is held against. The rope
+frequency tables are detached, as gtax stop_gradients them.
 
 Parameter dict (float32 masters; Linear kernels are (in, out)):
   patch_embed {kernel,bias}
@@ -33,6 +41,7 @@ import torch.nn.functional as F
 
 from gtax_torch.core import rope
 from gtax_torch.kernels import block, quant
+from gtax_torch.nn import branches
 from gtax_torch.nn.layers import (
     layer_norm,
     linear,
@@ -54,6 +63,9 @@ class DiTConfig:
     mlp_ratio: float = 4.0
     external_cond_dim: int = 25
     max_frames: int = 5
+    # per-block rematerialisation in backward (gtax DiTConfig.block_remat);
+    # not ported yet: dit_apply raises NotImplementedError when it is set
+    block_remat: bool = False
 
     @property
     def grid_h(self) -> int:
@@ -180,11 +192,11 @@ def params_to(params, device):
 def _rope_tables(params, cfg: DiTConfig, T: int):
     """(spatial (S, head_dim), temporal (T, head_dim)) fp32 tables."""
     gh, gw = cfg.grid_h, cfg.grid_w
-    spatial = rope.axial_freqs(params["spatial_rope_freqs"].float(),
+    spatial = rope.axial_freqs(params["spatial_rope_freqs"].detach().float(),
                                (gh, gw), pixel=True).reshape(gh * gw, -1)
     temporal = rope.temporal_rope_freqs(
         torch.arange(T, device=params["temporal_rope_freqs"].device),
-        params["temporal_rope_freqs"])
+        params["temporal_rope_freqs"].detach())
     return spatial.contiguous(), temporal.contiguous()
 
 
@@ -212,23 +224,40 @@ def _attn_weights(ap):
     return False, (qkv["kernel"], out["kernel"], out["bias"])
 
 
-def _mlp(mp, h, sh, sc, g):
+def _plain(fn):
+    def call(x, *args):
+        return fn(x, *args, x.dtype)
+    return call
+
+
+# (spatial, temporal, MLP) branch functions of the bf16/fp32 blocks: the
+# trainable kernel branches (plain wrapper calls when no gradient is
+# needed), or the plain xla_* forwards under autograd
+KERNEL_BRANCHES = (branches.trainable_spatial_branch,
+                   branches.trainable_temporal_branch,
+                   branches.trainable_mlp_branch)
+PLAIN_BRANCHES = tuple(_plain(fn) for fn in (branches.xla_spatial_branch,
+                                             branches.xla_temporal_branch,
+                                             branches.xla_mlp_branch))
+
+
+def _mlp(mp, h, sh, sc, g, fns=KERNEL_BRANCHES):
     f1, f2 = mp["fc1"], mp["fc2"]
     if "kernel_q" in f1:
         return quant.fused_mlp_branch_q(
             h, sh, sc, g, f1["kernel_q"], f1["scale"], f1["bias"],
             f2["kernel_q"], f2["scale"], f2["bias"])
-    return block.fused_mlp_branch(h, sh, sc, g, f1["kernel"], f1["bias"],
-                                  f2["kernel"], f2["bias"])
+    return fns[2](h, sh, sc, g, f1["kernel"], f1["bias"], f2["kernel"],
+                  f2["bias"])
 
 
-def _spatial_pair(bp, h, m, rows, D, freqs, num_heads):
+def _spatial_pair(bp, h, m, rows, D, freqs, num_heads, fns=KERNEL_BRANCHES):
     """Spatial attention + spatial MLP of one block."""
     sh1, sc1, g1, sh2, sc2, g2 = _split6(m, rows, D)
     q8, w = _attn_weights(bp["s_attn"])
-    fn = quant.fused_spatial_branch_q if q8 else block.fused_spatial_branch
+    fn = quant.fused_spatial_branch_q if q8 else fns[0]
     h = fn(h, sh1, sc1, g1, *w, freqs, num_heads)
-    return _mlp(bp["s_mlp"], h, sh2, sc2, g2)
+    return _mlp(bp["s_mlp"], h, sh2, sc2, g2, fns)
 
 
 def _cast_weights(bp, dtype):
@@ -243,14 +272,21 @@ def _cast_weights(bp, dtype):
 
 
 def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
-              valid=None, compute_dtype=torch.bfloat16, mods=None):
+              valid=None, compute_dtype=torch.bfloat16, mods=None,
+              plain_branches=False):
     """Full-window forward. x: (B, T, C, H, W) latents; t: (B, T) integer
     noise levels; external_cond: optional (B, T, action_dim); valid:
     optional (T,) mask of real frames. With `mods` (dit_cond output) the
     adaLN heads are skipped and t/external_cond are ignored. Returns the
-    v-prediction, x's shape, float32."""
+    v-prediction, x's shape, float32. Differentiable (see the module
+    docstring; plain_branches picks the plain xla_* branches)."""
+    if cfg.block_remat:
+        raise NotImplementedError(
+            "block_remat (remat: true) is not ported yet; it is a later "
+            "slice of the training port (ROADMAP.md)")
     B, T = x.shape[:2]
     D = cfg.hidden_size
+    fns = PLAIN_BRANCHES if plain_branches else KERNEL_BRANCHES
     if mods is None:
         mods = dit_cond(params, cfg, t, external_cond, compute_dtype)
     spatial, temporal = _rope_tables(params, cfg, T)
@@ -258,13 +294,13 @@ def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
     rows = B * T
     for bp, m in zip(params["blocks"], mods["blocks"]):
         bp = _cast_weights(bp, compute_dtype)
-        h = _spatial_pair(bp, h, m["s"], rows, D, spatial, cfg.num_heads)
+        h = _spatial_pair(bp, h, m["s"], rows, D, spatial, cfg.num_heads,
+                          fns)
         th1, tc1, tg1, th2, tc2, tg2 = _split6(m["t"], rows, D)
         q8, w = _attn_weights(bp["t_attn"])
-        fn = (quant.fused_temporal_branch_q if q8
-              else block.fused_temporal_branch)
+        fn = quant.fused_temporal_branch_q if q8 else fns[1]
         h = fn(h, th1, tc1, tg1, *w, temporal, valid, cfg.num_heads, T)
-        h = _mlp(bp["t_mlp"], h, th2, tc2, tg2)
+        h = _mlp(bp["t_mlp"], h, th2, tc2, tg2, fns)
     return _dit_head(params, cfg, h, mods["final"], B, T, compute_dtype)
 
 

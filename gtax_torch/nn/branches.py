@@ -1,0 +1,166 @@
+"""DiT branch functions for training: the plain full-branch forwards and
+the trainable fused branches (counterpart of gtax/nn/branches.py).
+
+The fused branch wrappers of gtax_torch.kernels.block are forward-only:
+their CUDA kernels have no autograd. Each trainable branch is a
+torch.autograd.Function in place of gtax's jax.custom_vjp:
+
+- with no gradient needed (serving, evaluation) the branch is the plain
+  fused wrapper call: no residuals, nothing extra launched;
+- when a gradient is needed, the forward runs the wrapper with
+  emit_train=True, which also returns the branch's internal residuals
+  (post-rope q/k and cast v plus the pre-gate y for attention; the
+  pre-GELU h1 and y for the MLP);
+- the backward is the whole-branch backward of gtax_torch.kernels.backward
+  over those residuals: the CUDA kernels for CUDA tensors, their plain
+  versions for CPU tensors (gtax's GTAX_XLA_BWD switch has no counterpart:
+  the device picks the path).
+
+Gradients come back in the dtypes of the inputs they belong to (gtax casts
+the fp32 kernel gradients the same way); the rope frequency tables get
+none: they are frozen, and the DiT detaches them before the call.
+
+The `xla_*` functions are the plain full-branch forwards (the kernels'
+plain versions of gtax_torch.kernels.block, whose rounding points they
+share); under autograd they are the reference path that the trainable
+branches' gradients are held against.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gtax_torch.kernels import backward, block
+
+
+def xla_spatial_branch(x, shift, scale, g, qkv_w, out_w, out_b, rope_freqs,
+                       num_heads, dtype):
+    """x: (N, S, D) per-frame token tiles; shift/scale/g: (N, D);
+    rope_freqs: (S, head_dim). Returns x + g * SpatialAttn(modulate(LN(x)))
+    in `dtype`."""
+    return block.spatial_branch_plain(
+        *(t.to(dtype) for t in (x, shift, scale, g, qkv_w, out_w)), out_b,
+        rope_freqs, num_heads)
+
+
+def xla_temporal_branch(x, shift, scale, g, qkv_w, out_w, out_b, rope_freqs,
+                        valid, num_heads, n_frames, dtype):
+    """x: (N = B*T, S, D) frame-major tiles; rope_freqs: (T, head_dim);
+    valid: (T,) bools or None. Causal attention over T at each site."""
+    return block.temporal_branch_plain(
+        *(t.to(dtype) for t in (x, shift, scale, g, qkv_w, out_w)), out_b,
+        rope_freqs, valid, num_heads, n_frames)
+
+
+def xla_mlp_branch(x, shift, scale, g, w1, b1, w2, b2, dtype):
+    """x + g * MLP(modulate(LN(x))) with tanh-GELU."""
+    return block.mlp_branch_plain(
+        *(t.to(dtype) for t in (x, shift, scale, g, w1)), b1, w2.to(dtype),
+        b2)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _as(grads, like):
+    return tuple(gr.to(t.dtype) for gr, t in zip(grads, like))
+
+
+class SpatialBranch(torch.autograd.Function):
+    """fused_spatial_branch with its backward (gtax
+    trainable_spatial_branch)."""
+
+    @staticmethod
+    def forward(ctx, x, shift, scale, g, qkv_w, out_w, out_b, rope_freqs,
+                num_heads):
+        out, *res = block.fused_spatial_branch(
+            x, shift, scale, g, qkv_w, out_w, out_b, rope_freqs, num_heads,
+            emit_train=True)
+        ctx.save_for_backward(x, shift, scale, g, qkv_w, out_w, out_b,
+                              rope_freqs, *res)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, shift, scale, g, qkv_w, out_w, out_b, freqs, *res = (
+            ctx.saved_tensors)
+        dx, *grads = backward.fused_spatial_branch_bwd(
+            x, shift, scale, g, qkv_w, out_w, freqs, *res,
+            ct.to(x.dtype).contiguous(), ctx.num_heads)
+        return (dx, *_as(grads, (shift, scale, g, qkv_w, out_w, out_b)),
+                None, None)
+
+
+class TemporalBranch(torch.autograd.Function):
+    """fused_temporal_branch with its backward (gtax
+    trainable_temporal_branch); `valid` is a (T,) bool sequence or None."""
+
+    @staticmethod
+    def forward(ctx, x, shift, scale, g, qkv_w, out_w, out_b, rope_freqs,
+                valid, num_heads, n_frames):
+        out, *res = block.fused_temporal_branch(
+            x, shift, scale, g, qkv_w, out_w, out_b, rope_freqs, valid,
+            num_heads, n_frames, emit_train=True)
+        ctx.save_for_backward(x, shift, scale, g, qkv_w, out_w, out_b,
+                              rope_freqs, *res)
+        ctx.valid, ctx.num_heads, ctx.n_frames = valid, num_heads, n_frames
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, shift, scale, g, qkv_w, out_w, out_b, freqs, *res = (
+            ctx.saved_tensors)
+        dx, *grads = backward.fused_temporal_branch_bwd(
+            x, shift, scale, g, qkv_w, out_w, freqs, ctx.valid, *res,
+            ct.to(x.dtype).contiguous(), ctx.num_heads, ctx.n_frames)
+        return (dx, *_as(grads, (shift, scale, g, qkv_w, out_w, out_b)),
+                None, None, None, None)
+
+
+class MLPBranch(torch.autograd.Function):
+    """fused_mlp_branch with its backward (gtax trainable_mlp_branch)."""
+
+    @staticmethod
+    def forward(ctx, x, shift, scale, g, w1, b1, w2, b2):
+        out, h1, y = block.fused_mlp_branch(x, shift, scale, g, w1, b1, w2,
+                                            b2, emit_train=True)
+        ctx.save_for_backward(x, shift, scale, g, w1, b1, w2, b2, h1, y)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, shift, scale, g, w1, b1, w2, b2, h1, y = ctx.saved_tensors
+        dx, *grads = backward.fused_mlp_branch_bwd(
+            x, shift, scale, g, w1, w2, h1, y, ct.to(x.dtype).contiguous())
+        return (dx, *_as(grads, (shift, scale, g, w1, b1, w2, b2)))
+
+
+def trainable_spatial_branch(x, shift, scale, g, qkv_w, out_w, out_b,
+                             rope_freqs, num_heads):
+    """The spatial-attention branch, differentiable when a gradient is
+    needed; the plain wrapper call otherwise."""
+    if _needs_grad(x, shift, scale, g, qkv_w, out_w, out_b):
+        return SpatialBranch.apply(x, shift, scale, g, qkv_w, out_w, out_b,
+                                   rope_freqs, num_heads)
+    return block.fused_spatial_branch(x, shift, scale, g, qkv_w, out_w,
+                                      out_b, rope_freqs, num_heads)
+
+
+def trainable_temporal_branch(x, shift, scale, g, qkv_w, out_w, out_b,
+                              rope_freqs, valid, num_heads, n_frames):
+    """The causal temporal-attention branch, as trainable_spatial_branch."""
+    if _needs_grad(x, shift, scale, g, qkv_w, out_w, out_b):
+        return TemporalBranch.apply(x, shift, scale, g, qkv_w, out_w, out_b,
+                                    rope_freqs, valid, num_heads, n_frames)
+    return block.fused_temporal_branch(x, shift, scale, g, qkv_w, out_w,
+                                       out_b, rope_freqs, valid, num_heads,
+                                       n_frames)
+
+
+def trainable_mlp_branch(x, shift, scale, g, w1, b1, w2, b2):
+    """The MLP branch, as trainable_spatial_branch."""
+    if _needs_grad(x, shift, scale, g, w1, b1, w2, b2):
+        return MLPBranch.apply(x, shift, scale, g, w1, b1, w2, b2)
+    return block.fused_mlp_branch(x, shift, scale, g, w1, b1, w2, b2)

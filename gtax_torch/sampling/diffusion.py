@@ -246,3 +246,110 @@ def make_rollout(dit_fn, max_frames: int, cfg: SamplerConfig, cond=None,
         return torch.cat([prompt_latents, *frames], dim=1)
 
     return rollout
+
+
+# --------------------------------------------------------------- training loss
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    ddim_noise_steps: int = 50
+    ctx_max_noise_idx: int = 40
+    noise_abs_max: float = NOISE_ABS_MAX
+    n_prompt_frames: int = 4
+    max_frames: int = 5
+    max_noise_level: int = MAX_NOISE_LEVEL
+
+
+def draw_loss_noise(latents, cfg: LossConfig, generator):
+    """The random draws of diffusion_forcing_loss for a (B, T, C, H, W)
+    clip, from `generator` (on the latents' device): per generated frame a
+    target noise index in [1, ddim_noise_steps], a context index in
+    [1, ctx_max_noise_idx] (unclipped), and unclipped normal noise for the
+    window's context slots and last slot."""
+    B, T, C, H, W = latents.shape
+    n_gen = T - cfg.n_prompt_frames
+    Wn = cfg.max_frames
+    dev = latents.device
+
+    def ints(hi):
+        return torch.randint(1, hi + 1, (n_gen, B), generator=generator,
+                             device=dev)
+
+    def normal(n):
+        return torch.randn((n_gen, B, n, C, H, W), generator=generator,
+                           device=dev)
+
+    return {"target_idx": ints(cfg.ddim_noise_steps),
+            "ctx_idx": ints(cfg.ctx_max_noise_idx),
+            "ctx_noise": normal(Wn - 1), "last_noise": normal(1)}
+
+
+def diffusion_forcing_loss(dit_fn, latents, actions, generator,
+                           cfg: LossConfig, alphas_cumprod, noise_range,
+                           draws=None):
+    """Diffusion-forcing v-prediction loss over a clip (gtax
+    diffusion_forcing_loss).
+
+    latents: (B, T, C, H, W) float32 (VAE-encoded and scaled); actions:
+    (B, T, A) or None; alphas_cumprod / noise_range: tensors on the latents'
+    device. `draws` (draw_loss_noise's dict) replaces the draws from
+    `generator`: the hook that lets a test feed gtax's own draws. Returns
+    (mean_loss, sum_loss): the frame-mean the reference reports and the sum
+    that gradients flow through.
+
+    Per generated frame i: the window holds frames i-(W-1)..i, left
+    zero-padded with `valid` False on the padded slots; the context index is
+    clipped to the target index; context slots are noised at
+    noise_range[ctx_idx], the last at noise_range[target_idx], the noise
+    clipped to +-noise_abs_max; v-target = sqrt(a) eps - sqrt(1-a) x0; the
+    MSE is taken on the last frame only."""
+    B, T, C, H, W = latents.shape
+    n_gen = T - cfg.n_prompt_frames
+    if n_gen < 1:
+        raise ValueError(f"clip of {T} frames has no frame after the "
+                         f"{cfg.n_prompt_frames} prompt frames")
+    Wn = cfg.max_frames
+    if draws is None:
+        draws = draw_loss_noise(latents, cfg, generator)
+    target_idx = draws["target_idx"]
+    ctx_idx = torch.minimum(draws["ctx_idx"], target_idx)
+
+    if actions is not None:
+        A = actions.shape[-1]
+        actions_padded = torch.cat(
+            [torch.zeros((B, Wn - 1, A), dtype=actions.dtype,
+                         device=actions.device), actions], dim=1)
+
+    total = torch.zeros((), device=latents.device)
+    for idx, i in enumerate(range(cfg.n_prompt_frames, T)):
+        lo = i - (Wn - 1)
+        if lo < 0:
+            pad = torch.zeros((B, -lo, C, H, W), dtype=latents.dtype,
+                              device=latents.device)
+            window = torch.cat([pad, latents[:, :i + 1]], dim=1)
+        else:
+            window = latents[:, lo:i + 1]
+        valid = [lo + j >= 0 for j in range(Wn)]
+        awin = (None if actions is None
+                else actions_padded[:, lo + Wn - 1:lo + 2 * Wn - 1])
+
+        t = torch.cat([noise_range[ctx_idx[idx]][:, None].expand(B, Wn - 1),
+                       noise_range[target_idx[idx]][:, None]], dim=1).to(
+                           torch.int32)
+        clip = cfg.noise_abs_max
+        ctx_noise = draws["ctx_noise"][idx].float().clamp(-clip, clip)
+        last_noise = draws["last_noise"][idx].float().clamp(-clip, clip)
+        a = alphas_cumprod[t.long()][:, :, None, None, None]
+        a_ctx, a_tgt = a[:, :-1], a[:, -1:]
+        noisy_ctx = (torch.sqrt(a_ctx) * window[:, :-1]
+                     + torch.sqrt(1 - a_ctx) * ctx_noise)
+        noisy_tgt = (torch.sqrt(a_tgt) * window[:, -1:]
+                     + torch.sqrt(1 - a_tgt) * last_noise)
+        x_noisy = torch.cat([noisy_ctx, noisy_tgt], dim=1)
+        v_target = (torch.sqrt(a_tgt) * last_noise
+                    - torch.sqrt(1 - a_tgt) * window[:, -1:])
+
+        v_pred = dit_fn(x_noisy, t, awin, valid).float()
+        total = total + torch.mean(torch.square(v_pred[:, -1:] - v_target))
+    return total / n_gen, total

@@ -1,0 +1,56 @@
+"""FLOP accounting and MFU (counterpart of gtax/utils/profiling.py).
+
+dit_forward_flops is gtax's analytic count of one DiT forward (matmuls
+only, 2*M*N*K each); MFUCounter divides a step's model FLOPs by its wall
+time and the device's dense bf16 peak. The peak table names the card the
+port runs on; a device it does not know raises rather than guessing.
+"""
+
+from __future__ import annotations
+
+
+def dit_forward_flops(cfg, batch: int, frames: int) -> float:
+    """Analytic FLOPs of one DiT forward: patchify and final GEMMs, the
+    conditioning path, per block the qkv/out/MLP/adaLN GEMMs of both halves
+    and the spatial (S x S per frame) and temporal (T x T per site)
+    attention products."""
+    D = cfg.hidden_size
+    S = cfg.grid_h * cfg.grid_w
+    tokens = batch * frames * S
+    f = 0.0
+    pin = cfg.in_channels * cfg.patch_size**2
+    f += 2.0 * tokens * pin * D
+    f += 2.0 * tokens * D * (cfg.patch_size**2 * cfg.in_channels)
+    f += 2.0 * batch * frames * (256 * D + D * D)
+    per_block = 0.0
+    per_block += 2.0 * (2.0 * tokens * D * 3 * D + 2.0 * tokens * D * D)
+    per_block += 2.0 * (2.0 * 2.0 * tokens * D * cfg.mlp_hidden)
+    per_block += 2.0 * (2.0 * batch * frames * D * 6 * D)
+    hd = cfg.head_dim
+    per_block += 2.0 * 2.0 * batch * frames * cfg.num_heads * S * S * hd
+    per_block += 2.0 * 2.0 * batch * S * cfg.num_heads * frames * frames * hd
+    f += cfg.depth * per_block
+    return f
+
+
+class MFUCounter:
+    """Model-FLOPs utilisation against the device's dense bf16 peak."""
+
+    # dense bf16 tensor-core peak, FLOP/s (NVIDIA data sheets, SXM parts at
+    # their full power limit)
+    PEAKS = {"h100": 989e12, "h200": 989e12}
+
+    @classmethod
+    def peak_for_kind(cls, kind: str) -> float:
+        kind = kind.lower()
+        for key, peak in cls.PEAKS.items():
+            if key in kind:
+                return peak
+        raise ValueError(f"no bf16 peak known for device {kind!r}")
+
+    def __init__(self, flops_per_step: float, peak: float):
+        self.flops_per_step = flops_per_step
+        self.peak = peak
+
+    def mfu(self, step_seconds: float) -> float:
+        return self.flops_per_step / (step_seconds * self.peak)

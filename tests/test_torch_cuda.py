@@ -243,3 +243,102 @@ def test_int8_wrappers_reject_what_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="scales"):
         quant.fused_mlp_branch_q(x, sh, sc, g, w1_q, w1_s[:, :8], b1, w2_q,
                                  w2_s, b2)
+
+
+# ------------------------------------------------------------- training
+
+def _train_inputs(gen, N, kind):
+    x, sh, sc, g = _branch_inputs(gen, N, S_DIT)
+    if kind == "mlp":
+        w = (_rand(gen, (D, 4 * D), 0.02), _rand(gen, (4 * D,), 0.02),
+             _rand(gen, (4 * D, D), 0.02), _rand(gen, (D,), 0.02))
+    else:
+        w = (_rand(gen, (D, 3 * D), 0.02), _rand(gen, (D, D), 0.02),
+             _rand(gen, (D,), 0.02, torch.float32))
+    return (x, sh, sc, g, *w), _rand(gen, (N, S_DIT, D))
+
+
+def test_emit_train_kernels(cuda):
+    """The forward branches' emit_train residuals against the plain
+    versions', and the output equal to the serving call's."""
+    gen = np.random.default_rng(20)
+    args, _ = _train_inputs(gen, 2, "spatial")
+    f = _spatial_freqs()
+    got = block.fused_spatial_branch(*args, f, H, emit_train=True)
+    for a, b in zip(got, block.spatial_branch_plain(*args, f, H, True)):
+        _close(a, b)
+    assert torch.equal(got[0], block.fused_spatial_branch(*args, f, H))
+    args, _ = _train_inputs(gen, 2, "mlp")
+    got = block.fused_mlp_branch(*args, emit_train=True)
+    for a, b in zip(got, block.mlp_branch_plain(*args, emit_train=True)):
+        _close(a, b)
+    assert torch.equal(got[0], block.fused_mlp_branch(*args))
+    args, _ = _train_inputs(gen, 10, "temporal")
+    tf = _temporal_freqs(5)
+    valid = [False, True, True, True, True]
+    got = block.fused_temporal_branch(*args, tf, valid, H, 5,
+                                      emit_train=True)
+    ref = block.temporal_branch_plain(*args, tf, valid, H, 5,
+                                      emit_train=True)
+    for a, b in zip(got, ref):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("valid", [None, [False, True, True, True, True]])
+def test_temporal_branch_bwd_kernel(cuda, valid):
+    from gtax_torch.kernels import backward
+
+    gen = np.random.default_rng(21)
+    T = 5
+    args, ct = _train_inputs(gen, 2 * T, "temporal")
+    tf = _temporal_freqs(T)
+    _, *res = block.fused_temporal_branch(*args, tf, valid, H, T,
+                                          emit_train=True)
+    bargs = (*args[:6], tf, valid, *res, ct, H, T)
+    before = backward.fused_temporal_branch_bwd.launches
+    got = backward.fused_temporal_branch_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert backward.fused_temporal_branch_bwd.launches == before + 1
+    for a, b in zip(got, backward.temporal_branch_bwd_plain(*bargs)):
+        _close(a, b)
+
+
+def test_spatial_branch_bwd_kernel(cuda):
+    from gtax_torch.kernels import backward
+
+    gen = np.random.default_rng(22)
+    args, ct = _train_inputs(gen, 2, "spatial")
+    f = _spatial_freqs()
+    _, *res = block.fused_spatial_branch(*args, f, H, emit_train=True)
+    bargs = (*args[:6], f, *res, ct, H)
+    got = backward.fused_spatial_branch_bwd(*bargs)
+    for a, b in zip(got, backward.spatial_branch_bwd_plain(*bargs)):
+        _close(a, b)
+
+
+def test_mlp_branch_bwd_kernel(cuda):
+    """Also: a second run is bit-equal to the first (no float atomics)."""
+    from gtax_torch.kernels import backward
+
+    gen = np.random.default_rng(23)
+    args, ct = _train_inputs(gen, 2, "mlp")
+    _, h1, y = block.fused_mlp_branch(*args, emit_train=True)
+    x, sh, sc, g, w1, _, w2, _ = args
+    bargs = (x, sh, sc, g, w1, w2, h1, y, ct)
+    got = backward.fused_mlp_branch_bwd(*bargs)
+    for a, b in zip(got, backward.mlp_branch_bwd_plain(*bargs)):
+        _close(a, b)
+    for a, b in zip(got, backward.fused_mlp_branch_bwd(*bargs)):
+        assert torch.equal(a, b)
+
+
+def test_wgrad_split_rows_bit_equal_reduction(cuda):
+    """The weight-gradient GEMM over ragged, split row chunks against the
+    fp32 product of the same bf16 values."""
+    from gtax_torch.kernels import backward
+
+    gen = np.random.default_rng(24)
+    a, b = _rand(gen, (1000, 128)), _rand(gen, (1000, 64))
+    got = backward.wgrad(a, b)
+    ref = backward.wgrad32(a, b)
+    torch.testing.assert_close(got, ref, atol=1e-3, rtol=1e-4)
