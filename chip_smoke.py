@@ -6,16 +6,21 @@
 Phases (any failure exits nonzero and prints no result line):
   1. environment: torch version, device, `nvidia-smi` name and power limit;
   2. build: nvcc builds gtax_torch/csrc/*.cu for sm_90a (timed);
-  3. kernels: each of the twelve kernel wrappers (five bf16 and four
-     int8 W8A8 serving wrappers, three training backwards) at its
-     main-path shapes (DiT-S/2 and ViT-L/20 widths; the B=16 training step)
-     and at batch 2, and the forward branches' emit_train mode, against
-     the plain PyTorch versions on the same inputs (bf16 both; tolerance
-     2**-6 of each output's largest magnitude, four bf16 ulps);
-     CUDA-event times of the kernel, the plain version and a library
-     yardstick (for a backward: autograd's backward of the library
-     composite forward), with the L2 cache flushed before every timed
-     call; the bound from bytes and operations (bf16 and int8 peaks);
+  3. kernels: each of the sixteen kernel wrappers (five bf16 and four
+     int8 W8A8 serving wrappers, the two paired int8 half-blocks, the two
+     attention kernels of the `pallas` backend, three training backwards)
+     at its main-path shapes (DiT-S/2 and ViT-L/20 widths; the B=16
+     training step) and at batch 2, and the forward branches' emit_train
+     mode, against the plain PyTorch versions on the same inputs (bf16
+     both; tolerance 2**-6 of each output's largest magnitude, four bf16
+     ulps); CUDA-event times of the kernel, the plain version and a
+     library yardstick (for a backward: autograd's backward of the library
+     composite forward; for the attention kernels SDPA with the same bias
+     as attn_mask), with the L2 cache flushed before every timed call; the
+     bound from bytes and operations (bf16 and int8 peaks). Each pair is
+     also held against the two sequential int8 wrappers on the same inputs
+     (max error and bit equality printed) and timed against them at 1-4
+     frames (`[gate]`);
   4. end to end, bf16: VideoGenerator at full DiT-S/2 + ViT-L/20 width,
      B=1, 4 prompt frames + 2 generated, 100 noise steps, random seeded
      weights with nonzero adaLN heads, injected noise. The launch counters
@@ -24,14 +29,24 @@ Phases (any failure exits nonzero and prints no result line):
      full-window rollout on the card, and a depth-2 full-width rollout on
      the card against the port's CPU rollout (plain versions);
   5. end to end, int8: the same run with quantize="int8" (the same bf16
-     weights, quantized); the four int8 wrappers and the VAE block must
-     have launched. Then int8 incremental against int8 full window, a
-     depth-2 int8 rollout on the card against the port's CPU one, and the
-     int8 forward against the bf16 one (relative L2 error): gated at
-     gtax's 2e-2 at depth 2 on gtax's own weight regime carried to full
-     width; reported beside it, that regime as written and the smoke's
-     weights at depth 2 and full depth.
-  6. training (`[train]`): a Trainer built from
+     weights, quantized): every step pairs each half-block, the prefill
+     runs the sequential wrappers, and the counts must be the ones the
+     code gives (INT8_EXPECTED). Then int8 incremental against int8 full
+     window, a depth-2 int8 rollout on the card against the port's CPU
+     one, one full-depth step at B=4 (sequential; its counts read alone)
+     against the B=1 paired step, and the int8 forward against the bf16
+     one (relative L2 error): gated at gtax's 2e-2 at depth 2 on gtax's
+     own weight regime carried to full width; reported beside it, that
+     regime as written and the smoke's weights at depth 2 and full depth;
+  6. end to end, `pallas` (`[e2e pallas]`): the same generate with
+     attention_backend="pallas": full-window rollouts through the unfused
+     branches, every attention on fused_mha_token_major (the counts by
+     sequence length must be the code's, PALLAS_EXPECTED), the unfused
+     VAE; a depth-2 rollout on the card against the port's CPU one and
+     against the card's `xla` rollout. `[sdpa]`: the public
+     nn.attention.sdpa under `pallas` at the three shapes, which
+     fused_sdpa serves;
+  7. training (`[train]`): a Trainer built from
      configs/train_dit_actions.yaml's values (DiT-S/2 at full width and
      depth, frozen ViT-L/20, B=16, bf16, fused_all, mu_bf16) with the cuts
      TRAIN_CUTS prints, 3 steps through the training loop, with every
@@ -40,7 +55,8 @@ Phases (any failure exits nonzero and prints no result line):
      norms, moved parameters, one B=2 micro-batch's gradients through the
      kernels against the plain path (the xla_* branches under autograd) on
      the card, and a depth-2 model's card gradients against the port's CPU
-     gradients (relative L2 per leaf, GRAD_TOL).
+     gradients (relative L2 per leaf, GRAD_TOL). The step's frozen-VAE
+     encode (unfused, as gtax's trainer) is timed beside the fused one.
 Each end-to-end phase also traces one generated frame or train step
 (`[profile]`).
 `python -m gtax_torch.tools.step_profile` splits one denoise step into
@@ -371,80 +387,126 @@ def lib_qlinear(a32, w_q, w_s, b=None):
     return y.reshape(*lead, -1)
 
 
-def int8_kernel_cases():
-    """The int8 (W8A8) wrappers, as kernel_cases; builders also return the
-    int8 tensor-core operations."""
+def int8_lib_mod(x, sh, sc):
+    F = torch.nn.functional
+    ln = F.layer_norm(x.float(), (D,), eps=1e-6)
+    return ln * (1 + sc.float()[:, None]) + sh.float()[:, None]
+
+
+def int8_lib_rope(t, f):
     from gtax_torch.core import rope
+
+    return (t * torch.cos(f) + rope.rotate_half(t) * torch.sin(f)).to(
+        torch.bfloat16)
+
+
+def int8_gated(x, g, y):
+    return (x.float() + g.float()[:, None] * y).to(torch.bfloat16)
+
+
+def lib_int8_spatial(x, sh, sc, g, w, sfreqs):
+    """The int8 spatial branch as torch._int_mm + SDPA; w = (qkv_q, qkv_s,
+    out_q, out_s, out_b) with the int8 kernels column-major."""
+    N = x.shape[0]
+    qkv = lib_qlinear(int8_lib_mod(x, sh, sc), w[0], w[1])
+    q, k, v = (t.view(N, S_DIT, H, HD).transpose(1, 2)
+               for t in qkv.split(D, -1))
+    f = sfreqs[None, None]
+    o = torch.nn.functional.scaled_dot_product_attention(
+        int8_lib_rope(q, f), int8_lib_rope(k, f), v.to(torch.bfloat16))
+    y = lib_qlinear(o.transpose(1, 2).reshape(N, S_DIT, D).float(), w[2],
+                    w[3], w[4])
+    return int8_gated(x, g, y)
+
+
+def lib_int8_step(x, sh, sc, g, w, kc, vc, f, n_ctx):
+    """The int8 temporal step over the cached context, as
+    lib_int8_spatial."""
+    B = x.shape[0]
+    qkv = lib_qlinear(int8_lib_mod(x, sh, sc), w[0], w[1])
+    q, k, v = (t.view(B, 1, S_DIT, H, HD).permute(0, 2, 3, 1, 4)
+               for t in qkv.split(D, -1))
+    ck, cv = (t.view(B, n_ctx, S_DIT, H, HD).permute(0, 2, 3, 1, 4)
+              for t in (kc, vc))
+    keys = torch.cat([ck, int8_lib_rope(k, f[n_ctx:])], dim=3)
+    vals = torch.cat([cv, v.to(torch.bfloat16)], dim=3)
+    o = torch.nn.functional.scaled_dot_product_attention(
+        int8_lib_rope(q, f[n_ctx:]), keys, vals)
+    y = lib_qlinear(o.permute(0, 3, 1, 2, 4).reshape(B, S_DIT, D).float(),
+                    w[2], w[3], w[4])
+    return int8_gated(x, g, y)
+
+
+def lib_int8_mlp(x, sh, sc, g, w1_cm, w1_s, b1, w2_cm, w2_s, b2, G=512):
+    """The int8 MLP branch, requantized per 512-wide chunk, as
+    torch._int_mm calls."""
+    N = x.shape[0]
+    h = torch.nn.functional.gelu(
+        lib_qlinear(int8_lib_mod(x, sh, sc), w1_cm, w1_s, b1),
+        approximate="tanh").reshape(-1, 4 * D)
+    y = 0.0
+    for c in range(4 * D // G):
+        hq, hs = lib_quant(h[:, c * G:(c + 1) * G])
+        y = y + torch._int_mm(hq, w2_cm[c * G:(c + 1) * G]) * hs
+    y = y * w2_s.reshape(-1) + b2.float()
+    return int8_gated(x, g, y.reshape(N, S_DIT, D))
+
+
+def qweight(gen, shape):
     from gtax_torch.kernels import quant
 
-    F = torch.nn.functional
+    return quant.quantize_weight(rand(gen, shape, 0.02))
+
+
+def int8_attn_weights(gen):
+    return (*qweight(gen, (D, 3 * D)), *qweight(gen, (D, D)),
+            rand(gen, (D,), 0.02))
+
+
+def int8_mlp_weights(gen):
+    w1, w2 = qweight(gen, (D, 4 * D)), qweight(gen, (4 * D, D))
+    return (*w1, rand(gen, (4 * D,), 0.02), *w2, rand(gen, (D,), 0.02))
+
+
+def col_major_attn(w):
+    return (col_major(w[0]), w[1], col_major(w[2]), w[3], w[4])
+
+
+def col_major_mlp(w):
+    return (col_major(w[0]), w[1], w[2], col_major(w[3]), w[4], w[5])
+
+
+def int8_kernel_cases():
+    """The int8 (W8A8) wrappers, as kernel_cases; each case also returns the
+    int8 tensor-core operations."""
+    from gtax_torch.kernels import quant
+
     sfreqs = spatial_freqs()
-
-    def lib_mod(x, sh, sc):
-        ln = F.layer_norm(x.float(), (D,), eps=1e-6)
-        return ln * (1 + sc.float()[:, None]) + sh.float()[:, None]
-
-    def lib_rope(t, f):
-        return (t * torch.cos(f) + rope.rotate_half(t) * torch.sin(f)).to(
-            torch.bfloat16)
-
-    def qw(gen, shape):
-        return quant.quantize_weight(rand(gen, shape, 0.02))
-
-    def attn_weights(gen):
-        return (*qw(gen, (D, 3 * D)), *qw(gen, (D, D)),
-                rand(gen, (D,), 0.02))
-
-    def gated(x, g, y):
-        return (x.float() + g.float()[:, None] * y).to(torch.bfloat16)
 
     def spatial(N):
         gen = np.random.default_rng(50 + N)
         x, sh, sc, g = branch_inputs(gen, N, S_DIT)
-        w = attn_weights(gen)
+        w = int8_attn_weights(gen)
         args = (x, sh, sc, g, *w, sfreqs, H)
-        qkv_cm, out_cm = col_major(w[0]), col_major(w[2])
-
-        def lib():
-            qkv = lib_qlinear(lib_mod(x, sh, sc), qkv_cm, w[1])
-            q, k, v = (t.view(N, S_DIT, H, HD).transpose(1, 2)
-                       for t in qkv.split(D, -1))
-            f = sfreqs[None, None]
-            o = F.scaled_dot_product_attention(
-                lib_rope(q, f), lib_rope(k, f), v.to(torch.bfloat16))
-            y = lib_qlinear(o.transpose(1, 2).reshape(N, S_DIT, D).float(),
-                            out_cm, w[3], w[4])
-            return gated(x, g, y)
-
+        wc = col_major_attn(w)
         M = N * S_DIT
         by = nbytes(x, sh, sc, g, *w, sfreqs, x)
         return (lambda: quant.fused_spatial_branch_q(*args),
-                lambda: quant.spatial_branch_q_plain(*args), lib,
+                lambda: quant.spatial_branch_q_plain(*args),
+                lambda: lib_int8_spatial(x, sh, sc, g, wc, sfreqs),
                 "LN+int8 quant+torch._int_mm+SDPA+torch._int_mm", by,
                 4 * N * H * S_DIT * S_DIT * HD, 2 * M * D * 4 * D)
 
     def mlp(N):
         gen = np.random.default_rng(60 + N)
         x, sh, sc, g = branch_inputs(gen, N, S_DIT)
-        w1, w2 = qw(gen, (D, 4 * D)), qw(gen, (4 * D, D))
-        b1, b2 = rand(gen, (4 * D,), 0.02), rand(gen, (D,), 0.02)
-        args = (x, sh, sc, g, *w1, b1, *w2, b2)
-        G = 512
-        w1_cm, w2_cm = col_major(w1[0]), col_major(w2[0])
-
-        def lib():
-            h = F.gelu(lib_qlinear(lib_mod(x, sh, sc), w1_cm, w1[1], b1),
-                       approximate="tanh").reshape(-1, 4 * D)
-            y = 0.0
-            for c in range(4 * D // G):  # requantized per 512-wide chunk
-                hq, hs = lib_quant(h[:, c * G:(c + 1) * G])
-                y = y + torch._int_mm(hq, w2_cm[c * G:(c + 1) * G]) * hs
-            y = y * w2[1].reshape(-1) + b2.float()
-            return gated(x, g, y.reshape(N, S_DIT, D))
-
-        by = nbytes(x, sh, sc, g, *w1, b1, *w2, b2, x)
+        w = int8_mlp_weights(gen)
+        args = (x, sh, sc, g, *w)
+        wc = col_major_mlp(w)
+        by = nbytes(x, sh, sc, g, *w, x)
         return (lambda: quant.fused_mlp_branch_q(*args),
-                lambda: quant.mlp_branch_q_plain(*args), lib,
+                lambda: quant.mlp_branch_q_plain(*args),
+                lambda: lib_int8_mlp(x, sh, sc, g, *wc),
                 "LN+int8 quant+torch._int_mm+F.gelu+8 torch._int_mm", by, 0,
                 2 * 2 * N * S_DIT * D * 4 * D)
 
@@ -452,7 +514,7 @@ def int8_kernel_cases():
         gen = np.random.default_rng(70 + B)
         N = B * T
         x, sh, sc, g = branch_inputs(gen, N, S_DIT)
-        w = attn_weights(gen)
+        w = int8_attn_weights(gen)
         f = temporal_freqs(T)
         valid = [False] + [True] * (T - 1)
         args = (x, sh, sc, g, *w, f, valid, H, T)
@@ -460,15 +522,16 @@ def int8_kernel_cases():
         mask = torch.tril(torch.ones(T, T, dtype=torch.bool, device="cuda"))
 
         def lib():
-            qkv = lib_qlinear(lib_mod(x, sh, sc), qkv_cm, w[1])
+            F = torch.nn.functional
+            qkv = lib_qlinear(int8_lib_mod(x, sh, sc), qkv_cm, w[1])
             q, k, v = (t.view(B, T, S_DIT, H, HD).permute(0, 2, 3, 1, 4)
                        for t in qkv.split(D, -1))
             o = F.scaled_dot_product_attention(
-                lib_rope(q, f), lib_rope(k, f), v.to(torch.bfloat16),
-                attn_mask=mask)
+                int8_lib_rope(q, f), int8_lib_rope(k, f),
+                v.to(torch.bfloat16), attn_mask=mask)
             y = lib_qlinear(o.permute(0, 3, 1, 2, 4).reshape(N, S_DIT, D)
                             .float(), out_cm, w[3], w[4])
-            return gated(x, g, y)
+            return int8_gated(x, g, y)
 
         by = nbytes(x, sh, sc, g, *w, f) + 3 * nbytes(x)
         return (lambda: quant.fused_temporal_branch_q(*args, emit_kv=True),
@@ -481,32 +544,18 @@ def int8_kernel_cases():
     def step(B, n_ctx=4):
         gen = np.random.default_rng(80 + B)
         x, sh, sc, g = branch_inputs(gen, B, S_DIT)
-        w = attn_weights(gen)
+        w = int8_attn_weights(gen)
         kc = rand(gen, (B * n_ctx * S_DIT, D))
         vc = rand(gen, (B * n_ctx * S_DIT, D))
         T = n_ctx + 1
         f = temporal_freqs(T)
         valid = torch.tensor([False] + [True] * n_ctx)
         args = (x, sh, sc, g, *w, kc, vc, f, valid, H, n_ctx)
-        qkv_cm, out_cm = col_major(w[0]), col_major(w[2])
-
-        def lib():
-            qkv = lib_qlinear(lib_mod(x, sh, sc), qkv_cm, w[1])
-            q, k, v = (t.view(B, 1, S_DIT, H, HD).permute(0, 2, 3, 1, 4)
-                       for t in qkv.split(D, -1))
-            ck, cv = (t.view(B, n_ctx, S_DIT, H, HD).permute(0, 2, 3, 1, 4)
-                      for t in (kc, vc))
-            keys = torch.cat([ck, lib_rope(k, f[n_ctx:])], dim=3)
-            vals = torch.cat([cv, v.to(torch.bfloat16)], dim=3)
-            o = F.scaled_dot_product_attention(lib_rope(q, f[n_ctx:]), keys,
-                                               vals)
-            y = lib_qlinear(o.permute(0, 3, 1, 2, 4).reshape(B, S_DIT, D)
-                            .float(), out_cm, w[3], w[4])
-            return gated(x, g, y)
-
+        wc = col_major_attn(w)
         by = nbytes(x, sh, sc, g, *w, kc, vc, f, x)
         return (lambda: quant.fused_temporal_step_q(*args),
-                lambda: quant.temporal_step_q_plain(*args), lib,
+                lambda: quant.temporal_step_q_plain(*args),
+                lambda: lib_int8_step(x, sh, sc, g, wc, kc, vc, f, n_ctx),
                 "LN+int8 quant+torch._int_mm+SDPA over cache+"
                 "torch._int_mm", by, 4 * B * S_DIT * H * T * HD,
                 2 * B * S_DIT * D * 4 * D)
@@ -535,7 +584,197 @@ def int8_kernel_cases():
     ]
 
 
+def pair_inputs(gen, N):
+    """x and the six per-frame vectors of a half-block, (N, D) views of one
+    (N, 6D) adaLN row as dit_cond gives them."""
+    x = rand(gen, (N, S_DIT, D))
+    mods = rand(gen, (N, 6 * D), 0.5)
+    return (x, *(mods[:, i * D:(i + 1) * D] for i in range(6)))
+
+
+def pair_case(kind, N, seed):
+    """(kernel_fn, plain_fn, library_fn, library_desc, bytes, flops, int8
+    ops, sequential_fn) of one paired half-block: kind "spatial" over N
+    frames, "temporal" the step of B=N elements (n_live=1) over a 4-frame
+    cache with slot 0 padded ("temporal-valid": every slot real)."""
+    from gtax_torch.kernels import pair, quant
+
+    gen = np.random.default_rng(seed)
+    x, sh1, sc1, g1, sh2, sc2, g2 = vec = pair_inputs(gen, N)
+    wa, wm = int8_attn_weights(gen), int8_mlp_weights(gen)
+    wac, wmc = col_major_attn(wa), col_major_mlp(wm)
+    M = N * S_DIT
+    i8 = 2 * M * D * (3 * D + D + 2 * 4 * D)
+    if kind == "spatial":
+        f = spatial_freqs()
+        args = (*vec, *wa, *wm, f, H)
+        by = nbytes(*vec, *wa, *wm, f, x)
+
+        def seq():
+            h = quant.fused_spatial_branch_q(x, sh1, sc1, g1, *wa, f, H)
+            return quant.fused_mlp_branch_q(h, sh2, sc2, g2, *wm)
+
+        def lib():
+            h = lib_int8_spatial(x, sh1, sc1, g1, wac, f)
+            return lib_int8_mlp(h, sh2, sc2, g2, *wmc)
+
+        return (lambda: pair.fused_spatial_pair_q(*args),
+                lambda: pair.spatial_pair_q_plain(*args), lib,
+                "the int8 spatial + MLP composites (torch._int_mm, SDPA)",
+                by, 4 * N * H * S_DIT * S_DIT * HD, i8, seq)
+    n_ctx = 4
+    kc = rand(gen, (N * n_ctx * S_DIT, D))
+    vc = rand(gen, (N * n_ctx * S_DIT, D))
+    f = temporal_freqs(n_ctx + 1)
+    valid = [kind == "temporal-valid"] + [True] * n_ctx
+    tail = (kc, vc, f, valid, H, n_ctx)
+    args = (*vec, *wa, *wm, *tail)
+    by = nbytes(*vec, *wa, *wm, kc, vc, f, x)
+
+    def seq():
+        h = quant.fused_temporal_step_q(x, sh1, sc1, g1, *wa, *tail)
+        return quant.fused_mlp_branch_q(h, sh2, sc2, g2, *wm)
+
+    def lib():
+        h = lib_int8_step(x, sh1, sc1, g1, wac, kc, vc, f, n_ctx)
+        return lib_int8_mlp(h, sh2, sc2, g2, *wmc)
+
+    return (lambda: pair.fused_temporal_pair_q(*args),
+            lambda: pair.temporal_pair_q_plain(*args), lib,
+            "the int8 step + MLP composites (torch._int_mm, SDPA)", by,
+            4 * N * S_DIT * H * (n_ctx + 1) * HD, i8, seq)
+
+
+PAIR_CASES = [
+    # name, replaces, label, main?, (kind, N, seed)
+    ("fused_spatial_pair_q", "gtax/kernels/pair.py:227", "step N=1 (B=1)",
+     True, ("spatial", 1, 90)),
+    ("fused_spatial_pair_q", "gtax/kernels/pair.py:227", "step N=2 (B=2)",
+     False, ("spatial", 2, 91)),
+    ("fused_temporal_pair_q", "gtax/kernels/pair.py:303",
+     "step B=1 n_ctx=4, slot 0 padded", True, ("temporal", 1, 92)),
+    ("fused_temporal_pair_q", "gtax/kernels/pair.py:303",
+     "step B=1 n_ctx=4, slot 0 valid", False, ("temporal-valid", 1, 93)),
+    ("fused_temporal_pair_q", "gtax/kernels/pair.py:303",
+     "step B=2 n_ctx=4, slot 0 padded", False, ("temporal", 2, 94)),
+]
+
+
+def pair_phase(timer, rows):
+    """Rows 10-11: each pair against its plain version (via measure), then
+    against the two sequential int8 wrappers on the same inputs (the same
+    device code, so equal is expected; the max error and the equality are
+    printed, and the error is held to the same tolerance), timed beside
+    them. Then the pair against the sequential pair at N = 1..4 frames (B
+    = 1..4 for the temporal step): the numbers for choosing Hopper's gate
+    (gtax's is 2)."""
+    from gtax_torch.kernels import pair
+
+    grids = {kind: pair.grid_blocks(kind == "temporal", HD, S_DIT, D)
+             for kind in ("spatial", "temporal")}
+    log(f"[kernel] pair kernels' cooperative grids (blocks of 256 threads "
+        f"co-resident on {torch.cuda.get_device_properties(0).multi_processor_count}"
+        f" SMs): {json.dumps(grids)}")
+    for name, replaces, label, main, spec in PAIR_CASES:
+        kern, plain, lib, lib_desc, by, fl, i8, seq = pair_case(*spec)
+        m = measure(timer, name, label, kern, plain, lib, by, fl, i8)
+        got, ref = kern(), seq()
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        equal = bool(torch.equal(got, ref))
+        seq_ms = timer(seq)
+        log(f"[kernel] {name:25s} {label:36s} vs the sequential wrappers: "
+            f"max_abs_err={err:.3g} bit_equal={equal}; pair ms={m['ms']:.4f}"
+            f" sequential ms={seq_ms:.4f}")
+        if not err <= m["tolerance"]:
+            fail(f"{name} [{label}] disagrees with the sequential wrappers")
+        if main:
+            rows[name] = {"name": name, "route": "cuda",
+                          "source": "gtax_torch/kernels/pair.py",
+                          "replaces": replaces, "launches": None, **m,
+                          "library": lib_desc, "sequential_ms": seq_ms,
+                          "sequential_max_abs_err": err,
+                          "sequential_bit_equal": equal}
+        del kern, plain, lib, seq
+    sweep = {}
+    for kind, name in (("spatial", "fused_spatial_pair_q"),
+                       ("temporal", "fused_temporal_pair_q")):
+        for N in (1, 2, 3, 4):
+            kern, *_, seq = pair_case(kind, N, 100 + N)
+            p1, s1, s2, p2 = timer(kern), timer(seq), timer(seq), timer(kern)
+            pms, sms = (p1 + p2) / 2, (s1 + s2) / 2
+            sweep.setdefault(name, {})[N] = {"pair_ms": pms,
+                                             "sequential_ms": sms}
+            log(f"[gate] {name} N={N}: pair {pms:.4f} ms, sequential "
+                f"{sms:.4f} ms (pair/sequential {pms / sms:.3f}; turns "
+                f"{p1:.4f} {s1:.4f} {s2:.4f} {p2:.4f})")
+            del kern, seq
+    for name, by_n in sweep.items():
+        rows[name]["pair_vs_sequential"] = by_n
+
+
+def attention_cases():
+    """(name, replaces, label, main, make) of the `pallas` backend's two
+    kernels at the three attention shapes of the model; make returns
+    (kernel_fn, plain_fn, library_fn, library_desc, bytes, flops). The
+    library call is SDPA with the same additive bias as attn_mask."""
+    from gtax_torch.kernels import attention as kattn
+
+    F = torch.nn.functional
+
+    def temporal_mask(T=5):
+        valid = torch.tensor([False] + [True] * (T - 1))
+        return torch.tril(torch.ones(T, T, dtype=torch.bool)) & (
+            valid[None, :] | torch.eye(T, dtype=torch.bool))
+
+    def sdpa(N, S, mask=None, causal=False):
+        gen = np.random.default_rng(500 + S)
+        q, k, v = (rand(gen, (N, S, HD)) for _ in range(3))
+        bias = kattn.build_bias(S, mask, causal, "cuda")
+        lib_bias = bias.to(torch.bfloat16)
+        return (lambda: kattn.fused_sdpa(q, k, v, mask, causal),
+                lambda: kattn.sdpa_plain(q, k, v, bias),
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=lib_bias),
+                "SDPA(attn_mask=bias)", nbytes(q, k, v, bias, q),
+                4 * N * S * S * HD)
+
+    def mha(N, S, mask=None):
+        gen = np.random.default_rng(600 + S)
+        q, k, v = (rand(gen, (N, S, D)) for _ in range(3))
+        bias = kattn.build_bias(S, mask, False, "cuda")
+        lib_bias = bias.to(torch.bfloat16)
+
+        def heads(t):
+            return t.view(N, S, H, HD).transpose(1, 2)
+
+        return (lambda: kattn.fused_mha_token_major(q, k, v, H, mask),
+                lambda: kattn.mha_token_major_plain(q, k, v, bias, H),
+                lambda: F.scaled_dot_product_attention(
+                    heads(q), heads(k), heads(v), attn_mask=lib_bias),
+                "SDPA(attn_mask=bias) on (N, h, S, d) views",
+                nbytes(q, k, v, bias, q), 4 * N * H * S * S * HD)
+
+    sd, mh = "gtax/kernels/attention.py:90", "gtax/kernels/attention.py:198"
+    return [
+        ("fused_sdpa", sd, "S=144 d=64, 80 rows (5 frames x 16 heads)",
+         True, lambda: sdpa(80, S_DIT)),
+        ("fused_sdpa", sd, "S=5 causal+keys, 2304 rows (144 sites x 16)",
+         False, lambda: sdpa(2304, 5, [False] + [True] * 4, True)),
+        ("fused_sdpa", sd, "S=576 d=64, 96 rows (6 frames x 16 heads)",
+         False, lambda: sdpa(96, S_VAE)),
+        ("fused_mha_token_major", mh, "spatial (5, 144, 1024), B=1", True,
+         lambda: mha(5, S_DIT)),
+        ("fused_mha_token_major", mh, "temporal (144, 5, 1024), causal",
+         False, lambda: mha(S_DIT, 5, temporal_mask())),
+        ("fused_mha_token_major", mh, "VAE decode (6, 576, 1024)", False,
+         lambda: mha(6, S_VAE)),
+    ]
+
+
 SOURCES = {
+    "fused_sdpa": "gtax_torch/kernels/attention.py",
+    "fused_mha_token_major": "gtax_torch/kernels/attention.py",
     "fused_spatial_branch": "gtax_torch/kernels/block.py",
     "fused_mlp_branch": "gtax_torch/kernels/block.py",
     "fused_temporal_branch": "gtax_torch/kernels/block.py",
@@ -588,13 +827,15 @@ def kernel_phase():
     timer = Timer()
     rows = {}
     for name, replaces, label, main, make in (kernel_cases()
-                                              + int8_kernel_cases()):
+                                              + int8_kernel_cases()
+                                              + attention_cases()):
         kern, plain, lib, lib_desc, *rest = make()
         m = measure(timer, name, label, kern, plain, lib, *rest)
         if main:
             rows[name] = {"name": name, "route": "cuda",
                           "source": SOURCES[name], "replaces": replaces,
                           "launches": None, **m, "library": lib_desc}
+    pair_phase(timer, rows)
     return rows
 
 
@@ -884,19 +1125,36 @@ def gtax_regime(cfg, seed, width_scaled):
 
 BF16_PATH = ("fused_spatial_branch", "fused_mlp_branch",
              "fused_temporal_branch", "fused_temporal_step", "fused_vae_block")
-INT8_PATH = ("fused_spatial_branch_q", "fused_mlp_branch_q",
-             "fused_temporal_branch_q", "fused_temporal_step_q",
-             "fused_vae_block")
+# the int8 path at B=1: every denoise step pairs each half-block (gtax's
+# gate: int8 and at most 2 live frames); the 4-frame prefill stays
+# sequential. Expected launches per generate of 2 frames (16 blocks, 101
+# steps a frame, one prefill a frame), from the code:
+INT8_EXPECTED = {"fused_spatial_branch_q": 32, "fused_mlp_branch_q": 64,
+                 "fused_temporal_branch_q": 32, "fused_temporal_step_q": 0,
+                 "fused_spatial_pair_q": 3232, "fused_temporal_pair_q": 3232,
+                 "fused_vae_block": 18}
+INT8_PATH = tuple(n for n, c in INT8_EXPECTED.items() if c)
+# the `pallas` path: full-window rollouts through the unfused branches, every
+# attention on the token-major kernel: per generate 16 blocks x 202 window
+# evaluations for the spatial (S=144) and temporal (S=5) attentions, and the
+# 6 encoder + 12 decoder VAE blocks (S=576)
+PALLAS_EXPECTED = {144: 3232, 5: 3232, 576: 18}
+WRAPPER_MODULES = {"block": BF16_PATH[:4],
+                   "quant": ("fused_spatial_branch_q", "fused_mlp_branch_q",
+                             "fused_temporal_branch_q",
+                             "fused_temporal_step_q"),
+                   "pair": ("fused_spatial_pair_q", "fused_temporal_pair_q"),
+                   "attention": ("fused_sdpa", "fused_mha_token_major"),
+                   "vae_block": ("fused_vae_block",)}
 
 
 def kernel_wrappers():
     """name -> wrapper; each wrapper counts its launches in `.launches`."""
-    from gtax_torch.kernels import block, quant, vae_block
+    import importlib
 
-    return {name: getattr(mod, name) for name, mod in (
-        *((n, block) for n in BF16_PATH[:4]),
-        *((n, quant) for n in INT8_PATH[:4]),
-        ("fused_vae_block", vae_block))}
+    return {name: getattr(importlib.import_module(
+        f"gtax_torch.kernels.{mod}"), name)
+        for mod, names in WRAPPER_MODULES.items() for name in names}
 
 
 def profile_device(fn, label, top=12):
@@ -952,9 +1210,10 @@ def profile_frame(gen, lat0, acts, nz, steps=4):
                        f"depth {gen.dit_cfg.depth}")
 
 
-def drive_path(gen, label, path, rows, record, inputs):
+def drive_path(gen, label, path, rows, record, inputs, expect=None):
     """One generate call with every launch count zeroed just before it and
-    read just after: each kernel of `path` must have launched. Records the
+    read just after: each kernel of `path` must have launched, and exactly
+    as often as `expect` says where it names the kernel. Records the
     counts of the `record` kernels in their rows."""
     prompt, actions, noise = inputs
     n_frames, vc = actions.shape[1], gen.vae_cfg
@@ -963,7 +1222,7 @@ def drive_path(gen, label, path, rows, record, inputs):
     for fn in fns.values():
         fn.launches = 0
     pixels = gen.generate(prompt, actions, num_frames=n_frames, noise=noise)
-    counts = {name: fns[name].launches for name in path}
+    counts = {name: fns[name].launches for name in (*path, *(expect or ()))}
     tm = gen.last_timings
     log(f"[e2e {label}] generate: pixels {pixels.shape} {pixels.dtype}; "
         f"encode {tm['encode_s'] * 1e3:.1f} ms, rollout "
@@ -974,11 +1233,16 @@ def drive_path(gen, label, path, rows, record, inputs):
     if pixels.shape != (1, n_frames, vc.input_height, vc.input_width, 3) \
             or pixels.dtype != np.uint8:
         fail(f"{label} generate returned {pixels.shape} {pixels.dtype}")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in path:
+        if counts[name] <= 0:
             fail(f"{name} was not launched on the {label} main path")
+    for name, n in (expect or {}).items():
+        if counts[name] != n:
+            fail(f"{name}: {counts[name]} launches on the {label} path, the "
+                 f"code gives {n}")
     for name in record:
         rows[name]["launches"] = counts[name]
+    return counts
 
 
 def check_rollouts(gen, label, lat0, acts, nz):
@@ -1075,6 +1339,177 @@ def int8_vs_bf16(gen, gen8):
         fail(f"int8 forward off the bf16 one at depth 2: {gated} >= 2e-2")
 
 
+def window_rows(mods, sl):
+    return {"blocks": [{k: m[:, sl] for k, m in b.items()}
+                       for b in mods["blocks"]],
+            "final": mods["final"][:, sl]}
+
+
+def int8_batched_step(gen8, rows):
+    """One full-depth int8 dit_apply_step at B=4: N=4 live rows exceed the
+    pair's gate, so each half-block runs the two sequential wrappers
+    (fused_temporal_step_q among them), with every count zeroed just before
+    the step and read just after. Its batch element 0 is held against the
+    same element's B=1 step, which pairs (2**-6 of the largest output)."""
+    from gtax_torch.models import dit as dit_mod
+
+    cfg, params, bf = gen8.dit_cfg, gen8.dit_params, torch.bfloat16
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((4, 5, 16, 18, 32)).astype(
+        np.float32)).cuda()
+    t = torch.from_numpy(rng.integers(0, 1000, (4, 5))).cuda()
+    a = torch.from_numpy(rng.standard_normal((4, 5, 25)).astype(
+        np.float32)).cuda()
+    valid = [False] + [True] * 4
+    fns = kernel_wrappers()
+
+    def step(B):
+        with torch.inference_mode():
+            mods = dit_mod.dit_cond(params, cfg, t[:B], a[:B], bf)
+            kv = dit_mod.dit_prefill(params, cfg, x[:B, :4],
+                                     window_rows(mods, slice(0, 4)),
+                                     valid[:4], bf)
+            torch.cuda.synchronize()
+            for fn in fns.values():
+                fn.launches = 0
+            out = dit_mod.dit_apply_step(params, cfg, x[:B, 4:], kv,
+                                         window_rows(mods, slice(4, 5)),
+                                         valid, bf)
+            torch.cuda.synchronize()
+        return out, {n: fn.launches for n, fn in fns.items() if fn.launches}
+
+    out4, counts4 = step(4)
+    out1, counts1 = step(1)
+    log(f"[e2e int8] one step at B=4, launches: {json.dumps(counts4)}; at "
+        f"B=1: {json.dumps(counts1)}")
+    want4 = {"fused_spatial_branch_q": 16, "fused_mlp_branch_q": 32,
+             "fused_temporal_step_q": 16}
+    if counts4 != want4 or counts1 != {"fused_spatial_pair_q": 16,
+                                       "fused_temporal_pair_q": 16}:
+        fail(f"int8 step routing: B=4 {counts4}, B=1 {counts1}")
+    rows["fused_temporal_step_q"]["launches"] = counts4[
+        "fused_temporal_step_q"]
+    rows["fused_temporal_step_q"]["launches_on"] = (
+        "one int8 dit_apply_step at B=4 (B=1 steps pair)")
+    ref = out1[0].float()
+    err = (out4[0].float() - ref).abs().max().item()
+    tol = 2.0**-6 * max(1.0, ref.abs().max().item())
+    log(f"[e2e int8] B=4 sequential step, element 0, vs the B=1 paired "
+        f"step: max_abs_err={err:.4g} (tol {tol:.4g}), bit_equal="
+        f"{bool(torch.equal(out4[:1], out1))}")
+    if not (torch.isfinite(out4).all() and err <= tol):
+        fail(f"int8 B=4 step disagrees with the B=1 step: {err} > {tol}")
+
+
+def pallas_path(gen, rows, inputs, lat0, acts, nz):
+    """`[e2e pallas]`: VideoGenerator(attention_backend="pallas") over the
+    bf16 generator's weights: full-window rollouts through the unfused
+    branches, every attention on fused_mha_token_major, counted by sequence
+    length (spatial 144, temporal 5, VAE 576). Then a depth-2 rollout on
+    the card against the port's CPU one, and the card's `pallas` rollout
+    against its `xla` rollout (2**-5 of the latents' largest magnitude)."""
+    from gtax_torch.kernels import attention as kattn
+    from gtax_torch.models import dit as dit_mod
+    from gtax_torch.sampling.diffusion import SamplerConfig, make_rollout
+    from gtax_torch.serving import VideoGenerator
+
+    genp = VideoGenerator(gen.dit_params, gen.vae_params,
+                          dataclasses.replace(gen.cfg,
+                                              attention_backend="pallas"))
+    kernel_wrappers()  # resolved before the tally wraps the module's name
+    wrapped, by_len = kattn.fused_mha_token_major, {}
+
+    def tally(q, *args, **kw):
+        out = wrapped(q, *args, **kw)
+        if out is not None:
+            by_len[q.shape[-2]] = by_len.get(q.shape[-2], 0) + 1
+        return out
+
+    kattn.fused_mha_token_major = tally
+    try:
+        drive_path(genp, "pallas", ("fused_mha_token_major",), rows,
+                   ("fused_mha_token_major",), inputs,
+                   {"fused_mha_token_major": sum(PALLAS_EXPECTED.values())})
+    finally:
+        kattn.fused_mha_token_major = wrapped
+    log(f"[e2e pallas] fused_mha_token_major calls by sequence length: "
+        f"{json.dumps(by_len)} (the code gives {PALLAS_EXPECTED})")
+    if by_len != PALLAS_EXPECTED:
+        fail(f"pallas path attention calls {by_len} != {PALLAS_EXPECTED}")
+    rows["fused_mha_token_major"]["launches_by_sequence_length"] = by_len
+    t = torch.full((1, 5), 10, device="cuda")
+    window = torch.cat([lat0, nz[:, :1]], dim=1)  # the first window
+    with torch.inference_mode():
+        mods = dit_mod.dit_cond(genp.dit_params, genp.dit_cfg, t, acts[:, :5],
+                                torch.bfloat16)
+        profile_device(lambda: dit_mod.dit_apply(
+            genp.dit_params, genp.dit_cfg, window, mods=mods,
+            backend="pallas"), "pallas: one full-window evaluation (one "
+            "denoise step), depth 16")
+
+    n_gen = nz.shape[1]
+    cfg2 = dataclasses.replace(gen.dit_cfg, depth=2)
+    params2 = dict(gen.dit_params, blocks=gen.dit_params["blocks"][:2])
+    bf = torch.bfloat16
+
+    def roll(backend, params, *args):
+        r = make_rollout(None, cfg2.max_frames,
+                         SamplerConfig(ddim_noise_steps=4),
+                         cond=dit_mod.make_cond_fns(cfg2, bf, backend))
+        with torch.inference_mode():
+            return r(params, *args[:2], None, n_gen, args[2])
+
+    card = roll("pallas", params2, lat0, acts, nz)
+    on_cpu = roll("pallas", dit_mod.params_to(params2, "cpu"), lat0.cpu(),
+                  acts.cpu(), nz.cpu())
+    xla = roll("xla", params2, lat0, acts, nz)
+    for what, ref in (("card vs CPU", on_cpu), ("pallas vs xla on the card",
+                                                 xla.cpu())):
+        scale = max(1.0, ref.abs().max().item())
+        err = (card.cpu() - ref).abs().max().item()
+        tol = 2.0**-5 * scale
+        log(f"[e2e pallas] depth-2 rollout {what}: max_abs_err={err:.4g} "
+            f"(tol {tol:.4g})")
+        if not (torch.isfinite(card).all() and err <= tol):
+            fail(f"pallas depth-2 rollout, {what}: {err} > {tol}")
+
+
+def sdpa_path(rows):
+    """`[sdpa]`: gtax_torch.nn.attention.sdpa, the public entry point that
+    fused_sdpa serves under `pallas` (no model calls it, in gtax or here),
+    at the three attention shapes of the model, counts zeroed just before
+    and read just after; each output against the `xla` path's."""
+    from gtax_torch.kernels import attention as kattn
+    from gtax_torch.nn import attention as attn
+
+    gen = np.random.default_rng(700)
+    cases = [((2304, 5), [False] + [True] * 4, True), ((80, S_DIT), None,
+                                                       False),
+             ((96, S_VAE), None, False)]
+    inputs = [([rand(gen, (*lead, HD)) for _ in range(3)], m, c)
+              for lead, m, c in cases]
+    kattn.fused_sdpa.launches = 0
+    with torch.inference_mode():
+        outs = [attn.sdpa(*qkv, mask=m, causal=c, backend="pallas")
+                for qkv, m, c in inputs]
+        torch.cuda.synchronize()
+        n = kattn.fused_sdpa.launches
+        refs = [attn.sdpa(*qkv, mask=m, causal=c, backend="xla")
+                for qkv, m, c in inputs]
+    errs = [(o.float() - r.float()).abs().max().item()
+            for o, r in zip(outs, refs)]
+    log(f"[sdpa] nn.attention.sdpa(backend='pallas') at S=5 (causal+keys), "
+        f"144, 576: fused_sdpa launches {n}; max_abs_err vs xla {errs}")
+    if n != len(cases):
+        fail(f"fused_sdpa launched {n} times for {len(cases)} sdpa calls")
+    for e, r in zip(errs, refs):
+        if not e <= 2.0**-6 * max(1.0, r.float().abs().max().item()):
+            fail(f"sdpa pallas vs xla: {errs}")
+    rows["fused_sdpa"]["launches"] = n
+    rows["fused_sdpa"]["launches_on"] = (
+        "three nn.attention.sdpa(backend='pallas') calls")
+
+
 def end_to_end(rows):
     from gtax_torch.data.actions import forward_actions
     from gtax_torch.serving import ServingConfig, VideoGenerator
@@ -1098,7 +1533,7 @@ def end_to_end(rows):
     inputs = (prompt, actions, noise)
     with torch.inference_mode():
         lat0 = encode_frames(gen.vae_params, vc, torch.from_numpy(
-            prompt).cuda(), torch.bfloat16)
+            prompt).cuda(), torch.bfloat16, fused=True)
     acts = torch.from_numpy(actions).cuda()
     nz = torch.from_numpy(noise).cuda()
 
@@ -1109,10 +1544,17 @@ def end_to_end(rows):
     # the same bf16 weights, quantized by the serving path
     gen8 = VideoGenerator(gen.dit_params, gen.vae_params,
                           dataclasses.replace(cfg, quantize="int8"))
-    drive_path(gen8, "int8", INT8_PATH, rows, INT8_PATH[:4], inputs)
+    drive_path(gen8, "int8", INT8_PATH, rows, INT8_PATH[:5], inputs,
+               INT8_EXPECTED)
     check_rollouts(gen8, "int8", lat0, acts, nz)
     profile_frame(gen8, lat0, acts, nz)
+    int8_batched_step(gen8, rows)
     int8_vs_bf16(gen, gen8)
+    del gen8
+    torch.cuda.empty_cache()
+
+    pallas_path(gen, rows, inputs, lat0, acts, nz)
+    sdpa_path(rows)
 
 
 # ------------------------------------------------------------- training
@@ -1132,8 +1574,10 @@ TRAIN_CUTS = {
 }
 BWD_PATH = {"fused_spatial_branch_bwd": 16, "fused_temporal_branch_bwd": 16,
             "fused_mlp_branch_bwd": 32}  # launches per micro-step
+# the frozen VAE encodes unfused (gtax's trainer: encode_frames' default),
+# its attention on the plain path under fused_all: no kernel of its own
 TRAIN_PATH = ("fused_spatial_branch", "fused_mlp_branch",
-              "fused_temporal_branch", "fused_vae_block", *BWD_PATH)
+              "fused_temporal_branch", *BWD_PATH)
 GRAD_TOL = 5e-2  # relative L2 per gradient leaf
 
 
@@ -1162,11 +1606,9 @@ def read_flat_yaml(path):
 
 
 def train_wrappers():
-    from gtax_torch.kernels import backward, block, vae_block
+    from gtax_torch.kernels import backward, block
 
-    mods = {"fused_vae_block": vae_block}
-    return {name: getattr(mods.get(name, backward if name in BWD_PATH
-                                   else block), name)
+    return {name: getattr(backward if name in BWD_PATH else block, name)
             for name in TRAIN_PATH}
 
 
@@ -1295,14 +1737,34 @@ def train_phase(rows):
                      "peak_memory_gib":
                          torch.cuda.max_memory_allocated() / 2**30}
 
+    # the step's frozen-VAE encode, unfused as gtax's trainer runs it,
+    # against the fused VAE block kernels on the same B=16 clips
+    v16 = torch.from_numpy(next(iter(DataLoader(DummyDataset(
+        "train", return_actions=True, size=B), B, shuffle=False))).video)
+    v16 = v16.cuda()
+    timer = Timer(iters=3)
+    with torch.no_grad():
+        def fused():
+            return encode_frames(trainer.vae_params, trainer.vae_cfg, v16,
+                                 trainer.compute_dtype, fused=True)
+
+        unfused_ms, fused_ms = timer(lambda: trainer.encode(v16)), timer(fused)
+        a, f = trainer.encode(v16), fused()
+    err = (a - f).abs().max().item()
+    log(f"[train] frozen-VAE encode of B={B} clips ({v16.shape[1]} frames "
+        f"each): unfused (the step's) {unfused_ms:.2f} ms, fused block "
+        f"kernels {fused_ms:.2f} ms; latents max_abs_err {err:.4g} "
+        f"(max|lat| {f.abs().max().item():.3g})")
+    rows["train"]["vae_encode_ms"] = {"unfused": unfused_ms,
+                                      "fused": fused_ms}
+    del v16, a, f
+
     # one B=2 micro-batch: the kernel path against the plain path (xla_*
     # branches under autograd) on the card, at full width and depth
     gen = torch.Generator(device="cuda").manual_seed(5)
     b = next(iter(DataLoader(DummyDataset("train", return_actions=True,
                                           size=2), 2, shuffle=False)))
-    with torch.no_grad():
-        lat = encode_frames(trainer.vae_params, trainer.vae_cfg,
-                            torch.from_numpy(b.video).cuda(), torch.bfloat16)
+    lat = trainer.encode(torch.from_numpy(b.video).cuda())
     acts = torch.from_numpy(b.actions).cuda()
     draws = draw_loss_noise(lat, trainer.loss_cfg, gen)
     consts = (trainer.loss_cfg, trainer.alphas_cumprod, trainer.noise_range)
@@ -1360,7 +1822,11 @@ def main():
     end_to_end(rows)
     train_phase(rows)
     train = rows.pop("train")
+    if len(rows) != 16:
+        fail(f"the kernel table has {len(rows)} rows, not 16")
     for row in rows.values():
+        if not isinstance(row["launches"], int):
+            fail(f"{row['name']}: no launch count from a main-path run")
         for k, v in row.items():
             if isinstance(v, float) and not math.isfinite(v):
                 fail(f"{row['name']}: {k} is not finite")

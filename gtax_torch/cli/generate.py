@@ -48,8 +48,10 @@ def build_parser():
     p.add_argument("--attention_backend", type=str, default="fused",
                    choices=["xla", "pallas", "fused", "fused_mlp",
                             "fused_all"],
-                   help="fused / fused_all run the port's CUDA kernels; the "
-                        "others are not ported yet")
+                   help="fused / fused_all: the fused branch kernels with "
+                        "incremental decoding; xla / pallas / fused_mlp: "
+                        "full-window rollouts through the unfused branches "
+                        "(pallas on the attention kernels)")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--pipeline_depth", type=int, default=1)
     p.add_argument("--attn_broadcast", type=int, default=1)

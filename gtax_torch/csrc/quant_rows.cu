@@ -8,33 +8,18 @@
 // Bound: bytes. One fp32 read and one int8 write per element. One block
 // per (row, group) reduces the abs-max in shared memory and then re-reads
 // its G values (from L1) to round them.
-#include "common.cuh"
+#include "quant_rows.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 
-// block b quantizes group b % n_groups of row b / n_groups; scale[b] is its
-// scale, so scale is (rows, n_groups) row-major
+// one block per (row, group); the body is quant_rows_unit (quant_rows.cuh)
 __global__ void __launch_bounds__(kThreads)
     quant_rows_kernel(const float* __restrict__ a, signed char* __restrict__ q,
                       float* __restrict__ scale, int G) {
   __shared__ float red[kThreads / 32];
-  const size_t off = (size_t)blockIdx.x * G;  // groups tile the rows
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float m = 0.f;
-  for (int c = threadIdx.x; c < G; c += kThreads) m = fmaxf(m, fabsf(a[off + c]));
-  m = warp_max(m);
-  if (lane == 0) red[warp] = m;
-  __syncthreads();
-  m = red[0];
-#pragma unroll
-  for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, red[w]);
-  const float sc = int8_scale(m);
-  const float inv = __fdiv_rn(1.0f, sc);
-  for (int c = threadIdx.x; c < G; c += kThreads)
-    q[off + c] = int8_round(a[off + c], inv);
-  if (threadIdx.x == 0) scale[blockIdx.x] = sc;
+  quant_rows_unit<kThreads>(a, q, scale, G, blockIdx.x, red);
 }
 
 }  // namespace

@@ -1,0 +1,199 @@
+"""The attention kernels of the `pallas` backend: multi-head attention with
+an additive (S, S) bias over heads-first or token-major tensors
+(counterpart of gtax/kernels/attention.py).
+
+    fused_sdpa(q, k, v, mask, causal)                 q/k/v (..., S, d)
+    fused_mha_token_major(q, k, v, num_heads, ...)    q/k/v (..., S, h*d)
+
+Both compute, per head, gtax's `_attn_kernel`: fp32 scores q.k times
+d^-1/2 plus the bias of `build_bias` (0 where a query may attend a key,
+-1e30 where not), a max-subtracted fp32 softmax as e / sum(e), the
+probabilities cast to the input dtype, PV summed in fp32, the output in
+the input dtype. Both return None when the mask carries batch dimensions
+(or is 2-D but not (S, S)), as gtax's do: callers then take the plain
+attention path. That is gtax's dispatch by the mask's shape, decided
+before any kernel runs.
+
+The tensor's device picks the path: a CPU tensor gets the plain version
+(`sdpa_plain`, `mha_token_major_plain`, any float dtype), a CUDA tensor gets
+the sm_90a kernel of gtax_torch/csrc/attn_sdpa.cu (bf16 only) or an
+exception. Each wrapper counts its kernel launches in `launches`.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from gtax_torch.kernels import build
+from gtax_torch.kernels.block import _desc, _need, _stream
+
+NEG_BIAS = -1e30
+
+
+def _mask_tensor(mask):
+    return mask if isinstance(mask, torch.Tensor) else torch.as_tensor(
+        mask, dtype=torch.bool)
+
+
+def _bias(S: int, mask, causal: bool, device) -> torch.Tensor:
+    allow = torch.ones(S, S, dtype=torch.bool, device=device)
+    if causal:
+        allow = torch.tril(allow)
+    if mask is not None:
+        m = mask.to(device=device, dtype=torch.bool)
+        allow = allow & (m[None, :].expand(S, S) if m.dim() == 1 else m)
+    return torch.where(allow, 0.0, NEG_BIAS).float()
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_bias(S, flags, shape, causal, device):
+    mask = None if flags is None else torch.tensor(flags).reshape(shape)
+    return _bias(S, mask, causal, "cpu").to(device)
+
+
+def build_bias(S: int, mask=None, causal: bool = False,
+               device="cpu") -> torch.Tensor:
+    """Additive (S, S) fp32 bias from the causal flag and an optional (S,)
+    key-validity or (S, S) mask, True = attend (gtax/kernels/attention.py
+    _build_bias): 0 where allowed, -1e30 where not. A 1-D mask applies to
+    every query row. A mask given on the host is turned into a bias on the
+    device once and kept, so the step does not copy it every call."""
+    if mask is not None:
+        mask = _mask_tensor(mask)
+        if mask.device.type != "cpu":
+            return _bias(S, mask, causal, mask.device)
+        return _cached_bias(S, tuple(mask.flatten().tolist()),
+                            tuple(mask.shape), causal, torch.device(device))
+    return _cached_bias(S, None, None, causal, torch.device(device))
+
+
+def _unsupported(mask, S) -> bool:
+    """gtax's rule: a mask with batch dimensions, or a 2-D one that is not
+    (S, S), is not the kernel's (None is returned)."""
+    if mask is None:
+        return False
+    shape = tuple(_mask_tensor(mask).shape)
+    return len(shape) > 2 or (len(shape) == 2 and shape != (S, S))
+
+
+def _attend(q, k, v, bias):
+    """The per-head attention of gtax's _attn_kernel on (N, H, S, d)
+    operands, fp32 scores and softmax, probabilities in the input dtype."""
+    d = q.shape[-1]
+    s = (torch.einsum("nhqd,nhkd->nhqk", q.float(), k.float())
+         * (1.0 / d**0.5) + bias)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = (e / e.sum(-1, keepdim=True)).to(q.dtype)
+    return torch.einsum("nhqk,nhkd->nhqd", p.float(), v.float()).to(q.dtype)
+
+
+def sdpa_plain(q, k, v, bias):
+    """Plain version of fused_sdpa: q/k/v (N, S, d), bias (S, S)."""
+    return _attend(q[:, None], k[:, None], v[:, None], bias)[:, 0]
+
+
+def mha_token_major_plain(q, k, v, bias, num_heads):
+    """Plain version of fused_mha_token_major: q/k/v (N, S, h*d), head h in
+    columns [h*d, (h+1)*d)."""
+    N, S, HD = q.shape
+    d = HD // num_heads
+
+    def heads(t):
+        return t.reshape(N, S, num_heads, d).transpose(1, 2)
+
+    out = _attend(heads(q), heads(k), heads(v), bias)
+    return out.transpose(1, 2).reshape(N, S, HD)
+
+
+def _token_rows(t, S, width):
+    """t (..., S, width) as rows of S tokens with token stride ld and row
+    stride S * ld, as the kernel reads them; copied only when its layout is
+    not that (a q/k/v view of a fused qkv row is read in place)."""
+    ld = t.stride(-2)
+    ok = (t.stride(-1) == 1 and ld >= width and ld % 2 == 0
+          and t.data_ptr() % 4 == 0)
+    expect = S * ld
+    for size, stride in reversed(list(zip(t.shape[:-2], t.stride()[:-2]))):
+        ok = ok and (size == 1 or stride == expect)
+        expect *= size
+    return (t, ld) if ok else (t.contiguous(), width)
+
+
+def _launch(q, k, v, bias, S, num_heads, d):
+    """out (N, S, num_heads * d) bf16 of the kernel over the rows of q/k/v,
+    which share their leading dims."""
+    width = num_heads * d
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _need(t.is_cuda and t.dtype == torch.bfloat16,
+              lambda: f"{name} must be a CUDA bf16 tensor (the kernel "
+                      f"computes in bf16), got {_desc(t)}")
+    _need(q.shape == k.shape == v.shape,
+          lambda: f"q/k/v shapes differ: {tuple(q.shape)}, "
+                  f"{tuple(k.shape)}, {tuple(v.shape)}")
+    _need(d in (32, 64), lambda: f"head dim {d}: the kernel takes 32 or 64")
+    (q, q_ld), (k, k_ld), (v, v_ld) = (_token_rows(t, S, width)
+                                       for t in (q, k, v))
+    N = q.numel() // (S * width)
+    out = torch.empty((N, S, width), dtype=torch.bfloat16, device=q.device)
+    build.launch("gtax_attn_sdpa", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 bias.data_ptr(), out.data_ptr(), N, S, num_heads, d, q_ld,
+                 k_ld, v_ld, width, 1.0 / d**0.5, _stream(q))
+    return out
+
+
+def fused_sdpa(q, k, v, mask=None, causal=False):
+    """Attention over the second-to-last axis of heads-first (..., S, d)
+    tensors (gtax's sdpa semantics, scale d^-1/2); mask None, (S,) key
+    validity or (S, S), True = attend. Returns None for a mask with batch
+    dimensions.
+
+    Replaces gtax/kernels/attention.py fused_sdpa (:130; _fused_sdpa_flat,
+    pallas_call at :90, body _attn_kernel :60). On the card: one launch of
+    attn_sdpa, a block per (query tile of 64, row). Bound: operations at
+    S = 576, bytes below."""
+    S, d = q.shape[-2], q.shape[-1]
+    if _unsupported(mask, S):
+        return None
+    lead = q.shape[:-2]
+    bias = build_bias(S, mask, causal, q.device)
+    if q.device.type == "cpu":
+        flat = (t.reshape(-1, S, d) for t in (q, k, v))
+        return sdpa_plain(*flat, bias).reshape(*lead, S, d)
+    out = _launch(q, k, v, bias, S, 1, d)
+    fused_sdpa.launches += 1
+    return out.reshape(*lead, S, d)
+
+
+fused_sdpa.launches = 0
+
+
+def fused_mha_token_major(q, k, v, num_heads, mask=None, causal=False):
+    """Multi-head attention over token-major (..., S, h*d) tensors: the last
+    dim split into num_heads heads of d, each attending over axis -2, the
+    split never copied. mask as fused_sdpa's; returns None for a mask with
+    batch dimensions.
+
+    Replaces gtax/kernels/attention.py fused_mha_token_major (:220;
+    _mha_token_major_flat, pallas_call at :198, body _mha_kernel :154). On
+    the card: one launch of attn_sdpa, a block per (query tile of 64, head,
+    row), heads read as d-wide column slices in place. Bound: operations at
+    S = 576 (the VAE), bytes at S = 144 and 5."""
+    S, HD = q.shape[-2], q.shape[-1]
+    if _unsupported(mask, S):
+        return None
+    lead = q.shape[:-2]
+    bias = build_bias(S, mask, causal, q.device)
+    if q.device.type == "cpu":
+        flat = (t.reshape(-1, S, HD) for t in (q, k, v))
+        return mha_token_major_plain(*flat, bias, num_heads).reshape(
+            *lead, S, HD)
+    _need(HD % num_heads == 0,
+          lambda: f"width {HD} is not a multiple of {num_heads} heads")
+    out = _launch(q, k, v, bias, S, num_heads, HD // num_heads)
+    fused_mha_token_major.launches += 1
+    return out.reshape(*lead, S, HD)
+
+
+fused_mha_token_major.launches = 0

@@ -31,7 +31,8 @@ LIB_NAME = "libgtax_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C entry point -> argument types (see the GTAX_ENTRY functions in csrc/)
 SIGNATURES = {
     # x, out, row_scale, p0, p1, rows, D, S, p_stride, mode, stream
@@ -69,6 +70,19 @@ SIGNATURES = {
     # stream
     "gtax_attn_temporal_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _P),
+    # temporal, x, sh1, sc1, g1, sh2, sc2, g2, p1_stride, g1_stride,
+    # p2_stride, g2_stride, qkv_q, qkv_s, out_q, out_s, out_b, out_b_f32,
+    # w1_q, w1_s, b1, b1_f32, w2_q, w2_s, b2, b2_f32, freqs, k_ctx, v_ctx,
+    # out, ws, ws_bytes, M, S, D, Hd, G, num_heads, B, n_live, n_ctx,
+    # valid_mask, stream
+    "gtax_pair_q": (_I, *(_P,) * 7, *(_I,) * 4, *(_P,) * 5, _I,
+                    *(_P,) * 3, _I, *(_P,) * 3, _I, *(_P,) * 5, _L,
+                    *(_I,) * 10, _P),
+    # temporal, hd, S, D -> the cooperative grid's blocks, or -error
+    "gtax_pair_q_blocks": (_I, _I, _I, _I),
+    # q, k, v, bias, out, N, S, num_heads, hd, q_ld, k_ld, v_ld, o_ld,
+    # scale, stream
+    "gtax_attn_sdpa": (*(_P,) * 5, *(_I,) * 8, _F, _P),
 }
 
 _lib = None

@@ -1,0 +1,203 @@
+"""The paired W8A8 serving kernels: one half of a DiT block, an attention
+branch and the MLP branch after it, as one kernel call (counterpart of
+gtax/kernels/pair.py).
+
+Semantics are gtax's (gtax/kernels/pair.py:14-18): each pair equals the
+two sequential int8 branch wrappers of gtax_torch.kernels.quant back to
+back, bit for bit. The attention half's output is rounded to the compute
+dtype exactly where the sequential pair stores it, and the MLP half is the
+same per-chunk int8 arithmetic.
+
+The tensor's device picks the path, as in quant.py: a CPU tensor gets the
+plain version, which IS the sequential pair of plain versions
+(`spatial_branch_q_plain` then `mlp_branch_q_plain`; `temporal_step_q_plain`
+then `mlp_branch_q_plain`); a CUDA tensor gets one cooperative launch of
+gtax_torch/csrc/pair_q.cu (nine phases separated by grid-wide barriers, each
+phase the device code of the sequential kernels) or an exception. A device
+that refuses a cooperative launch raises; nothing falls back to the
+sequential wrappers. Each wrapper counts its launches in `launches`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gtax_torch.kernels import block, build, quant
+from gtax_torch.kernels.block import _check_branch, _check_mat, _need, _stream
+
+# int8 params and at most this many live frames take the pair
+# (gtax/models/dit.py:705; a Hopper gate is for measurement to choose)
+PAIR_MAX_FRAMES = 2
+
+
+def spatial_pair_q_plain(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
+                         out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s, b2,
+                         rope_freqs, num_heads):
+    h = quant.spatial_branch_q_plain(x, sh1, sc1, g1, qkv_q, qkv_s, out_q,
+                                     out_s, out_b, rope_freqs, num_heads)
+    return quant.mlp_branch_q_plain(h, sh2, sc2, g2, w1_q, w1_s, b1, w2_q,
+                                    w2_s, b2)
+
+
+def temporal_pair_q_plain(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s,
+                          out_q, out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s,
+                          b2, k_ctx, v_ctx, rope_freqs, valid, num_heads,
+                          n_ctx, n_live=1):
+    h = quant.temporal_step_q_plain(x, sh1, sc1, g1, qkv_q, qkv_s, out_q,
+                                    out_s, out_b, k_ctx, v_ctx, rope_freqs,
+                                    valid, num_heads, n_ctx, n_live)
+    return quant.mlp_branch_q_plain(h, sh2, sc2, g2, w1_q, w1_s, b1, w2_q,
+                                    w2_s, b2)
+
+
+def _align256(n: int) -> int:
+    return (n + 255) // 256 * 256
+
+
+def workspace_bytes(M: int, D: int, Hd: int, G: int) -> int:
+    """Bytes of the pair kernel's workspace: the int8 LN rows and scales,
+    fp32 qkv, fp32 attention, its int8 rows and scales, the bf16 seam, the
+    second LN's int8 rows and scales, the fp32 GELU output and its int8
+    chunks and scales, each on a 256-byte boundary (csrc/pair_q.cu
+    workspace_layout)."""
+    sizes = (M * D, M * 4, M * 3 * D * 4, M * D * 4, M * D, M * 4, M * D * 2,
+             M * D, M * 4, M * Hd * 4, M * Hd, M * (Hd // G) * 4)
+    return sum(_align256(s) for s in sizes)
+
+
+def grid_blocks(temporal: bool, head_dim: int, S: int, D: int) -> int:
+    """Blocks of the cooperative grid the pair kernel launches with (what
+    co-resides on the card at its shared-memory size)."""
+    n = build.library().gtax_pair_q_blocks(int(temporal), head_dim, S, D)
+    if n <= 0:
+        raise RuntimeError(f"gtax_pair_q_blocks: CUDA error {-n}")
+    return n
+
+
+def _check_pair(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q, out_s,
+                out_b, w1_q, w1_s, b1, w2_q, w2_s, b2, approx_gelu):
+    if not approx_gelu:
+        raise NotImplementedError(
+            "the int8 MLP kernels compute the tanh GELU only (approx_gelu="
+            "True, gtax's default and the DiT's)")
+    N, S, D = _check_branch(x, sh1, sc1, g1)
+    _check_branch(x, sh2, sc2, g2)
+    for a, b in ((sh1, sc1), (sh2, sc2)):
+        _need(a.stride(0) == b.stride(0),
+              lambda: "shift and scale must share a row stride")
+    quant._check_attn_weights_q(qkv_q, qkv_s, out_q, out_s, out_b, D)
+    Hd = w1_q.shape[-1]
+    block._check_hidden(Hd)
+    quant._check_qlinear("w1", w1_q, w1_s, D, Hd)
+    quant._check_qlinear("w2", w2_q, w2_s, Hd, D)
+    block._check_bias("b1", b1, Hd)
+    block._check_bias("b2", b2, D)
+    G = Hd // quant._mlp_chunks(Hd)
+    _need(max(D, G) <= quant.MAX_EXACT_K and G % 64 == 0,
+          lambda: f"int8 K groups of D={D} and chunk {G}: each must be a "
+                  f"multiple of 64 and at most {quant.MAX_EXACT_K}")
+    return N, S, D, Hd, G
+
+
+def _f32(t):
+    return int(t.dtype == torch.float32)
+
+
+def _launch(temporal, x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
+            out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s, b2, freqs, k_ctx,
+            v_ctx, num_heads, Hd, G, B=0, n_live=0, n_ctx=0, bits=0):
+    N, S, D = x.shape
+    M = N * S
+    size = workspace_bytes(M, D, Hd, G)
+    ws = torch.empty(size, dtype=torch.uint8, device=x.device)
+    out = torch.empty_like(x)
+    build.launch(
+        "gtax_pair_q", int(temporal), x.data_ptr(), sh1.data_ptr(),
+        sc1.data_ptr(), g1.data_ptr(), sh2.data_ptr(), sc2.data_ptr(),
+        g2.data_ptr(), sh1.stride(0), g1.stride(0), sh2.stride(0),
+        g2.stride(0), qkv_q.data_ptr(), qkv_s.data_ptr(), out_q.data_ptr(),
+        out_s.data_ptr(), out_b.data_ptr(), _f32(out_b), w1_q.data_ptr(),
+        w1_s.data_ptr(), b1.data_ptr(), _f32(b1), w2_q.data_ptr(),
+        w2_s.data_ptr(), b2.data_ptr(), _f32(b2), freqs.data_ptr(),
+        None if k_ctx is None else k_ctx.data_ptr(),
+        None if v_ctx is None else v_ctx.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), size, M, S, D, Hd, G, num_heads, B, n_live, n_ctx,
+        bits, _stream(x))
+    return out
+
+
+def fused_spatial_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
+                         out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s, b2,
+                         rope_freqs, num_heads, approx_gelu=True):
+    """Spatial attention branch + spatial MLP branch as ONE kernel call:
+    equals quant.fused_spatial_branch_q followed by quant.fused_mlp_branch_q
+    (arguments as theirs, the branch vectors (N, D) of both halves first).
+
+    Replaces gtax/kernels/pair.py fused_spatial_pair_q (pallas_call at :227,
+    body _spatial_pair_kernel_q :114). On the card: one cooperative launch
+    of csrc/pair_q.cu. Bound: the 12 MB of int8 weights (bytes)."""
+    if x.device.type == "cpu":
+        if not approx_gelu:
+            raise NotImplementedError("approx_gelu=False: tanh GELU only")
+        return spatial_pair_q_plain(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q,
+                                    qkv_s, out_q, out_s, out_b, w1_q, w1_s,
+                                    b1, w2_q, w2_s, b2, rope_freqs,
+                                    num_heads)
+    N, S, D, Hd, G = _check_pair(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s,
+                                 out_q, out_s, out_b, w1_q, w1_s, b1, w2_q,
+                                 w2_s, b2, approx_gelu)
+    d = block._check_heads(D, num_heads, (32, 64))
+    block._check_freqs(rope_freqs, S, d)
+    out = _launch(False, x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
+                  out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s, b2, rope_freqs,
+                  None, None, num_heads, Hd, G)
+    fused_spatial_pair_q.launches += 1
+    return out
+
+
+fused_spatial_pair_q.launches = 0
+
+
+def fused_temporal_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s,
+                          out_q, out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s,
+                          b2, k_ctx, v_ctx, rope_freqs, valid, num_heads,
+                          n_ctx, n_live=1, approx_gelu=True):
+    """Incremental temporal step + temporal MLP branch as ONE kernel call:
+    equals quant.fused_temporal_step_q followed by quant.fused_mlp_branch_q.
+    x: (B * n_live, S, D), the live frames at window slots n_ctx ..
+    n_ctx + n_live - 1; k_ctx/v_ctx: (B * n_ctx * S, D) post-rope cache;
+    rope_freqs: (n_ctx + n_live, head_dim); valid: (T,) or None.
+
+    Replaces gtax/kernels/pair.py fused_temporal_pair_q (pallas_call at
+    :303, body _temporal_pair_kernel_q :152). On the card: one cooperative
+    launch of csrc/pair_q.cu. Bound: the int8 weights (bytes); the bf16
+    context cache adds ~1.2 MB per batch element."""
+    if x.device.type == "cpu":
+        if not approx_gelu:
+            raise NotImplementedError("approx_gelu=False: tanh GELU only")
+        return temporal_pair_q_plain(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q,
+                                     qkv_s, out_q, out_s, out_b, w1_q, w1_s,
+                                     b1, w2_q, w2_s, b2, k_ctx, v_ctx,
+                                     rope_freqs, valid, num_heads, n_ctx,
+                                     n_live)
+    N, S, D, Hd, G = _check_pair(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s,
+                                 out_q, out_s, out_b, w1_q, w1_s, b1, w2_q,
+                                 w2_s, b2, approx_gelu)
+    _need(N % n_live == 0,
+          lambda: f"N={N} is not a multiple of n_live={n_live}")
+    B = N // n_live
+    _need(n_ctx >= 1, lambda: "the step needs at least one context frame")
+    T = n_ctx + n_live
+    d = block.check_temporal(D, num_heads, T, rope_freqs)
+    _need(d in (32, 64), lambda: f"head dim {d}: the pair takes 32 or 64")
+    for name, t in (("k_ctx", k_ctx), ("v_ctx", v_ctx)):
+        _check_mat(name, t, (B * n_ctx * S, D))
+    out = _launch(True, x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
+                  out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s, b2, rope_freqs,
+                  k_ctx, v_ctx, num_heads, Hd, G, B, n_live, n_ctx,
+                  block.valid_bits(valid, T))
+    fused_temporal_pair_q.launches += 1
+    return out
+
+
+fused_temporal_pair_q.launches = 0

@@ -3,18 +3,31 @@ gtax/models/dit.py).
 
 Blocks are a per-block list (gtax's unstacked layout, which gtax also
 trains in by default: `unstack_train`); the port has no stacked `scan`
-layout. Every block branch goes through the fused-branch wrappers of
-gtax_torch.kernels.block, or of gtax_torch.kernels.quant for W8A8 params
-(quantize_for_inference), which launch the CUDA kernels for CUDA tensors
-and run their plain versions for CPU tensors. The int8 branches run at
-every batch size: the port has no paired-branch kernel.
+layout. The attention backend is an argument (gtax's `_block_apply`,
+gtax/models/dit.py:197-357), per branch of a block:
+  - W8A8 params (quantize_for_inference) take the int8 wrappers of
+    gtax_torch.kernels.quant under every backend;
+  - `fused` / `fused_all` take the fused attention branches, `fused_mlp` /
+    `fused_all` the fused MLP branch (gtax_torch.kernels.block);
+  - every other branch is unfused, x + gate(Branch(modulate(LN(x)))), with
+    the attention of gtax_torch.nn.attention (its kernels under `pallas`,
+    the plain path otherwise) and the layers of gtax_torch.nn.layers.
+The wrappers launch the CUDA kernels for CUDA tensors and run their plain
+versions for CPU tensors. dit_prefill and dit_apply_step (incremental
+decoding, which serving runs under the fused backends only) take the
+fused branches; there a W8A8 half-block over at most PAIR_MAX_FRAMES live
+frames is one paired kernel (gtax_torch.kernels.pair), as in gtax
+(gtax/models/dit.py:697-762). At B=1 the prefill has four frames and stays
+sequential; every denoise step pairs.
 
-Training: dit_apply is differentiable. Its bf16/fp32 branches are the
-trainable branches of gtax_torch.nn.branches (gtax's `fused_all` backend:
-the fused forward with emit_train and the whole-branch backward kernels);
-with `plain_branches=True` they are the plain `xla_*` forwards under
-autograd instead, the reference the kernel path is held against. The rope
-frequency tables are detached, as gtax stop_gradients them.
+Training: dit_apply is differentiable. Its fused bf16/fp32 branches are
+the trainable branches of gtax_torch.nn.branches (gtax's `fused_all`
+backend, dit_apply's default: the fused forward with emit_train and the
+whole-branch backward kernels); with `plain_branches=True` they are the
+plain `xla_*` forwards under autograd instead, the reference the kernel
+path is held against. The unfused branches are plain torch ops under
+autograd. The rope frequency tables are detached, as gtax stop_gradients
+them.
 
 Parameter dict (float32 masters; Linear kernels are (in, out)):
   patch_embed {kernel,bias}
@@ -40,11 +53,15 @@ import torch
 import torch.nn.functional as F
 
 from gtax_torch.core import rope
-from gtax_torch.kernels import block, quant
+from gtax_torch.kernels import block, pair, quant
+from gtax_torch.nn import attention as attn
 from gtax_torch.nn import branches
 from gtax_torch.nn.layers import (
+    gate,
+    gelu_tanh,
     layer_norm,
     linear,
+    mlp,
     modulate,
     patchify_embed,
     timestep_embedder,
@@ -241,20 +258,49 @@ PLAIN_BRANCHES = tuple(_plain(fn) for fn in (branches.xla_spatial_branch,
                                              branches.xla_mlp_branch))
 
 
-def _mlp(mp, h, sh, sc, g, fns=KERNEL_BRANCHES):
+def _mlp_weights(mp):
+    """(W8A8?, the weight arguments of the MLP branch wrappers)."""
     f1, f2 = mp["fc1"], mp["fc2"]
     if "kernel_q" in f1:
-        return quant.fused_mlp_branch_q(
-            h, sh, sc, g, f1["kernel_q"], f1["scale"], f1["bias"],
-            f2["kernel_q"], f2["scale"], f2["bias"])
-    return fns[2](h, sh, sc, g, f1["kernel"], f1["bias"], f2["kernel"],
-                  f2["bias"])
+        return True, (f1["kernel_q"], f1["scale"], f1["bias"], f2["kernel_q"],
+                      f2["scale"], f2["bias"])
+    return False, (f1["kernel"], f1["bias"], f2["kernel"], f2["bias"])
+
+
+def _mlp(mp, h, sh, sc, g, fns=KERNEL_BRANCHES, fused=True):
+    """The MLP branch over (rows, S, D) tokens: int8 or fused wrappers, or
+    unfused, x + gate(mlp(modulate(LN(x)))) (gtax's XLA path)."""
+    q8, w = _mlp_weights(mp)
+    if q8:
+        return quant.fused_mlp_branch_q(h, sh, sc, g, *w)
+    if fused:
+        return fns[2](h, sh, sc, g, *w)
+    return h + gate(mlp(mp, modulate(layer_norm(h), sh, sc), gelu_tanh,
+                        h.dtype), g)
+
+
+def _unfused_attention(fn, ap, h, sh, sc, g, grid, freqs, num_heads,
+                       backend, **kw):
+    """x + gate(Attention(modulate(LN(x)))) through gtax_torch.nn.attention,
+    on the (B, T, gh, gw, D) view `grid` of the (B*T, S, D) tokens."""
+    x = h.reshape(grid)
+    sh, sc, g = (t.reshape(*grid[:2], -1) for t in (sh, sc, g))
+    a = fn(ap, modulate(layer_norm(x), sh, sc), freqs, num_heads,
+           compute_dtype=h.dtype, backend=backend, **kw)
+    return (x + gate(a, g)).reshape(h.shape)
 
 
 def _spatial_pair(bp, h, m, rows, D, freqs, num_heads, fns=KERNEL_BRANCHES):
-    """Spatial attention + spatial MLP of one block."""
+    """Spatial attention + spatial MLP of one block on the fused path of
+    dit_prefill / dit_apply_step: one paired kernel for a W8A8 block over
+    at most PAIR_MAX_FRAMES frames (gtax _spatial_pair_call), else the two
+    branch wrappers."""
     sh1, sc1, g1, sh2, sc2, g2 = _split6(m, rows, D)
     q8, w = _attn_weights(bp["s_attn"])
+    if q8 and rows <= pair.PAIR_MAX_FRAMES:
+        return pair.fused_spatial_pair_q(
+            h, sh1, sc1, g1, sh2, sc2, g2, *w, *_mlp_weights(bp["s_mlp"])[1],
+            freqs, num_heads)
     fn = quant.fused_spatial_branch_q if q8 else fns[0]
     h = fn(h, sh1, sc1, g1, *w, freqs, num_heads)
     return _mlp(bp["s_mlp"], h, sh2, sc2, g2, fns)
@@ -273,34 +319,52 @@ def _cast_weights(bp, dtype):
 
 def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
               valid=None, compute_dtype=torch.bfloat16, mods=None,
-              plain_branches=False):
+              plain_branches=False, backend="fused_all"):
     """Full-window forward. x: (B, T, C, H, W) latents; t: (B, T) integer
     noise levels; external_cond: optional (B, T, action_dim); valid:
     optional (T,) mask of real frames. With `mods` (dit_cond output) the
-    adaLN heads are skipped and t/external_cond are ignored. Returns the
-    v-prediction, x's shape, float32. Differentiable (see the module
-    docstring; plain_branches picks the plain xla_* branches)."""
+    adaLN heads are skipped and t/external_cond are ignored. `backend`
+    picks each branch's path (module docstring; gtax's five names).
+    Returns the v-prediction, x's shape, float32. Differentiable
+    (plain_branches picks the plain xla_* branches for the fused ones)."""
     if cfg.block_remat:
         raise NotImplementedError(
             "block_remat (remat: true) is not ported yet; it is a later "
             "slice of the training port (ROADMAP.md)")
+    attn.check_backend(backend)
     B, T = x.shape[:2]
-    D = cfg.hidden_size
+    D, H = cfg.hidden_size, cfg.num_heads
     fns = PLAIN_BRANCHES if plain_branches else KERNEL_BRANCHES
+    fused_attn = backend in attn.FUSED_ATTENTION
+    fused_mlp = backend in attn.FUSED_MLP
     if mods is None:
         mods = dit_cond(params, cfg, t, external_cond, compute_dtype)
     spatial, temporal = _rope_tables(params, cfg, T)
+    grid = (B, T, cfg.grid_h, cfg.grid_w, D)
+    spatial_grid = spatial.reshape(cfg.grid_h, cfg.grid_w, -1)
     h = _embed(params, cfg, x, compute_dtype)
     rows = B * T
     for bp, m in zip(params["blocks"], mods["blocks"]):
         bp = _cast_weights(bp, compute_dtype)
-        h = _spatial_pair(bp, h, m["s"], rows, D, spatial, cfg.num_heads,
-                          fns)
-        th1, tc1, tg1, th2, tc2, tg2 = _split6(m["t"], rows, D)
-        q8, w = _attn_weights(bp["t_attn"])
-        fn = quant.fused_temporal_branch_q if q8 else fns[1]
-        h = fn(h, th1, tc1, tg1, *w, temporal, valid, cfg.num_heads, T)
-        h = _mlp(bp["t_mlp"], h, th2, tc2, tg2, fns)
+        for half, freqs in (("s", spatial), ("t", temporal)):
+            sh1, sc1, g1, sh2, sc2, g2 = _split6(m[half], rows, D)
+            ap = bp[f"{half}_attn"]
+            q8, w = _attn_weights(ap)
+            if half == "s" and (q8 or fused_attn):
+                fn = quant.fused_spatial_branch_q if q8 else fns[0]
+                h = fn(h, sh1, sc1, g1, *w, freqs, H)
+            elif half == "t" and (q8 or fused_attn):
+                fn = quant.fused_temporal_branch_q if q8 else fns[1]
+                h = fn(h, sh1, sc1, g1, *w, freqs, valid, H, T)
+            elif half == "s":
+                h = _unfused_attention(attn.spatial_axial_attention, ap, h,
+                                       sh1, sc1, g1, grid, spatial_grid, H,
+                                       backend)
+            else:
+                h = _unfused_attention(attn.temporal_axial_attention, ap, h,
+                                       sh1, sc1, g1, grid, freqs, H, backend,
+                                       valid=valid)
+            h = _mlp(bp[f"{half}_mlp"], h, sh2, sc2, g2, fns, fused_mlp)
     return _dit_head(params, cfg, h, mods["final"], B, T, compute_dtype)
 
 
@@ -381,6 +445,12 @@ def dit_apply_step(params, cfg: DiTConfig, x_last, kv_cache, mods, valid,
         h = _spatial_pair(bp, h, m["s"], rows, D, spatial, cfg.num_heads)
         th1, tc1, tg1, th2, tc2, tg2 = _split6(m["t"], rows, D)
         q8, w = _attn_weights(bp["t_attn"])
+        if q8 and rows <= pair.PAIR_MAX_FRAMES:
+            h = pair.fused_temporal_pair_q(
+                h, th1, tc1, tg1, th2, tc2, tg2, *w,
+                *_mlp_weights(bp["t_mlp"])[1], k_ctx, v_ctx, temporal, valid,
+                cfg.num_heads, n_ctx, n_live=Tl)
+            continue
         fn = quant.fused_temporal_step_q if q8 else block.fused_temporal_step
         h = fn(h, th1, tc1, tg1, *w, k_ctx, v_ctx, temporal, valid,
                cfg.num_heads, n_ctx, n_live=Tl)
@@ -388,7 +458,8 @@ def dit_apply_step(params, cfg: DiTConfig, x_last, kv_cache, mods, valid,
     return _dit_head(params, cfg, h, mods["final"], B, Tl, compute_dtype)
 
 
-def make_cond_fns(cfg: DiTConfig, compute_dtype=torch.bfloat16):
+def make_cond_fns(cfg: DiTConfig, compute_dtype=torch.bfloat16,
+                  backend="fused_all"):
     """(cond_fn, apply_fn) for the rollout's conditioning cache."""
 
     def cond_fn(params, t, a):
@@ -396,7 +467,8 @@ def make_cond_fns(cfg: DiTConfig, compute_dtype=torch.bfloat16):
 
     def apply_fn(params, x, mods, valid):
         return dit_apply(params, cfg, x, valid=valid,
-                         compute_dtype=compute_dtype, mods=mods)
+                         compute_dtype=compute_dtype, mods=mods,
+                         backend=backend)
 
     return cond_fn, apply_fn
 

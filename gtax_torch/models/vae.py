@@ -1,10 +1,14 @@
 """ViT autoencoder mapping 360x640 RGB frames to 16-channel 18x32 latent
 tokens (counterpart of gtax/models/vae.py).
 
-Encoder and decoder blocks are per-block lists and every block runs through
-gtax_torch.kernels.vae_block.fused_vae_block (CUDA kernels on the card, the
-plain version on the CPU). The partial pixel-axial rope table is computed
-from its closed form.
+Encoder and decoder blocks are per-block lists. With fused=True every
+block is one call of gtax_torch.kernels.vae_block.fused_vae_block (CUDA
+kernels on the card, the plain version on the CPU), which serving takes
+under the fused backends; by default (fused=False, as gtax's) a block is
+unfused, h + attention(LN1(h)) then h + mlp(LN2(h)), with the attention of
+gtax_torch.nn.attention under the caller's backend (the `pallas` kernels,
+else the plain path) and the layers of gtax_torch.nn.layers. The partial
+pixel-axial rope table is computed from its closed form.
 
 Parameter dict (float32 masters, Linear kernels (in, out)):
   patch_embed {kernel,bias}
@@ -24,7 +28,14 @@ import torch
 
 from gtax_torch.core import rope
 from gtax_torch.kernels.vae_block import fused_vae_block
-from gtax_torch.nn.layers import layer_norm, linear, patchify_embed
+from gtax_torch.nn import attention as attn
+from gtax_torch.nn.layers import (
+    gelu_exact,
+    layer_norm,
+    linear,
+    mlp,
+    patchify_embed,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,31 +128,50 @@ def _rope_table(cfg: VAEConfig, dim: int, num_heads: int, device):
     return table.reshape(cfg.seq_len, -1).contiguous().to(device)
 
 
-def _run_blocks(blocks, h, rope_freqs, num_heads, compute_dtype):
+def _run_blocks(blocks, h, rope_freqs, num_heads, cfg: VAEConfig,
+                compute_dtype, fused=False, backend="xla"):
+    """The ViT blocks over (N, seq_len, dim) tokens; rope_freqs (seq_len,
+    rot). fused: one fused_vae_block call per block; else gtax's unfused
+    body (gtax/models/vae.py _run_blocks), attention under `backend`."""
+    if fused:
+        for bp in blocks:
+            h = fused_vae_block(
+                h, bp["norm1"]["weight"], bp["norm1"]["bias"],
+                bp["attn"]["qkv"]["kernel"].to(compute_dtype),
+                bp["attn"]["qkv"]["bias"],
+                bp["attn"]["out"]["kernel"].to(compute_dtype),
+                bp["attn"]["out"]["bias"],
+                bp["norm2"]["weight"], bp["norm2"]["bias"],
+                bp["mlp"]["fc1"]["kernel"].to(compute_dtype),
+                bp["mlp"]["fc1"]["bias"],
+                bp["mlp"]["fc2"]["kernel"].to(compute_dtype),
+                bp["mlp"]["fc2"]["bias"], rope_freqs, num_heads)
+        return h
+    grid_hw = (cfg.seq_h, cfg.seq_w)
+    table = rope_freqs.reshape(*grid_hw, -1)
     for bp in blocks:
-        h = fused_vae_block(
-            h, bp["norm1"]["weight"], bp["norm1"]["bias"],
-            bp["attn"]["qkv"]["kernel"].to(compute_dtype),
-            bp["attn"]["qkv"]["bias"],
-            bp["attn"]["out"]["kernel"].to(compute_dtype),
-            bp["attn"]["out"]["bias"],
-            bp["norm2"]["weight"], bp["norm2"]["bias"],
-            bp["mlp"]["fc1"]["kernel"].to(compute_dtype),
-            bp["mlp"]["fc1"]["bias"],
-            bp["mlp"]["fc2"]["kernel"].to(compute_dtype),
-            bp["mlp"]["fc2"]["bias"], rope_freqs, num_heads)
+        n1, n2 = bp["norm1"], bp["norm2"]
+        h = h + attn.vae_frame_attention(
+            bp["attn"], layer_norm(h, weight=n1["weight"], bias=n1["bias"]),
+            table, num_heads, grid_hw, compute_dtype, backend=backend)
+        h = h + mlp(bp["mlp"],
+                    layer_norm(h, weight=n2["weight"], bias=n2["bias"]),
+                    gelu_exact, compute_dtype)
     return h
 
 
-def vae_encode(params, cfg: VAEConfig, x, compute_dtype=torch.bfloat16):
+def vae_encode(params, cfg: VAEConfig, x, compute_dtype=torch.bfloat16,
+               fused=False, backend="xla"):
     """pixels (N, 3, H, W) in [-1, 1] -> (mean, logvar), each
-    (N, seq_len, latent_dim) float32; logvar clamped to [-30, 20]."""
+    (N, seq_len, latent_dim) float32; logvar clamped to [-30, 20]. fused:
+    the fused block kernels (serving's fused backends); backend: the
+    attention backend of the unfused blocks."""
     h = patchify_embed(params["patch_embed"], x, cfg.patch_size,
                        compute_dtype)
     h = h.reshape(h.shape[0], cfg.seq_len, cfg.enc_dim).contiguous()
     table = _rope_table(cfg, cfg.enc_dim, cfg.enc_heads, x.device)
-    h = _run_blocks(params["encoder"], h, table, cfg.enc_heads,
-                    compute_dtype)
+    h = _run_blocks(params["encoder"], h, table, cfg.enc_heads, cfg,
+                    compute_dtype, fused, backend)
     h = layer_norm(h, weight=params["enc_norm"]["weight"],
                    bias=params["enc_norm"]["bias"])
     moments = linear(params["quant"], h, compute_dtype).float()
@@ -186,12 +216,14 @@ def vae_posterior(params, cfg: VAEConfig, x, compute_dtype=torch.bfloat16,
                             deterministic=deterministic)
 
 
-def vae_decode(params, cfg: VAEConfig, z, compute_dtype=torch.bfloat16):
-    """latents (N, seq_len, latent_dim) -> pixels (N, 3, H, W), float32."""
+def vae_decode(params, cfg: VAEConfig, z, compute_dtype=torch.bfloat16,
+               fused=False, backend="xla"):
+    """latents (N, seq_len, latent_dim) -> pixels (N, 3, H, W), float32;
+    fused and backend as vae_encode's."""
     h = linear(params["post_quant"], z, compute_dtype).contiguous()
     table = _rope_table(cfg, cfg.dec_dim, cfg.dec_heads, z.device)
-    h = _run_blocks(params["decoder"], h, table, cfg.dec_heads,
-                    compute_dtype)
+    h = _run_blocks(params["decoder"], h, table, cfg.dec_heads, cfg,
+                    compute_dtype, fused, backend)
     h = layer_norm(h, weight=params["dec_norm"]["weight"],
                    bias=params["dec_norm"]["bias"])
     h = linear(params["predictor"], h, compute_dtype).float()

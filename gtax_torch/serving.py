@@ -13,11 +13,18 @@ conditioning cache and incremental decoding on. The generator runs on the
 card (`cuda`, in bf16) unless the caller passes device="cpu".
 
 quantize="int8" serves W8A8 params (quantize_for_inference, after the
-cast) through the int8 kernels of gtax_torch.kernels.quant. Only the
-options ported so far run: quantize "none" or "int8", pipeline_depth=1,
-attn_broadcast=1, mesh_data = mesh_model = 1, aot_dir=None, unstack=True
-and the fused/fused_all backends. Any other value raises
-NotImplementedError (ROADMAP.md queues them).
+cast) through the int8 kernels of gtax_torch.kernels.quant and, at one or
+two live frames, the paired kernels of gtax_torch.kernels.pair. The
+attention backend is gtax's: `fused` / `fused_all` run the fused branches
+with incremental decoding and the fused VAE; `xla`, `pallas` and
+`fused_mlp` roll out the full window (with the conditioning cache) through
+the unfused branches of the backend and the unfused VAE, `pallas` on the
+attention kernels of gtax_torch.kernels.attention. The backend belongs to
+the generator: two generators with different backends do not touch each
+other. Only the options ported so far run: quantize "none" or "int8",
+pipeline_depth=1, attn_broadcast=1, mesh_data = mesh_model = 1,
+aot_dir=None, unstack=True. Any other value raises NotImplementedError
+(ROADMAP.md queues them).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch
 from gtax_torch.io import safetensors_port as port
 from gtax_torch.models import dit as dit_mod
 from gtax_torch.models import vae as vae_mod
+from gtax_torch.nn import attention as attn
 from gtax_torch.sampling.diffusion import SamplerConfig, make_rollout
 from gtax_torch.train.trainer import decode_frames, encode_frames
 from gtax_torch.utils.platform import resolve_device
@@ -40,7 +48,8 @@ from gtax_torch.utils.platform import resolve_device
 class ServingConfig:
     """Serving knobs, the same fields as gtax's."""
     dtype: str = "bfloat16"
-    attention_backend: str = "fused"   # fused | fused_all (this slice)
+    attention_backend: str = "fused"   # xla | pallas | fused | fused_mlp
+    #                                    | fused_all
     quantize: str = "none"
     unstack: bool = True
     cond_cache: bool = True            # bit-exact adaLN trajectory precompute
@@ -76,10 +85,7 @@ def _check_slice(cfg: ServingConfig) -> None:
             raise NotImplementedError(
                 f"ServingConfig.{name}={value!r} is not ported yet (only "
                 f"{allowed!r}); see ROADMAP.md")
-    if cfg.attention_backend not in ("fused", "fused_all"):
-        raise NotImplementedError(
-            f"attention_backend={cfg.attention_backend!r} is not ported yet "
-            "(fused / fused_all); see ROADMAP.md")
+    attn.check_backend(cfg.attention_backend)
     if cfg.dtype not in ("bfloat16", "float32"):
         raise ValueError(f"dtype must be bfloat16 or float32, got "
                          f"{cfg.dtype!r}")
@@ -120,14 +126,19 @@ class VideoGenerator:
                                 stabilization_level=15,
                                 schedule_clamp_min=1e-4)
 
+        backend = cfg.attention_backend
+        # gtax/serving.py:154-165: incremental decoding and the fused VAE
+        # ride the fused backends only
+        self._fused = backend in attn.FUSED_ATTENTION
+
         def dit_fn(params, x, t, a, valid):
             return dit_mod.dit_apply(params, self.dit_cfg, x, t, a, valid,
-                                     compute_dtype=dtype)
+                                     compute_dtype=dtype, backend=backend)
 
         cond = incremental = None
         if cfg.cond_cache:
-            cond = dit_mod.make_cond_fns(self.dit_cfg, dtype)
-            if cfg.incremental:
+            cond = dit_mod.make_cond_fns(self.dit_cfg, dtype, backend)
+            if cfg.incremental and self._fused:
                 incremental = dit_mod.make_incremental_fns(self.dit_cfg,
                                                            dtype)
         self._rollout = make_rollout(dit_fn, self.dit_cfg.max_frames,
@@ -165,11 +176,11 @@ class VideoGenerator:
         cfg.decode_chunk is set."""
         chunk = self.cfg.decode_chunk
         T = lat.shape[1]
-        if chunk is None or chunk >= T:
-            return decode_frames(self.vae_params, self.vae_cfg, lat,
-                                 self._dtype)
+        chunk = T if chunk is None else chunk
         return torch.cat([decode_frames(self.vae_params, self.vae_cfg,
-                                        lat[:, i:i + chunk], self._dtype)
+                                        lat[:, i:i + chunk], self._dtype,
+                                        self._fused,
+                                        self.cfg.attention_backend)
                           for i in range(0, T, chunk)], dim=1)
 
     def generate(self, prompt_frames, actions=None, num_frames: int = 32,
@@ -200,7 +211,8 @@ class VideoGenerator:
         with torch.inference_mode():
             t0 = time.perf_counter()
             latents = encode_frames(self.vae_params, self.vae_cfg, video,
-                                    self._dtype)
+                                    self._dtype, self._fused,
+                                    self.cfg.attention_backend)
             self._sync()
             t1 = time.perf_counter()
             lat = self._rollout(self.dit_params, latents, actions, generator,

@@ -6,8 +6,11 @@ that take the most of it.
 
 One incremental denoise step (dit_apply_step over a 4-frame K/V cache) at
 full DiT-S/2 width and depth, B=1, random seeded weights with nonzero adaLN
-heads, in bf16 and in int8 (W8A8), in turns bf16, int8, int8, bf16: the
-host's speed drifts within a run, so each mode is read twice. Per mode it
+heads, in bf16, in int8 (W8A8: one paired kernel per half-block, as
+serving runs it) and in int8 with the pair's gate closed (the sequential
+int8 wrappers, two per half-block), in turns bf16, int8, int8-sequential,
+int8-sequential, int8, bf16: the host's speed drifts within a run, so each
+mode is read twice. Per mode it
 prints the host enqueue ms (the card held busy so the queue never blocks),
 the card ms (CUDA events, the host ahead of the card), and, from cProfile
 over two steps, the host functions by own time and each kernel wrapper's
@@ -28,7 +31,8 @@ import torch
 CYCLES_PER_MS = 1.98e6  # the H100's boost clock (torch.cuda._sleep counts)
 WRAPPERS = ("fused_spatial_branch", "fused_mlp_branch", "fused_temporal_step",
             "fused_spatial_branch_q", "fused_mlp_branch_q",
-            "fused_temporal_step_q")
+            "fused_temporal_step_q", "fused_spatial_pair_q",
+            "fused_temporal_pair_q")
 
 
 def hold(ms):
@@ -100,6 +104,21 @@ def make_step(params, cfg):
     return step
 
 
+def sequential(step):
+    """`step` with the pair's gate closed: every int8 half-block runs the
+    two sequential wrappers, as at more than PAIR_MAX_FRAMES live rows."""
+    from gtax_torch.kernels import pair
+
+    def call():
+        gate, pair.PAIR_MAX_FRAMES = pair.PAIR_MAX_FRAMES, 0
+        try:
+            return step()
+        finally:
+            pair.PAIR_MAX_FRAMES = gate
+
+    return call
+
+
 def profile(label, step):
     host = float(np.median([host_ms(step) for _ in range(5)]))
     card = card_ms(step)
@@ -118,7 +137,8 @@ def profile(label, step):
         print(f"[step {label}]   host {own_s * 500:7.3f} ms/step (cProfile) "
               f"{calls // 2:5d} calls  {fn} ({path.rsplit('/', 1)[-1]}:{line})")
     for (path, line, fn), (_, calls, _, cum_s, _) in stats.items():
-        if fn in WRAPPERS and path.endswith(("block.py", "quant.py")):
+        if fn in WRAPPERS and path.endswith(("block.py", "quant.py",
+                                             "pair.py")):
             print(f"[step {label}]   wrapper {fn}: {1e3 * cum_s / calls:.4f} "
                   f"ms/call host (cProfile), {calls // 2} calls/step")
 
@@ -148,7 +168,9 @@ def main():
     del params
     steps = {"bf16": make_step(bf16, cfg),
              "int8": make_step(dit_mod.quantize_for_inference(bf16), cfg)}
-    for label in ("bf16", "int8", "int8", "bf16"):
+    steps["int8-sequential"] = sequential(steps["int8"])
+    for label in ("bf16", "int8", "int8-sequential", "int8-sequential",
+                  "int8", "bf16"):
         profile(label, steps[label])
     return 0
 

@@ -46,23 +46,30 @@ def as_float_video(video: torch.Tensor) -> torch.Tensor:
     return video.permute(*range(n - 3), n - 1, n - 3, n - 2).float() / 255.0
 
 
-def encode_frames(vae_params, vae_cfg, frames, compute_dtype):
+def encode_frames(vae_params, vae_cfg, frames, compute_dtype, fused=False,
+                  backend="xla"):
     """frames (B, T, 3, H, W) in [0, 1] (or uint8 (B, T, H, W, 3)) ->
-    latents (B, T, C, h, w) float32."""
+    latents (B, T, C, h, w) float32 (gtax/train/trainer.py encode_frames).
+    fused: the fused VAE block kernels (serving under the fused backends);
+    otherwise the unfused blocks with the attention of `backend`."""
     frames = as_float_video(frames)
     B, T = frames.shape[:2]
     flat = frames.reshape(B * T, *frames.shape[2:])
-    mean, _ = vae_encode(vae_params, vae_cfg, flat * 2.0 - 1.0, compute_dtype)
+    mean, _ = vae_encode(vae_params, vae_cfg, flat * 2.0 - 1.0, compute_dtype,
+                         fused, backend)
     lat = (mean * LATENT_SCALE).reshape(B, T, vae_cfg.seq_h, vae_cfg.seq_w,
                                         vae_cfg.latent_dim)
     return lat.permute(0, 1, 4, 2, 3).float()
 
 
-def decode_frames(vae_params, vae_cfg, latents, compute_dtype):
-    """latents (B, T, C, h, w) -> uint8 video (B, T, H, W, 3)."""
+def decode_frames(vae_params, vae_cfg, latents, compute_dtype, fused=False,
+                  backend="xla"):
+    """latents (B, T, C, h, w) -> uint8 video (B, T, H, W, 3); fused and
+    backend as encode_frames'."""
     B, T, C, h, w = latents.shape
     flat = latents.permute(0, 1, 3, 4, 2).reshape(B * T, h * w, C)
-    pix = vae_decode(vae_params, vae_cfg, flat / LATENT_SCALE, compute_dtype)
+    pix = vae_decode(vae_params, vae_cfg, flat / LATENT_SCALE, compute_dtype,
+                     fused, backend)
     pix = ((pix + 1.0) / 2.0).reshape(B, T, 3, vae_cfg.input_height,
                                        vae_cfg.input_width)
     pix = torch.clamp(pix * 255.0, 0, 255).to(torch.uint8)
@@ -208,17 +215,25 @@ class Trainer:
 
     # --------------------------------------------------------- the step
 
+    def encode(self, video):
+        """The frozen VAE's latents of (B, T, 3, H, W) pixels, without
+        gradient, as gtax's trainer encodes them: the unfused VAE blocks
+        under the trainer's attention backend (gtax/train/trainer.py:312)."""
+        with torch.no_grad():
+            return encode_frames(self.vae_params, self.vae_cfg, video,
+                                 self.compute_dtype,
+                                 backend=self.config.attention_backend)
+
     def loss(self, params, video, actions, generator):
         """(mean_loss, sum_loss) of one micro-batch: frozen-VAE encode of
-        the (B, T, 3, H, W) pixels without gradient, then the
-        diffusion-forcing loss through the DiT."""
-        with torch.no_grad():
-            latents = encode_frames(self.vae_params, self.vae_cfg, video,
-                                    self.compute_dtype)
+        the (B, T, 3, H, W) pixels, then the diffusion-forcing loss through
+        the DiT."""
+        latents = self.encode(video)
 
         def dit_fn(x, t, a, valid):
             return dit_mod.dit_apply(params, self.dit_cfg, x, t, a, valid,
-                                     compute_dtype=self.compute_dtype)
+                                     compute_dtype=self.compute_dtype,
+                                     backend=self.config.attention_backend)
 
         return diffusion_forcing_loss(
             dit_fn, latents, actions, generator, self.loss_cfg,

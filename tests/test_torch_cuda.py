@@ -245,6 +245,102 @@ def test_int8_wrappers_reject_what_kernels_do_not_take(cuda):
                                  w2_s, b2)
 
 
+# ------------------------------------------- paired int8 and attention
+
+
+def _pair_weights(gen):
+    return (*_qweight(gen, (D, 3 * D), 0.02), *_qweight(gen, (D, D), 0.02),
+            _rand(gen, (D,), 0.02), *_qweight(gen, (D, 4 * D), 0.02),
+            _rand(gen, (4 * D,), 0.02), *_qweight(gen, (4 * D, D), 0.02),
+            _rand(gen, (D,), 0.02))
+
+
+def _pair_inputs(gen, N):
+    x = _rand(gen, (N, S_DIT, D))
+    mods = _rand(gen, (N, 6 * D), 0.5)
+    return (x, *(mods[:, i * D:(i + 1) * D] for i in range(6)),
+            *_pair_weights(gen))
+
+
+@pytest.mark.parametrize("N", [1, 2])
+def test_spatial_pair_q_kernel(cuda, N):
+    """One cooperative launch against the plain version, and bit-equal to
+    the two sequential int8 wrappers (the same device code)."""
+    from gtax_torch.kernels import pair
+
+    gen = np.random.default_rng(30 + N)
+    args = (*_pair_inputs(gen, N), _spatial_freqs(), H)
+    before = pair.fused_spatial_pair_q.launches
+    got = pair.fused_spatial_pair_q(*args)
+    torch.cuda.synchronize()
+    assert pair.fused_spatial_pair_q.launches == before + 1
+    _close(got, pair.spatial_pair_q_plain(*args))
+    x, sh1, sc1, g1, sh2, sc2, g2, *w = args[:-2]
+    h = quant.fused_spatial_branch_q(x, sh1, sc1, g1, *w[:5], *args[-2:])
+    assert torch.equal(got, quant.fused_mlp_branch_q(h, sh2, sc2, g2,
+                                                     *w[5:]))
+
+
+@pytest.mark.parametrize("B,valid", [(1, [False, True, True, True, True]),
+                                     (2, None)])
+def test_temporal_pair_q_kernel(cuda, B, valid):
+    from gtax_torch.kernels import pair
+
+    gen = np.random.default_rng(40 + B)
+    n_ctx = 4
+    inputs = _pair_inputs(gen, B)
+    kc = _rand(gen, (B * n_ctx * S_DIT, D))
+    vc = _rand(gen, (B * n_ctx * S_DIT, D))
+    tail = (kc, vc, _temporal_freqs(n_ctx + 1), valid, H, n_ctx)
+    got = pair.fused_temporal_pair_q(*inputs, *tail)
+    _close(got, pair.temporal_pair_q_plain(*inputs, *tail))
+    x, sh1, sc1, g1, sh2, sc2, g2, *w = inputs
+    h = quant.fused_temporal_step_q(x, sh1, sc1, g1, *w[:5], *tail)
+    assert torch.equal(got, quant.fused_mlp_branch_q(h, sh2, sc2, g2,
+                                                     *w[5:]))
+
+
+@pytest.mark.parametrize("S,mask,causal", [
+    (5, [False, True, True, True, True], True), (144, None, False),
+    (576, None, False)])
+def test_fused_sdpa_kernel(cuda, S, mask, causal):
+    from gtax_torch.kernels import attention as kattn
+
+    gen = np.random.default_rng(S)
+    q, k, v = (_rand(gen, (2, 3, S, HD)) for _ in range(3))
+    before = kattn.fused_sdpa.launches
+    got = kattn.fused_sdpa(q, k, v, mask=mask, causal=causal)
+    torch.cuda.synchronize()
+    assert kattn.fused_sdpa.launches == before + 1
+    bias = kattn.build_bias(S, mask, causal, "cuda")
+    ref = kattn.sdpa_plain(*(t.reshape(-1, S, HD) for t in (q, k, v)), bias)
+    _close(got, ref.reshape(got.shape))
+
+
+@pytest.mark.parametrize("shape,mask", [
+    ((2, S_DIT, D), None), ((2 * S_DIT, 5, D), "temporal"),
+    ((2, S_VAE, D), None)], ids=["spatial", "temporal", "vae"])
+def test_fused_mha_token_major_kernel(cuda, shape, mask):
+    """Also reads q/k/v as strided column slices of one fused qkv row."""
+    from gtax_torch.kernels import attention as kattn
+
+    gen = np.random.default_rng(shape[1])
+    S = shape[1]
+    if mask == "temporal":
+        valid = torch.tensor([False, True, True, True, True])
+        mask = torch.tril(torch.ones(S, S, dtype=torch.bool)) & (
+            valid[None, :] | torch.eye(S, dtype=torch.bool))
+    qkv = _rand(gen, (*shape[:2], 3 * D))
+    q, k, v = qkv.split(D, dim=-1)
+    got = kattn.fused_mha_token_major(q, k, v, H, mask=mask)
+    bias = kattn.build_bias(S, mask, False, "cuda")
+    _close(got, kattn.mha_token_major_plain(q, k, v, bias, H))
+    assert torch.equal(got, kattn.fused_mha_token_major(
+        q.contiguous(), k.contiguous(), v.contiguous(), H, mask=mask))
+    assert kattn.fused_mha_token_major(q, k, v, H,
+                                       mask=torch.ones(2, S, S)) is None
+
+
 # ------------------------------------------------------------- training
 
 def _train_inputs(gen, N, kind):

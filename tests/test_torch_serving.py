@@ -108,6 +108,56 @@ def test_generate_int8_matches_gtax(pair_int8):
     assert np.abs(got.astype(np.int32) - ref.astype(np.int32)).max() <= 1
 
 
+@pytest.fixture(scope="module")
+def unfused_pairs(pair):
+    """backend -> (gtax generator, port generator) for the `xla` and
+    `pallas` backends: full-window rollouts, unfused VAE."""
+    kattn.set_interpret(True)
+    jgen, gen = pair
+    _, jdit_params = _gtax_debug_params()
+    out = {}
+    for backend in ("xla", "pallas"):
+        cfg = dict(KW, attention_backend=backend)
+        out[backend] = (
+            jserving.VideoGenerator(jax.tree.map(jnp.asarray, jdit_params),
+                                    jgen.vae_params,
+                                    jserving.ServingConfig(**cfg)),
+            serving.VideoGenerator(gen.dit_params, gen.vae_params,
+                                   serving.ServingConfig(**cfg),
+                                   device="cpu"))
+    return out
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_generate_unfused_backends_match_gtax(unfused_pairs, backend):
+    """gtax's `xla` / `pallas` serving end to end: no incremental decoding,
+    the unfused DiT blocks and VAE; pixels within 1 LSB, as above."""
+    jgen, gen = unfused_pairs[backend]
+    prompt, noise, acts = _inputs(3, seed=6)
+    ref = jgen.generate(prompt, acts, num_frames=N_FRAMES,
+                        noise=jnp.asarray(noise))
+    got = gen.generate(prompt, acts, num_frames=N_FRAMES, noise=noise)
+    assert got.shape == ref.shape and got.dtype == np.uint8
+    assert np.abs(got.astype(np.int32) - ref.astype(np.int32)).max() <= 1
+
+
+def test_generators_with_different_backends_do_not_interfere(
+        pair, unfused_pairs):
+    """The backend belongs to the generator, not to the process: calls of
+    an `xla` and a `pallas` generator interleaved with a `fused` one give
+    each the pixels it gives alone. Exact."""
+    _, fused = pair
+    gens = {"fused": fused, **{b: g for b, (_, g) in unfused_pairs.items()}}
+    prompt, noise, acts = _inputs(4, seed=7)
+
+    def run(g):
+        return g.generate(prompt, acts, num_frames=N_FRAMES, noise=noise)
+
+    alone = {name: run(g) for name, g in gens.items()}
+    for name in ("pallas", "fused", "xla", "fused", "pallas"):
+        np.testing.assert_array_equal(run(gens[name]), alone[name])
+
+
 def test_int8_generator_from_quantized_params(pair):
     """A bf16 quantize="int8" generator built from params that another one
     already quantized holds the same params (int8 kernels, fp32 scales)
@@ -192,7 +242,7 @@ def test_generate_validates_inputs(pair):
 @pytest.mark.parametrize("field,value", [
     ("quantize", "int4"), ("pipeline_depth", 2), ("attn_broadcast", 2),
     ("mesh_data", 2), ("mesh_model", 2), ("aot_dir", "x"),
-    ("unstack", False), ("attention_backend", "xla")])
+    ("unstack", False), ("pipeline_depth", 3)])
 def test_unported_options_raise(field, value):
     cfg = serving.ServingConfig(**KW, **{field: value})
     with pytest.raises(NotImplementedError, match=field):

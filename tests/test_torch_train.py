@@ -272,6 +272,52 @@ def test_dummy_data_and_loader_match_gtax():
             np.testing.assert_array_equal(a.actions, b.actions)
 
 
+def test_trainer_encode_matches_gtax_unfused_vae(monkeypatch):
+    """gtax's trainer encodes the frozen VAE unfused (encode_frames'
+    default, fused=False), its attention under the trainer's backend; the
+    port's Trainer.encode does the same: no fused VAE block call, one
+    attention call per encoder block under `fused_all`. bf16 on a
+    vae-debug batch with the same weights (vae_from_gtax): every latent
+    within 2**-7 of the largest one (under one bf16 ulp at the top of the
+    range: the two sides round at the same points and sum in another
+    order)."""
+    from gtax.models import vae as jvae
+    from gtax.train import trainer as jtrainer
+    from gtax_torch.io.safetensors_port import vae_from_gtax
+    from gtax_torch.models import vae as tvae
+
+    backends = []
+
+    def fused_block(*args):
+        raise AssertionError("the trainer encoded through the fused block")
+
+    def attention(*args, backend):
+        backends.append(backend)
+        return frame_attention(*args, backend=backend)
+
+    frame_attention = tvae.attn.vae_frame_attention
+    monkeypatch.setattr(tvae, "fused_vae_block", fused_block)
+    monkeypatch.setattr(tvae.attn, "vae_frame_attention", attention)
+
+    jcfg = jvae.VAE_debug()
+    jp = jvae.vae_init(jax.random.PRNGKey(0), jcfg)
+    jp = jax.tree.map(lambda l: l + 0.01 if l.ndim == 1 else l, jp)
+    cfg = dict(dataset_type="dummy", attention_backend="fused_all",
+               save_every=0, use_wandb=False, compute_dtype="bfloat16",
+               dit_model="DiT-debug", vae_model="vae-debug", batch_size=2)
+    trainer = Trainer(TrainingConfig.from_dict(cfg), total_dataset_size=8,
+                      vae_params=vae_from_gtax(jax.tree.map(np.asarray, jp)),
+                      device="cpu")
+    frames = np.random.default_rng(0).random((2, 5, 3, 48, 64), np.float32)
+    got = trainer.encode(torch.from_numpy(frames)).numpy()
+    ref = np.asarray(_fused_all(lambda: jtrainer.encode_frames(
+        jp, jcfg, jnp.asarray(frames), jnp.bfloat16)))
+    assert backends == ["fused_all"] * tvae.VAE_debug().enc_depth
+    assert got.shape == ref.shape == (2, 5, 8, 6, 8)
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=2.0**-7 * np.abs(ref).max())
+
+
 TINY_DIT = tdit.DiTConfig(input_h=6, input_w=8, patch_size=2, in_channels=4,
                           hidden_size=32, depth=2, num_heads=2, mlp_ratio=2.0,
                           external_cond_dim=25, max_frames=5)
