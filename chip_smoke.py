@@ -20,7 +20,9 @@ Phases (any failure exits nonzero and prints no result line):
      bound from bytes and operations (bf16 and int8 peaks). Each pair is
      also held against the two sequential int8 wrappers on the same inputs
      (max error and bit equality printed) and timed against them at 1-4
-     frames (`[gate]`);
+     frames (`[gate]`). For fused_vae_block (decode N=6) and
+     fused_mlp_branch_bwd (B=16) one call is split by launch (`[split]`:
+     each launch's CUDA-event ms and share, TFLOP/s for each GEMM);
   4. end to end, bf16: VideoGenerator at full DiT-S/2 + ViT-L/20 width,
      B=1, 4 prompt frames + 2 generated, 100 noise steps, random seeded
      weights with nonzero adaLN heads, injected noise. The launch counters
@@ -60,7 +62,8 @@ Phases (any failure exits nonzero and prints no result line):
 Each end-to-end phase also traces one generated frame or train step
 (`[profile]`).
 `python -m gtax_torch.tools.step_profile` splits one denoise step into
-host and card time.
+host and card time; `python -m gtax_torch.tools.gemm_sweep` times the bf16
+GEMM against cuBLAS at the main paths' products.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Needs one GPU; imports nothing of JAX or
@@ -835,6 +838,11 @@ def kernel_phase():
             rows[name] = {"name": name, "route": "cuda",
                           "source": SOURCES[name], "replaces": replaces,
                           "launches": None, **m, "library": lib_desc}
+            if name == "fused_vae_block":  # qkv, out-proj, fc1, fc2
+                M = 6 * S_VAE
+                rows[name]["launch_split"] = launch_split(
+                    kern, f"{name} [{label}]",
+                    [2 * M * D * n for n in (3 * D, D, 4 * D, 4 * D)])
     pair_phase(timer, rows)
     return rows
 
@@ -1077,6 +1085,11 @@ def train_kernel_phase(rows):
                           "source": BWD_SOURCE,
                           "replaces": BWD_REPLACES[name], "launches": None,
                           **m, "library": LIB_BWD.format(what)}
+            if name == "fused_mlp_branch_bwd":  # four products of 96.6 GF
+                with torch.no_grad():
+                    rows[name]["launch_split"] = launch_split(
+                        kern, f"{name} [{label}]",
+                        [2 * 80 * S_DIT * D * 4 * D] * 4)
         else:
             rows[name].update({f"emit_train_{k}": m[k] for k in (
                 "ms", "max_abs_err", "plain_ms", "bound_ms", "library_ms",
@@ -1190,6 +1203,60 @@ def profile_device(fn, label, top=12):
     for key, (us, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[
             :top]:
         log(f"[profile]   {us / 1e3:9.3f} ms {n:6d}x  {key[:90]}")
+
+
+def launch_split(fn, label, gemm_flops):
+    """Each kernel launch of one call of fn, in order: its ms (CUDA events
+    recorded on the stream around the launch), its share of the call, and
+    for the GEMMs (in order, gemm_flops) TFLOP/s. The L2 is flushed and the
+    stream held 10 ms first, so the host enqueues the whole call before the
+    card reaches it. (A torch.profiler trace of the same call lost the
+    first launches of the B=16 backward, so the split is timed directly.)
+    Returns the list of entries."""
+    from gtax_torch.kernels import build
+
+    real = build.launch
+    marks = []
+
+    def timed(name, *args):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        real(name, *args)
+        ev[1].record()
+        marks.append((name, ev))
+
+    fn()
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    torch.cuda.synchronize()
+    flush.zero_()
+    torch.cuda._sleep(int(10 * Timer.CYCLES_PER_MS))
+    call = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    build.launch = timed
+    try:
+        call[0].record()
+        fn()
+        call[1].record()
+    finally:
+        build.launch = real
+    torch.cuda.synchronize()
+    total = call[0].elapsed_time(call[1])
+    flops = list(gemm_flops)
+    out = []
+    log(f"[split] {label}: {len(marks)} launches, {total:.4f} ms for the "
+        "call")
+    for name, (e0, e1) in marks:
+        ms = e0.elapsed_time(e1)
+        entry = {"kernel": name, "ms": ms, "share": ms / total}
+        extra = ""
+        if name == "gtax_gemm_bf16" or name == "gtax_gemm_wgrad":
+            fl = flops.pop(0)
+            entry["tflops"] = fl / ms / 1e9
+            extra = f", {fl / 1e9:.1f} GFLOP at {entry['tflops']:.0f} TFLOP/s"
+        log(f"[split]   {ms:8.4f} ms {100 * ms / total:5.1f}%  {name}{extra}")
+        out.append(entry)
+    return out
 
 
 def profile_frame(gen, lat0, acts, nz, steps=4):

@@ -5,7 +5,8 @@
 // (gtax/kernels/block.py _spatial_attention_core: full-d axial pixel rope,
 // fp32 qkv in) and of the VAE block (gtax/kernels/vae_block.py
 // _vae_block_kernel: bf16 qkv in, rope on the first `rot` dims of a head).
-// Rounding points follow the TPU kernels: rope in fp32, q/k/v cast to bf16,
+// Rounding points follow the TPU kernels: rope in fp32 (its sin and cos
+// from a reduction to [-pi, pi] and the SFU, within 1e-6), q/k/v cast to bf16,
 // scores and softmax in fp32, probabilities cast to bf16 before PV, fp32
 // PV, then a bf16 output, or the fp32 sums themselves for the int8 spatial
 // branch, which quantizes them unrounded (gtax/kernels/quant.py
@@ -13,13 +14,13 @@
 // gtax/kernels/block.py _spatial_attention_core's qkv_out) it also stores
 // the roped q and k and the cast v as bf16, exactly the values it attends
 // with.
-// Bound: operations (S^2 * d per head) at S = 576, bytes at S = 144. This
-// first version runs the two products on the fp32 pipes, one warp per query
-// row: each block stages the head's roped K and V once in shared memory
-// (up to 170 KB at S = 576, hence the dynamic shared-memory opt-in) and
-// eight warps stream 64 query rows against it. K rows are padded by two
-// elements so the lanes of a warp, one key each, hit distinct banks.
-// Later work: tensor-core QK^T and PV (mma.sync / wgmma).
+// Bound: operations (S^2 * d per head) at S = 576, bytes at S = 144.
+// Design (attn_frame.cuh): QK^T and PV on the tensor cores (mma.sync
+// m16n8k16, ldmatrix), 16 query rows a warp, 128 a block; two passes over
+// the keys so the probabilities are normalised before their bf16 cast, as
+// gtax's are. A block keeps its head's roped K resident (72 KB at S = 576,
+// head dim 64) and streams V in 64-key tiles, so two blocks fit on an SM and
+// a head's K and V are staged 5 times at S = 576, not once per 64 queries.
 #include "attn_frame.cuh"
 
 namespace {
@@ -27,7 +28,7 @@ namespace {
 // one block per (query tile, head, frame); the body is attn_frame_unit
 // (attn_frame.cuh)
 template <int HD>
-__global__ void __launch_bounds__(kAttnWarps * 32)
+__global__ void __launch_bounds__(kAttnWarps * 32, 2)
     attn_frame_kernel(const void* __restrict__ qkv, int qkv_f32,
                       const float* __restrict__ freqs, void* __restrict__ out,
                       int out_f32, bf16* __restrict__ q_out,
@@ -44,11 +45,24 @@ int launch(const void* qkv, int qkv_f32, const float* freqs, void* out,
            int D, int rot, cudaStream_t st) {
   const size_t smem = attn_frame_smem<HD>(S);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
+  // the attributes once per instantiation, the opt-in again only when S
+  // needs more shared memory than any launch before it
+  static size_t opted = 0;
+  if (opted == 0) {
+    // all of the SM's unified memory as shared memory, so two blocks of up
+    // to 101 KB (S = 576) fit on an SM
+    const cudaError_t e = cudaFuncSetAttribute(
+        attn_frame_kernel<HD>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    opted = 48 * 1024;
+  }
+  if (smem > opted) {
     const cudaError_t e = cudaFuncSetAttribute(
         attn_frame_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
+    opted = smem;
   }
   const dim3 grid((S + kAttnQTile - 1) / kAttnQTile, D / HD, n_frames);
   attn_frame_kernel<HD><<<grid, kAttnWarps * 32, smem, st>>>(

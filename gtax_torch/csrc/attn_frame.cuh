@@ -2,118 +2,337 @@
 // (query tile, head, frame) unit, shared by attn_frame.cu (one block per
 // unit) and the paired int8 kernels of pair_q.cu (units strided over a
 // cooperative grid). Both run it with kAttnWarps warps; a query row's
-// arithmetic does not depend on which warp or block takes it, so the
-// results are bit-equal. See attn_frame.cu for the rounding points.
+// arithmetic does not depend on which block takes it, so the results are
+// bit-equal. See attn_frame.cu for the rounding points.
+//
+// Tensor cores: each warp owns 16 query rows and runs QK^T and PV as
+// mma.sync m16n8k16 (bf16 in, fp32 sums), operands from shared memory by
+// ldmatrix. gtax rounds the probabilities AFTER normalising them, so the
+// keys are walked twice: pass 1 keeps each row's running max and sum of
+// exponentials (rescaled when the max moves); pass 2 recomputes the scores,
+// forms p = bf16(exp(s - m) / l) and accumulates P V. The exponentials
+// are 2^x on the special-function unit, with log2(e) folded into the score
+// scale, and 1 / l is taken once a row: the two exponentials an element
+// bound the kernel, not the tensor cores. The head's roped K
+// stays resident for both passes; V streams through in 64-key tiles.
 #pragma once
 
 #include "common.cuh"
 
 constexpr int kAttnWarps = 8;
-constexpr int kAttnQTile = 64;
+constexpr int kAttnQTile = 16 * kAttnWarps;  // query rows of a unit
+constexpr int kAttnKTile = 64;               // keys of a V tile
 
-// Dynamic shared memory of one unit: K (padded rows) and V of the head,
-// a q row and a probability row per warp.
+// Dynamic shared memory of one unit: the head's K (all keys, rounded up
+// to a whole key tile), then one region the Q tile and later each V tile
+// use. Rows are padded by 8 bf16 (16 bytes) so ldmatrix's eight row reads
+// hit distinct banks.
 template <int HD>
 __host__ __device__ inline size_t attn_frame_smem(int S) {
-  return (size_t)S * (HD + 2) * 2 + (size_t)S * HD * 2 +
-         kAttnWarps * HD * 4 + (size_t)kAttnWarps * S * 4;
+  const size_t keys = (size_t)(S + kAttnKTile - 1) / kAttnKTile * kAttnKTile;
+  return (keys + kAttnQTile) * (HD + 8) * 2;
 }
 
-// Query tile qt (rows qt * 64 ..), head h, frame n.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+
+// c (16x8 fp32) += a (16x16 bf16, row) b (16x8 bf16, col)
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Eight neighbouring elements (c .. c + 7, c a multiple of 8) of a row that
+// is fp32 or bf16 in memory, as fp32: one or two 16-byte loads.
+__device__ __forceinline__ void load8(const void* base, int is_f32,
+                                      size_t idx, float (&v)[8]) {
+  if (is_f32) {
+    const float4* p =
+        reinterpret_cast<const float4*>(static_cast<const float*>(base) + idx);
+    const float4 a = p[0], b = p[1];
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  } else {
+    const uint4 u =
+        *reinterpret_cast<const uint4*>(static_cast<const bf16*>(base) + idx);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+}
+
+// sin and cos of a rotary angle (|x| up to a few thousand radians): a
+// two-term Cody-Waite reduction to [-pi, pi], then the special-function
+// unit's __sincosf there (abs error < 1e-6, far under the bf16 cast that
+// follows), a tenth of sincosf's cost. The K of a head is roped once per
+// query tile, so this was most of the staging time at S = 576.
+__device__ __forceinline__ void sincos_rope(float x, float* s, float* c) {
+  const float k = rintf(x * 0.15915494309189535f);
+  const float r = fmaf(-k, -1.7484555e-07f, fmaf(-k, 6.2831854820251465f, x));
+  __sincosf(r, s, c);
+}
+
+// rope_pair (common.cuh) with sincos_rope; a pair's two angles are equal in
+// the repo's tables, so one reduction serves both.
+__device__ __forceinline__ float2 rope_pair_fast(float2 x,
+                                                 const float* freqs) {
+  float s0, c0, s1, c1;
+  sincos_rope(freqs[0], &s0, &c0);
+  if (freqs[1] == freqs[0]) {
+    s1 = s0;
+    c1 = c0;
+  } else {
+    sincos_rope(freqs[1], &s1, &c1);
+  }
+  return make_float2(x.x * c0 + (-x.y) * s0, x.y * c1 + x.x * s1);
+}
+
+// Rows p0 .. p0 + n - 1 of one head's q, k or v (qkv columns col ..) into
+// dst (bf16, row stride HD + 8), rows past S as zeros: eight elements a
+// thread and four chunks in flight, roped in fp32 on the first `rot` dims
+// (freqs row p), cast to bf16, and also stored to out (columns hc ..) when
+// out is not null.
+template <int HD>
+__device__ __forceinline__ void stage_rows(bf16* dst, const void* qkv,
+                                           int qkv_f32, size_t row0,
+                                           size_t D3, size_t col, int p0,
+                                           int n, int S, const float* freqs,
+                                           int rot, bf16* out, size_t D,
+                                           size_t hc) {
+  constexpr int CH = HD / 8, LD = HD + 8, NT = kAttnWarps * 32, U = 4;
+  const int total = n * CH;
+  for (int i0 = threadIdx.x; i0 < total; i0 += NT * U) {
+    float v[U][8];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int idx = i0 + u * NT, p = p0 + idx / CH, c = (idx % CH) * 8;
+      if (idx < total && p < S) {
+        load8(qkv, qkv_f32, (row0 + p) * D3 + col + c, v[u]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[u][e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int idx = i0 + u * NT, r = idx / CH, c = (idx % CH) * 8;
+      if (idx >= total) break;
+      const int p = p0 + r;
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        if (p < S && c + e < rot) {
+          const float2 x = rope_pair_fast(make_float2(v[u][e], v[u][e + 1]),
+                                          freqs + (size_t)p * rot + c + e);
+          v[u][e] = x.x;
+          v[u][e + 1] = x.y;
+        }
+      }
+      uint4 packed;
+      uint32_t* w = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[e] = pack_bf16(v[u][2 * e], v[u][2 * e + 1]);
+      *reinterpret_cast<uint4*>(dst + (size_t)r * LD + c) = packed;
+      if (out != nullptr && p < S)
+        *reinterpret_cast<uint4*>(out + (row0 + p) * D + hc + c) = packed;
+    }
+  }
+}
+
+// 2^x on the special-function unit (two ulp; underflow flushes to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Scores of a warp's 16 query rows against keys j0 .. j0 + 63: s[nt] is
+// the m16n8 tile of keys j0 + 8 nt .., times `scale`, keys >= S at -inf.
+template <int HD>
+__device__ __forceinline__ void attn_scores(float (&s)[8][4],
+                                            const uint32_t (&qf)[HD / 16][4],
+                                            const bf16* Ks, int j0, int S,
+                                            float scale, int lane) {
+  constexpr int LD = HD + 8;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < HD / 16; ++kc) {
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {  // two n8 tiles of keys a load
+      uint32_t b[4];
+      const int key = j0 + np * 16 + (lane & 7) + ((lane >> 4) << 3);
+      ldsm_x4(b, Ks + (size_t)key * LD + kc * 16 + ((lane >> 3) & 1) * 8);
+      mma16816(s[2 * np], qf[kc], b[0], b[1]);
+      mma16816(s[2 * np + 1], qf[kc], b[2], b[3]);
+    }
+  }
+  const bool ragged = j0 + 64 > S;  // only the last tile has masked keys
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = j0 + nt * 8 + (lane & 3) * 2 + (i & 1);
+      s[nt][i] = ragged && key >= S ? -INFINITY : s[nt][i] * scale;
+    }
+}
+
+// Query tile qt (rows qt * kAttnQTile ..), head h, frame n.
 template <int HD>
 __device__ __forceinline__ void attn_frame_unit(
     unsigned char* smem, const void* __restrict__ qkv, int qkv_f32,
     const float* __restrict__ freqs, void* __restrict__ out, int out_f32,
     bf16* __restrict__ q_out, bf16* __restrict__ k_out,
     bf16* __restrict__ v_out, int S, int D, int rot, int qt, int h, int n) {
-  constexpr int KS = HD + 2;  // padded K row (bf16 elements)
+  constexpr int LD = HD + 8, KC = HD / 16, DT = HD / 8;
+  const int keys = (S + kAttnKTile - 1) / kAttnKTile * kAttnKTile;
   bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + (size_t)S * KS;
-  float* qbuf = reinterpret_cast<float*>(Vs + (size_t)S * HD);
-  float* pbuf = qbuf + kAttnWarps * HD;
+  bf16* Qs = Ks + (size_t)keys * LD;  // the Q tile, then each V tile
+  bf16* Vs = Qs;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = qt * kAttnQTile;
   const size_t row0 = (size_t)n * S;
   const size_t D3 = 3 * (size_t)D;
-  const float scale = 1.0f / sqrtf((float)HD);
+  const size_t hc = (size_t)h * HD;
+  // scores in base-2 units: softmax(s) = 2^(s log2(e) - max), one
+  // special-function op an exponential
+  const float scale = 1.4426950408889634f / sqrtf((float)HD);
 
-  for (int idx = threadIdx.x; idx < S * (HD / 2); idx += kAttnWarps * 32) {
-    const int j = idx / (HD / 2), c = (idx % (HD / 2)) * 2;
-    const size_t base = (row0 + j) * D3 + (size_t)h * HD + c;
-    float2 k = load_pair(qkv, qkv_f32, base + D);
-    const float2 v = load_pair(qkv, qkv_f32, base + 2 * (size_t)D);
-    if (c < rot) k = rope_pair(k, freqs + (size_t)j * rot + c);
-    store_pair(Ks, (size_t)j * KS + c, k.x, k.y);
-    store_pair(Vs, (size_t)j * HD + c, v.x, v.y);
-    if (k_out != nullptr && qt == 0) {  // one query tile stores K, V
-      const size_t o = (row0 + j) * D + (size_t)h * HD + c;
-      store_pair(k_out, o, k.x, k.y);
-      store_pair(v_out, o, v.x, v.y);
-    }
-  }
+  // the unit's query rows and the head's keys, roped in fp32 and cast;
+  // rows past S are zeros; one query tile stores K and V for training
+  stage_rows<HD>(Qs, qkv, qkv_f32, row0, D3, hc, q0, kAttnQTile, S, freqs,
+                 rot, q_out, D, hc);
+  stage_rows<HD>(Ks, qkv, qkv_f32, row0, D3, D + hc, 0, keys, S, freqs, rot,
+                 qt == 0 ? k_out : nullptr, D, hc);
   __syncthreads();
 
-  float* qb = qbuf + warp * HD;
-  float* pb = pbuf + (size_t)warp * S;
-  const int q_end = min(q0 + kAttnQTile, S);
-  for (int r = q0 + warp; r < q_end; r += kAttnWarps) {
-    const size_t base = (row0 + r) * D3 + (size_t)h * HD;
-    for (int c = lane * 2; c < HD; c += 64) {
-      float2 q = load_pair(qkv, qkv_f32, base + c);
-      if (c < rot) q = rope_pair(q, freqs + (size_t)r * rot + c);
-      qb[c] = bf16_round(q.x);
-      qb[c + 1] = bf16_round(q.y);
-      if (q_out != nullptr)
-        store_pair(q_out, (row0 + r) * D + (size_t)h * HD + c, q.x, q.y);
-    }
-    __syncwarp();
-    float qr[HD];
+  uint32_t qf[KC][4];  // A fragments of the warp's 16 query rows
 #pragma unroll
-    for (int c = 0; c < HD; ++c) qr[c] = qb[c];
+  for (int kc = 0; kc < KC; ++kc)
+    ldsm_x4(qf[kc], Qs + (size_t)(warp * 16 + (lane & 15)) * LD + kc * 16 +
+                        (lane >> 4) * 8);
 
-    float mx = -INFINITY;
-    for (int j = lane; j < S; j += 32) {
-      const __nv_bfloat162* kr =
-          reinterpret_cast<const __nv_bfloat162*>(Ks + (size_t)j * KS);
-      float acc = 0.f;
+  // pass 1: each row's max and sum of exponentials; this thread holds
+  // rows g and g + 8 of the warp's 16 (g = lane / 4)
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  float s[8][4];
+  for (int j0 = 0; j0 < S; j0 += kAttnKTile) {
+    attn_scores<HD>(s, qf, Ks, j0, S, scale, lane);
+    float t_a = -INFINITY, t_b = -INFINITY;
 #pragma unroll
-      for (int c2 = 0; c2 < HD / 2; ++c2) {
-        const float2 kv = __bfloat1622float2(kr[c2]);
-        acc = fmaf(qr[2 * c2], kv.x, acc);
-        acc = fmaf(qr[2 * c2 + 1], kv.y, acc);
-      }
-      const float s = acc * scale;
-      pb[j] = s;
-      mx = fmaxf(mx, s);
+    for (int nt = 0; nt < 8; ++nt) {
+      t_a = fmaxf(t_a, fmaxf(s[nt][0], s[nt][1]));
+      t_b = fmaxf(t_b, fmaxf(s[nt][2], s[nt][3]));
     }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      const float e = expf(pb[j] - mx);
-      pb[j] = e;
-      sum += e;
+    const float n_a = fmaxf(m_a, quad_max(t_a));
+    const float n_b = fmaxf(m_b, quad_max(t_b));
+    l_a *= ex2(m_a - n_a);
+    l_b *= ex2(m_b - n_b);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      l_a += ex2(s[nt][0] - n_a) + ex2(s[nt][1] - n_a);
+      l_b += ex2(s[nt][2] - n_b) + ex2(s[nt][3] - n_b);
     }
-    sum = warp_sum(sum);
-    for (int j = lane; j < S; j += 32) pb[j] = bf16_round(pb[j] / sum);
-    __syncwarp();
+    m_a = n_a;
+    m_b = n_b;
+  }
+  // p = e / l as e * (1 / l): one division a row
+  const float r_a = 1.0f / quad_sum(l_a), r_b = 1.0f / quad_sum(l_b);
 
-    for (int c = lane * 2; c < HD; c += 64) {
-      float a0 = 0.f, a1 = 0.f;
-      for (int j = 0; j < S; ++j) {
-        const float p = pb[j];
-        const float2 v = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(Vs + (size_t)j * HD + c));
-        a0 = fmaf(p, v.x, a0);
-        a1 = fmaf(p, v.y, a1);
+  // pass 2: P = bf16(exp(s - m) / l), O += P V over 64-key V tiles
+  float o[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[dt][i] = 0.f;
+  // V tiles alternate between the two halves of the Q tile's region: the
+  // barrier after staging tile t also tells that every warp is done with
+  // tile t - 1, whose half tile t + 1 reuses
+  __syncthreads();  // every warp has its Q fragments
+  for (int j0 = 0; j0 < S; j0 += kAttnKTile) {
+    bf16* Vt = Vs + (size_t)((j0 / kAttnKTile) & 1) * kAttnKTile * LD;
+    stage_rows<HD>(Vt, qkv, qkv_f32, row0, D3,
+                   2 * (size_t)D + hc, j0, kAttnKTile, S, nullptr, 0,
+                   qt == 0 ? v_out : nullptr, D, hc);
+    __syncthreads();
+    attn_scores<HD>(s, qf, Ks, j0, S, scale, lane);
+#pragma unroll
+    for (int kc = 0; kc < kAttnKTile / 16; ++kc) {
+      // the A fragment of P for keys 16 kc ..: score tiles 2 kc, 2 kc + 1
+      const uint32_t pf[4] = {
+          pack_bf16(ex2(s[2 * kc][0] - m_a) * r_a,
+                    ex2(s[2 * kc][1] - m_a) * r_a),
+          pack_bf16(ex2(s[2 * kc][2] - m_b) * r_b,
+                    ex2(s[2 * kc][3] - m_b) * r_b),
+          pack_bf16(ex2(s[2 * kc + 1][0] - m_a) * r_a,
+                    ex2(s[2 * kc + 1][1] - m_a) * r_a),
+          pack_bf16(ex2(s[2 * kc + 1][2] - m_b) * r_b,
+                    ex2(s[2 * kc + 1][3] - m_b) * r_b)};
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {  // two n8 tiles of V a load
+        uint32_t b[4];
+        const int key = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        ldsm_x4_t(b, Vt + (size_t)key * LD + dp * 16 + (lane >> 4) * 8);
+        mma16816(o[2 * dp], pf, b[0], b[1]);
+        mma16816(o[2 * dp + 1], pf, b[2], b[3]);
       }
-      const size_t o = (row0 + r) * D + (size_t)h * HD + c;
-      if (out_f32)
-        *reinterpret_cast<float2*>(static_cast<float*>(out) + o) =
-            make_float2(a0, a1);
-      else
-        store_pair(static_cast<bf16*>(out), o, a0, a1);
     }
-    __syncwarp();
+  }
+
+  const int ra = q0 + warp * 16 + (lane >> 2), rb = ra + 8;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const size_t c = hc + dt * 8 + (lane & 3) * 2;
+    if (out_f32) {
+      float* of = static_cast<float*>(out);
+      if (ra < S)
+        *reinterpret_cast<float2*>(of + (row0 + ra) * D + c) =
+            make_float2(o[dt][0], o[dt][1]);
+      if (rb < S)
+        *reinterpret_cast<float2*>(of + (row0 + rb) * D + c) =
+            make_float2(o[dt][2], o[dt][3]);
+    } else {
+      bf16* ob = static_cast<bf16*>(out);
+      if (ra < S) store_pair(ob, (row0 + ra) * D + c, o[dt][0], o[dt][1]);
+      if (rb < S) store_pair(ob, (row0 + rb) * D + c, o[dt][2], o[dt][3]);
+    }
   }
 }

@@ -22,18 +22,26 @@ constexpr int kWarps = kThreads / 32;
 
 // gate backward of out = x + g[f] * y over frame f's S rows:
 // dy = bf16(ct * g), dg[f] = sum_rows ct * y, dysum[f] = sum_rows ct * g
-// (the bias gradient's per-frame part, summed unrounded).
-__global__ void __launch_bounds__(kThreads)
+// (the bias gradient's per-frame part, summed unrounded). Block (f, j)
+// takes columns [j * 2 kGateThreads, ...) of frame f, so a B=16 step's 80
+// frames give 320 blocks, and each thread's row loop is unrolled to keep
+// several rows' loads in flight; a column's sums still add its rows in
+// order.
+constexpr int kGateThreads = 128;
+
+__global__ void __launch_bounds__(kGateThreads)
     gate_bwd_kernel(const bf16* __restrict__ ct, const bf16* __restrict__ y,
                     const bf16* __restrict__ gate, int gate_stride,
                     bf16* __restrict__ dy, float* __restrict__ dg,
                     float* __restrict__ dysum, int S, int D) {
   const size_t f = blockIdx.x;
   const bf16* g = gate + f * gate_stride;
-  for (int c = threadIdx.x * 2; c < D; c += kThreads * 2) {
+  const int c = (blockIdx.y * kGateThreads + threadIdx.x) * 2;
+  if (c < D) {
     const float2 gv = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(g + c));
     float2 sg = make_float2(0.f, 0.f), sd = make_float2(0.f, 0.f);
+#pragma unroll 8
     for (int s = 0; s < S; ++s) {
       const size_t o = (f * S + s) * D + c;
       const float2 cv = __bfloat1622float2(
@@ -170,7 +178,8 @@ GTAX_ENTRY gtax_gate_bwd(const void* ct, const void* y, const void* gate,
                          int gate_stride, void* dy, void* dg, void* dysum,
                          int F, int S, int D, void* stream) {
   if (F <= 0 || S <= 0 || D <= 0 || D % 2) return (int)cudaErrorInvalidValue;
-  gate_bwd_kernel<<<F, kThreads, 0, (cudaStream_t)stream>>>(
+  const dim3 grid(F, (D / 2 + kGateThreads - 1) / kGateThreads);
+  gate_bwd_kernel<<<grid, kGateThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(ct), static_cast<const bf16*>(y),
       static_cast<const bf16*>(gate), gate_stride, static_cast<bf16*>(dy),
       static_cast<float*>(dg), static_cast<float*>(dysum), S, D);

@@ -35,6 +35,8 @@ values; dW and db in fp32.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from gtax_torch.core.rope import rotate_half
@@ -56,9 +58,13 @@ from gtax_torch.kernels.block import (
     valid_bits,
 )
 
-# Split-K target: enough weight-gradient blocks to fill 132 SMs twice
-_WGRAD_BLOCKS = 264
-_WGRAD_MIN_ROWS = 256
+# Split K of the weight gradients: a row chunk is at least this many rows,
+# and at most this many chunks
+WGRAD_MIN_ROWS = 512
+WGRAD_MAX_SPLITS = 8
+# a split count is good enough once its blocks fill this share of the
+# card's last wave
+WGRAD_WAVE_FILL = 0.9
 
 
 # ----------------------------------------------------------- plain parts
@@ -202,6 +208,36 @@ def mlp_branch_bwd_plain(x, shift, scale, g, w1, w2, h1, y, ct):
     return dx, dshift, dscale, dg, dW1, db1, dW2, db2
 
 
+# -------------------------------------------- launch arithmetic (plain)
+
+def wgrad_plan(M, Ka, N, sms, tile_m, tile_n, k_step):
+    """(splits, chunk) of the weight-gradient GEMM over M token rows: the
+    fewest row chunks whose (Ka/tile_m) x (N/tile_n) x splits blocks fill
+    WGRAD_WAVE_FILL of the last of the waves on `sms` SMs (else the best
+    fill found), each chunk at least WGRAD_MIN_ROWS rows and a multiple of
+    the kernel's k-step; the chunks cover rows [0, M) once."""
+    tiles = -(-Ka // tile_m) * -(-N // tile_n)
+    best, best_fill = 1, 0.0
+    for s in range(1, WGRAD_MAX_SPLITS + 1):
+        if s > 1 and M < s * WGRAD_MIN_ROWS:
+            break
+        blocks = tiles * s
+        fill = blocks / (-(-blocks // sms) * sms)
+        if fill > best_fill:
+            best, best_fill = s, fill
+        if fill >= WGRAD_WAVE_FILL:
+            break
+    chunk = -(-M // best)
+    chunk = -(-chunk // k_step) * k_step
+    return -(-M // chunk), chunk
+
+
+def dgelu_partial_rows(M, tile_m):
+    """Rows of the gelu' epilogue's column partials: one per tile_m-row
+    output tile of the M rows."""
+    return -(-M // tile_m)
+
+
 # ------------------------------------------------------- kernel launches
 
 def _empty(shape, like, dtype=torch.float32):
@@ -216,16 +252,33 @@ def reduce_rows(a):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_tile_n(N) -> int:
+    n = build.library().gtax_gemm_wgrad_tile_n(N)
+    if n <= 0:
+        raise RuntimeError(f"gtax_gemm_wgrad_tile_n: CUDA error {-n}")
+    return n
+
+
+def wgrad_split(M, Ka, N, device):
+    """(splits, chunk) of wgrad over M rows on `device`: wgrad_plan at the
+    kernel's tile for width N."""
+    c = build.gemm_consts()
+    return wgrad_plan(M, Ka, N, _sms(device), c.tile_m, _wgrad_tile_n(N),
+                      c.k_step)
+
+
 def wgrad(a, b):
-    """a (M, Ka)^T @ b (M, N) in fp32, M split into row chunks when the
-    (Ka/64) x (N/64) tiles alone would not fill the card; bf16 operands."""
+    """a (M, Ka)^T @ b (M, N) in fp32, bf16 operands; M split into row
+    chunks by wgrad_plan."""
     M, Ka = a.shape
     N = b.shape[1]
-    tiles = (Ka // 64) * (N // 64)
-    splits = max(1, min(-(-_WGRAD_BLOCKS // tiles), M // _WGRAD_MIN_ROWS))
-    chunk = -(-M // splits)
-    chunk = -(-chunk // 32) * 32
-    splits = -(-M // chunk)
+    splits, chunk = wgrad_split(M, Ka, N, a.device)
     part = _empty((splits, Ka, N), a)
     build.launch("gtax_gemm_wgrad", a.data_ptr(), b.data_ptr(),
                  part.data_ptr(), M, Ka, N, chunk, _stream(a))
@@ -397,7 +450,7 @@ def fused_mlp_branch_bwd(x, shift, scale, g, w1, w2, h1, y, ct):
     dy, dg, db2 = gate_bwd(ct2, y.reshape(M, D), g, S)
     dh1 = _empty((M, Hd), x, torch.bfloat16)
     ha = torch.empty_like(dh1)
-    part = _empty((-(-M // 64), Hd), x)
+    part = _empty((dgelu_partial_rows(M, build.gemm_consts().tile_m), Hd), x)
     block.launch_gemm(dy, w2, dh1, M, Hd, D, EPI_DGELU, out2=ha,
                       aux=h1.reshape(M, Hd), colsum=part, trans_b=True)
     db1 = reduce_rows(part)

@@ -23,6 +23,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -41,8 +42,12 @@ SIGNATURES = {
     # N, K, S, epi, trans_b, stream
     "gtax_gemm_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                        _I, _I, _I, _I, _P),
+    # out: int[2] = the GEMM tile's rows, k-step
+    "gtax_gemm_consts": (_P,),
     # A, B, C, M, Ka, N, chunk, stream
     "gtax_gemm_wgrad": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # N -> the weight-gradient tile's columns, or -error
+    "gtax_gemm_wgrad_tile_n": (_I,),
     # in, out, R, C, stream
     "gtax_reduce_rows": (_P, _P, _I, _L, _P),
     # ct, y, gate, gate_stride, dy, dg, dysum, F, S, D, stream
@@ -164,6 +169,26 @@ def library():
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+class GemmConsts(NamedTuple):
+    """The bf16 GEMMs' tiling as the kernels define it (csrc/gemm_sm90.cuh,
+    csrc/gemm_bf16.cu)."""
+    tile_m: int  # rows of an output tile (and of a gelu' column partial)
+    k_step: int  # depth of a k-step (a wgrad row chunk is a multiple of it)
+
+
+_consts = None
+
+
+def gemm_consts() -> GemmConsts:
+    """The constants the kernel library exports (built at first use)."""
+    global _consts
+    if _consts is None:
+        buf = (ctypes.c_int * 2)()
+        launch("gtax_gemm_consts", ctypes.addressof(buf))
+        _consts = GemmConsts(*buf)
+    return _consts
 
 
 def launch(name: str, *args) -> None:

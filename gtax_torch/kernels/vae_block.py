@@ -60,11 +60,12 @@ def fused_vae_block(x, ln1_w, ln1_b, qkv_w, qkv_b, out_w, out_b, ln2_w,
     Replaces gtax/kernels/vae_block.py fused_vae_block (pallas_call at
     :150, body _vae_block_kernel :56). On the card: ln_mod (affine) ->
     gemm (+bias, bf16) -> attn_frame (bf16 qkv, partial rope on load,
-    576-token rows staged in dynamic shared memory) -> gemm (+bias, bf16,
-    +x) -> ln_mod -> gemm (+bias, bf16, erf-GELU) -> gemm (+bias, bf16,
-    +x): 7 launches. Bound: tensor-core rate at the serving frame counts
-    (a 576-row frame is past the bf16 ridge for its 25 MB of weights);
-    the first version's attention runs on the fp32 pipes (PERF.md)."""
+    tensor-core QK^T and PV) -> gemm (+bias, bf16, +x) -> ln_mod -> gemm
+    (+bias, bf16, erf-GELU) -> gemm (+bias, bf16, +x): 7 launches, the
+    GEMMs on the Hopper kernel (csrc/gemm_sm90.cuh). Bound: tensor-core
+    rate at the serving frame counts (a 576-row frame is past the bf16
+    ridge for its 25 MB of weights); PERF.md has the time of each
+    launch."""
     if x.device.type == "cpu":
         return vae_block_plain(x, ln1_w, ln1_b, qkv_w, qkv_b, out_w, out_b,
                                ln2_w, ln2_b, w1, b1, w2, b2, rope_freqs,

@@ -412,12 +412,16 @@ def test_spatial_branch_bwd_kernel(cuda):
         _close(a, b)
 
 
-def test_mlp_branch_bwd_kernel(cuda):
-    """Also: a second run is bit-equal to the first (no float atomics)."""
+@pytest.mark.parametrize("N", [2, 10])
+def test_mlp_branch_bwd_kernel(cuda, N):
+    """At 288 rows and at 1,440 (11.25 of the GEMM's 128-row tiles, so its
+    last tile ragged); also: a second run is bit-equal to the first (no
+    float atomics). The MLP's weight gradients take one row chunk at both
+    on an H100 SXM: their 128 wide tiles fill its 132 SMs alone."""
     from gtax_torch.kernels import backward
 
     gen = np.random.default_rng(23)
-    args, ct = _train_inputs(gen, 2, "mlp")
+    args, ct = _train_inputs(gen, N, "mlp")
     _, h1, y = block.fused_mlp_branch(*args, emit_train=True)
     x, sh, sc, g, w1, _, w2, _ = args
     bargs = (x, sh, sc, g, w1, w2, h1, y, ct)
@@ -434,7 +438,153 @@ def test_wgrad_split_rows_bit_equal_reduction(cuda):
     from gtax_torch.kernels import backward
 
     gen = np.random.default_rng(24)
-    a, b = _rand(gen, (1000, 128)), _rand(gen, (1000, 64))
+    a, b = _rand(gen, (4000, 128)), _rand(gen, (4000, 64))
+    splits, chunk = backward.wgrad_split(4000, 128, 64, a.device)
+    assert splits > 1 and 4000 % chunk
     got = backward.wgrad(a, b)
     ref = backward.wgrad32(a, b)
     torch.testing.assert_close(got, ref, atol=1e-3, rtol=1e-4)
+
+
+# ------------------------------------------- the GEMM paths, one by one
+
+def _gemm_ref(epi, acc, bias, x, gate, S, h1):
+    """(C, C2) of each gemm_bf16 epilogue from the fp32 product acc."""
+    from gtax_torch.kernels import backward
+    from gtax_torch.kernels.vae_block import gelu_erf32
+
+    bf = torch.bfloat16
+    u = acc + bias.float()
+    if epi == block.EPI_F32:
+        return acc, None
+    if epi == block.EPI_BF16:
+        return acc.to(bf), None
+    if epi == block.EPI_BIAS_BF16:
+        return u.to(bf), None
+    if epi in (block.EPI_BIAS_GELU_TANH, block.EPI_BIAS_GELU_TANH_H):
+        return block.gelu_tanh32(u).to(bf), (
+            u.to(bf) if epi == block.EPI_BIAS_GELU_TANH_H else None)
+    if epi == block.EPI_BIAS_BF16_GELU:
+        return gelu_erf32(u.to(bf).float()).to(bf), None
+    if epi in (block.EPI_BIAS_GATED, block.EPI_BIAS_GATED_Y):
+        g = gate.float().repeat_interleave(S, 0)[:len(u)]
+        return (x.float() + g * u).to(bf), (
+            u.to(bf) if epi == block.EPI_BIAS_GATED_Y else None)
+    if epi == block.EPI_BIAS_BF16_RESID:
+        return (x.float() + u.to(bf).float()).to(bf), None
+    assert epi == block.EPI_DGELU
+    val, grad = backward.gelu_tanh_val_grad32(h1.float())
+    return (grad * acc).to(bf), val.to(bf)
+
+
+EPILOGUES = [block.EPI_F32, block.EPI_BIAS_BF16, block.EPI_BIAS_GELU_TANH,
+             block.EPI_BIAS_BF16_GELU, block.EPI_BIAS_GATED,
+             block.EPI_BIAS_BF16_RESID, block.EPI_BF16,
+             block.EPI_BIAS_GATED_Y, block.EPI_BIAS_GELU_TANH_H,
+             block.EPI_DGELU]
+
+
+@pytest.mark.parametrize("M", [144, 1000, 1440, 3472])
+@pytest.mark.parametrize("trans_b,N", [(False, 3072), (True, 1024),
+                                       (True, 4096), (False, 192)])
+def test_gemm_bf16_layouts(cuda, M, trans_b, N):
+    """Forward ((K, N) weights, N-major) and input-gradient (W (N, K),
+    K-major) products at ragged row counts from a step's 144 to a VAE
+    decode's 3,456 + 16, on 128x128 tiles and (from 1,440 rows at N=3072,
+    1,000 at N=4096) 128x256 tiles; N=192 leaves a tile half empty."""
+    gen = np.random.default_rng(M + N)
+    K = 1024
+    a = _rand(gen, (M, K))
+    w = _rand(gen, (N, K) if trans_b else (K, N), 0.02)
+    out = torch.empty((M, N), dtype=torch.float32, device="cuda")
+    block.launch_gemm(a, w, out, M, N, K, block.EPI_F32, trans_b=trans_b)
+    torch.cuda.synchronize()
+    _close(out, block.mm32(a, w.t() if trans_b else w))
+
+
+@pytest.mark.parametrize("N", [1024, 4096])
+@pytest.mark.parametrize("epi", EPILOGUES)
+def test_gemm_bf16_epilogues(cuda, epi, N):
+    """Every epilogue at a ragged 1,440 + 16 rows, on 128x128 (N=1024) and
+    128x256 (N=4096) tiles, with its second output and the gelu' column
+    partials, one per 128-row tile."""
+    from gtax_torch.kernels import backward
+
+    gen = np.random.default_rng(60 + epi)
+    S, K = 144, 1024
+    M = 10 * S + 16
+    a, w = _rand(gen, (M, K)), _rand(gen, (K, N), 0.03)
+    bias = _rand(gen, (N,), 0.1, torch.float32)
+    x, h1 = _rand(gen, (M, N)), _rand(gen, (M, N))
+    gate = _rand(gen, (-(-M // S), 2 * N), 0.5)[:, :N]
+    acc = block.mm32(a, w)
+    ref, ref2 = _gemm_ref(epi, acc, bias, x, gate, S, h1)
+    tile = 128
+    out = torch.empty((M, N), dtype=ref.dtype, device="cuda")
+    out2 = None if ref2 is None else torch.empty_like(ref2)
+    part = (torch.empty((backward.dgelu_partial_rows(M, tile), N),
+                        device="cuda")
+            if epi == block.EPI_DGELU else None)
+    block.launch_gemm(a, w, out, M, N, K, epi, bias=bias, resid=x, gate=gate,
+                      S=S, out2=out2, aux=h1, colsum=part)
+    torch.cuda.synchronize()
+    _close(out, ref)
+    if ref2 is not None:
+        _close(out2, ref2)
+    if part is not None:
+        _, grad = backward.gelu_tanh_val_grad32(h1.float())
+        u = torch.zeros((part.shape[0] * tile, N), device="cuda")
+        u[:M] = grad * acc
+        _close(part, u.reshape(-1, tile, N).sum(1))
+
+
+@pytest.mark.parametrize("N", [192, 512])
+@pytest.mark.parametrize("M", [1000, 4000])
+def test_wgrad_chunks_bit_equal(cuda, M, N):
+    """The plan's one chunk (1,000 rows) and its ragged chunks reduced in
+    order (4,000 rows: 7 on an H100), on 128x128 (N=192) and 128x256
+    (N=512) tiles, against the fp32 product; a second run is bit-equal to
+    the first."""
+    from gtax_torch.kernels import backward
+
+    gen = np.random.default_rng(25)
+    a, b = _rand(gen, (M, 1024)), _rand(gen, (M, N))
+    splits, chunk = backward.wgrad_split(M, 1024, N, a.device)
+    assert (splits == 1) == (M == 1000)
+    assert splits == 1 or M % chunk  # the last chunk is ragged
+    got = backward.wgrad(a, b)
+    torch.testing.assert_close(got, backward.wgrad32(a, b), atol=1e-3,
+                               rtol=1e-4)
+    assert torch.equal(got, backward.wgrad(a, b))
+
+
+@pytest.mark.parametrize("S", [S_DIT, S_VAE])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("qkv_f32", [True, False])
+def test_attn_frame_kernel(cuda, S, hd, qkv_f32):
+    """The tensor-core frame attention against the plain version: fp32 or
+    bf16 qkv in, fp32 and bf16 out, full and partial rope, and the
+    emit_train q/k/v outputs (the roped, cast values it attends with)."""
+    gen = np.random.default_rng(S + hd)
+    N, heads = 2, D // hd
+    dt = torch.float32 if qkv_f32 else torch.bfloat16
+    qkv = _rand(gen, (N * S, 3 * D), 1.0, dt)
+    q, k, v = (t.reshape(N, S, heads, hd) for t in qkv.split(D, dim=-1))
+    for rot, out_f32 in ((hd, True), (hd // 2, False), (hd, False)):
+        f = torch.from_numpy(gen.uniform(0, 6.3, (S, rot)).astype(
+            np.float32)).cuda()
+        bf = torch.bfloat16
+        qr, kr = (rope.apply_rotary_emb(f[:, None, :], t.float()).to(bf)
+                  for t in (q, k))
+        ref = block.attend_frames(qr, kr, v.to(bf), bf,
+                                  torch.float32 if out_f32 else bf)
+        out = torch.empty((N * S, D), device="cuda",
+                          dtype=torch.float32 if out_f32 else bf)
+        emitted = tuple(torch.empty((N * S, D), dtype=bf, device="cuda")
+                        for _ in range(3))
+        block.launch_attn_frame(qkv, f, out, N, S, D, heads, rot,
+                                qkv_out=emitted)
+        torch.cuda.synchronize()
+        _close(out, ref.reshape(N * S, D))
+        for got, want in zip(emitted, (qr, kr, v.to(bf))):
+            _close(got, want.reshape(N * S, D))
