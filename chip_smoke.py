@@ -15,14 +15,18 @@ Phases (any failure exits nonzero and prints no result line):
      both; tolerance 2**-6 of each output's largest magnitude, four bf16
      ulps); CUDA-event times of the kernel, the plain version and a
      library yardstick (for a backward: autograd's backward of the library
-     composite forward; for the attention kernels SDPA with the same bias
-     as attn_mask), with the L2 cache flushed before every timed call; the
-     bound from bytes and operations (bf16 and int8 peaks). Each pair is
-     also held against the two sequential int8 wrappers on the same inputs
-     (max error and bit equality printed) and timed against them at 1-4
-     frames (`[gate]`). For fused_vae_block (decode N=6) and
-     fused_mlp_branch_bwd (B=16) one call is split by launch (`[split]`:
-     each launch's CUDA-event ms and share, TFLOP/s for each GEMM);
+     composite forward; for the attention kernels SDPA, with the same bias
+     as attn_mask where there is a mask), with the L2 cache flushed before
+     every timed call; the bound from bytes and operations (bf16 and int8
+     peaks); for each bf16 output the rounding-point figures (the share of
+     elements that differ from the plain version's, the largest difference
+     over its largest magnitude). Each pair is also held against the two sequential int8
+     wrappers on the same inputs (max error and bit equality printed) and
+     timed against them at 1-4 frames (`[gate]`). For fused_vae_block
+     (decode N=6), fused_mha_token_major (the VAE shape),
+     fused_spatial_branch_bwd and fused_mlp_branch_bwd (B=16) one call is
+     split by launch (`[split]`: each launch's CUDA-event ms and share,
+     TFLOP/s for each GEMM; attn_frame_bwd's bound);
   4. end to end, bf16: VideoGenerator at full DiT-S/2 + ViT-L/20 width,
      B=1, 4 prompt frames + 2 generated, 100 noise steps, random seeded
      weights with nonzero adaLN heads, injected noise. The launch counters
@@ -719,8 +723,11 @@ def pair_phase(timer, rows):
 def attention_cases():
     """(name, replaces, label, main, make) of the `pallas` backend's two
     kernels at the three attention shapes of the model; make returns
-    (kernel_fn, plain_fn, library_fn, library_desc, bytes, flops). The
-    library call is SDPA with the same additive bias as attn_mask."""
+    (kernel_fn, plain_fn, library_fn, library_desc, bytes, flops). With a
+    mask or causality the kernel reads the additive (S, S) bias, and the
+    library call is SDPA with the same bias as attn_mask; without, the
+    kernel reads none (the bias would be all zeros), so the bytes count
+    none and SDPA gets no mask."""
     from gtax_torch.kernels import attention as kattn
 
     F = torch.nn.functional
@@ -730,23 +737,29 @@ def attention_cases():
         return torch.tril(torch.ones(T, T, dtype=torch.bool)) & (
             valid[None, :] | torch.eye(T, dtype=torch.bool))
 
+    def biased(S, mask, causal):
+        """(the bias the kernel reads, as a tuple, SDPA's keywords)"""
+        if mask is None and not causal:
+            return (), {}
+        bias = kattn.build_bias(S, mask, causal, "cuda")
+        return (bias,), {"attn_mask": bias.to(torch.bfloat16)}
+
     def sdpa(N, S, mask=None, causal=False):
         gen = np.random.default_rng(500 + S)
         q, k, v = (rand(gen, (N, S, HD)) for _ in range(3))
         bias = kattn.build_bias(S, mask, causal, "cuda")
-        lib_bias = bias.to(torch.bfloat16)
+        read, kw = biased(S, mask, causal)
         return (lambda: kattn.fused_sdpa(q, k, v, mask, causal),
                 lambda: kattn.sdpa_plain(q, k, v, bias),
-                lambda: F.scaled_dot_product_attention(q, k, v,
-                                                       attn_mask=lib_bias),
-                "SDPA(attn_mask=bias)", nbytes(q, k, v, bias, q),
-                4 * N * S * S * HD)
+                lambda: F.scaled_dot_product_attention(q, k, v, **kw),
+                "SDPA(attn_mask=bias)" if kw else "SDPA",
+                nbytes(q, k, v, *read, q), 4 * N * S * S * HD)
 
     def mha(N, S, mask=None):
         gen = np.random.default_rng(600 + S)
         q, k, v = (rand(gen, (N, S, D)) for _ in range(3))
         bias = kattn.build_bias(S, mask, False, "cuda")
-        lib_bias = bias.to(torch.bfloat16)
+        read, kw = biased(S, mask, False)
 
         def heads(t):
             return t.view(N, S, H, HD).transpose(1, 2)
@@ -754,9 +767,10 @@ def attention_cases():
         return (lambda: kattn.fused_mha_token_major(q, k, v, H, mask),
                 lambda: kattn.mha_token_major_plain(q, k, v, bias, H),
                 lambda: F.scaled_dot_product_attention(
-                    heads(q), heads(k), heads(v), attn_mask=lib_bias),
-                "SDPA(attn_mask=bias) on (N, h, S, d) views",
-                nbytes(q, k, v, bias, q), 4 * N * H * S * S * HD)
+                    heads(q), heads(k), heads(v), **kw),
+                ("SDPA(attn_mask=bias)" if kw else "SDPA")
+                + " on (N, h, S, d) views",
+                nbytes(q, k, v, *read, q), 4 * N * H * S * S * HD)
 
     sd, mh = "gtax/kernels/attention.py:90", "gtax/kernels/attention.py:198"
     return [
@@ -795,11 +809,14 @@ def measure(timer, name, label, kern, plain, lib, by, fl, *i8):
     output against the plain one (2**-6 of its largest magnitude), time
     the kernel, the plain version and the library yardstick, and compute
     the bound (by: bytes, fl: bf16 flops, i8: int8 ops)."""
+    from gtax_torch.utils.profiling import bf16_differences
+
     got, ref = kern(), plain()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
     err, tol, ratio = 0.0, 0.0, 0.0  # tol: that of the worst output
+    share, rel = 0.0, 0.0  # the rounding-point figures of the worst output
     for a, b in zip(got, ref):
         if not torch.isfinite(a.float()).all():
             fail(f"{name} [{label}]: non-finite output")
@@ -808,20 +825,24 @@ def measure(timer, name, label, kern, plain, lib, by, fl, *i8):
         err = max(err, e)
         if e / t >= ratio:
             ratio, tol = e / t, t
+        if a.dtype == torch.bfloat16:
+            sh, rl = bf16_differences(a, b)
+            share, rel = max(share, sh), max(rel, rl)
     ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(lib)
     bms, by_what = bound_ms(by, fl, *i8)
     ops = f"{fl / 1e9:.2f} GFLOP" + (f", {i8[0] / 1e9:.2f} int8 GOP"
                                       if i8 else "")
     log(f"[kernel] {name:25s} {label:36s} max_abs_err={err:.3g} "
-        f"(worst output err/tol {ratio:.3g}, its tol {tol:.3g}) "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"(worst output err/tol {ratio:.3g}, its tol {tol:.3g}; bf16 "
+        f"outputs: {share:.3e} of elements differ, max diff {rel:.3e} of "
+        f"the largest magnitude) ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by_what}; "
         f"{by / 1e6:.1f} MB, {ops})")
     if not ratio <= 1.0:
         fail(f"{name} [{label}] disagrees with its plain version: an output "
              f"is off by {ratio:.3g} times its tolerance")
     return {"max_abs_err": err, "tolerance": tol, "err_over_tol": ratio,
-            "ms": ms,
+            "bf16_differ": share, "max_diff_over_max": rel, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by_what,
             "library_ms": lib_ms, "shape": label}
 
@@ -834,6 +855,10 @@ def kernel_phase():
                                               + attention_cases()):
         kern, plain, lib, lib_desc, *rest = make()
         m = measure(timer, name, label, kern, plain, lib, *rest)
+        if name == "fused_mha_token_major" and "VAE" in label:
+            check_attn_dispatch()
+            split = launch_split(kern, f"{name} [{label}]", [])
+            rows[name]["vae_launch_split"] = split
         if main:
             rows[name] = {"name": name, "route": "cuda",
                           "source": SOURCES[name], "replaces": replaces,
@@ -845,6 +870,18 @@ def kernel_phase():
                     [2 * M * D * n for n in (3 * D, D, 4 * D, 4 * D)])
     pair_phase(timer, rows)
     return rows
+
+
+def check_attn_dispatch():
+    """attn_sdpa's body by S: the tensor cores at the model's S = 144 and
+    576, the warp rows at the temporal S = 5 (the split of one call into
+    its phases is gtax_torch/tools/attn_sweep.py's, on a probe build)."""
+    from gtax_torch.kernels import attention as kattn
+
+    if not (kattn.sdpa_tensor_cores(S_VAE) and kattn.sdpa_tensor_cores(S_DIT)
+            and not kattn.sdpa_tensor_cores(5)):
+        fail("attn_sdpa's dispatch: S=144 and 576 must take the tensor "
+             "cores, S=5 the warp rows")
 
 
 # ------------------------------------------------------ training kernels
@@ -1085,11 +1122,25 @@ def train_kernel_phase(rows):
                           "source": BWD_SOURCE,
                           "replaces": BWD_REPLACES[name], "launches": None,
                           **m, "library": LIB_BWD.format(what)}
-            if name == "fused_mlp_branch_bwd":  # four products of 96.6 GF
+            M = 80 * S_DIT
+            # the GEMMs in launch order: dy W_out^T, dW_out, dW_qkv,
+            # dqkv W_qkv^T; the MLP's four products of 96.6 GFLOP
+            flops = {"fused_spatial_branch_bwd":
+                     [2 * M * D * D] * 2 + [2 * M * D * 3 * D] * 2,
+                     "fused_mlp_branch_bwd": [2 * M * D * 4 * D] * 4}
+            if name in flops:
                 with torch.no_grad():
                     rows[name]["launch_split"] = launch_split(
-                        kern, f"{name} [{label}]",
-                        [2 * 80 * S_DIT * D * 4 * D] * 4)
+                        kern, f"{name} [{label}]", flops[name])
+            if name == "fused_spatial_branch_bwd":
+                # attn_frame_bwd alone: q, k, v, dO read, dq/dk/dv and O
+                # written; six S x S x d products a (frame, head)
+                bms, by_what = bound_ms(M * D * 2 * 8,
+                                        12 * 80 * H * S_DIT**2 * HD)
+                rows[name]["attn_frame_bwd_bound_ms"] = bms
+                log(f"[split]   attn_frame_bwd bound {bms:.4f} ms "
+                    f"({by_what}; {M * D * 16 / 1e6:.1f} MB, "
+                    f"{12 * 80 * H * S_DIT**2 * HD / 1e9:.1f} GFLOP)")
         else:
             rows[name].update({f"emit_train_{k}": m[k] for k in (
                 "ms", "max_abs_err", "plain_ms", "bound_ms", "library_ms",

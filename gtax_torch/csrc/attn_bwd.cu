@@ -16,183 +16,376 @@
 //   dQ = dS K, dK = dS^T Q  (fp32 sums), rope adjoint in fp32, one bf16
 // rounding of each output. The temporal scores sum q*k in fp32 where the
 // TPU kernel rounds each product to bf16, as the port's forward does.
-// Bound: operations for the spatial kernel (six S x S x d products per
-// (frame, head): the scores, dP, O, dQ, dK, dV); bytes for the temporal one
-// (T <= 8 keys per query).
-// Design (first version): the products run on the fp32 pipes. attn_frame_bwd
-// keeps one (frame, head) in shared memory: Q, K, V, dO (bf16) and the
-// bf16 P and dS matrices (S = 144: 163 KB, hence the dynamic shared-memory
-// opt-in). Phase A, one warp per query row: scores, softmax, dP, dS, then
-// O and dQ; phase B, one warp per key row: dK and dV from the columns of
-// dS and P. attn_temporal_bwd is one warp per (batch element, site, head),
+// Bound: bytes for both. The spatial kernel at B=16 (80 frames of 144
+// tokens, D = 1024) reads q, k, v, dO and writes dq/dk/dv and O: 189 MB,
+// 0.056 ms at 3.35 TB/s, against 0.021 ms for its six 144 x 144 x 64
+// products a (frame, head) at the bf16 tensor-core peak; the temporal one
+// has T <= 8 keys a query.
+// Design. attn_frame_bwd runs its six products (the scores, O = P V, dP, dQ,
+// dK, dV) as mma.sync m16n8k16 on the tensor cores, operands from shared memory
+// by ldmatrix (attn_frame.cuh). A block takes one (head, frame) and stages its
+// Q, K, V and dO (padded to a whole 16-row tile with zeros) by cp.async, V and
+// dO landing while the scores are formed; it has one warp per 16-row tile (9 at
+// the DiT's S = 144), which takes that tile of query rows in phase A and of key
+// rows in phase B. The register arrays of a row's scores are sized for 9 tiles,
+// or for as many as fit the shared memory (S <= 176 at hd 64, 192 at hd 32)
+// past that. Phase A: the warp's 16 x S scores, p32 and dP stay in registers in
+// the accumulator layout (row sums by quad shuffles); P goes to O from
+// registers, and to shared memory as bf16; dP = dO V^T is formed twice (once
+// for rowsum(dP * p32), once for dS), and dS goes to shared memory and, from
+// registers, into dQ = dS K. Phase B reads the columns of P and dS for its keys
+// as A operands transposed by ldmatrix.trans: dK = dS^T Q and dV = P^T dO.
+// Shared memory: Q, K, V, dO and the S x S bf16 P and dS (170 KB at S = 144, hd
+// 64), so one block fits on an SM and a (head, frame) is read once. The rope
+// adjoint takes the table's fp32 cos and sin (as gtax's kernel and the plain
+// version do): a precise sincosf for each element pair had been half the
+// kernel's time. attn_temporal_bwd is one warp per (batch element, site, head),
 // each lane owning two of the head's dims, everything in registers.
-// Later work: tensor-core products (mma.sync / wgmma).
-#include "common.cuh"
+#include "attn_frame.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kMaxT = 8;
+constexpr int kBwdChunks = 9;  // 16-row tiles of the DiT's 144-token frame
 
+// Shared memory of attn_frame_bwd: Q, K, V, dO rows of HD + 8 and P, dS
+// rows of SP + 8 bf16 (16-byte pads: ldmatrix's eight rows hit distinct
+// banks), SP = S rounded up to 16.
 template <int HD>
-__global__ void __launch_bounds__(kWarps * 32)
+constexpr size_t frame_bwd_smem(int S) {
+  const size_t sp = (size_t)(S + 15) / 16 * 16;
+  return (4 * sp * (HD + 8) + 2 * sp * (sp + 8)) * 2;
+}
+
+// The most 16-row tiles of a frame whose block fits the shared memory
+template <int HD>
+constexpr int frame_bwd_max_chunks() {
+  int n = 1;
+  while (frame_bwd_smem<HD>(16 * (n + 1)) <= kSmemMax) ++n;
+  return n;
+}
+
+// dP = dO V^T for keys 16 kp .. 16 kp + 15 (two n8 tiles d0, d1) of the
+// warp's 16 query rows (dO A fragments of)
+template <int HD>
+__device__ __forceinline__ void dp_tiles(float (&d0)[4], float (&d1)[4],
+                                         const uint32_t (&of)[HD / 16][4],
+                                         const bf16* Vs, int kp, int lane) {
+  constexpr int LD = HD + 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d0[i] = d1[i] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < HD / 16; ++kc) {
+    uint32_t b[4];
+    ldsm_x4(b, Vs + (size_t)(kp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                   kc * 16 + ((lane >> 3) & 1) * 8);
+    mma16816(d0, of[kc], b[0], b[1]);
+    mma16816(d1, of[kc], b[2], b[3]);
+  }
+}
+
+// NP: the 16-row tiles the score registers hold, at least SP / 16
+template <int HD, int NP>
+__global__ void __launch_bounds__(NP * 32, 1)
     attn_frame_bwd_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
                           const bf16* __restrict__ v,
                           const bf16* __restrict__ dout,
-                          const float* __restrict__ freqs,
+                          const float* __restrict__ cosb,
+                          const float* __restrict__ sinb,
                           bf16* __restrict__ dqkv, bf16* __restrict__ ao,
                           int S, int D, int rot) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int KS = HD + 2;  // padded K/V rows: lanes reading a key each
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + (size_t)S * KS;
-  bf16* Qs = Vs + (size_t)S * KS;
-  bf16* Os = Qs + (size_t)S * HD;  // dO
-  bf16* Ps = Os + (size_t)S * HD;  // bf16(P), [query][key]
-  bf16* Gs = Ps + (size_t)S * S;   // dS, [query][key]
-  float* pbuf = reinterpret_cast<float*>(Gs + (size_t)S * S);
-  float* dpbuf = pbuf + (size_t)kWarps * S;
+  constexpr int LD = HD + 8, KC = HD / 16, DT = HD / 8, CH = HD / 8;
+  const int SP = (S + 15) / 16 * 16, LP = SP + 8, NKC = SP / 16;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + (size_t)SP * LD;
+  bf16* Vs = Ks + (size_t)SP * LD;
+  bf16* Os = Vs + (size_t)SP * LD;  // dO
+  bf16* Ps = Os + (size_t)SP * LD;  // bf16(P), [query][key]
+  bf16* Gs = Ps + (size_t)SP * LP;  // dS, [query][key]
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int h = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const size_t hc = (size_t)blockIdx.x * HD;
   const size_t row0 = (size_t)blockIdx.y * S;
   const size_t D3 = 3 * (size_t)D;
-  const float scale = 1.0f / sqrtf((float)HD);
+  // gtax's 1 / sqrt(d): the double quotient, rounded to fp32 once
+  const float scale = (float)(1.0 / sqrt((double)HD));
 
-  for (int idx = threadIdx.x; idx < S * (HD / 2); idx += kWarps * 32) {
-    const int j = idx / (HD / 2), c = (idx % (HD / 2)) * 2;
-    const size_t g = (row0 + j) * D + (size_t)h * HD + c;
-    typedef __nv_bfloat162 b2;
-    *reinterpret_cast<b2*>(Ks + (size_t)j * KS + c) =
-        *reinterpret_cast<const b2*>(k + g);
-    *reinterpret_cast<b2*>(Vs + (size_t)j * KS + c) =
-        *reinterpret_cast<const b2*>(v + g);
-    *reinterpret_cast<b2*>(Qs + (size_t)j * HD + c) =
-        *reinterpret_cast<const b2*>(q + g);
-    *reinterpret_cast<b2*>(Os + (size_t)j * HD + c) =
-        *reinterpret_cast<const b2*>(dout + g);
+  // stage Q, K, V, dO: 16 bytes a copy, rows past S zero-filled, in two
+  // groups: the scores wait for Q and K only, V and dO land meanwhile
+  const int per = SP * CH;
+  for (int t0 = 0; t0 < 4; t0 += 2) {
+    for (int idx = tid; idx < 2 * per; idx += blockDim.x) {
+      const int t = t0 + idx / per, r = (idx % per) / CH, c = (idx % CH) * 8;
+      const int rr = r < S ? r : S - 1;
+      const bf16* src = t == 0 ? q : t == 1 ? k : t == 2 ? v : dout;
+      cp_async16(Qs + (size_t)t * SP * LD + (size_t)r * LD + c,
+                 src + (row0 + rr) * D + hc + c, r < S ? 16 : 0);
+    }
+    cp_async_commit();
   }
+  if (GTAX_PROBE_STOP == 0) {
+    cp_async_wait<0>();
+    return;
+  }
+  cp_async_wait<1>();
   __syncthreads();
 
-  auto dot_row = [&](const float (&r)[HD], const bf16* base) {
-    const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(base);
-    float acc = 0.f;
+  // ---- phase A: query rows r0 .. r0 + 15; this thread holds rows
+  // r0 + g (a) and r0 + g + 8 (b) of each accumulator tile
+  const int r0 = warp * 16;
+  const bool ok_a = r0 + g < S, ok_b = r0 + g + 8 < S;
+  float p[2 * NP][4];  // scores, then p32
+  {
+    uint32_t qf[KC][4];
 #pragma unroll
-    for (int c2 = 0; c2 < HD / 2; ++c2) {
-      const float2 kv = __bfloat1622float2(kr[c2]);
-      acc = fmaf(r[2 * c2], kv.x, acc);
-      acc = fmaf(r[2 * c2 + 1], kv.y, acc);
-    }
-    return acc;
-  };
-
-  // phase A: one warp per query row i
-  float* pb = pbuf + (size_t)warp * S;
-  float* db = dpbuf + (size_t)warp * S;
-  for (int i = warp; i < S; i += kWarps) {
-    float rv[HD];
+    for (int kc = 0; kc < KC; ++kc)
+      ldsm_x4(qf[kc], Qs + (size_t)(r0 + (lane & 15)) * LD + kc * 16 +
+                          (lane >> 4) * 8);
 #pragma unroll
-    for (int c = 0; c < HD; ++c) rv[c] = bf2f(Qs[(size_t)i * HD + c]);
-    float mx = -INFINITY;
-    for (int j = lane; j < S; j += 32) {
-      const float s = dot_row(rv, Ks + (size_t)j * KS) * scale;
-      pb[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      const float e = expf(pb[j] - mx);
-      pb[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
+    for (int kp = 0; kp < NP; ++kp) {
 #pragma unroll
-    for (int c = 0; c < HD; ++c) rv[c] = bf2f(Os[(size_t)i * HD + c]);
-    float dsum = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      const float p = pb[j] / sum;
-      const float dp = dot_row(rv, Vs + (size_t)j * KS);
-      pb[j] = p;
-      db[j] = dp;
-      dsum += dp * p;
-    }
-    dsum = warp_sum(dsum);
-    for (int j = lane; j < S; j += 32) {
-      const float p = pb[j];
-      Ps[(size_t)i * S + j] = f2bf(p);
-      Gs[(size_t)i * S + j] = f2bf((p * (db[j] - dsum)) * scale);
-    }
-    __syncwarp();
-    for (int c = lane * 2; c < HD; c += 64) {
-      float2 o = make_float2(0.f, 0.f), dq = make_float2(0.f, 0.f);
-      for (int j = 0; j < S; ++j) {
-        const float p = bf2f(Ps[(size_t)i * S + j]);
-        const float g = bf2f(Gs[(size_t)i * S + j]);
-        const float2 vv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(Vs + (size_t)j * KS + c));
-        const float2 kv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(Ks + (size_t)j * KS + c));
-        o.x = fmaf(p, vv.x, o.x);
-        o.y = fmaf(p, vv.y, o.y);
-        dq.x = fmaf(g, kv.x, dq.x);
-        dq.y = fmaf(g, kv.y, dq.y);
+      for (int i = 0; i < 4; ++i) p[2 * kp][i] = p[2 * kp + 1][i] = 0.f;
+      if (kp < NKC) {
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+          uint32_t b[4];
+          ldsm_x4(b, Ks + (size_t)(kp * 16 + (lane & 7) + ((lane >> 4) << 3)) *
+                              LD + kc * 16 + ((lane >> 3) & 1) * 8);
+          mma16816(p[2 * kp], qf[kc], b[0], b[1]);
+          mma16816(p[2 * kp + 1], qf[kc], b[2], b[3]);
+        }
       }
-      store_pair(ao, (row0 + i) * D + (size_t)h * HD + c, o.x, o.y);
-      if (c < rot) dq = rope_pair_t(dq, freqs + (size_t)i * rot + c);
-      store_pair(dqkv, (row0 + i) * D3 + (size_t)h * HD + c, dq.x, dq.y);
     }
-    __syncwarp();
   }
-  __syncthreads();
+  float m_a = -INFINITY, m_b = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < 2 * NP; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = nt * 8 + 2 * tq + (i & 1);
+      p[nt][i] = key < S ? __fmul_rn(p[nt][i], scale) : -INFINITY;
+      if (i < 2)
+        m_a = fmaxf(m_a, p[nt][i]);
+      else
+        m_b = fmaxf(m_b, p[nt][i]);
+    }
+  m_a = quad_max(m_a);
+  m_b = quad_max(m_b);
+  float l_a = 0.f, l_b = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 2 * NP; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      p[nt][i] = expf(p[nt][i] - (i < 2 ? m_a : m_b));
+      if (i < 2)
+        l_a += p[nt][i];
+      else
+        l_b += p[nt][i];
+    }
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  // p32 = e / l (rows past S: 0, so they add nothing to dK and dV)
+  const float r_a = __frcp_rn(l_a), r_b = __frcp_rn(l_b);
+#pragma unroll
+  for (int nt = 0; nt < 2 * NP; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p[nt][i] = (i < 2 ? ok_a : ok_b)
+                     ? div_rn_by(p[nt][i], i < 2 ? l_a : l_b,
+                                 i < 2 ? r_a : r_b)
+                     : 0.f;
 
-  // phase B: one warp per key row j
-  for (int j = warp; j < S; j += kWarps) {
-    for (int c = lane * 2; c < HD; c += 64) {
-      float2 dk = make_float2(0.f, 0.f), dv = make_float2(0.f, 0.f);
-      for (int i = 0; i < S; ++i) {
-        const float g = bf2f(Gs[(size_t)i * S + j]);
-        const float p = bf2f(Ps[(size_t)i * S + j]);
-        const float2 qv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(Qs + (size_t)i * HD + c));
-        const float2 ov = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(Os + (size_t)i * HD + c));
-        dk.x = fmaf(g, qv.x, dk.x);
-        dk.y = fmaf(g, qv.y, dk.y);
-        dv.x = fmaf(p, ov.x, dv.x);
-        dv.y = fmaf(p, ov.y, dv.y);
-      }
-      if (c < rot) dk = rope_pair_t(dk, freqs + (size_t)j * rot + c);
-      const size_t o = (row0 + j) * D3 + (size_t)h * HD + c;
-      store_pair(dqkv, o + D, dk.x, dk.y);
-      store_pair(dqkv, o + 2 * (size_t)D, dv.x, dv.y);
+  cp_async_wait<0>();
+  __syncthreads();  // V and dO are in
+
+  // bf16(P) to shared memory, and O = bf16(P) V from the registers
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[dt][i] = 0.f;
+#pragma unroll
+  for (int kp = 0; kp < NP; ++kp) {
+    if (kp >= NKC) break;
+    const uint32_t pf[4] = {pack_bf16(p[2 * kp][0], p[2 * kp][1]),
+                            pack_bf16(p[2 * kp][2], p[2 * kp][3]),
+                            pack_bf16(p[2 * kp + 1][0], p[2 * kp + 1][1]),
+                            pack_bf16(p[2 * kp + 1][2], p[2 * kp + 1][3])};
+    bf16* pr = Ps + (size_t)(r0 + g) * LP + kp * 16 + 2 * tq;
+    *reinterpret_cast<uint32_t*>(pr) = pf[0];
+    *reinterpret_cast<uint32_t*>(pr + 8 * LP) = pf[1];
+    *reinterpret_cast<uint32_t*>(pr + 8) = pf[2];
+    *reinterpret_cast<uint32_t*>(pr + 8 * LP + 8) = pf[3];
+#pragma unroll
+    for (int dp = 0; dp < DT / 2; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_t(b, Vs + (size_t)(kp * 16 + (lane & 7) +
+                                 ((lane >> 3) & 1) * 8) * LD +
+                       dp * 16 + (lane >> 4) * 8);
+      mma16816(acc[2 * dp], pf, b[0], b[1]);
+      mma16816(acc[2 * dp + 1], pf, b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const size_t c = hc + dt * 8 + 2 * tq;
+    if (ok_a) store_pair(ao, (row0 + r0 + g) * D + c, acc[dt][0], acc[dt][1]);
+    if (ok_b)
+      store_pair(ao, (row0 + r0 + g + 8) * D + c, acc[dt][2], acc[dt][3]);
+  }
+
+  uint32_t of[KC][4];  // A fragments of the warp's dO rows
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+    ldsm_x4(of[kc], Os + (size_t)(r0 + (lane & 15)) * LD + kc * 16 +
+                        (lane >> 4) * 8);
+  // rowsum(dP * p32), dP = dO V^T two n8 tiles of keys at a time
+  float s_a = 0.f, s_b = 0.f;
+#pragma unroll
+  for (int kp = 0; kp < NP; ++kp) {
+    if (kp >= NKC) break;
+    float d0[4], d1[4];
+    dp_tiles<HD>(d0, d1, of, Vs, kp, lane);
+    s_a += d0[0] * p[2 * kp][0] + d0[1] * p[2 * kp][1] +
+           d1[0] * p[2 * kp + 1][0] + d1[1] * p[2 * kp + 1][1];
+    s_b += d0[2] * p[2 * kp][2] + d0[3] * p[2 * kp][3] +
+           d1[2] * p[2 * kp + 1][2] + d1[3] * p[2 * kp + 1][3];
+  }
+  s_a = quad_sum(s_a);
+  s_b = quad_sum(s_b);
+  // dS = bf16((p32 * (dP - rowsum)) * d^-1/2) to shared memory, and
+  // dQ = dS K from the registers
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[dt][i] = 0.f;
+#pragma unroll
+  for (int kp = 0; kp < NP; ++kp) {
+    if (kp >= NKC) break;
+    float d0[4], d1[4];
+    dp_tiles<HD>(d0, d1, of, Vs, kp, lane);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float sub = i < 2 ? s_a : s_b;
+      d0[i] = __fmul_rn(__fmul_rn(p[2 * kp][i], __fsub_rn(d0[i], sub)),
+                        scale);
+      d1[i] = __fmul_rn(__fmul_rn(p[2 * kp + 1][i], __fsub_rn(d1[i], sub)),
+                        scale);
+    }
+    const uint32_t gf[4] = {pack_bf16(d0[0], d0[1]), pack_bf16(d0[2], d0[3]),
+                            pack_bf16(d1[0], d1[1]), pack_bf16(d1[2], d1[3])};
+    bf16* gr = Gs + (size_t)(r0 + g) * LP + kp * 16 + 2 * tq;
+    *reinterpret_cast<uint32_t*>(gr) = gf[0];
+    *reinterpret_cast<uint32_t*>(gr + 8 * LP) = gf[1];
+    *reinterpret_cast<uint32_t*>(gr + 8) = gf[2];
+    *reinterpret_cast<uint32_t*>(gr + 8 * LP + 8) = gf[3];
+#pragma unroll
+    for (int dp = 0; dp < DT / 2; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_t(b, Ks + (size_t)(kp * 16 + (lane & 7) +
+                                 ((lane >> 3) & 1) * 8) * LD +
+                       dp * 16 + (lane >> 4) * 8);
+      mma16816(acc[2 * dp], gf, b[0], b[1]);
+      mma16816(acc[2 * dp + 1], gf, b[2], b[3]);
+    }
+  }
+  // the rope adjoint in fp32, one bf16 rounding
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const int c = dt * 8 + 2 * tq;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + g + 8 * half;
+      if (r >= S) continue;
+      float2 u = make_float2(acc[dt][2 * half], acc[dt][2 * half + 1]);
+      if (c < rot) u = rope_pair_t_tab(u, cosb, sinb, (size_t)r * rot + c);
+      store_pair(dqkv, (row0 + r) * D3 + hc + c, u.x, u.y);
+    }
+  }
+  if (GTAX_PROBE_STOP == 1) return;
+  __syncthreads();  // every warp's rows of P and dS are in shared memory
+
+  // ---- phase B: key rows j0 .. j0 + 15; dK = dS^T Q, dV = P^T dO
+  const int j0 = warp * 16;
+  float dk[DT][4], dv[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[dt][i] = dv[dt][i] = 0.f;
+  for (int qc = 0; qc < NKC; ++qc) {
+    // A fragments of the transposed 16 x 16 blocks (keys j0.., queries
+    // 16 qc..) of dS and P
+    const size_t at = (size_t)(qc * 16 + ((lane >> 4) << 3) + (lane & 7)) *
+                          LP + j0 + ((lane >> 3) & 1) * 8;
+    uint32_t ga[4], pa[4];
+    ldsm_x4_t(ga, Gs + at);
+    ldsm_x4_t(pa, Ps + at);
+    const size_t bt = (size_t)(qc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                          LD + (lane >> 4) * 8;
+#pragma unroll
+    for (int dp = 0; dp < DT / 2; ++dp) {
+      uint32_t b[4];
+      ldsm_x4_t(b, Qs + bt + dp * 16);
+      mma16816(dk[2 * dp], ga, b[0], b[1]);
+      mma16816(dk[2 * dp + 1], ga, b[2], b[3]);
+      ldsm_x4_t(b, Os + bt + dp * 16);
+      mma16816(dv[2 * dp], pa, b[0], b[1]);
+      mma16816(dv[2 * dp + 1], pa, b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const int c = dt * 8 + 2 * tq;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int j = j0 + g + 8 * half;
+      if (j >= S) continue;
+      float2 u = make_float2(dk[dt][2 * half], dk[dt][2 * half + 1]);
+      if (c < rot) u = rope_pair_t_tab(u, cosb, sinb, (size_t)j * rot + c);
+      const size_t o = (row0 + j) * D3 + hc + c;
+      store_pair(dqkv, o + D, u.x, u.y);
+      store_pair(dqkv, o + 2 * (size_t)D, dv[dt][2 * half],
+                 dv[dt][2 * half + 1]);
     }
   }
 }
 
-template <int HD>
-size_t frame_smem_bytes(int S) {
-  return (size_t)S * (HD + 2) * 2 * 2 + (size_t)S * HD * 2 * 2 +
-         (size_t)S * S * 2 * 2 + (size_t)kWarps * S * 4 * 2;
+template <int HD, int NP>
+int launch_frame_np(const bf16* q, const bf16* k, const bf16* v,
+                    const bf16* dout, const float* cosb, const float* sinb,
+                    bf16* dqkv, bf16* ao, int n_frames, int S, int D, int rot,
+                    cudaStream_t st) {
+  const size_t smem = frame_bwd_smem<HD>(S);
+  static size_t opted = 48 * 1024;
+  const cudaError_t e =
+      opt_in_smem(attn_frame_bwd_kernel<HD, NP>, smem, opted);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(D / HD, n_frames);
+  attn_frame_bwd_kernel<HD, NP><<<grid, (S + 15) / 16 * 32, smem, st>>>(
+      q, k, v, dout, cosb, sinb, dqkv, ao, S, D, rot);
+  return (int)cudaGetLastError();
 }
 
+// the instantiation whose score registers hold the frame's tiles: nine up
+// to the DiT's 144 tokens, else as many as the shared memory takes
 template <int HD>
 int launch_frame(const bf16* q, const bf16* k, const bf16* v,
-                 const bf16* dout, const float* freqs, bf16* dqkv, bf16* ao,
-                 int n_frames, int S, int D, int rot, cudaStream_t st) {
-  const size_t smem = frame_smem_bytes<HD>(S);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attn_frame_bwd_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid(D / HD, n_frames);
-  attn_frame_bwd_kernel<HD><<<grid, kWarps * 32, smem, st>>>(
-      q, k, v, dout, freqs, dqkv, ao, S, D, rot);
-  return (int)cudaGetLastError();
+                 const bf16* dout, const float* cosb, const float* sinb,
+                 bf16* dqkv, bf16* ao, int n_frames, int S, int D, int rot,
+                 cudaStream_t st) {
+  constexpr int kMax = frame_bwd_max_chunks<HD>();
+  const int tiles = (S + 15) / 16;
+  if (tiles <= kBwdChunks)
+    return launch_frame_np<HD, kBwdChunks>(q, k, v, dout, cosb, sinb, dqkv,
+                                           ao, n_frames, S, D, rot, st);
+  if (tiles <= kMax)
+    return launch_frame_np<HD, kMax>(q, k, v, dout, cosb, sinb, dqkv, ao,
+                                     n_frames, S, D, rot, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int HD>
@@ -333,29 +526,33 @@ int launch_temporal(const bf16* q, const bf16* k, const bf16* v,
 }  // namespace
 
 // q, k, v, dout, ao: (n_frames * S, D) bf16, head h in columns
-// [h * hd, (h + 1) * hd); freqs: (S, rot) fp32, the forward's rotary table
-// (rot = 0: no rope); dqkv: (n_frames * S, 3D) bf16.
+// [h * hd, (h + 1) * hd); cosb, sinb: (S, rot) fp32, cos and sin of the
+// forward's rotary table (rot = 0: no rope); dqkv: (n_frames * S, 3D)
+// bf16. S up to the shared memory's limit: 176 at hd 64, 192 at hd 32
+// (cudaErrorInvalidValue past it).
 GTAX_ENTRY gtax_attn_frame_bwd(const void* q, const void* k, const void* v,
-                               const void* dout, const void* freqs,
-                               void* dqkv, void* ao, int n_frames, int S,
-                               int D, int num_heads, int rot, void* stream) {
+                               const void* dout, const void* cosb,
+                               const void* sinb, void* dqkv, void* ao,
+                               int n_frames, int S, int D, int num_heads,
+                               int rot, void* stream) {
   if (n_frames <= 0 || S <= 0 || num_heads <= 0 || D % num_heads ||
       rot < 0 || rot % 2 || rot > D / num_heads)
     return (int)cudaErrorInvalidValue;
   const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
              *vb = static_cast<const bf16*>(v),
              *gb = static_cast<const bf16*>(dout);
-  const float* f = static_cast<const float*>(freqs);
+  const float* c = static_cast<const float*>(cosb);
+  const float* sn = static_cast<const float*>(sinb);
   bf16* dst = static_cast<bf16*>(dqkv);
   bf16* o = static_cast<bf16*>(ao);
   cudaStream_t st = (cudaStream_t)stream;
   switch (D / num_heads) {
     case 32:
-      return launch_frame<32>(qb, kb, vb, gb, f, dst, o, n_frames, S, D, rot,
-                              st);
+      return launch_frame<32>(qb, kb, vb, gb, c, sn, dst, o, n_frames, S, D,
+                              rot, st);
     case 64:
-      return launch_frame<64>(qb, kb, vb, gb, f, dst, o, n_frames, S, D, rot,
-                              st);
+      return launch_frame<64>(qb, kb, vb, gb, c, sn, dst, o, n_frames, S, D,
+                              rot, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

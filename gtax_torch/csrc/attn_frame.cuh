@@ -181,13 +181,14 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// Scores of a warp's 16 query rows against keys j0 .. j0 + 63: s[nt] is
-// the m16n8 tile of keys j0 + 8 nt .., times `scale`, keys >= S at -inf.
+// Raw scores (q . k, fp32 sums) of a warp's 16 query rows against keys
+// j0 .. j0 + 63: s[nt] is the m16n8 tile of keys j0 + 8 nt ..; this thread
+// holds rows g = lane / 4 (s[nt][0..1]) and g + 8 (s[nt][2..3]), keys
+// j0 + 8 nt + 2 (lane % 4) + (0, 1).
 template <int HD>
-__device__ __forceinline__ void attn_scores(float (&s)[8][4],
-                                            const uint32_t (&qf)[HD / 16][4],
-                                            const bf16* Ks, int j0, int S,
-                                            float scale, int lane) {
+__device__ __forceinline__ void attn_qk(float (&s)[8][4],
+                                        const uint32_t (&qf)[HD / 16][4],
+                                        const bf16* Ks, int j0, int lane) {
   constexpr int LD = HD + 8;
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt)
@@ -204,14 +205,131 @@ __device__ __forceinline__ void attn_scores(float (&s)[8][4],
       mma16816(s[2 * np + 1], qf[kc], b[2], b[3]);
     }
   }
-  const bool ragged = j0 + 64 > S;  // only the last tile has masked keys
+}
+
+// The softmax's exponential and normalisation. kExact: gtax's rounding
+// points, e = exp(s - m) and p = e / l by IEEE division (attn_sdpa). Else
+// the frame attention's: scores prescaled by log2(e), e = 2^(s - m) on the
+// special-function unit, and p = e * (1 / l).
+template <bool kExact>
+__device__ __forceinline__ float attn_exp(float x) {
+  return kExact ? expf(x) : ex2(x);
+}
+
+// e / l rounded once, as IEEE division rounds it, for e in [0, 1] and a
+// softmax row sum l >= 1, from r = 1 / l (rounded): q = e r, then one
+// fused correction by the remainder e - q l, which an FMA forms exactly
+// (Markstein): three operations where the division takes a dozen and a
+// branch. Below 2^-96 the remainder would underflow, so the division itself
+// runs there (such a p moves no sum it enters); e = 0 (a masked key) needs
+// no correction.
+__device__ __forceinline__ float div_rn_by(float e, float l, float r) {
+  if (e < 1.2621774e-29f && e > 0.f) return __fdiv_rn(e, l);
+  const float q = __fmul_rn(e, r);
+  return __fmaf_rn(__fmaf_rn(-q, l, e), r, q);
+}
+
+// One warp's 16 query rows (A fragments qf) against the S keys of a head:
+// O = bf16(softmax(scores)) V into o (the m16n8 tiles of dims 8 dt ..; rows
+// as attn_qk's). Ks holds the keys, resident, rows past S zero, rounded up
+// to a whole 64-key tile. finish(s, j0) turns attn_qk's raw tile into the
+// scores (scaled, biased, -inf for keys >= S). gtax rounds the
+// probabilities after normalising them, so the keys are walked twice: pass
+// 1 keeps each row's running max and sum of exponentials (rescaled when the
+// max moves); pass 2 recomputes the scores, forms p = bf16(e / l) and
+// accumulates P V. stage_v(Vt, j0) stages keys j0 .. j0 + 63 of V into Vt,
+// by plain stores or by cp.async (waited for here); the tiles alternate
+// between the two halves of Vs (2 x 64 rows): tile t + 1 is staged after
+// the barrier that opens tile t, which also tells that every warp is done
+// with tile t - 1, whose half it takes, so an asynchronous stager's copies
+// overlap tile t's products. live = false (every row of the warp is past
+// S) skips the warp's products but keeps it in the barriers.
+// A probe build (GTAX_PROBE_STOP, common.cuh) stops before pass 1 (0) or
+// after it (1), the row sums in o.
+template <int HD, bool kExact, class Finish, class StageV>
+__device__ __forceinline__ void attn_rows(const uint32_t (&qf)[HD / 16][4],
+                                          const bf16* Ks, bf16* Vs, int S,
+                                          bool live, Finish finish,
+                                          StageV stage_v,
+                                          float (&o)[HD / 8][4], int lane) {
+  constexpr int LD = HD + 8, DT = HD / 8;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  float s[8][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int dt = 0; dt < DT; ++dt)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = j0 + nt * 8 + (lane & 3) * 2 + (i & 1);
-      s[nt][i] = ragged && key >= S ? -INFINITY : s[nt][i] * scale;
+    for (int i = 0; i < 4; ++i) o[dt][i] = 0.f;
+  for (int j0 = 0; GTAX_PROBE_STOP > 0 && live && j0 < S;
+       j0 += kAttnKTile) {
+    attn_qk<HD>(s, qf, Ks, j0, lane);
+    finish(s, j0);
+    float t_a = -INFINITY, t_b = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      t_a = fmaxf(t_a, fmaxf(s[nt][0], s[nt][1]));
+      t_b = fmaxf(t_b, fmaxf(s[nt][2], s[nt][3]));
     }
+    const float n_a = fmaxf(m_a, quad_max(t_a));
+    const float n_b = fmaxf(m_b, quad_max(t_b));
+    l_a *= attn_exp<kExact>(m_a - n_a);
+    l_b *= attn_exp<kExact>(m_b - n_b);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      l_a += attn_exp<kExact>(s[nt][0] - n_a) +
+             attn_exp<kExact>(s[nt][1] - n_a);
+      l_b += attn_exp<kExact>(s[nt][2] - n_b) +
+             attn_exp<kExact>(s[nt][3] - n_b);
+    }
+    m_a = n_a;
+    m_b = n_b;
+  }
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  if (GTAX_PROBE_STOP < 2) {
+    o[0][0] = l_a;
+    o[0][2] = l_b;
+    return;
+  }
+  // one reciprocal a row
+  const float r_a = __frcp_rn(l_a), r_b = __frcp_rn(l_b);
+  auto prob = [&](float x, float m, float l, float r) {
+    return kExact ? div_rn_by(expf(x - m), l, r) : ex2(x - m) * r;
+  };
+
+  __syncthreads();  // every warp has its Q fragments: Vs overlays them
+  stage_v(Vs, 0);
+  for (int j0 = 0; j0 < S; j0 += kAttnKTile) {
+    const int t = j0 / kAttnKTile;
+    bf16* Vt = Vs + (size_t)(t & 1) * kAttnKTile * LD;
+    cp_async_wait<0>();  // this thread's copies of tile t (if it made any)
+    __syncthreads();     // tile t is in; every warp is done with tile t - 1
+    if (j0 + kAttnKTile < S)  // the next tile, into tile t - 1's half
+      stage_v(Vs + (size_t)((t + 1) & 1) * kAttnKTile * LD, j0 + kAttnKTile);
+    if (!live) continue;
+    attn_qk<HD>(s, qf, Ks, j0, lane);
+    finish(s, j0);
+#pragma unroll
+    for (int kc = 0; kc < kAttnKTile / 16; ++kc) {
+      // the A fragment of P for keys 16 kc ..: score tiles 2 kc, 2 kc + 1
+      const uint32_t pf[4] = {
+          pack_bf16(prob(s[2 * kc][0], m_a, l_a, r_a),
+                    prob(s[2 * kc][1], m_a, l_a, r_a)),
+          pack_bf16(prob(s[2 * kc][2], m_b, l_b, r_b),
+                    prob(s[2 * kc][3], m_b, l_b, r_b)),
+          pack_bf16(prob(s[2 * kc + 1][0], m_a, l_a, r_a),
+                    prob(s[2 * kc + 1][1], m_a, l_a, r_a)),
+          pack_bf16(prob(s[2 * kc + 1][2], m_b, l_b, r_b),
+                    prob(s[2 * kc + 1][3], m_b, l_b, r_b))};
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {  // two n8 tiles of V a load
+        uint32_t b[4];
+        const int key = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        ldsm_x4_t(b, Vt + (size_t)key * LD + dp * 16 + (lane >> 4) * 8);
+        mma16816(o[2 * dp], pf, b[0], b[1]);
+        mma16816(o[2 * dp + 1], pf, b[2], b[3]);
+      }
+    }
+  }
 }
 
 // Query tile qt (rows qt * kAttnQTile ..), head h, frame n.
@@ -225,7 +343,6 @@ __device__ __forceinline__ void attn_frame_unit(
   const int keys = (S + kAttnKTile - 1) / kAttnKTile * kAttnKTile;
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Qs = Ks + (size_t)keys * LD;  // the Q tile, then each V tile
-  bf16* Vs = Qs;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = qt * kAttnQTile;
@@ -250,72 +367,23 @@ __device__ __forceinline__ void attn_frame_unit(
     ldsm_x4(qf[kc], Qs + (size_t)(warp * 16 + (lane & 15)) * LD + kc * 16 +
                         (lane >> 4) * 8);
 
-  // pass 1: each row's max and sum of exponentials; this thread holds
-  // rows g and g + 8 of the warp's 16 (g = lane / 4)
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-  float s[8][4];
-  for (int j0 = 0; j0 < S; j0 += kAttnKTile) {
-    attn_scores<HD>(s, qf, Ks, j0, S, scale, lane);
-    float t_a = -INFINITY, t_b = -INFINITY;
+  auto finish = [&](float (&s)[8][4], int j0) {
+    const bool ragged = j0 + 64 > S;  // only the last tile has masked keys
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      t_a = fmaxf(t_a, fmaxf(s[nt][0], s[nt][1]));
-      t_b = fmaxf(t_b, fmaxf(s[nt][2], s[nt][3]));
-    }
-    const float n_a = fmaxf(m_a, quad_max(t_a));
-    const float n_b = fmaxf(m_b, quad_max(t_b));
-    l_a *= ex2(m_a - n_a);
-    l_b *= ex2(m_b - n_b);
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      l_a += ex2(s[nt][0] - n_a) + ex2(s[nt][1] - n_a);
-      l_b += ex2(s[nt][2] - n_b) + ex2(s[nt][3] - n_b);
-    }
-    m_a = n_a;
-    m_b = n_b;
-  }
-  // p = e / l as e * (1 / l): one division a row
-  const float r_a = 1.0f / quad_sum(l_a), r_b = 1.0f / quad_sum(l_b);
-
-  // pass 2: P = bf16(exp(s - m) / l), O += P V over 64-key V tiles
-  float o[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[dt][i] = 0.f;
-  // V tiles alternate between the two halves of the Q tile's region: the
-  // barrier after staging tile t also tells that every warp is done with
-  // tile t - 1, whose half tile t + 1 reuses
-  __syncthreads();  // every warp has its Q fragments
-  for (int j0 = 0; j0 < S; j0 += kAttnKTile) {
-    bf16* Vt = Vs + (size_t)((j0 / kAttnKTile) & 1) * kAttnKTile * LD;
-    stage_rows<HD>(Vt, qkv, qkv_f32, row0, D3,
-                   2 * (size_t)D + hc, j0, kAttnKTile, S, nullptr, 0,
-                   qt == 0 ? v_out : nullptr, D, hc);
-    __syncthreads();
-    attn_scores<HD>(s, qf, Ks, j0, S, scale, lane);
-#pragma unroll
-    for (int kc = 0; kc < kAttnKTile / 16; ++kc) {
-      // the A fragment of P for keys 16 kc ..: score tiles 2 kc, 2 kc + 1
-      const uint32_t pf[4] = {
-          pack_bf16(ex2(s[2 * kc][0] - m_a) * r_a,
-                    ex2(s[2 * kc][1] - m_a) * r_a),
-          pack_bf16(ex2(s[2 * kc][2] - m_b) * r_b,
-                    ex2(s[2 * kc][3] - m_b) * r_b),
-          pack_bf16(ex2(s[2 * kc + 1][0] - m_a) * r_a,
-                    ex2(s[2 * kc + 1][1] - m_a) * r_a),
-          pack_bf16(ex2(s[2 * kc + 1][2] - m_b) * r_b,
-                    ex2(s[2 * kc + 1][3] - m_b) * r_b)};
-#pragma unroll
-      for (int dp = 0; dp < DT / 2; ++dp) {  // two n8 tiles of V a load
-        uint32_t b[4];
-        const int key = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldsm_x4_t(b, Vt + (size_t)key * LD + dp * 16 + (lane >> 4) * 8);
-        mma16816(o[2 * dp], pf, b[0], b[1]);
-        mma16816(o[2 * dp + 1], pf, b[2], b[3]);
+      for (int i = 0; i < 4; ++i) {
+        const int key = j0 + nt * 8 + (lane & 3) * 2 + (i & 1);
+        s[nt][i] = ragged && key >= S ? -INFINITY : s[nt][i] * scale;
       }
-    }
-  }
+  };
+  auto stage_v = [&](bf16* Vt, int j0) {
+    stage_rows<HD>(Vt, qkv, qkv_f32, row0, D3, 2 * (size_t)D + hc, j0,
+                   kAttnKTile, S, nullptr, 0, qt == 0 ? v_out : nullptr, D,
+                   hc);
+  };
+  float o[DT][4];
+  attn_rows<HD, false>(qf, Ks, Qs, S, true, finish, stage_v, o, lane);
 
   const int ra = q0 + warp * 16 + (lane >> 2), rb = ra + 8;
 #pragma unroll

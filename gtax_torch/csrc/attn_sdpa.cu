@@ -13,31 +13,45 @@
 // (-1e30 where masked, never -inf, so a fully masked row averages V
 // uniformly as gtax's does); max-subtracted exp; e / sum(e) in fp32; the
 // probabilities cast to bf16 before PV; PV summed in fp32; a bf16 output.
-// Bound: operations at S = 576 (S^2 * d per head), bytes at S <= 144. As
-// attn_frame: each block stages its head's K and V in shared memory (K rows
-// padded by two elements so a warp's lanes, one key each, hit distinct
-// banks; 170 KB at S = 576) and eight warps stream up to 64 query rows
-// against them on the fp32 pipes. Later work: tensor-core QK^T and PV.
-#include "common.cuh"
+// Bound: bytes at the model's shapes (q, k, v and the output; S <= 576 and
+// d = 64 keep the S^2 d products under the bf16 ridge).
+// Two bodies behind one entry point; the caller picks by S alone
+// (gtax_torch/kernels/attention.py sdpa_tensor_cores):
+//  - tensor cores (attn_rows of attn_frame.cuh, kExact): each warp takes 16
+//    query rows, eight a block; QK^T and PV run as mma.sync m16n8k16 with
+//    ldmatrix operands; the head's K stays resident in shared memory and V
+//    streams in 64-key tiles, over two passes (max and sum, then p = bf16(e
+//    / l) and PV). The bias is read from global memory into each score
+//    fragment after the scale: each element is used by one thread once a
+//    pass, so staging it would copy it without reuse, and the (S, S) table
+//    (1.3 MB at S = 576) stays in L2 for the grid's N x h blocks;
+//  - warp rows, for short rows (S = 5 in the temporal attention, where a
+//    16-row tile would waste 11/16 of its work): K and V whole in shared
+//    memory (K rows padded by two elements so a warp's lanes, one key each,
+//    hit distinct banks) and one warp per query row on the fp32 pipes.
+#include "attn_frame.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kQTile = 64;
 
+// ---- warp rows
+
 template <int HD>
-size_t smem_bytes(int S) {
+size_t rows_smem(int S) {
   return (size_t)S * (HD + 2) * 2 + (size_t)S * HD * 2 + kWarps * HD * 4 +
          (size_t)kWarps * S * 4;
 }
 
 template <int HD>
 __global__ void __launch_bounds__(kWarps * 32)
-    attn_sdpa_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const float* __restrict__ bias, bf16* __restrict__ out,
-                     int S, int q_ld, int k_ld, int v_ld, int o_ld,
-                     float scale) {
+    attn_sdpa_rows_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const float* __restrict__ bias,
+                          bf16* __restrict__ out, int S, int q_ld, int k_ld,
+                          int v_ld, int o_ld, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int KS = HD + 2;
   bf16* Ks = reinterpret_cast<bf16*>(smem);
@@ -78,7 +92,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
     for (int c = 0; c < HD; ++c) qr[c] = qb[c];
 
-    const float* brow = bias + (size_t)r * S;
+    const float* brow = bias == nullptr ? nullptr : bias + (size_t)r * S;
     float mx = -INFINITY;
     for (int j = lane; j < S; j += 32) {
       const __nv_bfloat162* kr =
@@ -90,7 +104,8 @@ __global__ void __launch_bounds__(kWarps * 32)
         acc = fmaf(qr[2 * c2], kv.x, acc);
         acc = fmaf(qr[2 * c2 + 1], kv.y, acc);
       }
-      const float s = __fadd_rn(__fmul_rn(acc, scale), brow[j]);
+      const float sc = __fmul_rn(acc, scale);
+      const float s = brow == nullptr ? sc : __fadd_rn(sc, brow[j]);
       pb[j] = s;
       mx = fmaxf(mx, s);
     }
@@ -120,20 +135,126 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// ---- tensor cores
+
+// Rows p0 .. p0 + n - 1 of one head (columns hc ..) of q, k or v, token
+// stride ld, into dst (row stride HD + 8), rows past S zero-filled: 16
+// bytes a cp.async.
+template <int HD>
+__device__ __forceinline__ void stage_plain(bf16* dst, const bf16* src,
+                                            int ld, int p0, int n, int S) {
+  constexpr int CH = HD / 8, LD = HD + 8;
+  for (int idx = threadIdx.x; idx < n * CH; idx += kAttnWarps * 32) {
+    const int r = idx / CH, c = (idx % CH) * 8, p = p0 + r;
+    cp_async16(dst + (size_t)r * LD + c,
+               src + (size_t)(p < S ? p : S - 1) * ld + c, p < S ? 16 : 0);
+  }
+  cp_async_commit();
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kAttnWarps * 32, 2)
+    attn_sdpa_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const float* __restrict__ bias,
+                         bf16* __restrict__ out, int S, int q_ld, int k_ld,
+                         int v_ld, int o_ld, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int LD = HD + 8, KC = HD / 16, DT = HD / 8;
+  const int keys = (S + kAttnKTile - 1) / kAttnKTile * kAttnKTile;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Qs = Ks + (size_t)keys * LD;  // the Q tile, then each V tile
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.x * kAttnQTile;
+  const size_t hc = (size_t)blockIdx.y * HD;  // the head's first column
+  const size_t n = blockIdx.z;
+  const bf16* qn = q + n * S * q_ld + hc;
+  const bf16* kn = k + n * S * k_ld + hc;
+  const bf16* vn = v + n * S * v_ld + hc;
+
+  stage_plain<HD>(Qs, qn, q_ld, q0, kAttnQTile, S);
+  stage_plain<HD>(Ks, kn, k_ld, 0, keys, S);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int rw = q0 + warp * 16;  // the warp's first row
+  uint32_t qf[KC][4];
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+    ldsm_x4(qf[kc], Qs + (size_t)(warp * 16 + (lane & 15)) * LD + kc * 16 +
+                        (lane >> 4) * 8);
+
+  // this thread's rows of the score tiles (rows past S read bias row S - 1
+  // and are not stored; keys past S read key S - 1 and score -inf): every
+  // load in bounds, none behind a branch, so a tile's 32 issue together
+  const int ra = rw + (lane >> 2), rb = ra + 8;
+  const float* ba = bias + (size_t)min(ra, S - 1) * S;
+  const float* bb = bias + (size_t)min(rb, S - 1) * S;
+  auto finish = [&](float (&s)[8][4], int j0) {
+    if (bias == nullptr) {  // a zero bias: the sum would add +0
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = j0 + nt * 8 + (lane & 3) * 2 + (i & 1);
+          s[nt][i] = key < S ? __fmul_rn(s[nt][i], scale) : -INFINITY;
+        }
+      return;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = j0 + nt * 8 + (lane & 3) * 2 + (i & 1);
+        const float b = __ldg((i < 2 ? ba : bb) + min(key, S - 1));
+        s[nt][i] = key < S ? __fadd_rn(__fmul_rn(s[nt][i], scale), b)
+                           : -INFINITY;
+      }
+  };
+  auto stage_v = [&](bf16* Vt, int j0) {
+    stage_plain<HD>(Vt, vn, v_ld, j0, kAttnKTile, S);
+  };
+  float o[DT][4];
+  attn_rows<HD, true>(qf, Ks, Qs, S, rw < S, finish, stage_v, o, lane);
+
+  bf16* on = out + n * S * o_ld + hc;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const int c = dt * 8 + (lane & 3) * 2;
+    if (ra < S) store_pair(on, (size_t)ra * o_ld + c, o[dt][0], o[dt][1]);
+    if (rb < S) store_pair(on, (size_t)rb * o_ld + c, o[dt][2], o[dt][3]);
+  }
+}
+
+template <int HD>
+int launch_mma(const bf16* q, const bf16* k, const bf16* v,
+               const float* bias, bf16* out, int N, int S, int H, int q_ld,
+               int k_ld, int v_ld, int o_ld, float scale, cudaStream_t st) {
+  static size_t opted = 48 * 1024;
+  const size_t smem = attn_frame_smem<HD>(S);  // K, then a Q/V region
+  const cudaError_t e = opt_in_smem(attn_sdpa_mma_kernel<HD>, smem, opted);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + kAttnQTile - 1) / kAttnQTile, H, N);
+  attn_sdpa_mma_kernel<HD><<<grid, kAttnWarps * 32, smem, st>>>(
+      q, k, v, bias, out, S, q_ld, k_ld, v_ld, o_ld, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
 int launch(const bf16* q, const bf16* k, const bf16* v, const float* bias,
            bf16* out, int N, int S, int H, int q_ld, int k_ld, int v_ld,
-           int o_ld, float scale, cudaStream_t st) {
-  const size_t smem = smem_bytes<HD>(S);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attn_sdpa_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+           int o_ld, int tensor_cores, float scale, cudaStream_t st) {
+  if (tensor_cores)
+    return launch_mma<HD>(q, k, v, bias, out, N, S, H, q_ld, k_ld, v_ld,
+                          o_ld, scale, st);
+  static size_t opted = 48 * 1024;
+  const size_t smem = rows_smem<HD>(S);
+  const cudaError_t e = opt_in_smem(attn_sdpa_rows_kernel<HD>, smem, opted);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + kQTile - 1) / kQTile, H, N);
-  attn_sdpa_kernel<HD><<<grid, kWarps * 32, smem, st>>>(
+  attn_sdpa_rows_kernel<HD><<<grid, kWarps * 32, smem, st>>>(
       q, k, v, bias, out, S, q_ld, k_ld, v_ld, o_ld, scale);
   return (int)cudaGetLastError();
 }
@@ -142,16 +263,24 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const float* bias,
 
 // q, k, v: bf16, N rows of S tokens whose token stride is q_ld / k_ld /
 // v_ld elements (row stride S * ld), head h in columns [h * hd, (h + 1) *
-// hd); bias: (S, S) fp32 additive; out: (N, S, o_ld) bf16, o_ld >= H * hd;
-// scale: the score scale d^-1/2 as the caller rounds it to fp32.
+// hd); bias: (S, S) fp32 additive, or null where it would be all zeros (no
+// mask, not causal: adding +0 changes no score's softmax, so the loads and
+// adds are skipped); out: (N, S, o_ld) bf16, o_ld >= H * hd;
+// tensor_cores: 1 for the mma.sync body, 0 for warp rows; scale: the
+// score scale d^-1/2 as the caller rounds it to fp32. The tensor-core body
+// reads q, k, v 16 bytes at a time: their lds are multiples of 8 and their
+// pointers 16-byte aligned.
 GTAX_ENTRY gtax_attn_sdpa(const void* q, const void* k, const void* v,
                           const void* bias, void* out, int N, int S,
                           int num_heads, int hd, int q_ld, int k_ld, int v_ld,
-                          int o_ld, float scale, void* stream) {
-  if (N <= 0 || S <= 0 || num_heads <= 0 || bias == nullptr ||
+                          int o_ld, int tensor_cores, float scale,
+                          void* stream) {
+  const int align = tensor_cores ? 8 : 2;
+  if (N <= 0 || S <= 0 || num_heads <= 0 ||
       q_ld < num_heads * hd || k_ld < num_heads * hd ||
-      v_ld < num_heads * hd || o_ld < num_heads * hd || q_ld % 2 ||
-      k_ld % 2 || v_ld % 2 || o_ld % 2)
+      v_ld < num_heads * hd || o_ld < num_heads * hd || q_ld % align ||
+      k_ld % align || v_ld % align || o_ld % 2 ||
+      (tensor_cores && (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16)))
     return (int)cudaErrorInvalidValue;
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
@@ -162,10 +291,10 @@ GTAX_ENTRY gtax_attn_sdpa(const void* q, const void* k, const void* v,
   switch (hd) {
     case 32:
       return launch<32>(qp, kp, vp, b, o, N, S, num_heads, q_ld, k_ld, v_ld,
-                        o_ld, scale, st);
+                        o_ld, tensor_cores, scale, st);
     case 64:
       return launch<64>(qp, kp, vp, b, o, N, S, num_heads, q_ld, k_ld, v_ld,
-                        o_ld, scale, st);
+                        o_ld, tensor_cores, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

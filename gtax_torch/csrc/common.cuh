@@ -94,12 +94,54 @@ __device__ __forceinline__ float2 rope_pair(float2 x, const float* freqs) {
 }
 
 // Adjoint of rope_pair (gtax/nn/branches.py _rope_transpose): u * cos -
-// rotate_half(u * sin), i.e. (u[c] c0 + u[c+1] s1, u[c+1] c1 - u[c] s0).
+// rotate_half(u * sin), i.e. (u[c] c0 + u[c+1] s1, u[c+1] c1 - u[c] s0),
+// each product and sum rounded as the plain version's.
 __device__ __forceinline__ float2 rope_pair_t(float2 u, const float* freqs) {
   float s0, c0, s1, c1;
   sincosf(freqs[0], &s0, &c0);
-  sincosf(freqs[1], &s1, &c1);
-  return make_float2(u.x * c0 + u.y * s1, u.y * c1 - u.x * s0);
+  if (freqs[1] == freqs[0]) {  // the repo's tables repeat each angle
+    s1 = s0;
+    c1 = c0;
+  } else {
+    sincosf(freqs[1], &s1, &c1);
+  }
+  return make_float2(__fadd_rn(__fmul_rn(u.x, c0), __fmul_rn(u.y, s1)),
+                     __fsub_rn(__fmul_rn(u.y, c1), __fmul_rn(u.x, s0)));
 }
+
+// rope_pair_t from fp32 cos and sin tables (gtax's own form: cos/sin of the
+// rotary table, as the plain version computes them), entry idx and idx + 1.
+__device__ __forceinline__ float2 rope_pair_t_tab(float2 u, const float* cosb,
+                                                  const float* sinb,
+                                                  size_t idx) {
+  const float2 c = *reinterpret_cast<const float2*>(cosb + idx);
+  const float2 s = *reinterpret_cast<const float2*>(sinb + idx);
+  return make_float2(__fadd_rn(__fmul_rn(u.x, c.x), __fmul_rn(u.y, s.y)),
+                     __fsub_rn(__fmul_rn(u.y, c.y), __fmul_rn(u.x, s.x)));
+}
+
+// The most dynamic shared memory a block may opt into on sm_90 (227 KB).
+constexpr size_t kSmemMax = 232448;
+
+// A kernel's dynamic shared memory above 48 KB, opted into once per larger
+// size (opted: the size the kernel already takes, per instantiation).
+template <class Kernel>
+cudaError_t opt_in_smem(Kernel kernel, size_t smem, size_t& opted) {
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  if (smem <= opted) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) opted = smem;
+  return e;
+}
+
+// A probe build of the attention kernels (gtax_torch/kernels/build.py
+// probe_library, for gtax_torch/tools/attn_sweep.py) defines this to stop
+// them early and time their phases: 0 after staging, 1 after attn_sdpa's
+// first pass over the keys or attn_frame_bwd's phase A. The library is
+// built without it and runs them whole.
+#ifndef GTAX_PROBE_STOP
+#define GTAX_PROBE_STOP 2
+#endif
 
 #define GTAX_ENTRY extern "C" __attribute__((visibility("default"))) int

@@ -17,7 +17,9 @@ before any kernel runs.
 The tensor's device picks the path: a CPU tensor gets the plain version
 (`sdpa_plain`, `mha_token_major_plain`, any float dtype), a CUDA tensor gets
 the sm_90a kernel of gtax_torch/csrc/attn_sdpa.cu (bf16 only) or an
-exception. Each wrapper counts its kernel launches in `launches`.
+exception: its tensor-core body for rows of SDPA_TENSOR_CORES_MIN_S tokens
+or more, its warp-per-row body for shorter ones (`sdpa_tensor_cores`).
+Each wrapper counts its kernel launches in `launches`.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import functools
 import torch
 
 from gtax_torch.kernels import build
-from gtax_torch.kernels.block import _desc, _need, _stream
+from gtax_torch.kernels.block import _desc, _need, _ptr, _stream
 
 NEG_BIAS = -1e30
 
@@ -107,13 +109,28 @@ def mha_token_major_plain(q, k, v, bias, num_heads):
     return out.transpose(1, 2).reshape(N, S, HD)
 
 
-def _token_rows(t, S, width):
+# attn_sdpa runs rows of at least this many tokens on its tensor-core body
+# (16 query rows a warp, mma.sync), shorter ones on its warp-per-row body;
+# PERF.md has the sweep of S in both layouts that set it
+SDPA_TENSOR_CORES_MIN_S = 32
+
+
+def sdpa_tensor_cores(S: int) -> bool:
+    """Which of attn_sdpa's two bodies takes rows of S tokens: the
+    tensor-core one from SDPA_TENSOR_CORES_MIN_S up. The rule of the
+    kernel's dispatch, decided by S alone and passed to the C entry."""
+    return S >= SDPA_TENSOR_CORES_MIN_S
+
+
+def _token_rows(t, S, width, align):
     """t (..., S, width) as rows of S tokens with token stride ld and row
-    stride S * ld, as the kernel reads them; copied only when its layout is
-    not that (a q/k/v view of a fused qkv row is read in place)."""
+    stride S * ld, as the kernel reads them: ld a multiple of `align`
+    elements and the pointer of 2 * align bytes (the tensor-core body reads
+    16 bytes at a time); copied only when its layout is not that (a q/k/v
+    view of a fused qkv row is read in place)."""
     ld = t.stride(-2)
-    ok = (t.stride(-1) == 1 and ld >= width and ld % 2 == 0
-          and t.data_ptr() % 4 == 0)
+    ok = (t.stride(-1) == 1 and ld >= width and ld % align == 0
+          and t.data_ptr() % (2 * align) == 0)
     expect = S * ld
     for size, stride in reversed(list(zip(t.shape[:-2], t.stride()[:-2]))):
         ok = ok and (size == 1 or stride == expect)
@@ -121,9 +138,11 @@ def _token_rows(t, S, width):
     return (t, ld) if ok else (t.contiguous(), width)
 
 
-def _launch(q, k, v, bias, S, num_heads, d):
+def _launch(q, k, v, mask, causal, S, num_heads, d):
     """out (N, S, num_heads * d) bf16 of the kernel over the rows of q/k/v,
-    which share their leading dims."""
+    which share their leading dims. With no mask and no causality the bias
+    is all zeros, and the kernel is given none (its scores then add
+    nothing, as adding +0 would)."""
     width = num_heads * d
     for name, t in (("q", q), ("k", k), ("v", v)):
         _need(t.is_cuda and t.dtype == torch.bfloat16,
@@ -133,13 +152,17 @@ def _launch(q, k, v, bias, S, num_heads, d):
           lambda: f"q/k/v shapes differ: {tuple(q.shape)}, "
                   f"{tuple(k.shape)}, {tuple(v.shape)}")
     _need(d in (32, 64), lambda: f"head dim {d}: the kernel takes 32 or 64")
-    (q, q_ld), (k, k_ld), (v, v_ld) = (_token_rows(t, S, width)
+    tc = sdpa_tensor_cores(S)
+    (q, q_ld), (k, k_ld), (v, v_ld) = (_token_rows(t, S, width, 8 if tc
+                                                   else 2)
                                        for t in (q, k, v))
     N = q.numel() // (S * width)
+    bias = (None if mask is None and not causal
+            else build_bias(S, mask, causal, q.device))
     out = torch.empty((N, S, width), dtype=torch.bfloat16, device=q.device)
     build.launch("gtax_attn_sdpa", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 bias.data_ptr(), out.data_ptr(), N, S, num_heads, d, q_ld,
-                 k_ld, v_ld, width, 1.0 / d**0.5, _stream(q))
+                 _ptr(bias), out.data_ptr(), N, S, num_heads, d, q_ld,
+                 k_ld, v_ld, width, int(tc), 1.0 / d**0.5, _stream(q))
     return out
 
 
@@ -151,17 +174,17 @@ def fused_sdpa(q, k, v, mask=None, causal=False):
 
     Replaces gtax/kernels/attention.py fused_sdpa (:130; _fused_sdpa_flat,
     pallas_call at :90, body _attn_kernel :60). On the card: one launch of
-    attn_sdpa, a block per (query tile of 64, row). Bound: operations at
-    S = 576, bytes below."""
+    attn_sdpa, a block per (query tile, row): 128 rows on the tensor cores,
+    or 64 on the warp-per-row body for short rows. Bound: bytes."""
     S, d = q.shape[-2], q.shape[-1]
     if _unsupported(mask, S):
         return None
     lead = q.shape[:-2]
-    bias = build_bias(S, mask, causal, q.device)
     if q.device.type == "cpu":
         flat = (t.reshape(-1, S, d) for t in (q, k, v))
-        return sdpa_plain(*flat, bias).reshape(*lead, S, d)
-    out = _launch(q, k, v, bias, S, 1, d)
+        return sdpa_plain(*flat, build_bias(S, mask, causal)).reshape(
+            *lead, S, d)
+    out = _launch(q, k, v, mask, causal, S, 1, d)
     fused_sdpa.launches += 1
     return out.reshape(*lead, S, d)
 
@@ -177,21 +200,20 @@ def fused_mha_token_major(q, k, v, num_heads, mask=None, causal=False):
 
     Replaces gtax/kernels/attention.py fused_mha_token_major (:220;
     _mha_token_major_flat, pallas_call at :198, body _mha_kernel :154). On
-    the card: one launch of attn_sdpa, a block per (query tile of 64, head,
-    row), heads read as d-wide column slices in place. Bound: operations at
-    S = 576 (the VAE), bytes at S = 144 and 5."""
+    the card: one launch of attn_sdpa, a block per (query tile, head, row),
+    heads read as d-wide column slices in place; the tensor-core body at
+    S = 144 and 576, the warp-per-row body at S = 5. Bound: bytes."""
     S, HD = q.shape[-2], q.shape[-1]
     if _unsupported(mask, S):
         return None
     lead = q.shape[:-2]
-    bias = build_bias(S, mask, causal, q.device)
     if q.device.type == "cpu":
         flat = (t.reshape(-1, S, HD) for t in (q, k, v))
-        return mha_token_major_plain(*flat, bias, num_heads).reshape(
-            *lead, S, HD)
+        return mha_token_major_plain(*flat, build_bias(S, mask, causal),
+                                     num_heads).reshape(*lead, S, HD)
     _need(HD % num_heads == 0,
           lambda: f"width {HD} is not a multiple of {num_heads} heads")
-    out = _launch(q, k, v, bias, S, num_heads, HD // num_heads)
+    out = _launch(q, k, v, mask, causal, S, num_heads, HD // num_heads)
     fused_mha_token_major.launches += 1
     return out.reshape(*lead, S, HD)
 

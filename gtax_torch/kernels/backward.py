@@ -62,9 +62,13 @@ from gtax_torch.kernels.block import (
 # and at most this many chunks
 WGRAD_MIN_ROWS = 512
 WGRAD_MAX_SPLITS = 8
-# a split count is good enough once its blocks fill this share of the
-# card's last wave
-WGRAD_WAVE_FILL = 0.9
+# wgrad_plan's cost model of one split, fitted to the H100 SXM's times of
+# `python -m gtax_torch.tools.gemm_sweep --wgrad-splits` at 1-8 chunks:
+# the bf16 rate of one block on its SM, the memory rate the fp32 partials
+# and their reduction move at, and the reduce_rows launch
+WGRAD_BLOCK_FLOPS = 6.2e12
+WGRAD_PARTIAL_BYTES_PER_S = 2.0e12
+WGRAD_REDUCE_S = 3e-6
 
 
 # ----------------------------------------------------------- plain parts
@@ -210,26 +214,40 @@ def mlp_branch_bwd_plain(x, shift, scale, g, w1, w2, h1, y, ct):
 
 # -------------------------------------------- launch arithmetic (plain)
 
-def wgrad_plan(M, Ka, N, sms, tile_m, tile_n, k_step):
-    """(splits, chunk) of the weight-gradient GEMM over M token rows: the
-    fewest row chunks whose (Ka/tile_m) x (N/tile_n) x splits blocks fill
-    WGRAD_WAVE_FILL of the last of the waves on `sms` SMs (else the best
-    fill found), each chunk at least WGRAD_MIN_ROWS rows and a multiple of
-    the kernel's k-step; the chunks cover rows [0, M) once."""
+def wgrad_cost(M, Ka, N, sms, tile_m, tile_n, k_step, splits):
+    """(seconds, splits, chunk) of the weight-gradient GEMM over M token
+    rows cut into `splits` row chunks (each a multiple of the k-step, so the
+    last may be short and the count may come out lower): the waves of
+    (Ka/tile_m) x (N/tile_n) x splits blocks on `sms` SMs, each block
+    summing a chunk of rows at WGRAD_BLOCK_FLOPS; the fp32 partials written,
+    read and reduced (2 splits + 1 passes over Ka x N, one with no split)
+    at WGRAD_PARTIAL_BYTES_PER_S; and the reduce_rows launch."""
+    chunk = -(-M // splits)
+    chunk = -(-chunk // k_step) * k_step
+    splits = -(-M // chunk)
     tiles = -(-Ka // tile_m) * -(-N // tile_n)
-    best, best_fill = 1, 0.0
+    waves = -(-tiles * splits // sms)
+    seconds = waves * chunk * tile_m * tile_n * 2 / WGRAD_BLOCK_FLOPS
+    passes = 1 if splits == 1 else 2 * splits + 1
+    seconds += passes * Ka * N * 4 / WGRAD_PARTIAL_BYTES_PER_S
+    if splits > 1:
+        seconds += WGRAD_REDUCE_S
+    return seconds, splits, chunk
+
+
+def wgrad_plan(M, Ka, N, sms, tile_m, tile_n, k_step):
+    """(splits, chunk) of the weight-gradient GEMM over M token rows: of 1
+    to WGRAD_MAX_SPLITS row chunks of at least WGRAD_MIN_ROWS rows, the
+    count wgrad_cost finds fastest (the fewer chunks on a tie); the chunks
+    cover rows [0, M) once."""
+    best = None
     for s in range(1, WGRAD_MAX_SPLITS + 1):
         if s > 1 and M < s * WGRAD_MIN_ROWS:
             break
-        blocks = tiles * s
-        fill = blocks / (-(-blocks // sms) * sms)
-        if fill > best_fill:
-            best, best_fill = s, fill
-        if fill >= WGRAD_WAVE_FILL:
-            break
-    chunk = -(-M // best)
-    chunk = -(-chunk // k_step) * k_step
-    return -(-M // chunk), chunk
+        cost = wgrad_cost(M, Ka, N, sms, tile_m, tile_n, k_step, s)
+        if best is None or cost[0] < best[0]:
+            best = cost
+    return best[1], best[2]
 
 
 def dgelu_partial_rows(M, tile_m):
@@ -310,6 +328,26 @@ def ln_mod_bwd(x, dmod, scale, ct, S):
     return dx, dsh, dsc
 
 
+def rope_tables(freqs):
+    """fp32 cos and sin of a rotary table, the rope adjoint's factors
+    (gtax's kernels take these tables; rope_transpose32 forms the same)."""
+    f = freqs.float()
+    return torch.cos(f).contiguous(), torch.sin(f).contiguous()
+
+
+def launch_attn_frame_bwd(q, k, v, dout, cos, sin, dqkv, ao, n_frames, S,
+                          D, num_heads, rot):
+    """attn_frame_bwd over n_frames frames of S tokens: q/k/v/dout and ao
+    (n_frames * S, D) bf16, dqkv (n_frames * S, 3D) bf16, cos/sin (S, rot)
+    fp32 (rope_tables), the rope adjoint on the first rot dims of each
+    head. The kernel takes frames up to its shared memory's limit (176
+    tokens at head dim 64, 192 at 32) and reports an error past it."""
+    build.launch("gtax_attn_frame_bwd", q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), dout.data_ptr(), cos.data_ptr(),
+                 sin.data_ptr(), dqkv.data_ptr(), ao.data_ptr(), n_frames, S,
+                 D, num_heads, rot, _stream(q))
+
+
 def _check_bwd(x, shift, scale, g, residuals, ct):
     N, S, D = _check_branch(x, shift, scale, g)
     _need(D in (64, 128, 256, 512, 1024),
@@ -350,15 +388,18 @@ def _attn_branch_bwd_cuda(x, shift, scale, g, qkv_w, out_w, y, ct,
 # ------------------------------------------------------------- wrappers
 
 def fused_spatial_branch_bwd(x, shift, scale, g, qkv_w, out_w, rope_freqs,
-                             qr, kr, vr, y, ct, num_heads):
+                             qr, kr, vr, y, ct, num_heads, rope_cs=None):
     """Whole spatial-attention-branch backward. x/ct/y/qr/kr/vr: (N, S, D);
     shift/scale/g: (N, D); qkv_w: (D, 3D); out_w: (D, D); rope_freqs:
-    (S, head_dim). Returns (dx, dshift, dscale, dg, dW_qkv, dW_out, db_out).
+    (S, head_dim); rope_cs: rope_tables(rope_freqs) where the caller formed
+    them once for many calls (the DiT, once a forward), else formed here.
+    Returns (dx, dshift, dscale, dg, dW_qkv, dW_out, db_out).
 
     Replaces gtax/kernels/backward.py fused_spatial_branch_bwd (pallas_call
     at :386, body _spatial_bwd_kernel :208). On the card: gate_bwd,
     reduce_rows (db_out), gemm dy @ W_out^T, attn_frame_bwd (recomputes P
-    and the attention output, writes dq/dk/dv), gemm_wgrad dW_out, ln_mod,
+    and the attention output on the tensor cores, writes dq/dk/dv; the
+    rope adjoint from the table's cos and sin), gemm_wgrad dW_out, ln_mod,
     gemm_wgrad dW_qkv, gemm dqkv @ W_qkv^T, ln_mod_bwd: 9-11 launches.
     Bound: operations (four token-row GEMMs of the forward's size, plus the
     attention backward); see PERF.md for the measured time."""
@@ -370,12 +411,11 @@ def fused_spatial_branch_bwd(x, shift, scale, g, qkv_w, out_w, rope_freqs,
                                               ("vr", vr), ("y", y)), ct)
     d = block._check_heads(D, num_heads, (32, 64))
     block._check_freqs(rope_freqs, S, d)
+    cos, sin = rope_tables(rope_freqs) if rope_cs is None else rope_cs
 
     def attention(dao, dqkv, ao):
-        build.launch("gtax_attn_frame_bwd", qr.data_ptr(), kr.data_ptr(),
-                     vr.data_ptr(), dao.data_ptr(), rope_freqs.data_ptr(),
-                     dqkv.data_ptr(), ao.data_ptr(), N, S, D, num_heads, d,
-                     _stream(x))
+        launch_attn_frame_bwd(qr, kr, vr, dao, cos, sin, dqkv, ao, N, S, D,
+                              num_heads, d)
 
     out = _attn_branch_bwd_cuda(x, shift, scale, g, qkv_w, out_w, y, ct,
                                 attention)

@@ -8,7 +8,9 @@ lands in `gtax_torch/_build/<hash>/`, keyed by a hash of the sources and the
 flags, so an unchanged checkout builds once and a changed source rebuilds.
 The build runs at first use, inside the first wrapper call that launches a
 kernel (or `library()` called directly); a missing nvcc or a failed build
-raises.
+raises. `probe_library` builds the two attention sources alone with
+GTAX_PROBE_STOP defined, a copy whose kernels stop early so that
+gtax_torch/tools/attn_sweep.py can time their phases; nothing else loads it.
 
 C entry points take pointers and the stream as `c_void_p` and sizes as
 `c_int`, and return `cudaGetLastError()`; `launch` raises on a nonzero code.
@@ -68,9 +70,9 @@ SIGNATURES = {
     # q_off, S, D, num_heads, valid_mask, stream
     "gtax_attn_temporal": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
                            _I, _I, _I, _I, _P),
-    # q, k, v, dout, freqs, dqkv, ao, n_frames, S, D, num_heads, rot, stream
-    "gtax_attn_frame_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _P),
+    # q, k, v, dout, cos, sin, dqkv, ao, n_frames, S, D, num_heads, rot,
+    # stream
+    "gtax_attn_frame_bwd": (*(_P,) * 8, *(_I,) * 5, _P),
     # q, k, v, dout, freqs, dqkv, ao, B, T, S, D, num_heads, valid_mask,
     # stream
     "gtax_attn_temporal_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -86,19 +88,23 @@ SIGNATURES = {
     # temporal, hd, S, D -> the cooperative grid's blocks, or -error
     "gtax_pair_q_blocks": (_I, _I, _I, _I),
     # q, k, v, bias, out, N, S, num_heads, hd, q_ld, k_ld, v_ld, o_ld,
-    # scale, stream
-    "gtax_attn_sdpa": (*(_P,) * 5, *(_I,) * 8, _F, _P),
+    # tensor_cores, scale, stream
+    "gtax_attn_sdpa": (*(_P,) * 5, *(_I,) * 9, _F, _P),
 }
+# the sources of the probe copy, and the entry points it binds
+PROBE_SOURCES = ("attn_sdpa.cu", "attn_bwd.cu")
+PROBE_ENTRIES = ("gtax_attn_sdpa", "gtax_attn_frame_bwd")
 
 _lib = None
+_probes = {}
 
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -117,10 +123,13 @@ def _nvcc() -> str:
         "kernels cannot be built")
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu into the shared library unless the current
-    sources were built already; returns the library path."""
-    out = BUILD_DIR / _digest() / LIB_NAME
+def build(verbose: bool = False, defines=(), names=None) -> Path:
+    """Compile csrc/*.cu (or the sources `names`) into the shared library,
+    with the macros `defines` ("NAME=value"), unless the current sources
+    were built so already; returns the library path."""
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    srcs = sources() if names is None else [CSRC / n for n in names]
+    out = BUILD_DIR / _digest(flags) / LIB_NAME
     if out.exists():
         return out
     nvcc = _nvcc()
@@ -129,9 +138,9 @@ def build(verbose: bool = False) -> Path:
     try:
         extra = ("-Xptxas", "-v") if verbose else ()
         procs = []
-        for src in sources():
+        for src in srcs:
             obj = tmp / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
+            cmd = [nvcc, *flags, *extra, "-c", str(src), "-o", str(obj)]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -146,7 +155,7 @@ def build(verbose: bool = False) -> Path:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         lib = tmp / LIB_NAME
         link = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
+            [nvcc, *flags, "-shared", "-o", str(lib),
              *(str(obj) for _, obj, _ in procs)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode:
@@ -158,17 +167,32 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
+def _load(path: Path, names):
+    lib = ctypes.CDLL(str(path))
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library():
     """The loaded kernel library (built at first use)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = _load(build(), SIGNATURES)
     return _lib
+
+
+def probe_library(stop: int):
+    """The probe copy of attn_sdpa and attn_frame_bwd (built at first use,
+    with GTAX_PROBE_STOP=stop): their kernels stop after staging (0), or
+    after attn_sdpa's first pass over the keys and attn_frame_bwd's phase A
+    (1). Their outputs are not the attention's."""
+    if stop not in _probes:
+        _probes[stop] = _load(build(defines=(f"GTAX_PROBE_STOP={stop}",),
+                                    names=PROBE_SOURCES), PROBE_ENTRIES)
+    return _probes[stop]
 
 
 class GemmConsts(NamedTuple):
@@ -191,8 +215,9 @@ def gemm_consts() -> GemmConsts:
     return _consts
 
 
-def launch(name: str, *args) -> None:
-    """Call one C entry point; raise if it reports a CUDA error."""
-    rc = getattr(library(), name)(*args)
+def launch(name: str, *args, lib=None) -> None:
+    """Call one C entry point (of `lib`, else the library); raise if it
+    reports a CUDA error."""
+    rc = getattr(lib or library(), name)(*args)
     if rc:
         raise RuntimeError(f"{name}: CUDA error {rc}")

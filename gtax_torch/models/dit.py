@@ -53,7 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from gtax_torch.core import rope
-from gtax_torch.kernels import block, pair, quant
+from gtax_torch.kernels import backward, block, pair, quant
 from gtax_torch.nn import attention as attn
 from gtax_torch.nn import branches
 from gtax_torch.nn.layers import (
@@ -340,6 +340,11 @@ def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
     if mods is None:
         mods = dit_cond(params, cfg, t, external_cond, compute_dtype)
     spatial, temporal = _rope_tables(params, cfg, T)
+    # the spatial backward's cos and sin of its table, formed once for all
+    # the blocks (the kernel path's attn_frame_bwd reads them)
+    rope_cs = (backward.rope_tables(spatial)
+               if fused_attn and not plain_branches and spatial.is_cuda
+               and torch.is_grad_enabled() else None)
     grid = (B, T, cfg.grid_h, cfg.grid_w, D)
     spatial_grid = spatial.reshape(cfg.grid_h, cfg.grid_w, -1)
     h = _embed(params, cfg, x, compute_dtype)
@@ -352,7 +357,8 @@ def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
             q8, w = _attn_weights(ap)
             if half == "s" and (q8 or fused_attn):
                 fn = quant.fused_spatial_branch_q if q8 else fns[0]
-                h = fn(h, sh1, sc1, g1, *w, freqs, H)
+                kw = {} if q8 or rope_cs is None else {"rope_cs": rope_cs}
+                h = fn(h, sh1, sc1, g1, *w, freqs, H, **kw)
             elif half == "t" and (q8 or fused_attn):
                 fn = quant.fused_temporal_branch_q if q8 else fns[1]
                 h = fn(h, sh1, sc1, g1, *w, freqs, valid, H, T)

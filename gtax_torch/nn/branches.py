@@ -73,13 +73,13 @@ class SpatialBranch(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, shift, scale, g, qkv_w, out_w, out_b, rope_freqs,
-                num_heads):
+                num_heads, rope_cs):
         out, *res = block.fused_spatial_branch(
             x, shift, scale, g, qkv_w, out_w, out_b, rope_freqs, num_heads,
             emit_train=True)
         ctx.save_for_backward(x, shift, scale, g, qkv_w, out_w, out_b,
                               rope_freqs, *res)
-        ctx.num_heads = num_heads
+        ctx.num_heads, ctx.rope_cs = num_heads, rope_cs
         return out
 
     @staticmethod
@@ -88,9 +88,9 @@ class SpatialBranch(torch.autograd.Function):
             ctx.saved_tensors)
         dx, *grads = backward.fused_spatial_branch_bwd(
             x, shift, scale, g, qkv_w, out_w, freqs, *res,
-            ct.to(x.dtype).contiguous(), ctx.num_heads)
+            ct.to(x.dtype).contiguous(), ctx.num_heads, ctx.rope_cs)
         return (dx, *_as(grads, (shift, scale, g, qkv_w, out_w, out_b)),
-                None, None)
+                None, None, None)
 
 
 class TemporalBranch(torch.autograd.Function):
@@ -138,12 +138,14 @@ class MLPBranch(torch.autograd.Function):
 
 
 def trainable_spatial_branch(x, shift, scale, g, qkv_w, out_w, out_b,
-                             rope_freqs, num_heads):
+                             rope_freqs, num_heads, rope_cs=None):
     """The spatial-attention branch, differentiable when a gradient is
-    needed; the plain wrapper call otherwise."""
+    needed; the plain wrapper call otherwise. rope_cs: the backward's cos
+    and sin of rope_freqs (backward.rope_tables), where the caller formed
+    them once for its blocks."""
     if _needs_grad(x, shift, scale, g, qkv_w, out_w, out_b):
         return SpatialBranch.apply(x, shift, scale, g, qkv_w, out_w, out_b,
-                                   rope_freqs, num_heads)
+                                   rope_freqs, num_heads, rope_cs)
     return block.fused_spatial_branch(x, shift, scale, g, qkv_w, out_w,
                                       out_b, rope_freqs, num_heads)
 

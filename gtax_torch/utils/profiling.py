@@ -54,3 +54,14 @@ class MFUCounter:
 
     def mfu(self, step_seconds: float) -> float:
         return self.flops_per_step / (step_seconds * self.peak)
+
+
+def bf16_differences(got, ref) -> tuple[float, float]:
+    """How far a kernel's bf16 output is from its plain version's: the
+    share of elements whose bf16 values differ, and the largest difference
+    over the plain output's largest magnitude (the rounding-point figures
+    of PERF.md and the card tests)."""
+    a, b = got.float(), ref.float()
+    share = (a != b).float().mean().item()
+    top = b.abs().max().item()
+    return share, (a - b).abs().max().item() / max(top, 1e-30)

@@ -152,6 +152,63 @@ def test_cpu_wrappers_count_no_launch():
             kattn.fused_mha_token_major.launches) == before
 
 
+@pytest.mark.parametrize("S,tensor_cores", [
+    (1, False), (5, False), (8, False), (16, False), (31, False), (32, True),
+    (64, True), (100, True), (144, True), (576, True)])
+def test_sdpa_body_by_length(S, tensor_cores):
+    """attn_sdpa's dispatch by S alone, the rule the card runs (PERF.md's
+    sweep of S put the threshold at 32 tokens: the warp-row body is the
+    faster at 16 and below, the tensor cores from 32 up): the temporal rows
+    (S = 5) keep the warp-row body, the spatial (144) and VAE (576) rows
+    take the tensor cores."""
+    assert kattn.SDPA_TENSOR_CORES_MIN_S == 32
+    assert kattn.sdpa_tensor_cores(S) is tensor_cores
+
+
+def test_token_rows_per_body():
+    """A q/k/v column slice of a fused qkv row is read in place by both
+    bodies; a slice 4 bytes past a 16-byte boundary only by the warp-row
+    body (4-byte reads): the tensor-core body (16-byte reads) gets a dense
+    copy, as does a slice whose token stride is no multiple of 8."""
+    qkv = torch.zeros((2, 5, 3 * 64 + 8), dtype=torch.bfloat16)
+    assert qkv.data_ptr() % 16 == 0
+    q = qkv[..., 64:128]
+    for align in (2, 8):
+        t, ld = kattn._token_rows(q, 5, 64, align)
+        assert t is q and ld == 200
+    off = qkv[..., 2:66]
+    t, ld = kattn._token_rows(off, 5, 64, 2)
+    assert t is off and ld == 200
+    t, ld = kattn._token_rows(off, 5, 64, 8)
+    assert t is not off and ld == 64 and torch.equal(t, off)
+    odd = torch.zeros((2, 5, 3 * 64 + 2), dtype=torch.bfloat16)[..., :64]
+    assert kattn._token_rows(odd, 5, 64, 2)[1] == 194
+    assert kattn._token_rows(odd, 5, 64, 8)[1] == 64
+
+
+def test_division_by_reciprocal_rounds_as_division():
+    """The tensor-core attention's p = e / l (csrc/attn_frame.cuh
+    div_rn_by): q = RN(e r) with r = RN(1 / l), then RN(q + RN(e - q l) r),
+    each bracket one fp32 rounding (an FMA's), equals IEEE division for a
+    softmax numerator e in [2**-96, 1] and row sum l in [1, 4096]; the
+    kernel divides outright below 2**-96 and takes e = 0 as is. Emulated
+    in float64, where the products are exact, over a million random fp32
+    bit patterns of each."""
+    gen = np.random.default_rng(12)
+    n = 1_000_000
+    lo, one = (np.array([2.0**-96, 1.0], np.float32).view(np.int32))
+    e = gen.integers(lo, one + 1, n).astype(np.int32).view(np.float32)
+    l_lo, l_hi = np.array([1.0, 4096.0], np.float32).view(np.int32)
+    l = gen.integers(l_lo, l_hi, n).astype(np.int32).view(np.float32)
+    r = np.float32(1) / l
+    q = e * r
+    rem = (e.astype(np.float64) - l.astype(np.float64) * q).astype(
+        np.float32)
+    got = (q.astype(np.float64) + rem.astype(np.float64) * r).astype(
+        np.float32)
+    np.testing.assert_array_equal(got, e / l)
+
+
 # ------------------------------------------- nn.attention, per backend
 
 D = NH * HD

@@ -399,17 +399,37 @@ def test_temporal_branch_bwd_kernel(cuda, valid):
         _close(a, b)
 
 
-def test_spatial_branch_bwd_kernel(cuda):
+@pytest.mark.parametrize("S,hd", [(S_DIT, HD), (S_DIT, 32), (100, HD),
+                                  (100, 32), (176, HD)])
+def test_spatial_branch_bwd_kernel(cuda, S, hd):
+    """The spatial backward whole (its attention on the tensor cores) at the
+    DiT's S = 144 with its rope table (the inputs of seed 22, as this test
+    drew them before it took other shapes), and at a ragged S = 100, at 11
+    row tiles (S = 176) and at 32 heads of 32 dims with random angles,
+    against spatial_branch_bwd_plain; a second run is bit-equal to the
+    first."""
     from gtax_torch.kernels import backward
 
-    gen = np.random.default_rng(22)
-    args, ct = _train_inputs(gen, 2, "spatial")
-    f = _spatial_freqs()
-    _, *res = block.fused_spatial_branch(*args, f, H, emit_train=True)
-    bargs = (*args[:6], f, *res, ct, H)
+    gen = np.random.default_rng(22 if (S, hd) == (S_DIT, HD)
+                                else 22 + S + hd)
+    N, heads = 2, D // hd
+    x, sh, sc, g = _branch_inputs(gen, N, S)
+    w = (_rand(gen, (D, 3 * D), 0.02), _rand(gen, (D, D), 0.02),
+         _rand(gen, (D,), 0.02, torch.float32))
+    ct = _rand(gen, (N, S, D))
+    if (S, hd) == (S_DIT, HD):
+        f = _spatial_freqs()
+    else:
+        f = torch.from_numpy(gen.uniform(0, 6.3, (S, hd)).astype(
+            np.float32)).cuda()
+    args = (x, sh, sc, g, *w)
+    _, *res = block.fused_spatial_branch(*args, f, heads, emit_train=True)
+    bargs = (*args[:6], f, *res, ct, heads)
     got = backward.fused_spatial_branch_bwd(*bargs)
     for a, b in zip(got, backward.spatial_branch_bwd_plain(*bargs)):
         _close(a, b)
+    for a, b in zip(got, backward.fused_spatial_branch_bwd(*bargs)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("N", [2, 10])
@@ -542,7 +562,7 @@ def test_gemm_bf16_epilogues(cuda, epi, N):
 @pytest.mark.parametrize("M", [1000, 4000])
 def test_wgrad_chunks_bit_equal(cuda, M, N):
     """The plan's one chunk (1,000 rows) and its ragged chunks reduced in
-    order (4,000 rows: 7 on an H100), on 128x128 (N=192) and 128x256
+    order (4,000 rows: 5 and 4 on an H100), on 128x128 (N=192) and 128x256
     (N=512) tiles, against the fp32 product; a second run is bit-equal to
     the first."""
     from gtax_torch.kernels import backward
@@ -588,3 +608,232 @@ def test_attn_frame_kernel(cuda, S, hd, qkv_f32):
         _close(out, ref.reshape(N * S, D))
         for got, want in zip(emitted, (qr, kr, v.to(bf))):
             _close(got, want.reshape(N * S, D))
+
+
+# Rounding points of the tensor-core attention: the share of bf16 elements
+# that differ from the plain version, and the largest difference over the
+# largest magnitude, are held under these bounds (four times tighter than
+# the 2**-6 of _close)
+ROUNDING_SHARE = 0.01
+ROUNDING_REL = 2.0**-8
+
+
+def _vae_freqs():
+    f = rope.axial_freqs(rope.pixel_freqs(HD // 4, 576.0), (18, 32),
+                         pixel=True)
+    return f.reshape(S_VAE, HD // 2).cuda()
+
+
+@pytest.mark.parametrize("S", [S_DIT, S_VAE], ids=["dit", "vae"])
+def test_attn_frame_rounding_points(cuda, S):
+    """The frame attention on the model's own rope tables (the DiT's full
+    spatial table on fp32 qkv at S=144, the VAE's partial one on bf16 qkv
+    at S=576) against block.attend_frames over the plain-roped q/k: the
+    bf16 output and the emitted q and k each stay under ROUNDING_SHARE
+    differing elements and ROUNDING_REL of their largest magnitude."""
+    from gtax_torch.utils.profiling import bf16_differences
+
+    gen = np.random.default_rng(60 + S)
+    N, bf = 2, torch.bfloat16
+    dit = S == S_DIT
+    f = _spatial_freqs() if dit else _vae_freqs()
+    rot = f.shape[-1]
+    qkv = _rand(gen, (N * S, 3 * D), 1.0, torch.float32 if dit else bf)
+    q, k, v = (t.reshape(N, S, H, HD) for t in qkv.split(D, dim=-1))
+    qr, kr = (rope.apply_rotary_emb(f[:, None, :], t.float()).to(bf)
+              for t in (q, k))
+    ref = block.attend_frames(qr, kr, v.to(bf), bf)
+    out = torch.empty((N * S, D), dtype=bf, device="cuda")
+    emitted = tuple(torch.empty((N * S, D), dtype=bf, device="cuda")
+                    for _ in range(3))
+    block.launch_attn_frame(qkv, f, out, N, S, D, H, rot, qkv_out=emitted)
+    torch.cuda.synchronize()
+    figures = {name: bf16_differences(got, want.reshape(N * S, D))
+               for name, got, want in (("out", out, ref),
+                                       ("q", emitted[0], qr),
+                                       ("k", emitted[1], kr))}
+    print(f"[rounding] attn_frame S={S} rot={rot}: " + ", ".join(
+        f"{name} {share:.3e} differ, max {rel:.3e}"
+        for name, (share, rel) in figures.items()))
+    for name, (share, rel) in figures.items():
+        assert share < ROUNDING_SHARE and rel <= ROUNDING_REL, (name, share,
+                                                                rel)
+
+
+# ------------------------------------------- attn_sdpa's two bodies
+
+
+def _sdpa_mask(kind, S):
+    """None, causal, gtax's temporal `valid | eye` mask with slot 0 padded,
+    or a square mask whose row 1 attends nothing (its bias row all -1e30)."""
+    if kind in ("none", "causal"):
+        return None
+    if kind == "temporal":
+        valid = torch.ones(S, dtype=torch.bool)
+        valid[0] = False
+        return torch.tril(torch.ones(S, S, dtype=torch.bool)) & (
+            valid[None, :] | torch.eye(S, dtype=torch.bool))
+    mask = torch.ones(S, S, dtype=torch.bool)
+    mask[1] = False
+    return mask
+
+
+def _sdpa_lengths():
+    from gtax_torch.kernels import attention as kattn
+
+    t = kattn.SDPA_TENSOR_CORES_MIN_S
+    return sorted({5, 16, 100, 144, 576, t - 1, t})
+
+
+@pytest.mark.parametrize("layout", ["heads_first", "token_major"])
+@pytest.mark.parametrize("S", _sdpa_lengths())
+def test_attn_sdpa_kernel(cuda, S, layout):
+    """Both bodies of attn_sdpa (the threshold's two sides among the
+    lengths; 100 is no multiple of 16 or 64) in both layouts, with no mask,
+    causal, the temporal valid | eye mask and a fully masked row, against
+    the plain version under the rounding-point bounds; the token-major q/k/v
+    are strided views of one fused qkv row, bit-equal to contiguous copies;
+    a second run is bit-equal to the first."""
+    from gtax_torch.kernels import attention as kattn
+    from gtax_torch.utils.profiling import bf16_differences
+
+    gen = np.random.default_rng(70 + S)
+    if layout == "heads_first":
+        q, k, v = (_rand(gen, (2, 3, S, HD)) for _ in range(3))
+    else:
+        qkv = _rand(gen, (3, S, 3 * D))
+        q, k, v = qkv.split(D, dim=-1)
+    for kind in ("none", "causal", "temporal", "masked_row"):
+        mask, causal = _sdpa_mask(kind, S), kind == "causal"
+        bias = kattn.build_bias(S, mask, causal, "cuda")
+        if layout == "heads_first":
+            before = kattn.fused_sdpa.launches
+            got = kattn.fused_sdpa(q, k, v, mask=mask, causal=causal)
+            assert kattn.fused_sdpa.launches == before + 1
+            ref = kattn.sdpa_plain(*(t.reshape(-1, S, HD) for t in (q, k, v)),
+                                   bias).reshape(got.shape)
+            again = kattn.fused_sdpa(q, k, v, mask=mask, causal=causal)
+        else:
+            got = kattn.fused_mha_token_major(q, k, v, H, mask=mask,
+                                              causal=causal)
+            ref = kattn.mha_token_major_plain(q, k, v, bias, H)
+            again = kattn.fused_mha_token_major(
+                q.contiguous(), k.contiguous(), v.contiguous(), H, mask=mask,
+                causal=causal)
+        torch.cuda.synchronize()
+        _close(got, ref)
+        share, rel = bf16_differences(got, ref)
+        assert share < ROUNDING_SHARE and rel <= ROUNDING_REL, (kind, share,
+                                                                rel)
+        assert torch.equal(got, again), kind
+        if kind == "masked_row":  # row 1 averages V uniformly
+            mean = v.float().mean(-2)
+            torch.testing.assert_close(got[..., 1, :].float(), mean,
+                                       atol=2.0**-6 * mean.abs().max().item(),
+                                       rtol=0)
+
+
+def test_fully_masked_row_averages_v_card(cuda):
+    """The card twin of tests/test_torch_attention.py's: a query row whose
+    keys are all masked sees -1e30 everywhere and averages V uniformly, on
+    both bodies (never -inf, never NaN)."""
+    from gtax_torch.kernels import attention as kattn
+
+    gen = np.random.default_rng(71)
+    for S in (4, 144):
+        q, k, v = (_rand(gen, (2, S, HD)) for _ in range(3))
+        mask = torch.ones(S, S, dtype=torch.bool)
+        mask[1] = False
+        got = kattn.fused_sdpa(q, k, v, mask=mask)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        mean = v.float().mean(1)
+        torch.testing.assert_close(got[:, 1].float(), mean,
+                                   atol=2.0**-7 * mean.abs().max().item(),
+                                   rtol=0)
+
+
+# ------------------------------------- attn_frame_bwd on the tensor cores
+
+
+def _frame_bwd_plain(q, k, v, dout, freqs, rot):
+    """ao, dq, dk, dv of one frame attention backward over (N, S, H, d)
+    bf16 residuals, the rope adjoint on the first rot dims (the plain
+    version's arithmetic, backward._attention_bwd_plain)."""
+    from gtax_torch.kernels import backward
+
+    d = q.shape[-1]
+    ao, dq, dk, dv = backward._attention_bwd_plain(
+        q, k, v, dout, None, torch.bfloat16, 1.0 / d**0.5,
+        ("nqhd", "nkhd", "nhqk"))
+    f = freqs[:, None, :]
+
+    def adj(u):
+        return torch.cat([backward.rope_transpose32(f, u[..., :rot]),
+                          u[..., rot:]], -1)
+
+    return ao, adj(dq), adj(dk), dv
+
+
+@pytest.mark.parametrize("S", [S_DIT, 100])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("partial", [False, True], ids=["full", "half"])
+def test_attn_frame_bwd_kernel(cuda, S, hd, partial):
+    """attn_frame_bwd alone (S = 144 and a ragged 100, head dims 32 and 64,
+    the rope adjoint on all or half of a head's dims) against the plain
+    backward's arithmetic: O and dq/dk/dv under _close and the rounding
+    bounds of the forward; a second run is bit-equal to the first."""
+    _check_frame_bwd(S, hd, partial)
+
+
+@pytest.mark.parametrize("S,hd", [(176, 64), (192, 32)])
+def test_attn_frame_bwd_past_nine_tiles(cuda, S, hd):
+    """Frames longer than the DiT's nine 16-row tiles, up to the most whose
+    block fits the shared memory, take the kernel's wider instantiation;
+    one tile more is refused."""
+    from gtax_torch.kernels import backward
+
+    _check_frame_bwd(S, hd, True)
+    S = S + 16
+    dqkv = torch.empty((S, 3 * D), dtype=torch.bfloat16, device="cuda")
+    t = torch.empty((S, D), dtype=torch.bfloat16, device="cuda")
+    cs = torch.zeros((S, hd), device="cuda")
+    with pytest.raises(RuntimeError, match="gtax_attn_frame_bwd"):
+        backward.launch_attn_frame_bwd(t, t, t, t, cs, cs, dqkv, t, 1, S, D,
+                                       D // hd, hd)
+
+
+def _check_frame_bwd(S, hd, partial):
+    """attn_frame_bwd on 3 frames of S tokens of random q, k, v, dO and
+    rope angles against the plain backward, and a rerun bit-equal."""
+    from gtax_torch.kernels import backward
+    from gtax_torch.utils.profiling import bf16_differences
+
+    gen = np.random.default_rng(S + hd + partial)
+    N, heads = 3, D // hd
+    rot = hd // 2 if partial else hd
+    q, k, v, dout = (_rand(gen, (N, S, heads, hd)) for _ in range(4))
+    freqs = torch.from_numpy(gen.uniform(0, 6.3, (S, rot)).astype(
+        np.float32)).cuda()
+    flat = [t.reshape(N * S, D) for t in (q, k, v, dout)]
+
+    def run():
+        dqkv = torch.empty((N * S, 3 * D), dtype=torch.bfloat16,
+                           device="cuda")
+        ao = torch.empty((N * S, D), dtype=torch.bfloat16, device="cuda")
+        backward.launch_attn_frame_bwd(*flat, *backward.rope_tables(freqs),
+                                       dqkv, ao, N, S, D, heads, rot)
+        torch.cuda.synchronize()
+        return ao, dqkv
+
+    ao, dqkv = run()
+    ref = _frame_bwd_plain(q, k, v, dout, freqs, rot)
+    got = (ao, *dqkv.split(D, dim=-1))
+    for name, a, b in zip(("ao", "dq", "dk", "dv"), got, ref):
+        b = b.to(torch.bfloat16).reshape(N * S, D)
+        _close(a, b)
+        share, rel = bf16_differences(a, b)
+        assert share < ROUNDING_SHARE and rel <= ROUNDING_REL, (name, share,
+                                                                rel)
+    ao2, dqkv2 = run()
+    assert torch.equal(ao, ao2) and torch.equal(dqkv, dqkv2)

@@ -1,4 +1,5 @@
-"""The launch arithmetic of the port's bf16 GEMMs, on the CPU.
+"""The launch arithmetic of the port's bf16 GEMMs, and the kernel
+library's entry points, on the CPU.
 
 The weight-gradient GEMM sums token rows in chunks, and the gelu' epilogue
 writes one column partial per output tile; the wrappers size both from
@@ -14,7 +15,7 @@ from pathlib import Path
 
 import pytest
 
-from gtax_torch.kernels import backward
+from gtax_torch.kernels import backward, build
 
 CSRC = Path(__file__).resolve().parent.parent / "gtax_torch" / "csrc"
 
@@ -72,21 +73,44 @@ def test_wgrad_chunks_cover_every_row_once(Ka, N, tile_n, sms):
 
 
 @pytest.mark.parametrize("Ka,N,splits", [
-    (4096, 1024, 1), (1024, 4096, 1), (1024, 1024, 4), (1024, 3072, 4)])
+    (4096, 1024, 1), (1024, 4096, 1), (1024, 1024, 4), (1024, 3072, 1)])
 def test_wgrad_split_at_the_training_shapes(Ka, N, splits):
-    """B=16 training (11,520 rows) on 132 SMs, wide tiles: the DiT's four
-    weight gradients fill at least 90% of their last wave."""
+    """B=16 training (11,520 rows) on 132 SMs, wide tiles: dW_out's 32
+    tiles take 4 chunks; the other three, whose 96-128 tiles come within a
+    wave of the card, take one, since a split's fp32 partials (2 splits + 1
+    passes over Ka x N) cost more than the SMs one chunk leaves idle. The
+    plan's count is the cheapest the cost model finds."""
     got, chunk = backward.wgrad_plan(11520, Ka, N, 132, TILE_M, WIDE_N,
                                      K_STEP)
     assert got == splits
-    blocks = (Ka // TILE_M) * (N // WIDE_N) * got
-    assert blocks / (-(-blocks // 132) * 132) >= backward.WGRAD_WAVE_FILL
     assert chunk * got >= 11520 > chunk * (got - 1)
+    costs = [backward.wgrad_cost(11520, Ka, N, 132, TILE_M, WIDE_N, K_STEP,
+                                 s)[0]
+             for s in range(1, backward.WGRAD_MAX_SPLITS + 1)]
+    assert costs[got - 1] == min(costs)
+
+
+def test_wgrad_cost_counts_the_partials():
+    """One chunk writes the fp32 result once; s > 1 chunks write s partials,
+    read them and write the sum (2 s + 1 passes), plus the reduce launch;
+    the blocks' time falls with the chunk rows and rises with the waves."""
+    Ka, N = 1024, 1024
+    one = backward.wgrad_cost(11520, Ka, N, 132, TILE_M, WIDE_N, K_STEP, 1)
+    two = backward.wgrad_cost(11520, Ka, N, 132, TILE_M, WIDE_N, K_STEP, 2)
+    assert one[1:] == (1, 11520) and two[1:] == (2, 5760)
+    pass_s = Ka * N * 4 / backward.WGRAD_PARTIAL_BYTES_PER_S
+    block_s = 11520 * TILE_M * WIDE_N * 2 / backward.WGRAD_BLOCK_FLOPS
+    assert one[0] == pytest.approx(block_s + pass_s)
+    assert two[0] == pytest.approx(block_s / 2 + 5 * pass_s
+                                   + backward.WGRAD_REDUCE_S)
+    # 9 chunks of 32 tiles: 288 blocks, three waves on 132 SMs
+    nine = backward.wgrad_cost(11520, Ka, N, 132, TILE_M, WIDE_N, K_STEP, 9)
+    assert nine[0] > 3 * block_s / 9
 
 
 @pytest.mark.parametrize("M,Ka,N,tile_n,splits", [
-    (1000, 1024, 192, TILE_N, 1), (4000, 1024, 192, TILE_N, 7),
-    (1000, 1024, 512, WIDE_N, 1), (4000, 1024, 512, WIDE_N, 7),
+    (1000, 1024, 192, TILE_N, 1), (4000, 1024, 192, TILE_N, 5),
+    (1000, 1024, 512, WIDE_N, 1), (4000, 1024, 512, WIDE_N, 4),
     (4000, 128, 64, TILE_N, 7),
     (288, 4096, 1024, WIDE_N, 1), (1440, 1024, 4096, WIDE_N, 1)])
 def test_wgrad_split_of_the_card_tests(M, Ka, N, tile_n, splits):
@@ -108,3 +132,28 @@ def test_dgelu_partials_match_the_tiles_the_kernel_writes(N):
         assert rows == grid_y
         written = {r // TILE_M for r in range(M)}
         assert written == set(range(rows)), (M, rows)
+
+
+
+def _entries(names):
+    """The C entry points (GTAX_ENTRY functions) the sources define."""
+    return {m for n in names for m in re.findall(
+        r"GTAX_ENTRY (gtax_\w+)\(", (CSRC / n).read_text())}
+
+
+def test_bound_entries_are_the_defined_ones():
+    """build.SIGNATURES binds each entry point the sources define, and no
+    other: a stale signature would fail at load, an unbound entry could not
+    be called."""
+    assert set(build.SIGNATURES) == _entries(p.name for p in build.sources())
+
+
+def test_probe_copy_builds_apart():
+    """The probe copy (GTAX_PROBE_STOP defined) lands in a directory of its
+    own, so library() never loads a kernel that stops early, and its
+    sources define the entries it binds."""
+    flags = build.NVCC_FLAGS
+    assert build._digest(flags) != build._digest(
+        (*flags, "-DGTAX_PROBE_STOP=0")) != build._digest(
+        (*flags, "-DGTAX_PROBE_STOP=1"))
+    assert set(build.PROBE_ENTRIES) <= _entries(build.PROBE_SOURCES)
