@@ -20,13 +20,18 @@ Phases (any failure exits nonzero and prints no result line):
      every timed call; the bound from bytes and operations (bf16 and int8
      peaks); for each bf16 output the rounding-point figures (the share of
      elements that differ from the plain version's, the largest difference
-     over its largest magnitude). Each pair is also held against the two sequential int8
+     over its largest magnitude); whether a second call gives the same
+     bits (a failure for the split-K serving kernels, BIT_STABLE). Each
+     pair is also held against the two sequential int8
      wrappers on the same inputs (max error and bit equality printed) and
-     timed against them at 1-4 frames (`[gate]`). For fused_vae_block
+     timed against them at 1-4 frames (`[gate]`). For fused_mlp_branch
+     (144 rows), fused_vae_block
      (decode N=6), fused_mha_token_major (the VAE shape),
      fused_spatial_branch_bwd and fused_mlp_branch_bwd (B=16) one call is
      split by launch (`[split]`: each launch's CUDA-event ms and share,
-     TFLOP/s for each GEMM; attn_frame_bwd's bound);
+     TFLOP/s for each GEMM; attn_frame_bwd's bound), and each pair at one
+     frame by phase (the probe copy of pair_q: each of its nine phases
+     and eight grid barriers, gtax_torch/tools/split.py);
   4. end to end, bf16: VideoGenerator at full DiT-S/2 + ViT-L/20 width,
      B=1, 4 prompt frames + 2 generated, 100 noise steps, random seeded
      weights with nonzero adaLN heads, injected noise. The launch counters
@@ -718,6 +723,11 @@ def pair_phase(timer, rows):
             del kern, seq
     for name, by_n in sweep.items():
         rows[name]["pair_vs_sequential"] = by_n
+    from gtax_torch.tools.split import pair_phases
+
+    for kind, name in (("spatial", "fused_spatial_pair_q"),
+                       ("temporal", "fused_temporal_pair_q")):
+        rows[name]["phase_split"] = pair_phases(kind, 1, log=log)
 
 
 def attention_cases():
@@ -804,6 +814,15 @@ SOURCES = {
 }
 
 
+# the kernels whose split-K sums must add in a fixed order: two calls on
+# the same inputs give the same bits
+BIT_STABLE = ("fused_mlp_branch", "fused_spatial_branch",
+              "fused_temporal_step", "fused_spatial_branch_q",
+              "fused_mlp_branch_q", "fused_temporal_branch_q",
+              "fused_temporal_step_q", "fused_spatial_pair_q",
+              "fused_temporal_pair_q")
+
+
 def measure(timer, name, label, kern, plain, lib, by, fl, *i8):
     """Run the kernel and its plain version on the same inputs, hold every
     output against the plain one (2**-6 of its largest magnitude), time
@@ -811,10 +830,12 @@ def measure(timer, name, label, kern, plain, lib, by, fl, *i8):
     the bound (by: bytes, fl: bf16 flops, i8: int8 ops)."""
     from gtax_torch.utils.profiling import bf16_differences
 
-    got, ref = kern(), plain()
+    got, ref, again = kern(), plain(), kern()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
+    again = again if isinstance(again, tuple) else (again,)
+    stable = all(torch.equal(a, b) for a, b in zip(got, again))
     err, tol, ratio = 0.0, 0.0, 0.0  # tol: that of the worst output
     share, rel = 0.0, 0.0  # the rounding-point figures of the worst output
     for a, b in zip(got, ref):
@@ -837,11 +858,14 @@ def measure(timer, name, label, kern, plain, lib, by, fl, *i8):
         f"outputs: {share:.3e} of elements differ, max diff {rel:.3e} of "
         f"the largest magnitude) ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by_what}; "
-        f"{by / 1e6:.1f} MB, {ops})")
+        f"{by / 1e6:.1f} MB, {ops}); two calls bit-equal: {stable}")
     if not ratio <= 1.0:
         fail(f"{name} [{label}] disagrees with its plain version: an output "
              f"is off by {ratio:.3g} times its tolerance")
-    return {"max_abs_err": err, "tolerance": tol, "err_over_tol": ratio,
+    if not stable and name in BIT_STABLE:
+        fail(f"{name} [{label}]: two calls on the same inputs differ")
+    return {"two_calls_bit_equal": stable,
+            "max_abs_err": err, "tolerance": tol, "err_over_tol": ratio,
             "bf16_differ": share, "max_diff_over_max": rel, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by_what,
             "library_ms": lib_ms, "shape": label}
@@ -868,6 +892,9 @@ def kernel_phase():
                 rows[name]["launch_split"] = launch_split(
                     kern, f"{name} [{label}]",
                     [2 * M * D * n for n in (3 * D, D, 4 * D, 4 * D)])
+            if name == "fused_mlp_branch":  # ln_mod, fc1, fc2
+                rows[name]["launch_split"] = launch_split(
+                    kern, f"{name} [{label}]", [2 * S_DIT * D * 4 * D] * 2)
     pair_phase(timer, rows)
     return rows
 
@@ -1257,57 +1284,11 @@ def profile_device(fn, label, top=12):
 
 
 def launch_split(fn, label, gemm_flops):
-    """Each kernel launch of one call of fn, in order: its ms (CUDA events
-    recorded on the stream around the launch), its share of the call, and
-    for the GEMMs (in order, gemm_flops) TFLOP/s. The L2 is flushed and the
-    stream held 10 ms first, so the host enqueues the whole call before the
-    card reaches it. (A torch.profiler trace of the same call lost the
-    first launches of the B=16 backward, so the split is timed directly.)
-    Returns the list of entries."""
-    from gtax_torch.kernels import build
+    """gtax_torch/tools/split.py's launch split (each launch's CUDA-event
+    ms, share and GEMM TFLOP/s), printed here."""
+    from gtax_torch.tools.split import launch_split as split
 
-    real = build.launch
-    marks = []
-
-    def timed(name, *args):
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        real(name, *args)
-        ev[1].record()
-        marks.append((name, ev))
-
-    fn()
-    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
-    torch.cuda.synchronize()
-    flush.zero_()
-    torch.cuda._sleep(int(10 * Timer.CYCLES_PER_MS))
-    call = (torch.cuda.Event(enable_timing=True),
-            torch.cuda.Event(enable_timing=True))
-    build.launch = timed
-    try:
-        call[0].record()
-        fn()
-        call[1].record()
-    finally:
-        build.launch = real
-    torch.cuda.synchronize()
-    total = call[0].elapsed_time(call[1])
-    flops = list(gemm_flops)
-    out = []
-    log(f"[split] {label}: {len(marks)} launches, {total:.4f} ms for the "
-        "call")
-    for name, (e0, e1) in marks:
-        ms = e0.elapsed_time(e1)
-        entry = {"kernel": name, "ms": ms, "share": ms / total}
-        extra = ""
-        if name == "gtax_gemm_bf16" or name == "gtax_gemm_wgrad":
-            fl = flops.pop(0)
-            entry["tflops"] = fl / ms / 1e9
-            extra = f", {fl / 1e9:.1f} GFLOP at {entry['tflops']:.0f} TFLOP/s"
-        log(f"[split]   {ms:8.4f} ms {100 * ms / total:5.1f}%  {name}{extra}")
-        out.append(entry)
-    return out
+    return split(fn, label, gemm_flops, log=log)
 
 
 def profile_frame(gen, lat0, acts, nz, steps=4):

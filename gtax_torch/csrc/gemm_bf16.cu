@@ -14,9 +14,14 @@
 // weight bytes; at the VAE and training shapes (M = 2,304..11,520) the
 // tensor-core rate.
 // Design: the Hopper kernel of gemm_sm90.cuh (TMA ring, wgmma, two
-// consumer warpgroups) at every row count, with the epilogues of
-// gemm_epi.cuh: 128x256 tiles where they alone fill the card, else
-// 128x128. It replaced a 64x64-tile wmma kernel that was
+// consumer warpgroups), with the epilogues of gemm_epi.cuh. Up to 320
+// rows (a serving step), when the wrapper passes a K chunk
+// (gtax_torch/kernels/block.py gemm_chunk): the small-M path, one block
+// per 64-column tile and K chunk covering every row, the chunks' fp32
+// partials summed in order, slice by slice over every block after a grid
+// barrier, before the epilogue.
+// Above it: 128x256 tiles where they alone fill the card, else 128x128.
+// It replaced a 64x64-tile wmma kernel that was
 // slower at every main-path product, 144 rows included (PERF.md section 6);
 // its tensor maps are cached on the host, so a serving step's launches do
 // not encode them again. The emit_train epilogues store a second bf16
@@ -32,7 +37,12 @@ namespace {
 
 template <int EPI>
 int launch(const void* a, const void* b, const EpiArgs& e, int M, int N,
-           int K, bool trans_b, cudaStream_t st) {
+           int K, bool trans_b, int k_chunk, float* part, cudaStream_t st) {
+  if (k_chunk > 0)  // the small-M path
+    return trans_b ? sm90::launch_small<EPI, false>(a, b, e, M, N, K, k_chunk,
+                                                    part, st)
+                   : sm90::launch_small<EPI, true>(a, b, e, M, N, K, k_chunk,
+                                                   part, st);
   // the wide tile where its tiles alone fill the card's SMs: 128 x 128 at
   // the serving row counts, where a weight-bound product wants every SM
   const bool wide = N % sm90::kWideBN == 0 &&
@@ -48,12 +58,16 @@ int launch(const void* a, const void* b, const EpiArgs& e, int M, int N,
 
 }  // namespace
 
-// The tiling the wrappers size buffers from: {tile rows, k-step} of the
-// Hopper kernel (gelu' partials, weight-gradient chunks).
+// The tiling the wrappers size buffers and plans from: {tile rows,
+// k-step} of the Hopper kernel (gelu' partials, weight-gradient chunks),
+// then the small-M path's {tile columns, rows, most K chunks}.
 GTAX_ENTRY gtax_gemm_consts(void* out) {
   int* o = static_cast<int*>(out);
   o[0] = sm90::BM;
   o[1] = sm90::BK;
+  o[2] = sm90::kSmallBN;
+  o[3] = sm90::SmallTile::kRows;
+  o[4] = sm90::kSmallMaxSplits;
   return 0;
 }
 
@@ -61,11 +75,15 @@ GTAX_ENTRY gtax_gemm_consts(void* out) {
 // the product is A @ W^T. C2: the second bf16 output of the emit_train and
 // gelu' epilogues; aux: the bf16 h1 the gelu' epilogue reads; colsum:
 // (ceil(M / 128), N) fp32 per-tile column sums of the gelu' epilogue.
+// k_chunk > 0 takes the small-M path (M <= 320) with K in chunks of
+// k_chunk; with more than one chunk, part is a (chunks, M, N) fp32
+// workspace.
 GTAX_ENTRY gtax_gemm_bf16(const void* A, const void* B, void* C, void* C2,
                           const void* aux, void* colsum, const void* bias,
                           int bias_f32, const void* resid, const void* gate,
                           int gate_stride, int M, int N, int K, int S, int epi,
-                          int trans_b, void* stream) {
+                          int trans_b, int k_chunk, void* part,
+                          void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || N % 64 || K % sm90::BK || S <= 0)
     return (int)cudaErrorInvalidValue;
   const bool needs_c2 = epi == EPI_BIAS_GATED_Y ||
@@ -86,7 +104,8 @@ GTAX_ENTRY gtax_gemm_bf16(const void* A, const void* B, void* C, void* C2,
   switch (epi) {
 #define GTAX_GEMM_CASE(E) \
   case E:                 \
-    return launch<E>(A, B, e, M, N, K, trans_b != 0, st);
+    return launch<E>(A, B, e, M, N, K, trans_b != 0, k_chunk,     \
+                     static_cast<float*>(part), st);
     GTAX_GEMM_CASE(EPI_F32)
     GTAX_GEMM_CASE(EPI_BIAS_BF16)
     GTAX_GEMM_CASE(EPI_BIAS_GELU_TANH)

@@ -1,7 +1,8 @@
 // W8A8 GEMM on the int8 tensor cores with exact int32 accumulation:
 // C = epilogue(dequant(A @ B)), A (M, K) row-major int8 activations with
-// fp32 scales per (row, K group), B (K, N) row-major int8 weights (gtax's
-// (in, out) kernel layout) with fp32 scales per column.
+// fp32 scales per (row, K group), B (K, N) int8 weights (gtax's (in, out)
+// kernel) stored column-major, i.e. W^T (N, K) row-major, with fp32
+// scales per column.
 //
 // Replaces the int8 dots of the TPU int8 branch kernels
 // (gtax/kernels/quant.py _qdot in _spatial_kernel_q, _temporal_kernel_q
@@ -16,69 +17,113 @@
 // in fp32 (fc1); bf16(x + gate[row / S] * (y + b)) (out-projection, fc2).
 // Bound: at the serving shapes (M = 144..1152, K, N = 1024..4096) the int8
 // weight bytes at small M, the int8 tensor-core rate at large M.
-// Design: gemm_bf16.cu's shape, 64x64 block tiles, 4 warps of 32x32
-// wmma 16x16x16 s8 fragments with int accumulators, a two-stage cp.async
-// ring over K tiles of 64 bytes, zero-filled ragged M rows. wmma wants
-// 32-byte aligned fragment pointers, and a 16-deep int8 k-step is only 16
-// bytes, so shared memory holds each tile as 16-byte slabs: A as [k-slab]
-// [row][16], B as [n-slab][k][16]. At the end of each K group the int32
-// fragments go through shared memory into fp32 accumulators that each
-// thread keeps in registers for its 16 column pairs. Later work: wgmma + TMA.
+// Design: the weight-streaming tile of gemm_s8.cuh (all rows up to 320 in
+// one unit, split K summed over the grid after a barrier, a TMA ring of
+// up to eight stages, wgmma s8), a block per work unit up to what fits on
+// the card at once; the K chunk comes from the wrapper's plan
+// (gtax_torch/kernels/quant.py s8_plan). It replaced PR 2's 64x64 wmma
+// tile, whose two-stage cp.async ring walked K one 8 KB step at a time.
+#include <algorithm>
+
 #include "gemm_s8.cuh"
 
 namespace {
 
-using gemm_s8::BM;
-using gemm_s8::BN;
-using gemm_s8::BK;
-using gemm_s8::EPI_F32;
-using gemm_s8::EPI_BIAS_GELU_F32;
-using gemm_s8::EPI_BIAS_GATED;
+using gemm_s8::kThreads;
 
-constexpr int kThreads = 128;
-
-// one block per output tile; the body is gemm_s8::tile (gemm_s8.cuh)
+// the body is gemm_s8::gemm (gemm_s8.cuh): units strided over the grid,
+// then the split sum's slices
 template <int EPI>
-__global__ void __launch_bounds__(kThreads)
-    gemm_s8_kernel(const gemm_s8::Args p) {
-  __shared__ __align__(128) gemm_s8::Smem sm;
-  gemm_s8::tile<EPI, kThreads>(sm, p, blockIdx.y, blockIdx.x);
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_s8_kernel(const __grid_constant__ CUtensorMap ma,
+                   const __grid_constant__ CUtensorMap mb,
+                   const gemm_s8::Args p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  gemm_s8::Ring r = gemm_s8::ring_init(smem);
+  gemm_s8::gemm<EPI>(r, &ma, &mb, p);
+}
+
+// One block per unit, up to the blocks that fit on the card at once; a
+// cooperative launch where the chunks' partials are summed after a grid
+// barrier.
+template <int EPI>
+int launch(const void* A, const void* B, gemm_s8::Args p, cudaStream_t st) {
+  CUtensorMap ma, mb;
+  int rc = sm90::make_map(&ma, A, p.M, p.K, 64, 1);
+  if (rc) return rc;
+  rc = sm90::make_map(&mb, B, p.N, p.K, 64, 1);
+  if (rc) return rc;
+  constexpr size_t smem = gemm_s8::kSmemBytes + 1024;
+  static size_t opted = 0;
+  static int capacity = 0;  // co-resident blocks (device 0 of the process)
+  cudaError_t e = opt_in_smem(gemm_s8_kernel<EPI>, smem, opted);
+  if (e != cudaSuccess) return (int)e;
+  if (capacity == 0) {
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, gemm_s8_kernel<EPI>, kThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm <= 0) return (int)cudaErrorLaunchOutOfResources;
+    capacity = per_sm * sm90::sm_count();
+  }
+  const int blocks =
+      std::min(gemm_s8::units(p.M, p.N, p.K, p.k_chunk), capacity);
+  if (gemm_s8::splits(p.K, p.k_chunk) == 1) {
+    gemm_s8_kernel<EPI><<<blocks, kThreads, smem, st>>>(ma, mb, p);
+    return (int)cudaGetLastError();
+  }
+  void* args[] = {&ma, &mb, &p};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(gemm_s8_kernel<EPI>), dim3(blocks),
+      dim3(kThreads), args, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// sa: (M, K / group) fp32 activation scales; ws: (N,) fp32 weight scales;
-// bias: (N,) fp32 or bf16 (epilogues 1, 2); resid: (M, N) bf16 and gate:
-// per-frame bf16 rows of gate_stride, frame = row / S (epilogue 2).
+// A: (M, K) int8; B: W^T, (N, K) int8 row-major; sa: (M, K / group) fp32
+// activation scales; ws: (N,) fp32 weight scales; bias: (N,) fp32 or bf16
+// (epilogues 1, 2); resid: (M, N) bf16 and gate: per-frame bf16 rows of
+// gate_stride, frame = row / S (epilogue 2); k_chunk: the split-K chunk;
+// part: (ceil(K / k_chunk), M, N) int32, unused with one chunk.
 GTAX_ENTRY gtax_gemm_s8(const void* A, const void* B, void* C, const void* sa,
                         int group, const void* ws, const void* bias,
                         int bias_f32, const void* resid, const void* gate,
                         int gate_stride, int M, int N, int K, int S, int epi,
-                        void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || N % BN || K % BK || group <= 0 ||
-      group % BK || K % group || S <= 0 || sa == nullptr || ws == nullptr ||
-      (epi != EPI_F32 && bias == nullptr) ||
-      (epi == EPI_BIAS_GATED && (resid == nullptr || gate == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(gemm_s8::n_tiles(N), gemm_s8::m_tiles(M));
-  cudaStream_t st = (cudaStream_t)stream;
+                        int k_chunk, void* part, void* stream) {
   const gemm_s8::Args p{
-      static_cast<const signed char*>(A), static_cast<const signed char*>(B),
-      C, static_cast<const float*>(sa), K / group, group / BK,
+      C, static_cast<const float*>(sa), group > 0 ? K / group : 0, group,
       static_cast<const float*>(ws), bias, bias_f32,
       static_cast<const bf16*>(resid), static_cast<const bf16*>(gate),
-      gate_stride, M, N, K, S};
-#define GTAX_GEMM_S8_CASE(E)                          \
-  case E:                                             \
-    gemm_s8_kernel<E><<<grid, kThreads, 0, st>>>(p);  \
-    break;
+      gate_stride, M, N, K, S, k_chunk, static_cast<int*>(part)};
+  using namespace gemm_s8;
+  if (!valid(p) || S <= 0 || sa == nullptr || ws == nullptr ||
+      (epi != gemm_s8::EPI_F32 && bias == nullptr) ||
+      (epi == gemm_s8::EPI_BIAS_GATED && (resid == nullptr || gate == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
   switch (epi) {
-    GTAX_GEMM_S8_CASE(EPI_F32)
-    GTAX_GEMM_S8_CASE(EPI_BIAS_GELU_F32)
-    GTAX_GEMM_S8_CASE(EPI_BIAS_GATED)
+    case gemm_s8::EPI_F32:
+      return launch<gemm_s8::EPI_F32>(A, B, p, st);
+    case gemm_s8::EPI_BIAS_GELU_F32:
+      return launch<gemm_s8::EPI_BIAS_GELU_F32>(A, B, p, st);
+    case gemm_s8::EPI_BIAS_GATED:
+      return launch<gemm_s8::EPI_BIAS_GATED>(A, B, p, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef GTAX_GEMM_S8_CASE
-  return (int)cudaGetLastError();
+}
+
+// The tile the wrappers plan from: {rows, columns, k-step} of a unit and
+// the most K chunks of a GEMM.
+GTAX_ENTRY gtax_gemm_s8_consts(void* out) {
+  int* o = static_cast<int*>(out);
+  o[0] = gemm_s8::kRows;
+  o[1] = gemm_s8::BN;
+  o[2] = gemm_s8::BK;
+  o[3] = gemm_s8::kMaxSplits;
+  return 0;
 }

@@ -1,21 +1,55 @@
-// The body of the gemm_s8 kernel as a device function over one 64x64
-// output tile, shared by gemm_s8.cu (one block per tile, 128 threads) and
-// the paired int8 kernels of pair_q.cu (tiles strided over a cooperative
-// grid, 256 threads). The int32 sums of a K group are exact whatever the
-// thread layout, and each output element folds its groups in order in one
-// thread, so both callers give bit-equal results. See gemm_s8.cu for the
-// arithmetic and the tile layout.
+// The int8 weight-streaming tile of the W8A8 GEMMs, as device functions
+// shared by gemm_s8.cu (one block per work unit) and the paired int8
+// kernels of pair_q.cu (units strided over a cooperative grid). Both run
+// it with 256 threads. The int32 sums are exact in any order and every
+// output folds its K groups in order in one thread, so both callers give
+// bit-equal results. See gemm_s8.cu for the arithmetic.
+//
+// Design (the serving rows: M = 144-288, K, N = 1024-4096; bound by the
+// int8 weight bytes):
+//   - a work unit is (row tile, 64-column tile, K chunk). A row tile holds
+//     every row up to 320 (five m64 slabs; warpgroup w takes slabs w,
+//     w + 2, w + 4), so each weight byte leaves HBM once; K is split into
+//     chunks so that every block has a unit (split K);
+//   - int8 operands arrive by TMA (cp.async.bulk.tensor) into a ring of
+//     up to kMaxStages stages (as many as kRingBytes holds at the unit's
+//     slab count: five at 144 rows, three at 288), 128-byte swizzled, one
+//     128-byte k-step a stage; thread 0 keeps the ring full, and a stage's
+//     full mbarrier reports its bytes;
+//   - the int8 tensor cores: wgmma m64n64k32 .s32.s8.s8, which reads both
+//     operands K-major. The activations are (M, K) row-major; the weights
+//     are read as W^T, (N, K) row-major: the (in, out) kernel stored
+//     column-major, a copy made once when the params are prepared for the
+//     card (gtax_torch/kernels/quant.py quantize_weight);
+//   - one chunk: the epilogue runs from the accumulators. Several (the
+//     grid is cooperative): each unit stores its int32 partial, a grid
+//     barrier follows, and then every block takes 16-row slices of the
+//     output, adds each K group's partials, folds the groups' sums into
+//     fp32 in group order (chunks never cross a group) and runs the
+//     epilogue. No float atomics: a run is bit-equal to the next.
 #pragma once
 
-#include <mma.h>
+#include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace gemm_s8 {
 
-constexpr int BM = 64, BN = 64, BK = 64;
-constexpr int kSlab = 16;  // bytes of one wmma k-step of A, n-step of B
-constexpr int CPAD = 4;
+constexpr int BN = 64;          // output columns of a unit
+constexpr int BK = 128;         // int8 k-step: one 128-byte swizzle span
+constexpr int kSlabs = 5;       // m64 row slabs of a unit
+constexpr int kRows = 64 * kSlabs;
+constexpr int kSlabBytes = 64 * BK;  // 8 KB
+static_assert(BN * BK == kSlabBytes, "a stage: A slabs, then one B slab");
+constexpr int kMaxStages = 8;
+constexpr int kMaxSplits = 8;   // K chunks of a GEMM (and K groups)
+// 160 KB: five stages at 144 rows, three at 288, and an L1 of 92 KB for
+// the pair's other phases (the shared memory carve-out takes the rest)
+constexpr int kRingBytes = 160 * 1024;
+constexpr int kThreads = 256;
+// the ring and its barriers, from a 1024-aligned base
+constexpr size_t kSmemBytes = kRingBytes + kMaxStages * 8;
+constexpr int kSliceRows = 16;  // rows of a slice of the split sum
 
 enum Epi {
   EPI_F32 = 0,            // fp32 C = y
@@ -23,22 +57,17 @@ enum Epi {
   EPI_BIAS_GATED = 2,     // bf16 C = x + gate[row / S] * (y + bias)
 };
 
-struct Smem {
-  signed char a[2][BK / kSlab][BM][kSlab];
-  signed char b[2][BN / kSlab][BK][kSlab];
-  int c[BM][BN + CPAD];  // one K group's int32 sums, on their way to fp32
-};
-
 // C = epilogue(dequant(A @ B)): A (M, K) int8 with fp32 scales sa (M,
-// n_groups), B (K, N) int8 with fp32 column scales ws; bias (N,) fp32 or
-// bf16; resid (M, N) bf16 and gate per-frame bf16 rows of gate_stride,
-// frame = row / S.
+// n_groups), K groups of `group`; B (K, N) int8 read as W^T through its
+// tensor map, fp32 column scales ws; bias (N,) fp32 or bf16; resid (M, N)
+// bf16 and gate per-frame bf16 rows of gate_stride, frame = row / S.
+// Split K: at most kMaxSplits chunks of k_chunk (a multiple of BK; a
+// divisor of `group` when there is more than one group), part (splits, M,
+// N) int32 partials.
 struct Args {
-  const signed char* A;
-  const signed char* B;
   void* C;
   const float* sa;
-  int n_groups, tiles_per_group;
+  int n_groups, group;
   const float* ws;
   const void* bias;
   int bias_f32;
@@ -46,10 +75,95 @@ struct Args {
   const bf16* gate;
   int gate_stride;
   int M, N, K, S;
+  int k_chunk;
+  int* part;
+#ifdef GTAX_PAIR_PROBE
+  // the probe copy of pair_q (csrc/pair_q.cu): kUnitStamps clock stamps of
+  // the block's last unit of the GEMM, at this block's row
+  unsigned long long* stamps;
+#endif
 };
 
-__host__ __device__ inline int m_tiles(int M) { return (M + BM - 1) / BM; }
+#ifdef GTAX_PAIR_PROBE
+// a unit's start, the end of its main loop, the end of its partial's store
+// (or its epilogue), the end of the block's slices of the split sum
+constexpr int kUnitStamps = 4;
+__device__ __forceinline__ void unit_stamp(const Args& p, int i) {
+  if (threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+    p.stamps[i] = t;
+  }
+}
+#else
+__device__ __forceinline__ void unit_stamp(const Args&, int) {}
+#endif
+
+__host__ __device__ inline int m_tiles(int M) { return (M + kRows - 1) / kRows; }
 __host__ __device__ inline int n_tiles(int N) { return N / BN; }
+__host__ __device__ inline int splits(int K, int k_chunk) {
+  return (K + k_chunk - 1) / k_chunk;
+}
+__host__ __device__ inline int units(int M, int N, int K, int k_chunk) {
+  return m_tiles(M) * n_tiles(N) * splits(K, k_chunk);
+}
+
+// The Args a call can take: N and K in whole tiles and steps, chunks in
+// whole steps that stay inside one K group.
+inline bool valid(const Args& p) {
+  return p.M > 0 && p.N > 0 && p.K > 0 && p.N % BN == 0 && p.K % BK == 0 &&
+         p.group > 0 && p.K % p.group == 0 && p.n_groups == p.K / p.group &&
+         p.k_chunk > 0 && p.k_chunk % BK == 0 &&
+         (p.n_groups == 1 || p.group % p.k_chunk == 0) &&
+         splits(p.K, p.k_chunk) <= kMaxSplits &&
+         (splits(p.K, p.k_chunk) == 1 || p.part != nullptr);
+}
+
+// The block's ring: stages from a 1024-aligned base, then kMaxStages full
+// mbarriers. phase: bit s = the parity stage s waits for next (the same in
+// every thread).
+struct Ring {
+  unsigned char* data;
+  uint64_t* full;
+  uint32_t phase;
+};
+
+// Initialise the ring at smem (1024-aligned, kSmemBytes) by the whole
+// block; ends with a __syncthreads().
+__device__ __forceinline__ Ring ring_init(unsigned char* smem) {
+  Ring r{smem, reinterpret_cast<uint64_t*>(smem + kRingBytes), 0};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kMaxStages; ++s) sm90::mbar_init(&r.full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
+
+// d (64 rows x 64 cols of this warpgroup, int32) += A (64 x 32) B (32 x 64),
+// both K-major
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t da,
+                                         uint64_t db) {
+#define GTAX_R8(i)                                                         \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),             \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : GTAX_R8(0), GTAX_R8(8), GTAX_R8(16), GTAX_R8(24)
+      : "l"(da), "l"(db), "r"(1));
+#undef GTAX_R8
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // jax.nn.gelu(approximate=True), each op rounded once as the plain version
 // computes it
@@ -60,136 +174,220 @@ __device__ __forceinline__ float gelu_tanh_rn(float h) {
   return __fmul_rn(h, __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner))));
 }
 
-// Output tile (tm, tn). kThreads is 128 or 256; warps 0-3 run the tensor
-// cores, every thread loads and folds. The caller separates two tiles that
-// reuse `sm` with a __syncthreads().
-template <int EPI, int kThreads>
-__device__ __forceinline__ void tile(Smem& sm, const Args& p, int tm, int tn) {
-  using namespace nvcuda;
-  static_assert(kThreads % 128 == 0, "whole warpgroups of threads");
-  constexpr int kPairs = BM * BN / 2 / kThreads;  // column pairs per thread
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const bool mma_warp = warp < 4;
-  const int m0 = tm * BM, n0 = tn * BN;
-  const int wm = ((warp & 3) >> 1) * 32, wn = (warp & 1) * 32;
-  const int M = p.M, N = p.N, K = p.K;
+// Output pair (gm, gn), (gm, gn + 1) from its folded fp32 sums: y = acc *
+// ws[col], then the epilogue, each op rounded once.
+template <int EPI>
+__device__ __forceinline__ void store_out(const Args& p, int gm, int gn,
+                                          float f0, float f1) {
+  const float y0 = __fmul_rn(f0, p.ws[gn]);
+  const float y1 = __fmul_rn(f1, p.ws[gn + 1]);
+  const size_t o = (size_t)gm * p.N + gn;
+  if (EPI == EPI_F32) {
+    *reinterpret_cast<float2*>(static_cast<float*>(p.C) + o) =
+        make_float2(y0, y1);
+    return;
+  }
+  const float u0 = __fadd_rn(y0, load_bias(p.bias, p.bias_f32, gn));
+  const float u1 = __fadd_rn(y1, load_bias(p.bias, p.bias_f32, gn + 1));
+  if (EPI == EPI_BIAS_GELU_F32) {
+    *reinterpret_cast<float2*>(static_cast<float*>(p.C) + o) =
+        make_float2(gelu_tanh_rn(u0), gelu_tanh_rn(u1));
+  } else {
+    const float2 x = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(p.resid + o));
+    const size_t gi = (size_t)(gm / p.S) * p.gate_stride + gn;
+    store_pair(static_cast<bf16*>(p.C), o,
+               __fadd_rn(x.x, __fmul_rn(bf2f(p.gate[gi]), u0)),
+               __fadd_rn(x.y, __fmul_rn(bf2f(p.gate[gi + 1]), u1)));
+  }
+}
 
-  auto load_tile = [&](int stage, int k0) {
-    for (int chunk = tid; chunk < BM * (BK / kSlab); chunk += kThreads) {
-      const int r = chunk >> 2, s = chunk & 3;  // A: 64 rows x 4 slabs
-      const int gm = m0 + r;
-      const signed char* src =
-          p.A + (size_t)(gm < M ? gm : 0) * K + k0 + s * kSlab;
-      cp_async16(&sm.a[stage][s][r][0], src, gm < M ? 16 : 0);
-    }
-    for (int chunk = tid; chunk < BK * (BN / kSlab); chunk += kThreads) {
-      const int r = chunk >> 2, s = chunk & 3;  // B: 64 k-rows x 4 slabs
-      cp_async16(&sm.b[stage][s][r][0],
-                 p.B + (size_t)(k0 + r) * N + n0 + s * kSlab, 16);
-    }
+// Work unit u of the GEMM: tile u / splits (row tile major), K chunk
+// u % splits. ma: A (M, K) int8 and mb: W^T (N, K) int8, boxes of 64 rows
+// x 128 bytes. Every thread of the 256 calls it.
+template <int EPI>
+__device__ __forceinline__ void unit(Ring& r, const CUtensorMap* ma,
+                                     const CUtensorMap* mb, const Args& p,
+                                     int u) {
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int nsplit = splits(p.K, p.k_chunk), nt_count = n_tiles(p.N);
+  const int z = u % nsplit, t = u / nsplit;
+  const int m0 = t / nt_count * kRows, n0 = t % nt_count * BN;
+  const int slabs = (min(kRows, p.M - m0) + 63) / 64;
+  const int k_begin = z * p.k_chunk;
+  const int KT = (min(p.K, k_begin + p.k_chunk) - k_begin) / BK;
+  const int stage_bytes = (slabs + 1) * kSlabBytes;  // A slabs, then B
+  const int stages = min(kMaxStages, kRingBytes / stage_bytes);
+
+  // the block's last use of the ring's memory (another phase's buffers,
+  // the previous unit), and the rows other blocks wrote before a grid
+  // barrier, come before the copies
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+  __syncthreads();
+  auto issue = [&](int kt) {  // stage kt % stages: its A slabs, B tile
+    const int s = kt % stages;
+    unsigned char* a = r.data + s * stage_bytes;
+    const int k = k_begin + kt * BK;
+    sm90::mbar_expect_tx(&r.full[s], stage_bytes);
+    for (int j = 0; j < slabs; ++j)
+      sm90::tma_load(a + j * kSlabBytes, ma, &r.full[s], k, m0 + 64 * j);
+    sm90::tma_load(a + slabs * kSlabBytes, mb, &r.full[s], k, n0);
   };
+  if (tid == 0)
+    for (int kt = 0; kt < min(stages, KT); ++kt) issue(kt);
+  unit_stamp(p, 0);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][2];
+  constexpr int J = (kSlabs + 1) / 2;  // slabs a warpgroup
+  int d[J][32];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int j = 0; j < J; ++j)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
-  float facc[kPairs][2];
-#pragma unroll
-  for (int q = 0; q < kPairs; ++q) facc[q][0] = facc[q][1] = 0.f;
-
-  const int KT = K / BK;
-  load_tile(0, 0);
-  cp_async_commit();
+    for (int i = 0; i < 32; ++i) d[j][i] = 0;
   for (int kt = 0; kt < KT; ++kt) {
-    if (kt + 1 < KT) {
-      load_tile((kt + 1) & 1, (kt + 1) * BK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int st = kt & 1;
-    if (mma_warp) {
+    const int s = kt % stages;
+    sm90::mbar_wait(&r.full[s], (r.phase >> s) & 1);
+    r.phase ^= 1u << s;
+    const uint32_t a = sm90::smem_u32(r.data + s * stage_bytes);
+    const uint32_t b = a + slabs * kSlabBytes;
 #pragma unroll
-      for (int ks = 0; ks < BK / kSlab; ++ks) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                       wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                       wmma::row_major> fb[2];
+    for (int j = 0; j < J; ++j) fence_regs(d[j]);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], &sm.a[st][ks][wm + i * 16][0], kSlab);
+    for (int kk = 0; kk < BK / 32; ++kk) {
+      const uint64_t db = sm90::desc_sw128(b + kk * 32, 16, 1024);
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(
-              fb[j], &sm.b[st][(wn + j * 16) / kSlab][ks * kSlab][0], kSlab);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+      for (int j = 0; j < J; ++j) {
+        const int slab = wg + 2 * j;
+        if (slab < slabs)  // uniform across the warpgroup
+          wgmma_s8(d[j],
+                   sm90::desc_sw128(a + slab * kSlabBytes + kk * 32, 16, 1024),
+                   db);
       }
     }
-    __syncthreads();
-    if ((kt + 1) % p.tiles_per_group) continue;
-    // end of K group g: fold its int32 sums into the fp32 accumulators
-    const int g = (kt + 1) / p.tiles_per_group - 1;
-    if (mma_warp) {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::store_matrix_sync(&sm.c[wm + i * 16][wn + j * 16], acc[i][j],
-                                  BN + CPAD, wmma::mem_row_major);
-          wmma::fill_fragment(acc[i][j], 0);
-        }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kPairs; ++q) {
-      const int idx = tid + q * kThreads;
-      const int r = idx >> 5, c = (idx & 31) * 2;
-      const int gm = m0 + r;
-      const float s = gm < M ? p.sa[(size_t)gm * p.n_groups + g] : 0.f;
-      facc[q][0] =
-          __fadd_rn(facc[q][0], __fmul_rn(__int2float_rn(sm.c[r][c]), s));
-      facc[q][1] =
-          __fadd_rn(facc[q][1], __fmul_rn(__int2float_rn(sm.c[r][c + 1]), s));
-    }
-    // the next group's store comes after at least two more __syncthreads
+    for (int j = 0; j < J; ++j) fence_regs(d[j]);
+    __syncthreads();  // every warpgroup is done with stage s: refill it
+    if (tid == 0 && kt + stages < KT) issue(kt + stages);
   }
 
-  // epilogue: neighbouring threads take neighbouring column pairs of a row
+  unit_stamp(p, 1);
+  // the accumulators' rows and column pairs: fragment (j, q, h) is row
+  // slab * 64 + 16 * warp + lane / 4 + 8 h, columns 8 q + 2 (lane % 4) + 0/1
+  const int warp = (tid & 127) >> 5;
+  if (nsplit == 1) {  // one group: fold, dequantize and store from here
 #pragma unroll
-  for (int q = 0; q < kPairs; ++q) {
-    const int idx = tid + q * kThreads;
-    const int r = idx >> 5, c = (idx & 31) * 2;
-    const int gm = m0 + r, gn = n0 + c;
-    if (gm >= M) continue;
-    const float y0 = __fmul_rn(facc[q][0], p.ws[gn]);
-    const float y1 = __fmul_rn(facc[q][1], p.ws[gn + 1]);
-    const size_t o = (size_t)gm * N + gn;
-    if (EPI == EPI_F32) {
-      *reinterpret_cast<float2*>(static_cast<float*>(p.C) + o) =
-          make_float2(y0, y1);
-      continue;
+    for (int j = 0; j < J; ++j) {
+      const int slab = wg + 2 * j;
+      if (slab >= slabs) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gm = m0 + slab * 64 + warp * 16 + (lane >> 2) + 8 * h;
+        if (gm >= p.M) continue;
+        const float sa = p.sa[gm];
+#pragma unroll
+        for (int q = 0; q < BN / 8; ++q) {
+          const int gn = n0 + q * 8 + (lane & 3) * 2;
+          store_out<EPI>(
+              p, gm, gn,
+              __fadd_rn(0.f, __fmul_rn(__int2float_rn(d[j][4 * q + 2 * h]), sa)),
+              __fadd_rn(0.f,
+                        __fmul_rn(__int2float_rn(d[j][4 * q + 2 * h + 1]), sa)));
+        }
+      }
     }
-    const float u0 = __fadd_rn(y0, load_bias(p.bias, p.bias_f32, gn));
-    const float u1 = __fadd_rn(y1, load_bias(p.bias, p.bias_f32, gn + 1));
-    if (EPI == EPI_BIAS_GELU_F32) {
-      *reinterpret_cast<float2*>(static_cast<float*>(p.C) + o) =
-          make_float2(gelu_tanh_rn(u0), gelu_tanh_rn(u1));
-    } else {
-      const float2 x = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(p.resid + o));
-      const size_t gi = (size_t)(gm / p.S) * p.gate_stride + gn;
-      store_pair(static_cast<bf16*>(p.C), o,
-                 __fadd_rn(x.x, __fmul_rn(bf2f(p.gate[gi]), u0)),
-                 __fadd_rn(x.y, __fmul_rn(bf2f(p.gate[gi + 1]), u1)));
+    unit_stamp(p, 2);
+    return;
+  }
+  // this chunk's int32 partial out, for the slices' sum after the barrier
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int slab = wg + 2 * j;
+    if (slab >= slabs) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gm = m0 + slab * 64 + warp * 16 + (lane >> 2) + 8 * h;
+      if (gm >= p.M) continue;
+#pragma unroll
+      for (int q = 0; q < BN / 8; ++q) {
+        const int gn = n0 + q * 8 + (lane & 3) * 2;
+        *reinterpret_cast<int2*>(p.part + ((size_t)z * p.M + gm) * p.N + gn) =
+            make_int2(d[j][4 * q + 2 * h], d[j][4 * q + 2 * h + 1]);
+      }
     }
   }
+  unit_stamp(p, 2);
+}
+
+// Slice v of the split sum: rows [16 (v / tiles), ...) of column tile
+// v % tiles. A thread takes four columns of a row: it loads every chunk's
+// partial and every group's scale first (the reads from L2 overlap), adds
+// each K group's chunks (exact), folds the groups' sums into fp32 in group
+// order, and runs the epilogue.
+template <int EPI>
+__device__ __forceinline__ void slice(const Args& p, int v) {
+  constexpr int Q = BN / 4;  // items a row of a tile
+  static_assert(kSliceRows * Q == kThreads, "one item a thread");
+  const int nsplit = splits(p.K, p.k_chunk), tiles = n_tiles(p.N);
+  const int gm = v / tiles * kSliceRows + threadIdx.x / Q;
+  const int gn = v % tiles * BN + (threadIdx.x % Q) * 4;
+  if (gm >= p.M) return;
+  const int4* src =
+      reinterpret_cast<const int4*>(p.part + (size_t)gm * p.N + gn);
+  const size_t zstride = (size_t)p.M * p.N / 4;  // int4s a partial
+  int4 pv[kMaxSplits];
+  float sa[kMaxSplits];
+#pragma unroll
+  for (int zz = 0; zz < kMaxSplits; ++zz) {
+    if (zz < nsplit) pv[zz] = __ldcg(src + zz * zstride);
+    if (zz < p.n_groups) sa[zz] = p.sa[(size_t)gm * p.n_groups + zz];
+  }
+  const int per_group = p.n_groups == 1 ? nsplit : p.group / p.k_chunk;
+  float f[4] = {0.f, 0.f, 0.f, 0.f};
+  int acc[4] = {0, 0, 0, 0};
+  int g = 0;
+#pragma unroll
+  for (int zz = 0; zz < kMaxSplits; ++zz) {
+    if (zz >= nsplit) break;
+    acc[0] += pv[zz].x;
+    acc[1] += pv[zz].y;
+    acc[2] += pv[zz].z;
+    acc[3] += pv[zz].w;
+    if ((zz + 1) % per_group == 0) {
+      float s = sa[0];  // group g's scale, kept in registers
+#pragma unroll
+      for (int gg = 1; gg < kMaxSplits; ++gg)
+        if (gg == g) s = sa[gg];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        f[c] = __fadd_rn(f[c], __fmul_rn(__int2float_rn(acc[c]), s));
+        acc[c] = 0;
+      }
+      ++g;
+    }
+  }
+  store_out<EPI>(p, gm, gn, f[0], f[1]);
+  store_out<EPI>(p, gm, gn + 2, f[2], f[3]);
+}
+
+// The whole GEMM on a cooperative grid: its units strided over the blocks,
+// then, with more than one chunk, a grid barrier and the split sum's
+// slices strided over the blocks. Every thread of the grid calls it.
+template <int EPI>
+__device__ __forceinline__ void gemm(Ring& r, const CUtensorMap* ma,
+                                     const CUtensorMap* mb, const Args& p) {
+  const int n = units(p.M, p.N, p.K, p.k_chunk);
+  for (int u = blockIdx.x; u < n; u += gridDim.x) unit<EPI>(r, ma, mb, p, u);
+  const int nsplit = splits(p.K, p.k_chunk);
+  if (nsplit == 1) {
+    unit_stamp(p, 3);
+    return;
+  }
+  cooperative_groups::this_grid().sync();
+  const int slices = (p.M + kSliceRows - 1) / kSliceRows * n_tiles(p.N);
+  for (int v = blockIdx.x; v < slices; v += gridDim.x) slice<EPI>(p, v);
+  unit_stamp(p, 3);
 }
 
 }  // namespace gemm_s8

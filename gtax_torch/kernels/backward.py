@@ -271,11 +271,6 @@ def reduce_rows(a):
 
 
 @functools.lru_cache(maxsize=None)
-def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def _wgrad_tile_n(N) -> int:
     n = build.library().gtax_gemm_wgrad_tile_n(N)
     if n <= 0:
@@ -287,7 +282,7 @@ def wgrad_split(M, Ka, N, device):
     """(splits, chunk) of wgrad over M rows on `device`: wgrad_plan at the
     kernel's tile for width N."""
     c = build.gemm_consts()
-    return wgrad_plan(M, Ka, N, _sms(device), c.tile_m, _wgrad_tile_n(N),
+    return wgrad_plan(M, Ka, N, block.sm_count(device), c.tile_m, _wgrad_tile_n(N),
                       c.k_step)
 
 

@@ -36,6 +36,8 @@ branch output is cast once, o = cast(x32 + gate * (y + b)).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from gtax_torch.core.rope import apply_rotary_emb as rope
@@ -211,6 +213,62 @@ def temporal_step_plain(x, shift, scale, gate, qkv_w, out_w, out_b, k_ctx,
     return (x32 + gate.float()[:, None] * y).to(dt)
 
 
+# --------------------------------------------------- the small-M plan
+
+# One call's time on each path, from `python -m gtax_torch.tools.gemm_sweep
+# --small` (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): a fixed part
+# and a part per k-step of the busiest block, L2 flushed before the call.
+SMALL_FIXED_S, SMALL_STEP_S = 12.7e-6, 0.78e-6
+TILED_FIXED_S, TILED_STEP_S = 7.5e-6, 0.30e-6
+
+
+def small_chunk(M, N, K, sms, tile_n, k_step, max_rows, max_splits):
+    """K chunk of the bf16 GEMM's small-M path (csrc/gemm_sm90.cuh
+    small_kernel), or 0 where it cannot run: up to max_rows rows, one block
+    covers every row of a tile_n-column tile, and K is cut into the most
+    chunks of whole k-steps (at most max_splits) whose blocks (tiles x
+    chunks) still fit in one wave of the card's SMs, so that every weight
+    byte is read once and the read is spread over the card."""
+    if M > max_rows or N % tile_n:
+        return 0
+    tiles, steps = N // tile_n, -(-K // k_step)
+    for c in range(1, steps + 1):
+        splits = -(-steps // c)
+        if splits <= max_splits and tiles * splits <= sms:
+            return c * k_step
+    return steps * k_step
+
+
+def small_plan(M, N, K, sms, tile_n, k_step, max_rows, max_splits,
+               tile_m=128, tiled_n=128):
+    """K chunk of the small-M path where the cost model finds it faster
+    than the tiled path (tile_m x tiled_n tiles, K walked in k-steps by
+    every block, in waves of the SMs), else 0 (the tiled path). At a
+    denoise step that is fc2 (K=4096 over 16 tiled blocks); qkv, the
+    out-projection and fc1 stay tiled."""
+    chunk = small_chunk(M, N, K, sms, tile_n, k_step, max_rows, max_splits)
+    if not chunk:
+        return 0
+    steps = -(-K // k_step)
+    tiled_blocks = -(-M // tile_m) * -(-N // tiled_n)
+    tiled = TILED_FIXED_S + TILED_STEP_S * steps * -(-tiled_blocks // sms)
+    small = SMALL_FIXED_S + SMALL_STEP_S * (chunk // k_step)
+    return chunk if small < tiled else 0
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_chunk(M, N, K, device):
+    """small_plan at the library's tiles for a call on `device`."""
+    c = build.gemm_consts()
+    return small_plan(M, N, K, sm_count(device), c.small_n, c.k_step,
+                      c.small_rows, c.small_splits, c.tile_m)
+
+
 # ------------------------------------------------------- kernel launches
 
 def _stream(t: torch.Tensor) -> int:
@@ -263,16 +321,26 @@ def _ptr(t):
 
 
 def launch_gemm(a, w, out, M, N, K, epi, bias=None, resid=None, gate=None,
-                S=1, out2=None, aux=None, colsum=None, trans_b=False):
+                S=1, out2=None, aux=None, colsum=None, trans_b=False,
+                k_chunk=None):
     """out = epilogue(a @ w), or a @ w^T with trans_b (w stored (N, K));
     out2/aux/colsum: the second output, the h1 input and the per-tile
-    column sums of the emit_train and gelu' epilogues."""
+    column sums of the emit_train and gelu' epilogues. k_chunk: the
+    small-M path's K chunk (0: the tiled path), gemm_chunk's by default;
+    its grid (N / 64 x chunks) must fit on the card at once."""
+    if k_chunk is None:
+        k_chunk = gemm_chunk(M, N, K, a.device)
+    splits = -(-K // k_chunk) if k_chunk else 1
+    part = None
+    if splits > 1:
+        part = torch.empty((splits, M, N), dtype=torch.float32,
+                           device=a.device)
     build.launch(
         "gtax_gemm_bf16", a.data_ptr(), w.data_ptr(), out.data_ptr(),
         _ptr(out2), _ptr(aux), _ptr(colsum), _ptr(bias),
         int(bias is not None and bias.dtype == torch.float32), _ptr(resid),
         _ptr(gate), 0 if gate is None else gate.stride(0), M, N, K, S, epi,
-        int(trans_b), _stream(a))
+        int(trans_b), k_chunk, _ptr(part), _stream(a))
 
 
 def launch_attn_frame(qkv, freqs, out, n_frames, S, D, num_heads, rot,

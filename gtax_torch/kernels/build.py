@@ -10,7 +10,10 @@ The build runs at first use, inside the first wrapper call that launches a
 kernel (or `library()` called directly); a missing nvcc or a failed build
 raises. `probe_library` builds the two attention sources alone with
 GTAX_PROBE_STOP defined, a copy whose kernels stop early so that
-gtax_torch/tools/attn_sweep.py can time their phases; nothing else loads it.
+gtax_torch/tools/attn_sweep.py can time their phases; `pair_probe_library`
+builds pair_q.cu alone with GTAX_PAIR_PROBE defined, a copy that stamps the
+clock at each of its phases for gtax_torch/tools/split.py. Nothing else
+loads either.
 
 C entry points take pointers and the stream as `c_void_p` and sizes as
 `c_int`, and return `cudaGetLastError()`; `launch` raises on a nonzero code.
@@ -41,11 +44,14 @@ SIGNATURES = {
     # x, out, row_scale, p0, p1, rows, D, S, p_stride, mode, stream
     "gtax_ln_mod": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # A, B, C, C2, aux, colsum, bias, bias_f32, resid, gate, gate_stride, M,
-    # N, K, S, epi, trans_b, stream
+    # N, K, S, epi, trans_b, k_chunk, part, stream
     "gtax_gemm_bf16": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                       _I, _I, _I, _I, _P),
-    # out: int[2] = the GEMM tile's rows, k-step
+                       _I, _I, _I, _I, _I, _P, _P),
+    # out: int[5] = the GEMM tile's rows, k-step, the small-M path's
+    # columns, rows, most K chunks
     "gtax_gemm_consts": (_P,),
+    # out: int[4] = the int8 unit's rows, columns, k-step, most K chunks
+    "gtax_gemm_s8_consts": (_P,),
     # A, B, C, M, Ka, N, chunk, stream
     "gtax_gemm_wgrad": (_P, _P, _P, _I, _I, _I, _I, _P),
     # N -> the weight-gradient tile's columns, or -error
@@ -57,9 +63,9 @@ SIGNATURES = {
     # x, dmod, scale, p_stride, ct, dx, dshift, dscale, F, S, D, stream
     "gtax_ln_mod_bwd": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
     # A, B, C, sa, group, ws, bias, bias_f32, resid, gate, gate_stride, M,
-    # N, K, S, epi, stream
+    # N, K, S, epi, k_chunk, part, stream
     "gtax_gemm_s8": (_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                     _I, _I, _P),
+                     _I, _I, _I, _P, _P),
     # a, q, scale, rows, cols, G, stream
     "gtax_quant_rows": (_P, _P, _P, _I, _I, _I, _P),
     # qkv, qkv_f32, freqs, out, out_f32, q_out, k_out, v_out, n_frames, S,
@@ -81,10 +87,10 @@ SIGNATURES = {
     # p2_stride, g2_stride, qkv_q, qkv_s, out_q, out_s, out_b, out_b_f32,
     # w1_q, w1_s, b1, b1_f32, w2_q, w2_s, b2, b2_f32, freqs, k_ctx, v_ctx,
     # out, ws, ws_bytes, M, S, D, Hd, G, num_heads, B, n_live, n_ctx,
-    # valid_mask, stream
+    # valid_mask, kc_qkv, kc_out, kc_fc1, kc_fc2, stream
     "gtax_pair_q": (_I, *(_P,) * 7, *(_I,) * 4, *(_P,) * 5, _I,
                     *(_P,) * 3, _I, *(_P,) * 3, _I, *(_P,) * 5, _L,
-                    *(_I,) * 10, _P),
+                    *(_I,) * 14, _P),
     # temporal, hd, S, D -> the cooperative grid's blocks, or -error
     "gtax_pair_q_blocks": (_I, _I, _I, _I),
     # q, k, v, bias, out, N, S, num_heads, hd, q_ld, k_ld, v_ld, o_ld,
@@ -94,6 +100,8 @@ SIGNATURES = {
 # the sources of the probe copy, and the entry points it binds
 PROBE_SOURCES = ("attn_sdpa.cu", "attn_bwd.cu")
 PROBE_ENTRIES = ("gtax_attn_sdpa", "gtax_attn_frame_bwd")
+PAIR_PROBE_SOURCES = ("pair_q.cu",)
+PAIR_PROBE_ENTRIES = ("gtax_pair_q", "gtax_pair_q_blocks")
 
 _lib = None
 _probes = {}
@@ -103,8 +111,8 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest(flags) -> str:
-    h = hashlib.sha256(" ".join(flags).encode())
+def _digest(flags, names=None) -> str:
+    h = hashlib.sha256(" ".join((*flags, *(names or ()))).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -129,7 +137,7 @@ def build(verbose: bool = False, defines=(), names=None) -> Path:
     were built so already; returns the library path."""
     flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     srcs = sources() if names is None else [CSRC / n for n in names]
-    out = BUILD_DIR / _digest(flags) / LIB_NAME
+    out = BUILD_DIR / _digest(flags, names) / LIB_NAME
     if out.exists():
         return out
     nvcc = _nvcc()
@@ -195,11 +203,29 @@ def probe_library(stop: int):
     return _probes[stop]
 
 
+def pair_probe_library():
+    """The probe copy of pair_q (built at first use, with GTAX_PAIR_PROBE):
+    its kernel computes the pair and also stamps the clock at each phase
+    into the workspace past its buffers (csrc/pair_q.cu)."""
+    if "pair" not in _probes:
+        _probes["pair"] = _load(build(defines=("GTAX_PAIR_PROBE=1",),
+                                      names=PAIR_PROBE_SOURCES),
+                                PAIR_PROBE_ENTRIES)
+    return _probes["pair"]
+
+
 class GemmConsts(NamedTuple):
-    """The bf16 GEMMs' tiling as the kernels define it (csrc/gemm_sm90.cuh,
-    csrc/gemm_bf16.cu)."""
+    """The GEMMs' tiling as the kernels define it (csrc/gemm_sm90.cuh,
+    csrc/gemm_bf16.cu, csrc/gemm_s8.cuh)."""
     tile_m: int  # rows of an output tile (and of a gelu' column partial)
     k_step: int  # depth of a k-step (a wgrad row chunk is a multiple of it)
+    small_n: int  # columns of a small-M block
+    small_rows: int  # the most rows the small-M path takes
+    small_splits: int  # the most K chunks of the small-M path
+    s8_rows: int  # rows of an int8 unit (the most one unit covers)
+    s8_n: int  # columns of an int8 unit
+    s8_k_step: int  # depth of an int8 k-step (a K chunk is a multiple)
+    s8_splits: int  # the most K chunks of an int8 GEMM
 
 
 _consts = None
@@ -209,9 +235,10 @@ def gemm_consts() -> GemmConsts:
     """The constants the kernel library exports (built at first use)."""
     global _consts
     if _consts is None:
-        buf = (ctypes.c_int * 2)()
-        launch("gtax_gemm_consts", ctypes.addressof(buf))
-        _consts = GemmConsts(*buf)
+        bf, s8 = (ctypes.c_int * 5)(), (ctypes.c_int * 4)()
+        launch("gtax_gemm_consts", ctypes.addressof(bf))
+        launch("gtax_gemm_s8_consts", ctypes.addressof(s8))
+        _consts = GemmConsts(*bf, *s8)
     return _consts
 
 

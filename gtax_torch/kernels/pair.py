@@ -13,12 +13,15 @@ plain version, which IS the sequential pair of plain versions
 (`spatial_branch_q_plain` then `mlp_branch_q_plain`; `temporal_step_q_plain`
 then `mlp_branch_q_plain`); a CUDA tensor gets one cooperative launch of
 gtax_torch/csrc/pair_q.cu (nine phases separated by grid-wide barriers, each
-phase the device code of the sequential kernels) or an exception. A device
+phase the device code of the sequential kernels) or an exception. The int8
+weights are read as quant.card_layout stores them. A device
 that refuses a cooperative launch raises; nothing falls back to the
 sequential wrappers. Each wrapper counts its launches in `launches`.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -54,14 +57,24 @@ def _align256(n: int) -> int:
     return (n + 255) // 256 * 256
 
 
-def workspace_bytes(M: int, D: int, Hd: int, G: int) -> int:
+def gemm_shapes(D: int, Hd: int):
+    """(N, K) of the pair's four int8 GEMMs: qkv, out-projection, fc1,
+    fc2."""
+    return ((3 * D, D), (D, D), (Hd, D), (D, Hd))
+
+
+def workspace_bytes(M: int, D: int, Hd: int, G: int, chunks) -> int:
     """Bytes of the pair kernel's workspace: the int8 LN rows and scales,
     fp32 qkv, fp32 attention, its int8 rows and scales, the bf16 seam, the
     second LN's int8 rows and scales, the fp32 GELU output and its int8
-    chunks and scales, each on a 256-byte boundary (csrc/pair_q.cu
-    workspace_layout)."""
+    chunks and scales, and the int32 split-K partials of the GEMM that
+    needs the most (chunks: the four GEMMs' K chunks), each on a 256-byte
+    boundary (csrc/pair_q.cu workspace_layout)."""
+    part = max([-(-K // c) * M * N * 4
+                for (N, K), c in zip(gemm_shapes(D, Hd), chunks)
+                if -(-K // c) > 1], default=0)
     sizes = (M * D, M * 4, M * 3 * D * 4, M * D * 4, M * D, M * 4, M * D * 2,
-             M * D, M * 4, M * Hd * 4, M * Hd, M * (Hd // G) * 4)
+             M * D, M * 4, M * Hd * 4, M * Hd, M * (Hd // G) * 4, part)
     return sum(_align256(s) for s in sizes)
 
 
@@ -72,6 +85,14 @@ def grid_blocks(temporal: bool, head_dim: int, S: int, D: int) -> int:
     if n <= 0:
         raise RuntimeError(f"gtax_pair_q_blocks: CUDA error {-n}")
     return n
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_chunks(M: int, D: int, Hd: int, G: int, blocks: int):
+    """The K chunks of the pair's four GEMMs on a grid of `blocks`
+    (quant.s8_plan; fc2's stay inside its K groups of G)."""
+    return tuple(quant.s8_chunk(M, N, K, G if i == 3 else K, blocks)
+                 for i, (N, K) in enumerate(gemm_shapes(D, Hd)))
 
 
 def _check_pair(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q, out_s,
@@ -93,9 +114,9 @@ def _check_pair(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q, out_s,
     block._check_bias("b1", b1, Hd)
     block._check_bias("b2", b2, D)
     G = Hd // quant._mlp_chunks(Hd)
-    _need(max(D, G) <= quant.MAX_EXACT_K and G % 64 == 0,
+    _need(max(D, G) <= quant.MAX_EXACT_K and G % 128 == 0,
           lambda: f"int8 K groups of D={D} and chunk {G}: each must be a "
-                  f"multiple of 64 and at most {quant.MAX_EXACT_K}")
+                  f"multiple of 128 and at most {quant.MAX_EXACT_K}")
     return N, S, D, Hd, G
 
 
@@ -105,10 +126,18 @@ def _f32(t):
 
 def _launch(temporal, x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
             out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s, b2, freqs, k_ctx,
-            v_ctx, num_heads, Hd, G, B=0, n_live=0, n_ctx=0, bits=0):
+            v_ctx, num_heads, Hd, G, B=0, n_live=0, n_ctx=0, bits=0,
+            lib=None, extra=0):
+    """One launch (of `lib`, else the library) with `extra` bytes past the
+    workspace's buffers; returns (out, workspace)."""
     N, S, D = x.shape
     M = N * S
-    size = workspace_bytes(M, D, Hd, G)
+    blocks = (lib or build.library()).gtax_pair_q_blocks(
+        int(temporal), D // num_heads, S, D)
+    if blocks <= 0:
+        raise RuntimeError(f"gtax_pair_q_blocks: CUDA error {-blocks}")
+    chunks = gemm_chunks(M, D, Hd, G, blocks)
+    size = workspace_bytes(M, D, Hd, G, chunks) + extra
     ws = torch.empty(size, dtype=torch.uint8, device=x.device)
     out = torch.empty_like(x)
     build.launch(
@@ -122,8 +151,8 @@ def _launch(temporal, x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
         None if k_ctx is None else k_ctx.data_ptr(),
         None if v_ctx is None else v_ctx.data_ptr(), out.data_ptr(),
         ws.data_ptr(), size, M, S, D, Hd, G, num_heads, B, n_live, n_ctx,
-        bits, _stream(x))
-    return out
+        bits, *chunks, _stream(x), lib=lib)
+    return out, ws
 
 
 def fused_spatial_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
@@ -150,7 +179,7 @@ def fused_spatial_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
     block._check_freqs(rope_freqs, S, d)
     out = _launch(False, x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
                   out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s, b2, rope_freqs,
-                  None, None, num_heads, Hd, G)
+                  None, None, num_heads, Hd, G)[0]
     fused_spatial_pair_q.launches += 1
     return out
 
@@ -195,7 +224,7 @@ def fused_temporal_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s,
     out = _launch(True, x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
                   out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s, b2, rope_freqs,
                   k_ctx, v_ctx, num_heads, Hd, G, B, n_live, n_ctx,
-                  block.valid_bits(valid, T))
+                  block.valid_bits(valid, T))[0]
     fused_temporal_pair_q.launches += 1
     return out
 

@@ -5,6 +5,9 @@ Counterpart of gtax/kernels/quant.py, serving only (the emit_train
 residuals wait for the training slice). The scheme is gtax's:
   - weights: symmetric per-output-column int8 with fp32 scales, computed
     once by `quantize_weight` (gtax_torch.models.dit.quantize_for_inference);
+    on the card the (in, out) int8 kernel is stored column-major
+    (`card_layout`), as the int8 tensor cores read it (K-major), with the
+    same values and shape;
   - activations: symmetric per-row int8, quantized dynamically from fp32
     (`quant_rows`: s = max(amax, 1e-12) * (1/127), q = round_half_even(
     a * (1/s)));
@@ -25,6 +28,8 @@ Each wrapper counts its kernel-launching calls in `launches`.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -64,11 +69,27 @@ MAX_EXACT_K = (2**24 - 1) // (127 * 127)
 
 def quantize_weight(w):
     """Symmetric per-output-column int8: w ~= q * s, s: (..., 1, dout)
-    fp32, for (din, dout) kernels and stacked (L, din, dout) arrays."""
+    fp32, for (din, dout) kernels and stacked (L, din, dout) arrays; on the
+    card q is stored in card_layout."""
     w32 = w.float()
     amax = w32.abs().amax(dim=-2, keepdim=True)
     s = amax.clamp_min(1e-12) / 127.0
-    return torch.round(w32 / s).to(I8), s
+    q = torch.round(w32 / s).to(I8)
+    return (card_layout(q) if q.is_cuda else q), s
+
+
+def card_layout(w_q):
+    """An (in, out) int8 kernel (or a stack of them) stored column-major:
+    the same values and shape, each output column's `in` weights
+    contiguous, which is W^T (out, in) row-major, the K-major operand the
+    int8 tensor cores read (csrc/gemm_s8.cuh). A copy made once, when the
+    params are prepared for the card; unchanged if already so."""
+    return w_q.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def is_card_layout(w_q) -> bool:
+    return (w_q.dim() >= 2 and w_q.stride(-2) == 1
+            and w_q.stride(-1) == w_q.shape[-2])
 
 
 def quant_rows(a32, group=None):
@@ -186,6 +207,53 @@ def temporal_step_q_plain(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
     return _gated(x32, gate, y, dt)
 
 
+# --------------------------------------------------- the int8 plan
+
+# in k-steps: a unit's fixed cost (ring fill, epilogue), and a chunk's
+# partial (stored, then read by the split sum after the grid barrier);
+# gemm_sweep --int8 and the pair's chunk variants (PERF.md section 6)
+S8_UNIT_STEPS = 3.0
+S8_PARTIAL_STEPS = 0.5
+
+
+def s8_cost(M, N, K, group, blocks, rows, tile_n, k_step, chunk_steps):
+    """(relative time, splits) of the int8 GEMM with K chunks of
+    chunk_steps k-steps on `blocks` co-resident blocks: the waves of units,
+    each streaming its chunk, plus the chunks' partials."""
+    tiles = -(-M // rows) * (N // tile_n)
+    splits = -(-(K // k_step) // chunk_steps)
+    waves = -(-tiles * splits // blocks)
+    cost = waves * (chunk_steps + S8_UNIT_STEPS)
+    if splits > 1:
+        cost += splits * S8_PARTIAL_STEPS
+    return cost, splits
+
+
+def s8_plan(M, N, K, group, blocks, rows, tile_n, k_step, max_splits):
+    """K chunk of the int8 GEMM (csrc/gemm_s8.cuh units: every row up to
+    `rows` in one unit, so each weight byte is read once, K split so the
+    units spread the read over the blocks): of the chunks of whole k-steps
+    (inside one K group where K has several; at most max_splits chunks),
+    the one s8_cost finds cheapest, the longer on a tie."""
+    steps, g_steps = K // k_step, group // k_step
+    best = None
+    for c in range(steps, 0, -1):
+        if (group < K and g_steps % c) or -(-steps // c) > max_splits:
+            continue
+        cost = s8_cost(M, N, K, group, blocks, rows, tile_n, k_step, c)[0]
+        if best is None or cost < best[0]:
+            best = (cost, c)
+    return best[1] * k_step
+
+
+@functools.lru_cache(maxsize=None)
+def s8_chunk(M, N, K, group, blocks):
+    """s8_plan at the library's unit."""
+    c = build.gemm_consts()
+    return s8_plan(M, N, K, group, blocks, c.s8_rows, c.s8_n, c.s8_k_step,
+                   c.s8_splits)
+
+
 # ------------------------------------------------------- kernel launches
 
 def _check_scale(name, s, n):
@@ -196,7 +264,12 @@ def _check_scale(name, s, n):
 
 
 def _check_qlinear(name, w_q, w_s, din, dout):
-    _check_mat(f"{name}_q", w_q, (din, dout), I8)
+    _need(w_q.is_cuda and w_q.dtype == I8 and w_q.shape == (din, dout)
+          and is_card_layout(w_q),
+          lambda: f"{name}_q must be a CUDA int8 ({din}, {dout}) kernel "
+                  f"stored column-major (quantize_weight on the card, or "
+                  f"card_layout), got {block._desc(w_q)} strides "
+                  f"{tuple(w_q.stride())}")
     _check_scale(f"{name}_s", w_s, dout)
 
 
@@ -228,14 +301,23 @@ def _quant_rows_cuda(a, group):
 
 
 def _gemm_s8(a, sa, w_q, w_s, out, epi, bias=None, resid=None, gate=None,
-             S=1):
+             S=1, k_chunk=None):
     """out = epilogue(dequant(a @ w_q)); sa (M, K // group) row-group
-    scales, the group width following from sa's shape."""
+    scales, the group width following from sa's shape; w_q in card_layout;
+    k_chunk: the split-K chunk, s8_chunk's by default."""
     M, K = a.shape
+    N = w_q.shape[1]
     group = K // sa.shape[1]
-    _need(group <= MAX_EXACT_K and group % 64 == 0,
-          lambda: f"int8 K group of {group}: must be a multiple of 64 and at "
-                  f"most {MAX_EXACT_K}")
+    _need(group <= MAX_EXACT_K and group % 128 == 0,
+          lambda: f"int8 K group of {group}: must be a multiple of 128 and "
+                  f"at most {MAX_EXACT_K}")
+    if k_chunk is None:
+        k_chunk = s8_chunk(M, N, K, group, block.sm_count(a.device))
+    splits = -(-K // k_chunk)
+    part = None
+    if splits > 1:
+        part = torch.empty((splits, M, N), dtype=torch.int32,
+                           device=a.device)
     build.launch(
         "gtax_gemm_s8", a.data_ptr(), w_q.data_ptr(), out.data_ptr(),
         sa.data_ptr(), group, w_s.data_ptr(),
@@ -243,8 +325,8 @@ def _gemm_s8(a, sa, w_q, w_s, out, epi, bias=None, resid=None, gate=None,
         int(bias is not None and bias.dtype == F32),
         None if resid is None else resid.data_ptr(),
         None if gate is None else gate.data_ptr(),
-        0 if gate is None else gate.stride(0), M, w_q.shape[1], K, S, epi,
-        _stream(a))
+        0 if gate is None else gate.stride(0), M, N, K, S, epi, k_chunk,
+        block._ptr(part), _stream(a))
 
 
 def _qkv_cuda(x, shift, scale, qkv_q, qkv_s):

@@ -179,11 +179,14 @@ def quantize_for_inference(params):
     two adaLN heads become {"kernel_q": int8, "scale": fp32 (1, out)} plus
     the bias. The embedders and the final layer stay in the compute dtype.
     Apply after cast_params_for_inference; the result serves inference
-    only, and quantizing it again changes nothing."""
+    only, and quantizing it again changes nothing. On the card the int8
+    kernels are stored as the int8 tensor cores read them
+    (quant.card_layout), already quantized ones included."""
 
     def qlin(d):
         if "kernel_q" in d:
-            return d
+            q = d["kernel_q"]
+            return dict(d, kernel_q=quant.card_layout(q)) if q.is_cuda else d
         q, s = quant.quantize_weight(d["kernel"])
         return {"kernel_q": q, "scale": s,
                 **({"bias": d["bias"]} if "bias" in d else {})}

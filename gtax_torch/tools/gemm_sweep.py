@@ -2,9 +2,17 @@
 main paths' products and row counts, beside one cuBLAS call of the same
 product, on one NVIDIA GPU; or, with --wgrad-splits, the B=16 training
 step's four weight gradients (`gtax_torch.kernels.backward.wgrad`) at every
-row-chunk count from 1 to 8, the plan's count marked.
+row-chunk count from 1 to 8, the plan's count marked; or, with --small,
+the serving step's four bf16 products at 144 and 288 rows on the small-M
+path at every K chunk count (1, 2, 4, 8 chunks) whose cooperative grid
+fits on the card, and on the tiled path,
+beside cuBLAS, the plan's (`block.gemm_chunk`) marked; or, with --int8,
+the four int8 products (fc2 in K groups of 512) at 144 and 288 rows at
+every K chunk the tile takes, beside one `torch._int_mm` of the whole
+product on a column-major weight, the plan's (`quant.s8_chunk`) marked.
 
-    python -m gtax_torch.tools.gemm_sweep [--wgrad-splits] [--out FILE]
+    python -m gtax_torch.tools.gemm_sweep [--wgrad-splits | --small |
+                                           --int8] [--out FILE]
 
 It uses only `launch_gemm`'s arguments that every version of the port has,
 so it can time another checkout's kernel as well: put that checkout first
@@ -116,10 +124,103 @@ def wgrad_splits(M=11520):
     return rows
 
 
+SERVING = SHAPES[:4]  # the forward products of a denoise step
+
+
+def small_sweep():
+    from gtax_torch.kernels import block, build
+
+    gen = np.random.default_rng(11)
+    k_step = build.gemm_consts().k_step
+    rows = []
+    for N, K, _, what in SERVING:
+        w = torch.from_numpy(gen.standard_normal((K, N)).astype(
+            np.float32) * 0.02).to("cuda", torch.bfloat16)
+        for M in (144, 288):
+            a = torch.from_numpy(gen.standard_normal((M, K)).astype(
+                np.float32)).to("cuda", torch.bfloat16)
+            out = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
+            plan = block.gemm_chunk(M, N, K, a.device)  # 0: tiled
+            lib = median_ms(lambda: torch.matmul(a, w))
+            chunks = sorted({-(-K // s // k_step) * k_step
+                             for s in (1, 2, 4, 8)
+                             if s == 1 or N // 64 * s <= block.sm_count(
+                                 a.device)}, reverse=True)
+            ref = None
+            for chunk in (0, *chunks):
+                ms = median_ms(lambda: block.launch_gemm(
+                    a, w, out, M, N, K, EPI_BF16, k_chunk=chunk))
+                got = out.clone()
+                ref = got if ref is None else ref
+                err = float((got.float() - ref.float()).abs().max())
+                splits = -(-K // chunk) if chunk else 0
+                mark = "  <- plan" if chunk == plan else ""
+                path = (f"small, {splits} chunks of {chunk}" if chunk
+                        else "tiled")
+                blocks = N // 64 * splits if chunk else None
+                print(f"[small] {what:8s} M={M} N={N} K={K} {path}: "
+                      f"{ms:.4f} ms, cuBLAS {lib:.4f} ms, max|diff| vs tiled "
+                      f"{err:.3g}{mark}", flush=True)
+                rows.append({"what": what, "M": M, "N": N, "K": K,
+                             "k_chunk": chunk, "splits": splits,
+                             "blocks": blocks, "ms": ms, "library_ms": lib,
+                             "plan": chunk == plan})
+    return rows
+
+
+def int8_sweep():
+    from gtax_torch.kernels import block, build, quant
+
+    gen = np.random.default_rng(12)
+    c = build.gemm_consts()
+    rows = []
+    for N, K, _, what in SERVING:
+        group = 512 if what == "fc2" else K
+        w_q, w_s = quant.quantize_weight(torch.from_numpy(
+            gen.standard_normal((K, N)).astype(np.float32) * 0.02).cuda())
+        w_cm = w_q.t().contiguous().t()  # column-major, as _int_mm is fed
+        for M in (144, 288):
+            a32 = torch.from_numpy(gen.standard_normal((M, K)).astype(
+                np.float32)).cuda()
+            q, sa = quant.quant_rows(a32, group)
+            out = torch.empty((M, N), dtype=torch.float32, device="cuda")
+            plan = quant.s8_chunk(M, N, K, group, block.sm_count(a32.device))
+            lib = median_ms(lambda: torch._int_mm(q, w_cm))
+            steps = K // c.s8_k_step
+            cands = [k * c.s8_k_step for k in range(steps, 0, -1)
+                     if (group == K or (group // c.s8_k_step) % k == 0)
+                     and -(-steps // k) <= c.s8_splits]
+            ref = None
+            for chunk in cands:
+                ms = median_ms(lambda: quant._gemm_s8(
+                    q, sa, w_q, w_s, out, quant.EPI_F32, k_chunk=chunk))
+                got = out.clone()
+                ref = got if ref is None else ref
+                equal = bool(torch.equal(got, ref))
+                splits = -(-K // chunk)
+                units = -(-M // c.s8_rows) * (N // c.s8_n) * splits
+                mark = "  <- plan" if chunk == plan else ""
+                print(f"[int8] {what:8s} M={M} N={N} K={K} group={group} "
+                      f"{splits} chunks of {chunk} ({units} units): "
+                      f"{ms:.4f} ms, torch._int_mm {lib:.4f} ms, bit-equal "
+                      f"to one chunk {equal}{mark}", flush=True)
+                rows.append({"what": what, "M": M, "N": N, "K": K,
+                             "group": group, "k_chunk": chunk,
+                             "splits": splits, "units": units, "ms": ms,
+                             "library_ms": lib, "bit_equal": equal,
+                             "plan": chunk == plan})
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--wgrad-splits", action="store_true",
-                    help="time the weight gradients' split counts instead")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--wgrad-splits", action="store_true",
+                      help="time the weight gradients' split counts instead")
+    mode.add_argument("--small", action="store_true",
+                      help="time the small-M path's K chunks instead")
+    mode.add_argument("--int8", action="store_true",
+                      help="time the int8 products' K chunks instead")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -132,8 +233,9 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    result = {"card": card,
-              "rows": wgrad_splits() if args.wgrad_splits else sweep()}
+    run = (wgrad_splits if args.wgrad_splits else small_sweep if args.small
+           else int8_sweep if args.int8 else sweep)
+    result = {"card": card, "rows": run()}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f)

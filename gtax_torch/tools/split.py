@@ -1,0 +1,248 @@
+"""Split the serving step's weight-streaming kernels on one NVIDIA GPU:
+`fused_mlp_branch` (#2) by launch, and the paired int8 half-block
+(`pair_q`, #10 / #11) by phase.
+
+    python -m gtax_torch.tools.split [--out FILE]
+
+The launch split records CUDA events around each kernel launch of one
+call (`launch_split`, also `chip_smoke.py`'s `[split]`). The phase split
+runs the probe copy of csrc/pair_q.cu (`build.pair_probe_library`, built
+here at first use), whose kernel stamps %globaltimer from every block at
+its start, after each of its nine phases and after each grid barrier; a
+phase's time runs from the first block leaving the barrier before it to
+the last block finishing its work, a barrier's from that last block to the
+last block leaving it (`pair_phases`). In each GEMM phase the probe also
+stamps each block's last unit (csrc/gemm_s8.cuh): when it starts, when its
+main loop ends, when its partial (or, with one chunk, its output) is
+stored, and when the block's slices of the split sum end; the split
+prints the slowest block's times. Shapes are
+DiT-S/2's at one and two frames (144 and 288 rows), random seeded
+weights. The L2 cache is flushed
+and the stream held 10 ms before each timed call. The last line of the
+output is a JSON object of every row.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+
+import numpy as np
+import torch
+
+CYCLES_PER_MS = 1.98e6  # the H100's boost clock (torch.cuda._sleep counts)
+D, H, HD, S = 1024, 16, 64, 144
+PHASES = ("ln_mod", "qkv", "attention", "quant", "out-proj", "ln_mod 2",
+          "fc1", "quant 2", "fc2")
+GEMM_PHASES = (1, 4, 6, 8)  # qkv, out-proj, fc1, fc2 (0-based)
+STAMPS = 18 + 4 * len(GEMM_PHASES)  # csrc/pair_q.cu kStamps
+
+
+def _cold(flush):
+    """Flush the L2 and hold the stream, so the host enqueues the whole
+    call before the card reaches it."""
+    flush.zero_()
+    torch.cuda._sleep(int(10 * CYCLES_PER_MS))
+
+
+def launch_split(fn, label, gemm_flops, log=print):
+    """Each kernel launch of one call of fn, in order: its ms (CUDA events
+    recorded on the stream around the launch), its share of the call, and
+    for the GEMMs (in order, gemm_flops) TFLOP/s. (A torch.profiler trace
+    lost the first launches of the B=16 backward, so the split is timed
+    directly.) Returns the list of entries."""
+    from gtax_torch.kernels import build
+
+    real = build.launch
+    marks = []
+
+    def timed(name, *args, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        real(name, *args, **kw)
+        ev[1].record()
+        marks.append((name, ev))
+
+    fn()
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    torch.cuda.synchronize()
+    _cold(flush)
+    call = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    build.launch = timed
+    try:
+        call[0].record()
+        fn()
+        call[1].record()
+    finally:
+        build.launch = real
+    torch.cuda.synchronize()
+    total = call[0].elapsed_time(call[1])
+    flops = list(gemm_flops)
+    out = []
+    log(f"[split] {label}: {len(marks)} launches, {total:.4f} ms for the "
+        "call")
+    for name, (e0, e1) in marks:
+        ms = e0.elapsed_time(e1)
+        entry = {"kernel": name, "ms": ms, "share": ms / total}
+        extra = ""
+        if name in ("gtax_gemm_bf16", "gtax_gemm_wgrad") and flops:
+            fl = flops.pop(0)
+            entry["tflops"] = fl / ms / 1e9
+            extra = f", {fl / 1e9:.1f} GFLOP at {entry['tflops']:.0f} TFLOP/s"
+        log(f"[split]   {ms:8.4f} ms {100 * ms / total:5.1f}%  {name}{extra}")
+        out.append(entry)
+    return out
+
+
+def _rand(gen, shape, std=1.0):
+    a = gen.standard_normal(shape).astype(np.float32) * std
+    return torch.from_numpy(a).to("cuda", torch.bfloat16)
+
+
+def mlp_inputs(N, seed=10):
+    """fused_mlp_branch's arguments over N frames of 144 tokens."""
+    gen = np.random.default_rng(seed + N)
+    x = _rand(gen, (N, S, D))
+    mods = _rand(gen, (N, 3 * D), 0.5)
+    return (x, mods[:, :D], mods[:, D:2 * D], mods[:, 2 * D:],
+            _rand(gen, (D, 4 * D), 0.02), _rand(gen, (4 * D,), 0.02),
+            _rand(gen, (4 * D, D), 0.02), _rand(gen, (D,), 0.02))
+
+
+def pair_args(kind, N, seed=92):
+    """(temporal, the checked launch arguments of pair._launch) of one
+    paired half-block over N frames: "spatial", or "temporal" (the step of
+    B=N elements over a 4-frame cache, slot 0 padded)."""
+    from gtax_torch.core import rope
+    from gtax_torch.kernels import block, quant
+
+    gen = np.random.default_rng(seed + N)
+    x = _rand(gen, (N, S, D))
+    mods = _rand(gen, (N, 6 * D), 0.5)
+    vec = [mods[:, i * D:(i + 1) * D] for i in range(6)]
+
+    def qw(shape):
+        return quant.quantize_weight(_rand(gen, shape, 0.02))
+
+    w = (*qw((D, 3 * D)), *qw((D, D)), _rand(gen, (D,), 0.02),
+         *qw((D, 4 * D)), _rand(gen, (4 * D,), 0.02), *qw((4 * D, D)),
+         _rand(gen, (D,), 0.02))
+    G = 4 * D // quant._mlp_chunks(4 * D)
+    if kind == "spatial":
+        f = rope.axial_freqs(rope.pixel_freqs(HD // 2, 256.0), (9, 16),
+                             pixel=True).reshape(S, HD).cuda()
+        return False, (x, *vec, *w, f, None, None, H, 4 * D, G)
+    n_ctx = 4
+    f = rope.temporal_rope_freqs(torch.arange(n_ctx + 1),
+                                 rope.lang_freqs(HD)).cuda()
+    kc, vc = (_rand(gen, (N * n_ctx * S, D)) for _ in range(2))
+    bits = block.valid_bits([False] + [True] * n_ctx, n_ctx + 1)
+    return True, (x, *vec, *w, f, kc, vc, H, 4 * D, G, N, 1, n_ctx, bits)
+
+
+def pair_phases(kind, N, iters=15, log=print):
+    """The probe copy's phase split of one pair call: per phase and per
+    grid barrier the median ms over `iters` calls, and the whole call's
+    median from the stamps. Returns {"phases": {...}, "barriers": [...],
+    "total_ms": ...}."""
+    from gtax_torch.kernels import build, pair
+
+    temporal, args = pair_args(kind, N)
+    lib = build.pair_probe_library()
+    blocks = lib.gtax_pair_q_blocks(int(temporal), HD, S, D)
+    if blocks <= 0:
+        raise RuntimeError(f"gtax_pair_q_blocks: CUDA error {-blocks}")
+    extra = blocks * STAMPS * 8
+    ref = pair._launch(temporal, *args)[0]
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    runs = []
+    for i in range(iters + 2):
+        _cold(flush)
+        out, ws = pair._launch(temporal, *args, lib=lib, extra=extra)
+        torch.cuda.synchronize()
+        if i == 0 and not torch.equal(out, ref):
+            raise RuntimeError("the probe copy's output differs from the "
+                               "library's")
+        if i >= 2:
+            t = ws[-extra:].view(torch.int64).view(blocks, STAMPS).cpu()
+            runs.append(t.double() / 1e6)  # ns -> ms
+    phase = {p: [] for p in PHASES}
+    barrier = [[] for _ in PHASES[:-1]]
+    # GEMM phases, each block's last unit: from the phase's start to the
+    # unit's, its main loop, its partial's hand-off, the tile's sum
+    unit = {PHASES[p]: [[] for _ in range(4)] for p in GEMM_PHASES}
+    total = []
+    for t in runs:
+        total.append(float(t[:, 17].max() - t[:, 0].min()))
+        for p, name in enumerate(PHASES):
+            start, end = t[:, 2 * p], t[:, 2 * p + 1]
+            phase[name].append(float(end.max() - start.min()))
+            if p < len(PHASES) - 1:
+                barrier[p].append(float(t[:, 2 * p + 2].max() - end.max()))
+            if p in GEMM_PHASES:
+                u = t[:, 18 + 4 * GEMM_PHASES.index(p):][:, :4]
+                # blocks with no unit in this phase stamped nothing
+                u = u[((u >= start.min()) & (u <= end.max())).all(1)]
+                for k, d in enumerate((u[:, 0] - start.min(),
+                                       u[:, 1] - u[:, 0], u[:, 2] - u[:, 1],
+                                       u[:, 3] - u[:, 2])):
+                    unit[name][k].append(float(d.max()))
+    res = {"phases": {k: float(np.median(v)) for k, v in phase.items()},
+           "barriers": [float(np.median(b)) for b in barrier],
+           "gemm_units": {k: [float(np.median(x)) for x in v]
+                          for k, v in unit.items()},
+           "total_ms": float(np.median(total)), "blocks": blocks}
+    label = f"pair_q {kind} N={N}"
+    log(f"[split] {label}: {blocks} blocks, {res['total_ms']:.4f} ms from "
+        f"the first block's start to the last block's end (probe copy)")
+    for p, name in enumerate(PHASES):
+        ms = res["phases"][name]
+        bar = (f"; barrier after it {res['barriers'][p]:.4f} ms"
+               if p < len(PHASES) - 1 else "")
+        log(f"[split]   {ms:8.4f} ms {100 * ms / res['total_ms']:5.1f}%  "
+            f"phase {p + 1} {name}{bar}")
+        if name in res["gemm_units"]:
+            a, b, c, d = res["gemm_units"][name]
+            log(f"[split]            its units (the slowest block's last): "
+                f"start {a:.4f}, main loop {b:.4f}, partial out {c:.4f}, "
+                f"barrier and the split sum's slices {d:.4f} ms")
+    return res
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="also write the JSON object here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("split: needs a CUDA device")
+    from gtax_torch.kernels import block
+    from gtax_torch.utils.platform import strict_matmul
+
+    strict_matmul()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    result = {"card": card, "mlp": {}, "pair": {}}
+    with torch.inference_mode():
+        for N in (1, 2):
+            a = mlp_inputs(N)
+            M = N * S
+            result["mlp"][M] = launch_split(
+                lambda: block.fused_mlp_branch(*a),
+                f"fused_mlp_branch {M} rows", [2 * M * D * 4 * D] * 2)
+        for kind in ("spatial", "temporal"):
+            for N in (1, 2):
+                result["pair"][f"{kind} N={N}"] = pair_phases(kind, N)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f)
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

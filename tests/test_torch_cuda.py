@@ -262,10 +262,11 @@ def _pair_inputs(gen, N):
             *_pair_weights(gen))
 
 
-@pytest.mark.parametrize("N", [1, 2])
+@pytest.mark.parametrize("N", [1, 2, 3, 4])
 def test_spatial_pair_q_kernel(cuda, N):
-    """One cooperative launch against the plain version, and bit-equal to
-    the two sequential int8 wrappers (the same device code)."""
+    """One cooperative launch against the plain version, bit-equal to the
+    two sequential int8 wrappers (the same device code) and to a second
+    call, at 1-4 frames (the gate's range)."""
     from gtax_torch.kernels import pair
 
     gen = np.random.default_rng(30 + N)
@@ -279,10 +280,13 @@ def test_spatial_pair_q_kernel(cuda, N):
     h = quant.fused_spatial_branch_q(x, sh1, sc1, g1, *w[:5], *args[-2:])
     assert torch.equal(got, quant.fused_mlp_branch_q(h, sh2, sc2, g2,
                                                      *w[5:]))
+    assert torch.equal(got, pair.fused_spatial_pair_q(*args))
 
 
 @pytest.mark.parametrize("B,valid", [(1, [False, True, True, True, True]),
-                                     (2, None)])
+                                     (2, None),
+                                     (3, [False, True, True, True, True]),
+                                     (4, None)])
 def test_temporal_pair_q_kernel(cuda, B, valid):
     from gtax_torch.kernels import pair
 
@@ -298,6 +302,7 @@ def test_temporal_pair_q_kernel(cuda, B, valid):
     h = quant.fused_temporal_step_q(x, sh1, sc1, g1, *w[:5], *tail)
     assert torch.equal(got, quant.fused_mlp_branch_q(h, sh2, sc2, g2,
                                                      *w[5:]))
+    assert torch.equal(got, pair.fused_temporal_pair_q(*inputs, *tail))
 
 
 @pytest.mark.parametrize("S,mask,causal", [
@@ -837,3 +842,153 @@ def _check_frame_bwd(S, hd, partial):
                                                                 rel)
     ao2, dqkv2 = run()
     assert torch.equal(ao, ao2) and torch.equal(dqkv, dqkv2)
+
+
+# --------------------------------- the serving step's weight streaming
+
+SMALL_M = [1, 16, 143, 144, 145, 288]
+
+
+@pytest.mark.parametrize("M", SMALL_M)
+@pytest.mark.parametrize("epi", EPILOGUES)
+def test_gemm_bf16_small_m(cuda, epi, M):
+    """The small-M path (every row in one block of 64 columns, K in chunks
+    whose fp32 partials the tile's last block adds in order) under every
+    epilogue at ragged row counts, at fc2's N=1024, K=4096 (eight chunks),
+    against the plain version, with its second output and the gelu'
+    column partials; a second call gives the same bits."""
+    from gtax_torch.kernels import backward
+
+    gen = np.random.default_rng(80 + epi)
+    S, N, K = 144, 1024, 4096
+    assert block.gemm_chunk(M, N, K, cuda) == 512
+    a, w = _rand(gen, (M, K)), _rand(gen, (K, N), 0.02)
+    bias = _rand(gen, (N,), 0.1, torch.float32)
+    x, h1 = _rand(gen, (M, N)), _rand(gen, (M, N))
+    gate = _rand(gen, (-(-M // S), 2 * N), 0.5)[:, :N]
+    acc = block.mm32(a, w)
+    ref, ref2 = _gemm_ref(epi, acc, bias, x, gate, S, h1)
+
+    def call():
+        out = torch.empty((M, N), dtype=ref.dtype, device="cuda")
+        out2 = None if ref2 is None else torch.empty_like(ref2)
+        part = (torch.empty((backward.dgelu_partial_rows(M, 128), N),
+                            device="cuda")
+                if epi == block.EPI_DGELU else None)
+        block.launch_gemm(a, w, out, M, N, K, epi, bias=bias, resid=x,
+                          gate=gate, S=S, out2=out2, aux=h1, colsum=part)
+        torch.cuda.synchronize()
+        return out, out2, part
+
+    out, out2, part = call()
+    _close(out, ref)
+    if ref2 is not None:
+        _close(out2, ref2)
+    if part is not None:
+        _, grad = backward.gelu_tanh_val_grad32(h1.float())
+        u = torch.zeros((part.shape[0] * 128, N), device="cuda")
+        u[:M] = grad * acc
+        _close(part, u.reshape(-1, 128, N).sum(1))
+    for got, again in zip((out, out2, part), call()):
+        assert got is None or torch.equal(got, again)
+
+
+@pytest.mark.parametrize("M", SMALL_M)
+@pytest.mark.parametrize("trans_b,N,K", [(False, 3072, 1024),
+                                         (False, 1024, 1024),
+                                         (True, 4096, 1024),
+                                         (True, 1024, 4096)])
+def test_gemm_bf16_small_m_layouts(cuda, M, trans_b, N, K):
+    """Both weight layouts on the small-M path at 1, 2, 4 and 8 chunks
+    (the most it takes) where the grid fits on the card at once (the
+    launch is cooperative), and the tiled path, against the fp32
+    product."""
+    gen = np.random.default_rng(M + N + K)
+    a = _rand(gen, (M, K))
+    w = _rand(gen, (N, K) if trans_b else (K, N), 0.02)
+    ref = block.mm32(a, w.t() if trans_b else w)
+    fits = [c for c in (K, K // 2, K // 4, K // 8)
+            if c == K or N // 64 * (K // c) <= block.sm_count(cuda)]
+    assert len(fits) >= 2
+    for chunk in (0, *fits):
+        out = torch.empty((M, N), dtype=torch.float32, device="cuda")
+        block.launch_gemm(a, w, out, M, N, K, block.EPI_F32,
+                          trans_b=trans_b, k_chunk=chunk)
+        torch.cuda.synchronize()
+        _close(out, ref)
+
+
+def _s8_plain(q, sa, w_q, w_s, group):
+    """The int8 product as the kernel folds it: each K group's exact sum
+    times its row scale, added in group order, times the column scale."""
+    acc = torch.zeros((q.shape[0], w_q.shape[1]), device=q.device)
+    for g in range(q.shape[1] // group):
+        cols = slice(g * group, (g + 1) * group)
+        acc = acc + quant.mm_int(q[:, cols], w_q[cols]) * sa[:, g:g + 1]
+    return acc * w_s.reshape(-1)
+
+
+@pytest.mark.parametrize("M", SMALL_M)
+@pytest.mark.parametrize("group", [None, 512], ids=["ungrouped", "grouped"])
+def test_gemm_s8_units(cuda, M, group):
+    """The int8 weight-streaming tile at ragged rows, one K group (K=1024,
+    in 1, 2, 4 and 8 chunks) and fc2's eight (K=4096, groups of 512, a
+    chunk each), at the plan's chunk and the others: bit-equal to the
+    plain product (int32 sums are exact; the groups fold in order), and a
+    second call too."""
+    gen = np.random.default_rng(90 + M)
+    N, K = 1024, 4096 if group else 1024
+    G = group or K
+    q, sa = quant.quant_rows(_rand(gen, (M, K), 1.0, torch.float32), G)
+    w_q, w_s = _qweight(gen, (K, N), 0.02)
+    assert quant.is_card_layout(w_q)
+    ref = _s8_plain(q, sa, w_q, w_s, G)
+    for chunk in ((None, 512) if group else (None, 128, 256, 512, 1024)):
+        out = torch.empty((M, N), dtype=torch.float32, device="cuda")
+        quant._gemm_s8(q, sa, w_q, w_s, out, quant.EPI_F32, k_chunk=chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), chunk
+        again = torch.empty_like(out)
+        quant._gemm_s8(q, sa, w_q, w_s, again, quant.EPI_F32, k_chunk=chunk)
+        assert torch.equal(out, again), chunk
+
+
+@pytest.mark.parametrize("M", [1, 143, 288])
+def test_gemm_s8_epilogues(cuda, M):
+    """The int8 tile's GELU (fc1) and gated-residual (out-projection, fc2)
+    epilogues on split chunks against the plain version's."""
+    gen = np.random.default_rng(95 + M)
+    S, N, K = 144, 1024, 1024
+    q, sa = quant.quant_rows(_rand(gen, (M, K), 1.0, torch.float32), K)
+    w_q, w_s = _qweight(gen, (K, N), 0.02)
+    b = _rand(gen, (N,), 0.1, torch.float32)
+    x = _rand(gen, (M, N))
+    gate = _rand(gen, (-(-M // S), 2 * N), 0.5)[:, :N]
+    y = _s8_plain(q, sa, w_q, w_s, K) + b
+    out = torch.empty((M, N), dtype=torch.float32, device="cuda")
+    quant._gemm_s8(q, sa, w_q, w_s, out, quant.EPI_BIAS_GELU_F32, bias=b,
+                   k_chunk=256)
+    _close(out, block.gelu_tanh32(y))
+    res = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
+    quant._gemm_s8(q, sa, w_q, w_s, res, quant.EPI_BIAS_GATED, bias=b,
+                   resid=x, gate=gate, S=S, k_chunk=256)
+    g = gate.float().repeat_interleave(S, 0)[:M]
+    _close(res, (x.float() + g * y).to(torch.bfloat16))
+
+
+def test_int8_wrappers_take_the_card_layout(cuda):
+    """quantize_weight on the card stores the int8 kernel column-major (the
+    values and shape unchanged); a row-major kernel is refused, not
+    transposed per call."""
+    gen = np.random.default_rng(16)
+    w = _rand(gen, (D, 4 * D), 0.02)
+    q, s = quant.quantize_weight(w)
+    assert quant.is_card_layout(q) and q.shape == (D, 4 * D)
+    assert torch.equal(q, torch.round(w.float() / s).to(torch.int8))
+    assert quant.card_layout(q).data_ptr() == q.data_ptr()  # no copy
+    x, sh, sc, g = _branch_inputs(gen, 1, S_DIT)
+    w2_q, w2_s = _qweight(gen, (4 * D, D), 0.02)
+    b1, b2 = _rand(gen, (4 * D,), 0.02), _rand(gen, (D,), 0.02)
+    with pytest.raises(ValueError, match="column-major"):
+        quant.fused_mlp_branch_q(x, sh, sc, g, q.contiguous(), s, b1, w2_q,
+                                 w2_s, b2)

@@ -1,4 +1,4 @@
-"""The launch arithmetic of the port's bf16 GEMMs, and the kernel
+"""The launch arithmetic of the port's bf16 and int8 GEMMs, and the kernel
 library's entry points, on the CPU.
 
 The weight-gradient GEMM sums token rows in chunks, and the gelu' epilogue
@@ -15,7 +15,7 @@ from pathlib import Path
 
 import pytest
 
-from gtax_torch.kernels import backward, build
+from gtax_torch.kernels import backward, block, build, pair, quant
 
 CSRC = Path(__file__).resolve().parent.parent / "gtax_torch" / "csrc"
 
@@ -157,3 +157,164 @@ def test_probe_copy_builds_apart():
         (*flags, "-DGTAX_PROBE_STOP=0")) != build._digest(
         (*flags, "-DGTAX_PROBE_STOP=1"))
     assert set(build.PROBE_ENTRIES) <= _entries(build.PROBE_SOURCES)
+
+
+# ------------------------------------------- the serving step's small M
+
+def _small_constants():
+    """(tile columns, row slabs) of the small-M path, and (rows, columns,
+    k-step) of the int8 unit, as the kernels define them."""
+    head = (CSRC / "gemm_sm90.cuh").read_text()
+    n = re.search(r"constexpr int kSmallBN = (\d+);", head)
+    sl = re.search(r"constexpr int kSmallSlabs = (\d+);", head)
+    s8 = (CSRC / "gemm_s8.cuh").read_text()
+    bn = re.search(r"constexpr int BN = (\d+);", s8)
+    bk = re.search(r"constexpr int BK = (\d+);", s8)
+    s8_slabs = re.search(r"constexpr int kSlabs = (\d+);", s8)
+    ms = re.search(r"constexpr int kSmallMaxSplits = (\d+);", head)
+    s8_ms = re.search(r"constexpr int kMaxSplits = (\d+);", s8)
+    assert n and sl and bn and bk and s8_slabs and ms and s8_ms, (
+        "the constants moved")
+    return (int(n.group(1)), 64 * int(sl.group(1)), int(ms.group(1)),
+            64 * int(s8_slabs.group(1)), int(bn.group(1)), int(bk.group(1)),
+            int(s8_ms.group(1)))
+
+
+(SMALL_N, SMALL_ROWS, SMALL_SPLITS, S8_ROWS, S8_N, S8_K,
+ S8_SPLITS) = _small_constants()
+SERVING = [(3072, 1024), (1024, 1024), (4096, 1024), (1024, 4096)]
+
+
+def test_small_constants_are_exported():
+    """One m64 slab of 64 columns a warpgroup, up to five slabs (320 rows:
+    two frames of 144 and their ragged edge); the int8 unit reads 128-byte
+    k-steps; the library exports what the plans read."""
+    assert (SMALL_N, SMALL_ROWS, SMALL_SPLITS, S8_ROWS, S8_N, S8_K,
+            S8_SPLITS) == (64, 320, 8, 320, 64, 128, 8)
+    bf = (CSRC / "gemm_bf16.cu").read_text()
+    assert ("o[2] = sm90::kSmallBN;" in bf
+            and "o[3] = sm90::SmallTile::kRows;" in bf
+            and "o[4] = sm90::kSmallMaxSplits;" in bf)
+    s8 = (CSRC / "gemm_s8.cu").read_text()
+    assert all(f"o[{i}] = gemm_s8::{n};" in s8
+               for i, n in enumerate(("kRows", "BN", "BK", "kMaxSplits")))
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("N,K", SERVING + [(64, 64), (192, 960)])
+def test_small_chunks_cover_k_once(N, K, sms):
+    """The small-M path's K chunks are whole k-steps and cover K once; the
+    grid (column tiles x chunks) is one wave of the SMs, and one chunk
+    fewer would not be."""
+    for M in (1, 16, 143, 144, 145, 288, SMALL_ROWS):
+        chunk = block.small_chunk(M, N, K, sms, SMALL_N, K_STEP, SMALL_ROWS,
+                                    SMALL_SPLITS)
+        assert chunk > 0 and chunk % K_STEP == 0
+        splits = -(-K // chunk)
+        assert (splits - 1) * chunk < K <= splits * chunk
+        tiles = N // SMALL_N
+        assert splits <= SMALL_SPLITS
+        assert splits == 1 or tiles * splits <= sms
+        if chunk > K_STEP:  # a shorter chunk would overflow the wave
+            steps = -(-K // K_STEP)
+            more = -(-steps // (chunk // K_STEP - 1))
+            assert more > SMALL_SPLITS or tiles * more > sms
+
+
+@pytest.mark.parametrize("M", [144, 288])
+@pytest.mark.parametrize("N,K,chunk,plan", [
+    (3072, 1024, 512, 0), (1024, 1024, 128, 0), (4096, 1024, 512, 0),
+    (1024, 4096, 512, 512)])
+def test_small_plan_at_the_serving_shapes(M, N, K, chunk, plan):
+    """A denoise step's products on an H100 SXM (132 SMs): the small-M
+    path would run fc1, fc2 and the out-projection on 128 blocks, every
+    weight byte read by one, and qkv's 48 column tiles in two chunks (96
+    blocks: three would need a second wave); by the cost model, fitted to
+    gemm_sweep --small, only fc2 takes it: its 4,096-deep K walked by the
+    tiled path's 16 blocks costs more than the small path's fixed part."""
+    got = block.small_chunk(M, N, K, 132, SMALL_N, K_STEP, SMALL_ROWS,
+                            SMALL_SPLITS)
+    assert got == chunk
+    blocks = N // SMALL_N * -(-K // got)
+    assert 132 // 2 < blocks <= 132
+    assert block.small_plan(M, N, K, 132, SMALL_N, K_STEP, SMALL_ROWS,
+                            SMALL_SPLITS, TILE_M) == plan
+
+
+@pytest.mark.parametrize("M", [321, 576, 720, 1152, 2304, 3456, 11520])
+def test_large_m_keeps_the_tiled_path(M):
+    """Past 320 rows (prefill, the VAE, training) the 128x128 / 128x256
+    tiles stay: the plan gives no chunk."""
+    for N, K in SERVING:
+        assert block.small_plan(M, N, K, 132, SMALL_N, K_STEP,
+                                SMALL_ROWS, SMALL_SPLITS, TILE_M) == 0
+
+
+INT8 = SERVING[:3] + [(1024, 4096, 512)]
+
+
+@pytest.mark.parametrize("blocks", [132, 264])
+@pytest.mark.parametrize("N,K,group", [(n, k, k) for n, k in SERVING]
+                         + [(1024, 4096, 512), (512, 1024, 256)])
+def test_s8_chunks_stay_in_their_group(N, K, group, blocks):
+    """The int8 K chunks are whole 128-byte k-steps and cover K once; with
+    several K groups (fc2's GELU chunks) a chunk never crosses a group, so
+    each group's int32 sum is whole before it is folded."""
+    for M in (1, 16, 143, 144, 145, 288, 576, 1152):
+        chunk = quant.s8_plan(M, N, K, group, blocks, S8_ROWS, S8_N, S8_K,
+                              S8_SPLITS)
+        assert chunk % S8_K == 0 and 0 < chunk <= K
+        splits = -(-K // chunk)
+        assert (splits - 1) * chunk < K <= splits * chunk
+        assert splits <= S8_SPLITS
+        if group < K:
+            assert group % chunk == 0
+            for z in range(splits):  # [z chunk, (z + 1) chunk) in one group
+                assert z * chunk // group == ((z + 1) * chunk - 1) // group
+
+
+@pytest.mark.parametrize("M", [144, 288])
+@pytest.mark.parametrize("N,K,group,chunk", [
+    (3072, 1024, 1024, 512), (1024, 1024, 1024, 256),
+    (4096, 1024, 1024, 512), (1024, 4096, 512, 512)])
+def test_s8_plan_at_the_serving_shapes(M, N, K, group, chunk):
+    """The pair's four GEMMs at one and two frames on 132 blocks: every
+    row in one unit, the units within one wave; fc1 and fc2 give every
+    block but four a unit, fc2 one K group a unit."""
+    got = quant.s8_plan(M, N, K, group, 132, S8_ROWS, S8_N, S8_K,
+                        S8_SPLITS)
+    assert got == chunk
+    units = -(-M // S8_ROWS) * (N // S8_N) * -(-K // got)
+    assert units <= 132
+    cost = quant.s8_cost(M, N, K, group, 132, S8_ROWS, S8_N, S8_K,
+                         got // S8_K)[0]
+    for c in range(1, K // S8_K + 1):  # the cheapest the model finds
+        if ((group == K or (group // S8_K) % c == 0)
+                and -(-K // (c * S8_K)) <= S8_SPLITS):
+            assert cost <= quant.s8_cost(M, N, K, group, 132, S8_ROWS,
+                                         S8_N, S8_K, c)[0]
+
+
+@pytest.mark.parametrize("M", [144, 288])
+def test_pair_workspace_is_the_carve(M):
+    """pair.workspace_bytes is csrc/pair_q.cu's carve: thirteen buffers on
+    256-byte boundaries, the last the int32 partials of the GEMM whose
+    chunks need the most (none when every GEMM is one chunk)."""
+    src = (CSRC / "pair_q.cu").read_text()
+    assert "constexpr int kBuffers = 13;" in src
+    D, Hd, G = 1024, 4096, 512
+    chunks = tuple(quant.s8_plan(M, N, K, G if i == 3 else K, 132, S8_ROWS,
+                                 S8_N, S8_K, S8_SPLITS)
+                   for i, (N, K) in enumerate(pair.gemm_shapes(D, Hd)))
+    part = max(-(-K // c) * M * N * 4
+               for (N, K), c in zip(pair.gemm_shapes(D, Hd), chunks)
+               if -(-K // c) > 1)
+    buffers = [M * D, M * 4, M * 3 * D * 4, M * D * 4, M * D, M * 4,
+               M * D * 2, M * D, M * 4, M * Hd * 4, M * Hd,
+               M * (Hd // G) * 4]
+    assert pair.workspace_bytes(M, D, Hd, G, chunks) == sum(
+        -(-b // 256) * 256 for b in buffers + [part])
+    # fc2's eight K groups in eight chunks: its partials are the largest
+    assert part == 8 * M * D * 4
+    assert pair.workspace_bytes(M, D, Hd, G, (D, D, D, Hd)) == sum(
+        -(-b // 256) * 256 for b in buffers)

@@ -203,6 +203,47 @@ def test_mlp_branch_q_requantizes_per_chunk():
     check_int8(got, ref)
 
 
+@pytest.mark.parametrize("chunk", [128, 256, 512])
+def test_int8_split_k_premise(chunk):
+    """The card's int8 tile (csrc/gemm_s8.cuh) splits K into chunks and adds
+    their int32 partials: bit-equal to the unsplit product in any order of
+    the chunks. fc2 then folds each K group's sum into fp32 in group order,
+    float(sum) * s_row, which is mlp_branch_q_plain's arithmetic bit for
+    bit however the groups were split (chunks stay inside a group)."""
+    gen = np.random.default_rng(chunk)
+    q = torch.from_numpy(gen.integers(-127, 128, (24, 1024))).to(torch.int8)
+    w = torch.from_numpy(gen.integers(-127, 128, (1024, 96))).to(torch.int8)
+    full = q.long() @ w.long()
+    parts = [q[:, k:k + chunk].long() @ w[k:k + chunk].long()
+             for k in range(0, 1024, chunk)]
+    assert torch.equal(sum(parts), full)
+    assert torch.equal(sum(reversed(parts)), full)
+    assert torch.equal(quant.mm_int(q, w), full.float())
+
+    x = torch.from_numpy(gen.standard_normal((2, S, D)).astype(np.float32))
+    mods = torch.from_numpy(gen.standard_normal((2, 3 * D)).astype(
+        np.float32) * 0.5)
+    sh, sc, g = mods[:, :D], mods[:, D:2 * D], mods[:, 2 * D:]
+    w1_q, w1_s = quant.quantize_weight(torch.from_numpy(
+        gen.standard_normal((D, HID)).astype(np.float32) * 0.2))
+    w2_q, w2_s = quant.quantize_weight(torch.from_numpy(
+        gen.standard_normal((HID, D)).astype(np.float32) * 0.1))
+    b1 = torch.from_numpy(gen.standard_normal(HID).astype(np.float32) * 0.1)
+    b2 = torch.from_numpy(gen.standard_normal(D).astype(np.float32) * 0.1)
+    G = HID // quant._mlp_chunks(HID)
+    h = quant.qdot(quant.modulated32(x, sh, sc), w1_q, w1_s) + b1
+    hq, hs = quant.quant_rows(quant.gelu_tanh32(h), G)
+    step = min(chunk // 2, G)  # chunks of a group, as the kernel splits it
+    f = torch.zeros_like(x)
+    for gi in range(HID // G):
+        isum = sum(hq[..., k:k + step].long() @ w2_q[k:k + step].long()
+                   for k in range(gi * G, (gi + 1) * G, step))
+        f = f + isum.float() * hs[..., gi:gi + 1]
+    out = x + g[:, None] * (f * w2_s.reshape(-1) + b2)
+    assert torch.equal(out, quant.mlp_branch_q_plain(
+        x, sh, sc, g, w1_q, w1_s, b1, w2_q, w2_s, b2))
+
+
 VALIDS = {"all": None, "padded": [False, False, True, True, True]}
 
 
