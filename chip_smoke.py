@@ -24,12 +24,13 @@ Phases (any failure exits nonzero and prints no result line):
      bits (a failure for the split-K serving kernels, BIT_STABLE). Each
      pair is also held against the two sequential int8
      wrappers on the same inputs (max error and bit equality printed) and
-     timed against them at 1-4 frames (`[gate]`). For fused_mlp_branch
-     (144 rows), fused_vae_block
+     timed against them at 1-4 frames (`[gate]`). For fused_spatial_branch,
+     fused_mlp_branch and fused_temporal_step (144 rows), fused_vae_block
      (decode N=6), fused_mha_token_major (the VAE shape),
      fused_spatial_branch_bwd and fused_mlp_branch_bwd (B=16) one call is
-     split by launch (`[split]`: each launch's CUDA-event ms and share,
-     TFLOP/s for each GEMM; attn_frame_bwd's bound), and each pair at one
+     split by launch (`[split]`: each launch's CUDA-event ms and share, the
+     gap before it, TFLOP/s for each GEMM, the call alone without events;
+     attn_frame_bwd's bound), and each pair at one
      frame by phase (the probe copy of pair_q: each of its nine phases
      and eight grid barriers, gtax_torch/tools/split.py);
   4. end to end, bf16: VideoGenerator at full DiT-S/2 + ViT-L/20 width,
@@ -895,6 +896,11 @@ def kernel_phase():
             if name == "fused_mlp_branch":  # ln_mod, fc1, fc2
                 rows[name]["launch_split"] = launch_split(
                     kern, f"{name} [{label}]", [2 * S_DIT * D * 4 * D] * 2)
+            if name in ("fused_spatial_branch", "fused_temporal_step"):
+                # ln_mod, qkv, the attention, the out-projection
+                rows[name]["launch_split"] = launch_split(
+                    kern, f"{name} [{label}]",
+                    [2 * S_DIT * D * 3 * D, 2 * S_DIT * D * D])
     pair_phase(timer, rows)
     return rows
 

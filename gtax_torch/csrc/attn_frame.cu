@@ -16,7 +16,8 @@
 // with.
 // Bound: operations (S^2 * d per head) at S = 576, bytes at S = 144.
 // Design (attn_frame.cuh): QK^T and PV on the tensor cores (mma.sync
-// m16n8k16, ldmatrix), 16 query rows a warp, 128 a block; two passes over
+// m16n8k16, ldmatrix), 16 query rows a warp, 128 a block (fewer where
+// that leaves SMs idle: frame_qtile); two passes over
 // the keys so the probabilities are normalised before their bf16 cast, as
 // gtax's are. A block keeps its head's roped K resident (72 KB at S = 576,
 // head dim 64) and streams V in 64-key tiles, so two blocks fit on an SM and
@@ -26,23 +27,45 @@
 namespace {
 
 // one block per (query tile, head, frame); the body is attn_frame_unit
-// (attn_frame.cuh)
-template <int HD>
+// (attn_frame.cuh). FULL: 128-row tiles, a constant, so that instantiation
+// carries no per-warp tile check; else qtile rows.
+template <int HD, bool FULL>
 __global__ void __launch_bounds__(kAttnWarps * 32, 2)
     attn_frame_kernel(const void* __restrict__ qkv, int qkv_f32,
                       const float* __restrict__ freqs, void* __restrict__ out,
                       int out_f32, bf16* __restrict__ q_out,
                       bf16* __restrict__ k_out, bf16* __restrict__ v_out,
-                      int S, int D, int rot) {
+                      int S, int D, int rot, int qtile) {
   extern __shared__ __align__(16) unsigned char smem[];
   attn_frame_unit<HD>(smem, qkv, qkv_f32, freqs, out, out_f32, q_out, k_out,
-                      v_out, S, D, rot, blockIdx.x, blockIdx.y, blockIdx.z);
+                      v_out, S, D, rot, blockIdx.x, blockIdx.y, blockIdx.z,
+                      FULL ? kAttnQTile : qtile);
 }
 
-template <int HD>
-int launch(const void* qkv, int qkv_f32, const float* freqs, void* out,
-           int out_f32, bf16* qo, bf16* ko, bf16* vo, int n_frames, int S,
-           int D, int rot, cudaStream_t st) {
+// Query rows a block: 128 where those tiles give every SM a block, else
+// the smallest tile of three or more whole warps that covers the frame
+// exactly (a denoise step's 144 tokens: 48 rows, 48 blocks a frame at 16
+// heads instead of 32, and no tile of 16 live rows out of 128), else 128.
+// Three warps is the least measured: every block stages its head's keys.
+int frame_qtile(int S, int heads, int n_frames) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if ((long long)((S + kAttnQTile - 1) / kAttnQTile) * heads * n_frames >=
+      sms)
+    return kAttnQTile;
+  for (int w = 3; w < kAttnWarps; ++w)
+    if (S % (16 * w) == 0) return 16 * w;
+  return kAttnQTile;
+}
+
+template <int HD, bool FULL>
+int launch_tiles(const void* qkv, int qkv_f32, const float* freqs, void* out,
+                 int out_f32, bf16* qo, bf16* ko, bf16* vo, int n_frames,
+                 int S, int D, int rot, int qtile, cudaStream_t st) {
   const size_t smem = attn_frame_smem<HD>(S);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   // the attributes once per instantiation, the opt-in again only when S
@@ -52,22 +75,35 @@ int launch(const void* qkv, int qkv_f32, const float* freqs, void* out,
     // all of the SM's unified memory as shared memory, so two blocks of up
     // to 101 KB (S = 576) fit on an SM
     const cudaError_t e = cudaFuncSetAttribute(
-        attn_frame_kernel<HD>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        attn_frame_kernel<HD, FULL>,
+        cudaFuncAttributePreferredSharedMemoryCarveout,
         (int)cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
     opted = 48 * 1024;
   }
   if (smem > opted) {
     const cudaError_t e = cudaFuncSetAttribute(
-        attn_frame_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        attn_frame_kernel<HD, FULL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     opted = smem;
   }
-  const dim3 grid((S + kAttnQTile - 1) / kAttnQTile, D / HD, n_frames);
-  attn_frame_kernel<HD><<<grid, kAttnWarps * 32, smem, st>>>(
-      qkv, qkv_f32, freqs, out, out_f32, qo, ko, vo, S, D, rot);
+  const dim3 grid((S + qtile - 1) / qtile, D / HD, n_frames);
+  attn_frame_kernel<HD, FULL><<<grid, kAttnWarps * 32, smem, st>>>(
+      qkv, qkv_f32, freqs, out, out_f32, qo, ko, vo, S, D, rot, qtile);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch(const void* qkv, int qkv_f32, const float* freqs, void* out,
+           int out_f32, bf16* qo, bf16* ko, bf16* vo, int n_frames, int S,
+           int D, int rot, cudaStream_t st) {
+  const int qtile = frame_qtile(S, D / HD, n_frames);
+  return qtile == kAttnQTile
+             ? launch_tiles<HD, true>(qkv, qkv_f32, freqs, out, out_f32, qo,
+                                      ko, vo, n_frames, S, D, rot, qtile, st)
+             : launch_tiles<HD, false>(qkv, qkv_f32, freqs, out, out_f32, qo,
+                                       ko, vo, n_frames, S, D, rot, qtile, st);
 }
 
 }  // namespace

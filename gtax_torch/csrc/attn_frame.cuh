@@ -332,20 +332,27 @@ __device__ __forceinline__ void attn_rows(const uint32_t (&qf)[HD / 16][4],
   }
 }
 
-// Query tile qt (rows qt * kAttnQTile ..), head h, frame n.
+// Query tile qt (rows qt * qtile .., qtile a multiple of 16 up to
+// kAttnQTile), head h, frame n. A tile of fewer rows than the block has
+// warps leaves the spare warps only the staging and the barriers; a
+// query row's arithmetic is the same in every tiling.
 template <int HD>
 __device__ __forceinline__ void attn_frame_unit(
     unsigned char* smem, const void* __restrict__ qkv, int qkv_f32,
     const float* __restrict__ freqs, void* __restrict__ out, int out_f32,
     bf16* __restrict__ q_out, bf16* __restrict__ k_out,
-    bf16* __restrict__ v_out, int S, int D, int rot, int qt, int h, int n) {
+    bf16* __restrict__ v_out, int S, int D, int rot, int qt, int h, int n,
+    int qtile = kAttnQTile) {
   constexpr int LD = HD + 8, KC = HD / 16, DT = HD / 8;
   const int keys = (S + kAttnKTile - 1) / kAttnKTile * kAttnKTile;
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Qs = Ks + (size_t)keys * LD;  // the Q tile, then each V tile
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = qt * kAttnQTile;
+  const int q0 = qt * qtile;
+  // every warp holds query rows in a full tile (qtile a constant there, so
+  // the check folds away)
+  const bool live = qtile >= kAttnQTile || warp * 16 < qtile;
   const size_t row0 = (size_t)n * S;
   const size_t D3 = 3 * (size_t)D;
   const size_t hc = (size_t)h * HD;
@@ -355,8 +362,8 @@ __device__ __forceinline__ void attn_frame_unit(
 
   // the unit's query rows and the head's keys, roped in fp32 and cast;
   // rows past S are zeros; one query tile stores K and V for training
-  stage_rows<HD>(Qs, qkv, qkv_f32, row0, D3, hc, q0, kAttnQTile, S, freqs,
-                 rot, q_out, D, hc);
+  stage_rows<HD>(Qs, qkv, qkv_f32, row0, D3, hc, q0, qtile, S, freqs, rot,
+                 q_out, D, hc);
   stage_rows<HD>(Ks, qkv, qkv_f32, row0, D3, D + hc, 0, keys, S, freqs, rot,
                  qt == 0 ? k_out : nullptr, D, hc);
   __syncthreads();
@@ -364,8 +371,9 @@ __device__ __forceinline__ void attn_frame_unit(
   uint32_t qf[KC][4];  // A fragments of the warp's 16 query rows
 #pragma unroll
   for (int kc = 0; kc < KC; ++kc)
-    ldsm_x4(qf[kc], Qs + (size_t)(warp * 16 + (lane & 15)) * LD + kc * 16 +
-                        (lane >> 4) * 8);
+    if (live)
+      ldsm_x4(qf[kc], Qs + (size_t)(warp * 16 + (lane & 15)) * LD + kc * 16 +
+                          (lane >> 4) * 8);
 
   auto finish = [&](float (&s)[8][4], int j0) {
     const bool ragged = j0 + 64 > S;  // only the last tile has masked keys
@@ -383,7 +391,8 @@ __device__ __forceinline__ void attn_frame_unit(
                    hc);
   };
   float o[DT][4];
-  attn_rows<HD, false>(qf, Ks, Qs, S, true, finish, stage_v, o, lane);
+  attn_rows<HD, false>(qf, Ks, Qs, S, live, finish, stage_v, o, lane);
+  if (!live) return;
 
   const int ra = q0 + warp * 16 + (lane >> 2), rb = ra + 8;
 #pragma unroll

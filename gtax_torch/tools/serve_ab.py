@@ -1,6 +1,7 @@
 """Hold two checkouts' serving kernels against each other on one card: the
 bf16 step branches (`fused_spatial_branch`, `fused_mlp_branch`,
-`fused_temporal_step`) and the int8 wrappers and pairs
+`fused_temporal_step`), the bf16 prefill's `fused_temporal_branch`, and the
+int8 wrappers and pairs
 (`gtax_torch.kernels.quant`, `gtax_torch.kernels.pair`), on fixed seeded
 inputs.
 
@@ -8,11 +9,11 @@ inputs.
     python <this file> --compare FILE_A FILE_B             # bits
     PYTHONPATH=<checkout> python <this file> --time        # ms
 
-The inputs are DiT-S/2's widths at 1-4 frames of 144 tokens (the int8
-prefill's temporal branch at windows of 4 frames), made with numpy from
-fixed seeds; int8 weights are quantized on the card by the checkout's own
-`quant.quantize_weight`, so each checkout stores them as its kernels read
-them. --save writes every output to FILE; --compare prints, for each
+The inputs are DiT-S/2's widths at 1-4 frames of 144 tokens (the
+prefill's int8 and bf16 temporal branches at windows of 4 frames), made
+with numpy from fixed seeds; int8 weights are quantized on the card by
+the checkout's own `quant.quantize_weight`, so each checkout stores them
+as its kernels read them. --save writes every output to FILE; --compare prints, for each
 output, whether the two files hold the same bits (for a bf16 output that
 differs, the share of elements and the largest difference: a split-K sum
 adds in another order), and exits 1 if an int8 output differs; --time
@@ -92,6 +93,10 @@ def cases():
             out[f"temporal_branch_q B={N}"] = (
                 lambda *a: quant.fused_temporal_branch_q(*a, emit_kv=True),
                 (xt, mt[:, :D], mt[:, D:2 * D], mt[:, 2 * D:], *wa, tf[:T],
+                 valid[:T], H, T))
+            out[f"temporal_branch B={N}"] = (
+                lambda *a: block.fused_temporal_branch(*a, emit_kv=True),
+                (xt, mt[:, :D], mt[:, D:2 * D], mt[:, 2 * D:], *ba, tf[:T],
                  valid[:T], H, T))
     return out
 

@@ -1,11 +1,15 @@
-"""Split the serving step's weight-streaming kernels on one NVIDIA GPU:
-`fused_mlp_branch` (#2) by launch, and the paired int8 half-block
+"""Split the serving step's kernels on one NVIDIA GPU: the bf16 step's
+branches `fused_spatial_branch` (#1), `fused_mlp_branch` (#2) and
+`fused_temporal_step` (#4) by launch, and the paired int8 half-block
 (`pair_q`, #10 / #11) by phase.
 
     python -m gtax_torch.tools.split [--out FILE]
 
 The launch split records CUDA events around each kernel launch of one
-call (`launch_split`, also `chip_smoke.py`'s `[split]`). The phase split
+call, and the gap from each launch's end event to the next one's start
+event (`launch_split`, also `chip_smoke.py`'s `[split]`); the events
+stretch the call, so it is also timed alone, with events around the whole
+call only. The phase split
 runs the probe copy of csrc/pair_q.cu (`build.pair_probe_library`, built
 here at first use), whose kernel stamps %globaltimer from every block at
 its start, after each of its nine phases and after each grid barrier; a
@@ -37,6 +41,7 @@ PHASES = ("ln_mod", "qkv", "attention", "quant", "out-proj", "ln_mod 2",
           "fc1", "quant 2", "fc2")
 GEMM_PHASES = (1, 4, 6, 8)  # qkv, out-proj, fc1, fc2 (0-based)
 STAMPS = 18 + 4 * len(GEMM_PHASES)  # csrc/pair_q.cu kStamps
+GEMMS = ("gtax_gemm_bf16", "gtax_gemm_wgrad")
 
 
 def _cold(flush):
@@ -48,10 +53,13 @@ def _cold(flush):
 
 def launch_split(fn, label, gemm_flops, log=print):
     """Each kernel launch of one call of fn, in order: its ms (CUDA events
-    recorded on the stream around the launch), its share of the call, and
-    for the GEMMs (in order, gemm_flops) TFLOP/s. (A torch.profiler trace
-    lost the first launches of the B=16 backward, so the split is timed
-    directly.) Returns the list of entries."""
+    recorded on the stream around the launch), its share of the call, the
+    gap from the previous launch's end event to its start event, and for
+    the GEMMs (in order, gemm_flops) TFLOP/s; then the call's ms timed
+    alone (no events between its launches). (A torch.profiler trace lost
+    the first launches of the B=16 backward, so the split is timed
+    directly.) Returns the list of entries; the last is the call's
+    {"call_ms", "split_call_ms", "gaps_ms"}."""
     from gtax_torch.kernels import build
 
     real = build.launch
@@ -65,12 +73,15 @@ def launch_split(fn, label, gemm_flops, log=print):
         ev[1].record()
         marks.append((name, ev))
 
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
     fn()
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     torch.cuda.synchronize()
     _cold(flush)
-    call = (torch.cuda.Event(enable_timing=True),
-            torch.cuda.Event(enable_timing=True))
+    call = events()
     build.launch = timed
     try:
         call[0].record()
@@ -78,22 +89,39 @@ def launch_split(fn, label, gemm_flops, log=print):
         call[1].record()
     finally:
         build.launch = real
+    alone = []
+    for _ in range(5):  # the call with no events between its launches
+        _cold(flush)
+        ev = events()
+        ev[0].record()
+        fn()
+        ev[1].record()
+        alone.append(ev)
     torch.cuda.synchronize()
     total = call[0].elapsed_time(call[1])
+    call_ms = float(np.median([a.elapsed_time(b) for a, b in alone]))
     flops = list(gemm_flops)
-    out = []
+    out, gaps = [], []
     log(f"[split] {label}: {len(marks)} launches, {total:.4f} ms for the "
-        "call")
+        f"call with events between its launches, {call_ms:.4f} ms alone")
+    prev = None
     for name, (e0, e1) in marks:
         ms = e0.elapsed_time(e1)
-        entry = {"kernel": name, "ms": ms, "share": ms / total}
+        gap = None if prev is None else prev.elapsed_time(e0)
+        prev = e1
+        entry = {"kernel": name, "ms": ms, "share": ms / total, "gap_ms": gap}
         extra = ""
-        if name in ("gtax_gemm_bf16", "gtax_gemm_wgrad") and flops:
+        if name in GEMMS and flops:
             fl = flops.pop(0)
             entry["tflops"] = fl / ms / 1e9
             extra = f", {fl / 1e9:.1f} GFLOP at {entry['tflops']:.0f} TFLOP/s"
+        if gap is not None:
+            gaps.append(gap)
+            extra += f"; gap before it {gap:.4f} ms"
         log(f"[split]   {ms:8.4f} ms {100 * ms / total:5.1f}%  {name}{extra}")
         out.append(entry)
+    log(f"[split]   gaps between launches: {sum(gaps):.4f} ms in all")
+    out.append({"call_ms": call_ms, "split_call_ms": total, "gaps_ms": gaps})
     return out
 
 
@@ -110,6 +138,29 @@ def mlp_inputs(N, seed=10):
     return (x, mods[:, :D], mods[:, D:2 * D], mods[:, 2 * D:],
             _rand(gen, (D, 4 * D), 0.02), _rand(gen, (4 * D,), 0.02),
             _rand(gen, (4 * D, D), 0.02), _rand(gen, (D,), 0.02))
+
+
+def attention_inputs(kind, N, seed=50):
+    """The arguments of fused_spatial_branch ("spatial", N frames) or of
+    fused_temporal_step ("temporal", B=N over a 4-frame cache, slot 0
+    padded), the step's shapes."""
+    from gtax_torch.core import rope
+
+    gen = np.random.default_rng(seed + N)
+    x = _rand(gen, (N, S, D))
+    mods = _rand(gen, (N, 3 * D), 0.5)
+    w = (_rand(gen, (D, 3 * D), 0.02), _rand(gen, (D, D), 0.02),
+         _rand(gen, (D,), 0.02))
+    head = (x, mods[:, :D], mods[:, D:2 * D], mods[:, 2 * D:], *w)
+    if kind == "spatial":
+        f = rope.axial_freqs(rope.pixel_freqs(HD // 2, 256.0), (9, 16),
+                             pixel=True).reshape(S, HD).cuda()
+        return (*head, f, H)
+    n_ctx = 4
+    f = rope.temporal_rope_freqs(torch.arange(n_ctx + 1),
+                                 rope.lang_freqs(HD)).cuda()
+    kc, vc = (_rand(gen, (N * n_ctx * S, D)) for _ in range(2))
+    return (*head, kc, vc, f, [False] + [True] * n_ctx, H, n_ctx)
 
 
 def pair_args(kind, N, seed=92):
@@ -227,8 +278,17 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    result = {"card": card, "mlp": {}, "pair": {}}
+    result = {"card": card, "mlp": {}, "spatial": {}, "temporal": {},
+              "pair": {}}
     with torch.inference_mode():
+        for kind, fn in (("spatial", block.fused_spatial_branch),
+                         ("temporal", block.fused_temporal_step)):
+            for N in (1, 2):
+                a = attention_inputs(kind, N)
+                M = N * S
+                result[kind][M] = launch_split(
+                    lambda: fn(*a), f"{fn.__name__} {M} rows",
+                    [2 * M * D * 3 * D, 2 * M * D * D])
         for N in (1, 2):
             a = mlp_inputs(N)
             M = N * S

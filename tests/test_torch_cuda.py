@@ -992,3 +992,83 @@ def test_int8_wrappers_take_the_card_layout(cuda):
     with pytest.raises(ValueError, match="column-major"):
         quant.fused_mlp_branch_q(x, sh, sc, g, q.contiguous(), s, b1, w2_q,
                                  w2_s, b2)
+
+
+# --------------------------------------- the bf16 step's attention branches
+
+
+def _attention_branch(kind, N, seed):
+    """(wrapper, plain, args) of fused_spatial_branch over N frames, or of
+    fused_temporal_step over B=N elements of a 4-frame cache (slot 0
+    padded), at DiT-S/2's widths."""
+    gen = np.random.default_rng(seed + N)
+    x, sh, sc, g = _branch_inputs(gen, N, S_DIT)
+    w = (_rand(gen, (D, 3 * D), 0.02), _rand(gen, (D, D), 0.02),
+         _rand(gen, (D,), 0.02))
+    if kind == "spatial":
+        return (block.fused_spatial_branch, block.spatial_branch_plain,
+                (x, sh, sc, g, *w, _spatial_freqs(), H))
+    n_ctx = 4
+    kc, vc = (_rand(gen, (N * n_ctx * S_DIT, D)) for _ in range(2))
+    return (block.fused_temporal_step, block.temporal_step_plain,
+            (x, sh, sc, g, *w, kc, vc, _temporal_freqs(n_ctx + 1),
+             [False] + [True] * n_ctx, H, n_ctx))
+
+
+@pytest.mark.parametrize("kind", ["spatial", "temporal"])
+@pytest.mark.parametrize("N", [1, 2, 3, 4])
+def test_attention_branch_frames(cuda, kind, N):
+    """#1 and #4 at 1-4 frames (ln_mod, the qkv GEMM, the attention, the
+    out-projection: four launches) against their plain versions; two
+    calls give the same bits."""
+    from gtax_torch.kernels import build
+
+    fn, plain, args = _attention_branch(kind, N, 150)
+    got = fn(*args)
+    names = []
+    real = build.launch
+
+    def spy(name, *a, **kw):
+        names.append(name)
+        return real(name, *a, **kw)
+
+    build.launch = spy
+    try:
+        again = fn(*args)
+    finally:
+        build.launch = real
+    torch.cuda.synchronize()
+    _close(got, plain(*args))
+    assert torch.equal(got, again)
+    attn = "gtax_attn_frame" if kind == "spatial" else "gtax_attn_temporal"
+    assert names == ["gtax_ln_mod", "gtax_gemm_bf16", attn, "gtax_gemm_bf16"]
+
+
+@pytest.mark.parametrize("S", [S_DIT, 80, 112])
+@pytest.mark.parametrize("hd", [32, 64])
+def test_attn_frame_query_tiles_bit_equal(cuda, S, hd):
+    """One frame takes the smallest query tile of three or more whole
+    warps that covers it (48 rows at a denoise step's 144 tokens, 80, 112),
+    as many frames as fill the card with 128-row tiles take those: each
+    frame's output and emitted q/k/v are the same bits either way."""
+    gen = np.random.default_rng(170 + hd + S)
+    heads = D // hd
+    N = -(-block.sm_count(cuda) // (-(-S // 128) * heads))
+    qkv = _rand(gen, (N * S, 3 * D), 1.0, torch.float32)
+    f = torch.from_numpy(gen.uniform(0, 6.3, (S, hd)).astype(
+        np.float32)).cuda()
+
+    def run(rows):
+        n = rows.shape[0] // S
+        out = torch.empty((n * S, D), dtype=torch.bfloat16, device="cuda")
+        emitted = tuple(torch.empty_like(out) for _ in range(3))
+        block.launch_attn_frame(rows, f, out, n, S, D, heads, hd,
+                                qkv_out=emitted)
+        return (out, *emitted)
+
+    whole = run(qkv)
+    for n in range(N):
+        part = run(qkv[n * S:(n + 1) * S].contiguous())
+        torch.cuda.synchronize()
+        for a, b in zip(whole, part):
+            assert torch.equal(a[n * S:(n + 1) * S], b), n
