@@ -27,12 +27,20 @@ Phases (any failure exits nonzero and prints no result line):
      timed against them at 1-4 frames (`[gate]`). For fused_spatial_branch,
      fused_mlp_branch and fused_temporal_step (144 rows), fused_vae_block
      (decode N=6), fused_mha_token_major (the VAE shape),
-     fused_spatial_branch_bwd and fused_mlp_branch_bwd (B=16) one call is
-     split by launch (`[split]`: each launch's CUDA-event ms and share, the
-     gap before it, TFLOP/s for each GEMM, the call alone without events;
-     attn_frame_bwd's bound), and each pair at one
-     frame by phase (the probe copy of pair_q: each of its nine phases
-     and eight grid barriers, gtax_torch/tools/split.py);
+     fused_temporal_branch (the prefill's emit_kv, 576 rows, and emit_train
+     at B=16), fused_spatial_branch_bwd, fused_temporal_branch_bwd and
+     fused_mlp_branch_bwd (B=16) one call is split by launch (`[split]`:
+     each launch's CUDA-event ms and share, the gap before it, TFLOP/s for
+     each GEMM, the call alone without events; the byte bounds of
+     attn_frame_bwd and of the temporal attention launches), and each pair
+     at one frame by phase (the probe copy of pair_q: each of its nine
+     phases and eight grid barriers, gtax_torch/tools/split.py).
+     `[temporal]`: at the B=16 window and the prefill's, the rope
+     epilogue's q, k, v bit-equal to the fp32 product through
+     attn_temporal's rope, attn_temporal_window and attn_temporal_bwd alone
+     against their plain versions (with the rounding figures), and
+     fused_temporal_branch_bwd given the forward's mod rows bit-equal to
+     it forming them;
   4. end to end, bf16: VideoGenerator at full DiT-S/2 + ViT-L/20 width,
      B=1, 4 prompt frames + 2 generated, 100 noise steps, random seeded
      weights with nonzero adaLN heads, injected noise. The launch counters
@@ -818,7 +826,8 @@ SOURCES = {
 # the kernels whose split-K sums must add in a fixed order: two calls on
 # the same inputs give the same bits
 BIT_STABLE = ("fused_mlp_branch", "fused_spatial_branch",
-              "fused_temporal_step", "fused_spatial_branch_q",
+              "fused_temporal_branch", "fused_temporal_step",
+              "fused_spatial_branch_q",
               "fused_mlp_branch_q", "fused_temporal_branch_q",
               "fused_temporal_step_q", "fused_spatial_pair_q",
               "fused_temporal_pair_q")
@@ -901,6 +910,13 @@ def kernel_phase():
                 rows[name]["launch_split"] = launch_split(
                     kern, f"{name} [{label}]",
                     [2 * S_DIT * D * 3 * D, 2 * S_DIT * D * D])
+            if name == "fused_temporal_branch":  # the prefill's 576 rows
+                M = 4 * S_DIT
+                split = launch_split(kern, f"{name} [{label}]",
+                                     [2 * M * D * 3 * D, 2 * M * D * D])
+                rows[name]["launch_split"] = split
+                rows[name]["attention_bound"] = temporal_attention_bound(
+                    split, M, 2)
     pair_phase(timer, rows)
     return rows
 
@@ -915,6 +931,90 @@ def check_attn_dispatch():
             and not kattn.sdpa_tensor_cores(5)):
         fail("attn_sdpa's dispatch: S=144 and 576 must take the tensor "
              "cores, S=5 the warp rows")
+
+
+def temporal_checks():
+    """`[temporal]`: the temporal branch's full window at the B=16 training
+    step's and the prefill's shapes (T=5 / 4, slot 0 padded). q, k, v of
+    the qkv GEMM's rope epilogue against the fp32 product through
+    attn_temporal's own rope and rounding (the path it replaced; bit-equal,
+    else the share of elements that differ is printed and the run fails);
+    attn_temporal_window and attn_temporal_bwd alone against their plain
+    versions on the same bf16 rows (2**-6 of the largest magnitude, with
+    the rounding figures), and attn_temporal_window against attn_temporal's
+    output on the same product."""
+    from gtax_torch.kernels import backward, block, build
+    from gtax_torch.utils.profiling import bf16_differences
+
+    def held(what, got, ref):
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = 2.0**-6 * max(1.0, ref.float().abs().max().item())
+        share, rel = bf16_differences(got, ref)
+        log(f"[temporal]   {what}: max_abs_err={err:.3g} (tol {tol:.3g}); "
+            f"{share:.3e} of elements differ, max diff {rel:.3e} of the "
+            "largest magnitude")
+        if not (torch.isfinite(got.float()).all() and err <= tol):
+            fail(f"[temporal] {what}: off by {err} > {tol}")
+        return {"max_abs_err": err, "tolerance": tol, "bf16_differ": share,
+                "max_diff_over_max": rel}
+
+    out = {}
+    for label, B, T in (("train B=16 T=5", 16, 5), ("prefill B=1 T=4", 1, 4)):
+        gen = np.random.default_rng(600 + B)
+        M = B * T * S_DIT
+        mod, w = rand(gen, (M, D)), rand(gen, (D, 3 * D), 0.02)
+        f = temporal_freqs(T)
+        bits = block.valid_bits([False] + [True] * (T - 1), T)
+        q, k, v, att, att0, pq, pk, pv = (
+            torch.empty((M, D), dtype=torch.bfloat16, device="cuda")
+            for _ in range(8))
+        block.launch_gemm_rope_qkv(mod, w, q, k, v, f, S_DIT, T, 0, HD)
+        qkv = torch.empty((M, 3 * D), dtype=torch.float32, device="cuda")
+        block.launch_gemm(mod, w, qkv, M, 3 * D, D, block.EPI_F32)
+        block.launch_attn_temporal(qkv, f, att0, B, T, 0, S_DIT, D, H, bits,
+                                   kv_out=(pk, pv), q_out=pq)
+        block.launch_attn_window(q, k, v, att, B, T, S_DIT, D, H, bits)
+        torch.cuda.synchronize()
+        differ = {n: (a != b).float().mean().item()
+                  for n, a, b in zip("qkv", (q, k, v), (pq, pk, pv))}
+        log(f"[temporal] {label}: rope epilogue q, k, v against the fp32 "
+            f"product through attn_temporal's rope: share of elements that "
+            f"differ {differ}")
+        shape = (B, T, S_DIT, H, HD)
+        q5, k5, v5 = (t.reshape(shape) for t in (q, k, v))
+        bias = block.temporal_bias([False] + [True] * (T - 1), T, "cuda")
+        res = {"qkv_differ": differ,
+               "window_vs_plain": held(
+                   "attn_temporal_window vs block.attend_temporal", att,
+                   block.attend_temporal(q5, k5, v5, bias, torch.bfloat16)
+                   .reshape(M, D)),
+               "window_vs_attn_temporal": held(
+                   "attn_temporal_window vs attn_temporal (same product)",
+                   att, att0)}
+        dout = rand(gen, (M, D))
+        dqkv = torch.empty((M, 3 * D), dtype=torch.bfloat16, device="cuda")
+        ao = torch.empty_like(dout)
+        build.launch("gtax_attn_temporal_bwd", q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), dout.data_ptr(), f.data_ptr(),
+                     dqkv.data_ptr(), ao.data_ptr(), B, T, S_DIT, D, H, bits,
+                     torch.cuda.current_stream().cuda_stream)
+        pao, dq, dk, dv = backward._attention_bwd_plain(
+            q5, k5, v5, dout.reshape(shape), bias, torch.bfloat16,
+            1.0 / HD**0.5, ("bishd", "bjshd", "bshij"))
+        f5 = f[None, :, None, None, :]
+        pd = torch.cat([backward.rope_transpose32(f5, dq).reshape(M, D),
+                        backward.rope_transpose32(f5, dk).reshape(M, D),
+                        dv.reshape(M, D).float()], -1).bfloat16()
+        res["bwd_o_vs_plain"] = held("attn_temporal_bwd O vs plain", ao,
+                                     pao.reshape(M, D))
+        res["bwd_dqkv_vs_plain"] = held("attn_temporal_bwd dq|dk|dv vs plain",
+                                        dqkv, pd)
+        out[label] = res
+        if any(differ.values()):
+            fail(f"[temporal] {label}: the rope epilogue's q, k, v are not "
+                 "the bits of the fp32 product through attn_temporal")
+        del qkv, dqkv
+    return out
 
 
 # ------------------------------------------------------ training kernels
@@ -1005,9 +1105,19 @@ def train_kernel_cases():
         N = B * T
         args, ct = attn_inputs(200 + B, N, T)
         f = temporal_freqs(T)
-        _, *res = block.fused_temporal_branch(*args, f, valid, H, T,
-                                              emit_train=True)
+        _, *res, mod = block.fused_temporal_branch(
+            *args, f, valid, H, T, emit_train=True, emit_mod=True)
         bargs = (*args[:6], f, valid, *res, ct, H, T)
+        # the trainer's backward takes the forward's mod rows: the same bits
+        # as forming them again
+        same = all(torch.equal(a, b) for a, b in zip(
+            backward.fused_temporal_branch_bwd(*bargs, mod=mod),
+            backward.fused_temporal_branch_bwd(*bargs)))
+        log(f"[temporal] fused_temporal_branch_bwd B={B} T=5 valid={valid}: "
+            f"given mod vs forming it, bit-equal: {same}")
+        if not same:
+            fail("fused_temporal_branch_bwd: the gradients with the "
+                 "forward's mod differ from those without")
         bias = block.temporal_bias(valid, T, "cuda").bfloat16()
 
         def fwd(x, sh, sc, g, qw, ow, ob):
@@ -1022,9 +1132,10 @@ def train_kernel_cases():
 
         M = N * S_DIT
         fl = 16 * M * D * D + 12 * B * S_DIT * H * (T * (T + 1) // 2) * HD
-        return (lambda: backward.fused_temporal_branch_bwd(*bargs),
+        return (lambda: backward.fused_temporal_branch_bwd(*bargs, mod=mod),
                 lambda: backward.temporal_branch_bwd_plain(*bargs),
-                lib_backward(fwd, args, ct), attn_bytes(N, args), fl)
+                lib_backward(fwd, args, ct), attn_bytes(N, args) + nbytes(mod),
+                fl)
 
     def mlp_bwd(N):
         gen = np.random.default_rng(300 + N)
@@ -1158,13 +1269,17 @@ def train_kernel_phase(rows):
             M = 80 * S_DIT
             # the GEMMs in launch order: dy W_out^T, dW_out, dW_qkv,
             # dqkv W_qkv^T; the MLP's four products of 96.6 GFLOP
-            flops = {"fused_spatial_branch_bwd":
-                     [2 * M * D * D] * 2 + [2 * M * D * 3 * D] * 2,
+            attn_flops = [2 * M * D * D] * 2 + [2 * M * D * 3 * D] * 2
+            flops = {"fused_spatial_branch_bwd": attn_flops,
+                     "fused_temporal_branch_bwd": attn_flops,
                      "fused_mlp_branch_bwd": [2 * M * D * 4 * D] * 4}
             if name in flops:
                 with torch.no_grad():
                     rows[name]["launch_split"] = launch_split(
                         kern, f"{name} [{label}]", flops[name])
+            if name == "fused_temporal_branch_bwd":
+                rows[name]["attention_bound"] = temporal_attention_bound(
+                    rows[name]["launch_split"], M)
             if name == "fused_spatial_branch_bwd":
                 # attn_frame_bwd alone: q, k, v, dO read, dq/dk/dv and O
                 # written; six S x S x d products a (frame, head)
@@ -1178,6 +1293,14 @@ def train_kernel_phase(rows):
             rows[name].update({f"emit_train_{k}": m[k] for k in (
                 "ms", "max_abs_err", "plain_ms", "bound_ms", "library_ms",
                 "shape")})
+            if name == "fused_temporal_branch":  # ln_mod, qkv, attn, out
+                M = 80 * S_DIT
+                with torch.no_grad():
+                    split = launch_split(kern, f"{name} [{label}]",
+                                         [2 * M * D * 3 * D, 2 * M * D * D])
+                rows[name]["emit_train_launch_split"] = split
+                rows[name]["emit_train_attention_bound"] = (
+                    temporal_attention_bound(split, M, 3))
         del kern, plain, lib
         torch.cuda.empty_cache()
 
@@ -1295,6 +1418,14 @@ def launch_split(fn, label, gemm_flops):
     from gtax_torch.tools.split import launch_split as split
 
     return split(fn, label, gemm_flops, log=log)
+
+
+def temporal_attention_bound(split, M, emitted=0):
+    """The byte bound of #3's or #13's attention launch in `split`
+    (gtax_torch/tools/split.py), printed here."""
+    from gtax_torch.tools.split import temporal_attention_bound as bound
+
+    return bound(split, M, emitted, log=log)
 
 
 def profile_frame(gen, lat0, acts, nz, steps=4):
@@ -1923,6 +2054,7 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     with torch.inference_mode():
         rows = kernel_phase()
+        temporal = temporal_checks()
     train_kernel_phase(rows)
     end_to_end(rows)
     train_phase(rows)
@@ -1936,7 +2068,7 @@ def main():
             if isinstance(v, float) and not math.isfinite(v):
                 fail(f"{row['name']}: {k} is not finite")
     log(json.dumps({"kernels": list(rows.values()), "train": train,
-                    "card": smi}))
+                    "temporal": temporal, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -39,14 +39,22 @@
 // 64), so one block fits on an SM and a (head, frame) is read once. The rope
 // adjoint takes the table's fp32 cos and sin (as gtax's kernel and the plain
 // version do): a precise sincosf for each element pair had been half the
-// kernel's time. attn_temporal_bwd is one warp per (batch element, site, head),
-// each lane owning two of the head's dims, everything in registers.
+// kernel's time. attn_temporal_bwd has attn_window's layout (attn_temporal.cuh:
+// a lane owns 16 bytes of a row, a head's lanes sum a dot product by a
+// butterfly, the window's T a template parameter, every frame's q, k, v and dO
+// loaded before the first score), everything in registers but the window's
+// cos and sin table (shared memory, formed once a block); it keeps the math
+// and rounding points above and the rope adjoint of rope_pair_t. At B=16 it
+// moves 188.7 MB (q, k, v, dO in; dq, dk, dv and O out), 0.056 ms at 3.35
+// TB/s.
+#include <initializer_list>
+
 #include "attn_frame.cuh"
+#include "attn_temporal.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kMaxT = 8;
 constexpr int kBwdChunks = 9;  // 16-row tiles of the DiT's 144-token frame
 
 // Shared memory of attn_frame_bwd: Q, K, V, dO rows of HD + 8 and P, dS
@@ -388,139 +396,168 @@ int launch_frame(const bf16* q, const bf16* k, const bf16* v,
   return (int)cudaErrorInvalidValue;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kWarps * 32)
+// One lane of attn_temporal_bwd (the layout of attn_window_lane,
+// attn_temporal.cuh): its 16 bytes of every frame's q, k, v and dO are
+// loaded before the first score. The block first forms the window's cos
+// and sin table in shared memory (sincosf, the values rope_pair_t forms).
+// Pass 1, query frame i: the scores, P, dP and dS of keys j <= i (each
+// score and dP by dot8 and group_sum), O_i, and dq_i = sum over j <= i of
+// dS(i, j) k_j through the rope adjoint, both stored; bf16(P) and bf16(dS)
+// kept. Pass 2, frame t: dk_t = sum over i >= t of dS(i, t) q_i and dv_t
+// = sum over i >= t of bf16(P)(i, t) dO_i, dk_t through the rope adjoint.
+// Every sum runs in the order of the warp-per-unit kernel this replaced
+// (keys, then queries, ascending); the three 16-byte stores go to dq | dk
+// | dv of the row of dqkv.
+template <int HD, int T>
+__global__ void __launch_bounds__(kWindowThreads)
     attn_temporal_bwd_kernel(const bf16* __restrict__ q,
                              const bf16* __restrict__ k,
                              const bf16* __restrict__ v,
                              const bf16* __restrict__ dout,
                              const float* __restrict__ freqs,
                              bf16* __restrict__ dqkv, bf16* __restrict__ ao,
-                             int B, int T, int S, int D, int H,
-                             int valid_mask) {
-  constexpr int P = HD >= 64 ? HD / 64 : 1;  // dim pairs per lane
-  const int unit = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (unit >= B * S * H) return;
-  const int lane = threadIdx.x & 31;
-  const int h = unit % H, s = (unit / H) % S, b = unit / (H * S);
+                             int B, int S, int D, int valid_mask) {
+  constexpr int L = HD / kLaneDims;
+  __shared__ float cos_t[T * HD], sin_t[T * HD];
+  for (int i = threadIdx.x; i < T * HD; i += kWindowThreads)
+    sincosf(freqs[i], &sin_t[i], &cos_t[i]);
+  __syncthreads();
+  const WindowLane w = window_lane<HD, T>(
+      (long long)blockIdx.x * kWindowThreads + threadIdx.x, B, S, D);
   const float scale = 1.0f / sqrtf((float)HD);
-  const size_t D3 = 3 * (size_t)D;
-
-  float2 qf[kMaxT][P], kf[kMaxT][P], vf[kMaxT][P], gf[kMaxT][P];
-  float2 dq[kMaxT][P], dk[kMaxT][P], dv[kMaxT][P];
-  auto off = [&](int t, int p) {
-    return (((size_t)b * T + t) * S + s) * D + (size_t)h * HD + 2 * lane +
-           64 * p;
+  auto at = [&](int t) { return (w.row + (size_t)t * S) * D + w.col; };
+  // row (b, t, s) of dqkv: 3D wide, dq | dk | dv
+  auto dqkv_at = [&](int t) {
+    return dqkv + (w.row + (size_t)t * S) * 3 * D + w.col;
   };
-  auto ld = [](const bf16* base, size_t o) {
-    return __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(base + o));
-  };
+  auto rope_t = [&](float (&u)[8], int t) {  // rope_pair_t at frame t
+    const float* c = cos_t + t * HD + w.hcol;
+    const float* s = sin_t + t * HD + w.hcol;
 #pragma unroll
-  for (int t = 0; t < kMaxT; ++t) {
-    if (t >= T) break;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      dq[t][p] = dk[t][p] = dv[t][p] = make_float2(0.f, 0.f);
-      qf[t][p] = kf[t][p] = vf[t][p] = gf[t][p] = make_float2(0.f, 0.f);
-      if (2 * lane + 64 * p >= HD) continue;
-      const size_t o = off(t, p);
-      qf[t][p] = ld(q, o);
-      kf[t][p] = ld(k, o);
-      vf[t][p] = ld(v, o);
-      gf[t][p] = ld(dout, o);
+    for (int d = 0; d < 8; d += 2) {
+      const float2 g = rope_pair_t_cs(make_float2(u[d], u[d + 1]), c[d], s[d],
+                                      c[d + 1], s[d + 1]);
+      u[d] = g.x;
+      u[d + 1] = g.y;
     }
-  }
-  auto dot = [&](const float2 (&a)[P], const float2 (&c)[P]) {
-    float acc = 0.f;
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-      if (2 * lane + 64 * p < HD) {
-        acc = fmaf(a[p].x, c[p].x, acc);
-        acc = fmaf(a[p].y, c[p].y, acc);
-      }
-    return warp_sum(acc);
   };
-
+  uint4 qr[T], kr[T], vr[T], gr[T];
 #pragma unroll
-  for (int i = 0; i < kMaxT; ++i) {
-    if (i >= T) break;
-    float pr[kMaxT], dp[kMaxT];
+  for (int t = 0; t < T; ++t) {
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    const size_t o = at(t);
+    qr[t] = w.live ? ldg16(q + o) : z;
+    kr[t] = w.live ? ldg16(k + o) : z;
+    vr[t] = w.live ? ldg16(v + o) : z;
+    gr[t] = w.live ? ldg16(dout + o) : z;
+  }
+  float pb[T][T], ds[T][T];  // bf16(P) and bf16(dS), j <= i
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+    float qi[8], gi[8], pr[T], dp[T];
+    unpack8(qr[i], qi);
+    unpack8(gr[i], gi);
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      pr[j] = dot8(qi, kr[j]);
+      dp[j] = dot8(gi, vr[j]);
+    }
     float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < kMaxT; ++j) {
-      if (j > i) break;
-      const bool open = ((valid_mask >> j) & 1) || j == i;
-      pr[j] = dot(qf[i], kf[j]) * scale + (open ? 0.0f : -1e30f);
+    for (int j = 0; j <= i; ++j) {
+      pr[j] = group_sum<L>(pr[j]) * scale + window_bias(valid_mask, i, j);
+      dp[j] = group_sum<L>(dp[j]);
       mx = fmaxf(mx, pr[j]);
     }
     float den = 0.f;
 #pragma unroll
-    for (int j = 0; j < kMaxT; ++j) {
-      if (j > i) break;
+    for (int j = 0; j <= i; ++j) {
       pr[j] = expf(pr[j] - mx);
       den += pr[j];
     }
     float dsum = 0.f;
 #pragma unroll
-    for (int j = 0; j < kMaxT; ++j) {
-      if (j > i) break;
+    for (int j = 0; j <= i; ++j) {
       pr[j] = pr[j] / den;
-      dp[j] = dot(gf[i], vf[j]);
       dsum += dp[j] * pr[j];
     }
-    float2 o[P];
+    float o[8], dq[8];
 #pragma unroll
-    for (int p = 0; p < P; ++p) o[p] = make_float2(0.f, 0.f);
+    for (int d = 0; d < 8; ++d) o[d] = dq[d] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kMaxT; ++j) {
-      if (j > i) break;
-      const float pb = bf16_round(pr[j]);
-      const float ds = bf16_round((pr[j] * (dp[j] - dsum)) * scale);
+    for (int j = 0; j <= i; ++j) {
+      pb[i][j] = bf16_round(pr[j]);
+      ds[i][j] = bf16_round((pr[j] * (dp[j] - dsum)) * scale);
+      float f[8];
+      unpack8(vr[j], f);
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
-        o[p].x = fmaf(pb, vf[j][p].x, o[p].x);
-        o[p].y = fmaf(pb, vf[j][p].y, o[p].y);
-        dq[i][p].x = fmaf(ds, kf[j][p].x, dq[i][p].x);
-        dq[i][p].y = fmaf(ds, kf[j][p].y, dq[i][p].y);
-        dk[j][p].x = fmaf(ds, qf[i][p].x, dk[j][p].x);
-        dk[j][p].y = fmaf(ds, qf[i][p].y, dk[j][p].y);
-        dv[j][p].x = fmaf(pb, gf[i][p].x, dv[j][p].x);
-        dv[j][p].y = fmaf(pb, gf[i][p].y, dv[j][p].y);
-      }
+      for (int d = 0; d < 8; ++d) o[d] = fmaf(pb[i][j], f[d], o[d]);
+      unpack8(kr[j], f);
+#pragma unroll
+      for (int d = 0; d < 8; ++d) dq[d] = fmaf(ds[i][j], f[d], dq[d]);
     }
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-      if (2 * lane + 64 * p < HD) store_pair(ao, off(i, p), o[p].x, o[p].y);
+    if (w.live) {
+      *reinterpret_cast<uint4*>(ao + at(i)) = pack8(o);
+      rope_t(dq, i);
+      *reinterpret_cast<uint4*>(dqkv_at(i)) = pack8(dq);
+    }
   }
 #pragma unroll
-  for (int t = 0; t < kMaxT; ++t) {
-    if (t >= T) break;
+  for (int t = 0; t < T; ++t) {
+    float dk[8], dv[8], f[8];
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int c = 2 * lane + 64 * p;
-      if (c >= HD) continue;
-      const float* fr = freqs + (size_t)t * HD + c;
-      const float2 gq = rope_pair_t(dq[t][p], fr);
-      const float2 gk = rope_pair_t(dk[t][p], fr);
-      const size_t o = (((size_t)b * T + t) * S + s) * D3 + (size_t)h * HD + c;
-      store_pair(dqkv, o, gq.x, gq.y);
-      store_pair(dqkv, o + D, gk.x, gk.y);
-      store_pair(dqkv, o + 2 * (size_t)D, dv[t][p].x, dv[t][p].y);
+    for (int d = 0; d < 8; ++d) dk[d] = dv[d] = 0.f;
+#pragma unroll
+    for (int i = t; i < T; ++i) {
+      unpack8(qr[i], f);
+#pragma unroll
+      for (int d = 0; d < 8; ++d) dk[d] = fmaf(ds[i][t], f[d], dk[d]);
+      unpack8(gr[i], f);
+#pragma unroll
+      for (int d = 0; d < 8; ++d) dv[d] = fmaf(pb[i][t], f[d], dv[d]);
     }
+    if (!w.live) continue;
+    rope_t(dk, t);
+    *reinterpret_cast<uint4*>(dqkv_at(t) + D) = pack8(dk);
+    *reinterpret_cast<uint4*>(dqkv_at(t) + 2 * (size_t)D) = pack8(dv);
   }
 }
 
-template <int HD>
+template <int HD, int T>
 int launch_temporal(const bf16* q, const bf16* k, const bf16* v,
                     const bf16* dout, const float* freqs, bf16* dqkv,
-                    bf16* ao, int B, int T, int S, int D, int H,
-                    int valid_mask, cudaStream_t st) {
-  const int units = B * S * H;
-  attn_temporal_bwd_kernel<HD><<<(units + kWarps - 1) / kWarps, kWarps * 32,
-                                 0, st>>>(q, k, v, dout, freqs, dqkv, ao, B,
-                                          T, S, D, H, valid_mask);
+                    bf16* ao, int B, int S, int D, int valid_mask,
+                    cudaStream_t st) {
+  const long long lanes = (long long)B * S * (D / kLaneDims);
+  const long long blocks = (lanes + kWindowThreads - 1) / kWindowThreads;
+  attn_temporal_bwd_kernel<HD, T><<<(unsigned)blocks, kWindowThreads, 0,
+                                    st>>>(q, k, v, dout, freqs, dqkv, ao, B,
+                                          S, D, valid_mask);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_temporal_t(const bf16* q, const bf16* k, const bf16* v,
+                      const bf16* dout, const float* freqs, bf16* dqkv,
+                      bf16* ao, int B, int T, int S, int D, int valid_mask,
+                      cudaStream_t st) {
+  switch (T) {
+#define GTAX_BWD_CASE(N)                                                    \
+  case N:                                                                   \
+    return launch_temporal<HD, N>(q, k, v, dout, freqs, dqkv, ao, B, S, D, \
+                                  valid_mask, st);
+    GTAX_BWD_CASE(1)
+    GTAX_BWD_CASE(2)
+    GTAX_BWD_CASE(3)
+    GTAX_BWD_CASE(4)
+    GTAX_BWD_CASE(5)
+    GTAX_BWD_CASE(6)
+    GTAX_BWD_CASE(7)
+    GTAX_BWD_CASE(8)
+#undef GTAX_BWD_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -560,7 +597,8 @@ GTAX_ENTRY gtax_attn_frame_bwd(const void* q, const void* k, const void* v,
 
 // q, k, v, dout, ao: (B * T * S, D) bf16, frame-major within each batch
 // element; freqs: (T, hd) fp32 temporal rotary table; dqkv: (B * T * S, 3D)
-// bf16; valid_mask: bit j = window slot j holds a real frame.
+// bf16; T in 1 .. kMaxT; valid_mask: bit j = window slot j holds a real
+// frame.
 GTAX_ENTRY gtax_attn_temporal_bwd(const void* q, const void* k, const void* v,
                                   const void* dout, const void* freqs,
                                   void* dqkv, void* ao, int B, int T, int S,
@@ -569,6 +607,8 @@ GTAX_ENTRY gtax_attn_temporal_bwd(const void* q, const void* k, const void* v,
   if (B <= 0 || T <= 0 || T > kMaxT || S <= 0 || num_heads <= 0 ||
       D % num_heads)
     return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k, v, dout, (const void*)dqkv, (const void*)ao})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
   const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
              *vb = static_cast<const bf16*>(v),
              *gb = static_cast<const bf16*>(dout);
@@ -578,14 +618,14 @@ GTAX_ENTRY gtax_attn_temporal_bwd(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   switch (D / num_heads) {
     case 32:
-      return launch_temporal<32>(qb, kb, vb, gb, f, dst, o, B, T, S, D,
-                                 num_heads, valid_mask, st);
+      return launch_temporal_t<32>(qb, kb, vb, gb, f, dst, o, B, T, S, D,
+                                   valid_mask, st);
     case 64:
-      return launch_temporal<64>(qb, kb, vb, gb, f, dst, o, B, T, S, D,
-                                 num_heads, valid_mask, st);
+      return launch_temporal_t<64>(qb, kb, vb, gb, f, dst, o, B, T, S, D,
+                                   valid_mask, st);
     case 128:
-      return launch_temporal<128>(qb, kb, vb, gb, f, dst, o, B, T, S, D,
-                                  num_heads, valid_mask, st);
+      return launch_temporal_t<128>(qb, kb, vb, gb, f, dst, o, B, T, S, D,
+                                    valid_mask, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,6 +1,15 @@
-// Causal attention across the frames of a window at each spatial site,
-// per (batch element, site, head): one warp, each lane owning two of the
-// head's dims.
+// Causal attention across the frames of a window at each spatial site.
+// Two kernels:
+//   - attn_window (the bf16 temporal branch's full window: serving, the
+//     prefill's emit_kv and training's emit_train): q, k, v come in as bf16
+//     rows after rope, stored by the qkv product's epilogue
+//     (gtax_gemm_rope_qkv), which also makes them the emitted K/V cache and
+//     residuals; each lane owns 16 bytes (8 dims) of a row, a head's hd / 8
+//     lanes sum a score by a butterfly (attn_window_lane, attn_temporal.cuh);
+//   - attn_temporal (the bf16 step over the cached context, the int8
+//     branches): one warp per (batch element, site, head), each lane owning
+//     two of the head's dims, reading the fp32 qkv product and applying rope
+//     itself (attn_temporal_unit, shared with pair_q.cu).
 //
 // Replaces the attention cores of the TPU temporal kernels
 // (gtax/kernels/block.py _temporal_attention_core for the full window,
@@ -14,10 +23,14 @@
 // probabilities cast to bf16, PV accumulated in fp32 (the TPU kernel
 // rounded each product and partial sum to bf16; the bf16 tolerance covers
 // the difference), stored as bf16 or, for the int8 temporal branches that
-// quantize the attention output, as the fp32 sums.
+// quantize the attention output, as the fp32 sums. The two kernels add a
+// score's products in another order (ROADMAP.md section C).
 // Bound: bytes. A window holds at most 8 frames, so each site-head does at
-// most 36 length-d dot products; the kernel reads q/k/v once with
-// coalesced 8-byte lane loads and keeps everything else in registers.
+// most 36 length-d dot products; each kernel reads its rows once with
+// coalesced lane loads and keeps everything else in registers. At the B=16
+// training step attn_window moves 94.4 MB (q, k, v in, the output out).
+#include <initializer_list>
+
 #include "attn_temporal.cuh"
 
 namespace {
@@ -52,7 +65,80 @@ int launch(const float* qkv, const float* freqs, const bf16* kc,
   return (int)cudaGetLastError();
 }
 
+// The full-window kernel over bf16 post-rope q, k, v: kWindowThreads
+// lanes a block, the body attn_window_lane (attn_temporal.cuh).
+template <int HD, int T>
+__global__ void __launch_bounds__(kWindowThreads)
+    attn_window_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out,
+                       int B, int S, int D, int valid_mask) {
+  attn_window_lane<HD, T>((long long)blockIdx.x * kWindowThreads +
+                              threadIdx.x,
+                          q, k, v, out, B, S, D, valid_mask);
+}
+
+template <int HD, int T>
+int launch_window(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                  int B, int S, int D, int valid_mask, cudaStream_t st) {
+  const long long lanes = (long long)B * S * (D / kLaneDims);
+  const long long blocks = (lanes + kWindowThreads - 1) / kWindowThreads;
+  attn_window_kernel<HD, T><<<(unsigned)blocks, kWindowThreads, 0, st>>>(
+      q, k, v, out, B, S, D, valid_mask);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_window_t(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                    int B, int T, int S, int D, int valid_mask,
+                    cudaStream_t st) {
+  switch (T) {
+#define GTAX_WINDOW_CASE(N) \
+  case N:                   \
+    return launch_window<HD, N>(q, k, v, out, B, S, D, valid_mask, st);
+    GTAX_WINDOW_CASE(1)
+    GTAX_WINDOW_CASE(2)
+    GTAX_WINDOW_CASE(3)
+    GTAX_WINDOW_CASE(4)
+    GTAX_WINDOW_CASE(5)
+    GTAX_WINDOW_CASE(6)
+    GTAX_WINDOW_CASE(7)
+    GTAX_WINDOW_CASE(8)
+#undef GTAX_WINDOW_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
+// q, k, v, out: (B * T * S, D) bf16, frame-major within each batch element,
+// q and k after rope (the qkv product's rope epilogue, gtax_gemm_rope_qkv);
+// T in 1 .. kMaxT; valid_mask: bit j = window slot j holds a real frame.
+// The full-window attention of the temporal branch, frames j <= i.
+GTAX_ENTRY gtax_attn_temporal_window(const void* q, const void* k,
+                                     const void* v, void* out, int B, int T,
+                                     int S, int D, int num_heads,
+                                     int valid_mask, void* stream) {
+  if (B <= 0 || T <= 0 || T > kMaxT || S <= 0 || num_heads <= 0 ||
+      D % num_heads)
+    return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k, v, (const void*)out})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v);
+  bf16* o = static_cast<bf16*>(out);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D / num_heads) {
+    case 32:
+      return launch_window_t<32>(qb, kb, vb, o, B, T, S, D, valid_mask, st);
+    case 64:
+      return launch_window_t<64>(qb, kb, vb, o, B, T, S, D, valid_mask, st);
+    case 128:
+      return launch_window_t<128>(qb, kb, vb, o, B, T, S, D, valid_mask, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
 // qkv: (B * n_q * S, 3D) fp32, frame-major within each batch element, the
 // n_q query frames sitting at window slots q_off .. q_off + n_q - 1;

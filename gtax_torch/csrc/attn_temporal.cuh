@@ -149,3 +149,125 @@ __device__ __forceinline__ void attn_temporal_unit(
     }
   }
 }
+
+// ------------------------------------- full window over bf16 q, k and v
+//
+// The layout of the full-window kernels over the bf16 post-rope q, k and v
+// rows that the qkv product's rope epilogue stores (attn_temporal.cu
+// attn_window, attn_bwd.cu attn_temporal_bwd): thread `gl` of the grid is
+// the lane of dims [8 g, 8 g + 8) of site (b, s), g = gl % (D / 8), and
+// loads and stores 16 bytes (eight bf16) of a row at a time. A head's
+// HD / 8 lanes are an aligned group of a warp, so a dot product is the
+// lane's eight products summed in order, then summed over the group by a
+// butterfly of log2(HD / 8) shuffles (3 at hd 64). The window's T frames
+// are a template parameter: every register array has the call's size, and
+// all T frames' rows are loaded before the first score.
+
+constexpr int kLaneDims = 8;  // a lane's dims: 16 bytes of bf16
+constexpr int kWindowThreads = 256;
+
+// The lane's place: the row of its site in frame 0 of its batch element
+// (frame t is row + t * S) and its dims' columns, or live = false for the
+// threads past the last site, which load nothing, store nothing and only
+// join the shuffles.
+struct WindowLane {
+  bool live;
+  size_t row;  // b * T * S + s
+  int col;     // 8 g, the lane's first column of the row
+  int hcol;    // 8 g % HD, its first dim within its head
+};
+
+template <int HD, int T>
+__device__ __forceinline__ WindowLane window_lane(long long gl, int B, int S,
+                                                  int D) {
+  const int G = D / kLaneDims;
+  WindowLane w;
+  w.live = gl < (long long)B * S * G;
+  const long long site = w.live ? gl / G : 0;
+  const int g = (int)(gl - site * G);
+  const long long b = site / S, s = site - b * S;
+  w.row = (size_t)(b * T) * S + s;
+  w.col = g * kLaneDims;
+  w.hcol = w.col % HD;
+  return w;
+}
+
+// The sum of v over the L lanes of an aligned group; every lane of the
+// group gets it.
+template <int L>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The lane's eight products a[i] * b[i], added in order (fp32).
+__device__ __forceinline__ float dot8(const float (&a)[8], uint4 b) {
+  float f[8];
+  unpack8(b, f);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc = fmaf(a[i], f[i], acc);
+  return acc;
+}
+
+// The additive mask of temporal_preamble: causal, a key slot open when
+// valid or on the diagonal, -1e30 when closed.
+__device__ __forceinline__ float window_bias(int valid_mask, int qs, int ks) {
+  return (((valid_mask >> ks) & 1) || ks == qs) ? 0.0f : -1e30f;
+}
+
+// One lane of the full-window forward: out = softmax(q k^T / sqrt(hd) +
+// bias) v per (site, head), frames j <= i. Rounding as attn_temporal_unit:
+// fp32 scores and softmax (expf, e / den), probabilities rounded to bf16,
+// PV summed in fp32 in key order, one bf16 rounding of the output; only the
+// order of a score's products differs (eight in a lane, then the lanes).
+template <int HD, int T>
+__device__ __forceinline__ void attn_window_lane(
+    long long gl, const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ out, int B, int S, int D,
+    int valid_mask) {
+  constexpr int L = HD / kLaneDims;
+  const WindowLane w = window_lane<HD, T>(gl, B, S, D);
+  const float scale = 1.0f / sqrtf((float)HD);
+  auto at = [&](int t) { return (w.row + (size_t)t * S) * D + w.col; };
+  uint4 qr[T], kr[T], vr[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    qr[t] = w.live ? ldg16(q + at(t)) : z;
+    kr[t] = w.live ? ldg16(k + at(t)) : z;
+    vr[t] = w.live ? ldg16(v + at(t)) : z;
+  }
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+    float qi[8], sc[T];
+    unpack8(qr[i], qi);
+#pragma unroll
+    for (int j = 0; j <= i; ++j) sc[j] = dot8(qi, kr[j]);
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      sc[j] = group_sum<L>(sc[j]) * scale + window_bias(valid_mask, i, j);
+      mx = fmaxf(mx, sc[j]);
+    }
+    float den = 0.f;
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      sc[j] = expf(sc[j] - mx);
+      den += sc[j];
+    }
+    float acc[8];
+#pragma unroll
+    for (int d = 0; d < 8; ++d) acc[d] = 0.f;
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      const float pr = bf16_round(sc[j] / den);
+      float vj[8];
+      unpack8(vr[j], vj);
+#pragma unroll
+      for (int d = 0; d < 8; ++d) acc[d] = fmaf(pr, vj[d], acc[d]);
+    }
+    if (w.live) *reinterpret_cast<uint4*>(out + at(i)) = pack8(acc);
+  }
+}

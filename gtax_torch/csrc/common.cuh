@@ -50,6 +50,30 @@ __device__ __forceinline__ void store_pair(bf16* base, size_t idx, float a,
   *reinterpret_cast<__nv_bfloat162*>(base + idx) = __floats2bfloat162_rn(a, b);
 }
 
+// Eight bf16 of a row (16 bytes) through the read-only path.
+__device__ __forceinline__ uint4 ldg16(const bf16* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+__device__ __forceinline__ void unpack8(uint4 u, float (&v)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  return u;
+}
+
 // A bias vector that is fp32 or bf16 in memory, as the wrapper was given it.
 __device__ __forceinline__ float load_bias(const void* bias, int bias_f32,
                                            int n) {
@@ -107,6 +131,38 @@ __device__ __forceinline__ float2 rope_pair_t(float2 u, const float* freqs) {
   }
   return make_float2(__fadd_rn(__fmul_rn(u.x, c0), __fmul_rn(u.y, s1)),
                      __fsub_rn(__fmul_rn(u.y, c1), __fmul_rn(u.x, s0)));
+}
+
+// rope_pair and rope_pair_t with the pair's cos and sin already formed
+// (sincosf of freqs[0] -> c0, s0 and of freqs[1] -> c1, s1): the same
+// expressions, for a caller that forms each angle's factors once for
+// many pairs.
+__device__ __forceinline__ float2 rope_pair_cs(float2 x, float c0, float s0,
+                                               float c1, float s1) {
+  return make_float2(x.x * c0 + (-x.y) * s0, x.y * c1 + x.x * s1);
+}
+__device__ __forceinline__ float2 rope_pair_t_cs(float2 u, float c0,
+                                                 float s0, float c1,
+                                                 float s1) {
+  return make_float2(__fadd_rn(__fmul_rn(u.x, c0), __fmul_rn(u.y, s1)),
+                     __fsub_rn(__fmul_rn(u.y, c1), __fmul_rn(u.x, s0)));
+}
+
+// cos and sin of eight neighbouring angles, each by sincosf as rope_pair
+// and rope_pair_t form them (a pair's second angle equal to its first, as
+// the repo's tables have it, takes the first's values: the same bits).
+__device__ __forceinline__ void sincos8(const float* freqs, float (&c)[8],
+                                        float (&s)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; i += 2) {
+    sincosf(freqs[i], &s[i], &c[i]);
+    if (freqs[i + 1] == freqs[i]) {
+      s[i + 1] = s[i];
+      c[i + 1] = c[i];
+    } else {
+      sincosf(freqs[i + 1], &s[i + 1], &c[i + 1]);
+    }
+  }
 }
 
 // rope_pair_t from fp32 cos and sin tables (gtax's own form: cos/sin of the

@@ -25,10 +25,11 @@
 // slower at every main-path product, 144 rows included (PERF.md section 6);
 // its tensor maps are cached on the host, so a serving step's launches do
 // not encode them again. The emit_train epilogues store a second bf16
-// output (C2): the pre-gate y, or the pre-GELU h1. The gelu' epilogue also
-// sums its fp32 products over each tile's rows, one partial per (128-row
-// tile, column), so the bias gradient is reduced in a fixed order (no
-// atomics).
+// output (C2): the pre-gate y, or the pre-GELU h1; the temporal branch's
+// qkv product stores q, k and v after rope (gtax_gemm_rope_qkv). The gelu'
+// epilogue also sums its fp32 products over each tile's rows, one partial
+// per (128-row tile, column), so the bias gradient is reduced in a fixed
+// order (no atomics).
 #include <initializer_list>
 
 #include "gemm_sm90.cuh"
@@ -120,4 +121,36 @@ GTAX_ENTRY gtax_gemm_bf16(const void* A, const void* B, void* C, void* C2,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The temporal branch's qkv product with rope in its epilogue
+// (EPI_ROPE_QKV): q, k, v (M, D) bf16 = the three column thirds of
+// A (M, D) @ B (D, 3D), rope (rope_pair, fp32) applied to q and k at the
+// row's window slot q_off + (r / S) % n_q of freqs ((slots, hd) fp32) and
+// each value rounded to bf16 once. The mainloop and tiles are those of the
+// EPI_F32 call of gtax_gemm_bf16 at the same k_chunk, so q, k and v are
+// the fp32 product's values through the attention kernels' own rope and
+// rounding (csrc/attn_temporal.cuh attn_temporal_unit).
+GTAX_ENTRY gtax_gemm_rope_qkv(const void* A, const void* B, void* q, void* k,
+                              void* v, const void* freqs, int M, int D, int S,
+                              int n_q, int q_off, int hd, int k_chunk,
+                              void* part, void* stream) {
+  if (M <= 0 || D <= 0 || D % 64 || S <= 0 || n_q <= 0 || q_off < 0 ||
+      hd <= 0 || hd % 8 || D % hd || freqs == nullptr)
+    return (int)cudaErrorInvalidValue;
+  for (const void* p : {(const void*)q, (const void*)k, (const void*)v})
+    if (p == nullptr || reinterpret_cast<uintptr_t>(p) % 16)
+      return (int)cudaErrorInvalidValue;
+  EpiArgs e{};
+  e.C = q;
+  e.C2 = static_cast<bf16*>(k);
+  e.C3 = static_cast<bf16*>(v);
+  e.freqs = static_cast<const float*>(freqs);
+  e.S = S;
+  e.n_q = n_q;
+  e.q_off = q_off;
+  e.hd = hd;
+  return launch<EPI_ROPE_QKV>(A, B, e, M, 3 * D, D, false, k_chunk,
+                              static_cast<float*>(part),
+                              (cudaStream_t)stream);
 }

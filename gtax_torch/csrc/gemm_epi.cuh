@@ -19,6 +19,10 @@ enum Epi {
   EPI_DGELU = 9,            // u = gelu'(h) * acc, h = aux (bf16 h1):
                             // C = bf16(u), C2 = bf16(gelu(h)), colsum +=
                             // sum over the tile's rows of u
+  EPI_ROPE_QKV = 10,        // the qkv product's column thirds: C = q,
+                            // C2 = k, C3 = v, each (M, N / 3) bf16, rope
+                            // (rope_pair, fp32) on q and k before the one
+                            // rounding
 };
 
 // What an epilogue reads and writes besides the accumulators.
@@ -33,6 +37,11 @@ struct EpiArgs {
   const bf16* gate;
   int gate_stride;
   int S;
+  // EPI_ROPE_QKV: the v output, the (slots, hd) fp32 rotary table, and
+  // the window (row r sits at slot q_off + (r / S) % n_q)
+  bf16* C3;
+  const float* freqs;
+  int n_q, q_off, hd;
 };
 
 // jax.nn.gelu(approximate=True): x * (0.5 * (1 + tanh(sqrt(2/pi) *
@@ -64,30 +73,6 @@ __device__ __forceinline__ void epi_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
 }
 
-// Eight bf16 of a row (16 bytes) through the read-only path.
-__device__ __forceinline__ uint4 ldg16(const bf16* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
-
-__device__ __forceinline__ void unpack8(uint4 u, float (&v)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  return u;
-}
-
 // Tile (m0, n0) of BM x BN outputs from c (row stride CS floats), written by
 // NT threads, tid in [0, NT). A thread takes eight neighbouring columns of a
 // row (16-byte loads and stores; neighbouring threads take neighbouring
@@ -96,7 +81,8 @@ __device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
 // are in flight together instead of one round trip per pair. Rows >= M and
 // columns >= N are masked (N is a multiple of 8). `out_off` moves C
 // (EPI_F32: the split-K partial of this block); `tile_row` picks the colsum
-// row of EPI_DGELU, whose partial adds the tile's rows in order.
+// row of EPI_DGELU, whose partial adds the tile's rows in order. A tile
+// of EPI_ROPE_QKV may span q, k and v: each 8-column group lies in one.
 template <int EPI, int BM, int BN, int CS, int NT>
 __device__ __forceinline__ void gemm_epilogue(float* c, const EpiArgs& e,
                                               int m0, int n0, int M, int N,
@@ -108,6 +94,11 @@ __device__ __forceinline__ void gemm_epilogue(float* c, const EpiArgs& e,
                           EPI == EPI_BIAS_GATED_Y ||
                           EPI == EPI_BIAS_BF16_RESID;
   constexpr bool kGate = EPI == EPI_BIAS_GATED || EPI == EPI_BIAS_GATED_Y;
+  // EPI_ROPE_QKV: the cos and sin of the angles last used, and their table
+  // offset (a thread keeps its columns, so it forms them again only where
+  // its row enters another window slot)
+  int rope_at = -1;
+  float rc[8], rs[8];
   for (int base = tid; base < BM * G; base += NT * U) {
     uint4 xr[U], xg[U];  // aux (gelu') or the residual; the gate
     bool ok[U];
@@ -145,6 +136,29 @@ __device__ __forceinline__ void gemm_epilogue(float* c, const EpiArgs& e,
         f[1] = c1;
       } else if constexpr (EPI == EPI_BF16) {
         *reinterpret_cast<uint4*>(out + o) = pack8(v);
+      } else if constexpr (EPI == EPI_ROPE_QKV) {
+        const int D = N / 3, third = gn / D, c_d = gn - third * D;
+        float z[8];
+        if (third < 2) {  // q or k: rope at the row's window slot
+          const int at =
+              (e.q_off + (gm / e.S) % e.n_q) * e.hd + c_d % e.hd;
+          if (at != rope_at) {
+            rope_at = at;
+            sincos8(e.freqs + at, rc, rs);
+          }
+#pragma unroll
+          for (int i = 0; i < 8; i += 2) {
+            const float2 r = rope_pair_cs(make_float2(v[i], v[i + 1]), rc[i],
+                                          rs[i], rc[i + 1], rs[i + 1]);
+            z[i] = r.x;
+            z[i + 1] = r.y;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) z[i] = v[i];
+        }
+        bf16* dst = third == 0 ? out : third == 1 ? e.C2 : e.C3;
+        *reinterpret_cast<uint4*>(dst + (size_t)gm * D + c_d) = pack8(z);
       } else if constexpr (EPI == EPI_DGELU) {
         float h[8], d[8], g[8];
         unpack8(xr[u], h);

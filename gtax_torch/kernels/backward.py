@@ -134,10 +134,11 @@ def _attention_bwd_plain(q, k, v, dao, bias, dt, scale_attn, spec):
     return ao, dq, dk, dv
 
 
-def _attn_branch_bwd_plain(x, shift, scale, g, qkv_w, out_w, y, ct, attn):
+def _attn_branch_bwd_plain(x, shift, scale, g, qkv_w, out_w, y, ct, attn,
+                           mod=None):
     """Shared body of the attention-branch backwards; `attn(dao)` returns
     (ao, dq, dk, dv) as (N, S, D) tensors (dq/dk fp32, rope adjoint
-    applied)."""
+    applied); mod: the forward's modulated rows, else formed again."""
     N, S, D = x.shape
     dt = x.dtype
     ct32, dg, dy32 = gate_bwd_plain(ct, g, y)
@@ -147,7 +148,8 @@ def _attn_branch_bwd_plain(x, shift, scale, g, qkv_w, out_w, y, ct, attn):
     dW_out = wgrad32(ao, dy)
     db_out = dy32.sum((0, 1))
     dqkv = torch.cat([dq, dk, dv.float()], dim=-1).to(dt)
-    mod = modulated32(x.float(), shift, scale).to(dt)
+    if mod is None:
+        mod = modulated32(x.float(), shift, scale).to(dt)
     dW_qkv = wgrad32(mod, dqkv)
     dmod32 = mm32(dqkv, qkv_w.t())
     dx, dshift, dscale = ln_mod_bwd_plain(x, scale, dmod32, ct32)
@@ -174,7 +176,8 @@ def spatial_branch_bwd_plain(x, shift, scale, g, qkv_w, out_w, rope_freqs,
 
 
 def temporal_branch_bwd_plain(x, shift, scale, g, qkv_w, out_w, rope_freqs,
-                              valid, qr, kr, vr, y, ct, num_heads, n_frames):
+                              valid, qr, kr, vr, y, ct, num_heads, n_frames,
+                              mod=None):
     N, S, D = x.shape
     T = n_frames
     d = D // num_heads
@@ -191,7 +194,7 @@ def temporal_branch_bwd_plain(x, shift, scale, g, qkv_w, out_w, rope_freqs,
                 rope_transpose32(f, dk).reshape(N, S, D), dv.reshape(N, S, D))
 
     return _attn_branch_bwd_plain(x, shift, scale, g, qkv_w, out_w, y, ct,
-                                  attn)
+                                  attn, mod)
 
 
 def mlp_branch_bwd_plain(x, shift, scale, g, w1, w2, h1, y, ct):
@@ -357,9 +360,10 @@ def _check_bwd(x, shift, scale, g, residuals, ct):
 
 
 def _attn_branch_bwd_cuda(x, shift, scale, g, qkv_w, out_w, y, ct,
-                          attention):
+                          attention, mod=None):
     """Shared launch sequence of the attention-branch backwards;
-    `attention(dao, dqkv, ao)` launches the attention backward."""
+    `attention(dao, dqkv, ao)` launches the attention backward; mod: the
+    forward's modulated rows, else ln_mod forms them again."""
     N, S, D = x.shape
     M = N * S
     _check_mat("qkv_w", qkv_w, (D, 3 * D))
@@ -373,7 +377,9 @@ def _attn_branch_bwd_cuda(x, shift, scale, g, qkv_w, out_w, y, ct,
     ao = torch.empty_like(dy)
     attention(dao, dqkv, ao)
     dW_out = wgrad(ao, dy)
-    dW_qkv = wgrad(block._modulate_cuda(x, shift, scale), dqkv)
+    if mod is None:
+        mod = block._modulate_cuda(x, shift, scale)
+    dW_qkv = wgrad(mod.reshape(M, D), dqkv)
     dmod = _empty((M, D), x)
     block.launch_gemm(dqkv, qkv_w, dmod, M, D, 3 * D, EPI_F32, trans_b=True)
     dx, dshift, dscale = ln_mod_bwd(x, dmod, scale, ct.reshape(M, D), S)
@@ -422,23 +428,29 @@ fused_spatial_branch_bwd.launches = 0
 
 
 def fused_temporal_branch_bwd(x, shift, scale, g, qkv_w, out_w, rope_freqs,
-                              valid, qr, kr, vr, y, ct, num_heads, n_frames):
+                              valid, qr, kr, vr, y, ct, num_heads, n_frames,
+                              mod=None):
     """Whole temporal-attention-branch backward. x/ct/y/qr/kr/vr:
     (N = B*T, S, D) frame-major; shift/scale/g: (N, D); rope_freqs:
-    (T, head_dim); valid: (T,) bools or None. Returns (dx, dshift, dscale,
-    dg, dW_qkv, dW_out, db_out).
+    (T, head_dim); valid: (T,) bools or None; mod: the forward's modulated
+    rows (N, S, D) (fused_temporal_branch emit_mod), else formed again.
+    Returns (dx, dshift, dscale, dg, dW_qkv, dW_out, db_out).
 
     Replaces gtax/kernels/backward.py fused_temporal_branch_bwd
     (pallas_call at :632, body _temporal_bwd_kernel :424, rope adjoint
     _rope_transpose_rows :411). On the card: as the spatial backward, with
-    attn_temporal_bwd (causal, slot-validity bias) as the attention part.
-    Bound: operations (the four GEMMs; the attention part is bytes)."""
+    attn_temporal_bwd (causal, slot-validity bias; 16-byte lanes, T a
+    template parameter) as the attention part, and no ln_mod where mod is
+    given: 8-10 launches. Bound: operations (the four GEMMs; the attention
+    part is bytes)."""
     if x.device.type == "cpu":
         return temporal_branch_bwd_plain(x, shift, scale, g, qkv_w, out_w,
                                          rope_freqs, valid, qr, kr, vr, y, ct,
-                                         num_heads, n_frames)
-    N, S, D = _check_bwd(x, shift, scale, g, (("qr", qr), ("kr", kr),
-                                              ("vr", vr), ("y", y)), ct)
+                                         num_heads, n_frames, mod)
+    residuals = (("qr", qr), ("kr", kr), ("vr", vr), ("y", y))
+    if mod is not None:
+        residuals += (("mod", mod),)
+    N, S, D = _check_bwd(x, shift, scale, g, residuals, ct)
     T = n_frames
     _need(N % T == 0, lambda: f"N={N} is not a multiple of T={T}")
     block.check_temporal(D, num_heads, T, rope_freqs)
@@ -451,7 +463,7 @@ def fused_temporal_branch_bwd(x, shift, scale, g, qkv_w, out_w, rope_freqs,
                      num_heads, bits, _stream(x))
 
     out = _attn_branch_bwd_cuda(x, shift, scale, g, qkv_w, out_w, y, ct,
-                                attention)
+                                attention, mod)
     fused_temporal_branch_bwd.launches += 1
     return out
 

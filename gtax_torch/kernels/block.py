@@ -15,21 +15,25 @@ a shape or dtype they do not take. There is no fallback and no switch.
 On the card a branch is a few launches of shared kernels: `ln_mod` (fp32
 LayerNorm + per-frame modulate -> bf16), `gemm_bf16` (tensor-core GEMM
 with an fp32 or fused epilogue), and the attention kernel of the branch
-(`attn_frame` or `attn_temporal`). Each wrapper counts its calls that
+(`attn_frame`, `attn_temporal_window` for the temporal branch's full window,
+`attn_temporal` for its incremental step). Each wrapper counts its calls that
 launch kernels in its `launches` attribute.
 
 For training, `emit_train=True` also returns the residuals the branch
 backwards consume (gtax's emit_train outputs): the post-rope q and k and the
 cast v of the attention branches, the pre-GELU fc1 output h1 of the MLP, and
 the pre-gate branch output y = proj + bias of both, each in the compute
-dtype. On the card the attention kernel stores q/k/v as it computes them and
-the last GEMM stores y beside the gated output (a second store of one
-epilogue; fc1's epilogue does the same for h1): no extra launch, and with
-emit_train off nothing changes for serving.
+dtype. On the card the spatial attention kernel stores q/k/v as it computes
+them, the temporal branch's qkv GEMM stores them from its epilogue (rope
+applied there, `gemm_rope_qkv`: they are also the K/V cache of emit_kv and
+the attention's inputs), and the last GEMM stores y beside the gated output
+(a second store of one epilogue; fc1's epilogue does the same for h1): no
+extra launch, and with emit_train off nothing changes for serving.
 
 Rounding points (shared by kernels and plain versions, as in the TPU
 kernels): LN statistics, softmax and rope in fp32; the qkv product stays
-fp32 until after rope and is cast to the compute dtype after it;
+fp32 until after rope and is cast to the compute dtype after it
+(`rope_qkv_plain` for the temporal branch);
 attention probabilities are cast to the compute dtype before PV; the
 branch output is cast once, o = cast(x32 + gate * (y + b)).
 """
@@ -57,6 +61,10 @@ EPI_BF16 = 6
 EPI_BIAS_GATED_Y = 7
 EPI_BIAS_GELU_TANH_H = 8
 EPI_DGELU = 9
+
+# the most frames of a temporal window (csrc/attn_temporal.cuh kMaxT): the
+# temporal kernels' register arrays, and the window kernels' T template
+MAX_WINDOW = 8
 
 
 # ----------------------------------------------------------- plain parts
@@ -126,6 +134,21 @@ def temporal_bias(valid, T: int, device) -> torch.Tensor:
     return torch.where(allow, 0.0, -1e30).float()
 
 
+def rope_qkv_plain(qkv32, freqs, S, n_q, q_off, dtype):
+    """The temporal branch's qkv product through rope and its one rounding:
+    qkv32 (M, 3D) fp32 rows, frame-major (row r at window slot q_off +
+    (r / S) % n_q of freqs (slots, head_dim)) -> (q, k, v), each (M, D) in
+    dtype, rope in fp32 on q and k. The plain version of the qkv GEMM's
+    rope epilogue (csrc/gemm_epi.cuh EPI_ROPE_QKV)."""
+    M, D = qkv32.shape[0], qkv32.shape[1] // 3
+    d = freqs.shape[-1]
+    shape = (M // (n_q * S), n_q, S, D // d, d)
+    q, k, v = (t.reshape(shape) for t in qkv32.split(D, dim=-1))
+    f = freqs[q_off:q_off + n_q][None, :, None, None, :]
+    return tuple(t.reshape(M, D) for t in (
+        rope(f, q).to(dtype), rope(f, k).to(dtype), v.to(dtype)))
+
+
 def attend_temporal(q, k, v, bias, dtype, out_dtype=None):
     """Causal attention across frames at each site: q (B, I, S, H, d)
     query frames, k/v (B, J, S, H, d) key frames in window-slot order,
@@ -173,20 +196,22 @@ def mlp_branch_plain(x, shift, scale, gate, w1, b1, w2, b2,
 
 def temporal_branch_plain(x, shift, scale, gate, qkv_w, out_w, out_b,
                           rope_freqs, valid, num_heads, n_frames,
-                          emit_kv=False, emit_train=False):
+                          emit_kv=False, emit_train=False, emit_mod=False):
     N, S, D = x.shape
     dt, H, T = x.dtype, num_heads, n_frames
-    B = N // T
     x32 = x.float()
-    qkv = mm32(_modulated(x32, shift, scale, dt), qkv_w)
-    q, k, v = (t.reshape(B, T, S, H, D // H) for t in qkv.split(D, dim=-1))
-    f = rope_freqs[None, :, None, None, :]
-    qr, kr, vb = rope(f, q).to(dt), rope(f, k).to(dt), v.to(dt)
-    o = attend_temporal(qr, kr, vb, temporal_bias(valid, T, x.device), dt)
+    mod = _modulated(x32, shift, scale, dt)
+    qr, kr, vb = rope_qkv_plain(mm32(mod, qkv_w).reshape(N * S, 3 * D),
+                                rope_freqs, S, T, 0, dt)
+    shape = (N // T, T, S, H, D // H)
+    o = attend_temporal(qr.reshape(shape), kr.reshape(shape),
+                        vb.reshape(shape), temporal_bias(valid, T, x.device),
+                        dt)
     y = mm32(o.reshape(N, S, D), out_w) + out_b.float()
     out = (x32 + gate.float()[:, None] * y).to(dt)
     if emit_train:
-        return (out, *(t.reshape(N, S, D) for t in (qr, kr, vb)), y.to(dt))
+        res = (out, *(t.reshape(N, S, D) for t in (qr, kr, vb)), y.to(dt))
+        return (*res, mod) if emit_mod else res
     if emit_kv:
         return out, kr.reshape(N, S, D), vb.reshape(N, S, D)
     return out
@@ -201,14 +226,12 @@ def temporal_step_plain(x, shift, scale, gate, qkv_w, out_w, out_b, k_ctx,
     d = D // H
     x32 = x.float()
     qkv = mm32(_modulated(x32, shift, scale, dt), qkv_w)
-    q, k, v = (t.reshape(B, n_live, S, H, d) for t in qkv.split(D, dim=-1))
-    f = rope_freqs[n_ctx:T][None, :, None, None, :]
-    keys = torch.cat([k_ctx.reshape(B, n_ctx, S, H, d).to(dt),
-                      rope(f, k).to(dt)], dim=1)
-    vals = torch.cat([v_ctx.reshape(B, n_ctx, S, H, d).to(dt), v.to(dt)],
-                     dim=1)
+    q, k, v = (t.reshape(B, n_live, S, H, d) for t in rope_qkv_plain(
+        qkv.reshape(N * S, 3 * D), rope_freqs, S, n_live, n_ctx, dt))
+    keys = torch.cat([k_ctx.reshape(B, n_ctx, S, H, d).to(dt), k], dim=1)
+    vals = torch.cat([v_ctx.reshape(B, n_ctx, S, H, d).to(dt), v], dim=1)
     bias = temporal_bias(valid, T, x.device)[n_ctx:]
-    o = attend_temporal(rope(f, q).to(dt), keys, vals, bias, dt)
+    o = attend_temporal(q, keys, vals, bias, dt)
     y = mm32(o.reshape(N, S, D), out_w) + out_b.float()
     return (x32 + gate.float()[:, None] * y).to(dt)
 
@@ -320,6 +343,20 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _k_split(a, M, N, K, k_chunk=None):
+    """(k_chunk, fp32 partials or None) of a bf16 GEMM launch: gemm_chunk's
+    K chunk by default; a workspace of one (M, N) partial a chunk where
+    there is more than one."""
+    if k_chunk is None:
+        k_chunk = gemm_chunk(M, N, K, a.device)
+    splits = -(-K // k_chunk) if k_chunk else 1
+    part = None
+    if splits > 1:
+        part = torch.empty((splits, M, N), dtype=torch.float32,
+                           device=a.device)
+    return k_chunk, part
+
+
 def launch_gemm(a, w, out, M, N, K, epi, bias=None, resid=None, gate=None,
                 S=1, out2=None, aux=None, colsum=None, trans_b=False,
                 k_chunk=None):
@@ -328,13 +365,7 @@ def launch_gemm(a, w, out, M, N, K, epi, bias=None, resid=None, gate=None,
     column sums of the emit_train and gelu' epilogues. k_chunk: the
     small-M path's K chunk (0: the tiled path), gemm_chunk's by default;
     its grid (N / 64 x chunks) must fit on the card at once."""
-    if k_chunk is None:
-        k_chunk = gemm_chunk(M, N, K, a.device)
-    splits = -(-K // k_chunk) if k_chunk else 1
-    part = None
-    if splits > 1:
-        part = torch.empty((splits, M, N), dtype=torch.float32,
-                           device=a.device)
+    k_chunk, part = _k_split(a, M, N, K, k_chunk)
     build.launch(
         "gtax_gemm_bf16", a.data_ptr(), w.data_ptr(), out.data_ptr(),
         _ptr(out2), _ptr(aux), _ptr(colsum), _ptr(bias),
@@ -353,6 +384,26 @@ def launch_attn_frame(qkv, freqs, out, n_frames, S, D, num_heads, rot,
                  out.data_ptr(), int(out.dtype == torch.float32), _ptr(q),
                  _ptr(k), _ptr(v), n_frames, S, D, num_heads, rot,
                  _stream(qkv))
+
+
+def launch_gemm_rope_qkv(mod, qkv_w, q, k, v, freqs, S, n_q, q_off, hd):
+    """q, k, v (M, D) bf16 = the thirds of mod (M, D) @ qkv_w (D, 3D),
+    rope on q and k at each row's window slot (q_off + (r / S) % n_q of
+    freqs), rounded once: the EPI_F32 product's mainloop and K chunk with
+    the rope epilogue."""
+    M, D = mod.shape
+    k_chunk, part = _k_split(mod, M, 3 * D, D)
+    build.launch("gtax_gemm_rope_qkv", mod.data_ptr(), qkv_w.data_ptr(),
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), freqs.data_ptr(),
+                 M, D, S, n_q, q_off, hd, k_chunk, _ptr(part), _stream(mod))
+
+
+def launch_attn_window(q, k, v, out, B, T, S, D, num_heads, bits):
+    """The full-window temporal attention over bf16 post-rope q, k, v
+    (B * T * S, D) rows into out (bf16, the same shape)."""
+    build.launch("gtax_attn_temporal_window", q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), out.data_ptr(), B, T, S, D, num_heads, bits,
+                 _stream(q))
 
 
 def launch_attn_temporal(qkv, freqs, out, B, n_q, q_off, S, D, num_heads,
@@ -491,17 +542,51 @@ def fused_mlp_branch(x, shift, scale, gate, w1, b1, w2, b2,
 fused_mlp_branch.launches = 0
 
 
+def check_window(T) -> None:
+    """The temporal kernels take windows of 1 .. MAX_WINDOW frames: their
+    register arrays, and the window kernels' instantiations of T."""
+    _need(1 <= T <= MAX_WINDOW,
+          lambda: f"window of {T} frames: the kernels take 1 to "
+                  f"{MAX_WINDOW}")
+
+
 def check_temporal(D, num_heads, T, rope_freqs):
-    """The temporal attention kernel's limits; returns the head dim."""
+    """The temporal attention kernels' limits; returns the head dim."""
     d = _check_heads(D, num_heads, (32, 64, 128))
-    _need(T <= 8, lambda: f"window of {T} frames: the kernel takes at most 8")
+    check_window(T)
     _check_freqs(rope_freqs, T, d)
     return d
 
 
-def _temporal_cuda(x, shift, scale, gate, qkv_w, out_w, out_b, rope_freqs,
-                   num_heads, B, n_q, q_off, bits, k_ctx=None, v_ctx=None,
-                   emit_kv=False, emit_train=False):
+def _temporal_window_cuda(x, shift, scale, gate, qkv_w, out_w, out_b,
+                          rope_freqs, num_heads, T, bits, emit_kv,
+                          emit_train, emit_mod):
+    """The full window: ln_mod -> gemm_rope_qkv (q, k, v bf16, also the
+    emitted K/V and residuals) -> attn_temporal_window -> gemm (gated
+    residual, y with emit_train)."""
+    N, S, D = x.shape
+    d = check_temporal(D, num_heads, T, rope_freqs)
+    _check_attn_weights(qkv_w, out_w, out_b, D)
+    mod = _modulate_cuda(x, shift, scale)
+    q, k, v, att = (torch.empty_like(x) for _ in range(4))
+    launch_gemm_rope_qkv(mod, qkv_w, q, k, v, rope_freqs, S, T, 0, d)
+    launch_attn_window(q, k, v, att, N // T, T, S, D, num_heads, bits)
+    out = torch.empty_like(x)
+    y = torch.empty_like(x) if emit_train else None
+    launch_gemm(att, out_w, out, N * S, D, D,
+                EPI_BIAS_GATED_Y if emit_train else EPI_BIAS_GATED,
+                bias=out_b, resid=x, gate=gate, S=S, out2=y)
+    if emit_train:  # (out, q, k, v, y), as gtax returns them
+        res = (out, q, k, v, y)
+        return (*res, mod.reshape(N, S, D)) if emit_mod else res
+    return (out, k, v) if emit_kv else out
+
+
+def _temporal_step_cuda(x, shift, scale, gate, qkv_w, out_w, out_b,
+                        rope_freqs, num_heads, B, n_q, q_off, bits, k_ctx,
+                        v_ctx):
+    """The incremental step: ln_mod -> gemm (fp32 qkv) -> attn_temporal
+    (rope on load, step mode over the cache) -> gemm (gated residual)."""
     N, S, D = x.shape
     check_temporal(D, num_heads, q_off + n_q, rope_freqs)
     _check_attn_weights(qkv_w, out_w, out_b, D)
@@ -509,51 +594,49 @@ def _temporal_cuda(x, shift, scale, gate, qkv_w, out_w, out_b, rope_freqs,
     qkv = torch.empty((N * S, 3 * D), dtype=torch.float32, device=x.device)
     launch_gemm(mod, qkv_w, qkv, N * S, 3 * D, D, EPI_F32)
     att = torch.empty((N * S, D), dtype=torch.bfloat16, device=x.device)
-    emitted = [torch.empty_like(x)
-               for _ in range(4 if emit_train else 2 if emit_kv else 0)]
     launch_attn_temporal(qkv, rope_freqs, att, B, n_q, q_off, S, D,
-                         num_heads, bits, k_ctx, v_ctx,
-                         emitted[:2] or None,
-                         emitted[2] if emit_train else None)
+                         num_heads, bits, k_ctx, v_ctx)
     out = torch.empty_like(x)
-    launch_gemm(att, out_w, out, N * S, D, D,
-                EPI_BIAS_GATED_Y if emit_train else EPI_BIAS_GATED,
-                bias=out_b, resid=x, gate=gate, S=S,
-                out2=emitted[3] if emit_train else None)
-    if emit_train:  # (out, q, k, v, y), as gtax returns them
-        k, v, q, y = emitted
-        return out, q, k, v, y
-    return (out, *emitted) if emit_kv else out
+    launch_gemm(att, out_w, out, N * S, D, D, EPI_BIAS_GATED, bias=out_b,
+                resid=x, gate=gate, S=S)
+    return out
 
 
 def fused_temporal_branch(x, shift, scale, gate, qkv_w, out_w, out_b,
                           rope_freqs, valid, num_heads, n_frames,
-                          emit_kv=False, emit_train=False):
+                          emit_kv=False, emit_train=False, emit_mod=False):
     """x: (N = B*T, S, D) frame-major token tiles; shift/scale/gate:
     (N, D); rope_freqs: (T, head_dim) temporal table; valid: (T,) bools or
     None. Returns x + gate * TemporalCausalAttention(modulate(LN(x))), and
     with emit_kv also the post-rope K and cast V rows (N, S, D) — the
     context cache fused_temporal_step reads — or with emit_train
-    (out, q, k, v, y) (not both).
+    (out, q, k, v, y) (not both). emit_mod (with emit_train; the trainable
+    branch's own keyword) appends the modulated rows mod (N, S, D) the qkv
+    product read, which fused_temporal_branch_bwd takes instead of forming
+    them again.
 
     Replaces gtax/kernels/block.py fused_temporal_branch (pallas_call at
     :687, body _temporal_kernel :253, core _temporal_attention_core :297,
-    mask temporal_preamble :615). On the card: ln_mod -> gemm (fp32 qkv)
-    -> attn_temporal (full window, optional K/V store) -> gemm (gated
-    residual): 4 launches. Bound: weight bytes."""
+    mask temporal_preamble :615). On the card: ln_mod -> gemm_rope_qkv
+    (rope and the bf16 rounding in the qkv product's epilogue, which stores
+    q, k, v: the emitted K/V and residuals) -> attn_temporal_window (16-byte
+    lanes, T a template parameter) -> gemm (gated residual): 4 launches.
+    Bound: weight bytes at the prefill's rows, operations at training's."""
     if emit_kv and emit_train:
         raise ValueError("emit_kv and emit_train are exclusive")
+    if emit_mod and not emit_train:
+        raise ValueError("emit_mod comes with emit_train")
     if x.device.type == "cpu":
         return temporal_branch_plain(x, shift, scale, gate, qkv_w, out_w,
                                      out_b, rope_freqs, valid, num_heads,
-                                     n_frames, emit_kv, emit_train)
+                                     n_frames, emit_kv, emit_train, emit_mod)
     N, S, D = _check_branch(x, shift, scale, gate)
     _need(N % n_frames == 0,
           lambda: f"N={N} is not a multiple of T={n_frames}")
-    out = _temporal_cuda(x, shift, scale, gate, qkv_w, out_w, out_b,
-                         rope_freqs, num_heads, N // n_frames, n_frames, 0,
-                         valid_bits(valid, n_frames), emit_kv=emit_kv,
-                         emit_train=emit_train)
+    out = _temporal_window_cuda(x, shift, scale, gate, qkv_w, out_w, out_b,
+                                rope_freqs, num_heads, n_frames,
+                                valid_bits(valid, n_frames), emit_kv,
+                                emit_train, emit_mod)
     fused_temporal_branch.launches += 1
     return out
 
@@ -572,8 +655,9 @@ def fused_temporal_step(x, shift, scale, gate, qkv_w, out_w, out_b, k_ctx,
 
     Replaces gtax/kernels/block.py fused_temporal_step (pallas_call at
     :518/:548, body _temporal_step_kernel :463, core _temporal_step_core
-    :364). On the card: ln_mod -> gemm (fp32 qkv) -> attn_temporal (step
-    mode over the cache) -> gemm (gated residual): 4 launches. Bound:
+    :364). On the card: ln_mod -> gemm (fp32 qkv) -> attn_temporal (rope
+    on load, step mode over the cache) -> gemm (gated residual): 4
+    launches. Bound:
     weight bytes; the context cache adds ~1.2 MB per batch element."""
     if x.device.type == "cpu":
         return temporal_step_plain(x, shift, scale, gate, qkv_w, out_w,
@@ -586,9 +670,10 @@ def fused_temporal_step(x, shift, scale, gate, qkv_w, out_w, out_b, k_ctx,
     _need(n_ctx >= 1, lambda: "the step needs at least one context frame")
     for name, t in (("k_ctx", k_ctx), ("v_ctx", v_ctx)):
         _check_mat(name, t, (B * n_ctx * S, D))
-    out = _temporal_cuda(x, shift, scale, gate, qkv_w, out_w, out_b,
-                         rope_freqs, num_heads, B, n_live, n_ctx,
-                         valid_bits(valid, n_ctx + n_live), k_ctx, v_ctx)
+    out = _temporal_step_cuda(x, shift, scale, gate, qkv_w, out_w, out_b,
+                              rope_freqs, num_heads, B, n_live, n_ctx,
+                              valid_bits(valid, n_ctx + n_live), k_ctx,
+                              v_ctx)
     fused_temporal_step.launches += 1
     return out
 

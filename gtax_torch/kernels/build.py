@@ -52,6 +52,8 @@ SIGNATURES = {
     "gtax_gemm_consts": (_P,),
     # out: int[4] = the int8 unit's rows, columns, k-step, most K chunks
     "gtax_gemm_s8_consts": (_P,),
+    # A, B, q, k, v, freqs, M, D, S, n_q, q_off, hd, k_chunk, part, stream
+    "gtax_gemm_rope_qkv": (*(_P,) * 6, *(_I,) * 7, _P, _P),
     # A, B, C, M, Ka, N, chunk, stream
     "gtax_gemm_wgrad": (_P, _P, _P, _I, _I, _I, _I, _P),
     # N -> the weight-gradient tile's columns, or -error
@@ -76,6 +78,8 @@ SIGNATURES = {
     # q_off, S, D, num_heads, valid_mask, stream
     "gtax_attn_temporal": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
                            _I, _I, _I, _I, _P),
+    # q, k, v, out, B, T, S, D, num_heads, valid_mask, stream
+    "gtax_attn_temporal_window": (*(_P,) * 4, *(_I,) * 6, _P),
     # q, k, v, dout, cos, sin, dqkv, ao, n_frames, S, D, num_heads, rot,
     # stream
     "gtax_attn_frame_bwd": (*(_P,) * 8, *(_I,) * 5, _P),

@@ -95,14 +95,17 @@ class SpatialBranch(torch.autograd.Function):
 
 class TemporalBranch(torch.autograd.Function):
     """fused_temporal_branch with its backward (gtax
-    trainable_temporal_branch); `valid` is a (T,) bool sequence or None."""
+    trainable_temporal_branch); `valid` is a (T,) bool sequence or None.
+    The forward also keeps the modulated rows its qkv product read
+    (emit_mod), so the backward's weight gradient does not form them
+    again."""
 
     @staticmethod
     def forward(ctx, x, shift, scale, g, qkv_w, out_w, out_b, rope_freqs,
                 valid, num_heads, n_frames):
         out, *res = block.fused_temporal_branch(
             x, shift, scale, g, qkv_w, out_w, out_b, rope_freqs, valid,
-            num_heads, n_frames, emit_train=True)
+            num_heads, n_frames, emit_train=True, emit_mod=True)
         ctx.save_for_backward(x, shift, scale, g, qkv_w, out_w, out_b,
                               rope_freqs, *res)
         ctx.valid, ctx.num_heads, ctx.n_frames = valid, num_heads, n_frames
@@ -110,11 +113,12 @@ class TemporalBranch(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        x, shift, scale, g, qkv_w, out_w, out_b, freqs, *res = (
+        x, shift, scale, g, qkv_w, out_w, out_b, freqs, *res, mod = (
             ctx.saved_tensors)
         dx, *grads = backward.fused_temporal_branch_bwd(
             x, shift, scale, g, qkv_w, out_w, freqs, ctx.valid, *res,
-            ct.to(x.dtype).contiguous(), ctx.num_heads, ctx.n_frames)
+            ct.to(x.dtype).contiguous(), ctx.num_heads, ctx.n_frames,
+            mod=mod)
         return (dx, *_as(grads, (shift, scale, g, qkv_w, out_w, out_b)),
                 None, None, None, None)
 

@@ -1,7 +1,8 @@
 """Hold two checkouts' serving kernels against each other on one card: the
 bf16 step branches (`fused_spatial_branch`, `fused_mlp_branch`,
-`fused_temporal_step`), the bf16 prefill's `fused_temporal_branch`, and the
-int8 wrappers and pairs
+`fused_temporal_step`), the bf16 prefill's `fused_temporal_branch` (and its
+emit_train mode at B=4, T=5, the training step's window), and the int8
+wrappers and pairs
 (`gtax_torch.kernels.quant`, `gtax_torch.kernels.pair`), on fixed seeded
 inputs.
 
@@ -14,9 +15,11 @@ prefill's int8 and bf16 temporal branches at windows of 4 frames), made
 with numpy from fixed seeds; int8 weights are quantized on the card by
 the checkout's own `quant.quantize_weight`, so each checkout stores them
 as its kernels read them. --save writes every output to FILE; --compare prints, for each
-output, whether the two files hold the same bits (for a bf16 output that
-differs, the share of elements and the largest difference: a split-K sum
-adds in another order), and exits 1 if an int8 output differs; --time
+output (each of a call's outputs: the prefill's K/V cache, emit_train's
+q, k, v apart from the branch output), whether the two files hold the same
+bits (for a bf16 output that differs, the share of elements and the
+largest difference: a split-K sum adds in another order), and exits 1 if
+an int8 output differs; --time
 prints each call's CUDA-event median (L2 flushed and the stream held 10 ms
 before each call) and, last, a JSON object of them. To compare speed, run
 --time for each checkout in turns (A, B, B, A).
@@ -98,6 +101,15 @@ def cases():
                 lambda *a: block.fused_temporal_branch(*a, emit_kv=True),
                 (xt, mt[:, :D], mt[:, D:2 * D], mt[:, 2 * D:], *ba, tf[:T],
                  valid[:T], H, T))
+    gen = np.random.default_rng(710)
+    B, T = 4, 5  # emit_train: (out, q, k, v, y)
+    xt = _rand(gen, (B * T, S, D))
+    mt = _rand(gen, (B * T, 3 * D), 0.5)
+    ba = (_rand(gen, (D, 3 * D), 0.02), _rand(gen, (D, D), 0.02),
+          _rand(gen, (D,), 0.02))
+    out[f"temporal_branch emit_train B={B} T={T}"] = (
+        lambda *a: block.fused_temporal_branch(*a, emit_train=True),
+        (xt, mt[:, :D], mt[:, D:2 * D], mt[:, 2 * D:], *ba, tf, valid, H, T))
     return out
 
 
@@ -129,16 +141,23 @@ def main():
         a, b = (torch.load(f) for f in args.compare)
         same = {"int8": True, "bf16": True}
         for k in sorted(set(a) | set(b)):
-            eq = k in a and k in b and all(
-                torch.equal(x, y) for x, y in zip(a[k], b[k]))
             kind = "int8" if "_q " in k else "bf16"
-            same[kind] &= eq
-            note = ""
-            if not eq and k in a and k in b:
-                x, y = a[k][0].float(), b[k][0].float()
-                note = (f" ({(x != y).float().mean().item():.3%} of elements, "
-                        f"max |diff| {(x - y).abs().max().item():.3g})")
-            print(f"[bits] {k}: {'bit-equal' if eq else 'DIFFERENT'}{note}")
+            if k not in a or k not in b:
+                same[kind] = False
+                print(f"[bits] {k}: in one file only")
+                continue
+            for i, (x, y) in enumerate(zip(a[k], b[k])):
+                eq = torch.equal(x, y)
+                same[kind] &= eq
+                note = ""
+                if not eq:
+                    x, y = x.float(), y.float()
+                    note = (f" ({(x != y).float().mean().item():.3%} of "
+                            f"elements, max |diff| "
+                            f"{(x - y).abs().max().item():.3g})")
+                name = k if len(a[k]) == 1 else f"{k} [{i}]"
+                print(f"[bits] {name}: {'bit-equal' if eq else 'DIFFERENT'}"
+                      f"{note}")
         print(f"[bits] int8 outputs all bit-equal: {same['int8']}; bf16 "
               f"outputs all bit-equal: {same['bf16']}")
         return 0 if same["int8"] else 1

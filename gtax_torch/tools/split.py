@@ -1,9 +1,14 @@
 """Split the serving step's kernels on one NVIDIA GPU: the bf16 step's
 branches `fused_spatial_branch` (#1), `fused_mlp_branch` (#2) and
 `fused_temporal_step` (#4) by launch, and the paired int8 half-block
-(`pair_q`, #10 / #11) by phase.
+(`pair_q`, #10 / #11) by phase; with --temporal instead, the temporal
+branch by launch: `fused_temporal_branch` (#3) at emit_train (B=16, T=5,
+slot 0 padded) and at the prefill's emit_kv (576 rows), and
+`fused_temporal_branch_bwd` (#13, B=16, T=5), each with its attention
+launch's byte bound (`temporal_splits`).
 
-    python -m gtax_torch.tools.split [--out FILE]
+    python -m gtax_torch.tools.split [--temporal] [--out FILE]
+    PYTHONPATH=<checkout> python <this file> --temporal   # another tree
 
 The launch split records CUDA events around each kernel launch of one
 call, and the gap from each launch's end event to the next one's start
@@ -29,6 +34,7 @@ output is a JSON object of every row.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 
@@ -36,12 +42,13 @@ import numpy as np
 import torch
 
 CYCLES_PER_MS = 1.98e6  # the H100's boost clock (torch.cuda._sleep counts)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 D, H, HD, S = 1024, 16, 64, 144
 PHASES = ("ln_mod", "qkv", "attention", "quant", "out-proj", "ln_mod 2",
           "fc1", "quant 2", "fc2")
 GEMM_PHASES = (1, 4, 6, 8)  # qkv, out-proj, fc1, fc2 (0-based)
 STAMPS = 18 + 4 * len(GEMM_PHASES)  # csrc/pair_q.cu kStamps
-GEMMS = ("gtax_gemm_bf16", "gtax_gemm_wgrad")
+GEMMS = ("gtax_gemm_bf16", "gtax_gemm_wgrad", "gtax_gemm_rope_qkv")
 
 
 def _cold(flush):
@@ -163,6 +170,79 @@ def attention_inputs(kind, N, seed=50):
     return (*head, kc, vc, f, [False] + [True] * n_ctx, H, n_ctx)
 
 
+def temporal_attention_bound(split, M, emitted=0, log=print):
+    """The byte bound of the temporal attention launch in a launch split of
+    #3 or #13 over M rows (each input read once, each output written once):
+    attn_temporal_window reads q, k, v and writes O, bf16; attn_temporal
+    (the full window before the rope epilogue) read the fp32 qkv product
+    and wrote O and `emitted` bf16 rows (q, k, v or the K/V cache);
+    attn_temporal_bwd reads q, k, v, dO and writes dq, dk, dv and O."""
+    name = next(e["kernel"] for e in split[:-1]
+                if e["kernel"].startswith("gtax_attn_temporal"))
+    row = M * D * 2
+    by = {"gtax_attn_temporal_window": 4 * row,
+          "gtax_attn_temporal": M * 3 * D * 4 + (1 + emitted) * row,
+          "gtax_attn_temporal_bwd": 8 * row}[name]
+    ms = 1e3 * by / HBM_BYTES_PER_S
+    log(f"[split]   {name} bound {ms:.4f} ms (bytes; {by / 1e6:.1f} MB)")
+    return {"kernel": name, "bound_ms": ms, "bytes": by}
+
+
+def temporal_inputs(B, T, seed=900):
+    """fused_temporal_branch's arguments over B windows of T frames of 144
+    tokens, without the window mask (x, shift, scale, gate, qkv_w, out_w,
+    out_b, rope_freqs), and a cotangent of x's shape."""
+    from gtax_torch.core import rope
+
+    gen = np.random.default_rng(seed + 10 * B + T)
+    N = B * T
+    x = _rand(gen, (N, S, D))
+    mods = _rand(gen, (N, 3 * D), 0.5)
+    f = rope.temporal_rope_freqs(torch.arange(T), rope.lang_freqs(HD)).cuda()
+    return ((x, mods[:, :D], mods[:, D:2 * D], mods[:, 2 * D:],
+             _rand(gen, (D, 3 * D), 0.02), _rand(gen, (D, D), 0.02),
+             _rand(gen, (D,), 0.02), f), _rand(gen, (N, S, D)))
+
+
+def temporal_splits(log=print):
+    """#3 and #13 by launch at the training step's and the prefill's shapes
+    (random seeded weights, DiT-S/2's widths), each with its attention's
+    bound. Where the checkout's temporal branch hands back its modulated
+    rows (emit_mod), the backward takes them, as the trainer's does."""
+    from gtax_torch.kernels import backward, block
+
+    has_mod = "emit_mod" in inspect.signature(
+        block.fused_temporal_branch).parameters
+    out = {}
+    for key, B, T in (("emit_train", 16, 5), ("emit_kv", 1, 4)):
+        M = B * T * S
+        a, _ = temporal_inputs(B, T)
+        valid = [False] + [True] * (T - 1)
+        split = launch_split(
+            lambda: block.fused_temporal_branch(*a, valid, H, T,
+                                                **{key: True}),
+            f"fused_temporal_branch {key} B={B} T={T} ({M} rows)",
+            [2 * M * D * 3 * D, 2 * M * D * D], log)
+        out[key] = {"launch_split": split,
+                    "attention": temporal_attention_bound(
+                        split, M, 3 if key == "emit_train" else 2, log)}
+    B, T = 16, 5
+    M = B * T * S
+    a, ct = temporal_inputs(B, T, seed=950)
+    kw = {"emit_mod": True} if has_mod else {}
+    res = block.fused_temporal_branch(*a, None, H, T, emit_train=True, **kw)
+    bargs = (*a[:6], a[7], None, *res[1:5], ct, H, T)
+    bkw = {"mod": res[5]} if has_mod else {}
+    split = launch_split(
+        lambda: backward.fused_temporal_branch_bwd(*bargs, **bkw),
+        f"fused_temporal_branch_bwd B={B} T={T} ({M} rows, mod "
+        f"{'given' if has_mod else 'formed again'})",
+        [2 * M * D * D] * 2 + [2 * M * D * 3 * D] * 2, log)
+    out["bwd"] = {"launch_split": split,
+                  "attention": temporal_attention_bound(split, M, log=log)}
+    return out
+
+
 def pair_args(kind, N, seed=92):
     """(temporal, the checked launch arguments of pair._launch) of one
     paired half-block over N frames: "spatial", or "temporal" (the step of
@@ -266,6 +346,8 @@ def pair_phases(kind, N, iters=15, log=print):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the JSON object here")
+    ap.add_argument("--temporal", action="store_true",
+                    help="split #3 and #13 instead (temporal_splits)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("split: needs a CUDA device")
@@ -278,6 +360,14 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    if args.temporal:
+        with torch.inference_mode():
+            result = {"card": card, **temporal_splits()}
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(result, f)
+        print(json.dumps(result))
+        return
     result = {"card": card, "mlp": {}, "spatial": {}, "temporal": {},
               "pair": {}}
     with torch.inference_mode():

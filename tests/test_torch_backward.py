@@ -269,3 +269,130 @@ def test_xla_branches_match_gtax(kind):
         got = branches.xla_mlp_branch(*t, torch.float32)
         ref = jbr.xla_mlp_branch(*j, jnp.float32)
     _close(got, ref, atol, rtol, kind)
+
+
+# --------------------------------- the temporal branch's bf16 q/k/v and mod
+
+def _window_inputs(seed, n_frames, B=2):
+    """numpy inputs of a temporal branch over B windows of n_frames:
+    x, shift, scale, g, qkv_w, out_w, out_b; freqs (n_frames, d); ct."""
+    r = np.random.default_rng(seed)
+    N = B * n_frames
+
+    def a(shape, std=1.0):
+        return (r.standard_normal(shape) * std).astype(np.float32)
+
+    arrays = [a((N, S, D)), a((N, D), 0.5), a((N, D), 0.1), a((N, D), 0.5),
+              a((D, 3 * D), 0.05), a((D, D), 0.05), a((D,), 0.01)]
+    return arrays, a((n_frames, d), 0.3), a((N, S, D))
+
+
+def _valid(kind, n_frames):
+    return None if kind == "all" else [False] + [True] * (n_frames - 1)
+
+
+@pytest.mark.parametrize("valid", ["all", "padded"])
+@pytest.mark.parametrize("n_frames", [5, 3])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_rope_qkv_plain_matches_gtax_emit_train(dtype, n_frames, valid):
+    """rope_qkv_plain (the plain version of the qkv GEMM's rope epilogue)
+    over the plain qkv product against gtax's emit_train q, k, v."""
+    tdt, jdt, atol, rtol = DTYPES[dtype]
+    arrays, f, _ = _window_inputs(10 + n_frames, n_frames)
+    t, j = _to(arrays, tdt, jdt)
+    v = _valid(valid, n_frames)
+    x, sh, sc = t[:3]
+    N = x.shape[0]
+    mod = block.modulated32(x.float(), sh, sc).to(tdt)
+    qkv32 = block.mm32(mod, t[4]).reshape(N * S, 3 * D)
+    got = block.rope_qkv_plain(qkv32, torch.from_numpy(f), S, n_frames, 0,
+                               tdt)
+    _, *ref = jblock.fused_temporal_branch(
+        *j, jnp.asarray(f), None if v is None else jnp.asarray(v), HEADS,
+        n_frames, emit_train=True)
+    for name, a, b in zip(("q", "k", "v"), got, ref[:3]):
+        assert a.dtype == tdt and a.shape == (N * S, D)
+        _close(a.reshape(N, S, D), b, atol, rtol, name)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_temporal_emit_mod(dtype):
+    """emit_mod appends the modulated rows to gtax's five emit_train
+    outputs and changes none of them; it needs emit_train."""
+    tdt, _, _, _ = DTYPES[dtype]
+    arrays, f, _ = _window_inputs(20, T)
+    t = [torch.from_numpy(a).to(tdt) for a in arrays]
+    fr = torch.from_numpy(f)
+    five = block.fused_temporal_branch(*t, fr, None, HEADS, T,
+                                       emit_train=True)
+    six = block.fused_temporal_branch(*t, fr, None, HEADS, T,
+                                      emit_train=True, emit_mod=True)
+    assert len(five) == 5 and len(six) == 6
+    for a, b in zip(five, six):
+        assert torch.equal(a, b)
+    x, sh, sc = t[:3]
+    assert torch.equal(six[5], block.modulated32(x.float(), sh, sc).to(tdt))
+    with pytest.raises(ValueError):
+        block.fused_temporal_branch(*t, fr, None, HEADS, T, emit_mod=True)
+
+
+@pytest.mark.parametrize("valid", ["all", "padded"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_temporal_bwd_with_mod_is_bit_equal(dtype, valid):
+    """fused_temporal_branch_bwd given the forward's mod rows gives the
+    bits it gives when it forms them itself."""
+    tdt, _, _, _ = DTYPES[dtype]
+    arrays, f, ct = _window_inputs(21, T)
+    t = [torch.from_numpy(a).to(tdt) for a in arrays]
+    fr, tct = torch.from_numpy(f), torch.from_numpy(ct).to(tdt)
+    v = _valid(valid, T)
+    _, *res, mod = block.fused_temporal_branch(
+        *t, fr, v, HEADS, T, emit_train=True, emit_mod=True)
+    args = (*t[:6], fr, v, *res, tct, HEADS, T)
+    without = backward.fused_temporal_branch_bwd(*args)
+    given = backward.fused_temporal_branch_bwd(*args, mod=mod)
+    for name, a, b in zip(ATTN_GRADS, given, without):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("valid", ["all", "padded"])
+@pytest.mark.parametrize("n_frames", [5, 3])
+def test_temporal_branch_function_keeps_mod(monkeypatch, n_frames, valid):
+    """TemporalBranch's gradients against jax.vjp of gtax's trainable
+    temporal branch (fp32, gtax's backward-test tolerance), with the
+    backward taking the forward's mod rows: forming them again would
+    raise."""
+    _, _, atol, rtol = DTYPES["fp32"]
+    arrays, f, ct = _window_inputs(22 + n_frames, n_frames)
+    t, j = _to(arrays, torch.float32, jnp.float32)
+    v = _valid(valid, n_frames)
+    f0 = jbr.trainable_temporal_branch(HEADS, n_frames, v is not None,
+                                       "float32")
+    jv = () if v is None else (jnp.asarray(v),)
+    _, vjp = jax.vjp(lambda *a: f0(*a, *jv), *j, jnp.asarray(f))
+    ref = vjp(jnp.asarray(ct))[:len(t)]
+
+    def no_recompute(*a, **k):
+        raise AssertionError("the backward formed mod again")
+
+    monkeypatch.setattr(backward, "modulated32", no_recompute)
+    got = _grads_torch(
+        lambda *a: branches.trainable_temporal_branch(
+            *a, torch.from_numpy(f), v, HEADS, n_frames),
+        t, torch.from_numpy(ct))
+    for i, (a, b) in enumerate(zip(got, ref)):
+        _close(a, b, atol, rtol, f"T={n_frames} arg {i}")
+
+
+@pytest.mark.parametrize("n_frames,ok", [(0, False), (1, True), (5, True),
+                                         (8, True), (9, False)])
+def test_window_frames_dispatch_limits(n_frames, ok):
+    """The temporal kernels are instantiated for windows of 1 to 8 frames
+    (T a template parameter); the wrappers refuse any other window before
+    a launch."""
+    assert block.MAX_WINDOW == 8
+    if ok:
+        block.check_window(n_frames)
+    else:
+        with pytest.raises(ValueError, match="1 to 8"):
+            block.check_window(n_frames)

@@ -1072,3 +1072,145 @@ def test_attn_frame_query_tiles_bit_equal(cuda, S, hd):
         torch.cuda.synchronize()
         for a, b in zip(whole, part):
             assert torch.equal(a[n * S:(n + 1) * S], b), n
+
+
+# ------------------------------ the temporal branch's full window in bf16
+
+def _rope_qkv_fp32_product(mod, qkv_w, freqs, B, n_q, q_off, S, heads):
+    """q, k, v as the fp32 qkv product (EPI_F32) through attn_temporal's
+    own rope and rounding (its emitted q/k/v): the path the rope epilogue
+    replaced."""
+    M = mod.shape[0]
+    qkv = torch.empty((M, 3 * D), dtype=torch.float32, device="cuda")
+    block.launch_gemm(mod, qkv_w, qkv, M, 3 * D, D, block.EPI_F32)
+    out = torch.empty((M, D), dtype=torch.bfloat16, device="cuda")
+    q, k, v = (torch.empty_like(out) for _ in range(3))
+    ctx = None
+    if q_off:
+        ctx = torch.zeros((B * q_off * S, D), dtype=torch.bfloat16,
+                          device="cuda")
+    block.launch_attn_temporal(qkv, freqs, out, B, n_q, q_off, S, D, heads,
+                               (1 << (n_q + q_off)) - 1, ctx, ctx, (k, v), q)
+    return q, k, v, qkv
+
+
+@pytest.mark.parametrize("mode", ["window", "prefill", "step", "random"])
+@pytest.mark.parametrize("T", [1, 3, 5, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_gemm_rope_qkv_bit_equal(cuda, hd, T, mode):
+    """The qkv GEMM's rope epilogue gives the bits of the EPI_F32 product
+    through attn_temporal's rope and rounding: every row's window slot
+    (full window of B=2 and one prefill window, B=1; the step's live frame
+    at slot T - 1; the model's tables and a table of unrelated angles),
+    hd 32/64/128. Also against rope_qkv_plain on the same fp32 product."""
+    gen = np.random.default_rng(180 + hd + T)
+    heads = D // hd
+    B, n_q, q_off = {"window": (2, T, 0), "prefill": (1, T, 0),
+                     "step": (2, 1, T - 1), "random": (2, T, 0)}[mode]
+    if mode == "random":
+        f = torch.from_numpy(gen.uniform(-7, 7, (T, hd)).astype(
+            np.float32)).cuda()
+    else:
+        f = rope.temporal_rope_freqs(torch.arange(T),
+                                     rope.lang_freqs(hd)).cuda()
+    M = B * n_q * S_DIT
+    mod = _rand(gen, (M, D))
+    w = _rand(gen, (D, 3 * D), 0.05)
+    got = tuple(torch.empty((M, D), dtype=torch.bfloat16, device="cuda")
+                for _ in range(3))
+    block.launch_gemm_rope_qkv(mod, w, *got, f, S_DIT, n_q, q_off, hd)
+    *ref, qkv = _rope_qkv_fp32_product(mod, w, f, B, n_q, q_off, S_DIT,
+                                       heads)
+    plain = block.rope_qkv_plain(qkv, f, S_DIT, n_q, q_off, torch.bfloat16)
+    torch.cuda.synchronize()
+    for name, a, b, p in zip("qkv", got, ref, plain):
+        assert torch.equal(a, b), (name, (a != b).float().mean().item())
+        _close(a, p)
+
+
+@pytest.mark.parametrize("valid", [None, [False, True, True, True, True,
+                                          True, True, True]])
+@pytest.mark.parametrize("T", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_attn_temporal_window_kernel(cuda, hd, T, valid):
+    """attn_temporal_window (16-byte lanes, T a template parameter)
+    against block.attend_temporal on the same bf16 q, k, v: within 2**-6
+    of the largest magnitude, and its summation order (a score's eight
+    products in a lane, then the head's lanes) within the frame
+    attention's rule (ROUNDING_SHARE of elements differ, by at most
+    ROUNDING_REL of the largest magnitude); the figures printed (-s)."""
+    from gtax_torch.utils.profiling import bf16_differences
+
+    gen = np.random.default_rng(190 + hd + T)
+    heads, B = D // hd, 2
+    v = None if valid is None else valid[:T]
+    q, k, vv = (_rand(gen, (B * T * S_DIT, D)) for _ in range(3))
+    out = torch.empty_like(q)
+    block.launch_attn_window(q, k, vv, out, B, T, S_DIT, D, heads,
+                             block.valid_bits(v, T))
+    shape = (B, T, S_DIT, heads, hd)
+    ref = block.attend_temporal(
+        q.reshape(shape), k.reshape(shape), vv.reshape(shape),
+        block.temporal_bias(v, T, "cuda"), torch.bfloat16).reshape(out.shape)
+    torch.cuda.synchronize()
+    _close(out, ref)
+    share, rel = bf16_differences(out, ref)
+    print(f"[rounding] attn_temporal_window hd={hd} T={T} valid={v}: "
+          f"{share:.3e} of elements differ, max diff {rel:.3e}")
+    assert share <= ROUNDING_SHARE and rel <= ROUNDING_REL, (share, rel)
+
+
+@pytest.mark.parametrize("T,hd", [(1, 64), (3, 32), (5, 64), (8, 128)])
+def test_temporal_branch_bwd_windows(cuda, T, hd):
+    """The temporal backward (attn_temporal_bwd's T instantiations) against
+    its plain version at windows of 1-8 frames and hd 32/64/128, slot 0
+    padded; given the forward's mod rows it gives the same bits as
+    without them."""
+    from gtax_torch.kernels import backward
+
+    gen = np.random.default_rng(200 + T + hd)
+    heads = D // hd
+    args, ct = _train_inputs(gen, 2 * T, "temporal")
+    f = rope.temporal_rope_freqs(torch.arange(T), rope.lang_freqs(hd)).cuda()
+    valid = [False] + [True] * (T - 1) if T > 1 else None
+    _, *res, mod = block.fused_temporal_branch(
+        *args, f, valid, heads, T, emit_train=True, emit_mod=True)
+    bargs = (*args[:6], f, valid, *res, ct, heads, T)
+    got = backward.fused_temporal_branch_bwd(*bargs, mod=mod)
+    again = backward.fused_temporal_branch_bwd(*bargs)
+    torch.cuda.synchronize()
+    for a, b, p in zip(got, again,
+                       backward.temporal_branch_bwd_plain(*bargs)):
+        assert torch.equal(a, b)
+        _close(a, p)
+
+
+def test_temporal_window_launches(cuda):
+    """The full window runs ln_mod, the rope qkv GEMM, attn_temporal_window
+    and the out-projection; its emitted q/k/v are the attention's inputs
+    and its K/V cache (emit_kv) the same bits as emit_train's k, v."""
+    from gtax_torch.kernels import build
+
+    gen = np.random.default_rng(210)
+    T = 5
+    args, _ = _train_inputs(gen, 2 * T, "temporal")
+    f = _temporal_freqs(T)
+    names = []
+    real = build.launch
+
+    def spy(name, *a, **kw):
+        names.append(name)
+        return real(name, *a, **kw)
+
+    build.launch = spy
+    try:
+        tr = block.fused_temporal_branch(*args, f, None, H, T,
+                                         emit_train=True)
+    finally:
+        build.launch = real
+    kv = block.fused_temporal_branch(*args, f, None, H, T, emit_kv=True)
+    torch.cuda.synchronize()
+    assert names == ["gtax_ln_mod", "gtax_gemm_rope_qkv",
+                     "gtax_attn_temporal_window", "gtax_gemm_bf16"]
+    assert torch.equal(kv[0], tr[0])
+    assert torch.equal(kv[1], tr[2]) and torch.equal(kv[2], tr[3])
