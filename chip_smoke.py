@@ -77,8 +77,24 @@ Phases (any failure exits nonzero and prints no result line):
      the card, and a depth-2 model's card gradients against the port's CPU
      gradients (relative L2 per leaf, GRAD_TOL). The step's frozen-VAE
      encode (unfused, as gtax's trainer) is timed beside the fused one.
+  8. the approximate serving modes (`[e2e approx]`), at full width and
+     depth from the bf16 weights: the pyramid-pipelined rollout (bf16 P=4
+     with the conditioning cache and incremental decoding, int8 P=4 and
+     P=2) and attention broadcast (K=2: bf16 `fused` and `fused_all`,
+     int8), each one generate with every launch count and every DiT call
+     kind zeroed before and read after, held to the counts the code gives
+     (approx_expected; #6 and #4 at four live rows, #10/#11 at two); its
+     s/frame and DiT evaluations a generated frame beside the exact
+     rollout's in the same process; from the same starting noise its
+     latents against the exact rollout's (PSNR / SSIM of the decoded
+     frames), the pipelined incremental rollout against its full window,
+     broadcast at K=1 bit-equal to the exact rollout, and at depth 2 every
+     mode (and the other backends gtax allows for it) on the card against
+     the port's CPU rollout (2**-5 of the latents' largest magnitude).
+     `[kernel]` also times #1, #2, #7 and #9 at four frames, #4 and #6 at
+     four live rows and #11 at two: the pipelined steps' shapes.
 Each end-to-end phase also traces one generated frame or train step
-(`[profile]`).
+(`[profile]`); `[time]` lines give each phase's seconds.
 `python -m gtax_torch.tools.step_profile` splits one denoise step into
 host and card time; `python -m gtax_torch.tools.gemm_sweep` times the bf16
 GEMM against cuBLAS at the main paths' products.
@@ -196,6 +212,26 @@ def temporal_freqs(T):
                                     rope.lang_freqs(HD)).cuda()
 
 
+def live_keys(n_ctx, n_live):
+    """Keys the live query slots of a step attend to (causal): n_ctx +
+    i + 1 for live slot i."""
+    return n_live * n_ctx + n_live * (n_live + 1) // 2
+
+
+def live_mask(valid, n_ctx, n_live):
+    """SDPA's attn_mask for a step's live query slots over the window
+    (causal; a key slot open when valid or on the diagonal), as keywords;
+    none at one live slot, where the library composite reads the whole
+    window as before."""
+    if n_live == 1:
+        return {}
+    T = n_ctx + n_live
+    q = torch.arange(n_ctx, T)[:, None]
+    k = torch.arange(T)[None, :]
+    allow = (k <= q) & (torch.as_tensor(valid)[None, :] | (k == q))
+    return {"attn_mask": allow.cuda()}
+
+
 # ------------------------------------------------------------ the kernels
 
 def kernel_cases():
@@ -285,36 +321,39 @@ def kernel_cases():
                 lib, "F.layer_norm+F.linear+SDPA(causal mask)+F.linear",
                 by, fl)
 
-    def step(B, n_ctx=4):
-        gen = np.random.default_rng(30 + B)
-        x, sh, sc, g = branch_inputs(gen, B, S_DIT)
+    def step(B, n_ctx=4, n_live=1):
+        gen = np.random.default_rng(30 + B + 10 * (n_live - 1))
+        N = B * n_live
+        x, sh, sc, g = branch_inputs(gen, N, S_DIT)
         qw, ow = rand(gen, (D, 3 * D), 0.02), rand(gen, (D, D), 0.02)
         ob = rand(gen, (D,), 0.02)
         kc = rand(gen, (B * n_ctx * S_DIT, D))
         vc = rand(gen, (B * n_ctx * S_DIT, D))
-        T = n_ctx + 1
+        T = n_ctx + n_live
         f = temporal_freqs(T)
-        valid = torch.tensor([False] + [True] * n_ctx)
+        valid = torch.tensor([False] + [True] * (T - 1))
         args = (x, sh, sc, g, qw, ow, ob, kc, vc, f, valid, H, n_ctx)
+        kw = live_mask(valid, n_ctx, n_live)
 
         def lib():
             qkv = library_linear(lib_mod(x, sh, sc), qw)
-            q, k, v = (t.view(B, 1, S_DIT, H, HD).permute(0, 2, 3, 1, 4)
+            q, k, v = (t.view(B, n_live, S_DIT, H, HD).permute(0, 2, 3, 1, 4)
                        for t in qkv.split(D, -1))
             ck, cv = (t.view(B, n_ctx, S_DIT, H, HD).permute(0, 2, 3, 1, 4)
                       for t in (kc, vc))
             keys = torch.cat([ck, lib_rope(k, f[n_ctx:])], dim=3)
             vals = torch.cat([cv, v], dim=3)
             o = F.scaled_dot_product_attention(lib_rope(q, f[n_ctx:]), keys,
-                                               vals)
-            y = library_linear(o.permute(0, 3, 1, 2, 4).reshape(B, S_DIT, D),
+                                               vals, **kw)
+            y = library_linear(o.permute(0, 3, 1, 2, 4).reshape(N, S_DIT, D),
                                ow, ob)
             return x + g[:, None] * y
 
         by = nbytes(x, sh, sc, g, qw, ow, ob, kc, vc, f, x)
-        fl = 2 * B * S_DIT * D * 4 * D + 4 * B * S_DIT * H * T * HD
-        return (lambda: block.fused_temporal_step(*args),
-                lambda: block.temporal_step_plain(*args), lib,
+        fl = (2 * N * S_DIT * D * 4 * D
+              + 4 * B * S_DIT * H * live_keys(n_ctx, n_live) * HD)
+        return (lambda: block.fused_temporal_step(*args, n_live=n_live),
+                lambda: block.temporal_step_plain(*args, n_live=n_live), lib,
                 "F.layer_norm+F.linear+SDPA over cache+F.linear", by, fl)
 
     def vae(N):
@@ -362,13 +401,13 @@ def kernel_cases():
         ("fused_spatial_branch", "gtax/kernels/block.py:846",
          "step N=2 (B=2)", False, lambda: spatial(2)),
         ("fused_spatial_branch", "gtax/kernels/block.py:846",
-         "prefill N=4 (B=1)", False, lambda: spatial(4)),
+         "N=4: prefill, pipelined step P=4", False, lambda: spatial(4)),
         ("fused_mlp_branch", "gtax/kernels/block.py:779",
          "step N=1 (B=1)", True, lambda: mlp(1)),
         ("fused_mlp_branch", "gtax/kernels/block.py:779",
          "step N=2 (B=2)", False, lambda: mlp(2)),
         ("fused_mlp_branch", "gtax/kernels/block.py:779",
-         "prefill N=4 (B=1)", False, lambda: mlp(4)),
+         "N=4: prefill, pipelined step P=4", False, lambda: mlp(4)),
         ("fused_temporal_branch", "gtax/kernels/block.py:687",
          "prefill emit_kv B=1 T=4", True, lambda: temporal(1)),
         ("fused_temporal_branch", "gtax/kernels/block.py:687",
@@ -377,6 +416,9 @@ def kernel_cases():
          "step B=1 n_ctx=4", True, lambda: step(1)),
         ("fused_temporal_step", "gtax/kernels/block.py:518",
          "step B=2 n_ctx=4", False, lambda: step(2)),
+        ("fused_temporal_step", "gtax/kernels/block.py:518",
+         "pipelined step P=4: n_live=4 n_ctx=1", False,
+         lambda: step(1, 1, 4)),
         ("fused_vae_block", "gtax/kernels/vae_block.py:150",
          "decode N=6 (B=1, 6 frames)", True, lambda: vae(6)),
         ("fused_vae_block", "gtax/kernels/vae_block.py:150",
@@ -440,20 +482,21 @@ def lib_int8_spatial(x, sh, sc, g, w, sfreqs):
     return int8_gated(x, g, y)
 
 
-def lib_int8_step(x, sh, sc, g, w, kc, vc, f, n_ctx):
+def lib_int8_step(x, sh, sc, g, w, kc, vc, f, n_ctx, n_live=1, kw=None):
     """The int8 temporal step over the cached context, as
-    lib_int8_spatial."""
-    B = x.shape[0]
+    lib_int8_spatial; kw: live_mask's keywords."""
+    N = x.shape[0]
+    B = N // n_live
     qkv = lib_qlinear(int8_lib_mod(x, sh, sc), w[0], w[1])
-    q, k, v = (t.view(B, 1, S_DIT, H, HD).permute(0, 2, 3, 1, 4)
+    q, k, v = (t.view(B, n_live, S_DIT, H, HD).permute(0, 2, 3, 1, 4)
                for t in qkv.split(D, -1))
     ck, cv = (t.view(B, n_ctx, S_DIT, H, HD).permute(0, 2, 3, 1, 4)
               for t in (kc, vc))
     keys = torch.cat([ck, int8_lib_rope(k, f[n_ctx:])], dim=3)
     vals = torch.cat([cv, v.to(torch.bfloat16)], dim=3)
     o = torch.nn.functional.scaled_dot_product_attention(
-        int8_lib_rope(q, f[n_ctx:]), keys, vals)
-    y = lib_qlinear(o.permute(0, 3, 1, 2, 4).reshape(B, S_DIT, D).float(),
+        int8_lib_rope(q, f[n_ctx:]), keys, vals, **(kw or {}))
+    y = lib_qlinear(o.permute(0, 3, 1, 2, 4).reshape(N, S_DIT, D).float(),
                     w[2], w[3], w[4])
     return int8_gated(x, g, y)
 
@@ -562,24 +605,28 @@ def int8_kernel_cases():
                 4 * B * S_DIT * H * (T * (T + 1) // 2) * HD,
                 2 * N * S_DIT * D * 4 * D)
 
-    def step(B, n_ctx=4):
-        gen = np.random.default_rng(80 + B)
-        x, sh, sc, g = branch_inputs(gen, B, S_DIT)
+    def step(B, n_ctx=4, n_live=1):
+        gen = np.random.default_rng(80 + B + 10 * (n_live - 1))
+        N = B * n_live
+        x, sh, sc, g = branch_inputs(gen, N, S_DIT)
         w = int8_attn_weights(gen)
         kc = rand(gen, (B * n_ctx * S_DIT, D))
         vc = rand(gen, (B * n_ctx * S_DIT, D))
-        T = n_ctx + 1
+        T = n_ctx + n_live
         f = temporal_freqs(T)
-        valid = torch.tensor([False] + [True] * n_ctx)
+        valid = torch.tensor([False] + [True] * (T - 1))
         args = (x, sh, sc, g, *w, kc, vc, f, valid, H, n_ctx)
         wc = col_major_attn(w)
+        kw = live_mask(valid, n_ctx, n_live)
         by = nbytes(x, sh, sc, g, *w, kc, vc, f, x)
-        return (lambda: quant.fused_temporal_step_q(*args),
-                lambda: quant.temporal_step_q_plain(*args),
-                lambda: lib_int8_step(x, sh, sc, g, wc, kc, vc, f, n_ctx),
+        return (lambda: quant.fused_temporal_step_q(*args, n_live=n_live),
+                lambda: quant.temporal_step_q_plain(*args, n_live=n_live),
+                lambda: lib_int8_step(x, sh, sc, g, wc, kc, vc, f, n_ctx,
+                                      n_live, kw),
                 "LN+int8 quant+torch._int_mm+SDPA over cache+"
-                "torch._int_mm", by, 4 * B * S_DIT * H * T * HD,
-                2 * B * S_DIT * D * 4 * D)
+                "torch._int_mm", by,
+                4 * B * S_DIT * H * live_keys(n_ctx, n_live) * HD,
+                2 * N * S_DIT * D * 4 * D)
 
     return [
         ("fused_spatial_branch_q", "gtax/kernels/quant.py:368",
@@ -587,13 +634,13 @@ def int8_kernel_cases():
         ("fused_spatial_branch_q", "gtax/kernels/quant.py:368",
          "step N=2 (B=2)", False, lambda: spatial(2)),
         ("fused_spatial_branch_q", "gtax/kernels/quant.py:368",
-         "prefill N=4 (B=1)", False, lambda: spatial(4)),
+         "N=4: prefill, pipelined step P=4", False, lambda: spatial(4)),
         ("fused_mlp_branch_q", "gtax/kernels/quant.py:530",
          "step 144 rows (B=1)", True, lambda: mlp(1)),
         ("fused_mlp_branch_q", "gtax/kernels/quant.py:530",
          "step 288 rows (B=2)", False, lambda: mlp(2)),
         ("fused_mlp_branch_q", "gtax/kernels/quant.py:530",
-         "prefill 576 rows (B=1)", False, lambda: mlp(4)),
+         "576 rows: prefill, pipelined step P=4", False, lambda: mlp(4)),
         ("fused_temporal_branch_q", "gtax/kernels/quant.py:427",
          "prefill emit_kv B=1 T=4", True, lambda: temporal(1)),
         ("fused_temporal_branch_q", "gtax/kernels/quant.py:427",
@@ -602,6 +649,9 @@ def int8_kernel_cases():
          "step B=1 n_ctx=4", True, lambda: step(1)),
         ("fused_temporal_step_q", "gtax/kernels/quant.py:216",
          "step B=2 n_ctx=4", False, lambda: step(2)),
+        ("fused_temporal_step_q", "gtax/kernels/quant.py:216",
+         "pipelined step P=4: n_live=4 n_ctx=1", False,
+         lambda: step(1, 1, 4)),
     ]
 
 
@@ -613,11 +663,12 @@ def pair_inputs(gen, N):
     return (x, *(mods[:, i * D:(i + 1) * D] for i in range(6)))
 
 
-def pair_case(kind, N, seed):
+def pair_case(kind, N, seed, n_live=1):
     """(kernel_fn, plain_fn, library_fn, library_desc, bytes, flops, int8
     ops, sequential_fn) of one paired half-block: kind "spatial" over N
-    frames, "temporal" the step of B=N elements (n_live=1) over a 4-frame
-    cache with slot 0 padded ("temporal-valid": every slot real)."""
+    frames, "temporal" the step of N live rows, B = N / n_live elements
+    of n_live live slots each over a (5 - n_live)-frame cache (4 at one
+    live slot) with slot 0 padded ("temporal-valid": every slot real)."""
     from gtax_torch.kernels import pair, quant
 
     gen = np.random.default_rng(seed)
@@ -643,27 +694,29 @@ def pair_case(kind, N, seed):
                 lambda: pair.spatial_pair_q_plain(*args), lib,
                 "the int8 spatial + MLP composites (torch._int_mm, SDPA)",
                 by, 4 * N * H * S_DIT * S_DIT * HD, i8, seq)
-    n_ctx = 4
-    kc = rand(gen, (N * n_ctx * S_DIT, D))
-    vc = rand(gen, (N * n_ctx * S_DIT, D))
-    f = temporal_freqs(n_ctx + 1)
-    valid = [kind == "temporal-valid"] + [True] * n_ctx
+    B, n_ctx = N // n_live, 4 if n_live == 1 else 5 - n_live
+    kc = rand(gen, (B * n_ctx * S_DIT, D))
+    vc = rand(gen, (B * n_ctx * S_DIT, D))
+    f = temporal_freqs(n_ctx + n_live)
+    valid = [kind == "temporal-valid"] + [True] * (n_ctx + n_live - 1)
     tail = (kc, vc, f, valid, H, n_ctx)
     args = (*vec, *wa, *wm, *tail)
     by = nbytes(*vec, *wa, *wm, kc, vc, f, x)
+    kw = live_mask(valid, n_ctx, n_live)
 
     def seq():
-        h = quant.fused_temporal_step_q(x, sh1, sc1, g1, *wa, *tail)
+        h = quant.fused_temporal_step_q(x, sh1, sc1, g1, *wa, *tail,
+                                        n_live=n_live)
         return quant.fused_mlp_branch_q(h, sh2, sc2, g2, *wm)
 
     def lib():
-        h = lib_int8_step(x, sh1, sc1, g1, wac, kc, vc, f, n_ctx)
+        h = lib_int8_step(x, sh1, sc1, g1, wac, kc, vc, f, n_ctx, n_live, kw)
         return lib_int8_mlp(h, sh2, sc2, g2, *wmc)
 
-    return (lambda: pair.fused_temporal_pair_q(*args),
-            lambda: pair.temporal_pair_q_plain(*args), lib,
+    return (lambda: pair.fused_temporal_pair_q(*args, n_live=n_live),
+            lambda: pair.temporal_pair_q_plain(*args, n_live=n_live), lib,
             "the int8 step + MLP composites (torch._int_mm, SDPA)", by,
-            4 * N * S_DIT * H * (n_ctx + 1) * HD, i8, seq)
+            4 * B * S_DIT * H * live_keys(n_ctx, n_live) * HD, i8, seq)
 
 
 PAIR_CASES = [
@@ -678,6 +731,8 @@ PAIR_CASES = [
      "step B=1 n_ctx=4, slot 0 valid", False, ("temporal-valid", 1, 93)),
     ("fused_temporal_pair_q", "gtax/kernels/pair.py:303",
      "step B=2 n_ctx=4, slot 0 padded", False, ("temporal", 2, 94)),
+    ("fused_temporal_pair_q", "gtax/kernels/pair.py:303",
+     "pipelined step P=2: n_live=2 n_ctx=3", False, ("temporal", 2, 95, 2)),
 ]
 
 
@@ -709,6 +764,9 @@ def pair_phase(timer, rows):
             f" sequential ms={seq_ms:.4f}")
         if not err <= m["tolerance"]:
             fail(f"{name} [{label}] disagrees with the sequential wrappers")
+        if "pipelined" in label:
+            rows[name].setdefault("pipelined", {})[label] = dict(
+                m, sequential_ms=seq_ms, sequential_bit_equal=equal)
         if main:
             rows[name] = {"name": name, "route": "cuda",
                           "source": "gtax_torch/kernels/pair.py",
@@ -889,6 +947,8 @@ def kernel_phase():
                                               + attention_cases()):
         kern, plain, lib, lib_desc, *rest = make()
         m = measure(timer, name, label, kern, plain, lib, *rest)
+        if "pipelined" in label:  # the main row comes first
+            rows[name].setdefault("pipelined", {})[label] = m
         if name == "fused_mha_token_major" and "VAE" in label:
             check_attn_dispatch()
             split = launch_split(kern, f"{name} [{label}]", [])
@@ -1746,6 +1806,274 @@ def sdpa_path(rows):
         "three nn.attention.sdpa(backend='pallas') calls")
 
 
+# the approximate serving modes driven at full depth (`[e2e approx]`):
+# label, the ServingConfig fields that differ from the exact generator's
+APPROX_MODES = [
+    ("bf16 pipelined P=4", dict(pipeline_depth=4)),
+    ("int8 pipelined P=4", dict(pipeline_depth=4, quantize="int8")),
+    ("int8 pipelined P=2", dict(pipeline_depth=2, quantize="int8")),
+    ("bf16 broadcast K=2", dict(attn_broadcast=2)),
+    ("bf16 broadcast K=2, fused_all",
+     dict(attn_broadcast=2, attention_backend="fused_all")),
+    ("int8 broadcast K=2", dict(attn_broadcast=2, quantize="int8")),
+]
+# and at depth 2 on the card against the port's CPU rollout, 4 noise steps:
+# the modes above and the other backends gtax allows for them
+APPROX_DEPTH2 = APPROX_MODES + [
+    ("bf16 pipelined P=2 + broadcast K=2 (full window)",
+     dict(pipeline_depth=2, attn_broadcast=2)),
+    ("bf16 pipelined P=3, fused_mlp (full window)",
+     dict(pipeline_depth=3, attention_backend="fused_mlp")),
+    ("bf16 broadcast K=2, xla", dict(attn_broadcast=2,
+                                     attention_backend="xla")),
+    ("bf16 broadcast K=2, pallas", dict(attn_broadcast=2,
+                                        attention_backend="pallas")),
+]
+
+
+def approx_expected(cfg, dit_cfg, vae_cfg, n_gen):
+    """(kernel launches, DiT calls) of one B=1 generate of n_gen frames in
+    an approximate mode, from the code. Broadcast (exact rollout, full
+    window): step k of a frame's steps + 1 collects when k % K == 0 or at
+    the last, else reuses; a collect launches each block's two attention
+    branches, every call its two MLP branches (fused under int8,
+    `fused_mlp` and `fused_all`). Pipelined (incremental under `fused`):
+    n_gen + P - 1 cycles of one prefill over W - P context rows and stride
+    = ceil((steps + 1) / P) steps over P live rows; an int8 half-block over
+    at most PAIR_MAX_FRAMES rows is one paired launch. The VAE: one
+    encode and one decode through its fused blocks."""
+    from gtax_torch.kernels.pair import PAIR_MAX_FRAMES
+
+    L, W, steps = dit_cfg.depth, dit_cfg.max_frames, cfg.noise_steps
+    P, K, q8 = cfg.pipeline_depth, cfg.attn_broadcast, cfg.quantize == "int8"
+    n = {"fused_vae_block": vae_cfg.enc_depth + vae_cfg.dec_depth}
+
+    def add(name, k):
+        n[name] = n.get(name, 0) + k
+
+    if K > 1:
+        collect = n_gen * sum(1 for k in range(steps + 1)
+                              if k % K == 0 or k == steps)
+        calls = n_gen * (steps + 1)
+        sfx = "_q" if q8 else ""
+        add("fused_spatial_branch" + sfx, L * collect)
+        add("fused_temporal_branch" + sfx, L * collect)
+        if q8 or cfg.attention_backend in ("fused_mlp", "fused_all"):
+            add("fused_mlp_branch" + sfx, 2 * L * calls)
+        return n, {"collect": collect, "reuse": calls - collect}
+    stride = -(-(steps + 1) // P)
+    cycles = n_gen + P - 1
+    calls = cycles * stride
+    for rows, k, temporal in ((W - P, cycles, "fused_temporal_branch"),
+                              (P, calls, "fused_temporal_step")):
+        if not q8:
+            add("fused_spatial_branch", L * k)
+            add("fused_mlp_branch", 2 * L * k)
+            add(temporal, L * k)
+        elif rows <= PAIR_MAX_FRAMES:
+            add("fused_spatial_pair_q", L * k)
+            if temporal == "fused_temporal_step":
+                add("fused_temporal_pair_q", L * k)
+            else:
+                add("fused_temporal_branch_q", L * k)
+                add("fused_mlp_branch_q", L * k)
+        else:
+            add("fused_spatial_branch_q", L * k)
+            add("fused_mlp_branch_q", 2 * L * k)
+            add(temporal + "_q", L * k)
+    return n, {"prefill": cycles, "step": calls}
+
+
+def count_dit_calls():
+    """Wrap gtax_torch.models.dit's forwards to count calls by kind (the
+    rollouts' pab and incremental fns resolve them at call time); returns
+    (counts, restore)."""
+    from gtax_torch.models import dit as dit_mod
+
+    counts = dict.fromkeys(("collect", "reuse", "plain", "prefill", "step"),
+                           0)
+    real = {n: getattr(dit_mod, n) for n in ("dit_apply", "dit_prefill",
+                                             "dit_apply_step")}
+
+    def apply(*a, **kw):
+        kind = ("collect" if kw.get("collect_cache") else "reuse"
+                if kw.get("attn_cache") is not None else "plain")
+        counts[kind] += 1
+        return real["dit_apply"](*a, **kw)
+
+    def prefill(*a, **kw):
+        counts["prefill"] += 1
+        return real["dit_prefill"](*a, **kw)
+
+    def step(*a, **kw):
+        counts["step"] += 1
+        return real["dit_apply_step"](*a, **kw)
+
+    dit_mod.dit_apply, dit_mod.dit_prefill = apply, prefill
+    dit_mod.dit_apply_step = step
+
+    def restore():
+        for name, fn in real.items():
+            setattr(dit_mod, name, fn)
+
+    return counts, restore
+
+
+def latents_close(label, what, got, ref):
+    """Gate: within 2**-5 of the reference latents' largest magnitude."""
+    scale = max(1.0, ref.abs().max().item())
+    err = (got.cpu().float() - ref.cpu().float()).abs().max().item()
+    tol = 2.0**-5 * scale
+    log(f"[e2e approx] {label}: {what}: max_abs_err={err:.4g} "
+        f"(tol {tol:.4g})")
+    if not (torch.isfinite(got).all() and err <= tol):
+        fail(f"{label}: {what}: {err} > {tol}")
+    return err
+
+
+def approx_path(gen, rows, inputs, lat0, acts):
+    """`[e2e approx]`: each APPROX_MODES generator over the bf16
+    generator's weights (int8: quantized by the serving path), one seeded
+    generate with every launch count and every DiT call kind zeroed just
+    before it and read just after (both must be approx_expected's), its
+    s/frame (of a second generate) beside the exact generator's in this
+    process; then from the
+    same starting noise (frame s of a pipelined rollout starts from draw s)
+    its latents against the exact rollout's (PSNR / SSIM of the decoded
+    frames), the pipelined incremental rollout against its full window,
+    and the broadcast rollout at K=1 against the exact one (bit-equal).
+    Last, every APPROX_DEPTH2 mode at depth 2 on the card against the
+    port's CPU rollout."""
+    from gtax_torch.models import dit as dit_mod
+    from gtax_torch.sampling.diffusion import SamplerConfig, make_rollout
+    from gtax_torch.serving import VideoGenerator, build_rollout
+    from gtax_torch.utils import metrics
+
+    prompt, actions, noise = inputs
+    n_prompt, n_frames = prompt.shape[1], actions.shape[1]
+    n_gen, steps, bf = n_frames - n_prompt, gen.cfg.noise_steps, torch.bfloat16
+    draws = torch.cat([torch.from_numpy(noise), torch.from_numpy(np.clip(
+        np.random.default_rng(11).standard_normal((1, 3, *noise.shape[2:])),
+        -20, 20).astype(np.float32))], dim=1).cuda()  # one a cycle, P <= 4
+    fns = kernel_wrappers()
+    summary = {}
+    exact = {"bf16": gen, "int8": VideoGenerator(
+        gen.dit_params, gen.vae_params,
+        dataclasses.replace(gen.cfg, quantize="int8"))}
+    def s_per_frame(g):
+        """The rollout's s/frame of a second seeded generate (the first
+        one of a generator forms its host-side caches)."""
+        first = g.last_timings["rollout_s"] / n_gen
+        g.generate(prompt, actions, num_frames=n_frames, seed=1)
+        return g.last_timings["rollout_s"] / n_gen, first
+
+    ref = {}
+    for kind, g in exact.items():
+        g.generate(prompt, actions, num_frames=n_frames, seed=0)
+        spf = s_per_frame(g)
+        with torch.inference_mode():
+            lat = g._rollout(g.dit_params, lat0, acts, None, n_gen,
+                             draws[:, :n_gen])
+            pix = g._decode(lat).cpu().numpy()[0, n_prompt:]
+        ref[kind] = (spf[0], lat, pix)
+        log(f"[e2e approx] exact {kind} (incremental, fused): "
+            f"{spf[0]:.3f} s/frame (first generate {spf[1]:.3f}), "
+            f"{steps + 1} DiT evaluations a generated frame")
+    with torch.inference_mode():  # broadcast at K=1: the exact rollout
+        k1 = make_rollout(None, gen.dit_cfg.max_frames, SamplerConfig(
+            ddim_noise_steps=steps, attn_broadcast=1),
+            pab=dit_mod.make_pab_fns(gen.dit_cfg, bf, "fused"),
+            cond=dit_mod.make_cond_fns(gen.dit_cfg, bf, "fused"),
+            incremental=dit_mod.make_incremental_fns(gen.dit_cfg, bf))(
+            gen.dit_params, lat0, acts, None, n_gen, draws[:, :n_gen])
+    equal = bool(torch.equal(k1, ref["bf16"][1]))
+    log(f"[e2e approx] bf16 broadcast K=1 vs the exact rollout: "
+        f"bit_equal={equal}")
+    if not equal:
+        fail("attention broadcast at K=1 differs from the exact rollout")
+
+    for label, changes in APPROX_MODES:
+        cfg = dataclasses.replace(gen.cfg, **changes)
+        kind = "int8" if cfg.quantize == "int8" else "bf16"
+        g = VideoGenerator(gen.dit_params, gen.vae_params, cfg)
+        want, want_calls = approx_expected(cfg, gen.dit_cfg, gen.vae_cfg,
+                                           n_gen)
+        for fn in fns.values():
+            fn.launches = 0
+        calls, restore = count_dit_calls()
+        try:
+            pixels = g.generate(prompt, actions, num_frames=n_frames, seed=0)
+        finally:
+            restore()
+        counts = {n: fn.launches for n, fn in fns.items() if fn.launches}
+        calls = {k: v for k, v in calls.items() if v}
+        spf, first = s_per_frame(g)
+        evals = sum(calls.get(k, 0) for k in ("collect", "reuse", "plain",
+                                               "step")) / n_gen
+        log(f"[e2e approx] {label}: {spf:.3f} s/frame (first generate "
+            f"{first:.3f}; exact {kind} {ref[kind][0]:.3f}, this process); "
+            f"DiT evaluations a generated frame {evals:.1f} (exact "
+            f"{steps + 1}); calls {json.dumps(calls)}; launches "
+            f"{json.dumps(counts)}")
+        if pixels.shape != (1, n_frames, *ref[kind][2].shape[1:]):
+            fail(f"{label} generate returned {pixels.shape}")
+        if counts != want:
+            fail(f"{label}: launches {counts}, the code gives {want}")
+        if calls != want_calls:
+            fail(f"{label}: DiT calls {calls}, the code gives {want_calls}")
+        for name, n in counts.items():
+            rows[name].setdefault("launches_approx", {})[label] = n
+        P = cfg.pipeline_depth
+        with torch.inference_mode():
+            lat = g._rollout(g.dit_params, lat0, acts, None, n_gen,
+                             draws[:, :n_gen + P - 1])
+            pix = g._decode(lat).cpu().numpy()[0, n_prompt:]
+            if P > 1:  # the incremental rollout against its full window
+                full = VideoGenerator(g.dit_params, g.vae_params,
+                                      dataclasses.replace(cfg,
+                                                          incremental=False))
+                latents_close(label, "incremental vs full window",
+                              lat, full._rollout(full.dit_params, lat0, acts,
+                                                 None, n_gen,
+                                                 draws[:, :n_gen + P - 1]))
+                del full
+        if not torch.isfinite(lat).all():
+            fail(f"{label}: non-finite latents")
+        move = (lat - ref[kind][1]).abs().max().item()
+        q = {"psnr_db": float(np.mean(metrics.per_frame_psnr(
+            pix, ref[kind][2]))), "ssim": float(np.mean(
+                metrics.per_frame_ssim(pix, ref[kind][2])))}
+        log(f"[e2e approx] {label}: vs the exact {kind} rollout from the "
+            f"same noise: latents max_abs_diff={move:.4g}, decoded frames "
+            f"PSNR {q['psnr_db']:.2f} dB, SSIM {q['ssim']:.4f} (random "
+            "weights: how far the mode moves the output)")
+        summary[label] = {"s_per_frame": spf, "first_s_per_frame": first,
+                          "exact_s_per_frame": ref[kind][0],
+                          "dit_calls": calls,
+                          "dit_evaluations_per_frame": evals,
+                          "latents_max_abs_diff_vs_exact": move, **q}
+        del g
+        torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(gen.dit_cfg, depth=2)
+    for label, changes in APPROX_DEPTH2:
+        cfg = dataclasses.replace(gen.cfg, noise_steps=4, **changes)
+        params2 = dit_mod.cast_params_for_inference(dict(
+            gen.dit_params, blocks=gen.dit_params["blocks"][:2]), bf)
+        if cfg.quantize == "int8":
+            params2 = dit_mod.quantize_for_inference(params2)
+        roll = build_rollout(cfg2, cfg, bf)
+        nz = draws[:, :n_gen + cfg.pipeline_depth - 1]
+        with torch.inference_mode():
+            card = roll(params2, lat0, acts, None, n_gen, nz)
+            on_cpu = roll(dit_mod.params_to(params2, "cpu"), lat0.cpu(),
+                          acts.cpu(), None, n_gen, nz.cpu())
+        err = latents_close(label, "depth-2 rollout card vs CPU", card,
+                            on_cpu)
+        summary.setdefault("depth2_card_vs_cpu", {})[label] = err
+    return summary
+
+
 def end_to_end(rows):
     from gtax_torch.data.actions import forward_actions
     from gtax_torch.serving import ServingConfig, VideoGenerator
@@ -1791,6 +2119,10 @@ def end_to_end(rows):
 
     pallas_path(gen, rows, inputs, lat0, acts, nz)
     sdpa_path(rows)
+    t0 = time.perf_counter()
+    summary = approx_path(gen, rows, inputs, lat0, acts)
+    log(f"[time] e2e approx: {time.perf_counter() - t0:.1f} s")
+    return summary
 
 
 # ------------------------------------------------------------- training
@@ -2052,12 +2384,18 @@ def main():
     build.library()
     log(f"[build] {lib.relative_to(build.BUILD_DIR.parent.parent)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] {label}: {time.perf_counter() - t:.1f} s")
+        return out
+
     with torch.inference_mode():
-        rows = kernel_phase()
-        temporal = temporal_checks()
-    train_kernel_phase(rows)
-    end_to_end(rows)
-    train_phase(rows)
+        rows = timed("kernels", kernel_phase)
+        temporal = timed("temporal", temporal_checks)
+    timed("train kernels", train_kernel_phase, rows)
+    approx = timed("end to end", end_to_end, rows)
+    timed("train", train_phase, rows)
     train = rows.pop("train")
     if len(rows) != 16:
         fail(f"the kernel table has {len(rows)} rows, not 16")
@@ -2068,7 +2406,7 @@ def main():
             if isinstance(v, float) and not math.isfinite(v):
                 fail(f"{row['name']}: {k} is not finite")
     log(json.dumps({"kernels": list(rows.values()), "train": train,
-                    "temporal": temporal, "card": smi}))
+                    "temporal": temporal, "approx": approx, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -20,6 +20,12 @@ frames is one paired kernel (gtax_torch.kernels.pair), as in gtax
 (gtax/models/dit.py:697-762). At B=1 the prefill has four frames and stays
 sequential; every denoise step pairs.
 
+Attention broadcast: dit_apply(collect_cache=True) also returns each
+block's two gated attention deltas, and dit_apply(attn_cache=) adds them in
+place of the attention branches under every backend and for W8A8 params
+(gtax's _block_apply collect / attn_cache); make_pab_fns and
+init_attn_cache serve the rollouts.
+
 Training: dit_apply is differentiable. Its fused bf16/fp32 branches are
 the trainable branches of gtax_torch.nn.branches (gtax's `fused_all`
 backend, dit_apply's default: the fused forward with emit_train and the
@@ -322,14 +328,22 @@ def _cast_weights(bp, dtype):
 
 def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
               valid=None, compute_dtype=torch.bfloat16, mods=None,
-              plain_branches=False, backend="fused_all"):
+              plain_branches=False, backend="fused_all", attn_cache=None,
+              collect_cache=False):
     """Full-window forward. x: (B, T, C, H, W) latents; t: (B, T) integer
     noise levels; external_cond: optional (B, T, action_dim); valid:
     optional (T,) mask of real frames. With `mods` (dit_cond output) the
     adaLN heads are skipped and t/external_cond are ignored. `backend`
     picks each branch's path (module docstring; gtax's five names).
     Returns the v-prediction, x's shape, float32. Differentiable
-    (plain_branches picks the plain xla_* branches for the fused ones)."""
+    (plain_branches picks the plain xla_* branches for the fused ones).
+
+    Attention broadcast (gtax _block_apply's collect / attn_cache):
+    collect_cache=True also returns each block's two attention branches'
+    gated residual deltas (x_after - x_before, (B, T, gh, gw, D) in the
+    compute dtype), a list of (delta_s, delta_t) pairs, one per block;
+    attn_cache=<that list> skips every attention branch and adds the
+    cached delta instead. The MLP branches always run."""
     if cfg.block_remat:
         raise NotImplementedError(
             "block_remat (remat: true) is not ported yet; it is a later "
@@ -352,13 +366,18 @@ def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
     spatial_grid = spatial.reshape(cfg.grid_h, cfg.grid_w, -1)
     h = _embed(params, cfg, x, compute_dtype)
     rows = B * T
-    for bp, m in zip(params["blocks"], mods["blocks"]):
+    deltas = []
+    for i, (bp, m) in enumerate(zip(params["blocks"], mods["blocks"])):
         bp = _cast_weights(bp, compute_dtype)
-        for half, freqs in (("s", spatial), ("t", temporal)):
+        pair_deltas = []
+        for j, (half, freqs) in enumerate((("s", spatial), ("t", temporal))):
             sh1, sc1, g1, sh2, sc2, g2 = _split6(m[half], rows, D)
             ap = bp[f"{half}_attn"]
             q8, w = _attn_weights(ap)
-            if half == "s" and (q8 or fused_attn):
+            h_pre = h
+            if attn_cache is not None:
+                h = h + attn_cache[i][j].reshape(h.shape).to(h.dtype)
+            elif half == "s" and (q8 or fused_attn):
                 fn = quant.fused_spatial_branch_q if q8 else fns[0]
                 kw = {} if q8 or rope_cs is None else {"rope_cs": rope_cs}
                 h = fn(h, sh1, sc1, g1, *w, freqs, H, **kw)
@@ -373,8 +392,13 @@ def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
                 h = _unfused_attention(attn.temporal_axial_attention, ap, h,
                                        sh1, sc1, g1, grid, freqs, H, backend,
                                        valid=valid)
+            if collect_cache:
+                pair_deltas.append((h - h_pre).to(compute_dtype).reshape(
+                    grid))
             h = _mlp(bp[f"{half}_mlp"], h, sh2, sc2, g2, fns, fused_mlp)
-    return _dit_head(params, cfg, h, mods["final"], B, T, compute_dtype)
+        deltas.append(tuple(pair_deltas))
+    v = _dit_head(params, cfg, h, mods["final"], B, T, compute_dtype)
+    return (v, deltas) if collect_cache else v
 
 
 def _dit_head(params, cfg, h, final_mods, B, T, compute_dtype):
@@ -494,6 +518,38 @@ def make_incremental_fns(cfg: DiTConfig, compute_dtype=torch.bfloat16):
                               valid, compute_dtype)
 
     return prefill_fn, step_fn
+
+
+def init_attn_cache(cfg: DiTConfig, B: int, T: int,
+                    compute_dtype=torch.bfloat16, device="cpu"):
+    """Zero attention-broadcast cache in dit_apply(collect_cache=True)'s
+    layout: one (delta_s, delta_t) pair per block, each (B, T, gh, gw, D)
+    in the compute dtype (gtax init_attn_cache, unstacked layout)."""
+    z = torch.zeros((B, T, cfg.grid_h, cfg.grid_w, cfg.hidden_size),
+                    dtype=compute_dtype, device=device)
+    return [(z, z) for _ in range(cfg.depth)]
+
+
+def make_pab_fns(cfg: DiTConfig, compute_dtype=torch.bfloat16,
+                 backend="fused_all"):
+    """(collect_fn, reuse_fn, init_cache_fn) for the rollouts' attention
+    broadcast (make_rollout(pab=) / make_pipelined_rollout(pab=))."""
+
+    def collect(params, x, t, a, valid):
+        return dit_apply(params, cfg, x, t, a, valid,
+                         compute_dtype=compute_dtype, backend=backend,
+                         collect_cache=True)
+
+    def reuse(params, x, t, a, valid, cache):
+        return dit_apply(params, cfg, x, t, a, valid,
+                         compute_dtype=compute_dtype, backend=backend,
+                         attn_cache=cache)
+
+    def init_cache(params, B, T):
+        return init_attn_cache(cfg, B, T, compute_dtype,
+                               params["patch_embed"]["kernel"].device)
+
+    return collect, reuse, init_cache
 
 
 def DiT_S_2() -> DiTConfig:

@@ -1,5 +1,6 @@
-"""Diffusion-forcing sampler, exact path (counterpart of
-gtax/sampling/diffusion.py).
+"""Diffusion-forcing sampler (counterpart of gtax/sampling/diffusion.py):
+the exact rollout and its approximate serving modes (attention broadcast,
+the pyramid-pipelined rollout), the renoise diagnostic and the loss.
 
 gtax runs the frames x noise-steps loop nest as nested lax.scans over a
 FIXED max_frames-slot window; here both loops are Python loops over the
@@ -31,6 +32,11 @@ class SamplerConfig:
     noise_abs_max: float = NOISE_ABS_MAX
     max_noise_level: int = MAX_NOISE_LEVEL
     schedule_clamp_min: float = 1e-4  # generate default; trainer uses 1e-6
+    # attention broadcast: recompute the DiT's attention branches every
+    # K-th denoise step and reuse their cached residual deltas in between;
+    # 1 = off (the exact scheme). The final noise_idx <= 0 step always
+    # recomputes. Takes effect when the rollout is built with pab fns.
+    attn_broadcast: int = 1
 
     def tables(self):
         """(alphas_cumprod float32 numpy, noise_range int numpy)."""
@@ -97,9 +103,17 @@ def _rows(tree, fn):
 
 
 def denoise_window(dit_fn, x, actions, valid, cfg: SamplerConfig,
-                   alphas_cumprod, noise_range, cond=None, incremental=None):
+                   alphas_cumprod, noise_range, cond=None, incremental=None,
+                   cached=None):
     """Run the whole reversed noise-step loop on one window; returns
     (window with its last frame denoised, v-prediction of the final step).
+
+    cached: optional (collect_fn, reuse_fn, cache0) triple enabling
+    attention broadcast when cfg.attn_broadcast > 1 (it then takes the
+    place of cond): collect_fn(x, t, a, valid) -> (v, cache);
+    reuse_fn(x, t, a, valid, cache) -> v. Step k of the loop (noise index
+    steps - k) recomputes when k % attn_broadcast == 0 or at the final
+    index, and reuses the cache otherwise.
 
     cond: optional (cond_fn, apply_fn) pair (params bound): all adaLN head
     outputs of the loop are computed up front — T-1 stabilization rows
@@ -110,6 +124,28 @@ def denoise_window(dit_fn, x, actions, valid, cfg: SamplerConfig,
     requires cond): the context rows are prefilled once (per-block temporal
     K/V cache) and each step runs the last frame only. The context rows'
     v is not computed in this mode and comes back as zeros."""
+    if cached is not None and cfg.attn_broadcast > 1:
+        collect_fn, reuse_fn, cache0 = cached
+        held = [cache0]
+
+        def collect(xx, tt, aa, vv):
+            v_, held[0] = collect_fn(xx, tt, aa, vv)
+            return v_
+
+        def reuse(xx, tt, aa, vv):
+            return reuse_fn(xx, tt, aa, vv, held[0])
+
+        steps, K = cfg.ddim_noise_steps, cfg.attn_broadcast
+        v = torch.zeros_like(x)
+        for k_iter in range(steps + 1):
+            noise_idx = steps - k_iter
+            fn = collect if k_iter % K == 0 or noise_idx <= 0 else reuse
+            x_pred, v = denoise_step(fn, x, actions, valid, noise_idx,
+                                     cfg.stabilization_level, noise_range,
+                                     alphas_cumprod)
+            x = torch.cat([x[:, :-1], x_pred[:, -1:]], dim=1)
+        return x, v
+
     if cond is None:
         if incremental is not None:
             raise ValueError("incremental decoding requires cond")
@@ -179,8 +215,8 @@ def denoise_window(dit_fn, x, actions, valid, cfg: SamplerConfig,
     return x, v
 
 
-def make_rollout(dit_fn, max_frames: int, cfg: SamplerConfig, cond=None,
-                 incremental=None):
+def make_rollout(dit_fn, max_frames: int, cfg: SamplerConfig, pab=None,
+                 cond=None, incremental=None):
     """Build the autoregressive rollout.
 
     dit_fn(params, x, t, actions, valid) -> v. Returns
@@ -189,6 +225,13 @@ def make_rollout(dit_fn, max_frames: int, cfg: SamplerConfig, cond=None,
     `noise`, if given, is a pre-drawn (B, num_gen_frames, C, H, W) tensor
     used for the fresh frames instead of `generator` — the hook that lets a
     test feed this port and gtax identical noise.
+
+    pab: optional (collect_fn, reuse_fn, init_cache_fn) triple
+    (gtax_torch.models.dit.make_pab_fns) enabling attention broadcast when
+    cfg.attn_broadcast > 1: collect_fn(params, x, t, a, valid) -> (v,
+    cache); reuse_fn(params, x, t, a, valid, cache) -> v;
+    init_cache_fn(params, B, T) -> zero cache. cond and incremental are
+    ignored while it is active.
 
     cond / incremental: optional (cond_fn, apply_fn) and (prefill_fn,
     step_fn) pairs (gtax_torch.models.dit.make_cond_fns /
@@ -238,11 +281,218 @@ def make_rollout(dit_fn, max_frames: int, cfg: SamplerConfig, cond=None,
             valid = torch.tensor([i - (W - 1) + j >= 0 for j in range(W)])
             awin = (None if actions_padded is None
                     else actions_padded[:, i:i + W])
+            cached = None
+            if pab is not None and cfg.attn_broadcast > 1:
+                cached = (
+                    lambda x_, t_, a_, v_: pab[0](params, x_, t_, a_, v_),
+                    lambda x_, t_, a_, v_, c_: pab[1](params, x_, t_, a_, v_,
+                                                      c_),
+                    pab[2](params, B, W))
             window, _ = denoise_window(bound_dit, window, awin, valid, cfg,
                                        abar, noise_range, cond=bound_cond,
-                                       incremental=bound_inc)
+                                       incremental=bound_inc, cached=cached)
             frames.append(window[:, -1:])
             ctx = torch.cat([ctx[:, 1:], window[:, -1:]], dim=1)
+        return torch.cat([prompt_latents, *frames], dim=1)
+
+    return rollout
+
+
+def renoise_last_frame(dit_fn, latents, actions, generator,
+                       cfg: SamplerConfig, alphas_cumprod, noise_range,
+                       ctx_noise=None, new_frame=None):
+    """Eval diagnostic (gtax renoise_last_frame): noise the context at
+    stabilization_level - 1, replace the last frame with pure noise and
+    denoise it through the plain loop. latents: (B, T, C, H, W);
+    alphas_cumprod / noise_range: cfg.tables(). ctx_noise (B, T-1, C, H, W)
+    and new_frame (B, 1, C, H, W) are unclipped normal draws that replace
+    the draws from `generator` (the hook that lets a test feed gtax's).
+    Returns {"denoised", "x_noisy", "noise" (the clipped noise applied),
+    "v" (the final step's v-prediction)}."""
+    B, T, C, H, W = latents.shape
+    dev = latents.device
+    if ctx_noise is None:
+        ctx_noise = torch.randn((B, T - 1, C, H, W), generator=generator,
+                                device=dev)
+    if new_frame is None:
+        new_frame = torch.randn((B, 1, C, H, W), generator=generator,
+                                device=dev)
+    clip = cfg.noise_abs_max
+    ctx_noise = ctx_noise.to(dev).float().clamp(-clip, clip)
+    new_frame = new_frame.to(dev).float().clamp(-clip, clip)
+    a = np.float32(alphas_cumprod[cfg.stabilization_level - 1])
+    noisy_ctx = (float(np.sqrt(a)) * latents[:, :-1].float()
+                 + float(np.sqrt(np.float32(1.0) - a)) * ctx_noise)
+    x_noisy = torch.cat([noisy_ctx, new_frame], dim=1)
+    denoised, v = denoise_window(dit_fn, x_noisy, actions, None, cfg,
+                                 alphas_cumprod, noise_range)
+    return {"denoised": denoised, "x_noisy": x_noisy,
+            "noise": torch.cat([ctx_noise, new_frame], dim=1), "v": v}
+
+
+def make_pipelined_rollout(dit_fn, max_frames: int, cfg: SamplerConfig,
+                           pipeline_depth: int = 4, pab=None, cond=None,
+                           incremental=None):
+    """Pyramid-pipelined rollout (gtax make_pipelined_rollout): P =
+    pipeline_depth frames are in flight at staggered noise levels, so each
+    DiT call advances P frames by one DDIM step; every frame still runs the
+    whole noise_steps + 1 trajectory, in stride = ceil((steps + 1) / P)
+    calls a cycle. The window holds W - P clean context slots and the P
+    in-flight slots; a cycle draws one fresh frame, runs `stride` calls
+    and emits the oldest in-flight frame. P = 1 is the exact scheme.
+
+    Warm-up cycles (the first P - 1, whose emitted frames are dropped) take
+    their context slots from the prompt at the window's true frame
+    positions; in-flight slots whose frame has not entered yet are masked
+    out of temporal attention, and a slot whose raw noise index overshoots
+    the schedule top idles at pure noise for that call.
+
+    pab: make_rollout's triple; attention broadcast within each cycle when
+    cfg.attn_broadcast > 1 (the cache resets every cycle; the first and
+    last calls recompute). cond + incremental: make_rollout's pairs; each
+    cycle prefills the context rows once and every call runs the P live
+    rows (dit_apply_step with Tl = P), their adaLN rows computed in one
+    cond batch a cycle. Incremental excludes pab.
+
+    Returns rollout(params, prompt_latents, actions, generator,
+    num_gen_frames, noise=None); `noise`, if given, is a pre-drawn
+    (B, num_gen_frames + P - 1, C, H, W) tensor, one draw a cycle (frame s
+    starts from draw s), used instead of `generator`."""
+    abar, noise_range = cfg.tables()
+    W, P = max_frames, pipeline_depth
+    # at least one clean-context slot must remain
+    if not 1 <= P <= W - 1:
+        raise ValueError(f"pipeline_depth={P} must be in [1, {W - 1}] for "
+                         f"a {W}-frame window")
+    if incremental is not None and cond is None:
+        raise ValueError("incremental pipelined decoding requires the "
+                         "conditioning cache (cond)")
+    use_pab = pab is not None and cfg.attn_broadcast > 1
+    if incremental is not None and use_pab:
+        raise ValueError("incremental pipelined decoding and attention "
+                         "broadcast are mutually exclusive")
+    steps, K = cfg.ddim_noise_steps, cfg.attn_broadcast
+    stride = -(-(steps + 1) // P)  # calls per emitted frame
+    n_ctx = W - P
+    # inner call k runs at p = stride-1-k: slot j's raw noise index is
+    # j * stride + p (host tables, the same every cycle)
+    raw = (np.arange(P)[None, :] * stride
+           + np.arange(stride - 1, -1, -1)[:, None])  # (stride, P)
+    idxs = np.clip(raw, 0, steps)
+    t_live = noise_range[idxs].astype(np.int32)
+    coefs = np.stack(_coefs(abar[t_live],
+                            abar[noise_range[np.clip(idxs - 1, 0, steps)]]),
+                     axis=1)  # (stride, 6, P) fp32
+    t_window = np.concatenate(
+        [np.full((stride, n_ctx), cfg.stabilization_level, np.int32),
+         t_live], axis=1)  # (stride, W)
+
+    def rollout(params, prompt_latents, actions, generator, num_gen_frames,
+                noise=None):
+        B, n_prompt, C, H, Wd = prompt_latents.shape
+        if n_prompt < 1:
+            raise ValueError("need at least one prompt frame")
+        dev = prompt_latents.device
+        prompt_latents = prompt_latents.float()
+        n_cycles = num_gen_frames + P - 1
+        coef = torch.from_numpy(coefs).to(dev)[..., None, None, None]
+        final = torch.from_numpy(idxs <= 0).to(dev)[..., None, None, None]
+        # a slot past the schedule top has not started: it idles at noise
+        started = torch.from_numpy(raw <= steps).to(dev)[..., None, None,
+                                                         None]
+        t_win = torch.from_numpy(t_window).to(dev)[:, None].expand(
+            stride, B, W).contiguous()
+
+        def zeros(n):
+            return torch.zeros((B, n, C, H, Wd), device=dev)
+
+        # clean-context carry after warm-up: the newest prompt frames
+        n_fill = min(n_prompt, n_ctx)
+        ctx = torch.cat([zeros(n_ctx - n_fill),
+                         prompt_latents[:, n_prompt - n_fill:]], dim=1)
+        ctx_valid = [False] * (n_ctx - n_fill) + [True] * n_fill
+        # frame f of the prompt at index f + W, for the warm-up slices
+        prompt_pad = torch.cat([zeros(W), prompt_latents, zeros(n_ctx)],
+                               dim=1)
+        actions_padded = None
+        if actions is not None:
+            A = actions.shape[-1]
+            # front pad W-1; back pad P: frames in flight near the end
+            # overshoot the action horizon (their outputs are dropped)
+            actions_padded = torch.cat(
+                [torch.zeros((B, W - 1, A), dtype=actions.dtype, device=dev),
+                 actions,
+                 torch.zeros((B, P, A), dtype=actions.dtype, device=dev)],
+                dim=1)
+        inflight = zeros(P)
+        frames = []
+        for c in range(n_cycles):
+            if noise is None:
+                fresh = torch.randn((B, 1, C, H, Wd), generator=generator,
+                                    device=dev).clamp(-cfg.noise_abs_max,
+                                                      cfg.noise_abs_max)
+            else:
+                fresh = noise[:, c:c + 1].to(dev).float()
+            inflight = torch.cat([inflight[:, 1:], fresh], dim=1)
+            # in-flight slot k holds a frame once it has entered (cycle
+            # c - (P-1-k) >= 0); window slot j holds frame base + j
+            active = [c - (P - 1 - k) >= 0 for k in range(P)]
+            base = n_prompt + c - (P - 1) - n_ctx
+            if c < P - 1:  # warm-up: the carry is not aligned to base yet
+                ctx_win = prompt_pad[:, base + W:base + W + n_ctx]
+                ctx_valid_win = [0 <= base + j < n_prompt
+                                 for j in range(n_ctx)]
+            else:
+                ctx_win, ctx_valid_win = ctx, ctx_valid
+            awin = (None if actions_padded is None
+                    else actions_padded[:, base + W - 1:base + 2 * W - 1])
+            valid = torch.tensor(ctx_valid_win + active)
+
+            if incremental is not None:
+                # the context rows are fixed for the cycle: prefill their
+                # temporal K/V once; all live adaLN rows in one batch
+                mods_ctx = cond[0](
+                    params, torch.full((B, n_ctx), cfg.stabilization_level,
+                                       dtype=torch.int32, device=dev),
+                    None if awin is None else awin[:, :n_ctx])
+                kv = incremental[0](params, ctx_win, mods_ctx, valid[:n_ctx])
+                a_live = None
+                if awin is not None:
+                    a_live = awin[None, :, n_ctx:].expand(
+                        stride, B, P, awin.shape[-1]).reshape(
+                            stride * B, P, -1)
+                mods_live = _rows(
+                    cond[0](params, t_win[:, :, n_ctx:].reshape(
+                        stride * B, P), a_live),
+                    lambda m: m.reshape((stride, B) + m.shape[1:]))
+            cache = pab[2](params, B, W) if use_pab else None
+            for k in range(stride):
+                if incremental is not None:
+                    v = incremental[1](params, inflight, kv,
+                                       _rows(mods_live, lambda m: m[k]),
+                                       valid).float()
+                else:
+                    window = torch.cat([ctx_win, inflight], dim=1)
+                    if not use_pab:
+                        v = dit_fn(params, window, t_win[k], awin, valid)
+                    elif k % K == 0 or k == stride - 1:
+                        v, cache = pab[0](params, window, t_win[k], awin,
+                                          valid)
+                    else:
+                        v = pab[1](params, window, t_win[k], awin, valid,
+                                   cache)
+                    v = v.float()[:, n_ctx:]
+                # DDIM in fp32, gtax's pipelined form and rounding points
+                sa, s1a, sia, sia1, san, s1an = coef[k].unbind(0)
+                x_start = sa * inflight - s1a * v
+                x_noise = (sia * inflight - x_start) / sia1
+                x_pred = san * x_start + s1an * x_noise
+                x_out = torch.where(final[k], x_start, x_pred)
+                inflight = torch.where(started[k], x_out, inflight)
+            if c >= P - 1:  # emitted frames become context once real
+                frames.append(inflight[:, :1])
+                ctx = torch.cat([ctx[:, 1:], inflight[:, :1]], dim=1)
+                ctx_valid = ctx_valid[1:] + [True]
         return torch.cat([prompt_latents, *frames], dim=1)
 
     return rollout

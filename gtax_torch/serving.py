@@ -21,10 +21,22 @@ with incremental decoding and the fused VAE; `xla`, `pallas` and
 the unfused branches of the backend and the unfused VAE, `pallas` on the
 attention kernels of gtax_torch.kernels.attention. The backend belongs to
 the generator: two generators with different backends do not touch each
-other. Only the options ported so far run: quantize "none" or "int8",
-pipeline_depth=1, attn_broadcast=1, mesh_data = mesh_model = 1,
-aot_dir=None, unstack=True. Any other value raises NotImplementedError
-(ROADMAP.md queues them).
+other.
+
+The approximate modes are gtax's, built as gtax/serving.py builds them:
+attn_broadcast=K > 1 recomputes the attention branches every K-th denoise
+step and reuses their cached residual deltas in between (full-window
+steps, no conditioning cache); pipeline_depth=P > 1 runs the
+pyramid-pipelined rollout (P frames in flight, ~P-fold fewer DiT calls a
+frame), with the conditioning cache and incremental decoding composed in
+under the fused backends when attention broadcast is off, and over the
+full window otherwise. pipeline_depth must stay below the window
+(max_frames), and generate(noise=) is a non-pipelined hook, as in gtax.
+
+Options that run: quantize "none" or "int8", any pipeline_depth and
+attn_broadcast gtax takes, every backend; mesh_data = mesh_model = 1,
+aot_dir=None and unstack=True only. Any other value of those raises
+NotImplementedError (ROADMAP.md queues them).
 """
 
 from __future__ import annotations
@@ -39,7 +51,9 @@ from gtax_torch.io import safetensors_port as port
 from gtax_torch.models import dit as dit_mod
 from gtax_torch.models import vae as vae_mod
 from gtax_torch.nn import attention as attn
-from gtax_torch.sampling.diffusion import SamplerConfig, make_rollout
+from gtax_torch.sampling.diffusion import (SamplerConfig,
+                                           make_pipelined_rollout,
+                                           make_rollout)
 from gtax_torch.train.trainer import decode_frames, encode_frames
 from gtax_torch.utils.platform import resolve_device
 
@@ -73,8 +87,6 @@ def _check_slice(cfg: ServingConfig) -> None:
             f"ServingConfig.quantize={cfg.quantize!r} is not ported (only "
             "'none' and 'int8'); see ROADMAP.md")
     unsupported = {
-        "pipeline_depth": (cfg.pipeline_depth, 1),
-        "attn_broadcast": (cfg.attn_broadcast, 1),
         "mesh_data": (cfg.mesh_data, 1),
         "mesh_model": (cfg.mesh_model, 1),
         "aot_dir": (cfg.aot_dir, None),
@@ -94,6 +106,39 @@ def _check_slice(cfg: ServingConfig) -> None:
 def _to(a, device) -> torch.Tensor:
     t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
     return t.to(device)
+
+
+def build_rollout(dit_cfg, cfg: ServingConfig, dtype):
+    """The rollout a VideoGenerator with `cfg` runs, built as
+    gtax/serving.py:105-160 builds it: attention broadcast when
+    attn_broadcast > 1 (then no conditioning cache); otherwise the
+    conditioning cache, with incremental decoding under the fused
+    backends; the pipelined rollout when pipeline_depth > 1 (the cache
+    serves its incremental decoding only). Returns rollout(params,
+    prompt_latents, actions, generator, num_gen_frames, noise=None)."""
+    sampler = SamplerConfig(ddim_noise_steps=cfg.noise_steps,
+                            stabilization_level=15, schedule_clamp_min=1e-4,
+                            attn_broadcast=cfg.attn_broadcast)
+    backend = cfg.attention_backend
+
+    def dit_fn(params, x, t, a, valid):
+        return dit_mod.dit_apply(params, dit_cfg, x, t, a, valid,
+                                 compute_dtype=dtype, backend=backend)
+
+    pab = cond = incremental = None
+    if cfg.attn_broadcast > 1:
+        pab = dit_mod.make_pab_fns(dit_cfg, dtype, backend)
+    elif cfg.attn_broadcast == 1 and cfg.cond_cache:
+        cond = dit_mod.make_cond_fns(dit_cfg, dtype, backend)
+        if cfg.incremental and backend in attn.FUSED_ATTENTION:
+            incremental = dit_mod.make_incremental_fns(dit_cfg, dtype)
+    if cfg.pipeline_depth > 1:
+        return make_pipelined_rollout(
+            dit_fn, dit_cfg.max_frames, sampler,
+            pipeline_depth=cfg.pipeline_depth, pab=pab, cond=cond,
+            incremental=incremental)
+    return make_rollout(dit_fn, dit_cfg.max_frames, sampler, pab=pab,
+                        cond=cond, incremental=incremental)
 
 
 class VideoGenerator:
@@ -122,28 +167,9 @@ class VideoGenerator:
         self.dit_params = dit_params
         self.vae_params = vae_params
 
-        sampler = SamplerConfig(ddim_noise_steps=cfg.noise_steps,
-                                stabilization_level=15,
-                                schedule_clamp_min=1e-4)
-
-        backend = cfg.attention_backend
-        # gtax/serving.py:154-165: incremental decoding and the fused VAE
-        # ride the fused backends only
-        self._fused = backend in attn.FUSED_ATTENTION
-
-        def dit_fn(params, x, t, a, valid):
-            return dit_mod.dit_apply(params, self.dit_cfg, x, t, a, valid,
-                                     compute_dtype=dtype, backend=backend)
-
-        cond = incremental = None
-        if cfg.cond_cache:
-            cond = dit_mod.make_cond_fns(self.dit_cfg, dtype, backend)
-            if cfg.incremental and self._fused:
-                incremental = dit_mod.make_incremental_fns(self.dit_cfg,
-                                                           dtype)
-        self._rollout = make_rollout(dit_fn, self.dit_cfg.max_frames,
-                                     sampler, cond=cond,
-                                     incremental=incremental)
+        # the fused VAE rides the fused backends only, as in gtax
+        self._fused = cfg.attention_backend in attn.FUSED_ATTENTION
+        self._rollout = build_rollout(self.dit_cfg, cfg, dtype)
         # stage timings of the most recent generate() call, seconds
         self.last_timings = {}
 
@@ -187,7 +213,9 @@ class VideoGenerator:
                  seed: int = 0, noise=None):
         """prompt_frames: (B, T0, 3, H, W) float in [0, 1] (or (T0, 3, H,
         W) for B=1); actions: (B, num_frames, 25) or None; noise: optional
-        pre-drawn (B, num_frames - T0, C, h, w) fresh-frame latents.
+        pre-drawn (B, num_frames - T0, C, h, w) fresh-frame latents (not
+        with pipeline_depth > 1; there the rollout's own `noise=` takes
+        one draw a cycle).
         Returns (B, num_frames, H, W, 3) uint8 numpy pixels; num_frames
         counts prompt + generated frames."""
         dev = self.device
@@ -206,6 +234,8 @@ class VideoGenerator:
             if actions.shape[1] < num_frames:
                 raise ValueError(f"need actions for all {num_frames} frames")
         if noise is not None:
+            if self.cfg.pipeline_depth > 1:
+                raise ValueError("pre-drawn noise is a non-pipelined hook")
             noise = _to(noise, dev).float()
         generator = torch.Generator(device=dev).manual_seed(seed)
         with torch.inference_mode():

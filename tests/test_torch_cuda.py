@@ -305,6 +305,39 @@ def test_temporal_pair_q_kernel(cuda, B, valid):
     assert torch.equal(got, pair.fused_temporal_pair_q(*inputs, *tail))
 
 
+@pytest.mark.parametrize("n_live,valid", [
+    (2, None), (3, [True, True, True, True, False]),
+    (4, [False, False, True, True, True])])
+def test_temporal_step_live_slots(cuda, n_live, valid):
+    """The pipelined rollout's steps: n_live = P live frames over an
+    n_ctx = 5 - P slot cache (a warm-up mask closes a context slot or a
+    live slot not yet entered), bf16 #4 and int8 #6 against their plain
+    versions; at n_live = 2 the int8 pair (#11) bit-equal to #6 + #9."""
+    from gtax_torch.kernels import pair
+
+    gen = np.random.default_rng(60 + n_live)
+    n_ctx = 5 - n_live
+    inputs = _pair_inputs(gen, n_live)
+    x, sh1, sc1, g1, sh2, sc2, g2, *w = inputs
+    kc = _rand(gen, (n_ctx * S_DIT, D))
+    vc = _rand(gen, (n_ctx * S_DIT, D))
+    tail = (kc, vc, _temporal_freqs(5), valid, H, n_ctx)
+    bw = (_rand(gen, (D, 3 * D), 0.02), _rand(gen, (D, D), 0.02),
+          _rand(gen, (D,), 0.02))
+    args = (x, sh1, sc1, g1, *bw, *tail)
+    _close(block.fused_temporal_step(*args, n_live=n_live),
+           block.temporal_step_plain(*args, n_live=n_live))
+    args_q = (x, sh1, sc1, g1, *w[:5], *tail)
+    h = quant.fused_temporal_step_q(*args_q, n_live=n_live)
+    _close(h, quant.temporal_step_q_plain(*args_q, n_live=n_live))
+    if n_live <= pair.PAIR_MAX_FRAMES:
+        got = pair.fused_temporal_pair_q(*inputs, *tail, n_live=n_live)
+        _close(got, pair.temporal_pair_q_plain(*inputs, *tail,
+                                               n_live=n_live))
+        assert torch.equal(got, quant.fused_mlp_branch_q(h, sh2, sc2, g2,
+                                                         *w[5:]))
+
+
 @pytest.mark.parametrize("S,mask,causal", [
     (5, [False, True, True, True, True], True), (144, None, False),
     (576, None, False)])

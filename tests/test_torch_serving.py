@@ -240,13 +240,49 @@ def test_generate_validates_inputs(pair):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("quantize", "int4"), ("pipeline_depth", 2), ("attn_broadcast", 2),
-    ("mesh_data", 2), ("mesh_model", 2), ("aot_dir", "x"),
-    ("unstack", False), ("pipeline_depth", 3)])
+    ("quantize", "int4"), ("mesh_data", 2), ("mesh_model", 2),
+    ("aot_dir", "x"), ("unstack", False)])
 def test_unported_options_raise(field, value):
     cfg = serving.ServingConfig(**KW, **{field: value})
     with pytest.raises(NotImplementedError, match=field):
         serving.VideoGenerator.load("", "", cfg, device="cpu")
+
+
+@pytest.mark.parametrize("case", [
+    "depth_is_window", "depth_past_window", "incremental_with_broadcast",
+    "incremental_without_cond", "noise_with_pipelining"])
+def test_approximate_options_refused_as_gtax(case):
+    """What gtax's asserts refuse, raised as ValueError: a pipeline as deep
+    as the window or deeper (make_pipelined_rollout's 1 <= P <= W-1),
+    incremental pipelining without the conditioning cache or combined with
+    attention broadcast (the rollout's own call; serving never builds
+    them), and pre-drawn noise for a pipelined generate."""
+    from gtax_torch.sampling import diffusion as sd
+
+    cfg = dit.DiT_debug()
+    sampler = sd.SamplerConfig(ddim_noise_steps=3, attn_broadcast=2)
+    inc = dit.make_incremental_fns(cfg, torch.float32)
+    with pytest.raises(ValueError):
+        if case.startswith("depth"):
+            P = cfg.max_frames + (case == "depth_past_window")
+            serving.VideoGenerator.load(
+                "", "", serving.ServingConfig(**KW, pipeline_depth=P),
+                device="cpu")
+        elif case == "incremental_with_broadcast":
+            sd.make_pipelined_rollout(
+                None, cfg.max_frames, sampler, pipeline_depth=2,
+                pab=dit.make_pab_fns(cfg, torch.float32),
+                cond=dit.make_cond_fns(cfg, torch.float32, "fused"),
+                incremental=inc)
+        elif case == "incremental_without_cond":
+            sd.make_pipelined_rollout(None, cfg.max_frames, sampler,
+                                      pipeline_depth=2, incremental=inc)
+        else:
+            gen = serving.VideoGenerator.load(
+                "", "", serving.ServingConfig(**KW, pipeline_depth=2),
+                device="cpu")
+            prompt, noise, acts = _inputs(4)
+            gen.generate(prompt, acts, num_frames=N_FRAMES, noise=noise)
 
 
 def test_load_without_device_raises_without_cuda(monkeypatch):
