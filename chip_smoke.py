@@ -84,8 +84,9 @@ Phases (any failure exits nonzero and prints no result line):
      int8), each one generate with every launch count and every DiT call
      kind zeroed before and read after, held to the counts the code gives
      (approx_expected; #6 and #4 at four live rows, #10/#11 at two); its
-     s/frame and DiT evaluations a generated frame beside the exact
-     rollout's in the same process; from the same starting noise its
+     s/frame and the exact rollout's in turns in the same process (exact,
+     mode, mode, exact, each run printed), DiT evaluations a generated
+     frame; from the same starting noise its
      latents against the exact rollout's (PSNR / SSIM of the decoded
      frames), the pipelined incremental rollout against its full window,
      broadcast at K=1 bit-equal to the exact rollout, and at depth 2 every
@@ -93,6 +94,23 @@ Phases (any failure exits nonzero and prints no result line):
      the port's CPU rollout (2**-5 of the latents' largest magnitude).
      `[kernel]` also times #1, #2, #7 and #9 at four frames, #4 and #6 at
      four live rows and #11 at two: the pipelined steps' shapes.
+  9. checkpoints, resume, export, the latent cache and the evals
+     (`[train resume]`): configs/train_dit_actions.yaml at full width and
+     depth with the cuts RESUME_CUTS prints (B=2, 3 steps, a save at step
+     2). One trainer runs steps 1-3 and saves the full state and the
+     weight export at step 2 (timed, with their bytes); a second trainer
+     resumes from that state (timed) and runs step 3 with every training
+     launch count zeroed before and read after (#1-#3 with emit_train,
+     #12-#14, a micro-step's counts); its loss and every master equal the
+     first trainer's within a relative L2 of 1e-6 (bit equality printed).
+     The export, read back by the port, is bit-equal to the masters at
+     step 2. A latent cache built from the same clips with the trainer's
+     VAE gives the pixel step's loss within 1e-6 (bit equality printed);
+     the step with and without it is timed in turns. predict_frames (2
+     generated frames, cut from 32) and predict_noise run #1-#3 over the
+     full window (counts asserted against the DiT calls, every rollout
+     latent finite), timed; whether the mp4 and the grid were written, or
+     which library is missing, is printed.
 Each end-to-end phase also traces one generated frame or train step
 (`[profile]`); `[time]` lines give each phase's seconds.
 `python -m gtax_torch.tools.step_profile` splits one denoise step into
@@ -1935,9 +1953,9 @@ def approx_path(gen, rows, inputs, lat0, acts):
     """`[e2e approx]`: each APPROX_MODES generator over the bf16
     generator's weights (int8: quantized by the serving path), one seeded
     generate with every launch count and every DiT call kind zeroed just
-    before it and read just after (both must be approx_expected's), its
-    s/frame (of a second generate) beside the exact generator's in this
-    process; then from the
+    before it and read just after (both must be approx_expected's), then
+    its s/frame and the exact generator's in turns in this process (exact,
+    mode, mode, exact; every run printed); then from the
     same starting noise (frame s of a pipelined rollout starts from draw s)
     its latents against the exact rollout's (PSNR / SSIM of the decoded
     frames), the pipelined incremental rollout against its full window,
@@ -1960,25 +1978,33 @@ def approx_path(gen, rows, inputs, lat0, acts):
     exact = {"bf16": gen, "int8": VideoGenerator(
         gen.dit_params, gen.vae_params,
         dataclasses.replace(gen.cfg, quantize="int8"))}
+
     def s_per_frame(g):
-        """The rollout's s/frame of a second seeded generate (the first
-        one of a generator forms its host-side caches)."""
-        first = g.last_timings["rollout_s"] / n_gen
+        """The rollout's s/frame of one seeded generate."""
         g.generate(prompt, actions, num_frames=n_frames, seed=1)
-        return g.last_timings["rollout_s"] / n_gen, first
+        return g.last_timings["rollout_s"] / n_gen
+
+    def in_turns(g, ref_g):
+        """s/frame of four generates in turns, A B B A: the exact
+        generator, the mode's, the mode's, the exact one (the first
+        generate of each, which forms its host-side caches, is done)."""
+        runs = {"exact": [], "mode": []}
+        for who in ("exact", "mode", "mode", "exact"):
+            runs[who].append(s_per_frame(ref_g if who == "exact" else g))
+        return runs
 
     ref = {}
     for kind, g in exact.items():
         g.generate(prompt, actions, num_frames=n_frames, seed=0)
-        spf = s_per_frame(g)
+        first = g.last_timings["rollout_s"] / n_gen
         with torch.inference_mode():
             lat = g._rollout(g.dit_params, lat0, acts, None, n_gen,
                              draws[:, :n_gen])
             pix = g._decode(lat).cpu().numpy()[0, n_prompt:]
-        ref[kind] = (spf[0], lat, pix)
-        log(f"[e2e approx] exact {kind} (incremental, fused): "
-            f"{spf[0]:.3f} s/frame (first generate {spf[1]:.3f}), "
-            f"{steps + 1} DiT evaluations a generated frame")
+        ref[kind] = (g, lat, pix)
+        log(f"[e2e approx] exact {kind} (incremental, fused): first "
+            f"generate {first:.3f} s/frame, {steps + 1} DiT evaluations a "
+            "generated frame")
     with torch.inference_mode():  # broadcast at K=1: the exact rollout
         k1 = make_rollout(None, gen.dit_cfg.max_frames, SamplerConfig(
             ddim_noise_steps=steps, attn_broadcast=1),
@@ -2007,14 +2033,17 @@ def approx_path(gen, rows, inputs, lat0, acts):
             restore()
         counts = {n: fn.launches for n, fn in fns.items() if fn.launches}
         calls = {k: v for k, v in calls.items() if v}
-        spf, first = s_per_frame(g)
+        first = g.last_timings["rollout_s"] / n_gen
+        runs = in_turns(g, ref[kind][0])
+        ratio = np.mean(runs["mode"]) / np.mean(runs["exact"])
         evals = sum(calls.get(k, 0) for k in ("collect", "reuse", "plain",
                                                "step")) / n_gen
-        log(f"[e2e approx] {label}: {spf:.3f} s/frame (first generate "
-            f"{first:.3f}; exact {kind} {ref[kind][0]:.3f}, this process); "
-            f"DiT evaluations a generated frame {evals:.1f} (exact "
-            f"{steps + 1}); calls {json.dumps(calls)}; launches "
-            f"{json.dumps(counts)}")
+        log(f"[e2e approx] {label}: s/frame in turns exact, mode, mode, "
+            f"exact: {runs['exact'][0]:.3f} {runs['mode'][0]:.3f} "
+            f"{runs['mode'][1]:.3f} {runs['exact'][1]:.3f} (mode / exact "
+            f"{ratio:.3f}; first generate {first:.3f}); DiT evaluations a "
+            f"generated frame {evals:.1f} (exact {steps + 1}); calls "
+            f"{json.dumps(calls)}; launches {json.dumps(counts)}")
         if pixels.shape != (1, n_frames, *ref[kind][2].shape[1:]):
             fail(f"{label} generate returned {pixels.shape}")
         if counts != want:
@@ -2047,8 +2076,10 @@ def approx_path(gen, rows, inputs, lat0, acts):
             f"same noise: latents max_abs_diff={move:.4g}, decoded frames "
             f"PSNR {q['psnr_db']:.2f} dB, SSIM {q['ssim']:.4f} (random "
             "weights: how far the mode moves the output)")
-        summary[label] = {"s_per_frame": spf, "first_s_per_frame": first,
-                          "exact_s_per_frame": ref[kind][0],
+        summary[label] = {"s_per_frame": runs["mode"],
+                          "exact_s_per_frame": runs["exact"],
+                          "mode_over_exact": ratio,
+                          "first_s_per_frame": first,
                           "dit_calls": calls,
                           "dit_evaluations_per_frame": evals,
                           "latents_max_abs_diff_vs_exact": move, **q}
@@ -2137,7 +2168,7 @@ TRAIN_CUTS = {
                          "DiT, adaLN heads drawn nonzero"),
     "max_steps": (3, "a few steps"),
     "validation_steps": (0, "no validation run"),
-    "save_every": (0, "checkpoints are not ported yet"),
+    "save_every": (0, "checkpoints are timed in [train resume]"),
     "use_wandb": (False, "no network"),
 }
 BWD_PATH = {"fused_spatial_branch_bwd": 16, "fused_temporal_branch_bwd": 16,
@@ -2221,6 +2252,41 @@ def micro_grads(params, cfg, latents, acts, draws, loss_cfg, abar,
                                       abar, noise_range, draws=draws)
     total.backward()
     return leaf_grads(params)
+
+
+def latent_cache_turns(trainer, clips, cache_dir, tag):
+    """The same clips as a pixel batch and as a latent-cache batch (the
+    cache built with the trainer's VAE, backend and batch): a train step
+    of each timed in turns (pixel, latent, latent, pixel) and profiled
+    once. Returns (pixel batch, latent batch, step times, build seconds)."""
+    from gtax_torch.data.latents import LatentCacheDataset
+    from gtax_torch.data.loader import DataLoader
+
+    B = trainer.config.batch_size
+    t = time.perf_counter()
+    cache = LatentCacheDataset.build(
+        clips, trainer.vae_params, trainer.vae_cfg, cache_dir,
+        encode_batch=B, compute_dtype=trainer.compute_dtype,
+        backend=trainer.config.attention_backend, progress_every=0)
+    build_s = time.perf_counter() - t
+    pix = next(trainer.iter_device_batches(DataLoader(clips, B,
+                                                      shuffle=False)))
+    lat = next(trainer.iter_device_batches(DataLoader(cache, B,
+                                                      shuffle=False)))
+    if not lat.is_latents:
+        fail(f"[{tag}] the latent cache gave pixel batches")
+    turns = {"pixel": [], "latent": []}
+    for kind in ("pixel", "latent", "latent", "pixel"):
+        m = trainer.train_step_sync(pix if kind == "pixel" else lat)
+        turns[kind].append(m["step_time_s"])
+    log(f"[{tag}] step_time_s at B={B} in turns pixel, latent, latent, "
+        f"pixel: {turns['pixel'][0]:.4f} {turns['latent'][0]:.4f} "
+        f"{turns['latent'][1]:.4f} {turns['pixel'][1]:.4f} (cache of {B} "
+        f"clips built in {build_s:.2f} s)")
+    for kind, b in (("pixel", pix), ("latent-cache", lat)):
+        profile_device(lambda b=b: trainer.train_step_sync(b),
+                       f"one train step, B={B}, {kind} batch", top=4)
+    return pix, lat, turns, build_s
 
 
 def train_phase(rows):
@@ -2326,6 +2392,14 @@ def train_phase(rows):
     rows["train"]["vae_encode_ms"] = {"unfused": unfused_ms,
                                       "fused": fused_ms}
     del v16, a, f
+    import shutil
+
+    try:
+        rows["train"]["latent_cache_step_time_s"] = latent_cache_turns(
+            trainer, DummyDataset("train", return_actions=True, size=B),
+            f"{RESUME_DIR}/latents", "train")[2]
+    finally:
+        shutil.rmtree(RESUME_DIR, ignore_errors=True)
 
     # one B=2 micro-batch: the kernel path against the plain path (xla_*
     # branches under autograd) on the card, at full width and depth
@@ -2363,6 +2437,260 @@ def train_phase(rows):
         q.grad = None
 
 
+# `[train resume]`: checkpoints, resume, export, latent cache, evals
+RESUME_DIR = "_smoke_train"  # in the checkout; removed when the phase ends
+RESUME_CUTS = {
+    "dataset_type": ("dummy", "the GTA V clips are not in the repository; "
+                     "gtax's synthetic clips at 360x640"),
+    "vae_checkpoint": ("", "checkpoint not in the repository: random VAE"),
+    "pretrained_model": (None, "checkpoint not in the repository: random "
+                         "DiT, adaLN heads drawn nonzero"),
+    "batch_size": (2, "two full-size trainers, one after the other, and a "
+                   "latent cache in one phase"),
+    "max_steps": (3, "steps 1-2, a save, step 3 before and after resume"),
+    "save_every": (2, "one full checkpoint and one export, at step 2"),
+    "validation_steps": (0, "the evals are called directly, at 2 "
+                         "generated frames"),
+    "use_wandb": (False, "no network"),
+    "output_dir": (RESUME_DIR, "inside the checkout, removed at the end"),
+}
+RESUME_TOL = 1e-6  # relative L2 of the loss and of every master leaf
+
+
+def rel_l2(got, ref):
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    return ((got - ref).norm() / max(ref.norm().item(), 1e-30)).item()
+
+
+def train_resume_phase(rows):
+    import shutil
+
+    raw = read_flat_yaml(TRAIN_CONFIG)
+    for key, (value, why) in RESUME_CUTS.items():
+        log(f"[train resume] cut {key}: {raw.get(key)!r} -> {value!r} "
+            f"({why})")
+        raw[key] = value
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    try:
+        return resume_checks(raw, rows)
+    finally:
+        shutil.rmtree(RESUME_DIR, ignore_errors=True)
+
+
+def resume_checks(raw, rows):
+    import os
+
+    from gtax_torch.data.dummy import DummyDataset
+    from gtax_torch.data.loader import Batch, DataLoader
+    from gtax_torch.io import safetensors_port as port
+    from gtax_torch.io.video import write_video
+    from gtax_torch.models import dit as dit_mod
+    from gtax_torch.models import vae as vae_mod
+    from gtax_torch.train import checkpoint as ckpt
+    from gtax_torch.train import trainer as trainer_mod
+    from gtax_torch.train.config import TrainingConfig
+
+    cfg = TrainingConfig.from_dict(raw)
+    dcfg = dit_mod.DiT_MODELS[cfg.dit_model]()
+    vcfg = vae_mod.VAE_MODELS[cfg.vae_model]()
+    B, steps, L = cfg.batch_size, cfg.max_steps, dcfg.depth
+    fns = train_wrappers()
+    seconds, out = {}, {}
+
+    def clips(n):
+        return DummyDataset("train", return_actions=True, size=n,
+                            height=vcfg.input_height, width=vcfg.input_width)
+
+    def make():
+        params = dit_mod.dit_init(dcfg, torch.Generator(device="cuda")
+                                  .manual_seed(cfg.seed), "cuda")
+        nonzero_adaln(params, 4)
+        return trainer_mod.Trainer(cfg, total_dataset_size=B * steps,
+                                   dit_params=params)
+
+    def loader():
+        return DataLoader(clips(B * steps), B, seed=cfg.seed)
+
+    def timed(name, fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            result = fn(*args)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t
+            return result
+        return call
+
+    # the uninterrupted run: steps 1-3, the full state and export at 2
+    first = make()
+    first.save_checkpoint = timed("checkpoint_write_s", first.save_checkpoint)
+    first.save_model = timed("export_write_s", first.save_model)
+    rec_a, at_save = {}, {}
+
+    def keep(tr, m):
+        rec_a[m["step"]] = m
+        if m["step"] == 2:  # flushed: the state about to be saved
+            at_save.update({k: v.detach().cpu().clone() for k, v in
+                            ckpt.flat(tr.dit_params).items()})
+
+    first.training_loop(loader(), None, callbacks=[keep])
+    final_a = {k: v.detach().cpu().clone()
+               for k, v in ckpt.flat(first.dit_params).items()}
+    del first
+    torch.cuda.empty_cache()
+    state_dir = os.path.join(ckpt.ckpt_dir(RESUME_DIR, cfg.model_name),
+                             "state_2")
+    out["checkpoint_bytes"] = sum(
+        os.path.getsize(os.path.join(state_dir, f)) for f in
+        os.listdir(state_dir))
+    export = os.path.join(RESUME_DIR,
+                          f"{cfg.model_name}_epoch_1_2.safetensors")
+    out["export_bytes"] = os.path.getsize(export)
+
+    # a new trainer resumes from step 2 and runs step 3
+    second = make()
+    second.try_resume = timed("checkpoint_read_s", second.try_resume)
+    rec_b = {}
+    for fn in fns.values():
+        fn.launches = 0
+    second.training_loop(loader(), None,
+                         callbacks=[lambda tr, m: rec_b.update(
+                             {m["step"]: m})])
+    counts = {name: fn.launches for name, fn in fns.items()}
+    log(f"[train resume] resumed run (step 3) launches: "
+        f"{json.dumps(counts)}")
+    want = {"fused_spatial_branch": L, "fused_mlp_branch": 2 * L,
+            "fused_temporal_branch": L, "fused_spatial_branch_bwd": L,
+            "fused_temporal_branch_bwd": L, "fused_mlp_branch_bwd": 2 * L}
+    if counts != want:
+        fail(f"[train resume] launches {counts}, one micro-step gives {want}")
+    for name, n in counts.items():
+        rows[name]["launches_resume_step"] = n
+    if sorted(rec_b) != [3] or second.skip_batches != 2:
+        fail(f"[train resume] resumed steps {sorted(rec_b)}, skipped "
+             f"{second.skip_batches} batches (want [3] after 2)")
+    loss_err = abs(rec_b[3]["train_loss"] - rec_a[3]["train_loss"]) / abs(
+        rec_a[3]["train_loss"])
+    final_b = ckpt.flat(second.dit_params)
+    errs = {k: rel_l2(final_b[k], v) for k, v in final_a.items()}
+    worst = max(errs, key=errs.get)
+    bit_equal = (rec_b[3]["train_loss"] == rec_a[3]["train_loss"] and all(
+        torch.equal(final_b[k].detach().cpu(), v)
+        for k, v in final_a.items()))
+    log(f"[train resume] step 3 after resume vs uninterrupted: loss "
+        f"{rec_b[3]['train_loss']:.7g} vs {rec_a[3]['train_loss']:.7g} "
+        f"(relative {loss_err:.3g}), masters worst relative L2 "
+        f"{errs[worst]:.3g} at {worst} (tol {RESUME_TOL}); bit_equal="
+        f"{bit_equal}")
+    if not (loss_err <= RESUME_TOL and errs[worst] <= RESUME_TOL):
+        fail("[train resume] the resumed step differs from the "
+             "uninterrupted one")
+    del final_a, final_b
+    t = time.perf_counter()
+    exported = ckpt.flat(port.load_dit(export, dcfg, verbose=False))
+    seconds["export_read_s"] = time.perf_counter() - t
+    same = set(exported) == set(at_save) and all(
+        torch.equal(exported[k], v) for k, v in at_save.items())
+    log(f"[train resume] export ({out['export_bytes']} bytes) read by "
+        f"load_dit: bit-equal to the masters at step 2: {same}")
+    if not same:
+        fail("[train resume] the export differs from the masters")
+    del exported, at_save
+    log(f"[train resume] full state {out['checkpoint_bytes']} bytes: write "
+        f"{seconds['checkpoint_write_s']:.2f} s, read (resume) "
+        f"{seconds['checkpoint_read_s']:.2f} s; export write "
+        f"{seconds['export_write_s']:.2f} s, read "
+        f"{seconds['export_read_s']:.2f} s")
+
+    # the latent cache: the same clips encoded once, then stepped on
+    pix, lat, turns, seconds["latent_cache_build_s"] = latent_cache_turns(
+        second, clips(B), os.path.join(RESUME_DIR, "latents"),
+        "train resume")
+    out["step_time_s"] = turns
+    with torch.no_grad():
+        losses = [second.loss(second.dit_params, b.video[0], b.actions[0],
+                              torch.Generator(device="cuda").manual_seed(9),
+                              b.is_latents)[0].item() for b in (pix, lat)]
+    cache_err = abs(losses[1] - losses[0]) / abs(losses[0])
+    log(f"[train resume] latent-cache loss {losses[1]:.7g} vs pixel "
+        f"{losses[0]:.7g} on the same clips and draws (relative "
+        f"{cache_err:.3g}, tol {RESUME_TOL}); bit_equal="
+        f"{losses[0] == losses[1]}")
+    if not cache_err <= RESUME_TOL:
+        fail("[train resume] cached latents change the loss")
+
+    # the evals: the rollout eval and the renoise eval on the card
+    batch = Batch(pix.video[0], pix.actions[0])
+    n_frames = cfg.n_prompt_frames + 2
+    calls, restore = count_dit_calls()
+    real_decode = trainer_mod.decode_frames
+    finite = []
+
+    def decode(params, vcfg, latents, *args, **kw):
+        finite.append(bool(torch.isfinite(latents).all()))
+        return real_decode(params, vcfg, latents, *args, **kw)
+
+    trainer_mod.decode_frames = decode
+    try:
+        for name, call in (
+                ("predict_frames",
+                 lambda: second.predict_frames(batch, n_frames)),
+                ("predict_noise", lambda: second.predict_noise(batch))):
+            for fn in fns.values():
+                fn.launches = 0
+            for k in calls:
+                calls[k] = 0
+            result = timed(f"{name}_s", call)()
+            n = {k: fns[k].launches for k in TRAIN_PATH[:3]}
+            dit = calls["plain"]
+            log(f"[train resume] {name}: {seconds[name + '_s']:.2f} s, "
+                f"{dit} DiT calls, launches {json.dumps(n)}")
+            if dit <= 0 or n != {"fused_spatial_branch": L * dit,
+                                 "fused_mlp_branch": 2 * L * dit,
+                                 "fused_temporal_branch": L * dit}:
+                fail(f"[train resume] {name}: launches {n} for {dit} calls")
+            for k, v in n.items():
+                rows[k].setdefault("launches_evals", {})[name] = v
+            if name == "predict_frames":
+                shape = (n_frames, second.vae_cfg.input_height,
+                         second.vae_cfg.input_width, 3)
+                if result.shape != shape or result.dtype != np.uint8:
+                    fail(f"[train resume] predict_frames gave "
+                         f"{result.shape} {result.dtype}, want {shape}")
+                frames = result
+            elif not (result.shape == (1,) + lat.video.shape[2:]
+                      and torch.isfinite(result).all()):
+                fail(f"[train resume] predict_noise gave {result.shape}")
+    finally:
+        restore()
+        trainer_mod.decode_frames = real_decode
+    if not (finite and all(finite)):
+        fail("[train resume] non-finite rollout latents")
+    try:
+        path = os.path.join(RESUME_DIR, "predict.mp4")
+        write_video(path, frames, fps=10)
+        log(f"[train resume] mp4 written ({os.path.getsize(path)} bytes)")
+    except RuntimeError as e:
+        log(f"[train resume] mp4 not written, no writer here: {e}")
+    grid = os.path.join("debug_visualizations", f"{cfg.model_name}_noise_"
+                        f"gs_{second.global_step}.png")
+    log(f"[train resume] renoise grid written: {os.path.exists(grid)}"
+        + ("" if os.path.exists(grid) else " (matplotlib: " + (
+            "present" if _importable("matplotlib") else "missing") + ")"))
+    out["seconds"] = seconds
+    out["bit_equal"] = {"resume": bit_equal, "latent_cache":
+                        losses[0] == losses[1]}
+    rows["train_resume"] = out
+
+
+def _importable(name):
+    try:
+        __import__(name)
+        return True
+    except ImportError:
+        return False
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2396,7 +2724,9 @@ def main():
     timed("train kernels", train_kernel_phase, rows)
     approx = timed("end to end", end_to_end, rows)
     timed("train", train_phase, rows)
+    timed("train resume", train_resume_phase, rows)
     train = rows.pop("train")
+    train["resume"] = rows.pop("train_resume")
     if len(rows) != 16:
         fail(f"the kernel table has {len(rows)} rows, not 16")
     for row in rows.values():

@@ -1,27 +1,45 @@
 """Training CLI (counterpart of gtax/cli/train.py).
 
-    python -m gtax_torch.cli.train cfg.yaml [--dummy_size N] [--device cpu]
+    python -m gtax_torch.cli.train cfg.yaml [--dummy_size N] \
+        [--dataset_root DIR [--dataset_size N]] [--latent_cache DIR] \
+        [--device cpu]
 
 Loads gtax's YAML configs unchanged (with PyYAML), or the same keys as a
 JSON object in a `.json` file (for machines without PyYAML), builds the
-loaders and the Trainer, and runs the training loop. Runs on the card unless
---device cpu. Options the port does not run yet raise
-NotImplementedError (gtax_torch.train.trainer.check_slice).
+loaders and the Trainer, and runs the training loop; a run whose output
+directory holds a checkpoint resumes from it (resume_from_checkpoint).
+Runs on the card unless --device cpu. Options the port does not run yet
+raise NotImplementedError (gtax_torch.train.trainer.check_slice).
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import logging
+import os
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="DiT training (gtax_torch)")
     parser.add_argument("config", type=str,
                         help="config file: YAML, or JSON (.json)")
+    parser.add_argument("--dataset_root", type=str, default=None,
+                        help="local shard dir for the webdataset backend "
+                             "(validation: its val/, dev/ or validation/ "
+                             "subdir, else the training shards)")
     parser.add_argument("--dummy_size", type=int, default=None,
                         help="override the dummy dataset length (smoke runs)")
+    parser.add_argument("--dataset_size", type=int, default=None,
+                        help="true sample count of --dataset_root's shards "
+                             "(the schedule's steps/epoch and the latent "
+                             "cache's size; without it ~1000 a shard)")
+    parser.add_argument("--latent_cache", type=str, default=None,
+                        help="directory of precomputed VAE latents for the "
+                             "training split, built from the configured "
+                             "dataset on first use; the frozen encode then "
+                             "leaves the step (validation stays on pixels)")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
@@ -36,11 +54,42 @@ def main(argv=None):
     else:
         config = TrainingConfig.from_yaml(args.config)
     dataset_kw = {}
+    if args.dataset_root and config.dataset_type == "webdataset":
+        dataset_kw["shards"] = sorted(
+            glob.glob(os.path.join(args.dataset_root, "*.tar")))
+        for sub in ("val", "dev", "validation"):
+            vs = sorted(glob.glob(os.path.join(args.dataset_root, sub,
+                                               "*.tar")))
+            if vs:
+                dataset_kw["val_shards"] = vs
+                break
+        else:
+            logging.warning("--dataset_root has no val/dev/validation "
+                            "subdir: validation streams the TRAINING shards")
+            dataset_kw["val_shards"] = dataset_kw["shards"]
     if args.dummy_size is not None and config.dataset_type == "dummy":
         dataset_kw["size"] = args.dummy_size
+    if args.dataset_size is not None and config.dataset_type == "webdataset":
+        dataset_kw["size"] = args.dataset_size
     train_loader, val_loader = build_loaders(config, **dataset_kw)
     trainer = Trainer(config, total_dataset_size=len(train_loader.dataset),
                       device=args.device)
+    if args.latent_cache:
+        from gtax_torch.data.latents import LatentCacheDataset
+        from gtax_torch.data.loader import DataLoader
+
+        if os.path.exists(os.path.join(args.latent_cache, "meta.json")):
+            lat_ds = LatentCacheDataset(args.latent_cache)
+        else:
+            logging.info("Building latent cache at %s ...", args.latent_cache)
+            lat_ds = LatentCacheDataset.build(
+                train_loader.dataset, trainer.vae_params, trainer.vae_cfg,
+                args.latent_cache, encode_batch=config.batch_size,
+                compute_dtype=trainer.compute_dtype,
+                backend=config.attention_backend)
+        train_loader = DataLoader(
+            lat_ds, train_loader.batch_size,
+            num_workers=train_loader.num_workers, seed=config.seed)
     trainer.training_loop(train_loader, val_loader)
     return trainer
 

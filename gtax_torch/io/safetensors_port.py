@@ -1,17 +1,25 @@
 """Reference checkpoints and gtax parameter trees -> the port's parameters
 (counterpart of gtax/io/safetensors_port.py).
 
-The safetensors format is parsed directly (the serving machine has no
-`safetensors` package): an 8-byte little-endian header length, a JSON
-header of {name: {dtype, shape, data_offsets}}, then the raw buffers. bf16
-tensors are read through torch.frombuffer and, like gtax's reader, upcast
-to float32.
+The safetensors format is read and written directly (the card's machine
+has no `safetensors` package): an 8-byte little-endian header length, a
+JSON header of {name: {dtype, shape, data_offsets}} padded with spaces to
+8 bytes, then the raw buffers, back to back. Both directions go one tensor
+at a time, so a file is never held in host memory whole.
+`iter_safetensors` keeps every dtype (the trainer's checkpoints need their
+bf16 moments back as bf16); `read_safetensors` upcasts bf16 to float32,
+like gtax's reader, for the weight loaders.
 
 Layout mappings (torch state_dict -> port), as in gtax:
   - nn.Linear weight (out, in)              -> kernel (in, out)
   - patch-embed Conv2d weight (D, C, p, p)  -> kernel (C*p*p, D)
   - per-block tensors blocks.{i}.X          -> blocks[i]
   - rotary freqs nn.Parameters              -> {spatial,temporal}_rope_freqs
+
+The writers (`dit_to_torch`, `vae_to_torch`, `save_dit`, `save_vae`) are
+the inverse mappings: the port's tree (per-block list) -> the reference's
+fp32 state_dict, restacked under blocks.{i}; gtax's `read_safetensors`,
+the reference and this module read the file.
 
 The weight bridge (`dit_from_gtax`, `vae_from_gtax`) takes gtax parameter
 pytrees as nested dicts of numpy arrays, with stacked (leading depth axis)
@@ -39,23 +47,54 @@ _DTYPES = {
 }
 
 
-def read_safetensors(path: str) -> dict[str, torch.Tensor]:
-    """Read a safetensors file into CPU tensors (bf16 upcast to fp32)."""
+_NAMES = {v: k for k, v in _DTYPES.items()}
+
+
+def iter_safetensors(path: str):
+    """(name, CPU tensor) pairs of a safetensors file in file order, every
+    dtype kept; each tensor is read into its own buffer, one at a time."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-        data = bytearray(f.read())
-    out = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        dtype = _DTYPES[info["dtype"]]
-        begin, end = info["data_offsets"]
-        count = (end - begin) // dtype.itemsize
-        t = torch.frombuffer(data, dtype=dtype, count=count, offset=begin)
-        t = t.reshape(info["shape"]).clone()
-        out[name] = t.float() if dtype == torch.bfloat16 else t
-    return out
+        start = 8 + n
+        header.pop("__metadata__", None)
+        for name, info in sorted(header.items(),
+                                 key=lambda kv: kv[1]["data_offsets"][0]):
+            begin, end = info["data_offsets"]
+            raw = torch.empty(end - begin, dtype=torch.uint8)
+            f.seek(start + begin)
+            if f.readinto(memoryview(raw.numpy())) != end - begin:
+                raise ValueError(f"{path}: {name} is truncated")
+            yield name, raw.view(_DTYPES[info["dtype"]]).reshape(
+                info["shape"])
+
+
+def read_safetensors(path: str) -> dict[str, torch.Tensor]:
+    """Read a safetensors file into CPU tensors (bf16 upcast to fp32)."""
+    return {name: t.float() if t.dtype == torch.bfloat16 else t
+            for name, t in iter_safetensors(path)}
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """Write {name: tensor or numpy array} (any device) as safetensors, in
+    the dict's order; each tensor is copied to the host as it is written."""
+    items = [(k, torch.from_numpy(np.ascontiguousarray(v))
+              if isinstance(v, np.ndarray) else v.detach())
+             for k, v in tensors.items()]
+    header, off = {}, 0
+    for name, t in items:
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for _, t in items:
+            f.write(t.cpu().contiguous().reshape(-1).view(torch.uint8)
+                    .numpy().data)
 
 
 def strip_prefix(state: dict, prefix: str = "module.") -> dict:
@@ -238,6 +277,110 @@ def load_vae(path: str, cfg, verbose: bool = True):
         print(f"[gtax_torch] VAE checkpoint '{path}' key diff — missing: "
               f"{missing}\nunexpected: {unexpected}")
     return params
+
+
+# ------------------------------------------------------------- writers
+
+def _block_node(blocks, i, path):
+    """Block i's node at `path` (blocks: the port's list of per-block
+    dicts)."""
+    node = blocks[i]
+    for p in path:
+        node = node[p]
+    return node
+
+
+def _host32(x) -> torch.Tensor:
+    return _f32(x.detach().cpu() if isinstance(x, torch.Tensor) else x)
+
+
+def dit_to_torch(params, cfg) -> dict[str, torch.Tensor]:
+    """Port DiT params -> the reference's torch state_dict (fp32 CPU
+    tensors): kernels transposed back to (out, in), the patch-embed kernel
+    reshaped to its Conv2d weight, block i's leaves under blocks.{i}."""
+    out: dict[str, torch.Tensor] = {}
+
+    def put(key, x):
+        out[key] = _host32(x).contiguous()
+
+    def lin(key, node, bias=True):
+        put(f"{key}.weight", _host32(node["kernel"]).T)
+        if bias:
+            put(f"{key}.bias", node["bias"])
+
+    D, p = cfg.hidden_size, cfg.patch_size
+    put("x_embedder.proj.weight", _host32(params["patch_embed"]["kernel"])
+        .T.reshape(D, cfg.in_channels, p, p))
+    put("x_embedder.proj.bias", params["patch_embed"]["bias"])
+    lin("t_embedder.mlp.0", params["t_embedder"]["fc1"])
+    lin("t_embedder.mlp.2", params["t_embedder"]["fc2"])
+    put("spatial_rotary_emb.freqs", params["spatial_rope_freqs"])
+    put("temporal_rotary_emb.freqs", params["temporal_rope_freqs"])
+    if "external_cond" in params:
+        lin("external_cond", params["external_cond"])
+    lin("final_layer.adaLN_modulation.1", params["final"]["adaln"])
+    lin("final_layer.linear", params["final"]["linear"])
+    for path, (suffix, has_bias) in _DIT_BLOCK_LIN.items():
+        for i in range(cfg.depth):
+            lin(f"blocks.{i}.{suffix}", _block_node(params["blocks"], i,
+                                                    path), has_bias)
+    return out
+
+
+def vae_to_torch(params, cfg) -> dict[str, torch.Tensor]:
+    """Port VAE params -> the reference's torch state_dict (fp32 CPU)."""
+    out: dict[str, torch.Tensor] = {}
+
+    def emit(base, kind, node):
+        if kind == "conv":
+            k = _host32(node["kernel"]).T
+            out[f"{base}.weight"] = k.reshape(
+                k.shape[0], 3, cfg.patch_size, cfg.patch_size).contiguous()
+        elif kind == "lin":
+            out[f"{base}.weight"] = _host32(node["kernel"]).T.contiguous()
+        else:
+            out[f"{base}.weight"] = _host32(node["weight"])
+        out[f"{base}.bias"] = _host32(node["bias"])
+
+    for path, (base, kind) in _VAE_TOP.items():
+        node = params
+        for p in path:
+            node = node[p]
+        emit(base, kind, node)
+    for name, depth in (("encoder", cfg.enc_depth),
+                        ("decoder", cfg.dec_depth)):
+        for path, (suffix, kind) in _VAE_BLOCK.items():
+            for i in range(depth):
+                emit(f"{name}.{i}.{suffix}", kind,
+                     _block_node(params[name], i, path))
+    return out
+
+
+def save_dit(path: str, params, cfg) -> None:
+    write_safetensors(path, dit_to_torch(params, cfg))
+
+
+def save_vae(path: str, params, cfg) -> None:
+    write_safetensors(path, vae_to_torch(params, cfg))
+
+
+def expected_dit_keys(cfg) -> set[str]:
+    """The reference DiT's state_dict key set."""
+    keys = {"x_embedder.proj.weight", "x_embedder.proj.bias",
+            "t_embedder.mlp.0.weight", "t_embedder.mlp.0.bias",
+            "t_embedder.mlp.2.weight", "t_embedder.mlp.2.bias",
+            "spatial_rotary_emb.freqs", "temporal_rotary_emb.freqs",
+            "final_layer.adaLN_modulation.1.weight",
+            "final_layer.adaLN_modulation.1.bias",
+            "final_layer.linear.weight", "final_layer.linear.bias"}
+    if cfg.external_cond_dim > 0:
+        keys |= {"external_cond.weight", "external_cond.bias"}
+    for i in range(cfg.depth):
+        for suffix, has_bias in _DIT_BLOCK_LIN.values():
+            keys.add(f"blocks.{i}.{suffix}.weight")
+            if has_bias:
+                keys.add(f"blocks.{i}.{suffix}.bias")
+    return keys
 
 
 # --------------------------------------------------------- weight bridge

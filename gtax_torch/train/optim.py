@@ -122,6 +122,35 @@ class AdamW:
         self.count = inc
         return norm
 
+    def state_dict(self) -> dict:
+        """{"count": int, "mu": {path: tensor}, "nu": {path: tensor}}, the
+        moments in their own dtypes (mu in bf16 under mu_dtype=bfloat16),
+        keyed by the param paths ("/"-joined); the tensors are the live
+        ones, not copies."""
+        key = ["/".join(map(str, p)) for p in self.paths]
+        return {"count": self.count, "mu": dict(zip(key, self.mu)),
+                "nu": dict(zip(key, self.nu))}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a state_dict's moments into this optimizer's, in place and
+        in their dtypes (a shape, dtype or key mismatch raises), and take
+        its count: the schedule goes on from it."""
+        key = ["/".join(map(str, p)) for p in self.paths]
+        for name in ("mu", "nu"):
+            src = state[name]
+            if set(src) != set(key):
+                raise KeyError(f"optimizer state {name}: keys differ from "
+                               "the params'")
+            for k, dst in zip(key, getattr(self, name)):
+                if src[k].shape != dst.shape or src[k].dtype != dst.dtype:
+                    raise ValueError(
+                        f"optimizer state {name}/{k}: {src[k].dtype} "
+                        f"{tuple(src[k].shape)}, want {dst.dtype} "
+                        f"{tuple(dst.shape)}")
+                dst.copy_(src[k])
+        self.count = int(state["count"])
+
 
 def make_optimizer(params, learning_rate: float, min_learning_rate: float,
                    warmup_steps: int, total_steps: int,

@@ -2,17 +2,22 @@
 decoding (counterpart of gtax/train/trainer.py).
 
 Ported: the steps math and warmup, random init or a `pretrained_model`
-load, the frozen VAE encode, gradient accumulation, AdamW with the
-cosine-to-min_lr schedule, the metrics (train_loss, grad_norm before
-clipping, learning_rate, step_time_s, mfu), eval loss and the epoch /
-max_steps loop. Not ported yet (check_slice raises NotImplementedError):
-checkpoints and resume, the rollout / renoise visualisations, the
-webdataset and hfdataset backends, int8-forward training, remat, profiling
-traces and parallel training (ROADMAP.md).
+load, the frozen VAE encode (or latent-cache batches that skip it),
+gradient accumulation, AdamW with the cosine-to-min_lr schedule, the
+metrics (train_loss, grad_norm before clipping, learning_rate,
+step_time_s, mfu), the epoch / max_steps loop, eval loss with the rollout
+mp4 and the renoise grid, the safetensors weight export and the full-state
+checkpoints with resume (gtax's paths; the state in the port's own format,
+gtax_torch.train.checkpoint), the wandb run id carried across restarts,
+and the profile_dir trace window. Not ported yet (check_slice raises
+NotImplementedError): the other attention backends, the stacked weight
+layout (unstack_train: false), int8-forward training, remat and parallel
+training (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -23,16 +28,20 @@ import torch
 
 from gtax_torch.core import schedules
 from gtax_torch.core.constants import LATENT_SCALE
+from gtax_torch.data.actions import forward_actions
 from gtax_torch.data.loader import Batch, DataLoader, make_dataset, to_device
 from gtax_torch.io import safetensors_port as port
 from gtax_torch.models import dit as dit_mod
 from gtax_torch.models import vae as vae_mod
 from gtax_torch.models.vae import vae_decode, vae_encode
-from gtax_torch.sampling.diffusion import LossConfig, diffusion_forcing_loss
+from gtax_torch.sampling.diffusion import (LossConfig, SamplerConfig,
+                                           diffusion_forcing_loss,
+                                           make_rollout, renoise_last_frame)
+from gtax_torch.train import checkpoint as ckpt
 from gtax_torch.train.config import TrainingConfig
 from gtax_torch.train.optim import decays, leaves, make_optimizer
 from gtax_torch.utils.platform import resolve_device
-from gtax_torch.utils.profiling import MFUCounter, dit_forward_flops
+from gtax_torch.utils.profiling import MFUCounter, dit_forward_flops, trace
 
 logger = logging.getLogger("gtax_torch.train")
 
@@ -84,8 +93,6 @@ _PORTED = {
     "int8_forward": (False,),
     "remat": (False,),
     "unstack_train": (True,),
-    "profile_dir": (None,),
-    "dataset_type": ("dummy",),
 }
 
 
@@ -103,16 +110,12 @@ def check_slice(config: TrainingConfig) -> None:
             raise NotImplementedError(
                 f"TrainingConfig.{name}={getattr(config, name)}: parallel "
                 "training is not ported yet; see ROADMAP.md")
-    if config.save_every > 0:
-        raise NotImplementedError(
-            "save_every > 0: checkpoints and the safetensors export are not "
-            "ported yet; set save_every: 0 (ROADMAP.md)")
 
 
 class Trainer:
     """Diffusion-forcing DiT training with a frozen VAE (gtax Trainer): AdamW
-    with warmup and cosine decay to min_lr, gradient accumulation, eval
-    loss, deferred metrics.
+    with warmup and cosine decay to min_lr, gradient accumulation, evals,
+    checkpoints and resume, deferred metrics.
 
     The step runs eagerly: per micro-batch the frozen VAE encodes under
     torch.no_grad(), the loss runs forward and backward through the fused
@@ -190,8 +193,8 @@ class Trainer:
             max_grad_norm=config.max_grad_norm,
             mu_dtype=torch.bfloat16 if config.mu_bf16 else None)
 
-        _, abar, noise_range, _ = schedules.make_diffusion_constants(
-            config.ddim_noise_steps)
+        _, abar, noise_range, stabilization = (
+            schedules.make_diffusion_constants(config.ddim_noise_steps))
         self.alphas_cumprod = abar.to(self.device)
         self.noise_range = noise_range.to(self.device)
         self.loss_cfg = LossConfig(
@@ -200,9 +203,18 @@ class Trainer:
             noise_abs_max=config.noise_abs_max,
             n_prompt_frames=config.n_prompt_frames,
             max_frames=self.max_frames)
+        # the evals' sampler (gtax: ddim_noise_steps_inference steps,
+        # stabilization at the training range's first level)
+        self.sampler_cfg = SamplerConfig(
+            ddim_noise_steps=config.ddim_noise_steps_inference,
+            stabilization_level=stabilization,
+            noise_abs_max=config.noise_abs_max, schedule_clamp_min=1e-6)
 
         self.global_step = 0
         self.start_epoch = 0
+        self.skip_batches = 0  # set by try_resume
+        self.wandb_run_id = None  # kept in step.json across restarts
+        self.train_dataset = None  # the training loader's (its cursor)
         flops = 3.0 * dit_forward_flops(  # forward + backward ~ 3x forward
             self.dit_cfg,
             config.batch_size * config.gradient_accumulation_steps,
@@ -224,20 +236,22 @@ class Trainer:
                                  self.compute_dtype,
                                  backend=self.config.attention_backend)
 
-    def loss(self, params, video, actions, generator):
+    def dit_fn(self, params, x, t, actions, valid):
+        """The DiT forward the trainer and its evals run: the compute dtype
+        and attention backend of the config."""
+        return dit_mod.dit_apply(params, self.dit_cfg, x, t, actions, valid,
+                                 compute_dtype=self.compute_dtype,
+                                 backend=self.config.attention_backend)
+
+    def loss(self, params, video, actions, generator, is_latents=False):
         """(mean_loss, sum_loss) of one micro-batch: frozen-VAE encode of
-        the (B, T, 3, H, W) pixels, then the diffusion-forcing loss through
-        the DiT."""
-        latents = self.encode(video)
-
-        def dit_fn(x, t, a, valid):
-            return dit_mod.dit_apply(params, self.dit_cfg, x, t, a, valid,
-                                     compute_dtype=self.compute_dtype,
-                                     backend=self.config.attention_backend)
-
+        the pixels (unless they are latent-cache latents already), then the
+        diffusion-forcing loss through the DiT."""
+        latents = video if is_latents else self.encode(video)
         return diffusion_forcing_loss(
-            dit_fn, latents, actions, generator, self.loss_cfg,
-            self.alphas_cumprod, self.noise_range)
+            lambda x, t, a, v: self.dit_fn(params, x, t, a, v), latents,
+            actions, generator, self.loss_cfg, self.alphas_cumprod,
+            self.noise_range)
 
     def _dispatch(self, batch: Batch):
         """Enqueue one optimizer step over the batch's micro-batches
@@ -250,7 +264,8 @@ class Trainer:
         for i in range(accum):
             acts = None if batch.actions is None else batch.actions[i]
             mean_loss, sum_loss = self.loss(self.dit_params, batch.video[i],
-                                            acts, self.generator)
+                                            acts, self.generator,
+                                            batch.is_latents)
             sum_loss.backward()
             loss_sum = loss_sum + mean_loss.detach()
         grads = [None if p.grad is None else p.grad / accum for p in params]
@@ -296,33 +311,51 @@ class Trainer:
 
     # ---------------------------------------------------------- the loop
 
-    def iter_device_batches(self, loader):
+    def iter_device_batches(self, loader, skip: int = 0):
         """Groups of gradient_accumulation_steps loader batches, stacked on
-        a leading axis and copied to the device."""
+        a leading axis and copied to the device; the first `skip` groups
+        are dropped on the host (a resumed epoch's trained batches)."""
         accum = self.config.gradient_accumulation_steps
         vids, acts = [], []
         for b in loader:
             vids.append(b.video)
             acts.append(b.actions)
-            if len(vids) == accum:
+            if len(vids) < accum:
+                continue
+            if skip > 0:
+                skip -= 1
+            else:
                 yield Batch(
                     video=to_device(np.stack(vids), self.device),
                     actions=(None if acts[0] is None else
-                             to_device(np.stack(acts), self.device)))
-                vids, acts = [], []
+                             to_device(np.stack(acts), self.device)),
+                    is_latents=b.is_latents)
+            vids, acts = [], []
 
     def training_loop(self, train_loader, val_loader, callbacks=None):
-        """The main loop (gtax training_loop): epochs over the loader until
-        max_steps, validation every validation_steps. Every step's record
-        is logged and passed to each callback exactly once, in step order,
-        labelled with its step (`metrics["step"]`, 1-based: the step count
-        after it); gtax delivered two steps out of order at flush points
-        (ADVICE.md)."""
+        """The main loop (gtax training_loop): resume, epochs over the
+        loader until max_steps, validation every validation_steps, the
+        weight export and full checkpoint every save_every steps, and the
+        profile_dir trace over steps restart+3 .. restart+12, closed and
+        written however the loop ends. Every step's record is logged and
+        passed to each callback exactly once, in step order, labelled with
+        its step (`metrics["step"]`, 1-based: the step count after it); a
+        save or a validation first flushes the step in flight, so the
+        records stay in order and the saved state is final (gtax delivered
+        two steps out of order there, and left its trace open when the run
+        ended inside the window; ADVICE.md)."""
         cfg = self.config
         callbacks = callbacks or []
-        self.try_resume()
+        self.train_dataset = getattr(train_loader, "dataset", None)
+        if cfg.resume_from_checkpoint:
+            self.try_resume()
+        self._init_wandb()
         if self.global_step == 0:
             self.run_validation(val_loader)
+        if hasattr(train_loader, "set_epoch"):
+            # the replayed epoch reshuffles as the interrupted run did
+            train_loader.set_epoch(self.start_epoch)
+        trace_from = self.global_step + 3 if cfg.profile_dir else None
 
         def deliver(metrics, epoch, force_log=False):
             if metrics is None:
@@ -332,19 +365,37 @@ class Trainer:
             for cb in callbacks:
                 cb(self, metrics)
 
-        for epoch in range(self.start_epoch, cfg.num_epochs):
-            for batch in self.iter_device_batches(train_loader):
-                if cfg.max_steps > 0 and self.global_step >= cfg.max_steps:
-                    deliver(self._flush_labelled(), epoch, force_log=True)
-                    logger.info("Reached max_steps=%d", cfg.max_steps)
-                    return
-                deliver(self._step_labelled(batch), epoch)
-                if (cfg.validation_steps > 0
-                        and self.global_step % cfg.validation_steps == 0):
-                    deliver(self._flush_labelled(), epoch)
-                    self.run_validation(val_loader)
-            deliver(self._flush_labelled(), epoch)
-            self.start_epoch = epoch + 1
+        skip = self.skip_batches
+        with contextlib.ExitStack() as window:
+            for epoch in range(self.start_epoch, cfg.num_epochs):
+                for batch in self.iter_device_batches(train_loader, skip):
+                    if cfg.max_steps > 0 and self.global_step >= cfg.max_steps:
+                        deliver(self._flush_labelled(), epoch, force_log=True)
+                        logger.info("Reached max_steps=%d", cfg.max_steps)
+                        return
+                    if self.global_step == 0:
+                        self._step0_diagnostics(batch)
+                    if self.global_step == trace_from:
+                        window.enter_context(trace(
+                            cfg.profile_dir, f"trace_step_{trace_from}.json"))
+                    deliver(self._step_labelled(batch), epoch)
+                    if trace_from is not None and (
+                            self.global_step == trace_from + 10):
+                        window.close()
+                    want_val = (cfg.validation_steps > 0 and
+                                self.global_step % cfg.validation_steps == 0)
+                    want_save = (cfg.save_every > 0 and
+                                 self.global_step % cfg.save_every == 0)
+                    if want_val or want_save:
+                        deliver(self._flush_labelled(), epoch)
+                    if want_val:
+                        self.run_validation(val_loader)
+                    if want_save:
+                        self.save_model(epoch)
+                        self.save_checkpoint(epoch)
+                skip = 0
+                deliver(self._flush_labelled(), epoch)
+                self.start_epoch = epoch + 1
 
     def _step_labelled(self, batch):
         out = self.train_step(batch)
@@ -359,19 +410,88 @@ class Trainer:
             out["step"] = self.global_step
         return out
 
+    # ------------------------------------------------------ checkpointing
+
+    def save_model(self, epoch: int) -> str:
+        """The weight-only export: the masters as the reference's fp32
+        safetensors, <output_dir>/<model_name>_epoch_<epoch+1>_<step>
+        .safetensors (gtax save_model)."""
+        os.makedirs(self.config.output_dir, exist_ok=True)
+        path = os.path.join(
+            self.config.output_dir, f"{self.config.model_name}_epoch_"
+            f"{epoch + 1}_{self.global_step}.safetensors")
+        port.save_dit(path, self.dit_params, self.dit_cfg)
+        logger.warning("Saved checkpoint to %s", path)
+        return path
+
+    def _ckpt_dir(self) -> str:
+        return ckpt.ckpt_dir(self.config.output_dir, self.config.model_name)
+
+    def save_checkpoint(self, epoch: int) -> int:
+        """The full state (masters, optimizer moments and count, the
+        training generator, global_step) into state_<step>, then step.json
+        (step, epoch, time, the wandb run id, the stream cursor), then the
+        superseded states pruned. Returns the state's bytes."""
+        path = self._ckpt_dir()
+        os.makedirs(path, exist_ok=True)
+        name = f"state_{self.global_step}"
+        n = ckpt.write_state(os.path.join(path, name), self.dit_params,
+                             self.optimizer, self.generator,
+                             self.global_step)
+        meta = {"step": self.global_step, "epoch": epoch,
+                "time": time.time()}
+        if self.wandb_run_id is not None:
+            meta["wandb_run_id"] = self.wandb_run_id
+        cursor = getattr(self.train_dataset, "cursor", None)
+        if cursor is not None:
+            meta["data_cursor"] = list(cursor)
+        ckpt.write_json(os.path.join(path, ckpt.STEP), meta)
+        ckpt.prune(path, keep=name)
+        logger.warning("Saved checkpoint for step %d (%d bytes)",
+                       self.global_step, n)
+        return n
+
     def try_resume(self) -> bool:
-        """Checkpoints are not ported yet: start fresh, but refuse to
-        ignore a checkpoint that is there."""
-        if not self.config.resume_from_checkpoint:
+        """Restore the masters (in place), the optimizer, the generator, the
+        step, the epoch, the wandb run id and the data position from the
+        last checkpoint, if there is one (gtax try_resume). The position is
+        the stream cursor when the training dataset has one; otherwise the
+        replayed epoch skips global_step % steps_per_epoch batches, and a
+        state saved at an epoch's last step resumes at the next epoch
+        (gtax replayed the finished epoch whole)."""
+        path = self._ckpt_dir()
+        meta_path = os.path.join(path, ckpt.STEP)
+        if not os.path.exists(meta_path):
+            logger.info("No checkpoint at %s; starting fresh", path)
             return False
-        path = os.path.join(self.config.output_dir, "train_checkpoints",
-                            f"{self.config.model_name}_last", "step.json")
-        if os.path.exists(path):
-            raise NotImplementedError(
-                f"{path} exists, but resuming from checkpoints is not "
-                "ported yet (ROADMAP.md)")
-        logger.info("No checkpoint to resume; starting fresh")
-        return False
+        with open(meta_path) as f:
+            meta = json.load(f)
+        state = ckpt.read_state(os.path.join(path, f"state_{meta['step']}"),
+                                self.dit_params, self.optimizer,
+                                self.generator)
+        if state["global_step"] != meta["step"]:
+            raise ValueError(f"{path}: step.json says step {meta['step']}, "
+                             f"the state {state['global_step']}")
+        self.global_step = meta["step"]
+        self.start_epoch = meta["epoch"]
+        self.wandb_run_id = meta.get("wandb_run_id")
+        cursor_restored = (
+            "data_cursor" in meta and hasattr(self.train_dataset, "cursor"))
+        if cursor_restored:
+            self.train_dataset.cursor = list(meta["data_cursor"])
+            self.skip_batches = 0
+        else:
+            self.skip_batches = self.global_step % max(1,
+                                                       self.steps_per_epoch)
+            if self.skip_batches == 0 and self.global_step > 0:
+                self.start_epoch += 1
+        logger.info("Resumed from epoch %d, step %d, skipping %d steps%s",
+                    self.start_epoch + 1, self.global_step,
+                    self.skip_batches,
+                    " (stream cursor restored)" if cursor_restored else "")
+        return True
+
+    # -------------------------------------------------------------- evals
 
     def _eval_generator(self, tag: int):
         """Evals draw from their own generator keyed by (seed, step, tag):
@@ -382,31 +502,164 @@ class Trainer:
 
     def run_validation(self, val_loader, max_batches: int | None = None):
         """Eval loss over the validation loader (the whole split unless
-        validation_max_batches or max_batches caps it). gtax's rollout and
-        renoise visualisations are not ported yet (ROADMAP.md)."""
+        validation_max_batches or max_batches caps it), then the rollout
+        and renoise evals on its first pixel batch (gtax run_validation).
+        A failed eval is logged; it never stops training."""
         if val_loader is None:
             return None
         if max_batches is None:
             max_batches = self.config.validation_max_batches
-        losses = []
+        losses, first = [], None
         with torch.no_grad():
             for i, b in enumerate(val_loader):
                 if max_batches > 0 and i >= max_batches:
                     break
+                if first is None:
+                    first = b
                 video = to_device(b.video, self.device)
                 acts = (None if b.actions is None
                         else to_device(b.actions, self.device))
                 mean_loss, _ = self.loss(self.dit_params, video, acts,
-                                         self._eval_generator(i))
+                                         self._eval_generator(i),
+                                         b.is_latents)
                 losses.append(float(mean_loss))
         avg = sum(losses) / max(1, len(losses))
         logger.info("val_loss=%.5f at step %d", avg, self.global_step)
         self.log_metrics({"val_loss": avg}, epoch=self.start_epoch)
+        if first is not None and not first.is_latents:
+            try:
+                self.predict(first)
+                self.predict_noise(first)
+            except Exception as e:  # evals never stop training
+                logger.warning("predict eval failed: %r", e)
         return avg
+
+    def _eval_actions(self, actions, num_frames=None):
+        """The first clip's actions on the device (None without action
+        conditioning), padded with "forward" to num_frames."""
+        if not self.config.use_action_conditioning or actions is None:
+            return None
+        a = to_device(actions[:1], self.device).float()
+        if num_frames is not None and a.shape[1] < num_frames:
+            fill = forward_actions(1, num_frames - a.shape[1], a.shape[2])
+            a = torch.cat([a, torch.from_numpy(fill).to(a.device)], dim=1)
+        return a
+
+    @torch.no_grad()
+    def predict_frames(self, batch: Batch, num_frames: int = 32):
+        """The rollout eval's frames (gtax predict without the file): the
+        first clip's n_prompt_frames encoded, its actions padded with
+        "forward", num_frames - n_prompt_frames frames rolled out by the
+        exact sampler over the full window (ddim_noise_steps_inference
+        steps; the eval generator), decoded. Returns (num_frames, H, W, 3)
+        uint8 numpy."""
+        video = to_device(batch.video[:1, :self.config.n_prompt_frames],
+                          self.device)
+        latents = self.encode(video)
+        rollout = make_rollout(self.dit_fn, self.max_frames, self.sampler_cfg)
+        lat = rollout(self.dit_params, latents,
+                      self._eval_actions(batch.actions, num_frames),
+                      self._eval_generator(101),
+                      num_gen_frames=num_frames - latents.shape[1])
+        pix = decode_frames(self.vae_params, self.vae_cfg, lat,
+                            self.compute_dtype,
+                            backend=self.config.attention_backend)
+        return pix[0].cpu().numpy()
+
+    def predict(self, batch: Batch, num_frames: int = 32) -> str:
+        """predict_frames written as an mp4 to debug_visualizations/
+        test_<model>_0_epoch_<e>_gs_<step>.mp4 (gtax predict); returns the
+        path."""
+        from gtax_torch.io.video import write_video
+
+        frames = self.predict_frames(batch, num_frames)
+        os.makedirs("debug_visualizations", exist_ok=True)
+        path = (f"debug_visualizations/test_{self.config.model_name}_0_epoch_"
+                f"{self.start_epoch}_gs_{self.global_step}.mp4")
+        write_video(path, frames, fps=10)
+        logger.info("generation saved to %s", path)
+        return path
+
+    @torch.no_grad()
+    def predict_noise(self, batch: Batch):
+        """The renoise eval (gtax predict_noise): the first clip's context
+        noised at stabilization_level - 1, its last frame from pure noise
+        denoised over the window, and the 5-row grid written to
+        debug_visualizations/<model>_noise_gs_<step>.png (a failed grid is
+        logged). Returns the denoised latents (1, T, C, h, w)."""
+        latents = self.encode(to_device(batch.video[:1], self.device))
+        abar, noise_range = self.sampler_cfg.tables()
+        out = renoise_last_frame(
+            lambda x, t, a, v: self.dit_fn(self.dit_params, x, t, a, v),
+            latents, self._eval_actions(batch.actions),
+            self._eval_generator(102), self.sampler_cfg, abar, noise_range)
+        try:
+            from gtax_torch.train.viz import visualize_step
+
+            def decode(lat):
+                return decode_frames(
+                    self.vae_params, self.vae_cfg,
+                    torch.from_numpy(lat).to(self.device),
+                    self.compute_dtype,
+                    backend=self.config.attention_backend).cpu().numpy()
+
+            host = {k: v.float().cpu().numpy() for k, v in out.items()}
+            visualize_step(
+                x_curr=latents.cpu().numpy(), x_noisy=host["x_noisy"],
+                noise=host["noise"], v=host["v"], pred=host["denoised"],
+                step=self.global_step, decode_fn=decode,
+                name=f"{self.config.model_name}_noise_gs_"
+                     f"{self.global_step}.png")
+        except Exception as e:
+            logger.warning("visualization failed: %r", e)
+        return out["denoised"]
+
+    def _step0_diagnostics(self, batch: Batch):
+        """The first training batch's tensor stats and its renoise grid
+        (gtax _step0_diagnostics); never stops training."""
+        try:
+            for name, arr in (("video", batch.video),
+                              ("actions", batch.actions)):
+                if arr is None:
+                    logger.info("step0 %s: None", name)
+                    continue
+                a = arr.float()
+                logger.info("step0 %s: shape=%s dtype=%s min=%.4f max=%.4f "
+                            "mean=%.4f std=%.4f", name, tuple(arr.shape),
+                            arr.dtype, a.min().item(), a.max().item(),
+                            a.mean().item(), a.std().item())
+        except Exception as e:
+            logger.warning("step0 tensor-stat dump failed: %r", e)
+        if batch.is_latents:
+            return  # the grid decodes pixels
+        try:  # the first micro-batch of the accumulation axis
+            self.predict_noise(Batch(
+                batch.video[0],
+                None if batch.actions is None else batch.actions[0]))
+        except Exception as e:
+            logger.warning("step0 visualization failed: %r", e)
+
+    # ----------------------------------------------------------- logging
+
+    def _init_wandb(self):
+        """wandb.init with the run id from step.json, so a resumed run
+        logs into the same wandb run (gtax _init_wandb)."""
+        if not self.config.use_wandb:
+            return
+        try:
+            import wandb
+        except ImportError:
+            logger.info("wandb unavailable; metrics go to JSONL only")
+            return
+        run = wandb.run or wandb.init(
+            project="diffusion-transformer", config=self.config.to_dict(),
+            id=self.wandb_run_id,
+            resume="allow" if self.wandb_run_id else None)
+        self.wandb_run_id = run.id
 
     def log_metrics(self, metrics: dict, epoch: int, step: int | None = None):
         """Log a record and append it to <output_dir>/<model>_metrics.jsonl
-        (and wandb, when configured and installed)."""
+        (and to the wandb run, when one is open)."""
         step = self.global_step if step is None else step
         record = {"step": step, "epoch": epoch,
                   "wall_time": round(time.time(), 3), **metrics}
@@ -417,12 +670,10 @@ class Trainer:
             try:
                 import wandb
 
-                if wandb.run is None:
-                    wandb.init(project="diffusion-transformer",
-                               config=self.config.to_dict())
-                wandb.log(record)
+                if wandb.run is not None:
+                    wandb.log(record)
             except ImportError:
-                logger.info("wandb unavailable; metrics go to JSONL only")
+                pass
         os.makedirs(self.config.output_dir, exist_ok=True)
         path = os.path.join(self.config.output_dir,
                             f"{self.config.model_name}_metrics.jsonl")
@@ -431,17 +682,46 @@ class Trainer:
 
 
 def build_loaders(config: TrainingConfig, **dataset_kw):
-    """(train_loader, val_loader) for the configured dataset; the dummy
-    frames take the VAE's input geometry."""
+    """(train_loader, val_loader) for the configured dataset, as gtax's
+    build_loaders wires them in one process (rank 0 of 1): dummy frames
+    take the VAE's input geometry; the tar streamer defaults to uint8
+    clips (pixel_u8), a decode pool sized to the host and, for a VAE that
+    is not 360x640, a resize to its geometry, and its validation split is
+    one unshuffled pass (not resampled, no shuffle buffer) so that a
+    validation ends. `shards`, `size`, `val_shards` and `val_size` are the
+    splits' own: validation takes val_shards / val_size."""
+    vae_cfg = vae_mod.VAE_MODELS[config.vae_model]()
     if config.dataset_type == "dummy":
-        vae_cfg = vae_mod.VAE_MODELS[config.vae_model]()
         dataset_kw.setdefault("height", vae_cfg.input_height)
         dataset_kw.setdefault("width", vae_cfg.input_width)
-    val_kw = {k: v for k, v in dataset_kw.items() if k != "size"}
+    elif config.dataset_type == "webdataset":
+        dataset_kw.setdefault("pixel_u8", True)
+        dataset_kw.setdefault("decode_workers", min(os.cpu_count() or 1, 16))
+        if (vae_cfg.input_height, vae_cfg.input_width) != (360, 640):
+            from gtax_torch.data.common import ClipTransform
+
+            dataset_kw.setdefault("transform", ClipTransform(
+                target_h=vae_cfg.input_height, target_w=vae_cfg.input_width))
+    split_only = ("shards", "size", "val_shards", "val_size")
+    val_kw = {k: v for k, v in dataset_kw.items() if k not in split_only}
+    if config.dataset_type == "webdataset":
+        val_kw.setdefault("resampled", False)
+        val_kw.setdefault("shuffle_shards", False)
+        val_kw.setdefault("shuffle_buffer", 1)
+    if "val_shards" in dataset_kw:
+        val_kw["shards"] = dataset_kw.pop("val_shards")
+    if "val_size" in dataset_kw:
+        val_kw["size"] = dataset_kw.pop("val_size")
+    if "shards" in dataset_kw and "shards" not in val_kw:
+        logger.warning("custom train shards without val_shards: validation "
+                       "falls back to the registry 'validation' split")
     train_ds = make_dataset(config.dataset_type, "train",
                             config.use_action_conditioning, **dataset_kw)
     val_ds = make_dataset(config.dataset_type, "validation",
                           config.use_action_conditioning, **val_kw)
-    return (DataLoader(train_ds, config.batch_size, seed=config.seed),
+    cpus = os.cpu_count() or 1
+    return (DataLoader(train_ds, config.batch_size,
+                       num_workers=min(cpus, 32), seed=config.seed),
             DataLoader(val_ds, config.validation_batch_size,
-                       seed=config.seed, shuffle=False))
+                       num_workers=min(cpus, 8), seed=config.seed,
+                       shuffle=False))

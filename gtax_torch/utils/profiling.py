@@ -1,5 +1,9 @@
-"""FLOP accounting and MFU (counterpart of gtax/utils/profiling.py).
+"""Step timing, profiler traces, FLOP accounting and MFU (counterpart of
+gtax/utils/profiling.py).
 
+StepTimer is gtax's wall-clock timer with warmup discard; `trace` records
+a torch.profiler window (the card's kernels too, when CUDA is in use) and
+writes it as a Chrome trace when the window closes, however it closes.
 dit_forward_flops is gtax's analytic count of one DiT forward (matmuls
 only, 2*M*N*K each); MFUCounter divides a step's model FLOPs by its wall
 time and the device's dense bf16 peak. The peak table names the card the
@@ -7,6 +11,70 @@ port runs on; a device it does not know raises rather than guessing.
 """
 
 from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import time
+
+import torch
+
+logger = logging.getLogger("gtax_torch.profiling")
+
+
+class StepTimer:
+    """Wall-clock timing with warmup discard and simple stats."""
+
+    def __init__(self, warmup: int = 2):
+        self.warmup = warmup
+        self.times: list[float] = []
+        self._seen = 0
+        self._t0 = None
+
+    def start(self):
+        self._t0 = time.perf_counter()
+
+    def stop(self):
+        dt = time.perf_counter() - self._t0
+        self._seen += 1
+        if self._seen > self.warmup:
+            self.times.append(dt)
+        return dt
+
+    @property
+    def mean(self) -> float:
+        return sum(self.times) / max(1, len(self.times))
+
+    @property
+    def best(self) -> float:
+        return min(self.times) if self.times else float("nan")
+
+
+@contextlib.contextmanager
+def trace(profile_dir: str | None, name: str = "trace.json"):
+    """A torch.profiler window (CPU, and CUDA once CUDA is initialised)
+    written to <profile_dir>/<name> as a Chrome trace when the block exits,
+    normally or by an exception; a no-op when profile_dir is None."""
+    if profile_dir is None:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    os.makedirs(profile_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        if cuda:
+            torch.cuda.synchronize()
+        prof.stop()
+        path = os.path.join(profile_dir, name)
+        prof.export_chrome_trace(path)
+        logger.info("wrote profiler trace to %s", path)
 
 
 def dit_forward_flops(cfg, batch: int, frames: int) -> float:

@@ -1247,3 +1247,47 @@ def test_temporal_window_launches(cuda):
                      "gtax_attn_temporal_window", "gtax_gemm_bf16"]
     assert torch.equal(kv[0], tr[0])
     assert torch.equal(kv[1], tr[2]) and torch.equal(kv[2], tr[3])
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """The trainer's full state on the card through write_state /
+    read_state: the masters come back in place, bit for bit; the optimizer's
+    moments in their dtypes (mu bf16) and its count; the CUDA generator's
+    state, so the draws after the load are the draws after the save."""
+    from gtax_torch.train import checkpoint as ckpt
+    from gtax_torch.train.optim import leaves, make_optimizer
+
+    gen = np.random.default_rng(0)
+    params = {"blocks": [{"w": _rand(gen, (64, 32), dtype=torch.float32)}
+                         for _ in range(2)],
+              "final": {"b": _rand(gen, (32,), dtype=torch.float32)}}
+    opt, _ = make_optimizer(params, 1e-3, 1e-4, 1, 10,
+                            mu_dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for _ in range(2):
+        opt.step([torch.randn(p.shape, generator=g, device="cuda")
+                  for p in opt.params])
+    path = str(tmp_path / "state_2")
+    ckpt.write_state(path, params, opt, g, 2)
+    want = (ckpt.flat(params), opt.state_dict())
+    want = ({k: v.clone() for k, v in want[0].items()},
+            {n: {k: v.clone() for k, v in want[1][n].items()}
+             for n in ("mu", "nu")})
+    draw = torch.randn(1000, generator=g, device="cuda")
+    with torch.no_grad():
+        for t in [p for _, p in leaves(params)] + opt.mu + opt.nu:
+            t.zero_()
+    opt.count = 0
+    g.manual_seed(99)
+    masters = [p for _, p in leaves(params)]
+    meta = ckpt.read_state(path, params, opt, g)
+    assert meta["global_step"] == 2 and opt.count == 2
+    assert all(a is b for a, (_, b) in zip(masters, leaves(params)))
+    for k, v in ckpt.flat(params).items():
+        assert v.is_cuda and torch.equal(v, want[0][k]), k
+    for name in ("mu", "nu"):
+        for k, v in opt.state_dict()[name].items():
+            assert v.is_cuda and v.dtype == want[1][name][k].dtype
+            assert torch.equal(v, want[1][name][k]), (name, k)
+    assert all(m.dtype == torch.bfloat16 for m in opt.mu)
+    assert torch.equal(torch.randn(1000, generator=g, device="cuda"), draw)

@@ -238,14 +238,22 @@ def test_config_keys_defaults_and_coercion():
 
 @pytest.mark.parametrize("option", [
     {"attention_backend": "xla"}, {"int8_forward": True}, {"remat": True},
-    {"unstack_train": False}, {"mesh_data": 2}, {"mesh_model": 2},
-    {"profile_dir": "/tmp/p"}, {"save_every": 10},
-    {"dataset_type": "webdataset"}, {"dataset_type": "hfdataset"}])
+    {"unstack_train": False}, {"mesh_data": 2}, {"mesh_model": 2}])
 def test_unported_options_raise(option):
     base = dict(attention_backend="fused_all", dataset_type="dummy",
                 save_every=0)
     with pytest.raises(NotImplementedError):
         check_slice(TrainingConfig.from_dict({**base, **option}))
+
+
+@pytest.mark.parametrize("option", [
+    {"profile_dir": "/tmp/p"}, {"save_every": 10},
+    {"dataset_type": "webdataset"}, {"dataset_type": "hfdataset"}])
+def test_ported_options_accepted(option):
+    """The options the checkpoint and data slice ported pass check_slice."""
+    base = dict(attention_backend="fused_all", dataset_type="dummy",
+                save_every=0)
+    check_slice(TrainingConfig.from_dict({**base, **option}))
 
 
 def test_flops_match_gtax():
