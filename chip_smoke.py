@@ -40,7 +40,11 @@ Phases (any failure exits nonzero and prints no result line):
      attn_temporal's rope, attn_temporal_window and attn_temporal_bwd alone
      against their plain versions (with the rounding figures), and
      fused_temporal_branch_bwd given the forward's mod rows bit-equal to
-     it forming them;
+     it forming them. The int8 wrappers' emit_train mode (#7-#9, the
+     forward of int8-forward training) at the B=16 training shape: every
+     output against the plain version, the output bit-equal to the call
+     without emit_train, timed beside torch._int_mm composites, with the
+     int8 GEMMs' K plan at 11,520 rows;
   4. end to end, bf16: VideoGenerator at full DiT-S/2 + ViT-L/20 width,
      B=1, 4 prompt frames + 2 generated, 100 noise steps, random seeded
      weights with nonzero adaLN heads, injected noise. The launch counters
@@ -77,6 +81,21 @@ Phases (any failure exits nonzero and prints no result line):
      the card, and a depth-2 model's card gradients against the port's CPU
      gradients (relative L2 per leaf, GRAD_TOL). The step's frozen-VAE
      encode (unfused, as gtax's trainer) is timed beside the fused one.
+     Then the training modes, from the same DiT init and VAE:
+     `[train int8]` (int8_forward, 3 steps: launches a micro-step #7 16,
+     #8 16, #9 32, #12 16, #13 16, #14 32 and none of #1-#3, asserted;
+     one micro-step's gradients against the bf16 forward's, GRAD_TOL;
+     loss, step time, MFU, device busy and peak memory beside the bf16
+     step's), `[train remat]` (remat: true; one B=16 micro-step's loss and
+     every gradient bit-equal to remat off, peak memory of each; full
+     steps in turns), `[train backends]` (xla, fused, fused_mlp: a B=2
+     micro-step each against fused_all's gradients, GRAD_TOL, with the
+     launches each backend's path must make; pallas refused before a
+     step) and `[train stacked]` (unstack_train: false, B=2, 2 steps:
+     losses within 1e-6 of the unstacked run, the masters' largest
+     relative difference printed). `[e2e stacked]` (in phase 4): one
+     generated frame with ServingConfig(unstack=False), bit-equal to the
+     unstacked rollout without the conditioning cache on the same noise.
   8. the approximate serving modes (`[e2e approx]`), at full width and
      depth from the bf16 weights: the pyramid-pipelined rollout (bf16 P=4
      with the conditioning cache and incremental decoding, int8 P=4 and
@@ -500,6 +519,22 @@ def lib_int8_spatial(x, sh, sc, g, w, sfreqs):
     return int8_gated(x, g, y)
 
 
+def lib_int8_temporal(x, sh, sc, g, w, f, B, T):
+    """The int8 temporal branch over a causal window of T frames, as
+    lib_int8_spatial."""
+    N = B * T
+    qkv = lib_qlinear(int8_lib_mod(x, sh, sc), w[0], w[1])
+    q, k, v = (t.view(B, T, S_DIT, H, HD).permute(0, 2, 3, 1, 4)
+               for t in qkv.split(D, -1))
+    mask = torch.tril(torch.ones(T, T, dtype=torch.bool, device="cuda"))
+    o = torch.nn.functional.scaled_dot_product_attention(
+        int8_lib_rope(q, f), int8_lib_rope(k, f), v.to(torch.bfloat16),
+        attn_mask=mask)
+    y = lib_qlinear(o.permute(0, 3, 1, 2, 4).reshape(N, S_DIT, D).float(),
+                    w[2], w[3], w[4])
+    return int8_gated(x, g, y)
+
+
 def lib_int8_step(x, sh, sc, g, w, kc, vc, f, n_ctx, n_live=1, kw=None):
     """The int8 temporal step over the cached context, as
     lib_int8_spatial; kw: live_mask's keywords."""
@@ -600,25 +635,12 @@ def int8_kernel_cases():
         f = temporal_freqs(T)
         valid = [False] + [True] * (T - 1)
         args = (x, sh, sc, g, *w, f, valid, H, T)
-        qkv_cm, out_cm = col_major(w[0]), col_major(w[2])
-        mask = torch.tril(torch.ones(T, T, dtype=torch.bool, device="cuda"))
-
-        def lib():
-            F = torch.nn.functional
-            qkv = lib_qlinear(int8_lib_mod(x, sh, sc), qkv_cm, w[1])
-            q, k, v = (t.view(B, T, S_DIT, H, HD).permute(0, 2, 3, 1, 4)
-                       for t in qkv.split(D, -1))
-            o = F.scaled_dot_product_attention(
-                int8_lib_rope(q, f), int8_lib_rope(k, f),
-                v.to(torch.bfloat16), attn_mask=mask)
-            y = lib_qlinear(o.permute(0, 3, 1, 2, 4).reshape(N, S_DIT, D)
-                            .float(), out_cm, w[3], w[4])
-            return int8_gated(x, g, y)
-
+        wc = col_major_attn(w)
         by = nbytes(x, sh, sc, g, *w, f) + 3 * nbytes(x)
         return (lambda: quant.fused_temporal_branch_q(*args, emit_kv=True),
                 lambda: quant.temporal_branch_q_plain(*args, emit_kv=True),
-                lib, "LN+int8 quant+torch._int_mm+SDPA(causal)+"
+                lambda: lib_int8_temporal(x, sh, sc, g, wc, f, B, T),
+                "LN+int8 quant+torch._int_mm+SDPA(causal)+"
                 "torch._int_mm", by,
                 4 * B * S_DIT * H * (T * (T + 1) // 2) * HD,
                 2 * N * S_DIT * D * 4 * D)
@@ -1113,9 +1135,9 @@ def _leaves_grad(*tensors):
 
 def train_kernel_cases():
     """(name, label, main, builder) for the three backward wrappers and the
-    forward wrappers' emit_train mode, at the training step's shapes (B=16:
-    80 frames of 144 tokens) and at B=2; builder returns (kernel_fn,
-    plain_fn, library_fn, bytes, flops). A backward's inputs are its
+    forward wrappers' emit_train mode (bf16 and int8), at the training
+    step's shapes (B=16: 80 frames of 144 tokens) and at B=2; builder
+    returns (kernel_fn, plain_fn, library_fn, bytes, flops[, int8 ops]). A backward's inputs are its
     forward's emit_train residuals, made once by the kernel forward; its
     library yardstick is autograd's backward of the library composite
     forward, timed alone (the forward runs once, outside the timing)."""
@@ -1298,8 +1320,62 @@ def train_kernel_cases():
                 lib, by,
                 8 * M * D * D + 4 * B * S_DIT * H * (T * (T + 1) // 2) * HD)
 
+    def emit_q(kind, N):
+        """The int8 wrappers' emit_train mode (int8-forward training):
+        also returns the int8 tensor-core operations, and checks the
+        output bit-equal to the call without emit_train."""
+        from gtax_torch.kernels import quant
+
+        gen = np.random.default_rng(500 + N)
+        x, sh, sc, g = branch_inputs(gen, N, S_DIT)
+        M = N * S_DIT
+        if kind == "mlp":
+            w = int8_mlp_weights(gen)
+            wc = col_major_mlp(w)
+            args = (x, sh, sc, g, *w)
+            fn, plain = quant.fused_mlp_branch_q, quant.mlp_branch_q_plain
+            lib = lambda: lib_int8_mlp(x, sh, sc, g, *wc)  # noqa: E731
+            by = nbytes(x, sh, sc, g, *w) + 2 * nbytes(x) + M * 4 * D * 2
+            fl, i8 = 0, 2 * 2 * M * D * 4 * D
+        else:
+            w = int8_attn_weights(gen)
+            wc = col_major_attn(w)
+            by = nbytes(x, sh, sc, g, *w) + 5 * nbytes(x)
+            i8 = 2 * M * D * 4 * D
+            if kind == "spatial":
+                args = (x, sh, sc, g, *w, sfreqs, H)
+                fn = quant.fused_spatial_branch_q
+                plain = quant.spatial_branch_q_plain
+                lib = lambda: lib_int8_spatial(  # noqa: E731
+                    x, sh, sc, g, wc, sfreqs)
+                fl = 4 * N * H * S_DIT * S_DIT * HD
+            else:
+                T = 5
+                f = temporal_freqs(T)
+                args = (x, sh, sc, g, *w, f, [False] + [True] * (T - 1), H,
+                        T)
+                fn = quant.fused_temporal_branch_q
+                plain = quant.temporal_branch_q_plain
+                lib = lambda: lib_int8_temporal(  # noqa: E731
+                    x, sh, sc, g, wc, f, N // T, T)
+                fl = 4 * (N // T) * S_DIT * H * (T * (T + 1) // 2) * HD
+                by += nbytes(f)
+        same = torch.equal(fn(*args), fn(*args, emit_train=True)[0])
+        log(f"[kernel] {fn.__name__} emit_train N={N}: output bit-equal to "
+            f"the call without emit_train: {same}")
+        if not same:
+            fail(f"{fn.__name__}: emit_train changes the output")
+        return (lambda: fn(*args, emit_train=True),
+                lambda: plain(*args, emit_train=True), lib, by, fl, i8)
+
     pad = [False, True, True, True, True]
     return [
+        ("fused_spatial_branch_q", "emit_train B=16 (N=80)", True,
+         lambda: emit_q("spatial", 80)),
+        ("fused_temporal_branch_q", "emit_train B=16 T=5, slot 0 padded",
+         True, lambda: emit_q("temporal", 80)),
+        ("fused_mlp_branch_q", "emit_train B=16 (11520 rows)", True,
+         lambda: emit_q("mlp", 80)),
         ("fused_spatial_branch_bwd", "train B=16 (N=80)", True,
          lambda: spatial_bwd(80)),
         ("fused_spatial_branch_bwd", "B=2 (N=10)", False,
@@ -1327,14 +1403,36 @@ def train_kernel_cases():
     ]
 
 
+def s8_plans(name, M):
+    """{product: (K chunk, K chunks, int32 partial MB)} of the int8 GEMMs of
+    an int8 wrapper at M rows, as quant.s8_chunk plans them (logged)."""
+    from gtax_torch.kernels import block, quant
+
+    sms = block.sm_count(torch.device("cuda"))
+    gemms = ({"fc1": (4 * D, D, D), "fc2": (D, 4 * D, 512)}
+             if "mlp" in name else
+             {"qkv": (3 * D, D, D), "out": (D, D, D)})
+    plans = {}
+    for what, (N, K, group) in gemms.items():
+        chunk = quant.s8_chunk(M, N, K, group, sms)
+        splits = -(-K // chunk)
+        plans[what] = {"k_chunk": chunk, "splits": splits,
+                       "partials_mb": (splits * M * N * 4 / 1e6
+                                       if splits > 1 else 0.0)}
+    log(f"[kernel] {name} s8 plan at M={M}: {json.dumps(plans)}")
+    return plans
+
+
 def train_kernel_phase(rows):
     """The backward wrappers' rows, and the emit_train mode of the forward
-    rows (kept as emit_train_* keys of those rows)."""
+    rows, bf16 (#1-#3) and int8 (#7-#9), kept as emit_train_* keys of
+    those rows; the int8 rows also get the int8 GEMMs' plan at training
+    rows (quant.s8_chunk)."""
     timer = Timer()
     for name, label, main, make in train_kernel_cases():
-        kern, plain, lib, by, fl = make()
+        kern, plain, lib, by, fl, *i8 = make()
         with torch.no_grad():
-            m = measure(timer, name, label, kern, plain, lib, by, fl)
+            m = measure(timer, name, label, kern, plain, lib, by, fl, *i8)
         if not main:
             continue
         if name in BWD_REPLACES:
@@ -1371,6 +1469,8 @@ def train_kernel_phase(rows):
             rows[name].update({f"emit_train_{k}": m[k] for k in (
                 "ms", "max_abs_err", "plain_ms", "bound_ms", "library_ms",
                 "shape")})
+            if name.endswith("_q"):
+                rows[name]["emit_train_s8_plan"] = s8_plans(name, 80 * S_DIT)
             if name == "fused_temporal_branch":  # ln_mod, qkv, attn, out
                 M = 80 * S_DIT
                 with torch.no_grad():
@@ -1481,13 +1581,14 @@ def profile_device(fn, label, top=12):
     if not by_kernel:
         log(f"[profile] {label}: device time not measured (no CUDA events "
             "traced)")
-        return
+        return None
     busy = sum(us for us, _ in by_kernel.values()) / 1e6
     log(f"[profile] {label}: wall {wall * 1e3:.2f} ms, device busy "
         f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%)")
     for key, (us, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[
             :top]:
         log(f"[profile]   {us / 1e3:9.3f} ms {n:6d}x  {key[:90]}")
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy * 1e3}
 
 
 def launch_split(fn, label, gemm_flops):
@@ -1608,6 +1709,51 @@ def check_rollouts(gen, label, lat0, acts, nz):
         f"(tol {tol:.4g})")
     if not err <= tol:
         fail(f"{label} card rollout disagrees with CPU rollout: {err} > {tol}")
+
+
+def stacked_rollout(gen, lat0, acts, nz):
+    """`[e2e stacked]`: one generated frame with ServingConfig(
+    unstack=False) (the stacked layout: full-window steps, no conditioning
+    cache, no incremental decoding), bit-equal to the unstacked rollout
+    without the conditioning cache on the same noise, with the launches of
+    each counted."""
+    from gtax_torch.models import dit as dit_mod
+    from gtax_torch.serving import VideoGenerator
+
+    stacked = VideoGenerator(gen.dit_params, gen.vae_params,
+                             dataclasses.replace(gen.cfg, unstack=False))
+    flat = VideoGenerator(gen.dit_params, gen.vae_params,
+                          dataclasses.replace(gen.cfg, cond_cache=False))
+    if not dit_mod.is_stacked(stacked.dit_params):
+        fail("[e2e stacked] unstack=False did not keep the stacked layout")
+    fns = kernel_wrappers()
+    out, counts, secs = {}, {}, {}
+    with torch.inference_mode():
+        for label, g in (("stacked", stacked), ("unstacked", flat)):
+            for fn in fns.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out[label] = g._rollout(g.dit_params, lat0, acts, None, 1,
+                                    nz[:, :1])
+            torch.cuda.synchronize()
+            secs[label] = time.perf_counter() - t
+            counts[label] = {n: fn.launches for n, fn in fns.items()
+                             if fn.launches}
+    same = torch.equal(out["stacked"], out["unstacked"])
+    log(f"[e2e stacked] one frame, stacked {secs['stacked']:.3f} s vs "
+        f"unstacked without the conditioning cache {secs['unstacked']:.3f} "
+        f"s; latents bit-equal: {same}; launches {json.dumps(counts)}")
+    if not same or counts["stacked"] != counts["unstacked"]:
+        fail("[e2e stacked] the stacked rollout differs from the unstacked "
+             "full-window one")
+    if "fused_temporal_step" in counts["stacked"] or not {
+            "fused_spatial_branch", "fused_temporal_branch"} <= set(
+                counts["stacked"]):
+        fail(f"[e2e stacked] launches {counts['stacked']}: want the full "
+             "window's fused branches and no step kernel")
+    del stacked, flat
+    torch.cuda.empty_cache()
 
 
 def int8_vs_bf16(gen, gen8):
@@ -2134,6 +2280,7 @@ def end_to_end(rows):
 
     drive_path(gen, "bf16", BF16_PATH, rows, BF16_PATH, inputs)
     check_rollouts(gen, "bf16", lat0, acts, nz)
+    stacked_rollout(gen, lat0, acts, nz)
     profile_frame(gen, lat0, acts, nz)
 
     # the same bf16 weights, quantized by the serving path
@@ -2235,8 +2382,10 @@ def compare_grads(label, got, ref):
 
 
 def micro_grads(params, cfg, latents, acts, draws, loss_cfg, abar,
-                noise_range, plain=False):
-    """Gradients of one micro-batch's summed loss, for fixed draws."""
+                noise_range, with_loss=False, **dit_kw):
+    """Gradients of one micro-batch's summed loss, for fixed draws (and
+    that loss, with_loss); dit_kw: dit_apply's plain_branches, backend,
+    int8_fwd."""
     from gtax_torch.models import dit as dit_mod
     from gtax_torch.sampling.diffusion import diffusion_forcing_loss
     from gtax_torch.train.optim import leaves
@@ -2245,13 +2394,13 @@ def micro_grads(params, cfg, latents, acts, draws, loss_cfg, abar,
         p.grad = None
 
     def fn(x, t, a, valid):
-        return dit_mod.dit_apply(params, cfg, x, t, a, valid,
-                                 plain_branches=plain)
+        return dit_mod.dit_apply(params, cfg, x, t, a, valid, **dit_kw)
 
     _, total = diffusion_forcing_loss(fn, latents, acts, None, loss_cfg,
                                       abar, noise_range, draws=draws)
     total.backward()
-    return leaf_grads(params)
+    grads = leaf_grads(params)
+    return (total.detach(), grads) if with_loss else grads
 
 
 def latent_cache_turns(trainer, clips, cache_dir, tag):
@@ -2310,7 +2459,6 @@ def train_phase(rows):
     nonzero_adaln(params, 4)
     t0 = time.perf_counter()
     trainer = Trainer(cfg, total_dataset_size=B * steps, dit_params=params)
-    del params
     log(f"[train] {cfg.dit_model} ({dcfg.depth} blocks, D={dcfg.hidden_size})"
         f" + {cfg.vae_model}, B={B}, accumulation "
         f"{cfg.gradient_accumulation_steps}, {cfg.compute_dtype}, "
@@ -2335,6 +2483,7 @@ def train_phase(rows):
     fns = train_wrappers()
     micro_steps = cfg.gradient_accumulation_steps * steps
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
     for fn in fns.values():
         fn.launches = 0
     trainer.training_loop(loader, None, callbacks=[report])
@@ -2364,12 +2513,18 @@ def train_phase(rows):
     if not all(moved):
         fail("train: parameters did not move")
     batch = next(trainer.iter_device_batches(loader))
-    profile_device(lambda: trainer.train_step_sync(batch),
-                   f"one train step, B={B}, batch already on the card")
+    prof = profile_device(lambda: trainer.train_step_sync(batch),
+                          f"one train step, B={B}, batch already on the card")
     rows["train"] = {"step_time_s": [m["step_time_s"] for m in records],
                      "mfu": [m["mfu"] for m in records],
+                     "train_loss": [m["train_loss"] for m in records],
                      "peak_memory_gib":
-                         torch.cuda.max_memory_allocated() / 2**30}
+                         torch.cuda.max_memory_allocated() / 2**30,
+                     "resident_gib": resident, "profile": prof}
+    log(f"[train] peak memory {rows['train']['peak_memory_gib']:.2f} GiB, "
+        f"{rows['train']['peak_memory_gib'] - resident:.2f} above the "
+        f"{resident:.2f} GiB resident when the steps began (the trainer's "
+        "state, the VAE and the DiT init the training modes reuse)")
 
     # the step's frozen-VAE encode, unfused as gtax's trainer runs it,
     # against the fused VAE block kernels on the same B=16 clips
@@ -2415,7 +2570,8 @@ def train_phase(rows):
     g_kernel = micro_grads(p, dcfg, lat, acts, draws, *consts)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    g_plain = micro_grads(p, dcfg, lat, acts, draws, *consts, plain=True)
+    g_plain = micro_grads(p, dcfg, lat, acts, draws, *consts,
+                          plain_branches=True)
     torch.cuda.synchronize()
     log(f"[train] B=2 micro-batch gradients: kernel path {t2 - t1:.3f} s, "
         f"plain path {time.perf_counter() - t2:.3f} s")
@@ -2435,6 +2591,319 @@ def train_phase(rows):
     compare_grads("depth 2, card vs CPU (plain versions)", g_card, g_cpu)
     for _, q in leaves(p):
         q.grad = None
+    # what the training modes' phases share: the config, the DiT init, the
+    # VAE, one B=16 device batch, and this trainer (the bf16 path)
+    return {"raw": raw, "params": params, "vae": trainer.vae_params,
+            "batch": batch, "trainer": trainer}
+
+
+# `[train int8]`, `[train remat]`, `[train backends]`, `[train stacked]`:
+# the training modes of configs/train_dit_actions.yaml beside `[train]`'s
+# bf16 `fused_all` step (its cuts, one DiT init and one VAE)
+INT8_TRAIN_PATH = {"fused_spatial_branch_q": 16, "fused_temporal_branch_q": 16,
+                   "fused_mlp_branch_q": 32, **BWD_PATH}  # a micro-step
+# the launches a backend's micro-step must make (True: some, False: none)
+BACKEND_PATH = {
+    "xla": {},
+    "fused": {"fused_spatial_branch": True, "fused_temporal_branch": True,
+              "fused_spatial_branch_bwd": True,
+              "fused_temporal_branch_bwd": True},
+    "fused_mlp": {"fused_mlp_branch": True, "fused_mlp_branch_bwd": True},
+}
+
+
+def mode_wrappers():
+    """The training path's wrappers, bf16 and int8 forwards and the three
+    backwards."""
+    from gtax_torch.kernels import quant
+
+    return {**train_wrappers(),
+            **{name: getattr(quant, name) for name in INT8_TRAIN_PATH
+               if name.endswith("_q")}}
+
+
+def mode_trainer(ctx, tag, **overrides):
+    """A Trainer of the shared config and init, with overrides (printed)."""
+    from gtax_torch.train.config import TrainingConfig
+    from gtax_torch.train.trainer import Trainer
+
+    raw = dict(ctx["raw"], **overrides)
+    log(f"[{tag}] config: {json.dumps(overrides)} over [train]'s")
+    cfg = TrainingConfig.from_dict(raw)
+    return Trainer(cfg, total_dataset_size=cfg.batch_size * cfg.max_steps,
+                   dit_params=ctx["params"], vae_params=ctx["vae"])
+
+
+def step_figures(trainer, batch, label):
+    """A synced train step's metrics, its peak memory and its profile."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m = trainer.train_step_sync(batch)
+    m["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    m["profile"] = profile_device(lambda: trainer.train_step_sync(batch),
+                                  label, top=6)
+    return m
+
+
+def micro_batch(ctx, B, seed):
+    """(latents, actions, draws) of one micro-batch of B clips, encoded by
+    the [train] trainer, with its loss noise drawn once."""
+    from gtax_torch.data.dummy import DummyDataset
+    from gtax_torch.data.loader import DataLoader
+    from gtax_torch.sampling.diffusion import draw_loss_noise
+
+    tr = ctx["trainer"]
+    b = next(iter(DataLoader(DummyDataset("train", return_actions=True,
+                                          size=B), B, shuffle=False)))
+    with torch.no_grad():
+        lat = tr.encode(torch.from_numpy(b.video).cuda())
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (lat, torch.from_numpy(b.actions).cuda(),
+            draw_loss_noise(lat, tr.loss_cfg, gen))
+
+
+def train_int8_phase(ctx, rows):
+    """`[train int8]`: int8_forward under fused_all at B=16, 3 steps (the
+    trainer's train_step on the loader's batches, no evals) with every
+    count zeroed before and read after; one micro-step's gradients
+    against the bf16 path's."""
+    from gtax_torch.data.dummy import DummyDataset
+    from gtax_torch.data.loader import DataLoader
+
+    tag = "train int8"
+    tr = mode_trainer(ctx, tag, int8_forward=True)
+    fns = mode_wrappers()
+    cfg = tr.config
+    steps = cfg.max_steps
+    micro = cfg.gradient_accumulation_steps * steps
+    batches = list(tr.iter_device_batches(DataLoader(
+        DummyDataset("train", return_actions=True,
+                     size=cfg.batch_size * steps),
+        cfg.batch_size, seed=cfg.seed)))
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    for fn in fns.values():
+        fn.launches = 0
+    records = []
+    for i, b in enumerate(batches):
+        records.append(dict(tr.train_step_sync(b), step=i + 1))
+    counts = {name: fn.launches for name, fn in fns.items()}
+    per = {name: n // micro for name, n in counts.items()}
+    log(f"[{tag}] launches per micro-step: {json.dumps(per)}")
+    want = {name: INT8_TRAIN_PATH.get(name, 0) for name in fns}
+    if counts != {name: n * micro for name, n in want.items()}:
+        fail(f"[{tag}] launches {per} a micro-step, the code gives {want}")
+    for name in ("fused_spatial_branch_q", "fused_temporal_branch_q",
+                 "fused_mlp_branch_q"):
+        rows[name]["train_launches"] = counts[name] // steps
+    for m in records:
+        log(f"[{tag}] step {m['step']}: train_loss={m['train_loss']:.5g} "
+            f"grad_norm={m['grad_norm']:.5g} step_time_s="
+            f"{m['step_time_s']:.4f} mfu={m['mfu']:.4f}")
+        if not (math.isfinite(m["train_loss"])
+                and math.isfinite(m["grad_norm"])):
+            fail(f"[{tag}] non-finite metrics {m}")
+    if len(records) != steps:
+        fail(f"[{tag}] {len(records)} records for {steps} steps")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fig = step_figures(tr, ctx["batch"], f"one int8-forward train step, "
+                       f"B={cfg.batch_size}")
+    bf = rows["train"]
+    log(f"[{tag}] int8 vs bf16 ([train]): loss {records[-1]['train_loss']:.5g}"
+        f" vs {bf['train_loss'][-1]:.5g}; step_time_s "
+        f"{[round(m['step_time_s'], 4) for m in records]} vs "
+        f"{[round(t, 4) for t in bf['step_time_s']]}; mfu "
+        f"{[round(m['mfu'], 4) for m in records]} vs "
+        f"{[round(t, 4) for t in bf['mfu']]}; device busy "
+        f"{(fig['profile'] or {}).get('device_busy_ms')} vs "
+        f"{(bf['profile'] or {}).get('device_busy_ms')} ms; peak memory "
+        f"{peak - resident:.2f} vs "
+        f"{bf['peak_memory_gib'] - bf['resident_gib']:.2f} GiB above the "
+        f"resident {resident:.2f} vs {bf['resident_gib']:.2f} GiB (here the "
+        "[train] trainer is resident too)")
+
+    # one B=16 micro-step on the int8 trainer's masters, int8 forward
+    # against the bf16 one, the same batch and noise
+    lat, acts, draws = micro_batch(ctx, cfg.batch_size, 6)
+    consts = (tr.loss_cfg, tr.alphas_cumprod, tr.noise_range)
+    l8, g8 = micro_grads(tr.dit_params, tr.dit_cfg, lat, acts, draws,
+                         *consts, with_loss=True, int8_fwd=True)
+    lb, gb = micro_grads(tr.dit_params, tr.dit_cfg, lat, acts, draws,
+                         *consts, with_loss=True)
+    log(f"[{tag}] micro-step loss (summed) int8 {l8.item():.6g} vs bf16 "
+        f"{lb.item():.6g}")
+    compare_grads(f"[{tag}] B={cfg.batch_size} micro-step, int8 forward vs "
+                  "bf16 forward", g8, gb)
+    rows["train"]["int8"] = {
+        "step_time_s": [m["step_time_s"] for m in records],
+        "mfu": [m["mfu"] for m in records],
+        "train_loss": [m["train_loss"] for m in records],
+        "peak_memory_gib": peak, "resident_gib": resident,
+        "profile": fig["profile"],
+        "launches_per_micro_step": per}
+    del tr, g8, gb
+    torch.cuda.empty_cache()
+
+
+def train_remat_phase(ctx, rows):
+    """`[train remat]`: remat: true at B=16. One micro-step's loss and
+    every gradient bit-equal to remat: false on the same masters, batch
+    and noise, each micro-step's peak memory; full steps in turns."""
+    import dataclasses as dc
+
+    from gtax_torch.train.optim import leaves
+
+    tag = "train remat"
+    tr = mode_trainer(ctx, tag, remat=True)
+    lat, acts, draws = micro_batch(ctx, tr.config.batch_size, 7)
+    consts = (tr.loss_cfg, tr.alphas_cumprod, tr.noise_range)
+    out = {}
+    for remat in (False, True):
+        cfg = dc.replace(tr.dit_cfg, block_remat=remat)
+        for _, p in leaves(tr.dit_params):
+            p.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        out[remat] = micro_grads(tr.dit_params, cfg, lat, acts, draws,
+                                 *consts, with_loss=True)
+        torch.cuda.synchronize()
+        out[remat] += (time.perf_counter() - t,
+                       (torch.cuda.max_memory_allocated() - resident)
+                       / 2**30)
+    (l0, g0, s0, m0), (l1, g1, s1, m1) = out[False], out[True]
+    same = torch.equal(l0, l1) and all(torch.equal(g0[k], g1[k]) for k in g0)
+    log(f"[{tag}] micro-step B={tr.config.batch_size}: loss {l0.item():.7g} "
+        f"(remat off) vs {l1.item():.7g} (on); loss and all {len(g0)} "
+        f"gradient leaves bit-equal: {same}; peak memory above the "
+        f"resident {m0:.2f} vs {m1:.2f} GiB (the gradients' 2.4 GB "
+        f"included); forward + backward {s0:.3f} vs {s1:.3f} s")
+    if not same or set(g0) != set(g1):
+        fail(f"[{tag}] remat changes the loss or a gradient")
+    del g0, g1
+    figs = {}
+    base = ctx["trainer"]
+    for kind in ("plain", "remat", "remat", "plain"):
+        t = tr if kind == "remat" else base
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        m = t.train_step_sync(ctx["batch"])
+        figs.setdefault(kind, []).append(
+            (round(m["step_time_s"], 4), round(
+                (torch.cuda.max_memory_allocated() - resident) / 2**30, 3)))
+    log(f"[{tag}] full B=16 steps in turns (step_time_s, peak GiB above the "
+        f"resident {resident / 2**30:.2f} GiB of both trainers): remat off "
+        f"{figs['plain']}, on {figs['remat']}")
+    prof = profile_device(lambda: tr.train_step_sync(ctx["batch"]),
+                          f"one remat train step, B={tr.config.batch_size}",
+                          top=6)
+    rows["train"]["remat"] = {
+        "micro_step_peak_gib": {"off": m0, "on": m1},
+        "micro_step_s": {"off": s0, "on": s1},
+        "steps_in_turns": figs, "profile": prof}
+    del tr
+    torch.cuda.empty_cache()
+
+
+def train_backends_phase(ctx, rows):
+    """`[train backends]`: xla, fused and fused_mlp at full width and
+    depth, one B=2 micro-step each on the [train] masters, gradients
+    against fused_all's on the same batch and noise, each with its
+    launches counted; `pallas` refused before a step."""
+    from gtax_torch.train.config import TrainingConfig
+    from gtax_torch.train.optim import leaves
+    from gtax_torch.train.trainer import check_slice
+
+    tag = "train backends"
+    tr = ctx["trainer"]
+    lat, acts, draws = micro_batch(ctx, 2, 8)
+    consts = (tr.loss_cfg, tr.alphas_cumprod, tr.noise_range)
+    fns = mode_wrappers()
+    grads, counts, secs = {}, {}, {}
+    for backend in ("fused_all", *BACKEND_PATH):
+        for fn in fns.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        grads[backend] = micro_grads(tr.dit_params, tr.dit_cfg, lat, acts,
+                                     draws, *consts, backend=backend)
+        torch.cuda.synchronize()
+        secs[backend] = time.perf_counter() - t
+        counts[backend] = {n: fn.launches for n, fn in fns.items()
+                           if fn.launches}
+        log(f"[{tag}] {backend}: B=2 micro-step {secs[backend]:.3f} s, "
+            f"launches {json.dumps(counts[backend])}")
+    for backend, need in BACKEND_PATH.items():
+        got = counts[backend]
+        if set(got) != {n for n, on in need.items() if on}:
+            fail(f"[{tag}] {backend} launched {sorted(got)}, its path is "
+                 f"{sorted(need)}")
+        compare_grads(f"[{tag}] {backend} vs fused_all, B=2, full depth",
+                      grads[backend], grads["fused_all"])
+    try:
+        check_slice(TrainingConfig.from_dict(dict(
+            ctx["raw"], attention_backend="pallas")))
+    except ValueError as e:
+        log(f"[{tag}] pallas refused before a step: {e}")
+    else:
+        fail(f"[{tag}] a pallas trainer was not refused")
+    rows["train"]["backends"] = {"micro_step_s": secs, "launches": counts}
+    del grads
+    for _, p in leaves(tr.dit_params):
+        p.grad = None
+    torch.cuda.empty_cache()
+
+
+def train_stacked_phase(ctx, rows):
+    """`[train stacked]`: unstack_train: false at B=2, 2 steps, against
+    the unstacked layout on the same batch and noise: losses within 1e-6
+    relative (gtax's bar), the masters' largest relative difference
+    printed."""
+    from gtax_torch.data.dummy import DummyDataset
+    from gtax_torch.data.loader import DataLoader
+    from gtax_torch.models import dit as dit_mod
+    from gtax_torch.train.optim import leaves
+
+    tag = "train stacked"
+    runs = {}
+    for unstack in (True, False):
+        tr = mode_trainer(ctx, tag, batch_size=2, max_steps=2,
+                          unstack_train=unstack)
+        if dit_mod.is_stacked(tr.dit_params) == unstack:
+            fail(f"[{tag}] unstack_train={unstack} gave the other layout")
+        b = next(tr.iter_device_batches(DataLoader(DummyDataset(
+            "train", return_actions=True, size=2), 2, shuffle=False)))
+        ms = [tr.train_step_sync(b) for _ in range(2)]
+        masters = dit_mod.unstack_for_inference(tr.dit_params, tr.dit_cfg)
+        runs[unstack] = ([m["train_loss"] for m in ms],
+                         [m["step_time_s"] for m in ms],
+                         {k: v.detach().clone() for k, v in
+                          leaves(masters)})
+        del tr, masters
+        torch.cuda.empty_cache()
+    (lu, tu, mu), (ls, ts, ms_) = runs[True], runs[False]
+    rel = max((rel_l2(ms_[k], mu[k]), k) for k in mu)
+    worst = max(((ms_[k] - mu[k]).abs().max() / mu[k].abs().max().clamp_min(
+        1e-30)).item() for k in mu)
+    log(f"[{tag}] losses stacked {ls} vs unstacked {lu}; step_time_s "
+        f"{ts} vs {tu}; masters' largest relative difference {worst:.3e} "
+        f"(largest relative L2 {rel[0]:.3e} at {'/'.join(map(str, rel[1]))})")
+    if not np.allclose(ls, lu, rtol=1e-6, atol=0):
+        fail(f"[{tag}] the layouts' losses differ beyond 1e-6")
+    rows["train"]["stacked"] = {"loss": ls, "unstacked_loss": lu,
+                                "masters_max_rel_diff": worst}
+
+
+def train_modes_phase(ctx, rows):
+    for label, fn in (("train int8", train_int8_phase),
+                      ("train remat", train_remat_phase),
+                      ("train backends", train_backends_phase),
+                      ("train stacked", train_stacked_phase)):
+        t = time.perf_counter()
+        fn(ctx, rows)
+        log(f"[time] {label}: {time.perf_counter() - t:.1f} s")
 
 
 # `[train resume]`: checkpoints, resume, export, latent cache, evals
@@ -2723,7 +3192,10 @@ def main():
         temporal = timed("temporal", temporal_checks)
     timed("train kernels", train_kernel_phase, rows)
     approx = timed("end to end", end_to_end, rows)
-    timed("train", train_phase, rows)
+    ctx = timed("train", train_phase, rows)
+    timed("train modes", train_modes_phase, ctx, rows)
+    del ctx
+    torch.cuda.empty_cache()
     timed("train resume", train_resume_phase, rows)
     train = rows.pop("train")
     train["resume"] = rows.pop("train_resume")

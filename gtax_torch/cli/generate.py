@@ -9,8 +9,11 @@ Usage:
 Empty --dit_model_path / --vae_model_path give random weights (a
 checkpoint-free smoke run). Runs on the card unless --device cpu. Flags of
 modes this port does not have yet are accepted and raise
-NotImplementedError when set (ServingConfig); the test-set prompt path
-needs the data slice, so a prompt comes from --start_frame.
+NotImplementedError when set (ServingConfig). Without --start_frame, or
+with --batch_distinct, the prompts are the first 4 frames of test-set
+clips (the webdataset backend's "test" split, gtax_torch.data.webtar),
+one prompt replicated, or one distinct prompt a stream; their actions are
+padded with "forward" to --total-frames.
 """
 
 from __future__ import annotations
@@ -40,8 +43,8 @@ def build_parser():
                    help="generate N videos of the same prompt in one "
                         "rollout; N>1 writes <output_path stem>_i.<ext>")
     p.add_argument("--batch_distinct", action="store_true",
-                   help="N different test-set prompts (needs the data "
-                        "slice; not ported yet)")
+                   help="N different test-set prompts, one a stream "
+                        "(not with --start_frame)")
     p.add_argument("--start_frame", type=str, default=None)
     p.add_argument("--dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
@@ -77,14 +80,35 @@ def build_parser():
     return p
 
 
+def test_prompts(n_prompts, n_prompt, total_frames, use_actions):
+    """(video (n, n_prompt, 3, H, W) float32, actions (n, total_frames, 25)
+    or None): the first n_prompt frames of the test split's first n clips,
+    their actions padded with "forward" (gtax cli/generate.py:170-195)."""
+    from gtax_torch.data.loader import make_dataset
+
+    it = iter(make_dataset("webdataset", "test", use_actions))
+    vids, acts = [], []
+    for _ in range(n_prompts):
+        sample = next(it)
+        vids.append(np.asarray(sample["video"], np.float32)[:n_prompt])
+        if use_actions:
+            acts.append(np.asarray(sample["actions"], np.float32))
+    if not use_actions:
+        return np.stack(vids), None
+    acts = np.stack(acts)
+    if acts.shape[1] < total_frames:
+        acts = np.concatenate([acts, forward_actions(
+            n_prompts, total_frames - acts.shape[1])], axis=1)
+    return np.stack(vids), acts
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     from gtax_torch.serving import ServingConfig, VideoGenerator
 
-    if args.start_frame is None or args.batch_distinct:
-        raise NotImplementedError(
-            "test-set prompts need the data slice, which is not ported yet; "
-            "pass --start_frame")
+    if args.batch_distinct and args.start_frame:
+        raise ValueError("--batch_distinct draws prompts from the test set; "
+                         "it cannot be combined with a single --start_frame")
     cfg = ServingConfig(
         dtype=args.dtype, attention_backend=args.attention_backend,
         quantize=args.quantize, unstack=not args.no_unstack,
@@ -98,16 +122,27 @@ def main(argv=None):
     gen = VideoGenerator.load(args.dit_model_path, args.vae_model_path, cfg,
                               device=args.device)
     dit_cfg, vae_cfg = gen.dit_cfg, gen.vae_cfg
-    total_frames, n_prompt = args.total_frames, 1
+    total_frames = args.total_frames
+    n_prompt = 4 if args.start_frame is None else 1
     print(f"We will generate {total_frames} frames, starting with "
           f"{n_prompt} frames.")
     print(f"Noise steps: {args.noise_steps}; stabilization 15; "
           f"window {dit_cfg.max_frames}; actions={args.use_actions}")
-    frame = read_image(args.start_frame,
-                       (vae_cfg.input_height, vae_cfg.input_width))
-    video = np.tile(frame[None, None], (args.batch, 1, 1, 1, 1))
-    actions = (forward_actions(args.batch, total_frames)
-               if args.use_actions else None)
+    if args.start_frame is not None:
+        frame = read_image(args.start_frame,
+                           (vae_cfg.input_height, vae_cfg.input_width))
+        video = frame[None, None]
+        actions = (forward_actions(1, total_frames) if args.use_actions
+                   else None)
+    else:
+        video, actions = test_prompts(
+            args.batch if args.batch_distinct else 1, n_prompt,
+            total_frames, args.use_actions)
+    if args.batch > 1 and video.shape[0] == 1:
+        # one prompt for every stream; each draws its own rollout noise
+        video = np.tile(video, (args.batch, 1, 1, 1, 1))
+        if actions is not None:
+            actions = np.tile(actions, (args.batch, 1, 1))
     seed = args.seed if args.seed is not None else int(time.time())
 
     t0 = time.perf_counter()

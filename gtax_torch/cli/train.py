@@ -8,8 +8,11 @@ Loads gtax's YAML configs unchanged (with PyYAML), or the same keys as a
 JSON object in a `.json` file (for machines without PyYAML), builds the
 loaders and the Trainer, and runs the training loop; a run whose output
 directory holds a checkpoint resumes from it (resume_from_checkpoint).
-Runs on the card unless --device cpu. Options the port does not run yet
-raise NotImplementedError (gtax_torch.train.trainer.check_slice).
+Runs on the card unless --device cpu. Every single-card option of gtax's
+config runs (the attention backends but `pallas`, int8_forward, remat,
+unstack_train); a `pallas` backend raises ValueError (no gradient), and
+parallel training (mesh_data / mesh_model > 1) NotImplementedError
+(gtax_torch.train.trainer.check_slice).
 """
 
 from __future__ import annotations

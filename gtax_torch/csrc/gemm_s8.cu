@@ -15,6 +15,10 @@
 // fc2, which requantizes the GELU output per H-chunk and so cannot be one
 // int32 product over K = 4096. Epilogues: y in fp32 (qkv); tanh-GELU(y + b)
 // in fp32 (fc1); bf16(x + gate[row / S] * (y + b)) (out-projection, fc2).
+// For int8-forward training (the emit_train outputs of the TPU kernels:
+// _mlp_kernel_q's pre-GELU h1, the three kernels' pre-gate y) the last two
+// also store bf16(y + b) from the same fp32 value, after the split sum
+// where K is split.
 // Bound: at the serving shapes (M = 144..1152, K, N = 1024..4096) the int8
 // weight bytes at small M, the int8 tensor-core rate at large M.
 // Design: the weight-streaming tile of gemm_s8.cuh (all rows up to 320 in
@@ -88,20 +92,24 @@ int launch(const void* A, const void* B, gemm_s8::Args p, cudaStream_t st) {
 // activation scales; ws: (N,) fp32 weight scales; bias: (N,) fp32 or bf16
 // (epilogues 1, 2); resid: (M, N) bf16 and gate: per-frame bf16 rows of
 // gate_stride, frame = row / S (epilogue 2); k_chunk: the split-K chunk;
-// part: (ceil(K / k_chunk), M, N) int32, unused with one chunk.
-GTAX_ENTRY gtax_gemm_s8(const void* A, const void* B, void* C, const void* sa,
-                        int group, const void* ws, const void* bias,
-                        int bias_f32, const void* resid, const void* gate,
-                        int gate_stride, int M, int N, int K, int S, int epi,
-                        int k_chunk, void* part, void* stream) {
-  const gemm_s8::Args p{
+// part: (ceil(K / k_chunk), M, N) int32, unused with one chunk; C2: null,
+// or (M, N) bf16 of y + bias (epilogues 1 and 2).
+GTAX_ENTRY gtax_gemm_s8(const void* A, const void* B, void* C, void* C2,
+                        const void* sa, int group, const void* ws,
+                        const void* bias, int bias_f32, const void* resid,
+                        const void* gate, int gate_stride, int M, int N,
+                        int K, int S, int epi, int k_chunk, void* part,
+                        void* stream) {
+  gemm_s8::Args p{
       C, static_cast<const float*>(sa), group > 0 ? K / group : 0, group,
       static_cast<const float*>(ws), bias, bias_f32,
       static_cast<const bf16*>(resid), static_cast<const bf16*>(gate),
       gate_stride, M, N, K, S, k_chunk, static_cast<int*>(part)};
+  p.C2 = static_cast<bf16*>(C2);
   using namespace gemm_s8;
   if (!valid(p) || S <= 0 || sa == nullptr || ws == nullptr ||
       (epi != gemm_s8::EPI_F32 && bias == nullptr) ||
+      (epi == gemm_s8::EPI_F32 && C2 != nullptr) ||
       (epi == gemm_s8::EPI_BIAS_GATED && (resid == nullptr || gate == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;

@@ -55,7 +55,7 @@ enum Epi {
   EPI_F32 = 0,            // fp32 C = y
   EPI_BIAS_GELU_F32 = 1,  // fp32 C = gelu_tanh(y + bias)
   EPI_BIAS_GATED = 2,     // bf16 C = x + gate[row / S] * (y + bias)
-};
+};  // 1 and 2 also store bf16(y + bias) to C2 when it is set
 
 // C = epilogue(dequant(A @ B)): A (M, K) int8 with fp32 scales sa (M,
 // n_groups), K groups of `group`; B (K, N) int8 read as W^T through its
@@ -82,6 +82,10 @@ struct Args {
   // the block's last unit of the GEMM, at this block's row
   unsigned long long* stamps;
 #endif
+  // epilogues 1 and 2 with a second output (int8-forward training's
+  // residuals): (M, N) bf16 of y + bias, the value before the GELU or the
+  // gate, rounded once; null otherwise (the pairs never set it)
+  bf16* C2;
 };
 
 #ifdef GTAX_PAIR_PROBE
@@ -189,6 +193,7 @@ __device__ __forceinline__ void store_out(const Args& p, int gm, int gn,
   }
   const float u0 = __fadd_rn(y0, load_bias(p.bias, p.bias_f32, gn));
   const float u1 = __fadd_rn(y1, load_bias(p.bias, p.bias_f32, gn + 1));
+  if (p.C2 != nullptr) store_pair(p.C2, o, u0, u1);
   if (EPI == EPI_BIAS_GELU_F32) {
     *reinterpret_cast<float2*>(static_cast<float*>(p.C) + o) =
         make_float2(gelu_tanh_rn(u0), gelu_tanh_rn(u1));

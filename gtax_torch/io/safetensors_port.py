@@ -283,11 +283,13 @@ def load_vae(path: str, cfg, verbose: bool = True):
 
 def _block_node(blocks, i, path):
     """Block i's node at `path` (blocks: the port's list of per-block
-    dicts)."""
-    node = blocks[i]
+    dicts, or a stacked dict of (depth, ...) leaves, read as block i's
+    views)."""
+    stacked = isinstance(blocks, dict)
+    node = blocks if stacked else blocks[i]
     for p in path:
         node = node[p]
-    return node
+    return {k: v[i] for k, v in node.items()} if stacked else node
 
 
 def _host32(x) -> torch.Tensor:

@@ -29,7 +29,8 @@ import functools
 import torch
 
 from gtax_torch.kernels import build
-from gtax_torch.kernels.block import _desc, _need, _ptr, _stream
+from gtax_torch.kernels.block import (_desc, _need, _ptr, _stream,
+                                      forward_only)
 
 NEG_BIAS = -1e30
 
@@ -179,6 +180,7 @@ def fused_sdpa(q, k, v, mask=None, causal=False):
     S, d = q.shape[-2], q.shape[-1]
     if _unsupported(mask, S):
         return None
+    forward_only("fused_sdpa", q, k, v)
     lead = q.shape[:-2]
     if q.device.type == "cpu":
         flat = (t.reshape(-1, S, d) for t in (q, k, v))
@@ -206,6 +208,7 @@ def fused_mha_token_major(q, k, v, num_heads, mask=None, causal=False):
     S, HD = q.shape[-2], q.shape[-1]
     if _unsupported(mask, S):
         return None
+    forward_only("fused_mha_token_major", q, k, v)
     lead = q.shape[:-2]
     if q.device.type == "cpu":
         flat = (t.reshape(-1, S, HD) for t in (q, k, v))

@@ -28,7 +28,11 @@ them, the temporal branch's qkv GEMM stores them from its epilogue (rope
 applied there, `gemm_rope_qkv`: they are also the K/V cache of emit_kv and
 the attention's inputs), and the last GEMM stores y beside the gated output
 (a second store of one epilogue; fc1's epilogue does the same for h1): no
-extra launch, and with emit_train off nothing changes for serving.
+extra launch, and with emit_train off nothing changes for serving. The
+wrappers are forward-only (`forward_only`): with grad mode on they refuse
+an input that requires grad, on the CPU as on the card, rather than return
+a result with no gradient; the trainable branches of
+gtax_torch.nn.branches call them inside their autograd Functions.
 
 Rounding points (shared by kernels and plain versions, as in the TPU
 kernels): LN statistics, softmax and rope in fp32; the qkv product stays
@@ -309,6 +313,31 @@ def _desc(t):
     return f"{t.dtype} {tuple(t.shape)} on {t.device}"
 
 
+def check_emit(emit_kv, emit_train):
+    """The temporal branches' two extra-output modes exclude each other, as
+    gtax asserts (gtax/kernels/quant.py:425)."""
+    if emit_kv and emit_train:
+        raise ValueError("emit_kv and emit_train are exclusive")
+
+
+def forward_only(name, *args):
+    """Refuse a gradient through a forward-only wrapper, on every device:
+    the CUDA kernel writes its outputs through ctypes, so a result would
+    carry no gradient, and gtax's Pallas kernel has none either (jax.grad
+    through it fails: "Linearization failed to produce known values").
+    Raises when grad mode is on and a tensor argument requires grad; the
+    trainable branches of gtax_torch.nn.branches call the fused wrappers
+    inside their autograd.Function, where grad mode is off."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        raise RuntimeError(
+            f"{name} is forward-only: its CUDA kernel has no gradient, and "
+            "gtax's Pallas kernel has none either (jax.grad through it "
+            "fails). Call it under torch.no_grad(), or train through the "
+            "trainable branches (gtax_torch.nn.branches) or another "
+            "attention backend.")
+
+
 def _check_rows(name, t, rows, D, dtype=torch.bfloat16):
     """(rows, D) per-frame vectors: unit column stride, any row stride."""
     _need(t.is_cuda and t.dtype == dtype and t.dim() == 2
@@ -478,6 +507,8 @@ def fused_spatial_branch(x, shift, scale, gate, qkv_w, out_w, out_b,
     gemm (+bias, gated residual): 4 launches. Bound: the 8 MB of qkv/out
     weights at the serving row counts (bytes); see PERF.md for the
     measured time against that bound."""
+    forward_only("fused_spatial_branch", x, shift, scale, gate, qkv_w, out_w,
+                 out_b)
     if x.device.type == "cpu":
         return spatial_branch_plain(x, shift, scale, gate, qkv_w, out_w,
                                     out_b, rope_freqs, num_heads, emit_train)
@@ -514,6 +545,7 @@ def fused_mlp_branch(x, shift, scale, gate, w1, b1, w2, b2,
     bf16) -> gemm (+b2, gated residual): 3 launches. Bound: the 16 MB of
     fc1/fc2 weights at serving row counts (bytes); tensor-core rate at
     prefill and VAE-size row counts."""
+    forward_only("fused_mlp_branch", x, shift, scale, gate, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return mlp_branch_plain(x, shift, scale, gate, w1, b1, w2, b2,
                                 emit_train)
@@ -622,8 +654,9 @@ def fused_temporal_branch(x, shift, scale, gate, qkv_w, out_w, out_b,
     q, k, v: the emitted K/V and residuals) -> attn_temporal_window (16-byte
     lanes, T a template parameter) -> gemm (gated residual): 4 launches.
     Bound: weight bytes at the prefill's rows, operations at training's."""
-    if emit_kv and emit_train:
-        raise ValueError("emit_kv and emit_train are exclusive")
+    forward_only("fused_temporal_branch", x, shift, scale, gate, qkv_w, out_w,
+                 out_b)
+    check_emit(emit_kv, emit_train)
     if emit_mod and not emit_train:
         raise ValueError("emit_mod comes with emit_train")
     if x.device.type == "cpu":
@@ -659,6 +692,8 @@ def fused_temporal_step(x, shift, scale, gate, qkv_w, out_w, out_b, k_ctx,
     on load, step mode over the cache) -> gemm (gated residual): 4
     launches. Bound:
     weight bytes; the context cache adds ~1.2 MB per batch element."""
+    forward_only("fused_temporal_step", x, shift, scale, gate, qkv_w, out_w,
+                 out_b, k_ctx, v_ctx)
     if x.device.type == "cpu":
         return temporal_step_plain(x, shift, scale, gate, qkv_w, out_w,
                                    out_b, k_ctx, v_ctx, rope_freqs, valid,

@@ -64,10 +64,10 @@ SIGNATURES = {
     "gtax_gate_bwd": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P),
     # x, dmod, scale, p_stride, ct, dx, dshift, dscale, F, S, D, stream
     "gtax_ln_mod_bwd": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
-    # A, B, C, sa, group, ws, bias, bias_f32, resid, gate, gate_stride, M,
-    # N, K, S, epi, k_chunk, part, stream
-    "gtax_gemm_s8": (_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                     _I, _I, _I, _P, _P),
+    # A, B, C, C2, sa, group, ws, bias, bias_f32, resid, gate, gate_stride,
+    # M, N, K, S, epi, k_chunk, part, stream
+    "gtax_gemm_s8": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I,
+                     _I, _I, _I, _I, _P, _P),
     # a, q, scale, rows, cols, G, stream
     "gtax_quant_rows": (_P, _P, _P, _I, _I, _I, _P),
     # qkv, qkv_f32, freqs, out, out_f32, q_out, k_out, v_out, n_frames, S,

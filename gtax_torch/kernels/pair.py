@@ -165,6 +165,8 @@ def fused_spatial_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
     Replaces gtax/kernels/pair.py fused_spatial_pair_q (pallas_call at :227,
     body _spatial_pair_kernel_q :114). On the card: one cooperative launch
     of csrc/pair_q.cu. Bound: the 12 MB of int8 weights (bytes)."""
+    block.forward_only("fused_spatial_pair_q", x, sh1, sc1, g1, sh2, sc2,
+                       g2, out_b, b1, b2)
     if x.device.type == "cpu":
         if not approx_gelu:
             raise NotImplementedError("approx_gelu=False: tanh GELU only")
@@ -201,6 +203,8 @@ def fused_temporal_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s,
     :303, body _temporal_pair_kernel_q :152). On the card: one cooperative
     launch of csrc/pair_q.cu. Bound: the int8 weights (bytes); the bf16
     context cache adds ~1.2 MB per batch element."""
+    block.forward_only("fused_temporal_pair_q", x, sh1, sc1, g1, sh2, sc2,
+                       g2, out_b, b1, b2, k_ctx, v_ctx)
     if x.device.type == "cpu":
         if not approx_gelu:
             raise NotImplementedError("approx_gelu=False: tanh GELU only")

@@ -1,8 +1,10 @@
 """W8A8 (int8 weights x int8 activations) twins of the fused DiT branches:
 CUDA kernels on the card, plain PyTorch on the CPU.
 
-Counterpart of gtax/kernels/quant.py, serving only (the emit_train
-residuals wait for the training slice). The scheme is gtax's:
+Counterpart of gtax/kernels/quant.py, for serving and for int8-forward
+training (emit_train: the branches' backward residuals, which
+gtax_torch.nn.branches feeds to the bf16 backward kernels). The scheme is
+gtax's:
   - weights: symmetric per-output-column int8 with fp32 scales, computed
     once by `quantize_weight` (gtax_torch.models.dit.quantize_for_inference);
     on the card the (in, out) int8 kernel is stored column-major
@@ -18,7 +20,11 @@ this path), and so is the attention output. The MLP's GELU output is
 requantized per H-chunk (`_mlp_chunks`: 8 chunks of 512 at H=4096), so fc2
 sums its chunks in fp32, each scaled by its own per-row scale, in chunk
 order. Everything else (LN statistics, rope, softmax, the gated residual)
-rounds where the bf16 branches of gtax_torch.kernels.block round.
+rounds where the bf16 branches of gtax_torch.kernels.block round. The
+emit_train residuals round where gtax's do (gtax/kernels/quant.py:91-160,
+:267-338): q and k post-rope from the fp32 dequantized qkv, and v, cast to
+x.dtype; y = acc * s_row * s_col + b once to x.dtype; the MLP's h1 = acc1 *
+s_row * s_col + b1 to x.dtype before the GELU.
 
 The tensor's device picks the path, as in block.py: a CPU tensor gets the
 plain version (`*_q_plain`), a CUDA tensor gets the sm_90a kernels of
@@ -138,20 +144,26 @@ def _gated(x32, gate, y, dtype):
 # ------------------------------------------------------ plain branches
 
 def spatial_branch_q_plain(x, shift, scale, gate, qkv_q, qkv_s, out_q,
-                           out_s, out_b, rope_freqs, num_heads):
+                           out_s, out_b, rope_freqs, num_heads,
+                           emit_train=False):
     N, S, D = x.shape
     dt, H = x.dtype, num_heads
     x32 = x.float()
     qkv = qdot(modulated32(x32, shift, scale), qkv_q, qkv_s)
     q, k, v = (t.reshape(N, S, H, D // H) for t in qkv.split(D, dim=-1))
     f = rope_freqs[:, None, :]
-    o = attend_frames(rope(f, q).to(dt), rope(f, k).to(dt), v.to(dt), dt, F32)
+    qr, kr, vb = rope(f, q).to(dt), rope(f, k).to(dt), v.to(dt)
+    o = attend_frames(qr, kr, vb, dt, F32)
     y = qdot(o.reshape(N, S, D), out_q, out_s) + out_b.float()
-    return _gated(x32, gate, y, dt)
+    out = _gated(x32, gate, y, dt)
+    if emit_train:
+        return (out, *(t.reshape(N, S, D) for t in (qr, kr, vb)),
+                y.to(dt))
+    return out
 
 
 def mlp_branch_q_plain(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
-                       b2):
+                       b2, emit_train=False):
     x32 = x.float()
     Hd = w1_q.shape[-1]
     nc = _mlp_chunks(Hd)
@@ -163,12 +175,16 @@ def mlp_branch_q_plain(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
         cols = slice(c * G, (c + 1) * G)
         acc = acc + mm_int(hq[..., cols], w2_q[cols]) * hs[..., c:c + 1]
     y = acc * w2_s.reshape(-1) + b2.float()
-    return _gated(x32, gate, y, x.dtype)
+    out = _gated(x32, gate, y, x.dtype)
+    if emit_train:  # h1 before the GELU, column by column as gtax's chunks
+        return out, h.to(x.dtype), y.to(x.dtype)
+    return out
 
 
 def temporal_branch_q_plain(x, shift, scale, gate, qkv_q, qkv_s, out_q,
                             out_s, out_b, rope_freqs, valid, num_heads,
-                            n_frames, emit_kv=False):
+                            n_frames, emit_kv=False, emit_train=False):
+    block.check_emit(emit_kv, emit_train)
     N, S, D = x.shape
     dt, H, T = x.dtype, num_heads, n_frames
     B = N // T
@@ -176,13 +192,16 @@ def temporal_branch_q_plain(x, shift, scale, gate, qkv_q, qkv_s, out_q,
     qkv = qdot(modulated32(x32, shift, scale), qkv_q, qkv_s)
     q, k, v = (t.reshape(B, T, S, H, D // H) for t in qkv.split(D, dim=-1))
     f = rope_freqs[None, :, None, None, :]
-    kr, vb = rope(f, k).to(dt), v.to(dt)
-    o = attend_temporal(rope(f, q).to(dt), kr, vb,
-                        temporal_bias(valid, T, x.device), dt, F32)
+    qr, kr, vb = rope(f, q).to(dt), rope(f, k).to(dt), v.to(dt)
+    o = attend_temporal(qr, kr, vb, temporal_bias(valid, T, x.device), dt,
+                        F32)
     y = qdot(o.reshape(N, S, D), out_q, out_s) + out_b.float()
     out = _gated(x32, gate, y, dt)
     if emit_kv:
         return out, kr.reshape(N, S, D), vb.reshape(N, S, D)
+    if emit_train:
+        return (out, *(t.reshape(N, S, D) for t in (qr, kr, vb)),
+                y.to(dt))
     return out
 
 
@@ -301,10 +320,11 @@ def _quant_rows_cuda(a, group):
 
 
 def _gemm_s8(a, sa, w_q, w_s, out, epi, bias=None, resid=None, gate=None,
-             S=1, k_chunk=None):
+             S=1, k_chunk=None, out2=None):
     """out = epilogue(dequant(a @ w_q)); sa (M, K // group) row-group
     scales, the group width following from sa's shape; w_q in card_layout;
-    k_chunk: the split-K chunk, s8_chunk's by default."""
+    k_chunk: the split-K chunk, s8_chunk's by default; out2: the bf16
+    y + bias of EPI_BIAS_GELU_F32 / EPI_BIAS_GATED (emit_train)."""
     M, K = a.shape
     N = w_q.shape[1]
     group = K // sa.shape[1]
@@ -320,7 +340,7 @@ def _gemm_s8(a, sa, w_q, w_s, out, epi, bias=None, resid=None, gate=None,
                            device=a.device)
     build.launch(
         "gtax_gemm_s8", a.data_ptr(), w_q.data_ptr(), out.data_ptr(),
-        sa.data_ptr(), group, w_s.data_ptr(),
+        block._ptr(out2), sa.data_ptr(), group, w_s.data_ptr(),
         None if bias is None else bias.data_ptr(),
         int(bias is not None and bias.dtype == F32),
         None if resid is None else resid.data_ptr(),
@@ -338,60 +358,80 @@ def _qkv_cuda(x, shift, scale, qkv_q, qkv_s):
     return qkv
 
 
-def _out_cuda(att, x, gate, out_q, out_s, out_b):
-    """x + gate * (int8 out-projection of the fp32 attention rows + b)."""
+def _out_cuda(att, x, gate, out_q, out_s, out_b, y=None):
+    """x + gate * (int8 out-projection of the fp32 attention rows + b);
+    y: the bf16 pre-gate rows' output (emit_train), or None."""
     aq, as_ = _quant_rows_cuda(att, att.shape[1])
     out = torch.empty_like(x)
     _gemm_s8(aq, as_, out_q, out_s, out, EPI_BIAS_GATED, bias=out_b, resid=x,
-             gate=gate, S=x.shape[1])
+             gate=gate, S=x.shape[1], out2=y)
     return out
+
+
+def _emit_train_outputs(x):
+    """The emit_train residuals' buffers: q, k, v, y, each like x."""
+    return tuple(torch.empty_like(x) for _ in range(4))
 
 
 # ------------------------------------------------------------- wrappers
 
 def fused_spatial_branch_q(x, shift, scale, gate, qkv_q, qkv_s, out_q,
-                           out_s, out_b, rope_freqs, num_heads):
+                           out_s, out_b, rope_freqs, num_heads,
+                           emit_train=False):
     """int8 twin of block.fused_spatial_branch: qkv_q (D, 3D) / out_q (D, D)
-    int8 with per-column fp32 scales qkv_s / out_s ((1, n) or (n,)).
+    int8 with per-column fp32 scales qkv_s / out_s ((1, n) or (n,)). With
+    emit_train, (out, q, k, v, y), all (N, S, D) in x's dtype: the
+    post-rope q and k, the cast v and the pre-gate y.
 
     Replaces gtax/kernels/quant.py fused_spatial_branch_q (pallas_call at
     :368, body _spatial_kernel_q :91). On the card: ln_mod (int8 + row
-    scales) -> gemm_s8 (fp32 qkv) -> attn_frame (fp32 out) -> quant_rows
-    -> gemm_s8 (+bias, gated residual): 5 launches. Bound: the 4 MB of
-    int8 qkv/out weights at the serving row counts (bytes)."""
+    scales) -> gemm_s8 (fp32 qkv) -> attn_frame (fp32 out; with
+    emit_train it also stores the bf16 q, k, v it attends with) ->
+    quant_rows -> gemm_s8 (+bias, gated residual; with emit_train also the
+    bf16 y): 5 launches. Bound: the 4 MB of int8 qkv/out weights at the
+    serving row counts (bytes), operations at training's."""
+    block.forward_only("fused_spatial_branch_q", x, shift, scale, gate,
+                       out_b)
     if x.device.type == "cpu":
         return spatial_branch_q_plain(x, shift, scale, gate, qkv_q, qkv_s,
                                       out_q, out_s, out_b, rope_freqs,
-                                      num_heads)
+                                      num_heads, emit_train)
     N, S, D = _check_branch(x, shift, scale, gate)
     _check_attn_weights_q(qkv_q, qkv_s, out_q, out_s, out_b, D)
     d = _check_heads(D, num_heads, (32, 64))
     _check_freqs(rope_freqs, S, d)
     qkv = _qkv_cuda(x, shift, scale, qkv_q, qkv_s)
     att = torch.empty((N * S, D), dtype=F32, device=x.device)
-    block.launch_attn_frame(qkv, rope_freqs, att, N, S, D, num_heads, d)
-    out = _out_cuda(att, x, gate, out_q, out_s, out_b)
+    res = _emit_train_outputs(x) if emit_train else None
+    block.launch_attn_frame(qkv, rope_freqs, att, N, S, D, num_heads, d,
+                            qkv_out=res and res[:3])
+    out = _out_cuda(att, x, gate, out_q, out_s, out_b, res and res[3])
     fused_spatial_branch_q.launches += 1
-    return out
+    return (out, *res) if emit_train else out
 
 
 fused_spatial_branch_q.launches = 0
 
 
 def fused_mlp_branch_q(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
-                       b2):
+                       b2, emit_train=False):
     """int8 twin of block.fused_mlp_branch: w1_q (D, H), w2_q (H, D) int8
     with per-column fp32 scales; tanh-GELU; the hidden activation
-    requantized per H-chunk (_mlp_chunks).
+    requantized per H-chunk (_mlp_chunks). With emit_train, (out, h1
+    (N, S, H), y (N, S, D)) in x's dtype: the pre-GELU fc1 output and the
+    pre-gate y.
 
     Replaces gtax/kernels/quant.py fused_mlp_branch_q (pallas_call at :530,
     body _mlp_kernel_q :267). On the card: ln_mod (int8) -> gemm_s8 (+b1,
-    tanh-GELU, fp32) -> quant_rows (one scale per row and chunk) ->
-    gemm_s8 (K grouped by chunk, +b2, gated residual): 4 launches. Bound:
-    the 8 MB of int8 fc1/fc2 weights at serving row counts (bytes)."""
+    tanh-GELU, fp32; with emit_train also the bf16 h1 before the GELU) ->
+    quant_rows (one scale per row and chunk) -> gemm_s8 (K grouped by
+    chunk, +b2, gated residual; with emit_train also the bf16 y): 4
+    launches. Bound: the 8 MB of int8 fc1/fc2 weights at serving row
+    counts (bytes), operations at training's."""
+    block.forward_only("fused_mlp_branch_q", x, shift, scale, gate, b1, b2)
     if x.device.type == "cpu":
         return mlp_branch_q_plain(x, shift, scale, gate, w1_q, w1_s, b1,
-                                  w2_q, w2_s, b2)
+                                  w2_q, w2_s, b2, emit_train)
     N, S, D = _check_branch(x, shift, scale, gate)
     Hd = w1_q.shape[-1]
     _check_hidden(Hd)
@@ -401,13 +441,16 @@ def fused_mlp_branch_q(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
     _check_bias("b2", b2, D)
     mq, ms = _ln_mod_q(x, shift, scale)
     h = torch.empty((N * S, Hd), dtype=F32, device=x.device)
-    _gemm_s8(mq, ms, w1_q, w1_s, h, EPI_BIAS_GELU_F32, bias=b1)
+    h1 = (torch.empty((N, S, Hd), dtype=x.dtype, device=x.device)
+          if emit_train else None)
+    _gemm_s8(mq, ms, w1_q, w1_s, h, EPI_BIAS_GELU_F32, bias=b1, out2=h1)
     hq, hs = _quant_rows_cuda(h, Hd // _mlp_chunks(Hd))
     out = torch.empty_like(x)
+    y = torch.empty_like(x) if emit_train else None
     _gemm_s8(hq, hs, w2_q, w2_s, out, EPI_BIAS_GATED, bias=b2, resid=x,
-             gate=gate, S=S)
+             gate=gate, S=S, out2=y)
     fused_mlp_branch_q.launches += 1
-    return out
+    return (out, h1, y) if emit_train else out
 
 
 fused_mlp_branch_q.launches = 0
@@ -415,42 +458,55 @@ fused_mlp_branch_q.launches = 0
 
 def _temporal_q_cuda(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
                      out_b, rope_freqs, num_heads, B, n_q, q_off, bits,
-                     k_ctx=None, v_ctx=None, emit_kv=False):
+                     k_ctx=None, v_ctx=None, emit_kv=False,
+                     emit_train=False):
     N, S, D = x.shape
     block.check_temporal(D, num_heads, q_off + n_q, rope_freqs)
     _check_attn_weights_q(qkv_q, qkv_s, out_q, out_s, out_b, D)
     qkv = _qkv_cuda(x, shift, scale, qkv_q, qkv_s)
     att = torch.empty((N * S, D), dtype=F32, device=x.device)
-    kv_out = (torch.empty_like(x), torch.empty_like(x)) if emit_kv else None
+    res = _emit_train_outputs(x) if emit_train else None
+    kv_out = ((torch.empty_like(x), torch.empty_like(x)) if emit_kv
+              else res and res[1:3])
     block.launch_attn_temporal(qkv, rope_freqs, att, B, n_q, q_off, S, D,
-                               num_heads, bits, k_ctx, v_ctx, kv_out)
-    out = _out_cuda(att, x, gate, out_q, out_s, out_b)
+                               num_heads, bits, k_ctx, v_ctx, kv_out,
+                               q_out=res and res[0])
+    out = _out_cuda(att, x, gate, out_q, out_s, out_b, res and res[3])
+    if emit_train:
+        return (out, *res)
     return out if kv_out is None else (out, *kv_out)
 
 
 def fused_temporal_branch_q(x, shift, scale, gate, qkv_q, qkv_s, out_q,
                             out_s, out_b, rope_freqs, valid, num_heads,
-                            n_frames, emit_kv=False):
+                            n_frames, emit_kv=False, emit_train=False):
     """int8 twin of block.fused_temporal_branch (same arguments, int8
     weights with per-column scales); with emit_kv also the post-rope K and
-    cast V rows, the context cache fused_temporal_step_q reads.
+    cast V rows, the context cache fused_temporal_step_q reads; with
+    emit_train (not both) (out, q, k, v, y), gtax's order (its kernel's
+    (o, k, v, q, y) reordered, gtax/kernels/quant.py:446-449).
 
     Replaces gtax/kernels/quant.py fused_temporal_branch_q (pallas_call at
     :427, body _temporal_kernel_q :127). On the card: ln_mod (int8) ->
     gemm_s8 (fp32 qkv) -> attn_temporal (full window, fp32 out, optional
-    K/V store) -> quant_rows -> gemm_s8 (gated residual): 5 launches.
-    Bound: int8 weight bytes."""
+    K/V store, and Q with emit_train) -> quant_rows -> gemm_s8 (gated
+    residual; y with emit_train): 5 launches. Bound: int8 weight bytes at
+    the prefill's rows, operations at training's."""
+    block.check_emit(emit_kv, emit_train)
+    block.forward_only("fused_temporal_branch_q", x, shift, scale, gate,
+                       out_b)
     if x.device.type == "cpu":
         return temporal_branch_q_plain(x, shift, scale, gate, qkv_q, qkv_s,
                                        out_q, out_s, out_b, rope_freqs,
-                                       valid, num_heads, n_frames, emit_kv)
+                                       valid, num_heads, n_frames, emit_kv,
+                                       emit_train)
     N, S, D = _check_branch(x, shift, scale, gate)
     _need(N % n_frames == 0,
           lambda: f"N={N} is not a multiple of T={n_frames}")
     out = _temporal_q_cuda(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
                            out_b, rope_freqs, num_heads, N // n_frames,
                            n_frames, 0, valid_bits(valid, n_frames),
-                           emit_kv=emit_kv)
+                           emit_kv=emit_kv, emit_train=emit_train)
     fused_temporal_branch_q.launches += 1
     return out
 
@@ -470,6 +526,8 @@ def fused_temporal_step_q(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
     (int8) -> gemm_s8 (fp32 qkv) -> attn_temporal (step mode, fp32 out) ->
     quant_rows -> gemm_s8 (gated residual): 5 launches. Bound: int8 weight
     bytes; the bf16 context cache adds ~1.2 MB per batch element."""
+    block.forward_only("fused_temporal_step_q", x, shift, scale, gate,
+                       out_b, k_ctx, v_ctx)
     if x.device.type == "cpu":
         return temporal_step_q_plain(x, shift, scale, gate, qkv_q, qkv_s,
                                      out_q, out_s, out_b, k_ctx, v_ctx,

@@ -66,6 +66,8 @@ def fused_vae_block(x, ln1_w, ln1_b, qkv_w, qkv_b, out_w, out_b, ln2_w,
     rate at the serving frame counts (a 576-row frame is past the bf16
     ridge for its 25 MB of weights); PERF.md has the time of each
     launch."""
+    _blk.forward_only("fused_vae_block", x, ln1_w, ln1_b, qkv_w, qkv_b,
+                      out_w, out_b, ln2_w, ln2_b, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return vae_block_plain(x, ln1_w, ln1_b, qkv_w, qkv_b, out_w, out_b,
                                ln2_w, ln2_b, w1, b1, w2, b2, rope_freqs,

@@ -1,9 +1,13 @@
 """Spatiotemporal DiT latent video denoiser (counterpart of
 gtax/models/dit.py).
 
-Blocks are a per-block list (gtax's unstacked layout, which gtax also
-trains in by default: `unstack_train`); the port has no stacked `scan`
-layout. The attention backend is an argument (gtax's `_block_apply`,
+Blocks come in gtax's two layouts: a per-block list (the unstacked
+layout, which gtax also trains in by default: `unstack_train`), or one
+dict of (depth, ...) leaves (the stacked layout, gtax's `scan` layout).
+dit_apply reads block i of a stacked dict as views of its leaves, with no
+copy; dit_cond, dit_prefill and dit_apply_step need the unstacked layout,
+as gtax's do. unstack_for_inference and restack_params convert. The
+attention backend is an argument (gtax's `_block_apply`,
 gtax/models/dit.py:197-357), per branch of a block:
   - W8A8 params (quantize_for_inference) take the int8 wrappers of
     gtax_torch.kernels.quant under every backend;
@@ -26,14 +30,20 @@ place of the attention branches under every backend and for W8A8 params
 (gtax's _block_apply collect / attn_cache); make_pab_fns and
 init_attn_cache serve the rollouts.
 
-Training: dit_apply is differentiable. Its fused bf16/fp32 branches are
-the trainable branches of gtax_torch.nn.branches (gtax's `fused_all`
-backend, dit_apply's default: the fused forward with emit_train and the
-whole-branch backward kernels); with `plain_branches=True` they are the
-plain `xla_*` forwards under autograd instead, the reference the kernel
-path is held against. The unfused branches are plain torch ops under
-autograd. The rope frequency tables are detached, as gtax stop_gradients
-them.
+Training: dit_apply is differentiable under `xla`, `fused`, `fused_mlp`
+and `fused_all` (dit_apply's default). Its fused bf16/fp32 branches are
+the trainable branches of gtax_torch.nn.branches (the fused forward with
+emit_train and the whole-branch backward kernels); with
+`plain_branches=True` they are the plain `xla_*` forwards under autograd
+instead, the reference the kernel path is held against. The unfused
+branches are plain torch ops under autograd; under `pallas` their
+attention kernels refuse a gradient, as gtax's Pallas attention has none.
+`int8_fwd=True` (gtax's process-wide set_int8_fwd) runs the fused
+branches' forward on the W8A8 wrappers with the bf16 backward
+(gtax's int8-forward training); `DiTConfig.block_remat` recomputes each
+block in the backward (torch.utils.checkpoint, gtax's jax.checkpoint with
+its remat_policy). The rope frequency tables are detached, as gtax
+stop_gradients them.
 
 Parameter dict (float32 masters; Linear kernels are (in, out)):
   patch_embed {kernel,bias}
@@ -42,7 +52,8 @@ Parameter dict (float32 masters; Linear kernels are (in, out)):
   spatial_rope_freqs  (head_dim//4,)   temporal_rope_freqs (head_dim//2,)
   blocks: list of {s_adaln, t_adaln {kernel,bias} (D -> 6D),
                    s_attn, t_attn {qkv{kernel}, out{kernel,bias}},
-                   s_mlp, t_mlp {fc1{kernel,bias}, fc2{kernel,bias}}}
+                   s_mlp, t_mlp {fc1{kernel,bias}, fc2{kernel,bias}}},
+          or one such dict of (depth, ...) leaves (stacked)
   final {adaln{kernel,bias}, linear{kernel,bias}}
 W8A8 params replace a block Linear's "kernel" by "kernel_q" (int8) and
 "scale" (fp32, (1, out)).
@@ -54,9 +65,11 @@ None; per-batch (B, T) masks are not part of this slice.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 
 from gtax_torch.core import rope
 from gtax_torch.kernels import backward, block, pair, quant
@@ -86,9 +99,15 @@ class DiTConfig:
     mlp_ratio: float = 4.0
     external_cond_dim: int = 25
     max_frames: int = 5
-    # per-block rematerialisation in backward (gtax DiTConfig.block_remat);
-    # not ported yet: dit_apply raises NotImplementedError when it is set
+    # recompute each block in the backward (gtax DiTConfig.block_remat):
+    # the backward keeps only the blocks' inputs. remat_policy "full"
+    # recomputes the whole block; "dots" keeps every product's output
+    # (mm, addmm, bmm), "dots_nb" only the unbatched ones (mm, addmm: the
+    # projections), gtax's checkpoint_dots / _with_no_batch_dims. The
+    # kernels' autograd Functions are recomputed under every policy, as
+    # gtax's Pallas calls are.
     block_remat: bool = False
+    remat_policy: str = "full"
 
     @property
     def grid_h(self) -> int:
@@ -166,10 +185,10 @@ def _map_params(params, fn, path=()):
 
 
 def cast_params_for_inference(params, dtype=torch.bfloat16):
-    """Pre-cast every floating weight to the compute dtype once for serving;
-    the rotary frequency tables stay fp32 (their phases would not survive
-    bf16), and so do the scales of W8A8 params (the int8 kernels read
-    fp32), should the params be quantized already."""
+    """Pre-cast every floating weight to the compute dtype once for serving
+    (either layout); the rotary frequency tables stay fp32 (their phases
+    would not survive bf16), and so do the scales of W8A8 params (the int8
+    kernels read fp32), should the params be quantized already."""
 
     def cast(path, leaf):
         if path[-1] in ("spatial_rope_freqs", "temporal_rope_freqs", "scale"):
@@ -185,9 +204,10 @@ def quantize_for_inference(params):
     two adaLN heads become {"kernel_q": int8, "scale": fp32 (1, out)} plus
     the bias. The embedders and the final layer stay in the compute dtype.
     Apply after cast_params_for_inference; the result serves inference
-    only, and quantizing it again changes nothing. On the card the int8
-    kernels are stored as the int8 tensor cores read them
-    (quant.card_layout), already quantized ones included."""
+    only, and quantizing it again changes nothing. Either layout: a
+    stacked (depth, in, out) kernel quantizes with per-block scales. On
+    the card the int8 kernels are stored as the int8 tensor cores read
+    them (quant.card_layout), already quantized ones included."""
 
     def qlin(d):
         if "kernel_q" in d:
@@ -207,7 +227,88 @@ def quantize_for_inference(params):
             nbp[f"{half}_adaln"] = qlin(bp[f"{half}_adaln"])
         return nbp
 
-    return dict(params, blocks=[qblock(bp) for bp in params["blocks"]])
+    blocks = params["blocks"]
+    return dict(params, blocks=qblock(blocks) if is_stacked(params)
+                else [qblock(bp) for bp in blocks])
+
+
+def is_stacked(params) -> bool:
+    """True for the stacked layout: blocks is one dict of (depth, ...)
+    leaves."""
+    return isinstance(params["blocks"], dict)
+
+
+def _unbind(tree):
+    """Per-block views of a stacked block dict (unbind: the backward stacks
+    the blocks' gradients into the stacked leaf's once, where indexing
+    would add a zero-filled full-size gradient per block)."""
+    flat = {}
+    _map_params(tree, lambda path, leaf: flat.__setitem__(path,
+                                                          leaf.unbind(0)))
+    depth = len(next(iter(flat.values())))
+    return [_map_params(tree, lambda path, _, i=i: flat[path][i])
+            for i in range(depth)]
+
+
+def _blocks(params):
+    """The blocks as a per-block list, in either layout."""
+    blocks = params["blocks"]
+    return _unbind(blocks) if is_stacked(params) else list(blocks)
+
+
+def _need_unstacked(params, what):
+    if is_stacked(params):  # gtax/models/dit.py:603-609, :778
+        raise ValueError(f"{what} requires the unstacked serving layout "
+                         "(unstack_for_inference)")
+
+
+def unstack_for_inference(params, cfg: DiTConfig):
+    """The stacked layout as gtax's unstacked one (gtax
+    unstack_for_inference, gtax/models/dit.py:891): block i's leaves are
+    views leaf[i] of the stacked leaves, no copy. Unchanged if already
+    unstacked."""
+    blocks = _blocks(params)
+    if len(blocks) != cfg.depth:
+        raise ValueError(f"{len(blocks)} blocks for depth {cfg.depth}")
+    return params if not is_stacked(params) else dict(params, blocks=blocks)
+
+
+def restack_params(params, cfg: DiTConfig):
+    """The inverse (gtax restack_params, :916): per-block leaves stacked
+    into (depth, ...) leaves, a copy. Unchanged if already stacked."""
+    if is_stacked(params):
+        return params
+    blocks = params["blocks"]
+    if len(blocks) != cfg.depth:
+        raise ValueError(f"{len(blocks)} blocks for depth {cfg.depth}")
+    flat = {}
+    for bp in blocks:
+        _map_params(bp, lambda path, leaf: flat.setdefault(path, []).append(
+            leaf))
+    return dict(params, blocks=_map_params(
+        blocks[0], lambda path, _: torch.stack(flat[path])))
+
+
+def quantize_train_weights(params, compute_dtype=torch.bfloat16):
+    """The int8 forward's weights for every block (dit_apply's
+    int8_weights): for each of s_attn, t_attn, s_mlp and t_mlp, the int8
+    values and fp32 scales of its two kernels cast to the compute dtype
+    (branches.int8_weights), without gradient. The trainer makes them once
+    per optimizer step: the weights do not change across its micro-steps,
+    so each micro-step would quantize to the same bits. A stacked layout
+    quantizes each stacked kernel at once (per-block scales: the same
+    bits)."""
+    names = {"s_attn": ("qkv", "out"), "t_attn": ("qkv", "out"),
+             "s_mlp": ("fc1", "fc2"), "t_mlp": ("fc1", "fc2")}
+    stacked = is_stacked(params)
+    blocks = [params["blocks"]] if stacked else params["blocks"]
+    out = [{key: branches.int8_weights(
+        *(bp[key][n]["kernel"].to(compute_dtype) for n in pair))
+        for key, pair in names.items()} for bp in blocks]
+    if not stacked:
+        return out
+    return [{key: tuple(t[i] for t in ws) for key, ws in out[0].items()}
+            for i in range(out[0]["s_attn"][0].shape[0])]
 
 
 def params_to(params, device):
@@ -276,14 +377,15 @@ def _mlp_weights(mp):
     return False, (f1["kernel"], f1["bias"], f2["kernel"], f2["bias"])
 
 
-def _mlp(mp, h, sh, sc, g, fns=KERNEL_BRANCHES, fused=True):
-    """The MLP branch over (rows, S, D) tokens: int8 or fused wrappers, or
-    unfused, x + gate(mlp(modulate(LN(x)))) (gtax's XLA path)."""
+def _mlp(mp, h, sh, sc, g, fns=KERNEL_BRANCHES, fused=True, qw=None):
+    """The MLP branch over (rows, S, D) tokens: int8 or fused wrappers (the
+    fused one's int8 forward given qw), or unfused, x +
+    gate(mlp(modulate(LN(x)))) (gtax's XLA path)."""
     q8, w = _mlp_weights(mp)
     if q8:
         return quant.fused_mlp_branch_q(h, sh, sc, g, *w)
     if fused:
-        return fns[2](h, sh, sc, g, *w)
+        return fns[2](h, sh, sc, g, *w, **({} if qw is None else {"qw": qw}))
     return h + gate(mlp(mp, modulate(layer_norm(h), sh, sc), gelu_tanh,
                         h.dtype), g)
 
@@ -326,17 +428,58 @@ def _cast_weights(bp, dtype):
         else leaf)
 
 
+# the products whose outputs the "dots" policies keep (torch's aten ops
+# for gtax's dot_general, batched or not)
+_DOTS = {"dots": ("mm", "addmm", "bmm"), "dots_nb": ("mm", "addmm")}
+
+
+def _remat_context(policy: str):
+    """checkpoint's context_fn for a remat_policy: None for "full"
+    (recompute everything), else selective checkpointing that keeps the
+    outputs of the policy's products."""
+    if policy == "full":
+        return None
+    if policy not in _DOTS:
+        raise ValueError(f"remat_policy {policy!r}: one of 'full', "
+                         f"{', '.join(map(repr, _DOTS))}")
+    keep = {getattr(torch.ops.aten, n).default for n in _DOTS[policy]}
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in keep
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                             policy_fn)
+
+
+def _check_int8_fwd(backend, plain_branches):
+    if backend not in attn.FUSED_ATTENTION:  # gtax/train/trainer.py:123
+        raise ValueError(f"int8_fwd runs through the fused trainable "
+                         f"branches: backend 'fused' or 'fused_all', not "
+                         f"{backend!r}")
+    if plain_branches:
+        raise ValueError("int8_fwd has no plain_branches form")
+
+
 def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
               valid=None, compute_dtype=torch.bfloat16, mods=None,
               plain_branches=False, backend="fused_all", attn_cache=None,
-              collect_cache=False):
+              collect_cache=False, int8_fwd=False, int8_weights=None):
     """Full-window forward. x: (B, T, C, H, W) latents; t: (B, T) integer
     noise levels; external_cond: optional (B, T, action_dim); valid:
     optional (T,) mask of real frames. With `mods` (dit_cond output) the
-    adaLN heads are skipped and t/external_cond are ignored. `backend`
-    picks each branch's path (module docstring; gtax's five names).
-    Returns the v-prediction, x's shape, float32. Differentiable
-    (plain_branches picks the plain xla_* branches for the fused ones).
+    adaLN heads are skipped and t/external_cond are ignored (the unstacked
+    layout only). `backend` picks each branch's path (module docstring;
+    gtax's five names). Returns the v-prediction, x's shape, float32.
+    Differentiable (plain_branches picks the plain xla_* branches for the
+    fused ones).
+
+    int8_fwd: the fused branches of bf16/fp32 blocks run the W8A8 forward
+    (backend `fused` or `fused_all`; under `fused` the MLP stays the
+    unfused path, as in gtax), on int8_weights (quantize_train_weights of
+    these params) or, by default, quantizing each block's compute-dtype
+    kernels itself. With cfg.block_remat each block is recomputed in the
+    backward under cfg.remat_policy.
 
     Attention broadcast (gtax _block_apply's collect / attn_cache):
     collect_cache=True also returns each block's two attention branches'
@@ -344,18 +487,23 @@ def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
     compute dtype), a list of (delta_s, delta_t) pairs, one per block;
     attn_cache=<that list> skips every attention branch and adds the
     cached delta instead. The MLP branches always run."""
-    if cfg.block_remat:
-        raise NotImplementedError(
-            "block_remat (remat: true) is not ported yet; it is a later "
-            "slice of the training port (ROADMAP.md)")
     attn.check_backend(backend)
+    if int8_fwd:
+        _check_int8_fwd(backend, plain_branches)
+    remat = cfg.block_remat and torch.is_grad_enabled()
+    if remat and (collect_cache or attn_cache is not None):
+        raise ValueError("attention broadcast is inference-only: not with "
+                         "block_remat under autograd")
     B, T = x.shape[:2]
     D, H = cfg.hidden_size, cfg.num_heads
     fns = PLAIN_BRANCHES if plain_branches else KERNEL_BRANCHES
     fused_attn = backend in attn.FUSED_ATTENTION
     fused_mlp = backend in attn.FUSED_MLP
+    blocks = _blocks(params)
     if mods is None:
-        mods = dit_cond(params, cfg, t, external_cond, compute_dtype)
+        mods = _cond(params, blocks, cfg, t, external_cond, compute_dtype)
+    else:
+        _need_unstacked(params, "dit_apply(mods=...)")
     spatial, temporal = _rope_tables(params, cfg, T)
     # the spatial backward's cos and sin of its table, formed once for all
     # the blocks (the kernel path's attn_frame_bwd reads them)
@@ -364,26 +512,32 @@ def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
                and torch.is_grad_enabled() else None)
     grid = (B, T, cfg.grid_h, cfg.grid_w, D)
     spatial_grid = spatial.reshape(cfg.grid_h, cfg.grid_w, -1)
-    h = _embed(params, cfg, x, compute_dtype)
     rows = B * T
-    deltas = []
-    for i, (bp, m) in enumerate(zip(params["blocks"], mods["blocks"])):
-        bp = _cast_weights(bp, compute_dtype)
+
+    def block_fn(h, i):
+        bp = _cast_weights(blocks[i], compute_dtype)
+        m = mods["blocks"][i]
+        qws = None
+        if int8_fwd and "kernel_q" not in bp["s_attn"]["qkv"]:
+            qws = (int8_weights[i] if int8_weights is not None
+                   else quantize_train_weights({"blocks": [bp]},
+                                               compute_dtype)[0])
         pair_deltas = []
         for j, (half, freqs) in enumerate((("s", spatial), ("t", temporal))):
             sh1, sc1, g1, sh2, sc2, g2 = _split6(m[half], rows, D)
             ap = bp[f"{half}_attn"]
             q8, w = _attn_weights(ap)
+            qw = {} if qws is None else {"qw": qws[f"{half}_attn"]}
             h_pre = h
             if attn_cache is not None:
                 h = h + attn_cache[i][j].reshape(h.shape).to(h.dtype)
             elif half == "s" and (q8 or fused_attn):
                 fn = quant.fused_spatial_branch_q if q8 else fns[0]
                 kw = {} if q8 or rope_cs is None else {"rope_cs": rope_cs}
-                h = fn(h, sh1, sc1, g1, *w, freqs, H, **kw)
+                h = fn(h, sh1, sc1, g1, *w, freqs, H, **kw, **qw)
             elif half == "t" and (q8 or fused_attn):
                 fn = quant.fused_temporal_branch_q if q8 else fns[1]
-                h = fn(h, sh1, sc1, g1, *w, freqs, valid, H, T)
+                h = fn(h, sh1, sc1, g1, *w, freqs, valid, H, T, **qw)
             elif half == "s":
                 h = _unfused_attention(attn.spatial_axial_attention, ap, h,
                                        sh1, sc1, g1, grid, spatial_grid, H,
@@ -395,8 +549,23 @@ def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
             if collect_cache:
                 pair_deltas.append((h - h_pre).to(compute_dtype).reshape(
                     grid))
-            h = _mlp(bp[f"{half}_mlp"], h, sh2, sc2, g2, fns, fused_mlp)
-        deltas.append(tuple(pair_deltas))
+            mqw = None if qws is None else qws[f"{half}_mlp"]
+            h = _mlp(bp[f"{half}_mlp"], h, sh2, sc2, g2, fns, fused_mlp, mqw)
+        return h, tuple(pair_deltas)
+
+    h = _embed(params, cfg, x, compute_dtype)
+    context = _remat_context(cfg.remat_policy) if remat else None
+    deltas = []
+    for i in range(len(blocks)):
+        if remat:
+            # the block draws nothing: no RNG state to replay
+            h = ckpt.checkpoint(lambda h, i=i: block_fn(h, i)[0], h,
+                                use_reentrant=False, preserve_rng_state=False,
+                                **({} if context is None
+                                   else {"context_fn": context}))
+        else:
+            h, pair_deltas = block_fn(h, i)
+            deltas.append(pair_deltas)
     v = _dit_head(params, cfg, h, mods["final"], B, T, compute_dtype)
     return (v, deltas) if collect_cache else v
 
@@ -418,7 +587,14 @@ def dit_cond(params, cfg: DiTConfig, t, external_cond=None,
     spatial/temporal adaLN head outputs, plus the FinalLayer adaLN.
     t: (B, T) int; external_cond: optional (B, T, A). Returns
     {"blocks": [{"s", "t"}: (B, T, 6D)], "final": (B, T, 2D)} in the
-    compute dtype."""
+    compute dtype. The unstacked layout only, as gtax's."""
+    _need_unstacked(params, "dit_cond")
+    return _cond(params, params["blocks"], cfg, t, external_cond,
+                 compute_dtype)
+
+
+def _cond(params, blocks, cfg, t, external_cond, compute_dtype):
+    """dit_cond over the per-block list `blocks`."""
     B, T = t.shape
     c = timestep_embedder(params["t_embedder"], t.reshape(B * T),
                           compute_dtype=compute_dtype)
@@ -426,10 +602,10 @@ def dit_cond(params, cfg: DiTConfig, t, external_cond=None,
     if external_cond is not None:
         c = c + linear(params["external_cond"], external_cond, compute_dtype)
     h = F.silu(c.float()).to(compute_dtype)
-    blocks = [{"s": linear(bp["s_adaln"], h, compute_dtype),
+    heads = [{"s": linear(bp["s_adaln"], h, compute_dtype),
                "t": linear(bp["t_adaln"], h, compute_dtype)}
-              for bp in params["blocks"]]
-    return {"blocks": blocks,
+              for bp in blocks]
+    return {"blocks": heads,
             "final": linear(params["final"]["adaln"], h, compute_dtype)}
 
 
@@ -438,7 +614,8 @@ def dit_prefill(params, cfg: DiTConfig, x_ctx, mods, valid_ctx,
     """Context prefill for incremental decoding: the blocks over the Tc
     context frames only, returning each block's post-rope temporal (K, V)
     rows, (B*Tc*S, D) in the compute dtype (the temporal branch's emit_kv
-    output)."""
+    output). The unstacked layout only."""
+    _need_unstacked(params, "dit_prefill")
     B, Tc = x_ctx.shape[:2]
     D, S = cfg.hidden_size, cfg.grid_h * cfg.grid_w
     spatial, temporal = _rope_tables(params, cfg, Tc)
@@ -465,7 +642,9 @@ def dit_apply_step(params, cfg: DiTConfig, x_last, kv_cache, mods, valid,
     stack, temporal attention reading the prefilled context K/V. x_last:
     (B, Tl, C, H, W); kv_cache: dit_prefill output; mods: dit_cond output
     for the live rows; valid: full-window (T,) mask or None. Returns the
-    live frames' v-prediction, (B, Tl, C, H, W) float32."""
+    live frames' v-prediction, (B, Tl, C, H, W) float32. The unstacked
+    layout only."""
+    _need_unstacked(params, "dit_apply_step")
     B, Tl = x_last.shape[:2]
     D, T = cfg.hidden_size, cfg.max_frames
     n_ctx = T - Tl

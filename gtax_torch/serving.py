@@ -33,9 +33,13 @@ under the fused backends when attention broadcast is off, and over the
 full window otherwise. pipeline_depth must stay below the window
 (max_frames), and generate(noise=) is a non-pipelined hook, as in gtax.
 
+unstack=False keeps the params in the stacked layout, as gtax does: the
+rollout is then the full-window one, with no conditioning cache and no
+incremental decoding (gtax/serving.py:88-91, :133, :149).
+
 Options that run: quantize "none" or "int8", any pipeline_depth and
-attn_broadcast gtax takes, every backend; mesh_data = mesh_model = 1,
-aot_dir=None and unstack=True only. Any other value of those raises
+attn_broadcast gtax takes, every backend, either layout; mesh_data =
+mesh_model = 1 and aot_dir=None only. Any other value of those raises
 NotImplementedError (ROADMAP.md queues them).
 """
 
@@ -90,7 +94,6 @@ def _check_slice(cfg: ServingConfig) -> None:
         "mesh_data": (cfg.mesh_data, 1),
         "mesh_model": (cfg.mesh_model, 1),
         "aot_dir": (cfg.aot_dir, None),
-        "unstack": (cfg.unstack, True),
     }
     for name, (value, allowed) in unsupported.items():
         if value != allowed:
@@ -111,10 +114,10 @@ def _to(a, device) -> torch.Tensor:
 def build_rollout(dit_cfg, cfg: ServingConfig, dtype):
     """The rollout a VideoGenerator with `cfg` runs, built as
     gtax/serving.py:105-160 builds it: attention broadcast when
-    attn_broadcast > 1 (then no conditioning cache); otherwise the
-    conditioning cache, with incremental decoding under the fused
-    backends; the pipelined rollout when pipeline_depth > 1 (the cache
-    serves its incremental decoding only). Returns rollout(params,
+    attn_broadcast > 1 (then no conditioning cache); otherwise, in the
+    unstacked layout, the conditioning cache, with incremental decoding
+    under the fused backends; the pipelined rollout when pipeline_depth > 1
+    (the cache serves its incremental decoding only). Returns rollout(params,
     prompt_latents, actions, generator, num_gen_frames, noise=None)."""
     sampler = SamplerConfig(ddim_noise_steps=cfg.noise_steps,
                             stabilization_level=15, schedule_clamp_min=1e-4,
@@ -128,7 +131,7 @@ def build_rollout(dit_cfg, cfg: ServingConfig, dtype):
     pab = cond = incremental = None
     if cfg.attn_broadcast > 1:
         pab = dit_mod.make_pab_fns(dit_cfg, dtype, backend)
-    elif cfg.attn_broadcast == 1 and cfg.cond_cache:
+    elif cfg.attn_broadcast == 1 and cfg.unstack and cfg.cond_cache:
         cond = dit_mod.make_cond_fns(dit_cfg, dtype, backend)
         if cfg.incremental and backend in attn.FUSED_ATTENTION:
             incremental = dit_mod.make_incremental_fns(dit_cfg, dtype)
@@ -162,6 +165,9 @@ class VideoGenerator:
         if dtype != torch.float32:
             dit_params = dit_mod.cast_params_for_inference(dit_params, dtype)
             vae_params = vae_mod.cast_params_for_inference(vae_params, dtype)
+        dit_params = (dit_mod.unstack_for_inference(dit_params, self.dit_cfg)
+                      if cfg.unstack
+                      else dit_mod.restack_params(dit_params, self.dit_cfg))
         if cfg.quantize == "int8":
             dit_params = dit_mod.quantize_for_inference(dit_params)
         self.dit_params = dit_params

@@ -8,7 +8,8 @@ paths, so tools and users find the same files:
         state_<step>/state.safetensors  params/<path> (fp32 masters),
                                         mu/<path> (its own dtype: bf16 under
                                         mu_bf16), nu/<path>, generator
-        state_<step>/state.json         global_step, count, generator device
+        state_<step>/state.json         global_step, count, generator
+                                        device, the params' layout
 
 Tensors are keyed by their tree path ("blocks/3/s_attn/qkv/kernel") and
 written and read one at a time by the port's safetensors code, every dtype
@@ -73,9 +74,10 @@ def write_json(path: str, obj) -> None:
 
 
 def write_state(state_dir: str, params, optimizer, generator,
-                global_step: int) -> int:
+                global_step: int, layout: str = "unstacked") -> int:
     """Write params, the optimizer's moments and count, the generator's
-    state and global_step into state_dir; returns the bytes written."""
+    state, global_step and the params' layout ("unstacked" or "stacked")
+    into state_dir; returns the bytes written."""
     tmp = state_dir + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
@@ -87,7 +89,7 @@ def write_state(state_dir: str, params, optimizer, generator,
     write_safetensors(os.path.join(tmp, STATE), tensors)
     write_json(os.path.join(tmp, META), {
         "global_step": global_step, "count": opt["count"],
-        "generator_device": generator.device.type})
+        "generator_device": generator.device.type, "layout": layout})
     shutil.rmtree(state_dir, ignore_errors=True)
     os.rename(tmp, state_dir)
     return sum(os.path.getsize(os.path.join(state_dir, f))
@@ -95,14 +97,22 @@ def write_state(state_dir: str, params, optimizer, generator,
 
 
 @torch.no_grad()
-def read_state(state_dir: str, params, optimizer, generator) -> dict:
+def read_state(state_dir: str, params, optimizer, generator,
+               layout: str = "unstacked") -> dict:
     """Load a write_state directory: each master is copied in place (the
     optimizer holds references to them), the moments and count go through
     optimizer.load_state_dict, the generator takes its saved state.
-    Returns state.json's contents. A missing, extra or mis-shaped tensor
+    Returns state.json's contents. A state of the other layout (states
+    without one are unstacked) or a missing, extra or mis-shaped tensor
     raises."""
     with open(os.path.join(state_dir, META)) as f:
         meta = json.load(f)
+    saved = meta.get("layout", "unstacked")
+    if saved != layout:  # gtax's orbax state needs the same setting too
+        raise ValueError(
+            f"{state_dir} holds {saved} params; this trainer's are {layout} "
+            f"(unstack_train: {str(layout == 'unstacked').lower()}): resume "
+            f"with unstack_train: {str(saved == 'unstacked').lower()}")
     if meta["generator_device"] != generator.device.type:
         raise ValueError(
             f"{state_dir} holds a {meta['generator_device']} generator; "

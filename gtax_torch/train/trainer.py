@@ -9,15 +9,18 @@ step_time_s, mfu), the epoch / max_steps loop, eval loss with the rollout
 mp4 and the renoise grid, the safetensors weight export and the full-state
 checkpoints with resume (gtax's paths; the state in the port's own format,
 gtax_torch.train.checkpoint), the wandb run id carried across restarts,
-and the profile_dir trace window. Not ported yet (check_slice raises
-NotImplementedError): the other attention backends, the stacked weight
-layout (unstack_train: false), int8-forward training, remat and parallel
-training (ROADMAP.md).
+and the profile_dir trace window; the attention backends `xla`, `fused`,
+`fused_mlp` and `fused_all`, int8-forward training (`int8_forward` under
+`fused` / `fused_all`), per-block remat (`remat`) and the stacked weight
+layout (`unstack_train: false`). `pallas` is refused: its attention
+kernels have no gradient (nor has gtax's Pallas attention). Not ported yet
+(check_slice raises NotImplementedError): parallel training (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import logging
 import os
@@ -87,24 +90,29 @@ def decode_frames(vae_params, vae_cfg, latents, compute_dtype, fused=False,
 
 # ---------------------------------------------------------------- training
 
-# options of the trainer that the port runs: name -> allowed values
-_PORTED = {
-    "attention_backend": ("fused_all",),
-    "int8_forward": (False,),
-    "remat": (False,),
-    "unstack_train": (True,),
-}
+# the attention backends a trainer can take a gradient through
+TRAIN_BACKENDS = ("xla", "fused", "fused_mlp", "fused_all")
 
 
 def check_slice(config: TrainingConfig) -> None:
-    """Raise NotImplementedError for the options the port does not run yet
-    (ROADMAP.md lists them)."""
-    for name, allowed in _PORTED.items():
-        value = getattr(config, name)
-        if value not in allowed:
-            raise NotImplementedError(
-                f"TrainingConfig.{name}={value!r} is not ported yet (only "
-                f"{' / '.join(map(repr, allowed))}); see ROADMAP.md")
+    """Raise ValueError for a configuration that cannot train (the `pallas`
+    backend; int8_forward off the fused backends, as gtax asserts) and
+    NotImplementedError for what the port does not run yet (parallel
+    training; ROADMAP.md)."""
+    backend = config.attention_backend
+    if backend == "pallas":
+        raise ValueError(
+            "attention_backend 'pallas' cannot train: its attention kernels "
+            "are forward-only, and gtax's Pallas attention has no gradient "
+            "either (jax.grad through it fails); take 'xla', 'fused', "
+            "'fused_mlp' or 'fused_all'")
+    if backend not in TRAIN_BACKENDS:
+        raise ValueError(f"attention_backend {backend!r}: one of "
+                         f"{TRAIN_BACKENDS}")
+    if config.int8_forward and backend not in ("fused", "fused_all"):
+        raise ValueError("int8_forward runs through the fused trainable "
+                         "kernels: attention_backend 'fused' or "
+                         f"'fused_all', not {backend!r}")
     for name in ("mesh_data", "mesh_model"):
         if getattr(config, name) > 1:
             raise NotImplementedError(
@@ -140,6 +148,9 @@ class Trainer:
             config.seed)
 
         self.dit_cfg = dit_cfg or dit_mod.DiT_MODELS[config.dit_model]()
+        if config.remat and not self.dit_cfg.block_remat:
+            self.dit_cfg = dataclasses.replace(self.dit_cfg,
+                                               block_remat=True)
         if dit_params is not None:
             params = dit_params
         elif config.pretrained_model:
@@ -150,6 +161,11 @@ class Trainer:
             logger.info("Initializing new DiT model from scratch")
             params = dit_mod.dit_init(self.dit_cfg, self.generator,
                                       self.device)
+        # the layout of unstack_train: per-block leaves, or stacked
+        # (depth, ...) leaves that AdamW updates as they are
+        params = (dit_mod.unstack_for_inference(params, self.dit_cfg)
+                  if config.unstack_train
+                  else dit_mod.restack_params(params, self.dit_cfg))
         # fp32 masters of the trainer's own (the caller's tensors are not
         # updated in place)
         self.dit_params = dit_mod._map_params(
@@ -224,6 +240,8 @@ class Trainer:
             self.mfu = MFUCounter(flops, MFUCounter.peak_for_kind(
                 torch.cuda.get_device_name(self.device)))
         self._inflight = None  # (device metrics, entry time, lr)
+        # the int8 forward's weights of the step being dispatched
+        self._int8_weights = None
 
     # --------------------------------------------------------- the step
 
@@ -237,11 +255,14 @@ class Trainer:
                                  backend=self.config.attention_backend)
 
     def dit_fn(self, params, x, t, actions, valid):
-        """The DiT forward the trainer and its evals run: the compute dtype
-        and attention backend of the config."""
+        """The DiT forward the trainer and its evals run: the compute dtype,
+        attention backend and int8 forward of the config (the evals' int8
+        forward quantizes the weights itself)."""
         return dit_mod.dit_apply(params, self.dit_cfg, x, t, actions, valid,
                                  compute_dtype=self.compute_dtype,
-                                 backend=self.config.attention_backend)
+                                 backend=self.config.attention_backend,
+                                 int8_fwd=self.config.int8_forward,
+                                 int8_weights=self._int8_weights)
 
     def loss(self, params, video, actions, generator, is_latents=False):
         """(mean_loss, sum_loss) of one micro-batch: frozen-VAE encode of
@@ -260,6 +281,9 @@ class Trainer:
         params = [p for _, p in leaves(self.dit_params)]
         for p in params:
             p.grad = None
+        if self.config.int8_forward:  # once a step: bit-equal a micro-step
+            self._int8_weights = dit_mod.quantize_train_weights(
+                self.dit_params, self.compute_dtype)
         loss_sum = torch.zeros((), device=self.device)
         for i in range(accum):
             acts = None if batch.actions is None else batch.actions[i]
@@ -268,6 +292,7 @@ class Trainer:
                                             batch.is_latents)
             sum_loss.backward()
             loss_sum = loss_sum + mean_loss.detach()
+        self._int8_weights = None
         grads = [None if p.grad is None else p.grad / accum for p in params]
         norm = self.optimizer.step(grads)
         return {"train_loss": loss_sum / accum, "grad_norm": norm}
@@ -415,7 +440,8 @@ class Trainer:
     def save_model(self, epoch: int) -> str:
         """The weight-only export: the masters as the reference's fp32
         safetensors, <output_dir>/<model_name>_epoch_<epoch+1>_<step>
-        .safetensors (gtax save_model)."""
+        .safetensors (gtax save_model), keyed by blocks.{i} in either
+        layout (nothing restacked)."""
         os.makedirs(self.config.output_dir, exist_ok=True)
         path = os.path.join(
             self.config.output_dir, f"{self.config.model_name}_epoch_"
@@ -423,6 +449,10 @@ class Trainer:
         port.save_dit(path, self.dit_params, self.dit_cfg)
         logger.warning("Saved checkpoint to %s", path)
         return path
+
+    def _layout(self) -> str:
+        return "stacked" if dit_mod.is_stacked(self.dit_params) else (
+            "unstacked")
 
     def _ckpt_dir(self) -> str:
         return ckpt.ckpt_dir(self.config.output_dir, self.config.model_name)
@@ -437,7 +467,7 @@ class Trainer:
         name = f"state_{self.global_step}"
         n = ckpt.write_state(os.path.join(path, name), self.dit_params,
                              self.optimizer, self.generator,
-                             self.global_step)
+                             self.global_step, self._layout())
         meta = {"step": self.global_step, "epoch": epoch,
                 "time": time.time()}
         if self.wandb_run_id is not None:
@@ -468,7 +498,7 @@ class Trainer:
             meta = json.load(f)
         state = ckpt.read_state(os.path.join(path, f"state_{meta['step']}"),
                                 self.dit_params, self.optimizer,
-                                self.generator)
+                                self.generator, self._layout())
         if state["global_step"] != meta["step"]:
             raise ValueError(f"{path}: step.json says step {meta['step']}, "
                              f"the state {state['global_step']}")

@@ -231,6 +231,76 @@ def test_temporal_step_q_kernel(cuda):
            quant.temporal_step_q_plain(*args))
 
 
+@pytest.mark.parametrize("epi", ["gelu", "gated"])
+@pytest.mark.parametrize("splits", [1, 2])
+def test_int8_gemm_second_store_bit_equal(cuda, epi, splits):
+    """gemm_s8's emit_train store (C2 = bf16(y + bias), before the GELU or
+    the gate), from the unit's epilogue (one K chunk) and from the split
+    sum's slices (two), bit-equal to the plain arithmetic; C bit-equal to
+    the call without it."""
+    gen = np.random.default_rng(16)
+    M, K = 2 * S_DIT, D
+    N = 4 * D if epi == "gelu" else D
+    a = _rand(gen, (M, K), 1.0, torch.float32)
+    q, s = quant._quant_rows_cuda(a, K)
+    w_q, w_s = _qweight(gen, (K, N), 0.02)
+    b = _rand(gen, (N,), 0.02, torch.float32)
+    kw = {"bias": b, "k_chunk": K // splits}
+    if epi == "gelu":
+        e, dt = quant.EPI_BIAS_GELU_F32, torch.float32
+    else:
+        e, dt = quant.EPI_BIAS_GATED, torch.bfloat16
+        kw.update(resid=_rand(gen, (M, N)), gate=_rand(gen, (2, N), 0.5),
+                  S=S_DIT)
+    out, ref = (torch.empty((M, N), dtype=dt, device="cuda")
+                for _ in range(2))
+    out2 = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
+    quant._gemm_s8(q, s, w_q, w_s, out, e, out2=out2, **kw)
+    quant._gemm_s8(q, s, w_q, w_s, ref, e, **kw)
+    u = quant.mm_int(q, w_q) * s * w_s.reshape(-1) + b
+    assert torch.equal(out2, u.bfloat16())
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("kind", ["spatial", "temporal", "temporal_padded",
+                                  "mlp"])
+def test_int8_emit_train_kernels(cuda, kind):
+    """The emit_train mode of the int8 wrappers (int8-forward training):
+    every residual against the plain version's, and the output bit-equal
+    to the call without emit_train."""
+    gen = np.random.default_rng(17)
+    if kind == "mlp":
+        x, sh, sc, g = _branch_inputs(gen, 2, S_DIT)
+        args = (x, sh, sc, g, *_qweight(gen, (D, 4 * D), 0.02),
+                _rand(gen, (4 * D,), 0.02, torch.float32),
+                *_qweight(gen, (4 * D, D), 0.02),
+                _rand(gen, (D,), 0.02, torch.float32))
+        fn, plain = quant.fused_mlp_branch_q, quant.mlp_branch_q_plain
+    else:
+        T = 5
+        N = 2 if kind == "spatial" else 2 * T
+        x, sh, sc, g = _branch_inputs(gen, N, S_DIT)
+        w = (*_qweight(gen, (D, 3 * D), 0.02), *_qweight(gen, (D, D), 0.02),
+             _rand(gen, (D,), 0.02, torch.float32))
+        if kind == "spatial":
+            args = (x, sh, sc, g, *w, _spatial_freqs(), H)
+            fn, plain = (quant.fused_spatial_branch_q,
+                         quant.spatial_branch_q_plain)
+        else:
+            valid = ([False, True, True, True, True]
+                     if kind.endswith("padded") else None)
+            args = (x, sh, sc, g, *w, _temporal_freqs(T), valid, H, T)
+            fn, plain = (quant.fused_temporal_branch_q,
+                         quant.temporal_branch_q_plain)
+    got = fn(*args, emit_train=True)
+    ref = plain(*args, emit_train=True)
+    assert len(got) == len(ref) == (3 if kind == "mlp" else 5)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        _close(a, b)
+    assert torch.equal(got[0], fn(*args))
+
+
 def test_int8_wrappers_reject_what_kernels_do_not_take(cuda):
     gen = np.random.default_rng(15)
     x, sh, sc, g = _branch_inputs(gen, 1, S_DIT)

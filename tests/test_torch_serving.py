@@ -241,11 +241,20 @@ def test_generate_validates_inputs(pair):
 
 @pytest.mark.parametrize("field,value", [
     ("quantize", "int4"), ("mesh_data", 2), ("mesh_model", 2),
-    ("aot_dir", "x"), ("unstack", False)])
+    ("aot_dir", "x")])
 def test_unported_options_raise(field, value):
     cfg = serving.ServingConfig(**KW, **{field: value})
     with pytest.raises(NotImplementedError, match=field):
         serving.VideoGenerator.load("", "", cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [("unstack", False)])
+def test_ported_options_accepted(field, value):
+    """unstack=False (the stacked layout) builds a generator whose params
+    stay stacked."""
+    cfg = serving.ServingConfig(**KW, **{field: value})
+    gen = serving.VideoGenerator.load("", "", cfg, device="cpu")
+    assert dit.is_stacked(gen.dit_params)
 
 
 @pytest.mark.parametrize("case", [

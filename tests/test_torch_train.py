@@ -83,6 +83,20 @@ def _torch_params(tree):
     return dit_from_gtax(tree)
 
 
+def _port_params(seed, std=0.05):
+    """The port's DiT_debug params drawn as _random_params draws gtax's
+    (every leaf but the rope tables normal * std, from a numpy seed),
+    with no JAX: for the tests that hold the port against itself (the
+    interpret_mode fixture clears JAX's caches around every test, so a
+    JAX-made tree would compile again each time)."""
+    r = np.random.default_rng(seed)
+    frozen = ("spatial_rope_freqs", "temporal_rope_freqs")
+    return tdit._map_params(
+        tdit.dit_init(TCFG, torch.Generator().manual_seed(0)),
+        lambda path, leaf: leaf if path[-1] in frozen else torch.from_numpy(
+            (r.standard_normal(tuple(leaf.shape)) * std).astype(np.float32)))
+
+
 def _leaf_grads(params):
     return [(path, p.grad) for path, p in leaves(params)]
 
@@ -162,10 +176,46 @@ def test_plain_branches_gradient_matches_kernel_path():
                                    rtol=5e-4)
 
 
-def test_dit_apply_remat_is_a_later_slice():
-    cfg = dataclasses.replace(TCFG, block_remat=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tdit.dit_apply({}, cfg, torch.zeros(1, T, 8, 6, 8))
+@pytest.mark.parametrize("policy", ["full", "dots", "dots_nb"])
+@pytest.mark.parametrize("mode", ["fused_all", "xla", "int8_fwd"])
+def test_dit_apply_remat_bit_equal(mode, policy):
+    """block_remat recomputes each block in the backward and draws nothing:
+    the output and every gradient bit-equal to block_remat off, under each
+    remat_policy, on the kernel path (`fused_all`), the unfused path
+    (`xla`) and the int8 forward (fp32, CPU)."""
+    r = np.random.default_rng(13)
+    base = _port_params(14)
+    x, ct = (torch.from_numpy(r.standard_normal((B, T, 8, 6, 8)).astype(
+        np.float32)) for _ in range(2))
+    t = torch.from_numpy(r.integers(0, 1000, (B, T)))
+    kw = ({"int8_fwd": True} if mode == "int8_fwd" else {"backend": mode})
+    runs = []
+    for remat in (False, True):
+        cfg = dataclasses.replace(TCFG, block_remat=remat,
+                                  remat_policy=policy)
+        tp = _requires_grad(tdit._map_params(base, lambda _, l: l.clone()))
+        v = tdit.dit_apply(tp, cfg, x, t, None, [False] + [True] * 4,
+                           compute_dtype=torch.float32, **kw)
+        (v * ct).sum().backward()
+        runs.append((v.detach(), _leaf_grads(tp)))
+    assert torch.equal(runs[0][0], runs[1][0])
+    n = 0
+    for (path, g0), (_, g1) in zip(runs[0][1], runs[1][1]):
+        assert (g0 is None) == (g1 is None), path
+        if g0 is not None:
+            assert torch.equal(g0, g1), path
+            n += 1
+    assert n > 20
+
+
+def test_remat_policy_names_are_gtax_s():
+    """gtax's three remat policies run; another name raises."""
+    cfg = dataclasses.replace(TCFG, block_remat=True, remat_policy="some")
+    tp = _requires_grad(tdit.dit_init(TCFG, torch.Generator().manual_seed(0)))
+    with pytest.raises(ValueError, match="remat_policy"):
+        tdit.dit_apply(tp, cfg, torch.zeros(1, T, 8, 6, 8),
+                       torch.zeros(1, T, dtype=torch.long),
+                       compute_dtype=torch.float32)
 
 
 # ------------------------------------------------- schedule and optimizer
@@ -236,21 +286,34 @@ def test_config_keys_defaults_and_coercion():
         TrainingConfig.from_dict({"nope": 1})
 
 
-@pytest.mark.parametrize("option", [
-    {"attention_backend": "xla"}, {"int8_forward": True}, {"remat": True},
-    {"unstack_train": False}, {"mesh_data": 2}, {"mesh_model": 2}])
-def test_unported_options_raise(option):
+@pytest.mark.parametrize("option,error", [
+    ({"attention_backend": "pallas"}, ValueError),
+    ({"attention_backend": "xla", "int8_forward": True}, ValueError),
+    ({"attention_backend": "fused_mlp", "int8_forward": True}, ValueError),
+    ({"mesh_data": 2}, NotImplementedError),
+    ({"mesh_model": 2}, NotImplementedError)])
+def test_unported_options_raise(option, error):
+    """`pallas` cannot train (its attention kernels refuse a gradient, as
+    gtax's Pallas attention has none), int8_forward needs a fused
+    attention backend (gtax asserts it), parallel training is not
+    ported."""
     base = dict(attention_backend="fused_all", dataset_type="dummy",
                 save_every=0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         check_slice(TrainingConfig.from_dict({**base, **option}))
 
 
 @pytest.mark.parametrize("option", [
     {"profile_dir": "/tmp/p"}, {"save_every": 10},
-    {"dataset_type": "webdataset"}, {"dataset_type": "hfdataset"}])
+    {"dataset_type": "webdataset"}, {"dataset_type": "hfdataset"},
+    {"attention_backend": "xla"}, {"attention_backend": "fused"},
+    {"attention_backend": "fused_mlp"}, {"int8_forward": True},
+    {"attention_backend": "fused", "int8_forward": True}, {"remat": True},
+    {"unstack_train": False}])
 def test_ported_options_accepted(option):
-    """The options the checkpoint and data slice ported pass check_slice."""
+    """The options the ported slices run pass check_slice: the checkpoint
+    and data options, the training backends but `pallas`, int8_forward
+    under `fused` / `fused_all`, remat and the stacked layout."""
     base = dict(attention_backend="fused_all", dataset_type="dummy",
                 save_every=0)
     check_slice(TrainingConfig.from_dict({**base, **option}))
