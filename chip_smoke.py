@@ -130,6 +130,35 @@ Phases (any failure exits nonzero and prints no result line):
      full window (counts asserted against the DiT calls, every rollout
      latent finite), timed; whether the mp4 and the grid were written, or
      which library is missing, is printed.
+ 10. more than one process (gtax_torch/parallel/mesh.py), as child ranks of
+     this script once the parent has freed its card memory. With one card
+     two ranks share it over gloo (NCCL refuses two ranks on one device;
+     collectives go through the host), said in the output; with two or
+     more, `[dp train]`, `[dp serve]` and `[tp serve]` run over NCCL on two
+     cards. `[nccl]`: one rank at world size 1 over NCCL runs the
+     one-process B=16 step of configs/train_dit_actions.yaml (TRAIN_CUTS)
+     that `[dp train]` is held against, and times the all-reduce of the
+     flagship gradients (2.43 GB fp32) at world size 1 (no link crossed).
+     `[dp train]`: two ranks of B=8 from the same init and the same 16
+     clips (rank r rows 8r..8r+7): step 1's loss and grad norm and each
+     gradient leaf against the reference (DP_TOL), and each master's
+     update there over the elements whose reference gradient is not zero
+     within rounding (ZERO_GRAD, DP_TOL), the launches of a micro-step (#1
+     16, #2 32, #3 16, #12 16, #13 16, #14 32), the ranks' masters bit-equal after steps 1 and 3; a
+     save at step 2 and a second trainer on each rank resuming into step 3
+     (RESUME_TOL, bit equality printed); step_time_s, the all-reduce's ms
+     and the peak memory on each rank. `[dp serve]`: ServingConfig(
+     mesh_data=2), bf16 and int8, one row a rank, 4 prompt frames + 2
+     generated, 100 steps: each rank's latents bit-equal to the one-rank
+     rollout of its row with its seed (run before the rank joins the
+     group), its launches the single-card path's (INT8_EXPECTED for
+     int8), the ranks' latents different, s/frame. `[tp serve]`: mesh_model=2, bf16, `xla`, DiT-S/2 at full width
+     cut to TP_DEPTH blocks, nonzero out / fc2 biases: the rollout on
+     injected noise against the one-process `xla` rollout (TP_TOL of the
+     latents' largest magnitude), which the same rollout with those biases
+     doubled (a rank adding them before the sum) must exceed, the ranks'
+     latents bit-equal, s/frame of both (its adaLN heads are
+     all-gathered: gloo takes CUDA tensors there too).
 Each end-to-end phase also traces one generated frame or train step
 (`[profile]`); `[time]` lines give each phase's seconds.
 `python -m gtax_torch.tools.step_profile` splits one denoise step into
@@ -144,8 +173,10 @@ gtax.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -3152,6 +3183,648 @@ def resume_checks(raw, rows):
     rows["train_resume"] = out
 
 
+# ------------------------------------------------ more than one process
+# `[nccl]`, `[dp train]`, `[dp serve]`, `[tp serve]` run as child processes
+# of this script, one a rank (`python3 chip_smoke.py --rank <phase> <rank>
+# <world> <dir> <backend>`), once the parent has freed its card memory.
+# With one card both ranks of a phase share it over gloo (NCCL refuses two
+# ranks on one device: "Duplicate GPU detected"), whose collectives on
+# CUDA tensors go through the host; with two cards or more, [dp train],
+# [dp serve] and [tp serve] run over NCCL on two cards.
+MULTI_DIR = "_smoke_multi"  # in the checkout; removed when the phases end
+DP_GLOBAL_B = 16  # [dp train]'s global batch: B=8 a rank on two ranks
+DP_TOL = GRAD_TOL  # [dp train] step 1 against the one-process step: the
+#                    loss, the grad norm, each gradient leaf and each
+#                    master's update over the elements ZERO_GRAD keeps,
+#                    relative (L2 for the leaves). The update there carries
+#                    the gradient's error (AdamW's first moment is bf16:
+#                    mu_bf16), so it takes the gradient's gate
+ZERO_GRAD = GRAD_TOL  # [dp train]: a reference gradient element within
+#                       this of its leaf's RMS is zero within the rounding
+#                       the gradient gate admits; AdamW's first step moves
+#                       it ±lr with either sign, so its update is not
+#                       compared
+TP_DEPTH = 2  # [tp serve]'s depth cut: 100 steps of the unfused `xla`
+#               rollout with four collectives a block through the host
+TP_MODEL = f"DiT-S/2 depth {TP_DEPTH}"
+TP_TOL = 1e-3  # [tp serve], of the latents' largest magnitude (the bf16
+#                readings in PERF.md section 6)
+ROW_BIAS_STD = 0.1  # [tp serve]'s out-projection and fc2 biases (dit_init
+#                     zeroes them): a rank that added them before the sum
+#                     would show
+
+
+def multi_config(**overrides):
+    """configs/train_dit_actions.yaml with TRAIN_CUTS, its output under
+    MULTI_DIR, and overrides."""
+    raw = read_flat_yaml(TRAIN_CONFIG)
+    for key, (value, _) in TRAIN_CUTS.items():
+        raw[key] = value
+    raw.update(output_dir=os.path.join(MULTI_DIR, "out"), **overrides)
+    return raw
+
+
+def multi_trainer(raw):
+    """A Trainer of `raw` from [train]'s DiT init (seeded, nonzero adaLN
+    heads) and its seeded random VAE."""
+    from gtax_torch.models import dit as dit_mod
+    from gtax_torch.train.config import TrainingConfig
+    from gtax_torch.train.trainer import Trainer
+
+    cfg = TrainingConfig.from_dict(raw)
+    dcfg = dit_mod.DiT_MODELS[cfg.dit_model]()
+    params = dit_mod.dit_init(dcfg, torch.Generator(device="cuda")
+                              .manual_seed(cfg.seed), "cuda")
+    nonzero_adaln(params, 4)
+    return Trainer(cfg, total_dataset_size=DP_GLOBAL_B * 3,
+                   dit_params=params)
+
+
+def global_batch(rows):
+    """`rows` of one global batch of DP_GLOBAL_B dummy clips (the same clips
+    in every process), on the card with the accumulation axis."""
+    from gtax_torch.data.dummy import DummyDataset
+    from gtax_torch.data.loader import Batch, DataLoader
+
+    b = next(iter(DataLoader(DummyDataset("train", return_actions=True,
+                                          size=DP_GLOBAL_B), DP_GLOBAL_B,
+                             shuffle=False)))
+    return Batch(torch.from_numpy(b.video[rows])[None].cuda(),
+                 torch.from_numpy(b.actions[rows])[None].cuda())
+
+
+def masters_cpu(trainer):
+    from gtax_torch.train import checkpoint as ckpt
+
+    return {k: v.detach().cpu().clone()
+            for k, v in ckpt.flat(trainer.dit_params).items()}
+
+
+def step_grads_cpu(trainer):
+    """The gradients the last step's optimizer read: each leaf's .grad
+    (summed over the ranks by the step's all-reduce) / (accumulation x
+    world), the one-process gradient at the global batch."""
+    from gtax_torch.train import checkpoint as ckpt
+
+    scale = trainer.config.gradient_accumulation_steps * trainer.world
+    return {k: (v.grad / scale).cpu() for k, v in
+            ckpt.flat(trainer.dit_params).items() if v.grad is not None}
+
+
+def digest(tensors):
+    """sha256 over the tensors' bytes, in key order (bit equality across
+    processes)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(tensors[k].detach().cpu().contiguous().view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def time_reduce(grads, axis, reps=3):
+    """ms of all_reduce_grads over the gradients (one all-reduce a leaf,
+    the trainer's) and of one dist.all_reduce of a flat fp32 tensor of
+    their size, each synced."""
+    import torch.distributed as dist
+
+    from gtax_torch.parallel import mesh
+
+    flat = torch.zeros(sum(g.numel() for g in grads), device="cuda")
+    out = {}
+    for name, fn in (("per_leaf", lambda: mesh.all_reduce_grads(grads, axis)),
+                     ("flat", lambda: dist.all_reduce(flat))):
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        out[name] = ms
+    del flat
+    return out
+
+
+def rank_nccl(rank, world, backend):
+    """The one-process B=16 step over NCCL at world size 1: [dp train]'s
+    reference (its step-1 loss, grad norm, gradients and masters, saved
+    for the ranks; the digest of the masters before it) and the
+    all-reduce of the flagship gradients."""
+    from gtax_torch.train.optim import leaves
+
+    tr = multi_trainer(multi_config())
+    before = digest(masters_cpu(tr))
+    batch = global_batch(slice(0, DP_GLOBAL_B))
+    m1 = tr.train_step_sync(batch)
+    torch.save({"masters": masters_cpu(tr), "grads": step_grads_cpu(tr)},
+               os.path.join(MULTI_DIR, "reference.pt"))
+    m2 = tr.train_step_sync(batch)
+    grads = [p.grad for _, p in leaves(tr.dit_params) if p.grad is not None]
+    return {"loss": m1["train_loss"], "grad_norm": m1["grad_norm"],
+            "digest_0": before,
+            "step_time_s": [m1["step_time_s"], m2["step_time_s"]],
+            "grad_bytes": sum(g.numel() * g.element_size() for g in grads),
+            "grad_leaves": len(grads),
+            "all_reduce_ms": time_reduce(grads, tr.mesh.data),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def rank_dp_train(rank, world, backend):
+    """Two ranks of B=8: step 1 against the reference, the launches of a
+    micro-step, steps 2-3 with a save at step 2, and a second trainer that
+    resumes from it into step 3."""
+    from gtax_torch.train.optim import leaves
+
+    B = DP_GLOBAL_B // world
+    raw = multi_config(batch_size=B, mesh_data=world)
+    tr = multi_trainer(raw)
+    before = masters_cpu(tr)  # the reference's too: the same seeded init
+    batch = global_batch(slice(rank * B, (rank + 1) * B))
+    fns = train_wrappers()
+    for fn in fns.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    m1 = tr.train_step_sync(batch)
+    counts = {name: fn.launches for name, fn in fns.items()}
+    after, grads1 = masters_cpu(tr), step_grads_cpu(tr)
+    out = {"loss": m1["train_loss"], "grad_norm": m1["grad_norm"],
+           "launches": counts, "digest_0": digest(before),
+           "digest_1": digest(after)}
+    if rank > 0:  # rank 0 holds them against the reference after step 3
+        del after, before, grads1
+    m2 = tr.train_step_sync(batch)
+    tr.global_step = 2
+    t = time.perf_counter()
+    tr.save_checkpoint(0)
+    out["save_s"] = time.perf_counter() - t
+    m3 = tr.train_step_sync(batch)
+    out["step_time_s"] = [m["step_time_s"] for m in (m1, m2, m3)]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    grads = [p.grad for _, p in leaves(tr.dit_params) if p.grad is not None]
+    out["all_reduce_ms"] = time_reduce(grads, tr.mesh.data)
+    final = masters_cpu(tr)
+    out["digest_3"] = digest(final)
+    del tr, grads, batch
+    torch.cuda.empty_cache()
+    if rank == 0:  # step 1's gradients and masters' update vs the reference
+        ref = torch.load(os.path.join(MULTI_DIR, "reference.pt"))
+        g_ref = ref["grads"]
+        out["grad_rel_l2"] = {k: rel_l2(g, g_ref[k])
+                              for k, g in grads1.items()
+                              if g_ref[k].norm() > 0}
+        out["grad_leaves_match"] = set(grads1) == set(g_ref)
+        ref = ref["masters"]
+        moved = [k for k in after if not torch.equal(ref[k], before[k])]
+        out["update_all_rel_l2"] = {
+            k: rel_l2(after[k] - before[k], ref[k] - before[k])
+            for k in moved}
+        out["update_rel_l2"], out["update_dropped"] = {}, 0
+        for k in moved:
+            keep = torch.ones_like(before[k], dtype=torch.bool)
+            if k in g_ref:
+                g = g_ref[k]
+                keep = g.abs() > ZERO_GRAD * g.square().mean().sqrt()
+            out["update_rel_l2"][k] = rel_l2((after[k] - before[k])[keep],
+                                             (ref[k] - before[k])[keep])
+            out["update_dropped"] += int((~keep).sum())
+        out["update_elements"] = sum(before[k].numel() for k in moved)
+        out["master_rel_l2"] = max(rel_l2(after[k], ref[k]) for k in after)
+        del ref, g_ref, after, before, grads1
+
+    second = multi_trainer(raw)
+    t = time.perf_counter()
+    second.try_resume()
+    out["resume_s"] = time.perf_counter() - t
+    out["resumed_at"] = second.global_step
+    m3b = second.train_step_sync(global_batch(slice(rank * B,
+                                                    (rank + 1) * B)))
+    again = masters_cpu(second)
+    out["resume_loss"] = [m3["train_loss"], m3b["train_loss"]]
+    out["resume_rel_l2"] = max(rel_l2(again[k], v) for k, v in final.items())
+    out["resume_bit_equal"] = (m3b["train_loss"] == m3["train_loss"]
+                               and digest(again) == out["digest_3"])
+    return out
+
+
+def serving_inputs(B, n_prompt=4, n_frames=6):
+    """[e2e]'s prompt (one clip, repeated over B rows) and actions."""
+    from gtax_torch.data.actions import forward_actions
+
+    rng = np.random.default_rng(0)
+    prompt = rng.random((1, n_prompt, 3, 360, 640), np.float32)
+    return (np.repeat(prompt, B, axis=0), forward_actions(B, n_frames),
+            n_frames)
+
+
+def capture_rollout(gen):
+    """Keep every rollout output of `gen` (the latents before decode)."""
+    seen, inner = [], gen._rollout
+
+    def roll(*args, **kw):
+        seen.append(inner(*args, **kw))
+        return seen[-1]
+
+    gen._rollout = roll
+    return seen
+
+
+def rank_dp_serve_one(rank, world):
+    """Before the group: [dp serve]'s random weights and, bf16 and int8,
+    the one-rank generate of this rank's row with its seed (the latents
+    and the launches)."""
+    from gtax_torch.parallel import mesh
+    from gtax_torch.serving import ServingConfig, VideoGenerator
+
+    cfg = ServingConfig(noise_steps=100)
+    gen = VideoGenerator.load("", "", cfg)
+    nonzero_adaln(gen.dit_params, 2)
+    prompt, actions, n_frames = serving_inputs(world)
+    row = slice(rank, rank + 1)  # one row a rank
+    fns = kernel_wrappers()
+    out = {"weights": (gen.dit_params, gen.vae_params)}
+    for label, q in (("bf16", "none"), ("int8", "int8")):
+        one = VideoGenerator(gen.dit_params, gen.vae_params,
+                             dataclasses.replace(cfg, quantize=q))
+        seen = capture_rollout(one)
+        for fn in fns.values():
+            fn.launches = 0
+        one.generate(prompt[row], actions[row], n_frames,
+                     seed=mesh.rank_seed(7, rank))
+        out[label] = {"latents": seen[-1],
+                      "launches": {n: fns[n].launches for n in fns}}
+        del one, seen
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_dp_serve(rank, world, backend, one):
+    """ServingConfig(mesh_data=world), one row a rank, bf16 and int8: the
+    launches of each generate, its latents against `one`
+    (rank_dp_serve_one), s/frame."""
+    from gtax_torch.serving import ServingConfig, VideoGenerator
+
+    cfg = ServingConfig(noise_steps=100, mesh_data=world)
+    dit_params, vae_params = one["weights"]
+    prompt, actions, n_frames = serving_inputs(world)
+    fns = kernel_wrappers()
+    out = {}
+    for label, q, path, expect in (("bf16", "none", BF16_PATH, None),
+                                   ("int8", "int8", INT8_PATH,
+                                    INT8_EXPECTED)):
+        dp = VideoGenerator(dit_params, vae_params,
+                            dataclasses.replace(cfg, quantize=q))
+        seen = capture_rollout(dp)
+        for fn in fns.values():
+            fn.launches = 0
+        pixels = dp.generate(prompt, actions, n_frames, seed=7)
+        counts = {n: fns[n].launches for n in fns}
+        n_gen = n_frames - prompt.shape[1]
+        out[label] = {
+            "launches": {n: counts[n] for n in path},
+            "launches_match_one_rank": counts == one[label]["launches"],
+            "expected_ok": all(counts[n] == c
+                               for n, c in (expect or {}).items()),
+            "all_launched": all(counts[n] > 0 for n in path),
+            "bit_equal": torch.equal(seen[-1], one[label]["latents"]),
+            "pixels": list(pixels.shape), "digest": digest({"l": seen[-1]}),
+            "s_per_frame": dp.last_timings["rollout_s"] / n_gen}
+        del dp, seen
+        torch.cuda.empty_cache()
+    return out
+
+
+def row_biases(params):
+    """The out-projections' and fc2's biases of every block: added once,
+    after the model axis's sum."""
+    return [bp[branch][name]["bias"] for bp in params["blocks"]
+            for branch, name in (("s_attn", "out"), ("t_attn", "out"),
+                                 ("s_mlp", "fc2"), ("t_mlp", "fc2"))]
+
+
+def tp_rollout(g, one):
+    """g's rollout on `one`'s prompt latents, actions and injected noise;
+    (latents, s/frame)."""
+    n = one["noise"].shape[1]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lat = g._rollout(g.dit_params, one["lat0"], one["acts"], None,
+                         num_gen_frames=n, noise=one["noise"])
+        torch.cuda.synchronize()
+    return lat, (time.perf_counter() - t) / n
+
+
+def rank_tp_serve_one(rank, world):
+    """Before the group: DiT-S/2 at full width cut to TP_DEPTH blocks, with
+    nonzero adaLN heads and out / fc2 biases, the prompt's latents, the
+    injected noise, and the one-process `xla` rollout on them; also that
+    rollout with the out / fc2 biases doubled, which is what two ranks
+    that each added them before the sum would give (the fault TP_TOL must
+    see)."""
+    from gtax_torch.models import dit as dit_mod
+    from gtax_torch.models import vae as vae_mod
+    from gtax_torch.serving import ServingConfig, VideoGenerator
+    from gtax_torch.train.trainer import encode_frames
+
+    cut = dataclasses.replace(dit_mod.DiT_S_2(), depth=TP_DEPTH)
+    dit_mod.DiT_MODELS[TP_MODEL] = lambda: cut
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = dit_mod.dit_init(cut, gen, "cuda")
+    nonzero_adaln(params, 2)
+    for b in row_biases(params):
+        b.normal_(0.0, ROW_BIAS_STD, generator=gen)
+    vcfg = vae_mod.VAE_MODELS["vit-l-20-shallow-encoder"]()
+    vae = vae_mod.vae_init(vcfg, torch.Generator(device="cuda")
+                           .manual_seed(1), "cuda")
+    g = VideoGenerator(params, vae, ServingConfig(
+        noise_steps=100, dit_model=TP_MODEL, attention_backend="xla"))
+    prompt, actions, n_frames = serving_inputs(1)
+    rng = np.random.default_rng(1)
+    one = {"params": params, "vae": vae,
+           "acts": torch.from_numpy(actions).cuda(),
+           "noise": torch.from_numpy(np.clip(rng.standard_normal(
+               (1, n_frames - prompt.shape[1], 16, 18, 32)), -20, 20)
+               .astype(np.float32)).cuda()}
+    with torch.inference_mode():
+        one["lat0"] = encode_frames(vae, vcfg, torch.from_numpy(prompt)
+                                    .cuda(), torch.bfloat16)
+    one["one"], one["one_s_per_frame"] = tp_rollout(g, one)
+    with torch.no_grad():  # g's own bf16 copies; x2 and back are exact
+        for b in row_biases(g.dit_params):
+            b.mul_(2)
+        one["doubled"], _ = tp_rollout(g, one)
+        for b in row_biases(g.dit_params):
+            b.mul_(0.5)
+    return one
+
+
+def rank_tp_serve(rank, world, backend, one):
+    """ServingConfig(mesh_model=world), bf16, `xla`, on `one`'s weights
+    (rank_tp_serve_one): its rollout against the one-process rollout."""
+    from gtax_torch.serving import ServingConfig, VideoGenerator
+
+    tp = VideoGenerator(one["params"], one["vae"], ServingConfig(
+        noise_steps=100, mesh_model=world, dit_model=TP_MODEL))
+    fns = kernel_wrappers()
+    for fn in fns.values():
+        fn.launches = 0
+    lat, s_per_frame = tp_rollout(tp, one)
+    ref = one["one"].float()
+    return {"attention_backend": tp._backend,
+            "qkv_cols": tp.dit_params["blocks"][0]["s_attn"]["qkv"][
+                "kernel"].shape[-1],
+            "max_abs_err": (lat.float() - ref).abs().max().item(),
+            "doubled_abs_err": (one["doubled"].float() - ref).abs().max()
+            .item(),
+            "max_abs_ref": ref.abs().max().item(),
+            "finite": bool(torch.isfinite(lat).all()),
+            "digest": digest({"l": lat}), "s_per_frame": s_per_frame,
+            "one_s_per_frame": one["one_s_per_frame"],
+            "launches": sum(fn.launches for fn in fns.values())}
+
+
+RANK_PHASES = {"nccl": rank_nccl, "dp_train": rank_dp_train,
+               "dp_serve": rank_dp_serve, "tp_serve": rank_tp_serve}
+# a phase's one-process reference, run before the rank joins the group
+# (inside it, VideoGenerator refuses a mesh that does not fill the group)
+BEFORE_GROUP = {"dp_serve": rank_dp_serve_one, "tp_serve": rank_tp_serve_one}
+
+
+def rank_main(argv):
+    """A child rank: join the phase's group (a file:// store in MULTI_DIR),
+    run it, write its JSON result for the parent."""
+    import torch.distributed as dist
+
+    from gtax_torch.kernels import build
+    from gtax_torch.parallel import mesh
+    from gtax_torch.utils.platform import strict_matmul
+
+    phase, rank, world, backend = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    strict_matmul()
+    build.library()  # the parent built it
+    extra = ((BEFORE_GROUP[phase](rank, world),) if phase in BEFORE_GROUP
+             else ())
+    store = f"file://{os.path.abspath(MULTI_DIR)}/{phase}.store"
+    if world > 1:
+        mesh.initialize_distributed(store, world, rank, backend=backend,
+                                    device="cuda", timeout_s=600)
+    else:  # one process in a group of its own (initialize_distributed's
+        #    no-op case)
+        dist.init_process_group(backend, init_method=store, world_size=1,
+                                rank=0)
+    out = RANK_PHASES[phase](rank, world, backend, *extra)
+    del extra
+    out["backend"] = dist.get_backend()
+    with open(os.path.join(MULTI_DIR, f"{phase}_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def launch(phase, world, backend, timeout_s):
+    """Run `phase` on `world` child ranks; each rank's log is printed when
+    they end. Fails if a rank fails (the others are killed) or the phase
+    runs past timeout_s. Returns the ranks' results."""
+    two_cards = torch.cuda.device_count() >= world > 1
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            env = dict(os.environ, LOCAL_RANK=str(r if two_cards else 0),
+                       PYTHONUNBUFFERED="1")
+            logs.append(open(os.path.join(MULTI_DIR, f"{phase}_{r}.log"),
+                             "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", phase,
+                 str(r), str(world), backend], env=env, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout_s
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or (
+                    time.monotonic() > deadline):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        text = open(os.path.join(MULTI_DIR, f"{phase}_{r}.log")).read()
+        for line in text.splitlines():
+            if line.startswith("["):
+                log(f"[{phase} rank {r}] {line}")
+        if p.returncode != 0:
+            log(text[-3000:])
+            fail(f"[{phase}] rank {r} exited {p.returncode}")
+    return [json.load(open(os.path.join(MULTI_DIR, f"{phase}_{r}.json")))
+            for r in range(world)]
+
+
+def multi_card_phase(rows):
+    import shutil
+
+    shutil.rmtree(MULTI_DIR, ignore_errors=True)
+    os.makedirs(MULTI_DIR)
+    try:
+        return multi_card_checks(rows)
+    finally:
+        shutil.rmtree(MULTI_DIR, ignore_errors=True)
+
+
+def multi_card_checks(rows):
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    share = "two ranks on two cards" if cards >= 2 else (
+        "two ranks share one card")
+    where = ("over NCCL on two cards" if cards >= 2 else
+             "two ranks share one card over gloo (NCCL refuses two ranks on "
+             "one device): collectives go through the host, not a "
+             "card-to-card link; times are not speed figures")
+    log(f"[multi] {cards} card(s): {where}; the parent holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    out = {"cards": cards, "backend": backend}
+
+    t = time.perf_counter()
+    ref, = launch("nccl", 1, "nccl", 600)
+    ar = ref["all_reduce_ms"]
+    log(f"[nccl] world size 1 over {ref['backend']}: the one-process B="
+        f"{DP_GLOBAL_B} step (the [dp train] reference): loss "
+        f"{ref['loss']:.7g}, grad_norm {ref['grad_norm']:.7g}, step_time_s "
+        f"{ref['step_time_s']}, peak {ref['peak_gib']:.2f} GiB; all-reduce "
+        f"of the gradients ({ref['grad_bytes']} bytes fp32 in "
+        f"{ref['grad_leaves']} leaves) ms: one a leaf "
+        f"{ar['per_leaf']}, one flat tensor {ar['flat']} (one rank crosses "
+        f"no link: this shows the path runs, not a link's speed) "
+        f"({time.perf_counter() - t:.1f} s)")
+    out["nccl"] = ref
+
+    t = time.perf_counter()
+    ranks = launch("dp_train", 2, backend, 900)
+    L = 16
+    want = {"fused_spatial_branch": L, "fused_mlp_branch": 2 * L,
+            "fused_temporal_branch": L, "fused_spatial_branch_bwd": L,
+            "fused_temporal_branch_bwd": L, "fused_mlp_branch_bwd": 2 * L}
+    for r, o in enumerate(ranks):
+        loss_err = abs(o["loss"] - ref["loss"]) / abs(ref["loss"])
+        norm_err = abs(o["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+        log(f"[dp train] rank {r} ({o['backend']}): step 1 loss "
+            f"{o['loss']:.7g} (relative {loss_err:.3g} of the one-process "
+            f"step's), grad_norm {o['grad_norm']:.7g} ({norm_err:.3g}); "
+            f"step_time_s {o['step_time_s']}; all-reduce of the gradients "
+            f"ms ({o['backend']}): one a leaf {o['all_reduce_ms']['per_leaf']}"
+            f", one flat tensor {o['all_reduce_ms']['flat']}; peak "
+            f"{o['peak_gib']:.2f} GiB; save {o['save_s']:.2f} s, resume "
+            f"{o['resume_s']:.2f} s; launches in step 1 "
+            f"{json.dumps(o['launches'])}")
+        if not (loss_err <= DP_TOL and norm_err <= DP_TOL):
+            fail(f"[dp train] rank {r}: step 1 differs from the one-process "
+                 f"step ({loss_err}, {norm_err} > {DP_TOL})")
+        if o["launches"] != want:
+            fail(f"[dp train] rank {r}: launches {o['launches']}, a "
+                 f"micro-step gives {want}")
+        if o["resumed_at"] != 2 or not (o["resume_rel_l2"] <= RESUME_TOL
+                                        and abs(o["resume_loss"][1]
+                                                - o["resume_loss"][0])
+                                        <= RESUME_TOL * abs(
+                                            o["resume_loss"][0])):
+            fail(f"[dp train] rank {r}: the resumed step 3 differs "
+                 f"({o['resume_loss']}, masters {o['resume_rel_l2']})")
+        log(f"[dp train] rank {r}: resumed at step {o['resumed_at']}, step "
+            f"3 loss {o['resume_loss'][1]:.7g} vs {o['resume_loss'][0]:.7g}"
+            f" uninterrupted, masters relative L2 {o['resume_rel_l2']:.3g} "
+            f"(tol {RESUME_TOL}); bit_equal={o['resume_bit_equal']}")
+    r0 = ranks[0]
+    for what, key, tol in (
+            ("gradient", "grad_rel_l2", DP_TOL),
+            ("update (every element; not gated)", "update_all_rel_l2", None),
+            (f"update ({r0['update_dropped']} of {r0['update_elements']} "
+             f"elements whose gradient is within {ZERO_GRAD} of its leaf's "
+             "RMS left out)", "update_rel_l2", DP_TOL)):
+        rel = r0[key]
+        worst = max(rel, key=rel.get)
+        vals = sorted(rel.values())
+        log(f"[dp train] step 1's {what} of each master against the "
+            f"one-process step's: {len(rel)} leaves, relative L2 median "
+            f"{vals[len(vals) // 2]:.3g}, max {rel[worst]:.3g} at {worst} "
+            f"(tol {tol})")
+        if tol is not None and not rel[worst] <= tol:
+            fail(f"[dp train] step 1's {what} differs ({rel[worst]} > "
+                 f"{tol})")
+    if not ranks[0]["grad_leaves_match"]:
+        fail("[dp train] step 1's gradient leaves differ from the "
+             "reference's")
+    log(f"[dp train] masters after step 1, relative L2 max "
+        f"{ranks[0]['master_rel_l2']:.3g} (a zero-initialized bias is its "
+        "update: AdamW's first step is ±lr an element, so a gradient "
+        "element near zero that changes sign moves it by 2 lr)")
+    if ranks[0]["digest_0"] != ref["digest_0"]:
+        fail("[dp train] rank 0 started from other masters than the "
+             "reference")
+    for step in ("digest_1", "digest_3"):
+        if ranks[0][step] != ranks[1][step]:
+            fail(f"[dp train] the ranks' masters differ ({step})")
+    log("[dp train] the two ranks' masters bit-equal after steps 1 and 3 "
+        f"({time.perf_counter() - t:.1f} s)")
+    for name, n in ranks[0]["launches"].items():
+        rows.setdefault(name, {})["launches_dp_train"] = n
+    out["dp_train"] = [{k: v for k, v in o.items()
+                        if not k.endswith("_rel_l2")}
+                       for o in ranks]
+
+    t = time.perf_counter()
+    ranks = launch("dp_serve", 2, backend, 900)
+    for label in ("bf16", "int8"):
+        for r, o in enumerate(ranks):
+            s = o[label]
+            log(f"[dp serve] {label} rank {r}: pixels {s['pixels']}, "
+                f"{s['s_per_frame']:.3f} s/frame ({share}), "
+                f"launches {json.dumps(s['launches'])}; latents bit-equal "
+                f"to the one-rank rollout of its row with its seed: "
+                f"{s['bit_equal']}")
+            if not (s["bit_equal"] and s["all_launched"]
+                    and s["launches_match_one_rank"] and s["expected_ok"]):
+                fail(f"[dp serve] {label} rank {r}: {s}")
+        if ranks[0][label]["digest"] == ranks[1][label]["digest"]:
+            fail(f"[dp serve] {label}: the ranks drew the same noise")
+        for name, n in ranks[0][label]["launches"].items():
+            rows.setdefault(name, {})["launches_dp_serve"] = n
+    log(f"[dp serve] the ranks' latents differ (their generators do) "
+        f"({time.perf_counter() - t:.1f} s)")
+    out["dp_serve"] = ranks
+
+    t = time.perf_counter()
+    ranks = launch("tp_serve", 2, backend, 600)
+    for r, o in enumerate(ranks):
+        log(f"[tp serve] rank {r} ({o['backend']}, {o['qkv_cols']} qkv "
+            f"columns a rank, `{o['attention_backend']}`): depth {TP_DEPTH}, "
+            f"max_abs_err {o['max_abs_err']:.4g} against the one-process "
+            f"`xla` rollout (max |latent| {o['max_abs_ref']:.4g}, tol "
+            f"{TP_TOL} of it; with the out / fc2 biases counted twice the "
+            f"one process is off by {o['doubled_abs_err']:.4g}); "
+            f"{o['s_per_frame']:.3f} s/frame, one process "
+            f"{o['one_s_per_frame']:.3f} ({share}); kernel "
+            f"launches {o['launches']}")
+        bound = TP_TOL * o["max_abs_ref"]
+        if not (o["finite"] and o["max_abs_err"] <= bound):
+            fail(f"[tp serve] rank {r}: the rollout differs")
+        if not o["doubled_abs_err"] > bound:
+            fail(f"[tp serve] rank {r}: the gate cannot see a bias added "
+                 "on every rank")
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        fail("[tp serve] the ranks' latents differ")
+    log(f"[tp serve] the ranks' latents bit-equal "
+        f"({time.perf_counter() - t:.1f} s)")
+    out["tp_serve"] = ranks
+    return out
+
+
 def _importable(name):
     try:
         __import__(name)
@@ -3197,6 +3870,9 @@ def main():
     del ctx
     torch.cuda.empty_cache()
     timed("train resume", train_resume_phase, rows)
+    gc.collect()  # what cycles keep of the earlier phases' trainers
+    torch.cuda.empty_cache()  # the ranks' phases take the card after this
+    multi = timed("multi-card", multi_card_phase, rows)
     train = rows.pop("train")
     train["resume"] = rows.pop("train_resume")
     if len(rows) != 16:
@@ -3208,7 +3884,8 @@ def main():
             if isinstance(v, float) and not math.isfinite(v):
                 fail(f"{row['name']}: {k} is not finite")
     log(json.dumps({"kernels": list(rows.values()), "train": train,
-                    "temporal": temporal, "approx": approx, "card": smi}))
+                    "temporal": temporal, "approx": approx, "multi": multi,
+                    "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
@@ -3216,4 +3893,5 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--rank"]
+             else main())

@@ -9,7 +9,15 @@ Usage:
 Empty --dit_model_path / --vae_model_path give random weights (a
 checkpoint-free smoke run). Runs on the card unless --device cpu. Flags of
 modes this port does not have yet are accepted and raise
-NotImplementedError when set (ServingConfig). Without --start_frame, or
+NotImplementedError when set (ServingConfig).
+
+On N cards, one process a card:
+  torchrun --nproc_per_node N -m gtax_torch.cli.generate ... --mesh_data N
+(or gtax's GTAX_COORDINATOR / GTAX_NUM_PROCESSES / GTAX_PROCESS_ID in each
+process's environment). --mesh_data N: batched serving, --batch divides by
+N and each rank writes its own rows' videos (<stem>_<row>.<ext>);
+--mesh_model N: tensor-parallel serving on the `xla` backend, bf16, rank 0
+writes the videos. Without --start_frame, or
 with --batch_distinct, the prompts are the first 4 frames of test-set
 clips (the webdataset backend's "test" split, gtax_torch.data.webtar),
 one prompt replicated, or one distinct prompt a stream; their actions are
@@ -66,8 +74,14 @@ def build_parser():
     p.add_argument("--no_cond_cache", action="store_true",
                    help="disable the conditioning cache")
     p.add_argument("--no_unstack", action="store_true")
-    p.add_argument("--mesh_model", type=int, default=1)
-    p.add_argument("--mesh_data", type=int, default=1)
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="tensor-parallel serving over N processes, one a "
+                        "card (forces the xla backend; not with --quantize "
+                        "int8 or --mesh_data)")
+    p.add_argument("--mesh_data", type=int, default=1,
+                   help="batched serving over N processes, one a card: "
+                        "each rolls out its rows of --batch (which N "
+                        "divides) and writes their videos")
     p.add_argument("--decode_chunk", type=int, default=None,
                    help="decode at most N frames per VAE call")
     p.add_argument("--aot_dir", type=str, default=None)
@@ -104,7 +118,11 @@ def test_prompts(n_prompts, n_prompt, total_frames, use_actions):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from gtax_torch.parallel import mesh as meshlib
     from gtax_torch.serving import ServingConfig, VideoGenerator
+
+    # the process group first (no-op in one process)
+    meshlib.initialize_distributed(device=args.device)
 
     if args.batch_distinct and args.start_frame:
         raise ValueError("--batch_distinct draws prompts from the test set; "
@@ -144,21 +162,35 @@ def main(argv=None):
         if actions is not None:
             actions = np.tile(actions, (args.batch, 1, 1))
     seed = args.seed if args.seed is not None else int(time.time())
+    if args.seed is None and meshlib.world_size() > 1:
+        import torch.distributed as dist
+
+        box = [seed]  # rank 0's clock: the ranks' noise derives from one
+        dist.broadcast_object_list(box, src=0)
+        seed = box[0]
 
     t0 = time.perf_counter()
     pixels = gen.generate(video, actions, num_frames=total_frames, seed=seed)
     total_seconds = time.perf_counter() - t0
     gen_seconds = gen.last_timings["rollout_s"]
+    if args.mesh_model > 1 and meshlib.process_index() > 0:
+        rows = range(0)  # every rank holds the same pixels: rank 0 writes
+    elif args.mesh_data > 1:  # this rank's rows of the batch
+        own = meshlib.process_batch_slice(args.batch)
+        rows = range(own.start, own.stop)
+    else:
+        rows = range(args.batch)
     if args.batch == 1:
-        write_video(args.output_path, pixels[0], fps=10)
-        print(f"generation saved to {args.output_path}.")
+        if rows:
+            write_video(args.output_path, pixels[0], fps=10)
+            print(f"generation saved to {args.output_path}.")
     else:
         stem, ext = os.path.splitext(args.output_path)
-        for i in range(args.batch):
-            write_video(f"{stem}_{i}{ext}", pixels[i], fps=10)
-        print(f"{args.batch} generations saved to {stem}_*{ext}.")
+        for i, row in enumerate(rows):
+            write_video(f"{stem}_{row}{ext}", pixels[i], fps=10)
+        print(f"{len(rows)} generations saved to {stem}_*{ext}.")
     if args.benchmark_json:
-        n_gen = (total_frames - n_prompt) * args.batch
+        n_gen = (total_frames - n_prompt) * len(pixels)
         print(json.dumps({
             "generated_frames": n_gen,
             "noise_steps": args.noise_steps,

@@ -11,8 +11,15 @@ directory holds a checkpoint resumes from it (resume_from_checkpoint).
 Runs on the card unless --device cpu. Every single-card option of gtax's
 config runs (the attention backends but `pallas`, int8_forward, remat,
 unstack_train); a `pallas` backend raises ValueError (no gradient), and
-parallel training (mesh_data / mesh_model > 1) NotImplementedError
+tensor-parallel training (mesh_model > 1) NotImplementedError
 (gtax_torch.train.trainer.check_slice).
+
+Data-parallel training on N cards, one process a card (mesh_data: -1 or
+N in the config):
+  torchrun --nproc_per_node N -m gtax_torch.cli.train cfg.yaml
+or gtax's GTAX_COORDINATOR=host:port GTAX_NUM_PROCESSES=N
+GTAX_PROCESS_ID=i in each process's environment. batch_size is each
+rank's; a --latent_cache must be built by a one-process run first.
 """
 
 from __future__ import annotations
@@ -47,6 +54,10 @@ def main(argv=None):
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    # the process group before anything else (no-op in one process)
+    from gtax_torch.parallel import mesh as meshlib
+
+    meshlib.initialize_distributed(device=args.device)
 
     from gtax_torch.train.config import TrainingConfig
     from gtax_torch.train.trainer import Trainer, build_loaders
@@ -83,6 +94,10 @@ def main(argv=None):
 
         if os.path.exists(os.path.join(args.latent_cache, "meta.json")):
             lat_ds = LatentCacheDataset(args.latent_cache)
+        elif meshlib.world_size() > 1:
+            raise ValueError(
+                f"{args.latent_cache} holds no latent cache: build it in one "
+                "process first (each rank here reads only its own shards)")
         else:
             logging.info("Building latent cache at %s ...", args.latent_cache)
             lat_ds = LatentCacheDataset.build(
@@ -92,7 +107,8 @@ def main(argv=None):
                 backend=config.attention_backend)
         train_loader = DataLoader(
             lat_ds, train_loader.batch_size,
-            num_workers=train_loader.num_workers, seed=config.seed)
+            num_workers=train_loader.num_workers, seed=config.seed,
+            rank=train_loader.rank, world=train_loader.world)
     trainer.training_loop(train_loader, val_loader)
     return trainer
 

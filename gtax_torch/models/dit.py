@@ -58,6 +58,13 @@ Parameter dict (float32 masters; Linear kernels are (in, out)):
 W8A8 params replace a block Linear's "kernel" by "kernel_q" (int8) and
 "scale" (fp32, (1, out)).
 
+Tensor parallelism (gtax's GSPMD serving under a model mesh): with
+`tp=`, the model axis of params cut by gtax_torch.parallel.mesh.
+shard_params, dit_apply runs the `xla` backend's unfused branches over
+this rank's heads and fc1 columns, sums the out-projection's and fc2's
+partial products over the axis before their biases, and gathers each
+adaLN head's output whole.
+
 `valid` (the window's slot mask) is a (T,) bool sequence or CPU tensor, or
 None; per-batch (B, T) masks are not part of this slice.
 """
@@ -377,17 +384,19 @@ def _mlp_weights(mp):
     return False, (f1["kernel"], f1["bias"], f2["kernel"], f2["bias"])
 
 
-def _mlp(mp, h, sh, sc, g, fns=KERNEL_BRANCHES, fused=True, qw=None):
+def _mlp(mp, h, sh, sc, g, fns=KERNEL_BRANCHES, fused=True, qw=None,
+         reduce=None):
     """The MLP branch over (rows, S, D) tokens: int8 or fused wrappers (the
     fused one's int8 forward given qw), or unfused, x +
-    gate(mlp(modulate(LN(x)))) (gtax's XLA path)."""
+    gate(mlp(modulate(LN(x)))) (gtax's XLA path; reduce: fc2's sum over
+    the model ranks)."""
     q8, w = _mlp_weights(mp)
     if q8:
         return quant.fused_mlp_branch_q(h, sh, sc, g, *w)
     if fused:
         return fns[2](h, sh, sc, g, *w, **({} if qw is None else {"qw": qw}))
     return h + gate(mlp(mp, modulate(layer_norm(h), sh, sc), gelu_tanh,
-                        h.dtype), g)
+                        h.dtype, reduce), g)
 
 
 def _unfused_attention(fn, ap, h, sh, sc, g, grid, freqs, num_heads,
@@ -461,10 +470,20 @@ def _check_int8_fwd(backend, plain_branches):
         raise ValueError("int8_fwd has no plain_branches form")
 
 
+def _check_tp(params, backend, plain_branches):
+    if (backend != "xla" or plain_branches
+            or "kernel_q" in _blocks(params)[0]["s_attn"]["qkv"]):
+        raise ValueError("tensor-parallel params run the `xla` backend's "
+                         "unfused bf16/fp32 branches (gtax's GSPMD path), "
+                         f"not backend {backend!r}, the plain kernel "
+                         "branches or W8A8 params")
+
+
 def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
               valid=None, compute_dtype=torch.bfloat16, mods=None,
               plain_branches=False, backend="fused_all", attn_cache=None,
-              collect_cache=False, int8_fwd=False, int8_weights=None):
+              collect_cache=False, int8_fwd=False, int8_weights=None,
+              tp=None):
     """Full-window forward. x: (B, T, C, H, W) latents; t: (B, T) integer
     noise levels; external_cond: optional (B, T, action_dim); valid:
     optional (T,) mask of real frames. With `mods` (dit_cond output) the
@@ -486,10 +505,19 @@ def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
     gated residual deltas (x_after - x_before, (B, T, gh, gw, D) in the
     compute dtype), a list of (delta_s, delta_t) pairs, one per block;
     attn_cache=<that list> skips every attention branch and adds the
-    cached delta instead. The MLP branches always run."""
+    cached delta instead. The MLP branches always run.
+
+    tp: the model axis (gtax_torch.parallel.mesh.Axis) of params cut by
+    mesh.shard_params, under the `xla` backend (gtax's tensor-parallel
+    serving): each rank attends over its heads and runs fc1 over its
+    columns; the out-projection's and fc2's partial products are summed
+    over the axis before their biases, and each adaLN head's output is
+    gathered whole. Inference only."""
     attn.check_backend(backend)
     if int8_fwd:
         _check_int8_fwd(backend, plain_branches)
+    if tp is not None:
+        _check_tp(params, backend, plain_branches)
     remat = cfg.block_remat and torch.is_grad_enabled()
     if remat and (collect_cache or attn_cache is not None):
         raise ValueError("attention broadcast is inference-only: not with "
@@ -501,7 +529,8 @@ def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
     fused_mlp = backend in attn.FUSED_MLP
     blocks = _blocks(params)
     if mods is None:
-        mods = _cond(params, blocks, cfg, t, external_cond, compute_dtype)
+        mods = _cond(params, blocks, cfg, t, external_cond, compute_dtype,
+                     tp)
     else:
         _need_unstacked(params, "dit_apply(mods=...)")
     spatial, temporal = _rope_tables(params, cfg, T)
@@ -513,6 +542,7 @@ def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
     grid = (B, T, cfg.grid_h, cfg.grid_w, D)
     spatial_grid = spatial.reshape(cfg.grid_h, cfg.grid_w, -1)
     rows = B * T
+    reduce = None if tp is None else tp.all_reduce
 
     def block_fn(h, i):
         bp = _cast_weights(blocks[i], compute_dtype)
@@ -541,16 +571,17 @@ def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
             elif half == "s":
                 h = _unfused_attention(attn.spatial_axial_attention, ap, h,
                                        sh1, sc1, g1, grid, spatial_grid, H,
-                                       backend)
+                                       backend, reduce=reduce)
             else:
                 h = _unfused_attention(attn.temporal_axial_attention, ap, h,
                                        sh1, sc1, g1, grid, freqs, H, backend,
-                                       valid=valid)
+                                       valid=valid, reduce=reduce)
             if collect_cache:
                 pair_deltas.append((h - h_pre).to(compute_dtype).reshape(
                     grid))
             mqw = None if qws is None else qws[f"{half}_mlp"]
-            h = _mlp(bp[f"{half}_mlp"], h, sh2, sc2, g2, fns, fused_mlp, mqw)
+            h = _mlp(bp[f"{half}_mlp"], h, sh2, sc2, g2, fns, fused_mlp, mqw,
+                     reduce)
         return h, tuple(pair_deltas)
 
     h = _embed(params, cfg, x, compute_dtype)
@@ -593,8 +624,9 @@ def dit_cond(params, cfg: DiTConfig, t, external_cond=None,
                  compute_dtype)
 
 
-def _cond(params, blocks, cfg, t, external_cond, compute_dtype):
-    """dit_cond over the per-block list `blocks`."""
+def _cond(params, blocks, cfg, t, external_cond, compute_dtype, tp=None):
+    """dit_cond over the per-block list `blocks`; with tp (dit_apply's),
+    each adaLN head's columns are this rank's, gathered whole."""
     B, T = t.shape
     c = timestep_embedder(params["t_embedder"], t.reshape(B * T),
                           compute_dtype=compute_dtype)
@@ -602,8 +634,9 @@ def _cond(params, blocks, cfg, t, external_cond, compute_dtype):
     if external_cond is not None:
         c = c + linear(params["external_cond"], external_cond, compute_dtype)
     h = F.silu(c.float()).to(compute_dtype)
-    heads = [{"s": linear(bp["s_adaln"], h, compute_dtype),
-               "t": linear(bp["t_adaln"], h, compute_dtype)}
+    gather = (lambda a: a) if tp is None else tp.all_gather
+    heads = [{"s": gather(linear(bp["s_adaln"], h, compute_dtype)),
+               "t": gather(linear(bp["t_adaln"], h, compute_dtype))}
               for bp in blocks]
     return {"blocks": heads,
             "final": linear(params["final"]["adaln"], h, compute_dtype)}
@@ -710,19 +743,20 @@ def init_attn_cache(cfg: DiTConfig, B: int, T: int,
 
 
 def make_pab_fns(cfg: DiTConfig, compute_dtype=torch.bfloat16,
-                 backend="fused_all"):
+                 backend="fused_all", tp=None):
     """(collect_fn, reuse_fn, init_cache_fn) for the rollouts' attention
-    broadcast (make_rollout(pab=) / make_pipelined_rollout(pab=))."""
+    broadcast (make_rollout(pab=) / make_pipelined_rollout(pab=)); tp as
+    dit_apply's."""
 
     def collect(params, x, t, a, valid):
         return dit_apply(params, cfg, x, t, a, valid,
                          compute_dtype=compute_dtype, backend=backend,
-                         collect_cache=True)
+                         collect_cache=True, tp=tp)
 
     def reuse(params, x, t, a, valid, cache):
         return dit_apply(params, cfg, x, t, a, valid,
                          compute_dtype=compute_dtype, backend=backend,
-                         attn_cache=cache)
+                         attn_cache=cache, tp=tp)
 
     def init_cache(params, B, T):
         return init_attn_cache(cfg, B, T, compute_dtype,

@@ -85,45 +85,60 @@ def _sdpa_heads_last(q, k, v, mask=None, causal=False):
     return out.to(q.dtype)
 
 
+def _qkv_heads(params, x, num_heads, compute_dtype):
+    """(q, k, v, heads): qkv's three column blocks, each (..., heads *
+    d) with d = D // num_heads. Under tensor parallelism the kernel holds
+    this rank's heads of each (mesh.shard_params), so heads =
+    num_heads / model there."""
+    d = x.shape[-1] // num_heads
+    qkv = linear(params["qkv"], x, compute_dtype)
+    width = qkv.shape[-1] // 3
+    return (*qkv.split(width, dim=-1), width // d)
+
+
 def spatial_axial_attention(params, x, rope_freqs, num_heads: int,
-                            compute_dtype=torch.bfloat16, backend="xla"):
+                            compute_dtype=torch.bfloat16, backend="xla",
+                            reduce=None):
     """Full attention over each frame's H x W token grid. x: (B, T, H, W,
     D); rope_freqs: (H, W, rot) pixel-axial table applied to q and k; qkv
-    without bias, the output projection with it."""
+    without bias, the output projection with it. reduce: the output
+    projection's sum over the model ranks (nn.layers.linear), for params
+    cut by mesh.shard_params."""
     B, T, H, W, D = x.shape
     d = D // num_heads
-    qkv = linear(params["qkv"], x, compute_dtype)
-    q, k, v = (t.reshape(B, T, H, W, num_heads, d)
-               for t in qkv.split(D, dim=-1))
+    q, k, v, heads = _qkv_heads(params, x, num_heads, compute_dtype)
+    q, k, v = (t.reshape(B, T, H, W, heads, d) for t in (q, k, v))
     rf = rope_freqs[:, :, None, :]
     q, k = rope.apply_rotary_emb(rf, q), rope.apply_rotary_emb(rf, k)
-    hw = H * W
+    hw, width = H * W, heads * d
     out = None
     if backend == "pallas":
         out = kattn.fused_mha_token_major(
-            q.reshape(B, T, hw, D), k.reshape(B, T, hw, D),
-            v.reshape(B, T, hw, D), num_heads)
+            q.reshape(B, T, hw, width), k.reshape(B, T, hw, width),
+            v.reshape(B, T, hw, width), heads)
     if out is None:
-        out = _sdpa_heads_last(*(t.reshape(B, T, hw, num_heads, d)
+        out = _sdpa_heads_last(*(t.reshape(B, T, hw, heads, d)
                                  for t in (q, k, v)))
-    return linear(params["out"], out.reshape(B, T, H, W, D), compute_dtype)
+    return linear(params["out"], out.reshape(B, T, H, W, width),
+                  compute_dtype, reduce)
 
 
 def temporal_axial_attention(params, x, rope_freqs, num_heads: int,
                              valid=None, compute_dtype=torch.bfloat16,
-                             backend="xla"):
+                             backend="xla", reduce=None):
     """Causal attention over T at each spatial site. x: (B, T, H, W, D);
     rope_freqs: (T, rot) over the window slots; valid: optional (T,) or
     (B, T) bools, False for padding slots, whose keys are masked (the
     diagonal stays open, so a padded query never softmaxes over nothing).
     Under `pallas` a (T,) mask takes the token-major kernel over (B, S, T,
-    D), transposed there and back by torch; a (B, T) mask the plain path."""
+    D), transposed there and back by torch; a (B, T) mask the plain path.
+    reduce: as spatial_axial_attention's."""
     B, T, H, W, D = x.shape
     d = D // num_heads
     S = H * W
-    qkv = linear(params["qkv"], x, compute_dtype)
-    q, k, v = (t.reshape(B, T, S, num_heads, d)
-               for t in qkv.split(D, dim=-1))
+    q, k, v, heads = _qkv_heads(params, x, num_heads, compute_dtype)
+    q, k, v = (t.reshape(B, T, S, heads, d) for t in (q, k, v))
+    width = heads * d
     rf = rope_freqs[:, None, None, :]
     q, k = rope.apply_rotary_emb(rf, q), rope.apply_rotary_emb(rf, k)
 
@@ -133,12 +148,12 @@ def temporal_axial_attention(params, x, rope_freqs, num_heads: int,
         mask = mask & (ok[..., None, :] | torch.eye(T, dtype=torch.bool))
 
     if backend == "pallas" and mask.dim() == 2:
-        qt, kt, vt = (t.reshape(B, T, S, D).transpose(1, 2)
+        qt, kt, vt = (t.reshape(B, T, S, width).transpose(1, 2)
                       for t in (q, k, v))
-        out = kattn.fused_mha_token_major(qt, kt, vt, num_heads, mask=mask)
+        out = kattn.fused_mha_token_major(qt, kt, vt, heads, mask=mask)
         if out is not None:
-            out = out.transpose(1, 2).reshape(B, T, H, W, D)
-            return linear(params["out"], out, compute_dtype)
+            out = out.transpose(1, 2).reshape(B, T, H, W, width)
+            return linear(params["out"], out, compute_dtype, reduce)
 
     if mask.dim() == 3:
         mask = mask[:, None, None]  # (B, 1, 1, T, T)
@@ -147,8 +162,8 @@ def temporal_axial_attention(params, x, rope_freqs, num_heads: int,
     logits = torch.where(mask.to(x.device), logits, -1e30)
     probs = _softmax(logits).to(q.dtype)
     out = torch.einsum("bshqk,bkshd->bqshd", probs.float(), v.float())
-    out = out.to(q.dtype).reshape(B, T, H, W, D)
-    return linear(params["out"], out, compute_dtype)
+    out = out.to(q.dtype).reshape(B, T, H, W, width)
+    return linear(params["out"], out, compute_dtype, reduce)
 
 
 def vae_frame_attention(params, x, rope_freqs, num_heads: int, grid_hw,

@@ -24,18 +24,25 @@ import torch.nn.functional as F
 from gtax_torch.kernels import quant
 
 
-def linear(params, x, compute_dtype=torch.bfloat16):
+def linear(params, x, compute_dtype=torch.bfloat16, reduce=None):
     """y = x @ kernel + bias, cast to the compute dtype.
 
     W8A8 params (gtax_torch.models.dit.quantize_for_inference) carry an int8
     "kernel_q" with per-column fp32 "scale": x is quantized per row from
     fp32, the int8 product is exact (quant.mm_int) and dequantized as
-    (acc * s_row) * s_col, as gtax/nn/layers.py linear does."""
+    (acc * s_row) * s_col, as gtax/nn/layers.py linear does.
+
+    reduce: for a kernel cut on its input rows over the model ranks
+    (tensor parallelism), the sum of the ranks' fp32 partial products
+    (mesh.Axis.all_reduce), taken before the bias, which every rank holds
+    whole and adds once."""
     if "kernel_q" in params:
         y = quant.qdot(x.float(), params["kernel_q"], params["scale"])
     else:
         kernel = params["kernel"].to(compute_dtype)
         y = torch.matmul(x.to(compute_dtype).float(), kernel.float())
+    if reduce is not None:
+        y = reduce(y)
     if "bias" in params:
         y = y + params["bias"].float()
     return y.to(compute_dtype)
@@ -66,10 +73,12 @@ def gelu_exact(x):
     return F.gelu(x)
 
 
-def mlp(params, x, act=gelu_tanh, compute_dtype=torch.bfloat16):
-    """fc1 -> act -> fc2."""
+def mlp(params, x, act=gelu_tanh, compute_dtype=torch.bfloat16,
+        reduce=None):
+    """fc1 -> act -> fc2; reduce: fc2's sum over the model ranks
+    (linear)."""
     h = act(linear(params["fc1"], x, compute_dtype))
-    return linear(params["fc2"], h, compute_dtype)
+    return linear(params["fc2"], h, compute_dtype, reduce)
 
 
 def patchify_embed(params, x, patch_size: int, compute_dtype=torch.bfloat16):

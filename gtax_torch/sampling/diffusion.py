@@ -511,13 +511,16 @@ class LossConfig:
     max_noise_level: int = MAX_NOISE_LEVEL
 
 
-def draw_loss_noise(latents, cfg: LossConfig, generator):
+def draw_loss_noise(latents, cfg: LossConfig, generator, batch=None):
     """The random draws of diffusion_forcing_loss for a (B, T, C, H, W)
     clip, from `generator` (on the latents' device): per generated frame a
     target noise index in [1, ddim_noise_steps], a context index in
     [1, ctx_max_noise_idx] (unclipped), and unclipped normal noise for the
-    window's context slots and last slot."""
+    window's context slots and last slot; each (n_gen, B, ...). batch:
+    draw for that many clips instead of B (a data-parallel step's global
+    batch, of which each rank keeps its rows)."""
     B, T, C, H, W = latents.shape
+    B = B if batch is None else batch
     n_gen = T - cfg.n_prompt_frames
     Wn = cfg.max_frames
     dev = latents.device

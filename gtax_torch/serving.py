@@ -37,10 +37,25 @@ unstack=False keeps the params in the stacked layout, as gtax does: the
 rollout is then the full-window one, with no conditioning cache and no
 incremental decoding (gtax/serving.py:88-91, :133, :149).
 
+More than one card (gtax_torch.parallel.mesh; one process a card, in an
+initialized process group, as torchrun launches them):
+mesh_data = N (the world size) is batched serving: every rank passes the
+same global batch, whose size N divides, and encodes, rolls out and
+decodes its own rows on its card on the single-card path (fused kernels,
+conditioning cache, incremental decoding, bf16 or int8) with a generator
+of its own (mesh.rank_seed), and returns those rows (gtax's multi-process
+contract); generate(noise=) is refused there. mesh_model = N (the world
+size) is tensor-parallel serving, as gtax's GSPMD path: bf16 or fp32 on
+the `xla` backend (the backend is forced, int8 refused), the DiT blocks
+cut by mesh.shard_params, the full-window rollout with no conditioning
+cache; every rank returns the same pixels. The two together are refused,
+as in gtax, and so is a mesh that does not fill the group (1x1 in a group
+of two among them).
+
 Options that run: quantize "none" or "int8", any pipeline_depth and
-attn_broadcast gtax takes, every backend, either layout; mesh_data =
-mesh_model = 1 and aot_dir=None only. Any other value of those raises
-NotImplementedError (ROADMAP.md queues them).
+attn_broadcast gtax takes, every backend, either layout, mesh_data and
+mesh_model as above; aot_dir=None only (another value raises
+NotImplementedError; ROADMAP.md queues it).
 """
 
 from __future__ import annotations
@@ -55,6 +70,7 @@ from gtax_torch.io import safetensors_port as port
 from gtax_torch.models import dit as dit_mod
 from gtax_torch.models import vae as vae_mod
 from gtax_torch.nn import attention as attn
+from gtax_torch.parallel import mesh as meshlib
 from gtax_torch.sampling.diffusion import (SamplerConfig,
                                            make_pipelined_rollout,
                                            make_rollout)
@@ -90,16 +106,21 @@ def _check_slice(cfg: ServingConfig) -> None:
         raise NotImplementedError(
             f"ServingConfig.quantize={cfg.quantize!r} is not ported (only "
             "'none' and 'int8'); see ROADMAP.md")
-    unsupported = {
-        "mesh_data": (cfg.mesh_data, 1),
-        "mesh_model": (cfg.mesh_model, 1),
-        "aot_dir": (cfg.aot_dir, None),
-    }
-    for name, (value, allowed) in unsupported.items():
-        if value != allowed:
-            raise NotImplementedError(
-                f"ServingConfig.{name}={value!r} is not ported yet (only "
-                f"{allowed!r}); see ROADMAP.md")
+    if cfg.aot_dir is not None:
+        raise NotImplementedError(
+            f"ServingConfig.aot_dir={cfg.aot_dir!r} is not ported yet (only "
+            "None); see ROADMAP.md")
+    if cfg.mesh_model > 1 and cfg.mesh_data > 1:
+        raise ValueError("mesh_model and mesh_data are mutually exclusive "
+                         "serving modes")
+    if cfg.mesh_model > 1 and cfg.quantize == "int8":
+        raise ValueError("mesh_model: the int8 kernels are single-card; use "
+                         "bf16 (the `xla` backend) for tensor-parallel "
+                         "serving")
+    # the mesh fills the process group: a 1x1 mesh in a group of N would
+    # have every rank roll out the whole batch and write the same files
+    meshlib.MeshConfig(cfg.mesh_data, cfg.mesh_model).resolve(
+        meshlib.world_size())
     attn.check_backend(cfg.attention_backend)
     if cfg.dtype not in ("bfloat16", "float32"):
         raise ValueError(f"dtype must be bfloat16 or float32, got "
@@ -111,14 +132,17 @@ def _to(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def build_rollout(dit_cfg, cfg: ServingConfig, dtype):
+def build_rollout(dit_cfg, cfg: ServingConfig, dtype, tp=None):
     """The rollout a VideoGenerator with `cfg` runs, built as
     gtax/serving.py:105-160 builds it: attention broadcast when
     attn_broadcast > 1 (then no conditioning cache); otherwise, in the
     unstacked layout, the conditioning cache, with incremental decoding
     under the fused backends; the pipelined rollout when pipeline_depth > 1
-    (the cache serves its incremental decoding only). Returns rollout(params,
-    prompt_latents, actions, generator, num_gen_frames, noise=None)."""
+    (the cache serves its incremental decoding only). tp: the model axis of
+    tensor-parallel params (dit_apply's); the rollout is then the full
+    window, with no conditioning cache, as gtax's under a model mesh.
+    Returns rollout(params, prompt_latents, actions, generator,
+    num_gen_frames, noise=None)."""
     sampler = SamplerConfig(ddim_noise_steps=cfg.noise_steps,
                             stabilization_level=15, schedule_clamp_min=1e-4,
                             attn_broadcast=cfg.attn_broadcast)
@@ -126,12 +150,13 @@ def build_rollout(dit_cfg, cfg: ServingConfig, dtype):
 
     def dit_fn(params, x, t, a, valid):
         return dit_mod.dit_apply(params, dit_cfg, x, t, a, valid,
-                                 compute_dtype=dtype, backend=backend)
+                                 compute_dtype=dtype, backend=backend, tp=tp)
 
     pab = cond = incremental = None
     if cfg.attn_broadcast > 1:
-        pab = dit_mod.make_pab_fns(dit_cfg, dtype, backend)
-    elif cfg.attn_broadcast == 1 and cfg.unstack and cfg.cond_cache:
+        pab = dit_mod.make_pab_fns(dit_cfg, dtype, backend, tp)
+    elif (cfg.attn_broadcast == 1 and cfg.unstack and cfg.cond_cache
+          and tp is None):
         cond = dit_mod.make_cond_fns(dit_cfg, dtype, backend)
         if cfg.incremental and backend in attn.FUSED_ATTENTION:
             incremental = dit_mod.make_incremental_fns(dit_cfg, dtype)
@@ -145,7 +170,8 @@ def build_rollout(dit_cfg, cfg: ServingConfig, dtype):
 
 
 class VideoGenerator:
-    """Holds prepared params and the rollout."""
+    """Holds prepared params and the rollout (and, on more than one card,
+    this rank's place in the mesh: `mesh`, None on one)."""
 
     def __init__(self, dit_params, vae_params, cfg: ServingConfig =
                  ServingConfig(), device=None):
@@ -170,12 +196,23 @@ class VideoGenerator:
                       else dit_mod.restack_params(dit_params, self.dit_cfg))
         if cfg.quantize == "int8":
             dit_params = dit_mod.quantize_for_inference(dit_params)
+        self.mesh, tp, run_cfg = None, None, cfg
+        if cfg.mesh_data > 1 or cfg.mesh_model > 1:
+            self.mesh = meshlib.make_mesh(meshlib.MeshConfig(
+                data=cfg.mesh_data, model=cfg.mesh_model))
+        if cfg.mesh_model > 1:
+            # the fused kernels are single-card, as gtax's Pallas calls
+            # are under GSPMD: the blocks' products go over the model axis
+            tp = self.mesh.model
+            run_cfg = dataclasses.replace(cfg, attention_backend="xla")
+            dit_params = meshlib.shard_params(dit_params, self.mesh)
         self.dit_params = dit_params
         self.vae_params = vae_params
 
         # the fused VAE rides the fused backends only, as in gtax
-        self._fused = cfg.attention_backend in attn.FUSED_ATTENTION
-        self._rollout = build_rollout(self.dit_cfg, cfg, dtype)
+        self._backend = run_cfg.attention_backend
+        self._fused = self._backend in attn.FUSED_ATTENTION
+        self._rollout = build_rollout(self.dit_cfg, run_cfg, dtype, tp)
         # stage timings of the most recent generate() call, seconds
         self.last_timings = {}
 
@@ -211,8 +248,7 @@ class VideoGenerator:
         chunk = T if chunk is None else chunk
         return torch.cat([decode_frames(self.vae_params, self.vae_cfg,
                                         lat[:, i:i + chunk], self._dtype,
-                                        self._fused,
-                                        self.cfg.attention_backend)
+                                        self._fused, self._backend)
                           for i in range(0, T, chunk)], dim=1)
 
     def generate(self, prompt_frames, actions=None, num_frames: int = 32,
@@ -220,10 +256,11 @@ class VideoGenerator:
         """prompt_frames: (B, T0, 3, H, W) float in [0, 1] (or (T0, 3, H,
         W) for B=1); actions: (B, num_frames, 25) or None; noise: optional
         pre-drawn (B, num_frames - T0, C, h, w) fresh-frame latents (not
-        with pipeline_depth > 1; there the rollout's own `noise=` takes
-        one draw a cycle).
+        with pipeline_depth > 1, where the rollout's own `noise=` takes
+        one draw a cycle, nor with mesh_data > 1).
         Returns (B, num_frames, H, W, 3) uint8 numpy pixels; num_frames
-        counts prompt + generated frames."""
+        counts prompt + generated frames. Under mesh_data = N every rank
+        passes the same global batch and gets back its own B / N rows."""
         dev = self.device
         video = _to(prompt_frames, dev)
         if video.dim() == 4:
@@ -239,21 +276,39 @@ class VideoGenerator:
                 actions = actions[None]
             if actions.shape[1] < num_frames:
                 raise ValueError(f"need actions for all {num_frames} frames")
+        n_gen = num_frames - n_prompt
+        data = 1 if self.mesh is None else self.mesh.data.size
         if noise is not None:
-            if self.cfg.pipeline_depth > 1:
-                raise ValueError("pre-drawn noise is a non-pipelined hook")
+            if self.cfg.pipeline_depth > 1 or data > 1:
+                raise ValueError("pre-drawn noise is a single-mesh, "
+                                 "non-pipelined hook")
             noise = _to(noise, dev).float()
-        generator = torch.Generator(device=dev).manual_seed(seed)
+        if data > 1:
+            if B % data:
+                raise ValueError(f"batch {B} must divide over "
+                                 f"mesh_data={data}")
+            rows = meshlib.process_batch_slice(B)
+            video = video[rows]
+            actions = None if actions is None else actions[rows]
+            dp = meshlib.data_parallel_rollout(self._rollout, self.mesh,
+                                               n_gen)
+
+            def roll(latents):
+                return dp(self.dit_params, latents, actions, seed)
+        else:
+            generator = torch.Generator(device=dev).manual_seed(seed)
+
+            def roll(latents):
+                return self._rollout(self.dit_params, latents, actions,
+                                     generator, num_gen_frames=n_gen,
+                                     noise=noise)
         with torch.inference_mode():
             t0 = time.perf_counter()
             latents = encode_frames(self.vae_params, self.vae_cfg, video,
-                                    self._dtype, self._fused,
-                                    self.cfg.attention_backend)
+                                    self._dtype, self._fused, self._backend)
             self._sync()
             t1 = time.perf_counter()
-            lat = self._rollout(self.dit_params, latents, actions, generator,
-                                num_gen_frames=num_frames - n_prompt,
-                                noise=noise)
+            lat = roll(latents)
             self._sync()
             t2 = time.perf_counter()
             pix = self._decode(lat)

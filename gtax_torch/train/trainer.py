@@ -13,8 +13,19 @@ and the profile_dir trace window; the attention backends `xla`, `fused`,
 `fused_mlp` and `fused_all`, int8-forward training (`int8_forward` under
 `fused` / `fused_all`), per-block remat (`remat`) and the stacked weight
 layout (`unstack_train: false`). `pallas` is refused: its attention
-kernels have no gradient (nor has gtax's Pallas attention). Not ported yet
-(check_slice raises NotImplementedError): parallel training (ROADMAP.md).
+kernels have no gradient (nor has gtax's Pallas attention).
+
+Data-parallel training (`mesh_data` = the process group's size, one
+process a card; gtax_torch.parallel.mesh): each rank trains on
+config.batch_size rows of its own a micro-step (the loaders' stride),
+takes its rows of the global batch's loss draws from the shared training
+generator, and after the last micro-batch an all-reduce of each gradient
+(gtax's psum) makes them the one-process gradients at the
+global batch before the clip and AdamW, so every rank takes the same
+step. Rank 0's masters are broadcast at construction; rank 0 writes the
+export, the state and the metrics records; step.json keeps every rank's
+stream cursor. Not ported yet (check_slice raises NotImplementedError):
+tensor-parallel training (`mesh_model` > 1; ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -37,9 +48,11 @@ from gtax_torch.io import safetensors_port as port
 from gtax_torch.models import dit as dit_mod
 from gtax_torch.models import vae as vae_mod
 from gtax_torch.models.vae import vae_decode, vae_encode
+from gtax_torch.parallel import mesh as meshlib
 from gtax_torch.sampling.diffusion import (LossConfig, SamplerConfig,
                                            diffusion_forcing_loss,
-                                           make_rollout, renoise_last_frame)
+                                           draw_loss_noise, make_rollout,
+                                           renoise_last_frame)
 from gtax_torch.train import checkpoint as ckpt
 from gtax_torch.train.config import TrainingConfig
 from gtax_torch.train.optim import decays, leaves, make_optimizer
@@ -96,9 +109,9 @@ TRAIN_BACKENDS = ("xla", "fused", "fused_mlp", "fused_all")
 
 def check_slice(config: TrainingConfig) -> None:
     """Raise ValueError for a configuration that cannot train (the `pallas`
-    backend; int8_forward off the fused backends, as gtax asserts) and
-    NotImplementedError for what the port does not run yet (parallel
-    training; ROADMAP.md)."""
+    backend; int8_forward off the fused backends, as gtax asserts; a mesh
+    that does not fill the process group) and NotImplementedError for what
+    the port does not run yet (tensor-parallel training; ROADMAP.md)."""
     backend = config.attention_backend
     if backend == "pallas":
         raise ValueError(
@@ -113,11 +126,11 @@ def check_slice(config: TrainingConfig) -> None:
         raise ValueError("int8_forward runs through the fused trainable "
                          "kernels: attention_backend 'fused' or "
                          f"'fused_all', not {backend!r}")
-    for name in ("mesh_data", "mesh_model"):
-        if getattr(config, name) > 1:
-            raise NotImplementedError(
-                f"TrainingConfig.{name}={getattr(config, name)}: parallel "
-                "training is not ported yet; see ROADMAP.md")
+    if config.mesh_model > 1:
+        raise NotImplementedError(
+            f"TrainingConfig.mesh_model={config.mesh_model}: tensor-parallel "
+            "training is not ported yet; see ROADMAP.md")
+    meshlib.MeshConfig(config.mesh_data, 1).resolve(meshlib.world_size())
 
 
 class Trainer:
@@ -131,13 +144,17 @@ class Trainer:
     masters' .grad; then they are divided by the accumulation count, clipped
     and applied, all on the card without a host read. train_step returns the
     PREVIOUS step's metrics, so the host prepares and enqueues step N+1
-    while the card runs step N."""
+    while the card runs step N. In a process group the trainer is
+    data-parallel over it (module docstring): `mesh` is its layout,
+    `world` and `rank` its data axis."""
 
     def __init__(self, config: TrainingConfig, total_dataset_size: int,
                  dit_cfg=None, vae_cfg=None, dit_params=None, vae_params=None,
                  device=None):
         check_slice(config)
         self.config = config
+        self.mesh = meshlib.make_mesh(meshlib.MeshConfig(config.mesh_data, 1))
+        self.world, self.rank = self.mesh.data.size, self.mesh.data.index
         self.device = resolve_device(device)
         self.compute_dtype = getattr(torch, config.compute_dtype)
         if self.device.type == "cuda" and self.compute_dtype != torch.bfloat16:
@@ -173,6 +190,7 @@ class Trainer:
                                                 copy=True))
         for path, p in leaves(self.dit_params):
             p.requires_grad_(decays(path))  # rope tables stay frozen
+            self.mesh.data.broadcast(p.data)  # rank 0's init or file
 
         self.vae_cfg = vae_cfg or vae_mod.VAE_MODELS[config.vae_model]()
         if vae_params is None and config.vae_checkpoint:
@@ -196,7 +214,8 @@ class Trainer:
         self.max_frames = self.dit_cfg.max_frames
 
         self.steps_per_epoch = total_dataset_size // (
-            config.batch_size * config.gradient_accumulation_steps)
+            config.batch_size * self.world
+            * config.gradient_accumulation_steps)
         self.total_training_steps = self.steps_per_epoch * config.num_epochs
         if config.max_steps > 0:
             self.total_training_steps = min(self.total_training_steps,
@@ -232,12 +251,12 @@ class Trainer:
         self.wandb_run_id = None  # kept in step.json across restarts
         self.train_dataset = None  # the training loader's (its cursor)
         flops = 3.0 * dit_forward_flops(  # forward + backward ~ 3x forward
-            self.dit_cfg,
-            config.batch_size * config.gradient_accumulation_steps,
+            self.dit_cfg, config.batch_size * self.world
+            * config.gradient_accumulation_steps,
             self.max_frames) * max(1, 5 - config.n_prompt_frames)
         self.mfu = None
-        if self.device.type == "cuda":
-            self.mfu = MFUCounter(flops, MFUCounter.peak_for_kind(
+        if self.device.type == "cuda":  # the global step over the world
+            self.mfu = MFUCounter(flops, self.world * MFUCounter.peak_for_kind(
                 torch.cuda.get_device_name(self.device)))
         self._inflight = None  # (device metrics, entry time, lr)
         # the int8 forward's weights of the step being dispatched
@@ -264,15 +283,33 @@ class Trainer:
                                  int8_fwd=self.config.int8_forward,
                                  int8_weights=self._int8_weights)
 
-    def loss(self, params, video, actions, generator, is_latents=False):
+    def loss(self, params, video, actions, generator, is_latents=False,
+             global_draws=False):
         """(mean_loss, sum_loss) of one micro-batch: frozen-VAE encode of
         the pixels (unless they are latent-cache latents already), then the
-        diffusion-forcing loss through the DiT."""
+        diffusion-forcing loss through the DiT. global_draws (the training
+        step's): on more than one rank, this rank's rows of the global
+        batch's draws (rank_draws); one rank draws its batch's own, the
+        same values."""
         latents = video if is_latents else self.encode(video)
+        kw = {}
+        if global_draws and self.world > 1:
+            kw["draws"] = self.rank_draws(latents, generator)
         return diffusion_forcing_loss(
             lambda x, t, a, v: self.dit_fn(params, x, t, a, v), latents,
             actions, generator, self.loss_cfg, self.alphas_cumprod,
-            self.noise_range)
+            self.noise_range, **kw)
+
+    def rank_draws(self, latents, generator):
+        """The loss draws of the global batch (world x this rank's rows),
+        from the shared generator, cut to this rank's rows: the draws gtax
+        takes over its global array, and every rank's generator stays the
+        same."""
+        B = latents.shape[0]
+        draws = draw_loss_noise(latents, self.loss_cfg, generator,
+                                batch=B * self.world)
+        rows = slice(self.rank * B, (self.rank + 1) * B)
+        return {k: v[:, rows] for k, v in draws.items()}
 
     def _dispatch(self, batch: Batch):
         """Enqueue one optimizer step over the batch's micro-batches
@@ -289,13 +326,20 @@ class Trainer:
             acts = None if batch.actions is None else batch.actions[i]
             mean_loss, sum_loss = self.loss(self.dit_params, batch.video[i],
                                             acts, self.generator,
-                                            batch.is_latents)
+                                            batch.is_latents,
+                                            global_draws=True)
             sum_loss.backward()
             loss_sum = loss_sum + mean_loss.detach()
         self._int8_weights = None
-        grads = [None if p.grad is None else p.grad / accum for p in params]
+        # gtax's psum: each rank's gradient is the mean over its rows, so
+        # the sum over the ranks / world is the global batch's
+        meshlib.all_reduce_grads([p.grad for p in params
+                                  if p.grad is not None], self.mesh.data)
+        self.mesh.data.all_reduce(loss_sum)
+        scale = accum * self.world
+        grads = [None if p.grad is None else p.grad / scale for p in params]
         norm = self.optimizer.step(grads)
-        return {"train_loss": loss_sum / accum, "grad_norm": norm}
+        return {"train_loss": loss_sum / scale, "grad_norm": norm}
 
     def train_step(self, batch: Batch):
         """Enqueue one step; return the PREVIOUS step's metrics (None on
@@ -441,11 +485,13 @@ class Trainer:
         """The weight-only export: the masters as the reference's fp32
         safetensors, <output_dir>/<model_name>_epoch_<epoch+1>_<step>
         .safetensors (gtax save_model), keyed by blocks.{i} in either
-        layout (nothing restacked)."""
-        os.makedirs(self.config.output_dir, exist_ok=True)
+        layout (nothing restacked). Written by rank 0; returns its path."""
         path = os.path.join(
             self.config.output_dir, f"{self.config.model_name}_epoch_"
             f"{epoch + 1}_{self.global_step}.safetensors")
+        if self.rank > 0:
+            return path
+        os.makedirs(self.config.output_dir, exist_ok=True)
         port.save_dit(path, self.dit_params, self.dit_cfg)
         logger.warning("Saved checkpoint to %s", path)
         return path
@@ -460,35 +506,47 @@ class Trainer:
     def save_checkpoint(self, epoch: int) -> int:
         """The full state (masters, optimizer moments and count, the
         training generator, global_step) into state_<step>, then step.json
-        (step, epoch, time, the wandb run id, the stream cursor), then the
-        superseded states pruned. Returns the state's bytes."""
-        path = self._ckpt_dir()
-        os.makedirs(path, exist_ok=True)
-        name = f"state_{self.global_step}"
-        n = ckpt.write_state(os.path.join(path, name), self.dit_params,
-                             self.optimizer, self.generator,
-                             self.global_step, self._layout())
-        meta = {"step": self.global_step, "epoch": epoch,
-                "time": time.time()}
-        if self.wandb_run_id is not None:
-            meta["wandb_run_id"] = self.wandb_run_id
+        (step, epoch, time, the wandb run id, the stream cursor: on more
+        than one rank every rank's, `data_cursors` in rank order), then the
+        superseded states pruned. Rank 0 writes (the state is the same on
+        every rank) and every rank waits for it. Returns the state's bytes
+        (0 on the other ranks)."""
         cursor = getattr(self.train_dataset, "cursor", None)
-        if cursor is not None:
-            meta["data_cursor"] = list(cursor)
-        ckpt.write_json(os.path.join(path, ckpt.STEP), meta)
-        ckpt.prune(path, keep=name)
-        logger.warning("Saved checkpoint for step %d (%d bytes)",
-                       self.global_step, n)
+        cursors = self.mesh.data.gather_objects(
+            None if cursor is None else list(cursor))
+        n = 0
+        if self.rank == 0:
+            path = self._ckpt_dir()
+            os.makedirs(path, exist_ok=True)
+            name = f"state_{self.global_step}"
+            n = ckpt.write_state(os.path.join(path, name), self.dit_params,
+                                 self.optimizer, self.generator,
+                                 self.global_step, self._layout())
+            meta = {"step": self.global_step, "epoch": epoch,
+                    "time": time.time()}
+            if self.wandb_run_id is not None:
+                meta["wandb_run_id"] = self.wandb_run_id
+            if cursor is not None and self.world == 1:
+                meta["data_cursor"] = cursors[0]
+            elif cursor is not None:
+                meta["data_cursors"] = cursors
+            ckpt.write_json(os.path.join(path, ckpt.STEP), meta)
+            ckpt.prune(path, keep=name)
+            logger.warning("Saved checkpoint for step %d (%d bytes)",
+                           self.global_step, n)
+        self.mesh.data.barrier()
         return n
 
     def try_resume(self) -> bool:
         """Restore the masters (in place), the optimizer, the generator, the
         step, the epoch, the wandb run id and the data position from the
-        last checkpoint, if there is one (gtax try_resume). The position is
-        the stream cursor when the training dataset has one; otherwise the
-        replayed epoch skips global_step % steps_per_epoch batches, and a
-        state saved at an epoch's last step resumes at the next epoch
-        (gtax replayed the finished epoch whole)."""
+        last checkpoint, if there is one (gtax try_resume); every rank
+        reads it. The position is the stream cursor when the training
+        dataset has one, each rank's own (gtax set rank 0's on every rank,
+        whose streams differ); otherwise the replayed epoch skips
+        global_step % steps_per_epoch batches, and a state saved at an
+        epoch's last step resumes at the next epoch (gtax replayed the
+        finished epoch whole)."""
         path = self._ckpt_dir()
         meta_path = os.path.join(path, ckpt.STEP)
         if not os.path.exists(meta_path):
@@ -505,10 +563,16 @@ class Trainer:
         self.global_step = meta["step"]
         self.start_epoch = meta["epoch"]
         self.wandb_run_id = meta.get("wandb_run_id")
+        cursors = meta.get("data_cursors", (
+            [meta["data_cursor"]] if "data_cursor" in meta else None))
         cursor_restored = (
-            "data_cursor" in meta and hasattr(self.train_dataset, "cursor"))
+            cursors is not None and hasattr(self.train_dataset, "cursor"))
         if cursor_restored:
-            self.train_dataset.cursor = list(meta["data_cursor"])
+            if len(cursors) != self.world:
+                raise ValueError(
+                    f"{path}: stream cursors of {len(cursors)} ranks; this "
+                    f"run has {self.world} (each rank streams its own shards)")
+            self.train_dataset.cursor = list(cursors[self.rank])
             self.skip_batches = 0
         else:
             self.skip_batches = self.global_step % max(1,
@@ -554,9 +618,13 @@ class Trainer:
                                          b.is_latents)
                 losses.append(float(mean_loss))
         avg = sum(losses) / max(1, len(losses))
+        if self.world > 1:  # the mean over ranks (gtax :615-621)
+            t = torch.tensor([avg], dtype=torch.float64, device=self.device)
+            avg = float(self.mesh.data.all_reduce(t)) / self.world
         logger.info("val_loss=%.5f at step %d", avg, self.global_step)
         self.log_metrics({"val_loss": avg}, epoch=self.start_epoch)
-        if first is not None and not first.is_latents:
+        # the evals' files are rank 0's (every rank would write the same)
+        if first is not None and not first.is_latents and self.rank == 0:
             try:
                 self.predict(first)
                 self.predict_noise(first)
@@ -645,23 +713,24 @@ class Trainer:
         return out["denoised"]
 
     def _step0_diagnostics(self, batch: Batch):
-        """The first training batch's tensor stats and its renoise grid
-        (gtax _step0_diagnostics); never stops training."""
+        """The first training batch's tensor stats, each rank's own and
+        labelled with its rank, and rank 0's renoise grid (gtax
+        _step0_diagnostics); never stops training."""
         try:
             for name, arr in (("video", batch.video),
                               ("actions", batch.actions)):
                 if arr is None:
-                    logger.info("step0 %s: None", name)
+                    logger.info("[rank %d] step0 %s: None", self.rank, name)
                     continue
                 a = arr.float()
-                logger.info("step0 %s: shape=%s dtype=%s min=%.4f max=%.4f "
-                            "mean=%.4f std=%.4f", name, tuple(arr.shape),
-                            arr.dtype, a.min().item(), a.max().item(),
-                            a.mean().item(), a.std().item())
+                logger.info("[rank %d] step0 %s: shape=%s dtype=%s min=%.4f "
+                            "max=%.4f mean=%.4f std=%.4f", self.rank, name,
+                            tuple(arr.shape), arr.dtype, a.min().item(),
+                            a.max().item(), a.mean().item(), a.std().item())
         except Exception as e:
             logger.warning("step0 tensor-stat dump failed: %r", e)
-        if batch.is_latents:
-            return  # the grid decodes pixels
+        if batch.is_latents or self.rank > 0:
+            return  # the grid decodes pixels, into rank 0's file
         try:  # the first micro-batch of the accumulation axis
             self.predict_noise(Batch(
                 batch.video[0],
@@ -673,8 +742,8 @@ class Trainer:
 
     def _init_wandb(self):
         """wandb.init with the run id from step.json, so a resumed run
-        logs into the same wandb run (gtax _init_wandb)."""
-        if not self.config.use_wandb:
+        logs into the same wandb run (gtax _init_wandb); rank 0's."""
+        if not self.config.use_wandb or self.rank > 0:
             return
         try:
             import wandb
@@ -689,13 +758,16 @@ class Trainer:
 
     def log_metrics(self, metrics: dict, epoch: int, step: int | None = None):
         """Log a record and append it to <output_dir>/<model>_metrics.jsonl
-        (and to the wandb run, when one is open)."""
+        (and to the wandb run, when one is open): the file and wandb are
+        rank 0's, one record a step (gtax appended on every process)."""
         step = self.global_step if step is None else step
         record = {"step": step, "epoch": epoch,
                   "wall_time": round(time.time(), 3), **metrics}
         logger.info("step %d | %s", step, " ".join(
             f"{k}={v:.5g}" for k, v in metrics.items()
             if isinstance(v, (int, float)) and k != "step"))
+        if self.rank > 0:
+            return
         if self.config.use_wandb:
             try:
                 import wandb
@@ -713,13 +785,18 @@ class Trainer:
 
 def build_loaders(config: TrainingConfig, **dataset_kw):
     """(train_loader, val_loader) for the configured dataset, as gtax's
-    build_loaders wires them in one process (rank 0 of 1): dummy frames
-    take the VAE's input geometry; the tar streamer defaults to uint8
-    clips (pixel_u8), a decode pool sized to the host and, for a VAE that
-    is not 360x640, a resize to its geometry, and its validation split is
-    one unshuffled pass (not resampled, no shuffle buffer) so that a
-    validation ends. `shards`, `size`, `val_shards` and `val_size` are the
-    splits' own: validation takes val_shards / val_size."""
+    build_loaders wires them: dummy frames take the VAE's input geometry;
+    the tar streamer defaults to uint8 clips (pixel_u8), a decode pool
+    sized to the host and, for a VAE that is not 360x640, a resize to its
+    geometry, and its validation split is one unshuffled pass (not
+    resampled, no shuffle buffer) so that a validation ends. `shards`,
+    `size`, `val_shards` and `val_size` are the splits' own: validation
+    takes val_shards / val_size. In a process group each rank reads only
+    its part: map-style datasets a stride of one permutation, the tar
+    streamer its shards (worker_index = rank of num_workers = world), both
+    splits; its batches are config.batch_size rows (gtax's batch_size x
+    local_device_count, one card a process)."""
+    rank, world = meshlib.process_index(), meshlib.world_size()
     vae_cfg = vae_mod.VAE_MODELS[config.vae_model]()
     if config.dataset_type == "dummy":
         dataset_kw.setdefault("height", vae_cfg.input_height)
@@ -732,6 +809,9 @@ def build_loaders(config: TrainingConfig, **dataset_kw):
 
             dataset_kw.setdefault("transform", ClipTransform(
                 target_h=vae_cfg.input_height, target_w=vae_cfg.input_width))
+        if world > 1:
+            dataset_kw.setdefault("worker_index", rank)
+            dataset_kw.setdefault("num_workers", world)
     split_only = ("shards", "size", "val_shards", "val_size")
     val_kw = {k: v for k, v in dataset_kw.items() if k not in split_only}
     if config.dataset_type == "webdataset":
@@ -751,7 +831,8 @@ def build_loaders(config: TrainingConfig, **dataset_kw):
                           config.use_action_conditioning, **val_kw)
     cpus = os.cpu_count() or 1
     return (DataLoader(train_ds, config.batch_size,
-                       num_workers=min(cpus, 32), seed=config.seed),
+                       num_workers=min(cpus, 32), seed=config.seed,
+                       rank=rank, world=world),
             DataLoader(val_ds, config.validation_batch_size,
                        num_workers=min(cpus, 8), seed=config.seed,
-                       shuffle=False))
+                       shuffle=False, rank=rank, world=world))

@@ -7,7 +7,10 @@ raise when there is none. The CPU is used only when the caller asks for it
 
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.distributed as dist
 
 
 def strict_matmul() -> None:
@@ -20,14 +23,19 @@ def strict_matmul() -> None:
 
 
 def resolve_device(device=None) -> torch.device:
-    """`None` -> cuda, or raise if there is no card; otherwise the device
-    asked for. A cuda device also sets strict_matmul()."""
+    """`None` -> cuda, or raise if there is no card; inside an initialized
+    process group, the rank's card (cuda:LOCAL_RANK, else the current one,
+    which initialize_distributed set). Otherwise the device asked for. A
+    cuda device also sets strict_matmul()."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: the port runs on the card; pass "
                 "device='cpu' to run its plain PyTorch versions instead")
         device = "cuda"
+        if dist.is_available() and dist.is_initialized():
+            card = os.environ.get("LOCAL_RANK") or torch.cuda.current_device()
+            device = f"cuda:{card}"
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

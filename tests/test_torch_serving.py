@@ -243,8 +243,14 @@ def test_generate_validates_inputs(pair):
     ("quantize", "int4"), ("mesh_data", 2), ("mesh_model", 2),
     ("aot_dir", "x")])
 def test_unported_options_raise(field, value):
+    """What is not ported raises NotImplementedError; a mesh axis of 2 in
+    one process raises ValueError: the mesh must fill the process group
+    (tests/test_torch_multiproc.py runs both axes over two processes)."""
     cfg = serving.ServingConfig(**KW, **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
+    error, match = ((ValueError, "mesh 2x1|mesh 1x2")
+                    if field.startswith("mesh") else
+                    (NotImplementedError, field))
+    with pytest.raises(error, match=match):
         serving.VideoGenerator.load("", "", cfg, device="cpu")
 
 

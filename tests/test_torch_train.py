@@ -290,12 +290,13 @@ def test_config_keys_defaults_and_coercion():
     ({"attention_backend": "pallas"}, ValueError),
     ({"attention_backend": "xla", "int8_forward": True}, ValueError),
     ({"attention_backend": "fused_mlp", "int8_forward": True}, ValueError),
-    ({"mesh_data": 2}, NotImplementedError),
+    ({"mesh_data": 2}, ValueError),
     ({"mesh_model": 2}, NotImplementedError)])
 def test_unported_options_raise(option, error):
     """`pallas` cannot train (its attention kernels refuse a gradient, as
     gtax's Pallas attention has none), int8_forward needs a fused
-    attention backend (gtax asserts it), parallel training is not
+    attention backend (gtax asserts it), mesh_data must equal the process
+    group's size (here one process), tensor-parallel training is not
     ported."""
     base = dict(attention_backend="fused_all", dataset_type="dummy",
                 save_every=0)
