@@ -158,7 +158,27 @@ Phases (any failure exits nonzero and prints no result line):
      latents' largest magnitude), which the same rollout with those biases
      doubled (a rank adding them before the sum) must exceed, the ranks'
      latents bit-equal, s/frame of both (its adaLN heads are
-     all-gathered: gloo takes CUDA tensors there too).
+     all-gathered: gloo takes CUDA tensors there too). `[tp train]`:
+     mesh_model=2, B=2, bf16, DiT-S/2 at full width cut to TP_DEPTH
+     blocks, under `xla` and `fused_all`: one step's loss, grad norm and
+     every leaf's gradient (gathered whole) against the one-process step
+     run before the group (GRAD_TOL), the model ranks' losses bit-equal,
+     and each rank's launches of #1-#3 and #12-#14 in the step (the
+     blocks' fused trainable branches on gathered weights under
+     `fused_all`, none under `xla`);
+ 11. `[aot]`: child processes of this script, each a VideoGenerator with
+     an aot_dir generating one frame from injected noise: "cold" builds
+     the kernel library with nvcc into an empty directory and saves it,
+     "warm" loads it with nvcc off PATH and CUDA_HOME empty, "corrupt"
+     meets a garbage artifact, fails to load it, builds and overwrites it;
+     each one's AOT events against gtax's contract, its frame bit-equal to
+     the cold one's, and its seconds from start to first frame;
+ 12. `[http serve]`: gtax_torch.cli.serve at its defaults (int8 on the
+     fused kernels) on port 0: /healthz, a /generate with a PNG made by
+     zlib (its mp4, headers, and the launches of #5 and #7-#11 in it
+     against HTTP_INT8), a 400 and a 404; then a --quantize none server's
+     request, which launches #1-#5. Without PIL the request is a 400 and
+     the handler's own generate_pixels runs on a decoded frame instead.
 Each end-to-end phase also traces one generated frame or train step
 (`[profile]`); `[time]` lines give each phase's seconds.
 `python -m gtax_torch.tools.step_profile` splits one denoise step into
@@ -3586,11 +3606,108 @@ def rank_tp_serve(rank, world, backend, one):
             "launches": sum(fn.launches for fn in fns.values())}
 
 
+# ------------------------------------------- tensor-parallel training
+TP_TRAIN_B = 2  # [tp train]'s rows: one data index, the model ranks share them
+TP_TRAIN_BACKENDS = ("xla", "fused_all")
+
+
+def tp_trainer(backend, model, vae=None):
+    """A Trainer of configs/train_dit_actions.yaml (TRAIN_CUTS) at B =
+    TP_TRAIN_B, DiT-S/2 at full width cut to TP_DEPTH blocks (seeded,
+    nonzero adaLN heads), on `model` model ranks, and its latent batch (a
+    seeded draw on the card: the same in every process, so the VAE stays
+    out of the step)."""
+    from gtax_torch.data.loader import Batch
+    from gtax_torch.models import dit as dit_mod
+    from gtax_torch.train.config import TrainingConfig
+    from gtax_torch.train.trainer import Trainer
+
+    cut = dataclasses.replace(dit_mod.DiT_S_2(), depth=TP_DEPTH)
+    params = dit_mod.dit_init(cut, torch.Generator(device="cuda")
+                              .manual_seed(0), "cuda")
+    nonzero_adaln(params, 5)
+    cfg = TrainingConfig.from_dict(multi_config(
+        batch_size=TP_TRAIN_B, attention_backend=backend, mesh_data=1,
+        mesh_model=model))
+    tr = Trainer(cfg, total_dataset_size=TP_TRAIN_B * 3, dit_cfg=cut,
+                 dit_params=params, vae_params=vae)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    lat = torch.randn((1, TP_TRAIN_B, cut.max_frames, 16, 18, 32),
+                      generator=g, device="cuda")
+    acts = torch.rand((1, TP_TRAIN_B, cut.max_frames, 25), generator=g,
+                      device="cuda")
+    return tr, Batch(lat, acts, is_latents=True)
+
+
+def whole_grads_cpu(trainer):
+    """step_grads_cpu with each cut leaf gathered whole over the model axis
+    (collective)."""
+    from gtax_torch.parallel import mesh
+    from gtax_torch.train.optim import leaves
+
+    scale = trainer.config.gradient_accumulation_steps * trainer.world
+    return {"/".join(map(str, path)): mesh.gather_leaf(
+        path, p.grad / scale, trainer.tp).cpu()
+        for path, p in leaves(trainer.dit_params) if p.grad is not None}
+
+
+def rank_tp_train_one(rank, world):
+    """Before the group, on rank 0: the one-process step of each backend
+    (its loss, grad norm and every leaf's gradient)."""
+    if rank > 0:
+        return None
+    out = {}
+    for backend in TP_TRAIN_BACKENDS:
+        tr, batch = tp_trainer(backend, 1)
+        m = tr.train_step_sync(batch)
+        out[backend] = {"loss": m["train_loss"], "grad_norm": m["grad_norm"],
+                        "grads": step_grads_cpu(tr)}
+        del tr, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_tp_train(rank, world, backend, one):
+    """mesh_model=world under each backend: one step's loss, grad norm and
+    every leaf's gradient (gathered whole) against the one-process step
+    (rank 0 holds them against `one`), the training kernels' launches in
+    the step, its step_time_s and the peak memory."""
+    fns = train_wrappers()
+    out = {}
+    for b in TP_TRAIN_BACKENDS:
+        tr, batch = tp_trainer(b, world)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in fns.values():
+            fn.launches = 0
+        m = tr.train_step_sync(batch)
+        o = {"loss": m["train_loss"], "grad_norm": m["grad_norm"],
+             "step_time_s": m["step_time_s"],
+             "launches": {n: fn.launches for n, fn in fns.items()},
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "qkv_cols": tr.dit_params["blocks"][0]["s_attn"]["qkv"][
+                 "kernel"].shape[-1]}
+        grads = whole_grads_cpu(tr)
+        if rank == 0:
+            ref = one[b]["grads"]
+            o["grad_rel_l2"] = {k: rel_l2(g, ref[k]) for k, g in grads.items()
+                                if ref[k].norm() > 0}
+            o["grad_leaves_match"] = set(grads) == set(ref)
+            o["ref_loss"], o["ref_grad_norm"] = (one[b]["loss"],
+                                                 one[b]["grad_norm"])
+        out[b] = o
+        del tr, batch, grads
+        torch.cuda.empty_cache()
+    return out
+
+
 RANK_PHASES = {"nccl": rank_nccl, "dp_train": rank_dp_train,
-               "dp_serve": rank_dp_serve, "tp_serve": rank_tp_serve}
+               "dp_serve": rank_dp_serve, "tp_serve": rank_tp_serve,
+               "tp_train": rank_tp_train}
 # a phase's one-process reference, run before the rank joins the group
-# (inside it, VideoGenerator refuses a mesh that does not fill the group)
-BEFORE_GROUP = {"dp_serve": rank_dp_serve_one, "tp_serve": rank_tp_serve_one}
+# (inside it, VideoGenerator and Trainer refuse a mesh that does not fill
+# the group)
+BEFORE_GROUP = {"dp_serve": rank_dp_serve_one, "tp_serve": rank_tp_serve_one,
+                "tp_train": rank_tp_train_one}
 
 
 def rank_main(argv):
@@ -3822,6 +3939,338 @@ def multi_card_checks(rows):
     log(f"[tp serve] the ranks' latents bit-equal "
         f"({time.perf_counter() - t:.1f} s)")
     out["tp_serve"] = ranks
+    out["tp_train"] = tp_train_checks(rows, backend, share)
+    return out
+
+
+def tp_train_checks(rows, backend, share):
+    """[tp train]: two model ranks against the one-process step (GRAD_TOL on
+    the loss, the grad norm and every leaf's gradient), and under fused_all
+    the launches a rank of #1-#3 and #12-#14 (the blocks' fused trainable
+    branches on gathered weights: a one-card micro-step's)."""
+    t = time.perf_counter()
+    ranks = launch("tp_train", 2, backend, 600)
+    L = TP_DEPTH
+    want = {"fused_spatial_branch": L, "fused_mlp_branch": 2 * L,
+            "fused_temporal_branch": L, "fused_spatial_branch_bwd": L,
+            "fused_temporal_branch_bwd": L, "fused_mlp_branch_bwd": 2 * L}
+    for b in TP_TRAIN_BACKENDS:
+        r0 = ranks[0][b]
+        loss_err = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+        norm_err = (abs(r0["grad_norm"] - r0["ref_grad_norm"])
+                    / r0["ref_grad_norm"])
+        rel = r0["grad_rel_l2"]
+        worst = max(rel, key=rel.get)
+        vals = sorted(rel.values())
+        log(f"[tp train] {b}: mesh_model=2 ({share}, {r0['qkv_cols']} qkv "
+            f"columns a rank), DiT-S/2 width, depth {TP_DEPTH}, B="
+            f"{TP_TRAIN_B}, bf16: step loss {r0['loss']:.7g} against the one"
+            f"-process {r0['ref_loss']:.7g} (relative {loss_err:.3g}), grad_"
+            f"norm {r0['grad_norm']:.7g} against {r0['ref_grad_norm']:.7g} "
+            f"({norm_err:.3g}); {len(rel)} gradient leaves gathered whole, "
+            f"relative L2 median {vals[len(vals) // 2]:.3g}, max "
+            f"{rel[worst]:.3g} at {worst} (tol {GRAD_TOL} on each)")
+        if not (loss_err <= GRAD_TOL and norm_err <= GRAD_TOL
+                and rel[worst] <= GRAD_TOL and r0["grad_leaves_match"]):
+            fail(f"[tp train] {b}: the two-rank step differs from the "
+                 f"one-process step ({loss_err}, {norm_err}, {rel[worst]})")
+        for r, o in enumerate(ranks):
+            o = o[b]
+            counts = {n: o["launches"][n] for n in want}
+            log(f"[tp train] {b} rank {r}: step_time_s "
+                f"{o['step_time_s']:.3f} ({share}), peak "
+                f"{o['peak_gib']:.2f} GiB, launches in the step "
+                f"{json.dumps(counts)}")
+            if o["loss"] != ranks[0][b]["loss"]:
+                fail(f"[tp train] {b}: the model ranks' losses differ")
+            expect = want if b == "fused_all" else dict.fromkeys(want, 0)
+            if counts != expect:
+                fail(f"[tp train] {b} rank {r}: launches {counts}, want "
+                     f"{expect}")
+    for name, n in ranks[0]["fused_all"]["launches"].items():
+        rows.setdefault(name, {})["launches_tp_train"] = n
+    log(f"[tp train] ({time.perf_counter() - t:.1f} s)")
+    return [{b: {k: v for k, v in o[b].items() if k != "grad_rel_l2"}
+             for b in TP_TRAIN_BACKENDS} for o in ranks]
+
+
+# ------------------------------------------------- the AOT kernel cache
+# `[aot]` runs child processes of this script (`python3 chip_smoke.py
+# --aot <role> <dir> <result>`), each a fresh process that starts a
+# VideoGenerator(aot_dir=<dir>) and generates one frame from injected
+# noise: "cold" into an empty directory (it builds the library with nvcc
+# and saves it), "warm" from that directory with nvcc's directory off PATH
+# and CUDA_HOME pointing at an empty one (it must load, and cannot build),
+# and "corrupt" into a directory whose artifact the parent overwrote with
+# garbage (it must fail to load it, build again and overwrite it); warm
+# and corrupt run side by side. The seconds to the first frame are the
+# parent's clock from the child's start to the child's first frame.
+AOT_SCRATCH = "_smoke_aot"  # in the checkout; removed when [aot] ends
+AOT_ROLES = {"cold": ["compile", "save"], "warm": ["load"],
+             "corrupt": ["load_failed", "compile", "save"]}
+
+
+def aot_child(role, cache_dir, result):
+    from gtax_torch.kernels import build
+    from gtax_torch.serving import ServingConfig, VideoGenerator
+    from gtax_torch.utils.platform import strict_matmul
+
+    strict_matmul()
+    gen = VideoGenerator.load("", "", ServingConfig(aot_dir=cache_dir))
+    nonzero_adaln(gen.dit_params, 2)
+    prompt, actions, n_frames = serving_inputs(1, n_prompt=1, n_frames=2)
+    noise = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1, 1, 16, 18, 32)).astype(np.float32))
+    seen = capture_rollout(gen)
+    pixels = gen.generate(prompt, actions, n_frames, seed=0, noise=noise)
+    first = time.time()
+    with open(result, "w") as f:
+        json.dump({"first_frame_at": first, "nvcc": build.find_nvcc(),
+                   "events": [kind for kind, _ in gen._aot.events],
+                   "artifacts": sorted(os.listdir(cache_dir)),
+                   "pixels": list(pixels.shape),
+                   "digest": digest({"pixels": torch.from_numpy(pixels),
+                                     "latents": seen[-1]})}, f)
+    return 0
+
+
+def aot_phase():
+    import shutil
+
+    from gtax_torch.aot import AotCache
+
+    root = os.path.abspath(AOT_SCRATCH)
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = {role: os.path.join(root, role) for role in ("cold", "corrupt")}
+    dirs["warm"] = dirs["cold"]
+    os.makedirs(os.path.join(root, "no_cuda"))
+    bad = AotCache(dirs["corrupt"]).path()
+    with open(bad, "wb") as f:
+        f.write(b"\x7fELF truncated")
+    path = os.pathsep.join(
+        p for p in os.environ.get("PATH", "").split(os.pathsep)
+        if not os.path.exists(os.path.join(p, "nvcc")))
+    envs = {"cold": {}, "corrupt": {},
+            "warm": {"PATH": path,
+                     "CUDA_HOME": os.path.join(root, "no_cuda")}}
+
+    def start(role):
+        out = os.path.join(root, f"{role}.json")
+        log_f = open(os.path.join(root, f"{role}.log"), "w")
+        t0 = time.time()
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--aot", role,
+             dirs[role], out], env=dict(os.environ, **envs[role],
+                                        PYTHONUNBUFFERED="1"),
+            stdout=log_f, stderr=subprocess.STDOUT)
+        return role, proc, log_f, t0, out
+
+    def finish(jobs, timeout_s=600):
+        res = {}
+        try:
+            deadline = time.monotonic() + timeout_s
+            while any(p.poll() is None for _, p, _, _, _ in jobs):
+                if time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+        finally:
+            for role, p, f, t0, out in jobs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+                f.close()
+                if p.returncode != 0:
+                    log(open(f.name).read()[-3000:])
+                    fail(f"[aot] the {role} process exited {p.returncode}")
+                res[role] = json.load(open(out))
+                res[role]["seconds"] = res[role]["first_frame_at"] - t0
+        return res
+
+    try:
+        got = finish([start("cold")])
+        got.update(finish([start("warm"), start("corrupt")]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for role, want in AOT_ROLES.items():
+        o = got[role]
+        log(f"[aot] {role}: events {o['events']}, nvcc "
+            f"{o['nvcc'] or 'not found'}, artifacts {o['artifacts']}, "
+            f"{o['seconds']:.1f} s from the process's start to its first "
+            f"frame (pixels {o['pixels']})"
+            + ("; beside the corrupt process's build" if role == "warm"
+               else "; beside the warm process" if role == "corrupt"
+               else ""))
+        if o["events"] != want:
+            fail(f"[aot] {role}: events {o['events']}, want {want}")
+        if o["digest"] != got["cold"]["digest"]:
+            fail(f"[aot] {role}: its frame differs from the cold process's")
+    if got["warm"]["nvcc"] is not None:
+        fail("[aot] the warm process could find nvcc")
+    log("[aot] every process's latents and pixels bit-equal to the cold "
+        "one's, from the same injected noise")
+    return {role: {k: got[role][k] for k in ("events", "seconds")}
+            for role in AOT_ROLES}
+
+
+# ------------------------------------------------------ the HTTP server
+def png_bytes(rgb):
+    """A (H, W, 3) uint8 image as PNG bytes (zlib and struct: the request
+    is made without an image library)."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def http_request(url, body=None):
+    """(status, content type, body bytes) of a GET (body None) or a JSON
+    POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data),
+                                    timeout=600) as r:
+            return r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
+
+
+# the int8 path of one request (B=1, one prompt frame, one generated
+# frame): a 4-slot prefill (sequential wrappers) and 101 paired steps over
+# 16 blocks; the VAE's 6 + 12 blocks
+HTTP_INT8 = {"fused_spatial_branch_q": 16, "fused_mlp_branch_q": 32,
+             "fused_temporal_branch_q": 16, "fused_temporal_step_q": 0,
+             "fused_spatial_pair_q": 1616, "fused_temporal_pair_q": 1616,
+             "fused_vae_block": 18}
+# --quantize none: every one of the 101 steps and the prefill runs each
+# block's spatial branch and both MLPs (16 x 102, twice that); the prefill
+# runs the temporal branch, the steps the temporal step (16 x 101)
+HTTP_BF16 = {"fused_spatial_branch": 1632, "fused_mlp_branch": 3264,
+             "fused_temporal_branch": 16, "fused_temporal_step": 1616,
+             "fused_vae_block": 18}
+
+
+def http_phase(rows):
+    """[http serve]: gtax_torch.cli.serve on port 0 in a thread at its
+    defaults (DiT-S/2 + ViT-L/20, int8 on the fused kernels, 100 steps,
+    random weights), driven through urllib: /healthz, one /generate (its
+    mp4 and headers, and the launches of #5-#11 in it against the code's
+    counts), a 400 and a 404; then a --quantize none server's request,
+    which runs #1-#5. The served weights' adaLN heads are filled before
+    the server quantizes them (dit_init zeroes them, and every block would
+    be the identity), so the video depends on every branch's kernel."""
+    import base64
+    import hashlib
+    import threading
+
+    from gtax_torch.cli import serve
+    from gtax_torch.models import dit as dit_mod
+
+    dit_init = dit_mod.dit_init
+
+    def dit_init_nonzero(*a, **k):
+        params = dit_init(*a, **k)
+        nonzero_adaln(params, 2)
+        return params
+
+    decoders = {m: _importable(m) for m in ("PIL", "cv2", "imageio")}
+    fns = kernel_wrappers()
+    frame = (np.random.default_rng(4).random((360, 640, 3)) * 255).astype(
+        np.uint8)
+    body = {"image": base64.b64encode(png_bytes(frame)).decode(),
+            "num_frames": 2, "seed": 7}
+    out = {"decoders": decoders}
+    for quantize, path in (("int8", HTTP_INT8), ("none", HTTP_BF16)):
+        t = time.perf_counter()
+        args = serve.build_parser().parse_args(
+            ["--port", "0", "--dit_model_path", "", "--vae_model_path", "",
+             "--quantize", quantize])
+        dit_mod.dit_init = dit_init_nonzero
+        try:
+            server = serve.make_server(args)
+        finally:
+            dit_mod.dit_init = dit_init
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            code, kind, data = http_request(url + "/healthz")
+            health = json.loads(data)
+            if code != 200 or health["config"] != {
+                    "quantize": quantize, "noise_steps": 100,
+                    "backend": "fused", "dtype": "bfloat16"}:
+                fail(f"[http serve] /healthz: {code} {health}")
+            for fn in fns.values():
+                fn.launches = 0
+            code, kind, data = http_request(url + "/generate", body)
+            counts = {n: fn.launches for n, fn in fns.items()}
+            wrote = code == 200 and kind == "video/mp4" and data[4:8] == (
+                b"ftyp")
+            if not decoders["PIL"]:
+                # the start frame cannot decode here: the request is a 400;
+                # the handler's own path from a decoded frame instead
+                if code != 400 or "bad request" not in json.loads(data)[
+                        "error"]:
+                    fail(f"[http serve] without PIL: {code} {data[:200]}")
+                for fn in fns.values():
+                    fn.launches = 0
+                pixels = serve.generate_pixels(
+                    server.generator, server.lock,
+                    frame.transpose(2, 0, 1).astype(np.float32) / 255, None,
+                    2, 7)
+                counts = {n: fn.launches for n, fn in fns.items()}
+                log(f"[http serve] no PIL on this machine: the request's "
+                    f"decode failed (400, as stated); the handler's "
+                    f"generate_pixels gave {pixels.shape} uint8, and the mp4 "
+                    f"was not written on this machine")
+            elif not wrote and not (decoders["cv2"] or decoders["imageio"]):
+                if code != 500:
+                    fail(f"[http serve] without a video writer: {code}")
+                log("[http serve] no cv2 or imageio: the generation ran and "
+                    "the mp4 write failed (500); the mp4 was not written on "
+                    "this machine")
+            elif not wrote:
+                fail(f"[http serve] /generate: {code} {kind} {data[:200]}")
+            bad = http_request(url + "/generate", {**body, "num_frames": 999})
+            missing = http_request(url + "/nope")
+            if bad[0] != 400 or missing[0] != 404:
+                fail(f"[http serve] status codes {bad[0]}, {missing[0]}")
+        finally:
+            server.shutdown()
+            server.server_close()
+        ok = all(counts[n] == c for n, c in path.items())
+        log(f"[http serve] --quantize {quantize}: /healthz 200, /generate "
+            f"{code} {kind} ({len(data)} bytes, X-Seed 7), a bad num_frames "
+            f"400, an unknown path 404; launches in the request "
+            f"{json.dumps({n: counts[n] for n in path})} "
+            f"({time.perf_counter() - t:.1f} s; image libraries {decoders})")
+        if not ok:
+            fail(f"[http serve] --quantize {quantize}: launches {counts}, "
+                 f"want {path}")
+        for name in path:
+            rows.setdefault(name, {})[f"launches_http_{quantize}"] = counts[
+                name]
+        out[quantize] = {"status": code, "mp4_bytes": len(data) if wrote
+                         else 0, "launches": {n: counts[n] for n in path},
+                         "mp4_sha256": hashlib.sha256(data).hexdigest()
+                         if wrote else None}
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+    if out["int8"]["mp4_sha256"] and (out["int8"]["mp4_sha256"]
+                                      == out["none"]["mp4_sha256"]):
+        fail("[http serve] the int8 and bf16 servers gave the same mp4: "
+             "the blocks did not move the video")
     return out
 
 
@@ -3873,6 +4322,8 @@ def main():
     gc.collect()  # what cycles keep of the earlier phases' trainers
     torch.cuda.empty_cache()  # the ranks' phases take the card after this
     multi = timed("multi-card", multi_card_phase, rows)
+    multi["aot"] = timed("aot", aot_phase)
+    multi["http_serve"] = timed("http serve", http_phase, rows)
     train = rows.pop("train")
     train["resume"] = rows.pop("train_resume")
     if len(rows) != 16:
@@ -3893,5 +4344,8 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--rank"]
-             else main())
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--aot"]:
+        sys.exit(aot_child(*sys.argv[2:5]))
+    sys.exit(main())

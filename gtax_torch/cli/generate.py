@@ -7,9 +7,11 @@ Usage:
       --start_frame img.png [--use_actions] [--output_path video1.mp4]
 
 Empty --dit_model_path / --vae_model_path give random weights (a
-checkpoint-free smoke run). Runs on the card unless --device cpu. Flags of
-modes this port does not have yet are accepted and raise
-NotImplementedError when set (ServingConfig).
+checkpoint-free smoke run). Runs on the card unless --device cpu.
+--aot_dir DIR takes the kernel library from an AOT cache there
+(gtax_torch.aot: the first run builds and saves it, later runs load it
+without nvcc) and prewarms the generator in the background while the
+prompt is read (--no_prewarm: not).
 
 On N cards, one process a card:
   torchrun --nproc_per_node N -m gtax_torch.cli.generate ... --mesh_data N
@@ -84,8 +86,14 @@ def build_parser():
                         "divides) and writes their videos")
     p.add_argument("--decode_chunk", type=int, default=None,
                    help="decode at most N frames per VAE call")
-    p.add_argument("--aot_dir", type=str, default=None)
-    p.add_argument("--no_prewarm", action="store_true")
+    p.add_argument("--aot_dir", type=str, default=None,
+                   help="AOT kernel-library cache dir (gtax_torch.aot): "
+                        "the first run builds and saves the library, later "
+                        "runs load it and need no nvcc")
+    p.add_argument("--no_prewarm", action="store_true",
+                   help="with --aot_dir: skip the background run on zeros "
+                        "that loads the library and warms the card during "
+                        "prompt preparation")
     p.add_argument("--dit_model", type=str, default="DiT-S/2")
     p.add_argument("--vae_model", type=str,
                    default="vit-l-20-shallow-encoder")
@@ -142,6 +150,11 @@ def main(argv=None):
     dit_cfg, vae_cfg = gen.dit_cfg, gen.vae_cfg
     total_frames = args.total_frames
     n_prompt = 4 if args.start_frame is None else 1
+    if args.aot_dir and not args.no_prewarm:
+        # load the library and warm the card in the background NOW, while
+        # the prompt is read (gtax cli/generate.py); generate() waits for it
+        gen.prewarm(num_frames=total_frames, batch_size=args.batch,
+                    n_prompt=n_prompt, use_actions=args.use_actions)
     print(f"We will generate {total_frames} frames, starting with "
           f"{n_prompt} frames.")
     print(f"Noise steps: {args.noise_steps}; stabilization 15; "

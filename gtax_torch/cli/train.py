@@ -8,18 +8,18 @@ Loads gtax's YAML configs unchanged (with PyYAML), or the same keys as a
 JSON object in a `.json` file (for machines without PyYAML), builds the
 loaders and the Trainer, and runs the training loop; a run whose output
 directory holds a checkpoint resumes from it (resume_from_checkpoint).
-Runs on the card unless --device cpu. Every single-card option of gtax's
-config runs (the attention backends but `pallas`, int8_forward, remat,
-unstack_train); a `pallas` backend raises ValueError (no gradient), and
-tensor-parallel training (mesh_model > 1) NotImplementedError
-(gtax_torch.train.trainer.check_slice).
+Runs on the card unless --device cpu. Every option of gtax's config runs
+(the attention backends but `pallas`, int8_forward, remat, unstack_train,
+mesh_data and mesh_model); a `pallas` backend raises ValueError (no
+gradient; gtax_torch.train.trainer.check_slice).
 
-Data-parallel training on N cards, one process a card (mesh_data: -1 or
-N in the config):
+On N cards, one process a card, as a mesh_data x mesh_model layout
+(mesh_data: -1 takes N / mesh_model):
   torchrun --nproc_per_node N -m gtax_torch.cli.train cfg.yaml
 or gtax's GTAX_COORDINATOR=host:port GTAX_NUM_PROCESSES=N
-GTAX_PROCESS_ID=i in each process's environment. batch_size is each
-rank's; a --latent_cache must be built by a one-process run first.
+GTAX_PROCESS_ID=i in each process's environment. batch_size is each data
+index's (the model ranks of a data index share its rows); a
+--latent_cache must be built by a one-process run first.
 """
 
 from __future__ import annotations

@@ -8,12 +8,14 @@ lands in `gtax_torch/_build/<hash>/`, keyed by a hash of the sources and the
 flags, so an unchanged checkout builds once and a changed source rebuilds.
 The build runs at first use, inside the first wrapper call that launches a
 kernel (or `library()` called directly); a missing nvcc or a failed build
-raises. `probe_library` builds the two attention sources alone with
-GTAX_PROBE_STOP defined, a copy whose kernels stop early so that
-gtax_torch/tools/attn_sweep.py can time their phases; `pair_probe_library`
-builds pair_q.cu alone with GTAX_PAIR_PROBE defined, a copy that stamps the
-clock at each of its phases for gtax_torch/tools/split.py. Nothing else
-loads either.
+raises. With an AOT cache in use (`use_cache`, gtax_torch.aot: serving's
+`aot_dir`), `library()` takes the library from the cache instead: a
+loaded artifact needs no nvcc. `probe_library` builds the two attention
+sources alone with GTAX_PROBE_STOP defined, a copy whose kernels stop
+early so that gtax_torch/tools/attn_sweep.py can time their phases;
+`pair_probe_library` builds pair_q.cu alone with GTAX_PAIR_PROBE defined,
+a copy that stamps the clock at each of its phases for
+gtax_torch/tools/split.py. Nothing else loads either.
 
 C entry points take pointers and the stream as `c_void_p` and sizes as
 `c_int`, and return `cudaGetLastError()`; `launch` raises on a nonzero code.
@@ -27,6 +29,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import NamedTuple
 
@@ -108,6 +111,8 @@ PAIR_PROBE_SOURCES = ("pair_q.cu",)
 PAIR_PROBE_ENTRIES = ("gtax_pair_q", "gtax_pair_q_blocks")
 
 _lib = None
+_cache = None  # the AOT cache library() takes its library from (use_cache)
+_lib_lock = threading.Lock()  # a prewarm thread and a caller may race
 _probes = {}
 
 
@@ -123,30 +128,50 @@ def _digest(flags, names=None) -> str:
     return h.hexdigest()[:16]
 
 
-def _nvcc() -> str:
+def source_digest() -> str:
+    """The hash of the library's sources and flags (its build directory's
+    name)."""
+    return _digest(NVCC_FLAGS)
+
+
+def find_nvcc() -> str | None:
+    """nvcc on PATH, else $CUDA_HOME/bin/nvcc (CUDA_HOME defaults to
+    /usr/local/cuda), else None."""
     found = shutil.which("nvcc")
     if found:
         return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError(
-        "nvcc not found (PATH or /usr/local/cuda/bin): the port's CUDA "
-        "kernels cannot be built")
+    default = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                           "bin", "nvcc")
+    return default if os.path.exists(default) else None
 
 
-def build(verbose: bool = False, defines=(), names=None) -> Path:
+def _nvcc() -> str:
+    found = find_nvcc()
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): the port's CUDA "
+            "kernels cannot be built")
+    return found
+
+
+def build(verbose: bool = False, defines=(), names=None,
+          out: Path | None = None) -> Path:
     """Compile csrc/*.cu (or the sources `names`) into the shared library,
     with the macros `defines` ("NAME=value"), unless the current sources
-    were built so already; returns the library path."""
+    were built so already; returns the library path. out: write the
+    library there instead, always building (the AOT cache's build)."""
     flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     srcs = sources() if names is None else [CSRC / n for n in names]
-    out = BUILD_DIR / _digest(flags, names) / LIB_NAME
-    if out.exists():
-        return out
+    if out is None:
+        out = BUILD_DIR / _digest(flags, names) / LIB_NAME
+        if out.exists():
+            return out
+        work = BUILD_DIR
+    else:
+        work = Path(out).parent
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_DIR))
+    work.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="build-", dir=work))
     try:
         extra = ("-Xptxas", "-v") if verbose else ()
         procs = []
@@ -172,7 +197,7 @@ def build(verbose: bool = False, defines=(), names=None) -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-        out.parent.mkdir(parents=True, exist_ok=True)
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
         os.replace(lib, out)  # atomic: concurrent builders race safely
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -188,12 +213,33 @@ def _load(path: Path, names):
     return lib
 
 
+def load_library(path):
+    """The kernel library at `path`, its entry points bound (a missing one
+    raises AttributeError; a file that is not a library, OSError)."""
+    return _load(Path(path), SIGNATURES)
+
+
 def library():
-    """The loaded kernel library (built at first use)."""
+    """The loaded kernel library: from the AOT cache in use, else built at
+    first use. Every launch calls it: the lock is taken only to load."""
     global _lib
-    if _lib is None:
-        _lib = _load(build(), SIGNATURES)
-    return _lib
+    lib = _lib
+    if lib is not None:
+        return lib
+    with _lib_lock:
+        if _lib is None:
+            _lib = (_cache.load_or_compile() if _cache is not None
+                    else load_library(build()))
+        return _lib
+
+
+def use_cache(cache) -> None:
+    """Take the library from `cache` (a gtax_torch.aot.AotCache; None: the
+    build directory again) from the next launch on: the library loaded so
+    far is dropped (both are builds of the same sources)."""
+    global _lib, _cache
+    with _lib_lock:
+        _cache, _lib = cache, None
 
 
 def probe_library(stop: int):

@@ -58,15 +58,25 @@ Parameter dict (float32 masters; Linear kernels are (in, out)):
 W8A8 params replace a block Linear's "kernel" by "kernel_q" (int8) and
 "scale" (fp32, (1, out)).
 
-Tensor parallelism (gtax's GSPMD serving under a model mesh): with
-`tp=`, the model axis of params cut by gtax_torch.parallel.mesh.
-shard_params, dit_apply runs the `xla` backend's unfused branches over
-this rank's heads and fc1 columns, sums the out-projection's and fc2's
-partial products over the axis before their biases, and gathers each
-adaLN head's output whole.
+Tensor parallelism (gtax's GSPMD path under a model mesh, serving and
+training): with `tp=`, the model axis of params cut by
+gtax_torch.parallel.mesh.shard_params, each adaLN head runs over this
+rank's columns and its output is gathered whole. Under `xla` the blocks'
+unfused branches run over this rank's heads and fc1 columns, and the
+out-projection's and fc2's partial products are summed over the axis
+before their biases. Under the fused backends each block's cut leaves are
+gathered whole in front of the kernels and every model rank runs the
+block over the same rows (_gather_block). The collectives are
+differentiable (mesh.Axis.reduce_sum / copy_in / gather), so dit_apply
+trains under tp.
 
-`valid` (the window's slot mask) is a (T,) bool sequence or CPU tensor, or
-None; per-batch (B, T) masks are not part of this slice.
+`valid` (the window's slot mask) is None, a (T,) bool sequence or tensor,
+or a per-row (B, T) one (gtax/models/dit.py:379). A (B, T) mask takes the
+unfused temporal attention under every backend, as gtax's does: the fused
+temporal branch takes a (T,) mask only, so gtax falls through to its XLA
+branch there (gtax/models/dit.py:326-328), and under `pallas` the
+token-major kernel takes (T, T) masks only. W8A8 params refuse it
+(ValueError), as gtax asserts (gtax/models/dit.py:305-306).
 """
 
 from __future__ import annotations
@@ -92,6 +102,7 @@ from gtax_torch.nn.layers import (
     patchify_embed,
     timestep_embedder,
 )
+from gtax_torch.parallel import mesh as meshlib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -385,29 +396,77 @@ def _mlp_weights(mp):
 
 
 def _mlp(mp, h, sh, sc, g, fns=KERNEL_BRANCHES, fused=True, qw=None,
-         reduce=None):
+         tp=None):
     """The MLP branch over (rows, S, D) tokens: int8 or fused wrappers (the
     fused one's int8 forward given qw), or unfused, x +
-    gate(mlp(modulate(LN(x)))) (gtax's XLA path; reduce: fc2's sum over
-    the model ranks)."""
+    gate(mlp(modulate(LN(x)))) (gtax's XLA path; tp: fc1 over this rank's
+    columns, fc2's partial products summed over the model ranks)."""
     q8, w = _mlp_weights(mp)
     if q8:
         return quant.fused_mlp_branch_q(h, sh, sc, g, *w)
     if fused:
         return fns[2](h, sh, sc, g, *w, **({} if qw is None else {"qw": qw}))
-    return h + gate(mlp(mp, modulate(layer_norm(h), sh, sc), gelu_tanh,
-                        h.dtype, reduce), g)
+    x = modulate(layer_norm(h), sh, sc)
+    if tp is not None:
+        x = tp.copy_in(x)
+    return h + gate(mlp(mp, x, gelu_tanh, h.dtype,
+                        None if tp is None else tp.reduce_sum), g)
 
 
 def _unfused_attention(fn, ap, h, sh, sc, g, grid, freqs, num_heads,
-                       backend, **kw):
+                       backend, tp=None, **kw):
     """x + gate(Attention(modulate(LN(x)))) through gtax_torch.nn.attention,
-    on the (B, T, gh, gw, D) view `grid` of the (B*T, S, D) tokens."""
+    on the (B, T, gh, gw, D) view `grid` of the (B*T, S, D) tokens; tp:
+    over this rank's heads, the out-projection summed over the ranks."""
     x = h.reshape(grid)
     sh, sc, g = (t.reshape(*grid[:2], -1) for t in (sh, sc, g))
-    a = fn(ap, modulate(layer_norm(x), sh, sc), freqs, num_heads,
-           compute_dtype=h.dtype, backend=backend, **kw)
+    y = modulate(layer_norm(x), sh, sc)
+    if tp is not None:
+        y, kw = tp.copy_in(y), dict(kw, reduce=tp.reduce_sum)
+    a = fn(ap, y, freqs, num_heads, compute_dtype=h.dtype, backend=backend,
+           **kw)
     return (x + gate(a, g)).reshape(h.shape)
+
+
+def _gather_block(bp, tp):
+    """A block of params cut over `tp` (its GEMM kernels already in the
+    compute dtype), with every cut leaf of its branches gathered whole
+    (differentiably: each rank's gradient is its slice of the whole one;
+    the adaLN heads stay cut: _cond runs them over the axis). Returns
+    (block, recipes): recipes maps each gathered tensor's storage to how
+    to gather it again, for _regathered."""
+    recipes = {}
+
+    def whole(path, leaf):
+        dim = meshlib.spec_dim(("blocks",) + path, leaf.dim())
+        if dim is None or "adaln" in path[0]:
+            return leaf
+        qkv = "qkv" in path
+        full = tp.gather(leaf, dim, qkv)
+        recipes[full.data_ptr()] = (leaf.detach(), dim, qkv, full.shape)
+        return full
+
+    return _map_params(bp, whole), recipes
+
+
+def _regathered(tp, recipes):
+    """saved_tensors_hooks that keep a gathered weight's shard, not the
+    whole weight, for the backward, and gather it again there: the whole
+    copy is freed once the block's forward ends, as remat frees it (every
+    model rank unpacks in the same order: the graphs are the same)."""
+
+    def pack(t):
+        r = recipes.get(t.data_ptr())
+        return t if r is None or r[3] != t.shape else r
+
+    def unpack(saved):
+        if isinstance(saved, torch.Tensor):
+            return saved
+        shard, dim, qkv, _ = saved
+        with torch.no_grad():
+            return tp.all_gather(shard, dim, qkv)
+
+    return torch.autograd.graph.saved_tensors_hooks(pack, unpack)
 
 
 def _spatial_pair(bp, h, m, rows, D, freqs, num_heads, fns=KERNEL_BRANCHES):
@@ -470,13 +529,18 @@ def _check_int8_fwd(backend, plain_branches):
         raise ValueError("int8_fwd has no plain_branches form")
 
 
-def _check_tp(params, backend, plain_branches):
-    if (backend != "xla" or plain_branches
+def _check_tp(params, backend, plain_branches, int8_weights):
+    if (backend == "pallas" or plain_branches
             or "kernel_q" in _blocks(params)[0]["s_attn"]["qkv"]):
         raise ValueError("tensor-parallel params run the `xla` backend's "
-                         "unfused bf16/fp32 branches (gtax's GSPMD path), "
-                         f"not backend {backend!r}, the plain kernel "
+                         "unfused bf16/fp32 branches over the model axis "
+                         "(gtax's GSPMD path) or the fused ones on gathered "
+                         f"blocks; not backend {backend!r}, the plain kernel "
                          "branches or W8A8 params")
+    if int8_weights is not None:
+        raise ValueError("under tp the int8 forward quantizes each gathered "
+                         "block itself: int8_weights of cut kernels would "
+                         "take the shards' scales")
 
 
 def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
@@ -486,7 +550,8 @@ def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
               tp=None):
     """Full-window forward. x: (B, T, C, H, W) latents; t: (B, T) integer
     noise levels; external_cond: optional (B, T, action_dim); valid:
-    optional (T,) mask of real frames. With `mods` (dit_cond output) the
+    optional (T,) or per-row (B, T) mask of real frames (module
+    docstring). With `mods` (dit_cond output) the
     adaLN heads are skipped and t/external_cond are ignored (the unstacked
     layout only). `backend` picks each branch's path (module docstring;
     gtax's five names). Returns the v-prediction, x's shape, float32.
@@ -508,16 +573,18 @@ def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
     cached delta instead. The MLP branches always run.
 
     tp: the model axis (gtax_torch.parallel.mesh.Axis) of params cut by
-    mesh.shard_params, under the `xla` backend (gtax's tensor-parallel
-    serving): each rank attends over its heads and runs fc1 over its
-    columns; the out-projection's and fc2's partial products are summed
-    over the axis before their biases, and each adaLN head's output is
-    gathered whole. Inference only."""
+    mesh.shard_params (gtax's tensor parallelism; module docstring): under
+    `xla` each rank attends over its heads and runs fc1 over its columns,
+    the out-projection's and fc2's partial products summed over the axis
+    before their biases; under `fused`, `fused_mlp` and `fused_all` each
+    block's cut leaves are gathered whole in front of the branches. Each
+    adaLN head's output is gathered whole. Differentiable; the int8
+    forward quantizes each gathered block itself (no int8_weights)."""
     attn.check_backend(backend)
     if int8_fwd:
         _check_int8_fwd(backend, plain_branches)
     if tp is not None:
-        _check_tp(params, backend, plain_branches)
+        _check_tp(params, backend, plain_branches, int8_weights)
     remat = cfg.block_remat and torch.is_grad_enabled()
     if remat and (collect_cache or attn_cache is not None):
         raise ValueError("attention broadcast is inference-only: not with "
@@ -542,10 +609,30 @@ def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
     grid = (B, T, cfg.grid_h, cfg.grid_w, D)
     spatial_grid = spatial.reshape(cfg.grid_h, cfg.grid_w, -1)
     rows = B * T
-    reduce = None if tp is None else tp.all_reduce
+    # under the fused backends a tensor-parallel block runs whole, on its
+    # gathered leaves (module docstring); under `xla` over its shards
+    gather_blocks = tp is not None and backend != "xla"
+    block_tp = None if gather_blocks else tp
+    # a per-row (B, T) mask: the unfused temporal attention (module
+    # docstring)
+    row_mask = valid is not None and torch.as_tensor(valid).dim() == 2
 
     def block_fn(h, i):
         bp = _cast_weights(blocks[i], compute_dtype)
+        if not gather_blocks:
+            return block_body(h, i, bp)
+        # gtax compiles a fused branch with GSPMD, which cannot cut a
+        # pallas_call: XLA gathers the block's weights whole in front of
+        # it, and every model rank runs it over its data index's rows. The
+        # ranks' whole weight gradients then agree, and each keeps its
+        # slice (no sum over the model axis)
+        bp, recipes = _gather_block(bp, tp)
+        if not torch.is_grad_enabled() or remat:  # remat's recompute gathers
+            return block_body(h, i, bp)
+        with _regathered(tp, recipes):
+            return block_body(h, i, bp)
+
+    def block_body(h, i, bp):
         m = mods["blocks"][i]
         qws = None
         if int8_fwd and "kernel_q" not in bp["s_attn"]["qkv"]:
@@ -565,23 +652,26 @@ def dit_apply(params, cfg: DiTConfig, x, t=None, external_cond=None,
                 fn = quant.fused_spatial_branch_q if q8 else fns[0]
                 kw = {} if q8 or rope_cs is None else {"rope_cs": rope_cs}
                 h = fn(h, sh1, sc1, g1, *w, freqs, H, **kw, **qw)
-            elif half == "t" and (q8 or fused_attn):
+            elif half == "t" and q8 and row_mask:
+                raise ValueError("quantized params serve inference rollouts "
+                                 "only (valid must be None or a (T,) mask)")
+            elif half == "t" and (q8 or (fused_attn and not row_mask)):
                 fn = quant.fused_temporal_branch_q if q8 else fns[1]
                 h = fn(h, sh1, sc1, g1, *w, freqs, valid, H, T, **qw)
             elif half == "s":
                 h = _unfused_attention(attn.spatial_axial_attention, ap, h,
                                        sh1, sc1, g1, grid, spatial_grid, H,
-                                       backend, reduce=reduce)
+                                       backend, block_tp)
             else:
                 h = _unfused_attention(attn.temporal_axial_attention, ap, h,
                                        sh1, sc1, g1, grid, freqs, H, backend,
-                                       valid=valid, reduce=reduce)
+                                       block_tp, valid=valid)
             if collect_cache:
                 pair_deltas.append((h - h_pre).to(compute_dtype).reshape(
                     grid))
             mqw = None if qws is None else qws[f"{half}_mlp"]
             h = _mlp(bp[f"{half}_mlp"], h, sh2, sc2, g2, fns, fused_mlp, mqw,
-                     reduce)
+                     block_tp)
         return h, tuple(pair_deltas)
 
     h = _embed(params, cfg, x, compute_dtype)
@@ -626,7 +716,8 @@ def dit_cond(params, cfg: DiTConfig, t, external_cond=None,
 
 def _cond(params, blocks, cfg, t, external_cond, compute_dtype, tp=None):
     """dit_cond over the per-block list `blocks`; with tp (dit_apply's),
-    each adaLN head's columns are this rank's, gathered whole."""
+    each adaLN head's columns are this rank's, gathered whole (the final
+    adaLN is replicated and takes the rows as they are)."""
     B, T = t.shape
     c = timestep_embedder(params["t_embedder"], t.reshape(B * T),
                           compute_dtype=compute_dtype)
@@ -634,10 +725,15 @@ def _cond(params, blocks, cfg, t, external_cond, compute_dtype, tp=None):
     if external_cond is not None:
         c = c + linear(params["external_cond"], external_cond, compute_dtype)
     h = F.silu(c.float()).to(compute_dtype)
-    gather = (lambda a: a) if tp is None else tp.all_gather
-    heads = [{"s": gather(linear(bp["s_adaln"], h, compute_dtype)),
-               "t": gather(linear(bp["t_adaln"], h, compute_dtype))}
-              for bp in blocks]
+    if tp is None:
+        heads = [{"s": linear(bp["s_adaln"], h, compute_dtype),
+                  "t": linear(bp["t_adaln"], h, compute_dtype)}
+                 for bp in blocks]
+    else:  # one sum of the rows' gradient over the ranks for every head
+        hc = tp.copy_in(h)
+        heads = [{"s": tp.gather(linear(bp["s_adaln"], hc, compute_dtype)),
+                  "t": tp.gather(linear(bp["t_adaln"], hc, compute_dtype))}
+                 for bp in blocks]
     return {"blocks": heads,
             "final": linear(params["final"]["adaln"], h, compute_dtype)}
 

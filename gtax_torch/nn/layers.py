@@ -34,7 +34,7 @@ def linear(params, x, compute_dtype=torch.bfloat16, reduce=None):
 
     reduce: for a kernel cut on its input rows over the model ranks
     (tensor parallelism), the sum of the ranks' fp32 partial products
-    (mesh.Axis.all_reduce), taken before the bias, which every rank holds
+    (mesh.Axis.reduce_sum), taken before the bias, which every rank holds
     whole and adds once."""
     if "kernel_q" in params:
         y = quant.qdot(x.float(), params["kernel_q"], params["scale"])

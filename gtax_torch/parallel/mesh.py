@@ -11,11 +11,15 @@ data index * model + model index, as gtax reshapes its device list
   data  -- the batch's rows. Training sums the gradients over this axis
            (one all-reduce a step, gtax's psum); batched serving runs one
            whole single-card rollout a rank over its own rows.
-  model -- tensor parallelism of the DiT blocks under the `xla` backend:
-           each rank holds its heads of qkv and its columns of fc1 and of
-           the adaLN heads (_dit_param_spec), attends over its heads, and
-           the out-projection's and fc2's partial products are summed by
-           an all-reduce before their replicated biases.
+  model -- tensor parallelism of the DiT blocks: each rank holds its
+           heads of qkv and its columns of fc1 and of the adaLN heads
+           (_dit_param_spec). Under the `xla` backend it attends over its
+           heads, and the out-projection's and fc2's partial products are
+           summed by an all-reduce before their replicated biases; under
+           the fused backends each block's cut leaves are gathered whole
+           in front of the kernels (gtax_torch.models.dit). The
+           collectives are autograd Functions (Axis.reduce_sum, copy_in,
+           gather), so the same forward trains.
 
 initialize_distributed() joins the group (NCCL on the card, gloo on the
 CPU) from explicit arguments, gtax's GTAX_* environment or torchrun's; in
@@ -134,13 +138,6 @@ class Axis:
             dist.all_reduce(t, group=self.group)
         return t
 
-    def broadcast(self, t: torch.Tensor) -> torch.Tensor:
-        """Index 0's t on every rank of the axis, in place; returns t."""
-        if self.group is not None:
-            dist.broadcast(t, src=dist.get_global_rank(self.group, 0),
-                           group=self.group)
-        return t
-
     def gather_objects(self, obj) -> list:
         """Every rank's picklable obj, in index order."""
         if self.group is None:
@@ -149,17 +146,80 @@ class Axis:
         dist.all_gather_object(out, obj, group=self.group)
         return out
 
-    def barrier(self) -> None:
-        if self.group is not None:
-            dist.barrier(group=self.group)
-
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """The axis's t joined along the last dim, in index order."""
+    def all_gather(self, t: torch.Tensor, dim: int = -1,
+                   qkv: bool = False) -> torch.Tensor:
+        """The axis's t joined along `dim`, in index order; qkv: each
+        rank's t is its thirds of q, k and v (shard_params' qkv cut), and
+        the result is q | k | v whole. No autograd (`gather` has it)."""
         if self.group is None:
             return t
         parts = [torch.empty_like(t) for _ in range(self.size)]
         dist.all_gather(parts, t.contiguous(), group=self.group)
-        return torch.cat(parts, dim=-1)
+        if not qkv:
+            return torch.cat(parts, dim=dim)
+        thirds = [p.chunk(3, dim) for p in parts]
+        return torch.cat([torch.cat([p[j] for p in thirds], dim)
+                          for j in range(3)], dim)
+
+    # the differentiable collectives of tensor parallelism (Megatron's
+    # conjugate pairs): each is the identity without a group
+
+    def reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum of the ranks' t (a row-cut product's partial sums); the
+        backward passes the gradient through: every rank's output is the
+        same, and so is its gradient."""
+        return t if self.group is None else _ReduceSum.apply(t, self)
+
+    def copy_in(self, t: torch.Tensor) -> torch.Tensor:
+        """t itself, where replicated rows enter a column-cut product; the
+        backward sums the ranks' gradients (each rank's columns give a
+        part of the rows' gradient)."""
+        return t if self.group is None else _CopyIn.apply(t, self)
+
+    def gather(self, t: torch.Tensor, dim: int = -1,
+               qkv: bool = False) -> torch.Tensor:
+        """all_gather with a gradient: the backward keeps this rank's slice
+        of the whole tensor's gradient (every rank computes the same one
+        downstream)."""
+        if self.group is None:
+            return t
+        return _Gather.apply(t, self, dim, qkv)
+
+
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        out = t.clone(memory_format=torch.contiguous_format)
+        return axis.all_reduce(out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.all_reduce(
+            grad.clone(memory_format=torch.contiguous_format)), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim, qkv):
+        ctx.axis, ctx.dim, ctx.qkv = axis, dim % t.dim(), qkv
+        return axis.all_gather(t, dim, qkv)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a = ctx.axis
+        return (_shard(grad, ctx.dim, ctx.qkv, a.size, a.index), None, None,
+                None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,6 +232,18 @@ class Mesh:
     @property
     def shape(self) -> dict:
         return {"data": self.data.size, "model": self.model.size}
+
+    def broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        """Global rank 0's t on every rank of the group, in place; returns
+        t (nothing to do in one process)."""
+        if dist.is_initialized():
+            dist.broadcast(t, src=0)
+        return t
+
+    def barrier(self) -> None:
+        """Every rank of the group waits for the others."""
+        if dist.is_initialized():
+            dist.barrier()
 
 
 def make_mesh(cfg: MeshConfig | None = None) -> Mesh:
@@ -201,12 +273,22 @@ def make_mesh(cfg: MeshConfig | None = None) -> Mesh:
                               for i in range(data)]))
 
 
-def process_batch_slice(global_batch: int) -> slice:
-    """The half-open range of the global batch owned by this process."""
-    n = world_size()
+def process_batch_slice(global_batch: int, data: Axis | None = None) -> slice:
+    """The half-open range of the global batch owned by this process: its
+    data index's rows of `data` (a mesh's data axis: the model ranks of a
+    data index share its rows), or of the whole world without one."""
+    n, i = ((world_size(), process_index()) if data is None
+            else (data.size, data.index))
     per = global_batch // n
-    i = process_index()
     return slice(i * per, (i + 1) * per)
+
+
+def data_position(cfg: MeshConfig) -> tuple[int, int]:
+    """(data index, data size) of this process under cfg, without making
+    the groups (the loaders are built before the trainer's mesh): rank =
+    data index * model + model index."""
+    data, model = cfg.resolve(world_size())
+    return process_index() // model, data
 
 
 def rank_seed(seed: int, index: int) -> int:
@@ -263,6 +345,73 @@ def _shard(leaf: torch.Tensor, dim: int, qkv: bool, size: int,
         memory_format=torch.contiguous_format)
 
 
+def spec_dim(path: tuple, ndim: int, rules=_dit_param_spec) -> int | None:
+    """The dim `rules` cut over the model axis for a leaf at `path` of
+    `ndim` dims (whole or a shard), or None for a replicated leaf."""
+    spec = rules(path, ndim)
+    return spec.index("model") if "model" in spec else None
+
+
+def cut_dim(path: tuple, leaf: torch.Tensor, size: int,
+            rules=_dit_param_spec) -> int | None:
+    """The dim of `leaf` that `rules` cut over `size` model ranks, or None
+    for a replicated leaf (or size 1). A cut that does not divide raises
+    ValueError."""
+    dim = spec_dim(path, leaf.dim(), rules)
+    if size == 1 or dim is None:
+        return None
+    if leaf.shape[dim] % size:
+        raise ValueError(f"{'/'.join(map(str, path))}: dim {dim} of "
+                         f"{tuple(leaf.shape)} does not divide over "
+                         f"{size} ranks")
+    return dim
+
+
+def cut_leaf(path: tuple, leaf: torch.Tensor, axis: Axis,
+             rules=_dit_param_spec) -> torch.Tensor:
+    """This rank's shard of a whole leaf at `path` (the leaf itself when
+    it is replicated)."""
+    dim = cut_dim(path, leaf, axis.size, rules)
+    if dim is None:
+        return leaf
+    return _shard(leaf, dim, "qkv" in path, axis.size, axis.index)
+
+
+def _walk(node, fn, path=()):
+    if isinstance(node, dict):
+        return {k: _walk(v, fn, path + (k,)) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_walk(v, fn, path + (i,)) for i, v in enumerate(node)]
+    return fn(path, node)
+
+
+def gather_leaf(path: tuple, leaf: torch.Tensor, axis: Axis,
+                rules=_dit_param_spec) -> torch.Tensor:
+    """The whole leaf at `path` from this rank's shard (collective over
+    the axis; the shard itself when the leaf is replicated); no
+    autograd."""
+    dim = spec_dim(path, leaf.dim(), rules)
+    if axis.size == 1 or dim is None:
+        return leaf
+    with torch.no_grad():
+        return axis.all_gather(leaf, dim, "qkv" in path)
+
+
+def gather_params(params, mesh: Mesh, rules=_dit_param_spec):
+    """The inverse of shard_params: every cut leaf gathered whole over the
+    model axis (collective: every rank of the axis calls it), replicated
+    leaves as they are; no autograd. With model = 1 the tree itself."""
+    if mesh.model.size == 1:
+        return params
+    return _walk(params, lambda path, leaf: gather_leaf(path, leaf,
+                                                        mesh.model, rules))
+
+
+def key_path(key: str) -> tuple:
+    """A "/"-joined tree path (checkpoint keys) as a path tuple."""
+    return tuple(int(p) if p.isdigit() else p for p in key.split("/"))
+
+
 def shard_params(params, mesh: Mesh, rules=_dit_param_spec):
     """Each leaf of a DiT param tree (either layout) cut to this rank's
     shard along the dim that `rules` give "model" (gtax's param_sharding,
@@ -271,29 +420,10 @@ def shard_params(params, mesh: Mesh, rules=_dit_param_spec):
     heads; the adaLN heads' 6D columns are contiguous blocks, which an
     all-gather in rank order joins again. With model = 1 the tree is
     returned as it is, replicated."""
-    size, index = mesh.model.size, mesh.model.index
-    if size == 1:
+    if mesh.model.size == 1:
         return params
-
-    def cut(path, leaf):
-        spec = rules(path, leaf.dim())
-        if "model" not in spec:
-            return leaf
-        dim = spec.index("model")
-        if leaf.shape[dim] % size:
-            raise ValueError(f"{'/'.join(map(str, path))}: dim {dim} of "
-                             f"{tuple(leaf.shape)} does not divide over "
-                             f"{size} ranks")
-        return _shard(leaf, dim, "qkv" in path, size, index)
-
-    def walk(node, path=()):
-        if isinstance(node, dict):
-            return {k: walk(v, path + (k,)) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [walk(v, path + (i,)) for i, v in enumerate(node)]
-        return cut(path, node)
-
-    return walk(params)
+    return _walk(params, lambda path, leaf: cut_leaf(path, leaf, mesh.model,
+                                                     rules))
 
 
 def data_parallel_rollout(rollout, mesh: Mesh, num_gen_frames: int):
@@ -315,7 +445,8 @@ def data_parallel_rollout(rollout, mesh: Mesh, num_gen_frames: int):
 
 
 def all_reduce_grads(grads, axis: Axis):
-    """Sum every tensor of `grads` over the axis, in place: one all-reduce
-    a leaf, with no copy. Nothing to do without a group."""
+    """Sum every tensor of `grads` over the axis (the trainer's: the data
+    axis, for the cut and the replicated leaves alike), in place: one
+    all-reduce a leaf, with no copy. Nothing to do without a group."""
     for g in grads:
         axis.all_reduce(g)

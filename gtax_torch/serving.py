@@ -52,15 +52,27 @@ cache; every rank returns the same pixels. The two together are refused,
 as in gtax, and so is a mesh that does not fill the group (1x1 in a group
 of two among them).
 
+aot_dir (gtax_torch.aot): the kernel library comes from an AOT cache in
+that directory: the first process builds it with nvcc and saves it, later
+ones load it and need no nvcc. prewarm() runs encode, rollout and decode
+once on zeros in a background thread (gtax's prewarm), so a following
+generate() finds the library loaded and the card warm; generate() and
+prewarm serialise on the generator's lock. On the CPU there is nothing to
+build: the directory is made and prewarm still runs. Under mesh_model the
+cache is off, as gtax's (its GSPMD path keeps the jit; the port's runs no
+kernel). prewarm captures no CUDA graph: a difference by design until the
+rollout has graphs (ROADMAP.md).
+
 Options that run: quantize "none" or "int8", any pipeline_depth and
 attn_broadcast gtax takes, every backend, either layout, mesh_data and
-mesh_model as above; aot_dir=None only (another value raises
-NotImplementedError; ROADMAP.md queues it).
+mesh_model as above, aot_dir.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -106,10 +118,6 @@ def _check_slice(cfg: ServingConfig) -> None:
         raise NotImplementedError(
             f"ServingConfig.quantize={cfg.quantize!r} is not ported (only "
             "'none' and 'int8'); see ROADMAP.md")
-    if cfg.aot_dir is not None:
-        raise NotImplementedError(
-            f"ServingConfig.aot_dir={cfg.aot_dir!r} is not ported yet (only "
-            "None); see ROADMAP.md")
     if cfg.mesh_model > 1 and cfg.mesh_data > 1:
         raise ValueError("mesh_model and mesh_data are mutually exclusive "
                          "serving modes")
@@ -213,6 +221,17 @@ class VideoGenerator:
         self._backend = run_cfg.attention_backend
         self._fused = self._backend in attn.FUSED_ATTENTION
         self._rollout = build_rollout(self.dit_cfg, run_cfg, dtype, tp)
+        # the card runs one generate (or prewarm) at a time
+        self._lock = threading.Lock()
+        self._aot = None
+        if cfg.aot_dir and cfg.mesh_model <= 1:
+            from gtax_torch.aot import AotCache
+
+            self._aot = AotCache(cfg.aot_dir)
+            if self.device.type == "cuda":
+                from gtax_torch.kernels import build
+
+                build.use_cache(self._aot)  # loaded at the first launch
         # stage timings of the most recent generate() call, seconds
         self.last_timings = {}
 
@@ -251,6 +270,44 @@ class VideoGenerator:
                                         self._fused, self._backend)
                           for i in range(0, T, chunk)], dim=1)
 
+    def prewarm(self, num_frames: int = 32, batch_size: int = 1,
+                n_prompt: int = 4, use_actions: bool = False,
+                wait: bool = False):
+        """Run encode -> rollout -> decode once on zeros for one generate()
+        shape, in a daemon thread (gtax's prewarm): the kernel library is
+        loaded (or built) from the AOT cache and the card warmed while the
+        caller prepares its prompt. Records prewarm_start, then
+        prewarm_done or prewarm_failed, in the cache's events; a failure
+        never reaches the caller. wait=True joins the thread. Returns the
+        thread, or None when aot_dir is unset (gtax's no-op)."""
+        if self._aot is None:
+            return None
+        tag = f"B{batch_size}x{num_frames}"
+        vc = self.vae_cfg
+
+        def work():
+            try:
+                video = np.zeros((batch_size, n_prompt, 3, vc.input_height,
+                                  vc.input_width), np.float32)
+                acts = (np.zeros((batch_size, num_frames,
+                                  self.dit_cfg.external_cond_dim),
+                                 np.float32) if use_actions else None)
+                with (torch.cuda.device(self.device)
+                      if self.device.type == "cuda"
+                      else contextlib.nullcontext()):
+                    self.generate(video, acts, num_frames, seed=0)
+                self._aot.events.append(("prewarm_done", tag))
+            except Exception as e:  # never kill the caller from the thread
+                self._aot.events.append(("prewarm_failed", repr(e)))
+
+        self._aot.events.append(("prewarm_start", tag))
+        t = threading.Thread(target=work, daemon=True,
+                             name="gtax-aot-prewarm")
+        t.start()
+        if wait:
+            t.join()
+        return t
+
     def generate(self, prompt_frames, actions=None, num_frames: int = 32,
                  seed: int = 0, noise=None):
         """prompt_frames: (B, T0, 3, H, W) float in [0, 1] (or (T0, 3, H,
@@ -260,7 +317,13 @@ class VideoGenerator:
         one draw a cycle, nor with mesh_data > 1).
         Returns (B, num_frames, H, W, 3) uint8 numpy pixels; num_frames
         counts prompt + generated frames. Under mesh_data = N every rank
-        passes the same global batch and gets back its own B / N rows."""
+        passes the same global batch and gets back its own B / N rows. Runs
+        under the generator's lock (a prewarm in flight finishes first)."""
+        with self._lock:
+            return self._generate(prompt_frames, actions, num_frames, seed,
+                                  noise)
+
+    def _generate(self, prompt_frames, actions, num_frames, seed, noise):
         dev = self.device
         video = _to(prompt_frames, dev)
         if video.dim() == 4:
@@ -287,7 +350,7 @@ class VideoGenerator:
             if B % data:
                 raise ValueError(f"batch {B} must divide over "
                                  f"mesh_data={data}")
-            rows = meshlib.process_batch_slice(B)
+            rows = meshlib.process_batch_slice(B, self.mesh.data)
             video = video[rows]
             actions = None if actions is None else actions[rows]
             dp = meshlib.data_parallel_rollout(self._rollout, self.mesh,

@@ -75,13 +75,16 @@ def write_json(path: str, obj) -> None:
 
 def write_state(state_dir: str, params, optimizer, generator,
                 global_step: int, layout: str = "unstacked") -> int:
-    """Write params, the optimizer's moments and count, the generator's
-    state, global_step and the params' layout ("unstacked" or "stacked")
-    into state_dir; returns the bytes written."""
+    """Write params, the optimizer's moments and count (an optimizer, or
+    its state_dict: a tensor-parallel trainer passes the whole moments),
+    the generator's state, global_step and the params' layout
+    ("unstacked" or "stacked") into state_dir; returns the bytes
+    written."""
     tmp = state_dir + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    opt = optimizer.state_dict()
+    opt = optimizer if isinstance(optimizer, dict) else (
+        optimizer.state_dict())
     tensors = {f"params/{k}": v for k, v in flat(params).items()}
     for name in ("mu", "nu"):
         tensors.update({f"{name}/{k}": v for k, v in opt[name].items()})
@@ -98,13 +101,15 @@ def write_state(state_dir: str, params, optimizer, generator,
 
 @torch.no_grad()
 def read_state(state_dir: str, params, optimizer, generator,
-               layout: str = "unstacked") -> dict:
+               layout: str = "unstacked", cut=None) -> dict:
     """Load a write_state directory: each master is copied in place (the
     optimizer holds references to them), the moments and count go through
     optimizer.load_state_dict, the generator takes its saved state.
-    Returns state.json's contents. A state of the other layout (states
-    without one are unstacked) or a missing, extra or mis-shaped tensor
-    raises."""
+    cut(key, tensor): the part of each whole master and moment this
+    process holds (a tensor-parallel trainer's shard), applied before the
+    copy. Returns state.json's contents. A state of the other layout
+    (states without one are unstacked) or a missing, extra or mis-shaped
+    tensor raises."""
     with open(os.path.join(state_dir, META)) as f:
         meta = json.load(f)
     saved = meta.get("layout", "unstacked")
@@ -123,6 +128,8 @@ def read_state(state_dir: str, params, optimizer, generator,
     for name, t in iter_safetensors(os.path.join(state_dir, STATE)):
         kind, _, key = name.partition("/")
         seen.add(name)
+        if cut is not None and kind in ("params", "mu", "nu"):
+            t = cut(key, t)
         if kind == "params":
             dst = masters.get(key)
             if dst is None or dst.shape != t.shape or dst.dtype != t.dtype:

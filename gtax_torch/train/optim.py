@@ -79,10 +79,17 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 class AdamW:
-    """clip_by_global_norm + AdamW over a param tree, updated in place."""
+    """clip_by_global_norm + AdamW over a param tree, updated in place.
+
+    Under tensor parallelism the tree holds this rank's shards (gtax's
+    _place_state puts the masters and the moments on the same sharding):
+    `cut` flags the leaves cut over `model_axis`, whose squares the global
+    norm sums over the axis, while the replicated leaves count once, so
+    the clip and the norm are the whole model's."""
 
     def __init__(self, params, schedule, weight_decay=0.0, max_grad_norm=1.0,
-                 b1=0.9, b2=0.999, eps=1e-7, mu_dtype=None):
+                 b1=0.9, b2=0.999, eps=1e-7, mu_dtype=None, model_axis=None,
+                 cut=None):
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
@@ -93,6 +100,19 @@ class AdamW:
         self.b1_mu = float(torch.tensor(b1).to(mu_dtype or torch.float32))
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        self.model_axis = model_axis
+        self.cut = cut or [False] * len(self.params)
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """The whole model's gradient norm (global_norm in one process)."""
+        if self.model_axis is None:
+            return global_norm(grads)
+        zero = torch.zeros((), device=grads[0].device)
+        cut = sum((torch.sum(g.float().square())
+                   for g, c in zip(grads, self.cut) if c), zero)
+        rep = sum((torch.sum(g.float().square())
+                   for g, c in zip(grads, self.cut) if not c), zero)
+        return torch.sqrt(self.model_axis.all_reduce(cut) + rep)
 
     @torch.no_grad()
     def step(self, grads):
@@ -101,7 +121,7 @@ class AdamW:
         norm of the gradients before clipping (a device tensor)."""
         grads = [torch.zeros_like(p) if g is None else g.float()
                  for p, g in zip(self.params, grads)]
-        norm = global_norm(grads)
+        norm = self.global_norm(grads)
         keep = norm < self.max_grad_norm
         f32 = np.float32
         inc = self.count + 1
@@ -156,9 +176,10 @@ def make_optimizer(params, learning_rate: float, min_learning_rate: float,
                    warmup_steps: int, total_steps: int,
                    weight_decay: float = 0.0, max_grad_norm: float = 1.0,
                    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-7,
-                   mu_dtype=None):
-    """(optimizer, schedule) as gtax make_optimizer builds them."""
+                   mu_dtype=None, model_axis=None, cut=None):
+    """(optimizer, schedule) as gtax make_optimizer builds them; model_axis
+    and cut as AdamW's."""
     schedule = cosine_min_lr_schedule(learning_rate, min_learning_rate,
                                       warmup_steps, total_steps)
     return AdamW(params, schedule, weight_decay, max_grad_norm, b1, b2, eps,
-                 mu_dtype), schedule
+                 mu_dtype, model_axis, cut), schedule

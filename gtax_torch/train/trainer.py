@@ -15,17 +15,29 @@ and the profile_dir trace window; the attention backends `xla`, `fused`,
 layout (`unstack_train: false`). `pallas` is refused: its attention
 kernels have no gradient (nor has gtax's Pallas attention).
 
-Data-parallel training (`mesh_data` = the process group's size, one
-process a card; gtax_torch.parallel.mesh): each rank trains on
-config.batch_size rows of its own a micro-step (the loaders' stride),
-takes its rows of the global batch's loss draws from the shared training
-generator, and after the last micro-batch an all-reduce of each gradient
-(gtax's psum) makes them the one-process gradients at the
-global batch before the clip and AdamW, so every rank takes the same
-step. Rank 0's masters are broadcast at construction; rank 0 writes the
-export, the state and the metrics records; step.json keeps every rank's
-stream cursor. Not ported yet (check_slice raises NotImplementedError):
-tensor-parallel training (`mesh_model` > 1; ROADMAP.md).
+More than one process (one a card; gtax_torch.parallel.mesh) lays the
+group out as `mesh_data` x `mesh_model`, rank = data index * model + model
+index, as gtax's (data, model) mesh:
+
+- Data-parallel (the data axis): each data index trains on
+  config.batch_size rows of its own a micro-step (the loaders' stride),
+  takes its rows of the global batch's loss draws from the shared
+  training generator, and after the last micro-batch an all-reduce of
+  each gradient over the data axis (gtax's psum) makes them the
+  one-process gradients at the global batch before the clip and AdamW.
+- Tensor-parallel (the model axis, `mesh_model` > 1): the model ranks of
+  a data index see the same rows and draws; each holds its shards of the
+  cut leaves (mesh.shard_params) and AdamW's masters and moments of them
+  only (gtax's _place_state); dit_apply(tp=) runs the blocks over the
+  axis, differentiably, under every training backend (module docstring
+  of gtax_torch.models.dit). The replicated leaves' gradients agree
+  across the axis; the norm that clips is the whole model's. A save
+  gathers the shards, so its files equal a one-process run's; a resume
+  cuts them to the resuming layout.
+
+Rank 0's masters are broadcast at construction; rank 0 writes the export,
+the state and the metrics records; step.json keeps every data index's
+stream cursor.
 """
 
 from __future__ import annotations
@@ -110,8 +122,7 @@ TRAIN_BACKENDS = ("xla", "fused", "fused_mlp", "fused_all")
 def check_slice(config: TrainingConfig) -> None:
     """Raise ValueError for a configuration that cannot train (the `pallas`
     backend; int8_forward off the fused backends, as gtax asserts; a mesh
-    that does not fill the process group) and NotImplementedError for what
-    the port does not run yet (tensor-parallel training; ROADMAP.md)."""
+    that does not fill the process group)."""
     backend = config.attention_backend
     if backend == "pallas":
         raise ValueError(
@@ -126,11 +137,8 @@ def check_slice(config: TrainingConfig) -> None:
         raise ValueError("int8_forward runs through the fused trainable "
                          "kernels: attention_backend 'fused' or "
                          f"'fused_all', not {backend!r}")
-    if config.mesh_model > 1:
-        raise NotImplementedError(
-            f"TrainingConfig.mesh_model={config.mesh_model}: tensor-parallel "
-            "training is not ported yet; see ROADMAP.md")
-    meshlib.MeshConfig(config.mesh_data, 1).resolve(meshlib.world_size())
+    meshlib.MeshConfig(config.mesh_data, config.mesh_model).resolve(
+        meshlib.world_size())
 
 
 class Trainer:
@@ -145,16 +153,20 @@ class Trainer:
     and applied, all on the card without a host read. train_step returns the
     PREVIOUS step's metrics, so the host prepares and enqueues step N+1
     while the card runs step N. In a process group the trainer is
-    data-parallel over it (module docstring): `mesh` is its layout,
-    `world` and `rank` its data axis."""
+    data- and tensor-parallel over it (module docstring): `mesh` is its
+    layout, `world` and `rank` its data axis, `tp` its model axis (None
+    with one model rank), `is_main` whether it writes the files."""
 
     def __init__(self, config: TrainingConfig, total_dataset_size: int,
                  dit_cfg=None, vae_cfg=None, dit_params=None, vae_params=None,
                  device=None):
         check_slice(config)
         self.config = config
-        self.mesh = meshlib.make_mesh(meshlib.MeshConfig(config.mesh_data, 1))
+        self.mesh = meshlib.make_mesh(meshlib.MeshConfig(config.mesh_data,
+                                                         config.mesh_model))
         self.world, self.rank = self.mesh.data.size, self.mesh.data.index
+        self.tp = self.mesh.model if self.mesh.model.size > 1 else None
+        self.is_main = meshlib.process_index() == 0
         self.device = resolve_device(device)
         self.compute_dtype = getattr(torch, config.compute_dtype)
         if self.device.type == "cuda" and self.compute_dtype != torch.bfloat16:
@@ -188,9 +200,12 @@ class Trainer:
         self.dit_params = dit_mod._map_params(
             params, lambda _, a: a.detach().to(self.device, torch.float32,
                                                 copy=True))
+        for _, p in leaves(self.dit_params):
+            self.mesh.broadcast(p.data)  # rank 0's init or file
+        # this rank's shards (the tree itself with one model rank)
+        self.dit_params = meshlib.shard_params(self.dit_params, self.mesh)
         for path, p in leaves(self.dit_params):
             p.requires_grad_(decays(path))  # rope tables stay frozen
-            self.mesh.data.broadcast(p.data)  # rank 0's init or file
 
         self.vae_cfg = vae_cfg or vae_mod.VAE_MODELS[config.vae_model]()
         if vae_params is None and config.vae_checkpoint:
@@ -226,7 +241,11 @@ class Trainer:
             warmup, self.total_training_steps,
             weight_decay=config.weight_decay,
             max_grad_norm=config.max_grad_norm,
-            mu_dtype=torch.bfloat16 if config.mu_bf16 else None)
+            mu_dtype=torch.bfloat16 if config.mu_bf16 else None,
+            model_axis=self.tp,
+            cut=[self.tp is not None
+                 and meshlib.spec_dim(path, p.dim()) is not None
+                 for path, p in leaves(self.dit_params)])
 
         _, abar, noise_range, stabilization = (
             schedules.make_diffusion_constants(config.ddim_noise_steps))
@@ -255,9 +274,10 @@ class Trainer:
             * config.gradient_accumulation_steps,
             self.max_frames) * max(1, 5 - config.n_prompt_frames)
         self.mfu = None
-        if self.device.type == "cuda":  # the global step over the world
-            self.mfu = MFUCounter(flops, self.world * MFUCounter.peak_for_kind(
-                torch.cuda.get_device_name(self.device)))
+        if self.device.type == "cuda":  # the global step over every card
+            self.mfu = MFUCounter(flops, meshlib.world_size()
+                                  * MFUCounter.peak_for_kind(
+                                      torch.cuda.get_device_name(self.device)))
         self._inflight = None  # (device metrics, entry time, lr)
         # the int8 forward's weights of the step being dispatched
         self._int8_weights = None
@@ -281,7 +301,7 @@ class Trainer:
                                  compute_dtype=self.compute_dtype,
                                  backend=self.config.attention_backend,
                                  int8_fwd=self.config.int8_forward,
-                                 int8_weights=self._int8_weights)
+                                 int8_weights=self._int8_weights, tp=self.tp)
 
     def loss(self, params, video, actions, generator, is_latents=False,
              global_draws=False):
@@ -318,7 +338,10 @@ class Trainer:
         params = [p for _, p in leaves(self.dit_params)]
         for p in params:
             p.grad = None
-        if self.config.int8_forward:  # once a step: bit-equal a micro-step
+        if self.config.int8_forward and self.tp is None:
+            # once a step: bit-equal a micro-step (under tp each gathered
+            # block quantizes itself: a shard's scales are not the
+            # whole kernel's)
             self._int8_weights = dit_mod.quantize_train_weights(
                 self.dit_params, self.compute_dtype)
         loss_sum = torch.zeros((), device=self.device)
@@ -331,8 +354,9 @@ class Trainer:
             sum_loss.backward()
             loss_sum = loss_sum + mean_loss.detach()
         self._int8_weights = None
-        # gtax's psum: each rank's gradient is the mean over its rows, so
-        # the sum over the ranks / world is the global batch's
+        # gtax's psum: each data index's gradient is the mean over its
+        # rows, so the sum over the data axis / world is the global
+        # batch's (the model ranks' copies of a replicated leaf agree)
         meshlib.all_reduce_grads([p.grad for p in params
                                   if p.grad is not None], self.mesh.data)
         self.mesh.data.all_reduce(loss_sum)
@@ -489,10 +513,11 @@ class Trainer:
         path = os.path.join(
             self.config.output_dir, f"{self.config.model_name}_epoch_"
             f"{epoch + 1}_{self.global_step}.safetensors")
-        if self.rank > 0:
+        params = meshlib.gather_params(self.dit_params, self.mesh)
+        if not self.is_main:
             return path
         os.makedirs(self.config.output_dir, exist_ok=True)
-        port.save_dit(path, self.dit_params, self.dit_cfg)
+        port.save_dit(path, params, self.dit_cfg)
         logger.warning("Saved checkpoint to %s", path)
         return path
 
@@ -503,25 +528,40 @@ class Trainer:
     def _ckpt_dir(self) -> str:
         return ckpt.ckpt_dir(self.config.output_dir, self.config.model_name)
 
+    def _whole_state(self):
+        """(masters, optimizer state_dict) whole: under tensor parallelism
+        the shards gathered over the model axis (collective), so the files
+        equal a one-process run's."""
+        if self.tp is None:
+            return self.dit_params, self.optimizer
+        opt = self.optimizer.state_dict()
+        for name in ("mu", "nu"):
+            opt[name] = {k: meshlib.gather_leaf(path, v, self.tp)
+                         for path, (k, v) in zip(self.optimizer.paths,
+                                                 opt[name].items())}
+        return meshlib.gather_params(self.dit_params, self.mesh), opt
+
     def save_checkpoint(self, epoch: int) -> int:
         """The full state (masters, optimizer moments and count, the
         training generator, global_step) into state_<step>, then step.json
         (step, epoch, time, the wandb run id, the stream cursor: on more
-        than one rank every rank's, `data_cursors` in rank order), then the
-        superseded states pruned. Rank 0 writes (the state is the same on
-        every rank) and every rank waits for it. Returns the state's bytes
-        (0 on the other ranks)."""
+        than one data index every index's, `data_cursors` in index order),
+        then the superseded states pruned. Rank 0 writes (the state is the
+        same on every rank; tensor-parallel shards are gathered first) and
+        every rank waits for it. Returns the state's bytes (0 on the other
+        ranks)."""
         cursor = getattr(self.train_dataset, "cursor", None)
         cursors = self.mesh.data.gather_objects(
             None if cursor is None else list(cursor))
+        params, opt = self._whole_state()
         n = 0
-        if self.rank == 0:
+        if self.is_main:
             path = self._ckpt_dir()
             os.makedirs(path, exist_ok=True)
             name = f"state_{self.global_step}"
-            n = ckpt.write_state(os.path.join(path, name), self.dit_params,
-                                 self.optimizer, self.generator,
-                                 self.global_step, self._layout())
+            n = ckpt.write_state(os.path.join(path, name), params, opt,
+                                 self.generator, self.global_step,
+                                 self._layout())
             meta = {"step": self.global_step, "epoch": epoch,
                     "time": time.time()}
             if self.wandb_run_id is not None:
@@ -534,7 +574,8 @@ class Trainer:
             ckpt.prune(path, keep=name)
             logger.warning("Saved checkpoint for step %d (%d bytes)",
                            self.global_step, n)
-        self.mesh.data.barrier()
+        del params, opt
+        self.mesh.barrier()
         return n
 
     def try_resume(self) -> bool:
@@ -554,9 +595,12 @@ class Trainer:
             return False
         with open(meta_path) as f:
             meta = json.load(f)
+        cut = None if self.tp is None else (
+            lambda key, t: meshlib.cut_leaf(meshlib.key_path(key), t,
+                                            self.tp))
         state = ckpt.read_state(os.path.join(path, f"state_{meta['step']}"),
                                 self.dit_params, self.optimizer,
-                                self.generator, self._layout())
+                                self.generator, self._layout(), cut)
         if state["global_step"] != meta["step"]:
             raise ValueError(f"{path}: step.json says step {meta['step']}, "
                              f"the state {state['global_step']}")
@@ -623,7 +667,8 @@ class Trainer:
             avg = float(self.mesh.data.all_reduce(t)) / self.world
         logger.info("val_loss=%.5f at step %d", avg, self.global_step)
         self.log_metrics({"val_loss": avg}, epoch=self.start_epoch)
-        # the evals' files are rank 0's (every rank would write the same)
+        # the evals are data index 0's (its model ranks run them together;
+        # rank 0 writes the files: every rank would write the same)
         if first is not None and not first.is_latents and self.rank == 0:
             try:
                 self.predict(first)
@@ -671,9 +716,11 @@ class Trainer:
         from gtax_torch.io.video import write_video
 
         frames = self.predict_frames(batch, num_frames)
-        os.makedirs("debug_visualizations", exist_ok=True)
         path = (f"debug_visualizations/test_{self.config.model_name}_0_epoch_"
                 f"{self.start_epoch}_gs_{self.global_step}.mp4")
+        if not self.is_main:
+            return path
+        os.makedirs("debug_visualizations", exist_ok=True)
         write_video(path, frames, fps=10)
         logger.info("generation saved to %s", path)
         return path
@@ -691,6 +738,8 @@ class Trainer:
             lambda x, t, a, v: self.dit_fn(self.dit_params, x, t, a, v),
             latents, self._eval_actions(batch.actions),
             self._eval_generator(102), self.sampler_cfg, abar, noise_range)
+        if not self.is_main:  # the grid is rank 0's file
+            return out["denoised"]
         try:
             from gtax_torch.train.viz import visualize_step
 
@@ -743,7 +792,7 @@ class Trainer:
     def _init_wandb(self):
         """wandb.init with the run id from step.json, so a resumed run
         logs into the same wandb run (gtax _init_wandb); rank 0's."""
-        if not self.config.use_wandb or self.rank > 0:
+        if not self.config.use_wandb or not self.is_main:
             return
         try:
             import wandb
@@ -766,7 +815,7 @@ class Trainer:
         logger.info("step %d | %s", step, " ".join(
             f"{k}={v:.5g}" for k, v in metrics.items()
             if isinstance(v, (int, float)) and k != "step"))
-        if self.rank > 0:
+        if not self.is_main:
             return
         if self.config.use_wandb:
             try:
@@ -795,8 +844,11 @@ def build_loaders(config: TrainingConfig, **dataset_kw):
     its part: map-style datasets a stride of one permutation, the tar
     streamer its shards (worker_index = rank of num_workers = world), both
     splits; its batches are config.batch_size rows (gtax's batch_size x
-    local_device_count, one card a process)."""
-    rank, world = meshlib.process_index(), meshlib.world_size()
+    local_device_count, one card a process). "Rank" and "world" here are
+    the data axis's index and size: the model ranks of a data index read
+    the same rows."""
+    rank, world = meshlib.data_position(
+        meshlib.MeshConfig(config.mesh_data, config.mesh_model))
     vae_cfg = vae_mod.VAE_MODELS[config.vae_model]()
     if config.dataset_type == "dummy":
         dataset_kw.setdefault("height", vae_cfg.input_height)

@@ -243,8 +243,93 @@ def tp_serve(rank, world, d, inp, one):
     return out
 
 
+def _whole_grads(tr):
+    """Each leaf's gradient of the last step as the optimizer read it
+    (summed over the data axis, / accumulation x data size), gathered
+    whole over the model axis."""
+    from gtax_torch.parallel import mesh
+    from gtax_torch.train.optim import leaves
+
+    scale = tr.config.gradient_accumulation_steps * tr.world
+    out = {}
+    for path, p in leaves(tr.dit_params):
+        if p.grad is not None:
+            g = p.grad / scale
+            if tr.tp is not None:
+                g = mesh.gather_leaf(path, g, tr.tp)
+            out["/".join(map(str, path))] = g
+    return out
+
+
+def tp_train(rank, world, d, inp):
+    """One step of the tensor-parallel trainer under each of the parent's
+    backends (and int8_forward), on this data index's rows of the global
+    latent batch and of the parent's global draws: the loss, grad norm,
+    every leaf's gradient and the masters after the update, gathered
+    whole."""
+    from gtax_torch.data.loader import Batch
+    from gtax_torch.parallel import mesh
+    from gtax_torch.train import trainer as trainer_mod
+
+    B = inp["config"]["batch_size"]
+    loss = trainer_mod.diffusion_forcing_loss
+    out = {}
+    for name, over in inp["runs"].items():
+        cfg = dict(inp["config"], **over)
+        data = world // cfg["mesh_model"]
+        tr = _debug_trainer(cfg, total_dataset_size=64,
+                            dit_params=inp["params"], vae_params=inp["vae"])
+        rows = mesh.process_batch_slice(B * data, tr.mesh.data)
+        mine = {k: v[:, rows] for k, v in inp["draws"].items()}
+        trainer_mod.diffusion_forcing_loss = (
+            lambda fn, la, ac, gen, *a, draws=None: loss(
+                fn, la, ac, None, *a, draws=mine))
+        gathers = []  # the step's all-gathers over the model axis
+        all_gather = mesh.Axis.all_gather
+        mesh.Axis.all_gather = (lambda self, *a, **k: gathers.append(1)
+                                or all_gather(self, *a, **k))
+        try:
+            m = tr.train_step_sync(Batch(inp["latents"][:, rows],
+                                         inp["actions"][:, rows],
+                                         is_latents=True))
+        finally:
+            mesh.Axis.all_gather = all_gather
+        out[name] = {"loss": m["train_loss"], "grad_norm": m["grad_norm"],
+                     "grads": _whole_grads(tr),
+                     "masters": _flat(mesh.gather_params(tr.dit_params,
+                                                         tr.mesh)),
+                     "mesh": tr.mesh.shape, "rank_data": tr.rank,
+                     "gathers": len(gathers),
+                     "qkv_cols": tr.dit_params["blocks"][0]["s_attn"][
+                         "qkv"]["kernel"].shape[-1]}
+    return out
+
+
+def tp_ckpt(rank, world, d, inp):
+    """dp_ckpt's run under the parent's mesh: steps 1-3 through the
+    training loop with a save at step 2, then a second trainer resumes from
+    it into step 3 (gathered masters of both runs)."""
+    from gtax_torch.parallel import mesh
+    from gtax_torch.train.config import TrainingConfig
+    from gtax_torch.train.trainer import build_loaders
+
+    config = inp["config"]
+    runs = []
+    for _ in range(2):
+        train, _ = build_loaders(TrainingConfig.from_dict(config), size=24)
+        tr = _debug_trainer(config, total_dataset_size=len(train.dataset))
+        seen = {}
+        tr.training_loop(train, None, callbacks=[
+            lambda t, m: seen.update({m["step"]: m["train_loss"]})])
+        runs.append((seen, _flat(mesh.gather_params(tr.dit_params, tr.mesh)),
+                     tr.optimizer.state_dict()["nu"]))
+    return {"loss_a": runs[0][0], "loss_b": runs[1][0],
+            "final_a": runs[0][1], "final_b": runs[1][1],
+            "nu_shard": {k: v.clone() for k, v in runs[1][2].items()}}
+
+
 CASES = {f.__name__: f for f in (dp_train, dp_ckpt, cursor, dp_serve,
-                                 tp_serve)}
+                                 tp_serve, tp_train, tp_ckpt)}
 BEFORE_GROUP = {"dp_serve": dp_serve_one, "tp_serve": tp_serve_one}
 
 

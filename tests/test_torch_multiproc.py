@@ -74,24 +74,25 @@ WORKER = REPO / "tests" / "_torch_mp_worker.py"
 WORLD, B = 2, BASE["batch_size"]  # B rows a rank
 
 
-def _run(case, tmp, inputs=None, env_mode=False, timeout=150):
-    """Run `case` on two ranks in `tmp`; returns their outputs. env_mode:
-    the ranks join through gtax's GTAX_* environment."""
+def _run(case, tmp, inputs=None, env_mode=False, timeout=150, world=WORLD):
+    """Run `case` on `world` ranks (two by default) in `tmp`; returns their
+    outputs.
+    env_mode: the ranks join through gtax's GTAX_* environment."""
     tmp.mkdir(parents=True, exist_ok=True)
     if inputs is not None:
         torch.save(inputs, tmp / "inputs.pt")
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     procs, logs = [], []
     try:
-        for r in range(WORLD):
+        for r in range(world):
             e = dict(env)
             if env_mode:
                 e.update(GTAX_COORDINATOR=f"file://{tmp}/store",
-                         GTAX_NUM_PROCESSES=str(WORLD),
+                         GTAX_NUM_PROCESSES=str(world),
                          GTAX_PROCESS_ID=str(r))
             logs.append(open(tmp / f"log_{r}.txt", "w"))
             procs.append(subprocess.Popen(
-                [sys.executable, str(WORKER), case, str(r), str(WORLD),
+                [sys.executable, str(WORKER), case, str(r), str(world),
                  str(tmp)], cwd=tmp, env=e, stdout=logs[-1],
                 stderr=subprocess.STDOUT))
         deadline = time.monotonic() + timeout
@@ -112,7 +113,7 @@ def _run(case, tmp, inputs=None, env_mode=False, timeout=150):
             f"rank {r} exited {p.returncode}:\n"
             + (tmp / f"log_{r}.txt").read_text()[-4000:])
     return [torch.load(tmp / f"out_{r}.pt", weights_only=True)
-            for r in range(WORLD)]
+            for r in range(world)]
 
 
 def _masters_close(got, ref, tol):

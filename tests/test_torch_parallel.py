@@ -201,11 +201,19 @@ def test_one_process_mesh_is_the_identity():
     for axis in (m.data, m.model):
         assert axis.group is None
         assert axis.all_reduce(t) is t and axis.all_gather(t) is t
-        assert axis.broadcast(t) is t and axis.gather_objects(3) == [3]
+        assert axis.gather_objects(3) == [3]
+        assert (axis.reduce_sum(t) is t and axis.copy_in(t) is t
+                and axis.gather(t, 0, True) is t)
+    assert m.broadcast(t) is t
+    m.barrier()
+    assert mesh.gather_params({"blocks": [{"s_attn": {"qkv": {
+        "kernel": t}}}]}, m)["blocks"][0]["s_attn"]["qkv"]["kernel"] is t
     grads = [torch.ones(3), torch.full((2, 2), 2.0)]
     mesh.all_reduce_grads(grads, m.data)
     assert grads[0].sum() == 3 and grads[1].sum() == 8
     assert mesh.process_batch_slice(6) == slice(0, 6)
+    assert mesh.process_batch_slice(6, m.data) == slice(0, 6)
+    assert mesh.data_position(mesh.MeshConfig()) == (0, 1)
     seeds = {mesh.rank_seed(s, i) for s in (0, 1) for i in range(4)}
     assert len(seeds) == 8
     # a fixed hash of (seed, index): the same videos on any Python
@@ -238,13 +246,14 @@ def test_rank_draws_are_the_global_batch_rows(tmp_path):
 
 
 @pytest.mark.parametrize("option,error,match", [
-    ({"mesh_model": 2}, NotImplementedError, "ROADMAP.md"),
-    ({"mesh_data": 2, "mesh_model": 2}, NotImplementedError, "ROADMAP.md"),
+    ({"mesh_model": 2}, ValueError, "mesh 0x2 != 1"),
+    ({"mesh_data": 2, "mesh_model": 2}, ValueError, "mesh 2x2 != 1"),
     ({"mesh_data": 3}, ValueError, "mesh 3x1 != 1"),
 ])
 def test_trainer_mesh_refusals(option, error, match):
-    """Tensor-parallel training is the next slice; mesh_data must equal
-    the group's size (here one process)."""
+    """mesh_data x mesh_model must equal the group's size (here one
+    process); tensor-parallel training itself runs in
+    tests/test_torch_tp_train.py."""
     with pytest.raises(error, match=match):
         check_slice(TrainingConfig.from_dict(
             dict(attention_backend="fused_all", dataset_type="dummy",
@@ -264,11 +273,13 @@ def test_serving_mesh_refusals_as_gtax(option, match):
         serving.VideoGenerator.load("", "", cfg, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [{"backend": "fused_all"},
+@pytest.mark.parametrize("kw", [{"backend": "pallas"},
                                 {"backend": "xla", "plain_branches": True}])
 def test_dit_apply_tensor_parallel_needs_xla(kw):
-    """tp runs the `xla` backend's unfused branches only (gtax's GSPMD
-    path; the fused kernels are single-card)."""
+    """tp runs the `xla` backend's unfused branches over the model axis
+    (gtax's GSPMD path) or the fused branches on gathered blocks; not
+    `pallas` (its kernels are forward-only and single-card) nor the plain
+    kernel branches."""
     params = _small_params(False)
     x = torch.zeros(1, 3, 4, 4, 4)
     t = torch.zeros(1, 3, dtype=torch.long)

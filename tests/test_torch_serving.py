@@ -8,6 +8,7 @@ value across a uint8 truncation boundary); latents within 1e-4 (fp32
 summation-order differences through three DDIM steps of a small DiT)."""
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -240,12 +241,12 @@ def test_generate_validates_inputs(pair):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("quantize", "int4"), ("mesh_data", 2), ("mesh_model", 2),
-    ("aot_dir", "x")])
+    ("quantize", "int4"), ("mesh_data", 2), ("mesh_model", 2)])
 def test_unported_options_raise(field, value):
     """What is not ported raises NotImplementedError; a mesh axis of 2 in
     one process raises ValueError: the mesh must fill the process group
-    (tests/test_torch_multiproc.py runs both axes over two processes)."""
+    (tests/test_torch_multiproc.py runs both axes over two processes).
+    aot_dir is ported (test_ported_options_accepted)."""
     cfg = serving.ServingConfig(**KW, **{field: value})
     error, match = ((ValueError, "mesh 2x1|mesh 1x2")
                     if field.startswith("mesh") else
@@ -254,13 +255,20 @@ def test_unported_options_raise(field, value):
         serving.VideoGenerator.load("", "", cfg, device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [("unstack", False)])
-def test_ported_options_accepted(field, value):
+@pytest.mark.parametrize("field,value", [("unstack", False),
+                                         ("aot_dir", "x")])
+def test_ported_options_accepted(field, value, tmp_path):
     """unstack=False (the stacked layout) builds a generator whose params
-    stay stacked."""
+    stay stacked; aot_dir (here under tmp_path) one with an AOT cache in
+    that directory (tests/test_torch_aot.py holds its contract)."""
+    if field == "aot_dir":
+        value = str(tmp_path / value)
     cfg = serving.ServingConfig(**KW, **{field: value})
     gen = serving.VideoGenerator.load("", "", cfg, device="cpu")
-    assert dit.is_stacked(gen.dit_params)
+    if field == "unstack":
+        assert dit.is_stacked(gen.dit_params)
+    else:
+        assert gen._aot.dir == value and os.path.isdir(value)
 
 
 @pytest.mark.parametrize("case", [

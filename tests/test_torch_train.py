@@ -291,13 +291,13 @@ def test_config_keys_defaults_and_coercion():
     ({"attention_backend": "xla", "int8_forward": True}, ValueError),
     ({"attention_backend": "fused_mlp", "int8_forward": True}, ValueError),
     ({"mesh_data": 2}, ValueError),
-    ({"mesh_model": 2}, NotImplementedError)])
+    ({"mesh_model": 2}, ValueError)])
 def test_unported_options_raise(option, error):
     """`pallas` cannot train (its attention kernels refuse a gradient, as
     gtax's Pallas attention has none), int8_forward needs a fused
-    attention backend (gtax asserts it), mesh_data must equal the process
-    group's size (here one process), tensor-parallel training is not
-    ported."""
+    attention backend (gtax asserts it), mesh_data x mesh_model must equal
+    the process group's size (here one process; tensor-parallel training
+    runs in tests/test_torch_tp_train.py)."""
     base = dict(attention_backend="fused_all", dataset_type="dummy",
                 save_every=0)
     with pytest.raises(error):
