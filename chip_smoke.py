@@ -5,7 +5,9 @@
 
 Phases (any failure exits nonzero and prints no result line):
   1. environment: torch version, device, `nvidia-smi` name and power limit;
-  2. build: nvcc builds gtax_torch/csrc/*.cu for sm_90a (timed);
+  2. build: nvcc builds gtax_torch/csrc/*.cu for sm_90a (timed); `[sass]`:
+     cuobjdump's SASS of the library, where the fp32 kernels (F32_KERNELS)
+     must hold FFMAs and no tensor-core instruction (no TF32);
   3. kernels: each of the sixteen kernel wrappers (five bf16 and four
      int8 W8A8 serving wrappers, the two paired int8 half-blocks, the two
      attention kernels of the `pallas` backend, three training backwards)
@@ -44,7 +46,15 @@ Phases (any failure exits nonzero and prints no result line):
      forward of int8-forward training) at the B=16 training shape: every
      output against the plain version, the output bit-equal to the call
      without emit_train, timed beside torch._int_mm composites, with the
-     int8 GEMMs' K plan at 11,520 rows;
+     int8 GEMMs' K plan at 11,520 rows. The exact GELU (approx_gelu=False)
+     of #2 (bf16), #9 and the pairs #10 / #11 at the step's shapes under the
+     same 2**-6 rule, each pair bit-equal to its sequential wrappers in
+     that mode (each row's "exact_gelu"). Rows 1-5 in fp32 (`[kernel] ...
+     fp32`, each row's "fp32"): the fp32 forms at the main shapes against
+     their plain versions within F32_TOL (1e-4) of the plain output's
+     largest magnitude, timed beside the plain version and the fp32
+     library composite (no TF32), the bound from the bytes and 67 TFLOP/s
+     of fp32 FFMA; the MLP and the VAE block split by launch;
   4. end to end, bf16: VideoGenerator at full DiT-S/2 + ViT-L/20 width,
      B=1, 4 prompt frames + 2 generated, 100 noise steps, random seeded
      weights with nonzero adaLN heads, injected noise. The launch counters
@@ -52,6 +62,12 @@ Phases (any failure exits nonzero and prints no result line):
      kernels must have launched. Then the incremental rollout against the
      full-window rollout on the card, and a depth-2 full-width rollout on
      the card against the port's CPU rollout (plain versions);
+     `[e2e fp32]`: the same generate with ServingConfig(dtype="float32")
+     (the seeded weights, not cast) under `fused`: the fp32 forms of #1-#5
+     launched exactly as often as the bf16 run's, incremental against full
+     window and depth-2 card against CPU under `fused`, `fused_all` and
+     `xla` within E2E_F32_TOL (1e-3) of the latents' largest magnitude,
+     s/frame and encode / decode ms;
   5. end to end, int8: the same run with quantize="int8" (the same bf16
      weights, quantized): every step pairs each half-block, the prefill
      runs the sequential wrappers, and the counts must be the ones the
@@ -207,6 +223,15 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak, data sheet
 INT8_OPS_PER_S = 1979e12       # dense int8 tensor-core peak, data sheet
+F32_FLOPS_PER_S = 67e12        # fp32 on the CUDA cores (FFMA), data sheet
+# the fp32 forms of #1-#5 against their plain versions (both fp32, only
+# the summation order and expf / sincosf / erfc's last bits differ): of
+# the plain output's largest magnitude
+F32_TOL = 1e-4
+# [e2e fp32]: card against CPU and incremental against full window, of
+# the latents' largest magnitude (fp32 summation orders through 5-202 DiT
+# calls)
+E2E_F32_TOL = 1e-3
 D, H, HD = 1024, 16, 64
 S_DIT, S_VAE = 144, 576
 
@@ -253,11 +278,12 @@ class Timer:
         return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def bound_ms(n_bytes, n_flops, n_int8_ops=0):
+def bound_ms(n_bytes, n_flops, n_int8_ops=0, flops_per_s=BF16_FLOPS_PER_S):
     """The larger of the bytes over the memory rate and the operations over
-    their type's peak (bf16 flops, int8 ops)."""
+    their type's peak (bf16 flops, or fp32 ones at F32_FLOPS_PER_S; int8
+    ops)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_flops / BF16_FLOPS_PER_S + n_int8_ops / INT8_OPS_PER_S
+    t_ops = n_flops / flops_per_s + n_int8_ops / INT8_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -273,9 +299,9 @@ def rand(gen, shape, std=1.0, dtype=torch.bfloat16, offset=0.0):
     return torch.from_numpy(a).to(device="cuda", dtype=dtype)
 
 
-def branch_inputs(gen, N, S):
-    x = rand(gen, (N, S, D))
-    mods = rand(gen, (N, 6 * D), 0.5)  # (N, D) views as dit_cond gives
+def branch_inputs(gen, N, S, dt=torch.bfloat16):
+    x = rand(gen, (N, S, D), dtype=dt)
+    mods = rand(gen, (N, 6 * D), 0.5, dt)  # (N, D) views as dit_cond gives
     return x, mods[:, :D], mods[:, D:2 * D], mods[:, 2 * D:3 * D]
 
 
@@ -322,9 +348,11 @@ def live_mask(valid, n_ctx, n_live):
 
 # ------------------------------------------------------------ the kernels
 
-def kernel_cases():
+def kernel_cases(dt=torch.bfloat16):
     """(name, label, main, builder) per kernel and shape; builder returns
-    (kernel_fn, plain_fn, library_fn, library_desc, bytes, flops)."""
+    (kernel_fn, plain_fn, library_fn, library_desc, bytes, flops). dt =
+    torch.float32: the fp32 forms of #1-#5 at their main shapes (inputs,
+    weights and the library composite in fp32, under strict_matmul)."""
     from gtax_torch.core import rope
     from gtax_torch.kernels import block, vae_block
 
@@ -341,9 +369,9 @@ def kernel_cases():
 
     def spatial(N):
         gen = np.random.default_rng(N)
-        x, sh, sc, g = branch_inputs(gen, N, S_DIT)
-        qw, ow = rand(gen, (D, 3 * D), 0.02), rand(gen, (D, D), 0.02)
-        ob = rand(gen, (D,), 0.02)
+        x, sh, sc, g = branch_inputs(gen, N, S_DIT, dt)
+        qw, ow = rand(gen, (D, 3 * D), 0.02, dt), rand(gen, (D, D), 0.02, dt)
+        ob = rand(gen, (D,), 0.02, dt)
         args = (x, sh, sc, g, qw, ow, ob, sfreqs, H)
 
         def lib():
@@ -362,30 +390,32 @@ def kernel_cases():
                 lambda: block.spatial_branch_plain(*args), lib,
                 "F.layer_norm+F.linear+SDPA+F.linear (cuBLAS, flash)", by, fl)
 
-    def mlp(N):
+    def mlp(N, approx_gelu=True):
         gen = np.random.default_rng(10 + N)
-        x, sh, sc, g = branch_inputs(gen, N, S_DIT)
-        w1, w2 = rand(gen, (D, 4 * D), 0.02), rand(gen, (4 * D, D), 0.02)
-        b1, b2 = rand(gen, (4 * D,), 0.02), rand(gen, (D,), 0.02)
+        x, sh, sc, g = branch_inputs(gen, N, S_DIT, dt)
+        w1 = rand(gen, (D, 4 * D), 0.02, dt)
+        w2 = rand(gen, (4 * D, D), 0.02, dt)
+        b1, b2 = rand(gen, (4 * D,), 0.02, dt), rand(gen, (D,), 0.02, dt)
         args = (x, sh, sc, g, w1, b1, w2, b2)
+        kw = {"approx_gelu": approx_gelu}
 
         def lib():
             h = F.gelu(library_linear(lib_mod(x, sh, sc), w1, b1),
-                       approximate="tanh")
+                       approximate="tanh" if approx_gelu else "none")
             return x + g[:, None] * library_linear(h, w2, b2)
 
         by = nbytes(x, sh, sc, g, w1, b1, w2, b2, x)
         fl = 2 * 2 * N * S_DIT * D * 4 * D
-        return (lambda: block.fused_mlp_branch(*args),
-                lambda: block.mlp_branch_plain(*args), lib,
+        return (lambda: block.fused_mlp_branch(*args, **kw),
+                lambda: block.mlp_branch_plain(*args, **kw), lib,
                 "F.layer_norm+F.linear+F.gelu+F.linear (cuBLAS)", by, fl)
 
     def temporal(B, T=4):
         gen = np.random.default_rng(20 + B)
         N = B * T
-        x, sh, sc, g = branch_inputs(gen, N, S_DIT)
-        qw, ow = rand(gen, (D, 3 * D), 0.02), rand(gen, (D, D), 0.02)
-        ob = rand(gen, (D,), 0.02)
+        x, sh, sc, g = branch_inputs(gen, N, S_DIT, dt)
+        qw, ow = rand(gen, (D, 3 * D), 0.02, dt), rand(gen, (D, D), 0.02, dt)
+        ob = rand(gen, (D,), 0.02, dt)
         f = temporal_freqs(T)
         valid = [False] + [True] * (T - 1)
         args = (x, sh, sc, g, qw, ow, ob, f, valid, H, T)
@@ -412,11 +442,11 @@ def kernel_cases():
     def step(B, n_ctx=4, n_live=1):
         gen = np.random.default_rng(30 + B + 10 * (n_live - 1))
         N = B * n_live
-        x, sh, sc, g = branch_inputs(gen, N, S_DIT)
-        qw, ow = rand(gen, (D, 3 * D), 0.02), rand(gen, (D, D), 0.02)
-        ob = rand(gen, (D,), 0.02)
-        kc = rand(gen, (B * n_ctx * S_DIT, D))
-        vc = rand(gen, (B * n_ctx * S_DIT, D))
+        x, sh, sc, g = branch_inputs(gen, N, S_DIT, dt)
+        qw, ow = rand(gen, (D, 3 * D), 0.02, dt), rand(gen, (D, D), 0.02, dt)
+        ob = rand(gen, (D,), 0.02, dt)
+        kc = rand(gen, (B * n_ctx * S_DIT, D), dtype=dt)
+        vc = rand(gen, (B * n_ctx * S_DIT, D), dtype=dt)
         T = n_ctx + n_live
         f = temporal_freqs(T)
         valid = torch.tensor([False] + [True] * (T - 1))
@@ -446,22 +476,21 @@ def kernel_cases():
 
     def vae(N):
         gen = np.random.default_rng(40 + N)
-        x = rand(gen, (N, S_VAE, D))
+        x = rand(gen, (N, S_VAE, D), dtype=dt)
         f32 = torch.float32
         ln = [rand(gen, (D,), 0.1, f32, 1.0), rand(gen, (D,), 0.1, f32)] * 2
-        w = [rand(gen, (D, 3 * D), 0.03), rand(gen, (D, D), 0.03),
-             rand(gen, (D, 4 * D), 0.03), rand(gen, (4 * D, D), 0.02)]
+        w = [rand(gen, (D, 3 * D), 0.03, dt), rand(gen, (D, D), 0.03, dt),
+             rand(gen, (D, 4 * D), 0.03, dt), rand(gen, (4 * D, D), 0.02, dt)]
         b = [rand(gen, (n,), 0.02, f32) for n in (3 * D, D, 4 * D, D)]
         rf = rope.axial_freqs(rope.pixel_freqs(HD // 4, 576.0), (18, 32),
                               pixel=True).reshape(S_VAE, HD // 2).cuda()
         args = (x, ln[0], ln[1], w[0], b[0], w[1], b[1], ln[2], ln[3], w[2],
                 b[2], w[3], b[3], rf, H)
-        bb = [t.bfloat16() for t in b]
+        bb = [t.to(dt) for t in b]
         rot = HD // 2
 
         def lib():
-            h = F.layer_norm(x, (D,), ln[0].bfloat16(), ln[1].bfloat16(),
-                             1e-6)
+            h = F.layer_norm(x, (D,), ln[0].to(dt), ln[1].to(dt), 1e-6)
             qkv = library_linear(h, w[0], bb[0])
             q, k, v = (t.view(N, S_VAE, H, HD).transpose(1, 2)
                        for t in qkv.split(D, -1))
@@ -470,8 +499,7 @@ def kernel_cases():
             o = F.scaled_dot_product_attention(q, k, v)
             xm = x + library_linear(o.transpose(1, 2).reshape(N, S_VAE, D),
                                     w[1], bb[1])
-            h = F.layer_norm(xm, (D,), ln[2].bfloat16(), ln[3].bfloat16(),
-                             1e-6)
+            h = F.layer_norm(xm, (D,), ln[2].to(dt), ln[3].to(dt), 1e-6)
             h = F.gelu(library_linear(h, w[2], bb[2]))
             return xm + library_linear(h, w[3], bb[3])
 
@@ -482,6 +510,18 @@ def kernel_cases():
                 "F.layer_norm+F.linear+SDPA+F.linear+F.gelu MLP (cuBLAS, "
                 "flash)", by, fl)
 
+    if dt == torch.float32:  # the fp32 forms at the main-path shapes
+        return [
+            ("fused_spatial_branch", "step N=1 (B=1), fp32",
+             lambda: spatial(1)),
+            ("fused_mlp_branch", "step N=1 (B=1), fp32", lambda: mlp(1)),
+            ("fused_temporal_branch", "prefill emit_kv B=1 T=4, fp32",
+             lambda: temporal(1)),
+            ("fused_temporal_step", "step B=1 n_ctx=4, fp32",
+             lambda: step(1)),
+            ("fused_vae_block", "decode N=6 (B=1, 6 frames), fp32",
+             lambda: vae(6)),
+        ]
     return [
         # name, replaces (TPU kernel), shape label, main shape?, builder
         ("fused_spatial_branch", "gtax/kernels/block.py:846",
@@ -496,6 +536,9 @@ def kernel_cases():
          "step N=2 (B=2)", False, lambda: mlp(2)),
         ("fused_mlp_branch", "gtax/kernels/block.py:779",
          "N=4: prefill, pipelined step P=4", False, lambda: mlp(4)),
+        ("fused_mlp_branch", "gtax/kernels/block.py:779",
+         "step N=1 (B=1), approx_gelu=False", False,
+         lambda: mlp(1, approx_gelu=False)),
         ("fused_temporal_branch", "gtax/kernels/block.py:687",
          "prefill emit_kv B=1 T=4", True, lambda: temporal(1)),
         ("fused_temporal_branch", "gtax/kernels/block.py:687",
@@ -605,13 +648,14 @@ def lib_int8_step(x, sh, sc, g, w, kc, vc, f, n_ctx, n_live=1, kw=None):
     return int8_gated(x, g, y)
 
 
-def lib_int8_mlp(x, sh, sc, g, w1_cm, w1_s, b1, w2_cm, w2_s, b2, G=512):
+def lib_int8_mlp(x, sh, sc, g, w1_cm, w1_s, b1, w2_cm, w2_s, b2, G=512,
+                 approx_gelu=True):
     """The int8 MLP branch, requantized per 512-wide chunk, as
     torch._int_mm calls."""
     N = x.shape[0]
     h = torch.nn.functional.gelu(
         lib_qlinear(int8_lib_mod(x, sh, sc), w1_cm, w1_s, b1),
-        approximate="tanh").reshape(-1, 4 * D)
+        approximate="tanh" if approx_gelu else "none").reshape(-1, 4 * D)
     y = 0.0
     for c in range(4 * D // G):
         hq, hs = lib_quant(h[:, c * G:(c + 1) * G])
@@ -665,16 +709,18 @@ def int8_kernel_cases():
                 "LN+int8 quant+torch._int_mm+SDPA+torch._int_mm", by,
                 4 * N * H * S_DIT * S_DIT * HD, 2 * M * D * 4 * D)
 
-    def mlp(N):
+    def mlp(N, approx_gelu=True):
         gen = np.random.default_rng(60 + N)
         x, sh, sc, g = branch_inputs(gen, N, S_DIT)
         w = int8_mlp_weights(gen)
         args = (x, sh, sc, g, *w)
         wc = col_major_mlp(w)
         by = nbytes(x, sh, sc, g, *w, x)
-        return (lambda: quant.fused_mlp_branch_q(*args),
-                lambda: quant.mlp_branch_q_plain(*args),
-                lambda: lib_int8_mlp(x, sh, sc, g, *wc),
+        kw = {"approx_gelu": approx_gelu}
+        return (lambda: quant.fused_mlp_branch_q(*args, **kw),
+                lambda: quant.mlp_branch_q_plain(*args, **kw),
+                lambda: lib_int8_mlp(x, sh, sc, g, *wc,
+                                     approx_gelu=approx_gelu),
                 "LN+int8 quant+torch._int_mm+F.gelu+8 torch._int_mm", by, 0,
                 2 * 2 * N * S_DIT * D * 4 * D)
 
@@ -732,6 +778,9 @@ def int8_kernel_cases():
          "step 288 rows (B=2)", False, lambda: mlp(2)),
         ("fused_mlp_branch_q", "gtax/kernels/quant.py:530",
          "576 rows: prefill, pipelined step P=4", False, lambda: mlp(4)),
+        ("fused_mlp_branch_q", "gtax/kernels/quant.py:530",
+         "step 144 rows (B=1), approx_gelu=False", False,
+         lambda: mlp(1, approx_gelu=False)),
         ("fused_temporal_branch_q", "gtax/kernels/quant.py:427",
          "prefill emit_kv B=1 T=4", True, lambda: temporal(1)),
         ("fused_temporal_branch_q", "gtax/kernels/quant.py:427",
@@ -754,14 +803,16 @@ def pair_inputs(gen, N):
     return (x, *(mods[:, i * D:(i + 1) * D] for i in range(6)))
 
 
-def pair_case(kind, N, seed, n_live=1):
+def pair_case(kind, N, seed, n_live=1, approx_gelu=True):
     """(kernel_fn, plain_fn, library_fn, library_desc, bytes, flops, int8
     ops, sequential_fn) of one paired half-block: kind "spatial" over N
     frames, "temporal" the step of N live rows, B = N / n_live elements
     of n_live live slots each over a (5 - n_live)-frame cache (4 at one
-    live slot) with slot 0 padded ("temporal-valid": every slot real)."""
+    live slot) with slot 0 padded ("temporal-valid": every slot real);
+    approx_gelu: the MLP's GELU (tanh, or the exact one)."""
     from gtax_torch.kernels import pair, quant
 
+    kw = {"approx_gelu": approx_gelu}
     gen = np.random.default_rng(seed)
     x, sh1, sc1, g1, sh2, sc2, g2 = vec = pair_inputs(gen, N)
     wa, wm = int8_attn_weights(gen), int8_mlp_weights(gen)
@@ -775,14 +826,14 @@ def pair_case(kind, N, seed, n_live=1):
 
         def seq():
             h = quant.fused_spatial_branch_q(x, sh1, sc1, g1, *wa, f, H)
-            return quant.fused_mlp_branch_q(h, sh2, sc2, g2, *wm)
+            return quant.fused_mlp_branch_q(h, sh2, sc2, g2, *wm, **kw)
 
         def lib():
             h = lib_int8_spatial(x, sh1, sc1, g1, wac, f)
-            return lib_int8_mlp(h, sh2, sc2, g2, *wmc)
+            return lib_int8_mlp(h, sh2, sc2, g2, *wmc, **kw)
 
-        return (lambda: pair.fused_spatial_pair_q(*args),
-                lambda: pair.spatial_pair_q_plain(*args), lib,
+        return (lambda: pair.fused_spatial_pair_q(*args, **kw),
+                lambda: pair.spatial_pair_q_plain(*args, **kw), lib,
                 "the int8 spatial + MLP composites (torch._int_mm, SDPA)",
                 by, 4 * N * H * S_DIT * S_DIT * HD, i8, seq)
     B, n_ctx = N // n_live, 4 if n_live == 1 else 5 - n_live
@@ -793,19 +844,22 @@ def pair_case(kind, N, seed, n_live=1):
     tail = (kc, vc, f, valid, H, n_ctx)
     args = (*vec, *wa, *wm, *tail)
     by = nbytes(*vec, *wa, *wm, kc, vc, f, x)
-    kw = live_mask(valid, n_ctx, n_live)
+
+    mask = live_mask(valid, n_ctx, n_live)
 
     def seq():
         h = quant.fused_temporal_step_q(x, sh1, sc1, g1, *wa, *tail,
                                         n_live=n_live)
-        return quant.fused_mlp_branch_q(h, sh2, sc2, g2, *wm)
+        return quant.fused_mlp_branch_q(h, sh2, sc2, g2, *wm, **kw)
 
     def lib():
-        h = lib_int8_step(x, sh1, sc1, g1, wac, kc, vc, f, n_ctx, n_live, kw)
-        return lib_int8_mlp(h, sh2, sc2, g2, *wmc)
+        h = lib_int8_step(x, sh1, sc1, g1, wac, kc, vc, f, n_ctx, n_live,
+                          mask)
+        return lib_int8_mlp(h, sh2, sc2, g2, *wmc, **kw)
 
-    return (lambda: pair.fused_temporal_pair_q(*args, n_live=n_live),
-            lambda: pair.temporal_pair_q_plain(*args, n_live=n_live), lib,
+    return (lambda: pair.fused_temporal_pair_q(*args, n_live=n_live, **kw),
+            lambda: pair.temporal_pair_q_plain(*args, n_live=n_live, **kw),
+            lib,
             "the int8 step + MLP composites (torch._int_mm, SDPA)", by,
             4 * B * S_DIT * H * live_keys(n_ctx, n_live) * HD, i8, seq)
 
@@ -824,6 +878,11 @@ PAIR_CASES = [
      "step B=2 n_ctx=4, slot 0 padded", False, ("temporal", 2, 94)),
     ("fused_temporal_pair_q", "gtax/kernels/pair.py:303",
      "pipelined step P=2: n_live=2 n_ctx=3", False, ("temporal", 2, 95, 2)),
+    ("fused_spatial_pair_q", "gtax/kernels/pair.py:227",
+     "step N=1 (B=1), approx_gelu=False", False, ("spatial", 1, 96, 1, False)),
+    ("fused_temporal_pair_q", "gtax/kernels/pair.py:303",
+     "step B=1 n_ctx=4, slot 0 padded, approx_gelu=False", False,
+     ("temporal", 1, 97, 1, False)),
 ]
 
 
@@ -857,6 +916,12 @@ def pair_phase(timer, rows):
             fail(f"{name} [{label}] disagrees with the sequential wrappers")
         if "pipelined" in label:
             rows[name].setdefault("pipelined", {})[label] = dict(
+                m, sequential_ms=seq_ms, sequential_bit_equal=equal)
+        if "approx_gelu=False" in label:  # the exact GELU: bit-equal too
+            if not equal:
+                fail(f"{name} [{label}] is not bit-equal to the sequential "
+                     "wrappers")
+            rows[name]["exact_gelu"] = dict(
                 m, sequential_ms=seq_ms, sequential_bit_equal=equal)
         if main:
             rows[name] = {"name": name, "route": "cuda",
@@ -982,11 +1047,13 @@ BIT_STABLE = ("fused_mlp_branch", "fused_spatial_branch",
               "fused_temporal_pair_q")
 
 
-def measure(timer, name, label, kern, plain, lib, by, fl, *i8):
+def measure(timer, name, label, kern, plain, lib, by, fl, *i8, rel_tol=None,
+            flops_per_s=BF16_FLOPS_PER_S):
     """Run the kernel and its plain version on the same inputs, hold every
-    output against the plain one (2**-6 of its largest magnitude), time
-    the kernel, the plain version and the library yardstick, and compute
-    the bound (by: bytes, fl: bf16 flops, i8: int8 ops)."""
+    output against the plain one (2**-6 of its largest magnitude, at least
+    2**-6; rel_tol: that share of its largest magnitude), time the kernel,
+    the plain version and the library yardstick, and compute the bound (by:
+    bytes, fl: flops at flops_per_s, i8: int8 ops)."""
     from gtax_torch.utils.profiling import bf16_differences
 
     got, ref, again = kern(), plain(), kern()
@@ -1001,7 +1068,8 @@ def measure(timer, name, label, kern, plain, lib, by, fl, *i8):
         if not torch.isfinite(a.float()).all():
             fail(f"{name} [{label}]: non-finite output")
         e = (a.float() - b.float()).abs().max().item()
-        t = 2.0**-6 * max(1.0, b.float().abs().max().item())
+        t = (2.0**-6 * max(1.0, b.float().abs().max().item())
+             if rel_tol is None else rel_tol * b.float().abs().max().item())
         err = max(err, e)
         if e / t >= ratio:
             ratio, tol = e / t, t
@@ -1009,7 +1077,7 @@ def measure(timer, name, label, kern, plain, lib, by, fl, *i8):
             sh, rl = bf16_differences(a, b)
             share, rel = max(share, sh), max(rel, rl)
     ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(lib)
-    bms, by_what = bound_ms(by, fl, *i8)
+    bms, by_what = bound_ms(by, fl, *i8, flops_per_s=flops_per_s)
     ops = f"{fl / 1e9:.2f} GFLOP" + (f", {i8[0] / 1e9:.2f} int8 GOP"
                                       if i8 else "")
     log(f"[kernel] {name:25s} {label:36s} max_abs_err={err:.3g} "
@@ -1040,6 +1108,8 @@ def kernel_phase():
         m = measure(timer, name, label, kern, plain, lib, *rest)
         if "pipelined" in label:  # the main row comes first
             rows[name].setdefault("pipelined", {})[label] = m
+        if "approx_gelu=False" in label:  # the exact-GELU epilogues
+            rows[name]["exact_gelu"] = m
         if name == "fused_mha_token_major" and "VAE" in label:
             check_attn_dispatch()
             split = launch_split(kern, f"{name} [{label}]", [])
@@ -1069,7 +1139,62 @@ def kernel_phase():
                 rows[name]["attention_bound"] = temporal_attention_bound(
                     split, M, 2)
     pair_phase(timer, rows)
+    f32_phase(timer, rows)
     return rows
+
+
+def f32_phase(timer, rows):
+    """Rows 1-5 in fp32 (`[kernel] ... fp32`): each fp32 form at its main
+    shape against its plain version (F32_TOL of the plain output's largest
+    magnitude), timed beside the plain version and the fp32 library
+    composite (cuBLAS SGEMM under strict_matmul: no TF32; SDPA in fp32),
+    the bound from the bytes and the fp32 FFMA peak. Recorded in each
+    row's "fp32"; its launches come from `[e2e fp32]`."""
+    # the GEMMs' flops by launch, for the split of the VAE block and the MLP
+    gemms = {"fused_vae_block": [2 * 6 * S_VAE * D * n
+                                 for n in (3 * D, D, 4 * D, 4 * D)],
+             "fused_mlp_branch": [2 * S_DIT * D * 4 * D] * 2}
+    for name, label, make in kernel_cases(torch.float32):
+        kern, plain, lib, lib_desc, by, fl = make()
+        m = measure(timer, name, label, kern, plain, lib, by, fl,
+                    rel_tol=F32_TOL, flops_per_s=F32_FLOPS_PER_S)
+        rows[name]["fp32"] = dict(m, launches=None,
+                                  library=lib_desc + ", fp32")
+        if name in gemms:  # each launch's ms and the GEMMs' TFLOP/s
+            rows[name]["fp32"]["launch_split"] = launch_split(
+                kern, f"{name} [{label}]", gemms[name])
+        del kern, plain, lib
+
+
+F32_KERNELS = ("gemm_f32_kernel", "attn_frame_f32_kernel",
+               "attn_window_f32_kernel", "attn_temporal_f32_kernel",
+               "ln_mod_kernelIf")
+
+
+def sass_check(lib_path):
+    """`[sass]`: cuobjdump's SASS of the built library. The fp32 kernels
+    (F32_KERNELS) must hold no tensor-core instruction (HMMA, HGMMA: no
+    TF32 products), and FFMAs; the bf16 GEMM's HGMMA is the control."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = sass.split("Function : ")[1:]
+    f32 = [f for f in funcs
+           if any(k in f.split("\n", 1)[0] for k in F32_KERNELS)]
+    tensor = [f.split("\n", 1)[0] for f in f32
+              if "HMMA" in f or "HGMMA" in f]
+    ffma = sum(f.count("FFMA") for f in f32)
+    control = sum(f.count("HGMMA") for f in funcs)
+    log(f"[sass] {len(f32)} fp32 kernels: {ffma} FFMA, tensor-core "
+        f"instructions in {len(tensor)} of them; the library's HGMMA "
+        f"(bf16 GEMM, the control): {control}")
+    if len(f32) < len(F32_KERNELS) or tensor or not ffma or not control:
+        fail(f"fp32 kernels' SASS: {len(f32)} found, tensor-core "
+             f"instructions in {tensor}")
+    return {"fp32_kernels": len(f32), "ffma": ffma, "tensor_core_in": tensor,
+            "hgmma_in_library": control}
 
 
 def check_attn_dispatch():
@@ -1714,7 +1839,8 @@ def drive_path(gen, label, path, rows, record, inputs, expect=None):
 def check_rollouts(gen, label, lat0, acts, nz):
     """Incremental against full-window rollout on the card, and a depth-2
     full-width rollout on the card against the port's CPU rollout (plain
-    versions); tolerance 2**-5 of the latents' largest magnitude."""
+    versions); tolerance 2**-5 of the latents' largest magnitude (fp32:
+    E2E_F32_TOL of it)."""
     from gtax_torch.models import dit as dit_mod
     from gtax_torch.sampling.diffusion import SamplerConfig, make_rollout
     from gtax_torch.serving import VideoGenerator
@@ -1733,9 +1859,11 @@ def check_rollouts(gen, label, lat0, acts, nz):
         t3 = time.perf_counter()
     if not (torch.isfinite(lat_inc).all() and torch.isfinite(lat_full).all()):
         fail(f"{label}: non-finite latents")
+    dt = gen._dtype
+    rel = 2.0**-5 if dt == torch.bfloat16 else E2E_F32_TOL
     scale = max(1.0, lat_full.abs().max().item())
     err = (lat_inc - lat_full).abs().max().item()
-    tol = 2.0**-5 * scale
+    tol = rel * scale
     log(f"[e2e {label}] incremental {(t2 - t1) / n_gen:.3f} s/frame vs "
         f"full-window {(t3 - t2) / n_gen:.3f} s/frame; latents "
         f"max_abs_err={err:.4g} (tol {tol:.4g}, max|lat| {scale:.3g})")
@@ -1745,17 +1873,16 @@ def check_rollouts(gen, label, lat0, acts, nz):
 
     cfg2 = dataclasses.replace(gen.dit_cfg, depth=2)
     params2 = dict(gen.dit_params, blocks=gen.dit_params["blocks"][:2])
-    bf = torch.bfloat16
     roll = make_rollout(None, cfg2.max_frames, SamplerConfig(
-        ddim_noise_steps=4), cond=dit_mod.make_cond_fns(cfg2, bf),
-        incremental=dit_mod.make_incremental_fns(cfg2, bf))
+        ddim_noise_steps=4), cond=dit_mod.make_cond_fns(cfg2, dt),
+        incremental=dit_mod.make_incremental_fns(cfg2, dt))
     with torch.inference_mode():
         on_card = roll(params2, lat0, acts, None, n_gen, nz)
         on_cpu = roll(dit_mod.params_to(params2, "cpu"), lat0.cpu(),
                       acts.cpu(), None, n_gen, nz.cpu())
     scale = max(1.0, on_cpu.abs().max().item())
     err = (on_card.cpu() - on_cpu).abs().max().item()
-    tol = 2.0**-5 * scale
+    tol = rel * scale
     log(f"[e2e {label}] depth-2 rollout card vs CPU: max_abs_err={err:.4g} "
         f"(tol {tol:.4g})")
     if not err <= tol:
@@ -2302,6 +2429,69 @@ def approx_path(gen, rows, inputs, lat0, acts):
     return summary
 
 
+def e2e_fp32(rows, inputs, expect):
+    """`[e2e fp32]`: VideoGenerator(dtype="float32") at full width and
+    depth under `fused` (the fp32 forms of #1-#5), the same prompt, actions
+    and injected noise as the bf16 run, with every launch count zeroed
+    before and read after: each kernel launched exactly as often as in the
+    bf16 rollout (`expect`). Then incremental against full window, and a
+    depth-2 rollout on the card against the port's CPU one (plain versions,
+    fp32) under `fused`, `fused_all` and `xla` (E2E_F32_TOL of the
+    latents' largest magnitude). The same seeded weights as the bf16
+    generator's, not cast (gtax serves fp32 so)."""
+    from gtax_torch.models import dit as dit_mod
+    from gtax_torch.serving import ServingConfig, VideoGenerator, build_rollout
+    from gtax_torch.sampling.diffusion import SamplerConfig
+    from gtax_torch.train.trainer import encode_frames
+
+    t0 = time.perf_counter()
+    cfg = ServingConfig(noise_steps=100, dtype="float32")
+    gen = VideoGenerator.load("", "", cfg)
+    nonzero_adaln(gen.dit_params, 2)
+    prompt, actions, noise = inputs
+    counts = drive_path(gen, "fp32", BF16_PATH, rows, (), inputs, expect)
+    for name in BF16_PATH:
+        rows[name]["fp32"]["launches"] = counts[name]
+    f32 = torch.float32
+    with torch.inference_mode():
+        lat0 = encode_frames(gen.vae_params, gen.vae_cfg,
+                             torch.from_numpy(prompt).cuda(), f32, fused=True)
+    acts = torch.from_numpy(actions).cuda()
+    nz = torch.from_numpy(noise).cuda()
+    check_rollouts(gen, "fp32", lat0, acts, nz)
+    # depth 2 under the other backends that serve fp32 on the card
+    cfg2 = dataclasses.replace(gen.dit_cfg, depth=2)
+    params2 = dict(gen.dit_params, blocks=gen.dit_params["blocks"][:2])
+    cpu2 = dit_mod.params_to(params2, "cpu")
+    errs = {}
+    for backend in ("fused_all", "xla"):
+        roll = build_rollout(cfg2, dataclasses.replace(
+            cfg, attention_backend=backend, noise_steps=4), f32)
+        with torch.inference_mode():
+            on_card = roll(params2, lat0, acts, None, nz.shape[1], nz)
+            on_cpu = roll(cpu2, lat0.cpu(), acts.cpu(), None, nz.shape[1],
+                          nz.cpu())
+        scale = max(1.0, on_cpu.abs().max().item())
+        err = (on_card.cpu() - on_cpu).abs().max().item()
+        errs[backend] = err / scale
+        log(f"[e2e fp32] depth-2 {backend} rollout card vs CPU: "
+            f"max_abs_err={err:.4g} (tol {E2E_F32_TOL * scale:.4g})")
+        if not err <= E2E_F32_TOL * scale:
+            fail(f"fp32 {backend} card rollout disagrees with the CPU one")
+    tm = gen.last_timings
+    n_gen = noise.shape[1]
+    out = {"s_per_frame": tm["rollout_s"] / n_gen,
+           "encode_ms": tm["encode_s"] * 1e3,
+           "decode_ms": tm["decode_s"] * 1e3, "launches": counts,
+           "depth2_err_over_max": errs,
+           "seconds": time.perf_counter() - t0}
+    log(f"[time] e2e fp32: {out['seconds']:.1f} s")
+    del gen, params2, cpu2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def end_to_end(rows):
     from gtax_torch.data.actions import forward_actions
     from gtax_torch.serving import ServingConfig, VideoGenerator
@@ -2329,10 +2519,11 @@ def end_to_end(rows):
     acts = torch.from_numpy(actions).cuda()
     nz = torch.from_numpy(noise).cuda()
 
-    drive_path(gen, "bf16", BF16_PATH, rows, BF16_PATH, inputs)
+    bf16_counts = drive_path(gen, "bf16", BF16_PATH, rows, BF16_PATH, inputs)
     check_rollouts(gen, "bf16", lat0, acts, nz)
     stacked_rollout(gen, lat0, acts, nz)
     profile_frame(gen, lat0, acts, nz)
+    fp32 = e2e_fp32(rows, inputs, bf16_counts)
 
     # the same bf16 weights, quantized by the serving path
     gen8 = VideoGenerator(gen.dit_params, gen.vae_params,
@@ -2351,7 +2542,7 @@ def end_to_end(rows):
     t0 = time.perf_counter()
     summary = approx_path(gen, rows, inputs, lat0, acts)
     log(f"[time] e2e approx: {time.perf_counter() - t0:.1f} s")
-    return summary
+    return {"approx": summary, "fp32": fp32}
 
 
 # ------------------------------------------------------------- training
@@ -4303,6 +4494,7 @@ def main():
     build.library()
     log(f"[build] {lib.relative_to(build.BUILD_DIR.parent.parent)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    sass = sass_check(lib)
     def timed(label, fn, *args):
         t = time.perf_counter()
         out = fn(*args)
@@ -4313,7 +4505,7 @@ def main():
         rows = timed("kernels", kernel_phase)
         temporal = timed("temporal", temporal_checks)
     timed("train kernels", train_kernel_phase, rows)
-    approx = timed("end to end", end_to_end, rows)
+    e2e = timed("end to end", end_to_end, rows)
     ctx = timed("train", train_phase, rows)
     timed("train modes", train_modes_phase, ctx, rows)
     del ctx
@@ -4335,7 +4527,8 @@ def main():
             if isinstance(v, float) and not math.isfinite(v):
                 fail(f"{row['name']}: {k} is not finite")
     log(json.dumps({"kernels": list(rows.values()), "train": train,
-                    "temporal": temporal, "approx": approx, "multi": multi,
+                    "temporal": temporal, "approx": e2e["approx"],
+                    "e2e_fp32": e2e["fp32"], "sass": sass, "multi": multi,
                     "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -57,7 +57,10 @@ def build_parser():
                         "(not with --start_frame)")
     p.add_argument("--start_frame", type=str, default=None)
     p.add_argument("--dtype", type=str, default="bfloat16",
-                   choices=["bfloat16", "float32"])
+                   choices=["bfloat16", "float32"],
+                   help="float32: the fused kernels' fp32 forms on the card "
+                        "(not with --quantize int8 or the pallas backend "
+                        "there)")
     p.add_argument("--attention_backend", type=str, default="fused",
                    choices=["xla", "pallas", "fused", "fused_mlp",
                             "fused_all"],

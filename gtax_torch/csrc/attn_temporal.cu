@@ -29,6 +29,10 @@
 // most 36 length-d dot products; each kernel reads its rows once with
 // coalesced lane loads and keeps everything else in registers. At the B=16
 // training step attn_window moves 94.4 MB (q, k, v in, the output out).
+// The fp32 branches (#3 and #4 at x.dtype = float32) take the fp32 forms of
+// both: attn_window_f32 over fp32 post-rope q, k, v (four dims a lane, so
+// a lane's rows stay in registers at T = 8) and attn_temporal_f32 over an
+// fp32 context cache; nothing is rounded, probabilities included.
 #include <initializer_list>
 
 #include "attn_temporal.cuh"
@@ -95,6 +99,73 @@ int launch_window_t(const bf16* q, const bf16* k, const bf16* v, bf16* out,
 #define GTAX_WINDOW_CASE(N) \
   case N:                   \
     return launch_window<HD, N>(q, k, v, out, B, S, D, valid_mask, st);
+    GTAX_WINDOW_CASE(1)
+    GTAX_WINDOW_CASE(2)
+    GTAX_WINDOW_CASE(3)
+    GTAX_WINDOW_CASE(4)
+    GTAX_WINDOW_CASE(5)
+    GTAX_WINDOW_CASE(6)
+    GTAX_WINDOW_CASE(7)
+    GTAX_WINDOW_CASE(8)
+#undef GTAX_WINDOW_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ------------------------------------------------------------- fp32
+
+// The step over an fp32 context cache: attn_temporal_unit with KV = float.
+template <int HD>
+__global__ void __launch_bounds__(kTemporalWarps * 32)
+    attn_temporal_f32_kernel(const float* __restrict__ qkv,
+                             const float* __restrict__ freqs,
+                             const float* __restrict__ k_ctx,
+                             const float* __restrict__ v_ctx,
+                             float* __restrict__ out, int B, int n_q,
+                             int q_off, int S, int D, int H, int valid_mask) {
+  attn_temporal_unit<HD, float>(
+      blockIdx.x * kTemporalWarps + (threadIdx.x >> 5), qkv, freqs, k_ctx,
+      v_ctx, out, 1, nullptr, nullptr, nullptr, B, n_q, q_off, S, D, H,
+      valid_mask);
+}
+
+template <int HD>
+int launch_f32(const float* qkv, const float* freqs, const float* kc,
+               const float* vc, float* out, int B, int n_q, int q_off, int S,
+               int D, int H, int valid_mask, cudaStream_t st) {
+  const int blocks = (B * S * H + kTemporalWarps - 1) / kTemporalWarps;
+  attn_temporal_f32_kernel<HD><<<blocks, kTemporalWarps * 32, 0, st>>>(
+      qkv, freqs, kc, vc, out, B, n_q, q_off, S, D, H, valid_mask);
+  return (int)cudaGetLastError();
+}
+
+// The full window over fp32 post-rope q, k, v: attn_window_lane_f32.
+template <int HD, int T>
+__global__ void __launch_bounds__(kWindowThreads)
+    attn_window_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, int B, int S, int D,
+                           int valid_mask) {
+  attn_window_lane_f32<HD, T>(
+      (long long)blockIdx.x * kWindowThreads + threadIdx.x, q, k, v, out, B,
+      S, D, valid_mask);
+}
+
+template <int HD>
+int launch_window_f32(const float* q, const float* k, const float* v,
+                      float* out, int B, int T, int S, int D, int valid_mask,
+                      cudaStream_t st) {
+  const long long lanes = (long long)B * S * (D / kLaneDimsF32);
+  const unsigned blocks =
+      (unsigned)((lanes + kWindowThreads - 1) / kWindowThreads);
+  switch (T) {
+#define GTAX_WINDOW_CASE(N)                                                \
+  case N:                                                                  \
+    attn_window_f32_kernel<HD, N><<<blocks, kWindowThreads, 0, st>>>(      \
+        q, k, v, out, B, S, D, valid_mask);                                \
+    return (int)cudaGetLastError();
     GTAX_WINDOW_CASE(1)
     GTAX_WINDOW_CASE(2)
     GTAX_WINDOW_CASE(3)
@@ -179,6 +250,68 @@ GTAX_ENTRY gtax_attn_temporal(const void* qkv, const void* freqs,
     case 128:
       return launch<128>(q, f, kc, vc, out, out_f32, qo, ko, vo, B, n_q,
                          q_off, S, D, num_heads, valid_mask, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The fp32 forms of the two entry points above: the full window over q,
+// k, v, out (B * T * S, D) fp32 (q and k after rope:
+// gtax_gemm_f32_rope_qkv), and the step over qkv (B * n_q * S, 3D) fp32
+// with the fp32 context cache k_ctx / v_ctx (B * q_off * S, D), out
+// (B * n_q * S, D) fp32. Nothing is rounded.
+GTAX_ENTRY gtax_attn_temporal_window_f32(const void* q, const void* k,
+                                         const void* v, void* out, int B,
+                                         int T, int S, int D, int num_heads,
+                                         int valid_mask, void* stream) {
+  if (B <= 0 || T <= 0 || T > kMaxT || S <= 0 || num_heads <= 0 ||
+      D % num_heads)
+    return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k, v, (const void*)out})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  const float *qf = static_cast<const float*>(q),
+              *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D / num_heads) {
+    case 32:
+      return launch_window_f32<32>(qf, kf, vf, o, B, T, S, D, valid_mask, st);
+    case 64:
+      return launch_window_f32<64>(qf, kf, vf, o, B, T, S, D, valid_mask, st);
+    case 128:
+      return launch_window_f32<128>(qf, kf, vf, o, B, T, S, D, valid_mask,
+                                    st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+GTAX_ENTRY gtax_attn_temporal_f32(const void* qkv, const void* freqs,
+                                  const void* k_ctx, const void* v_ctx,
+                                  void* out, int B, int n_q, int q_off, int S,
+                                  int D, int num_heads, int valid_mask,
+                                  void* stream) {
+  if (B <= 0 || n_q <= 0 || q_off < 0 || n_q + q_off > kMaxT || S <= 0 ||
+      num_heads <= 0 || D % num_heads ||
+      (q_off > 0 && (k_ctx == nullptr || v_ctx == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const float* q = static_cast<const float*>(qkv);
+  const float* f = static_cast<const float*>(freqs);
+  const float* kc = static_cast<const float*>(k_ctx);
+  const float* vc = static_cast<const float*>(v_ctx);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D / num_heads) {
+    case 32:
+      return launch_f32<32>(q, f, kc, vc, o, B, n_q, q_off, S, D, num_heads,
+                            valid_mask, st);
+    case 64:
+      return launch_f32<64>(q, f, kc, vc, o, B, n_q, q_off, S, D, num_heads,
+                            valid_mask, st);
+    case 128:
+      return launch_f32<128>(q, f, kc, vc, o, B, n_q, q_off, S, D,
+                             num_heads, valid_mask, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -11,11 +11,41 @@
 constexpr int kMaxT = 8;
 constexpr int kTemporalWarps = 8;
 
+// T itself, where deduction must not look (the cache pointers may be null)
+template <typename T>
+struct same_as {
+  using type = T;
+};
+
+// A value at the rounding points of the unit's type: bf16-rounded for the
+// bf16 branches, as it is for the fp32 ones.
+template <typename KV>
+__device__ __forceinline__ float kv_round(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float kv_round<bf16>(float v) {
+  return bf16_round(v);
+}
+
+// A context pair (c, c + 1) of the K/V cache, bf16 or fp32, as fp32.
+__device__ __forceinline__ float2 load_ctx(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load_ctx(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
 // unit = (b * S + s) * H + h; warps whose unit is past B * S * H return.
-template <int HD>
+// KV = bf16: the bf16 branches' rounding (q, k, v and the probabilities
+// cast to bf16, a bf16 context cache); KV = float: the fp32 branches', with
+// nothing rounded, an fp32 cache and an fp32 output (out_f32 = 1, no
+// q/k/v outputs).
+template <int HD, typename KV = bf16>
 __device__ __forceinline__ void attn_temporal_unit(
     int unit, const float* __restrict__ qkv, const float* __restrict__ freqs,
-    const bf16* __restrict__ k_ctx, const bf16* __restrict__ v_ctx,
+    const typename same_as<KV>::type* __restrict__ k_ctx,
+    const typename same_as<KV>::type* __restrict__ v_ctx,
     void* __restrict__ out, int out_f32, bf16* __restrict__ q_out,
     bf16* __restrict__ k_out, bf16* __restrict__ v_out, int B, int n_q,
     int q_off, int S, int D, int H, int valid_mask) {
@@ -42,9 +72,9 @@ __device__ __forceinline__ void attn_temporal_unit(
       const float2 kv = rope_pair(
           *reinterpret_cast<const float2*>(base + D + c), fr + c);
       const float2 vv = *reinterpret_cast<const float2*>(base + 2 * D + c);
-      q[f][p] = make_float2(bf16_round(qv.x), bf16_round(qv.y));
-      kl[f][p] = make_float2(bf16_round(kv.x), bf16_round(kv.y));
-      vl[f][p] = make_float2(bf16_round(vv.x), bf16_round(vv.y));
+      q[f][p] = make_float2(kv_round<KV>(qv.x), kv_round<KV>(qv.y));
+      kl[f][p] = make_float2(kv_round<KV>(kv.x), kv_round<KV>(kv.y));
+      vl[f][p] = make_float2(kv_round<KV>(vv.x), kv_round<KV>(vv.y));
       if (k_out != nullptr) {
         const size_t o = row * D + (size_t)h * HD + c;
         store_pair(k_out, o, kv.x, kv.y);
@@ -61,10 +91,8 @@ __device__ __forceinline__ void attn_temporal_unit(
     for (int p = 0; p < P; ++p) {
       const int c = 2 * lane + 64 * p;
       if (c >= HD) continue;
-      kc[j][p] = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(k_ctx + o + c));
-      vc[j][p] = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(v_ctx + o + c));
+      kc[j][p] = load_ctx(k_ctx + o + c);
+      vc[j][p] = load_ctx(v_ctx + o + c);
     }
   }
 
@@ -120,7 +148,7 @@ __device__ __forceinline__ void attn_temporal_unit(
 #pragma unroll
     for (int j = 0; j < kMaxT; ++j) {
       if (j >= q_off) break;
-      const float pr = bf16_round(sc[j] / den);
+      const float pr = kv_round<KV>(sc[j] / den);
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         acc[p].x = fmaf(pr, vc[j][p].x, acc[p].x);
@@ -130,7 +158,7 @@ __device__ __forceinline__ void attn_temporal_unit(
 #pragma unroll
     for (int f = 0; f < kMaxT; ++f) {
       if (f > i) break;
-      const float pr = bf16_round(sl[f] / den);
+      const float pr = kv_round<KV>(sl[f] / den);
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         acc[p].x = fmaf(pr, vl[f][p].x, acc[p].x);
@@ -269,5 +297,72 @@ __device__ __forceinline__ void attn_window_lane(
       for (int d = 0; d < 8; ++d) acc[d] = fmaf(pr, vj[d], acc[d]);
     }
     if (w.live) *reinterpret_cast<uint4*>(out + at(i)) = pack8(acc);
+  }
+}
+
+// ------------------------------------- full window over fp32 q, k and v
+//
+// The fp32 branches' full window (gtax's temporal kernel at x.dtype =
+// float32: nothing rounded, probabilities included), over the fp32
+// post-rope q, k, v rows of gtax_gemm_f32_rope_qkv. As the bf16 lanes
+// above, but a lane owns four dims (16 bytes of fp32), so its registers
+// hold 12 T floats of rows (96 at T = 8) where eight dims would take 192;
+// a head's HD / 4 lanes are an aligned group of a warp (a whole warp at
+// hd 128) and sum a score by a butterfly of log2(HD / 4) shuffles.
+
+constexpr int kLaneDimsF32 = 4;
+
+template <int HD, int T>
+__device__ __forceinline__ void attn_window_lane_f32(
+    long long gl, const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out, int B, int S,
+    int D, int valid_mask) {
+  constexpr int L = HD / kLaneDimsF32;
+  const int G = D / kLaneDimsF32;
+  const bool live = gl < (long long)B * S * G;
+  const long long site = live ? gl / G : 0;
+  const int col = (int)(gl - site * G) * kLaneDimsF32;
+  const long long b = site / S, s = site - b * S;
+  const size_t row = (size_t)(b * T) * S + s;
+  const float scale = 1.0f / sqrtf((float)HD);
+  auto at = [&](int t) { return (row + (size_t)t * S) * D + col; };
+  float4 qr[T], kr[T], vr[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    qr[t] = live ? __ldg(reinterpret_cast<const float4*>(q + at(t))) : z;
+    kr[t] = live ? __ldg(reinterpret_cast<const float4*>(k + at(t))) : z;
+    vr[t] = live ? __ldg(reinterpret_cast<const float4*>(v + at(t))) : z;
+  }
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+    float sc[T];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      float acc = 0.f;  // the lane's four products, in order
+      acc = fmaf(qr[i].x, kr[j].x, acc);
+      acc = fmaf(qr[i].y, kr[j].y, acc);
+      acc = fmaf(qr[i].z, kr[j].z, acc);
+      acc = fmaf(qr[i].w, kr[j].w, acc);
+      sc[j] = group_sum<L>(acc) * scale + window_bias(valid_mask, i, j);
+      mx = fmaxf(mx, sc[j]);
+    }
+    float den = 0.f;
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      sc[j] = expf(sc[j] - mx);
+      den += sc[j];
+    }
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      const float pr = sc[j] / den;
+      o.x = fmaf(pr, vr[j].x, o.x);
+      o.y = fmaf(pr, vr[j].y, o.y);
+      o.z = fmaf(pr, vr[j].z, o.z);
+      o.w = fmaf(pr, vr[j].w, o.w);
+    }
+    if (live) *reinterpret_cast<float4*>(out + at(i)) = o;
   }
 }

@@ -3,6 +3,8 @@
 // B (K, N) row-major bf16 (gtax's (in, out) kernel layout), or, with
 // trans_b, B = W^T for W (N, K) row-major: the input-gradient products
 // dY @ W^T of the branch backwards, reading the weight as it is stored.
+// The MLP's exact GELU (approx_gelu=False: EPI_BIAS_GELU_ERF, and _H with
+// emit_train's h1) takes the forward layout only.
 //
 // Replaces the in-kernel jnp.dot calls of the TPU branch kernels
 // (gtax/kernels/block.py _kernel/_mlp_kernel/_temporal_kernel/
@@ -39,22 +41,31 @@ namespace {
 template <int EPI>
 int launch(const void* a, const void* b, const EpiArgs& e, int M, int N,
            int K, bool trans_b, int k_chunk, float* part, cudaStream_t st) {
-  if (k_chunk > 0)  // the small-M path
-    return trans_b ? sm90::launch_small<EPI, false>(a, b, e, M, N, K, k_chunk,
-                                                    part, st)
-                   : sm90::launch_small<EPI, true>(a, b, e, M, N, K, k_chunk,
-                                                   part, st);
   // the wide tile where its tiles alone fill the card's SMs: 128 x 128 at
   // the serving row counts, where a weight-bound product wants every SM
   const bool wide = N % sm90::kWideBN == 0 &&
                     (long long)((M + sm90::BM - 1) / sm90::BM) *
                             (N / sm90::kWideBN) >=
                         sm90::sm_count();
-  // trans_b: W (N, K) is K-major; else B (K, N) is N-major
-  return trans_b ? sm90::launch<EPI, false, false>(a, b, e, M, N, K, K, 1,
-                                                   wide, st)
-                 : sm90::launch<EPI, false, true>(a, b, e, M, N, K, K, 1,
-                                                  wide, st);
+  // the exact-GELU epilogues serve forward products only: no W^T forms
+  if constexpr (EPI == EPI_BIAS_GELU_ERF || EPI == EPI_BIAS_GELU_ERF_H) {
+    if (trans_b) return (int)cudaErrorInvalidValue;
+    return k_chunk > 0 ? sm90::launch_small<EPI, true>(a, b, e, M, N, K,
+                                                       k_chunk, part, st)
+                       : sm90::launch<EPI, false, true>(a, b, e, M, N, K, K,
+                                                        1, wide, st);
+  } else {
+    if (k_chunk > 0)  // the small-M path
+      return trans_b ? sm90::launch_small<EPI, false>(a, b, e, M, N, K,
+                                                      k_chunk, part, st)
+                     : sm90::launch_small<EPI, true>(a, b, e, M, N, K,
+                                                     k_chunk, part, st);
+    // trans_b: W (N, K) is K-major; else B (K, N) is N-major
+    return trans_b ? sm90::launch<EPI, false, false>(a, b, e, M, N, K, K, 1,
+                                                     wide, st)
+                   : sm90::launch<EPI, false, true>(a, b, e, M, N, K, K, 1,
+                                                    wide, st);
+  }
 }
 
 }  // namespace
@@ -88,7 +99,8 @@ GTAX_ENTRY gtax_gemm_bf16(const void* A, const void* B, void* C, void* C2,
   if (M <= 0 || N <= 0 || K <= 0 || N % 64 || K % sm90::BK || S <= 0)
     return (int)cudaErrorInvalidValue;
   const bool needs_c2 = epi == EPI_BIAS_GATED_Y ||
-                        epi == EPI_BIAS_GELU_TANH_H || epi == EPI_DGELU;
+                        epi == EPI_BIAS_GELU_TANH_H ||
+                        epi == EPI_BIAS_GELU_ERF_H || epi == EPI_DGELU;
   if ((needs_c2 && C2 == nullptr) ||
       (epi == EPI_DGELU && (aux == nullptr || colsum == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -117,6 +129,8 @@ GTAX_ENTRY gtax_gemm_bf16(const void* A, const void* B, void* C, void* C2,
     GTAX_GEMM_CASE(EPI_BIAS_GATED_Y)
     GTAX_GEMM_CASE(EPI_BIAS_GELU_TANH_H)
     GTAX_GEMM_CASE(EPI_DGELU)
+    GTAX_GEMM_CASE(EPI_BIAS_GELU_ERF)
+    GTAX_GEMM_CASE(EPI_BIAS_GELU_ERF_H)
 #undef GTAX_GEMM_CASE
     default:
       return (int)cudaErrorInvalidValue;

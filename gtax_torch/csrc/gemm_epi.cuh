@@ -1,7 +1,8 @@
 // The epilogues of the bf16 GEMM (gemm_sm90.cuh, for gemm_bf16.cu and
 // gemm_wgrad.cu): one output tile, already summed into an fp32 tile in
 // shared memory, goes through the branch's rounding points to device
-// memory.
+// memory. The fp32 GEMM (gemm_f32.cu) takes the same enum and functions
+// and stores each value before its rounding.
 #pragma once
 
 #include "common.cuh"
@@ -23,6 +24,8 @@ enum Epi {
                             // C2 = k, C3 = v, each (M, N / 3) bf16, rope
                             // (rope_pair, fp32) on q and k before the one
                             // rounding
+  EPI_BIAS_GELU_ERF = 11,   // bf16(gelu_exact(acc + bias))
+  EPI_BIAS_GELU_ERF_H = 12, // EPI_BIAS_GELU_ERF; C2 = bf16(acc + bias)
 };
 
 // What an epilogue reads and writes besides the accumulators.
@@ -55,6 +58,12 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 // <= 1.5e-7), erff is exact to a few ulp
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
+}
+
+// jax.nn.gelu(approximate=False) as jax writes it: 0.5 x erfc(-x sqrt(1/2))
+// (the DiT MLPs' exact mode, approx_gelu=False)
+__device__ __forceinline__ float gelu_exact(float x) {
+  return 0.5f * x * erfcf(-x * 0.70710678118654752f);
 }
 
 // (gelu(h), gelu'(h)) from one tanh, as gtax/kernels/backward.py
@@ -185,6 +194,13 @@ __device__ __forceinline__ void gemm_epilogue(float* c, const EpiArgs& e,
           for (int i = 0; i < 8; ++i) z[i] = gelu_tanh(y[i]);
           *reinterpret_cast<uint4*>(out + o) = pack8(z);
           if constexpr (EPI == EPI_BIAS_GELU_TANH_H)
+            *reinterpret_cast<uint4*>(e.C2 + o) = pack8(y);
+        } else if constexpr (EPI == EPI_BIAS_GELU_ERF ||
+                             EPI == EPI_BIAS_GELU_ERF_H) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) z[i] = gelu_exact(y[i]);
+          *reinterpret_cast<uint4*>(out + o) = pack8(z);
+          if constexpr (EPI == EPI_BIAS_GELU_ERF_H)
             *reinterpret_cast<uint4*>(e.C2 + o) = pack8(y);
         } else if constexpr (EPI == EPI_BIAS_BF16_GELU) {
 #pragma unroll

@@ -1,0 +1,387 @@
+// fp32 GEMM on the CUDA cores with the epilogues of the fp32 branches:
+// C = epilogue(A @ B), A (M, K) row-major fp32, B (K, N) row-major fp32
+// (gtax's (in, out) kernel layout). Every product and every sum is a full
+// fp32 FFMA: no tensor-core instruction, so no TF32 (which keeps about
+// three decimal digits), as gtax's fp32 dots and the plain versions'
+// torch.matmul under strict_matmul compute.
+//
+// Replaces the in-kernel jnp.dot calls of the TPU branch kernels in fp32
+// (gtax/kernels/block.py _kernel/_mlp_kernel/_temporal_kernel/
+// _temporal_step_kernel, gtax/kernels/vae_block.py _vae_block_kernel, all
+// of which take x.dtype = float32; gtax/serving.py serves dtype="float32").
+// The epilogues are gemm_epi.cuh's, each value stored before the rounding
+// the bf16 epilogue would apply: EPI_F32 (the spatial branch's and the
+// step's qkv rows), EPI_BIAS_BF16 (+ bias), EPI_BIAS_GELU_TANH and
+// EPI_BIAS_GELU_ERF (fc1 + bias, tanh or exact GELU), EPI_BIAS_BF16_GELU
+// (the VAE's fc1: the erf GELU of acc + bias), EPI_BIAS_GATED (x + gate *
+// (acc + bias)), EPI_BIAS_BF16_RESID (x + (acc + bias)) and EPI_ROPE_QKV
+// (fp32 q, k, v, rope on q and k: gtax_gemm_f32_rope_qkv).
+// Bound: operations, 67 TFLOP/s of fp32 FFMA on the H100 SXM, at every
+// main-path shape but the 144-row step's products, where the fp32
+// weights (8-32 MB a product) come close.
+// Design: 64x64 or 128x128 output tiles of 256 threads, each thread a
+// 4x4 or 8x8 register tile (rows ty*4 + 64 i .., columns tx*4 + 64 j ..),
+// K walked in 16-deep steps through two shared-memory stages filled by
+// cp.async (the next step's copies in flight during this step's FFMAs).
+// A thread reads its A rows as float4 along K and its B columns as float4
+// along N: 16 shared loads for 256 FFMAs at the 8x8 tile. The 128x128
+// tile runs where its blocks fill the card twice over (the VAE's
+// 2,304-3,456 rows), else 64x64 (a denoise step's 144 rows: 48-192
+// blocks), with K cut into chunks where the wrapper passes one
+// (gtax_torch/kernels/block.py f32_chunk: the fewest chunks giving 8
+// blocks an SM): each (tile, chunk) block sums its chunk into an fp32
+// partial, and a second kernel adds the partials in chunk order and runs
+// the epilogue. Each sum is taken in one fixed order
+// (a chunk's products in K order, then the chunks in order; no atomics),
+// so two calls agree bit for bit.
+#include <initializer_list>
+
+#include "gemm_epi.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int BK = 16;      // K depth of a stage
+constexpr int kLdA = BK + 4;  // A rows padded: the two row groups of a
+                              // warp's loads fall in different banks
+
+template <int BM, int BN>
+struct Stages {
+  float a[2][BM][kLdA];
+  float b[2][BK][BN];
+};
+
+// What an fp32 epilogue reads and writes besides the accumulators.
+struct F32Args {
+  float* C;
+  float* C2;  // EPI_ROPE_QKV: k
+  float* C3;  // EPI_ROPE_QKV: v
+  const void* bias;
+  int bias_f32;
+  const float* resid;
+  const float* gate;
+  int gate_stride;
+  int S;
+  const float* freqs;  // EPI_ROPE_QKV: (slots, hd) rotary table
+  int n_q, q_off, hd;
+  int M, N, K;
+  int k_chunk;  // the K a block sums: K, or a chunk of a split product
+};
+
+__device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+}
+
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Columns gn .. gn + 3 of row gm (gn a multiple of 4, all inside N).
+template <int EPI>
+__device__ __forceinline__ void store4(const F32Args& e, int gm, int gn,
+                                       const float (&v)[4]) {
+  const size_t o = (size_t)gm * e.N + gn;
+  if constexpr (EPI == EPI_F32) {
+    st4(e.C + o, v);
+  } else if constexpr (EPI == EPI_ROPE_QKV) {
+    const int D = e.N / 3, third = gn / D, c_d = gn - third * D;
+    float z[4] = {v[0], v[1], v[2], v[3]};
+    if (third < 2) {  // q or k: rope at the row's window slot
+      const float* f = e.freqs +
+                       (size_t)(e.q_off + (gm / e.S) % e.n_q) * e.hd +
+                       c_d % e.hd;
+#pragma unroll
+      for (int i = 0; i < 4; i += 2) {
+        float s0, c0, s1, c1;
+        sincosf(f[i], &s0, &c0);
+        if (f[i + 1] == f[i]) {  // the repo's tables repeat each angle
+          s1 = s0;
+          c1 = c0;
+        } else {
+          sincosf(f[i + 1], &s1, &c1);
+        }
+        const float2 r =
+            rope_pair_cs(make_float2(v[i], v[i + 1]), c0, s0, c1, s1);
+        z[i] = r.x;
+        z[i + 1] = r.y;
+      }
+    }
+    float* dst = third == 0 ? e.C : third == 1 ? e.C2 : e.C3;
+    st4(dst + (size_t)gm * D + c_d, z);
+  } else {  // the bias epilogues
+    float y[4], z[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      y[i] = v[i] + load_bias(e.bias, e.bias_f32, gn + i);
+    if constexpr (EPI == EPI_BIAS_GATED || EPI == EPI_BIAS_BF16_RESID) {
+      float x[4];
+      ld4(e.resid + o, x);
+      if constexpr (EPI == EPI_BIAS_GATED) {
+        float g[4];
+        ld4(e.gate + (size_t)(gm / e.S) * e.gate_stride + gn, g);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) z[i] = x[i] + g[i] * y[i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) z[i] = x[i] + y[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (EPI == EPI_BIAS_GELU_TANH) z[i] = gelu_tanh(y[i]);
+        else if constexpr (EPI == EPI_BIAS_GELU_ERF) z[i] = gelu_exact(y[i]);
+        else if constexpr (EPI == EPI_BIAS_BF16_GELU) z[i] = gelu_erf(y[i]);
+        else z[i] = y[i];  // EPI_BIAS_BF16
+      }
+    }
+    st4(e.C + o, z);
+  }
+}
+
+// One BM x BN output tile a block, over K chunk blockIdx.z (its partial,
+// EPI_F32, at C + z M N); thread (ty, tx) = (tid / 16, tid % 16) holds rows
+// 64 i + 4 ty + r and columns 64 j + 4 tx + c.
+template <int BM, int BN, int EPI>
+__global__ void __launch_bounds__(kThreads)
+    gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                    F32Args e) {
+  constexpr int TM = BM / 16, TN = BN / 16;
+  __shared__ __align__(16) Stages<BM, BN> sm;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int M = e.M, N = e.N, K = e.K;
+  const int k_begin = blockIdx.z * e.k_chunk;
+  if constexpr (EPI == EPI_F32) e.C += (size_t)blockIdx.z * M * N;
+
+  auto load = [&](int s, int k0) {  // stage s: A rows, B rows of step k0
+    for (int c = tid; c < BM * BK / 4; c += kThreads) {
+      const int r = c / (BK / 4), kq = c % (BK / 4) * 4, gm = m0 + r;
+      cp_async16(&sm.a[s][r][kq], A + (size_t)min(gm, M - 1) * K + k0 + kq,
+                 gm < M ? 16 : 0);
+    }
+    for (int c = tid; c < BK * BN / 4; c += kThreads) {
+      const int r = c / (BN / 4), nq = c % (BN / 4) * 4, gn = n0 + nq;
+      cp_async16(&sm.b[s][r][nq], B + (size_t)(k0 + r) * N + min(gn, N - 4),
+                 gn < N ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  const int steps = e.k_chunk / BK;
+  load(0, k_begin);
+  for (int kt = 0; kt < steps; ++kt) {
+    if (kt + 1 < steps)
+      load((kt + 1) & 1, k_begin + (kt + 1) * BK);
+    else
+      cp_async_commit();  // an empty group keeps the wait count uniform
+    cp_async_wait<1>();
+    __syncthreads();
+    const int s = kt & 1;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 4) {
+      float a[TM][4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        ld4(&sm.a[s][(i / 4) * 64 + ty * 4 + i % 4][kk], a[i]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float b[TN];
+#pragma unroll
+        for (int j = 0; j < TN; j += 4) {
+          float q[4];
+          ld4(&sm.b[s][kk + k][(j / 4) * 64 + tx * 4], q);
+          b[j] = q[0], b[j + 1] = q[1], b[j + 2] = q[2], b[j + 3] = q[3];
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] = fmaf(a[i][k], b[j], acc[i][j]);
+      }
+    }
+    __syncthreads();  // every thread is done with stage s before its refill
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + (i / 4) * 64 + ty * 4 + i % 4;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; j += 4) {
+      const int gn = n0 + (j / 4) * 64 + tx * 4;
+      if (gn >= N) continue;
+      const float v[4] = {acc[i][j], acc[i][j + 1], acc[i][j + 2],
+                          acc[i][j + 3]};
+      store4<EPI>(e, gm, gn, v);
+    }
+  }
+}
+
+// The split product's second step: the chunks' partials (splits, M, N)
+// added in chunk order, then the epilogue; a thread a four-column group.
+template <int EPI>
+__global__ void __launch_bounds__(kThreads)
+    f32_reduce_kernel(const float* __restrict__ part, int splits,
+                      const F32Args e) {
+  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int G = e.N / 4;
+  if (g >= (long long)e.M * G) return;
+  const int gm = (int)(g / G), gn = (int)(g % G) * 4;
+  const size_t mn = (size_t)e.M * e.N, o = (size_t)gm * e.N + gn;
+  float v[4];
+  ld4(part + o, v);
+  for (int z = 1; z < splits; ++z) {
+    float w[4];
+    ld4(part + z * mn + o, w);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] += w[i];
+  }
+  store4<EPI>(e, gm, gn, v);
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+// The 128x128 tile (one block an SM) where its blocks fill the card twice
+// over, else 64x64 (three blocks an SM): gtax_torch/kernels/block.py
+// f32_chunk plans the split on the same rule.
+bool wide_tile(int M, int N) {
+  return (long long)((M + 127) / 128) * ((N + 127) / 128) >= 2 * sm_count();
+}
+
+// One call: the tile's kernel over the whole of K, or, with e.k_chunk <
+// K, the 64x64 tile's partials (EPI_F32 into part) and the reduction.
+template <int EPI>
+int launch(const float* A, const float* B, const F32Args& e, float* part,
+           cudaStream_t st) {
+  const int splits = e.K / e.k_chunk;
+  if (splits > 1) {
+    F32Args p = e;
+    p.C = part;
+    const dim3 grid((e.N + 63) / 64, (e.M + 63) / 64, splits);
+    gemm_f32_kernel<64, 64, EPI_F32><<<grid, kThreads, 0, st>>>(A, B, p);
+    const long long groups = (long long)e.M * (e.N / 4);
+    f32_reduce_kernel<EPI>
+        <<<(unsigned)((groups + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+            part, splits, e);
+  } else if (wide_tile(e.M, e.N)) {
+    const dim3 grid((e.N + 127) / 128, (e.M + 127) / 128);
+    gemm_f32_kernel<128, 128, EPI><<<grid, kThreads, 0, st>>>(A, B, e);
+  } else {
+    const dim3 grid((e.N + 63) / 64, (e.M + 63) / 64);
+    gemm_f32_kernel<64, 64, EPI><<<grid, kThreads, 0, st>>>(A, B, e);
+  }
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
+}  // namespace
+
+// A (M, K), B (K, N), C (M, N), all fp32 row-major; bias (N,) fp32
+// (bias_f32 = 1) or bf16; resid (M, N) fp32; gate: per-frame fp32 rows of
+// gate_stride, frame = row / S. K a multiple of 16, N of 4, every row
+// 16-byte aligned. epi: EPI_F32, EPI_BIAS_BF16, EPI_BIAS_GELU_TANH,
+// EPI_BIAS_GELU_ERF, EPI_BIAS_BF16_GELU, EPI_BIAS_GATED or
+// EPI_BIAS_BF16_RESID (gemm_epi.cuh), each stored unrounded. k_chunk: K,
+// or a K chunk (a multiple of 16 dividing K) whose partials go to part,
+// (K / k_chunk, M, N) fp32, before the epilogue adds them in order.
+GTAX_ENTRY gtax_gemm_f32(const void* A, const void* B, void* C,
+                         const void* bias, int bias_f32, const void* resid,
+                         const void* gate, int gate_stride, int M, int N,
+                         int K, int S, int epi, int k_chunk, void* part,
+                         void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % 4 || K % BK || S <= 0 ||
+      !aligned16({A, B, C, resid, gate, part}) || gate_stride % 4 ||
+      k_chunk <= 0 || k_chunk % BK || K % k_chunk ||
+      (k_chunk < K && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const bool has_bias = epi != EPI_F32, has_resid = epi == EPI_BIAS_GATED ||
+                                                    epi == EPI_BIAS_BF16_RESID;
+  if ((has_bias && bias == nullptr) || (has_resid && resid == nullptr) ||
+      (epi == EPI_BIAS_GATED && gate == nullptr))
+    return (int)cudaErrorInvalidValue;
+  F32Args e{};
+  e.C = static_cast<float*>(C);
+  e.bias = bias;
+  e.bias_f32 = bias_f32;
+  e.resid = static_cast<const float*>(resid);
+  e.gate = static_cast<const float*>(gate);
+  e.gate_stride = gate_stride;
+  e.S = S;
+  e.M = M;
+  e.N = N;
+  e.K = K;
+  e.k_chunk = k_chunk;
+  const float* a = static_cast<const float*>(A);
+  const float* b = static_cast<const float*>(B);
+  float* p = static_cast<float*>(part);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (epi) {
+#define GTAX_F32_CASE(E) \
+  case E:                \
+    return launch<E>(a, b, e, p, st);
+    GTAX_F32_CASE(EPI_F32)
+    GTAX_F32_CASE(EPI_BIAS_BF16)
+    GTAX_F32_CASE(EPI_BIAS_GELU_TANH)
+    GTAX_F32_CASE(EPI_BIAS_GELU_ERF)
+    GTAX_F32_CASE(EPI_BIAS_BF16_GELU)
+    GTAX_F32_CASE(EPI_BIAS_GATED)
+    GTAX_F32_CASE(EPI_BIAS_BF16_RESID)
+#undef GTAX_F32_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The temporal branch's qkv product with rope in its epilogue, in fp32:
+// q, k, v (M, D) = the three column thirds of A (M, D) @ B (D, 3D), rope
+// (fp32, sincosf) on q and k at the row's window slot q_off + (r / S) % n_q
+// of freqs ((slots, hd) fp32), nothing rounded; K split as gtax_gemm_f32's
+// (part: (D / k_chunk, M, 3D) fp32).
+GTAX_ENTRY gtax_gemm_f32_rope_qkv(const void* A, const void* B, void* q,
+                                  void* k, void* v, const void* freqs, int M,
+                                  int D, int S, int n_q, int q_off, int hd,
+                                  int k_chunk, void* part, void* stream) {
+  if (M <= 0 || D <= 0 || D % BK || S <= 0 || n_q <= 0 || q_off < 0 ||
+      hd <= 0 || hd % 4 || D % hd || freqs == nullptr || q == nullptr ||
+      k == nullptr || v == nullptr || !aligned16({A, B, q, k, v, part}) ||
+      k_chunk <= 0 || k_chunk % BK || D % k_chunk ||
+      (k_chunk < D && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  F32Args e{};
+  e.C = static_cast<float*>(q);
+  e.C2 = static_cast<float*>(k);
+  e.C3 = static_cast<float*>(v);
+  e.freqs = static_cast<const float*>(freqs);
+  e.S = S;
+  e.n_q = n_q;
+  e.q_off = q_off;
+  e.hd = hd;
+  e.M = M;
+  e.N = 3 * D;
+  e.K = D;
+  e.k_chunk = k_chunk;
+  return launch<EPI_ROPE_QKV>(static_cast<const float*>(A),
+                              static_cast<const float*>(B), e,
+                              static_cast<float*>(part),
+                              (cudaStream_t)stream);
+}

@@ -90,10 +90,10 @@ int launch(const void* A, const void* B, gemm_s8::Args p, cudaStream_t st) {
 
 // A: (M, K) int8; B: W^T, (N, K) int8 row-major; sa: (M, K / group) fp32
 // activation scales; ws: (N,) fp32 weight scales; bias: (N,) fp32 or bf16
-// (epilogues 1, 2); resid: (M, N) bf16 and gate: per-frame bf16 rows of
+// (epilogues 1-3); resid: (M, N) bf16 and gate: per-frame bf16 rows of
 // gate_stride, frame = row / S (epilogue 2); k_chunk: the split-K chunk;
 // part: (ceil(K / k_chunk), M, N) int32, unused with one chunk; C2: null,
-// or (M, N) bf16 of y + bias (epilogues 1 and 2).
+// or (M, N) bf16 of y + bias (epilogues 1, 2 and 3).
 GTAX_ENTRY gtax_gemm_s8(const void* A, const void* B, void* C, void* C2,
                         const void* sa, int group, const void* ws,
                         const void* bias, int bias_f32, const void* resid,
@@ -120,6 +120,8 @@ GTAX_ENTRY gtax_gemm_s8(const void* A, const void* B, void* C, void* C2,
       return launch<gemm_s8::EPI_BIAS_GELU_F32>(A, B, p, st);
     case gemm_s8::EPI_BIAS_GATED:
       return launch<gemm_s8::EPI_BIAS_GATED>(A, B, p, st);
+    case gemm_s8::EPI_BIAS_GELU_ERF_F32:
+      return launch<gemm_s8::EPI_BIAS_GELU_ERF_F32>(A, B, p, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -52,10 +52,11 @@ constexpr size_t kSmemBytes = kRingBytes + kMaxStages * 8;
 constexpr int kSliceRows = 16;  // rows of a slice of the split sum
 
 enum Epi {
-  EPI_F32 = 0,            // fp32 C = y
-  EPI_BIAS_GELU_F32 = 1,  // fp32 C = gelu_tanh(y + bias)
-  EPI_BIAS_GATED = 2,     // bf16 C = x + gate[row / S] * (y + bias)
-};  // 1 and 2 also store bf16(y + bias) to C2 when it is set
+  EPI_F32 = 0,                // fp32 C = y
+  EPI_BIAS_GELU_F32 = 1,      // fp32 C = gelu_tanh(y + bias)
+  EPI_BIAS_GATED = 2,         // bf16 C = x + gate[row / S] * (y + bias)
+  EPI_BIAS_GELU_ERF_F32 = 3,  // fp32 C = gelu_exact(y + bias)
+};  // 1, 2 and 3 also store bf16(y + bias) to C2 when it is set
 
 // C = epilogue(dequant(A @ B)): A (M, K) int8 with fp32 scales sa (M,
 // n_groups), K groups of `group`; B (K, N) int8 read as W^T through its
@@ -78,7 +79,7 @@ struct Args {
   int k_chunk;
   int* part;
 #ifdef GTAX_PAIR_PROBE
-  // the probe copy of pair_q (csrc/pair_q.cu): kUnitStamps clock stamps of
+  // the probe copy of pair_q (csrc/pair_q.cuh): kUnitStamps clock stamps of
   // the block's last unit of the GEMM, at this block's row
   unsigned long long* stamps;
 #endif
@@ -178,6 +179,13 @@ __device__ __forceinline__ float gelu_tanh_rn(float h) {
   return __fmul_rn(h, __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner))));
 }
 
+// jax.nn.gelu(approximate=False), 0.5 h erfc(-h sqrt(1/2)), each op
+// rounded once as the plain version computes it
+__device__ __forceinline__ float gelu_exact_rn(float h) {
+  return __fmul_rn(__fmul_rn(0.5f, h),
+                   erfcf(__fmul_rn(-h, 0.70710678118654752f)));
+}
+
 // Output pair (gm, gn), (gm, gn + 1) from its folded fp32 sums: y = acc *
 // ws[col], then the epilogue, each op rounded once.
 template <int EPI>
@@ -197,6 +205,9 @@ __device__ __forceinline__ void store_out(const Args& p, int gm, int gn,
   if (EPI == EPI_BIAS_GELU_F32) {
     *reinterpret_cast<float2*>(static_cast<float*>(p.C) + o) =
         make_float2(gelu_tanh_rn(u0), gelu_tanh_rn(u1));
+  } else if (EPI == EPI_BIAS_GELU_ERF_F32) {
+    *reinterpret_cast<float2*>(static_cast<float*>(p.C) + o) =
+        make_float2(gelu_exact_rn(u0), gelu_exact_rn(u1));
   } else {
     const float2 x = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(p.resid + o));

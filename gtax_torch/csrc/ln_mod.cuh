@@ -31,60 +31,73 @@ enum LnMode {
   LN_MODULATE_BF16 = 0,  // bf16(LN(x) * (1 + scale[f] + 1e-6) + shift[f])
   LN_AFFINE_BF16 = 1,    // bf16(LN(x) * weight + bias), fp32 (D,) params
   LN_MODULATE_INT8 = 2,  // the mode-0 row in fp32, int8 + per-row scale
+  LN_MODULATE_F32 = 3,   // mode 0 over fp32 x, shift, scale: fp32 out
+  LN_AFFINE_F32 = 4,     // mode 1 over fp32 x: fp32 out
 };
 
-// One row of ln_mod: LayerNorm in fp32, then
-// mode 0: out = bf16(LN(x) * (1 + scale[f] + 1e-6) + shift[f]), f = row / S,
-//         shift/scale bf16 rows of stride p_stride (gtax/nn/layers.py modulate)
-// mode 1: out = bf16(LN(x) * weight + bias), weight/bias fp32 (D,)
+// An element of a bf16 or fp32 row as fp32, and its store: rounded to
+// bf16, or as it is.
+__device__ __forceinline__ float ld_f(const bf16* p) { return bf2f(*p); }
+__device__ __forceinline__ float ld_f(const float* p) { return *p; }
+__device__ __forceinline__ void st_f(bf16* p, float v) { *p = f2bf(v); }
+__device__ __forceinline__ void st_f(float* p, float v) { *p = v; }
+
+// One row of ln_mod over x of element type T (bf16, or fp32 for the
+// entry point's modes 3 and 4, which run modes 0 and 1 here with T =
+// float: the same arithmetic, nothing rounded): LayerNorm in fp32, then
+// mode 0: out = T(LN(x) * (1 + scale[f] + 1e-6) + shift[f]), f = row / S,
+//         shift/scale T rows of stride p_stride (gtax/nn/layers.py modulate)
+// mode 1: out = T(LN(x) * weight + bias), weight/bias fp32 (D,)
 // mode 2: the mode-0 row in fp32, quantized: out int8, row_scale[row] fp32
 //         (gtax/kernels/quant.py _ln_modulate32 + _quant_rows); the
 //         modulate is rounded op by op, as the plain version computes it
 // red: 33 floats of shared memory; mod_row: D floats of shared memory
 // (mode 2). Needs kLnThreads threads in the block.
+template <typename T>
 __device__ __forceinline__ void ln_mod_row(
-    const bf16* __restrict__ x, void* __restrict__ out,
+    const T* __restrict__ x, void* __restrict__ out,
     float* __restrict__ row_scale, const void* __restrict__ p0,
     const void* __restrict__ p1, int D, int S, int p_stride, int mode,
     size_t row, float* red, float* mod_row) {
-  const bf16* xr = x + row * D;
+  const T* xr = x + row * D;
   float s = 0.f;
-  for (int c = threadIdx.x; c < D; c += kLnThreads) s += bf2f(xr[c]);
+  for (int c = threadIdx.x; c < D; c += kLnThreads) s += ld_f(xr + c);
   const float mean = ln_block_reduce<false>(s, red) / D;
   float q = 0.f;
   for (int c = threadIdx.x; c < D; c += kLnThreads) {
-    const float d = bf2f(xr[c]) - mean;
+    const float d = ld_f(xr + c) - mean;
     q = fmaf(d, d, q);  // explicit, so every caller rounds alike
   }
   const float var = ln_block_reduce<false>(q, red) / D;
   const float rstd = 1.0f / sqrtf(var + 1e-6f);
   if (mode == LN_AFFINE_BF16) {
-    bf16* orow = static_cast<bf16*>(out) + row * D;
+    T* orow = static_cast<T*>(out) + row * D;
     const float* w = static_cast<const float*>(p0);
     const float* b = static_cast<const float*>(p1);
     for (int c = threadIdx.x; c < D; c += kLnThreads) {
-      const float ln = (bf2f(xr[c]) - mean) * rstd;
-      orow[c] = f2bf(ln * w[c] + b[c]);
+      const float ln = (ld_f(xr + c) - mean) * rstd;
+      st_f(orow + c, ln * w[c] + b[c]);
     }
     return;
   }
   const size_t f = row / S;
-  const bf16* shift = static_cast<const bf16*>(p0) + f * p_stride;
-  const bf16* scale = static_cast<const bf16*>(p1) + f * p_stride;
+  const T* shift = static_cast<const T*>(p0) + f * p_stride;
+  const T* scale = static_cast<const T*>(p1) + f * p_stride;
   if (mode == LN_MODULATE_BF16) {
-    bf16* orow = static_cast<bf16*>(out) + row * D;
+    T* orow = static_cast<T*>(out) + row * D;
     for (int c = threadIdx.x; c < D; c += kLnThreads) {
-      const float ln = (bf2f(xr[c]) - mean) * rstd;
-      orow[c] = f2bf(ln * ((1.0f + bf2f(scale[c])) + 1e-6f) + bf2f(shift[c]));
+      const float ln = (ld_f(xr + c) - mean) * rstd;
+      st_f(orow + c,
+           ln * ((1.0f + ld_f(scale + c)) + 1e-6f) + ld_f(shift + c));
     }
     return;
   }
   float amax = 0.f;
   for (int c = threadIdx.x; c < D; c += kLnThreads) {
-    const float ln = __fmul_rn(__fsub_rn(bf2f(xr[c]), mean), rstd);
+    const float ln = __fmul_rn(__fsub_rn(ld_f(xr + c), mean), rstd);
     const float m = __fadd_rn(
-        __fmul_rn(ln, __fadd_rn(__fadd_rn(1.0f, bf2f(scale[c])), 1e-6f)),
-        bf2f(shift[c]));
+        __fmul_rn(ln, __fadd_rn(__fadd_rn(1.0f, ld_f(scale + c)), 1e-6f)),
+        ld_f(shift + c));
     mod_row[c] = m;
     amax = fmaxf(amax, fabsf(m));
   }

@@ -42,6 +42,7 @@ import torch
 from gtax_torch.core.rope import rotate_half
 from gtax_torch.kernels import block, build
 from gtax_torch.kernels.block import (
+    BF16_ONLY,
     EPI_BF16,
     EPI_DGELU,
     EPI_F32,
@@ -347,7 +348,7 @@ def launch_attn_frame_bwd(q, k, v, dout, cos, sin, dqkv, ao, n_frames, S,
 
 
 def _check_bwd(x, shift, scale, g, residuals, ct):
-    N, S, D = _check_branch(x, shift, scale, g)
+    N, S, D = _check_branch(x, shift, scale, g, BF16_ONLY)
     _need(D in (64, 128, 256, 512, 1024),
           lambda: f"D={D}: the LayerNorm backward takes 64 .. 1024, powers "
                   "of two")

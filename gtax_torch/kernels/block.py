@@ -16,8 +16,15 @@ On the card a branch is a few launches of shared kernels: `ln_mod` (fp32
 LayerNorm + per-frame modulate -> bf16), `gemm_bf16` (tensor-core GEMM
 with an fp32 or fused epilogue), and the attention kernel of the branch
 (`attn_frame`, `attn_temporal_window` for the temporal branch's full window,
-`attn_temporal` for its incremental step). Each wrapper counts its calls that
-launch kernels in its `launches` attribute.
+`attn_temporal` for its incremental step). The branch's dtype is x's: bf16
+takes those kernels, fp32 (gtax's kernels at x.dtype = float32, as gtax
+serves dtype="float32") their fp32 forms, which round nothing: `ln_mod`'s
+fp32 modes, `gemm_f32` (fp32 FFMA on the CUDA cores, no TF32, the same
+epilogues stored unrounded), `attn_frame_f32`, `attn_temporal_window_f32`
+and `attn_temporal_f32`. Every other tensor of a call has x's dtype (the
+biases may be either). fp32 `emit_train` is not ported yet (ROADMAP.md):
+it raises NotImplementedError on the card. Each wrapper counts its calls
+that launch kernels in its `launches` attribute.
 
 For training, `emit_train=True` also returns the residuals the branch
 backwards consume (gtax's emit_train outputs): the post-rope q and k and the
@@ -65,6 +72,11 @@ EPI_BF16 = 6
 EPI_BIAS_GATED_Y = 7
 EPI_BIAS_GELU_TANH_H = 8
 EPI_DGELU = 9
+EPI_BIAS_GELU_ERF = 11
+EPI_BIAS_GELU_ERF_H = 12
+
+# ln_mod modes (csrc/ln_mod.cuh): over bf16 rows; + LN_F32, over fp32 rows
+LN_MODULATE, LN_AFFINE, LN_F32 = 0, 1, 3
 
 # the most frames of a temporal window (csrc/attn_temporal.cuh kMaxT): the
 # temporal kernels' register arrays, and the window kernels' T template
@@ -90,6 +102,17 @@ def gelu_tanh32(h: torch.Tensor) -> torch.Tensor:
     """jax.nn.gelu(approximate=True), term for term."""
     return h * (0.5 * (1.0 + torch.tanh(
         0.7978845608028654 * (h + 0.044715 * (h * h * h)))))
+
+
+def gelu_exact32(h: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(approximate=False) as jax writes it: 0.5 h erfc(-h
+    sqrt(1/2)) (the MLP branches' approx_gelu=False)."""
+    return 0.5 * h * torch.special.erfc(-h * 0.7071067811865476)
+
+
+def gelu32(approx_gelu: bool):
+    """The MLP branches' GELU: tanh (gtax's default) or exact."""
+    return gelu_tanh32 if approx_gelu else gelu_exact32
 
 
 def modulated32(x32, shift, scale):
@@ -187,11 +210,11 @@ def spatial_branch_plain(x, shift, scale, gate, qkv_w, out_w, out_b,
 
 
 def mlp_branch_plain(x, shift, scale, gate, w1, b1, w2, b2,
-                     emit_train=False):
+                     approx_gelu=True, emit_train=False):
     dt = x.dtype
     x32 = x.float()
     h = mm32(_modulated(x32, shift, scale, dt), w1) + b1.float()
-    y = mm32(gelu_tanh32(h).to(dt), w2) + b2.float()
+    y = mm32(gelu32(approx_gelu)(h).to(dt), w2) + b2.float()
     out = (x32 + gate.float()[:, None] * y).to(dt)
     if emit_train:
         return out, h.to(dt), y.to(dt)
@@ -283,6 +306,48 @@ def small_plan(M, N, K, sms, tile_n, k_step, max_rows, max_splits,
     return chunk if small < tiled else 0
 
 
+# gemm_f32's tiling (csrc/gemm_f32.cu): the two tiles' rows and columns,
+# its k-step, the most K chunks a split product takes, and the blocks an SM
+# a split aims for (`python -m gtax_torch.tools.gemm_sweep --f32`, NVIDIA
+# H100 80GB HBM3, 700 W: at the serving rows every product ran fastest, or
+# within 6% of it, at the fewest chunks giving 8 blocks an SM; 3 of the
+# 64x64 tile's blocks fit on an SM at once)
+# (the 128x128 tile, one block an SM, where its blocks fill the SMs twice:
+# at 1.1-1.2 waves it lost to the split 64x64 tile by 29-41%)
+F32_TILE, F32_WIDE_TILE, F32_K_STEP, F32_MAX_SPLITS = 64, 128, 16, 8
+F32_BLOCKS_PER_SM, F32_WIDE_WAVES = 8, 2
+
+
+def f32_chunk(M, N, K, sms):
+    """K chunk of an fp32 GEMM (K: one pass, no split). The 128x128 tile
+    where its blocks fill the card's SMs F32_WIDE_WAVES times, unsplit
+    (the VAE's 2,304-3,456 rows); else the 64x64 tile over the fewest K
+    chunks (whole k-steps dividing K, at most F32_MAX_SPLITS) that give
+    F32_BLOCKS_PER_SM blocks an SM, or the most chunks there are: at a
+    denoise step's 144 rows the out-projection and fc2 make 48 blocks
+    unsplit, qkv 144, fc1 192."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    if (cdiv(M, F32_WIDE_TILE) * cdiv(N, F32_WIDE_TILE)
+            >= F32_WIDE_WAVES * sms):
+        return K
+    blocks = cdiv(M, F32_TILE) * cdiv(N, F32_TILE)
+    chunk = K
+    for c in range(2, F32_MAX_SPLITS + 1):
+        if blocks * (K // chunk) >= F32_BLOCKS_PER_SM * sms:
+            break
+        if K % (c * F32_K_STEP) == 0:
+            chunk = K // c
+    return chunk
+
+
+@functools.lru_cache(maxsize=None)
+def f32_plan(M, N, K, device) -> int:
+    """f32_chunk on `device`'s SMs."""
+    return f32_chunk(M, N, K, sm_count(device))
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -338,12 +403,19 @@ def forward_only(name, *args):
             "attention backend.")
 
 
+# the compute dtypes the kernels take: bf16, and fp32 (the fp32 forms);
+# the int8 branches and the backwards take bf16 only
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+BF16_ONLY = (torch.bfloat16,)
+
+
 def _check_rows(name, t, rows, D, dtype=torch.bfloat16):
     """(rows, D) per-frame vectors: unit column stride, any row stride."""
     _need(t.is_cuda and t.dtype == dtype and t.dim() == 2
           and t.shape[0] == rows and t.shape[1] == D and t.stride(1) == 1,
           lambda: f"{name} must be a CUDA {dtype} ({rows}, {D}) tensor with "
-                  f"unit column stride, got {_desc(t)}")
+                  f"unit column stride (x's dtype: the kernels take bf16 or "
+                  f"fp32), got {_desc(t)}")
 
 
 def _check_mat(name, t, shape, dtype=torch.bfloat16):
@@ -362,6 +434,12 @@ def _check_bias(name, b, n):
 
 def launch_ln_mod(x, out, rows, D, S, mode, p0, p1, p_stride=0,
                   row_scale=None):
+    """mode LN_MODULATE or LN_AFFINE over x's dtype (the fp32 modes for
+    fp32 rows, out fp32), or the int8 mode over bf16 rows."""
+    if x.dtype == torch.float32:
+        _need(mode in (LN_MODULATE, LN_AFFINE),
+              lambda: f"ln_mod mode {mode} takes bf16 rows")
+        mode += LN_F32
     build.launch("gtax_ln_mod", x.data_ptr(), out.data_ptr(),
                  None if row_scale is None else row_scale.data_ptr(),
                  p0.data_ptr(), p1.data_ptr(), rows, D, S, p_stride, mode,
@@ -403,6 +481,47 @@ def launch_gemm(a, w, out, M, N, K, epi, bias=None, resid=None, gate=None,
         int(trans_b), k_chunk, _ptr(part), _stream(a))
 
 
+# the epilogues gemm_f32 takes (csrc/gemm_f32.cu)
+F32_EPILOGUES = (EPI_F32, EPI_BIAS_BF16, EPI_BIAS_GELU_TANH, EPI_BIAS_GELU_ERF,
+                 EPI_BIAS_BF16_GELU, EPI_BIAS_GATED, EPI_BIAS_BF16_RESID)
+
+
+def launch_gemm_f32(a, w, out, M, N, K, epi, bias=None, resid=None,
+                    gate=None, S=1, k_chunk=None, out2=None):
+    """out = epilogue(a @ w), all fp32, on the CUDA cores (gemm_f32): each
+    of F32_EPILOGUES stores its value before the bf16 epilogue's rounding
+    (EPI_BIAS_BF16: acc + bias; EPI_BIAS_BF16_GELU: the erf GELU of it;
+    EPI_BIAS_BF16_RESID: x + acc + bias). k_chunk: f32_plan's by default;
+    below K, the chunks' partials go through an (M, N) fp32 workspace a
+    chunk and are added in order before the epilogue. It stores no second
+    output (out2: the emit_train epilogues', not ported in fp32)."""
+    _need(epi in F32_EPILOGUES and out2 is None,
+          lambda: f"gemm_f32 has no epilogue {epi}"
+                  + (" with a second output" if out2 is not None else ""))
+    k_chunk, part = _f32_split(a, M, N, K, k_chunk)
+    build.launch(
+        "gtax_gemm_f32", a.data_ptr(), w.data_ptr(), out.data_ptr(),
+        _ptr(bias), int(bias is not None and bias.dtype == torch.float32),
+        _ptr(resid), _ptr(gate), 0 if gate is None else gate.stride(0), M,
+        N, K, S, epi, k_chunk, _ptr(part), _stream(a))
+
+
+def gemm_any(a, w, out, M, N, K, epi, **kw):
+    """launch_gemm for bf16 operands, launch_gemm_f32 for fp32 ones."""
+    if a.dtype == torch.float32:
+        return launch_gemm_f32(a, w, out, M, N, K, epi, **kw)
+    return launch_gemm(a, w, out, M, N, K, epi, **kw)
+
+
+def launch_attn_frame_f32(qkv, freqs, out, n_frames, S, D, num_heads, rot):
+    """The fp32 frame attention: qkv (n_frames * S, 3D) fp32 rows, rope on
+    the first rot dims of each head's q and k, into out (n_frames * S, D)
+    fp32; nothing rounded."""
+    build.launch("gtax_attn_frame_f32", qkv.data_ptr(), freqs.data_ptr(),
+                 out.data_ptr(), n_frames, S, D, num_heads, rot,
+                 _stream(qkv))
+
+
 def launch_attn_frame(qkv, freqs, out, n_frames, S, D, num_heads, rot,
                       qkv_out=None):
     """qkv and out are fp32 or bf16, as allocated; qkv_out an optional
@@ -428,11 +547,46 @@ def launch_gemm_rope_qkv(mod, qkv_w, q, k, v, freqs, S, n_q, q_off, hd):
 
 
 def launch_attn_window(q, k, v, out, B, T, S, D, num_heads, bits):
-    """The full-window temporal attention over bf16 post-rope q, k, v
-    (B * T * S, D) rows into out (bf16, the same shape)."""
-    build.launch("gtax_attn_temporal_window", q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), B, T, S, D, num_heads, bits,
-                 _stream(q))
+    """The full-window temporal attention over post-rope q, k, v
+    (B * T * S, D) rows into out (the same shape), all bf16 or all fp32
+    (attn_temporal_window_f32)."""
+    name = ("gtax_attn_temporal_window_f32" if q.dtype == torch.float32
+            else "gtax_attn_temporal_window")
+    build.launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), B, T, S, D, num_heads, bits, _stream(q))
+
+
+def _f32_split(a, M, N, K, k_chunk=None):
+    """(k_chunk, fp32 partials or None) of an fp32 GEMM launch: f32_plan's
+    K chunk by default; a workspace of one (M, N) partial a chunk where
+    there is more than one."""
+    if k_chunk is None:
+        k_chunk = f32_plan(M, N, K, a.device)
+    part = None
+    if k_chunk < K:
+        part = torch.empty((K // k_chunk, M, N), dtype=torch.float32,
+                           device=a.device)
+    return k_chunk, part
+
+
+def launch_gemm_f32_rope_qkv(mod, qkv_w, q, k, v, freqs, S, n_q, q_off, hd,
+                             k_chunk=None):
+    """launch_gemm_rope_qkv in fp32 (gemm_f32's rope epilogue): q, k, v
+    fp32, nothing rounded; K split as launch_gemm_f32's."""
+    M, D = mod.shape
+    k_chunk, part = _f32_split(mod, M, 3 * D, D, k_chunk)
+    build.launch("gtax_gemm_f32_rope_qkv", mod.data_ptr(), qkv_w.data_ptr(),
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), freqs.data_ptr(),
+                 M, D, S, n_q, q_off, hd, k_chunk, _ptr(part), _stream(mod))
+
+
+def launch_attn_temporal_f32(qkv, freqs, out, B, n_q, q_off, S, D,
+                             num_heads, bits, k_ctx, v_ctx):
+    """The fp32 incremental step: qkv fp32 rows (rope on load), the fp32
+    context cache, out fp32; nothing rounded."""
+    build.launch("gtax_attn_temporal_f32", qkv.data_ptr(), freqs.data_ptr(),
+                 k_ctx.data_ptr(), v_ctx.data_ptr(), out.data_ptr(), B, n_q,
+                 q_off, S, D, num_heads, bits, _stream(qkv))
 
 
 def launch_attn_temporal(qkv, freqs, out, B, n_q, q_off, S, D, num_heads,
@@ -449,24 +603,37 @@ def launch_attn_temporal(qkv, freqs, out, B, n_q, q_off, S, D, num_heads,
         B, n_q, q_off, S, D, num_heads, bits, _stream(qkv))
 
 
-def _check_branch(x, shift, scale, gate, D_out=None):
-    _need(x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 3
+def _check_branch(x, shift, scale, gate, dtypes=KERNEL_DTYPES):
+    """x (N, S, D) contiguous in one of `dtypes` (the int8 branches: bf16),
+    shift/scale/gate in x's dtype; returns (N, S, D)."""
+    _need(x.is_cuda and x.dtype in dtypes and x.dim() == 3
           and x.is_contiguous(),
-          lambda: f"x must be a contiguous CUDA bf16 (N, S, D) tensor, got "
-                  f"{_desc(x)}")
+          lambda: f"x must be a contiguous CUDA (N, S, D) tensor of "
+                  f"{' or '.join(map(str, dtypes))}, got {_desc(x)}")
     N, S, D = x.shape
     _need(D % 64 == 0, lambda: f"D={D} must be a multiple of 64")
     for name, t in (("shift", shift), ("scale", scale), ("gate", gate)):
-        _check_rows(name, t, N, D)
+        _check_rows(name, t, N, D, x.dtype)
     return N, S, D
 
 
+def _no_f32_train(x, name, emit_train):
+    """fp32 emit_train (the training forward) is the training slice's."""
+    if emit_train and x.dtype == torch.float32:
+        raise NotImplementedError(
+            f"{name}: fp32 emit_train on the card is not ported yet "
+            "(ROADMAP.md A11, fp32 training: #1-#3 emit_train and #12-#14 "
+            "in fp32)")
+
+
 def _modulate_cuda(x, shift, scale):
+    """The modulated rows (N * S, D) in x's dtype (ln_mod)."""
     N, S, D = x.shape
     _need(shift.stride(0) == scale.stride(0),
           lambda: "shift and scale must share a row stride")
-    mod = torch.empty((N * S, D), dtype=torch.bfloat16, device=x.device)
-    launch_ln_mod(x, mod, N * S, D, S, 0, shift, scale, shift.stride(0))
+    mod = torch.empty((N * S, D), dtype=x.dtype, device=x.device)
+    launch_ln_mod(x, mod, N * S, D, S, LN_MODULATE, shift, scale,
+                  shift.stride(0))
     return mod
 
 
@@ -486,9 +653,9 @@ def _check_freqs(freqs, rows, cols):
     _check_mat("rope_freqs", freqs, (rows, cols), torch.float32)
 
 
-def _check_attn_weights(qkv_w, out_w, out_b, D):
-    _check_mat("qkv_w", qkv_w, (D, 3 * D))
-    _check_mat("out_w", out_w, (D, D))
+def _check_attn_weights(qkv_w, out_w, out_b, D, dtype=torch.bfloat16):
+    _check_mat("qkv_w", qkv_w, (D, 3 * D), dtype)
+    _check_mat("out_w", out_w, (D, D), dtype)
     _check_bias("out_b", out_b, D)
 
 
@@ -504,8 +671,9 @@ def fused_spatial_branch(x, shift, scale, gate, qkv_w, out_w, out_b,
     Replaces gtax/kernels/block.py fused_spatial_branch (pallas_call at
     :846, body _kernel :214, core _spatial_attention_core :137). On the
     card: ln_mod -> gemm (fp32 qkv) -> attn_frame (full-d rope on load) ->
-    gemm (+bias, gated residual): 4 launches. Bound: the 8 MB of qkv/out
-    weights at the serving row counts (bytes); see PERF.md for the
+    gemm (+bias, gated residual): 4 launches, in fp32 the fp32 forms
+    (gemm_f32, attn_frame_f32). Bound: the 8 MB of qkv/out weights at the
+    serving row counts (bytes; fp32: operations); see PERF.md for the
     measured time against that bound."""
     forward_only("fused_spatial_branch", x, shift, scale, gate, qkv_w, out_w,
                  out_b)
@@ -513,20 +681,24 @@ def fused_spatial_branch(x, shift, scale, gate, qkv_w, out_w, out_b,
         return spatial_branch_plain(x, shift, scale, gate, qkv_w, out_w,
                                     out_b, rope_freqs, num_heads, emit_train)
     N, S, D = _check_branch(x, shift, scale, gate)
-    _check_attn_weights(qkv_w, out_w, out_b, D)
+    _no_f32_train(x, "fused_spatial_branch", emit_train)
+    _check_attn_weights(qkv_w, out_w, out_b, D, x.dtype)
     d = _check_heads(D, num_heads, (32, 64))
     _check_freqs(rope_freqs, S, d)
     mod = _modulate_cuda(x, shift, scale)
     qkv = torch.empty((N * S, 3 * D), dtype=torch.float32, device=x.device)
-    launch_gemm(mod, qkv_w, qkv, N * S, 3 * D, D, EPI_F32)
-    att = torch.empty((N * S, D), dtype=torch.bfloat16, device=x.device)
+    gemm_any(mod, qkv_w, qkv, N * S, 3 * D, D, EPI_F32)
+    att = torch.empty((N * S, D), dtype=x.dtype, device=x.device)
     res = tuple(torch.empty_like(x) for _ in range(4)) if emit_train else None
-    launch_attn_frame(qkv, rope_freqs, att, N, S, D, num_heads, d,
-                      qkv_out=res and res[:3])
+    if x.dtype == torch.float32:
+        launch_attn_frame_f32(qkv, rope_freqs, att, N, S, D, num_heads, d)
+    else:
+        launch_attn_frame(qkv, rope_freqs, att, N, S, D, num_heads, d,
+                          qkv_out=res and res[:3])
     out = torch.empty_like(x)
-    launch_gemm(att, out_w, out, N * S, D, D,
-                EPI_BIAS_GATED_Y if emit_train else EPI_BIAS_GATED,
-                bias=out_b, resid=x, gate=gate, S=S, out2=res and res[3])
+    gemm_any(att, out_w, out, N * S, D, D,
+             EPI_BIAS_GATED_Y if emit_train else EPI_BIAS_GATED, bias=out_b,
+             resid=x, gate=gate, S=S, out2=res and res[3])
     fused_spatial_branch.launches += 1
     return (out, *res) if emit_train else out
 
@@ -535,38 +707,42 @@ fused_spatial_branch.launches = 0
 
 
 def fused_mlp_branch(x, shift, scale, gate, w1, b1, w2, b2,
-                     emit_train=False):
+                     approx_gelu=True, emit_train=False):
     """x: (N, S, D); shift/scale/gate: (N, D); w1: (D, H); w2: (H, D).
-    Returns x + gate * (fc2(gelu_tanh(fc1(modulate(LN(x))))) ), or with
+    Returns x + gate * (fc2(gelu(fc1(modulate(LN(x))))) ), the tanh GELU
+    (approx_gelu, gtax's default and the DiT's) or the exact one, or with
     emit_train (out, h1 (N, S, H), y (N, S, D)).
 
     Replaces gtax/kernels/block.py fused_mlp_branch (pallas_call at :779,
-    body _mlp_kernel :715). On the card: ln_mod -> gemm (+b1, tanh-GELU,
-    bf16) -> gemm (+b2, gated residual): 3 launches. Bound: the 16 MB of
-    fc1/fc2 weights at serving row counts (bytes); tensor-core rate at
-    prefill and VAE-size row counts."""
+    body _mlp_kernel :715). On the card: ln_mod -> gemm (+b1, GELU, bf16)
+    -> gemm (+b2, gated residual): 3 launches, in fp32 on gemm_f32. Bound:
+    the 16 MB of fc1/fc2 weights at serving row counts (bytes; fp32:
+    operations); tensor-core rate at prefill and VAE-size row counts."""
     forward_only("fused_mlp_branch", x, shift, scale, gate, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return mlp_branch_plain(x, shift, scale, gate, w1, b1, w2, b2,
-                                emit_train)
+                                approx_gelu, emit_train)
     N, S, D = _check_branch(x, shift, scale, gate)
+    _no_f32_train(x, "fused_mlp_branch", emit_train)
     Hd = w1.shape[-1]
     _check_hidden(Hd)
-    _check_mat("w1", w1, (D, Hd))
-    _check_mat("w2", w2, (Hd, D))
+    _check_mat("w1", w1, (D, Hd), x.dtype)
+    _check_mat("w2", w2, (Hd, D), x.dtype)
     _check_bias("b1", b1, Hd)
     _check_bias("b2", b2, D)
     mod = _modulate_cuda(x, shift, scale)
-    h = torch.empty((N * S, Hd), dtype=torch.bfloat16, device=x.device)
+    h = torch.empty((N * S, Hd), dtype=x.dtype, device=x.device)
     h1 = torch.empty_like(h) if emit_train else None
-    launch_gemm(mod, w1, h, N * S, Hd, D,
-                EPI_BIAS_GELU_TANH_H if emit_train else EPI_BIAS_GELU_TANH,
-                bias=b1, out2=h1)
+    if approx_gelu:
+        epi = EPI_BIAS_GELU_TANH_H if emit_train else EPI_BIAS_GELU_TANH
+    else:
+        epi = EPI_BIAS_GELU_ERF_H if emit_train else EPI_BIAS_GELU_ERF
+    gemm_any(mod, w1, h, N * S, Hd, D, epi, bias=b1, out2=h1)
     out = torch.empty_like(x)
     y = torch.empty_like(x) if emit_train else None
-    launch_gemm(h, w2, out, N * S, D, Hd,
-                EPI_BIAS_GATED_Y if emit_train else EPI_BIAS_GATED, bias=b2,
-                resid=x, gate=gate, S=S, out2=y)
+    gemm_any(h, w2, out, N * S, D, Hd,
+             EPI_BIAS_GATED_Y if emit_train else EPI_BIAS_GATED, bias=b2,
+             resid=x, gate=gate, S=S, out2=y)
     fused_mlp_branch.launches += 1
     return (out, h1.reshape(N, S, Hd), y) if emit_train else out
 
@@ -598,16 +774,19 @@ def _temporal_window_cuda(x, shift, scale, gate, qkv_w, out_w, out_b,
     residual, y with emit_train)."""
     N, S, D = x.shape
     d = check_temporal(D, num_heads, T, rope_freqs)
-    _check_attn_weights(qkv_w, out_w, out_b, D)
+    _check_attn_weights(qkv_w, out_w, out_b, D, x.dtype)
     mod = _modulate_cuda(x, shift, scale)
     q, k, v, att = (torch.empty_like(x) for _ in range(4))
-    launch_gemm_rope_qkv(mod, qkv_w, q, k, v, rope_freqs, S, T, 0, d)
+    if x.dtype == torch.float32:
+        launch_gemm_f32_rope_qkv(mod, qkv_w, q, k, v, rope_freqs, S, T, 0, d)
+    else:
+        launch_gemm_rope_qkv(mod, qkv_w, q, k, v, rope_freqs, S, T, 0, d)
     launch_attn_window(q, k, v, att, N // T, T, S, D, num_heads, bits)
     out = torch.empty_like(x)
     y = torch.empty_like(x) if emit_train else None
-    launch_gemm(att, out_w, out, N * S, D, D,
-                EPI_BIAS_GATED_Y if emit_train else EPI_BIAS_GATED,
-                bias=out_b, resid=x, gate=gate, S=S, out2=y)
+    gemm_any(att, out_w, out, N * S, D, D,
+             EPI_BIAS_GATED_Y if emit_train else EPI_BIAS_GATED, bias=out_b,
+             resid=x, gate=gate, S=S, out2=y)
     if emit_train:  # (out, q, k, v, y), as gtax returns them
         res = (out, q, k, v, y)
         return (*res, mod.reshape(N, S, D)) if emit_mod else res
@@ -621,16 +800,20 @@ def _temporal_step_cuda(x, shift, scale, gate, qkv_w, out_w, out_b,
     (rope on load, step mode over the cache) -> gemm (gated residual)."""
     N, S, D = x.shape
     check_temporal(D, num_heads, q_off + n_q, rope_freqs)
-    _check_attn_weights(qkv_w, out_w, out_b, D)
+    _check_attn_weights(qkv_w, out_w, out_b, D, x.dtype)
     mod = _modulate_cuda(x, shift, scale)
     qkv = torch.empty((N * S, 3 * D), dtype=torch.float32, device=x.device)
-    launch_gemm(mod, qkv_w, qkv, N * S, 3 * D, D, EPI_F32)
-    att = torch.empty((N * S, D), dtype=torch.bfloat16, device=x.device)
-    launch_attn_temporal(qkv, rope_freqs, att, B, n_q, q_off, S, D,
-                         num_heads, bits, k_ctx, v_ctx)
+    gemm_any(mod, qkv_w, qkv, N * S, 3 * D, D, EPI_F32)
+    att = torch.empty((N * S, D), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.float32:
+        launch_attn_temporal_f32(qkv, rope_freqs, att, B, n_q, q_off, S, D,
+                                 num_heads, bits, k_ctx, v_ctx)
+    else:
+        launch_attn_temporal(qkv, rope_freqs, att, B, n_q, q_off, S, D,
+                             num_heads, bits, k_ctx, v_ctx)
     out = torch.empty_like(x)
-    launch_gemm(att, out_w, out, N * S, D, D, EPI_BIAS_GATED, bias=out_b,
-                resid=x, gate=gate, S=S)
+    gemm_any(att, out_w, out, N * S, D, D, EPI_BIAS_GATED, bias=out_b,
+             resid=x, gate=gate, S=S)
     return out
 
 
@@ -664,6 +847,7 @@ def fused_temporal_branch(x, shift, scale, gate, qkv_w, out_w, out_b,
                                      out_b, rope_freqs, valid, num_heads,
                                      n_frames, emit_kv, emit_train, emit_mod)
     N, S, D = _check_branch(x, shift, scale, gate)
+    _no_f32_train(x, "fused_temporal_branch", emit_train)
     _need(N % n_frames == 0,
           lambda: f"N={N} is not a multiple of T={n_frames}")
     out = _temporal_window_cuda(x, shift, scale, gate, qkv_w, out_w, out_b,
@@ -704,7 +888,7 @@ def fused_temporal_step(x, shift, scale, gate, qkv_w, out_w, out_b, k_ctx,
     B = N // n_live
     _need(n_ctx >= 1, lambda: "the step needs at least one context frame")
     for name, t in (("k_ctx", k_ctx), ("v_ctx", v_ctx)):
-        _check_mat(name, t, (B * n_ctx * S, D))
+        _check_mat(name, t, (B * n_ctx * S, D), x.dtype)
     out = _temporal_step_cuda(x, shift, scale, gate, qkv_w, out_w, out_b,
                               rope_freqs, num_heads, B, n_live, n_ctx,
                               valid_bits(valid, n_ctx + n_live), k_ctx,

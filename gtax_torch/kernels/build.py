@@ -13,7 +13,8 @@ raises. With an AOT cache in use (`use_cache`, gtax_torch.aot: serving's
 loaded artifact needs no nvcc. `probe_library` builds the two attention
 sources alone with GTAX_PROBE_STOP defined, a copy whose kernels stop
 early so that gtax_torch/tools/attn_sweep.py can time their phases;
-`pair_probe_library` builds pair_q.cu alone with GTAX_PAIR_PROBE defined,
+`pair_probe_library` builds pair_q.cu (and pair_q_exact.cu, which it
+links to) alone with GTAX_PAIR_PROBE defined,
 a copy that stamps the clock at each of its phases for
 gtax_torch/tools/split.py. Nothing else loads either.
 
@@ -57,6 +58,11 @@ SIGNATURES = {
     "gtax_gemm_s8_consts": (_P,),
     # A, B, q, k, v, freqs, M, D, S, n_q, q_off, hd, k_chunk, part, stream
     "gtax_gemm_rope_qkv": (*(_P,) * 6, *(_I,) * 7, _P, _P),
+    # A, B, C, bias, bias_f32, resid, gate, gate_stride, M, N, K, S, epi,
+    # k_chunk, part, stream
+    "gtax_gemm_f32": (_P, _P, _P, _P, _I, _P, _P, *(_I,) * 7, _P, _P),
+    # A, B, q, k, v, freqs, M, D, S, n_q, q_off, hd, k_chunk, part, stream
+    "gtax_gemm_f32_rope_qkv": (*(_P,) * 6, *(_I,) * 7, _P, _P),
     # A, B, C, M, Ka, N, chunk, stream
     "gtax_gemm_wgrad": (_P, _P, _P, _I, _I, _I, _I, _P),
     # N -> the weight-gradient tile's columns, or -error
@@ -83,6 +89,12 @@ SIGNATURES = {
                            _I, _I, _I, _I, _P),
     # q, k, v, out, B, T, S, D, num_heads, valid_mask, stream
     "gtax_attn_temporal_window": (*(_P,) * 4, *(_I,) * 6, _P),
+    "gtax_attn_temporal_window_f32": (*(_P,) * 4, *(_I,) * 6, _P),
+    # qkv, freqs, k_ctx, v_ctx, out, B, n_q, q_off, S, D, num_heads,
+    # valid_mask, stream
+    "gtax_attn_temporal_f32": (*(_P,) * 5, *(_I,) * 7, _P),
+    # qkv, freqs, out, n_frames, S, D, num_heads, rot, stream
+    "gtax_attn_frame_f32": (*(_P,) * 3, *(_I,) * 5, _P),
     # q, k, v, dout, cos, sin, dqkv, ao, n_frames, S, D, num_heads, rot,
     # stream
     "gtax_attn_frame_bwd": (*(_P,) * 8, *(_I,) * 5, _P),
@@ -94,10 +106,10 @@ SIGNATURES = {
     # p2_stride, g2_stride, qkv_q, qkv_s, out_q, out_s, out_b, out_b_f32,
     # w1_q, w1_s, b1, b1_f32, w2_q, w2_s, b2, b2_f32, freqs, k_ctx, v_ctx,
     # out, ws, ws_bytes, M, S, D, Hd, G, num_heads, B, n_live, n_ctx,
-    # valid_mask, kc_qkv, kc_out, kc_fc1, kc_fc2, stream
+    # valid_mask, kc_qkv, kc_out, kc_fc1, kc_fc2, exact_gelu, stream
     "gtax_pair_q": (_I, *(_P,) * 7, *(_I,) * 4, *(_P,) * 5, _I,
                     *(_P,) * 3, _I, *(_P,) * 3, _I, *(_P,) * 5, _L,
-                    *(_I,) * 14, _P),
+                    *(_I,) * 15, _P),
     # temporal, hd, S, D -> the cooperative grid's blocks, or -error
     "gtax_pair_q_blocks": (_I, _I, _I, _I),
     # q, k, v, bias, out, N, S, num_heads, hd, q_ld, k_ld, v_ld, o_ld,
@@ -107,7 +119,7 @@ SIGNATURES = {
 # the sources of the probe copy, and the entry points it binds
 PROBE_SOURCES = ("attn_sdpa.cu", "attn_bwd.cu")
 PROBE_ENTRIES = ("gtax_attn_sdpa", "gtax_attn_frame_bwd")
-PAIR_PROBE_SOURCES = ("pair_q.cu",)
+PAIR_PROBE_SOURCES = ("pair_q.cu", "pair_q_exact.cu")
 PAIR_PROBE_ENTRIES = ("gtax_pair_q", "gtax_pair_q_blocks")
 
 _lib = None

@@ -26,7 +26,8 @@ import functools
 import torch
 
 from gtax_torch.kernels import block, build, quant
-from gtax_torch.kernels.block import _check_branch, _check_mat, _need, _stream
+from gtax_torch.kernels.block import (BF16_ONLY, _check_branch, _check_mat,
+                                      _need, _stream)
 
 # int8 params and at most this many live frames take the pair
 # (gtax/models/dit.py:705; a Hopper gate is for measurement to choose)
@@ -35,22 +36,22 @@ PAIR_MAX_FRAMES = 2
 
 def spatial_pair_q_plain(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
                          out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s, b2,
-                         rope_freqs, num_heads):
+                         rope_freqs, num_heads, approx_gelu=True):
     h = quant.spatial_branch_q_plain(x, sh1, sc1, g1, qkv_q, qkv_s, out_q,
                                      out_s, out_b, rope_freqs, num_heads)
     return quant.mlp_branch_q_plain(h, sh2, sc2, g2, w1_q, w1_s, b1, w2_q,
-                                    w2_s, b2)
+                                    w2_s, b2, approx_gelu)
 
 
 def temporal_pair_q_plain(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s,
                           out_q, out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s,
                           b2, k_ctx, v_ctx, rope_freqs, valid, num_heads,
-                          n_ctx, n_live=1):
+                          n_ctx, n_live=1, approx_gelu=True):
     h = quant.temporal_step_q_plain(x, sh1, sc1, g1, qkv_q, qkv_s, out_q,
                                     out_s, out_b, k_ctx, v_ctx, rope_freqs,
                                     valid, num_heads, n_ctx, n_live)
     return quant.mlp_branch_q_plain(h, sh2, sc2, g2, w1_q, w1_s, b1, w2_q,
-                                    w2_s, b2)
+                                    w2_s, b2, approx_gelu)
 
 
 def _align256(n: int) -> int:
@@ -69,7 +70,7 @@ def workspace_bytes(M: int, D: int, Hd: int, G: int, chunks) -> int:
     second LN's int8 rows and scales, the fp32 GELU output and its int8
     chunks and scales, and the int32 split-K partials of the GEMM that
     needs the most (chunks: the four GEMMs' K chunks), each on a 256-byte
-    boundary (csrc/pair_q.cu workspace_layout)."""
+    boundary (csrc/pair_q.cuh workspace_layout)."""
     part = max([-(-K // c) * M * N * 4
                 for (N, K), c in zip(gemm_shapes(D, Hd), chunks)
                 if -(-K // c) > 1], default=0)
@@ -96,13 +97,9 @@ def gemm_chunks(M: int, D: int, Hd: int, G: int, blocks: int):
 
 
 def _check_pair(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q, out_s,
-                out_b, w1_q, w1_s, b1, w2_q, w2_s, b2, approx_gelu):
-    if not approx_gelu:
-        raise NotImplementedError(
-            "the int8 MLP kernels compute the tanh GELU only (approx_gelu="
-            "True, gtax's default and the DiT's)")
-    N, S, D = _check_branch(x, sh1, sc1, g1)
-    _check_branch(x, sh2, sc2, g2)
+                out_b, w1_q, w1_s, b1, w2_q, w2_s, b2):
+    N, S, D = _check_branch(x, sh1, sc1, g1, BF16_ONLY)
+    _check_branch(x, sh2, sc2, g2, BF16_ONLY)
     for a, b in ((sh1, sc1), (sh2, sc2)):
         _need(a.stride(0) == b.stride(0),
               lambda: "shift and scale must share a row stride")
@@ -127,9 +124,10 @@ def _f32(t):
 def _launch(temporal, x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
             out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s, b2, freqs, k_ctx,
             v_ctx, num_heads, Hd, G, B=0, n_live=0, n_ctx=0, bits=0,
-            lib=None, extra=0):
+            lib=None, extra=0, approx_gelu=True):
     """One launch (of `lib`, else the library) with `extra` bytes past the
-    workspace's buffers; returns (out, workspace)."""
+    workspace's buffers; fc1's GELU the tanh form (approx_gelu) or the exact
+    one; returns (out, workspace)."""
     N, S, D = x.shape
     M = N * S
     blocks = (lib or build.library()).gtax_pair_q_blocks(
@@ -151,7 +149,7 @@ def _launch(temporal, x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
         None if k_ctx is None else k_ctx.data_ptr(),
         None if v_ctx is None else v_ctx.data_ptr(), out.data_ptr(),
         ws.data_ptr(), size, M, S, D, Hd, G, num_heads, B, n_live, n_ctx,
-        bits, *chunks, _stream(x), lib=lib)
+        bits, *chunks, int(not approx_gelu), _stream(x), lib=lib)
     return out, ws
 
 
@@ -160,7 +158,8 @@ def fused_spatial_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
                          rope_freqs, num_heads, approx_gelu=True):
     """Spatial attention branch + spatial MLP branch as ONE kernel call:
     equals quant.fused_spatial_branch_q followed by quant.fused_mlp_branch_q
-    (arguments as theirs, the branch vectors (N, D) of both halves first).
+    (arguments as theirs, the branch vectors (N, D) of both halves first;
+    approx_gelu: the MLP's GELU, as fused_mlp_branch_q's).
 
     Replaces gtax/kernels/pair.py fused_spatial_pair_q (pallas_call at :227,
     body _spatial_pair_kernel_q :114). On the card: one cooperative launch
@@ -168,20 +167,18 @@ def fused_spatial_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
     block.forward_only("fused_spatial_pair_q", x, sh1, sc1, g1, sh2, sc2,
                        g2, out_b, b1, b2)
     if x.device.type == "cpu":
-        if not approx_gelu:
-            raise NotImplementedError("approx_gelu=False: tanh GELU only")
         return spatial_pair_q_plain(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q,
                                     qkv_s, out_q, out_s, out_b, w1_q, w1_s,
                                     b1, w2_q, w2_s, b2, rope_freqs,
-                                    num_heads)
+                                    num_heads, approx_gelu)
     N, S, D, Hd, G = _check_pair(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s,
                                  out_q, out_s, out_b, w1_q, w1_s, b1, w2_q,
-                                 w2_s, b2, approx_gelu)
+                                 w2_s, b2)
     d = block._check_heads(D, num_heads, (32, 64))
     block._check_freqs(rope_freqs, S, d)
     out = _launch(False, x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
                   out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s, b2, rope_freqs,
-                  None, None, num_heads, Hd, G)[0]
+                  None, None, num_heads, Hd, G, approx_gelu=approx_gelu)[0]
     fused_spatial_pair_q.launches += 1
     return out
 
@@ -194,7 +191,8 @@ def fused_temporal_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s,
                           b2, k_ctx, v_ctx, rope_freqs, valid, num_heads,
                           n_ctx, n_live=1, approx_gelu=True):
     """Incremental temporal step + temporal MLP branch as ONE kernel call:
-    equals quant.fused_temporal_step_q followed by quant.fused_mlp_branch_q.
+    equals quant.fused_temporal_step_q followed by quant.fused_mlp_branch_q
+    (approx_gelu: the MLP's GELU, as fused_mlp_branch_q's).
     x: (B * n_live, S, D), the live frames at window slots n_ctx ..
     n_ctx + n_live - 1; k_ctx/v_ctx: (B * n_ctx * S, D) post-rope cache;
     rope_freqs: (n_ctx + n_live, head_dim); valid: (T,) or None.
@@ -206,16 +204,14 @@ def fused_temporal_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s,
     block.forward_only("fused_temporal_pair_q", x, sh1, sc1, g1, sh2, sc2,
                        g2, out_b, b1, b2, k_ctx, v_ctx)
     if x.device.type == "cpu":
-        if not approx_gelu:
-            raise NotImplementedError("approx_gelu=False: tanh GELU only")
         return temporal_pair_q_plain(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q,
                                      qkv_s, out_q, out_s, out_b, w1_q, w1_s,
                                      b1, w2_q, w2_s, b2, k_ctx, v_ctx,
                                      rope_freqs, valid, num_heads, n_ctx,
-                                     n_live)
+                                     n_live, approx_gelu)
     N, S, D, Hd, G = _check_pair(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s,
                                  out_q, out_s, out_b, w1_q, w1_s, b1, w2_q,
-                                 w2_s, b2, approx_gelu)
+                                 w2_s, b2)
     _need(N % n_live == 0,
           lambda: f"N={N} is not a multiple of n_live={n_live}")
     B = N // n_live
@@ -228,7 +224,7 @@ def fused_temporal_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s,
     out = _launch(True, x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
                   out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s, b2, rope_freqs,
                   k_ctx, v_ctx, num_heads, Hd, G, B, n_live, n_ctx,
-                  block.valid_bits(valid, T))[0]
+                  block.valid_bits(valid, T), approx_gelu=approx_gelu)[0]
     fused_temporal_pair_q.launches += 1
     return out
 

@@ -42,6 +42,7 @@ import torch
 from gtax_torch.core.rope import apply_rotary_emb as rope
 from gtax_torch.kernels import block, build
 from gtax_torch.kernels.block import (
+    BF16_ONLY,
     _check_bias,
     _check_branch,
     _check_freqs,
@@ -52,7 +53,8 @@ from gtax_torch.kernels.block import (
     _stream,
     attend_frames,
     attend_temporal,
-    gelu_tanh32,
+    gelu32,
+    gelu_tanh32,  # noqa: F401  (quant.gelu_tanh32, as before)
     modulated32,
     temporal_bias,
     valid_bits,
@@ -65,6 +67,7 @@ LN_MOD_INT8 = 2  # csrc/ln_mod.cu mode
 EPI_F32 = 0
 EPI_BIAS_GELU_F32 = 1
 EPI_BIAS_GATED = 2
+EPI_BIAS_GELU_ERF_F32 = 3  # epilogue 1 with the exact GELU
 
 # int8 products summed in fp32 are exact while every partial sum stays an
 # integer below 2**24: at most 1040 terms of 127 * 127
@@ -163,13 +166,13 @@ def spatial_branch_q_plain(x, shift, scale, gate, qkv_q, qkv_s, out_q,
 
 
 def mlp_branch_q_plain(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
-                       b2, emit_train=False):
+                       b2, approx_gelu=True, emit_train=False):
     x32 = x.float()
     Hd = w1_q.shape[-1]
     nc = _mlp_chunks(Hd)
     G = Hd // nc
     h = qdot(modulated32(x32, shift, scale), w1_q, w1_s) + b1.float()
-    hq, hs = quant_rows(gelu_tanh32(h), G)
+    hq, hs = quant_rows(gelu32(approx_gelu)(h), G)
     acc = torch.zeros_like(x32)
     for c in range(nc):  # chunk order, as the TPU kernel's grid
         cols = slice(c * G, (c + 1) * G)
@@ -324,7 +327,7 @@ def _gemm_s8(a, sa, w_q, w_s, out, epi, bias=None, resid=None, gate=None,
     """out = epilogue(dequant(a @ w_q)); sa (M, K // group) row-group
     scales, the group width following from sa's shape; w_q in card_layout;
     k_chunk: the split-K chunk, s8_chunk's by default; out2: the bf16
-    y + bias of EPI_BIAS_GELU_F32 / EPI_BIAS_GATED (emit_train)."""
+    y + bias of the GELU epilogues / EPI_BIAS_GATED (emit_train)."""
     M, K = a.shape
     N = w_q.shape[1]
     group = K // sa.shape[1]
@@ -396,7 +399,7 @@ def fused_spatial_branch_q(x, shift, scale, gate, qkv_q, qkv_s, out_q,
         return spatial_branch_q_plain(x, shift, scale, gate, qkv_q, qkv_s,
                                       out_q, out_s, out_b, rope_freqs,
                                       num_heads, emit_train)
-    N, S, D = _check_branch(x, shift, scale, gate)
+    N, S, D = _check_branch(x, shift, scale, gate, BF16_ONLY)
     _check_attn_weights_q(qkv_q, qkv_s, out_q, out_s, out_b, D)
     d = _check_heads(D, num_heads, (32, 64))
     _check_freqs(rope_freqs, S, d)
@@ -414,16 +417,18 @@ fused_spatial_branch_q.launches = 0
 
 
 def fused_mlp_branch_q(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
-                       b2, emit_train=False):
+                       b2, approx_gelu=True, emit_train=False):
     """int8 twin of block.fused_mlp_branch: w1_q (D, H), w2_q (H, D) int8
-    with per-column fp32 scales; tanh-GELU; the hidden activation
+    with per-column fp32 scales; the tanh GELU (approx_gelu) or the exact
+    one, on fp32 h = acc * s_row * s_col + b1 before the requantization
+    (gtax/kernels/quant.py:322); the hidden activation
     requantized per H-chunk (_mlp_chunks). With emit_train, (out, h1
     (N, S, H), y (N, S, D)) in x's dtype: the pre-GELU fc1 output and the
     pre-gate y.
 
     Replaces gtax/kernels/quant.py fused_mlp_branch_q (pallas_call at :530,
     body _mlp_kernel_q :267). On the card: ln_mod (int8) -> gemm_s8 (+b1,
-    tanh-GELU, fp32; with emit_train also the bf16 h1 before the GELU) ->
+    GELU, fp32; with emit_train also the bf16 h1 before the GELU) ->
     quant_rows (one scale per row and chunk) -> gemm_s8 (K grouped by
     chunk, +b2, gated residual; with emit_train also the bf16 y): 4
     launches. Bound: the 8 MB of int8 fc1/fc2 weights at serving row
@@ -431,8 +436,8 @@ def fused_mlp_branch_q(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
     block.forward_only("fused_mlp_branch_q", x, shift, scale, gate, b1, b2)
     if x.device.type == "cpu":
         return mlp_branch_q_plain(x, shift, scale, gate, w1_q, w1_s, b1,
-                                  w2_q, w2_s, b2, emit_train)
-    N, S, D = _check_branch(x, shift, scale, gate)
+                                  w2_q, w2_s, b2, approx_gelu, emit_train)
+    N, S, D = _check_branch(x, shift, scale, gate, BF16_ONLY)
     Hd = w1_q.shape[-1]
     _check_hidden(Hd)
     _check_qlinear("w1", w1_q, w1_s, D, Hd)
@@ -443,7 +448,9 @@ def fused_mlp_branch_q(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
     h = torch.empty((N * S, Hd), dtype=F32, device=x.device)
     h1 = (torch.empty((N, S, Hd), dtype=x.dtype, device=x.device)
           if emit_train else None)
-    _gemm_s8(mq, ms, w1_q, w1_s, h, EPI_BIAS_GELU_F32, bias=b1, out2=h1)
+    _gemm_s8(mq, ms, w1_q, w1_s, h,
+             EPI_BIAS_GELU_F32 if approx_gelu else EPI_BIAS_GELU_ERF_F32,
+             bias=b1, out2=h1)
     hq, hs = _quant_rows_cuda(h, Hd // _mlp_chunks(Hd))
     out = torch.empty_like(x)
     y = torch.empty_like(x) if emit_train else None
@@ -500,7 +507,7 @@ def fused_temporal_branch_q(x, shift, scale, gate, qkv_q, qkv_s, out_q,
                                        out_q, out_s, out_b, rope_freqs,
                                        valid, num_heads, n_frames, emit_kv,
                                        emit_train)
-    N, S, D = _check_branch(x, shift, scale, gate)
+    N, S, D = _check_branch(x, shift, scale, gate, BF16_ONLY)
     _need(N % n_frames == 0,
           lambda: f"N={N} is not a multiple of T={n_frames}")
     out = _temporal_q_cuda(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
@@ -533,7 +540,7 @@ def fused_temporal_step_q(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
                                      out_q, out_s, out_b, k_ctx, v_ctx,
                                      rope_freqs, valid, num_heads, n_ctx,
                                      n_live)
-    N, S, D = _check_branch(x, shift, scale, gate)
+    N, S, D = _check_branch(x, shift, scale, gate, BF16_ONLY)
     _need(N % n_live == 0,
           lambda: f"N={N} is not a multiple of n_live={n_live}")
     B = N // n_live

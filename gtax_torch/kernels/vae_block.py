@@ -10,7 +10,10 @@ is cast to the compute dtype BEFORE the partial rope, which runs in fp32 on
 the first `rot` dims of each head; each head's attention output is cast;
 both residual adds happen in the compute dtype; fc1 + bias is cast before
 the GELU and after it. The TPU kernel approximated erf (A-S 7.1.26, abs err
-<= 1.5e-7); the card uses erff and the plain version torch.erf.
+<= 1.5e-7); the card uses erff and the plain version torch.erf. In fp32
+(x fp32, the GEMM weights fp32) every cast is the identity and the card
+runs the fp32 forms: ln_mod's fp32 affine mode, gemm_f32 (fp32 FFMA, no
+TF32) and attn_frame_f32.
 """
 
 from __future__ import annotations
@@ -23,7 +26,9 @@ from gtax_torch.kernels.block import (
     EPI_BIAS_BF16,
     EPI_BIAS_BF16_GELU,
     EPI_BIAS_BF16_RESID,
+    LN_AFFINE,
     attend_frames,
+    gemm_any,
     ln32,
     mm32,
 )
@@ -62,20 +67,21 @@ def fused_vae_block(x, ln1_w, ln1_b, qkv_w, qkv_b, out_w, out_b, ln2_w,
     gemm (+bias, bf16) -> attn_frame (bf16 qkv, partial rope on load,
     tensor-core QK^T and PV) -> gemm (+bias, bf16, +x) -> ln_mod -> gemm
     (+bias, bf16, erf-GELU) -> gemm (+bias, bf16, +x): 7 launches, the
-    GEMMs on the Hopper kernel (csrc/gemm_sm90.cuh). Bound: tensor-core
-    rate at the serving frame counts (a 576-row frame is past the bf16
-    ridge for its 25 MB of weights); PERF.md has the time of each
-    launch."""
+    GEMMs on the Hopper kernel (csrc/gemm_sm90.cuh); in fp32 the same 7 on
+    the fp32 forms (gemm_f32, attn_frame_f32 walking the keys in tiles).
+    Bound: tensor-core rate at the serving frame counts (a 576-row frame
+    is past the bf16 ridge for its 25 MB of weights; fp32: the CUDA
+    cores' rate); PERF.md has the time of each launch."""
     _blk.forward_only("fused_vae_block", x, ln1_w, ln1_b, qkv_w, qkv_b,
                       out_w, out_b, ln2_w, ln2_b, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return vae_block_plain(x, ln1_w, ln1_b, qkv_w, qkv_b, out_w, out_b,
                                ln2_w, ln2_b, w1, b1, w2, b2, rope_freqs,
                                num_heads)
-    _blk._need(x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 3
+    _blk._need(x.is_cuda and x.dtype in _blk.KERNEL_DTYPES and x.dim() == 3
                and x.is_contiguous(),
-               lambda: f"x must be a contiguous CUDA bf16 (N, S, D) tensor, "
-                       f"got {_blk._desc(x)}")
+               lambda: f"x must be a contiguous CUDA bf16 or fp32 (N, S, D) "
+                       f"tensor, got {_blk._desc(x)}")
     N, S, D = x.shape
     Hd = w1.shape[-1]
     rot = rope_freqs.shape[-1]
@@ -87,30 +93,34 @@ def fused_vae_block(x, ln1_w, ln1_b, qkv_w, qkv_b, out_w, out_b, ln2_w,
     for name, t in (("ln1_w", ln1_w), ("ln1_b", ln1_b), ("ln2_w", ln2_w),
                     ("ln2_b", ln2_b)):
         _blk._check_mat(name, t, (D,), torch.float32)
-    _blk._check_mat("qkv_w", qkv_w, (D, 3 * D))
-    _blk._check_mat("out_w", out_w, (D, D))
-    _blk._check_mat("w1", w1, (D, Hd))
-    _blk._check_mat("w2", w2, (Hd, D))
+    dt = x.dtype
+    _blk._check_mat("qkv_w", qkv_w, (D, 3 * D), dt)
+    _blk._check_mat("out_w", out_w, (D, D), dt)
+    _blk._check_mat("w1", w1, (D, Hd), dt)
+    _blk._check_mat("w2", w2, (Hd, D), dt)
     for name, t, n in (("qkv_b", qkv_b, 3 * D), ("out_b", out_b, D),
                        ("b1", b1, Hd), ("b2", b2, D)):
         _blk._check_bias(name, t, n)
     _blk._check_freqs(rope_freqs, S, rot)
-    M, dev, bf = N * S, x.device, torch.bfloat16
-    h = torch.empty((M, D), dtype=bf, device=dev)
-    _blk.launch_ln_mod(x, h, M, D, S, 1, ln1_w, ln1_b)
-    qkv = torch.empty((M, 3 * D), dtype=bf, device=dev)
-    _blk.launch_gemm(h, qkv_w, qkv, M, 3 * D, D, EPI_BIAS_BF16, bias=qkv_b)
-    att = torch.empty((M, D), dtype=bf, device=dev)
-    _blk.launch_attn_frame(qkv, rope_freqs, att, N, S, D, num_heads, rot)
+    M, dev = N * S, x.device
+    h = torch.empty((M, D), dtype=dt, device=dev)
+    _blk.launch_ln_mod(x, h, M, D, S, LN_AFFINE, ln1_w, ln1_b)
+    qkv = torch.empty((M, 3 * D), dtype=dt, device=dev)
+    gemm_any(h, qkv_w, qkv, M, 3 * D, D, EPI_BIAS_BF16, bias=qkv_b)
+    att = torch.empty((M, D), dtype=dt, device=dev)
+    if dt == torch.float32:
+        _blk.launch_attn_frame_f32(qkv, rope_freqs, att, N, S, D, num_heads,
+                                   rot)
+    else:
+        _blk.launch_attn_frame(qkv, rope_freqs, att, N, S, D, num_heads, rot)
     xm = torch.empty_like(x)
-    _blk.launch_gemm(att, out_w, xm, M, D, D, EPI_BIAS_BF16_RESID,
-                     bias=out_b, resid=x)
-    _blk.launch_ln_mod(xm, h, M, D, S, 1, ln2_w, ln2_b)
-    hh = torch.empty((M, Hd), dtype=bf, device=dev)
-    _blk.launch_gemm(h, w1, hh, M, Hd, D, EPI_BIAS_BF16_GELU, bias=b1)
+    gemm_any(att, out_w, xm, M, D, D, EPI_BIAS_BF16_RESID, bias=out_b,
+             resid=x)
+    _blk.launch_ln_mod(xm, h, M, D, S, LN_AFFINE, ln2_w, ln2_b)
+    hh = torch.empty((M, Hd), dtype=dt, device=dev)
+    gemm_any(h, w1, hh, M, Hd, D, EPI_BIAS_BF16_GELU, bias=b1)
     out = torch.empty_like(x)
-    _blk.launch_gemm(hh, w2, out, M, D, Hd, EPI_BIAS_BF16_RESID, bias=b2,
-                     resid=xm)
+    gemm_any(hh, w2, out, M, D, Hd, EPI_BIAS_BF16_RESID, bias=b2, resid=xm)
     fused_vae_block.launches += 1
     return out
 

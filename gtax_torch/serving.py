@@ -11,6 +11,12 @@ Defaults reproduce the reference sampling scheme exactly (stabilization 15,
 window 5, DDIM over noise_steps + 1) on the fused kernels with the
 conditioning cache and incremental decoding on. The generator runs on the
 card (`cuda`, in bf16) unless the caller passes device="cpu".
+dtype="float32" serves in fp32 as gtax does (the params are not cast):
+on the card the fused kernels' fp32 forms under `fused` and `fused_all`
+(fp32 FFMA GEMMs, no TF32), torch's fp32 products under `xla` and
+`fused_mlp`. On the card fp32 with quantize="int8" and fp32 under
+`pallas` raise NotImplementedError (ROADMAP.md A10): their kernels
+take bf16 only.
 
 quantize="int8" serves W8A8 params (quantize_for_inference, after the
 cast) through the int8 kernels of gtax_torch.kernels.quant and, at one or
@@ -113,7 +119,8 @@ class ServingConfig:
     vae_model: str = "vit-l-20-shallow-encoder"
 
 
-def _check_slice(cfg: ServingConfig) -> None:
+def _check_slice(cfg: ServingConfig, device_type: str = "cpu") -> None:
+    """Refuse what the port does not serve, or not on `device_type`."""
     if cfg.quantize not in ("none", "int8"):
         raise NotImplementedError(
             f"ServingConfig.quantize={cfg.quantize!r} is not ported (only "
@@ -133,6 +140,17 @@ def _check_slice(cfg: ServingConfig) -> None:
     if cfg.dtype not in ("bfloat16", "float32"):
         raise ValueError(f"dtype must be bfloat16 or float32, got "
                          f"{cfg.dtype!r}")
+    if device_type == "cuda" and cfg.dtype == "float32":
+        # the CPU runs both in fp32 through the plain versions
+        if cfg.quantize == "int8":
+            raise NotImplementedError(
+                "float32 with quantize='int8' on the card: the W8A8 kernels "
+                "take bf16 activations and a bf16 K/V cache only "
+                "(ROADMAP.md A10)")
+        if cfg.attention_backend == "pallas":
+            raise NotImplementedError(
+                "float32 under the 'pallas' backend on the card: its "
+                "attention kernels take bf16 only (ROADMAP.md A10)")
 
 
 def _to(a, device) -> torch.Tensor:
@@ -183,20 +201,16 @@ class VideoGenerator:
 
     def __init__(self, dit_params, vae_params, cfg: ServingConfig =
                  ServingConfig(), device=None):
-        _check_slice(cfg)
-        self.cfg = cfg
         self.device = resolve_device(device)
+        _check_slice(cfg, self.device.type)
+        self.cfg = cfg
         self.dit_cfg = dit_mod.DiT_MODELS[cfg.dit_model]()
         self.vae_cfg = vae_mod.VAE_MODELS[cfg.vae_model]()
         dtype = getattr(torch, cfg.dtype)
-        if self.device.type == "cuda" and dtype != torch.bfloat16:
-            raise NotImplementedError(
-                "the CUDA kernels compute in bfloat16; float32 runs only on "
-                "device='cpu'")
         self._dtype = dtype
         dit_params = dit_mod.params_to(dit_params, self.device)
         vae_params = dit_mod.params_to(vae_params, self.device)
-        if dtype != torch.float32:
+        if dtype != torch.float32:  # fp32 serves the params as they are
             dit_params = dit_mod.cast_params_for_inference(dit_params, dtype)
             vae_params = vae_mod.cast_params_for_inference(vae_params, dtype)
         dit_params = (dit_mod.unstack_for_inference(dit_params, self.dit_cfg)

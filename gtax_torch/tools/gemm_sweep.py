@@ -9,10 +9,15 @@ fits on the card, and on the tiled path,
 beside cuBLAS, the plan's (`block.gemm_chunk`) marked; or, with --int8,
 the four int8 products (fc2 in K groups of 512) at 144 and 288 rows at
 every K chunk the tile takes, beside one `torch._int_mm` of the whole
-product on a column-major weight, the plan's (`quant.s8_chunk`) marked.
+product on a column-major weight, the plan's (`quant.s8_chunk`) marked;
+or, with --f32, the fp32 GEMM (`block.launch_gemm_f32`, fp32 FFMA) at the
+four serving products at 144, 288, 576 and 720 rows and the VAE's at
+2,304 and 3,456 rows, at every K chunk it takes (1-8 chunks of whole
+16-deep steps), beside one cuBLAS SGEMM of the same product (no TF32:
+strict_matmul), the plan's (`block.f32_plan`) marked.
 
     python -m gtax_torch.tools.gemm_sweep [--wgrad-splits | --small |
-                                           --int8] [--out FILE]
+                                           --int8 | --f32] [--out FILE]
 
 It uses only `launch_gemm`'s arguments that every version of the port has,
 so it can time another checkout's kernel as well: put that checkout first
@@ -212,6 +217,45 @@ def int8_sweep():
     return rows
 
 
+def f32_sweep():
+    from gtax_torch.kernels import block
+
+    gen = np.random.default_rng(13)
+    rows = []
+    shapes = [(N, K, what, M) for N, K, _, what in SERVING
+              for M in (144, 288, 576, 720)]
+    shapes += [(N, K, "VAE " + what, M) for N, K, _, what in SERVING
+               for M in (2304, 3456)]
+    for N, K, what, M in shapes:
+        w = torch.from_numpy(gen.standard_normal((K, N)).astype(
+            np.float32) * 0.02).cuda()
+        a = torch.from_numpy(gen.standard_normal((M, K)).astype(
+            np.float32)).cuda()
+        out = torch.empty((M, N), dtype=torch.float32, device="cuda")
+        plan = block.f32_plan(M, N, K, a.device)
+        lib = median_ms(lambda: torch.matmul(a, w))
+        ref = torch.matmul(a, w)
+        step = block.F32_K_STEP
+        for splits in range(1, block.F32_MAX_SPLITS + 1):
+            if K % (splits * step):
+                continue
+            chunk = K // splits
+            ms = median_ms(lambda: block.launch_gemm_f32(
+                a, w, out, M, N, K, block.EPI_F32, k_chunk=chunk))
+            err = float((out - ref).abs().max() / ref.abs().max())
+            mark = "  <- plan" if chunk == plan else ""
+            tflops = 2 * M * N * K / ms / 1e9
+            print(f"[f32] {what:8s} M={M} N={N} K={K} {splits} chunks of "
+                  f"{chunk}: {ms:.4f} ms ({tflops:.1f} TFLOP/s), cuBLAS "
+                  f"SGEMM {lib:.4f} ms, max|diff| / max|ref| {err:.3g}{mark}",
+                  flush=True)
+            rows.append({"what": what, "M": M, "N": N, "K": K,
+                         "k_chunk": chunk, "splits": splits, "ms": ms,
+                         "tflops": tflops, "library_ms": lib,
+                         "rel_err": err, "plan": chunk == plan})
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -221,6 +265,8 @@ def main():
                       help="time the small-M path's K chunks instead")
     mode.add_argument("--int8", action="store_true",
                       help="time the int8 products' K chunks instead")
+    mode.add_argument("--f32", action="store_true",
+                      help="time the fp32 GEMM's K chunks instead")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -234,7 +280,8 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     run = (wgrad_splits if args.wgrad_splits else small_sweep if args.small
-           else int8_sweep if args.int8 else sweep)
+           else int8_sweep if args.int8 else f32_sweep if args.f32
+           else sweep)
     result = {"card": card, "rows": run()}
     if args.out:
         with open(args.out, "w") as f:

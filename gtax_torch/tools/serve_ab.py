@@ -3,8 +3,9 @@ bf16 step branches (`fused_spatial_branch`, `fused_mlp_branch`,
 `fused_temporal_step`), the bf16 prefill's `fused_temporal_branch` (and its
 emit_train mode at B=4, T=5, the training step's window), and the int8
 wrappers and pairs
-(`gtax_torch.kernels.quant`, `gtax_torch.kernels.pair`), on fixed seeded
-inputs.
+(`gtax_torch.kernels.quant`, `gtax_torch.kernels.pair`; `fused_mlp_branch_q`
+also in its emit_train mode at the B=16 training step's 11,520 rows), on
+fixed seeded inputs.
 
     PYTHONPATH=<checkout> python <this file> --save FILE   # outputs
     python <this file> --compare FILE_A FILE_B             # bits
@@ -110,6 +111,17 @@ def cases():
     out[f"temporal_branch emit_train B={B} T={T}"] = (
         lambda *a: block.fused_temporal_branch(*a, emit_train=True),
         (xt, mt[:, :D], mt[:, D:2 * D], mt[:, 2 * D:], *ba, tf, valid, H, T))
+    gen = np.random.default_rng(711)
+    N = 80  # int8-forward training: B=16 x T=5 frames, (out, h1, y)
+    xt = _rand(gen, (N, S, D))
+    mt = _rand(gen, (N, 3 * D), 0.5)
+    wm = (*quant.quantize_weight(_rand(gen, (D, 4 * D), 0.02)),
+          _rand(gen, (4 * D,), 0.02),
+          *quant.quantize_weight(_rand(gen, (4 * D, D), 0.02)),
+          _rand(gen, (D,), 0.02))
+    out[f"mlp_branch_q emit_train N={N}"] = (
+        lambda *a: quant.fused_mlp_branch_q(*a, emit_train=True),
+        (xt, mt[:, :D], mt[:, D:2 * D], mt[:, 2 * D:], *wm))
     return out
 
 

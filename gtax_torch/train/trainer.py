@@ -141,6 +141,17 @@ def check_slice(config: TrainingConfig) -> None:
         meshlib.world_size())
 
 
+def check_compute_dtype(dtype, device_type: str) -> None:
+    """Training computes in bf16 on the card: the training kernels (the
+    emit_train forwards of #1-#3, the backwards #12-#14) take bf16 only.
+    fp32 trains on the CPU, through the plain versions."""
+    if device_type == "cuda" and dtype != torch.bfloat16:
+        raise NotImplementedError(
+            "compute_dtype float32 on the card: the training kernels take "
+            "bf16 only (ROADMAP.md A11, fp32 training); fp32 trains on "
+            "device='cpu'")
+
+
 class Trainer:
     """Diffusion-forcing DiT training with a frozen VAE (gtax Trainer): AdamW
     with warmup and cosine decay to min_lr, gradient accumulation, evals,
@@ -169,10 +180,7 @@ class Trainer:
         self.is_main = meshlib.process_index() == 0
         self.device = resolve_device(device)
         self.compute_dtype = getattr(torch, config.compute_dtype)
-        if self.device.type == "cuda" and self.compute_dtype != torch.bfloat16:
-            raise NotImplementedError(
-                "the CUDA kernels compute in bfloat16; float32 runs only on "
-                "device='cpu'")
+        check_compute_dtype(self.compute_dtype, self.device.type)
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.seed)
 

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from gtax_torch.core import rope
-from gtax_torch.kernels import block, quant, vae_block
+from gtax_torch.kernels import block, build, quant, vae_block
 
 D, H, HD = 1024, 16, 64
 S_DIT, S_VAE = 144, 576
@@ -1361,3 +1361,311 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
             assert torch.equal(v, want[1][name][k]), (name, k)
     assert all(m.dtype == torch.bfloat16 for m in opt.mu)
     assert torch.equal(torch.randn(1000, generator=g, device="cuda"), draw)
+
+
+# ---------------------------------------------- fp32 forms (#1-#5)
+#
+# The fp32 branches against their plain versions in fp32 on the card
+# (torch.matmul under strict_matmul: full fp32, no TF32). Both sides
+# compute every value in fp32 and differ only in summation order and in
+# the last bits of expf / sincosf / erfc: 1e-4 of the plain output's
+# largest magnitude.
+
+F32_TOL = 1e-4
+
+
+def _close32(got, ref):
+    assert got.dtype == ref.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs().max().item()
+    tol = F32_TOL * ref.abs().max().item()
+    assert err <= tol, (err, tol)
+    return err
+
+
+def _f32_case(kind, gen):
+    """(wrapper, plain, args, kwargs) of one fp32 branch at the main-path
+    shape: the step (1 frame), the prefill (4 frames) or the VAE (2
+    frames)."""
+    f32 = torch.float32
+
+    def r(shape, std=1.0):
+        return _rand(gen, shape, std, f32)
+
+    if kind == "vae":
+        ones = torch.ones(D, device="cuda")
+        ln = [ones + r((D,), 0.1), r((D,), 0.1)] * 2
+        f = rope.axial_freqs(rope.pixel_freqs(HD // 4, 576.0), (18, 32),
+                             pixel=True).reshape(S_VAE, HD // 2).cuda()
+        args = (r((2, S_VAE, D)), ln[0], ln[1], r((D, 3 * D), 0.03),
+                r((3 * D,), 0.02), r((D, D), 0.03), r((D,), 0.02), ln[2],
+                ln[3], r((D, 4 * D), 0.03), r((4 * D,), 0.02),
+                r((4 * D, D), 0.02), r((D,), 0.02), f, H)
+        return vae_block.fused_vae_block, vae_block.vae_block_plain, args, {}
+    N = {"temporal": 4, "step": 2}.get(kind, 1)
+    x = r((N, S_DIT, D))
+    mods = r((N, 6 * D), 0.5)
+    head = (x, mods[:, :D], mods[:, D:2 * D], mods[:, 2 * D:3 * D])
+    if kind.startswith("mlp"):
+        args = (*head, r((D, 4 * D), 0.02), r((4 * D,), 0.02),
+                r((4 * D, D), 0.02), r((D,), 0.02))
+        kw = {"approx_gelu": kind == "mlp_tanh"}
+        return block.fused_mlp_branch, block.mlp_branch_plain, args, kw
+    attn = (r((D, 3 * D), 0.02), r((D, D), 0.02), r((D,), 0.02))
+    if kind == "spatial":
+        return (block.fused_spatial_branch, block.spatial_branch_plain,
+                (*head, *attn, _spatial_freqs(), H), {})
+    if kind == "temporal":
+        return (block.fused_temporal_branch, block.temporal_branch_plain,
+                (*head, *attn, _temporal_freqs(4), [False, True, True, True],
+                 H, 4), {"emit_kv": True})
+    B, n_live, n_ctx = 1, N, 4 - N + 1  # a P=2 step: two live frames
+    kc, vc = r((B * n_ctx * S_DIT, D)), r((B * n_ctx * S_DIT, D))
+    T = n_ctx + n_live
+    return (block.fused_temporal_step, block.temporal_step_plain,
+            (*head, *attn, kc, vc, _temporal_freqs(T),
+             [False] + [True] * (T - 1), H, n_ctx), {"n_live": n_live})
+
+
+@pytest.mark.parametrize("kind", ["spatial", "mlp_tanh", "mlp_erf",
+                                  "temporal", "step", "vae"])
+def test_fp32_branch_kernels(cuda, kind):
+    """Each fp32 branch (#1-#5) launches its kernels once and agrees with
+    its plain version within F32_TOL; two calls give the same bits (no
+    split K, no atomics)."""
+    gen = np.random.default_rng({"spatial": 300, "mlp_tanh": 301,
+                                 "mlp_erf": 302, "temporal": 303,
+                                 "step": 304, "vae": 305}[kind])
+    fn, plain, args, kw = _f32_case(kind, gen)
+    before = fn.launches
+    got = fn(*args, **kw)
+    again = fn(*args, **kw)
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    got = got if isinstance(got, tuple) else (got,)
+    again = again if isinstance(again, tuple) else (again,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for a, b, c in zip(got, ref, again):
+        _close32(a, b)
+        assert torch.equal(a, c)
+
+
+EPILOGUES_F32 = [block.EPI_F32, block.EPI_BIAS_BF16, block.EPI_BIAS_GELU_TANH,
+                 block.EPI_BIAS_GELU_ERF, block.EPI_BIAS_BF16_GELU,
+                 block.EPI_BIAS_GATED, block.EPI_BIAS_BF16_RESID]
+
+
+@pytest.mark.parametrize("M", [144, 576, 3472])
+@pytest.mark.parametrize("epi", EPILOGUES_F32)
+def test_gemm_f32_epilogues(cuda, epi, M):
+    """gemm_f32 against the fp32 product (torch.matmul, no TF32) through
+    each epilogue stored unrounded, at a step's 144 rows, a prefill's 576
+    (64x64 tiles, K split) and 3,456 + 16 (128x128 tiles, ragged); N of
+    1,000 and 3,000 leave a tile's columns ragged."""
+    from gtax_torch.kernels.vae_block import gelu_erf32
+
+    gen = np.random.default_rng(310 + epi + M)
+    S, K, N = 144, 1024, 3000 if M > 3000 else 1000
+    f32 = torch.float32
+    a, w = _rand(gen, (M, K), 1.0, f32), _rand(gen, (K, N), 0.03, f32)
+    bias = _rand(gen, (N,), 0.1, f32)
+    x = _rand(gen, (M, N), 1.0, f32)
+    gate = _rand(gen, (-(-M // S), 2 * N), 0.5, f32)[:, :N]
+    u = block.mm32(a, w) + bias
+    ref = {block.EPI_F32: u - bias, block.EPI_BIAS_BF16: u,
+           block.EPI_BIAS_GELU_TANH: block.gelu_tanh32(u),
+           block.EPI_BIAS_GELU_ERF: block.gelu_exact32(u),
+           block.EPI_BIAS_BF16_GELU: gelu_erf32(u),
+           block.EPI_BIAS_GATED:
+               x + gate.repeat_interleave(S, 0)[:M] * u,
+           block.EPI_BIAS_BF16_RESID: x + u}[epi]
+    out = torch.empty((M, N), dtype=f32, device="cuda")
+    block.launch_gemm_f32(a, w, out, M, N, K, epi, bias=bias, resid=x,
+                          gate=gate, S=S)
+    torch.cuda.synchronize()
+    _close32(out, ref)
+    # the plan splits K but on the VAE's 128x128 tiles; unsplit and split
+    # agree, and each is bit-stable
+    chunk = block.f32_plan(M, N, K, a.device)
+    assert (chunk < K) == (M < 3000), chunk
+    one = torch.empty_like(out)
+    block.launch_gemm_f32(a, w, one, M, N, K, epi, bias=bias, resid=x,
+                          gate=gate, S=S, k_chunk=K)
+    again = torch.empty_like(out)
+    block.launch_gemm_f32(a, w, again, M, N, K, epi, bias=bias, resid=x,
+                          gate=gate, S=S)
+    torch.cuda.synchronize()
+    _close32(one, ref)
+    assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("T,n_q,q_off", [(4, 4, 0), (5, 1, 4), (8, 8, 0)])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_gemm_f32_rope_qkv(cuda, hd, T, n_q, q_off):
+    """The fp32 rope epilogue against rope_qkv_plain on the fp32 product:
+    every row's window slot (a prefill window, a step's live slot, eight
+    frames)."""
+    gen = np.random.default_rng(320 + hd + T)
+    f32 = torch.float32
+    f = rope.temporal_rope_freqs(torch.arange(T), rope.lang_freqs(hd)).cuda()
+    M = 2 * n_q * S_DIT
+    mod, w = _rand(gen, (M, D), 1.0, f32), _rand(gen, (D, 3 * D), 0.05, f32)
+    got = tuple(torch.empty((M, D), dtype=f32, device="cuda")
+                for _ in range(3))
+    block.launch_gemm_f32_rope_qkv(mod, w, *got, f, S_DIT, n_q, q_off, hd)
+    ref = block.rope_qkv_plain(block.mm32(mod, w), f, S_DIT, n_q, q_off, f32)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        _close32(a, b)
+
+
+@pytest.mark.parametrize("S", [S_DIT, S_VAE, 100])
+@pytest.mark.parametrize("hd,rot", [(64, 64), (64, 32), (32, 32)])
+def test_attn_frame_f32_kernel(cuda, S, hd, rot):
+    """attn_frame_f32 (keys in 64-key tiles, online softmax) against the
+    plain fp32 attention with rope on the first rot dims; S=100 leaves the
+    last query and key tiles ragged."""
+    from gtax_torch.core.rope import apply_rotary_emb
+
+    gen = np.random.default_rng(330 + S + hd + rot)
+    N, heads, f32 = 2, D // hd, torch.float32
+    qkv = _rand(gen, (N * S, 3 * D), 1.0, f32)
+    f = torch.from_numpy(gen.uniform(-30, 30, (S, rot)).astype(
+        np.float32)).cuda()
+    out = torch.empty((N * S, D), dtype=f32, device="cuda")
+    block.launch_attn_frame_f32(qkv, f, out, N, S, D, heads, rot)
+    q, k, v = (t.reshape(N, S, heads, hd) for t in qkv.split(D, dim=-1))
+
+    def rot_(t):
+        return torch.cat([apply_rotary_emb(f[:, None, :], t[..., :rot]),
+                          t[..., rot:]], -1)
+
+    ref = block.attend_frames(rot_(q), rot_(k), v, f32).reshape(N * S, D)
+    torch.cuda.synchronize()
+    _close32(out, ref)
+
+
+@pytest.mark.parametrize("valid", [None, [False, True, True, True, True,
+                                          True, True, True]])
+@pytest.mark.parametrize("T", [1, 2, 5, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_attn_temporal_f32_kernels(cuda, hd, T, valid):
+    """attn_temporal_window_f32 (four dims a lane) against attend_temporal
+    in fp32, and attn_temporal_f32's step over an fp32 cache: the last
+    frame of the window from the cached first T - 1 equals the window's
+    last frame within F32_TOL."""
+    gen = np.random.default_rng(340 + hd + T)
+    heads, B, f32 = D // hd, 2, torch.float32
+    v = None if valid is None else valid[:T]
+    q, k, vv = (_rand(gen, (B * T * S_DIT, D), 1.0, f32) for _ in range(3))
+    out = torch.empty_like(q)
+    bits = block.valid_bits(v, T)
+    block.launch_attn_window(q, k, vv, out, B, T, S_DIT, D, heads, bits)
+    shape = (B, T, S_DIT, heads, hd)
+    ref = block.attend_temporal(
+        q.reshape(shape), k.reshape(shape), vv.reshape(shape),
+        block.temporal_bias(v, T, "cuda"), f32).reshape(out.shape)
+    torch.cuda.synchronize()
+    _close32(out, ref)
+    if T == 1:
+        return
+    # the step: the last frame's q, k, v as fp32 qkv rows with zero rope
+    # angles (the window's rows are post-rope already)
+    rows = lambda t: t.reshape(B, T, S_DIT, D)  # noqa: E731
+    qkv = torch.cat([rows(t)[:, -1] for t in (q, k, vv)], -1).reshape(
+        B * S_DIT, 3 * D).contiguous()
+    kc, vc = (rows(t)[:, :-1].reshape(-1, D).contiguous() for t in (k, vv))
+    step = torch.empty((B * S_DIT, D), dtype=f32, device="cuda")
+    zeros = torch.zeros((T, hd), dtype=f32, device="cuda")
+    block.launch_attn_temporal_f32(qkv, zeros, step, B, 1, T - 1, S_DIT, D,
+                                   heads, bits, kc, vc)
+    torch.cuda.synchronize()
+    _close32(step, rows(ref)[:, -1].reshape(B * S_DIT, D))
+
+
+def test_fp32_refusals_on_the_card(cuda):
+    """fp32 emit_train (the training forward) raises; an fp32 x with bf16
+    weights raises ValueError as any dtype mismatch does."""
+    gen = np.random.default_rng(350)
+    fn, _, args, kw = _f32_case("mlp_tanh", gen)
+    with pytest.raises(NotImplementedError, match="A11"):
+        fn(*args, emit_train=True)
+    with pytest.raises(ValueError, match="w1"):
+        fn(*args[:4], args[4].bfloat16(), *args[5:])
+
+
+def test_fp32_kernels_use_no_tensor_cores(cuda):
+    """The fp32 kernels are FFMA only: cuobjdump's SASS of the built
+    library has no HMMA (any type, TF32 included) in them, and FFMAs in
+    the GEMM; the bf16 GEMM's HGMMA is there, as a control."""
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build.build())],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = sass.split("Function : ")[1:]
+    f32 = [f for f in funcs if any(n in f.split("\n", 1)[0] for n in (
+        "gemm_f32_kernel", "attn_frame_f32_kernel", "attn_window_f32_kernel",
+        "attn_temporal_f32_kernel"))]
+    assert len(f32) >= 4
+    for f in f32:
+        assert "HMMA" not in f and "HGMMA" not in f, f.split("\n", 1)[0]
+    assert any("FFMA" in f for f in f32)
+    assert any("HGMMA" in f for f in funcs)
+
+
+# ------------------------------------------- the exact GELU (#2, #9-#11)
+
+@pytest.mark.parametrize("emit_train", [False, True])
+def test_mlp_branch_exact_gelu_kernel(cuda, emit_train):
+    """bf16 #2 with approx_gelu=False (EPI_BIAS_GELU_ERF, and its _H form
+    under emit_train) against the plain version: 2**-6 of the largest
+    magnitude; the default unchanged by the flag."""
+    gen = np.random.default_rng(360)
+    x, sh, sc, g = _branch_inputs(gen, 2, S_DIT)
+    w1, w2 = _rand(gen, (D, 4 * D), 0.02), _rand(gen, (4 * D, D), 0.02)
+    b1, b2 = _rand(gen, (4 * D,), 0.02), _rand(gen, (D,), 0.02)
+    args = (x, sh, sc, g, w1, b1, w2, b2)
+    kw = {"approx_gelu": False, "emit_train": emit_train}
+    got = block.fused_mlp_branch(*args, **kw)
+    ref = block.mlp_branch_plain(*args, **kw)
+    for a, b in zip(got if emit_train else (got,),
+                    ref if emit_train else (ref,)):
+        _close(a, b)
+    tanh = block.fused_mlp_branch(*args)
+    assert torch.equal(tanh, block.fused_mlp_branch(*args, approx_gelu=True))
+    assert not torch.equal(tanh, got[0] if emit_train else got)
+
+
+def test_int8_exact_gelu_kernels(cuda):
+    """#9 with approx_gelu=False against its plain version (2**-6); #10 and
+    #11 in that mode bit-equal to #7 / #6 + #9 with the same flag."""
+    gen = np.random.default_rng(361)
+    x, sh, sc, g = _branch_inputs(gen, 1, S_DIT)
+    w = _pair_weights(gen)
+    aw, mw = w[:5], w[5:]
+    args = (x, sh, sc, g, *mw)
+    _close(quant.fused_mlp_branch_q(*args, approx_gelu=False),
+           quant.mlp_branch_q_plain(*args, approx_gelu=False))
+    from gtax_torch.kernels import pair
+
+    x, sh1, sc1, g1, sh2, sc2, g2 = _pair_inputs(gen, 1)[:7]
+    f = _spatial_freqs()
+    got = pair.fused_spatial_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, *aw, *mw,
+                                    f, H, approx_gelu=False)
+    h = quant.fused_spatial_branch_q(x, sh1, sc1, g1, *aw, f, H)
+    assert torch.equal(got, quant.fused_mlp_branch_q(
+        h, sh2, sc2, g2, *mw, approx_gelu=False))
+    n_ctx, valid = 4, [False, True, True, True, True]
+    kc = _rand(gen, (n_ctx * S_DIT, D))
+    vc = _rand(gen, (n_ctx * S_DIT, D))
+    tf = _temporal_freqs(n_ctx + 1)
+    got = pair.fused_temporal_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, *aw, *mw,
+                                     kc, vc, tf, valid, H, n_ctx,
+                                     approx_gelu=False)
+    h = quant.fused_temporal_step_q(x, sh1, sc1, g1, *aw, kc, vc, tf, valid,
+                                    H, n_ctx)
+    assert torch.equal(got, quant.fused_mlp_branch_q(
+        h, sh2, sc2, g2, *mw, approx_gelu=False))

@@ -297,10 +297,11 @@ def test_s8_plan_at_the_serving_shapes(M, N, K, group, chunk):
 
 @pytest.mark.parametrize("M", [144, 288])
 def test_pair_workspace_is_the_carve(M):
-    """pair.workspace_bytes is csrc/pair_q.cu's carve: thirteen buffers on
-    256-byte boundaries, the last the int32 partials of the GEMM whose
-    chunks need the most (none when every GEMM is one chunk)."""
-    src = (CSRC / "pair_q.cu").read_text()
+    """pair.workspace_bytes is csrc/pair_q.cuh's carve (the pair kernel's
+    device code, shared by pair_q.cu and pair_q_exact.cu): thirteen
+    buffers on 256-byte boundaries, the last the int32 partials of the GEMM
+    whose chunks need the most (none when every GEMM is one chunk)."""
+    src = (CSRC / "pair_q.cuh").read_text()
     assert "constexpr int kBuffers = 13;" in src
     D, Hd, G = 1024, 4096, 512
     chunks = tuple(quant.s8_plan(M, N, K, G if i == 3 else K, 132, S8_ROWS,

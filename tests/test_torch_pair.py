@@ -144,13 +144,18 @@ def test_pair_plain_equals_sequential_plain(dtype):
 
 
 def test_cpu_pair_counts_no_launch_and_tanh_gelu_only():
+    """The plain version launches nothing, in either GELU mode; the tanh
+    GELU is the default, and approx_gelu=False (once refused) computes the
+    exact one: tests/test_torch_exact_gelu.py holds it against gtax."""
     inp = PairInputs(30, "fp32", 1)
     tf, _ = inp.freqs(S)
     before = pair.fused_spatial_pair_q.launches
-    pair.fused_spatial_pair_q(*inp.t, tf, NH)
+    tanh = pair.fused_spatial_pair_q(*inp.t, tf, NH)
+    exact = pair.fused_spatial_pair_q(*inp.t, tf, NH, approx_gelu=False)
     assert pair.fused_spatial_pair_q.launches == before
-    with pytest.raises(NotImplementedError, match="GELU"):
-        pair.fused_spatial_pair_q(*inp.t, tf, NH, approx_gelu=False)
+    assert torch.equal(tanh, pair.fused_spatial_pair_q(*inp.t, tf, NH,
+                                                       approx_gelu=True))
+    assert not torch.equal(tanh, exact)
 
 
 def _spy(monkeypatch, module, name, calls):
