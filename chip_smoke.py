@@ -7,7 +7,9 @@ Phases (any failure exits nonzero and prints no result line):
   1. environment: torch version, device, `nvidia-smi` name and power limit;
   2. build: nvcc builds gtax_torch/csrc/*.cu for sm_90a (timed); `[sass]`:
      cuobjdump's SASS of the library, where the fp32 kernels (F32_KERNELS)
-     must hold FFMAs and no tensor-core instruction (no TF32);
+     must hold FFMAs and no tensor-core instruction (no TF32), and the
+     fp32 pairs (F32_PAIRS) the int8 IGMMA and no HMMA / HGMMA but the
+     compiler's no-op GMMA (NOOP_GMMA, also in every int8 GEMM);
   3. kernels: each of the sixteen kernel wrappers (five bf16 and four
      int8 W8A8 serving wrappers, the two paired int8 half-blocks, the two
      attention kernels of the `pallas` backend, three training backwards)
@@ -54,7 +56,14 @@ Phases (any failure exits nonzero and prints no result line):
      their plain versions within F32_TOL (1e-4) of the plain output's
      largest magnitude, timed beside the plain version and the fp32
      library composite (no TF32), the bound from the bytes and 67 TFLOP/s
-     of fp32 FFMA; the MLP and the VAE block split by launch;
+     of fp32 FFMA; the MLP and the VAE block split by launch. Rows 6-11,
+     15 and 16 in fp32: the int8 wrappers and pairs over fp32
+     activations within INT8_F32_TOL (2**-6, the int8 rule) of the plain
+     output's largest magnitude, with each fp32 output's share of elements
+     beyond 1e-4 of it printed, each pair bit-equal to its fp32 sequential
+     wrappers in both GELU modes; the fp32 `pallas` attention at the
+     model's three shapes within F32_TOL; timed beside the fp32 library
+     composites, the bound from the bytes, the int8 ops and fp32 FFMA;
   4. end to end, bf16: VideoGenerator at full DiT-S/2 + ViT-L/20 width,
      B=1, 4 prompt frames + 2 generated, 100 noise steps, random seeded
      weights with nonzero adaLN heads, injected noise. The launch counters
@@ -67,7 +76,11 @@ Phases (any failure exits nonzero and prints no result line):
      launched exactly as often as the bf16 run's, incremental against full
      window and depth-2 card against CPU under `fused`, `fused_all` and
      `xla` within E2E_F32_TOL (1e-3) of the latents' largest magnitude,
-     s/frame and encode / decode ms;
+     s/frame and encode / decode ms; then fp32 with int8 (`fused` and
+     `fused_all`) and under `pallas` (with and without int8), F32_MODES:
+     one generate each with the counts f32_mode_expected gives (the bf16
+     int8 run's, the bf16 `pallas` run's), s/frame, and a depth-2 rollout
+     card vs CPU within E2E_F32_TOL; the fp32 int8 step at B=4 (#6);
   5. end to end, int8: the same run with quantize="int8" (the same bf16
      weights, quantized): every step pairs each half-block, the prefill
      runs the sequential wrappers, and the counts must be the ones the
@@ -78,6 +91,8 @@ Phases (any failure exits nonzero and prints no result line):
      one (relative L2 error): gated at gtax's 2e-2 at depth 2 on gtax's
      own weight regime carried to full width; reported beside it, that
      regime as written and the smoke's weights at depth 2 and full depth;
+     and gtax's gate as gtax writes it, the fp32 int8 forward against the
+     fp32 dense one (2e-2, the same regime);
   6. end to end, `pallas` (`[e2e pallas]`): the same generate with
      attention_backend="pallas": full-window rollouts through the unfused
      branches, every attention on fused_mha_token_major (the counts by
@@ -85,7 +100,7 @@ Phases (any failure exits nonzero and prints no result line):
      VAE; a depth-2 rollout on the card against the port's CPU one and
      against the card's `xla` rollout. `[sdpa]`: the public
      nn.attention.sdpa under `pallas` at the three shapes, which
-     fused_sdpa serves;
+     fused_sdpa serves, in bf16 and in fp32;
   7. training (`[train]`): a Trainer built from
      configs/train_dit_actions.yaml's values (DiT-S/2 at full width and
      depth, frozen ViT-L/20, B=16, bf16, fused_all, mu_bf16) with the cuts
@@ -213,6 +228,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -226,8 +242,14 @@ INT8_OPS_PER_S = 1979e12       # dense int8 tensor-core peak, data sheet
 F32_FLOPS_PER_S = 67e12        # fp32 on the CUDA cores (FFMA), data sheet
 # the fp32 forms of #1-#5 against their plain versions (both fp32, only
 # the summation order and expf / sincosf / erfc's last bits differ): of
-# the plain output's largest magnitude
+# the plain output's largest magnitude; also the fp32 `pallas` attention's
+# (#15, #16)
 F32_TOL = 1e-4
+# the fp32 forms of #6-#11 (the int8 rule, stated before their first run:
+# a summation order can flip an int8 rounding of an activation, which
+# moves its row's outputs by up to a step of its scale), of the plain
+# output's largest magnitude
+INT8_F32_TOL = 2.0**-6
 # [e2e fp32]: card against CPU and incremental against full window, of
 # the latents' largest magnitude (fp32 summation orders through 5-202 DiT
 # calls)
@@ -587,27 +609,27 @@ def int8_lib_mod(x, sh, sc):
     return ln * (1 + sc.float()[:, None]) + sh.float()[:, None]
 
 
-def int8_lib_rope(t, f):
+def int8_lib_rope(t, f, dt=torch.bfloat16):
     from gtax_torch.core import rope
 
-    return (t * torch.cos(f) + rope.rotate_half(t) * torch.sin(f)).to(
-        torch.bfloat16)
+    return (t * torch.cos(f) + rope.rotate_half(t) * torch.sin(f)).to(dt)
 
 
 def int8_gated(x, g, y):
-    return (x.float() + g.float()[:, None] * y).to(torch.bfloat16)
+    return (x.float() + g.float()[:, None] * y).to(x.dtype)
 
 
 def lib_int8_spatial(x, sh, sc, g, w, sfreqs):
     """The int8 spatial branch as torch._int_mm + SDPA; w = (qkv_q, qkv_s,
-    out_q, out_s, out_b) with the int8 kernels column-major."""
-    N = x.shape[0]
+    out_q, out_s, out_b) with the int8 kernels column-major; the attention
+    in x's dtype."""
+    N, dt = x.shape[0], x.dtype
     qkv = lib_qlinear(int8_lib_mod(x, sh, sc), w[0], w[1])
     q, k, v = (t.view(N, S_DIT, H, HD).transpose(1, 2)
                for t in qkv.split(D, -1))
     f = sfreqs[None, None]
     o = torch.nn.functional.scaled_dot_product_attention(
-        int8_lib_rope(q, f), int8_lib_rope(k, f), v.to(torch.bfloat16))
+        int8_lib_rope(q, f, dt), int8_lib_rope(k, f, dt), v.to(dt))
     y = lib_qlinear(o.transpose(1, 2).reshape(N, S_DIT, D).float(), w[2],
                     w[3], w[4])
     return int8_gated(x, g, y)
@@ -616,13 +638,13 @@ def lib_int8_spatial(x, sh, sc, g, w, sfreqs):
 def lib_int8_temporal(x, sh, sc, g, w, f, B, T):
     """The int8 temporal branch over a causal window of T frames, as
     lib_int8_spatial."""
-    N = B * T
+    N, dt = B * T, x.dtype
     qkv = lib_qlinear(int8_lib_mod(x, sh, sc), w[0], w[1])
     q, k, v = (t.view(B, T, S_DIT, H, HD).permute(0, 2, 3, 1, 4)
                for t in qkv.split(D, -1))
     mask = torch.tril(torch.ones(T, T, dtype=torch.bool, device="cuda"))
     o = torch.nn.functional.scaled_dot_product_attention(
-        int8_lib_rope(q, f), int8_lib_rope(k, f), v.to(torch.bfloat16),
+        int8_lib_rope(q, f, dt), int8_lib_rope(k, f, dt), v.to(dt),
         attn_mask=mask)
     y = lib_qlinear(o.permute(0, 3, 1, 2, 4).reshape(N, S_DIT, D).float(),
                     w[2], w[3], w[4])
@@ -632,17 +654,17 @@ def lib_int8_temporal(x, sh, sc, g, w, f, B, T):
 def lib_int8_step(x, sh, sc, g, w, kc, vc, f, n_ctx, n_live=1, kw=None):
     """The int8 temporal step over the cached context, as
     lib_int8_spatial; kw: live_mask's keywords."""
-    N = x.shape[0]
+    N, dt = x.shape[0], x.dtype
     B = N // n_live
     qkv = lib_qlinear(int8_lib_mod(x, sh, sc), w[0], w[1])
     q, k, v = (t.view(B, n_live, S_DIT, H, HD).permute(0, 2, 3, 1, 4)
                for t in qkv.split(D, -1))
     ck, cv = (t.view(B, n_ctx, S_DIT, H, HD).permute(0, 2, 3, 1, 4)
               for t in (kc, vc))
-    keys = torch.cat([ck, int8_lib_rope(k, f[n_ctx:])], dim=3)
-    vals = torch.cat([cv, v.to(torch.bfloat16)], dim=3)
+    keys = torch.cat([ck, int8_lib_rope(k, f[n_ctx:], dt)], dim=3)
+    vals = torch.cat([cv, v.to(dt)], dim=3)
     o = torch.nn.functional.scaled_dot_product_attention(
-        int8_lib_rope(q, f[n_ctx:]), keys, vals, **(kw or {}))
+        int8_lib_rope(q, f[n_ctx:], dt), keys, vals, **(kw or {}))
     y = lib_qlinear(o.permute(0, 3, 1, 2, 4).reshape(N, S_DIT, D).float(),
                     w[2], w[3], w[4])
     return int8_gated(x, g, y)
@@ -670,14 +692,17 @@ def qweight(gen, shape):
     return quant.quantize_weight(rand(gen, shape, 0.02))
 
 
-def int8_attn_weights(gen):
+def int8_attn_weights(gen, dt=torch.bfloat16):
+    """int8 kernels and their fp32 scales, the bias in the compute dtype
+    (fp32 serving keeps its params fp32)."""
     return (*qweight(gen, (D, 3 * D)), *qweight(gen, (D, D)),
-            rand(gen, (D,), 0.02))
+            rand(gen, (D,), 0.02, dt))
 
 
-def int8_mlp_weights(gen):
+def int8_mlp_weights(gen, dt=torch.bfloat16):
     w1, w2 = qweight(gen, (D, 4 * D)), qweight(gen, (4 * D, D))
-    return (*w1, rand(gen, (4 * D,), 0.02), *w2, rand(gen, (D,), 0.02))
+    return (*w1, rand(gen, (4 * D,), 0.02, dt), *w2,
+            rand(gen, (D,), 0.02, dt))
 
 
 def col_major_attn(w):
@@ -688,17 +713,19 @@ def col_major_mlp(w):
     return (col_major(w[0]), w[1], w[2], col_major(w[3]), w[4], w[5])
 
 
-def int8_kernel_cases():
+def int8_kernel_cases(dt=torch.bfloat16):
     """The int8 (W8A8) wrappers, as kernel_cases; each case also returns the
-    int8 tensor-core operations."""
+    int8 tensor-core operations. dt = torch.float32: the fp32 forms of
+    #6-#9 at their main shapes (fp32 activations, biases and context cache;
+    the library composite's attention in fp32)."""
     from gtax_torch.kernels import quant
 
     sfreqs = spatial_freqs()
 
     def spatial(N):
         gen = np.random.default_rng(50 + N)
-        x, sh, sc, g = branch_inputs(gen, N, S_DIT)
-        w = int8_attn_weights(gen)
+        x, sh, sc, g = branch_inputs(gen, N, S_DIT, dt)
+        w = int8_attn_weights(gen, dt)
         args = (x, sh, sc, g, *w, sfreqs, H)
         wc = col_major_attn(w)
         M = N * S_DIT
@@ -711,8 +738,8 @@ def int8_kernel_cases():
 
     def mlp(N, approx_gelu=True):
         gen = np.random.default_rng(60 + N)
-        x, sh, sc, g = branch_inputs(gen, N, S_DIT)
-        w = int8_mlp_weights(gen)
+        x, sh, sc, g = branch_inputs(gen, N, S_DIT, dt)
+        w = int8_mlp_weights(gen, dt)
         args = (x, sh, sc, g, *w)
         wc = col_major_mlp(w)
         by = nbytes(x, sh, sc, g, *w, x)
@@ -727,8 +754,8 @@ def int8_kernel_cases():
     def temporal(B, T=4):
         gen = np.random.default_rng(70 + B)
         N = B * T
-        x, sh, sc, g = branch_inputs(gen, N, S_DIT)
-        w = int8_attn_weights(gen)
+        x, sh, sc, g = branch_inputs(gen, N, S_DIT, dt)
+        w = int8_attn_weights(gen, dt)
         f = temporal_freqs(T)
         valid = [False] + [True] * (T - 1)
         args = (x, sh, sc, g, *w, f, valid, H, T)
@@ -745,10 +772,10 @@ def int8_kernel_cases():
     def step(B, n_ctx=4, n_live=1):
         gen = np.random.default_rng(80 + B + 10 * (n_live - 1))
         N = B * n_live
-        x, sh, sc, g = branch_inputs(gen, N, S_DIT)
-        w = int8_attn_weights(gen)
-        kc = rand(gen, (B * n_ctx * S_DIT, D))
-        vc = rand(gen, (B * n_ctx * S_DIT, D))
+        x, sh, sc, g = branch_inputs(gen, N, S_DIT, dt)
+        w = int8_attn_weights(gen, dt)
+        kc = rand(gen, (B * n_ctx * S_DIT, D), dtype=dt)
+        vc = rand(gen, (B * n_ctx * S_DIT, D), dtype=dt)
         T = n_ctx + n_live
         f = temporal_freqs(T)
         valid = torch.tensor([False] + [True] * (T - 1))
@@ -765,6 +792,19 @@ def int8_kernel_cases():
                 4 * B * S_DIT * H * live_keys(n_ctx, n_live) * HD,
                 2 * N * S_DIT * D * 4 * D)
 
+    if dt == torch.float32:  # the fp32 forms at the main-path shapes
+        return [
+            ("fused_spatial_branch_q", "step N=1 (B=1), fp32",
+             lambda: spatial(1)),
+            ("fused_mlp_branch_q", "step 144 rows (B=1), fp32",
+             lambda: mlp(1)),
+            ("fused_mlp_branch_q", "step 144 rows (B=1), approx_gelu=False, "
+             "fp32", lambda: mlp(1, approx_gelu=False)),
+            ("fused_temporal_branch_q", "prefill emit_kv B=1 T=4, fp32",
+             lambda: temporal(1)),
+            ("fused_temporal_step_q", "step B=1 n_ctx=4, fp32",
+             lambda: step(1)),
+        ]
     return [
         ("fused_spatial_branch_q", "gtax/kernels/quant.py:368",
          "step N=1 (B=1)", True, lambda: spatial(1)),
@@ -795,27 +835,28 @@ def int8_kernel_cases():
     ]
 
 
-def pair_inputs(gen, N):
+def pair_inputs(gen, N, dt=torch.bfloat16):
     """x and the six per-frame vectors of a half-block, (N, D) views of one
     (N, 6D) adaLN row as dit_cond gives them."""
-    x = rand(gen, (N, S_DIT, D))
-    mods = rand(gen, (N, 6 * D), 0.5)
+    x = rand(gen, (N, S_DIT, D), dtype=dt)
+    mods = rand(gen, (N, 6 * D), 0.5, dt)
     return (x, *(mods[:, i * D:(i + 1) * D] for i in range(6)))
 
 
-def pair_case(kind, N, seed, n_live=1, approx_gelu=True):
+def pair_case(kind, N, seed, n_live=1, approx_gelu=True, dt=torch.bfloat16):
     """(kernel_fn, plain_fn, library_fn, library_desc, bytes, flops, int8
     ops, sequential_fn) of one paired half-block: kind "spatial" over N
     frames, "temporal" the step of N live rows, B = N / n_live elements
     of n_live live slots each over a (5 - n_live)-frame cache (4 at one
     live slot) with slot 0 padded ("temporal-valid": every slot real);
-    approx_gelu: the MLP's GELU (tanh, or the exact one)."""
+    approx_gelu: the MLP's GELU (tanh, or the exact one); dt: the
+    activations' dtype (fp32: the fp32 pairs of csrc/pair_q_f32.cu)."""
     from gtax_torch.kernels import pair, quant
 
     kw = {"approx_gelu": approx_gelu}
     gen = np.random.default_rng(seed)
-    x, sh1, sc1, g1, sh2, sc2, g2 = vec = pair_inputs(gen, N)
-    wa, wm = int8_attn_weights(gen), int8_mlp_weights(gen)
+    x, sh1, sc1, g1, sh2, sc2, g2 = vec = pair_inputs(gen, N, dt)
+    wa, wm = int8_attn_weights(gen, dt), int8_mlp_weights(gen, dt)
     wac, wmc = col_major_attn(wa), col_major_mlp(wm)
     M = N * S_DIT
     i8 = 2 * M * D * (3 * D + D + 2 * 4 * D)
@@ -837,8 +878,8 @@ def pair_case(kind, N, seed, n_live=1, approx_gelu=True):
                 "the int8 spatial + MLP composites (torch._int_mm, SDPA)",
                 by, 4 * N * H * S_DIT * S_DIT * HD, i8, seq)
     B, n_ctx = N // n_live, 4 if n_live == 1 else 5 - n_live
-    kc = rand(gen, (B * n_ctx * S_DIT, D))
-    vc = rand(gen, (B * n_ctx * S_DIT, D))
+    kc = rand(gen, (B * n_ctx * S_DIT, D), dtype=dt)
+    vc = rand(gen, (B * n_ctx * S_DIT, D), dtype=dt)
     f = temporal_freqs(n_ctx + n_live)
     valid = [kind == "temporal-valid"] + [True] * (n_ctx + n_live - 1)
     tail = (kc, vc, f, valid, H, n_ctx)
@@ -953,14 +994,15 @@ def pair_phase(timer, rows):
         rows[name]["phase_split"] = pair_phases(kind, 1, log=log)
 
 
-def attention_cases():
+def attention_cases(dt=torch.bfloat16):
     """(name, replaces, label, main, make) of the `pallas` backend's two
     kernels at the three attention shapes of the model; make returns
     (kernel_fn, plain_fn, library_fn, library_desc, bytes, flops). With a
     mask or causality the kernel reads the additive (S, S) bias, and the
     library call is SDPA with the same bias as attn_mask; without, the
     kernel reads none (the bias would be all zeros), so the bytes count
-    none and SDPA gets no mask."""
+    none and SDPA gets no mask. dt = torch.float32: the fp32 form, its q,
+    k, v and SDPA's in fp32."""
     from gtax_torch.kernels import attention as kattn
 
     F = torch.nn.functional
@@ -975,11 +1017,11 @@ def attention_cases():
         if mask is None and not causal:
             return (), {}
         bias = kattn.build_bias(S, mask, causal, "cuda")
-        return (bias,), {"attn_mask": bias.to(torch.bfloat16)}
+        return (bias,), {"attn_mask": bias.to(dt)}
 
     def sdpa(N, S, mask=None, causal=False):
         gen = np.random.default_rng(500 + S)
-        q, k, v = (rand(gen, (N, S, HD)) for _ in range(3))
+        q, k, v = (rand(gen, (N, S, HD), dtype=dt) for _ in range(3))
         bias = kattn.build_bias(S, mask, causal, "cuda")
         read, kw = biased(S, mask, causal)
         return (lambda: kattn.fused_sdpa(q, k, v, mask, causal),
@@ -990,7 +1032,7 @@ def attention_cases():
 
     def mha(N, S, mask=None):
         gen = np.random.default_rng(600 + S)
-        q, k, v = (rand(gen, (N, S, D)) for _ in range(3))
+        q, k, v = (rand(gen, (N, S, D), dtype=dt) for _ in range(3))
         bias = kattn.build_bias(S, mask, False, "cuda")
         read, kw = biased(S, mask, False)
 
@@ -1064,6 +1106,7 @@ def measure(timer, name, label, kern, plain, lib, by, fl, *i8, rel_tol=None,
     stable = all(torch.equal(a, b) for a, b in zip(got, again))
     err, tol, ratio = 0.0, 0.0, 0.0  # tol: that of the worst output
     share, rel = 0.0, 0.0  # the rounding-point figures of the worst output
+    beyond = 0.0  # fp32 outputs: the share of elements beyond F32_TOL
     for a, b in zip(got, ref):
         if not torch.isfinite(a.float()).all():
             fail(f"{name} [{label}]: non-finite output")
@@ -1076,6 +1119,9 @@ def measure(timer, name, label, kern, plain, lib, by, fl, *i8, rel_tol=None,
         if a.dtype == torch.bfloat16:
             sh, rl = bf16_differences(a, b)
             share, rel = max(share, sh), max(rel, rl)
+        elif a.dtype == torch.float32:
+            beyond = max(beyond, ((a - b).abs() > F32_TOL * b.abs().max())
+                         .float().mean().item())
     ms, plain_ms, lib_ms = timer(kern), timer(plain), timer(lib)
     bms, by_what = bound_ms(by, fl, *i8, flops_per_s=flops_per_s)
     ops = f"{fl / 1e9:.2f} GFLOP" + (f", {i8[0] / 1e9:.2f} int8 GOP"
@@ -1085,7 +1131,10 @@ def measure(timer, name, label, kern, plain, lib, by, fl, *i8, rel_tol=None,
         f"outputs: {share:.3e} of elements differ, max diff {rel:.3e} of "
         f"the largest magnitude) ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by_what}; "
-        f"{by / 1e6:.1f} MB, {ops}); two calls bit-equal: {stable}")
+        f"{by / 1e6:.1f} MB, {ops}); two calls bit-equal: {stable}"
+        + (f"; fp32 outputs: {beyond:.3e} of elements beyond {F32_TOL:g} of "
+           "the largest magnitude" if any(a.dtype == torch.float32
+                                          for a in got) else ""))
     if not ratio <= 1.0:
         fail(f"{name} [{label}] disagrees with its plain version: an output "
              f"is off by {ratio:.3g} times its tolerance")
@@ -1093,7 +1142,8 @@ def measure(timer, name, label, kern, plain, lib, by, fl, *i8, rel_tol=None,
         fail(f"{name} [{label}]: two calls on the same inputs differ")
     return {"two_calls_bit_equal": stable,
             "max_abs_err": err, "tolerance": tol, "err_over_tol": ratio,
-            "bf16_differ": share, "max_diff_over_max": rel, "ms": ms,
+            "bf16_differ": share, "max_diff_over_max": rel,
+            "f32_beyond_1e-4": beyond, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by_what,
             "library_ms": lib_ms, "shape": label}
 
@@ -1164,37 +1214,136 @@ def f32_phase(timer, rows):
             rows[name]["fp32"]["launch_split"] = launch_split(
                 kern, f"{name} [{label}]", gemms[name])
         del kern, plain, lib
+    f32_int8_phase(timer, rows)
+
+
+# the fp32 pairs at the step's shapes, in both GELU modes: (name, label,
+# main, pair_case's spec)
+PAIR_F32_CASES = [
+    ("fused_spatial_pair_q", "step N=1 (B=1), fp32", True, ("spatial", 1, 90)),
+    ("fused_spatial_pair_q", "step N=1 (B=1), approx_gelu=False, fp32",
+     False, ("spatial", 1, 96, 1, False)),
+    ("fused_temporal_pair_q", "step B=1 n_ctx=4, slot 0 padded, fp32", True,
+     ("temporal", 1, 92)),
+    ("fused_temporal_pair_q", "step B=1 n_ctx=4, slot 0 padded, "
+     "approx_gelu=False, fp32", False, ("temporal", 1, 97, 1, False)),
+]
+
+
+def f32_record(rows, name, label, main, rec):
+    """A row's fp32 figures: the main shape's in "fp32", the others (and
+    the exact GELU's) beside them."""
+    if main:
+        rows[name]["fp32"] = {**rec, **{k: v for k, v in rows[name].get(
+            "fp32", {}).items() if k in ("exact_gelu", "other_shapes")}}
+    elif "approx_gelu=False" in label:
+        rows[name].setdefault("fp32", {})["exact_gelu"] = rec
+    else:
+        rows[name].setdefault("fp32", {}).setdefault("other_shapes",
+                                                      {})[label] = rec
+
+
+def f32_int8_phase(timer, rows):
+    """Rows 6-11, 15 and 16 in fp32 (`[kernel] ... fp32`): the int8
+    wrappers and the pairs at x.dtype = float32 (fp32 activations, biases
+    and context cache) within INT8_F32_TOL of the plain output's largest
+    magnitude (the int8 rule; each output's share of elements beyond
+    F32_TOL of it printed), each pair bit-equal to its fp32 sequential
+    wrappers in both GELU modes; the fp32 `pallas` attention within F32_TOL
+    at the model's three attention shapes. Timed beside the plain version
+    and the library composite in fp32 (torch._int_mm, SDPA in fp32, no
+    TF32), the bound from the bytes (int8 weights, fp32 activations), the
+    int8 operations and the fp32 attention's FFMA."""
+    f32 = torch.float32
+    for name, label, make in int8_kernel_cases(f32):
+        kern, plain, lib, lib_desc, by, fl, i8 = make()
+        m = measure(timer, name, label, kern, plain, lib, by, fl, i8,
+                    rel_tol=INT8_F32_TOL, flops_per_s=F32_FLOPS_PER_S)
+        f32_record(rows, name, label, "approx_gelu" not in label,
+                   dict(m, launches=None, library=lib_desc + ", fp32"))
+        del kern, plain, lib
+    for name, label, main, spec in PAIR_F32_CASES:
+        kern, plain, lib, lib_desc, by, fl, i8, seq = pair_case(*spec, dt=f32)
+        m = measure(timer, name, label, kern, plain, lib, by, fl, i8,
+                    rel_tol=INT8_F32_TOL, flops_per_s=F32_FLOPS_PER_S)
+        got, ref = kern(), seq()
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, ref))
+        seq_ms = timer(seq)
+        log(f"[kernel] {name:25s} {label:36s} vs the fp32 sequential "
+            f"wrappers: bit_equal={equal}; pair ms={m['ms']:.4f} sequential "
+            f"ms={seq_ms:.4f}")
+        if not equal:
+            fail(f"{name} [{label}] is not bit-equal to the fp32 sequential "
+                 "wrappers")
+        f32_record(rows, name, label, main, dict(
+            m, launches=None, library=lib_desc + ", fp32",
+            sequential_ms=seq_ms, sequential_bit_equal=equal))
+        del kern, plain, lib, seq
+    for name, replaces, label, main, make in attention_cases(f32):
+        kern, plain, lib, lib_desc, by, fl = make()
+        m = measure(timer, name, label + ", fp32", kern, plain, lib, by, fl,
+                    rel_tol=F32_TOL, flops_per_s=F32_FLOPS_PER_S)
+        f32_record(rows, name, label, main,
+                   dict(m, launches=None, library=lib_desc + ", fp32"))
+        del kern, plain, lib
 
 
 F32_KERNELS = ("gemm_f32_kernel", "attn_frame_f32_kernel",
                "attn_window_f32_kernel", "attn_temporal_f32_kernel",
-               "ln_mod_kernelIf")
+               "ln_mod_kernelIf", "attn_sdpa_rows_f32_kernel",
+               "attn_sdpa_tiled_f32_kernel")
+# the fp32 pairs, pair_q_kernel<hd, temporal, exact, float>: 2 x 2 x 2
+F32_PAIRS = re.compile(r"pair_q_kernelILi\d+ELb\dELb\dEfE")
+# the compiler's no-op GMMA: where ptxas injects a warpgroup.arrive before
+# a wgmma (its C7519 note) it emits an HGMMA into RZ from a zero descriptor
+# with the accumulate predicate off, which reads no operand and writes no
+# register; every int8 GEMM of the library (gemm_s8_kernel) holds one
+NOOP_GMMA = re.compile(r"HGMMA\.\S+ RZ, gdesc\[URZ\], RZ, !UPT")
+
+
+def tensor_ops(func):
+    """A SASS function's bf16 / fp16 / TF32 tensor-core instructions that
+    compute: HMMA and HGMMA lines other than the no-op GMMA."""
+    return [line for line in func.splitlines()
+            if ("HMMA" in line or "HGMMA" in line)
+            and not NOOP_GMMA.search(line)]
 
 
 def sass_check(lib_path):
     """`[sass]`: cuobjdump's SASS of the built library. The fp32 kernels
     (F32_KERNELS) must hold no tensor-core instruction (HMMA, HGMMA: no
-    TF32 products), and FFMAs; the bf16 GEMM's HGMMA is the control."""
+    TF32 products), and FFMAs; the fp32 pairs (F32_PAIRS) the int8 tensor
+    cores' IGMMA and no HMMA / HGMMA but the compiler's no-op GMMA, which
+    the int8 GEMM holds as well; the bf16 GEMM's HGMMA is the control."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
     funcs = sass.split("Function : ")[1:]
-    f32 = [f for f in funcs
-           if any(k in f.split("\n", 1)[0] for k in F32_KERNELS)]
-    tensor = [f.split("\n", 1)[0] for f in f32
-              if "HMMA" in f or "HGMMA" in f]
-    ffma = sum(f.count("FFMA") for f in f32)
-    control = sum(f.count("HGMMA") for f in funcs)
-    log(f"[sass] {len(f32)} fp32 kernels: {ffma} FFMA, tensor-core "
-        f"instructions in {len(tensor)} of them; the library's HGMMA "
-        f"(bf16 GEMM, the control): {control}")
-    if len(f32) < len(F32_KERNELS) or tensor or not ffma or not control:
-        fail(f"fp32 kernels' SASS: {len(f32)} found, tensor-core "
-             f"instructions in {tensor}")
-    return {"fp32_kernels": len(f32), "ffma": ffma, "tensor_core_in": tensor,
-            "hgmma_in_library": control}
+    head = [f.split("\n", 1)[0] for f in funcs]
+    f32 = [f for f, h in zip(funcs, head) if any(k in h for k in F32_KERNELS)]
+    pairs = [f for f, h in zip(funcs, head) if F32_PAIRS.search(h)]
+    s8 = [f for f, h in zip(funcs, head) if "gemm_s8_kernel" in h]
+    tensor = [f.split("\n", 1)[0] for f in f32 + pairs if tensor_ops(f)]
+    ffma = sum(f.count("FFMA") for f in f32 + pairs)
+    igmma = [f.count("IGMMA") for f in pairs]
+    noop = {"fp32_pairs": [len(NOOP_GMMA.findall(f)) for f in pairs],
+            "gemm_s8": [len(NOOP_GMMA.findall(f)) for f in s8]}
+    control = sum(len(tensor_ops(f)) for f in funcs)
+    log(f"[sass] {len(f32)} fp32 kernels and {len(pairs)} fp32 pairs: {ffma} "
+        f"FFMA, IGMMA in each pair {igmma}, computing tensor-core "
+        f"instructions (HMMA, HGMMA) in {len(tensor)} of them; the "
+        f"compiler's no-op GMMA {json.dumps(noop)}; the library's computing "
+        f"HMMA / HGMMA (the bf16 kernels, the control): {control}")
+    if (len(f32) < len(F32_KERNELS) or len(pairs) != 8 or tensor or not ffma
+            or not all(igmma) or not control):
+        fail(f"fp32 kernels' SASS: {len(f32)} found, {len(pairs)} pairs, "
+             f"computing tensor-core instructions in {tensor}")
+    return {"fp32_kernels": len(f32), "fp32_pairs": len(pairs), "ffma": ffma,
+            "pair_igmma": igmma, "noop_gmma": noop,
+            "tensor_core_in": tensor, "hgmma_in_library": control}
 
 
 def check_attn_dispatch():
@@ -1975,6 +2124,27 @@ def int8_vs_bf16(gen, gen8):
         f"(gate 2e-2)")
     if not gated < 2e-2:
         fail(f"int8 forward off the bf16 one at depth 2: {gated} >= 2e-2")
+    # gtax's own gate as gtax writes it (tests/test_quant.py:136-153): the
+    # fp32 int8 forward against the fp32 dense one, on the card
+    f32, rel32 = torch.float32, {}
+    for label, scaled in (("gtax regime, width-scaled", True),
+                          ("gtax regime, 0.05 as written", False)):
+        p32 = gtax_regime(cfg2, 7, scaled)
+        with torch.inference_mode():
+            ref, out = (dit_mod.dit_apply(p, cfg2, x, t, a,
+                                          compute_dtype=f32)
+                        for p in (p32, dit_mod.quantize_for_inference(p32)))
+        if not (torch.isfinite(out).all() and torch.isfinite(ref).all()):
+            fail(f"fp32 int8 vs fp32 forward ({label}) is not finite")
+        rel32[label] = ((out - ref).norm() / ref.norm()).item()
+        log(f"[e2e int8] fp32 int8 vs fp32 forward, relative L2 error, "
+            f"{label}: {rel32[label]:.4g}")
+    gated = rel32["gtax regime, width-scaled"]
+    log(f"[e2e int8] gtax's gate, fp32: gtax regime, width-scaled, depth 2: "
+        f"{gated:.4g} (gate 2e-2)")
+    if not gated < 2e-2:
+        fail(f"fp32 int8 forward off the fp32 one at depth 2: {gated} >= "
+             "2e-2")
 
 
 def window_rows(mods, sl):
@@ -1983,15 +2153,18 @@ def window_rows(mods, sl):
             "final": mods["final"][:, sl]}
 
 
-def int8_batched_step(gen8, rows):
+def int8_batched_step(gen8, rows, bf=torch.bfloat16):
     """One full-depth int8 dit_apply_step at B=4: N=4 live rows exceed the
     pair's gate, so each half-block runs the two sequential wrappers
     (fused_temporal_step_q among them), with every count zeroed just before
     the step and read just after. Its batch element 0 is held against the
-    same element's B=1 step, which pairs (2**-6 of the largest output)."""
+    same element's B=1 step, which pairs (2**-6 of the largest output).
+    bf: the compute dtype (fp32: the fp32 forms, recorded in the rows'
+    "fp32")."""
     from gtax_torch.models import dit as dit_mod
 
-    cfg, params, bf = gen8.dit_cfg, gen8.dit_params, torch.bfloat16
+    cfg, params = gen8.dit_cfg, gen8.dit_params
+    tag = "" if bf == torch.bfloat16 else " fp32"
     rng = np.random.default_rng(9)
     x = torch.from_numpy(rng.standard_normal((4, 5, 16, 18, 32)).astype(
         np.float32)).cuda()
@@ -2018,21 +2191,22 @@ def int8_batched_step(gen8, rows):
 
     out4, counts4 = step(4)
     out1, counts1 = step(1)
-    log(f"[e2e int8] one step at B=4, launches: {json.dumps(counts4)}; at "
-        f"B=1: {json.dumps(counts1)}")
+    log(f"[e2e int8{tag}] one step at B=4, launches: {json.dumps(counts4)}; "
+        f"at B=1: {json.dumps(counts1)}")
     want4 = {"fused_spatial_branch_q": 16, "fused_mlp_branch_q": 32,
              "fused_temporal_step_q": 16}
     if counts4 != want4 or counts1 != {"fused_spatial_pair_q": 16,
                                        "fused_temporal_pair_q": 16}:
         fail(f"int8 step routing: B=4 {counts4}, B=1 {counts1}")
-    rows["fused_temporal_step_q"]["launches"] = counts4[
-        "fused_temporal_step_q"]
-    rows["fused_temporal_step_q"]["launches_on"] = (
-        "one int8 dit_apply_step at B=4 (B=1 steps pair)")
+    row = (rows["fused_temporal_step_q"] if not tag
+           else rows["fused_temporal_step_q"]["fp32"])
+    row["launches"] = counts4["fused_temporal_step_q"]
+    row["launches_on"] = (f"one int8{tag} dit_apply_step at B=4 (B=1 steps "
+                          "pair)")
     ref = out1[0].float()
     err = (out4[0].float() - ref).abs().max().item()
     tol = 2.0**-6 * max(1.0, ref.abs().max().item())
-    log(f"[e2e int8] B=4 sequential step, element 0, vs the B=1 paired "
+    log(f"[e2e int8{tag}] B=4 sequential step, element 0, vs the B=1 paired "
         f"step: max_abs_err={err:.4g} (tol {tol:.4g}), bit_equal="
         f"{bool(torch.equal(out4[:1], out1))}")
     if not (torch.isfinite(out4).all() and err <= tol):
@@ -2112,11 +2286,13 @@ def pallas_path(gen, rows, inputs, lat0, acts, nz):
             fail(f"pallas depth-2 rollout, {what}: {err} > {tol}")
 
 
-def sdpa_path(rows):
+def sdpa_path(rows, dt=torch.bfloat16):
     """`[sdpa]`: gtax_torch.nn.attention.sdpa, the public entry point that
     fused_sdpa serves under `pallas` (no model calls it, in gtax or here),
     at the three attention shapes of the model, counts zeroed just before
-    and read just after; each output against the `xla` path's."""
+    and read just after; each output against the `xla` path's (2**-6 of its
+    largest magnitude; fp32, dt = torch.float32: F32_TOL, recorded in the
+    row's "fp32")."""
     from gtax_torch.kernels import attention as kattn
     from gtax_torch.nn import attention as attn
 
@@ -2124,7 +2300,7 @@ def sdpa_path(rows):
     cases = [((2304, 5), [False] + [True] * 4, True), ((80, S_DIT), None,
                                                        False),
              ((96, S_VAE), None, False)]
-    inputs = [([rand(gen, (*lead, HD)) for _ in range(3)], m, c)
+    inputs = [([rand(gen, (*lead, HD), dtype=dt) for _ in range(3)], m, c)
               for lead, m, c in cases]
     kattn.fused_sdpa.launches = 0
     with torch.inference_mode():
@@ -2136,16 +2312,22 @@ def sdpa_path(rows):
                 for qkv, m, c in inputs]
     errs = [(o.float() - r.float()).abs().max().item()
             for o, r in zip(outs, refs)]
+    f32 = dt == torch.float32
     log(f"[sdpa] nn.attention.sdpa(backend='pallas') at S=5 (causal+keys), "
-        f"144, 576: fused_sdpa launches {n}; max_abs_err vs xla {errs}")
+        f"144, 576, {'fp32' if f32 else 'bf16'}: fused_sdpa launches {n}; "
+        f"max_abs_err vs xla {errs}")
     if n != len(cases):
         fail(f"fused_sdpa launched {n} times for {len(cases)} sdpa calls")
     for e, r in zip(errs, refs):
-        if not e <= 2.0**-6 * max(1.0, r.float().abs().max().item()):
+        bound = (F32_TOL * r.abs().max().item() if f32
+                 else 2.0**-6 * max(1.0, r.float().abs().max().item()))
+        if not e <= bound:
             fail(f"sdpa pallas vs xla: {errs}")
-    rows["fused_sdpa"]["launches"] = n
-    rows["fused_sdpa"]["launches_on"] = (
-        "three nn.attention.sdpa(backend='pallas') calls")
+    row = rows["fused_sdpa"]["fp32"] if f32 else rows["fused_sdpa"]
+    row["launches"] = n
+    row["launches_on"] = (
+        f"three nn.attention.sdpa(backend='pallas') calls"
+        f"{', fp32' if f32 else ''}")
 
 
 # the approximate serving modes driven at full depth (`[e2e approx]`):
@@ -2483,13 +2665,127 @@ def e2e_fp32(rows, inputs, expect):
     out = {"s_per_frame": tm["rollout_s"] / n_gen,
            "encode_ms": tm["encode_s"] * 1e3,
            "decode_ms": tm["decode_s"] * 1e3, "launches": counts,
-           "depth2_err_over_max": errs,
-           "seconds": time.perf_counter() - t0}
+           "depth2_err_over_max": errs}
+    t1 = time.perf_counter()
+    out["modes"] = f32_serving_modes(gen, rows, inputs, lat0, acts, nz)
+    log(f"[time] e2e fp32 int8 / pallas: {time.perf_counter() - t1:.1f} s")
+    out["seconds"] = time.perf_counter() - t0
     log(f"[time] e2e fp32: {out['seconds']:.1f} s")
     del gen, params2, cpu2
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# [e2e fp32]'s int8 and `pallas` generators (label, the ServingConfig fields
+# that differ from the fp32 `fused` generator's) and the launches each
+# generate must make: the bf16 int8 path's counts (INT8_EXPECTED) under
+# `fused` and `fused_all` (the int8 blocks run the int8 wrappers and pairs
+# under both), the bf16 `pallas` path's (PALLAS_EXPECTED, by sequence
+# length), and under `pallas` with int8 the int8 wrappers over the full
+# window (16 blocks x 202 window evaluations; two MLP branches a block)
+# with the unfused VAE's 18 token-major attentions
+F32_MODES = [
+    ("int8 fused", dict(quantize="int8")),
+    ("int8 fused_all", dict(quantize="int8", attention_backend="fused_all")),
+    ("pallas", dict(attention_backend="pallas")),
+    ("pallas int8", dict(attention_backend="pallas", quantize="int8")),
+]
+PALLAS_INT8_EXPECTED = {"fused_spatial_branch_q": 3232,
+                        "fused_temporal_branch_q": 3232,
+                        "fused_mlp_branch_q": 6464}
+
+
+def f32_mode_expected(label):
+    """(launch counts by wrapper, fused_mha_token_major calls by sequence
+    length) of one F32_MODES generate."""
+    if label.startswith("int8"):
+        return {k: v for k, v in INT8_EXPECTED.items() if v}, {}
+    if label == "pallas":
+        return ({"fused_mha_token_major": sum(PALLAS_EXPECTED.values())},
+                PALLAS_EXPECTED)
+    return ({**PALLAS_INT8_EXPECTED, "fused_mha_token_major": 18},
+            {S_VAE: 18})
+
+
+def f32_serving_modes(gen, rows, inputs, lat0, acts, nz):
+    """`[e2e fp32]`, int8 and `pallas`: each F32_MODES generator over the
+    fp32 generator's weights (not cast; int8: quantized from them, as gtax
+    serves fp32 with int8), one generate of the same prompt, actions and
+    noise with every launch count zeroed before and read after: exactly
+    f32_mode_expected's counts, so the fused int8 rollout launches the fp32
+    forms of #7-#11 at the bf16 int8 counts and the `pallas` one the fp32
+    #16 at the bf16 `pallas` counts; s/frame. Then each mode's depth-2
+    rollout on the card against the port's CPU one (plain versions, fp32),
+    within E2E_F32_TOL of the latents' largest magnitude."""
+    from gtax_torch.kernels import attention as kattn
+    from gtax_torch.models import dit as dit_mod
+    from gtax_torch.serving import VideoGenerator, build_rollout
+
+    f32, n_gen = torch.float32, nz.shape[1]
+    kernel_wrappers()  # resolved before the tally wraps the module's name
+    wrapped, by_len = kattn.fused_mha_token_major, {}
+
+    def tally(q, *args, **kw):
+        out = wrapped(q, *args, **kw)
+        if out is not None:
+            by_len[q.shape[-2]] = by_len.get(q.shape[-2], 0) + 1
+        return out
+
+    cfg2 = dataclasses.replace(gen.dit_cfg, depth=2)
+    params2 = dict(gen.dit_params, blocks=gen.dit_params["blocks"][:2])
+    summary = {}
+    for label, changes in F32_MODES:
+        cfg = dataclasses.replace(gen.cfg, **changes)
+        g = VideoGenerator(gen.dit_params, gen.vae_params, cfg)
+        want, want_len = f32_mode_expected(label)
+        by_len.clear()
+        kattn.fused_mha_token_major = tally
+        try:  # the wrapper counts on its module's name: the tally's
+            fns = kernel_wrappers()
+            for fn in fns.values():
+                fn.launches = 0
+            pixels = g.generate(*inputs[:2], num_frames=inputs[1].shape[1],
+                                noise=inputs[2])
+            counts = {n: fn.launches for n, fn in fns.items() if fn.launches}
+        finally:
+            kattn.fused_mha_token_major = wrapped
+        s_frame = g.last_timings["rollout_s"] / n_gen
+        log(f"[e2e fp32] {label}: generate {s_frame:.3f} s/frame; launches "
+            f"{json.dumps(counts)}; fused_mha_token_major by sequence length "
+            f"{json.dumps(by_len)}")
+        if pixels.shape[:2] != (1, inputs[1].shape[1]):
+            fail(f"fp32 {label} generate returned {pixels.shape}")
+        if counts != want or by_len != want_len:
+            fail(f"fp32 {label}: launches {counts} (by length {by_len}), the "
+                 f"code gives {want} ({want_len})")
+        for name, n in counts.items():
+            rows[name].setdefault("fp32", {}).setdefault(
+                "launches_by_mode", {})[label] = n
+            if label in ("int8 fused", "pallas"):
+                rows[name]["fp32"]["launches"] = n
+        p2 = (dit_mod.quantize_for_inference(params2)
+              if cfg.quantize == "int8" else params2)
+        roll = build_rollout(cfg2, dataclasses.replace(cfg, noise_steps=4),
+                             f32)
+        with torch.inference_mode():
+            card = roll(p2, lat0, acts, None, n_gen, nz)
+            on_cpu = roll(dit_mod.params_to(p2, "cpu"), lat0.cpu(),
+                          acts.cpu(), None, n_gen, nz.cpu())
+        scale = max(1.0, on_cpu.abs().max().item())
+        err = (card.cpu() - on_cpu).abs().max().item()
+        log(f"[e2e fp32] {label}: depth-2 rollout card vs CPU: "
+            f"max_abs_err={err:.4g} (tol {E2E_F32_TOL * scale:.4g})")
+        if not (torch.isfinite(card).all() and err <= E2E_F32_TOL * scale):
+            fail(f"fp32 {label} card rollout disagrees with the CPU one")
+        summary[label] = {"s_per_frame": s_frame, "launches": counts,
+                          "mha_by_length": dict(by_len),
+                          "depth2_err_over_max": err / scale}
+        if label == "int8 fused":  # #6 in fp32: the sequential B=4 step
+            int8_batched_step(g, rows, f32)
+        del g, p2
+        torch.cuda.empty_cache()
+    return summary
 
 
 def end_to_end(rows):
@@ -2539,6 +2835,7 @@ def end_to_end(rows):
 
     pallas_path(gen, rows, inputs, lat0, acts, nz)
     sdpa_path(rows)
+    sdpa_path(rows, torch.float32)
     t0 = time.perf_counter()
     summary = approx_path(gen, rows, inputs, lat0, acts)
     log(f"[time] e2e approx: {time.perf_counter() - t0:.1f} s")

@@ -58,9 +58,9 @@ def build_parser():
     p.add_argument("--start_frame", type=str, default=None)
     p.add_argument("--dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"],
-                   help="float32: the fused kernels' fp32 forms on the card "
-                        "(not with --quantize int8 or the pallas backend "
-                        "there)")
+                   help="float32: the kernels' fp32 forms on the card "
+                        "(with --quantize int8 too, and under the pallas "
+                        "backend)")
     p.add_argument("--attention_backend", type=str, default="fused",
                    choices=["xla", "pallas", "fused", "fused_mlp",
                             "fused_all"],

@@ -50,7 +50,8 @@ def build_parser():
     p.add_argument("--vae_model_path",
                    default="checkpoints/vit-l-20.safetensors")
     p.add_argument("--dtype", default="bfloat16",
-                   help="float32 takes --quantize none on the card")
+                   help="float32: the kernels' fp32 forms on the card, "
+                        "int8 (the default --quantize) included")
     p.add_argument("--attention_backend", default="fused")
     p.add_argument("--quantize", choices=["none", "int8"], default="int8")
     p.add_argument("--noise_steps", type=int, default=100)

@@ -25,6 +25,7 @@
 // The fp32 branches (#1 and #5 at x.dtype = float32) take attn_frame_f32
 // below: fp32 q/k/v, probabilities and output, nothing rounded, on the CUDA
 // cores (no tensor-core type keeps fp32: TF32 keeps ten mantissa bits).
+#include "attn_f32.cuh"
 #include "attn_frame.cuh"
 
 namespace {
@@ -112,164 +113,20 @@ int launch(const void* qkv, int qkv_f32, const float* freqs, void* out,
 // ------------------------------------------------------------- fp32
 //
 // The fp32 branches' frame attention (gtax's kernels at x.dtype = float32:
-// nothing is cast, probabilities included), on the CUDA cores. A block of
-// 256 threads takes kF32Rows query rows of one (frame, head) and walks the
-// keys in tiles of kF32Keys, with an online softmax: per tile, the scores
-// S = Q K^T (fp32 FFMA), each row's running max and sum of exponentials
-// (expf), the partial sums O = O * exp(m_old - m) + E V, and at the end
-// O / l. The head's fp32 K and V would not fit a block's shared memory at
-// S = 576 (295 KB at head dim 64), so they stream through in tiles.
-// Thread (ty, tx) = (tid / 16, tid % 16) holds query rows 4 ty .. 4 ty + 3
-// of the tile, their scores against keys 4 tx .. 4 tx + 3 of the key
-// tile, and their outputs at dims HD / 16 tx ..: a row's scores, running
-// max and sum live in the 16 threads of a half-warp (reduced by four
-// shuffles), and its scale factors stay in the threads that hold its
-// outputs. Q and K are staged transposed (dim-major), so both products
-// read float4 along the thread's rows and columns. Rope in fp32 on load,
-// its sin and cos by sincosf (not the special-function unit: fp32 keeps
-// what bf16 would round away).
-constexpr int kF32Rows = 64, kF32Keys = 64, kF32Threads = 256;
-constexpr int kF32LdQ = kF32Rows + 4, kF32LdK = kF32Keys + 4;
-
+// nothing is cast, probabilities included), on the CUDA cores: one block
+// per (query tile of kF32Rows, head, frame), the body attn_frame_f32_unit
+// (attn_f32.cuh), which the fp32 paired int8 kernels share. Three blocks
+// an SM, what the unit's 67 KB of shared memory lets co-reside: so told,
+// ptxas keeps the unit in 80 registers at head dim 64 (left to itself it
+// took 64 and spilled).
 template <int HD>
-constexpr size_t attn_f32_smem() {
-  return (size_t)(HD * kF32LdQ + HD * kF32LdK + kF32Keys * HD +
-                  kF32Keys * kF32LdQ) * sizeof(float);
-}
-
-// rope_pair with sincosf, one reduction for a pair of equal angles
-__device__ __forceinline__ float2 rope_pair_eq(float2 x, const float* f) {
-  float s0, c0, s1, c1;
-  sincosf(f[0], &s0, &c0);
-  if (f[1] == f[0]) {
-    s1 = s0;
-    c1 = c0;
-  } else {
-    sincosf(f[1], &s1, &c1);
-  }
-  return rope_pair_cs(x, c0, s0, c1, s1);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kF32Threads)
+__global__ void __launch_bounds__(kF32Threads, 3)
     attn_frame_f32_kernel(const float* __restrict__ qkv,
                           const float* __restrict__ freqs,
                           float* __restrict__ out, int S, int D, int rot) {
-  constexpr int CW = HD / 16, PAIRS = HD / 2;
   extern __shared__ __align__(16) float fsm[];
-  float* qt = fsm;                   // [HD][kF32LdQ]: Q^T, roped
-  float* kt = qt + HD * kF32LdQ;     // [HD][kF32LdK]: K^T of the tile, roped
-  float* vs = kt + HD * kF32LdK;     // [kF32Keys][HD]: V of the tile
-  float* pt = vs + kF32Keys * HD;    // [kF32Keys][kF32LdQ]: E^T of the tile
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * kF32Rows;
-  const size_t row0 = (size_t)blockIdx.z * S, D3 = 3 * (size_t)D;
-  const size_t hc = (size_t)blockIdx.y * HD;
-  const float scale = 1.0f / sqrtf((float)HD);
-
-  // 64 rows from p0 of the head's q or k columns (col), roped on their
-  // first rot dims, into dst transposed (row stride ld); rows past S zero
-  auto stage_t = [&](float* dst, int ld, size_t col, int p0) {
-    for (int i = tid; i < 64 * PAIRS; i += kF32Threads) {
-      const int r = i / PAIRS, d = i % PAIRS * 2, p = p0 + r;
-      float2 x = make_float2(0.f, 0.f);
-      if (p < S) {
-        x = *reinterpret_cast<const float2*>(qkv + (row0 + p) * D3 + col + d);
-        if (d < rot) x = rope_pair_eq(x, freqs + (size_t)p * rot + d);
-      }
-      dst[d * ld + r] = x.x;
-      dst[(d + 1) * ld + r] = x.y;
-    }
-  };
-
-  stage_t(qt, kF32LdQ, hc, q0);
-  float o[4][CW], m[4], l[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CW; ++c) o[r][c] = 0.f;
-  }
-  for (int j0 = 0; j0 < S; j0 += kF32Keys) {
-    __syncthreads();  // Q is staged; every thread is done with the last tile
-    stage_t(kt, kF32LdK, D + hc, j0);
-    for (int i = tid; i < kF32Keys * HD / 4; i += kF32Threads) {
-      const int r = i / (HD / 4), d = i % (HD / 4) * 4, p = j0 + r;
-      *reinterpret_cast<float4*>(vs + r * HD + d) =
-          p < S ? *reinterpret_cast<const float4*>(qkv + (row0 + p) * D3 +
-                                                   2 * (size_t)D + hc + d)
-                : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    __syncthreads();
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qt + d * kF32LdQ +
-                                                        ty * 4);
-      const float4 b = *reinterpret_cast<const float4*>(kt + d * kF32LdK +
-                                                        tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(av[r], bv[c], s[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float t = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = j0 + tx * 4 + c < S ? s[r][c] * scale : -INFINITY;
-        t = fmaxf(t, s[r][c]);
-      }
-#pragma unroll
-      for (int w = 8; w > 0; w >>= 1)
-        t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, w));
-      const float mn = fmaxf(m[r], t);  // finite: key j0 is below S
-      const float alpha = expf(m[r] - mn);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = expf(s[r][c] - mn);
-        sum += s[r][c];
-        pt[(tx * 4 + c) * kF32LdQ + ty * 4 + r] = s[r][c];
-      }
-#pragma unroll
-      for (int w = 8; w > 0; w >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, w);
-      l[r] = l[r] * alpha + sum;
-      m[r] = mn;
-#pragma unroll
-      for (int c = 0; c < CW; ++c) o[r][c] *= alpha;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < kF32Keys; ++j) {
-      const float4 p = *reinterpret_cast<const float4*>(pt + j * kF32LdQ +
-                                                        ty * 4);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
-      float v[CW];
-#pragma unroll
-      for (int c = 0; c < CW; ++c) v[c] = vs[j * HD + tx * CW + c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < CW; ++c) o[r][c] = fmaf(pv[r], v[c], o[r][c]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int q = q0 + ty * 4 + r;
-    if (q >= S) continue;
-    float* dst = out + (row0 + q) * D + hc + tx * CW;
-#pragma unroll
-    for (int c = 0; c < CW; ++c) dst[c] = o[r][c] / l[r];
-  }
+  attn_frame_f32_unit<HD>(fsm, qkv, freqs, out, S, D, rot, blockIdx.x,
+                          blockIdx.y, blockIdx.z);
 }
 
 template <int HD>

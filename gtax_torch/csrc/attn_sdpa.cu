@@ -29,6 +29,9 @@
 //    16-row tile would waste 11/16 of its work): K and V whole in shared
 //    memory (K rows padded by two elements so a warp's lanes, one key each,
 //    hit distinct banks) and one warp per query row on the fp32 pipes.
+// The fp32 form (gtax_attn_sdpa_f32, below) has a body of each kind too,
+// both on the CUDA cores.
+#include "attn_f32.cuh"
 #include "attn_frame.cuh"
 
 namespace {
@@ -38,24 +41,49 @@ constexpr int kQTile = 64;
 
 // ---- warp rows
 
-template <int HD>
-size_t rows_smem(int S) {
-  return (size_t)S * (HD + 2) * 2 + (size_t)S * HD * 2 + kWarps * HD * 4 +
-         (size_t)kWarps * S * 4;
+// A row's pair of elements (c, c + 1) as fp32, and its copy into shared
+// memory: bf16, or fp32 for the fp32 form (both 4- or 8-byte aligned).
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void copy2(bf16* d, const bf16* s) {
+  *reinterpret_cast<__nv_bfloat162*>(d) =
+      *reinterpret_cast<const __nv_bfloat162*>(s);
+}
+__device__ __forceinline__ void copy2(float* d, const float* s) {
+  *reinterpret_cast<float2*>(d) = *reinterpret_cast<const float2*>(s);
+}
+// the probabilities in the input type: bf16-rounded, or as they are
+__device__ __forceinline__ float prob_round(float p, const bf16*) {
+  return bf16_round(p);
+}
+__device__ __forceinline__ float prob_round(float p, const float*) {
+  return p;
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kWarps * 32)
-    attn_sdpa_rows_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const float* __restrict__ bias,
-                          bf16* __restrict__ out, int S, int q_ld, int k_ld,
-                          int v_ld, int o_ld, float scale) {
+template <int HD, typename T>
+size_t rows_smem(int S) {
+  return (size_t)S * (HD + 2) * sizeof(T) + (size_t)S * HD * sizeof(T) +
+         kWarps * HD * 4 + (size_t)kWarps * S * 4;
+}
+
+// The warp-row body over q, k, v, out of type T (bf16; fp32 for the fp32
+// form, which rounds nothing: its probabilities stay fp32).
+template <int HD, typename T>
+__device__ __forceinline__ void sdpa_rows(const T* __restrict__ q,
+                                          const T* __restrict__ k,
+                                          const T* __restrict__ v,
+                                          const float* __restrict__ bias,
+                                          T* __restrict__ out, int S,
+                                          int q_ld, int k_ld, int v_ld,
+                                          int o_ld, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int KS = HD + 2;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + (size_t)S * KS;
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + (size_t)S * KS;
   float* qbuf = reinterpret_cast<float*>(Vs + (size_t)S * HD);
   float* pbuf = qbuf + kWarps * HD;
 
@@ -63,17 +91,15 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int q0 = blockIdx.x * kQTile;
   const size_t hc = (size_t)blockIdx.y * HD;  // the head's first column
   const size_t n = blockIdx.z;
-  const bf16* qn = q + n * S * q_ld + hc;
-  const bf16* kn = k + n * S * k_ld + hc;
-  const bf16* vn = v + n * S * v_ld + hc;
-  bf16* on = out + n * S * o_ld + hc;
+  const T* qn = q + n * S * q_ld + hc;
+  const T* kn = k + n * S * k_ld + hc;
+  const T* vn = v + n * S * v_ld + hc;
+  T* on = out + n * S * o_ld + hc;
 
   for (int idx = threadIdx.x; idx < S * (HD / 2); idx += kWarps * 32) {
     const int j = idx / (HD / 2), c = (idx % (HD / 2)) * 2;
-    *reinterpret_cast<__nv_bfloat162*>(Ks + (size_t)j * KS + c) =
-        *reinterpret_cast<const __nv_bfloat162*>(kn + (size_t)j * k_ld + c);
-    *reinterpret_cast<__nv_bfloat162*>(Vs + (size_t)j * HD + c) =
-        *reinterpret_cast<const __nv_bfloat162*>(vn + (size_t)j * v_ld + c);
+    copy2(Ks + (size_t)j * KS + c, kn + (size_t)j * k_ld + c);
+    copy2(Vs + (size_t)j * HD + c, vn + (size_t)j * v_ld + c);
   }
   __syncthreads();
 
@@ -82,8 +108,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int q_end = min(q0 + kQTile, S);
   for (int r = q0 + warp; r < q_end; r += kWarps) {
     for (int c = lane * 2; c < HD; c += 64) {
-      const float2 qv = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(qn + (size_t)r * q_ld + c));
+      const float2 qv = load2(qn + (size_t)r * q_ld + c);
       qb[c] = qv.x;
       qb[c + 1] = qv.y;
     }
@@ -95,12 +120,11 @@ __global__ void __launch_bounds__(kWarps * 32)
     const float* brow = bias == nullptr ? nullptr : bias + (size_t)r * S;
     float mx = -INFINITY;
     for (int j = lane; j < S; j += 32) {
-      const __nv_bfloat162* kr =
-          reinterpret_cast<const __nv_bfloat162*>(Ks + (size_t)j * KS);
+      const T* kr = Ks + (size_t)j * KS;
       float acc = 0.f;
 #pragma unroll
       for (int c2 = 0; c2 < HD / 2; ++c2) {
-        const float2 kv = __bfloat1622float2(kr[c2]);
+        const float2 kv = load2(kr + 2 * c2);
         acc = fmaf(qr[2 * c2], kv.x, acc);
         acc = fmaf(qr[2 * c2 + 1], kv.y, acc);
       }
@@ -117,15 +141,15 @@ __global__ void __launch_bounds__(kWarps * 32)
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < S; j += 32) pb[j] = bf16_round(__fdiv_rn(pb[j], sum));
+    for (int j = lane; j < S; j += 32)
+      pb[j] = prob_round(__fdiv_rn(pb[j], sum), q);
     __syncwarp();
 
     for (int c = lane * 2; c < HD; c += 64) {
       float a0 = 0.f, a1 = 0.f;
       for (int j = 0; j < S; ++j) {
         const float p = pb[j];
-        const float2 vv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(Vs + (size_t)j * HD + c));
+        const float2 vv = load2(Vs + (size_t)j * HD + c);
         a0 = fmaf(p, vv.x, a0);
         a1 = fmaf(p, vv.y, a1);
       }
@@ -133,6 +157,17 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     __syncwarp();
   }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWarps * 32)
+    attn_sdpa_rows_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const float* __restrict__ bias,
+                          bf16* __restrict__ out, int S, int q_ld, int k_ld,
+                          int v_ld, int o_ld, float scale) {
+  sdpa_rows<HD, bf16>(q, k, v, bias, out, S, q_ld, k_ld, v_ld, o_ld, scale);
 }
 
 // ---- tensor cores
@@ -250,11 +285,95 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const float* bias,
     return launch_mma<HD>(q, k, v, bias, out, N, S, H, q_ld, k_ld, v_ld,
                           o_ld, scale, st);
   static size_t opted = 48 * 1024;
-  const size_t smem = rows_smem<HD>(S);
+  const size_t smem = rows_smem<HD, bf16>(S);
   const cudaError_t e = opt_in_smem(attn_sdpa_rows_kernel<HD>, smem, opted);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + kQTile - 1) / kQTile, H, N);
   attn_sdpa_rows_kernel<HD><<<grid, kWarps * 32, smem, st>>>(
+      q, k, v, bias, out, S, q_ld, k_ld, v_ld, o_ld, scale);
+  return (int)cudaGetLastError();
+}
+
+// ---- fp32
+//
+// The fp32 form (gtax's _attn_kernel / _mha_kernel at q.dtype = float32:
+// probs.astype(q.dtype) is a no-op, so nothing is rounded): the warp-row
+// body over fp32 rows for short rows, and for longer ones the tiled fp32
+// SIMT body of the fp32 frame attention (attn_f32.cuh attn_f32_unit), 64
+// query rows a block and the keys in 64-key tiles (one head's fp32 K and V
+// at S = 576 take 295 KB, more than a block's 227 KB), scores
+// fp32(q . k * scale + bias), exact expf, PV summed in fp32, an fp32
+// output. No tensor-core instruction: TF32 would keep three digits.
+
+template <int HD>
+__global__ void __launch_bounds__(kWarps * 32)
+    attn_sdpa_rows_f32_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ bias,
+                              float* __restrict__ out, int S, int q_ld,
+                              int k_ld, int v_ld, int o_ld, float scale) {
+  sdpa_rows<HD, float>(q, k, v, bias, out, S, q_ld, k_ld, v_ld, o_ld,
+                       scale);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads)
+    attn_sdpa_tiled_f32_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const float* __restrict__ bias,
+                               float* __restrict__ out, int S, int q_ld,
+                               int k_ld, int v_ld, int o_ld, float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  const size_t hc = (size_t)blockIdx.y * HD, n = blockIdx.z;
+  const float* qn = q + n * S * q_ld + hc;
+  const float* kn = k + n * S * k_ld + hc;
+  const float* vn = v + n * S * v_ld + hc;
+  float* on = out + n * S * o_ld + hc;
+  auto score = [=](float s, int r, int key) {
+    const float sc = __fmul_rn(s, scale);
+    return bias == nullptr
+               ? sc
+               : __fadd_rn(sc, bias[(size_t)min(r, S - 1) * S + key]);
+  };
+  attn_f32_unit<HD>(
+      fsm, S, blockIdx.x * kF32Rows,
+      [=](int p, int d) {
+        return *reinterpret_cast<const float2*>(qn + (size_t)p * q_ld + d);
+      },
+      [=](int p, int d) {
+        return *reinterpret_cast<const float2*>(kn + (size_t)p * k_ld + d);
+      },
+      [=](int p, int d) {
+        return *reinterpret_cast<const float4*>(vn + (size_t)p * v_ld + d);
+      },
+      score, [=](int r, int c, float o) { on[(size_t)r * o_ld + c] = o; });
+}
+
+template <int HD>
+int launch_f32(const float* q, const float* k, const float* v,
+               const float* bias, float* out, int N, int S, int H, int q_ld,
+               int k_ld, int v_ld, int o_ld, int tiled, float scale,
+               cudaStream_t st) {
+  if (tiled) {
+    static size_t opted = 48 * 1024;
+    constexpr size_t smem = attn_f32_smem<HD>();
+    const cudaError_t e =
+        opt_in_smem(attn_sdpa_tiled_f32_kernel<HD>, smem, opted);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((S + kF32Rows - 1) / kF32Rows, H, N);
+    attn_sdpa_tiled_f32_kernel<HD><<<grid, kF32Threads, smem, st>>>(
+        q, k, v, bias, out, S, q_ld, k_ld, v_ld, o_ld, scale);
+    return (int)cudaGetLastError();
+  }
+  static size_t opted = 48 * 1024;
+  const size_t smem = rows_smem<HD, float>(S);
+  const cudaError_t e =
+      opt_in_smem(attn_sdpa_rows_f32_kernel<HD>, smem, opted);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + kQTile - 1) / kQTile, H, N);
+  attn_sdpa_rows_f32_kernel<HD><<<grid, kWarps * 32, smem, st>>>(
       q, k, v, bias, out, S, q_ld, k_ld, v_ld, o_ld, scale);
   return (int)cudaGetLastError();
 }
@@ -295,6 +414,42 @@ GTAX_ENTRY gtax_attn_sdpa(const void* q, const void* k, const void* v,
     case 64:
       return launch<64>(qp, kp, vp, b, o, N, S, num_heads, q_ld, k_ld, v_ld,
                         o_ld, tensor_cores, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The fp32 form: gtax_attn_sdpa's arguments over fp32 q, k, v and out;
+// tiled: 1 for the tiled SIMT body (the caller's rule for the tensor-core
+// body's lengths), 0 for warp rows. The tiled body reads q and k 8 bytes
+// and v 16 bytes at a time (lds multiples of 4, pointers 16-byte
+// aligned); warp rows read 8 bytes (lds even, pointers 8-byte aligned).
+GTAX_ENTRY gtax_attn_sdpa_f32(const void* q, const void* k, const void* v,
+                              const void* bias, void* out, int N, int S,
+                              int num_heads, int hd, int q_ld, int k_ld,
+                              int v_ld, int o_ld, int tiled, float scale,
+                              void* stream) {
+  const int align = tiled ? 4 : 2;
+  if (N <= 0 || S <= 0 || num_heads <= 0 || q_ld < num_heads * hd ||
+      k_ld < num_heads * hd || v_ld < num_heads * hd ||
+      o_ld < num_heads * hd || q_ld % align || k_ld % align || v_ld % align ||
+      o_ld % 2 ||
+      (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) %
+       (4 * align)))
+    return (int)cudaErrorInvalidValue;
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* b = static_cast<const float*>(bias);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (hd) {
+    case 32:
+      return launch_f32<32>(qp, kp, vp, b, o, N, S, num_heads, q_ld, k_ld,
+                            v_ld, o_ld, tiled, scale, st);
+    case 64:
+      return launch_f32<64>(qp, kp, vp, b, o, N, S, num_heads, q_ld, k_ld,
+                            v_ld, o_ld, tiled, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

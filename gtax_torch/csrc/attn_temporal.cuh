@@ -38,16 +38,18 @@ __device__ __forceinline__ float2 load_ctx(const float* p) {
 
 // unit = (b * S + s) * H + h; warps whose unit is past B * S * H return.
 // KV = bf16: the bf16 branches' rounding (q, k, v and the probabilities
-// cast to bf16, a bf16 context cache); KV = float: the fp32 branches', with
-// nothing rounded, an fp32 cache and an fp32 output (out_f32 = 1, no
-// q/k/v outputs).
+// cast to bf16, a bf16 context cache, bf16 q/k/v outputs); KV = float: the
+// fp32 branches', with nothing rounded, an fp32 cache, an fp32 output
+// (out_f32 = 1) and fp32 q/k/v outputs (the fp32 int8 prefill's K/V cache).
 template <int HD, typename KV = bf16>
 __device__ __forceinline__ void attn_temporal_unit(
     int unit, const float* __restrict__ qkv, const float* __restrict__ freqs,
     const typename same_as<KV>::type* __restrict__ k_ctx,
     const typename same_as<KV>::type* __restrict__ v_ctx,
-    void* __restrict__ out, int out_f32, bf16* __restrict__ q_out,
-    bf16* __restrict__ k_out, bf16* __restrict__ v_out, int B, int n_q,
+    void* __restrict__ out, int out_f32,
+    typename same_as<KV>::type* __restrict__ q_out,
+    typename same_as<KV>::type* __restrict__ k_out,
+    typename same_as<KV>::type* __restrict__ v_out, int B, int n_q,
     int q_off, int S, int D, int H, int valid_mask) {
   constexpr int P = HD >= 64 ? HD / 64 : 1;  // dim pairs per lane
   if (unit >= B * S * H) return;

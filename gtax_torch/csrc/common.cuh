@@ -49,6 +49,11 @@ __device__ __forceinline__ void store_pair(bf16* base, size_t idx, float a,
                                            float b) {
   *reinterpret_cast<__nv_bfloat162*>(base + idx) = __floats2bfloat162_rn(a, b);
 }
+// the same pair stored to an fp32 row as it is (idx even: 8-byte aligned)
+__device__ __forceinline__ void store_pair(float* base, size_t idx, float a,
+                                           float b) {
+  *reinterpret_cast<float2*>(base + idx) = make_float2(a, b);
+}
 
 // Eight bf16 of a row (16 bytes) through the read-only path.
 __device__ __forceinline__ uint4 ldg16(const bf16* p) {

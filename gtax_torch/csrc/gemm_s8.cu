@@ -14,7 +14,10 @@
 // One group (G = K) is _qdot's (acc * sa) * ws; G = 512 is _mlp_kernel_q's
 // fc2, which requantizes the GELU output per H-chunk and so cannot be one
 // int32 product over K = 4096. Epilogues: y in fp32 (qkv); tanh-GELU(y + b)
-// in fp32 (fc1); bf16(x + gate[row / S] * (y + b)) (out-projection, fc2).
+// in fp32 (fc1); bf16(x + gate[row / S] * (y + b)) (out-projection, fc2),
+// or that sum unrounded over fp32 x and gate (the fp32 int8 branches,
+// gtax's kernels at x.dtype = float32: an instantiation of its own, so the
+// bf16 epilogue's code does not change).
 // For int8-forward training (the emit_train outputs of the TPU kernels:
 // _mlp_kernel_q's pre-GELU h1, the three kernels' pre-gate y) the last two
 // also store bf16(y + b) from the same fp32 value, after the split sum
@@ -90,8 +93,10 @@ int launch(const void* A, const void* B, gemm_s8::Args p, cudaStream_t st) {
 
 // A: (M, K) int8; B: W^T, (N, K) int8 row-major; sa: (M, K / group) fp32
 // activation scales; ws: (N,) fp32 weight scales; bias: (N,) fp32 or bf16
-// (epilogues 1-3); resid: (M, N) bf16 and gate: per-frame bf16 rows of
-// gate_stride, frame = row / S (epilogue 2); k_chunk: the split-K chunk;
+// (epilogues 1-4); resid: (M, N) bf16 and gate: per-frame bf16 rows of
+// gate_stride, frame = row / S (epilogue 2; both fp32 and C fp32 for
+// epilogue 4, the fp32 int8 branches' gated residual, which stores no C2);
+// k_chunk: the split-K chunk;
 // part: (ceil(K / k_chunk), M, N) int32, unused with one chunk; C2: null,
 // or (M, N) bf16 of y + bias (epilogues 1, 2 and 3).
 GTAX_ENTRY gtax_gemm_s8(const void* A, const void* B, void* C, void* C2,
@@ -102,15 +107,16 @@ GTAX_ENTRY gtax_gemm_s8(const void* A, const void* B, void* C, void* C2,
                         void* stream) {
   gemm_s8::Args p{
       C, static_cast<const float*>(sa), group > 0 ? K / group : 0, group,
-      static_cast<const float*>(ws), bias, bias_f32,
-      static_cast<const bf16*>(resid), static_cast<const bf16*>(gate),
+      static_cast<const float*>(ws), bias, bias_f32, resid, gate,
       gate_stride, M, N, K, S, k_chunk, static_cast<int*>(part)};
   p.C2 = static_cast<bf16*>(C2);
   using namespace gemm_s8;
   if (!valid(p) || S <= 0 || sa == nullptr || ws == nullptr ||
       (epi != gemm_s8::EPI_F32 && bias == nullptr) ||
-      (epi == gemm_s8::EPI_F32 && C2 != nullptr) ||
-      (epi == gemm_s8::EPI_BIAS_GATED && (resid == nullptr || gate == nullptr)))
+      ((epi == gemm_s8::EPI_F32 || epi == gemm_s8::EPI_BIAS_GATED_F32) &&
+       C2 != nullptr) ||
+      ((epi == gemm_s8::EPI_BIAS_GATED || epi == gemm_s8::EPI_BIAS_GATED_F32) &&
+       (resid == nullptr || gate == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (epi) {
@@ -122,6 +128,8 @@ GTAX_ENTRY gtax_gemm_s8(const void* A, const void* B, void* C, void* C2,
       return launch<gemm_s8::EPI_BIAS_GATED>(A, B, p, st);
     case gemm_s8::EPI_BIAS_GELU_ERF_F32:
       return launch<gemm_s8::EPI_BIAS_GELU_ERF_F32>(A, B, p, st);
+    case gemm_s8::EPI_BIAS_GATED_F32:
+      return launch<gemm_s8::EPI_BIAS_GATED_F32>(A, B, p, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

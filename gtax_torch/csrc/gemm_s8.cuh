@@ -56,12 +56,14 @@ enum Epi {
   EPI_BIAS_GELU_F32 = 1,      // fp32 C = gelu_tanh(y + bias)
   EPI_BIAS_GATED = 2,         // bf16 C = x + gate[row / S] * (y + bias)
   EPI_BIAS_GELU_ERF_F32 = 3,  // fp32 C = gelu_exact(y + bias)
+  EPI_BIAS_GATED_F32 = 4,     // fp32 C = x + gate[row / S] * (y + bias)
 };  // 1, 2 and 3 also store bf16(y + bias) to C2 when it is set
 
 // C = epilogue(dequant(A @ B)): A (M, K) int8 with fp32 scales sa (M,
 // n_groups), K groups of `group`; B (K, N) int8 read as W^T through its
 // tensor map, fp32 column scales ws; bias (N,) fp32 or bf16; resid (M, N)
-// bf16 and gate per-frame bf16 rows of gate_stride, frame = row / S.
+// and gate per-frame rows of gate_stride, frame = row / S, both bf16 (both
+// fp32 for EPI_BIAS_GATED_F32, whose C is fp32 too: nothing rounded).
 // Split K: at most kMaxSplits chunks of k_chunk (a multiple of BK; a
 // divisor of `group` when there is more than one group), part (splits, M,
 // N) int32 partials.
@@ -72,8 +74,8 @@ struct Args {
   const float* ws;
   const void* bias;
   int bias_f32;
-  const bf16* resid;
-  const bf16* gate;
+  const void* resid;
+  const void* gate;
   int gate_stride;
   int M, N, K, S;
   int k_chunk;
@@ -208,13 +210,22 @@ __device__ __forceinline__ void store_out(const Args& p, int gm, int gn,
   } else if (EPI == EPI_BIAS_GELU_ERF_F32) {
     *reinterpret_cast<float2*>(static_cast<float*>(p.C) + o) =
         make_float2(gelu_exact_rn(u0), gelu_exact_rn(u1));
+  } else if (EPI == EPI_BIAS_GATED_F32) {
+    const float2 x =
+        *reinterpret_cast<const float2*>(static_cast<const float*>(p.resid) + o);
+    const float* gate = static_cast<const float*>(p.gate) +
+                        (size_t)(gm / p.S) * p.gate_stride + gn;
+    *reinterpret_cast<float2*>(static_cast<float*>(p.C) + o) =
+        make_float2(__fadd_rn(x.x, __fmul_rn(gate[0], u0)),
+                    __fadd_rn(x.y, __fmul_rn(gate[1], u1)));
   } else {
-    const float2 x = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(p.resid + o));
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+        static_cast<const bf16*>(p.resid) + o));
+    const bf16* gate = static_cast<const bf16*>(p.gate);
     const size_t gi = (size_t)(gm / p.S) * p.gate_stride + gn;
     store_pair(static_cast<bf16*>(p.C), o,
-               __fadd_rn(x.x, __fmul_rn(bf2f(p.gate[gi]), u0)),
-               __fadd_rn(x.y, __fmul_rn(bf2f(p.gate[gi + 1]), u1)));
+               __fadd_rn(x.x, __fmul_rn(bf2f(gate[gi]), u0)),
+               __fadd_rn(x.y, __fmul_rn(bf2f(gate[gi + 1]), u1)));
   }
 }
 

@@ -1,7 +1,8 @@
 // LayerNorm rows in fp32, then either the DiT adaLN modulate or an affine,
 // written as bf16, or the modulate quantized to int8 with a per-row scale:
 // the first stage of every fused branch. The fp32 branches (modes 3 and
-// 4) read fp32 rows and store the modulate or the affine unrounded.
+// 4) read fp32 rows and store the modulate or the affine unrounded; the
+// fp32 int8 branches (mode 5) quantize the modulate of fp32 rows.
 //
 // Replaces the LN/modulate prologue that each TPU kernel ran in VMEM
 // (gtax/kernels/block.py _ln_modulate32, gtax/kernels/vae_block.py ln) and,
@@ -34,16 +35,19 @@ __global__ void __launch_bounds__(kLnThreads)
 GTAX_ENTRY gtax_ln_mod(const void* x, void* out, void* row_scale,
                        const void* p0, const void* p1, int rows, int D, int S,
                        int p_stride, int mode, void* stream) {
-  if (rows <= 0 || D <= 0 || S <= 0 || mode < 0 || mode > 4 ||
-      (mode == 2 && row_scale == nullptr))
+  const bool int8 = mode == LN_MODULATE_INT8 || mode == LN_MODULATE_INT8_F32;
+  if (rows <= 0 || D <= 0 || S <= 0 || mode < 0 ||
+      mode > LN_MODULATE_INT8_F32 || (int8 && row_scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = mode == 2 ? (size_t)D * sizeof(float) : 0;
+  const size_t smem = int8 ? (size_t)D * sizeof(float) : 0;
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (mode >= LN_MODULATE_F32)  // modes 0 and 1 over fp32 rows
-    ln_mod_kernel<float><<<rows, kLnThreads, 0, st>>>(
-        static_cast<const float*>(x), out, nullptr, p0, p1, D, S, p_stride,
-        mode - LN_MODULATE_F32);
+  if (mode >= LN_MODULATE_F32)  // modes 0, 1 and 2 over fp32 rows
+    ln_mod_kernel<float><<<rows, kLnThreads, smem, st>>>(
+        static_cast<const float*>(x), out, static_cast<float*>(row_scale),
+        p0, p1, D, S, p_stride,
+        mode == LN_MODULATE_INT8_F32 ? LN_MODULATE_INT8
+                                     : mode - LN_MODULATE_F32);
   else
     ln_mod_kernel<bf16><<<rows, kLnThreads, smem, st>>>(
         static_cast<const bf16*>(x), out, static_cast<float*>(row_scale), p0,

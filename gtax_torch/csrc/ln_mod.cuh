@@ -33,6 +33,7 @@ enum LnMode {
   LN_MODULATE_INT8 = 2,  // the mode-0 row in fp32, int8 + per-row scale
   LN_MODULATE_F32 = 3,   // mode 0 over fp32 x, shift, scale: fp32 out
   LN_AFFINE_F32 = 4,     // mode 1 over fp32 x: fp32 out
+  LN_MODULATE_INT8_F32 = 5,  // mode 2 over fp32 x, shift, scale
 };
 
 // An element of a bf16 or fp32 row as fp32, and its store: rounded to
@@ -43,8 +44,9 @@ __device__ __forceinline__ void st_f(bf16* p, float v) { *p = f2bf(v); }
 __device__ __forceinline__ void st_f(float* p, float v) { *p = v; }
 
 // One row of ln_mod over x of element type T (bf16, or fp32 for the
-// entry point's modes 3 and 4, which run modes 0 and 1 here with T =
-// float: the same arithmetic, nothing rounded): LayerNorm in fp32, then
+// entry point's modes 3, 4 and 5, which run modes 0, 1 and 2 here with T =
+// float: the same arithmetic, nothing rounded before the int8 rounding of
+// mode 2): LayerNorm in fp32, then
 // mode 0: out = T(LN(x) * (1 + scale[f] + 1e-6) + shift[f]), f = row / S,
 //         shift/scale T rows of stride p_stride (gtax/nn/layers.py modulate)
 // mode 1: out = T(LN(x) * weight + bias), weight/bias fp32 (D,)

@@ -39,30 +39,18 @@
 // Bound: bytes, the 12 MB of int8 weights at one or two frames. What the
 // pair saves is host work and launches: one launch for nine. The device
 // code is pair_q.cuh's; the exact-GELU kernels (approx_gelu=False) are
-// instantiated apart, in pair_q_exact.cu.
+// instantiated apart, in pair_q_exact.cu, and the fp32 forms in
+// pair_q_f32.cu and pair_q_f32_exact.cu.
 #include "pair_q.cuh"
 
 using namespace pairq;
 
 namespace {
 
-template <int HD, bool TEMPORAL>
-int launch(const PairArgs& a, const PairMaps& maps, cudaStream_t st) {
-  return a.exact_gelu ? launch_exact(HD, TEMPORAL, a, maps, st)
-                      : launch_gelu<HD, TEMPORAL, false>(a, maps, st);
-}
-
-template <bool TEMPORAL>
-int grid_blocks_for(int hd, int S, int D) {
-  size_t smem = 0;
-  switch (hd) {
-    case 32:
-      return grid_blocks<32, TEMPORAL>(S, D, &smem);
-    case 64:
-      return grid_blocks<64, TEMPORAL>(S, D, &smem);
-    default:
-      return -(int)cudaErrorInvalidValue;
-  }
+int launch_bf16(int hd, bool temporal, const PairArgs& a,
+                const PairMaps& maps, cudaStream_t st) {
+  return a.exact_gelu ? launch_exact(hd, temporal, a, maps, st)
+                      : launch_hd<bf16, false>(hd, temporal, a, maps, st);
 }
 
 }  // namespace
@@ -70,8 +58,7 @@ int grid_blocks_for(int hd, int S, int D) {
 // The cooperative grid's block count for these shapes (what a launch
 // uses), or minus a CUDA error code.
 GTAX_ENTRY gtax_pair_q_blocks(int temporal, int hd, int S, int D) {
-  return temporal ? grid_blocks_for<true>(hd, S, D)
-                  : grid_blocks_for<false>(hd, S, D);
+  return blocks_hd<bf16>(temporal, hd, S, D);
 }
 
 // One paired half-block. x: (M, D) bf16 rows, M = frames * S (spatial) or
@@ -85,114 +72,6 @@ GTAX_ENTRY gtax_pair_q_blocks(int temporal, int hd, int S, int D) {
 // qkv, out-projection, fc1 and fc2 GEMMs (gemm_s8.cuh); ws: workspace of
 // at least the bytes workspace_layout gives; exact_gelu: fc1's GELU is
 // jax.nn.gelu(approximate=False) (1) or the tanh form (0).
-GTAX_ENTRY gtax_pair_q(
-    int temporal, const void* x, const void* sh1, const void* sc1,
-    const void* g1, const void* sh2, const void* sc2, const void* g2,
-    int p1_stride, int g1_stride, int p2_stride, int g2_stride,
-    const void* qkv_q, const void* qkv_s, const void* out_q,
-    const void* out_s, const void* out_b, int out_b_f32, const void* w1_q,
-    const void* w1_s, const void* b1, int b1_f32, const void* w2_q,
-    const void* w2_s, const void* b2, int b2_f32, const void* freqs,
-    const void* k_ctx, const void* v_ctx, void* out, void* ws,
-    long long ws_bytes, int M, int S, int D, int Hd, int G, int num_heads,
-    int B, int n_live, int n_ctx, int valid_mask, int kc_qkv, int kc_out,
-    int kc_fc1, int kc_fc2, int exact_gelu, void* stream) {
-  if (M <= 0 || S <= 0 || M % S || D <= 0 || D % gemm_s8::BN ||
-      D % gemm_s8::BK || num_heads <= 0 || D % num_heads || Hd <= 0 ||
-      Hd % gemm_s8::BN || G <= 0 || G % gemm_s8::BK || Hd % G ||
-      x == nullptr || out == nullptr || ws == nullptr)
-    return (int)cudaErrorInvalidValue;
-  if (temporal &&
-      (B <= 0 || n_live <= 0 || n_ctx <= 0 || n_live + n_ctx > kMaxT ||
-       (size_t)B * n_live * S != (size_t)M || k_ctx == nullptr ||
-       v_ctx == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int chunks[kGemms] = {kc_qkv, kc_out, kc_fc1, kc_fc2};
-  int nk[kGemms][2];
-  gemm_shapes(D, Hd, nk);
-  for (int i = 0; i < kGemms; ++i) {
-    const int group = i == 3 ? G : nk[i][1];
-    gemm_s8::Args p{};
-    p.n_groups = nk[i][1] / group;
-    p.group = group;
-    p.M = M;
-    p.N = nk[i][0];
-    p.K = nk[i][1];
-    p.S = S;
-    p.k_chunk = chunks[i];
-    p.part = static_cast<int*>(ws);
-    if (!gemm_s8::valid(p)) return (int)cudaErrorInvalidValue;
-  }
-  size_t sizes[kBuffers];
-  const size_t carved = workspace_layout(M, D, Hd, G, chunks, sizes);
-  unsigned long long* stamps = nullptr;
-#ifdef GTAX_PAIR_PROBE
-  // the probe's stamps follow the buffers: kStamps per block of the grid
-  const int blocks = temporal ? grid_blocks_for<true>(D / num_heads, S, D)
-                              : grid_blocks_for<false>(D / num_heads, S, D);
-  if (blocks < 0) return -blocks;
-  if ((size_t)ws_bytes < carved + (size_t)blocks * kStamps * 8)
-    return (int)cudaErrorInvalidValue;
-  stamps = reinterpret_cast<unsigned long long*>(static_cast<char*>(ws) +
-                                                 carved);
-#endif
-  if ((size_t)ws_bytes < carved) return (int)cudaErrorInvalidValue;
-  unsigned char* w = static_cast<unsigned char*>(ws);
-  void* buf[kBuffers];
-  for (int i = 0; i < kBuffers; ++i) {
-    buf[i] = w;
-    w += align256(sizes[i]);
-  }
-  PairArgs a{
-      static_cast<const bf16*>(x),
-      static_cast<const bf16*>(sh1), static_cast<const bf16*>(sc1),
-      static_cast<const bf16*>(g1), static_cast<const bf16*>(sh2),
-      static_cast<const bf16*>(sc2), static_cast<const bf16*>(g2),
-      p1_stride, g1_stride, p2_stride, g2_stride,
-      static_cast<const float*>(qkv_s), static_cast<const float*>(out_s),
-      static_cast<const float*>(w1_s), static_cast<const float*>(w2_s),
-      out_b, b1, b2, out_b_f32, b1_f32, b2_f32,
-      static_cast<const float*>(freqs),
-      static_cast<const bf16*>(k_ctx), static_cast<const bf16*>(v_ctx),
-      static_cast<bf16*>(out),
-      static_cast<signed char*>(buf[0]), static_cast<float*>(buf[1]),
-      static_cast<float*>(buf[2]), static_cast<float*>(buf[3]),
-      static_cast<signed char*>(buf[4]), static_cast<float*>(buf[5]),
-      static_cast<bf16*>(buf[6]), static_cast<signed char*>(buf[7]),
-      static_cast<float*>(buf[8]), static_cast<float*>(buf[9]),
-      static_cast<signed char*>(buf[10]), static_cast<float*>(buf[11]),
-      static_cast<int*>(buf[12]),
-      {kc_qkv, kc_out, kc_fc1, kc_fc2},
-      M, S, D, Hd, G, num_heads, B, n_live, n_ctx, valid_mask, stamps,
-      exact_gelu};
-  // the GEMMs' operands: the int8 rows of the workspace, and the weights
-  PairMaps maps;
-  const void* act[kGemms] = {a.mq1, a.aq, a.mq2, a.hq};
-  const void* wt[kGemms] = {qkv_q, out_q, w1_q, w2_q};
-  for (int i = 0; i < kGemms; ++i) {
-    int rc = sm90::make_map(&maps.a[i], act[i], M, nk[i][1], 64, 1);
-    if (rc) return rc;
-    rc = sm90::make_map(&maps.b[i], wt[i], nk[i][0], nk[i][1], 64, 1);
-    if (rc) return rc;
-  }
-  cudaStream_t st = (cudaStream_t)stream;
-  const int hd = D / num_heads;
-  if (temporal) {
-    switch (hd) {
-      case 32:
-        return launch<32, true>(a, maps, st);
-      case 64:
-        return launch<64, true>(a, maps, st);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  }
-  switch (hd) {
-    case 32:
-      return launch<32, false>(a, maps, st);
-    case 64:
-      return launch<64, false>(a, maps, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+GTAX_ENTRY gtax_pair_q(GTAX_PAIR_PARAMS) {
+  return pair_call<bf16>(blocks_hd<bf16>, launch_bf16, GTAX_PAIR_ARGS);
 }

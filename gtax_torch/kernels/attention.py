@@ -16,10 +16,14 @@ before any kernel runs.
 
 The tensor's device picks the path: a CPU tensor gets the plain version
 (`sdpa_plain`, `mha_token_major_plain`, any float dtype), a CUDA tensor gets
-the sm_90a kernel of gtax_torch/csrc/attn_sdpa.cu (bf16 only) or an
-exception: its tensor-core body for rows of SDPA_TENSOR_CORES_MIN_S tokens
-or more, its warp-per-row body for shorter ones (`sdpa_tensor_cores`).
-Each wrapper counts its kernel launches in `launches`.
+the sm_90a kernel of gtax_torch/csrc/attn_sdpa.cu (bf16, or its fp32 form)
+or an exception: its tensor-core body for rows of SDPA_TENSOR_CORES_MIN_S
+tokens or more, its warp-per-row body for shorter ones
+(`sdpa_tensor_cores`). In fp32 (gtax's kernels at q.dtype = float32, where
+the probabilities' cast is a no-op) the same rule picks between the fp32
+form's tiled SIMT body and its warp rows, both on the CUDA cores, nothing
+rounded below fp32. Each wrapper counts its kernel launches in
+`launches`.
 """
 
 from __future__ import annotations
@@ -126,12 +130,12 @@ def sdpa_tensor_cores(S: int) -> bool:
 def _token_rows(t, S, width, align):
     """t (..., S, width) as rows of S tokens with token stride ld and row
     stride S * ld, as the kernel reads them: ld a multiple of `align`
-    elements and the pointer of 2 * align bytes (the tensor-core body reads
-    16 bytes at a time); copied only when its layout is not that (a q/k/v
-    view of a fused qkv row is read in place)."""
+    elements and the pointer aligned to `align` elements (the tensor-core
+    and tiled bodies read 16 bytes at a time); copied only when its layout
+    is not that (a q/k/v view of a fused qkv row is read in place)."""
     ld = t.stride(-2)
     ok = (t.stride(-1) == 1 and ld >= width and ld % align == 0
-          and t.data_ptr() % (2 * align) == 0)
+          and t.data_ptr() % (align * t.element_size()) == 0)
     expect = S * ld
     for size, stride in reversed(list(zip(t.shape[:-2], t.stride()[:-2]))):
         ok = ok and (size == 1 or stride == expect)
@@ -139,29 +143,39 @@ def _token_rows(t, S, width, align):
     return (t, ld) if ok else (t.contiguous(), width)
 
 
+def _align(tiled: bool, dtype) -> int:
+    """The elements an ld (and the pointer) must be a multiple of: 16 bytes
+    for the tensor-core and tiled bodies, two elements for warp rows."""
+    elem = torch.finfo(dtype).bits // 8
+    return 16 // elem if tiled else 2
+
+
 def _launch(q, k, v, mask, causal, S, num_heads, d):
-    """out (N, S, num_heads * d) bf16 of the kernel over the rows of q/k/v,
-    which share their leading dims. With no mask and no causality the bias
-    is all zeros, and the kernel is given none (its scores then add
-    nothing, as adding +0 would)."""
+    """out (N, S, num_heads * d), q's dtype (bf16 or fp32), of the kernel
+    over the rows of q/k/v, which share their leading dims and dtype. With
+    no mask and no causality the bias is all zeros, and the kernel is given
+    none (its scores then add nothing, as adding +0 would)."""
     width = num_heads * d
+    dt = q.dtype
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _need(t.is_cuda and t.dtype == torch.bfloat16,
-              lambda: f"{name} must be a CUDA bf16 tensor (the kernel "
-                      f"computes in bf16), got {_desc(t)}")
+        _need(t.is_cuda and t.dtype in (torch.bfloat16, torch.float32)
+              and t.dtype == dt,
+              lambda: f"{name} must be a CUDA bf16 or fp32 tensor of q's "
+                      f"dtype {dt}, got {_desc(t)}")
     _need(q.shape == k.shape == v.shape,
           lambda: f"q/k/v shapes differ: {tuple(q.shape)}, "
                   f"{tuple(k.shape)}, {tuple(v.shape)}")
     _need(d in (32, 64), lambda: f"head dim {d}: the kernel takes 32 or 64")
     tc = sdpa_tensor_cores(S)
-    (q, q_ld), (k, k_ld), (v, v_ld) = (_token_rows(t, S, width, 8 if tc
-                                                   else 2)
+    align = _align(tc, dt)
+    (q, q_ld), (k, k_ld), (v, v_ld) = (_token_rows(t, S, width, align)
                                        for t in (q, k, v))
     N = q.numel() // (S * width)
     bias = (None if mask is None and not causal
             else build_bias(S, mask, causal, q.device))
-    out = torch.empty((N, S, width), dtype=torch.bfloat16, device=q.device)
-    build.launch("gtax_attn_sdpa", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    out = torch.empty((N, S, width), dtype=dt, device=q.device)
+    name = "gtax_attn_sdpa_f32" if dt == torch.float32 else "gtax_attn_sdpa"
+    build.launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  _ptr(bias), out.data_ptr(), N, S, num_heads, d, q_ld,
                  k_ld, v_ld, width, int(tc), 1.0 / d**0.5, _stream(q))
     return out
@@ -176,7 +190,8 @@ def fused_sdpa(q, k, v, mask=None, causal=False):
     Replaces gtax/kernels/attention.py fused_sdpa (:130; _fused_sdpa_flat,
     pallas_call at :90, body _attn_kernel :60). On the card: one launch of
     attn_sdpa, a block per (query tile, row): 128 rows on the tensor cores,
-    or 64 on the warp-per-row body for short rows. Bound: bytes."""
+    or 64 on the warp-per-row body for short rows (fp32: 64 rows of the
+    tiled SIMT body, or warp rows). Bound: bytes."""
     S, d = q.shape[-2], q.shape[-1]
     if _unsupported(mask, S):
         return None

@@ -76,7 +76,8 @@ EPI_BIAS_GELU_ERF = 11
 EPI_BIAS_GELU_ERF_H = 12
 
 # ln_mod modes (csrc/ln_mod.cuh): over bf16 rows; + LN_F32, over fp32 rows
-LN_MODULATE, LN_AFFINE, LN_F32 = 0, 1, 3
+# (the int8 mode over fp32 rows: LN_INT8_F32)
+LN_MODULATE, LN_AFFINE, LN_INT8, LN_F32, LN_INT8_F32 = 0, 1, 2, 3, 5
 
 # the most frames of a temporal window (csrc/attn_temporal.cuh kMaxT): the
 # temporal kernels' register arrays, and the window kernels' T template
@@ -404,7 +405,7 @@ def forward_only(name, *args):
 
 
 # the compute dtypes the kernels take: bf16, and fp32 (the fp32 forms);
-# the int8 branches and the backwards take bf16 only
+# the backwards, and every emit_train forward, take bf16 only
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 BF16_ONLY = (torch.bfloat16,)
 
@@ -434,12 +435,11 @@ def _check_bias(name, b, n):
 
 def launch_ln_mod(x, out, rows, D, S, mode, p0, p1, p_stride=0,
                   row_scale=None):
-    """mode LN_MODULATE or LN_AFFINE over x's dtype (the fp32 modes for
-    fp32 rows, out fp32), or the int8 mode over bf16 rows."""
+    """mode LN_MODULATE, LN_AFFINE or LN_INT8 (int8 out and its row scales)
+    over x's dtype: for fp32 rows their fp32 modes (out fp32, or int8 from
+    the fp32 modulate)."""
     if x.dtype == torch.float32:
-        _need(mode in (LN_MODULATE, LN_AFFINE),
-              lambda: f"ln_mod mode {mode} takes bf16 rows")
-        mode += LN_F32
+        mode = LN_INT8_F32 if mode == LN_INT8 else mode + LN_F32
     build.launch("gtax_ln_mod", x.data_ptr(), out.data_ptr(),
                  None if row_scale is None else row_scale.data_ptr(),
                  p0.data_ptr(), p1.data_ptr(), rows, D, S, p_stride, mode,
@@ -581,12 +581,16 @@ def launch_gemm_f32_rope_qkv(mod, qkv_w, q, k, v, freqs, S, n_q, q_off, hd,
 
 
 def launch_attn_temporal_f32(qkv, freqs, out, B, n_q, q_off, S, D,
-                             num_heads, bits, k_ctx, v_ctx):
-    """The fp32 incremental step: qkv fp32 rows (rope on load), the fp32
-    context cache, out fp32; nothing rounded."""
+                             num_heads, bits, k_ctx=None, v_ctx=None,
+                             kv_out=None):
+    """The fp32 form of launch_attn_temporal: qkv fp32 rows (rope on load),
+    the fp32 context cache (the step), out fp32, kv_out an optional (K, V)
+    pair of fp32 outputs (the full window's emit_kv); nothing rounded."""
+    k_out, v_out = kv_out or (None, None)
     build.launch("gtax_attn_temporal_f32", qkv.data_ptr(), freqs.data_ptr(),
-                 k_ctx.data_ptr(), v_ctx.data_ptr(), out.data_ptr(), B, n_q,
-                 q_off, S, D, num_heads, bits, _stream(qkv))
+                 _ptr(k_ctx), _ptr(v_ctx), out.data_ptr(), _ptr(k_out),
+                 _ptr(v_out), B, n_q, q_off, S, D, num_heads, bits,
+                 _stream(qkv))
 
 
 def launch_attn_temporal(qkv, freqs, out, B, n_q, q_off, S, D, num_heads,
@@ -604,7 +608,7 @@ def launch_attn_temporal(qkv, freqs, out, B, n_q, q_off, S, D, num_heads,
 
 
 def _check_branch(x, shift, scale, gate, dtypes=KERNEL_DTYPES):
-    """x (N, S, D) contiguous in one of `dtypes` (the int8 branches: bf16),
+    """x (N, S, D) contiguous in one of `dtypes` (the backwards: bf16),
     shift/scale/gate in x's dtype; returns (N, S, D)."""
     _need(x.is_cuda and x.dtype in dtypes and x.dim() == 3
           and x.is_contiguous(),
@@ -618,12 +622,13 @@ def _check_branch(x, shift, scale, gate, dtypes=KERNEL_DTYPES):
 
 
 def _no_f32_train(x, name, emit_train):
-    """fp32 emit_train (the training forward) is the training slice's."""
+    """fp32 emit_train (the training forward, int8_forward's included) is
+    the training slice's."""
     if emit_train and x.dtype == torch.float32:
         raise NotImplementedError(
             f"{name}: fp32 emit_train on the card is not ported yet "
-            "(ROADMAP.md A11, fp32 training: #1-#3 emit_train and #12-#14 "
-            "in fp32)")
+            "(ROADMAP.md A11, fp32 training: #1-#3 and #7-#9 emit_train and "
+            "#12-#14 in fp32)")
 
 
 def _modulate_cuda(x, shift, scale):

@@ -90,9 +90,9 @@ SIGNATURES = {
     # q, k, v, out, B, T, S, D, num_heads, valid_mask, stream
     "gtax_attn_temporal_window": (*(_P,) * 4, *(_I,) * 6, _P),
     "gtax_attn_temporal_window_f32": (*(_P,) * 4, *(_I,) * 6, _P),
-    # qkv, freqs, k_ctx, v_ctx, out, B, n_q, q_off, S, D, num_heads,
-    # valid_mask, stream
-    "gtax_attn_temporal_f32": (*(_P,) * 5, *(_I,) * 7, _P),
+    # qkv, freqs, k_ctx, v_ctx, out, k_out, v_out, B, n_q, q_off, S, D,
+    # num_heads, valid_mask, stream
+    "gtax_attn_temporal_f32": (*(_P,) * 7, *(_I,) * 7, _P),
     # qkv, freqs, out, n_frames, S, D, num_heads, rot, stream
     "gtax_attn_frame_f32": (*(_P,) * 3, *(_I,) * 5, _P),
     # q, k, v, dout, cos, sin, dqkv, ao, n_frames, S, D, num_heads, rot,
@@ -112,9 +112,16 @@ SIGNATURES = {
                     *(_I,) * 15, _P),
     # temporal, hd, S, D -> the cooperative grid's blocks, or -error
     "gtax_pair_q_blocks": (_I, _I, _I, _I),
+    # gtax_pair_q's arguments, over fp32 activations
+    "gtax_pair_q_f32": (_I, *(_P,) * 7, *(_I,) * 4, *(_P,) * 5, _I,
+                        *(_P,) * 3, _I, *(_P,) * 3, _I, *(_P,) * 5, _L,
+                        *(_I,) * 15, _P),
+    "gtax_pair_q_f32_blocks": (_I, _I, _I, _I),
     # q, k, v, bias, out, N, S, num_heads, hd, q_ld, k_ld, v_ld, o_ld,
     # tensor_cores, scale, stream
     "gtax_attn_sdpa": (*(_P,) * 5, *(_I,) * 9, _F, _P),
+    # the same over fp32 q, k, v, out; tiled in place of tensor_cores
+    "gtax_attn_sdpa_f32": (*(_P,) * 5, *(_I,) * 9, _F, _P),
 }
 # the sources of the probe copy, and the entry points it binds
 PROBE_SOURCES = ("attn_sdpa.cu", "attn_bwd.cu")

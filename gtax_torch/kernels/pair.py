@@ -13,7 +13,10 @@ plain version, which IS the sequential pair of plain versions
 (`spatial_branch_q_plain` then `mlp_branch_q_plain`; `temporal_step_q_plain`
 then `mlp_branch_q_plain`); a CUDA tensor gets one cooperative launch of
 gtax_torch/csrc/pair_q.cu (nine phases separated by grid-wide barriers, each
-phase the device code of the sequential kernels) or an exception. The int8
+phase the device code of the sequential kernels) or an exception. The
+activations are bf16, or fp32 (x's dtype: the fp32 seam, output and context
+cache of gtax's pair at x.dtype = float32), which launch the fp32 forms of
+csrc/pair_q_f32.cu, bit-equal to the fp32 sequential wrappers. The int8
 weights are read as quant.card_layout stores them. A device
 that refuses a cooperative launch raises; nothing falls back to the
 sequential wrappers. Each wrapper counts its launches in `launches`.
@@ -26,8 +29,7 @@ import functools
 import torch
 
 from gtax_torch.kernels import block, build, quant
-from gtax_torch.kernels.block import (BF16_ONLY, _check_branch, _check_mat,
-                                      _need, _stream)
+from gtax_torch.kernels.block import _check_branch, _check_mat, _need, _stream
 
 # int8 params and at most this many live frames take the pair
 # (gtax/models/dit.py:705; a Hopper gate is for measurement to choose)
@@ -64,27 +66,38 @@ def gemm_shapes(D: int, Hd: int):
     return ((3 * D, D), (D, D), (Hd, D), (D, Hd))
 
 
-def workspace_bytes(M: int, D: int, Hd: int, G: int, chunks) -> int:
+def workspace_bytes(M: int, D: int, Hd: int, G: int, chunks,
+                    elem: int = 2) -> int:
     """Bytes of the pair kernel's workspace: the int8 LN rows and scales,
-    fp32 qkv, fp32 attention, its int8 rows and scales, the bf16 seam, the
-    second LN's int8 rows and scales, the fp32 GELU output and its int8
-    chunks and scales, and the int32 split-K partials of the GEMM that
-    needs the most (chunks: the four GEMMs' K chunks), each on a 256-byte
-    boundary (csrc/pair_q.cuh workspace_layout)."""
+    fp32 qkv, fp32 attention, its int8 rows and scales, the seam (elem
+    bytes an element: bf16, or 4 for the fp32 forms), the second LN's int8
+    rows and scales, the fp32 GELU output and its int8 chunks and scales,
+    and the int32 split-K partials of the GEMM that needs the most (chunks:
+    the four GEMMs' K chunks), each on a 256-byte boundary
+    (csrc/pair_q.cuh workspace_layout)."""
     part = max([-(-K // c) * M * N * 4
                 for (N, K), c in zip(gemm_shapes(D, Hd), chunks)
                 if -(-K // c) > 1], default=0)
-    sizes = (M * D, M * 4, M * 3 * D * 4, M * D * 4, M * D, M * 4, M * D * 2,
-             M * D, M * 4, M * Hd * 4, M * Hd, M * (Hd // G) * 4, part)
+    sizes = (M * D, M * 4, M * 3 * D * 4, M * D * 4, M * D, M * 4,
+             M * D * elem, M * D, M * 4, M * Hd * 4, M * Hd,
+             M * (Hd // G) * 4, part)
     return sum(_align256(s) for s in sizes)
 
 
-def grid_blocks(temporal: bool, head_dim: int, S: int, D: int) -> int:
-    """Blocks of the cooperative grid the pair kernel launches with (what
-    co-resides on the card at its shared-memory size)."""
-    n = build.library().gtax_pair_q_blocks(int(temporal), head_dim, S, D)
+def _entry(dtype) -> str:
+    """The pair's C entry point for activations of `dtype`."""
+    return "gtax_pair_q_f32" if dtype == torch.float32 else "gtax_pair_q"
+
+
+def grid_blocks(temporal: bool, head_dim: int, S: int, D: int,
+                dtype=torch.bfloat16, lib=None) -> int:
+    """Blocks of the cooperative grid the pair kernel over `dtype`
+    activations launches with (what co-resides on the card at its
+    registers and shared-memory size), in `lib` (else the library)."""
+    name = _entry(dtype) + "_blocks"
+    n = getattr(lib or build.library(), name)(int(temporal), head_dim, S, D)
     if n <= 0:
-        raise RuntimeError(f"gtax_pair_q_blocks: CUDA error {-n}")
+        raise RuntimeError(f"{name}: CUDA error {-n}")
     return n
 
 
@@ -98,8 +111,8 @@ def gemm_chunks(M: int, D: int, Hd: int, G: int, blocks: int):
 
 def _check_pair(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q, out_s,
                 out_b, w1_q, w1_s, b1, w2_q, w2_s, b2):
-    N, S, D = _check_branch(x, sh1, sc1, g1, BF16_ONLY)
-    _check_branch(x, sh2, sc2, g2, BF16_ONLY)
+    N, S, D = _check_branch(x, sh1, sc1, g1)
+    _check_branch(x, sh2, sc2, g2)
     for a, b in ((sh1, sc1), (sh2, sc2)):
         _need(a.stride(0) == b.stride(0),
               lambda: "shift and scale must share a row stride")
@@ -125,21 +138,19 @@ def _launch(temporal, x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
             out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s, b2, freqs, k_ctx,
             v_ctx, num_heads, Hd, G, B=0, n_live=0, n_ctx=0, bits=0,
             lib=None, extra=0, approx_gelu=True):
-    """One launch (of `lib`, else the library) with `extra` bytes past the
-    workspace's buffers; fc1's GELU the tanh form (approx_gelu) or the exact
-    one; returns (out, workspace)."""
+    """One launch (of `lib`, else the library; x's dtype picks the bf16 or
+    fp32 entry) with `extra` bytes past the workspace's buffers; fc1's GELU
+    the tanh form (approx_gelu) or the exact one; returns (out,
+    workspace)."""
     N, S, D = x.shape
     M = N * S
-    blocks = (lib or build.library()).gtax_pair_q_blocks(
-        int(temporal), D // num_heads, S, D)
-    if blocks <= 0:
-        raise RuntimeError(f"gtax_pair_q_blocks: CUDA error {-blocks}")
+    blocks = grid_blocks(temporal, D // num_heads, S, D, x.dtype, lib)
     chunks = gemm_chunks(M, D, Hd, G, blocks)
-    size = workspace_bytes(M, D, Hd, G, chunks) + extra
+    size = workspace_bytes(M, D, Hd, G, chunks, x.element_size()) + extra
     ws = torch.empty(size, dtype=torch.uint8, device=x.device)
     out = torch.empty_like(x)
     build.launch(
-        "gtax_pair_q", int(temporal), x.data_ptr(), sh1.data_ptr(),
+        _entry(x.dtype), int(temporal), x.data_ptr(), sh1.data_ptr(),
         sc1.data_ptr(), g1.data_ptr(), sh2.data_ptr(), sc2.data_ptr(),
         g2.data_ptr(), sh1.stride(0), g1.stride(0), sh2.stride(0),
         g2.stride(0), qkv_q.data_ptr(), qkv_s.data_ptr(), out_q.data_ptr(),
@@ -163,7 +174,8 @@ def fused_spatial_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
 
     Replaces gtax/kernels/pair.py fused_spatial_pair_q (pallas_call at :227,
     body _spatial_pair_kernel_q :114). On the card: one cooperative launch
-    of csrc/pair_q.cu. Bound: the 12 MB of int8 weights (bytes)."""
+    of csrc/pair_q.cu (pair_q_f32.cu for fp32 activations). Bound: the 12
+    MB of int8 weights (bytes)."""
     block.forward_only("fused_spatial_pair_q", x, sh1, sc1, g1, sh2, sc2,
                        g2, out_b, b1, b2)
     if x.device.type == "cpu":
@@ -199,8 +211,9 @@ def fused_temporal_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s,
 
     Replaces gtax/kernels/pair.py fused_temporal_pair_q (pallas_call at
     :303, body _temporal_pair_kernel_q :152). On the card: one cooperative
-    launch of csrc/pair_q.cu. Bound: the int8 weights (bytes); the bf16
-    context cache adds ~1.2 MB per batch element."""
+    launch of csrc/pair_q.cu (pair_q_f32.cu for fp32 activations). Bound:
+    the int8 weights (bytes); the bf16 context cache adds ~1.2 MB per batch
+    element (fp32: ~2.4 MB)."""
     block.forward_only("fused_temporal_pair_q", x, sh1, sc1, g1, sh2, sc2,
                        g2, out_b, b1, b2, k_ctx, v_ctx)
     if x.device.type == "cpu":
@@ -220,7 +233,7 @@ def fused_temporal_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s,
     d = block.check_temporal(D, num_heads, T, rope_freqs)
     _need(d in (32, 64), lambda: f"head dim {d}: the pair takes 32 or 64")
     for name, t in (("k_ctx", k_ctx), ("v_ctx", v_ctx)):
-        _check_mat(name, t, (B * n_ctx * S, D))
+        _check_mat(name, t, (B * n_ctx * S, D), x.dtype)
     out = _launch(True, x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
                   out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s, b2, rope_freqs,
                   k_ctx, v_ctx, num_heads, Hd, G, B, n_live, n_ctx,

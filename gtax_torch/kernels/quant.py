@@ -30,7 +30,15 @@ The tensor's device picks the path, as in block.py: a CPU tensor gets the
 plain version (`*_q_plain`), a CUDA tensor gets the sm_90a kernels of
 gtax_torch/csrc (`ln_mod` int8 mode, `gemm_s8`, `quant_rows`, and the
 fp32-output modes of `attn_frame` / `attn_temporal`) or an exception.
-Each wrapper counts its kernel-launching calls in `launches`.
+The activations' dtype is x's: bf16, or fp32 (gtax's kernels at x.dtype =
+float32, as gtax serves dtype="float32" with int8): there every cast to
+x.dtype is a no-op, the int8 rows are quantized from fp32 values as in
+bf16, and the fp32 forms run: `ln_mod`'s int8 mode over fp32 rows, the
+fp32 attention kernels (`attn_frame_f32`, `attn_temporal_f32` with its
+fp32 K/V outputs for emit_kv) and `gemm_s8`'s fp32 gated epilogue, over
+an fp32 context cache. fp32 emit_train raises NotImplementedError on the
+card (ROADMAP.md A11). Each wrapper counts its kernel-launching calls in
+`launches`.
 """
 
 from __future__ import annotations
@@ -42,7 +50,6 @@ import torch
 from gtax_torch.core.rope import apply_rotary_emb as rope
 from gtax_torch.kernels import block, build
 from gtax_torch.kernels.block import (
-    BF16_ONLY,
     _check_bias,
     _check_branch,
     _check_freqs,
@@ -50,6 +57,7 @@ from gtax_torch.kernels.block import (
     _check_hidden,
     _check_mat,
     _need,
+    _no_f32_train,
     _stream,
     attend_frames,
     attend_temporal,
@@ -61,13 +69,13 @@ from gtax_torch.kernels.block import (
 )
 
 F32, I8 = torch.float32, torch.int8
-LN_MOD_INT8 = 2  # csrc/ln_mod.cu mode
 
 # gemm_s8 epilogues (csrc/gemm_s8.cu)
 EPI_F32 = 0
 EPI_BIAS_GELU_F32 = 1
 EPI_BIAS_GATED = 2
 EPI_BIAS_GELU_ERF_F32 = 3  # epilogue 1 with the exact GELU
+EPI_BIAS_GATED_F32 = 4  # epilogue 2 over fp32 x and gate, stored fp32
 
 # int8 products summed in fp32 are exact while every partial sum stays an
 # integer below 2**24: at most 1040 terms of 127 * 127
@@ -302,13 +310,14 @@ def _check_attn_weights_q(qkv_q, qkv_s, out_q, out_s, out_b, D):
 
 
 def _ln_mod_q(x, shift, scale):
-    """int8 LN/modulate rows of x and their fp32 scales, (N*S, 1)."""
+    """int8 LN/modulate rows of x (bf16 or fp32) and their fp32 scales,
+    (N*S, 1)."""
     N, S, D = x.shape
     _need(shift.stride(0) == scale.stride(0),
           lambda: "shift and scale must share a row stride")
     q = torch.empty((N * S, D), dtype=I8, device=x.device)
     s = torch.empty((N * S, 1), dtype=F32, device=x.device)
-    block.launch_ln_mod(x, q, N * S, D, S, LN_MOD_INT8, shift, scale,
+    block.launch_ln_mod(x, q, N * S, D, S, block.LN_INT8, shift, scale,
                         shift.stride(0), row_scale=s)
     return q, s
 
@@ -366,9 +375,21 @@ def _out_cuda(att, x, gate, out_q, out_s, out_b, y=None):
     y: the bf16 pre-gate rows' output (emit_train), or None."""
     aq, as_ = _quant_rows_cuda(att, att.shape[1])
     out = torch.empty_like(x)
-    _gemm_s8(aq, as_, out_q, out_s, out, EPI_BIAS_GATED, bias=out_b, resid=x,
+    _gemm_s8(aq, as_, out_q, out_s, out, _gated_epi(x), bias=out_b, resid=x,
              gate=gate, S=x.shape[1], out2=y)
     return out
+
+
+def _gated_epi(x):
+    """The gated residual's epilogue in x's dtype."""
+    return EPI_BIAS_GATED_F32 if x.dtype == F32 else EPI_BIAS_GATED
+
+
+def _check_q(x, shift, scale, gate, name, emit_train):
+    """The wrappers' activations on the card: bf16 or fp32 (A11: fp32
+    emit_train, checked first), shift/scale/gate in x's dtype."""
+    _no_f32_train(x, name, emit_train)
+    return _check_branch(x, shift, scale, gate)
 
 
 def _emit_train_outputs(x):
@@ -399,15 +420,20 @@ def fused_spatial_branch_q(x, shift, scale, gate, qkv_q, qkv_s, out_q,
         return spatial_branch_q_plain(x, shift, scale, gate, qkv_q, qkv_s,
                                       out_q, out_s, out_b, rope_freqs,
                                       num_heads, emit_train)
-    N, S, D = _check_branch(x, shift, scale, gate, BF16_ONLY)
+    N, S, D = _check_q(x, shift, scale, gate, "fused_spatial_branch_q",
+                       emit_train)
     _check_attn_weights_q(qkv_q, qkv_s, out_q, out_s, out_b, D)
     d = _check_heads(D, num_heads, (32, 64))
     _check_freqs(rope_freqs, S, d)
     qkv = _qkv_cuda(x, shift, scale, qkv_q, qkv_s)
     att = torch.empty((N * S, D), dtype=F32, device=x.device)
     res = _emit_train_outputs(x) if emit_train else None
-    block.launch_attn_frame(qkv, rope_freqs, att, N, S, D, num_heads, d,
-                            qkv_out=res and res[:3])
+    if x.dtype == F32:
+        block.launch_attn_frame_f32(qkv, rope_freqs, att, N, S, D,
+                                    num_heads, d)
+    else:
+        block.launch_attn_frame(qkv, rope_freqs, att, N, S, D, num_heads, d,
+                                qkv_out=res and res[:3])
     out = _out_cuda(att, x, gate, out_q, out_s, out_b, res and res[3])
     fused_spatial_branch_q.launches += 1
     return (out, *res) if emit_train else out
@@ -437,7 +463,8 @@ def fused_mlp_branch_q(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
     if x.device.type == "cpu":
         return mlp_branch_q_plain(x, shift, scale, gate, w1_q, w1_s, b1,
                                   w2_q, w2_s, b2, approx_gelu, emit_train)
-    N, S, D = _check_branch(x, shift, scale, gate, BF16_ONLY)
+    N, S, D = _check_q(x, shift, scale, gate, "fused_mlp_branch_q",
+                       emit_train)
     Hd = w1_q.shape[-1]
     _check_hidden(Hd)
     _check_qlinear("w1", w1_q, w1_s, D, Hd)
@@ -454,7 +481,7 @@ def fused_mlp_branch_q(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
     hq, hs = _quant_rows_cuda(h, Hd // _mlp_chunks(Hd))
     out = torch.empty_like(x)
     y = torch.empty_like(x) if emit_train else None
-    _gemm_s8(hq, hs, w2_q, w2_s, out, EPI_BIAS_GATED, bias=b2, resid=x,
+    _gemm_s8(hq, hs, w2_q, w2_s, out, _gated_epi(x), bias=b2, resid=x,
              gate=gate, S=S, out2=y)
     fused_mlp_branch_q.launches += 1
     return (out, h1, y) if emit_train else out
@@ -475,9 +502,14 @@ def _temporal_q_cuda(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
     res = _emit_train_outputs(x) if emit_train else None
     kv_out = ((torch.empty_like(x), torch.empty_like(x)) if emit_kv
               else res and res[1:3])
-    block.launch_attn_temporal(qkv, rope_freqs, att, B, n_q, q_off, S, D,
-                               num_heads, bits, k_ctx, v_ctx, kv_out,
-                               q_out=res and res[0])
+    if x.dtype == F32:  # the K/V cache in fp32, as x
+        block.launch_attn_temporal_f32(qkv, rope_freqs, att, B, n_q, q_off,
+                                       S, D, num_heads, bits, k_ctx, v_ctx,
+                                       kv_out)
+    else:
+        block.launch_attn_temporal(qkv, rope_freqs, att, B, n_q, q_off, S,
+                                   D, num_heads, bits, k_ctx, v_ctx, kv_out,
+                                   q_out=res and res[0])
     out = _out_cuda(att, x, gate, out_q, out_s, out_b, res and res[3])
     if emit_train:
         return (out, *res)
@@ -507,7 +539,8 @@ def fused_temporal_branch_q(x, shift, scale, gate, qkv_q, qkv_s, out_q,
                                        out_q, out_s, out_b, rope_freqs,
                                        valid, num_heads, n_frames, emit_kv,
                                        emit_train)
-    N, S, D = _check_branch(x, shift, scale, gate, BF16_ONLY)
+    N, S, D = _check_q(x, shift, scale, gate, "fused_temporal_branch_q",
+                       emit_train)
     _need(N % n_frames == 0,
           lambda: f"N={N} is not a multiple of T={n_frames}")
     out = _temporal_q_cuda(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
@@ -525,14 +558,15 @@ def fused_temporal_step_q(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
                           out_b, k_ctx, v_ctx, rope_freqs, valid, num_heads,
                           n_ctx, n_live=1):
     """int8 twin of block.fused_temporal_step: the live frames' rows
-    against the cached post-rope context K/V (bf16, from
+    against the cached post-rope context K/V (x's dtype, from
     fused_temporal_branch_q emit_kv).
 
     Replaces gtax/kernels/quant.py fused_temporal_step_q (pallas_call at
     :216/:243, body _temporal_step_kernel_q :163). On the card: ln_mod
     (int8) -> gemm_s8 (fp32 qkv) -> attn_temporal (step mode, fp32 out) ->
     quant_rows -> gemm_s8 (gated residual): 5 launches. Bound: int8 weight
-    bytes; the bf16 context cache adds ~1.2 MB per batch element."""
+    bytes; the bf16 context cache adds ~1.2 MB per batch element (fp32:
+    ~2.4 MB)."""
     block.forward_only("fused_temporal_step_q", x, shift, scale, gate,
                        out_b, k_ctx, v_ctx)
     if x.device.type == "cpu":
@@ -540,13 +574,14 @@ def fused_temporal_step_q(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
                                      out_q, out_s, out_b, k_ctx, v_ctx,
                                      rope_freqs, valid, num_heads, n_ctx,
                                      n_live)
-    N, S, D = _check_branch(x, shift, scale, gate, BF16_ONLY)
+    N, S, D = _check_q(x, shift, scale, gate, "fused_temporal_step_q",
+                       False)
     _need(N % n_live == 0,
           lambda: f"N={N} is not a multiple of n_live={n_live}")
     B = N // n_live
     _need(n_ctx >= 1, lambda: "the step needs at least one context frame")
     for name, t in (("k_ctx", k_ctx), ("v_ctx", v_ctx)):
-        _check_mat(name, t, (B * n_ctx * S, D))
+        _check_mat(name, t, (B * n_ctx * S, D), x.dtype)
     out = _temporal_q_cuda(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
                            out_b, rope_freqs, num_heads, B, n_live, n_ctx,
                            valid_bits(valid, n_ctx + n_live), k_ctx, v_ctx)

@@ -14,9 +14,11 @@ card (`cuda`, in bf16) unless the caller passes device="cpu".
 dtype="float32" serves in fp32 as gtax does (the params are not cast):
 on the card the fused kernels' fp32 forms under `fused` and `fused_all`
 (fp32 FFMA GEMMs, no TF32), torch's fp32 products under `xla` and
-`fused_mlp`. On the card fp32 with quantize="int8" and fp32 under
-`pallas` raise NotImplementedError (ROADMAP.md A10): their kernels
-take bf16 only.
+`fused_mlp`, and under `pallas` the fp32 form of its attention kernels
+(CUDA cores) between torch's fp32 products. fp32 with quantize="int8"
+quantizes the fp32 params (gtax/serving.py:82-92) and runs the int8
+kernels' fp32 forms: fp32 activations and K/V cache, int8 products summed
+in int32.
 
 quantize="int8" serves W8A8 params (quantize_for_inference, after the
 cast) through the int8 kernels of gtax_torch.kernels.quant and, at one or
@@ -140,17 +142,6 @@ def _check_slice(cfg: ServingConfig, device_type: str = "cpu") -> None:
     if cfg.dtype not in ("bfloat16", "float32"):
         raise ValueError(f"dtype must be bfloat16 or float32, got "
                          f"{cfg.dtype!r}")
-    if device_type == "cuda" and cfg.dtype == "float32":
-        # the CPU runs both in fp32 through the plain versions
-        if cfg.quantize == "int8":
-            raise NotImplementedError(
-                "float32 with quantize='int8' on the card: the W8A8 kernels "
-                "take bf16 activations and a bf16 K/V cache only "
-                "(ROADMAP.md A10)")
-        if cfg.attention_backend == "pallas":
-            raise NotImplementedError(
-                "float32 under the 'pallas' backend on the card: its "
-                "attention kernels take bf16 only (ROADMAP.md A10)")
 
 
 def _to(a, device) -> torch.Tensor:

@@ -186,6 +186,29 @@ def test_token_rows_per_body():
     assert kattn._token_rows(odd, 5, 64, 8)[1] == 64
 
 
+def test_token_rows_fp32():
+    """The fp32 form's alignment follows the element size: the tiled body
+    reads 16 bytes (4 fp32: ld a multiple of 4, the pointer 16-byte
+    aligned), warp rows 8 (2 fp32). A q/k/v column slice of a fused fp32
+    qkv row is read in place by both; a slice 8 bytes past a 16-byte
+    boundary only by the warp rows."""
+    assert kattn._align(True, torch.float32) == 4
+    assert kattn._align(False, torch.float32) == 2
+    assert kattn._align(True, torch.bfloat16) == 8
+    assert kattn._align(False, torch.bfloat16) == 2
+    qkv = torch.zeros((2, 5, 3 * 64 + 4), dtype=torch.float32)
+    assert qkv.data_ptr() % 16 == 0
+    q = qkv[..., 64:128]
+    for tiled in (False, True):
+        t, ld = kattn._token_rows(q, 5, 64, kattn._align(tiled, q.dtype))
+        assert t is q and ld == 196
+    off = qkv[..., 2:66]
+    t, ld = kattn._token_rows(off, 5, 64, 2)
+    assert t is off and ld == 196
+    t, ld = kattn._token_rows(off, 5, 64, 4)
+    assert t is not off and ld == 64 and torch.equal(t, off)
+
+
 def test_division_by_reciprocal_rounds_as_division():
     """The tensor-core attention's p = e / l (csrc/attn_frame.cuh
     div_rn_by): q = RN(e r) with r = RN(1 / l), then RN(q + RN(e - q l) r),

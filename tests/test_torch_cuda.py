@@ -1597,23 +1597,42 @@ def test_fp32_refusals_on_the_card(cuda):
 
 def test_fp32_kernels_use_no_tensor_cores(cuda):
     """The fp32 kernels are FFMA only: cuobjdump's SASS of the built
-    library has no HMMA (any type, TF32 included) in them, and FFMAs in
-    the GEMM; the bf16 GEMM's HGMMA is there, as a control."""
+    library has no HMMA or HGMMA (any type, TF32 included) in them, and
+    FFMAs; the fp32 pairs hold the int8 tensor cores' IGMMA and no HMMA /
+    HGMMA but the compiler's no-op GMMA (an HGMMA into RZ from a zero
+    descriptor that ptxas emits with an injected warpgroup.arrive, as in
+    the int8 GEMM); the bf16 kernels' HGMMA is there, as a control."""
+    import re
     import shutil
     import subprocess
+
+    noop = re.compile(r"HGMMA\.\S+ RZ, gdesc\[URZ\], RZ, !UPT")
+
+    def computing(f):
+        return [line for line in f.splitlines()
+                if ("HMMA" in line or "HGMMA" in line)
+                and not noop.search(line)]
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(build.build())],
                           capture_output=True, text=True, check=True).stdout
     funcs = sass.split("Function : ")[1:]
-    f32 = [f for f in funcs if any(n in f.split("\n", 1)[0] for n in (
-        "gemm_f32_kernel", "attn_frame_f32_kernel", "attn_window_f32_kernel",
-        "attn_temporal_f32_kernel"))]
-    assert len(f32) >= 4
+    names = ("gemm_f32_kernel", "attn_frame_f32_kernel",
+             "attn_window_f32_kernel", "attn_temporal_f32_kernel",
+             "ln_mod_kernelIf", "attn_sdpa_rows_f32_kernel",
+             "attn_sdpa_tiled_f32_kernel")
+    f32 = [f for f in funcs if any(n in f.split("\n", 1)[0] for n in names)]
+    pairs = [f for f in funcs
+             if re.search(r"pair_q_kernelILi\d+ELb\dELb\dEfE",
+                          f.split("\n", 1)[0])]
+    assert len(f32) >= len(names) and len(pairs) == 8
     for f in f32:
         assert "HMMA" not in f and "HGMMA" not in f, f.split("\n", 1)[0]
+    for f in pairs:
+        assert not computing(f), computing(f)[:3]
+        assert "IGMMA" in f, f.split("\n", 1)[0]
     assert any("FFMA" in f for f in f32)
-    assert any("HGMMA" in f for f in funcs)
+    assert any(computing(f) for f in funcs)
 
 
 # ------------------------------------------- the exact GELU (#2, #9-#11)
@@ -1669,3 +1688,198 @@ def test_int8_exact_gelu_kernels(cuda):
                                     H, n_ctx)
     assert torch.equal(got, quant.fused_mlp_branch_q(
         h, sh2, sc2, g2, *mw, approx_gelu=False))
+
+
+# ------------------- fp32 int8 and fp32 `pallas` (#6-#11, #15 and #16)
+
+def _f32_q_case(kind, gen):
+    """(wrapper, plain, args, kwargs) of one int8 branch at x.dtype =
+    float32 (gtax serves fp32 with int8): fp32 activations, adaLN rows,
+    biases and context cache, the int8 weights quantized from bf16 draws."""
+    f32 = torch.float32
+    N = {"temporal": 4, "step": 2}.get(kind, 1)
+    x = _rand(gen, (N, S_DIT, D), 1.0, f32)
+    mods = _rand(gen, (N, 6 * D), 0.5, f32)
+    head = (x, mods[:, :D], mods[:, D:2 * D], mods[:, 2 * D:3 * D])
+    if kind.startswith("mlp"):
+        args = (*head, *_qweight(gen, (D, 4 * D), 0.02),
+                _rand(gen, (4 * D,), 0.02, f32),
+                *_qweight(gen, (4 * D, D), 0.02), _rand(gen, (D,), 0.02, f32))
+        return (quant.fused_mlp_branch_q, quant.mlp_branch_q_plain, args,
+                {"approx_gelu": kind == "mlp_tanh"})
+    attn = (*_qweight(gen, (D, 3 * D), 0.02), *_qweight(gen, (D, D), 0.02),
+            _rand(gen, (D,), 0.02, f32))
+    if kind == "spatial":
+        return (quant.fused_spatial_branch_q, quant.spatial_branch_q_plain,
+                (*head, *attn, _spatial_freqs(), H), {})
+    if kind == "temporal":
+        return (quant.fused_temporal_branch_q, quant.temporal_branch_q_plain,
+                (*head, *attn, _temporal_freqs(4), [False, True, True, True],
+                 H, 4), {"emit_kv": True})
+    n_live, n_ctx = N, 3  # a P=2 step: two live frames over three
+    kc = _rand(gen, (n_ctx * S_DIT, D), 1.0, f32)
+    vc = _rand(gen, (n_ctx * S_DIT, D), 1.0, f32)
+    return (quant.fused_temporal_step_q, quant.temporal_step_q_plain,
+            (*head, *attn, kc, vc, _temporal_freqs(5),
+             [False, True, True, True, True], H, n_ctx), {"n_live": n_live})
+
+
+@pytest.mark.parametrize("kind", ["spatial", "mlp_tanh", "mlp_erf",
+                                  "temporal", "step"])
+def test_int8_f32_kernels(cuda, kind):
+    """#6-#9 at x.dtype = float32 against their plain versions: every output
+    (the prefill's fp32 K/V cache included) fp32 and within 2**-6 of its
+    largest magnitude (the int8 rule: a summation order can flip an int8
+    rounding of an activation); one launch counted a call; two calls give
+    the same bits."""
+    gen = np.random.default_rng({"spatial": 370, "mlp_tanh": 371,
+                                 "mlp_erf": 372, "temporal": 373,
+                                 "step": 374}[kind])
+    fn, plain, args, kw = _f32_q_case(kind, gen)
+    before = fn.launches
+    got, again = fn(*args, **kw), fn(*args, **kw)
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    got = got if isinstance(got, tuple) else (got,)
+    again = again if isinstance(again, tuple) else (again,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for a, b, c in zip(got, ref, again):
+        assert a.dtype == b.dtype == torch.float32
+        _close(a, b)
+        assert torch.equal(a, c)
+
+
+def test_int8_f32_parts(cuda):
+    """The fp32 int8 parts alone: ln_mod's int8 mode over fp32 rows bit-equal
+    to quant_rows of the plain fp32 modulate wherever no row's int8 rounding
+    sits on a tie, and gemm_s8's fp32 gated epilogue bit-equal to the plain
+    x + gate * (y + b) over the same int8 rows."""
+    gen = np.random.default_rng(375)
+    f32 = torch.float32
+    x, sh, sc, g = (_rand(gen, (2, S_DIT, D), 1.0, f32),
+                    *(_rand(gen, (2, D), 0.5, f32) for _ in range(3)))
+    q, s = quant._ln_mod_q(x, sh, sc)
+    pq, ps = quant.quant_rows(block.modulated32(x, sh, sc).reshape(-1, D))
+    assert (q.int() - pq.int()).abs().max().item() <= 1
+    assert (q != pq).float().mean().item() < 1e-3
+    torch.testing.assert_close(s, ps, rtol=1e-6, atol=0)
+    w_q, w_s = _qweight(gen, (D, D), 0.02)
+    b = _rand(gen, (D,), 0.02, f32)
+    out = torch.empty_like(x)
+    quant._gemm_s8(q, s, w_q, w_s, out, quant.EPI_BIAS_GATED_F32, bias=b,
+                   resid=x, gate=g, S=S_DIT)
+    y = quant.mm_int(q, w_q) * s * w_s.reshape(-1) + b
+    ref = (x.reshape(-1, D) + g.repeat_interleave(S_DIT, 0) * y).reshape(
+        x.shape)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("approx_gelu", [True, False], ids=["tanh", "erf"])
+@pytest.mark.parametrize("kind,N", [("spatial", 1), ("spatial", 2),
+                                    ("temporal", 1), ("temporal", 2)])
+def test_int8_f32_pairs_bit_equal(cuda, kind, N, approx_gelu):
+    """#10 and #11 at x.dtype = float32 (csrc/pair_q_f32.cu): against the
+    plain version within 2**-6, bit-equal to the fp32 sequential wrappers
+    (#7 + #9, #6 + #9) in both GELU modes, and to a second call."""
+    from gtax_torch.kernels import pair
+
+    gen = np.random.default_rng(380 + N + 10 * (kind == "temporal"))
+    f32 = torch.float32
+    x = _rand(gen, (N, S_DIT, D), 1.0, f32)
+    mods = _rand(gen, (N, 6 * D), 0.5, f32)
+    vec = (x, *(mods[:, i * D:(i + 1) * D] for i in range(6)))
+    aw = (*_qweight(gen, (D, 3 * D), 0.02), *_qweight(gen, (D, D), 0.02),
+          _rand(gen, (D,), 0.02, f32))
+    mw = (*_qweight(gen, (D, 4 * D), 0.02), _rand(gen, (4 * D,), 0.02, f32),
+          *_qweight(gen, (4 * D, D), 0.02), _rand(gen, (D,), 0.02, f32))
+    kw = {"approx_gelu": approx_gelu}
+    x, sh1, sc1, g1, sh2, sc2, g2 = vec
+    if kind == "spatial":
+        tail = (_spatial_freqs(), H)
+        fn, plain = pair.fused_spatial_pair_q, pair.spatial_pair_q_plain
+        h = quant.fused_spatial_branch_q(x, sh1, sc1, g1, *aw, *tail)
+        extra = {}
+    else:
+        n_ctx = 4 if N == 1 else 3
+        kc = _rand(gen, (n_ctx * S_DIT, D), 1.0, f32)
+        vc = _rand(gen, (n_ctx * S_DIT, D), 1.0, f32)
+        T = n_ctx + N
+        tail = (kc, vc, _temporal_freqs(T), [False] + [True] * (T - 1), H,
+                n_ctx)
+        fn, plain = pair.fused_temporal_pair_q, pair.temporal_pair_q_plain
+        extra = {"n_live": N}
+        h = quant.fused_temporal_step_q(x, sh1, sc1, g1, *aw, *tail, **extra)
+    seq = quant.fused_mlp_branch_q(h, sh2, sc2, g2, *mw, **kw)
+    before = fn.launches
+    got = fn(*vec, *aw, *mw, *tail, **extra, **kw)
+    again = fn(*vec, *aw, *mw, *tail, **extra, **kw)
+    ref = plain(*vec, *aw, *mw, *tail, **extra, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2 and got.dtype == torch.float32
+    _close(got, ref)
+    assert torch.equal(got, seq)
+    assert torch.equal(got, again)
+
+
+def test_int8_f32_pair_grid(cuda):
+    """The fp32 pair's cooperative grid is its own instantiation's (its
+    registers and shared memory): a positive count the card holds at once,
+    and the fp32 spatial unit's K and V tiles inside the GEMM ring."""
+    from gtax_torch.kernels import pair
+
+    for temporal in (False, True):
+        n = pair.grid_blocks(temporal, HD, S_DIT, D, torch.float32)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert 0 < n <= 2 * sms, (temporal, n)
+
+
+def test_int8_f32_train_refused_on_the_card(cuda):
+    """fp32 emit_train through the int8 wrappers (int8-forward training's
+    forward) raises NotImplementedError naming ROADMAP.md A11."""
+    gen = np.random.default_rng(376)
+    for kind in ("spatial", "mlp_tanh", "temporal"):
+        fn, _, args, kw = _f32_q_case(kind, gen)
+        kw = {k: v for k, v in kw.items() if k != "emit_kv"}
+        with pytest.raises(NotImplementedError, match="A11"):
+            fn(*args, **kw, emit_train=True)
+
+
+@pytest.mark.parametrize("layout", ["heads_first", "token_major"])
+@pytest.mark.parametrize("S", [5, 31, 32, 100, S_DIT, S_VAE])
+def test_attn_sdpa_f32_kernel(cuda, S, layout):
+    """#15 / #16 in fp32 (attn_sdpa's fp32 form: warp rows below
+    SDPA_TENSOR_CORES_MIN_S, the tiled SIMT body from it) with no mask,
+    causal, the temporal valid | eye mask and a fully masked row, within
+    F32_TOL of the plain fp32 version; the token-major q/k/v are strided
+    views of one fused qkv row, bit-equal to contiguous copies; fp32 out."""
+    from gtax_torch.kernels import attention as kattn
+
+    gen = np.random.default_rng(390 + S)
+    f32 = torch.float32
+    if layout == "heads_first":
+        q, k, v = (_rand(gen, (2, 3, S, HD), 1.0, f32) for _ in range(3))
+    else:
+        qkv = _rand(gen, (3, S, 3 * D), 1.0, f32)
+        q, k, v = qkv.split(D, dim=-1)
+    for kind in ("none", "causal", "temporal", "masked_row"):
+        mask, causal = _sdpa_mask(kind, S), kind == "causal"
+        bias = kattn.build_bias(S, mask, causal, "cuda")
+        if layout == "heads_first":
+            before = kattn.fused_sdpa.launches
+            got = kattn.fused_sdpa(q, k, v, mask=mask, causal=causal)
+            assert kattn.fused_sdpa.launches == before + 1
+            ref = kattn.sdpa_plain(*(t.reshape(-1, S, HD) for t in (q, k, v)),
+                                   bias).reshape(got.shape)
+            again = kattn.fused_sdpa(q, k, v, mask=mask, causal=causal)
+        else:
+            got = kattn.fused_mha_token_major(q, k, v, H, mask=mask,
+                                              causal=causal)
+            ref = kattn.mha_token_major_plain(q, k, v, bias, H)
+            again = kattn.fused_mha_token_major(
+                q.contiguous(), k.contiguous(), v.contiguous(), H, mask=mask,
+                causal=causal)
+        torch.cuda.synchronize()
+        _close32(got, ref)
+        assert torch.equal(got, again), kind

@@ -3,14 +3,19 @@ refuse there, through the checks that take the device type (so they run
 without a card), and the fp32 forms' dispatch tables. The fp32 kernels
 themselves run only on the card (tests/test_torch_cuda.py, chip_smoke.py);
 here the CPU runs fp32 through the plain versions
-(tests/test_torch_serving.py holds that rollout against gtax's).
+(tests/test_torch_serving.py holds that rollout against gtax's, int8 and
+`pallas` included).
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
 from gtax_torch import serving
-from gtax_torch.kernels import block, build
+from gtax_torch.kernels import block, build, quant
+from gtax_torch.models import dit as dit_mod
 from gtax_torch.train import trainer
 
 KW = dict(dtype="float32", noise_steps=3, dit_model="DiT-debug",
@@ -30,23 +35,25 @@ def test_fp32_serving_taken(backend, device_type):
 @pytest.mark.parametrize("field,value", [("quantize", "int8"),
                                          ("attention_backend", "pallas")])
 def test_fp32_refusals_left_on_the_card(field, value):
-    """fp32 + int8 and fp32 + `pallas` raise on the card, naming their
-    ROADMAP.md item; the CPU runs both through the plain versions, and
-    bf16 takes both on the card."""
-    cfg = serving.ServingConfig(**{**KW, field: value})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A10"):
-        serving._check_slice(cfg, "cuda")
-    serving._check_slice(cfg, "cpu")
-    bf16 = serving.ServingConfig(**{**KW, "dtype": "bfloat16", field: value})
-    serving._check_slice(bf16, "cuda")
+    """None is left: fp32 + int8 (the int8 kernels' fp32 forms) and fp32 +
+    `pallas` (the fp32 form of its attention kernels) pass the check on
+    either device, as bf16 does."""
+    for dtype in ("float32", "bfloat16"):
+        cfg = serving.ServingConfig(**{**KW, "dtype": dtype, field: value})
+        for device_type in ("cpu", "cuda"):
+            serving._check_slice(cfg, device_type)
 
 
 def test_fp32_refusal_reaches_the_generator():
     """VideoGenerator checks with its own device: on the CPU the fp32 int8
-    generator builds (its refusal is the card's only)."""
+    generator builds, its params quantized from the fp32 ones (not cast)."""
     cfg = serving.ServingConfig(**KW, quantize="int8")
     gen = serving.VideoGenerator.load("", "", cfg, device="cpu")
     assert gen._dtype == torch.float32
+    qkv = gen.dit_params["blocks"][0]["s_attn"]["qkv"]
+    assert qkv["kernel_q"].dtype == torch.int8
+    assert gen.dit_params["blocks"][0]["s_attn"]["out"]["bias"].dtype == (
+        torch.float32)
 
 
 @pytest.mark.parametrize("dtype,device_type,refused", [
@@ -64,17 +71,24 @@ def test_fp32_training_refused_on_the_card(dtype, device_type, refused):
 
 def test_fp32_entry_points_bound():
     """Every fp32 kernel's C entry point has its ctypes signature, with as
-    many arguments as csrc/ declares (the library is built on the card)."""
+    many arguments as csrc/ declares (the library is built on the card):
+    the temporal step's with the full window's fp32 K/V outputs, the fp32
+    pairs', and the fp32 `pallas` attention's."""
     want = {"gtax_gemm_f32": 16, "gtax_gemm_f32_rope_qkv": 15,
             "gtax_attn_frame_f32": 9,
             "gtax_attn_temporal_window_f32": 11,
-            "gtax_attn_temporal_f32": 13}
+            "gtax_attn_temporal_f32": 15, "gtax_pair_q_f32": 48,
+            "gtax_pair_q_f32_blocks": 4, "gtax_attn_sdpa_f32": 16}
     src = "".join(p.read_text() for p in build.sources())
     for name, n in want.items():
         assert len(build.SIGNATURES[name]) == n, name
         assert f"GTAX_ENTRY {name}(" in src, name
     # the pair's exact-GELU flag sits before its stream
     assert len(build.SIGNATURES["gtax_pair_q"]) == 48
+    for name in want:
+        params = src.split(f"GTAX_ENTRY {name}(", 1)[1].split(")", 1)[0]
+        if "GTAX_PAIR_PARAMS" not in params:
+            assert params.count(",") + 1 == want[name], name
 
 
 def test_fp32_epilogue_table():
@@ -111,3 +125,88 @@ def test_f32_split_plan(M, N, K, chunk):
     assert got == chunk
     assert K % got == 0 and got % block.F32_K_STEP == 0
     assert K // got <= block.F32_MAX_SPLITS
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("name", ["fused_spatial_branch_q",
+                                  "fused_mlp_branch_q",
+                                  "fused_temporal_branch_q"])
+def test_int8_f32_emit_train_refused_off_the_cpu(name):
+    """fp32 emit_train through the int8 wrappers (int8-forward training's
+    forward) takes the card path for any tensor not on the CPU and raises
+    there before a kernel, naming ROADMAP.md A11; bf16 gets past that
+    check (to the CUDA checks, which a stand-in device fails)."""
+    D = 64
+    fn = getattr(quant, name)
+    for dtype, err, match in ((torch.float32, NotImplementedError, "A11"),
+                              (torch.bfloat16, ValueError, "CUDA")):
+        x = _meta(2, 8, D, dtype=dtype)
+        vec = tuple(_meta(2, D, dtype=dtype) for _ in range(3))
+        tail = {"fused_spatial_branch_q": (None,) * 6 + (2,),
+                "fused_mlp_branch_q": (None,) * 6,
+                "fused_temporal_branch_q": (None,) * 7 + (2, 2)}[name]
+        with pytest.raises(err, match=match):
+            fn(x, *vec, *tail, emit_train=True)
+
+
+def test_int8_forward_trainer_refused_in_fp32_on_the_card(monkeypatch):
+    """The int8-forward trainer computes in bf16 on the card: with
+    compute_dtype float32 it raises naming ROADMAP.md A11 before it builds
+    a model (a stand-in for the card's device: the check needs its type
+    only)."""
+    monkeypatch.setattr(trainer, "resolve_device",
+                        lambda device=None: torch.device("cuda"))
+    cfg = trainer.TrainingConfig(dit_model="DiT-debug", vae_model="vae-debug",
+                                 vae_checkpoint="", compute_dtype="float32",
+                                 attention_backend="fused_all",
+                                 int8_forward=True, use_wandb=False)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A11"):
+        trainer.Trainer(cfg, 8, device="cuda")
+
+
+def test_int8_prefill_cache_fp32():
+    """An fp32 int8 dit_prefill emits its K/V cache in fp32 (gtax's emit_kv
+    at x.dtype = float32: the cast to x.dtype is a no-op), the cache the
+    fp32 step reads; the step over it agrees with the full window's last
+    frame within 2**-6 of its largest magnitude (the int8 rule)."""
+    cfg = dit_mod.DiT_debug()
+    params = dit_mod.dit_init(cfg, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    params = dit_mod.unstack_for_inference(params, cfg)
+    for bp in params["blocks"]:  # nonzero adaLN heads: blocks that act
+        for head in ("s_adaln", "t_adaln"):
+            k = bp[head]["kernel"]
+            bp[head]["kernel"] = torch.randn(k.shape, generator=g) * 0.02
+    params = dit_mod.quantize_for_inference(params)
+    rng = np.random.default_rng(2)
+    T, f32 = cfg.max_frames, torch.float32
+    x = torch.from_numpy(rng.standard_normal(
+        (1, T, cfg.in_channels, cfg.input_h, cfg.input_w)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 1000, (1, T)))
+    a = torch.from_numpy(rng.standard_normal(
+        (1, T, cfg.external_cond_dim)).astype(np.float32))
+    valid = [False] + [True] * (T - 1)
+    with torch.no_grad():
+        mods = dit_mod.dit_cond(params, cfg, t, a, f32)
+        rows = {"blocks": [{k: m[:, :T - 1] for k, m in b.items()}
+                           for b in mods["blocks"]],
+                "final": mods["final"][:, :T - 1]}
+        kv = dit_mod.dit_prefill(params, cfg, x[:, :T - 1], rows,
+                                 valid[:T - 1], f32)
+        last = {"blocks": [{k: m[:, T - 1:] for k, m in b.items()}
+                           for b in mods["blocks"]],
+                "final": mods["final"][:, T - 1:]}
+        step = dit_mod.dit_apply_step(params, cfg, x[:, T - 1:], kv, last,
+                                      valid, f32)
+        full = dit_mod.dit_apply(params, cfg, x, t, a, valid,
+                                 compute_dtype=f32, mods=mods)
+    S = cfg.grid_h * cfg.grid_w
+    for k, v in kv:
+        assert k.dtype == v.dtype == f32
+        assert k.shape == v.shape == ((T - 1) * S, cfg.hidden_size)
+    ref = full[:, T - 1:]
+    err = (step - ref).abs().max().item()
+    assert err <= 2.0**-6 * ref.abs().max().item(), err

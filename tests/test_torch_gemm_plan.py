@@ -14,6 +14,7 @@ import re
 from pathlib import Path
 
 import pytest
+import torch
 
 from gtax_torch.kernels import backward, block, build, pair, quant
 
@@ -319,3 +320,29 @@ def test_pair_workspace_is_the_carve(M):
     assert part == 8 * M * D * 4
     assert pair.workspace_bytes(M, D, Hd, G, (D, D, D, Hd)) == sum(
         -(-b // 256) * 256 for b in buffers)
+
+
+@pytest.mark.parametrize("M", [144, 288])
+def test_pair_workspace_f32_seam(M):
+    """The fp32 pairs (csrc/pair_q_f32.cu) carve the same buffers with the
+    seam xm in fp32, four bytes an element (pair_q.cuh workspace_layout's
+    elem): the carve grows by the seam's second half only."""
+    src = (CSRC / "pair_q.cuh").read_text()
+    assert "m * D * elem" in src and "sizeof(T), sizes" in src
+    D, Hd, G = 1024, 4096, 512
+    chunks = (D, D, D, Hd)
+    bf16 = pair.workspace_bytes(M, D, Hd, G, chunks)
+    assert pair.workspace_bytes(M, D, Hd, G, chunks, 2) == bf16
+    grow = -(-M * D * 4 // 256) * 256 - -(-M * D * 2 // 256) * 256
+    assert pair.workspace_bytes(M, D, Hd, G, chunks, 4) == bf16 + grow
+
+
+def test_pair_entries_by_dtype():
+    """x's dtype picks the pair's entry point: the fp32 forms have their
+    own, with gtax_pair_q's arguments, and their own grid query."""
+    assert pair._entry(torch.bfloat16) == "gtax_pair_q"
+    assert pair._entry(torch.float32) == "gtax_pair_q_f32"
+    assert (build.SIGNATURES["gtax_pair_q_f32"]
+            == build.SIGNATURES["gtax_pair_q"])
+    assert (build.SIGNATURES["gtax_pair_q_f32_blocks"]
+            == build.SIGNATURES["gtax_pair_q_blocks"])
