@@ -63,7 +63,13 @@ Phases (any failure exits nonzero and prints no result line):
      beyond 1e-4 of it printed, each pair bit-equal to its fp32 sequential
      wrappers in both GELU modes; the fp32 `pallas` attention at the
      model's three shapes within F32_TOL; timed beside the fp32 library
-     composites, the bound from the bytes, the int8 ops and fp32 FFMA;
+     composites, the bound from the bytes, the int8 ops and fp32 FFMA.
+     The fp32 training forms at B=16 (`[kernel] ... fp32` after the bf16
+     training rows, each row's "fp32" or its "fp32" "emit_train"): #1-#3
+     emit_train and the backwards #12-#14 within F32_TOL of the plain
+     version's largest magnitude, #7-#9 emit_train within INT8_F32_TOL,
+     the backwards bit-equal across two calls, timed beside the fp32
+     library composites (autograd for a backward), bound at 67 TFLOP/s;
   4. end to end, bf16: VideoGenerator at full DiT-S/2 + ViT-L/20 width,
      B=1, 4 prompt frames + 2 generated, 100 noise steps, random seeded
      weights with nonzero adaLN heads, injected noise. The launch counters
@@ -122,9 +128,21 @@ Phases (any failure exits nonzero and prints no result line):
      steps in turns), `[train backends]` (xla, fused, fused_mlp: a B=2
      micro-step each against fused_all's gradients, GRAD_TOL, with the
      launches each backend's path must make; pallas refused before a
-     step) and `[train stacked]` (unstack_train: false, B=2, 2 steps:
-     losses within 1e-6 of the unstacked run, the masters' largest
-     relative difference printed). `[e2e stacked]` (in phase 4): one
+     step), `[train fp32]` (compute_dtype float32 under fused_all at full
+     width and depth, B=16, 3 steps: launches a micro-step #1 16, #2 32,
+     #3 16, #12 16, #13 16, #14 32 (F32_TRAIN_PATH), asserted; finite
+     losses, moved parameters, step time, MFU at the fp32 peak, device
+     busy, peak memory; one B=2 micro-batch's kernel-path gradients
+     against the plain path on the card and the depth-2 card gradients
+     against the CPU's within F32_GRAD_TOL (1e-3) relative L2 a leaf,
+     median and largest printed; `[train int8] [fp32]`: one B=16
+     int8_forward micro-step over fp32 activations, #7 16, #8 16, #9 32
+     and none of #1-#3, gradients against the fp32 dense forward's
+     (GRAD_TOL); `[train backends] [fp32]`: xla, fused and fused_mlp B=2
+     micro-steps against fused_all's within F32_GRAD_TOL) and `[train
+     stacked]` (unstack_train: false, B=2, 2 steps: losses within 1e-6 of
+     the unstacked run, the masters' largest relative difference
+     printed). `[e2e stacked]` (in phase 4): one
      generated frame with ServingConfig(unstack=False), bit-equal to the
      unstacked rollout without the conditioning cache on the same noise.
   8. the approximate serving modes (`[e2e approx]`), at full width and
@@ -1292,7 +1310,9 @@ def f32_int8_phase(timer, rows):
 F32_KERNELS = ("gemm_f32_kernel", "attn_frame_f32_kernel",
                "attn_window_f32_kernel", "attn_temporal_f32_kernel",
                "ln_mod_kernelIf", "attn_sdpa_rows_f32_kernel",
-               "attn_sdpa_tiled_f32_kernel")
+               "attn_sdpa_tiled_f32_kernel", "attn_frame_bwd_f32_pass1",
+               "attn_frame_bwd_f32_pass2", "attn_temporal_bwd_f32_kernel",
+               "gate_bwd_kernelIfE", "ln_mod_bwd_kernelILi16EfE")
 # the fp32 pairs, pair_q_kernel<hd, temporal, exact, float>: 2 x 2 x 2
 F32_PAIRS = re.compile(r"pair_q_kernelILi\d+ELb\dELb\dEfE")
 # the compiler's no-op GMMA: where ptxas injects a warpgroup.arrive before
@@ -1458,18 +1478,22 @@ def _leaves_grad(*tensors):
     return [t.detach().clone().requires_grad_(True) for t in tensors]
 
 
-def train_kernel_cases():
+def train_kernel_cases(dt=torch.bfloat16):
     """(name, label, main, builder) for the three backward wrappers and the
     forward wrappers' emit_train mode (bf16 and int8), at the training
     step's shapes (B=16: 80 frames of 144 tokens) and at B=2; builder
-    returns (kernel_fn, plain_fn, library_fn, bytes, flops[, int8 ops]). A backward's inputs are its
-    forward's emit_train residuals, made once by the kernel forward; its
-    library yardstick is autograd's backward of the library composite
-    forward, timed alone (the forward runs once, outside the timing)."""
+    returns (kernel_fn, plain_fn, library_fn, bytes, flops[, int8 ops]).
+    A backward's inputs are its forward's emit_train residuals, made once
+    by the kernel forward; its library yardstick is autograd's backward of
+    the library composite forward, timed alone (the forward runs once,
+    outside the timing). dt = torch.float32: the fp32 training forms at
+    B=16 only (fp32 inputs, weights and residuals; the library composites
+    in fp32, no TF32)."""
     from gtax_torch.kernels import backward, block
 
     F = torch.nn.functional
     sfreqs = spatial_freqs()
+    esz = torch.finfo(dt).bits // 8  # bytes of a compute-dtype element
 
     def lib_mod(x, sh, sc):
         ln = F.layer_norm(x, (D,), eps=1e-6)
@@ -1490,10 +1514,11 @@ def train_kernel_cases():
 
     def attn_inputs(seed, N, freqs_rows):
         gen = np.random.default_rng(seed)
-        x, sh, sc, g = branch_inputs(gen, N, S_DIT)
-        qw, ow = rand(gen, (D, 3 * D), 0.02), rand(gen, (D, D), 0.02)
+        x, sh, sc, g = branch_inputs(gen, N, S_DIT, dt)
+        qw = rand(gen, (D, 3 * D), 0.02, dt)
+        ow = rand(gen, (D, D), 0.02, dt)
         ob = rand(gen, (D,), 0.02, torch.float32)
-        return (x, sh, sc, g, qw, ow, ob), rand(gen, (N, S_DIT, D))
+        return (x, sh, sc, g, qw, ow, ob), rand(gen, (N, S_DIT, D), dtype=dt)
 
     def attn_bytes(N, args):
         x, sh, sc, g, qw, ow, ob = args
@@ -1517,7 +1542,7 @@ def train_kernel_cases():
             o = F.scaled_dot_product_attention(lib_rope(q, f),
                                                lib_rope(k, f), v)
             y = library_linear(o.transpose(1, 2).reshape(N, S_DIT, D), ow,
-                               ob.bfloat16())
+                               ob.to(dt))
             return x + g[:, None] * y
 
         M = N * S_DIT
@@ -1543,7 +1568,7 @@ def train_kernel_cases():
         if not same:
             fail("fused_temporal_branch_bwd: the gradients with the "
                  "forward's mod differ from those without")
-        bias = block.temporal_bias(valid, T, "cuda").bfloat16()
+        bias = block.temporal_bias(valid, T, "cuda").to(dt)
 
         def fwd(x, sh, sc, g, qw, ow, ob):
             qkv = library_linear(lib_mod(x, sh, sc), qw)
@@ -1552,7 +1577,7 @@ def train_kernel_cases():
             o = F.scaled_dot_product_attention(
                 lib_rope(q, f), lib_rope(k, f), v, attn_mask=bias)
             y = library_linear(o.permute(0, 3, 1, 2, 4).reshape(N, S_DIT, D),
-                               ow, ob.bfloat16())
+                               ow, ob.to(dt))
             return x + g[:, None] * y
 
         M = N * S_DIT
@@ -1564,19 +1589,20 @@ def train_kernel_cases():
 
     def mlp_bwd(N):
         gen = np.random.default_rng(300 + N)
-        x, sh, sc, g = branch_inputs(gen, N, S_DIT)
-        w1, w2 = rand(gen, (D, 4 * D), 0.02), rand(gen, (4 * D, D), 0.02)
+        x, sh, sc, g = branch_inputs(gen, N, S_DIT, dt)
+        w1 = rand(gen, (D, 4 * D), 0.02, dt)
+        w2 = rand(gen, (4 * D, D), 0.02, dt)
         b1 = rand(gen, (4 * D,), 0.02, torch.float32)
         b2 = rand(gen, (D,), 0.02, torch.float32)
-        ct = rand(gen, (N, S_DIT, D))
+        ct = rand(gen, (N, S_DIT, D), dtype=dt)
         _, h1, y = block.fused_mlp_branch(x, sh, sc, g, w1, b1, w2, b2,
                                           emit_train=True)
         bargs = (x, sh, sc, g, w1, w2, h1, y, ct)
 
         def fwd(x, sh, sc, g, w1, b1, w2, b2):
-            h = F.gelu(library_linear(lib_mod(x, sh, sc), w1, b1.bfloat16()),
+            h = F.gelu(library_linear(lib_mod(x, sh, sc), w1, b1.to(dt)),
                        approximate="tanh")
-            return x + g[:, None] * library_linear(h, w2, b2.bfloat16())
+            return x + g[:, None] * library_linear(h, w2, b2.to(dt))
 
         M = N * S_DIT
         by = (4 * nbytes(x) + nbytes(h1, sh, sc, g, w1, w2) + 3 * N * D * 4
@@ -1588,11 +1614,12 @@ def train_kernel_cases():
 
     def emit(kind, N):
         gen = np.random.default_rng(400 + N)
-        x, sh, sc, g = branch_inputs(gen, N, S_DIT)
+        x, sh, sc, g = branch_inputs(gen, N, S_DIT, dt)
         M = N * S_DIT
         if kind == "fused_mlp_branch":
-            w1, w2 = rand(gen, (D, 4 * D), 0.02), rand(gen, (4 * D, D), 0.02)
-            b1, b2 = rand(gen, (4 * D,), 0.02), rand(gen, (D,), 0.02)
+            w1 = rand(gen, (D, 4 * D), 0.02, dt)
+            w2 = rand(gen, (4 * D, D), 0.02, dt)
+            b1, b2 = rand(gen, (4 * D,), 0.02, dt), rand(gen, (D,), 0.02, dt)
             args = (x, sh, sc, g, w1, b1, w2, b2)
 
             def lib():
@@ -1602,10 +1629,11 @@ def train_kernel_cases():
 
             return (lambda: block.fused_mlp_branch(*args, emit_train=True),
                     lambda: block.mlp_branch_plain(*args, emit_train=True),
-                    lib, nbytes(*args) + 2 * nbytes(x) + M * 4 * D * 2,
+                    lib, nbytes(*args) + 2 * nbytes(x) + M * 4 * D * esz,
                     4 * M * D * 4 * D)
-        qw, ow = rand(gen, (D, 3 * D), 0.02), rand(gen, (D, D), 0.02)
-        ob = rand(gen, (D,), 0.02)
+        qw = rand(gen, (D, 3 * D), 0.02, dt)
+        ow = rand(gen, (D, D), 0.02, dt)
+        ob = rand(gen, (D,), 0.02, dt)
         by = nbytes(x, sh, sc, g, qw, ow, ob) + 5 * nbytes(x)
         if kind == "fused_spatial_branch":
             args = (x, sh, sc, g, qw, ow, ob, sfreqs, H)
@@ -1652,18 +1680,18 @@ def train_kernel_cases():
         from gtax_torch.kernels import quant
 
         gen = np.random.default_rng(500 + N)
-        x, sh, sc, g = branch_inputs(gen, N, S_DIT)
+        x, sh, sc, g = branch_inputs(gen, N, S_DIT, dt)
         M = N * S_DIT
         if kind == "mlp":
-            w = int8_mlp_weights(gen)
+            w = int8_mlp_weights(gen, dt)
             wc = col_major_mlp(w)
             args = (x, sh, sc, g, *w)
             fn, plain = quant.fused_mlp_branch_q, quant.mlp_branch_q_plain
             lib = lambda: lib_int8_mlp(x, sh, sc, g, *wc)  # noqa: E731
-            by = nbytes(x, sh, sc, g, *w) + 2 * nbytes(x) + M * 4 * D * 2
+            by = nbytes(x, sh, sc, g, *w) + 2 * nbytes(x) + M * 4 * D * esz
             fl, i8 = 0, 2 * 2 * M * D * 4 * D
         else:
-            w = int8_attn_weights(gen)
+            w = int8_attn_weights(gen, dt)
             wc = col_major_attn(w)
             by = nbytes(x, sh, sc, g, *w) + 5 * nbytes(x)
             i8 = 2 * M * D * 4 * D
@@ -1694,7 +1722,7 @@ def train_kernel_cases():
                 lambda: plain(*args, emit_train=True), lib, by, fl, i8)
 
     pad = [False, True, True, True, True]
-    return [
+    cases = [
         ("fused_spatial_branch_q", "emit_train B=16 (N=80)", True,
          lambda: emit_q("spatial", 80)),
         ("fused_temporal_branch_q", "emit_train B=16 T=5, slot 0 padded",
@@ -1726,6 +1754,10 @@ def train_kernel_cases():
         ("fused_spatial_branch", "emit_train B=2 (N=10)", False,
          lambda: emit("fused_spatial_branch", 10)),
     ]
+    if dt == torch.float32:  # the main shapes only
+        return [(name, label + ", fp32", main, make)
+                for name, label, main, make in cases if main]
+    return cases
 
 
 def s8_plans(name, M):
@@ -1748,36 +1780,62 @@ def s8_plans(name, M):
     return plans
 
 
-def train_kernel_phase(rows):
+def train_kernel_phase(rows, dt=torch.bfloat16):
     """The backward wrappers' rows, and the emit_train mode of the forward
     rows, bf16 (#1-#3) and int8 (#7-#9), kept as emit_train_* keys of
     those rows; the int8 rows also get the int8 GEMMs' plan at training
-    rows (quant.s8_chunk)."""
+    rows (quant.s8_chunk). dt = torch.float32: the fp32 training forms at
+    B=16 (`[kernel] ... fp32`), under the gates stated before their first
+    run: #1-#3 and #12-#14 within F32_TOL of the plain output's largest
+    magnitude, #7-#9 within INT8_F32_TOL (the int8 rule), the backwards
+    bit-equal across two calls; the bound at 67 TFLOP/s of fp32 FFMA (and
+    1,979 TOP/s of int8); kept in each row's "fp32" (the backwards) or its
+    "fp32" "emit_train" (the forwards)."""
     timer = Timer()
-    for name, label, main, make in train_kernel_cases():
+    f32 = dt == torch.float32
+    M = 80 * S_DIT
+    # the backwards' GEMMs in launch order: dy W_out^T, dW_out, dW_qkv,
+    # dqkv W_qkv^T; the MLP's four products of 96.6 GFLOP
+    attn_flops = [2 * M * D * D] * 2 + [2 * M * D * 3 * D] * 2
+    bwd_flops = {"fused_spatial_branch_bwd": attn_flops,
+                 "fused_temporal_branch_bwd": attn_flops,
+                 "fused_mlp_branch_bwd": [2 * M * D * 4 * D] * 4}
+    for name, label, main, make in train_kernel_cases(dt):
         kern, plain, lib, by, fl, *i8 = make()
+        tol = {}
+        if f32:
+            tol = {"rel_tol": INT8_F32_TOL if name.endswith("_q")
+                   else F32_TOL, "flops_per_s": F32_FLOPS_PER_S}
         with torch.no_grad():
-            m = measure(timer, name, label, kern, plain, lib, by, fl, *i8)
+            m = measure(timer, name, label, kern, plain, lib, by, fl, *i8,
+                        **tol)
+        if f32 and name in BWD_REPLACES and not m["two_calls_bit_equal"]:
+            fail(f"{name} [{label}]: two calls on the same inputs differ")
         if not main:
             continue
-        if name in BWD_REPLACES:
+        if f32:
+            lib_desc = (LIB_BWD.format(
+                {"fused_mlp_branch_bwd": "F.gelu"}.get(
+                    name, "SDPA" if "spatial" in name else "SDPA(mask)"))
+                if name in BWD_REPLACES else "library composite")
+            rec = dict(m, launches=None, library=lib_desc + ", fp32")
+            if name in BWD_REPLACES:
+                rows[name]["fp32"] = rec
+                with torch.no_grad():
+                    rec["launch_split"] = launch_split(
+                        kern, f"{name} [{label}]", bwd_flops[name])
+            else:
+                rows[name].setdefault("fp32", {})["emit_train"] = rec
+        elif name in BWD_REPLACES:
             what = {"fused_mlp_branch_bwd": "F.gelu"}.get(
                 name, "SDPA" if "spatial" in name else "SDPA(mask)")
             rows[name] = {"name": name, "route": "cuda",
                           "source": BWD_SOURCE,
                           "replaces": BWD_REPLACES[name], "launches": None,
                           **m, "library": LIB_BWD.format(what)}
-            M = 80 * S_DIT
-            # the GEMMs in launch order: dy W_out^T, dW_out, dW_qkv,
-            # dqkv W_qkv^T; the MLP's four products of 96.6 GFLOP
-            attn_flops = [2 * M * D * D] * 2 + [2 * M * D * 3 * D] * 2
-            flops = {"fused_spatial_branch_bwd": attn_flops,
-                     "fused_temporal_branch_bwd": attn_flops,
-                     "fused_mlp_branch_bwd": [2 * M * D * 4 * D] * 4}
-            if name in flops:
-                with torch.no_grad():
-                    rows[name]["launch_split"] = launch_split(
-                        kern, f"{name} [{label}]", flops[name])
+            with torch.no_grad():
+                rows[name]["launch_split"] = launch_split(
+                    kern, f"{name} [{label}]", bwd_flops[name])
             if name == "fused_temporal_branch_bwd":
                 rows[name]["attention_bound"] = temporal_attention_bound(
                     rows[name]["launch_split"], M)
@@ -1797,7 +1855,6 @@ def train_kernel_phase(rows):
             if name.endswith("_q"):
                 rows[name]["emit_train_s8_plan"] = s8_plans(name, 80 * S_DIT)
             if name == "fused_temporal_branch":  # ln_mod, qkv, attn, out
-                M = 80 * S_DIT
                 with torch.no_grad():
                     split = launch_split(kern, f"{name} [{label}]",
                                          [2 * M * D * 3 * D, 2 * M * D * D])
@@ -2864,6 +2921,10 @@ BWD_PATH = {"fused_spatial_branch_bwd": 16, "fused_temporal_branch_bwd": 16,
 TRAIN_PATH = ("fused_spatial_branch", "fused_mlp_branch",
               "fused_temporal_branch", *BWD_PATH)
 GRAD_TOL = 5e-2  # relative L2 per gradient leaf
+# fp32 training's gradients, kernel path against plain path and card
+# against CPU, relative L2 per leaf (stated before the first fp32 training
+# run): fp32 has no rounding points, only summation orders differ
+F32_GRAD_TOL = 1e-3
 
 
 def read_flat_yaml(path):
@@ -2904,8 +2965,8 @@ def leaf_grads(params):
             for path, p in leaves(params) if p.grad is not None}
 
 
-def compare_grads(label, got, ref):
-    """Relative L2 error of every gradient leaf; fails above GRAD_TOL."""
+def compare_grads(label, got, ref, tol=GRAD_TOL):
+    """Relative L2 error of every gradient leaf; fails above tol."""
     rel = {path: ((got[path].cpu() - g).norm() / g.norm()).item()
            for path, g in ((p, r.cpu()) for p, r in ref.items())
            if g.norm() > 0}
@@ -2915,9 +2976,11 @@ def compare_grads(label, got, ref):
     vals = sorted(rel.values())
     log(f"[train] {label}: {len(rel)} leaves, relative L2 median "
         f"{vals[len(vals) // 2]:.3g}, max {rel[worst]:.3g} at "
-        f"{'/'.join(map(str, worst))} (tol {GRAD_TOL})")
-    if not (all(math.isfinite(v) for v in vals) and rel[worst] <= GRAD_TOL):
-        fail(f"{label}: gradients disagree ({rel[worst]} > {GRAD_TOL})")
+        f"{'/'.join(map(str, worst))} (tol {tol})")
+    if not (all(math.isfinite(v) for v in vals) and rel[worst] <= tol):
+        fail(f"{label}: gradients disagree ({rel[worst]} > {tol})")
+    return {"median": vals[len(vals) // 2], "max": rel[worst],
+            "leaves": len(rel)}
 
 
 def micro_grads(params, cfg, latents, acts, draws, loss_cfg, abar,
@@ -3184,14 +3247,14 @@ def step_figures(trainer, batch, label):
     return m
 
 
-def micro_batch(ctx, B, seed):
+def micro_batch(ctx, B, seed, tr=None):
     """(latents, actions, draws) of one micro-batch of B clips, encoded by
-    the [train] trainer, with its loss noise drawn once."""
+    the [train] trainer (or tr), with its loss noise drawn once."""
     from gtax_torch.data.dummy import DummyDataset
     from gtax_torch.data.loader import DataLoader
     from gtax_torch.sampling.diffusion import draw_loss_noise
 
-    tr = ctx["trainer"]
+    tr = tr or ctx["trainer"]
     b = next(iter(DataLoader(DummyDataset("train", return_actions=True,
                                           size=B), B, shuffle=False)))
     with torch.no_grad():
@@ -3435,10 +3498,184 @@ def train_stacked_phase(ctx, rows):
                                 "masters_max_rel_diff": worst}
 
 
+# `[train fp32]`'s launches a micro-step: the fp32 forms of #1-#3 and
+# #12-#14, at the bf16 counts
+F32_TRAIN_PATH = {"fused_spatial_branch": 16, "fused_mlp_branch": 32,
+                  "fused_temporal_branch": 16, **BWD_PATH}
+
+
+def launch_counts(fns, want, micro, label):
+    """Every wrapper's launches a micro-step against want (0 where absent);
+    fails on any difference."""
+    counts = {name: fn.launches for name, fn in fns.items()}
+    per = {name: n // micro for name, n in counts.items()}
+    log(f"[{label}] launches per micro-step: {json.dumps(per)}")
+    if counts != {name: want.get(name, 0) * micro for name in fns}:
+        fail(f"[{label}] launches {per} a micro-step, the code gives "
+             f"{ {name: want.get(name, 0) for name in fns} }")
+    return per
+
+
+def train_fp32_phase(ctx, rows):
+    """`[train fp32]`: [train]'s config with compute_dtype float32 under
+    fused_all at full width and depth (B=16, the same cuts), 3 steps with
+    every count zeroed before and read after (the fp32 forms of #1 16, #2
+    32, #3 16, #12 16, #13 16, #14 32 a micro-step); finite losses, moved
+    parameters; step time, MFU at the fp32 rate (67 TFLOP/s), device busy
+    and peak memory; one B=2 micro-batch's kernel-path gradients against
+    the plain path on the card, and the depth-2 card gradients against the
+    CPU's, both within F32_GRAD_TOL relative L2 a leaf. Then `[train int8]
+    fp32`: one B=16 int8_forward micro-step over fp32 activations (#7 16,
+    #8 16, #9 32, none of #1-#3), its gradients against the fp32 dense
+    forward's (GRAD_TOL); and `[train backends] fp32`: xla, fused and
+    fused_mlp B=2 micro-steps against fused_all's (F32_GRAD_TOL), with
+    their launches."""
+    from gtax_torch.data.dummy import DummyDataset
+    from gtax_torch.data.loader import DataLoader
+    from gtax_torch.models import dit as dit_mod
+    from gtax_torch.train.optim import decays, leaves
+
+    tag, f32 = "train fp32", torch.float32
+    tr = mode_trainer(ctx, tag, compute_dtype="float32")
+    fns = mode_wrappers()
+    cfg, dcfg = tr.config, tr.dit_cfg
+    steps, B = cfg.max_steps, cfg.batch_size
+    micro = cfg.gradient_accumulation_steps * steps
+    batches = list(tr.iter_device_batches(DataLoader(
+        DummyDataset("train", return_actions=True, size=B * steps), B,
+        seed=cfg.seed)))
+    watch = [path for path, _ in leaves(tr.dit_params) if decays(path)][::23]
+    before = {path: p.detach().clone() for path, p in
+              leaves(tr.dit_params) if path in watch}
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    for fn in fns.values():
+        fn.launches = 0
+    records = [dict(tr.train_step_sync(b), step=i + 1)
+               for i, b in enumerate(batches)]
+    per = launch_counts(fns, F32_TRAIN_PATH, micro, tag)
+    for name in F32_TRAIN_PATH:
+        rows[name].setdefault("fp32", {})["train_launches"] = (
+            per[name] * cfg.gradient_accumulation_steps)
+        if name in BWD_PATH:
+            rows[name]["fp32"]["launches"] = rows[name]["fp32"][
+                "train_launches"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for m in records:
+        m["mfu_fp32"] = m["mfu"] * BF16_FLOPS_PER_S / F32_FLOPS_PER_S
+        log(f"[{tag}] step {m['step']}: train_loss={m['train_loss']:.5g} "
+            f"grad_norm={m['grad_norm']:.5g} step_time_s="
+            f"{m['step_time_s']:.4f} mfu (fp32 peak)={m['mfu_fp32']:.4f}")
+        if not (math.isfinite(m["train_loss"])
+                and math.isfinite(m["grad_norm"])):
+            fail(f"[{tag}] non-finite metrics {m}")
+    if len(records) != steps:
+        fail(f"[{tag}] {len(records)} records for {steps} steps")
+    moved = [not torch.equal(before[path], p) for path, p in
+             leaves(tr.dit_params) if path in before]
+    log(f"[{tag}] parameters moved: {sum(moved)} of {len(moved)} watched "
+        "leaves")
+    if not all(moved):
+        fail(f"[{tag}] parameters did not move")
+    fig = step_figures(tr, batches[0], f"one fp32 train step, B={B}")
+    log(f"[{tag}] peak memory {peak:.2f} GiB ({peak - resident:.2f} above "
+        f"the {resident:.2f} GiB resident, the [train] trainer included); "
+        f"device busy {(fig['profile'] or {}).get('device_busy_ms')} ms "
+        f"(bf16 {(rows['train']['profile'] or {}).get('device_busy_ms')})")
+    out = {"step_time_s": [m["step_time_s"] for m in records],
+           "mfu_fp32": [m["mfu_fp32"] for m in records],
+           "train_loss": [m["train_loss"] for m in records],
+           "peak_memory_gib": peak, "resident_gib": resident,
+           "profile": fig["profile"], "launches_per_micro_step": per}
+
+    # one B=2 micro-batch: the kernel path against the plain path, full depth
+    lat, acts, draws = micro_batch(ctx, 2, 9, tr)
+    consts = (tr.loss_cfg, tr.alphas_cumprod, tr.noise_range)
+    p = tr.dit_params
+    t1 = time.perf_counter()
+    g_kernel = micro_grads(p, dcfg, lat, acts, draws, *consts,
+                           compute_dtype=f32)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    g_plain = micro_grads(p, dcfg, lat, acts, draws, *consts,
+                          compute_dtype=f32, plain_branches=True)
+    torch.cuda.synchronize()
+    log(f"[{tag}] B=2 micro-batch gradients: kernel path {t2 - t1:.3f} s, "
+        f"plain path {time.perf_counter() - t2:.3f} s")
+    out["kernel_vs_plain"] = compare_grads(
+        f"[{tag}] B=2 kernel path vs plain path, full depth", g_kernel,
+        g_plain, F32_GRAD_TOL)
+    del g_plain
+    # depth 2: the card's gradients against the port's CPU gradients
+    cfg2 = dataclasses.replace(dcfg, depth=2)
+    p2 = dict(p, blocks=p["blocks"][:2])
+    g_card = micro_grads(p2, cfg2, lat, acts, draws, *consts,
+                         compute_dtype=f32)
+    p2_cpu = dit_mod._map_params(
+        p2, lambda _, a: a.detach().cpu().requires_grad_(a.requires_grad))
+    g_cpu = micro_grads(p2_cpu, cfg2, lat.cpu(), acts.cpu(),
+                        {k: v.cpu() for k, v in draws.items()},
+                        consts[0], *(c.cpu() for c in consts[1:]),
+                        compute_dtype=f32)
+    out["card_vs_cpu"] = compare_grads(
+        f"[{tag}] depth 2, card vs CPU (plain versions)", g_card, g_cpu,
+        F32_GRAD_TOL)
+    del g_card, g_cpu, p2_cpu
+
+    # [train int8] fp32: one int8_forward micro-step over fp32 activations
+    lab = "train int8] [fp32"
+    lat, acts, draws = micro_batch(ctx, B, 10, tr)
+    for fn in fns.values():
+        fn.launches = 0
+    l8, g8 = micro_grads(p, dcfg, lat, acts, draws, *consts, with_loss=True,
+                         compute_dtype=f32, int8_fwd=True)
+    torch.cuda.synchronize()
+    per8 = launch_counts(fns, INT8_TRAIN_PATH, 1, lab)
+    for name in ("fused_spatial_branch_q", "fused_temporal_branch_q",
+                 "fused_mlp_branch_q"):
+        rows[name].setdefault("fp32", {})["train_launches"] = per8[name]
+    ld, gd = micro_grads(p, dcfg, lat, acts, draws, *consts, with_loss=True,
+                         compute_dtype=f32)
+    log(f"[{lab}] micro-step loss (summed) int8 {l8.item():.6g} vs fp32 "
+        f"dense {ld.item():.6g}")
+    out["int8"] = compare_grads(
+        f"[{lab}] B={B} micro-step, int8 forward vs fp32 dense forward", g8,
+        gd)
+    out["int8"]["launches_per_micro_step"] = per8
+    del g8, gd
+
+    # [train backends] fp32: each backend's B=2 micro-step
+    lab = "train backends] [fp32"
+    lat, acts, draws = micro_batch(ctx, 2, 11, tr)
+    grads, counts = {}, {}
+    for backend in ("fused_all", *BACKEND_PATH):
+        for fn in fns.values():
+            fn.launches = 0
+        grads[backend] = micro_grads(p, dcfg, lat, acts, draws, *consts,
+                                     compute_dtype=f32, backend=backend)
+        counts[backend] = {n: fn.launches for n, fn in fns.items()
+                           if fn.launches}
+        log(f"[{lab}] {backend}: launches {json.dumps(counts[backend])}")
+    out["backends"] = {"launches": counts}
+    for backend, need in BACKEND_PATH.items():
+        if set(counts[backend]) != {n for n, on in need.items() if on}:
+            fail(f"[{lab}] {backend} launched {sorted(counts[backend])}, "
+                 f"its path is {sorted(need)}")
+        out["backends"][backend] = compare_grads(
+            f"[{lab}] {backend} vs fused_all, B=2, full depth",
+            grads[backend], grads["fused_all"], F32_GRAD_TOL)
+    rows["train"]["fp32"] = out
+    del grads, tr
+    for _, q in leaves(p):
+        q.grad = None
+    torch.cuda.empty_cache()
+
+
 def train_modes_phase(ctx, rows):
     for label, fn in (("train int8", train_int8_phase),
                       ("train remat", train_remat_phase),
                       ("train backends", train_backends_phase),
+                      ("train fp32", train_fp32_phase),
                       ("train stacked", train_stacked_phase)):
         t = time.perf_counter()
         fn(ctx, rows)
@@ -4802,6 +5039,7 @@ def main():
         rows = timed("kernels", kernel_phase)
         temporal = timed("temporal", temporal_checks)
     timed("train kernels", train_kernel_phase, rows)
+    timed("train kernels fp32", train_kernel_phase, rows, torch.float32)
     e2e = timed("end to end", end_to_end, rows)
     ctx = timed("train", train_phase, rows)
     timed("train modes", train_modes_phase, ctx, rows)

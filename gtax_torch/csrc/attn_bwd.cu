@@ -560,7 +560,496 @@ int launch_temporal_t(const bf16* q, const bf16* k, const bf16* v,
   }
 }
 
+// ------------------------------------------------------------------ fp32
+//
+// The fp32 branches' attention backwards (gtax's backward kernels at
+// x.dtype = float32: every cast a no-op, so P and dS are not rounded), on
+// the CUDA cores (fp32 FFMA, no tensor-core instruction: TF32 keeps ten
+// mantissa bits). The bf16 frame design keeps Q, K, V, dO and the S x S P
+// and dS of a (head, frame) in one block's shared memory; in fp32 that is
+// about 313 KB at S = 144, past the 227 KB a block may have. So
+// attn_frame_bwd_f32 runs two passes over 64-row tiles:
+//   pass 1, a block a (query tile, head, frame): the tile's scores against
+//     every key (P^T, 64 x SP in shared memory, SP = S rounded up to 64),
+//     each row's max m and sum l (4 threads a row, a fixed order), P =
+//     exp(s - m) / l; then per key tile O += P V and dP = dO V^T; rowsum
+//     D = sum(dP * P); dS = (P * (dP - D)) * d^-1/2 in place; dQ = dS K
+//     through the rope adjoint. It stores O, dQ and (m, l, D) a row;
+//   pass 2, a block a (key tile, head, frame): per query tile, the scores
+//     and dP again (transposed: K Q^T and V dO^T), P and dS from the
+//     stored (m, l, D), then dK += dS^T Q and dV += P^T dO, dK through the
+//     rope adjoint.
+// A score and a dP are the same fp32 FFMA chains over the head's dims in
+// both passes, and the scale, P and dS are formed by the same rounded
+// operations, so pass 2's P and dS are pass 1's bit for bit. Thread (ty,
+// tx) = (tid / 16, tid % 16) holds rows 4 ty .. 4 ty + 3 of a 64-row tile;
+// every operand is staged k-major, so both of a product's reads are
+// float4 along the thread's rows and columns. Frames up to 256 tokens at
+// head dim 64 (320 at 32) fit pass 1's shared memory.
+// attn_temporal_bwd_f32 is attn_temporal_bwd with a lane of four fp32
+// dims (16 bytes, as attn_window_lane_f32): the same passes and order of
+// sums, nothing rounded.
+
+constexpr int kF32BwdTile = 64;      // rows of a tile
+constexpr int kF32BwdThreads = 256;
+constexpr int kF32BwdLd = kF32BwdTile + 4;  // a k-major tile's row stride
+
+// pass 1: Q^T, dO^T, a key tile's K^T / V^T and its rows, and P^T and
+// dP^T / dS^T over every key
+template <int HD>
+constexpr size_t frame_bwd_f32_smem1(int S) {
+  const size_t sp = (size_t)(S + kF32BwdTile - 1) / kF32BwdTile * kF32BwdTile;
+  return (3 * HD * kF32BwdLd + kF32BwdTile * HD + 2 * sp * kF32BwdLd) *
+         sizeof(float);
+}
+// pass 2: the key tile's K^T and V^T, a query tile's Q^T, dO^T and rows,
+// its P and dS (query-major) and (m, l, D)
+template <int HD>
+constexpr size_t frame_bwd_f32_smem2() {
+  return (4 * HD * kF32BwdLd + 2 * kF32BwdTile * HD +
+          2 * kF32BwdTile * kF32BwdLd + 3 * kF32BwdTile) *
+         sizeof(float);
+}
+
+// rows p0 .. p0 + 63 of head column hc of src ((rows, D) fp32, frame
+// rows from row0) into dst k-major (dst[d * kF32BwdLd + r]); rows past S
+// zero
+template <int HD>
+__device__ __forceinline__ void stage_kmajor(float* dst, const float* src,
+                                             size_t row0, int D, size_t hc,
+                                             int p0, int S) {
+  for (int i = threadIdx.x; i < kF32BwdTile * HD / 4; i += kF32BwdThreads) {
+    const int r = i / (HD / 4), d = i % (HD / 4) * 4, p = p0 + r;
+    const float4 x = p < S ? *reinterpret_cast<const float4*>(
+                                 src + (row0 + p) * D + hc + d)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    dst[d * kF32BwdLd + r] = x.x;
+    dst[(d + 1) * kF32BwdLd + r] = x.y;
+    dst[(d + 2) * kF32BwdLd + r] = x.z;
+    dst[(d + 3) * kF32BwdLd + r] = x.w;
+  }
+}
+
+// the same rows row-major (dst[r * HD + d])
+template <int HD>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           size_t row0, int D, size_t hc,
+                                           int p0, int S) {
+  for (int i = threadIdx.x; i < kF32BwdTile * HD / 4; i += kF32BwdThreads) {
+    const int r = i / (HD / 4), d = i % (HD / 4) * 4, p = p0 + r;
+    *reinterpret_cast<float4*>(dst + r * HD + d) =
+        p < S ? *reinterpret_cast<const float4*>(src + (row0 + p) * D + hc + d)
+              : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// acc[r][c] += sum over k < n, in order, of a[k * lda + 4 ty + r] *
+// b[k * ldb + CW tx + c] (fp32 FFMA)
+template <int CW>
+__device__ __forceinline__ void tile_fma(float (&acc)[4][CW], const float* a,
+                                         int lda, const float* b, int ldb,
+                                         int n) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll 4
+  for (int k = 0; k < n; ++k) {
+    const float4 av = *reinterpret_cast<const float4*>(a + k * lda + ty * 4);
+    const float ar[4] = {av.x, av.y, av.z, av.w};
+    float bv[CW];
+#pragma unroll
+    for (int c = 0; c < CW; c += 2) {
+      const float2 t =
+          *reinterpret_cast<const float2*>(b + k * ldb + tx * CW + c);
+      bv[c] = t.x;
+      bv[c + 1] = t.y;
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < CW; ++c) acc[r][c] = fmaf(ar[r], bv[c], acc[r][c]);
+  }
+}
+
+// 1 / sqrt(d) as gtax forms it: the double quotient, rounded once
+template <int HD>
+__device__ __forceinline__ float attn_scale() {
+  return (float)(1.0 / sqrt((double)HD));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kF32BwdThreads, 1)
+    attn_frame_bwd_f32_pass1(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ cosb,
+                             const float* __restrict__ sinb,
+                             float* __restrict__ dqkv, float* __restrict__ ao,
+                             float* __restrict__ stats, int S, int D,
+                             int rot) {
+  extern __shared__ __align__(16) float fsm[];
+  constexpr int LD = kF32BwdLd, CW = HD / 16, TILE = kF32BwdTile;
+  const int SP = (S + TILE - 1) / TILE * TILE;
+  float* QT = fsm;                 // [HD][LD] Q^T
+  float* OT = QT + HD * LD;        // [HD][LD] dO^T
+  float* XT = OT + HD * LD;        // [HD][LD] K^T or V^T of a key tile
+  float* XR = XT + HD * LD;        // [TILE][HD] V or K rows of a key tile
+  float* PT = XR + TILE * HD;      // [SP][LD] P^T
+  float* GT = PT + (size_t)SP * LD;  // [SP][LD] dP^T, then dS^T
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int H = gridDim.y, h = blockIdx.y, n = blockIdx.z;
+  const int q0 = blockIdx.x * TILE;
+  const size_t hc = (size_t)h * HD, row0 = (size_t)n * S;
+  const size_t D3 = 3 * (size_t)D;
+  const float scale = attn_scale<HD>();
+
+  stage_kmajor<HD>(QT, q, row0, D, hc, q0, S);
+  stage_kmajor<HD>(OT, dout, row0, D, hc, q0, S);
+  // the scores, scaled, into P^T (keys past S: -inf)
+  for (int j0 = 0; j0 < SP; j0 += TILE) {
+    __syncthreads();
+    stage_kmajor<HD>(XT, k, row0, D, hc, j0, S);
+    __syncthreads();
+    float sc[4][4] = {};
+    tile_fma<4>(sc, QT, LD, XT, LD, HD);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = j0 + tx * 4 + c;
+        PT[key * LD + ty * 4 + r] =
+            key < S ? __fmul_rn(sc[r][c], scale) : -INFINITY;
+      }
+  }
+  __syncthreads();
+  // each row's max and sum, four threads a row over keys part, part + 4,
+  // ..., then P = exp(s - m) / l
+  const int row = tid >> 2, part = tid & 3;
+  float m = -INFINITY;
+  for (int key = part; key < S; key += 4) m = fmaxf(m, PT[key * LD + row]);
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+  float l = 0.f;
+  for (int key = part; key < S; key += 4) l += expf(PT[key * LD + row] - m);
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  for (int key = part; key < SP; key += 4)
+    PT[key * LD + row] = key < S ? expf(PT[key * LD + row] - m) / l : 0.f;
+  __syncthreads();
+
+  // O = P V and dP = dO V^T, a key tile at a time
+  float o[4][CW] = {};
+  for (int j0 = 0; j0 < SP; j0 += TILE) {
+    if (j0) __syncthreads();
+    stage_kmajor<HD>(XT, v, row0, D, hc, j0, S);
+    stage_rows<HD>(XR, v, row0, D, hc, j0, S);
+    __syncthreads();
+    tile_fma<CW>(o, PT + j0 * LD, LD, XR, HD, TILE);
+    float dp[4][4] = {};
+    tile_fma<4>(dp, OT, LD, XT, LD, HD);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        GT[(j0 + tx * 4 + c) * LD + ty * 4 + r] = dp[r][c];
+  }
+  __syncthreads();
+  // D = rowsum(dP * P), then dS in place (keys past S: 0)
+  float dsum = 0.f;
+  for (int key = part; key < S; key += 4)
+    dsum = fmaf(GT[key * LD + row], PT[key * LD + row], dsum);
+  dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+  dsum += __shfl_xor_sync(0xffffffffu, dsum, 2);
+  for (int key = part; key < SP; key += 4)
+    GT[key * LD + row] =
+        key < S ? __fmul_rn(__fmul_rn(PT[key * LD + row],
+                                      __fsub_rn(GT[key * LD + row], dsum)),
+                            scale)
+                : 0.f;
+  if (part == 0 && q0 + row < S) {
+    float* st = stats + (((size_t)n * H + h) * S + q0 + row) * 3;
+    st[0] = m;
+    st[1] = l;
+    st[2] = dsum;
+  }
+  // dQ = dS K
+  float dq[4][CW] = {};
+  for (int j0 = 0; j0 < SP; j0 += TILE) {
+    __syncthreads();
+    stage_rows<HD>(XR, k, row0, D, hc, j0, S);
+    __syncthreads();
+    tile_fma<CW>(dq, GT + j0 * LD, LD, XR, HD, TILE);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int qr = q0 + ty * 4 + r;
+    if (qr >= S) continue;
+#pragma unroll
+    for (int c = 0; c < CW; c += 2) {
+      const int dim = tx * CW + c;
+      *reinterpret_cast<float2*>(ao + (row0 + qr) * D + hc + dim) =
+          make_float2(o[r][c], o[r][c + 1]);
+      float2 u = make_float2(dq[r][c], dq[r][c + 1]);
+      if (dim < rot) u = rope_pair_t_tab(u, cosb, sinb, (size_t)qr * rot + dim);
+      *reinterpret_cast<float2*>(dqkv + (row0 + qr) * D3 + hc + dim) = u;
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kF32BwdThreads, 1)
+    attn_frame_bwd_f32_pass2(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ cosb,
+                             const float* __restrict__ sinb,
+                             float* __restrict__ dqkv,
+                             const float* __restrict__ stats, int S, int D,
+                             int rot) {
+  extern __shared__ __align__(16) float fsm[];
+  constexpr int LD = kF32BwdLd, CW = HD / 16, TILE = kF32BwdTile;
+  float* KT = fsm;                   // [HD][LD] K^T of the key tile
+  float* VT = KT + HD * LD;          // [HD][LD] V^T
+  float* QT = VT + HD * LD;          // [HD][LD] Q^T of a query tile
+  float* OT = QT + HD * LD;          // [HD][LD] dO^T
+  float* QR = OT + HD * LD;          // [TILE][HD] Q rows
+  float* OR = QR + TILE * HD;        // [TILE][HD] dO rows
+  float* PS = OR + TILE * HD;        // [TILE][LD] P, query-major
+  float* GS = PS + TILE * LD;        // [TILE][LD] dS, query-major
+  float* ST = GS + TILE * LD;        // [3][TILE] m, l, D
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int H = gridDim.y, h = blockIdx.y, n = blockIdx.z;
+  const int k0 = blockIdx.x * TILE;
+  const size_t hc = (size_t)h * HD, row0 = (size_t)n * S;
+  const size_t D3 = 3 * (size_t)D;
+  const float scale = attn_scale<HD>();
+  const float* frame_stats = stats + ((size_t)n * H + h) * S * 3;
+
+  stage_kmajor<HD>(KT, k, row0, D, hc, k0, S);
+  stage_kmajor<HD>(VT, v, row0, D, hc, k0, S);
+  float dk[4][CW] = {}, dv[4][CW] = {};
+  for (int q0 = 0; q0 < S; q0 += TILE) {
+    __syncthreads();
+    stage_kmajor<HD>(QT, q, row0, D, hc, q0, S);
+    stage_kmajor<HD>(OT, dout, row0, D, hc, q0, S);
+    stage_rows<HD>(QR, q, row0, D, hc, q0, S);
+    stage_rows<HD>(OR, dout, row0, D, hc, q0, S);
+    for (int i = tid; i < TILE; i += kF32BwdThreads) {
+      const bool ok = q0 + i < S;
+      const float* st = frame_stats + (size_t)(q0 + i) * 3;
+      ST[i] = ok ? st[0] : 0.f;
+      ST[TILE + i] = ok ? st[1] : 1.f;
+      ST[2 * TILE + i] = ok ? st[2] : 0.f;
+    }
+    __syncthreads();
+    // rows: keys 4 ty + r; columns: queries 4 tx + c
+    float sc[4][4] = {}, dp[4][4] = {};
+    tile_fma<4>(sc, KT, LD, QT, LD, HD);
+    tile_fma<4>(dp, VT, LD, OT, LD, HD);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int qi = tx * 4 + c;
+      const bool ok = q0 + qi < S;
+      const float m = ST[qi], l = ST[TILE + qi], dsum = ST[2 * TILE + qi];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float p = ok ? expf(__fmul_rn(sc[r][c], scale) - m) / l : 0.f;
+        PS[qi * LD + ty * 4 + r] = p;
+        GS[qi * LD + ty * 4 + r] =
+            ok ? __fmul_rn(__fmul_rn(p, __fsub_rn(dp[r][c], dsum)), scale)
+               : 0.f;
+      }
+    }
+    __syncthreads();
+    tile_fma<CW>(dk, GS, LD, QR, HD, TILE);
+    tile_fma<CW>(dv, PS, LD, OR, HD, TILE);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = k0 + ty * 4 + r;
+    if (j >= S) continue;
+#pragma unroll
+    for (int c = 0; c < CW; c += 2) {
+      const int dim = tx * CW + c;
+      float2 u = make_float2(dk[r][c], dk[r][c + 1]);
+      if (dim < rot) u = rope_pair_t_tab(u, cosb, sinb, (size_t)j * rot + dim);
+      float* o = dqkv + (row0 + j) * D3 + hc + dim;
+      *reinterpret_cast<float2*>(o + D) = u;
+      *reinterpret_cast<float2*>(o + 2 * (size_t)D) =
+          make_float2(dv[r][c], dv[r][c + 1]);
+    }
+  }
+}
+
+template <int HD>
+int launch_frame_f32(const float* q, const float* k, const float* v,
+                     const float* dout, const float* cosb, const float* sinb,
+                     float* dqkv, float* ao, float* stats, int n_frames,
+                     int S, int D, int rot, cudaStream_t st) {
+  const size_t smem1 = frame_bwd_f32_smem1<HD>(S);
+  constexpr size_t smem2 = frame_bwd_f32_smem2<HD>();
+  static size_t opted1 = 48 * 1024, opted2 = 48 * 1024;
+  cudaError_t e = opt_in_smem(attn_frame_bwd_f32_pass1<HD>, smem1, opted1);
+  if (e == cudaSuccess)
+    e = opt_in_smem(attn_frame_bwd_f32_pass2<HD>, smem2, opted2);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + kF32BwdTile - 1) / kF32BwdTile, D / HD, n_frames);
+  attn_frame_bwd_f32_pass1<HD><<<grid, kF32BwdThreads, smem1, st>>>(
+      q, k, v, dout, cosb, sinb, dqkv, ao, stats, S, D, rot);
+  attn_frame_bwd_f32_pass2<HD><<<grid, kF32BwdThreads, smem2, st>>>(
+      q, k, v, dout, cosb, sinb, dqkv, stats, S, D, rot);
+  return (int)cudaGetLastError();
+}
+
+// The lane's four products a[i] * b[i], added in order (fp32).
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  float acc = 0.f;
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  acc = fmaf(a.w, b.w, acc);
+  return acc;
+}
+
+__device__ __forceinline__ float4 fma4(float s, float4 x, float4 acc) {
+  return make_float4(fmaf(s, x.x, acc.x), fmaf(s, x.y, acc.y),
+                     fmaf(s, x.z, acc.z), fmaf(s, x.w, acc.w));
+}
+
+// attn_temporal_bwd over fp32 q, k, v, dO (a lane: four dims of a site, a
+// head's HD / 4 lanes an aligned group of a warp): P and dS not rounded,
+// dq, dk, dv and O stored as fp32.
+template <int HD, int T>
+__global__ void __launch_bounds__(kWindowThreads)
+    attn_temporal_bwd_f32_kernel(const float* __restrict__ q,
+                                 const float* __restrict__ k,
+                                 const float* __restrict__ v,
+                                 const float* __restrict__ dout,
+                                 const float* __restrict__ freqs,
+                                 float* __restrict__ dqkv,
+                                 float* __restrict__ ao, int B, int S, int D,
+                                 int valid_mask) {
+  constexpr int L = HD / kLaneDimsF32;
+  __shared__ float cos_t[T * HD], sin_t[T * HD];
+  for (int i = threadIdx.x; i < T * HD; i += kWindowThreads)
+    sincosf(freqs[i], &sin_t[i], &cos_t[i]);
+  __syncthreads();
+  const long long gl = (long long)blockIdx.x * kWindowThreads + threadIdx.x;
+  const int G = D / kLaneDimsF32;
+  const bool live = gl < (long long)B * S * G;
+  const long long site = live ? gl / G : 0;
+  const int col = (int)(gl - site * G) * kLaneDimsF32, hcol = col % HD;
+  const long long b = site / S, s = site - b * S;
+  const size_t row = (size_t)(b * T) * S + s;
+  const float scale = 1.0f / sqrtf((float)HD);
+  auto at = [&](int t) { return (row + (size_t)t * S) * D + col; };
+  auto dqkv_at = [&](int t) {
+    return dqkv + (row + (size_t)t * S) * 3 * D + col;
+  };
+  auto rope_t = [&](float4 u, int t) {  // rope_pair_t at frame t
+    const float* c = cos_t + t * HD + hcol;
+    const float* sn = sin_t + t * HD + hcol;
+    const float2 a = rope_pair_t_cs(make_float2(u.x, u.y), c[0], sn[0], c[1],
+                                    sn[1]);
+    const float2 z = rope_pair_t_cs(make_float2(u.z, u.w), c[2], sn[2], c[3],
+                                    sn[3]);
+    return make_float4(a.x, a.y, z.x, z.y);
+  };
+  float4 qr[T], kr[T], vr[T], gr[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    const size_t o = at(t);
+    qr[t] = live ? __ldg(reinterpret_cast<const float4*>(q + o)) : z;
+    kr[t] = live ? __ldg(reinterpret_cast<const float4*>(k + o)) : z;
+    vr[t] = live ? __ldg(reinterpret_cast<const float4*>(v + o)) : z;
+    gr[t] = live ? __ldg(reinterpret_cast<const float4*>(dout + o)) : z;
+  }
+  float pb[T][T], ds[T][T];  // P and dS, j <= i
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+    float pr[T], dp[T];
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      pr[j] = dot4(qr[i], kr[j]);
+      dp[j] = dot4(gr[i], vr[j]);
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      pr[j] = group_sum<L>(pr[j]) * scale + window_bias(valid_mask, i, j);
+      dp[j] = group_sum<L>(dp[j]);
+      mx = fmaxf(mx, pr[j]);
+    }
+    float den = 0.f;
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      pr[j] = expf(pr[j] - mx);
+      den += pr[j];
+    }
+    float dsum = 0.f;
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      pr[j] = pr[j] / den;
+      dsum += dp[j] * pr[j];
+    }
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f), dq = o;
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      pb[i][j] = pr[j];
+      ds[i][j] = (pr[j] * (dp[j] - dsum)) * scale;
+      o = fma4(pb[i][j], vr[j], o);
+      dq = fma4(ds[i][j], kr[j], dq);
+    }
+    if (live) {
+      *reinterpret_cast<float4*>(ao + at(i)) = o;
+      *reinterpret_cast<float4*>(dqkv_at(i)) = rope_t(dq, i);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    float4 dk = make_float4(0.f, 0.f, 0.f, 0.f), dv = dk;
+#pragma unroll
+    for (int i = t; i < T; ++i) {
+      dk = fma4(ds[i][t], qr[i], dk);
+      dv = fma4(pb[i][t], gr[i], dv);
+    }
+    if (!live) continue;
+    *reinterpret_cast<float4*>(dqkv_at(t) + D) = rope_t(dk, t);
+    *reinterpret_cast<float4*>(dqkv_at(t) + 2 * (size_t)D) = dv;
+  }
+}
+
+template <int HD>
+int launch_temporal_f32(const float* q, const float* k, const float* v,
+                        const float* dout, const float* freqs, float* dqkv,
+                        float* ao, int B, int T, int S, int D, int valid_mask,
+                        cudaStream_t st) {
+  const long long lanes = (long long)B * S * (D / kLaneDimsF32);
+  const unsigned blocks =
+      (unsigned)((lanes + kWindowThreads - 1) / kWindowThreads);
+  switch (T) {
+#define GTAX_BWD_F32_CASE(N)                                                \
+  case N:                                                                   \
+    attn_temporal_bwd_f32_kernel<HD, N><<<blocks, kWindowThreads, 0, st>>>( \
+        q, k, v, dout, freqs, dqkv, ao, B, S, D, valid_mask);               \
+    return (int)cudaGetLastError();
+    GTAX_BWD_F32_CASE(1)
+    GTAX_BWD_F32_CASE(2)
+    GTAX_BWD_F32_CASE(3)
+    GTAX_BWD_F32_CASE(4)
+    GTAX_BWD_F32_CASE(5)
+    GTAX_BWD_F32_CASE(6)
+    GTAX_BWD_F32_CASE(7)
+    GTAX_BWD_F32_CASE(8)
+#undef GTAX_BWD_F32_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
 
 // q, k, v, dout, ao: (n_frames * S, D) bf16, head h in columns
 // [h * hd, (h + 1) * hd); cosb, sinb: (S, rot) fp32, cos and sin of the
@@ -626,6 +1115,80 @@ GTAX_ENTRY gtax_attn_temporal_bwd(const void* q, const void* k, const void* v,
     case 128:
       return launch_temporal_t<128>(qb, kb, vb, gb, f, dst, o, B, T, S, D,
                                     valid_mask, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The fp32 form of gtax_attn_frame_bwd: q, k, v, dout, ao (n_frames * S,
+// D) fp32, dqkv (n_frames * S, 3D) fp32, cos/sin (S, rot) fp32; stats
+// (n_frames, num_heads, S, 3) fp32 scratch (each query row's softmax max,
+// sum and rowsum(dP * P), pass 1 to pass 2). S up to 256 at head dim 64,
+// 320 at 32 (cudaErrorInvalidValue past it).
+GTAX_ENTRY gtax_attn_frame_bwd_f32(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const void* cosb, const void* sinb,
+                                   void* dqkv, void* ao, void* stats,
+                                   int n_frames, int S, int D, int num_heads,
+                                   int rot, void* stream) {
+  if (n_frames <= 0 || S <= 0 || num_heads <= 0 || D % num_heads ||
+      rot < 0 || rot % 2 || rot > D / num_heads || stats == nullptr)
+    return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k, v, dout, (const void*)dqkv, (const void*)ao})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  const float *qf = static_cast<const float*>(q),
+              *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v),
+              *gf = static_cast<const float*>(dout);
+  const float* c = static_cast<const float*>(cosb);
+  const float* sn = static_cast<const float*>(sinb);
+  float* dst = static_cast<float*>(dqkv);
+  float* o = static_cast<float*>(ao);
+  float* st = static_cast<float*>(stats);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (D / num_heads) {
+    case 32:
+      return launch_frame_f32<32>(qf, kf, vf, gf, c, sn, dst, o, st, n_frames,
+                                  S, D, rot, s);
+    case 64:
+      return launch_frame_f32<64>(qf, kf, vf, gf, c, sn, dst, o, st, n_frames,
+                                  S, D, rot, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The fp32 form of gtax_attn_temporal_bwd: q, k, v, dout, ao (B * T * S,
+// D) fp32, dqkv (B * T * S, 3D) fp32, freqs (T, hd) fp32.
+GTAX_ENTRY gtax_attn_temporal_bwd_f32(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* freqs, void* dqkv, void* ao,
+                                      int B, int T, int S, int D,
+                                      int num_heads, int valid_mask,
+                                      void* stream) {
+  if (B <= 0 || T <= 0 || T > kMaxT || S <= 0 || num_heads <= 0 ||
+      D % num_heads || D % kLaneDimsF32)
+    return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k, v, dout, (const void*)dqkv, (const void*)ao})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  const float *qf = static_cast<const float*>(q),
+              *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v),
+              *gf = static_cast<const float*>(dout);
+  const float* f = static_cast<const float*>(freqs);
+  float* dst = static_cast<float*>(dqkv);
+  float* o = static_cast<float*>(ao);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D / num_heads) {
+    case 32:
+      return launch_temporal_f32<32>(qf, kf, vf, gf, f, dst, o, B, T, S, D,
+                                     valid_mask, st);
+    case 64:
+      return launch_temporal_f32<64>(qf, kf, vf, gf, f, dst, o, B, T, S, D,
+                                     valid_mask, st);
+    case 128:
+      return launch_temporal_f32<128>(qf, kf, vf, gf, f, dst, o, B, T, S, D,
+                                      valid_mask, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -177,29 +177,45 @@ __device__ __forceinline__ void attn_f32_unit(float* fsm, int S, int q0,
 // The fp32 frame attention's unit: query tile qt (kF32Rows rows) of head
 // h of frame n, over fp32 qkv rows (n_frames * S, 3D); rope in fp32 on the
 // first rot dims of each head's q and k as they load (sincosf: fp32 keeps
-// what bf16 would round away); out (n_frames * S, D) fp32.
-template <int HD>
+// what bf16 would round away); out (n_frames * S, D) fp32. STORE (the
+// emit_train residuals of the fp32 spatial branch): also the roped q, k
+// and the v it attends with, to q_out, k_out, v_out ((n_frames * S, D)
+// fp32), each row by the unit whose query tile holds it, as it loads; the
+// stores change nothing the unit computes.
+template <int HD, bool STORE = false>
 __device__ __forceinline__ void attn_frame_f32_unit(
     float* fsm, const float* __restrict__ qkv, const float* __restrict__ freqs,
-    float* __restrict__ out, int S, int D, int rot, int qt, int h, int n) {
+    float* __restrict__ out, int S, int D, int rot, int qt, int h, int n,
+    float* __restrict__ q_out = nullptr, float* __restrict__ k_out = nullptr,
+    float* __restrict__ v_out = nullptr) {
   const size_t row0 = (size_t)n * S, D3 = 3 * (size_t)D;
   const size_t hc = (size_t)h * HD;
   const float scale = 1.0f / sqrtf((float)HD);
   const float* qrows = qkv + row0 * D3 + hc;  // q at column 0, k at D
+  // a key row's residuals come from the unit whose query tile holds it
+  auto mine = [=](int p) { return p / kF32Rows == qt; };
+  auto res = [=](float* t, int p, int d) { return t + (row0 + p) * D + hc + d; };
   attn_f32_unit<HD>(
       fsm, S, qt * kF32Rows,
       [=](int p, int d) {
         float2 x = *reinterpret_cast<const float2*>(qrows + p * D3 + d);
         if (d < rot) x = rope_pair_eq(x, freqs + (size_t)p * rot + d);
+        if constexpr (STORE) *reinterpret_cast<float2*>(res(q_out, p, d)) = x;
         return x;
       },
       [=](int p, int d) {
         float2 x = *reinterpret_cast<const float2*>(qrows + p * D3 + D + d);
         if (d < rot) x = rope_pair_eq(x, freqs + (size_t)p * rot + d);
+        if constexpr (STORE)
+          if (mine(p)) *reinterpret_cast<float2*>(res(k_out, p, d)) = x;
         return x;
       },
       [=](int p, int d) {
-        return *reinterpret_cast<const float4*>(qrows + p * D3 + 2 * D + d);
+        const float4 x =
+            *reinterpret_cast<const float4*>(qrows + p * D3 + 2 * D + d);
+        if constexpr (STORE)
+          if (mine(p)) *reinterpret_cast<float4*>(res(v_out, p, d)) = x;
+        return x;
       },
       [=](float s, int, int) { return s * scale; },
       [=](int q, int c, float o) { out[(row0 + q) * D + hc + c] = o; });

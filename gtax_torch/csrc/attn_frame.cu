@@ -24,7 +24,9 @@
 // a head's K and V are staged 5 times at S = 576, not once per 64 queries.
 // The fp32 branches (#1 and #5 at x.dtype = float32) take attn_frame_f32
 // below: fp32 q/k/v, probabilities and output, nothing rounded, on the CUDA
-// cores (no tensor-core type keeps fp32: TF32 keeps ten mantissa bits).
+// cores (no tensor-core type keeps fp32: TF32 keeps ten mantissa bits);
+// for training (#1's emit_train in fp32) it also stores the fp32 roped q,
+// k and the v, in an instantiation of its own.
 #include "attn_f32.cuh"
 #include "attn_frame.cuh"
 
@@ -119,27 +121,45 @@ int launch(const void* qkv, int qkv_f32, const float* freqs, void* out,
 // an SM, what the unit's 67 KB of shared memory lets co-reside: so told,
 // ptxas keeps the unit in 80 registers at head dim 64 (left to itself it
 // took 64 and spilled).
-template <int HD>
+// STORE: the emit_train form, which also stores the roped q, k and the v
+// (attn_frame_f32_unit), its own instantiation so that the serving
+// kernel's code is unchanged.
+template <int HD, bool STORE>
 __global__ void __launch_bounds__(kF32Threads, 3)
     attn_frame_f32_kernel(const float* __restrict__ qkv,
                           const float* __restrict__ freqs,
-                          float* __restrict__ out, int S, int D, int rot) {
+                          float* __restrict__ out, int S, int D, int rot,
+                          float* __restrict__ q_out, float* __restrict__ k_out,
+                          float* __restrict__ v_out) {
   extern __shared__ __align__(16) float fsm[];
-  attn_frame_f32_unit<HD>(fsm, qkv, freqs, out, S, D, rot, blockIdx.x,
-                          blockIdx.y, blockIdx.z);
+  attn_frame_f32_unit<HD, STORE>(fsm, qkv, freqs, out, S, D, rot, blockIdx.x,
+                                 blockIdx.y, blockIdx.z, q_out, k_out, v_out);
+}
+
+template <int HD, bool STORE>
+int launch_f32_as(const float* qkv, const float* freqs, float* out,
+                  int n_frames, int S, int D, int rot, float* qo, float* ko,
+                  float* vo, cudaStream_t st) {
+  constexpr size_t smem = attn_f32_smem<HD>();
+  static size_t opted = 48 * 1024;
+  const cudaError_t e =
+      opt_in_smem(attn_frame_f32_kernel<HD, STORE>, smem, opted);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + kF32Rows - 1) / kF32Rows, D / HD, n_frames);
+  attn_frame_f32_kernel<HD, STORE><<<grid, kF32Threads, smem, st>>>(
+      qkv, freqs, out, S, D, rot, qo, ko, vo);
+  return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_f32(const float* qkv, const float* freqs, float* out,
-               int n_frames, int S, int D, int rot, cudaStream_t st) {
-  constexpr size_t smem = attn_f32_smem<HD>();
-  static size_t opted = 48 * 1024;
-  const cudaError_t e = opt_in_smem(attn_frame_f32_kernel<HD>, smem, opted);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((S + kF32Rows - 1) / kF32Rows, D / HD, n_frames);
-  attn_frame_f32_kernel<HD><<<grid, kF32Threads, smem, st>>>(qkv, freqs, out,
-                                                             S, D, rot);
-  return (int)cudaGetLastError();
+               int n_frames, int S, int D, int rot, float* qo, float* ko,
+               float* vo, cudaStream_t st) {
+  return qo == nullptr
+             ? launch_f32_as<HD, false>(qkv, freqs, out, n_frames, S, D, rot,
+                                        qo, ko, vo, st)
+             : launch_f32_as<HD, true>(qkv, freqs, out, n_frames, S, D, rot,
+                                       qo, ko, vo, st);
 }
 
 }  // namespace
@@ -177,23 +197,32 @@ GTAX_ENTRY gtax_attn_frame(const void* qkv, int qkv_f32, const void* freqs,
 
 // The fp32 form: qkv (n_frames * S, 3D) fp32; freqs (S, rot) fp32 rotary
 // table, rope on the first rot dims of each head's q and k; out
-// (n_frames * S, D) fp32, head h in columns [h * hd, (h + 1) * hd).
+// (n_frames * S, D) fp32, head h in columns [h * hd, (h + 1) * hd);
+// q_out/k_out/v_out: all three null, or (n_frames * S, D) fp32 outputs of
+// the roped q, k and the v (the emit_train residuals).
 GTAX_ENTRY gtax_attn_frame_f32(const void* qkv, const void* freqs, void* out,
+                               void* q_out, void* k_out, void* v_out,
                                int n_frames, int S, int D, int num_heads,
                                int rot, void* stream) {
   if (n_frames <= 0 || S <= 0 || num_heads <= 0 || D % num_heads ||
       rot < 0 || rot % 2 || rot > D / num_heads ||
-      reinterpret_cast<uintptr_t>(qkv) % 16 || D % 4)
+      reinterpret_cast<uintptr_t>(qkv) % 16 || D % 4 ||
+      (q_out == nullptr) != (k_out == nullptr) ||
+      (q_out == nullptr) != (v_out == nullptr) ||
+      reinterpret_cast<uintptr_t>(v_out) % 16)
     return (int)cudaErrorInvalidValue;
   const float* q = static_cast<const float*>(qkv);
   const float* f = static_cast<const float*>(freqs);
   float* o = static_cast<float*>(out);
+  float* qo = static_cast<float*>(q_out);
+  float* ko = static_cast<float*>(k_out);
+  float* vo = static_cast<float*>(v_out);
   cudaStream_t st = (cudaStream_t)stream;
   switch (D / num_heads) {
     case 32:
-      return launch_f32<32>(q, f, o, n_frames, S, D, rot, st);
+      return launch_f32<32>(q, f, o, n_frames, S, D, rot, qo, ko, vo, st);
     case 64:
-      return launch_f32<64>(q, f, o, n_frames, S, D, rot, st);
+      return launch_f32<64>(q, f, o, n_frames, S, D, rot, qo, ko, vo, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

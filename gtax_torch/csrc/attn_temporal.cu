@@ -121,30 +121,33 @@ int launch_window_t(const bf16* q, const bf16* k, const bf16* v, bf16* out,
 // The fp32 unit, attn_temporal_unit with KV = float: the step over an fp32
 // context cache, or the full window (q_off = 0) with optional fp32 K/V
 // outputs (the fp32 int8 prefill's emit_kv: rope on load from the int8
-// qkv product's fp32 rows).
+// qkv product's fp32 rows) and, with them, the roped Q (the fp32 int8
+// branch's emit_train residuals).
 template <int HD>
 __global__ void __launch_bounds__(kTemporalWarps * 32)
     attn_temporal_f32_kernel(const float* __restrict__ qkv,
                              const float* __restrict__ freqs,
                              const float* __restrict__ k_ctx,
                              const float* __restrict__ v_ctx,
-                             float* __restrict__ out, float* __restrict__ k_out,
+                             float* __restrict__ out, float* __restrict__ q_out,
+                             float* __restrict__ k_out,
                              float* __restrict__ v_out, int B, int n_q,
                              int q_off, int S, int D, int H, int valid_mask) {
   attn_temporal_unit<HD, float>(
       blockIdx.x * kTemporalWarps + (threadIdx.x >> 5), qkv, freqs, k_ctx,
-      v_ctx, out, 1, nullptr, k_out, v_out, B, n_q, q_off, S, D, H,
+      v_ctx, out, 1, q_out, k_out, v_out, B, n_q, q_off, S, D, H,
       valid_mask);
 }
 
 template <int HD>
 int launch_f32(const float* qkv, const float* freqs, const float* kc,
-               const float* vc, float* out, float* ko, float* vo, int B,
-               int n_q, int q_off, int S, int D, int H, int valid_mask,
+               const float* vc, float* out, float* qo, float* ko, float* vo,
+               int B, int n_q, int q_off, int S, int D, int H, int valid_mask,
                cudaStream_t st) {
   const int blocks = (B * S * H + kTemporalWarps - 1) / kTemporalWarps;
   attn_temporal_f32_kernel<HD><<<blocks, kTemporalWarps * 32, 0, st>>>(
-      qkv, freqs, kc, vc, out, ko, vo, B, n_q, q_off, S, D, H, valid_mask);
+      qkv, freqs, kc, vc, out, qo, ko, vo, B, n_q, q_off, S, D, H,
+      valid_mask);
   return (int)cudaGetLastError();
 }
 
@@ -265,10 +268,11 @@ GTAX_ENTRY gtax_attn_temporal(const void* qkv, const void* freqs,
 
 // The fp32 forms of the two entry points above: the full window over q,
 // k, v, out (B * T * S, D) fp32 (q and k after rope:
-// gtax_gemm_f32_rope_qkv), and gtax_attn_temporal's arguments in fp32
-// (no q_out): qkv (B * n_q * S, 3D), the fp32 context cache k_ctx / v_ctx
+// gtax_gemm_f32_rope_qkv), and gtax_attn_temporal's arguments in fp32:
+// qkv (B * n_q * S, 3D), the fp32 context cache k_ctx / v_ctx
 // (B * q_off * S, D), out (B * n_q * S, D), and the optional fp32 K/V
-// outputs k_out / v_out (B * n_q * S, D). Nothing is rounded.
+// outputs k_out / v_out (B * n_q * S, D), with q_out (only beside them)
+// the roped Q. Nothing is rounded.
 GTAX_ENTRY gtax_attn_temporal_window_f32(const void* q, const void* k,
                                          const void* v, void* out, int B,
                                          int T, int S, int D, int num_heads,
@@ -298,33 +302,35 @@ GTAX_ENTRY gtax_attn_temporal_window_f32(const void* q, const void* k,
 
 GTAX_ENTRY gtax_attn_temporal_f32(const void* qkv, const void* freqs,
                                   const void* k_ctx, const void* v_ctx,
-                                  void* out, void* k_out, void* v_out, int B,
-                                  int n_q, int q_off, int S, int D,
-                                  int num_heads, int valid_mask,
+                                  void* out, void* q_out, void* k_out,
+                                  void* v_out, int B, int n_q, int q_off,
+                                  int S, int D, int num_heads, int valid_mask,
                                   void* stream) {
   if (B <= 0 || n_q <= 0 || q_off < 0 || n_q + q_off > kMaxT || S <= 0 ||
       num_heads <= 0 || D % num_heads ||
       (q_off > 0 && (k_ctx == nullptr || v_ctx == nullptr)) ||
-      ((k_out == nullptr) != (v_out == nullptr)))
+      ((k_out == nullptr) != (v_out == nullptr)) ||
+      (q_out != nullptr && k_out == nullptr))
     return (int)cudaErrorInvalidValue;
   const float* q = static_cast<const float*>(qkv);
   const float* f = static_cast<const float*>(freqs);
   const float* kc = static_cast<const float*>(k_ctx);
   const float* vc = static_cast<const float*>(v_ctx);
   float* o = static_cast<float*>(out);
+  float* qo = static_cast<float*>(q_out);
   float* ko = static_cast<float*>(k_out);
   float* vo = static_cast<float*>(v_out);
   cudaStream_t st = (cudaStream_t)stream;
   switch (D / num_heads) {
     case 32:
-      return launch_f32<32>(q, f, kc, vc, o, ko, vo, B, n_q, q_off, S, D,
+      return launch_f32<32>(q, f, kc, vc, o, qo, ko, vo, B, n_q, q_off, S, D,
                             num_heads, valid_mask, st);
     case 64:
-      return launch_f32<64>(q, f, kc, vc, o, ko, vo, B, n_q, q_off, S, D,
+      return launch_f32<64>(q, f, kc, vc, o, qo, ko, vo, B, n_q, q_off, S, D,
                             num_heads, valid_mask, st);
     case 128:
-      return launch_f32<128>(q, f, kc, vc, o, ko, vo, B, n_q, q_off, S, D,
-                             num_heads, valid_mask, st);
+      return launch_f32<128>(q, f, kc, vc, o, qo, ko, vo, B, n_q, q_off, S,
+                             D, num_heads, valid_mask, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

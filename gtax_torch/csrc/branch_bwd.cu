@@ -12,10 +12,22 @@
 // bytes). One block per frame makes each per-frame sum a fixed-order loop
 // over the frame's rows: no atomics, so a run is bit-equal to the next.
 // All math in fp32; dy and dx are rounded to bf16 once, as the TPU kernels
-// round them.
+// round them. The element type is a template parameter: the fp32 branches
+// (gtax's backward kernels at x.dtype = float32, where every cast is a
+// no-op) take the same kernels over fp32 ct, y, gate, x, scale, dy and dx
+// (gtax_gate_bwd_f32, gtax_ln_mod_bwd_f32; 12 and 20 bytes a token
+// element), nothing rounded, the per-frame sums in the same order.
 #include "common.cuh"
 
 namespace {
+
+// a pair (c, c + 1) of a bf16 or fp32 row as fp32
+__device__ __forceinline__ float2 ld2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -29,25 +41,23 @@ constexpr int kWarps = kThreads / 32;
 // order.
 constexpr int kGateThreads = 128;
 
+template <typename T>
 __global__ void __launch_bounds__(kGateThreads)
-    gate_bwd_kernel(const bf16* __restrict__ ct, const bf16* __restrict__ y,
-                    const bf16* __restrict__ gate, int gate_stride,
-                    bf16* __restrict__ dy, float* __restrict__ dg,
+    gate_bwd_kernel(const T* __restrict__ ct, const T* __restrict__ y,
+                    const T* __restrict__ gate, int gate_stride,
+                    T* __restrict__ dy, float* __restrict__ dg,
                     float* __restrict__ dysum, int S, int D) {
   const size_t f = blockIdx.x;
-  const bf16* g = gate + f * gate_stride;
+  const T* g = gate + f * gate_stride;
   const int c = (blockIdx.y * kGateThreads + threadIdx.x) * 2;
   if (c < D) {
-    const float2 gv = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(g + c));
+    const float2 gv = ld2(g + c);
     float2 sg = make_float2(0.f, 0.f), sd = make_float2(0.f, 0.f);
 #pragma unroll 8
     for (int s = 0; s < S; ++s) {
       const size_t o = (f * S + s) * D + c;
-      const float2 cv = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(ct + o));
-      const float2 yv = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(y + o));
+      const float2 cv = ld2(ct + o);
+      const float2 yv = ld2(y + o);
       const float d0 = cv.x * gv.x, d1 = cv.y * gv.y;
       store_pair(dy, o, d0, d1);
       sg.x += cv.x * yv.x;
@@ -65,25 +75,24 @@ __global__ void __launch_bounds__(kGateThreads)
 //   ln = (x - mean) * r, dln = dmod * (1 + scale + 1e-6),
 //   dx = bf16(ct + r * (dln - mean(dln) - ln * mean(dln * ln))),
 //   dshift[f] = sum_rows dmod, dscale[f] = sum_rows dmod * ln.
-template <int P>
+template <int P, typename T>
 __global__ void __launch_bounds__(kThreads)
-    ln_mod_bwd_kernel(const bf16* __restrict__ x,
+    ln_mod_bwd_kernel(const T* __restrict__ x,
                       const float* __restrict__ dmod,
-                      const bf16* __restrict__ scale, int p_stride,
-                      const bf16* __restrict__ ct, bf16* __restrict__ dx,
+                      const T* __restrict__ scale, int p_stride,
+                      const T* __restrict__ ct, T* __restrict__ dx,
                       float* __restrict__ dshift, float* __restrict__ dscale,
                       int S) {
   constexpr int D = 64 * P;
   __shared__ float2 red[2][D / 2];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t f = blockIdx.x;
-  const bf16* sc = scale + f * p_stride;
+  const T* sc = scale + f * p_stride;
   float2 acc_sh[P], acc_sc[P], s1[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     acc_sh[p] = acc_sc[p] = make_float2(0.f, 0.f);
-    const float2 sv = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(sc + 2 * lane + 64 * p));
+    const float2 sv = ld2(sc + 2 * lane + 64 * p);
     s1[p] = make_float2((1.0f + sv.x) + 1e-6f, (1.0f + sv.y) + 1e-6f);
   }
   for (int s = warp; s < S; s += kWarps) {
@@ -92,8 +101,7 @@ __global__ void __launch_bounds__(kThreads)
     float sum = 0.f;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      xv[p] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-          x + row + 2 * lane + 64 * p));
+      xv[p] = ld2(x + row + 2 * lane + 64 * p);
       sum += xv[p].x + xv[p].y;
     }
     const float mean = warp_sum(sum) / D;
@@ -126,8 +134,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int p = 0; p < P; ++p) {
       const int c = 2 * lane + 64 * p;
       const float2 dm = *reinterpret_cast<const float2*>(dmod + row + c);
-      const float2 cv = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(ct + row + c));
+      const float2 cv = ld2(ct + row + c);
       const float d0 = r * (dm.x * s1[p].x - m1 - xv[p].x * m2);
       const float d1 = r * (dm.y * s1[p].y - m1 - xv[p].y * m2);
       store_pair(dx, row + c, cv.x + d0, cv.y + d1);
@@ -160,14 +167,55 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int P>
-int launch_ln_mod_bwd(const bf16* x, const float* dmod, const bf16* scale,
-                      int p_stride, const bf16* ct,
-                      bf16* dx, float* dshift, float* dscale, int F, int S,
-                      cudaStream_t st) {
-  ln_mod_bwd_kernel<P><<<F, kThreads, 0, st>>>(
+template <int P, typename T>
+int launch_ln_mod_bwd(const T* x, const float* dmod, const T* scale,
+                      int p_stride, const T* ct, T* dx, float* dshift,
+                      float* dscale, int F, int S, cudaStream_t st) {
+  ln_mod_bwd_kernel<P, T><<<F, kThreads, 0, st>>>(
       x, dmod, scale, p_stride, ct, dx, dshift, dscale, S);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int gate_bwd(const void* ct, const void* y, const void* gate,
+             int gate_stride, void* dy, void* dg, void* dysum, int F, int S,
+             int D, void* stream) {
+  if (F <= 0 || S <= 0 || D <= 0 || D % 2) return (int)cudaErrorInvalidValue;
+  const dim3 grid(F, (D / 2 + kGateThreads - 1) / kGateThreads);
+  gate_bwd_kernel<T><<<grid, kGateThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(ct), static_cast<const T*>(y),
+      static_cast<const T*>(gate), gate_stride, static_cast<T*>(dy),
+      static_cast<float*>(dg), static_cast<float*>(dysum), S, D);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int ln_mod_bwd(const void* x, const void* dmod, const void* scale,
+               int p_stride, const void* ct, void* dx, void* dshift,
+               void* dscale, int F, int S, int D, void* stream) {
+  if (F <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  const T* xb = static_cast<const T*>(x);
+  const float* dm = static_cast<const float*>(dmod);
+  const T* sc = static_cast<const T*>(scale);
+  const T* cb = static_cast<const T*>(ct);
+  T* o = static_cast<T*>(dx);
+  float* dsh = static_cast<float*>(dshift);
+  float* dsc = static_cast<float*>(dscale);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+#define GTAX_LN_BWD_CASE(P)                                               \
+  case 64 * P:                                                            \
+    return launch_ln_mod_bwd<P, T>(xb, dm, sc, p_stride, cb, o, dsh, dsc, \
+                                   F, S, st);
+    GTAX_LN_BWD_CASE(1)
+    GTAX_LN_BWD_CASE(2)
+    GTAX_LN_BWD_CASE(4)
+    GTAX_LN_BWD_CASE(8)
+    GTAX_LN_BWD_CASE(16)
+#undef GTAX_LN_BWD_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -177,13 +225,16 @@ int launch_ln_mod_bwd(const bf16* x, const float* dmod, const bf16* scale,
 GTAX_ENTRY gtax_gate_bwd(const void* ct, const void* y, const void* gate,
                          int gate_stride, void* dy, void* dg, void* dysum,
                          int F, int S, int D, void* stream) {
-  if (F <= 0 || S <= 0 || D <= 0 || D % 2) return (int)cudaErrorInvalidValue;
-  const dim3 grid(F, (D / 2 + kGateThreads - 1) / kGateThreads);
-  gate_bwd_kernel<<<grid, kGateThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(ct), static_cast<const bf16*>(y),
-      static_cast<const bf16*>(gate), gate_stride, static_cast<bf16*>(dy),
-      static_cast<float*>(dg), static_cast<float*>(dysum), S, D);
-  return (int)cudaGetLastError();
+  return gate_bwd<bf16>(ct, y, gate, gate_stride, dy, dg, dysum, F, S, D,
+                        stream);
+}
+
+// gtax_gate_bwd over fp32 ct, y, gate and dy
+GTAX_ENTRY gtax_gate_bwd_f32(const void* ct, const void* y, const void* gate,
+                             int gate_stride, void* dy, void* dg,
+                             void* dysum, int F, int S, int D, void* stream) {
+  return gate_bwd<float>(ct, y, gate, gate_stride, dy, dg, dysum, F, S, D,
+                         stream);
 }
 
 // x, ct, dx: (F * S, D) bf16; dmod: (F * S, D) fp32; scale: F rows of D
@@ -194,32 +245,16 @@ GTAX_ENTRY gtax_ln_mod_bwd(const void* x, const void* dmod, const void* scale,
                            int p_stride, const void* ct,
                            void* dx, void* dshift, void* dscale, int F, int S,
                            int D, void* stream) {
-  if (F <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
-  const bf16* xb = static_cast<const bf16*>(x);
-  const float* dm = static_cast<const float*>(dmod);
-  const bf16* sc = static_cast<const bf16*>(scale);
-  const bf16* cb = static_cast<const bf16*>(ct);
-  bf16* o = static_cast<bf16*>(dx);
-  float* dsh = static_cast<float*>(dshift);
-  float* dsc = static_cast<float*>(dscale);
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 64:
-      return launch_ln_mod_bwd<1>(xb, dm, sc, p_stride, cb, o, dsh, dsc,
-                                  F, S, st);
-    case 128:
-      return launch_ln_mod_bwd<2>(xb, dm, sc, p_stride, cb, o, dsh, dsc,
-                                  F, S, st);
-    case 256:
-      return launch_ln_mod_bwd<4>(xb, dm, sc, p_stride, cb, o, dsh, dsc,
-                                  F, S, st);
-    case 512:
-      return launch_ln_mod_bwd<8>(xb, dm, sc, p_stride, cb, o, dsh, dsc,
-                                  F, S, st);
-    case 1024:
-      return launch_ln_mod_bwd<16>(xb, dm, sc, p_stride, cb, o, dsh, dsc,
-                                   F, S, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return ln_mod_bwd<bf16>(x, dmod, scale, p_stride, ct, dx, dshift, dscale,
+                          F, S, D, stream);
+}
+
+// gtax_ln_mod_bwd over fp32 x, scale, ct and dx
+GTAX_ENTRY gtax_ln_mod_bwd_f32(const void* x, const void* dmod,
+                               const void* scale, int p_stride,
+                               const void* ct, void* dx, void* dshift,
+                               void* dscale, int F, int S, int D,
+                               void* stream) {
+  return ln_mod_bwd<float>(x, dmod, scale, p_stride, ct, dx, dshift, dscale,
+                           F, S, D, stream);
 }

@@ -15,7 +15,18 @@
 // EPI_BIAS_GELU_ERF (fc1 + bias, tanh or exact GELU), EPI_BIAS_BF16_GELU
 // (the VAE's fc1: the erf GELU of acc + bias), EPI_BIAS_GATED (x + gate *
 // (acc + bias)), EPI_BIAS_BF16_RESID (x + (acc + bias)) and EPI_ROPE_QKV
-// (fp32 q, k, v, rope on q and k: gtax_gemm_f32_rope_qkv).
+// (fp32 q, k, v, rope on q and k: gtax_gemm_f32_rope_qkv); for training
+// (gtax's emit_train and backward kernels at x.dtype = float32)
+// EPI_BIAS_GATED_Y, EPI_BIAS_GELU_TANH_H and EPI_BIAS_GELU_ERF_H (the same
+// with acc + bias also stored to C2: the residuals y and h1) and EPI_DGELU
+// (u = gelu'(h1) * acc to C, gelu(h1) to C2, with h1 = aux fp32, and each
+// 64-row slab's column sums of u to colsum, the partials of db1).
+// Operand forms (a template parameter each, never a runtime branch):
+// OP_NN, C = A @ B; OP_NT (trans_b), C = A @ W^T with W (N, K) row-major,
+// the backward's dY @ W^T read from W's rows; OP_TN, C = A^T @ B over the
+// token rows (gtax_gemm_f32_wgrad, the weight gradients): A (K, M) and B
+// (K, N) row-major, K cut into row chunks whose fp32 partials
+// gtax_reduce_rows adds in chunk order, as gemm_wgrad.cu does in bf16.
 // Bound: operations, 67 TFLOP/s of fp32 FFMA on the H100 SXM, at every
 // main-path shape but the 144-row step's products, where the fp32
 // weights (8-32 MB a product) come close.
@@ -33,7 +44,11 @@
 // partial, and a second kernel adds the partials in chunk order and runs
 // the epilogue. Each sum is taken in one fixed order
 // (a chunk's products in K order, then the chunks in order; no atomics),
-// so two calls agree bit for bit.
+// so two calls agree bit for bit. OP_NT stages W's rows into the same
+// k-major B tile by 4-byte cp.async copies (a warp's copies read two
+// 64-byte row segments); OP_TN stages A^T k-major, so its float4 reads run
+// along M. A given element's products are added in the same order in
+// every form, so the forms' bits agree on the same values.
 #include <initializer_list>
 
 #include "gemm_epi.cuh"
@@ -45,17 +60,36 @@ constexpr int BK = 16;      // K depth of a stage
 constexpr int kLdA = BK + 4;  // A rows padded: the two row groups of a
                               // warp's loads fall in different banks
 
-template <int BM, int BN>
+// The operand forms: A @ B, A @ W^T (W (N, K)), A^T @ B (A (K, M)).
+enum Op { OP_NN = 0, OP_NT = 1, OP_TN = 2 };
+
+// The B tile's row stride: OP_NT pads it so that a warp's transposing
+// copies spread over the banks (two to a bank)
+template <int BN, int OP>
+__host__ __device__ constexpr int ld_b() {
+  return OP == OP_NT ? BN + 4 : BN;
+}
+
+template <int BM, int BN, int OP = OP_NN>
 struct Stages {
   float a[2][BM][kLdA];
+  float b[2][BK][ld_b<BN, OP>()];
+};
+// OP_TN: the A tile k-major (row k of BM), as B's
+template <int BM, int BN>
+struct Stages<BM, BN, OP_TN> {
+  float a[2][BK][BM];
   float b[2][BK][BN];
 };
 
 // What an fp32 epilogue reads and writes besides the accumulators.
 struct F32Args {
   float* C;
-  float* C2;  // EPI_ROPE_QKV: k
+  float* C2;  // EPI_ROPE_QKV: k; the _Y, _H epilogues: y, h1; EPI_DGELU:
+              // gelu(h1)
   float* C3;  // EPI_ROPE_QKV: v
+  const float* aux;  // EPI_DGELU: h1 (M, N)
+  float* colsum;     // EPI_DGELU: (ceil(M / 64), N) slab column sums
   const void* bias;
   int bias_f32;
   const float* resid;
@@ -77,13 +111,34 @@ __device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
+// 4-byte global -> shared copy (OP_NT's transposing stage); src_bytes 0
+// zero-fills
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
 // Columns gn .. gn + 3 of row gm (gn a multiple of 4, all inside N).
+// EPI_DGELU leaves u in v (the column sums' values).
 template <int EPI>
 __device__ __forceinline__ void store4(const F32Args& e, int gm, int gn,
-                                       const float (&v)[4]) {
+                                       float (&v)[4]) {
   const size_t o = (size_t)gm * e.N + gn;
   if constexpr (EPI == EPI_F32) {
     st4(e.C + o, v);
+  } else if constexpr (EPI == EPI_DGELU) {
+    float h[4], g[4];
+    ld4(e.aux + o, h);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 vg = gelu_tanh_val_grad(h[i]);
+      v[i] = vg.y * v[i];
+      g[i] = vg.x;
+    }
+    st4(e.C + o, v);
+    st4(e.C2 + o, g);
   } else if constexpr (EPI == EPI_ROPE_QKV) {
     const int D = e.N / 3, third = gn / D, c_d = gn - third * D;
     float z[4] = {v[0], v[1], v[2], v[3]};
@@ -114,10 +169,11 @@ __device__ __forceinline__ void store4(const F32Args& e, int gm, int gn,
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       y[i] = v[i] + load_bias(e.bias, e.bias_f32, gn + i);
-    if constexpr (EPI == EPI_BIAS_GATED || EPI == EPI_BIAS_BF16_RESID) {
+    if constexpr (EPI == EPI_BIAS_GATED || EPI == EPI_BIAS_GATED_Y ||
+                  EPI == EPI_BIAS_BF16_RESID) {
       float x[4];
       ld4(e.resid + o, x);
-      if constexpr (EPI == EPI_BIAS_GATED) {
+      if constexpr (EPI == EPI_BIAS_GATED || EPI == EPI_BIAS_GATED_Y) {
         float g[4];
         ld4(e.gate + (size_t)(gm / e.S) * e.gate_stride + gn, g);
 #pragma unroll
@@ -129,41 +185,77 @@ __device__ __forceinline__ void store4(const F32Args& e, int gm, int gn,
     } else {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        if constexpr (EPI == EPI_BIAS_GELU_TANH) z[i] = gelu_tanh(y[i]);
-        else if constexpr (EPI == EPI_BIAS_GELU_ERF) z[i] = gelu_exact(y[i]);
+        if constexpr (EPI == EPI_BIAS_GELU_TANH ||
+                      EPI == EPI_BIAS_GELU_TANH_H)
+          z[i] = gelu_tanh(y[i]);
+        else if constexpr (EPI == EPI_BIAS_GELU_ERF ||
+                           EPI == EPI_BIAS_GELU_ERF_H)
+          z[i] = gelu_exact(y[i]);
         else if constexpr (EPI == EPI_BIAS_BF16_GELU) z[i] = gelu_erf(y[i]);
         else z[i] = y[i];  // EPI_BIAS_BF16
       }
     }
     st4(e.C + o, z);
+    if constexpr (EPI == EPI_BIAS_GATED_Y || EPI == EPI_BIAS_GELU_TANH_H ||
+                  EPI == EPI_BIAS_GELU_ERF_H)
+      st4(e.C2 + o, y);
   }
 }
 
 // One BM x BN output tile a block, over K chunk blockIdx.z (its partial,
 // EPI_F32, at C + z M N); thread (ty, tx) = (tid / 16, tid % 16) holds rows
-// 64 i + 4 ty + r and columns 64 j + 4 tx + c.
-template <int BM, int BN, int EPI>
+// 64 i + 4 ty + r and columns 64 j + 4 tx + c. OP_TN's last chunk may be
+// short: its rows past K are zero-filled.
+template <int BM, int BN, int EPI, int OP = OP_NN>
 __global__ void __launch_bounds__(kThreads)
     gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
                     F32Args e) {
   constexpr int TM = BM / 16, TN = BN / 16;
-  __shared__ __align__(16) Stages<BM, BN> sm;
+  __shared__ __align__(16) Stages<BM, BN, OP> sm;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int M = e.M, N = e.N, K = e.K;
   const int k_begin = blockIdx.z * e.k_chunk;
+  const int k_end = OP == OP_TN ? min(K, k_begin + e.k_chunk) : K;
   if constexpr (EPI == EPI_F32) e.C += (size_t)blockIdx.z * M * N;
 
   auto load = [&](int s, int k0) {  // stage s: A rows, B rows of step k0
-    for (int c = tid; c < BM * BK / 4; c += kThreads) {
-      const int r = c / (BK / 4), kq = c % (BK / 4) * 4, gm = m0 + r;
-      cp_async16(&sm.a[s][r][kq], A + (size_t)min(gm, M - 1) * K + k0 + kq,
-                 gm < M ? 16 : 0);
+    if constexpr (OP == OP_TN) {  // A (K, M): rows k0 .., k-major
+      for (int c = tid; c < BK * BM / 4; c += kThreads) {
+        const int r = c / (BM / 4), mq = c % (BM / 4) * 4, gm = m0 + mq;
+        const bool ok = gm < M && k0 + r < k_end;
+        cp_async16(&sm.a[s][r][mq],
+                   A + (size_t)min(k0 + r, K - 1) * M + min(gm, M - 4),
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int c = tid; c < BM * BK / 4; c += kThreads) {
+        const int r = c / (BK / 4), kq = c % (BK / 4) * 4, gm = m0 + r;
+        cp_async16(&sm.a[s][r][kq],
+                   A + (size_t)min(gm, M - 1) * K + k0 + kq,
+                   gm < M ? 16 : 0);
+      }
     }
-    for (int c = tid; c < BK * BN / 4; c += kThreads) {
-      const int r = c / (BN / 4), nq = c % (BN / 4) * 4, gn = n0 + nq;
-      cp_async16(&sm.b[s][r][nq], B + (size_t)(k0 + r) * N + min(gn, N - 4),
-                 gn < N ? 16 : 0);
+    if constexpr (OP == OP_NT) {  // W (N, K): element (k, n) = W[n][k]
+      for (int c = tid; c < BK * BN; c += kThreads) {
+        const int r = c % BK, n = c / BK, gn = n0 + n;
+        cp_async4(&sm.b[s][r][n], B + (size_t)min(gn, N - 1) * K + k0 + r,
+                  gn < N ? 4 : 0);
+      }
+    } else {
+      for (int c = tid; c < BK * BN / 4; c += kThreads) {
+        const int r = c / (BN / 4), nq = c % (BN / 4) * 4, gn = n0 + nq;
+        if constexpr (OP == OP_TN) {
+          const bool ok = gn < N && k0 + r < k_end;
+          cp_async16(&sm.b[s][r][nq],
+                     B + (size_t)min(k0 + r, K - 1) * N + min(gn, N - 4),
+                     ok ? 16 : 0);
+        } else {
+          cp_async16(&sm.b[s][r][nq],
+                     B + (size_t)(k0 + r) * N + min(gn, N - 4),
+                     gn < N ? 16 : 0);
+        }
+      }
     }
     cp_async_commit();
   };
@@ -174,7 +266,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  const int steps = e.k_chunk / BK;
+  const int steps = OP == OP_TN ? (k_end - k_begin + BK - 1) / BK
+                                : e.k_chunk / BK;
   load(0, k_begin);
   for (int kt = 0; kt < steps; ++kt) {
     if (kt + 1 < steps)
@@ -187,9 +280,21 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 4) {
       float a[TM][4];
+      if constexpr (OP == OP_TN) {  // four rows of a k at a time
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
-        ld4(&sm.a[s][(i / 4) * 64 + ty * 4 + i % 4][kk], a[i]);
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int i = 0; i < TM; i += 4) {
+            float q[4];
+            ld4(&sm.a[s][kk + k][(i / 4) * 64 + ty * 4], q);
+            a[i][k] = q[0], a[i + 1][k] = q[1], a[i + 2][k] = q[2],
+            a[i + 3][k] = q[3];
+          }
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+          ld4(&sm.a[s][(i / 4) * 64 + ty * 4 + i % 4][kk], a[i]);
+      }
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         float b[TN];
@@ -209,6 +314,13 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // every thread is done with stage s before its refill
   }
 
+  // EPI_DGELU: the thread's column sums of u over its rows of each 64-row
+  // slab, in row order (rows past M add nothing)
+  float cs[TM / 4][TN];
+#pragma unroll
+  for (int i = 0; i < TM / 4; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) cs[i][j] = 0.f;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int gm = m0 + (i / 4) * 64 + ty * 4 + i % 4;
@@ -217,9 +329,31 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < TN; j += 4) {
       const int gn = n0 + (j / 4) * 64 + tx * 4;
       if (gn >= N) continue;
-      const float v[4] = {acc[i][j], acc[i][j + 1], acc[i][j + 2],
-                          acc[i][j + 3]};
+      float v[4] = {acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]};
       store4<EPI>(e, gm, gn, v);
+      if constexpr (EPI == EPI_DGELU) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) cs[i / 4][j + c] += v[c];
+      }
+    }
+  }
+  if constexpr (EPI == EPI_DGELU) {
+    // a slab's column sum: the 16 row groups' sums added in ty order
+    // (the stage buffers are free: the K loop ended on a barrier)
+    float* red = &sm.a[0][0][0];  // [TM / 4][16][BN]
+#pragma unroll
+    for (int i = 0; i < TM / 4; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        red[(i * 16 + ty) * BN + (j / 4) * 64 + tx * 4 + j % 4] = cs[i][j];
+    __syncthreads();
+    for (int c = tid; c < (TM / 4) * BN; c += kThreads) {
+      const int slab = c / BN, col = c % BN, gn = n0 + col;
+      const int row = m0 / 64 + slab;
+      if (gn >= N || row * 64 >= M) continue;
+      float t = 0.f;
+      for (int y = 0; y < 16; ++y) t += red[(slab * 16 + y) * BN + col];
+      e.colsum[(size_t)row * N + gn] = t;
     }
   }
 }
@@ -265,7 +399,7 @@ bool wide_tile(int M, int N) {
 
 // One call: the tile's kernel over the whole of K, or, with e.k_chunk <
 // K, the 64x64 tile's partials (EPI_F32 into part) and the reduction.
-template <int EPI>
+template <int EPI, int OP = OP_NN>
 int launch(const float* A, const float* B, const F32Args& e, float* part,
            cudaStream_t st) {
   const int splits = e.K / e.k_chunk;
@@ -273,17 +407,33 @@ int launch(const float* A, const float* B, const F32Args& e, float* part,
     F32Args p = e;
     p.C = part;
     const dim3 grid((e.N + 63) / 64, (e.M + 63) / 64, splits);
-    gemm_f32_kernel<64, 64, EPI_F32><<<grid, kThreads, 0, st>>>(A, B, p);
+    gemm_f32_kernel<64, 64, EPI_F32, OP><<<grid, kThreads, 0, st>>>(A, B, p);
     const long long groups = (long long)e.M * (e.N / 4);
     f32_reduce_kernel<EPI>
         <<<(unsigned)((groups + kThreads - 1) / kThreads), kThreads, 0, st>>>(
             part, splits, e);
   } else if (wide_tile(e.M, e.N)) {
     const dim3 grid((e.N + 127) / 128, (e.M + 127) / 128);
-    gemm_f32_kernel<128, 128, EPI><<<grid, kThreads, 0, st>>>(A, B, e);
+    gemm_f32_kernel<128, 128, EPI, OP><<<grid, kThreads, 0, st>>>(A, B, e);
   } else {
     const dim3 grid((e.N + 63) / 64, (e.M + 63) / 64);
-    gemm_f32_kernel<64, 64, EPI><<<grid, kThreads, 0, st>>>(A, B, e);
+    gemm_f32_kernel<64, 64, EPI, OP><<<grid, kThreads, 0, st>>>(A, B, e);
+  }
+  return (int)cudaGetLastError();
+}
+
+// EPI_DGELU: one pass over K (its column sums come from whole sums)
+template <>
+int launch<EPI_DGELU, OP_NT>(const float* A, const float* B,
+                             const F32Args& e, float*, cudaStream_t st) {
+  if (wide_tile(e.M, e.N)) {
+    const dim3 grid((e.N + 127) / 128, (e.M + 127) / 128);
+    gemm_f32_kernel<128, 128, EPI_DGELU, OP_NT>
+        <<<grid, kThreads, 0, st>>>(A, B, e);
+  } else {
+    const dim3 grid((e.N + 63) / 64, (e.M + 63) / 64);
+    gemm_f32_kernel<64, 64, EPI_DGELU, OP_NT>
+        <<<grid, kThreads, 0, st>>>(A, B, e);
   }
   return (int)cudaGetLastError();
 }
@@ -296,31 +446,47 @@ bool aligned16(std::initializer_list<const void*> ptrs) {
 
 }  // namespace
 
-// A (M, K), B (K, N), C (M, N), all fp32 row-major; bias (N,) fp32
-// (bias_f32 = 1) or bf16; resid (M, N) fp32; gate: per-frame fp32 rows of
-// gate_stride, frame = row / S. K a multiple of 16, N of 4, every row
-// 16-byte aligned. epi: EPI_F32, EPI_BIAS_BF16, EPI_BIAS_GELU_TANH,
-// EPI_BIAS_GELU_ERF, EPI_BIAS_BF16_GELU, EPI_BIAS_GATED or
-// EPI_BIAS_BF16_RESID (gemm_epi.cuh), each stored unrounded. k_chunk: K,
-// or a K chunk (a multiple of 16 dividing K) whose partials go to part,
-// (K / k_chunk, M, N) fp32, before the epilogue adds them in order.
-GTAX_ENTRY gtax_gemm_f32(const void* A, const void* B, void* C,
-                         const void* bias, int bias_f32, const void* resid,
-                         const void* gate, int gate_stride, int M, int N,
-                         int K, int S, int epi, int k_chunk, void* part,
-                         void* stream) {
+// A (M, K), B (K, N) (trans_b: (N, K), the product A @ B^T), C (M, N), all
+// fp32 row-major; bias (N,) fp32 (bias_f32 = 1) or bf16; resid (M, N)
+// fp32; gate: per-frame fp32 rows of gate_stride, frame = row / S. K a
+// multiple of 16, N of 4, every row 16-byte aligned. epi: EPI_F32,
+// EPI_BIAS_BF16, EPI_BIAS_GELU_TANH, EPI_BIAS_GELU_ERF, EPI_BIAS_BF16_GELU,
+// EPI_BIAS_GATED or EPI_BIAS_BF16_RESID (gemm_epi.cuh), each stored
+// unrounded; EPI_BIAS_GATED_Y, EPI_BIAS_GELU_TANH_H and EPI_BIAS_GELU_ERF_H
+// also store acc + bias to C2 (M, N); with trans_b, EPI_F32, or EPI_DGELU:
+// C = u = gelu'(aux) * acc, C2 = gelu(aux), aux (M, N) fp32, colsum
+// (ceil(M / 64), N) the column sums of u over each 64-row slab, K one pass.
+// k_chunk: K, or a K chunk (a multiple of 16 dividing K) whose partials go
+// to part, (K / k_chunk, M, N) fp32, before the epilogue adds them in order.
+GTAX_ENTRY gtax_gemm_f32(const void* A, const void* B, void* C, void* C2,
+                         const void* aux, void* colsum, const void* bias,
+                         int bias_f32, const void* resid, const void* gate,
+                         int gate_stride, int M, int N, int K, int S, int epi,
+                         int trans_b, int k_chunk, void* part, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || N % 4 || K % BK || S <= 0 ||
-      !aligned16({A, B, C, resid, gate, part}) || gate_stride % 4 ||
+      !aligned16({A, B, C, C2, aux, resid, gate, part}) || gate_stride % 4 ||
       k_chunk <= 0 || k_chunk % BK || K % k_chunk ||
       (k_chunk < K && part == nullptr))
     return (int)cudaErrorInvalidValue;
-  const bool has_bias = epi != EPI_F32, has_resid = epi == EPI_BIAS_GATED ||
-                                                    epi == EPI_BIAS_BF16_RESID;
+  const bool has_bias = epi != EPI_F32 && epi != EPI_DGELU;
+  const bool has_resid = epi == EPI_BIAS_GATED || epi == EPI_BIAS_GATED_Y ||
+                         epi == EPI_BIAS_BF16_RESID;
+  const bool has_c2 = epi == EPI_BIAS_GATED_Y ||
+                      epi == EPI_BIAS_GELU_TANH_H ||
+                      epi == EPI_BIAS_GELU_ERF_H || epi == EPI_DGELU;
   if ((has_bias && bias == nullptr) || (has_resid && resid == nullptr) ||
-      (epi == EPI_BIAS_GATED && gate == nullptr))
+      ((epi == EPI_BIAS_GATED || epi == EPI_BIAS_GATED_Y) &&
+       gate == nullptr) ||
+      has_c2 != (C2 != nullptr) ||
+      (epi == EPI_DGELU &&
+       (aux == nullptr || colsum == nullptr || k_chunk < K || !trans_b)) ||
+      (trans_b && epi != EPI_F32 && epi != EPI_DGELU))
     return (int)cudaErrorInvalidValue;
   F32Args e{};
   e.C = static_cast<float*>(C);
+  e.C2 = static_cast<float*>(C2);
+  e.aux = static_cast<const float*>(aux);
+  e.colsum = static_cast<float*>(colsum);
   e.bias = bias;
   e.bias_f32 = bias_f32;
   e.resid = static_cast<const float*>(resid);
@@ -335,6 +501,9 @@ GTAX_ENTRY gtax_gemm_f32(const void* A, const void* B, void* C,
   const float* b = static_cast<const float*>(B);
   float* p = static_cast<float*>(part);
   cudaStream_t st = (cudaStream_t)stream;
+  if (trans_b)
+    return epi == EPI_F32 ? launch<EPI_F32, OP_NT>(a, b, e, p, st)
+                          : launch<EPI_DGELU, OP_NT>(a, b, e, p, st);
   switch (epi) {
 #define GTAX_F32_CASE(E) \
   case E:                \
@@ -346,10 +515,48 @@ GTAX_ENTRY gtax_gemm_f32(const void* A, const void* B, void* C,
     GTAX_F32_CASE(EPI_BIAS_BF16_GELU)
     GTAX_F32_CASE(EPI_BIAS_GATED)
     GTAX_F32_CASE(EPI_BIAS_BF16_RESID)
+    GTAX_F32_CASE(EPI_BIAS_GATED_Y)
+    GTAX_F32_CASE(EPI_BIAS_GELU_TANH_H)
+    GTAX_F32_CASE(EPI_BIAS_GELU_ERF_H)
 #undef GTAX_F32_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The fp32 weight gradient: C = A^T @ B summed over the M token rows, A
+// (M, Ka) and B (M, N) fp32 row-major, into C (splits, Ka, N) fp32, one
+// partial a chunk of `chunk` rows (a multiple of 16; splits = ceil(M /
+// chunk); the last chunk may be short), which gtax_reduce_rows adds in
+// chunk order. The 128x128 tile where its blocks (tiles x chunks) fill the
+// card's SMs once, else 64x64.
+GTAX_ENTRY gtax_gemm_f32_wgrad(const void* A, const void* B, void* C, int M,
+                               int Ka, int N, int chunk, void* stream) {
+  if (M <= 0 || Ka <= 0 || N <= 0 || Ka % 4 || N % 4 || chunk <= 0 ||
+      chunk % BK || !aligned16({A, B, C}))
+    return (int)cudaErrorInvalidValue;
+  F32Args e{};
+  e.C = static_cast<float*>(C);
+  e.S = 1;
+  e.M = Ka;
+  e.N = N;
+  e.K = M;
+  e.k_chunk = chunk;
+  const int splits = (M + chunk - 1) / chunk;
+  const float* a = static_cast<const float*>(A);
+  const float* b = static_cast<const float*>(B);
+  cudaStream_t st = (cudaStream_t)stream;
+  if ((long long)((Ka + 127) / 128) * ((N + 127) / 128) * splits >=
+      sm_count()) {
+    const dim3 grid((N + 127) / 128, (Ka + 127) / 128, splits);
+    gemm_f32_kernel<128, 128, EPI_F32, OP_TN><<<grid, kThreads, 0, st>>>(
+        a, b, e);
+  } else {
+    const dim3 grid((N + 63) / 64, (Ka + 63) / 64, splits);
+    gemm_f32_kernel<64, 64, EPI_F32, OP_TN><<<grid, kThreads, 0, st>>>(
+        a, b, e);
+  }
+  return (int)cudaGetLastError();
 }
 
 // The temporal branch's qkv product with rope in its epilogue, in fp32:

@@ -21,7 +21,8 @@
 // For int8-forward training (the emit_train outputs of the TPU kernels:
 // _mlp_kernel_q's pre-GELU h1, the three kernels' pre-gate y) the last two
 // also store bf16(y + b) from the same fp32 value, after the split sum
-// where K is split.
+// where K is split; over fp32 activations (x.dtype = float32) epilogues
+// 5-7, instantiations of their own, store y + b unrounded.
 // Bound: at the serving shapes (M = 144..1152, K, N = 1024..4096) the int8
 // weight bytes at small M, the int8 tensor-core rate at large M.
 // Design: the weight-streaming tile of gemm_s8.cuh (all rows up to 320 in
@@ -98,7 +99,8 @@ int launch(const void* A, const void* B, gemm_s8::Args p, cudaStream_t st) {
 // epilogue 4, the fp32 int8 branches' gated residual, which stores no C2);
 // k_chunk: the split-K chunk;
 // part: (ceil(K / k_chunk), M, N) int32, unused with one chunk; C2: null,
-// or (M, N) bf16 of y + bias (epilogues 1, 2 and 3).
+// or (M, N) bf16 of y + bias (epilogues 1, 2 and 3); epilogues 5, 6 and 7
+// are 1, 3 and 4 with C2 (M, N) fp32 of y + bias, which they must have.
 GTAX_ENTRY gtax_gemm_s8(const void* A, const void* B, void* C, void* C2,
                         const void* sa, int group, const void* ws,
                         const void* bias, int bias_f32, const void* resid,
@@ -115,7 +117,12 @@ GTAX_ENTRY gtax_gemm_s8(const void* A, const void* B, void* C, void* C2,
       (epi != gemm_s8::EPI_F32 && bias == nullptr) ||
       ((epi == gemm_s8::EPI_F32 || epi == gemm_s8::EPI_BIAS_GATED_F32) &&
        C2 != nullptr) ||
-      ((epi == gemm_s8::EPI_BIAS_GATED || epi == gemm_s8::EPI_BIAS_GATED_F32) &&
+      ((epi == gemm_s8::EPI_BIAS_GATED_F32_Y ||
+        epi == gemm_s8::EPI_BIAS_GELU_F32_H ||
+        epi == gemm_s8::EPI_BIAS_GELU_ERF_F32_H) &&
+       (C2 == nullptr || reinterpret_cast<uintptr_t>(C2) % 8)) ||
+      ((epi == gemm_s8::EPI_BIAS_GATED || epi == gemm_s8::EPI_BIAS_GATED_F32 ||
+        epi == gemm_s8::EPI_BIAS_GATED_F32_Y) &&
        (resid == nullptr || gate == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -130,6 +137,12 @@ GTAX_ENTRY gtax_gemm_s8(const void* A, const void* B, void* C, void* C2,
       return launch<gemm_s8::EPI_BIAS_GELU_ERF_F32>(A, B, p, st);
     case gemm_s8::EPI_BIAS_GATED_F32:
       return launch<gemm_s8::EPI_BIAS_GATED_F32>(A, B, p, st);
+    case gemm_s8::EPI_BIAS_GELU_F32_H:
+      return launch<gemm_s8::EPI_BIAS_GELU_F32_H>(A, B, p, st);
+    case gemm_s8::EPI_BIAS_GELU_ERF_F32_H:
+      return launch<gemm_s8::EPI_BIAS_GELU_ERF_F32_H>(A, B, p, st);
+    case gemm_s8::EPI_BIAS_GATED_F32_Y:
+      return launch<gemm_s8::EPI_BIAS_GATED_F32_Y>(A, B, p, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

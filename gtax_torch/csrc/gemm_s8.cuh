@@ -57,7 +57,20 @@ enum Epi {
   EPI_BIAS_GATED = 2,         // bf16 C = x + gate[row / S] * (y + bias)
   EPI_BIAS_GELU_ERF_F32 = 3,  // fp32 C = gelu_exact(y + bias)
   EPI_BIAS_GATED_F32 = 4,     // fp32 C = x + gate[row / S] * (y + bias)
+  // the fp32 int8 branches' emit_train forms (int8-forward training at
+  // x.dtype = float32): 1, 3 and 4 with fp32 C2 = y + bias, each an
+  // instantiation of its own
+  EPI_BIAS_GELU_F32_H = 5,
+  EPI_BIAS_GELU_ERF_F32_H = 6,
+  EPI_BIAS_GATED_F32_Y = 7,
 };  // 1, 2 and 3 also store bf16(y + bias) to C2 when it is set
+
+// the epilogues whose second output is fp32
+template <int EPI>
+__host__ __device__ constexpr bool c2_f32() {
+  return EPI == EPI_BIAS_GELU_F32_H || EPI == EPI_BIAS_GELU_ERF_F32_H ||
+         EPI == EPI_BIAS_GATED_F32_Y;
+}
 
 // C = epilogue(dequant(A @ B)): A (M, K) int8 with fp32 scales sa (M,
 // n_groups), K groups of `group`; B (K, N) int8 read as W^T through its
@@ -87,7 +100,8 @@ struct Args {
 #endif
   // epilogues 1 and 2 with a second output (int8-forward training's
   // residuals): (M, N) bf16 of y + bias, the value before the GELU or the
-  // gate, rounded once; null otherwise (the pairs never set it)
+  // gate, rounded once; null otherwise (the pairs never set it); (M, N)
+  // fp32 for epilogues 5-7
   bf16* C2;
 };
 
@@ -203,14 +217,17 @@ __device__ __forceinline__ void store_out(const Args& p, int gm, int gn,
   }
   const float u0 = __fadd_rn(y0, load_bias(p.bias, p.bias_f32, gn));
   const float u1 = __fadd_rn(y1, load_bias(p.bias, p.bias_f32, gn + 1));
-  if (p.C2 != nullptr) store_pair(p.C2, o, u0, u1);
-  if (EPI == EPI_BIAS_GELU_F32) {
+  if constexpr (c2_f32<EPI>())
+    store_pair(reinterpret_cast<float*>(p.C2), o, u0, u1);
+  else if (p.C2 != nullptr)
+    store_pair(p.C2, o, u0, u1);
+  if (EPI == EPI_BIAS_GELU_F32 || EPI == EPI_BIAS_GELU_F32_H) {
     *reinterpret_cast<float2*>(static_cast<float*>(p.C) + o) =
         make_float2(gelu_tanh_rn(u0), gelu_tanh_rn(u1));
-  } else if (EPI == EPI_BIAS_GELU_ERF_F32) {
+  } else if (EPI == EPI_BIAS_GELU_ERF_F32 || EPI == EPI_BIAS_GELU_ERF_F32_H) {
     *reinterpret_cast<float2*>(static_cast<float*>(p.C) + o) =
         make_float2(gelu_exact_rn(u0), gelu_exact_rn(u1));
-  } else if (EPI == EPI_BIAS_GATED_F32) {
+  } else if (EPI == EPI_BIAS_GATED_F32 || EPI == EPI_BIAS_GATED_F32_Y) {
     const float2 x =
         *reinterpret_cast<const float2*>(static_cast<const float*>(p.resid) + o);
     const float* gate = static_cast<const float*>(p.gate) +

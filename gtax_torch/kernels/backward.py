@@ -25,6 +25,17 @@ with trans_b (dY @ W^T, with a bf16, fp32 or gelu' epilogue), `gemm_wgrad`
 attention backward (`attn_frame_bwd` / `attn_temporal_bwd`). No float
 atomics anywhere: a run is bit-equal to the next.
 
+The backwards take x's dtype, bf16 or fp32 (gtax's backward kernels at
+x.dtype = float32, as gtax trains with compute_dtype="float32"): every
+residual, ct and dx in it. In fp32 every cast to the compute dtype is a
+no-op and the fp32 forms run, on fp32 FFMA with no TF32: `gate_bwd_f32`
+and `ln_mod_bwd_f32`, `gemm_f32` with trans_b (EPI_F32, and the gelu'
+epilogue EPI_DGELU with its 64-row column partials), `gemm_f32_wgrad`
+(A^T @ B in row chunks, their partials added in order by `reduce_rows`),
+`attn_frame_bwd_f32` (two passes over 64-row tiles: the bf16 design's
+S x S P and dS do not fit a block's shared memory in fp32) and
+`attn_temporal_bwd_f32` (four fp32 dims a lane).
+
 Rounding points (shared by kernels and plain versions, as in the TPU
 kernels): elementwise math in fp32; GEMM operands in the compute dtype with
 fp32 sums; dy = ct * g, the attention output recompute, dO = dy @ W_out^T,
@@ -42,7 +53,6 @@ import torch
 from gtax_torch.core.rope import rotate_half
 from gtax_torch.kernels import block, build
 from gtax_torch.kernels.block import (
-    BF16_ONLY,
     EPI_BF16,
     EPI_DGELU,
     EPI_F32,
@@ -70,6 +80,9 @@ WGRAD_MAX_SPLITS = 8
 WGRAD_BLOCK_FLOPS = 6.2e12
 WGRAD_PARTIAL_BYTES_PER_S = 2.0e12
 WGRAD_REDUCE_S = 3e-6
+# the fp32 weight gradient (gemm_f32.cu gtax_gemm_f32_wgrad): row chunks
+# until its 128x128 tiles give every SM this many blocks
+F32_WGRAD_WAVES = 2
 
 
 # ----------------------------------------------------------- plain parts
@@ -254,6 +267,25 @@ def wgrad_plan(M, Ka, N, sms, tile_m, tile_n, k_step):
     return best[1], best[2]
 
 
+def wgrad_f32_plan(M, Ka, N, sms):
+    """(splits, chunk) of the fp32 weight gradient over M token rows: the
+    fewest row chunks (at most WGRAD_MAX_SPLITS, each at least
+    WGRAD_MIN_ROWS rows and a whole number of k-steps) whose 128x128 output
+    tiles make F32_WGRAD_WAVES blocks an SM; the chunks cover rows [0, M)
+    once, the last possibly short."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    tiles = cdiv(Ka, block.F32_WIDE_TILE) * cdiv(N, block.F32_WIDE_TILE)
+    splits = 1
+    while (splits < WGRAD_MAX_SPLITS
+           and tiles * splits < F32_WGRAD_WAVES * sms
+           and M >= (splits + 1) * WGRAD_MIN_ROWS):
+        splits += 1
+    chunk = cdiv(cdiv(M, splits), block.F32_K_STEP) * block.F32_K_STEP
+    return cdiv(M, chunk), chunk
+
+
 def dgelu_partial_rows(M, tile_m):
     """Rows of the gelu' epilogue's column partials: one per tile_m-row
     output tile of the M rows."""
@@ -291,39 +323,49 @@ def wgrad_split(M, Ka, N, device):
 
 
 def wgrad(a, b):
-    """a (M, Ka)^T @ b (M, N) in fp32, bf16 operands; M split into row
-    chunks by wgrad_plan."""
+    """a (M, Ka)^T @ b (M, N) in fp32, bf16 or fp32 operands; M split into
+    row chunks by wgrad_plan (bf16) or wgrad_f32_plan (fp32)."""
     M, Ka = a.shape
     N = b.shape[1]
-    splits, chunk = wgrad_split(M, Ka, N, a.device)
+    if _f32(a):
+        splits, chunk = wgrad_f32_plan(M, Ka, N, block.sm_count(a.device))
+        name = "gtax_gemm_f32_wgrad"
+    else:
+        splits, chunk = wgrad_split(M, Ka, N, a.device)
+        name = "gtax_gemm_wgrad"
     part = _empty((splits, Ka, N), a)
-    build.launch("gtax_gemm_wgrad", a.data_ptr(), b.data_ptr(),
-                 part.data_ptr(), M, Ka, N, chunk, _stream(a))
+    build.launch(name, a.data_ptr(), b.data_ptr(), part.data_ptr(), M, Ka, N,
+                 chunk, _stream(a))
     return part[0] if splits == 1 else reduce_rows(part)
 
 
+def _f32(t):
+    return t.dtype == torch.float32
+
+
 def gate_bwd(ct, y, g, S):
-    """-> (dy bf16 (M, D), dg (N, D) fp32, db (D,) fp32)."""
+    """-> (dy (M, D) in ct's dtype, dg (N, D) fp32, db (D,) fp32)."""
     M, D = ct.shape
     N = M // S
     dy = torch.empty_like(ct)
     dg, dys = _empty((N, D), ct), _empty((N, D), ct)
-    build.launch("gtax_gate_bwd", ct.data_ptr(), y.data_ptr(), g.data_ptr(),
-                 g.stride(0), dy.data_ptr(), dg.data_ptr(), dys.data_ptr(),
-                 N, S, D, _stream(ct))
+    build.launch("gtax_gate_bwd_f32" if _f32(ct) else "gtax_gate_bwd",
+                 ct.data_ptr(), y.data_ptr(), g.data_ptr(), g.stride(0),
+                 dy.data_ptr(), dg.data_ptr(), dys.data_ptr(), N, S, D,
+                 _stream(ct))
     return dy, dg, reduce_rows(dys)
 
 
 def ln_mod_bwd(x, dmod, scale, ct, S):
-    """-> (dx bf16 (M, D), dshift, dscale (N, D) fp32)."""
+    """-> (dx (M, D) in ct's dtype, dshift, dscale (N, D) fp32)."""
     M, D = dmod.shape
     N = M // S
     dx = torch.empty_like(ct)
     dsh, dsc = _empty((N, D), x), _empty((N, D), x)
-    build.launch("gtax_ln_mod_bwd", x.data_ptr(), dmod.data_ptr(),
-                 scale.data_ptr(), scale.stride(0), ct.data_ptr(),
-                 dx.data_ptr(), dsh.data_ptr(), dsc.data_ptr(), N, S, D,
-                 _stream(x))
+    build.launch("gtax_ln_mod_bwd_f32" if _f32(x) else "gtax_ln_mod_bwd",
+                 x.data_ptr(), dmod.data_ptr(), scale.data_ptr(),
+                 scale.stride(0), ct.data_ptr(), dx.data_ptr(),
+                 dsh.data_ptr(), dsc.data_ptr(), N, S, D, _stream(x))
     return dx, dsh, dsc
 
 
@@ -337,10 +379,21 @@ def rope_tables(freqs):
 def launch_attn_frame_bwd(q, k, v, dout, cos, sin, dqkv, ao, n_frames, S,
                           D, num_heads, rot):
     """attn_frame_bwd over n_frames frames of S tokens: q/k/v/dout and ao
-    (n_frames * S, D) bf16, dqkv (n_frames * S, 3D) bf16, cos/sin (S, rot)
-    fp32 (rope_tables), the rope adjoint on the first rot dims of each
-    head. The kernel takes frames up to its shared memory's limit (176
-    tokens at head dim 64, 192 at 32) and reports an error past it."""
+    (n_frames * S, D), dqkv (n_frames * S, 3D), all bf16 or all fp32,
+    cos/sin (S, rot) fp32 (rope_tables), the rope adjoint on the first rot
+    dims of each head. The bf16 kernel takes frames up to its shared
+    memory's limit (176 tokens at head dim 64, 192 at 32), the fp32 one
+    (attn_frame_bwd_f32, two passes and an (n_frames, heads, S, 3) fp32
+    scratch of row statistics) up to 256 and 320; past them they report an
+    error."""
+    if _f32(q):
+        stats = _empty((n_frames, num_heads, S, 3), q)
+        build.launch("gtax_attn_frame_bwd_f32", q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), dout.data_ptr(), cos.data_ptr(),
+                     sin.data_ptr(), dqkv.data_ptr(), ao.data_ptr(),
+                     stats.data_ptr(), n_frames, S, D, num_heads, rot,
+                     _stream(q))
+        return
     build.launch("gtax_attn_frame_bwd", q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), dout.data_ptr(), cos.data_ptr(),
                  sin.data_ptr(), dqkv.data_ptr(), ao.data_ptr(), n_frames, S,
@@ -348,15 +401,18 @@ def launch_attn_frame_bwd(q, k, v, dout, cos, sin, dqkv, ao, n_frames, S,
 
 
 def _check_bwd(x, shift, scale, g, residuals, ct):
-    N, S, D = _check_branch(x, shift, scale, g, BF16_ONLY)
+    """x (N, S, D) bf16 or fp32; every residual and ct contiguous (N, S,
+    ...) in x's dtype."""
+    N, S, D = _check_branch(x, shift, scale, g)
     _need(D in (64, 128, 256, 512, 1024),
           lambda: f"D={D}: the LayerNorm backward takes 64 .. 1024, powers "
                   "of two")
     for name, t in residuals + (("ct", ct),):
-        _need(t.is_cuda and t.dtype == torch.bfloat16 and t.is_contiguous()
+        _need(t.is_cuda and t.dtype == x.dtype and t.is_contiguous()
               and t.shape[:2] == (N, S),
               lambda name=name, t=t: f"{name} must be a contiguous CUDA "
-              f"bf16 ({N}, {S}, ...) tensor, got {_desc(t)}")
+              f"{x.dtype} ({N}, {S}, ...) tensor (x's dtype), got "
+              f"{_desc(t)}")
     return N, S, D
 
 
@@ -367,14 +423,15 @@ def _attn_branch_bwd_cuda(x, shift, scale, g, qkv_w, out_w, y, ct,
     forward's modulated rows, else ln_mod forms them again."""
     N, S, D = x.shape
     M = N * S
-    _check_mat("qkv_w", qkv_w, (D, 3 * D))
-    _check_mat("out_w", out_w, (D, D))
+    _check_mat("qkv_w", qkv_w, (D, 3 * D), x.dtype)
+    _check_mat("out_w", out_w, (D, D), x.dtype)
     _need(shift.stride(0) == scale.stride(0),
           lambda: "shift and scale must share a row stride")
     dy, dg, db_out = gate_bwd(ct.reshape(M, D), y.reshape(M, D), g, S)
     dao = torch.empty_like(dy)
-    block.launch_gemm(dy, out_w, dao, M, D, D, EPI_BF16, trans_b=True)
-    dqkv = _empty((M, 3 * D), x, torch.bfloat16)
+    block.gemm_any(dy, out_w, dao, M, D, D, EPI_F32 if _f32(x) else EPI_BF16,
+                   trans_b=True)
+    dqkv = _empty((M, 3 * D), x, x.dtype)
     ao = torch.empty_like(dy)
     attention(dao, dqkv, ao)
     dW_out = wgrad(ao, dy)
@@ -382,7 +439,7 @@ def _attn_branch_bwd_cuda(x, shift, scale, g, qkv_w, out_w, y, ct,
         mod = block._modulate_cuda(x, shift, scale)
     dW_qkv = wgrad(mod.reshape(M, D), dqkv)
     dmod = _empty((M, D), x)
-    block.launch_gemm(dqkv, qkv_w, dmod, M, D, 3 * D, EPI_F32, trans_b=True)
+    block.gemm_any(dqkv, qkv_w, dmod, M, D, 3 * D, EPI_F32, trans_b=True)
     dx, dshift, dscale = ln_mod_bwd(x, dmod, scale, ct.reshape(M, D), S)
     return (dx.reshape(N, S, D), dshift, dscale, dg, dW_qkv, dW_out, db_out)
 
@@ -458,10 +515,11 @@ def fused_temporal_branch_bwd(x, shift, scale, g, qkv_w, out_w, rope_freqs,
     bits = valid_bits(valid, T)
 
     def attention(dao, dqkv, ao):
-        build.launch("gtax_attn_temporal_bwd", qr.data_ptr(), kr.data_ptr(),
-                     vr.data_ptr(), dao.data_ptr(), rope_freqs.data_ptr(),
-                     dqkv.data_ptr(), ao.data_ptr(), N // T, T, S, D,
-                     num_heads, bits, _stream(x))
+        build.launch("gtax_attn_temporal_bwd_f32" if _f32(x)
+                     else "gtax_attn_temporal_bwd", qr.data_ptr(),
+                     kr.data_ptr(), vr.data_ptr(), dao.data_ptr(),
+                     rope_freqs.data_ptr(), dqkv.data_ptr(), ao.data_ptr(),
+                     N // T, T, S, D, num_heads, bits, _stream(x))
 
     out = _attn_branch_bwd_cuda(x, shift, scale, g, qkv_w, out_w, y, ct,
                                 attention, mod)
@@ -482,30 +540,33 @@ def fused_mlp_branch_bwd(x, shift, scale, g, w1, w2, h1, y, ct):
     _gelu_tanh_val_grad32 :116). On the card: gate_bwd, reduce_rows (db2),
     gemm dy @ W2^T with the gelu' epilogue (writes dh1, gelu(h1) and the
     per-tile sums of db1), reduce_rows (db1), gemm_wgrad dW2, ln_mod,
-    gemm_wgrad dW1, gemm dh1 @ W1^T, ln_mod_bwd: 9-10 launches. Bound:
-    operations (four GEMMs of the forward's fc1/fc2 size)."""
+    gemm_wgrad dW1, gemm dh1 @ W1^T, ln_mod_bwd: 9-10 launches; in fp32
+    their fp32 forms (gemm_f32's gelu' epilogue with 64-row partials,
+    gemm_f32_wgrad). Bound: operations (four GEMMs of the forward's fc1/fc2
+    size)."""
     if x.device.type == "cpu":
         return mlp_branch_bwd_plain(x, shift, scale, g, w1, w2, h1, y, ct)
     N, S, D = _check_bwd(x, shift, scale, g, (("h1", h1), ("y", y)), ct)
     Hd = w1.shape[-1]
     block._check_hidden(Hd)
-    _check_mat("w1", w1, (D, Hd))
-    _check_mat("w2", w2, (Hd, D))
+    _check_mat("w1", w1, (D, Hd), x.dtype)
+    _check_mat("w2", w2, (Hd, D), x.dtype)
     _need(shift.stride(0) == scale.stride(0),
           lambda: "shift and scale must share a row stride")
     M = N * S
     ct2 = ct.reshape(M, D)
     dy, dg, db2 = gate_bwd(ct2, y.reshape(M, D), g, S)
-    dh1 = _empty((M, Hd), x, torch.bfloat16)
+    dh1 = _empty((M, Hd), x, x.dtype)
     ha = torch.empty_like(dh1)
-    part = _empty((dgelu_partial_rows(M, build.gemm_consts().tile_m), Hd), x)
-    block.launch_gemm(dy, w2, dh1, M, Hd, D, EPI_DGELU, out2=ha,
-                      aux=h1.reshape(M, Hd), colsum=part, trans_b=True)
+    slab = block.F32_SLAB if _f32(x) else build.gemm_consts().tile_m
+    part = _empty((dgelu_partial_rows(M, slab), Hd), x)
+    block.gemm_any(dy, w2, dh1, M, Hd, D, EPI_DGELU, out2=ha,
+                   aux=h1.reshape(M, Hd), colsum=part, trans_b=True)
     db1 = reduce_rows(part)
     dW2 = wgrad(ha, dy)
     dW1 = wgrad(block._modulate_cuda(x, shift, scale), dh1)
     dmod = _empty((M, D), x)
-    block.launch_gemm(dh1, w1, dmod, M, D, Hd, EPI_F32, trans_b=True)
+    block.gemm_any(dh1, w1, dmod, M, D, Hd, EPI_F32, trans_b=True)
     dx, dshift, dscale = ln_mod_bwd(x, dmod, scale, ct2, S)
     fused_mlp_branch_bwd.launches += 1
     return dx.reshape(N, S, D), dshift, dscale, dg, dW1, db1, dW2, db2

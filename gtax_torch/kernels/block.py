@@ -22,9 +22,8 @@ serves dtype="float32") their fp32 forms, which round nothing: `ln_mod`'s
 fp32 modes, `gemm_f32` (fp32 FFMA on the CUDA cores, no TF32, the same
 epilogues stored unrounded), `attn_frame_f32`, `attn_temporal_window_f32`
 and `attn_temporal_f32`. Every other tensor of a call has x's dtype (the
-biases may be either). fp32 `emit_train` is not ported yet (ROADMAP.md):
-it raises NotImplementedError on the card. Each wrapper counts its calls
-that launch kernels in its `launches` attribute.
+biases may be either). Each wrapper counts its calls that launch kernels
+in its `launches` attribute.
 
 For training, `emit_train=True` also returns the residuals the branch
 backwards consume (gtax's emit_train outputs): the post-rope q and k and the
@@ -35,7 +34,10 @@ them, the temporal branch's qkv GEMM stores them from its epilogue (rope
 applied there, `gemm_rope_qkv`: they are also the K/V cache of emit_kv and
 the attention's inputs), and the last GEMM stores y beside the gated output
 (a second store of one epilogue; fc1's epilogue does the same for h1): no
-extra launch, and with emit_train off nothing changes for serving. The
+extra launch, and with emit_train off nothing changes for serving. In fp32
+the same stores come from the fp32 forms (`attn_frame_f32`'s q/k/v stores
+and `gemm_f32`'s `_Y` / `_H` epilogues, instantiations of their own), so
+fp32 training runs on the card as bf16 does. The
 wrappers are forward-only (`forward_only`): with grad mode on they refuse
 an input that requires grad, on the CPU as on the card, rather than return
 a result with no gradient; the trainable branches of
@@ -404,10 +406,8 @@ def forward_only(name, *args):
             "attention backend.")
 
 
-# the compute dtypes the kernels take: bf16, and fp32 (the fp32 forms);
-# the backwards, and every emit_train forward, take bf16 only
+# the compute dtypes the kernels take: bf16, and fp32 (the fp32 forms)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-BF16_ONLY = (torch.bfloat16,)
 
 
 def _check_rows(name, t, rows, D, dtype=torch.bfloat16):
@@ -481,29 +481,48 @@ def launch_gemm(a, w, out, M, N, K, epi, bias=None, resid=None, gate=None,
         int(trans_b), k_chunk, _ptr(part), _stream(a))
 
 
-# the epilogues gemm_f32 takes (csrc/gemm_f32.cu)
+# the epilogues gemm_f32 takes (csrc/gemm_f32.cu): the serving ones, the
+# emit_train ones with a second output, and (with trans_b) the gelu' one
 F32_EPILOGUES = (EPI_F32, EPI_BIAS_BF16, EPI_BIAS_GELU_TANH, EPI_BIAS_GELU_ERF,
-                 EPI_BIAS_BF16_GELU, EPI_BIAS_GATED, EPI_BIAS_BF16_RESID)
+                 EPI_BIAS_BF16_GELU, EPI_BIAS_GATED, EPI_BIAS_BF16_RESID,
+                 EPI_BIAS_GATED_Y, EPI_BIAS_GELU_TANH_H, EPI_BIAS_GELU_ERF_H,
+                 EPI_DGELU)
+# the epilogues that store a second output (out2)
+TWO_OUTPUTS = (EPI_BIAS_GATED_Y, EPI_BIAS_GELU_TANH_H, EPI_BIAS_GELU_ERF_H,
+               EPI_DGELU)
+# the rows of a gelu' column partial in gemm_f32 (a 64-row slab of either
+# tile)
+F32_SLAB = 64
 
 
 def launch_gemm_f32(a, w, out, M, N, K, epi, bias=None, resid=None,
-                    gate=None, S=1, k_chunk=None, out2=None):
-    """out = epilogue(a @ w), all fp32, on the CUDA cores (gemm_f32): each
-    of F32_EPILOGUES stores its value before the bf16 epilogue's rounding
-    (EPI_BIAS_BF16: acc + bias; EPI_BIAS_BF16_GELU: the erf GELU of it;
-    EPI_BIAS_BF16_RESID: x + acc + bias). k_chunk: f32_plan's by default;
+                    gate=None, S=1, k_chunk=None, out2=None, aux=None,
+                    colsum=None, trans_b=False):
+    """out = epilogue(a @ w), or a @ w^T with trans_b (w stored (N, K)),
+    all fp32, on the CUDA cores (gemm_f32): each of F32_EPILOGUES stores
+    its value before the bf16 epilogue's rounding (EPI_BIAS_BF16: acc +
+    bias; EPI_BIAS_BF16_GELU: the erf GELU of it; EPI_BIAS_BF16_RESID: x +
+    acc + bias); the TWO_OUTPUTS ones also store out2 (acc + bias, or
+    EPI_DGELU's gelu(aux) with u = gelu'(aux) * acc in out and the 64-row
+    slabs' column sums of u in colsum). trans_b takes EPI_F32 and
+    EPI_DGELU. k_chunk: f32_plan's by default (EPI_DGELU: K, one pass);
     below K, the chunks' partials go through an (M, N) fp32 workspace a
-    chunk and are added in order before the epilogue. It stores no second
-    output (out2: the emit_train epilogues', not ported in fp32)."""
-    _need(epi in F32_EPILOGUES and out2 is None,
+    chunk and are added in order before the epilogue."""
+    _need(epi in F32_EPILOGUES and (out2 is not None) == (epi in TWO_OUTPUTS)
+          and (not trans_b or epi in (EPI_F32, EPI_DGELU))
+          and (trans_b or epi != EPI_DGELU),
           lambda: f"gemm_f32 has no epilogue {epi}"
+                  + (" with trans_b" if trans_b else "")
                   + (" with a second output" if out2 is not None else ""))
+    if epi == EPI_DGELU:
+        k_chunk = K
     k_chunk, part = _f32_split(a, M, N, K, k_chunk)
     build.launch(
         "gtax_gemm_f32", a.data_ptr(), w.data_ptr(), out.data_ptr(),
-        _ptr(bias), int(bias is not None and bias.dtype == torch.float32),
-        _ptr(resid), _ptr(gate), 0 if gate is None else gate.stride(0), M,
-        N, K, S, epi, k_chunk, _ptr(part), _stream(a))
+        _ptr(out2), _ptr(aux), _ptr(colsum), _ptr(bias),
+        int(bias is not None and bias.dtype == torch.float32), _ptr(resid),
+        _ptr(gate), 0 if gate is None else gate.stride(0), M, N, K, S, epi,
+        int(trans_b), k_chunk, _ptr(part), _stream(a))
 
 
 def gemm_any(a, w, out, M, N, K, epi, **kw):
@@ -513,13 +532,16 @@ def gemm_any(a, w, out, M, N, K, epi, **kw):
     return launch_gemm(a, w, out, M, N, K, epi, **kw)
 
 
-def launch_attn_frame_f32(qkv, freqs, out, n_frames, S, D, num_heads, rot):
+def launch_attn_frame_f32(qkv, freqs, out, n_frames, S, D, num_heads, rot,
+                          qkv_out=None):
     """The fp32 frame attention: qkv (n_frames * S, 3D) fp32 rows, rope on
     the first rot dims of each head's q and k, into out (n_frames * S, D)
-    fp32; nothing rounded."""
+    fp32; nothing rounded. qkv_out: an optional (q, k, v) triple of fp32
+    outputs (the emit_train residuals: the roped q, k and the v)."""
+    q, k, v = qkv_out or (None, None, None)
     build.launch("gtax_attn_frame_f32", qkv.data_ptr(), freqs.data_ptr(),
-                 out.data_ptr(), n_frames, S, D, num_heads, rot,
-                 _stream(qkv))
+                 out.data_ptr(), _ptr(q), _ptr(k), _ptr(v), n_frames, S, D,
+                 num_heads, rot, _stream(qkv))
 
 
 def launch_attn_frame(qkv, freqs, out, n_frames, S, D, num_heads, rot,
@@ -582,15 +604,16 @@ def launch_gemm_f32_rope_qkv(mod, qkv_w, q, k, v, freqs, S, n_q, q_off, hd,
 
 def launch_attn_temporal_f32(qkv, freqs, out, B, n_q, q_off, S, D,
                              num_heads, bits, k_ctx=None, v_ctx=None,
-                             kv_out=None):
+                             kv_out=None, q_out=None):
     """The fp32 form of launch_attn_temporal: qkv fp32 rows (rope on load),
     the fp32 context cache (the step), out fp32, kv_out an optional (K, V)
-    pair of fp32 outputs (the full window's emit_kv); nothing rounded."""
+    pair of fp32 outputs (the full window's emit_kv), q_out (with kv_out)
+    the roped Q; nothing rounded."""
     k_out, v_out = kv_out or (None, None)
     build.launch("gtax_attn_temporal_f32", qkv.data_ptr(), freqs.data_ptr(),
-                 _ptr(k_ctx), _ptr(v_ctx), out.data_ptr(), _ptr(k_out),
-                 _ptr(v_out), B, n_q, q_off, S, D, num_heads, bits,
-                 _stream(qkv))
+                 _ptr(k_ctx), _ptr(v_ctx), out.data_ptr(), _ptr(q_out),
+                 _ptr(k_out), _ptr(v_out), B, n_q, q_off, S, D, num_heads,
+                 bits, _stream(qkv))
 
 
 def launch_attn_temporal(qkv, freqs, out, B, n_q, q_off, S, D, num_heads,
@@ -619,16 +642,6 @@ def _check_branch(x, shift, scale, gate, dtypes=KERNEL_DTYPES):
     for name, t in (("shift", shift), ("scale", scale), ("gate", gate)):
         _check_rows(name, t, N, D, x.dtype)
     return N, S, D
-
-
-def _no_f32_train(x, name, emit_train):
-    """fp32 emit_train (the training forward, int8_forward's included) is
-    the training slice's."""
-    if emit_train and x.dtype == torch.float32:
-        raise NotImplementedError(
-            f"{name}: fp32 emit_train on the card is not ported yet "
-            "(ROADMAP.md A11, fp32 training: #1-#3 and #7-#9 emit_train and "
-            "#12-#14 in fp32)")
 
 
 def _modulate_cuda(x, shift, scale):
@@ -677,7 +690,8 @@ def fused_spatial_branch(x, shift, scale, gate, qkv_w, out_w, out_b,
     :846, body _kernel :214, core _spatial_attention_core :137). On the
     card: ln_mod -> gemm (fp32 qkv) -> attn_frame (full-d rope on load) ->
     gemm (+bias, gated residual): 4 launches, in fp32 the fp32 forms
-    (gemm_f32, attn_frame_f32). Bound: the 8 MB of qkv/out weights at the
+    (gemm_f32, attn_frame_f32; with emit_train their residual stores).
+    Bound: the 8 MB of qkv/out weights at the
     serving row counts (bytes; fp32: operations); see PERF.md for the
     measured time against that bound."""
     forward_only("fused_spatial_branch", x, shift, scale, gate, qkv_w, out_w,
@@ -686,7 +700,6 @@ def fused_spatial_branch(x, shift, scale, gate, qkv_w, out_w, out_b,
         return spatial_branch_plain(x, shift, scale, gate, qkv_w, out_w,
                                     out_b, rope_freqs, num_heads, emit_train)
     N, S, D = _check_branch(x, shift, scale, gate)
-    _no_f32_train(x, "fused_spatial_branch", emit_train)
     _check_attn_weights(qkv_w, out_w, out_b, D, x.dtype)
     d = _check_heads(D, num_heads, (32, 64))
     _check_freqs(rope_freqs, S, d)
@@ -696,7 +709,8 @@ def fused_spatial_branch(x, shift, scale, gate, qkv_w, out_w, out_b,
     att = torch.empty((N * S, D), dtype=x.dtype, device=x.device)
     res = tuple(torch.empty_like(x) for _ in range(4)) if emit_train else None
     if x.dtype == torch.float32:
-        launch_attn_frame_f32(qkv, rope_freqs, att, N, S, D, num_heads, d)
+        launch_attn_frame_f32(qkv, rope_freqs, att, N, S, D, num_heads, d,
+                              qkv_out=res and res[:3])
     else:
         launch_attn_frame(qkv, rope_freqs, att, N, S, D, num_heads, d,
                           qkv_out=res and res[:3])
@@ -728,7 +742,6 @@ def fused_mlp_branch(x, shift, scale, gate, w1, b1, w2, b2,
         return mlp_branch_plain(x, shift, scale, gate, w1, b1, w2, b2,
                                 approx_gelu, emit_train)
     N, S, D = _check_branch(x, shift, scale, gate)
-    _no_f32_train(x, "fused_mlp_branch", emit_train)
     Hd = w1.shape[-1]
     _check_hidden(Hd)
     _check_mat("w1", w1, (D, Hd), x.dtype)
@@ -852,7 +865,6 @@ def fused_temporal_branch(x, shift, scale, gate, qkv_w, out_w, out_b,
                                      out_b, rope_freqs, valid, num_heads,
                                      n_frames, emit_kv, emit_train, emit_mod)
     N, S, D = _check_branch(x, shift, scale, gate)
-    _no_f32_train(x, "fused_temporal_branch", emit_train)
     _need(N % n_frames == 0,
           lambda: f"N={N} is not a multiple of T={n_frames}")
     out = _temporal_window_cuda(x, shift, scale, gate, qkv_w, out_w, out_b,

@@ -58,9 +58,11 @@ SIGNATURES = {
     "gtax_gemm_s8_consts": (_P,),
     # A, B, q, k, v, freqs, M, D, S, n_q, q_off, hd, k_chunk, part, stream
     "gtax_gemm_rope_qkv": (*(_P,) * 6, *(_I,) * 7, _P, _P),
-    # A, B, C, bias, bias_f32, resid, gate, gate_stride, M, N, K, S, epi,
-    # k_chunk, part, stream
-    "gtax_gemm_f32": (_P, _P, _P, _P, _I, _P, _P, *(_I,) * 7, _P, _P),
+    # gtax_gemm_bf16's arguments, over fp32 operands
+    "gtax_gemm_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _P, _P),
+    # A, B, C, M, Ka, N, chunk, stream (gtax_gemm_wgrad's, over fp32)
+    "gtax_gemm_f32_wgrad": (_P, _P, _P, _I, _I, _I, _I, _P),
     # A, B, q, k, v, freqs, M, D, S, n_q, q_off, hd, k_chunk, part, stream
     "gtax_gemm_f32_rope_qkv": (*(_P,) * 6, *(_I,) * 7, _P, _P),
     # A, B, C, M, Ka, N, chunk, stream
@@ -71,8 +73,10 @@ SIGNATURES = {
     "gtax_reduce_rows": (_P, _P, _I, _L, _P),
     # ct, y, gate, gate_stride, dy, dg, dysum, F, S, D, stream
     "gtax_gate_bwd": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P),
+    "gtax_gate_bwd_f32": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P),
     # x, dmod, scale, p_stride, ct, dx, dshift, dscale, F, S, D, stream
     "gtax_ln_mod_bwd": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
+    "gtax_ln_mod_bwd_f32": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
     # A, B, C, C2, sa, group, ws, bias, bias_f32, resid, gate, gate_stride,
     # M, N, K, S, epi, k_chunk, part, stream
     "gtax_gemm_s8": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I,
@@ -90,18 +94,23 @@ SIGNATURES = {
     # q, k, v, out, B, T, S, D, num_heads, valid_mask, stream
     "gtax_attn_temporal_window": (*(_P,) * 4, *(_I,) * 6, _P),
     "gtax_attn_temporal_window_f32": (*(_P,) * 4, *(_I,) * 6, _P),
-    # qkv, freqs, k_ctx, v_ctx, out, k_out, v_out, B, n_q, q_off, S, D,
-    # num_heads, valid_mask, stream
-    "gtax_attn_temporal_f32": (*(_P,) * 7, *(_I,) * 7, _P),
-    # qkv, freqs, out, n_frames, S, D, num_heads, rot, stream
-    "gtax_attn_frame_f32": (*(_P,) * 3, *(_I,) * 5, _P),
+    # qkv, freqs, k_ctx, v_ctx, out, q_out, k_out, v_out, B, n_q, q_off, S,
+    # D, num_heads, valid_mask, stream
+    "gtax_attn_temporal_f32": (*(_P,) * 8, *(_I,) * 7, _P),
+    # qkv, freqs, out, q_out, k_out, v_out, n_frames, S, D, num_heads, rot,
+    # stream
+    "gtax_attn_frame_f32": (*(_P,) * 6, *(_I,) * 5, _P),
     # q, k, v, dout, cos, sin, dqkv, ao, n_frames, S, D, num_heads, rot,
     # stream
     "gtax_attn_frame_bwd": (*(_P,) * 8, *(_I,) * 5, _P),
+    # the same over fp32, with stats (the passes' row statistics) after ao
+    "gtax_attn_frame_bwd_f32": (*(_P,) * 9, *(_I,) * 5, _P),
     # q, k, v, dout, freqs, dqkv, ao, B, T, S, D, num_heads, valid_mask,
     # stream
     "gtax_attn_temporal_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _P),
+    "gtax_attn_temporal_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _P),
     # temporal, x, sh1, sc1, g1, sh2, sc2, g2, p1_stride, g1_stride,
     # p2_stride, g2_stride, qkv_q, qkv_s, out_q, out_s, out_b, out_b_f32,
     # w1_q, w1_s, b1, b1_f32, w2_q, w2_s, b2, b2_f32, freqs, k_ctx, v_ctx,

@@ -36,9 +36,11 @@ x.dtype is a no-op, the int8 rows are quantized from fp32 values as in
 bf16, and the fp32 forms run: `ln_mod`'s int8 mode over fp32 rows, the
 fp32 attention kernels (`attn_frame_f32`, `attn_temporal_f32` with its
 fp32 K/V outputs for emit_kv) and `gemm_s8`'s fp32 gated epilogue, over
-an fp32 context cache. fp32 emit_train raises NotImplementedError on the
-card (ROADMAP.md A11). Each wrapper counts its kernel-launching calls in
-`launches`.
+an fp32 context cache. fp32 emit_train (int8-forward training at
+compute_dtype float32) stores its residuals unrounded: the fp32 q/k/v of
+`attn_frame_f32` and `attn_temporal_f32`, and `gemm_s8`'s epilogues 5-7
+(fp32 h1 and y beside the fp32 GELU and gated outputs, instantiations of
+their own). Each wrapper counts its kernel-launching calls in `launches`.
 """
 
 from __future__ import annotations
@@ -57,7 +59,6 @@ from gtax_torch.kernels.block import (
     _check_hidden,
     _check_mat,
     _need,
-    _no_f32_train,
     _stream,
     attend_frames,
     attend_temporal,
@@ -76,6 +77,10 @@ EPI_BIAS_GELU_F32 = 1
 EPI_BIAS_GATED = 2
 EPI_BIAS_GELU_ERF_F32 = 3  # epilogue 1 with the exact GELU
 EPI_BIAS_GATED_F32 = 4  # epilogue 2 over fp32 x and gate, stored fp32
+# the fp32 emit_train forms: 1, 3 and 4 with an fp32 second output y + b
+EPI_BIAS_GELU_F32_H = 5
+EPI_BIAS_GELU_ERF_F32_H = 6
+EPI_BIAS_GATED_F32_Y = 7
 
 # int8 products summed in fp32 are exact while every partial sum stays an
 # integer below 2**24: at most 1040 terms of 127 * 127
@@ -336,7 +341,8 @@ def _gemm_s8(a, sa, w_q, w_s, out, epi, bias=None, resid=None, gate=None,
     """out = epilogue(dequant(a @ w_q)); sa (M, K // group) row-group
     scales, the group width following from sa's shape; w_q in card_layout;
     k_chunk: the split-K chunk, s8_chunk's by default; out2: the bf16
-    y + bias of the GELU epilogues / EPI_BIAS_GATED (emit_train)."""
+    y + bias of the GELU epilogues / EPI_BIAS_GATED (emit_train), or the
+    fp32 one of epilogues 5-7."""
     M, K = a.shape
     N = w_q.shape[1]
     group = K // sa.shape[1]
@@ -372,24 +378,28 @@ def _qkv_cuda(x, shift, scale, qkv_q, qkv_s):
 
 def _out_cuda(att, x, gate, out_q, out_s, out_b, y=None):
     """x + gate * (int8 out-projection of the fp32 attention rows + b);
-    y: the bf16 pre-gate rows' output (emit_train), or None."""
+    y: the pre-gate rows' output in x's dtype (emit_train), or None."""
     aq, as_ = _quant_rows_cuda(att, att.shape[1])
     out = torch.empty_like(x)
-    _gemm_s8(aq, as_, out_q, out_s, out, _gated_epi(x), bias=out_b, resid=x,
-             gate=gate, S=x.shape[1], out2=y)
+    _gemm_s8(aq, as_, out_q, out_s, out, _gated_epi(x, y is not None),
+             bias=out_b, resid=x, gate=gate, S=x.shape[1], out2=y)
     return out
 
 
-def _gated_epi(x):
-    """The gated residual's epilogue in x's dtype."""
-    return EPI_BIAS_GATED_F32 if x.dtype == F32 else EPI_BIAS_GATED
+def _gated_epi(x, emit=False):
+    """The gated residual's epilogue in x's dtype (emit: with the second
+    output y, fp32's its own instantiation)."""
+    if x.dtype == F32:
+        return EPI_BIAS_GATED_F32_Y if emit else EPI_BIAS_GATED_F32
+    return EPI_BIAS_GATED
 
 
-def _check_q(x, shift, scale, gate, name, emit_train):
-    """The wrappers' activations on the card: bf16 or fp32 (A11: fp32
-    emit_train, checked first), shift/scale/gate in x's dtype."""
-    _no_f32_train(x, name, emit_train)
-    return _check_branch(x, shift, scale, gate)
+def _gelu_epi(x, approx_gelu, emit=False):
+    """fc1's epilogue: the GELU over fp32 h; with emit, also h1 (bf16 by
+    epilogues 1 / 3's second store, fp32 by 5 / 6 over fp32 x)."""
+    if emit and x.dtype == F32:
+        return EPI_BIAS_GELU_F32_H if approx_gelu else EPI_BIAS_GELU_ERF_F32_H
+    return EPI_BIAS_GELU_F32 if approx_gelu else EPI_BIAS_GELU_ERF_F32
 
 
 def _emit_train_outputs(x):
@@ -420,8 +430,7 @@ def fused_spatial_branch_q(x, shift, scale, gate, qkv_q, qkv_s, out_q,
         return spatial_branch_q_plain(x, shift, scale, gate, qkv_q, qkv_s,
                                       out_q, out_s, out_b, rope_freqs,
                                       num_heads, emit_train)
-    N, S, D = _check_q(x, shift, scale, gate, "fused_spatial_branch_q",
-                       emit_train)
+    N, S, D = _check_branch(x, shift, scale, gate)
     _check_attn_weights_q(qkv_q, qkv_s, out_q, out_s, out_b, D)
     d = _check_heads(D, num_heads, (32, 64))
     _check_freqs(rope_freqs, S, d)
@@ -430,7 +439,7 @@ def fused_spatial_branch_q(x, shift, scale, gate, qkv_q, qkv_s, out_q,
     res = _emit_train_outputs(x) if emit_train else None
     if x.dtype == F32:
         block.launch_attn_frame_f32(qkv, rope_freqs, att, N, S, D,
-                                    num_heads, d)
+                                    num_heads, d, qkv_out=res and res[:3])
     else:
         block.launch_attn_frame(qkv, rope_freqs, att, N, S, D, num_heads, d,
                                 qkv_out=res and res[:3])
@@ -463,8 +472,7 @@ def fused_mlp_branch_q(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
     if x.device.type == "cpu":
         return mlp_branch_q_plain(x, shift, scale, gate, w1_q, w1_s, b1,
                                   w2_q, w2_s, b2, approx_gelu, emit_train)
-    N, S, D = _check_q(x, shift, scale, gate, "fused_mlp_branch_q",
-                       emit_train)
+    N, S, D = _check_branch(x, shift, scale, gate)
     Hd = w1_q.shape[-1]
     _check_hidden(Hd)
     _check_qlinear("w1", w1_q, w1_s, D, Hd)
@@ -475,14 +483,13 @@ def fused_mlp_branch_q(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
     h = torch.empty((N * S, Hd), dtype=F32, device=x.device)
     h1 = (torch.empty((N, S, Hd), dtype=x.dtype, device=x.device)
           if emit_train else None)
-    _gemm_s8(mq, ms, w1_q, w1_s, h,
-             EPI_BIAS_GELU_F32 if approx_gelu else EPI_BIAS_GELU_ERF_F32,
+    _gemm_s8(mq, ms, w1_q, w1_s, h, _gelu_epi(x, approx_gelu, emit_train),
              bias=b1, out2=h1)
     hq, hs = _quant_rows_cuda(h, Hd // _mlp_chunks(Hd))
     out = torch.empty_like(x)
     y = torch.empty_like(x) if emit_train else None
-    _gemm_s8(hq, hs, w2_q, w2_s, out, _gated_epi(x), bias=b2, resid=x,
-             gate=gate, S=S, out2=y)
+    _gemm_s8(hq, hs, w2_q, w2_s, out, _gated_epi(x, emit_train), bias=b2,
+             resid=x, gate=gate, S=S, out2=y)
     fused_mlp_branch_q.launches += 1
     return (out, h1, y) if emit_train else out
 
@@ -502,10 +509,10 @@ def _temporal_q_cuda(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
     res = _emit_train_outputs(x) if emit_train else None
     kv_out = ((torch.empty_like(x), torch.empty_like(x)) if emit_kv
               else res and res[1:3])
-    if x.dtype == F32:  # the K/V cache in fp32, as x
+    if x.dtype == F32:  # the K/V cache (and residuals) in fp32, as x
         block.launch_attn_temporal_f32(qkv, rope_freqs, att, B, n_q, q_off,
                                        S, D, num_heads, bits, k_ctx, v_ctx,
-                                       kv_out)
+                                       kv_out, q_out=res and res[0])
     else:
         block.launch_attn_temporal(qkv, rope_freqs, att, B, n_q, q_off, S,
                                    D, num_heads, bits, k_ctx, v_ctx, kv_out,
@@ -539,8 +546,7 @@ def fused_temporal_branch_q(x, shift, scale, gate, qkv_q, qkv_s, out_q,
                                        out_q, out_s, out_b, rope_freqs,
                                        valid, num_heads, n_frames, emit_kv,
                                        emit_train)
-    N, S, D = _check_q(x, shift, scale, gate, "fused_temporal_branch_q",
-                       emit_train)
+    N, S, D = _check_branch(x, shift, scale, gate)
     _need(N % n_frames == 0,
           lambda: f"N={N} is not a multiple of T={n_frames}")
     out = _temporal_q_cuda(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
@@ -574,8 +580,7 @@ def fused_temporal_step_q(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
                                      out_q, out_s, out_b, k_ctx, v_ctx,
                                      rope_freqs, valid, num_heads, n_ctx,
                                      n_live)
-    N, S, D = _check_q(x, shift, scale, gate, "fused_temporal_step_q",
-                       False)
+    N, S, D = _check_branch(x, shift, scale, gate)
     _need(N % n_live == 0,
           lambda: f"N={N} is not a multiple of n_live={n_live}")
     B = N // n_live

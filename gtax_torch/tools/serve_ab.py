@@ -5,7 +5,9 @@ emit_train mode at B=4, T=5, the training step's window), and the int8
 wrappers and pairs
 (`gtax_torch.kernels.quant`, `gtax_torch.kernels.pair`; `fused_mlp_branch_q`
 also in its emit_train mode at the B=16 training step's 11,520 rows), on
-fixed seeded inputs.
+fixed seeded inputs; and every serving call again at x.dtype = float32
+(its bf16 inputs, biases and context cache cast to fp32: the fp32 forms
+of #1-#4 and #6-#11), named "... fp32".
 
     PYTHONPATH=<checkout> python <this file> --save FILE   # outputs
     python <this file> --compare FILE_A FILE_B             # bits
@@ -122,6 +124,11 @@ def cases():
     out[f"mlp_branch_q emit_train N={N}"] = (
         lambda *a: quant.fused_mlp_branch_q(*a, emit_train=True),
         (xt, mt[:, :D], mt[:, D:2 * D], mt[:, 2 * D:], *wm))
+    for k, (fn, a) in list(out.items()):  # the serving calls in fp32
+        if "emit_train" not in k:
+            out[f"{k} fp32"] = (fn, tuple(
+                t.float() if isinstance(t, torch.Tensor)
+                and t.dtype == torch.bfloat16 else t for t in a))
     return out
 
 

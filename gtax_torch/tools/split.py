@@ -49,7 +49,7 @@ PHASES = ("ln_mod", "qkv", "attention", "quant", "out-proj", "ln_mod 2",
 GEMM_PHASES = (1, 4, 6, 8)  # qkv, out-proj, fc1, fc2 (0-based)
 STAMPS = 18 + 4 * len(GEMM_PHASES)  # csrc/pair_q.cuh kStamps
 GEMMS = ("gtax_gemm_bf16", "gtax_gemm_wgrad", "gtax_gemm_rope_qkv",
-         "gtax_gemm_f32", "gtax_gemm_f32_rope_qkv")
+         "gtax_gemm_f32", "gtax_gemm_f32_rope_qkv", "gtax_gemm_f32_wgrad")
 
 
 def _cold(flush):

@@ -57,6 +57,7 @@ from gtax_torch.core.constants import LATENT_SCALE
 from gtax_torch.data.actions import forward_actions
 from gtax_torch.data.loader import Batch, DataLoader, make_dataset, to_device
 from gtax_torch.io import safetensors_port as port
+from gtax_torch.kernels import block
 from gtax_torch.models import dit as dit_mod
 from gtax_torch.models import vae as vae_mod
 from gtax_torch.models.vae import vae_decode, vae_encode
@@ -142,14 +143,14 @@ def check_slice(config: TrainingConfig) -> None:
 
 
 def check_compute_dtype(dtype, device_type: str) -> None:
-    """Training computes in bf16 on the card: the training kernels (the
-    emit_train forwards of #1-#3, the backwards #12-#14) take bf16 only.
-    fp32 trains on the CPU, through the plain versions."""
-    if device_type == "cuda" and dtype != torch.bfloat16:
-        raise NotImplementedError(
-            "compute_dtype float32 on the card: the training kernels take "
-            "bf16 only (ROADMAP.md A11, fp32 training); fp32 trains on "
-            "device='cpu'")
+    """The compute dtypes the card trains in: bf16 and fp32, the dtypes of
+    the training kernels (the emit_train forwards of #1-#3 and #7-#9, the
+    backwards #12-#14, each with its fp32 form); any float dtype trains
+    on the CPU, through the plain versions."""
+    if device_type == "cuda" and dtype not in block.KERNEL_DTYPES:
+        raise ValueError(
+            f"compute_dtype {dtype} on the card: the training kernels take "
+            "bfloat16 or float32")
 
 
 class Trainer:

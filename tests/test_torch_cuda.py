@@ -1585,18 +1585,26 @@ def test_attn_temporal_f32_kernels(cuda, hd, T, valid):
 
 
 def test_fp32_refusals_on_the_card(cuda):
-    """fp32 emit_train (the training forward) raises; an fp32 x with bf16
-    weights raises ValueError as any dtype mismatch does."""
+    """An fp32 x with bf16 weights raises ValueError as any dtype mismatch
+    does (fp32 emit_train is taken: test_fp32_emit_train_kernels), and so
+    does an fp32 backward given a bf16 residual."""
+    from gtax_torch.kernels import backward
+
     gen = np.random.default_rng(350)
     fn, _, args, kw = _f32_case("mlp_tanh", gen)
-    with pytest.raises(NotImplementedError, match="A11"):
-        fn(*args, emit_train=True)
     with pytest.raises(ValueError, match="w1"):
         fn(*args[:4], args[4].bfloat16(), *args[5:])
+    _, h1, y = fn(*args, emit_train=True)
+    x, sh, sc, g, w1, _, w2, _ = args
+    with pytest.raises(ValueError, match="h1"):
+        backward.fused_mlp_branch_bwd(x, sh, sc, g, w1, w2, h1.bfloat16(), y,
+                                      torch.ones_like(x))
 
 
 def test_fp32_kernels_use_no_tensor_cores(cuda):
-    """The fp32 kernels are FFMA only: cuobjdump's SASS of the built
+    """The fp32 kernels, the training ones included (gemm_f32's training
+    epilogues, trans_b and wgrad forms are instantiations of
+    gemm_f32_kernel), are FFMA only: cuobjdump's SASS of the built
     library has no HMMA or HGMMA (any type, TF32 included) in them, and
     FFMAs; the fp32 pairs hold the int8 tensor cores' IGMMA and no HMMA /
     HGMMA but the compiler's no-op GMMA (an HGMMA into RZ from a zero
@@ -1620,7 +1628,9 @@ def test_fp32_kernels_use_no_tensor_cores(cuda):
     names = ("gemm_f32_kernel", "attn_frame_f32_kernel",
              "attn_window_f32_kernel", "attn_temporal_f32_kernel",
              "ln_mod_kernelIf", "attn_sdpa_rows_f32_kernel",
-             "attn_sdpa_tiled_f32_kernel")
+             "attn_sdpa_tiled_f32_kernel", "attn_frame_bwd_f32_pass1",
+             "attn_frame_bwd_f32_pass2", "attn_temporal_bwd_f32_kernel",
+             "gate_bwd_kernelIfE", "ln_mod_bwd_kernelILi16EfE")
     f32 = [f for f in funcs if any(n in f.split("\n", 1)[0] for n in names)]
     pairs = [f for f in funcs
              if re.search(r"pair_q_kernelILi\d+ELb\dELb\dEfE",
@@ -1835,15 +1845,29 @@ def test_int8_f32_pair_grid(cuda):
         assert 0 < n <= 2 * sms, (temporal, n)
 
 
-def test_int8_f32_train_refused_on_the_card(cuda):
-    """fp32 emit_train through the int8 wrappers (int8-forward training's
-    forward) raises NotImplementedError naming ROADMAP.md A11."""
-    gen = np.random.default_rng(376)
-    for kind in ("spatial", "mlp_tanh", "temporal"):
-        fn, _, args, kw = _f32_q_case(kind, gen)
-        kw = {k: v for k, v in kw.items() if k != "emit_kv"}
-        with pytest.raises(NotImplementedError, match="A11"):
-            fn(*args, **kw, emit_train=True)
+@pytest.mark.parametrize("kind", ["spatial", "mlp_tanh", "mlp_erf",
+                                  "temporal"])
+def test_int8_f32_emit_train_kernels(cuda, kind):
+    """fp32 emit_train through the int8 wrappers (#7-#9, int8-forward
+    training at compute_dtype float32): every residual fp32 and within
+    2**-6 of the plain version's largest magnitude (the int8 rule); the
+    output bit-equal to the call without emit_train (gemm_s8's epilogues
+    5-7 and the attention's q/k/v stores change no value); two calls give
+    the same bits."""
+    gen = np.random.default_rng({"spatial": 376, "mlp_tanh": 377,
+                                 "mlp_erf": 378, "temporal": 379}[kind])
+    fn, plain, args, kw = _f32_q_case(kind, gen)
+    kw = {k: v for k, v in kw.items() if k != "emit_kv"}
+    got = fn(*args, **kw, emit_train=True)
+    again = fn(*args, **kw, emit_train=True)
+    ref = plain(*args, **kw, emit_train=True)
+    serve = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], serve)
+    for a, b, c in zip(got, ref, again):
+        assert a.dtype == b.dtype == torch.float32
+        _close(a, b)
+        assert torch.equal(a, c)
 
 
 @pytest.mark.parametrize("layout", ["heads_first", "token_major"])
@@ -1883,3 +1907,249 @@ def test_attn_sdpa_f32_kernel(cuda, S, layout):
         torch.cuda.synchronize()
         _close32(got, ref)
         assert torch.equal(got, again), kind
+
+
+# ------------------------------- fp32 training (#1-#3, #7-#9 emit_train,
+# the backwards #12-#14): every value fp32, held to F32_TOL of the plain
+# version's largest magnitude; the backwards bit-equal across two calls
+
+@pytest.mark.parametrize("kind", ["spatial", "mlp_tanh", "mlp_erf",
+                                  "temporal"])
+def test_fp32_emit_train_kernels(cuda, kind):
+    """#1-#3 emit_train in fp32 against their plain versions (every
+    residual fp32, F32_TOL); the output bit-equal to the serving call's
+    (the stores of attn_frame_f32 and gemm_f32's _Y / _H epilogues change
+    no value); two calls give the same bits."""
+    gen = np.random.default_rng({"spatial": 400, "mlp_tanh": 401,
+                                 "mlp_erf": 402, "temporal": 403}[kind])
+    fn, plain, args, kw = _f32_case(kind, gen)
+    kw = {k: v for k, v in kw.items() if k != "emit_kv"}
+    got = fn(*args, **kw, emit_train=True)
+    again = fn(*args, **kw, emit_train=True)
+    ref = plain(*args, **kw, emit_train=True)
+    serve = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], serve)
+    for a, b, c in zip(got, ref, again):
+        _close32(a, b)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("M", [288, 1440, 3472])
+def test_gemm_f32_train_epilogues(cuda, M):
+    """gemm_f32's training forms against the fp32 products: the _Y / _H
+    epilogues' two outputs (split K at 288 rows, unsplit on the 128x128
+    tiles at 3,472), dY @ W^T (trans_b, EPI_F32, split and unsplit), and
+    the gelu' epilogue (trans_b, one pass) with its 64-row column sums;
+    each bit-stable."""
+    from gtax_torch.kernels import backward
+
+    gen = np.random.default_rng(410 + M)
+    S, K, N, f32 = 144, 1024, 1000, torch.float32
+    a, w = _rand(gen, (M, K), 1.0, f32), _rand(gen, (K, N), 0.03, f32)
+    bias = _rand(gen, (N,), 0.1, f32)
+    x = _rand(gen, (M, N), 1.0, f32)
+    gate = _rand(gen, (-(-M // S), 2 * N), 0.5, f32)[:, :N]
+    u = block.mm32(a, w) + bias
+    refs = {block.EPI_BIAS_GATED_Y: x + gate.repeat_interleave(S, 0)[:M] * u,
+            block.EPI_BIAS_GELU_TANH_H: block.gelu_tanh32(u),
+            block.EPI_BIAS_GELU_ERF_H: block.gelu_exact32(u)}
+    for epi, ref in refs.items():
+        outs = []
+        for k_chunk in (None, K, None):
+            out, out2 = (torch.empty((M, N), dtype=f32, device="cuda")
+                         for _ in range(2))
+            block.launch_gemm_f32(a, w, out, M, N, K, epi, bias=bias,
+                                  resid=x, gate=gate, S=S, k_chunk=k_chunk,
+                                  out2=out2)
+            outs.append((out, out2))
+        torch.cuda.synchronize()
+        for out, out2 in outs:
+            _close32(out, ref)
+            _close32(out2, u)
+        assert torch.equal(outs[0][0], outs[2][0])
+        assert torch.equal(outs[0][1], outs[2][1])
+    # dY @ W^T: W (N, K) read from its rows
+    dy, wt = _rand(gen, (M, K), 1.0, f32), _rand(gen, (N, K), 0.03, f32)
+    ref = block.mm32(dy, wt.t())
+    for k_chunk in (None, K):
+        out = torch.empty((M, N), dtype=f32, device="cuda")
+        block.launch_gemm_f32(dy, wt, out, M, N, K, block.EPI_F32,
+                              k_chunk=k_chunk, trans_b=True)
+        torch.cuda.synchronize()
+        _close32(out, ref)
+    # gelu': u = gelu'(h1) * (dY @ W^T), gelu(h1), the slabs' column sums
+    h1 = _rand(gen, (M, N), 1.0, f32)
+    ha32, gp32 = backward.gelu_tanh_val_grad32(h1)
+    du = gp32 * ref
+    res = []
+    for _ in range(2):
+        out, out2 = (torch.empty((M, N), dtype=f32, device="cuda")
+                     for _ in range(2))
+        part = torch.empty((-(-M // block.F32_SLAB), N), dtype=f32,
+                           device="cuda")
+        block.launch_gemm_f32(dy, wt, out, M, N, K, block.EPI_DGELU,
+                              out2=out2, aux=h1, colsum=part, trans_b=True)
+        res.append((out, out2, backward.reduce_rows(part)))
+    torch.cuda.synchronize()
+    _close32(res[0][0], du)
+    _close32(res[0][1], ha32)
+    _close32(res[0][2], du.sum(0))
+    assert all(torch.equal(p, q) for p, q in zip(*res))
+
+
+@pytest.mark.parametrize("M,Ka,N", [(4000, 128, 64), (1440, 1024, 1024),
+                                    (11520, 1024, 3072)])
+def test_gemm_f32_wgrad(cuda, M, Ka, N):
+    """The fp32 weight gradient (A^T @ B in row chunks, the last ragged at
+    4,000 rows; one chunk's partial or reduce_rows in chunk order) against
+    the fp32 product; a second call bit-equal."""
+    from gtax_torch.kernels import backward
+
+    gen = np.random.default_rng(420 + M)
+    f32 = torch.float32
+    a, b = _rand(gen, (M, Ka), 1.0, f32), _rand(gen, (M, N), 1.0, f32)
+    got, again = backward.wgrad(a, b), backward.wgrad(a, b)
+    torch.cuda.synchronize()
+    _close32(got, backward.wgrad32(a, b))
+    assert torch.equal(got, again)
+
+
+def _train_inputs_f32(gen, N, kind):
+    """_train_inputs in fp32: x, the split adaLN rows, weights, biases and
+    the cotangent."""
+    f32 = torch.float32
+    x = _rand(gen, (N, S_DIT, D), 1.0, f32)
+    mods = _rand(gen, (N, 6 * D), 0.5, f32)
+    head = (x, mods[:, :D], mods[:, D:2 * D], mods[:, 2 * D:3 * D])
+    if kind == "mlp":
+        w = (_rand(gen, (D, 4 * D), 0.02, f32),
+             _rand(gen, (4 * D,), 0.02, f32),
+             _rand(gen, (4 * D, D), 0.02, f32), _rand(gen, (D,), 0.02, f32))
+    else:
+        w = (_rand(gen, (D, 3 * D), 0.02, f32), _rand(gen, (D, D), 0.02, f32),
+             _rand(gen, (D,), 0.02, f32))
+    return (*head, *w), _rand(gen, (N, S_DIT, D), 1.0, f32)
+
+
+@pytest.mark.parametrize("kind,N", [("spatial", 2), ("spatial", 10),
+                                    ("temporal", 10), ("mlp", 2),
+                                    ("mlp", 10)])
+def test_fp32_backward_kernels(cuda, kind, N):
+    """#12-#14 in fp32 over their fp32 forwards' residuals against the
+    plain backwards (every gradient within F32_TOL of its largest
+    magnitude); a second call gives the same bits; one launch counted a
+    call."""
+    from gtax_torch.kernels import backward
+
+    gen = np.random.default_rng(430 + N + len(kind))
+    args, ct = _train_inputs_f32(gen, N, kind)
+    if kind == "mlp":
+        _, h1, y = block.fused_mlp_branch(*args, emit_train=True)
+        x, sh, sc, g, w1, _, w2, _ = args
+        fn = backward.fused_mlp_branch_bwd
+        plain = backward.mlp_branch_bwd_plain
+        bargs, kw = (x, sh, sc, g, w1, w2, h1, y, ct), {}
+    elif kind == "spatial":
+        f = _spatial_freqs()
+        _, *res = block.fused_spatial_branch(*args, f, H, emit_train=True)
+        fn = backward.fused_spatial_branch_bwd
+        plain = backward.spatial_branch_bwd_plain
+        bargs, kw = (*args[:6], f, *res, ct, H), {}
+    else:
+        T, valid = 5, [False, True, True, True, True]
+        f = _temporal_freqs(T)
+        _, *res, mod = block.fused_temporal_branch(
+            *args, f, valid, H, T, emit_train=True, emit_mod=True)
+        fn = backward.fused_temporal_branch_bwd
+        plain = backward.temporal_branch_bwd_plain
+        bargs, kw = (*args[:6], f, valid, *res, ct, H, T), {"mod": mod}
+    before = fn.launches
+    got, again = fn(*bargs, **kw), fn(*bargs, **kw)
+    ref = plain(*bargs)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    for a, b, c in zip(got, ref, again):
+        assert a.dtype == torch.float32
+        _close32(a, b)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("S,hd,partial", [(S_DIT, 64, False),
+                                          (S_DIT, 32, True), (100, 64, True),
+                                          (176, 64, False), (192, 32, True),
+                                          (256, 64, True)])
+def test_attn_frame_bwd_f32_kernel(cuda, S, hd, partial):
+    """attn_frame_bwd_f32 alone (two passes over 64-row tiles) against the
+    plain backward's arithmetic in fp32: at the DiT's S = 144, a ragged
+    100, the bf16 kernel's limits (176 at hd 64, 192 at 32) and its own
+    (256 at hd 64; 320 at hd 32 is refused at 64, one tile more than
+    fits); a second run is bit-equal to the first."""
+    from gtax_torch.kernels import backward
+
+    gen = np.random.default_rng(440 + S + hd + partial)
+    N, heads, f32 = 3, D // hd, torch.float32
+    rot = hd // 2 if partial else hd
+    q, k, v, dout = (_rand(gen, (N, S, heads, hd), 1.0, f32)
+                     for _ in range(4))
+    freqs = torch.from_numpy(gen.uniform(0, 6.3, (S, rot)).astype(
+        np.float32)).cuda()
+    flat = [t.reshape(N * S, D) for t in (q, k, v, dout)]
+
+    def run():
+        dqkv = torch.empty((N * S, 3 * D), dtype=f32, device="cuda")
+        ao = torch.empty((N * S, D), dtype=f32, device="cuda")
+        backward.launch_attn_frame_bwd(*flat, *backward.rope_tables(freqs),
+                                       dqkv, ao, N, S, D, heads, rot)
+        torch.cuda.synchronize()
+        return ao, dqkv
+
+    ao, dqkv = run()
+    d = hd
+    ref = backward._attention_bwd_plain(q, k, v, dout, None, f32, 1.0 / d**0.5,
+                                        ("nqhd", "nkhd", "nhqk"))
+    f = freqs[:, None, :]
+
+    def adj(u):
+        return torch.cat([backward.rope_transpose32(f, u[..., :rot]),
+                          u[..., rot:]], -1)
+
+    ref = (ref[0], adj(ref[1]), adj(ref[2]), ref[3])
+    for a, b in zip((ao, *dqkv.split(D, dim=-1)), ref):
+        _close32(a, b.reshape(N * S, D).float())
+    ao2, dqkv2 = run()
+    assert torch.equal(ao, ao2) and torch.equal(dqkv, dqkv2)
+    if S == 256:  # one 64-row tile more does not fit pass 1
+        S2 = S + 64
+        t = torch.empty((S2, D), dtype=f32, device="cuda")
+        cs = torch.zeros((S2, hd), device="cuda")
+        with pytest.raises(RuntimeError, match="gtax_attn_frame_bwd_f32"):
+            backward.launch_attn_frame_bwd(
+                t, t, t, t, cs, cs,
+                torch.empty((S2, 3 * D), dtype=f32, device="cuda"), t, 1,
+                S2, D, heads, hd)
+
+
+@pytest.mark.parametrize("T,hd", [(1, 64), (3, 32), (5, 64), (8, 128)])
+def test_temporal_branch_bwd_f32_windows(cuda, T, hd):
+    """The fp32 temporal backward (attn_temporal_bwd_f32's T
+    instantiations, four fp32 dims a lane) against its plain version at
+    windows of 1-8 frames and hd 32/64/128, slot 0 padded; given the
+    forward's mod rows, the same bits as without them."""
+    from gtax_torch.kernels import backward
+
+    gen = np.random.default_rng(450 + T + hd)
+    heads = D // hd
+    args, ct = _train_inputs_f32(gen, 2 * T, "temporal")
+    f = rope.temporal_rope_freqs(torch.arange(T), rope.lang_freqs(hd)).cuda()
+    valid = [False] + [True] * (T - 1) if T > 1 else None
+    _, *res, mod = block.fused_temporal_branch(
+        *args, f, valid, heads, T, emit_train=True, emit_mod=True)
+    bargs = (*args[:6], f, valid, *res, ct, heads, T)
+    got = backward.fused_temporal_branch_bwd(*bargs, mod=mod)
+    again = backward.fused_temporal_branch_bwd(*bargs)
+    torch.cuda.synchronize()
+    for a, b, p in zip(got, again,
+                       backward.temporal_branch_bwd_plain(*bargs)):
+        assert torch.equal(a, b)
+        _close32(a, p)

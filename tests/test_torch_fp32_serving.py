@@ -1,6 +1,6 @@
-"""float32 on the card: what the serving and training entry points take and
-refuse there, through the checks that take the device type (so they run
-without a card), and the fp32 forms' dispatch tables. The fp32 kernels
+"""float32 on the card: what the serving and training entry points take
+there, through the checks that take the device type (so they run without
+a card), and the fp32 forms' dispatch tables. The fp32 kernels
 themselves run only on the card (tests/test_torch_cuda.py, chip_smoke.py);
 here the CPU runs fp32 through the plain versions
 (tests/test_torch_serving.py holds that rollout against gtax's, int8 and
@@ -56,29 +56,32 @@ def test_fp32_refusal_reaches_the_generator():
         torch.float32)
 
 
-@pytest.mark.parametrize("dtype,device_type,refused", [
-    (torch.float32, "cuda", True), (torch.bfloat16, "cuda", False),
-    (torch.float32, "cpu", False), (torch.bfloat16, "cpu", False)])
-def test_fp32_training_refused_on_the_card(dtype, device_type, refused):
-    """The trainer's compute dtype: fp32 training on the card is a later
-    slice (ROADMAP.md A11)."""
-    if refused:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A11"):
-            trainer.check_compute_dtype(dtype, device_type)
-    else:
-        trainer.check_compute_dtype(dtype, device_type)
+@pytest.mark.parametrize("dtype,device_type", [
+    (torch.float32, "cuda"), (torch.bfloat16, "cuda"),
+    (torch.float32, "cpu"), (torch.bfloat16, "cpu")])
+def test_fp32_training_taken_on_both_devices(dtype, device_type):
+    """The trainer's compute dtype: bf16 and fp32 train on the card (the
+    training kernels' bf16 and fp32 forms) and on the CPU (the plain
+    versions)."""
+    trainer.check_compute_dtype(dtype, device_type)
 
 
 def test_fp32_entry_points_bound():
     """Every fp32 kernel's C entry point has its ctypes signature, with as
     many arguments as csrc/ declares (the library is built on the card):
-    the temporal step's with the full window's fp32 K/V outputs, the fp32
-    pairs', and the fp32 `pallas` attention's."""
-    want = {"gtax_gemm_f32": 16, "gtax_gemm_f32_rope_qkv": 15,
-            "gtax_attn_frame_f32": 9,
+    the fp32 GEMM's with the training epilogues' outputs and trans_b, the
+    frame attention's with its q/k/v stores, the temporal one's with the
+    full window's fp32 Q/K/V outputs, the fp32 pairs', the fp32 `pallas`
+    attention's, and the fp32 training kernels' (the weight gradient, the
+    row-wise and attention backwards)."""
+    want = {"gtax_gemm_f32": 20, "gtax_gemm_f32_rope_qkv": 15,
+            "gtax_attn_frame_f32": 12,
             "gtax_attn_temporal_window_f32": 11,
-            "gtax_attn_temporal_f32": 15, "gtax_pair_q_f32": 48,
-            "gtax_pair_q_f32_blocks": 4, "gtax_attn_sdpa_f32": 16}
+            "gtax_attn_temporal_f32": 16, "gtax_pair_q_f32": 48,
+            "gtax_pair_q_f32_blocks": 4, "gtax_attn_sdpa_f32": 16,
+            "gtax_gemm_f32_wgrad": 8, "gtax_gate_bwd_f32": 11,
+            "gtax_ln_mod_bwd_f32": 12, "gtax_attn_frame_bwd_f32": 15,
+            "gtax_attn_temporal_bwd_f32": 14}
     src = "".join(p.read_text() for p in build.sources())
     for name, n in want.items():
         assert len(build.SIGNATURES[name]) == n, name
@@ -92,16 +95,28 @@ def test_fp32_entry_points_bound():
 
 
 def test_fp32_epilogue_table():
-    """gemm_f32 takes the epilogues #1-#5 store in fp32 and refuses the
-    training ones (fp32 emit_train is a later slice)."""
+    """gemm_f32 takes the epilogues #1-#5 store in fp32, the emit_train ones
+    with their second output, and gelu' with trans_b (the backward); it
+    refuses an epilogue it does not take (EPI_BF16, a bf16 store), a second
+    output missing or unasked for, gelu' without trans_b, and trans_b with
+    a bias epilogue."""
     assert set(block.F32_EPILOGUES) == {
         block.EPI_F32, block.EPI_BIAS_BF16, block.EPI_BIAS_GELU_TANH,
         block.EPI_BIAS_GELU_ERF, block.EPI_BIAS_BF16_GELU,
-        block.EPI_BIAS_GATED, block.EPI_BIAS_BF16_RESID}
-    for epi in (block.EPI_BIAS_GATED_Y, block.EPI_BIAS_GELU_TANH_H,
-                block.EPI_DGELU):
+        block.EPI_BIAS_GATED, block.EPI_BIAS_BF16_RESID,
+        block.EPI_BIAS_GATED_Y, block.EPI_BIAS_GELU_TANH_H,
+        block.EPI_BIAS_GELU_ERF_H, block.EPI_DGELU}
+    assert set(block.TWO_OUTPUTS) == {
+        block.EPI_BIAS_GATED_Y, block.EPI_BIAS_GELU_TANH_H,
+        block.EPI_BIAS_GELU_ERF_H, block.EPI_DGELU}
+    out2 = _meta(1, 4)
+    for epi, kw in ((block.EPI_BF16, {}),
+                    (block.EPI_BIAS_GATED_Y, {}),
+                    (block.EPI_BIAS_GATED, {"out2": out2}),
+                    (block.EPI_DGELU, {"out2": out2}),
+                    (block.EPI_BIAS_GATED, {"trans_b": True})):
         with pytest.raises(ValueError, match="no epilogue"):
-            block.launch_gemm_f32(None, None, None, 1, 4, 16, epi)
+            block.launch_gemm_f32(None, None, None, 1, 4, 16, epi, **kw)
 
 
 @pytest.mark.parametrize("M,N,K,chunk", [
@@ -136,26 +151,26 @@ def _meta(*shape, dtype=torch.float32):
                                   "fused_temporal_branch_q"])
 def test_int8_f32_emit_train_refused_off_the_cpu(name):
     """fp32 emit_train through the int8 wrappers (int8-forward training's
-    forward) takes the card path for any tensor not on the CPU and raises
-    there before a kernel, naming ROADMAP.md A11; bf16 gets past that
-    check (to the CUDA checks, which a stand-in device fails)."""
+    forward at compute_dtype float32) takes the card path for any tensor
+    not on the CPU, passes the dtype check as bf16 does and reaches the
+    CUDA checks, which a stand-in device fails (ValueError naming the CUDA
+    kernel path) before any kernel."""
     D = 64
     fn = getattr(quant, name)
-    for dtype, err, match in ((torch.float32, NotImplementedError, "A11"),
-                              (torch.bfloat16, ValueError, "CUDA")):
+    for dtype in (torch.float32, torch.bfloat16):
         x = _meta(2, 8, D, dtype=dtype)
         vec = tuple(_meta(2, D, dtype=dtype) for _ in range(3))
         tail = {"fused_spatial_branch_q": (None,) * 6 + (2,),
                 "fused_mlp_branch_q": (None,) * 6,
                 "fused_temporal_branch_q": (None,) * 7 + (2, 2)}[name]
-        with pytest.raises(err, match=match):
+        with pytest.raises(ValueError, match="CUDA kernel path"):
             fn(x, *vec, *tail, emit_train=True)
 
 
 def test_int8_forward_trainer_refused_in_fp32_on_the_card(monkeypatch):
-    """The int8-forward trainer computes in bf16 on the card: with
-    compute_dtype float32 it raises naming ROADMAP.md A11 before it builds
-    a model (a stand-in for the card's device: the check needs its type
+    """The int8-forward trainer on the card takes compute_dtype float32 as
+    it takes bf16: the config passes check_slice and the device's dtype
+    check (a stand-in for the card's device: the check needs its type
     only)."""
     monkeypatch.setattr(trainer, "resolve_device",
                         lambda device=None: torch.device("cuda"))
@@ -163,8 +178,9 @@ def test_int8_forward_trainer_refused_in_fp32_on_the_card(monkeypatch):
                                  vae_checkpoint="", compute_dtype="float32",
                                  attention_backend="fused_all",
                                  int8_forward=True, use_wandb=False)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A11"):
-        trainer.Trainer(cfg, 8, device="cuda")
+    trainer.check_slice(cfg)
+    trainer.check_compute_dtype(getattr(torch, cfg.compute_dtype),
+                                trainer.resolve_device().type)
 
 
 def test_int8_prefill_cache_fp32():
