@@ -70,6 +70,9 @@ Phases (any failure exits nonzero and prints no result line):
      version's largest magnitude, #7-#9 emit_train within INT8_F32_TOL,
      the backwards bit-equal across two calls, timed beside the fp32
      library composites (autograd for a backward), bound at 67 TFLOP/s;
+     #12-#14 in fp32 split by launch (`[split]`, each product's TFLOP/s;
+     for #12 attn_frame_bwd_f32's ms beside its bound and useful
+     TFLOP/s);
   4. end to end, bf16: VideoGenerator at full DiT-S/2 + ViT-L/20 width,
      B=1, 4 prompt frames + 2 generated, 100 noise steps, random seeded
      weights with nonzero adaLN heads, injected noise. The launch counters
@@ -185,15 +188,17 @@ Phases (any failure exits nonzero and prints no result line):
      collectives go through the host), said in the output; with two or
      more, `[dp train]`, `[dp serve]` and `[tp serve]` run over NCCL on two
      cards. `[nccl]`: one rank at world size 1 over NCCL runs the
-     one-process B=16 step of configs/train_dit_actions.yaml (TRAIN_CUTS)
-     that `[dp train]` is held against, and times the all-reduce of the
-     flagship gradients (2.43 GB fp32) at world size 1 (no link crossed).
-     `[dp train]`: two ranks of B=8 from the same init and the same 16
+     one-process B=16 step of configs/train_dit_actions.yaml (TRAIN_CUTS;
+     DiT-S/2 at full width cut to DP_DEPTH blocks) that `[dp train]` is
+     held against, and times the all-reduce of its gradients (0.62 GB
+     fp32) at world size 1 (no link crossed). `[dp train]`: the same
+     model, two ranks of B=8 from the same init and the same 16
      clips (rank r rows 8r..8r+7): step 1's loss and grad norm and each
      gradient leaf against the reference (DP_TOL), and each master's
      update there over the elements whose reference gradient is not zero
-     within rounding (ZERO_GRAD, DP_TOL), the launches of a micro-step (#1
-     16, #2 32, #3 16, #12 16, #13 16, #14 32), the ranks' masters bit-equal after steps 1 and 3; a
+     within rounding (ZERO_GRAD, DP_TOL), the launches of a micro-step
+     (#1, #3, #12 and #13 DP_DEPTH each, #2 and #14 twice that), the
+     ranks' masters bit-equal after steps 1 and 3; a
      save at step 2 and a second trainer on each rank resuming into step 3
      (RESUME_TOL, bit equality printed); step_time_s, the all-reduce's ms
      and the peak memory on each rank. `[dp serve]`: ServingConfig(
@@ -1310,9 +1315,10 @@ def f32_int8_phase(timer, rows):
 F32_KERNELS = ("gemm_f32_kernel", "attn_frame_f32_kernel",
                "attn_window_f32_kernel", "attn_temporal_f32_kernel",
                "ln_mod_kernelIf", "attn_sdpa_rows_f32_kernel",
-               "attn_sdpa_tiled_f32_kernel", "attn_frame_bwd_f32_pass1",
-               "attn_frame_bwd_f32_pass2", "attn_temporal_bwd_f32_kernel",
-               "gate_bwd_kernelIfE", "ln_mod_bwd_kernelILi16EfE")
+               "attn_sdpa_tiled_f32_kernel", "attn_frame_bwd_f32_q",
+               "attn_frame_bwd_f32_k", "attn_temporal_bwd_f32_kernel",
+               "gate_bwd_kernelIfE", "ln_mod_bwd_kernelILi16EfE",
+               "gemm_f32_bwd_kernel")
 # the fp32 pairs, pair_q_kernel<hd, temporal, exact, float>: 2 x 2 x 2
 F32_PAIRS = re.compile(r"pair_q_kernelILi\d+ELb\dELb\dEfE")
 # the compiler's no-op GMMA: where ptxas injects a warpgroup.arrive before
@@ -1332,8 +1338,8 @@ def tensor_ops(func):
 
 def sass_check(lib_path):
     """`[sass]`: cuobjdump's SASS of the built library. The fp32 kernels
-    (F32_KERNELS) must hold no tensor-core instruction (HMMA, HGMMA: no
-    TF32 products), and FFMAs; the fp32 pairs (F32_PAIRS) the int8 tensor
+    (F32_KERNELS, each found by name) must hold no tensor-core instruction
+    (HMMA, HGMMA: no TF32 products), and FFMAs; the fp32 pairs (F32_PAIRS) the int8 tensor
     cores' IGMMA and no HMMA / HGMMA but the compiler's no-op GMMA, which
     the int8 GEMM holds as well; the bf16 GEMM's HGMMA is the control."""
     import shutil
@@ -1344,6 +1350,9 @@ def sass_check(lib_path):
     funcs = sass.split("Function : ")[1:]
     head = [f.split("\n", 1)[0] for f in funcs]
     f32 = [f for f, h in zip(funcs, head) if any(k in h for k in F32_KERNELS)]
+    missing = [k for k in F32_KERNELS if not any(k in h for h in head)]
+    by_name = {k: sum(f.count("FFMA") for f, h in zip(funcs, head) if k in h)
+               for k in F32_KERNELS}
     pairs = [f for f, h in zip(funcs, head) if F32_PAIRS.search(h)]
     s8 = [f for f, h in zip(funcs, head) if "gemm_s8_kernel" in h]
     tensor = [f.split("\n", 1)[0] for f in f32 + pairs if tensor_ops(f)]
@@ -1352,15 +1361,17 @@ def sass_check(lib_path):
     noop = {"fp32_pairs": [len(NOOP_GMMA.findall(f)) for f in pairs],
             "gemm_s8": [len(NOOP_GMMA.findall(f)) for f in s8]}
     control = sum(len(tensor_ops(f)) for f in funcs)
+    log(f"[sass] FFMA by fp32 kernel: {json.dumps(by_name)}")
     log(f"[sass] {len(f32)} fp32 kernels and {len(pairs)} fp32 pairs: {ffma} "
         f"FFMA, IGMMA in each pair {igmma}, computing tensor-core "
         f"instructions (HMMA, HGMMA) in {len(tensor)} of them; the "
         f"compiler's no-op GMMA {json.dumps(noop)}; the library's computing "
         f"HMMA / HGMMA (the bf16 kernels, the control): {control}")
-    if (len(f32) < len(F32_KERNELS) or len(pairs) != 8 or tensor or not ffma
+    if (missing or len(pairs) != 8 or tensor or not all(by_name.values())
             or not all(igmma) or not control):
-        fail(f"fp32 kernels' SASS: {len(f32)} found, {len(pairs)} pairs, "
-             f"computing tensor-core instructions in {tensor}")
+        fail(f"fp32 kernels' SASS: {len(f32)} found ({missing} missing), "
+             f"{len(pairs)} pairs, computing tensor-core instructions in "
+             f"{tensor}, FFMA by name {by_name}")
     return {"fp32_kernels": len(f32), "fp32_pairs": len(pairs), "ffma": ffma,
             "pair_igmma": igmma, "noop_gmma": noop,
             "tensor_core_in": tensor, "hgmma_in_library": control}
@@ -1824,6 +1835,9 @@ def train_kernel_phase(rows, dt=torch.bfloat16):
                 with torch.no_grad():
                     rec["launch_split"] = launch_split(
                         kern, f"{name} [{label}]", bwd_flops[name])
+                if name == "fused_spatial_branch_bwd":
+                    rec["attn_frame_bwd_f32"] = attn_f32_split(
+                        rec["launch_split"], M)
             else:
                 rows[name].setdefault("fp32", {})["emit_train"] = rec
         elif name in BWD_REPLACES:
@@ -1979,6 +1993,23 @@ def launch_split(fn, label, gemm_flops):
     from gtax_torch.tools.split import launch_split as split
 
     return split(fn, label, gemm_flops, log=log)
+
+
+def attn_f32_split(split, M):
+    """attn_frame_bwd_f32's launch in the fp32 #12 `split`: its ms beside
+    its bound (the six S x S x d products a (frame, head) that the
+    function needs, as #12's bound counts them: scores, O = P V, dP, dQ,
+    dK and dV, over 67 TFLOP/s of fp32 FFMA, or q, k, v, dO read and O,
+    dq/dk/dv written over 3.35 TB/s) and its useful TFLOP/s, printed (the
+    kernel's second pass recomputes the scores and dP: not counted)."""
+    fl = 12 * (M // S_DIT) * H * S_DIT**2 * HD
+    bms, by_what = bound_ms(M * D * 4 * 8, fl, flops_per_s=F32_FLOPS_PER_S)
+    ms = next(e["ms"] for e in split
+              if e.get("kernel") == "gtax_attn_frame_bwd_f32")
+    log(f"[split]   attn_frame_bwd_f32 {ms:.4f} ms, bound {bms:.4f} ms "
+        f"({by_what}; {fl / 1e9:.1f} GFLOP at {fl / ms / 1e9:.1f} TFLOP/s)")
+    return {"ms": ms, "bound_ms": bms, "gflop": fl / 1e9,
+            "tflops": fl / ms / 1e9}
 
 
 def temporal_attention_bound(split, M, emitted=0):
@@ -3938,6 +3969,9 @@ def resume_checks(raw, rows):
 # [dp serve] and [tp serve] run over NCCL on two cards.
 MULTI_DIR = "_smoke_multi"  # in the checkout; removed when the phases end
 DP_GLOBAL_B = 16  # [dp train]'s global batch: B=8 a rank on two ranks
+DP_DEPTH = 4  # [nccl] / [dp train]'s depth cut: with one card the 16
+#               blocks' 2.43 GB of gradients went through the host over
+#               gloo, most of the phase's 236 s
 DP_TOL = GRAD_TOL  # [dp train] step 1 against the one-process step: the
 #                    loss, the grad norm, each gradient leaf and each
 #                    master's update over the elements ZERO_GRAD keeps,
@@ -3971,17 +4005,18 @@ def multi_config(**overrides):
 
 def multi_trainer(raw):
     """A Trainer of `raw` from [train]'s DiT init (seeded, nonzero adaLN
-    heads) and its seeded random VAE."""
+    heads) cut to DP_DEPTH blocks, and its seeded random VAE."""
     from gtax_torch.models import dit as dit_mod
     from gtax_torch.train.config import TrainingConfig
     from gtax_torch.train.trainer import Trainer
 
     cfg = TrainingConfig.from_dict(raw)
-    dcfg = dit_mod.DiT_MODELS[cfg.dit_model]()
+    dcfg = dataclasses.replace(dit_mod.DiT_MODELS[cfg.dit_model](),
+                               depth=DP_DEPTH)
     params = dit_mod.dit_init(dcfg, torch.Generator(device="cuda")
                               .manual_seed(cfg.seed), "cuda")
     nonzero_adaln(params, 4)
-    return Trainer(cfg, total_dataset_size=DP_GLOBAL_B * 3,
+    return Trainer(cfg, total_dataset_size=DP_GLOBAL_B * 3, dit_cfg=dcfg,
                    dit_params=params)
 
 
@@ -4057,7 +4092,7 @@ def rank_nccl(rank, world, backend):
     """The one-process B=16 step over NCCL at world size 1: [dp train]'s
     reference (its step-1 loss, grad norm, gradients and masters, saved
     for the ranks; the digest of the masters before it) and the
-    all-reduce of the flagship gradients."""
+    all-reduce of its gradients."""
     from gtax_torch.train.optim import leaves
 
     tr = multi_trainer(multi_config())
@@ -4549,7 +4584,7 @@ def multi_card_checks(rows):
 
     t = time.perf_counter()
     ranks = launch("dp_train", 2, backend, 900)
-    L = 16
+    L = DP_DEPTH
     want = {"fused_spatial_branch": L, "fused_mlp_branch": 2 * L,
             "fused_temporal_branch": L, "fused_spatial_branch_bwd": L,
             "fused_temporal_branch_bwd": L, "fused_mlp_branch_bwd": 2 * L}

@@ -568,104 +568,142 @@ int launch_temporal_t(const bf16* q, const bf16* k, const bf16* v,
 // mantissa bits). The bf16 frame design keeps Q, K, V, dO and the S x S P
 // and dS of a (head, frame) in one block's shared memory; in fp32 that is
 // about 313 KB at S = 144, past the 227 KB a block may have. So
-// attn_frame_bwd_f32 runs two passes over 64-row tiles:
+// attn_frame_bwd_f32 runs two passes over 48-row tiles (the DiT's 144
+// tokens are three, nothing padded):
 //   pass 1, a block a (query tile, head, frame): the tile's scores against
-//     every key (P^T, 64 x SP in shared memory, SP = S rounded up to 64),
-//     each row's max m and sum l (4 threads a row, a fixed order), P =
+//     every key (P, 48 x SP in shared memory, SP = S rounded up to 48),
+//     each row's max m and sum l (two threads a row, a fixed order), P =
 //     exp(s - m) / l; then per key tile O += P V and dP = dO V^T; rowsum
 //     D = sum(dP * P); dS = (P * (dP - D)) * d^-1/2 in place; dQ = dS K
-//     through the rope adjoint. It stores O, dQ and (m, l, D) a row;
+//     through the rope adjoint. It stores O, dQ and (m, l, D) a row. The
+//     key tiles (K, V, K again) stream through two buffers by cp.async,
+//     the next tile's copies in flight during this one's products;
 //   pass 2, a block a (key tile, head, frame): per query tile, the scores
 //     and dP again (transposed: K Q^T and V dO^T), P and dS from the
 //     stored (m, l, D), then dK += dS^T Q and dV += P^T dO, dK through the
 //     rope adjoint.
 // A score and a dP are the same fp32 FFMA chains over the head's dims in
 // both passes, and the scale, P and dS are formed by the same rounded
-// operations, so pass 2's P and dS are pass 1's bit for bit. Thread (ty,
-// tx) = (tid / 16, tid % 16) holds rows 4 ty .. 4 ty + 3 of a 64-row tile;
-// every operand is staged k-major, so both of a product's reads are
-// float4 along the thread's rows and columns. Frames up to 256 tokens at
-// head dim 64 (320 at 32) fit pass 1's shared memory.
+// operations, so pass 2's P and dS are pass 1's bit for bit. Bound:
+// operations (six S x S x d products a (head, frame): scores, O, dP, dQ,
+// dK, dV; the kernel does eight, pass 2 recomputing the scores and dP).
+// Every operand is staged as its rows lie (padded by
+// four floats), so no copy transposes: a product C = A B^T (scores, dP)
+// reads both operands' rows as float4 along the head's dims, a product
+// C = A B (O, dQ, dK, dV) A's rows as float4 along the key or query and
+// B's rows as float4 along the dims. 96 threads a block, (ty, tx) = (tid /
+// 16, tid % 16); a thread holds rows ty + 6 r (r < 8) and, of a 48-wide
+// product, columns tx + 16 c (c < 3), of a head-dim-wide one tx * hd/16 ..
+// (8 x 4 at hd 64): its rows are one broadcast, and a quarter-warp's
+// eight B rows, 4 mod 32 floats apart, cover the banks once. Pass 1 takes
+// 106.5 KB at S = 144 (two blocks an SM), pass 2 71.1 KB (three). Frames
+// up to 432 tokens at head dim 64 (528 at 32) fit pass 1.
 // attn_temporal_bwd_f32 is attn_temporal_bwd with a lane of four fp32
 // dims (16 bytes, as attn_window_lane_f32): the same passes and order of
 // sums, nothing rounded.
 
-constexpr int kF32BwdTile = 64;      // rows of a tile
-constexpr int kF32BwdThreads = 256;
-constexpr int kF32BwdLd = kF32BwdTile + 4;  // a k-major tile's row stride
+constexpr int kFBTile = 48;     // rows of a query or key tile
+constexpr int kFBThreads = 96;  // (ty, tx): 6 x 16
+constexpr int kFBLdS = kFBTile + 4;  // pass 2's P^T / dS^T row stride
 
-// pass 1: Q^T, dO^T, a key tile's K^T / V^T and its rows, and P^T and
-// dP^T / dS^T over every key
+// a staged row's stride (head dims + 4: rows 4 mod 32 floats apart)
 template <int HD>
-constexpr size_t frame_bwd_f32_smem1(int S) {
-  const size_t sp = (size_t)(S + kF32BwdTile - 1) / kF32BwdTile * kF32BwdTile;
-  return (3 * HD * kF32BwdLd + kF32BwdTile * HD + 2 * sp * kF32BwdLd) *
-         sizeof(float);
+__host__ __device__ constexpr int fb_ld() {
+  return HD + 4;
 }
-// pass 2: the key tile's K^T and V^T, a query tile's Q^T, dO^T and rows,
-// its P and dS (query-major) and (m, l, D)
-template <int HD>
-constexpr size_t frame_bwd_f32_smem2() {
-  return (4 * HD * kF32BwdLd + 2 * kF32BwdTile * HD +
-          2 * kF32BwdTile * kF32BwdLd + 3 * kF32BwdTile) *
-         sizeof(float);
+__host__ __device__ constexpr int fb_keys(int S) {  // S rounded up to 48
+  return (S + kFBTile - 1) / kFBTile * kFBTile;
 }
 
-// rows p0 .. p0 + 63 of head column hc of src ((rows, D) fp32, frame
-// rows from row0) into dst k-major (dst[d * kF32BwdLd + r]); rows past S
-// zero
+// pass 1: Q, dO and two key tiles (48 rows each), P and dP / dS (48 x SP)
 template <int HD>
-__device__ __forceinline__ void stage_kmajor(float* dst, const float* src,
-                                             size_t row0, int D, size_t hc,
-                                             int p0, int S) {
-  for (int i = threadIdx.x; i < kF32BwdTile * HD / 4; i += kF32BwdThreads) {
+__host__ __device__ constexpr size_t frame_bwd_f32_smem1(int S) {
+  return (4 * kFBTile * fb_ld<HD>() + 2 * kFBTile * (fb_keys(S) + 4)) *
+         sizeof(float);
+}
+// pass 2: the key tile's K and V, a query tile's Q and dO, its P^T and
+// dS^T (key-major) and (m, l, D)
+template <int HD>
+__host__ __device__ constexpr size_t frame_bwd_f32_smem2() {
+  return (4 * kFBTile * fb_ld<HD>() + 2 * kFBTile * kFBLdS + 3 * kFBTile) *
+         sizeof(float);
+}
+
+// rows p0 .. p0 + 47 of head column hc of src ((rows, D) fp32, frame rows
+// from row0) into dst (dst[r * fb_ld + d]) by 16-byte cp.async; rows past
+// S zero
+template <int HD>
+__device__ __forceinline__ void fb_stage(float* dst, const float* src,
+                                         size_t row0, int D, size_t hc,
+                                         int p0, int S) {
+  for (int i = threadIdx.x; i < kFBTile * HD / 4; i += kFBThreads) {
     const int r = i / (HD / 4), d = i % (HD / 4) * 4, p = p0 + r;
-    const float4 x = p < S ? *reinterpret_cast<const float4*>(
-                                 src + (row0 + p) * D + hc + d)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-    dst[d * kF32BwdLd + r] = x.x;
-    dst[(d + 1) * kF32BwdLd + r] = x.y;
-    dst[(d + 2) * kF32BwdLd + r] = x.z;
-    dst[(d + 3) * kF32BwdLd + r] = x.w;
+    cp_async16(dst + r * fb_ld<HD>() + d,
+               src + (row0 + min(p, S - 1)) * D + hc + d, p < S ? 16 : 0);
   }
 }
 
-// the same rows row-major (dst[r * HD + d])
-template <int HD>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           size_t row0, int D, size_t hc,
-                                           int p0, int S) {
-  for (int i = threadIdx.x; i < kF32BwdTile * HD / 4; i += kF32BwdThreads) {
-    const int r = i / (HD / 4), d = i % (HD / 4) * 4, p = p0 + r;
-    *reinterpret_cast<float4*>(dst + r * HD + d) =
-        p < S ? *reinterpret_cast<const float4*>(src + (row0 + p) * D + hc + d)
-              : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// acc[r][c] += sum over k < n, in order, of a[k * lda + 4 ty + r] *
-// b[k * ldb + CW tx + c] (fp32 FFMA)
-template <int CW>
-__device__ __forceinline__ void tile_fma(float (&acc)[4][CW], const float* a,
-                                         int lda, const float* b, int ldb,
-                                         int n) {
+// C = A B^T: acc[r][c] += sum over k < n, in order, of A[(ty + 6 r) lda +
+// k] * B[(tx + 16 c) ldb + k] (n a multiple of 4)
+template <int RC>
+__device__ __forceinline__ void fb_nt(float (&acc)[8][RC], const float* A,
+                                      int lda, const float* B, int ldb,
+                                      int n) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 4
-  for (int k = 0; k < n; ++k) {
-    const float4 av = *reinterpret_cast<const float4*>(a + k * lda + ty * 4);
-    const float ar[4] = {av.x, av.y, av.z, av.w};
-    float bv[CW];
+#pragma unroll 2
+  for (int k = 0; k < n; k += 4) {
+    float a[8][4];
 #pragma unroll
-    for (int c = 0; c < CW; c += 2) {
-      const float2 t =
-          *reinterpret_cast<const float2*>(b + k * ldb + tx * CW + c);
-      bv[c] = t.x;
-      bv[c + 1] = t.y;
+    for (int r = 0; r < 8; ++r) {
+      const float4 t =
+          *reinterpret_cast<const float4*>(A + (ty + 6 * r) * lda + k);
+      a[r][0] = t.x, a[r][1] = t.y, a[r][2] = t.z, a[r][3] = t.w;
     }
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int c = 0; c < RC; ++c) {
+      const float4 t =
+          *reinterpret_cast<const float4*>(B + (tx + 16 * c) * ldb + k);
+      const float b[4] = {t.x, t.y, t.z, t.w};
 #pragma unroll
-      for (int c = 0; c < CW; ++c) acc[r][c] = fmaf(ar[r], bv[c], acc[r][c]);
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 8; ++r) acc[r][c] = fmaf(a[r][kk], b[kk], acc[r][c]);
+    }
+  }
+}
+
+// C = A B: acc[r][c] += sum over k < n, in order, of A[(ty + 6 r) lda +
+// k] * B[k ldb + tx RC + c] (RC 2 or 4, n a multiple of 4)
+template <int RC>
+__device__ __forceinline__ void fb_nn(float (&acc)[8][RC], const float* A,
+                                      int lda, const float* B, int ldb,
+                                      int n) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll 2
+  for (int k = 0; k < n; k += 4) {
+    float a[8][4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float4 t =
+          *reinterpret_cast<const float4*>(A + (ty + 6 * r) * lda + k);
+      a[r][0] = t.x, a[r][1] = t.y, a[r][2] = t.z, a[r][3] = t.w;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float b[RC];
+      const float* row = B + (k + kk) * ldb + tx * RC;
+      if constexpr (RC == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(row);
+        b[0] = t.x, b[1] = t.y, b[2] = t.z, b[3] = t.w;
+      } else {
+        const float2 t = *reinterpret_cast<const float2*>(row);
+        b[0] = t.x, b[1] = t.y;
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < RC; ++c) acc[r][c] = fmaf(a[r][kk], b[c], acc[r][c]);
+    }
   }
 }
 
@@ -676,25 +714,23 @@ __device__ __forceinline__ float attn_scale() {
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kF32BwdThreads, 1)
-    attn_frame_bwd_f32_pass1(const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
-                             const float* __restrict__ dout,
-                             const float* __restrict__ cosb,
-                             const float* __restrict__ sinb,
-                             float* __restrict__ dqkv, float* __restrict__ ao,
-                             float* __restrict__ stats, int S, int D,
-                             int rot) {
+__global__ void __launch_bounds__(kFBThreads, 2)
+    attn_frame_bwd_f32_q(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ cosb,
+                         const float* __restrict__ sinb,
+                         float* __restrict__ dqkv, float* __restrict__ ao,
+                         float* __restrict__ stats, int S, int D, int rot) {
   extern __shared__ __align__(16) float fsm[];
-  constexpr int LD = kF32BwdLd, CW = HD / 16, TILE = kF32BwdTile;
-  const int SP = (S + TILE - 1) / TILE * TILE;
-  float* QT = fsm;                 // [HD][LD] Q^T
-  float* OT = QT + HD * LD;        // [HD][LD] dO^T
-  float* XT = OT + HD * LD;        // [HD][LD] K^T or V^T of a key tile
-  float* XR = XT + HD * LD;        // [TILE][HD] V or K rows of a key tile
-  float* PT = XR + TILE * HD;      // [SP][LD] P^T
-  float* GT = PT + (size_t)SP * LD;  // [SP][LD] dP^T, then dS^T
+  constexpr int LD = fb_ld<HD>(), RC = HD / 16, TILE = kFBTile;
+  const int SP = fb_keys(S), LP = SP + 4, NT = SP / TILE;
+  float* QS = fsm;                // [TILE][LD] Q rows
+  float* OS = QS + TILE * LD;     // [TILE][LD] dO rows
+  float* XS = OS + TILE * LD;     // [2][TILE][LD] K or V rows of a key tile
+  float* PS = XS + 2 * TILE * LD;       // [TILE][LP] P
+  float* GS = PS + (size_t)TILE * LP;   // [TILE][LP] dP, then dS
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int H = gridDim.y, h = blockIdx.y, n = blockIdx.z;
   const int q0 = blockIdx.x * TILE;
@@ -702,90 +738,95 @@ __global__ void __launch_bounds__(kF32BwdThreads, 1)
   const size_t D3 = 3 * (size_t)D;
   const float scale = attn_scale<HD>();
 
-  stage_kmajor<HD>(QT, q, row0, D, hc, q0, S);
-  stage_kmajor<HD>(OT, dout, row0, D, hc, q0, S);
-  // the scores, scaled, into P^T (keys past S: -inf)
-  for (int j0 = 0; j0 < SP; j0 += TILE) {
-    __syncthreads();
-    stage_kmajor<HD>(XT, k, row0, D, hc, j0, S);
-    __syncthreads();
-    float sc[4][4] = {};
-    tile_fma<4>(sc, QT, LD, XT, LD, HD);
+  // the key tiles in the order the products take them: K (scores), V (O
+  // and dP), K (dQ); tile t into buffer t % 2
+  auto fetch = [&](int t) {
+    const float* src = t / NT == 1 ? v : k;
+    fb_stage<HD>(XS + (t & 1) * TILE * LD, src, row0, D, hc,
+                 (t % NT) * TILE, S);
+    cp_async_commit();
+  };
+  fb_stage<HD>(QS, q, row0, D, hc, q0, S);
+  fb_stage<HD>(OS, dout, row0, D, hc, q0, S);
+  fetch(0);
+  float o[8][RC] = {}, dq[8][RC] = {};
+  float m = -INFINITY, l = 0.f, dsum = 0.f;
+  const int row = tid >> 1, part = tid & 1;  // the row phases: two a row
+  for (int t = 0; t < 3 * NT; ++t) {
+    if (t + 1 < 3 * NT)
+      fetch(t + 1);
+    else
+      cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile t (and Q, dO) landed
+    const float* X = XS + (t & 1) * TILE * LD;
+    const int j0 = (t % NT) * TILE;
+    if (t < NT) {  // the scores, scaled, into P (keys past S: -inf)
+      float sc[8][3] = {};
+      fb_nt<3>(sc, QS, LD, X, LD, HD);
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int key = j0 + tx * 4 + c;
-        PT[key * LD + ty * 4 + r] =
-            key < S ? __fmul_rn(sc[r][c], scale) : -INFINITY;
+        for (int c = 0; c < 3; ++c) {
+          const int key = j0 + tx + 16 * c;
+          PS[(ty + 6 * r) * LP + key] =
+              key < S ? __fmul_rn(sc[r][c], scale) : -INFINITY;
+        }
+    } else if (t < 2 * NT) {  // O += P V, dP = dO V^T
+      fb_nn<RC>(o, PS + j0, LP, X, LD, TILE);
+      float dp[8][3] = {};
+      fb_nt<3>(dp, OS, LD, X, LD, HD);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          GS[(ty + 6 * r) * LP + j0 + tx + 16 * c] = dp[r][c];
+    } else {  // dQ += dS K
+      fb_nn<RC>(dq, GS + j0, LP, X, LD, TILE);
+    }
+    if (t == NT - 1) {
+      // each row's max and sum over keys part, part + 2, ..., then P =
+      // exp(s - m) / l (keys past S: 0; exp(s - m) kept between the two)
+      __syncthreads();
+      float* pr = PS + row * LP;
+      for (int key = part; key < S; key += 2) m = fmaxf(m, pr[key]);
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      for (int key = part; key < S; key += 2) {
+        pr[key] = expf(pr[key] - m);
+        l += pr[key];
       }
-  }
-  __syncthreads();
-  // each row's max and sum, four threads a row over keys part, part + 4,
-  // ..., then P = exp(s - m) / l
-  const int row = tid >> 2, part = tid & 3;
-  float m = -INFINITY;
-  for (int key = part; key < S; key += 4) m = fmaxf(m, PT[key * LD + row]);
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-  float l = 0.f;
-  for (int key = part; key < S; key += 4) l += expf(PT[key * LD + row] - m);
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
-  for (int key = part; key < SP; key += 4)
-    PT[key * LD + row] = key < S ? expf(PT[key * LD + row] - m) / l : 0.f;
-  __syncthreads();
-
-  // O = P V and dP = dO V^T, a key tile at a time
-  float o[4][CW] = {};
-  for (int j0 = 0; j0 < SP; j0 += TILE) {
-    if (j0) __syncthreads();
-    stage_kmajor<HD>(XT, v, row0, D, hc, j0, S);
-    stage_rows<HD>(XR, v, row0, D, hc, j0, S);
-    __syncthreads();
-    tile_fma<CW>(o, PT + j0 * LD, LD, XR, HD, TILE);
-    float dp[4][4] = {};
-    tile_fma<4>(dp, OT, LD, XT, LD, HD);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        GT[(j0 + tx * 4 + c) * LD + ty * 4 + r] = dp[r][c];
-  }
-  __syncthreads();
-  // D = rowsum(dP * P), then dS in place (keys past S: 0)
-  float dsum = 0.f;
-  for (int key = part; key < S; key += 4)
-    dsum = fmaf(GT[key * LD + row], PT[key * LD + row], dsum);
-  dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
-  dsum += __shfl_xor_sync(0xffffffffu, dsum, 2);
-  for (int key = part; key < SP; key += 4)
-    GT[key * LD + row] =
-        key < S ? __fmul_rn(__fmul_rn(PT[key * LD + row],
-                                      __fsub_rn(GT[key * LD + row], dsum)),
-                            scale)
-                : 0.f;
-  if (part == 0 && q0 + row < S) {
-    float* st = stats + (((size_t)n * H + h) * S + q0 + row) * 3;
-    st[0] = m;
-    st[1] = l;
-    st[2] = dsum;
-  }
-  // dQ = dS K
-  float dq[4][CW] = {};
-  for (int j0 = 0; j0 < SP; j0 += TILE) {
-    __syncthreads();
-    stage_rows<HD>(XR, k, row0, D, hc, j0, S);
-    __syncthreads();
-    tile_fma<CW>(dq, GT + j0 * LD, LD, XR, HD, TILE);
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      for (int key = part; key < SP; key += 2)
+        pr[key] = key < S ? pr[key] / l : 0.f;
+    } else if (t == 2 * NT - 1) {
+      // D = rowsum(dP * P), then dS in place (keys past S: 0)
+      __syncthreads();
+      const float* pr = PS + row * LP;
+      float* gr = GS + row * LP;
+      for (int key = part; key < S; key += 2)
+        dsum = fmaf(gr[key], pr[key], dsum);
+      dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+      for (int key = part; key < SP; key += 2)
+        gr[key] = key < S ? __fmul_rn(__fmul_rn(pr[key],
+                                                __fsub_rn(gr[key], dsum)),
+                                      scale)
+                          : 0.f;
+      if (part == 0 && q0 + row < S) {
+        float* st = stats + (((size_t)n * H + h) * S + q0 + row) * 3;
+        st[0] = m;
+        st[1] = l;
+        st[2] = dsum;
+      }
+    }
+    __syncthreads();  // every thread is done with buffer t % 2
   }
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qr = q0 + ty * 4 + r;
+  for (int r = 0; r < 8; ++r) {
+    const int qr = q0 + ty + 6 * r;
     if (qr >= S) continue;
 #pragma unroll
-    for (int c = 0; c < CW; c += 2) {
-      const int dim = tx * CW + c;
+    for (int c = 0; c < RC; c += 2) {
+      const int dim = tx * RC + c;
       *reinterpret_cast<float2*>(ao + (row0 + qr) * D + hc + dim) =
           make_float2(o[r][c], o[r][c + 1]);
       float2 u = make_float2(dq[r][c], dq[r][c + 1]);
@@ -796,27 +837,26 @@ __global__ void __launch_bounds__(kF32BwdThreads, 1)
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kF32BwdThreads, 1)
-    attn_frame_bwd_f32_pass2(const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
-                             const float* __restrict__ dout,
-                             const float* __restrict__ cosb,
-                             const float* __restrict__ sinb,
-                             float* __restrict__ dqkv,
-                             const float* __restrict__ stats, int S, int D,
-                             int rot) {
+__global__ void __launch_bounds__(kFBThreads, 3)
+    attn_frame_bwd_f32_k(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ cosb,
+                         const float* __restrict__ sinb,
+                         float* __restrict__ dqkv,
+                         const float* __restrict__ stats, int S, int D,
+                         int rot) {
   extern __shared__ __align__(16) float fsm[];
-  constexpr int LD = kF32BwdLd, CW = HD / 16, TILE = kF32BwdTile;
-  float* KT = fsm;                   // [HD][LD] K^T of the key tile
-  float* VT = KT + HD * LD;          // [HD][LD] V^T
-  float* QT = VT + HD * LD;          // [HD][LD] Q^T of a query tile
-  float* OT = QT + HD * LD;          // [HD][LD] dO^T
-  float* QR = OT + HD * LD;          // [TILE][HD] Q rows
-  float* OR = QR + TILE * HD;        // [TILE][HD] dO rows
-  float* PS = OR + TILE * HD;        // [TILE][LD] P, query-major
-  float* GS = PS + TILE * LD;        // [TILE][LD] dS, query-major
-  float* ST = GS + TILE * LD;        // [3][TILE] m, l, D
+  constexpr int LD = fb_ld<HD>(), RC = HD / 16, TILE = kFBTile;
+  constexpr int LS = kFBLdS;
+  float* KS = fsm;               // [TILE][LD] K rows of the key tile
+  float* VS = KS + TILE * LD;    // [TILE][LD] V rows
+  float* QS = VS + TILE * LD;    // [TILE][LD] Q rows of a query tile
+  float* OS = QS + TILE * LD;    // [TILE][LD] dO rows
+  float* PT = OS + TILE * LD;    // [TILE][LS] P^T, key-major
+  float* GT = PT + TILE * LS;    // [TILE][LS] dS^T
+  float* ST = GT + TILE * LS;    // [3][TILE] m, l, D
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int H = gridDim.y, h = blockIdx.y, n = blockIdx.z;
   const int k0 = blockIdx.x * TILE;
@@ -825,52 +865,52 @@ __global__ void __launch_bounds__(kF32BwdThreads, 1)
   const float scale = attn_scale<HD>();
   const float* frame_stats = stats + ((size_t)n * H + h) * S * 3;
 
-  stage_kmajor<HD>(KT, k, row0, D, hc, k0, S);
-  stage_kmajor<HD>(VT, v, row0, D, hc, k0, S);
-  float dk[4][CW] = {}, dv[4][CW] = {};
+  fb_stage<HD>(KS, k, row0, D, hc, k0, S);
+  fb_stage<HD>(VS, v, row0, D, hc, k0, S);
+  float dk[8][RC] = {}, dv[8][RC] = {};
   for (int q0 = 0; q0 < S; q0 += TILE) {
-    __syncthreads();
-    stage_kmajor<HD>(QT, q, row0, D, hc, q0, S);
-    stage_kmajor<HD>(OT, dout, row0, D, hc, q0, S);
-    stage_rows<HD>(QR, q, row0, D, hc, q0, S);
-    stage_rows<HD>(OR, dout, row0, D, hc, q0, S);
-    for (int i = tid; i < TILE; i += kF32BwdThreads) {
+    if (q0) __syncthreads();  // every thread is done with the last tile
+    fb_stage<HD>(QS, q, row0, D, hc, q0, S);
+    fb_stage<HD>(OS, dout, row0, D, hc, q0, S);
+    cp_async_commit();
+    for (int i = tid; i < TILE; i += kFBThreads) {
       const bool ok = q0 + i < S;
       const float* st = frame_stats + (size_t)(q0 + i) * 3;
       ST[i] = ok ? st[0] : 0.f;
       ST[TILE + i] = ok ? st[1] : 1.f;
       ST[2 * TILE + i] = ok ? st[2] : 0.f;
     }
+    cp_async_wait<0>();
     __syncthreads();
-    // rows: keys 4 ty + r; columns: queries 4 tx + c
-    float sc[4][4] = {}, dp[4][4] = {};
-    tile_fma<4>(sc, KT, LD, QT, LD, HD);
-    tile_fma<4>(dp, VT, LD, OT, LD, HD);
+    // rows: keys ty + 6 r; columns: queries tx + 16 c
+    float sc[8][3] = {}, dp[8][3] = {};
+    fb_nt<3>(sc, KS, LD, QS, LD, HD);
+    fb_nt<3>(dp, VS, LD, OS, LD, HD);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int qi = tx * 4 + c;
+    for (int c = 0; c < 3; ++c) {
+      const int qi = tx + 16 * c;
       const bool ok = q0 + qi < S;
       const float m = ST[qi], l = ST[TILE + qi], dsum = ST[2 * TILE + qi];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < 8; ++r) {
         const float p = ok ? expf(__fmul_rn(sc[r][c], scale) - m) / l : 0.f;
-        PS[qi * LD + ty * 4 + r] = p;
-        GS[qi * LD + ty * 4 + r] =
+        PT[(ty + 6 * r) * LS + qi] = p;
+        GT[(ty + 6 * r) * LS + qi] =
             ok ? __fmul_rn(__fmul_rn(p, __fsub_rn(dp[r][c], dsum)), scale)
                : 0.f;
       }
     }
     __syncthreads();
-    tile_fma<CW>(dk, GS, LD, QR, HD, TILE);
-    tile_fma<CW>(dv, PS, LD, OR, HD, TILE);
+    fb_nn<RC>(dk, GT, LS, QS, LD, TILE);
+    fb_nn<RC>(dv, PT, LS, OS, LD, TILE);
   }
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = k0 + ty * 4 + r;
+  for (int r = 0; r < 8; ++r) {
+    const int j = k0 + ty + 6 * r;
     if (j >= S) continue;
 #pragma unroll
-    for (int c = 0; c < CW; c += 2) {
-      const int dim = tx * CW + c;
+    for (int c = 0; c < RC; c += 2) {
+      const int dim = tx * RC + c;
       float2 u = make_float2(dk[r][c], dk[r][c + 1]);
       if (dim < rot) u = rope_pair_t_tab(u, cosb, sinb, (size_t)j * rot + dim);
       float* o = dqkv + (row0 + j) * D3 + hc + dim;
@@ -889,14 +929,14 @@ int launch_frame_f32(const float* q, const float* k, const float* v,
   const size_t smem1 = frame_bwd_f32_smem1<HD>(S);
   constexpr size_t smem2 = frame_bwd_f32_smem2<HD>();
   static size_t opted1 = 48 * 1024, opted2 = 48 * 1024;
-  cudaError_t e = opt_in_smem(attn_frame_bwd_f32_pass1<HD>, smem1, opted1);
+  cudaError_t e = opt_in_smem(attn_frame_bwd_f32_q<HD>, smem1, opted1);
   if (e == cudaSuccess)
-    e = opt_in_smem(attn_frame_bwd_f32_pass2<HD>, smem2, opted2);
+    e = opt_in_smem(attn_frame_bwd_f32_k<HD>, smem2, opted2);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((S + kF32BwdTile - 1) / kF32BwdTile, D / HD, n_frames);
-  attn_frame_bwd_f32_pass1<HD><<<grid, kF32BwdThreads, smem1, st>>>(
+  const dim3 grid(fb_keys(S) / kFBTile, D / HD, n_frames);
+  attn_frame_bwd_f32_q<HD><<<grid, kFBThreads, smem1, st>>>(
       q, k, v, dout, cosb, sinb, dqkv, ao, stats, S, D, rot);
-  attn_frame_bwd_f32_pass2<HD><<<grid, kF32BwdThreads, smem2, st>>>(
+  attn_frame_bwd_f32_k<HD><<<grid, kFBThreads, smem2, st>>>(
       q, k, v, dout, cosb, sinb, dqkv, stats, S, D, rot);
   return (int)cudaGetLastError();
 }
@@ -1123,8 +1163,8 @@ GTAX_ENTRY gtax_attn_temporal_bwd(const void* q, const void* k, const void* v,
 // The fp32 form of gtax_attn_frame_bwd: q, k, v, dout, ao (n_frames * S,
 // D) fp32, dqkv (n_frames * S, 3D) fp32, cos/sin (S, rot) fp32; stats
 // (n_frames, num_heads, S, 3) fp32 scratch (each query row's softmax max,
-// sum and rowsum(dP * P), pass 1 to pass 2). S up to 256 at head dim 64,
-// 320 at 32 (cudaErrorInvalidValue past it).
+// sum and rowsum(dP * P), pass 1 to pass 2). S up to 432 at head dim 64,
+// 528 at 32 (cudaErrorInvalidValue past it).
 GTAX_ENTRY gtax_attn_frame_bwd_f32(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* cosb, const void* sinb,

@@ -21,17 +21,18 @@
 // with acc + bias also stored to C2: the residuals y and h1) and EPI_DGELU
 // (u = gelu'(h1) * acc to C, gelu(h1) to C2, with h1 = aux fp32, and each
 // 64-row slab's column sums of u to colsum, the partials of db1).
-// Operand forms (a template parameter each, never a runtime branch):
-// OP_NN, C = A @ B; OP_NT (trans_b), C = A @ W^T with W (N, K) row-major,
-// the backward's dY @ W^T read from W's rows; OP_TN, C = A^T @ B over the
-// token rows (gtax_gemm_f32_wgrad, the weight gradients): A (K, M) and B
-// (K, N) row-major, K cut into row chunks whose fp32 partials
-// gtax_reduce_rows adds in chunk order, as gemm_wgrad.cu does in bf16.
+// Operand forms: OP_NN, C = A @ B (the forwards; gemm_f32_kernel);
+// OP_NT (trans_b), C = A @ W^T with W (N, K) row-major, the backward's
+// dY @ W^T read from W's rows; OP_TN, C = A^T @ B over the token rows
+// (gtax_gemm_f32_wgrad, the weight gradients): A (K, M) and B (K, N)
+// row-major, K cut into row chunks whose fp32 partials gtax_reduce_rows
+// adds in chunk order, as gemm_wgrad.cu does in bf16. OP_NT and OP_TN run
+// gemm_f32_bwd_kernel.
 // Bound: operations, 67 TFLOP/s of fp32 FFMA on the H100 SXM, at every
 // main-path shape but the 144-row step's products, where the fp32
 // weights (8-32 MB a product) come close.
-// Design: 64x64 or 128x128 output tiles of 256 threads, each thread a
-// 4x4 or 8x8 register tile (rows ty*4 + 64 i .., columns tx*4 + 64 j ..),
+// OP_NN design: 64x64 or 128x128 output tiles of 256 threads, each thread
+// a 4x4 or 8x8 register tile (rows ty*4 + 64 i .., columns tx*4 + 64 j ..),
 // K walked in 16-deep steps through two shared-memory stages filled by
 // cp.async (the next step's copies in flight during this step's FFMAs).
 // A thread reads its A rows as float4 along K and its B columns as float4
@@ -42,13 +43,28 @@
 // (gtax_torch/kernels/block.py f32_chunk: the fewest chunks giving 8
 // blocks an SM): each (tile, chunk) block sums its chunk into an fp32
 // partial, and a second kernel adds the partials in chunk order and runs
-// the epilogue. Each sum is taken in one fixed order
-// (a chunk's products in K order, then the chunks in order; no atomics),
-// so two calls agree bit for bit. OP_NT stages W's rows into the same
-// k-major B tile by 4-byte cp.async copies (a warp's copies read two
-// 64-byte row segments); OP_TN stages A^T k-major, so its float4 reads run
-// along M. A given element's products are added in the same order in
-// every form, so the forms' bits agree on the same values.
+// the epilogue.
+// The backward's design (gemm_f32_bwd_kernel, the training step's 11,520
+// token rows): one kernel for both forms, C = A^T @ B over token rows
+// that lie k-major. A 128-row tile of 256 threads, each thread 8 rows
+// (ty*4 + 64 i ..) by 8 or 16 columns (tx*4 + 64 j ..); both operands
+// staged k-major by 16-byte cp.async copies into a ring (one barrier a
+// step), so a k's operands are float4 loads (a warp's A loads one
+// broadcast, its B loads contiguous) for 64 or 128 FFMAs; the tile's
+// shape by epilogue (BwdShape: 128 x 256 over 32-row steps, one block an
+// SM, or 128 x 128 over 16-row steps, two). OP_NT's operands lie k
+// contiguous (128 rows of 64 bytes a step): staged so, by cp.async or
+// through registers, that product ran at 32-34 TFLOP/s against the
+// token-row form's 42 (gtax_torch/tools/gemm_sweep.py, NVIDIA H100 80GB
+// HBM3, 700 W), so OP_NT first copies A and W transposed
+// (f32_transpose_kernel; 0.05-0.4 GB moved a product) and runs the
+// token-row form.
+// The gelu' epilogue's column sums come per 64-row slab, as the forward
+// tile's.
+// Each sum is taken in one fixed order (a chunk's products in K order,
+// then the chunks in order; no atomics), so two calls agree bit for bit,
+// and a given element's products are added in the same order in every
+// form, so the forms' bits agree on the same values.
 #include <initializer_list>
 
 #include "gemm_epi.cuh"
@@ -60,26 +76,35 @@ constexpr int BK = 16;      // K depth of a stage
 constexpr int kLdA = BK + 4;  // A rows padded: the two row groups of a
                               // warp's loads fall in different banks
 
-// The operand forms: A @ B, A @ W^T (W (N, K)), A^T @ B (A (K, M)).
-enum Op { OP_NN = 0, OP_NT = 1, OP_TN = 2 };
-
-// The B tile's row stride: OP_NT pads it so that a warp's transposing
-// copies spread over the banks (two to a bank)
-template <int BN, int OP>
-__host__ __device__ constexpr int ld_b() {
-  return OP == OP_NT ? BN + 4 : BN;
-}
-
-template <int BM, int BN, int OP = OP_NN>
+template <int BM, int BN>
 struct Stages {
   float a[2][BM][kLdA];
-  float b[2][BK][ld_b<BN, OP>()];
-};
-// OP_TN: the A tile k-major (row k of BM), as B's
-template <int BM, int BN>
-struct Stages<BM, BN, OP_TN> {
-  float a[2][BK][BM];
   float b[2][BK][BN];
+};
+
+// The backward's forms (gemm_f32_bwd_kernel), by epilogue: a 128-row
+// tile of TW columns, a cp.async ring of STAGES steps of KS token rows,
+// and the blocks an SM its launch bounds ask for. EPI_F32 (the weight
+// gradients, A @ W^T) on 128 x 256 tiles of 32-row steps, one block an
+// SM; EPI_DGELU on 128 x 128 tiles of 16-row steps, two blocks an SM
+// (its epilogue reads h1 and stores u and gelu(h1): on the wide tile it
+// ran 20% slower). Ring depths of 2-4 moved either by < 2% (PERF.md
+// section 6, NVIDIA H100 80GB HBM3, 700 W).
+constexpr int kBwdTile = 128;  // rows of a tile
+template <int EPI>
+struct BwdShape {
+  static constexpr int TW = 256, KS = 32, STAGES = 2, BLOCKS = 1;
+};
+template <>
+struct BwdShape<EPI_DGELU> {
+  static constexpr int TW = 128, KS = 16, STAGES = 3, BLOCKS = 2;
+};
+
+// One stage: KS token rows of the A and B tiles, k-major.
+template <int EPI>
+struct BwdStage {
+  float a[BwdShape<EPI>::KS][kBwdTile];
+  float b[BwdShape<EPI>::KS][BwdShape<EPI>::TW];
 };
 
 // What an fp32 epilogue reads and writes besides the accumulators.
@@ -100,6 +125,8 @@ struct F32Args {
   int n_q, q_off, hd;
   int M, N, K;
   int k_chunk;  // the K a block sums: K, or a chunk of a split product
+  int lda;      // gemm_f32_bwd_kernel: A's row stride (at least M, a
+                // multiple of 4)
 };
 
 __device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
@@ -109,15 +136,6 @@ __device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
 
 __device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// 4-byte global -> shared copy (OP_NT's transposing stage); src_bytes 0
-// zero-fills
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
 }
 
 // Columns gn .. gn + 3 of row gm (gn a multiple of 4, all inside N).
@@ -202,60 +220,31 @@ __device__ __forceinline__ void store4(const F32Args& e, int gm, int gn,
   }
 }
 
-// One BM x BN output tile a block, over K chunk blockIdx.z (its partial,
-// EPI_F32, at C + z M N); thread (ty, tx) = (tid / 16, tid % 16) holds rows
-// 64 i + 4 ty + r and columns 64 j + 4 tx + c. OP_TN's last chunk may be
-// short: its rows past K are zero-filled.
-template <int BM, int BN, int EPI, int OP = OP_NN>
+// One BM x BN output tile a block of A @ B, over K chunk blockIdx.z (its
+// partial, EPI_F32, at C + z M N); thread (ty, tx) = (tid / 16, tid % 16)
+// holds rows 64 i + 4 ty + r and columns 64 j + 4 tx + c.
+template <int BM, int BN, int EPI>
 __global__ void __launch_bounds__(kThreads)
     gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
                     F32Args e) {
   constexpr int TM = BM / 16, TN = BN / 16;
-  __shared__ __align__(16) Stages<BM, BN, OP> sm;
+  __shared__ __align__(16) Stages<BM, BN> sm;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int M = e.M, N = e.N, K = e.K;
   const int k_begin = blockIdx.z * e.k_chunk;
-  const int k_end = OP == OP_TN ? min(K, k_begin + e.k_chunk) : K;
   if constexpr (EPI == EPI_F32) e.C += (size_t)blockIdx.z * M * N;
 
   auto load = [&](int s, int k0) {  // stage s: A rows, B rows of step k0
-    if constexpr (OP == OP_TN) {  // A (K, M): rows k0 .., k-major
-      for (int c = tid; c < BK * BM / 4; c += kThreads) {
-        const int r = c / (BM / 4), mq = c % (BM / 4) * 4, gm = m0 + mq;
-        const bool ok = gm < M && k0 + r < k_end;
-        cp_async16(&sm.a[s][r][mq],
-                   A + (size_t)min(k0 + r, K - 1) * M + min(gm, M - 4),
-                   ok ? 16 : 0);
-      }
-    } else {
-      for (int c = tid; c < BM * BK / 4; c += kThreads) {
-        const int r = c / (BK / 4), kq = c % (BK / 4) * 4, gm = m0 + r;
-        cp_async16(&sm.a[s][r][kq],
-                   A + (size_t)min(gm, M - 1) * K + k0 + kq,
-                   gm < M ? 16 : 0);
-      }
+    for (int c = tid; c < BM * BK / 4; c += kThreads) {
+      const int r = c / (BK / 4), kq = c % (BK / 4) * 4, gm = m0 + r;
+      cp_async16(&sm.a[s][r][kq], A + (size_t)min(gm, M - 1) * K + k0 + kq,
+                 gm < M ? 16 : 0);
     }
-    if constexpr (OP == OP_NT) {  // W (N, K): element (k, n) = W[n][k]
-      for (int c = tid; c < BK * BN; c += kThreads) {
-        const int r = c % BK, n = c / BK, gn = n0 + n;
-        cp_async4(&sm.b[s][r][n], B + (size_t)min(gn, N - 1) * K + k0 + r,
-                  gn < N ? 4 : 0);
-      }
-    } else {
-      for (int c = tid; c < BK * BN / 4; c += kThreads) {
-        const int r = c / (BN / 4), nq = c % (BN / 4) * 4, gn = n0 + nq;
-        if constexpr (OP == OP_TN) {
-          const bool ok = gn < N && k0 + r < k_end;
-          cp_async16(&sm.b[s][r][nq],
-                     B + (size_t)min(k0 + r, K - 1) * N + min(gn, N - 4),
-                     ok ? 16 : 0);
-        } else {
-          cp_async16(&sm.b[s][r][nq],
-                     B + (size_t)(k0 + r) * N + min(gn, N - 4),
-                     gn < N ? 16 : 0);
-        }
-      }
+    for (int c = tid; c < BK * BN / 4; c += kThreads) {
+      const int r = c / (BN / 4), nq = c % (BN / 4) * 4, gn = n0 + nq;
+      cp_async16(&sm.b[s][r][nq], B + (size_t)(k0 + r) * N + min(gn, N - 4),
+                 gn < N ? 16 : 0);
     }
     cp_async_commit();
   };
@@ -266,8 +255,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  const int steps = OP == OP_TN ? (k_end - k_begin + BK - 1) / BK
-                                : e.k_chunk / BK;
+  const int steps = e.k_chunk / BK;
   load(0, k_begin);
   for (int kt = 0; kt < steps; ++kt) {
     if (kt + 1 < steps)
@@ -280,21 +268,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 4) {
       float a[TM][4];
-      if constexpr (OP == OP_TN) {  // four rows of a k at a time
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-#pragma unroll
-          for (int i = 0; i < TM; i += 4) {
-            float q[4];
-            ld4(&sm.a[s][kk + k][(i / 4) * 64 + ty * 4], q);
-            a[i][k] = q[0], a[i + 1][k] = q[1], a[i + 2][k] = q[2],
-            a[i + 3][k] = q[3];
-          }
-      } else {
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-          ld4(&sm.a[s][(i / 4) * 64 + ty * 4 + i % 4][kk], a[i]);
-      }
+      for (int i = 0; i < TM; ++i)
+        ld4(&sm.a[s][(i / 4) * 64 + ty * 4 + i % 4][kk], a[i]);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         float b[TN];
@@ -314,19 +290,110 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // every thread is done with stage s before its refill
   }
 
-  // EPI_DGELU: the thread's column sums of u over its rows of each 64-row
-  // slab, in row order (rows past M add nothing)
-  float cs[TM / 4][TN];
-#pragma unroll
-  for (int i = 0; i < TM / 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) cs[i][j] = 0.f;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int gm = m0 + (i / 4) * 64 + ty * 4 + i % 4;
     if (gm >= M) continue;
 #pragma unroll
     for (int j = 0; j < TN; j += 4) {
+      const int gn = n0 + (j / 4) * 64 + tx * 4;
+      if (gn >= N) continue;
+      float v[4] = {acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]};
+      store4<EPI>(e, gm, gn, v);
+    }
+  }
+}
+
+// The backward's products, C = A^T @ B over the token rows with A (K, M)
+// of row stride e.lda and B (K, N) row-major (OP_TN; OP_NT runs it on
+// transposed copies), a
+// 128 x TW tile (BwdShape) a block over K chunk blockIdx.z (its partial
+// at C + z M N; EPI_F32, or over the whole of K EPI_DGELU). Both tiles are
+// staged k-major as they lie, by a cp.async ring of STAGES; a chunk's
+// steps past K (the short last chunk) are zero-filled. Thread (ty, tx)
+// holds rows ty*4 + 64 i .. and columns tx*4 + 64 j .., reading each k's
+// operands as float4s.
+template <int EPI>
+__global__ void __launch_bounds__(kThreads, BwdShape<EPI>::BLOCKS)
+    gemm_f32_bwd_kernel(const float* __restrict__ A,
+                        const float* __restrict__ B, F32Args e) {
+  using Shape = BwdShape<EPI>;
+  using Stage = BwdStage<EPI>;
+  constexpr int T = kBwdTile, TW = Shape::TW, TJ = TW / 16, KS = Shape::KS;
+  constexpr int STAGES = Shape::STAGES;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  Stage* ring = reinterpret_cast<Stage*>(bwd_smem);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * T, n0 = blockIdx.x * TW;
+  const int M = e.M, N = e.N, K = e.K, lda = e.lda;
+  const int k_begin = blockIdx.z * e.k_chunk;
+  const int k_end = min(K, k_begin + e.k_chunk);
+  const int steps = (k_end - k_begin + KS - 1) / KS;
+  if constexpr (EPI == EPI_F32) e.C += (size_t)blockIdx.z * M * N;
+
+  auto load = [&](int s, int k0) {  // stage s: KS token rows of A and B
+    Stage& st = ring[s];
+    for (int c = tid; c < KS * T / 4; c += kThreads) {
+      const int r = c / (T / 4), q = c % (T / 4) * 4, k = k0 + r;
+      const int gm = m0 + q;
+      cp_async16(&st.a[r][q],
+                 A + (size_t)min(k, K - 1) * lda + min(gm, lda - 4),
+                 k < k_end && gm < lda ? 16 : 0);
+    }
+    for (int c = tid; c < KS * TW / 4; c += kThreads) {
+      const int r = c / (TW / 4), q = c % (TW / 4) * 4, k = k0 + r;
+      const int gn = n0 + q;
+      cp_async16(&st.b[r][q],
+                 B + (size_t)min(k, K - 1) * N + min(gn, N - 4),
+                 k < k_end && gn < N ? 16 : 0);
+    }
+  };
+
+  float acc[8][TJ];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TJ; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load(s, k_begin + s * KS);
+    cp_async_commit();  // empty groups keep the wait count uniform
+  }
+  for (int kt = 0; kt < steps; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step kt landed; every thread left step kt - 1
+    const int next = kt + STAGES - 1;
+    if (next < steps) load(next % STAGES, k_begin + next * KS);
+    cp_async_commit();
+    const Stage& st = ring[kt % STAGES];
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      float a[2][4], b[TJ / 4][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) ld4(&st.a[k][64 * h + ty * 4], a[h]);
+#pragma unroll
+      for (int h = 0; h < TJ / 4; ++h) ld4(&st.b[k][64 * h + tx * 4], b[h]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < TJ; ++j)
+          acc[i][j] = fmaf(a[i / 4][i % 4], b[j / 4][j % 4], acc[i][j]);
+    }
+  }
+
+  // EPI_DGELU: the thread's column sums of u over its rows of each
+  // 64-row slab (i < 4, i >= 4), in row order; rows past M add nothing
+  float cs[2][TJ];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < TJ; ++j) cs[h][j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m0 + (i / 4) * 64 + ty * 4 + i % 4;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TJ; j += 4) {
       const int gn = n0 + (j / 4) * 64 + tx * 4;
       if (gn >= N) continue;
       float v[4] = {acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]};
@@ -338,23 +405,53 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   if constexpr (EPI == EPI_DGELU) {
-    // a slab's column sum: the 16 row groups' sums added in ty order
-    // (the stage buffers are free: the K loop ended on a barrier)
-    float* red = &sm.a[0][0][0];  // [TM / 4][16][BN]
-#pragma unroll
-    for (int i = 0; i < TM / 4; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        red[(i * 16 + ty) * BN + (j / 4) * 64 + tx * 4 + j % 4] = cs[i][j];
+    // a slab's column sum: the 16 row groups' sums added in ty order,
+    // through the ring (its last copy groups are empty)
+    cp_async_wait<0>();
     __syncthreads();
-    for (int c = tid; c < (TM / 4) * BN; c += kThreads) {
-      const int slab = c / BN, col = c % BN, gn = n0 + col;
+    float* red = reinterpret_cast<float*>(bwd_smem);  // [2][16][TW]
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < TJ; ++j)
+        red[(h * 16 + ty) * TW + (j / 4) * 64 + tx * 4 + j % 4] = cs[h][j];
+    __syncthreads();
+    for (int c = tid; c < 2 * TW; c += kThreads) {
+      const int slab = c / TW, col = c % TW, gn = n0 + col;
       const int row = m0 / 64 + slab;
       if (gn >= N || row * 64 >= M) continue;
       float t = 0.f;
-      for (int y = 0; y < 16; ++y) t += red[(slab * 16 + y) * BN + col];
+      for (int y = 0; y < 16; ++y) t += red[(slab * 16 + y) * TW + col];
       e.colsum[(size_t)row * N + gn] = t;
     }
+  }
+}
+
+// out (C, ldo) = in (R, C)^T, fp32, C a multiple of 4 and ldo R rounded
+// up to 4 (out's columns past R zero), through 64 x 65 shared tiles:
+// 16-byte loads along C and stores along R (OP_NT's operand copies,
+// k-major for the ring)
+__global__ void __launch_bounds__(256)
+    f32_transpose_kernel(const float* __restrict__ in,
+                         float* __restrict__ out, int R, int C, int ldo) {
+  __shared__ float t[64][65];
+  const int c0 = blockIdx.x * 64, r0 = blockIdx.y * 64;
+  const int q = (threadIdx.x & 15) * 4, y = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = y + 16 * i;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < R && c0 + q < C)
+      v = *reinterpret_cast<const float4*>(in + (size_t)(r0 + r) * C + c0 + q);
+    t[r][q] = v.x, t[r][q + 1] = v.y, t[r][q + 2] = v.z, t[r][q + 3] = v.w;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = y + 16 * i;
+    if (c0 + c < C && r0 + q < ldo)
+      *reinterpret_cast<float4*>(out + (size_t)(c0 + c) * ldo + r0 + q) =
+          make_float4(t[q][c], t[q + 1][c], t[q + 2][c], t[q + 3][c]);
   }
 }
 
@@ -399,7 +496,7 @@ bool wide_tile(int M, int N) {
 
 // One call: the tile's kernel over the whole of K, or, with e.k_chunk <
 // K, the 64x64 tile's partials (EPI_F32 into part) and the reduction.
-template <int EPI, int OP = OP_NN>
+template <int EPI>
 int launch(const float* A, const float* B, const F32Args& e, float* part,
            cudaStream_t st) {
   const int splits = e.K / e.k_chunk;
@@ -407,34 +504,66 @@ int launch(const float* A, const float* B, const F32Args& e, float* part,
     F32Args p = e;
     p.C = part;
     const dim3 grid((e.N + 63) / 64, (e.M + 63) / 64, splits);
-    gemm_f32_kernel<64, 64, EPI_F32, OP><<<grid, kThreads, 0, st>>>(A, B, p);
+    gemm_f32_kernel<64, 64, EPI_F32><<<grid, kThreads, 0, st>>>(A, B, p);
     const long long groups = (long long)e.M * (e.N / 4);
     f32_reduce_kernel<EPI>
         <<<(unsigned)((groups + kThreads - 1) / kThreads), kThreads, 0, st>>>(
             part, splits, e);
   } else if (wide_tile(e.M, e.N)) {
     const dim3 grid((e.N + 127) / 128, (e.M + 127) / 128);
-    gemm_f32_kernel<128, 128, EPI, OP><<<grid, kThreads, 0, st>>>(A, B, e);
+    gemm_f32_kernel<128, 128, EPI><<<grid, kThreads, 0, st>>>(A, B, e);
   } else {
     const dim3 grid((e.N + 63) / 64, (e.M + 63) / 64);
-    gemm_f32_kernel<64, 64, EPI, OP><<<grid, kThreads, 0, st>>>(A, B, e);
+    gemm_f32_kernel<64, 64, EPI><<<grid, kThreads, 0, st>>>(A, B, e);
   }
   return (int)cudaGetLastError();
 }
 
-// EPI_DGELU: one pass over K (its column sums come from whole sums)
-template <>
-int launch<EPI_DGELU, OP_NT>(const float* A, const float* B,
-                             const F32Args& e, float*, cudaStream_t st) {
-  if (wide_tile(e.M, e.N)) {
-    const dim3 grid((e.N + 127) / 128, (e.M + 127) / 128);
-    gemm_f32_kernel<128, 128, EPI_DGELU, OP_NT>
-        <<<grid, kThreads, 0, st>>>(A, B, e);
-  } else {
-    const dim3 grid((e.N + 63) / 64, (e.M + 63) / 64);
-    gemm_f32_kernel<64, 64, EPI_DGELU, OP_NT>
-        <<<grid, kThreads, 0, st>>>(A, B, e);
-  }
+// gemm_f32_bwd_kernel over `splits` K chunks of e.k_chunk (the ring's
+// shared memory opted into at its first launch)
+template <int EPI>
+int launch_bwd(const float* A, const float* B, const F32Args& e, int splits,
+               cudaStream_t st) {
+  static size_t opted = 48 * 1024;
+  constexpr size_t smem = BwdShape<EPI>::STAGES * sizeof(BwdStage<EPI>);
+  const cudaError_t err = opt_in_smem(gemm_f32_bwd_kernel<EPI>, smem, opted);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int TW = BwdShape<EPI>::TW;
+  const dim3 grid((e.N + TW - 1) / TW, (e.M + kBwdTile - 1) / kBwdTile,
+                  splits);
+  gemm_f32_bwd_kernel<EPI><<<grid, kThreads, smem, st>>>(A, B, e);
+  return (int)cudaGetLastError();
+}
+
+// out (C, ldo) = in (R, C)^T; returns ldo, R rounded up to 4
+int transpose(const float* in, float* out, int R, int C, cudaStream_t st) {
+  const int ldo = (R + 3) & ~3;
+  const dim3 grid((C + 63) / 64, (R + 63) / 64);
+  f32_transpose_kernel<<<grid, 256, 0, st>>>(in, out, R, C, ldo);
+  return ldo;
+}
+
+// A @ W^T = (A^T)^T @ W^T: A (M, K) and W (N, K) copied transposed into
+// ws ((K, M4), M4 = M rounded up to 4, then (K, N)), then the token-row
+// product over the whole of K, or (EPI_F32, e.k_chunk < K) the chunks'
+// partials (after the copies in ws) and their sum in chunk order
+template <int EPI>
+int launch_nt(const float* A, const float* W, F32Args e, float* ws,
+              cudaStream_t st) {
+  float* at = ws;
+  e.lda = transpose(A, at, e.M, e.K, st);
+  float* wt = at + (size_t)e.K * e.lda;
+  transpose(W, wt, e.N, e.K, st);
+  const int splits = e.K / e.k_chunk;
+  if (splits == 1) return launch_bwd<EPI>(at, wt, e, 1, st);
+  F32Args p = e;
+  p.C = wt + (size_t)e.K * e.N;
+  const int err = launch_bwd<EPI_F32>(at, wt, p, splits, st);
+  if (err) return err;
+  const long long groups = (long long)e.M * (e.N / 4);
+  f32_reduce_kernel<EPI>
+      <<<(unsigned)((groups + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+          p.C, splits, e);
   return (int)cudaGetLastError();
 }
 
@@ -458,6 +587,9 @@ bool aligned16(std::initializer_list<const void*> ptrs) {
 // (ceil(M / 64), N) the column sums of u over each 64-row slab, K one pass.
 // k_chunk: K, or a K chunk (a multiple of 16 dividing K) whose partials go
 // to part, (K / k_chunk, M, N) fp32, before the epilogue adds them in order.
+// trans_b: part a workspace of K M4 + K N floats (A^T, its rows padded to
+// M4 = M rounded up to 4, and W^T), then the partials' (K / k_chunk) M N
+// where K is split.
 GTAX_ENTRY gtax_gemm_f32(const void* A, const void* B, void* C, void* C2,
                          const void* aux, void* colsum, const void* bias,
                          int bias_f32, const void* resid, const void* gate,
@@ -466,7 +598,8 @@ GTAX_ENTRY gtax_gemm_f32(const void* A, const void* B, void* C, void* C2,
   if (M <= 0 || N <= 0 || K <= 0 || N % 4 || K % BK || S <= 0 ||
       !aligned16({A, B, C, C2, aux, resid, gate, part}) || gate_stride % 4 ||
       k_chunk <= 0 || k_chunk % BK || K % k_chunk ||
-      (k_chunk < K && part == nullptr))
+      (k_chunk < K && part == nullptr) ||
+      (trans_b && part == nullptr))
     return (int)cudaErrorInvalidValue;
   const bool has_bias = epi != EPI_F32 && epi != EPI_DGELU;
   const bool has_resid = epi == EPI_BIAS_GATED || epi == EPI_BIAS_GATED_Y ||
@@ -502,8 +635,8 @@ GTAX_ENTRY gtax_gemm_f32(const void* A, const void* B, void* C, void* C2,
   float* p = static_cast<float*>(part);
   cudaStream_t st = (cudaStream_t)stream;
   if (trans_b)
-    return epi == EPI_F32 ? launch<EPI_F32, OP_NT>(a, b, e, p, st)
-                          : launch<EPI_DGELU, OP_NT>(a, b, e, p, st);
+    return epi == EPI_F32 ? launch_nt<EPI_F32>(a, b, e, p, st)
+                          : launch_nt<EPI_DGELU>(a, b, e, p, st);
   switch (epi) {
 #define GTAX_F32_CASE(E) \
   case E:                \
@@ -528,8 +661,7 @@ GTAX_ENTRY gtax_gemm_f32(const void* A, const void* B, void* C, void* C2,
 // (M, Ka) and B (M, N) fp32 row-major, into C (splits, Ka, N) fp32, one
 // partial a chunk of `chunk` rows (a multiple of 16; splits = ceil(M /
 // chunk); the last chunk may be short), which gtax_reduce_rows adds in
-// chunk order. The 128x128 tile where its blocks (tiles x chunks) fill the
-// card's SMs once, else 64x64.
+// chunk order: gemm_f32_bwd_kernel, a block a (tile, chunk).
 GTAX_ENTRY gtax_gemm_f32_wgrad(const void* A, const void* B, void* C, int M,
                                int Ka, int N, int chunk, void* stream) {
   if (M <= 0 || Ka <= 0 || N <= 0 || Ka % 4 || N % 4 || chunk <= 0 ||
@@ -542,21 +674,10 @@ GTAX_ENTRY gtax_gemm_f32_wgrad(const void* A, const void* B, void* C, int M,
   e.N = N;
   e.K = M;
   e.k_chunk = chunk;
-  const int splits = (M + chunk - 1) / chunk;
-  const float* a = static_cast<const float*>(A);
-  const float* b = static_cast<const float*>(B);
-  cudaStream_t st = (cudaStream_t)stream;
-  if ((long long)((Ka + 127) / 128) * ((N + 127) / 128) * splits >=
-      sm_count()) {
-    const dim3 grid((N + 127) / 128, (Ka + 127) / 128, splits);
-    gemm_f32_kernel<128, 128, EPI_F32, OP_TN><<<grid, kThreads, 0, st>>>(
-        a, b, e);
-  } else {
-    const dim3 grid((N + 63) / 64, (Ka + 63) / 64, splits);
-    gemm_f32_kernel<64, 64, EPI_F32, OP_TN><<<grid, kThreads, 0, st>>>(
-        a, b, e);
-  }
-  return (int)cudaGetLastError();
+  e.lda = Ka;
+  return launch_bwd<EPI_F32>(static_cast<const float*>(A),
+                            static_cast<const float*>(B), e,
+                            (M + chunk - 1) / chunk, (cudaStream_t)stream);
 }
 
 // The temporal branch's qkv product with rope in its epilogue, in fp32:

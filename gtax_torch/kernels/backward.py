@@ -30,11 +30,13 @@ x.dtype = float32, as gtax trains with compute_dtype="float32"): every
 residual, ct and dx in it. In fp32 every cast to the compute dtype is a
 no-op and the fp32 forms run, on fp32 FFMA with no TF32: `gate_bwd_f32`
 and `ln_mod_bwd_f32`, `gemm_f32` with trans_b (EPI_F32, and the gelu'
-epilogue EPI_DGELU with its 64-row column partials), `gemm_f32_wgrad`
+epilogue EPI_DGELU with its 64-row column partials) and `gemm_f32_wgrad`
 (A^T @ B in row chunks, their partials added in order by `reduce_rows`),
-`attn_frame_bwd_f32` (two passes over 64-row tiles: the bf16 design's
-S x S P and dS do not fit a block's shared memory in fp32) and
-`attn_temporal_bwd_f32` (four fp32 dims a lane).
+both on gemm_f32's token-row kernel (trans_b on transposed copies of its
+operands; 128 x 256 tiles, 128 x 128 for the gelu' epilogue),
+`attn_frame_bwd_f32` (two passes over 48-row tiles: the
+bf16 design's S x S P and dS do not fit a block's shared memory in fp32)
+and `attn_temporal_bwd_f32` (four fp32 dims a lane).
 
 Rounding points (shared by kernels and plain versions, as in the TPU
 kernels): elementwise math in fp32; GEMM operands in the compute dtype with
@@ -80,9 +82,11 @@ WGRAD_MAX_SPLITS = 8
 WGRAD_BLOCK_FLOPS = 6.2e12
 WGRAD_PARTIAL_BYTES_PER_S = 2.0e12
 WGRAD_REDUCE_S = 3e-6
-# the fp32 weight gradient (gemm_f32.cu gtax_gemm_f32_wgrad): row chunks
-# until its 128x128 tiles give every SM this many blocks
-F32_WGRAD_WAVES = 2
+# the fp32 weight gradient (gemm_f32.cu gtax_gemm_f32_wgrad on the
+# backward tile, one block an SM): wgrad_cost's rate of one block, 44
+# TFLOP/s over 132 SMs (`python -m gtax_torch.tools.gemm_sweep --f32`,
+# NVIDIA H100 80GB HBM3, 700 W: 42.7-45.7 TFLOP/s at the plan's chunks)
+F32_WGRAD_BLOCK_FLOPS = 3.3e11
 
 
 # ----------------------------------------------------------- plain parts
@@ -231,12 +235,14 @@ def mlp_branch_bwd_plain(x, shift, scale, g, w1, w2, h1, y, ct):
 
 # -------------------------------------------- launch arithmetic (plain)
 
-def wgrad_cost(M, Ka, N, sms, tile_m, tile_n, k_step, splits):
+def wgrad_cost(M, Ka, N, sms, tile_m, tile_n, k_step, splits,
+               block_flops=WGRAD_BLOCK_FLOPS):
     """(seconds, splits, chunk) of the weight-gradient GEMM over M token
     rows cut into `splits` row chunks (each a multiple of the k-step, so the
     last may be short and the count may come out lower): the waves of
-    (Ka/tile_m) x (N/tile_n) x splits blocks on `sms` SMs, each block
-    summing a chunk of rows at WGRAD_BLOCK_FLOPS; the fp32 partials written,
+    (Ka/tile_m) x (N/tile_n) x splits blocks on `sms` block slots (an SM
+    each, or the blocks that share one), each block summing a chunk of
+    rows at block_flops; the fp32 partials written,
     read and reduced (2 splits + 1 passes over Ka x N, one with no split)
     at WGRAD_PARTIAL_BYTES_PER_S; and the reduce_rows launch."""
     chunk = -(-M // splits)
@@ -244,7 +250,7 @@ def wgrad_cost(M, Ka, N, sms, tile_m, tile_n, k_step, splits):
     splits = -(-M // chunk)
     tiles = -(-Ka // tile_m) * -(-N // tile_n)
     waves = -(-tiles * splits // sms)
-    seconds = waves * chunk * tile_m * tile_n * 2 / WGRAD_BLOCK_FLOPS
+    seconds = waves * chunk * tile_m * tile_n * 2 / block_flops
     passes = 1 if splits == 1 else 2 * splits + 1
     seconds += passes * Ka * N * 4 / WGRAD_PARTIAL_BYTES_PER_S
     if splits > 1:
@@ -252,7 +258,8 @@ def wgrad_cost(M, Ka, N, sms, tile_m, tile_n, k_step, splits):
     return seconds, splits, chunk
 
 
-def wgrad_plan(M, Ka, N, sms, tile_m, tile_n, k_step):
+def wgrad_plan(M, Ka, N, sms, tile_m, tile_n, k_step,
+               block_flops=WGRAD_BLOCK_FLOPS):
     """(splits, chunk) of the weight-gradient GEMM over M token rows: of 1
     to WGRAD_MAX_SPLITS row chunks of at least WGRAD_MIN_ROWS rows, the
     count wgrad_cost finds fastest (the fewer chunks on a tie); the chunks
@@ -261,29 +268,21 @@ def wgrad_plan(M, Ka, N, sms, tile_m, tile_n, k_step):
     for s in range(1, WGRAD_MAX_SPLITS + 1):
         if s > 1 and M < s * WGRAD_MIN_ROWS:
             break
-        cost = wgrad_cost(M, Ka, N, sms, tile_m, tile_n, k_step, s)
+        cost = wgrad_cost(M, Ka, N, sms, tile_m, tile_n, k_step, s,
+                          block_flops)
         if best is None or cost[0] < best[0]:
             best = cost
     return best[1], best[2]
 
 
 def wgrad_f32_plan(M, Ka, N, sms):
-    """(splits, chunk) of the fp32 weight gradient over M token rows: the
-    fewest row chunks (at most WGRAD_MAX_SPLITS, each at least
-    WGRAD_MIN_ROWS rows and a whole number of k-steps) whose 128x128 output
-    tiles make F32_WGRAD_WAVES blocks an SM; the chunks cover rows [0, M)
-    once, the last possibly short."""
-    def cdiv(a, b):
-        return -(-a // b)
-
-    tiles = cdiv(Ka, block.F32_WIDE_TILE) * cdiv(N, block.F32_WIDE_TILE)
-    splits = 1
-    while (splits < WGRAD_MAX_SPLITS
-           and tiles * splits < F32_WGRAD_WAVES * sms
-           and M >= (splits + 1) * WGRAD_MIN_ROWS):
-        splits += 1
-    chunk = cdiv(cdiv(M, splits), block.F32_K_STEP) * block.F32_K_STEP
-    return cdiv(M, chunk), chunk
+    """(splits, chunk) of the fp32 weight gradient over M token rows:
+    wgrad_plan on the backward tile (F32_BWD_TILE x F32_BWD_TILE_N,
+    F32_BWD_BLOCKS block slots an SM, F32_WGRAD_BLOCK_FLOPS a block),
+    chunks of whole 16-row steps."""
+    return wgrad_plan(M, Ka, N, sms * block.F32_BWD_BLOCKS,
+                      block.F32_BWD_TILE, block.F32_BWD_TILE_N,
+                      block.F32_K_STEP, F32_WGRAD_BLOCK_FLOPS)
 
 
 def dgelu_partial_rows(M, tile_m):
@@ -383,9 +382,9 @@ def launch_attn_frame_bwd(q, k, v, dout, cos, sin, dqkv, ao, n_frames, S,
     cos/sin (S, rot) fp32 (rope_tables), the rope adjoint on the first rot
     dims of each head. The bf16 kernel takes frames up to its shared
     memory's limit (176 tokens at head dim 64, 192 at 32), the fp32 one
-    (attn_frame_bwd_f32, two passes and an (n_frames, heads, S, 3) fp32
-    scratch of row statistics) up to 256 and 320; past them they report an
-    error."""
+    (attn_frame_bwd_f32, two passes over 48-row tiles and an (n_frames,
+    heads, S, 3) fp32 scratch of row statistics) up to 432 and 528; past
+    them they report an error."""
     if _f32(q):
         stats = _empty((n_frames, num_heads, S, 3), q)
         build.launch("gtax_attn_frame_bwd_f32", q.data_ptr(), k.data_ptr(),
@@ -541,9 +540,9 @@ def fused_mlp_branch_bwd(x, shift, scale, g, w1, w2, h1, y, ct):
     gemm dy @ W2^T with the gelu' epilogue (writes dh1, gelu(h1) and the
     per-tile sums of db1), reduce_rows (db1), gemm_wgrad dW2, ln_mod,
     gemm_wgrad dW1, gemm dh1 @ W1^T, ln_mod_bwd: 9-10 launches; in fp32
-    their fp32 forms (gemm_f32's gelu' epilogue with 64-row partials,
-    gemm_f32_wgrad). Bound: operations (four GEMMs of the forward's fc1/fc2
-    size)."""
+    their fp32 forms (gemm_f32's token-row kernel: trans_b with the
+    gelu' epilogue's 64-row partials, gemm_f32_wgrad). Bound: operations
+    (four GEMMs of the forward's fc1/fc2 size)."""
     if x.device.type == "cpu":
         return mlp_branch_bwd_plain(x, shift, scale, g, w1, w2, h1, y, ct)
     N, S, D = _check_bwd(x, shift, scale, g, (("h1", h1), ("y", y)), ct)

@@ -345,10 +345,36 @@ def f32_chunk(M, N, K, sms):
     return chunk
 
 
+# gemm_f32's backward forms (csrc/gemm_f32.cu gemm_f32_bwd_kernel: A @
+# W^T on transposed copies, and the weight gradient) with EPI_F32: the
+# tile's rows and columns and its blocks an SM (BwdShape; the gelu' form
+# runs 128 x 128 tiles in one pass)
+F32_BWD_TILE, F32_BWD_TILE_N, F32_BWD_BLOCKS = 128, 256, 1
+
+
+def f32_nt_chunk(M, N, K, sms):
+    """K chunk of A @ W^T in fp32 (K: one pass): K where the backward
+    tiles give every SM F32_BWD_BLOCKS blocks (the training step's 11,520
+    rows: 720-2,880 tiles), else the fewest K chunks (whole k-steps
+    dividing K, at most F32_MAX_SPLITS) that do, or the most there are."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    tiles = cdiv(M, F32_BWD_TILE) * cdiv(N, F32_BWD_TILE_N)
+    chunk = K
+    for c in range(2, F32_MAX_SPLITS + 1):
+        if tiles * (K // chunk) >= F32_BWD_BLOCKS * sms:
+            break
+        if K % (c * F32_K_STEP) == 0:
+            chunk = K // c
+    return chunk
+
+
 @functools.lru_cache(maxsize=None)
-def f32_plan(M, N, K, device) -> int:
-    """f32_chunk on `device`'s SMs."""
-    return f32_chunk(M, N, K, sm_count(device))
+def f32_plan(M, N, K, device, trans_b=False) -> int:
+    """f32_chunk (f32_nt_chunk with trans_b) on `device`'s SMs."""
+    return (f32_nt_chunk if trans_b else f32_chunk)(M, N, K,
+                                                    sm_count(device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -505,9 +531,10 @@ def launch_gemm_f32(a, w, out, M, N, K, epi, bias=None, resid=None,
     acc + bias); the TWO_OUTPUTS ones also store out2 (acc + bias, or
     EPI_DGELU's gelu(aux) with u = gelu'(aux) * acc in out and the 64-row
     slabs' column sums of u in colsum). trans_b takes EPI_F32 and
-    EPI_DGELU. k_chunk: f32_plan's by default (EPI_DGELU: K, one pass);
-    below K, the chunks' partials go through an (M, N) fp32 workspace a
-    chunk and are added in order before the epilogue."""
+    EPI_DGELU, run on transposed copies of a and w in a workspace.
+    k_chunk: f32_plan's by default (EPI_DGELU: K, one pass); below K, the
+    chunks' partials go through an (M, N) fp32 workspace a chunk and are
+    added in order before the epilogue."""
     _need(epi in F32_EPILOGUES and (out2 is not None) == (epi in TWO_OUTPUTS)
           and (not trans_b or epi in (EPI_F32, EPI_DGELU))
           and (trans_b or epi != EPI_DGELU),
@@ -516,7 +543,7 @@ def launch_gemm_f32(a, w, out, M, N, K, epi, bias=None, resid=None,
                   + (" with a second output" if out2 is not None else ""))
     if epi == EPI_DGELU:
         k_chunk = K
-    k_chunk, part = _f32_split(a, M, N, K, k_chunk)
+    k_chunk, part = _f32_split(a, M, N, K, k_chunk, trans_b)
     build.launch(
         "gtax_gemm_f32", a.data_ptr(), w.data_ptr(), out.data_ptr(),
         _ptr(out2), _ptr(aux), _ptr(colsum), _ptr(bias),
@@ -578,16 +605,19 @@ def launch_attn_window(q, k, v, out, B, T, S, D, num_heads, bits):
                  out.data_ptr(), B, T, S, D, num_heads, bits, _stream(q))
 
 
-def _f32_split(a, M, N, K, k_chunk=None):
-    """(k_chunk, fp32 partials or None) of an fp32 GEMM launch: f32_plan's
-    K chunk by default; a workspace of one (M, N) partial a chunk where
-    there is more than one."""
+def _f32_split(a, M, N, K, k_chunk=None, trans_b=False):
+    """(k_chunk, fp32 workspace or None) of an fp32 GEMM launch: f32_plan's
+    K chunk by default; one (M, N) partial a chunk where there is more than
+    one, after (trans_b) the transposed copies of a, its rows padded to a
+    multiple of 4, and of w (K M4 + K N)."""
     if k_chunk is None:
-        k_chunk = f32_plan(M, N, K, a.device)
+        k_chunk = f32_plan(M, N, K, a.device, trans_b)
+    n = (K // k_chunk) * M * N if k_chunk < K else 0
+    if trans_b:
+        n += K * (-(-M // 4) * 4 + N)
     part = None
-    if k_chunk < K:
-        part = torch.empty((K // k_chunk, M, N), dtype=torch.float32,
-                           device=a.device)
+    if n:
+        part = torch.empty(n, dtype=torch.float32, device=a.device)
     return k_chunk, part
 
 

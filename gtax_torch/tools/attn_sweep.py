@@ -4,9 +4,17 @@ length S of the sweep, in both layouts, beside one SDPA call of the same
 attention, on one NVIDIA GPU; then split one tensor-core call at the VAE
 shape, and one call of the spatial attention backward (attn_frame_bwd,
 gtax_torch/csrc/attn_bwd.cu) at the B=16 training shape, into their
-phases.
+phases; and the fp32 attention backward (attn_frame_bwd_f32) at the same
+shape, whole and by kernel (its two passes, from a torch.profiler trace),
+with its useful TFLOP/s (the six S x S x d products a (frame, head)
+that the function needs: scores, O = P V, dP, dQ, dK, dV; the kernel's
+recompute of the scores and dP in its second pass is not counted)
+beside autograd's backward of one fp32 SDPA call (no TF32). --f32-bwd
+runs that part alone; it uses only launch_attn_frame_bwd's arguments,
+which every version of the port has, so two checkouts' tiles are
+compared in turns: `PYTHONPATH=<checkout> python <this file> --f32-bwd`.
 
-    python -m gtax_torch.tools.attn_sweep [--out FILE]
+    python -m gtax_torch.tools.attn_sweep [--f32-bwd] [--out FILE]
 
 The layouts are fused_sdpa's heads-first (N * 16 rows of (S, 64)) and
 fused_mha_token_major's token-major ((N, S, 1024), 16 heads of 64), with N
@@ -166,8 +174,59 @@ def bwd_phases(n_frames=80, S=144, rot=HD):
     return split
 
 
+def bwd_f32(n_frames=80, S=144, rot=HD):
+    """attn_frame_bwd_f32 at the B=16 training shape (as bwd_phases, fp32):
+    the whole call's ms and useful TFLOP/s, each kernel's device ms, and
+    autograd's backward of one fp32 SDPA call (heads-first, no mask)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gtax_torch.core import rope
+    from gtax_torch.kernels import backward
+
+    gen = np.random.default_rng(12)
+    D = H * HD
+    q, k, v, dout = (torch.from_numpy(gen.standard_normal(
+        (n_frames * S, D)).astype(np.float32)).cuda() for _ in range(4))
+    freqs = rope.axial_freqs(rope.pixel_freqs(HD // 2, 256.0), (9, 16),
+                             pixel=True).reshape(S, HD).cuda()
+    cos, sin = backward.rope_tables(freqs[:, :rot])
+    dqkv = torch.empty((n_frames * S, 3 * D), device="cuda")
+    ao = torch.empty_like(q)
+
+    def call():
+        backward.launch_attn_frame_bwd(q, k, v, dout, cos, sin, dqkv, ao,
+                                       n_frames, S, D, H, rot)
+
+    ms = median_ms(call)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = {ev.key[:60]: getattr(ev, "self_device_time_total", 0.0) / 1e3
+               for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA}
+    heads = [t.reshape(n_frames, S, H, HD).transpose(1, 2).requires_grad_()
+             for t in (q, k, v)]
+    do = dout.reshape(n_frames, S, H, HD).transpose(1, 2)
+
+    def lib():
+        out = torch.nn.functional.scaled_dot_product_attention(*heads)
+        torch.autograd.grad(out, heads, do)
+
+    lib_ms = median_ms(lib)
+    gf = 12 * n_frames * H * S * S * HD / 1e9
+    print(f"[attn f32 bwd] {n_frames} frames of {S}, rope on {rot} dims: "
+          f"{ms:.4f} ms ({gf / ms:.1f} TFLOP/s useful of {gf:.1f} GFLOP); "
+          f"by kernel {json.dumps(kernels)}; autograd of fp32 SDPA "
+          f"{lib_ms:.4f} ms", flush=True)
+    return {"ms": ms, "tflops": gf / ms, "kernels_ms": kernels,
+            "library_ms": lib_ms}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--f32-bwd", action="store_true",
+                    help="time the fp32 attention backward alone")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -180,9 +239,12 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    result = {"card": card, "rows": sweep(), "phases": phases(),
-              "bwd_phases": bwd_phases(), "bwd_phases_no_rope":
-              bwd_phases(rot=0)}
+    if args.f32_bwd:
+        result = {"card": card, "bwd_f32": bwd_f32()}
+    else:
+        result = {"card": card, "rows": sweep(), "phases": phases(),
+                  "bwd_phases": bwd_phases(), "bwd_phases_no_rope":
+                  bwd_phases(rot=0), "bwd_f32": bwd_f32()}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f)

@@ -14,7 +14,13 @@ or, with --f32, the fp32 GEMM (`block.launch_gemm_f32`, fp32 FFMA) at the
 four serving products at 144, 288, 576 and 720 rows and the VAE's at
 2,304 and 3,456 rows, at every K chunk it takes (1-8 chunks of whole
 16-deep steps), beside one cuBLAS SGEMM of the same product (no TF32:
-strict_matmul), the plan's (`block.f32_plan`) marked.
+strict_matmul), the plan's (`block.f32_plan`) marked; then the fp32
+training step's backward products at 11,520 rows (B=16): dY @ W^T
+(trans_b, EPI_F32) for dy @ W_out^T, dqkv @ W_qkv^T and dh1 @ W1^T, the
+gelu' epilogue's dy @ W2^T (trans_b, EPI_DGELU), and the four weight
+gradients (`gtax_gemm_f32_wgrad` + `reduce_rows`) at every row-chunk
+count from 1 to 8, the plan's (`backward.wgrad_f32_plan`) marked, each
+beside one cuBLAS SGEMM of the same product.
 
     python -m gtax_torch.tools.gemm_sweep [--wgrad-splits | --small |
                                            --int8 | --f32] [--out FILE]
@@ -256,6 +262,88 @@ def f32_sweep():
     return rows
 
 
+# the fp32 backward's products at B=16 (11,520 rows): (N, K, epi, what)
+# of dY @ W^T, W (N, K); EPI_DGELU: the gelu' epilogue's
+F32_NT = ((1024, 1024, 0, "dy @ W_out^T"), (1024, 3072, 0, "dqkv @ W_qkv^T"),
+          (1024, 4096, 0, "dh1 @ W1^T"), (4096, 1024, 9, "dy @ W2^T gelu'"))
+BWD_ROWS = 11520
+
+
+def _f32_rand(gen, shape, std=1.0):
+    return torch.from_numpy(gen.standard_normal(shape).astype(
+        np.float32) * std).cuda()
+
+
+def _wgrad_call(a, b, part, chunk):
+    from gtax_torch.kernels import backward, build
+
+    M, Ka = a.shape
+    build.launch("gtax_gemm_f32_wgrad", a.data_ptr(), b.data_ptr(),
+                 part.data_ptr(), M, Ka, b.shape[1], chunk,
+                 torch.cuda.current_stream().cuda_stream)
+    return part[0] if part.shape[0] == 1 else backward.reduce_rows(part)
+
+
+def _nt_operands(gen, N, K, epi, M=BWD_ROWS):
+    """(a, w, out, the gelu' extras) of one backward dY @ W^T product."""
+    a, w = _f32_rand(gen, (M, K)), _f32_rand(gen, (N, K), 0.02)
+    out = torch.empty((M, N), device="cuda")
+    extra = {}
+    if epi == 9:
+        extra = {"out2": torch.empty_like(out),
+                 "aux": _f32_rand(gen, (M, N)),
+                 "colsum": torch.empty((-(-M // 64), N), device="cuda")}
+    return a, w, out, extra
+
+
+def f32_bwd_sweep():
+    """The backward's products beside cuBLAS SGEMM (see the docstring)."""
+    from gtax_torch.kernels import backward, block
+
+    gen = np.random.default_rng(14)
+    M, rows = BWD_ROWS, []
+    for N, K, epi, what in F32_NT:
+        a, w, out, extra = _nt_operands(gen, N, K, epi)
+        ms = median_ms(lambda: block.launch_gemm_f32(
+            a, w, out, M, N, K, epi, trans_b=True, **extra))
+        lib = median_ms(lambda: torch.matmul(a, w.t()))
+        ref = torch.matmul(a, w.t())
+        if epi:  # u = gelu'(h1) * (dY @ W^T)
+            ref = backward.gelu_tanh_val_grad32(extra["aux"])[1] * ref
+        err = float((out - ref).abs().max() / ref.abs().max())
+        gf = 2 * M * N * K / 1e9
+        print(f"[f32 bwd] {what:16s} M={M} N={N} K={K}: {ms:.4f} ms "
+              f"({gf / ms:.1f} TFLOP/s), cuBLAS SGEMM {lib:.4f} ms "
+              f"({gf / lib:.1f} TFLOP/s), max|diff| / max|ref| {err:.3g}",
+              flush=True)
+        rows.append({"what": what, "M": M, "N": N, "K": K, "epi": epi,
+                     "ms": ms, "tflops": gf / ms, "library_ms": lib,
+                     "library_tflops": gf / lib, "rel_err": err})
+    for Ka, N, what in WGRADS:
+        a, b = _f32_rand(gen, (M, Ka)), _f32_rand(gen, (M, N))
+        plan = backward.wgrad_f32_plan(M, Ka, N, block.sm_count(a.device))[0]
+        lib = median_ms(lambda: torch.matmul(a.t(), b))
+        ref = torch.matmul(a.t(), b)
+        gf = 2 * M * Ka * N / 1e9
+        for s in range(1, 9):
+            chunk = -(-(-(-M // s)) // block.F32_K_STEP) * block.F32_K_STEP
+            splits = -(-M // chunk)
+            part = torch.empty((splits, Ka, N), device="cuda")
+            err = float((_wgrad_call(a, b, part, chunk) - ref).abs().max()
+                        / ref.abs().max())
+            ms = median_ms(lambda: _wgrad_call(a, b, part, chunk))
+            mark = "  <- plan" if splits == plan else ""
+            print(f"[f32 wgrad] {what:7s} Ka={Ka} N={N} splits={splits} "
+                  f"chunk={chunk}: {ms:.4f} ms ({gf / ms:.1f} TFLOP/s), "
+                  f"cuBLAS SGEMM {lib:.4f} ms ({gf / lib:.1f} TFLOP/s), "
+                  f"max|diff| / max|ref| {err:.3g}{mark}", flush=True)
+            rows.append({"what": what, "M": M, "Ka": Ka, "N": N,
+                         "splits": splits, "chunk": chunk, "ms": ms,
+                         "tflops": gf / ms, "library_ms": lib,
+                         "rel_err": err, "plan": splits == plan})
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -266,7 +354,8 @@ def main():
     mode.add_argument("--int8", action="store_true",
                       help="time the int8 products' K chunks instead")
     mode.add_argument("--f32", action="store_true",
-                      help="time the fp32 GEMM's K chunks instead")
+                      help="time the fp32 GEMM's K chunks and the fp32 "
+                      "backward's products instead")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -280,7 +369,8 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     run = (wgrad_splits if args.wgrad_splits else small_sweep if args.small
-           else int8_sweep if args.int8 else f32_sweep if args.f32
+           else int8_sweep if args.int8
+           else (lambda: f32_sweep() + f32_bwd_sweep()) if args.f32
            else sweep)
     result = {"card": card, "rows": run()}
     if args.out:

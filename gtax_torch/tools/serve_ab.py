@@ -7,7 +7,8 @@ wrappers and pairs
 also in its emit_train mode at the B=16 training step's 11,520 rows), on
 fixed seeded inputs; and every serving call again at x.dtype = float32
 (its bf16 inputs, biases and context cache cast to fp32: the fp32 forms
-of #1-#4 and #6-#11), named "... fp32".
+of #1-#4 and #6-#11), named "... fp32", and the fp32 emit_train forwards
+of #1-#3 at B=4, T=5 (the fp32 training step's forward products).
 
     PYTHONPATH=<checkout> python <this file> --save FILE   # outputs
     python <this file> --compare FILE_A FILE_B             # bits
@@ -126,10 +127,31 @@ def cases():
         (xt, mt[:, :D], mt[:, D:2 * D], mt[:, 2 * D:], *wm))
     for k, (fn, a) in list(out.items()):  # the serving calls in fp32
         if "emit_train" not in k:
-            out[f"{k} fp32"] = (fn, tuple(
-                t.float() if isinstance(t, torch.Tensor)
-                and t.dtype == torch.bfloat16 else t for t in a))
+            out[f"{k} fp32"] = (fn, tuple(_f32(a)))
+    gen = np.random.default_rng(712)
+    N = B * T  # the fp32 emit_train forwards of #1-#3 (fp32 training)
+    xt, mt = _rand(gen, (N, S, D)).float(), _rand(gen, (N, 3 * D), 0.5)
+    mods = tuple(_f32((mt[:, :D], mt[:, D:2 * D], mt[:, 2 * D:])))
+    ba = (_rand(gen, (D, 3 * D), 0.02), _rand(gen, (D, D), 0.02),
+          _rand(gen, (D,), 0.02))
+    bm = (_rand(gen, (D, 4 * D), 0.02), _rand(gen, (4 * D,), 0.02),
+          _rand(gen, (4 * D, D), 0.02), _rand(gen, (D,), 0.02))
+    out[f"spatial_branch emit_train N={N} fp32"] = (
+        lambda *a: block.fused_spatial_branch(*a, emit_train=True),
+        (xt, *mods, *_f32(ba), sf, H))
+    out[f"mlp_branch emit_train N={N} fp32"] = (
+        lambda *a: block.fused_mlp_branch(*a, emit_train=True),
+        (xt, *mods, *_f32(bm)))
+    out[f"temporal_branch emit_train B={B} T={T} fp32"] = (
+        lambda *a: block.fused_temporal_branch(*a, emit_train=True),
+        (xt, *mods, *_f32(ba), tf, valid, H, T))
     return out
+
+
+def _f32(args):
+    """args with every bf16 tensor cast to fp32."""
+    return [t.float() if isinstance(t, torch.Tensor)
+            and t.dtype == torch.bfloat16 else t for t in args]
 
 
 def median_ms(fn, iters=15):

@@ -1603,13 +1603,14 @@ def test_fp32_refusals_on_the_card(cuda):
 
 def test_fp32_kernels_use_no_tensor_cores(cuda):
     """The fp32 kernels, the training ones included (gemm_f32's training
-    epilogues, trans_b and wgrad forms are instantiations of
-    gemm_f32_kernel), are FFMA only: cuobjdump's SASS of the built
-    library has no HMMA or HGMMA (any type, TF32 included) in them, and
-    FFMAs; the fp32 pairs hold the int8 tensor cores' IGMMA and no HMMA /
-    HGMMA but the compiler's no-op GMMA (an HGMMA into RZ from a zero
-    descriptor that ptxas emits with an injected warpgroup.arrive, as in
-    the int8 GEMM); the bf16 kernels' HGMMA is there, as a control."""
+    epilogues are instantiations of gemm_f32_kernel, its trans_b and wgrad
+    forms of gemm_f32_bwd_kernel), are FFMA only: cuobjdump's SASS of the
+    built library has no HMMA or HGMMA (any type, TF32 included) in them,
+    and FFMAs, each kernel named here found by name; the fp32 pairs hold
+    the int8 tensor cores' IGMMA and no HMMA / HGMMA but the compiler's
+    no-op GMMA (an HGMMA into RZ from a zero descriptor that ptxas emits
+    with an injected warpgroup.arrive, as in the int8 GEMM); the bf16
+    kernels' HGMMA is there, as a control."""
     import re
     import shutil
     import subprocess
@@ -1628,9 +1629,13 @@ def test_fp32_kernels_use_no_tensor_cores(cuda):
     names = ("gemm_f32_kernel", "attn_frame_f32_kernel",
              "attn_window_f32_kernel", "attn_temporal_f32_kernel",
              "ln_mod_kernelIf", "attn_sdpa_rows_f32_kernel",
-             "attn_sdpa_tiled_f32_kernel", "attn_frame_bwd_f32_pass1",
-             "attn_frame_bwd_f32_pass2", "attn_temporal_bwd_f32_kernel",
-             "gate_bwd_kernelIfE", "ln_mod_bwd_kernelILi16EfE")
+             "attn_sdpa_tiled_f32_kernel", "attn_frame_bwd_f32_q",
+             "attn_frame_bwd_f32_k", "attn_temporal_bwd_f32_kernel",
+             "gate_bwd_kernelIfE", "ln_mod_bwd_kernelILi16EfE",
+             "gemm_f32_bwd_kernel")
+    heads = [f.split("\n", 1)[0] for f in funcs]
+    assert all(any(n in h for h in heads) for n in names), [
+        n for n in names if not any(n in h for h in heads)]
     f32 = [f for f in funcs if any(n in f.split("\n", 1)[0] for n in names)]
     pairs = [f for f in funcs
              if re.search(r"pair_q_kernelILi\d+ELb\dELb\dEfE",
@@ -1935,17 +1940,24 @@ def test_fp32_emit_train_kernels(cuda, kind):
         assert torch.equal(a, c)
 
 
-@pytest.mark.parametrize("M", [288, 1440, 3472])
-def test_gemm_f32_train_epilogues(cuda, M):
+@pytest.mark.parametrize("M,N,K", [(288, 1000, 1024), (1440, 1000, 1024),
+                                   (3472, 1000, 1024), (200, 1000, 4096),
+                                   (11520, 1020, 4096), (11520, 4092, 1024),
+                                   (195, 1000, 1024), (4805, 1020, 1024)])
+def test_gemm_f32_train_epilogues(cuda, M, N, K):
     """gemm_f32's training forms against the fp32 products: the _Y / _H
     epilogues' two outputs (split K at 288 rows, unsplit on the 128x128
-    tiles at 3,472), dY @ W^T (trans_b, EPI_F32, split and unsplit), and
-    the gelu' epilogue (trans_b, one pass) with its 64-row column sums;
-    each bit-stable."""
+    tiles at 3,472), dY @ W^T (trans_b, EPI_F32, split and unsplit: the
+    backward tile's K chunks at 200 rows), and the gelu' epilogue
+    (trans_b, one pass) with its 64-row column sums; M and N off the
+    128-row tile (the last tile ragged in both), K = 4,096 against N ~
+    1,024 and the reverse at the training step's 11,520 rows; M not a
+    multiple of 4 (trans_b's transposed copy of dY padded to 4 rows; K
+    split at 195 rows, one pass at 4,805); each bit-stable."""
     from gtax_torch.kernels import backward
 
-    gen = np.random.default_rng(410 + M)
-    S, K, N, f32 = 144, 1024, 1000, torch.float32
+    gen = np.random.default_rng(410 + M + N + K)
+    S, f32 = 144, torch.float32
     a, w = _rand(gen, (M, K), 1.0, f32), _rand(gen, (K, N), 0.03, f32)
     bias = _rand(gen, (N,), 0.1, f32)
     x = _rand(gen, (M, N), 1.0, f32)
@@ -1999,20 +2011,33 @@ def test_gemm_f32_train_epilogues(cuda, M):
 
 
 @pytest.mark.parametrize("M,Ka,N", [(4000, 128, 64), (1440, 1024, 1024),
-                                    (11520, 1024, 3072)])
+                                    (11520, 1024, 3072), (2000, 196, 260),
+                                    (11520, 4096, 1024), (11520, 1024, 4096)])
 def test_gemm_f32_wgrad(cuda, M, Ka, N):
     """The fp32 weight gradient (A^T @ B in row chunks, the last ragged at
-    4,000 rows; one chunk's partial or reduce_rows in chunk order) against
-    the fp32 product; a second call bit-equal."""
+    4,000 and 2,000 rows; one chunk's partial or reduce_rows in chunk
+    order) against the fp32 product, Ka and N off the 128 tile at 2,000
+    rows, Ka = 4,096 against N = 1,024 and the reverse at 11,520; a second
+    call bit-equal; every chunk count 1-8 of 16-row steps (a short last
+    chunk at most) within the tolerance too."""
     from gtax_torch.kernels import backward
 
-    gen = np.random.default_rng(420 + M)
+    gen = np.random.default_rng(420 + M + Ka)
     f32 = torch.float32
     a, b = _rand(gen, (M, Ka), 1.0, f32), _rand(gen, (M, N), 1.0, f32)
     got, again = backward.wgrad(a, b), backward.wgrad(a, b)
     torch.cuda.synchronize()
-    _close32(got, backward.wgrad32(a, b))
+    ref = backward.wgrad32(a, b)
+    _close32(got, ref)
     assert torch.equal(got, again)
+    for s in range(1, 9):
+        chunk = -(-(-(-M // s)) // 16) * 16
+        splits = -(-M // chunk)
+        part = torch.empty((splits, Ka, N), dtype=f32, device="cuda")
+        build.launch("gtax_gemm_f32_wgrad", a.data_ptr(), b.data_ptr(),
+                     part.data_ptr(), M, Ka, N, chunk,
+                     torch.cuda.current_stream().cuda_stream)
+        _close32(part[0] if splits == 1 else backward.reduce_rows(part), ref)
 
 
 def _train_inputs_f32(gen, N, kind):
@@ -2034,7 +2059,8 @@ def _train_inputs_f32(gen, N, kind):
 
 @pytest.mark.parametrize("kind,N", [("spatial", 2), ("spatial", 10),
                                     ("temporal", 10), ("mlp", 2),
-                                    ("mlp", 10)])
+                                    ("mlp", 10), ("spatial", 80),
+                                    ("mlp", 80)])
 def test_fp32_backward_kernels(cuda, kind, N):
     """#12-#14 in fp32 over their fp32 forwards' residuals against the
     plain backwards (every gradient within F32_TOL of its largest
@@ -2078,13 +2104,15 @@ def test_fp32_backward_kernels(cuda, kind, N):
 @pytest.mark.parametrize("S,hd,partial", [(S_DIT, 64, False),
                                           (S_DIT, 32, True), (100, 64, True),
                                           (176, 64, False), (192, 32, True),
-                                          (256, 64, True)])
+                                          (256, 64, True), (432, 64, False),
+                                          (528, 32, True)])
 def test_attn_frame_bwd_f32_kernel(cuda, S, hd, partial):
-    """attn_frame_bwd_f32 alone (two passes over 64-row tiles) against the
+    """attn_frame_bwd_f32 alone (two passes over 48-row tiles) against the
     plain backward's arithmetic in fp32: at the DiT's S = 144, a ragged
-    100, the bf16 kernel's limits (176 at hd 64, 192 at 32) and its own
-    (256 at hd 64; 320 at hd 32 is refused at 64, one tile more than
-    fits); a second run is bit-equal to the first."""
+    100 (and 176, 192, 256, each off the 48-row tile), the bf16 kernel's
+    limits (176 at hd 64, 192 at 32) and its own (432 at hd 64, 528 at
+    32; one token more is refused: pass 1's scores of one tile more do not
+    fit); a second run is bit-equal to the first."""
     from gtax_torch.kernels import backward
 
     gen = np.random.default_rng(440 + S + hd + partial)
@@ -2119,8 +2147,8 @@ def test_attn_frame_bwd_f32_kernel(cuda, S, hd, partial):
         _close32(a, b.reshape(N * S, D).float())
     ao2, dqkv2 = run()
     assert torch.equal(ao, ao2) and torch.equal(dqkv, dqkv2)
-    if S == 256:  # one 64-row tile more does not fit pass 1
-        S2 = S + 64
+    if (S, hd) in ((432, 64), (528, 32)):  # one key tile more: no room
+        S2 = S + 1
         t = torch.empty((S2, D), dtype=f32, device="cuda")
         cs = torch.zeros((S2, hd), device="cuda")
         with pytest.raises(RuntimeError, match="gtax_attn_frame_bwd_f32"):

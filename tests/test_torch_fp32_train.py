@@ -16,23 +16,67 @@ F32 = torch.float32
 
 
 @pytest.mark.parametrize("M,Ka,N,splits,chunk", [
-    (11520, 1024, 1024, 5, 2304),   # B=16: dW_out, 64 tiles x 5 chunks
-    (11520, 1024, 3072, 2, 5760),   # dW_qkv: 192 tiles
-    (11520, 1024, 4096, 2, 5760),   # dW1: 256 tiles
-    (11520, 4096, 1024, 2, 5760),   # dW2
+    (11520, 1024, 1024, 4, 2880),   # B=16: dW_out, 32 tiles x 4 chunks
+    (11520, 1024, 3072, 4, 2880),   # dW_qkv: 96 tiles x 4 chunks
+    (11520, 1024, 4096, 1, 11520),  # dW1: 128 tiles, one wave of 132
+    (11520, 4096, 1024, 1, 11520),  # dW2: 128 tiles, one wave
     (1440, 1024, 1024, 2, 720),     # B=2: two chunks of at least 512 rows
     (1000, 1024, 1024, 1, 1008),    # one chunk, rounded up to whole steps
     (2000, 64, 64, 3, 672),         # a ragged last chunk (656 rows)
 ])
 def test_wgrad_f32_plan(M, Ka, N, splits, chunk):
-    """The fp32 weight gradient's row chunks on 132 SMs: the fewest (at most
-    8, each of at least 512 rows and whole 16-row steps) whose 128x128
-    tiles give every SM two blocks; the chunks cover the rows once."""
+    """The fp32 weight gradient's row chunks on 132 SMs: wgrad_plan's
+    fastest count (at most 8, each of at least 512 rows and whole 16-row
+    steps) on the backward tile, 128x256 at one block an SM; the chunks
+    cover the rows once."""
     got = backward.wgrad_f32_plan(M, Ka, N, 132)
     assert got == (splits, chunk)
     assert chunk % block.F32_K_STEP == 0
     assert (splits - 1) * chunk < M <= splits * chunk
     assert splits <= backward.WGRAD_MAX_SPLITS
+
+
+def test_bwd_tile_constants_match_the_kernel_source():
+    """block's constants of gemm_f32's backward tile are the kernel's
+    (csrc/gemm_f32.cu): the EPI_F32 tile's rows and columns and its
+    blocks an SM, the 16-row step a chunk is made of, and the gelu'
+    partials' 64-row slab; the attention backward's 48-row tile
+    (csrc/attn_bwd.cu) divides the DiT's 144-token frame."""
+    import re
+
+    src = (build.CSRC / "gemm_f32.cu").read_text()
+
+    def const(pattern):
+        return int(re.search(pattern, src).group(1))
+
+    assert const(r"constexpr int kBwdTile = (\d+);") == block.F32_BWD_TILE
+    shape = re.search(r"struct BwdShape \{\s*static constexpr int TW = (\d+), "
+                      r"KS = (\d+), STAGES = \d+, BLOCKS = (\d+);", src)
+    assert int(shape.group(1)) == block.F32_BWD_TILE_N
+    assert int(shape.group(2)) % block.F32_K_STEP == 0
+    assert int(shape.group(3)) == block.F32_BWD_BLOCKS
+    assert const(r"constexpr int BK = (\d+);") == block.F32_K_STEP
+    assert "m0 / 64 + slab" in src and block.F32_SLAB == 64
+    assert block.F32_BWD_TILE % block.F32_SLAB == 0
+    attn = (build.CSRC / "attn_bwd.cu").read_text()
+    tile = int(re.search(r"constexpr int kFBTile = (\d+);", attn).group(1))
+    assert 144 % tile == 0
+
+
+@pytest.mark.parametrize("M,k_chunk,floats", [
+    (16, 64, 64 * (16 + 32)),                 # one pass: the two copies
+    (15, 64, 64 * (16 + 32)),                 # dY's copy padded to 16 rows
+    (195, 32, 64 * (196 + 32) + 2 * 195 * 32),  # two chunks' partials after
+])
+def test_trans_b_workspace(M, k_chunk, floats):
+    """gemm_f32's trans_b workspace: the transposed copies of dY (M, K),
+    its rows rounded up to a multiple of 4, and of W (N, K), then one
+    (M, N) partial a K chunk where K is split; M need not be a multiple
+    of 4."""
+    a = torch.empty((M, 64), dtype=F32, device="meta")
+    got, part = block._f32_split(a, M, 32, 64, k_chunk, trans_b=True)
+    assert got == k_chunk
+    assert part.dtype == F32 and part.numel() == floats
 
 
 @pytest.fixture
