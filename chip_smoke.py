@@ -9,7 +9,9 @@ Phases (any failure exits nonzero and prints no result line):
      cuobjdump's SASS of the library, where the fp32 kernels (F32_KERNELS)
      must hold FFMAs and no tensor-core instruction (no TF32), and the
      fp32 pairs (F32_PAIRS) the int8 IGMMA and no HMMA / HGMMA but the
-     compiler's no-op GMMA (NOOP_GMMA, also in every int8 GEMM);
+     compiler's no-op GMMA (NOOP_GMMA, also in every int8 GEMM); the fp32
+     GEMMs' main loops (gemm_f32_fwd_kernel, gemm_f32_bwd_kernel): FFMAs
+     of the loop's instructions and how many reuse an operand;
   3. kernels: each of the sixteen kernel wrappers (five bf16 and four
      int8 W8A8 serving wrappers, the two paired int8 half-blocks, the two
      attention kernels of the `pallas` backend, three training backwards)
@@ -72,7 +74,9 @@ Phases (any failure exits nonzero and prints no result line):
      library composites (autograd for a backward), bound at 67 TFLOP/s;
      #12-#14 in fp32 split by launch (`[split]`, each product's TFLOP/s;
      for #12 attn_frame_bwd_f32's ms beside its bound and useful
-     TFLOP/s);
+     TFLOP/s), and #2's fp32 emit_train at B=16 (ln_mod, fc1, fc2: each
+     launch's ms and share, each GEMM's TFLOP/s; #5's fp32 decode split
+     is `[kernel]`'s, with attn_frame_f32's share);
   4. end to end, bf16: VideoGenerator at full DiT-S/2 + ViT-L/20 width,
      B=1, 4 prompt frames + 2 generated, 100 noise steps, random seeded
      weights with nonzero adaLN heads, injected noise. The launch counters
@@ -148,8 +152,10 @@ Phases (any failure exits nonzero and prints no result line):
      printed). `[e2e stacked]` (in phase 4): one
      generated frame with ServingConfig(unstack=False), bit-equal to the
      unstacked rollout without the conditioning cache on the same noise.
-  8. the approximate serving modes (`[e2e approx]`), at full width and
-     depth from the bf16 weights: the pyramid-pipelined rollout (bf16 P=4
+  8. the approximate serving modes (`[e2e approx]`), at full width cut to
+     APPROX_DEPTH blocks of the bf16 weights (the timed rollouts at 16
+     blocks took 115-178 s of a 1,200 s budget): the pyramid-pipelined
+     rollout (bf16 P=4
      with the conditioning cache and incremental decoding, int8 P=4 and
      P=2) and attention broadcast (K=2: bf16 `fused` and `fused_all`,
      int8), each one generate with every launch count and every DiT call
@@ -1234,8 +1240,15 @@ def f32_phase(timer, rows):
         rows[name]["fp32"] = dict(m, launches=None,
                                   library=lib_desc + ", fp32")
         if name in gemms:  # each launch's ms and the GEMMs' TFLOP/s
-            rows[name]["fp32"]["launch_split"] = launch_split(
-                kern, f"{name} [{label}]", gemms[name])
+            split = launch_split(kern, f"{name} [{label}]", gemms[name])
+            rows[name]["fp32"]["launch_split"] = split
+            if name == "fused_vae_block":
+                att = [e for e in split
+                       if e.get("kernel") == "gtax_attn_frame_f32"]
+                share = sum(e["share"] for e in att)
+                log(f"[split]   attn_frame_f32's share of #5 fp32: "
+                    f"{100 * share:.1f}% ({sum(e['ms'] for e in att):.4f} ms)")
+                rows[name]["fp32"]["attn_frame_f32_share"] = share
         del kern, plain, lib
     f32_int8_phase(timer, rows)
 
@@ -1318,7 +1331,9 @@ F32_KERNELS = ("gemm_f32_kernel", "attn_frame_f32_kernel",
                "attn_sdpa_tiled_f32_kernel", "attn_frame_bwd_f32_q",
                "attn_frame_bwd_f32_k", "attn_temporal_bwd_f32_kernel",
                "gate_bwd_kernelIfE", "ln_mod_bwd_kernelILi16EfE",
-               "gemm_f32_bwd_kernel")
+               "gemm_f32_bwd_kernel", "gemm_f32_fwd_kernel")
+# the fp32 GEMMs whose main loop [sass] reads (FFMA share, operand reuse)
+F32_GEMMS = ("gemm_f32_fwd_kernel", "gemm_f32_bwd_kernel")
 # the fp32 pairs, pair_q_kernel<hd, temporal, exact, float>: 2 x 2 x 2
 F32_PAIRS = re.compile(r"pair_q_kernelILi\d+ELb\dELb\dEfE")
 # the compiler's no-op GMMA: where ptxas injects a warpgroup.arrive before
@@ -1334,6 +1349,30 @@ def tensor_ops(func):
     return [line for line in func.splitlines()
             if ("HMMA" in line or "HGMMA" in line)
             and not NOOP_GMMA.search(line)]
+
+
+def main_loop(func):
+    """The SASS loop of a function that holds the most FFMAs (the body
+    between a backward branch and its target, cuobjdump's addresses):
+    (FFMAs, instructions but NOPs, FFMAs with a .reuse operand), or None
+    where the function has no loop."""
+    ins = []
+    for line in func.splitlines():
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2)))
+    best = None
+    for addr, text in ins:
+        m = re.search(r"BRA\s+(?:`\()?(0x[0-9a-f]+)", text)
+        if not m or int(m.group(1), 16) > addr:
+            continue
+        body = [t for a, t in ins
+                if int(m.group(1), 16) <= a <= addr and not t.startswith("NOP")]
+        ffma = [t for t in body if "FFMA" in t]
+        if best is None or len(ffma) > best[0]:
+            best = (len(ffma), len(body),
+                    sum(1 for t in ffma if ".reuse" in t))
+    return best
 
 
 def sass_check(lib_path):
@@ -1361,6 +1400,21 @@ def sass_check(lib_path):
     noop = {"fp32_pairs": [len(NOOP_GMMA.findall(f)) for f in pairs],
             "gemm_s8": [len(NOOP_GMMA.findall(f)) for f in s8]}
     control = sum(len(tensor_ops(f)) for f in funcs)
+    loops = {}  # each fp32 GEMM instantiation's main loop
+    for f, h in zip(funcs, head):
+        for k in F32_GEMMS:
+            if k in h and main_loop(f):
+                n_f, n_i, n_r = main_loop(f)
+                loops.setdefault(k, []).append(
+                    {"ffma": n_f, "instructions": n_i, "reuse": n_r,
+                     "ffma_share": n_f / n_i})
+    for k, ls in loops.items():
+        sh = [x["ffma_share"] for x in ls]
+        top = max(ls, key=lambda x: x["ffma"])
+        log(f"[sass] {k} main loop ({len(ls)} instantiations): FFMA share "
+            f"{min(sh):.3f}-{max(sh):.3f}; the largest loop "
+            f"{top['ffma']} FFMA of {top['instructions']} instructions, "
+            f"{top['reuse']} FFMA reusing an operand")
     log(f"[sass] FFMA by fp32 kernel: {json.dumps(by_name)}")
     log(f"[sass] {len(f32)} fp32 kernels and {len(pairs)} fp32 pairs: {ffma} "
         f"FFMA, IGMMA in each pair {igmma}, computing tensor-core "
@@ -1372,9 +1426,12 @@ def sass_check(lib_path):
         fail(f"fp32 kernels' SASS: {len(f32)} found ({missing} missing), "
              f"{len(pairs)} pairs, computing tensor-core instructions in "
              f"{tensor}, FFMA by name {by_name}")
+    if set(loops) != set(F32_GEMMS):
+        fail(f"[sass] no main loop found in {set(F32_GEMMS) - set(loops)}")
     return {"fp32_kernels": len(f32), "fp32_pairs": len(pairs), "ffma": ffma,
             "pair_igmma": igmma, "noop_gmma": noop,
-            "tensor_core_in": tensor, "hgmma_in_library": control}
+            "tensor_core_in": tensor, "hgmma_in_library": control,
+            "main_loops": loops}
 
 
 def check_attn_dispatch():
@@ -1840,6 +1897,11 @@ def train_kernel_phase(rows, dt=torch.bfloat16):
                         rec["launch_split"], M)
             else:
                 rows[name].setdefault("fp32", {})["emit_train"] = rec
+                if name == "fused_mlp_branch":  # ln_mod, fc1, fc2
+                    with torch.no_grad():
+                        rec["launch_split"] = launch_split(
+                            kern, f"{name} [{label}]",
+                            [2 * M * D * 4 * D] * 2)
         elif name in BWD_REPLACES:
             what = {"fused_mlp_branch_bwd": "F.gelu"}.get(
                 name, "SDPA" if "spatial" in name else "SDPA(mask)")
@@ -2418,7 +2480,8 @@ def sdpa_path(rows, dt=torch.bfloat16):
         f"{', fp32' if f32 else ''}")
 
 
-# the approximate serving modes driven at full depth (`[e2e approx]`):
+# the approximate serving modes at full width, APPROX_DEPTH blocks
+# (`[e2e approx]`):
 # label, the ServingConfig fields that differ from the exact generator's
 APPROX_MODES = [
     ("bf16 pipelined P=4", dict(pipeline_depth=4)),
@@ -2441,6 +2504,24 @@ APPROX_DEPTH2 = APPROX_MODES + [
     ("bf16 broadcast K=2, pallas", dict(attn_broadcast=2,
                                         attention_backend="pallas")),
 ]
+
+
+APPROX_DEPTH = 4  # [e2e approx]'s depth cut (full width): its timed
+#                  rollouts at 16 blocks took 115-178 s of the smoke
+APPROX_MODEL = f"DiT-S/2 depth {APPROX_DEPTH}"
+
+
+def approx_generator(gen):
+    """The bf16 generator's first APPROX_DEPTH blocks at full width (its
+    VAE whole), registered as APPROX_MODEL, for `[e2e approx]`."""
+    from gtax_torch.models import dit as dit_mod
+    from gtax_torch.serving import VideoGenerator
+
+    cut = dataclasses.replace(gen.dit_cfg, depth=APPROX_DEPTH)
+    dit_mod.DiT_MODELS[APPROX_MODEL] = lambda: cut
+    return VideoGenerator(
+        dict(gen.dit_params, blocks=gen.dit_params["blocks"][:APPROX_DEPTH]),
+        gen.vae_params, dataclasses.replace(gen.cfg, dit_model=APPROX_MODEL))
 
 
 def approx_expected(cfg, dit_cfg, vae_cfg, n_gen):
@@ -2544,8 +2625,9 @@ def latents_close(label, what, got, ref):
 
 
 def approx_path(gen, rows, inputs, lat0, acts):
-    """`[e2e approx]`: each APPROX_MODES generator over the bf16
-    generator's weights (int8: quantized by the serving path), one seeded
+    """`[e2e approx]`: each APPROX_MODES generator over the weights of
+    `gen` (approx_generator's cut of the bf16 generator; int8: quantized
+    by the serving path), one seeded
     generate with every launch count and every DiT call kind zeroed just
     before it and read just after (both must be approx_expected's), then
     its s/frame and the exact generator's in turns in this process (exact,
@@ -2925,7 +3007,7 @@ def end_to_end(rows):
     sdpa_path(rows)
     sdpa_path(rows, torch.float32)
     t0 = time.perf_counter()
-    summary = approx_path(gen, rows, inputs, lat0, acts)
+    summary = approx_path(approx_generator(gen), rows, inputs, lat0, acts)
     log(f"[time] e2e approx: {time.perf_counter() - t0:.1f} s")
     return {"approx": summary, "fp32": fp32}
 
@@ -5055,6 +5137,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    start = time.perf_counter()
     log(f"[env] torch {torch.__version__} (CUDA {torch.version.cuda}); "
         f"device {name}; count {torch.cuda.device_count()}")
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
@@ -5096,6 +5179,7 @@ def main():
         for k, v in row.items():
             if isinstance(v, float) and not math.isfinite(v):
                 fail(f"{row['name']}: {k} is not finite")
+    log(f"[time] the whole smoke: {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": list(rows.values()), "train": train,
                     "temporal": temporal, "approx": e2e["approx"],
                     "e2e_fp32": e2e["fp32"], "sass": sass, "multi": multi,

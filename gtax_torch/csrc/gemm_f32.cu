@@ -31,19 +31,26 @@
 // Bound: operations, 67 TFLOP/s of fp32 FFMA on the H100 SXM, at every
 // main-path shape but the 144-row step's products, where the fp32
 // weights (8-32 MB a product) come close.
-// OP_NN design: 64x64 or 128x128 output tiles of 256 threads, each thread
-// a 4x4 or 8x8 register tile (rows ty*4 + 64 i .., columns tx*4 + 64 j ..),
-// K walked in 16-deep steps through two shared-memory stages filled by
-// cp.async (the next step's copies in flight during this step's FFMAs).
-// A thread reads its A rows as float4 along K and its B columns as float4
-// along N: 16 shared loads for 256 FFMAs at the 8x8 tile. The 128x128
-// tile runs where its blocks fill the card twice over (the VAE's
-// 2,304-3,456 rows), else 64x64 (a denoise step's 144 rows: 48-192
-// blocks), with K cut into chunks where the wrapper passes one
-// (gtax_torch/kernels/block.py f32_chunk: the fewest chunks giving 8
-// blocks an SM): each (tile, chunk) block sums its chunk into an fp32
-// partial, and a second kernel adds the partials in chunk order and runs
-// the epilogue.
+// OP_NN design below 720 rows (the serving step's 144-288, a prefill's
+// 576; gemm_f32_kernel): 64x64 output tiles of 256 threads, each thread
+// a 4x4 register tile (rows ty*4 .., columns tx*4 ..), K walked in
+// 16-deep steps through two shared-memory stages filled by cp.async (the
+// next step's copies in flight during this step's FFMAs). A thread reads
+// its A rows as float4 along K and its B columns as float4 along N (a
+// denoise step's 144 rows: 48-192 blocks), with K cut into chunks where
+// the wrapper passes one (gtax_torch/kernels/block.py f32_chunk: the
+// fewest chunks giving 8 blocks an SM): each (tile, chunk) block sums its
+// chunk into an fp32 partial, and a second kernel adds the partials in
+// chunk order and runs the epilogue.
+// OP_NN from 720 rows (five DiT frames of 144 up to training's 11,520,
+// the VAE's 1,152-3,456; gemm_f32_fwd_kernel): A k-major, as the backward
+// stages it: 128x128
+// tiles, two blocks an SM, 32-row steps through a two-stage cp.async ring
+// whose copies come from pointers set up once; A's rows copied transposed
+// first (f32_transpose_kernel) unless the caller stores them k-major, as
+// the MLP's fc1 does for fc2 (C stored transposed); K cut by f32_chunk's
+// rule for this form (the fewest wave-steps, gtax_torch/kernels/block.py
+// f32_fwd_chunk); chip_smoke.py [sass] prints its main loop's FFMA share.
 // The backward's design (gemm_f32_bwd_kernel, the training step's 11,520
 // token rows): one kernel for both forms, C = A^T @ B over token rows
 // that lie k-major. A 128-row tile of 256 threads, each thread 8 rows
@@ -76,10 +83,11 @@ constexpr int BK = 16;      // K depth of a stage
 constexpr int kLdA = BK + 4;  // A rows padded: the two row groups of a
                               // warp's loads fall in different banks
 
-template <int BM, int BN>
+constexpr int kTile = 64;     // gemm_f32_kernel's output tile, square
+
 struct Stages {
-  float a[2][BM][kLdA];
-  float b[2][BK][BN];
+  float a[2][kTile][kLdA];
+  float b[2][BK][kTile];
 };
 
 // The backward's forms (gemm_f32_bwd_kernel), by epilogue: a 128-row
@@ -125,8 +133,9 @@ struct F32Args {
   int n_q, q_off, hd;
   int M, N, K;
   int k_chunk;  // the K a block sums: K, or a chunk of a split product
-  int lda;      // gemm_f32_bwd_kernel: A's row stride (at least M, a
-                // multiple of 4)
+  int lda;      // gemm_f32_bwd_kernel, gemm_f32_fwd_kernel (A k-major):
+                // A's row stride (at least M, a multiple of 4)
+  int ldc;      // gemm_f32_fwd_kernel with C transposed: C's row stride
 };
 
 __device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
@@ -136,6 +145,50 @@ __device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
 
 __device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// A bias epilogue's value at columns gn .. gn + 3 of row gm (gn a
+// multiple of 4, all inside N), left in v for C; the second output (acc +
+// bias to C2: the _Y and _H epilogues) stored here.
+template <int EPI>
+__device__ __forceinline__ void bias_value4(const F32Args& e, int gm, int gn,
+                                            float (&v)[4]) {
+  const size_t o = (size_t)gm * e.N + gn;
+  float y[4], z[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    y[i] = v[i] + load_bias(e.bias, e.bias_f32, gn + i);
+  if constexpr (EPI == EPI_BIAS_GATED || EPI == EPI_BIAS_GATED_Y ||
+                EPI == EPI_BIAS_BF16_RESID) {
+    float x[4];
+    ld4(e.resid + o, x);
+    if constexpr (EPI == EPI_BIAS_GATED || EPI == EPI_BIAS_GATED_Y) {
+      float g[4];
+      ld4(e.gate + (size_t)(gm / e.S) * e.gate_stride + gn, g);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) z[i] = x[i] + g[i] * y[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) z[i] = x[i] + y[i];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (EPI == EPI_BIAS_GELU_TANH ||
+                    EPI == EPI_BIAS_GELU_TANH_H)
+        z[i] = gelu_tanh(y[i]);
+      else if constexpr (EPI == EPI_BIAS_GELU_ERF ||
+                         EPI == EPI_BIAS_GELU_ERF_H)
+        z[i] = gelu_exact(y[i]);
+      else if constexpr (EPI == EPI_BIAS_BF16_GELU) z[i] = gelu_erf(y[i]);
+      else z[i] = y[i];  // EPI_BIAS_BF16
+    }
+  }
+  if constexpr (EPI == EPI_BIAS_GATED_Y || EPI == EPI_BIAS_GELU_TANH_H ||
+                EPI == EPI_BIAS_GELU_ERF_H)
+    st4(e.C2 + o, y);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = z[i];
 }
 
 // Columns gn .. gn + 3 of row gm (gn a multiple of 4, all inside N).
@@ -183,52 +236,20 @@ __device__ __forceinline__ void store4(const F32Args& e, int gm, int gn,
     float* dst = third == 0 ? e.C : third == 1 ? e.C2 : e.C3;
     st4(dst + (size_t)gm * D + c_d, z);
   } else {  // the bias epilogues
-    float y[4], z[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      y[i] = v[i] + load_bias(e.bias, e.bias_f32, gn + i);
-    if constexpr (EPI == EPI_BIAS_GATED || EPI == EPI_BIAS_GATED_Y ||
-                  EPI == EPI_BIAS_BF16_RESID) {
-      float x[4];
-      ld4(e.resid + o, x);
-      if constexpr (EPI == EPI_BIAS_GATED || EPI == EPI_BIAS_GATED_Y) {
-        float g[4];
-        ld4(e.gate + (size_t)(gm / e.S) * e.gate_stride + gn, g);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) z[i] = x[i] + g[i] * y[i];
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) z[i] = x[i] + y[i];
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if constexpr (EPI == EPI_BIAS_GELU_TANH ||
-                      EPI == EPI_BIAS_GELU_TANH_H)
-          z[i] = gelu_tanh(y[i]);
-        else if constexpr (EPI == EPI_BIAS_GELU_ERF ||
-                           EPI == EPI_BIAS_GELU_ERF_H)
-          z[i] = gelu_exact(y[i]);
-        else if constexpr (EPI == EPI_BIAS_BF16_GELU) z[i] = gelu_erf(y[i]);
-        else z[i] = y[i];  // EPI_BIAS_BF16
-      }
-    }
-    st4(e.C + o, z);
-    if constexpr (EPI == EPI_BIAS_GATED_Y || EPI == EPI_BIAS_GELU_TANH_H ||
-                  EPI == EPI_BIAS_GELU_ERF_H)
-      st4(e.C2 + o, y);
+    bias_value4<EPI>(e, gm, gn, v);
+    st4(e.C + o, v);
   }
 }
 
-// One BM x BN output tile a block of A @ B, over K chunk blockIdx.z (its
+// One 64 x 64 output tile a block of A @ B, over K chunk blockIdx.z (its
 // partial, EPI_F32, at C + z M N); thread (ty, tx) = (tid / 16, tid % 16)
-// holds rows 64 i + 4 ty + r and columns 64 j + 4 tx + c.
-template <int BM, int BN, int EPI>
+// holds rows 4 ty + r and columns 4 tx + c.
+template <int EPI>
 __global__ void __launch_bounds__(kThreads)
     gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
                     F32Args e) {
-  constexpr int TM = BM / 16, TN = BN / 16;
-  __shared__ __align__(16) Stages<BM, BN> sm;
+  constexpr int BM = kTile, BN = kTile, TM = 4, TN = 4;
+  __shared__ __align__(16) Stages sm;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int M = e.M, N = e.N, K = e.K;
@@ -270,16 +291,11 @@ __global__ void __launch_bounds__(kThreads)
       float a[TM][4];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
-        ld4(&sm.a[s][(i / 4) * 64 + ty * 4 + i % 4][kk], a[i]);
+        ld4(&sm.a[s][ty * 4 + i][kk], a[i]);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         float b[TN];
-#pragma unroll
-        for (int j = 0; j < TN; j += 4) {
-          float q[4];
-          ld4(&sm.b[s][kk + k][(j / 4) * 64 + tx * 4], q);
-          b[j] = q[0], b[j + 1] = q[1], b[j + 2] = q[2], b[j + 3] = q[3];
-        }
+        ld4(&sm.b[s][kk + k][tx * 4], b);
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -290,17 +306,13 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // every thread is done with stage s before its refill
   }
 
+  const int gn = n0 + tx * 4;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + (i / 4) * 64 + ty * 4 + i % 4;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; j += 4) {
-      const int gn = n0 + (j / 4) * 64 + tx * 4;
-      if (gn >= N) continue;
-      float v[4] = {acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]};
-      store4<EPI>(e, gm, gn, v);
-    }
+    const int gm = m0 + ty * 4 + i;
+    if (gm >= M || gn >= N) continue;
+    float v[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
+    store4<EPI>(e, gm, gn, v);
   }
 }
 
@@ -427,6 +439,161 @@ __global__ void __launch_bounds__(kThreads, BwdShape<EPI>::BLOCKS)
   }
 }
 
+// The forward product at training and VAE rows (gemm_f32_fwd_kernel,
+// M >= kFwdRows): a 128 x TW tile a block over a ring of STAGES steps of
+// KS k rows, BLOCKS blocks an SM (8 x 8 outputs a thread, in at most 128
+// registers), A k-major (K, lda) as the backward's token rows lie: the
+// entry point copies a row-major A transposed first (f32_transpose_kernel),
+// or the caller hands it over k-major (the fc1 epilogue's transposed store
+// of the GELU rows that fc2 reads). Two blocks of 128 x 128 an SM beat one
+// of 128 x 256 at the VAE's rows (27 row tiles) and matched it at 11,520;
+// A staged from its (M, K) rows, through registers or by 4-byte cp.async,
+// ran below k-major A; loading k + 1's operands while k's FFMAs ran moved
+// nothing (PERF.md section 6; gtax_torch/tools/gemm_sweep.py --f32
+// times the shape constants below from a copy of the tree).
+struct FwdShape {
+  static constexpr int TW = 128, KS = 32, STAGES = 2, BLOCKS = 2;
+};
+// From kFwdRows rows the form beat gemm_f32_kernel's tiles at the plan's
+// chunks on each of the four products at 720, 1,152 and 1,440 rows
+// (1.13-1.49x); at 576 the out-projection lost (0.91x; PERF.md section 6;
+// gtax_torch/tools/gemm_sweep.py --f32 on a copy of the tree with
+// kFwdRows 576, NVIDIA H100 80GB HBM3, 700 W).
+constexpr int kFwdRows = 720;  // five DiT frames of 144 rows
+
+struct FwdStage {
+  float a[FwdShape::KS][kBwdTile];
+  float b[FwdShape::KS][FwdShape::TW];
+};
+
+// C = epilogue(A @ B) over K chunk blockIdx.z (its partial, EPI_F32, at C
+// + z M N; the steps past the chunk's end zero-filled), A (K, lda)
+// k-major, B (K, N) row-major. Thread (ty, tx) holds rows ty*4 + 64 i ..
+// and columns tx*4 + 64 j ..; each k's operands are four float4 shared
+// loads for 64 FFMAs. A step's copies are 16-byte cp.async from pointers
+// set up once (only the last step of a chunk checks each row against its
+// end). CT: C stored transposed, (N, e.ldc): a bias epilogue's value, its
+// second output row-major; a thread's four rows of a column one float4,
+// rows past M zero.
+template <int EPI, bool CT>
+__global__ void __launch_bounds__(kThreads, FwdShape::BLOCKS)
+    gemm_f32_fwd_kernel(const float* __restrict__ A,
+                        const float* __restrict__ B, F32Args e) {
+  constexpr int T = kBwdTile, TW = FwdShape::TW, TJ = TW / 16;
+  constexpr int KS = FwdShape::KS, STAGES = FwdShape::STAGES;
+  // a thread's copies: a 16-byte column, rows AR (BR) apart
+  constexpr int AR = kThreads / (T / 4), BR = kThreads / (TW / 4);
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  FwdStage* ring = reinterpret_cast<FwdStage*>(fwd_smem);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * T, n0 = blockIdx.x * TW;
+  const int M = e.M, N = e.N, K = e.K, lda = e.lda;
+  const int k_begin = blockIdx.z * e.k_chunk;
+  const int k_end = min(K, k_begin + e.k_chunk);
+  const int steps = (k_end - k_begin + KS - 1) / KS;
+  if constexpr (EPI == EPI_F32) e.C += (size_t)blockIdx.z * M * N;
+  const int a_col = (tid % (T / 4)) * 4, a_row = tid / (T / 4);
+  const int b_col = (tid % (TW / 4)) * 4, b_row = tid / (TW / 4);
+  const bool a_ok = m0 + a_col < lda, b_ok = n0 + b_col < N;
+  const float* a_src =
+      A + (size_t)(k_begin + a_row) * lda + min(m0 + a_col, lda - 4);
+  const float* b_src =
+      B + (size_t)(k_begin + b_row) * N + min(n0 + b_col, N - 4);
+
+  auto load = [&](int s, int step) {  // the chunk's step `step` to stage s
+    FwdStage& st = ring[s];
+    const int k0 = k_begin + step * KS;
+    const float* pa = a_src + (size_t)step * KS * lda;
+    const float* pb = b_src + (size_t)step * KS * N;
+    if (k0 + KS <= k_end) {
+#pragma unroll
+      for (int q = 0; q < KS / AR; ++q)
+        cp_async16(&st.a[q * AR + a_row][a_col], pa + (size_t)q * AR * lda,
+                   a_ok ? 16 : 0);
+#pragma unroll
+      for (int q = 0; q < KS / BR; ++q)
+        cp_async16(&st.b[q * BR + b_row][b_col], pb + (size_t)q * BR * N,
+                   b_ok ? 16 : 0);
+    } else {  // the chunk's last, short step
+#pragma unroll
+      for (int q = 0; q < KS / AR; ++q) {
+        const bool ok = a_ok && k0 + q * AR + a_row < k_end;
+        cp_async16(&st.a[q * AR + a_row][a_col],
+                   ok ? pa + (size_t)q * AR * lda : A, ok ? 16 : 0);
+      }
+#pragma unroll
+      for (int q = 0; q < KS / BR; ++q) {
+        const bool ok = b_ok && k0 + q * BR + b_row < k_end;
+        cp_async16(&st.b[q * BR + b_row][b_col],
+                   ok ? pb + (size_t)q * BR * N : B, ok ? 16 : 0);
+      }
+    }
+  };
+
+  float acc[8][TJ];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TJ; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();  // empty groups keep the wait count uniform
+  }
+  for (int kt = 0; kt < steps; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step kt landed; every thread left step kt - 1
+    const int next = kt + STAGES - 1;
+    if (next < steps) load(next % STAGES, next);
+    cp_async_commit();
+    const FwdStage& st = ring[kt % STAGES];
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      float a[2][4], b[TJ / 4][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) ld4(&st.a[k][64 * h + ty * 4], a[h]);
+#pragma unroll
+      for (int h = 0; h < TJ / 4; ++h) ld4(&st.b[k][64 * h + tx * 4], b[h]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < TJ; ++j)
+          acc[i][j] = fmaf(a[i / 4][i % 4], b[j / 4][j % 4], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gm0 = m0 + 64 * h + ty * 4;
+#pragma unroll
+    for (int j = 0; j < TJ; j += 4) {
+      const int gn = n0 + (j / 4) * 64 + tx * 4;
+      if (gn >= N || gm0 >= M) continue;
+      float z[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float v[4] = {acc[4 * h + r][j], acc[4 * h + r][j + 1],
+                      acc[4 * h + r][j + 2], acc[4 * h + r][j + 3]};
+        if (gm0 + r < M) {
+          if constexpr (CT)
+            bias_value4<EPI>(e, gm0 + r, gn, v);
+          else
+            store4<EPI>(e, gm0 + r, gn, v);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) z[r][c] = gm0 + r < M ? v[c] : 0.f;
+      }
+      if constexpr (CT) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float col[4] = {z[0][c], z[1][c], z[2][c], z[3][c]};
+          st4(e.C + (size_t)(gn + c) * e.ldc + gm0, col);
+        }
+      }
+    }
+  }
+}
+
 // out (C, ldo) = in (R, C)^T, fp32, C a multiple of 4 and ldo R rounded
 // up to 4 (out's columns past R zero), through 64 x 65 shared tiles:
 // 16-byte loads along C and stores along R (OP_NT's operand copies,
@@ -456,8 +623,9 @@ __global__ void __launch_bounds__(256)
 }
 
 // The split product's second step: the chunks' partials (splits, M, N)
-// added in chunk order, then the epilogue; a thread a four-column group.
-template <int EPI>
+// added in chunk order, then the epilogue; a thread a four-column group
+// (CT: stored transposed, (N, e.ldc), four 4-byte stores).
+template <int EPI, bool CT = false>
 __global__ void __launch_bounds__(kThreads)
     f32_reduce_kernel(const float* __restrict__ part, int splits,
                       const F32Args e) {
@@ -474,47 +642,38 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < 4; ++i) v[i] += w[i];
   }
-  store4<EPI>(e, gm, gn, v);
-}
-
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if constexpr (CT) {  // the last row's thread zeroes the rows past M
+    bias_value4<EPI>(e, gm, gn, v);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float* col = e.C + (size_t)(gn + c) * e.ldc;
+      col[gm] = v[c];
+      if (gm == e.M - 1)
+        for (int r = e.M; r < e.ldc; ++r) col[r] = 0.f;
+    }
+  } else {
+    store4<EPI>(e, gm, gn, v);
   }
-  return sms;
 }
 
-// The 128x128 tile (one block an SM) where its blocks fill the card twice
-// over, else 64x64 (three blocks an SM): gtax_torch/kernels/block.py
-// f32_chunk plans the split on the same rule.
-bool wide_tile(int M, int N) {
-  return (long long)((M + 127) / 128) * ((N + 127) / 128) >= 2 * sm_count();
-}
-
-// One call: the tile's kernel over the whole of K, or, with e.k_chunk <
-// K, the 64x64 tile's partials (EPI_F32 into part) and the reduction.
+// One call below kFwdRows: the 64x64 tile over the whole of K, or, with
+// e.k_chunk < K, its partials (EPI_F32 into part) and the reduction.
 template <int EPI>
 int launch(const float* A, const float* B, const F32Args& e, float* part,
            cudaStream_t st) {
   const int splits = e.K / e.k_chunk;
+  const dim3 grid((e.N + kTile - 1) / kTile, (e.M + kTile - 1) / kTile,
+                  splits);
   if (splits > 1) {
     F32Args p = e;
     p.C = part;
-    const dim3 grid((e.N + 63) / 64, (e.M + 63) / 64, splits);
-    gemm_f32_kernel<64, 64, EPI_F32><<<grid, kThreads, 0, st>>>(A, B, p);
+    gemm_f32_kernel<EPI_F32><<<grid, kThreads, 0, st>>>(A, B, p);
     const long long groups = (long long)e.M * (e.N / 4);
     f32_reduce_kernel<EPI>
         <<<(unsigned)((groups + kThreads - 1) / kThreads), kThreads, 0, st>>>(
             part, splits, e);
-  } else if (wide_tile(e.M, e.N)) {
-    const dim3 grid((e.N + 127) / 128, (e.M + 127) / 128);
-    gemm_f32_kernel<128, 128, EPI><<<grid, kThreads, 0, st>>>(A, B, e);
   } else {
-    const dim3 grid((e.N + 63) / 64, (e.M + 63) / 64);
-    gemm_f32_kernel<64, 64, EPI><<<grid, kThreads, 0, st>>>(A, B, e);
+    gemm_f32_kernel<EPI><<<grid, kThreads, 0, st>>>(A, B, e);
   }
   return (int)cudaGetLastError();
 }
@@ -567,6 +726,68 @@ int launch_nt(const float* A, const float* W, F32Args e, float* ws,
   return (int)cudaGetLastError();
 }
 
+// gemm_f32_fwd_kernel over `splits` K chunks of e.k_chunk (the ring's
+// shared memory opted into at its first launch)
+template <int EPI, bool CT>
+int launch_fwd_kernel(const float* A, const float* B, const F32Args& e,
+                      int splits, cudaStream_t st) {
+  static size_t opted = 48 * 1024;
+  constexpr size_t smem = FwdShape::STAGES * sizeof(FwdStage);
+  const cudaError_t err = opt_in_smem(gemm_f32_fwd_kernel<EPI, CT>, smem,
+                                      opted);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int TW = FwdShape::TW;
+  const dim3 grid((e.N + TW - 1) / TW, (e.M + kBwdTile - 1) / kBwdTile,
+                  splits);
+  gemm_f32_fwd_kernel<EPI, CT><<<grid, kThreads, smem, st>>>(A, B, e);
+  return (int)cudaGetLastError();
+}
+
+// The forward at M >= kFwdRows: A (M, K) row-major (e.lda 0) copied
+// transposed into ws ((K, M4), M4 = M rounded up to 4) first, or given
+// k-major (e.lda); then the product over ceil(K / e.k_chunk) chunks, their
+// partials (after the copy in ws) added in chunk order by the reduction
+// with the epilogue
+template <int EPI, bool CT>
+int launch_fwd(const float* A, const float* B, F32Args e, float* ws,
+               cudaStream_t st) {
+  if (e.lda == 0) {
+    e.lda = transpose(A, ws, e.M, e.K, st);
+    A = ws;
+    ws += (size_t)e.K * e.lda;
+  }
+  const int splits = (e.K + e.k_chunk - 1) / e.k_chunk;
+  if (splits == 1) return launch_fwd_kernel<EPI, CT>(A, B, e, 1, st);
+  F32Args p = e;
+  p.C = ws;
+  const int err = launch_fwd_kernel<EPI_F32, false>(A, B, p, splits, st);
+  if (err) return err;
+  const long long groups = (long long)e.M * (e.N / 4);
+  f32_reduce_kernel<EPI, CT>
+      <<<(unsigned)((groups + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+          ws, splits, e);
+  return (int)cudaGetLastError();
+}
+
+// the epilogues whose C can be stored transposed (the GELU rows fc2 reads)
+template <int EPI>
+constexpr bool kGeluEpi =
+    EPI == EPI_BIAS_GELU_TANH || EPI == EPI_BIAS_GELU_TANH_H ||
+    EPI == EPI_BIAS_GELU_ERF || EPI == EPI_BIAS_GELU_ERF_H ||
+    EPI == EPI_BIAS_BF16_GELU;
+
+// the forward's launch by form: gemm_f32_fwd_kernel from kFwdRows rows,
+// else gemm_f32_kernel's tiles
+template <int EPI>
+int launch_any(const float* A, const float* B, const F32Args& e, float* ws,
+               cudaStream_t st) {
+  if (e.M < kFwdRows) return launch<EPI>(A, B, e, ws, st);
+  if constexpr (kGeluEpi<EPI>) {
+    if (e.ldc) return launch_fwd<EPI, true>(A, B, e, ws, st);
+  }
+  return launch_fwd<EPI, false>(A, B, e, ws, st);
+}
+
 bool aligned16(std::initializer_list<const void*> ptrs) {
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16) return false;
@@ -589,17 +810,27 @@ bool aligned16(std::initializer_list<const void*> ptrs) {
 // to part, (K / k_chunk, M, N) fp32, before the epilogue adds them in order.
 // trans_b: part a workspace of K M4 + K N floats (A^T, its rows padded to
 // M4 = M rounded up to 4, and W^T), then the partials' (K / k_chunk) M N
-// where K is split.
+// where K is split. The forward from kFwdRows rows (gemm_f32_fwd_kernel):
+// k_chunk any multiple of 16 up to K (ceil(K / k_chunk) chunks, the last
+// one short); lda 0, A (M, K) row-major, copied transposed to the start
+// of part (K M4 floats), or lda > 0, A given k-major, (K, lda), lda >= M a
+// multiple of 4; ldc > 0 (a GELU epilogue): C stored transposed, (N, ldc),
+// ldc >= M a multiple of 4, rows past M zero (C2 stays (M, N)); the
+// partials follow the copy in part. Below kFwdRows, lda = ldc = 0.
 GTAX_ENTRY gtax_gemm_f32(const void* A, const void* B, void* C, void* C2,
                          const void* aux, void* colsum, const void* bias,
                          int bias_f32, const void* resid, const void* gate,
                          int gate_stride, int M, int N, int K, int S, int epi,
-                         int trans_b, int k_chunk, void* part, void* stream) {
+                         int trans_b, int k_chunk, int lda, int ldc,
+                         void* part, void* stream) {
+  const bool fwd = !trans_b && M >= kFwdRows;
   if (M <= 0 || N <= 0 || K <= 0 || N % 4 || K % BK || S <= 0 ||
       !aligned16({A, B, C, C2, aux, resid, gate, part}) || gate_stride % 4 ||
-      k_chunk <= 0 || k_chunk % BK || K % k_chunk ||
-      (k_chunk < K && part == nullptr) ||
-      (trans_b && part == nullptr))
+      k_chunk <= 0 || k_chunk % BK || k_chunk > K ||
+      (!fwd && (K % k_chunk || lda || ldc)) ||
+      (fwd && (lda < 0 || (lda && (lda < M || lda % 4)) || ldc < 0 ||
+               (ldc && (ldc < M || ldc % 4)))) ||
+      ((k_chunk < K || trans_b || (fwd && !lda)) && part == nullptr))
     return (int)cudaErrorInvalidValue;
   const bool has_bias = epi != EPI_F32 && epi != EPI_DGELU;
   const bool has_resid = epi == EPI_BIAS_GATED || epi == EPI_BIAS_GATED_Y ||
@@ -613,7 +844,10 @@ GTAX_ENTRY gtax_gemm_f32(const void* A, const void* B, void* C, void* C2,
       has_c2 != (C2 != nullptr) ||
       (epi == EPI_DGELU &&
        (aux == nullptr || colsum == nullptr || k_chunk < K || !trans_b)) ||
-      (trans_b && epi != EPI_F32 && epi != EPI_DGELU))
+      (trans_b && epi != EPI_F32 && epi != EPI_DGELU) ||
+      (ldc && epi != EPI_BIAS_GELU_TANH && epi != EPI_BIAS_GELU_TANH_H &&
+       epi != EPI_BIAS_GELU_ERF && epi != EPI_BIAS_GELU_ERF_H &&
+       epi != EPI_BIAS_BF16_GELU))
     return (int)cudaErrorInvalidValue;
   F32Args e{};
   e.C = static_cast<float*>(C);
@@ -630,6 +864,8 @@ GTAX_ENTRY gtax_gemm_f32(const void* A, const void* B, void* C, void* C2,
   e.N = N;
   e.K = K;
   e.k_chunk = k_chunk;
+  e.lda = lda;
+  e.ldc = ldc;
   const float* a = static_cast<const float*>(A);
   const float* b = static_cast<const float*>(B);
   float* p = static_cast<float*>(part);
@@ -640,7 +876,7 @@ GTAX_ENTRY gtax_gemm_f32(const void* A, const void* B, void* C, void* C2,
   switch (epi) {
 #define GTAX_F32_CASE(E) \
   case E:                \
-    return launch<E>(a, b, e, p, st);
+    return launch_any<E>(a, b, e, p, st);
     GTAX_F32_CASE(EPI_F32)
     GTAX_F32_CASE(EPI_BIAS_BF16)
     GTAX_F32_CASE(EPI_BIAS_GELU_TANH)
@@ -684,7 +920,8 @@ GTAX_ENTRY gtax_gemm_f32_wgrad(const void* A, const void* B, void* C, int M,
 // q, k, v (M, D) = the three column thirds of A (M, D) @ B (D, 3D), rope
 // (fp32, sincosf) on q and k at the row's window slot q_off + (r / S) % n_q
 // of freqs ((slots, hd) fp32), nothing rounded; K split as gtax_gemm_f32's
-// (part: (D / k_chunk, M, 3D) fp32).
+// (part: (D / k_chunk, M, 3D) fp32; from kFwdRows rows A's transposed
+// copy, D M4 floats, then ceil(D / k_chunk) partials).
 GTAX_ENTRY gtax_gemm_f32_rope_qkv(const void* A, const void* B, void* q,
                                   void* k, void* v, const void* freqs, int M,
                                   int D, int S, int n_q, int q_off, int hd,
@@ -692,8 +929,9 @@ GTAX_ENTRY gtax_gemm_f32_rope_qkv(const void* A, const void* B, void* q,
   if (M <= 0 || D <= 0 || D % BK || S <= 0 || n_q <= 0 || q_off < 0 ||
       hd <= 0 || hd % 4 || D % hd || freqs == nullptr || q == nullptr ||
       k == nullptr || v == nullptr || !aligned16({A, B, q, k, v, part}) ||
-      k_chunk <= 0 || k_chunk % BK || D % k_chunk ||
-      (k_chunk < D && part == nullptr))
+      k_chunk <= 0 || k_chunk % BK || k_chunk > D ||
+      (M < kFwdRows && D % k_chunk) ||
+      ((k_chunk < D || M >= kFwdRows) && part == nullptr))
     return (int)cudaErrorInvalidValue;
   F32Args e{};
   e.C = static_cast<float*>(q);
@@ -708,8 +946,8 @@ GTAX_ENTRY gtax_gemm_f32_rope_qkv(const void* A, const void* B, void* q,
   e.N = 3 * D;
   e.K = D;
   e.k_chunk = k_chunk;
-  return launch<EPI_ROPE_QKV>(static_cast<const float*>(A),
-                              static_cast<const float*>(B), e,
-                              static_cast<float*>(part),
-                              (cudaStream_t)stream);
+  return launch_any<EPI_ROPE_QKV>(static_cast<const float*>(A),
+                                  static_cast<const float*>(B), e,
+                                  static_cast<float*>(part),
+                                  (cudaStream_t)stream);
 }

@@ -309,33 +309,76 @@ def small_plan(M, N, K, sms, tile_n, k_step, max_rows, max_splits,
     return chunk if small < tiled else 0
 
 
-# gemm_f32's tiling (csrc/gemm_f32.cu): the two tiles' rows and columns,
-# its k-step, the most K chunks a split product takes, and the blocks an SM
-# a split aims for (`python -m gtax_torch.tools.gemm_sweep --f32`, NVIDIA
-# H100 80GB HBM3, 700 W: at the serving rows every product ran fastest, or
-# within 6% of it, at the fewest chunks giving 8 blocks an SM; 3 of the
-# 64x64 tile's blocks fit on an SM at once)
-# (the 128x128 tile, one block an SM, where its blocks fill the SMs twice:
-# at 1.1-1.2 waves it lost to the split 64x64 tile by 29-41%)
-F32_TILE, F32_WIDE_TILE, F32_K_STEP, F32_MAX_SPLITS = 64, 128, 16, 8
-F32_BLOCKS_PER_SM, F32_WIDE_WAVES = 8, 2
+# gemm_f32's tiling below F32_FWD_ROWS rows (csrc/gemm_f32.cu
+# gemm_f32_kernel): the tile's rows and columns, its k-step, the most K
+# chunks a split product takes, and the blocks an SM a split aims for
+# (`python -m gtax_torch.tools.gemm_sweep --f32`, NVIDIA H100 80GB HBM3,
+# 700 W: at the serving rows every product ran fastest, or within 6% of
+# it, at the fewest chunks giving 8 blocks an SM; 3 of the 64x64 tile's
+# blocks fit on an SM at once)
+F32_TILE, F32_K_STEP, F32_MAX_SPLITS, F32_BLOCKS_PER_SM = 64, 16, 8, 8
+
+
+# gemm_f32's forward from F32_FWD_ROWS rows (csrc/gemm_f32.cu
+# gemm_f32_fwd_kernel, FwdShape and kFwdRows): five DiT frames' 720 rows
+# up to training's 11,520, and the VAE's 1,152-3,456, on 128x128 tiles of
+# 32-row k-steps, two blocks an SM, over A stored k-major; K of more than
+# F32_FWD_SPLIT_STEPS steps, or tiles that leave an SM's slots idle, are
+# split by f32_fwd_chunk (`python -m gtax_torch.tools.gemm_sweep --f32`,
+# NVIDIA H100 80GB HBM3, 700 W: within 4% of the fastest chunk count at
+# every product from 2,304 rows, 10-18% off it at some of 720-1,440, and
+# 1.13-1.49x gemm_f32_kernel's time there; PERF.md section 6)
+F32_FWD_ROWS, F32_FWD_TILE, F32_FWD_K_STEP, F32_FWD_BLOCKS = 720, 128, 32, 2
+F32_FWD_SPLIT_STEPS = 32
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def f32_fwd_chunk(M, N, K, sms):
+    """K chunk of the forward from F32_FWD_ROWS rows: K where K is at most
+    F32_FWD_SPLIT_STEPS k-steps and the tiles fill the F32_FWD_BLOCKS x
+    sms slots; else, of 1 to F32_MAX_SPLITS chunks of whole k-steps (the
+    last one short), the count with the fewest wave-steps, ceil(tiles x
+    chunks / slots) waves of a chunk's steps, each chunk counted one step
+    more (its partial stored and read again); the fewest on a tie. At the
+    VAE decode's 3,456 rows fc2 (216 tiles of 128 steps) takes 6 chunks,
+    at training's 11,520 rows 4; every K = 1,024 product there, one."""
+    steps = _cdiv(K, F32_FWD_K_STEP)
+    tiles = _cdiv(M, F32_FWD_TILE) * _cdiv(N, F32_FWD_TILE)
+    slots = F32_FWD_BLOCKS * sms
+    if steps <= F32_FWD_SPLIT_STEPS and tiles >= slots:
+        return K
+    best = None
+    for s in range(1, F32_MAX_SPLITS + 1):
+        c = _cdiv(steps, s)
+        splits = _cdiv(steps, c)
+        cost = _cdiv(tiles * splits, slots) * c + splits
+        if best is None or cost < best[0]:
+            best = (cost, splits, c)
+    return K if best[1] == 1 else best[2] * F32_FWD_K_STEP
+
+
+def f32_fwd_ld(dtype, M) -> int:
+    """The row stride of a k-major copy of an (M, K) fp32 operand of the
+    forward from F32_FWD_ROWS rows (M rounded up to 4), which fc1's GELU
+    rows are stored as for fc2; 0 where that form does not run."""
+    if dtype == torch.float32 and M >= F32_FWD_ROWS:
+        return _cdiv(M, 4) * 4
+    return 0
 
 
 def f32_chunk(M, N, K, sms):
-    """K chunk of an fp32 GEMM (K: one pass, no split). The 128x128 tile
-    where its blocks fill the card's SMs F32_WIDE_WAVES times, unsplit
-    (the VAE's 2,304-3,456 rows); else the 64x64 tile over the fewest K
-    chunks (whole k-steps dividing K, at most F32_MAX_SPLITS) that give
+    """K chunk of an fp32 GEMM (K: one pass, no split): f32_fwd_chunk from
+    F32_FWD_ROWS rows; below, the 64x64 tile over the fewest K chunks
+    (whole k-steps dividing K, at most F32_MAX_SPLITS) that give
     F32_BLOCKS_PER_SM blocks an SM, or the most chunks there are: at a
     denoise step's 144 rows the out-projection and fc2 make 48 blocks
     unsplit, qkv 144, fc1 192."""
-    def cdiv(a, b):
-        return -(-a // b)
-
-    if (cdiv(M, F32_WIDE_TILE) * cdiv(N, F32_WIDE_TILE)
-            >= F32_WIDE_WAVES * sms):
-        return K
-    blocks = cdiv(M, F32_TILE) * cdiv(N, F32_TILE)
+    if M >= F32_FWD_ROWS:
+        return f32_fwd_chunk(M, N, K, sms)
+    blocks = _cdiv(M, F32_TILE) * _cdiv(N, F32_TILE)
     chunk = K
     for c in range(2, F32_MAX_SPLITS + 1):
         if blocks * (K // chunk) >= F32_BLOCKS_PER_SM * sms:
@@ -523,7 +566,7 @@ F32_SLAB = 64
 
 def launch_gemm_f32(a, w, out, M, N, K, epi, bias=None, resid=None,
                     gate=None, S=1, k_chunk=None, out2=None, aux=None,
-                    colsum=None, trans_b=False):
+                    colsum=None, trans_b=False, lda=0, ldc=0):
     """out = epilogue(a @ w), or a @ w^T with trans_b (w stored (N, K)),
     all fp32, on the CUDA cores (gemm_f32): each of F32_EPILOGUES stores
     its value before the bf16 epilogue's rounding (EPI_BIAS_BF16: acc +
@@ -534,7 +577,11 @@ def launch_gemm_f32(a, w, out, M, N, K, epi, bias=None, resid=None,
     EPI_DGELU, run on transposed copies of a and w in a workspace.
     k_chunk: f32_plan's by default (EPI_DGELU: K, one pass); below K, the
     chunks' partials go through an (M, N) fp32 workspace a chunk and are
-    added in order before the epilogue."""
+    added in order before the epilogue. From F32_FWD_ROWS rows (the
+    forward on gemm_f32_fwd_kernel): a row-major `a` is copied transposed
+    into the workspace first, or lda > 0 hands `a` over k-major, (K, lda);
+    ldc > 0 (a GELU epilogue) stores out transposed, (N, ldc) (f32_fwd_ld
+    gives both strides)."""
     _need(epi in F32_EPILOGUES and (out2 is not None) == (epi in TWO_OUTPUTS)
           and (not trans_b or epi in (EPI_F32, EPI_DGELU))
           and (trans_b or epi != EPI_DGELU),
@@ -543,13 +590,13 @@ def launch_gemm_f32(a, w, out, M, N, K, epi, bias=None, resid=None,
                   + (" with a second output" if out2 is not None else ""))
     if epi == EPI_DGELU:
         k_chunk = K
-    k_chunk, part = _f32_split(a, M, N, K, k_chunk, trans_b)
+    k_chunk, part = _f32_split(a, M, N, K, k_chunk, trans_b, lda)
     build.launch(
         "gtax_gemm_f32", a.data_ptr(), w.data_ptr(), out.data_ptr(),
         _ptr(out2), _ptr(aux), _ptr(colsum), _ptr(bias),
         int(bias is not None and bias.dtype == torch.float32), _ptr(resid),
         _ptr(gate), 0 if gate is None else gate.stride(0), M, N, K, S, epi,
-        int(trans_b), k_chunk, _ptr(part), _stream(a))
+        int(trans_b), k_chunk, lda, ldc, _ptr(part), _stream(a))
 
 
 def gemm_any(a, w, out, M, N, K, epi, **kw):
@@ -605,16 +652,19 @@ def launch_attn_window(q, k, v, out, B, T, S, D, num_heads, bits):
                  out.data_ptr(), B, T, S, D, num_heads, bits, _stream(q))
 
 
-def _f32_split(a, M, N, K, k_chunk=None, trans_b=False):
+def _f32_split(a, M, N, K, k_chunk=None, trans_b=False, lda=0):
     """(k_chunk, fp32 workspace or None) of an fp32 GEMM launch: f32_plan's
     K chunk by default; one (M, N) partial a chunk where there is more than
-    one, after (trans_b) the transposed copies of a, its rows padded to a
-    multiple of 4, and of w (K M4 + K N)."""
+    one, after the transposed copies of a, its rows padded to a multiple of
+    4 (K M4; the forward from F32_FWD_ROWS rows unless lda hands a over
+    k-major), and (trans_b) of w (K N)."""
     if k_chunk is None:
         k_chunk = f32_plan(M, N, K, a.device, trans_b)
-    n = (K // k_chunk) * M * N if k_chunk < K else 0
+    n = _cdiv(K, k_chunk) * M * N if k_chunk < K else 0
     if trans_b:
-        n += K * (-(-M // 4) * 4 + N)
+        n += K * (_cdiv(M, 4) * 4 + N)
+    elif M >= F32_FWD_ROWS and not lda:
+        n += K * _cdiv(M, 4) * 4
     part = None
     if n:
         part = torch.empty(n, dtype=torch.float32, device=a.device)
@@ -624,7 +674,8 @@ def _f32_split(a, M, N, K, k_chunk=None, trans_b=False):
 def launch_gemm_f32_rope_qkv(mod, qkv_w, q, k, v, freqs, S, n_q, q_off, hd,
                              k_chunk=None):
     """launch_gemm_rope_qkv in fp32 (gemm_f32's rope epilogue): q, k, v
-    fp32, nothing rounded; K split as launch_gemm_f32's."""
+    fp32, nothing rounded; K split as launch_gemm_f32's (from F32_FWD_ROWS
+    rows after mod's transposed copy)."""
     M, D = mod.shape
     k_chunk, part = _f32_split(mod, M, 3 * D, D, k_chunk)
     build.launch("gtax_gemm_f32_rope_qkv", mod.data_ptr(), qkv_w.data_ptr(),
@@ -779,18 +830,24 @@ def fused_mlp_branch(x, shift, scale, gate, w1, b1, w2, b2,
     _check_bias("b1", b1, Hd)
     _check_bias("b2", b2, D)
     mod = _modulate_cuda(x, shift, scale)
-    h = torch.empty((N * S, Hd), dtype=x.dtype, device=x.device)
-    h1 = torch.empty_like(h) if emit_train else None
+    # fp32 from F32_FWD_ROWS rows: fc1 stores the GELU rows k-major, as
+    # fc2's form reads them
+    ld = f32_fwd_ld(x.dtype, N * S)
+    h = torch.empty((Hd, ld) if ld else (N * S, Hd), dtype=x.dtype,
+                    device=x.device)
+    h1 = (torch.empty((N * S, Hd), dtype=x.dtype, device=x.device)
+          if emit_train else None)
     if approx_gelu:
         epi = EPI_BIAS_GELU_TANH_H if emit_train else EPI_BIAS_GELU_TANH
     else:
         epi = EPI_BIAS_GELU_ERF_H if emit_train else EPI_BIAS_GELU_ERF
-    gemm_any(mod, w1, h, N * S, Hd, D, epi, bias=b1, out2=h1)
+    gemm_any(mod, w1, h, N * S, Hd, D, epi, bias=b1, out2=h1,
+             **({"ldc": ld} if ld else {}))
     out = torch.empty_like(x)
     y = torch.empty_like(x) if emit_train else None
     gemm_any(h, w2, out, N * S, D, Hd,
              EPI_BIAS_GATED_Y if emit_train else EPI_BIAS_GATED, bias=b2,
-             resid=x, gate=gate, S=S, out2=y)
+             resid=x, gate=gate, S=S, out2=y, **({"lda": ld} if ld else {}))
     fused_mlp_branch.launches += 1
     return (out, h1.reshape(N, S, Hd), y) if emit_train else out
 

@@ -58,9 +58,10 @@ SIGNATURES = {
     "gtax_gemm_s8_consts": (_P,),
     # A, B, q, k, v, freqs, M, D, S, n_q, q_off, hd, k_chunk, part, stream
     "gtax_gemm_rope_qkv": (*(_P,) * 6, *(_I,) * 7, _P, _P),
-    # gtax_gemm_bf16's arguments, over fp32 operands
+    # gtax_gemm_bf16's arguments, over fp32 operands, with lda and ldc
+    # after k_chunk
     "gtax_gemm_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                      _I, _I, _I, _I, _I, _P, _P),
+                      _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # A, B, C, M, Ka, N, chunk, stream (gtax_gemm_wgrad's, over fp32)
     "gtax_gemm_f32_wgrad": (_P, _P, _P, _I, _I, _I, _I, _P),
     # A, B, q, k, v, freqs, M, D, S, n_q, q_off, hd, k_chunk, part, stream

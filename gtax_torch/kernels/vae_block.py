@@ -117,10 +117,15 @@ def fused_vae_block(x, ln1_w, ln1_b, qkv_w, qkv_b, out_w, out_b, ln2_w,
     gemm_any(att, out_w, xm, M, D, D, EPI_BIAS_BF16_RESID, bias=out_b,
              resid=x)
     _blk.launch_ln_mod(xm, h, M, D, S, LN_AFFINE, ln2_w, ln2_b)
-    hh = torch.empty((M, Hd), dtype=dt, device=dev)
-    gemm_any(h, w1, hh, M, Hd, D, EPI_BIAS_BF16_GELU, bias=b1)
+    # fp32 from F32_FWD_ROWS rows: fc1 stores the GELU rows k-major, as
+    # fc2's form reads them
+    ld = _blk.f32_fwd_ld(dt, M)
+    hh = torch.empty((Hd, ld) if ld else (M, Hd), dtype=dt, device=dev)
+    gemm_any(h, w1, hh, M, Hd, D, EPI_BIAS_BF16_GELU, bias=b1,
+             **({"ldc": ld} if ld else {}))
     out = torch.empty_like(x)
-    gemm_any(hh, w2, out, M, D, Hd, EPI_BIAS_BF16_RESID, bias=b2, resid=xm)
+    gemm_any(hh, w2, out, M, D, Hd, EPI_BIAS_BF16_RESID, bias=b2, resid=xm,
+             **({"lda": ld} if ld else {}))
     fused_vae_block.launches += 1
     return out
 

@@ -11,9 +11,14 @@ the four int8 products (fc2 in K groups of 512) at 144 and 288 rows at
 every K chunk the tile takes, beside one `torch._int_mm` of the whole
 product on a column-major weight, the plan's (`quant.s8_chunk`) marked;
 or, with --f32, the fp32 GEMM (`block.launch_gemm_f32`, fp32 FFMA) at the
-four serving products at 144, 288, 576 and 720 rows and the VAE's at
-2,304 and 3,456 rows, at every K chunk it takes (1-8 chunks of whole
-16-deep steps), beside one cuBLAS SGEMM of the same product (no TF32:
+four serving products at 144, 288, 576 and 720 rows, at 1,152 and 1,440
+(the VAE at two frames, training at B=2), the VAE's at 2,304 and 3,456
+rows and the training step's forward products (fc1 1,024 ->
+4,096, fc2 4,096 -> 1,024, qkv 1,024 -> 3,072, out 1,024 -> 1,024) at
+11,520 rows, at every K chunk count it takes (1-8 chunks: of whole
+16-deep steps dividing K, or from the forward's F32_FWD_ROWS of whole
+32-row steps, the last one short; a row-major A, which that form copies
+transposed first), beside one cuBLAS SGEMM of the same product (no TF32:
 strict_matmul), the plan's (`block.f32_plan`) marked; then the fp32
 training step's backward products at 11,520 rows (B=16): dY @ W^T
 (trans_b, EPI_F32) for dy @ W_out^T, dqkv @ W_qkv^T and dh1 @ W1^T, the
@@ -223,6 +228,21 @@ def int8_sweep():
     return rows
 
 
+def f32_chunks(block, M, K):
+    """The K chunks the checkout's gemm_f32 takes at M rows, by chunk
+    count 1-8: from its F32_FWD_ROWS (the forward's k-major form) chunks
+    of whole 32-row steps, the last one short; below (or in a checkout
+    without that form) whole 16-row steps dividing K."""
+    if M >= getattr(block, "F32_FWD_ROWS", M + 1):
+        step, steps = block.F32_FWD_K_STEP, -(-K // block.F32_FWD_K_STEP)
+        chunks = [min(K, -(-steps // s) * step)
+                  for s in range(1, block.F32_MAX_SPLITS + 1)]
+        return sorted(set(chunks), reverse=True)
+    step = block.F32_K_STEP
+    return [K // s for s in range(1, block.F32_MAX_SPLITS + 1)
+            if K % (s * step) == 0]
+
+
 def f32_sweep():
     from gtax_torch.kernels import block
 
@@ -230,8 +250,11 @@ def f32_sweep():
     rows = []
     shapes = [(N, K, what, M) for N, K, _, what in SERVING
               for M in (144, 288, 576, 720)]
+    shapes += [(N, K, "mid " + what, M) for N, K, _, what in SERVING
+               for M in (1152, 1440)]
     shapes += [(N, K, "VAE " + what, M) for N, K, _, what in SERVING
                for M in (2304, 3456)]
+    shapes += [(N, K, "train " + what, BWD_ROWS) for N, K, _, what in SERVING]
     for N, K, what, M in shapes:
         w = torch.from_numpy(gen.standard_normal((K, N)).astype(
             np.float32) * 0.02).cuda()
@@ -241,24 +264,23 @@ def f32_sweep():
         plan = block.f32_plan(M, N, K, a.device)
         lib = median_ms(lambda: torch.matmul(a, w))
         ref = torch.matmul(a, w)
-        step = block.F32_K_STEP
-        for splits in range(1, block.F32_MAX_SPLITS + 1):
-            if K % (splits * step):
-                continue
-            chunk = K // splits
+        for chunk in f32_chunks(block, M, K):
+            splits = -(-K // chunk)
             ms = median_ms(lambda: block.launch_gemm_f32(
                 a, w, out, M, N, K, block.EPI_F32, k_chunk=chunk))
             err = float((out - ref).abs().max() / ref.abs().max())
             mark = "  <- plan" if chunk == plan else ""
             tflops = 2 * M * N * K / ms / 1e9
+            lib_tf = 2 * M * N * K / lib / 1e9
             print(f"[f32] {what:8s} M={M} N={N} K={K} {splits} chunks of "
                   f"{chunk}: {ms:.4f} ms ({tflops:.1f} TFLOP/s), cuBLAS "
-                  f"SGEMM {lib:.4f} ms, max|diff| / max|ref| {err:.3g}{mark}",
-                  flush=True)
+                  f"SGEMM {lib:.4f} ms ({lib_tf:.1f} TFLOP/s), max|diff| / "
+                  f"max|ref| {err:.3g}{mark}", flush=True)
             rows.append({"what": what, "M": M, "N": N, "K": K,
                          "k_chunk": chunk, "splits": splits, "ms": ms,
                          "tflops": tflops, "library_ms": lib,
-                         "rel_err": err, "plan": chunk == plan})
+                         "library_tflops": lib_tf, "rel_err": err,
+                         "plan": chunk == plan})
     return rows
 
 

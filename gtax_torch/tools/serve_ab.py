@@ -8,7 +8,10 @@ also in its emit_train mode at the B=16 training step's 11,520 rows), on
 fixed seeded inputs; and every serving call again at x.dtype = float32
 (its bf16 inputs, biases and context cache cast to fp32: the fp32 forms
 of #1-#4 and #6-#11), named "... fp32", and the fp32 emit_train forwards
-of #1-#3 at B=4, T=5 (the fp32 training step's forward products).
+of #1-#3 at B=4, T=5 (the fp32 training step's forward products); the
+ViT-VAE block `fused_vae_block` (#5) at the encode's 4 frames and the
+decode's 6 of 576 tokens, in bf16 and fp32; and #2 `fused_mlp_branch`'s
+fp32 emit_train at the fp32 training step's B=16 (80 frames, 11,520 rows).
 
     PYTHONPATH=<checkout> python <this file> --save FILE   # outputs
     python <this file> --compare FILE_A FILE_B             # bits
@@ -21,9 +24,10 @@ the checkout's own `quant.quantize_weight`, so each checkout stores them
 as its kernels read them. --save writes every output to FILE; --compare prints, for each
 output (each of a call's outputs: the prefill's K/V cache, emit_train's
 q, k, v apart from the branch output), whether the two files hold the same
-bits (for a bf16 output that differs, the share of elements and the
-largest difference: a split-K sum adds in another order), and exits 1 if
-an int8 output differs; --time
+bits (for an output that differs, the share of elements and the largest
+difference: a split-K sum adds in another order), then whether every
+int8, bf16 and fp32 output is bit-equal (naming the fp32 ones that
+differ), and exits 1 if an int8 output differs; --time
 prints each call's CUDA-event median (L2 flushed and the stream held 10 ms
 before each call) and, last, a JSON object of them. To compare speed, run
 --time for each checkout in turns (A, B, B, A).
@@ -51,7 +55,7 @@ def _rand(gen, shape, std=1.0):
 def cases():
     """name -> a call of one wrapper on its inputs."""
     from gtax_torch.core import rope
-    from gtax_torch.kernels import block, pair, quant
+    from gtax_torch.kernels import block, pair, quant, vae_block
 
     sf = rope.axial_freqs(rope.pixel_freqs(HD // 2, 256.0), (9, 16),
                           pixel=True).reshape(S, HD).cuda()
@@ -125,6 +129,18 @@ def cases():
     out[f"mlp_branch_q emit_train N={N}"] = (
         lambda *a: quant.fused_mlp_branch_q(*a, emit_train=True),
         (xt, mt[:, :D], mt[:, D:2 * D], mt[:, 2 * D:], *wm))
+    gen = np.random.default_rng(713)  # the VAE block: encode, decode
+    vf = rope.axial_freqs(rope.pixel_freqs(HD // 4, 576.0), (18, 32),
+                          pixel=True).reshape(576, HD // 2).cuda()
+    ln = [(torch.ones(D, device="cuda") + _rand(gen, (D,), 0.1).float(),
+           _rand(gen, (D,), 0.1).float()) for _ in range(2)]
+    vw = (_rand(gen, (D, 3 * D), 0.03), _rand(gen, (3 * D,), 0.02),
+          _rand(gen, (D, D), 0.03), _rand(gen, (D,), 0.02))
+    vm = (_rand(gen, (D, 4 * D), 0.03), _rand(gen, (4 * D,), 0.02),
+          _rand(gen, (4 * D, D), 0.02), _rand(gen, (D,), 0.02))
+    for N in (4, 6):
+        out[f"vae_block N={N}"] = (vae_block.fused_vae_block, (
+            _rand(gen, (N, 576, D)), *ln[0], *vw, *ln[1], *vm, vf, H))
     for k, (fn, a) in list(out.items()):  # the serving calls in fp32
         if "emit_train" not in k:
             out[f"{k} fp32"] = (fn, tuple(_f32(a)))
@@ -145,6 +161,15 @@ def cases():
     out[f"temporal_branch emit_train B={B} T={T} fp32"] = (
         lambda *a: block.fused_temporal_branch(*a, emit_train=True),
         (xt, *mods, *_f32(ba), tf, valid, H, T))
+    gen = np.random.default_rng(714)
+    N = 80  # #2 emit_train at the fp32 training step's B=16 (11,520 rows)
+    xt, mt = _rand(gen, (N, S, D)).float(), _rand(gen, (N, 3 * D), 0.5)
+    mods = tuple(_f32((mt[:, :D], mt[:, D:2 * D], mt[:, 2 * D:])))
+    bm = (_rand(gen, (D, 4 * D), 0.02), _rand(gen, (4 * D,), 0.02),
+          _rand(gen, (4 * D, D), 0.02), _rand(gen, (D,), 0.02))
+    out[f"mlp_branch emit_train N={N} fp32"] = (
+        lambda *a: block.fused_mlp_branch(*a, emit_train=True),
+        (xt, *mods, *_f32(bm)))
     return out
 
 
@@ -180,9 +205,11 @@ def main():
     args = ap.parse_args()
     if args.compare:
         a, b = (torch.load(f) for f in args.compare)
-        same = {"int8": True, "bf16": True}
+        same = {"int8": True, "bf16": True, "fp32": True}
+        moved = []  # the fp32 outputs that differ
         for k in sorted(set(a) | set(b)):
-            kind = "int8" if "_q " in k else "bf16"
+            kind = ("int8" if "_q " in k else "fp32" if k.endswith("fp32")
+                    else "bf16")
             if k not in a or k not in b:
                 same[kind] = False
                 print(f"[bits] {k}: in one file only")
@@ -197,10 +224,13 @@ def main():
                             f"elements, max |diff| "
                             f"{(x - y).abs().max().item():.3g})")
                 name = k if len(a[k]) == 1 else f"{k} [{i}]"
+                if not eq and kind == "fp32":
+                    moved.append(name)
                 print(f"[bits] {name}: {'bit-equal' if eq else 'DIFFERENT'}"
                       f"{note}")
         print(f"[bits] int8 outputs all bit-equal: {same['int8']}; bf16 "
-              f"outputs all bit-equal: {same['bf16']}")
+              f"outputs all bit-equal: {same['bf16']}; fp32 outputs all "
+              f"bit-equal: {same['fp32']} (differing: {moved})")
         return 0 if same["int8"] else 1
     if not torch.cuda.is_available():
         raise SystemExit("serve_ab: needs a CUDA device")

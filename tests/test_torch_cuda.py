@@ -1392,24 +1392,27 @@ def _f32_case(kind, gen):
     def r(shape, std=1.0):
         return _rand(gen, shape, std, f32)
 
-    if kind == "vae":
+    if kind.startswith("vae"):  # 2 frames; the encode's 4, the decode's 6
+        frames = {"vae": 2, "vae_n4": 4, "vae_n6": 6}[kind]
         ones = torch.ones(D, device="cuda")
         ln = [ones + r((D,), 0.1), r((D,), 0.1)] * 2
         f = rope.axial_freqs(rope.pixel_freqs(HD // 4, 576.0), (18, 32),
                              pixel=True).reshape(S_VAE, HD // 2).cuda()
-        args = (r((2, S_VAE, D)), ln[0], ln[1], r((D, 3 * D), 0.03),
+        args = (r((frames, S_VAE, D)), ln[0], ln[1], r((D, 3 * D), 0.03),
                 r((3 * D,), 0.02), r((D, D), 0.03), r((D,), 0.02), ln[2],
                 ln[3], r((D, 4 * D), 0.03), r((4 * D,), 0.02),
                 r((4 * D, D), 0.02), r((D,), 0.02), f, H)
         return vae_block.fused_vae_block, vae_block.vae_block_plain, args, {}
-    N = {"temporal": 4, "step": 2}.get(kind, 1)
+    # the training step's B=16: 80 frames, 11,520 rows
+    N = {"temporal": 4, "step": 2, "mlp_tanh_b16": 80,
+         "mlp_erf_b16": 80}.get(kind, 1)
     x = r((N, S_DIT, D))
     mods = r((N, 6 * D), 0.5)
     head = (x, mods[:, :D], mods[:, D:2 * D], mods[:, 2 * D:3 * D])
     if kind.startswith("mlp"):
         args = (*head, r((D, 4 * D), 0.02), r((4 * D,), 0.02),
                 r((4 * D, D), 0.02), r((D,), 0.02))
-        kw = {"approx_gelu": kind == "mlp_tanh"}
+        kw = {"approx_gelu": kind.startswith("mlp_tanh")}
         return block.fused_mlp_branch, block.mlp_branch_plain, args, kw
     attn = (r((D, 3 * D), 0.02), r((D, D), 0.02), r((D,), 0.02))
     if kind == "spatial":
@@ -1428,14 +1431,18 @@ def _f32_case(kind, gen):
 
 
 @pytest.mark.parametrize("kind", ["spatial", "mlp_tanh", "mlp_erf",
-                                  "temporal", "step", "vae"])
+                                  "temporal", "step", "vae", "vae_n4",
+                                  "vae_n6"])
 def test_fp32_branch_kernels(cuda, kind):
     """Each fp32 branch (#1-#5) launches its kernels once and agrees with
-    its plain version within F32_TOL; two calls give the same bits (no
-    split K, no atomics)."""
+    its plain version within F32_TOL; two calls give the same bits (split
+    K's partials added in chunk order, no atomics). #5 also at the VAE
+    encode's 4 frames and the decode's 6 (2,304 and 3,456 rows: the
+    forward's k-major form, fc1's GELU rows stored transposed for fc2)."""
     gen = np.random.default_rng({"spatial": 300, "mlp_tanh": 301,
                                  "mlp_erf": 302, "temporal": 303,
-                                 "step": 304, "vae": 305}[kind])
+                                 "step": 304, "vae": 305, "vae_n4": 306,
+                                 "vae_n6": 307}[kind])
     fn, plain, args, kw = _f32_case(kind, gen)
     before = fn.launches
     got = fn(*args, **kw)
@@ -1456,17 +1463,22 @@ EPILOGUES_F32 = [block.EPI_F32, block.EPI_BIAS_BF16, block.EPI_BIAS_GELU_TANH,
                  block.EPI_BIAS_GATED, block.EPI_BIAS_BF16_RESID]
 
 
-@pytest.mark.parametrize("M", [144, 576, 3472])
+@pytest.mark.parametrize("M", [144, 576, 3472, 2310, 11520, 1440])
 @pytest.mark.parametrize("epi", EPILOGUES_F32)
 def test_gemm_f32_epilogues(cuda, epi, M):
     """gemm_f32 against the fp32 product (torch.matmul, no TF32) through
     each epilogue stored unrounded, at a step's 144 rows, a prefill's 576
-    (64x64 tiles, K split) and 3,456 + 16 (128x128 tiles, ragged); N of
-    1,000 and 3,000 leave a tile's columns ragged."""
+    (64x64 tiles, K split), and from 720 rows on the forward's k-major
+    form (128x128 tiles, two an SM, A copied transposed): 3,456 + 16
+    (unsplit), 2,310 (the last row tile ragged, K split over 152 tiles),
+    training at B=2's 1,440 (K split over 96 tiles) and the training
+    step's 11,520 at K = 4,096 (split into 4); N of 1,000 and 3,000 leave
+    a tile's columns ragged."""
     from gtax_torch.kernels.vae_block import gelu_erf32
 
     gen = np.random.default_rng(310 + epi + M)
-    S, K, N = 144, 1024, 3000 if M > 3000 else 1000
+    S, N = 144, 3000 if M == 3472 else 1000
+    K = 4096 if M == 11520 else 1024
     f32 = torch.float32
     a, w = _rand(gen, (M, K), 1.0, f32), _rand(gen, (K, N), 0.03, f32)
     bias = _rand(gen, (N,), 0.1, f32)
@@ -1485,10 +1497,10 @@ def test_gemm_f32_epilogues(cuda, epi, M):
                           gate=gate, S=S)
     torch.cuda.synchronize()
     _close32(out, ref)
-    # the plan splits K but on the VAE's 128x128 tiles; unsplit and split
-    # agree, and each is bit-stable
+    # the plan splits K but at 3,472 rows (672 tiles, K of 32 steps);
+    # unsplit and split agree, and each is bit-stable
     chunk = block.f32_plan(M, N, K, a.device)
-    assert (chunk < K) == (M < 3000), chunk
+    assert (chunk < K) == (M != 3472), chunk
     one = torch.empty_like(out)
     block.launch_gemm_f32(a, w, one, M, N, K, epi, bias=bias, resid=x,
                           gate=gate, S=S, k_chunk=K)
@@ -1498,6 +1510,50 @@ def test_gemm_f32_epilogues(cuda, epi, M):
     torch.cuda.synchronize()
     _close32(one, ref)
     assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("M,N,K,epi", [
+    (2310, 1008, 1024, block.EPI_BIAS_GELU_TANH),   # ragged M, ldc 2,312;
+    #                                                 K split (152 tiles)
+    (2310, 4096, 1024, block.EPI_BIAS_BF16_GELU),   # the VAE's fc1 form
+    (11520, 4096, 1024, block.EPI_BIAS_GELU_TANH_H),  # #2's fc1 at B=16
+    (11520, 1040, 4096, block.EPI_BIAS_GELU_ERF),   # K split (810 tiles)
+])
+def test_gemm_f32_fwd_k_major(cuda, M, N, K, epi):
+    """The forward from 720 rows with A handed over k-major (lda) and C
+    stored transposed (ldc, a GELU epilogue; the second output row-major):
+    the same bits as the row-major call (A copied transposed by the entry
+    point, the same chunks), the transposed rows past M zero; and fc2's
+    read of that C k-major equals the row-major product's bits."""
+    gen = np.random.default_rng(315 + M + N + K)
+    f32 = torch.float32
+    ld = block.f32_fwd_ld(f32, M)
+    a, w = _rand(gen, (M, K), 1.0, f32), _rand(gen, (K, N), 0.03, f32)
+    bias = _rand(gen, (N,), 0.1, f32)
+    two = epi in block.TWO_OUTPUTS
+    rows, rows2 = (torch.empty((M, N), dtype=f32, device="cuda")
+                   for _ in range(2))
+    block.launch_gemm_f32(a, w, rows, M, N, K, epi, bias=bias,
+                          out2=rows2 if two else None)
+    at = torch.zeros((K, ld), dtype=f32, device="cuda")
+    at[:, :M] = a.t()
+    cols = torch.full((N, ld), float("nan"), dtype=f32, device="cuda")
+    cols2 = torch.empty_like(rows2)
+    block.launch_gemm_f32(at, w, cols, M, N, K, epi, bias=bias,
+                          out2=cols2 if two else None, lda=ld, ldc=ld)
+    torch.cuda.synchronize()
+    assert torch.equal(cols[:, :M].t(), rows)
+    assert not cols[:, M:].any()
+    if two:
+        assert torch.equal(cols2, rows2)
+    # the next product reads the transposed rows k-major
+    w2 = _rand(gen, (N, 64), 0.03, f32)
+    want, got = (torch.empty((M, 64), dtype=f32, device="cuda")
+                 for _ in range(2))
+    block.launch_gemm_f32(rows, w2, want, M, 64, N, block.EPI_F32)
+    block.launch_gemm_f32(cols, w2, got, M, 64, N, block.EPI_F32, lda=ld)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("T,n_q,q_off", [(4, 4, 0), (5, 1, 4), (8, 8, 0)])
@@ -1632,7 +1688,7 @@ def test_fp32_kernels_use_no_tensor_cores(cuda):
              "attn_sdpa_tiled_f32_kernel", "attn_frame_bwd_f32_q",
              "attn_frame_bwd_f32_k", "attn_temporal_bwd_f32_kernel",
              "gate_bwd_kernelIfE", "ln_mod_bwd_kernelILi16EfE",
-             "gemm_f32_bwd_kernel")
+             "gemm_f32_bwd_kernel", "gemm_f32_fwd_kernel")
     heads = [f.split("\n", 1)[0] for f in funcs]
     assert all(any(n in h for h in heads) for n in names), [
         n for n in names if not any(n in h for h in heads)]
@@ -1919,14 +1975,19 @@ def test_attn_sdpa_f32_kernel(cuda, S, layout):
 # version's largest magnitude; the backwards bit-equal across two calls
 
 @pytest.mark.parametrize("kind", ["spatial", "mlp_tanh", "mlp_erf",
-                                  "temporal"])
+                                  "temporal", "mlp_tanh_b16",
+                                  "mlp_erf_b16"])
 def test_fp32_emit_train_kernels(cuda, kind):
     """#1-#3 emit_train in fp32 against their plain versions (every
     residual fp32, F32_TOL); the output bit-equal to the serving call's
     (the stores of attn_frame_f32 and gemm_f32's _Y / _H epilogues change
-    no value); two calls give the same bits."""
+    no value); two calls give the same bits. #2 also at the training
+    step's B=16 (11,520 rows: the forward's k-major form, fc1's GELU rows
+    stored transposed for fc2, fc2's K split)."""
     gen = np.random.default_rng({"spatial": 400, "mlp_tanh": 401,
-                                 "mlp_erf": 402, "temporal": 403}[kind])
+                                 "mlp_erf": 402, "temporal": 403,
+                                 "mlp_tanh_b16": 404,
+                                 "mlp_erf_b16": 405}[kind])
     fn, plain, args, kw = _f32_case(kind, gen)
     kw = {k: v for k, v in kw.items() if k != "emit_kv"}
     got = fn(*args, **kw, emit_train=True)

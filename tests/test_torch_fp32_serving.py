@@ -74,7 +74,7 @@ def test_fp32_entry_points_bound():
     full window's fp32 Q/K/V outputs, the fp32 pairs', the fp32 `pallas`
     attention's, and the fp32 training kernels' (the weight gradient, the
     row-wise and attention backwards)."""
-    want = {"gtax_gemm_f32": 20, "gtax_gemm_f32_rope_qkv": 15,
+    want = {"gtax_gemm_f32": 22, "gtax_gemm_f32_rope_qkv": 15,
             "gtax_attn_frame_f32": 12,
             "gtax_attn_temporal_window_f32": 11,
             "gtax_attn_temporal_f32": 16, "gtax_pair_q_f32": 48,
@@ -126,20 +126,46 @@ def test_fp32_epilogue_table():
     (288, 3072, 1024, 128),   # two frames' qkv: 240 blocks x 8
     (576, 3072, 1024, 256),   # the prefill's qkv: 432 blocks x 4
     (576, 4096, 1024, 512),   # the prefill's fc1: 576 blocks x 2
-    (720, 3072, 1024, 512),   # five frames: 128x128 tiles at 1.1 waves lose
-    (2304, 3072, 1024, 1024),  # the VAE encode: 128x128 tiles, 3.3 waves
-    (3456, 4096, 1024, 1024),  # the VAE decode's fc1: 864 wide blocks
-    (3456, 1024, 4096, 2048),  # its fc2: 216 wide blocks, 864 64x64 x 2
+    (720, 3072, 1024, 352),   # five frames: 144 tiles, 3 chunks of 11 steps
+    (2304, 3072, 1024, 1024),  # the VAE encode's qkv: 432 tiles, K of 32
+    (3456, 4096, 1024, 1024),  # the VAE decode's fc1: 864 tiles
+    (3456, 1024, 4096, 704),   # its fc2: 216 tiles of 128 steps, 6 chunks
     (144, 1024, 1040, 208),   # K of 65 steps: five chunks of 13
 ])
 def test_f32_split_plan(M, N, K, chunk):
-    """gemm_f32's K chunk on 132 SMs: unsplit on the 128x128 tile where
-    its blocks fill the card twice, else the fewest whole-step chunks
-    dividing K that give 8 blocks an SM (or the most there are)."""
+    """gemm_f32's K chunk on 132 SMs. Below 720 rows: the fewest
+    whole-step chunks dividing K that give 8 of the 64x64 tile's blocks an
+    SM (or the most there are). From 720 rows (the forward's k-major
+    form, two blocks an SM): unsplit where K is at most 32 steps of 32 and
+    the tiles fill the 264 slots, else the count of at most 8 chunks of
+    whole 32-row steps (the last one short) with the fewest wave-steps."""
     got = block.f32_chunk(M, N, K, 132)
     assert got == chunk
-    assert K % got == 0 and got % block.F32_K_STEP == 0
-    assert K // got <= block.F32_MAX_SPLITS
+    if M >= block.F32_FWD_ROWS:
+        assert got == K or got % block.F32_FWD_K_STEP == 0
+        assert -(-K // got) <= block.F32_MAX_SPLITS
+    else:
+        assert K % got == 0 and got % block.F32_K_STEP == 0
+        assert K // got <= block.F32_MAX_SPLITS
+
+
+def test_f32_fwd_constants_match_the_kernel_source():
+    """block's constants of gemm_f32's forward from 720 rows are the
+    kernel's (csrc/gemm_f32.cu FwdShape, kFwdRows): the tile's rows
+    (kBwdTile) and columns, its 32-row step and its blocks an SM."""
+    import re
+
+    src = (build.CSRC / "gemm_f32.cu").read_text()
+    shape = re.search(r"struct FwdShape \{\s*static constexpr int TW = (\d+), "
+                      r"KS = (\d+), STAGES = \d+, BLOCKS = (\d+);", src)
+    assert int(shape.group(1)) == block.F32_FWD_TILE
+    assert int(shape.group(2)) == block.F32_FWD_K_STEP
+    assert int(shape.group(3)) == block.F32_FWD_BLOCKS
+    assert int(re.search(r"constexpr int kBwdTile = (\d+);", src).group(1)) \
+        == block.F32_FWD_TILE
+    assert int(re.search(r"constexpr int kFwdRows = (\d+);", src).group(1)) \
+        == block.F32_FWD_ROWS
+    assert block.F32_FWD_K_STEP % block.F32_K_STEP == 0
 
 
 def _meta(*shape, dtype=torch.float32):

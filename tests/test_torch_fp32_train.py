@@ -79,6 +79,24 @@ def test_trans_b_workspace(M, k_chunk, floats):
     assert part.dtype == F32 and part.numel() == floats
 
 
+@pytest.mark.parametrize("M,N,K,lda,k_chunk,floats", [
+    (2304, 64, 64, 0, 64, 64 * 2304),             # a's transposed copy
+    (2306, 64, 64, 2308, 64, 0),                  # a handed over k-major
+    (3456, 64, 4096, 0, 704, 4096 * 3456 + 6 * 3456 * 64),  # then 6 partials
+    (700, 64, 64, 0, 64, 0),                      # below 720 rows: none
+])
+def test_fwd_workspace(M, N, K, lda, k_chunk, floats):
+    """gemm_f32's forward workspace from 720 rows: a's transposed copy,
+    its rows rounded up to a multiple of 4 (none where lda hands a over
+    k-major), then one (M, N) partial for each of ceil(K / k_chunk)
+    chunks where K is split."""
+    a = torch.empty((M, K), dtype=F32, device="meta")
+    got, part = block._f32_split(a, M, N, K, k_chunk, lda=lda)
+    assert got == k_chunk
+    assert (part is None) == (floats == 0)
+    assert part is None or part.numel() == floats
+
+
 @pytest.fixture
 def card(monkeypatch):
     """A stand-in card: every kernel launch is recorded by its entry point's
@@ -242,3 +260,46 @@ def test_fp32_backward_dispatch(card, kind):
                           "gtax_ln_mod", "gtax_ln_mod_bwd_f32", *attn}
     assert all(e[0] == "f32" and e[4] for e in gemms)  # every product: W^T
     assert all(t.dtype == F32 for t in grads)
+
+
+@pytest.mark.parametrize("kind,frames", [("mlp", 16), ("mlp", 4),
+                                         ("vae", 4), ("vae", 1)])
+def test_fp32_fc1_stores_fc2_operand_k_major(card, monkeypatch, kind,
+                                            frames):
+    """fp32 from 720 rows (16 DiT frames of 144, 4 VAE frames of 576; not
+    4 DiT frames or 1 VAE frame, 576 rows):
+    fc1 stores its GELU rows transposed, (H, M rounded up to 4), and fc2
+    reads them k-major with that stride (#2 fused_mlp_branch emit_train,
+    #5 fused_vae_block); below it, both stay row-major (lda = ldc = 0)."""
+    from gtax_torch.kernels import vae_block
+
+    _, gemms = card
+    strides, inner = [], block.launch_gemm_f32
+
+    def gemm_f32(a, w, out, M, N, K, epi, **kw):
+        rows = out.numel() // out.shape[-1]  # (frames, S, D): as (M, D)
+        strides.append((epi, (rows, out.shape[-1]), kw.get("lda", 0),
+                        kw.get("ldc", 0)))
+        return inner(a, w, out, M, N, K, epi, **kw)
+
+    monkeypatch.setattr(block, "launch_gemm_f32", gemm_f32)
+    D, Hd = 64, 256
+    if kind == "mlp":
+        S = 144
+        x = _meta(frames, S, D)
+        block.fused_mlp_branch(x, *(_meta(frames, D) for _ in range(3)),
+                               _meta(D, Hd), _meta(Hd), _meta(Hd, D),
+                               _meta(D), emit_train=True)
+        fc1, fc2 = block.EPI_BIAS_GELU_TANH_H, block.EPI_BIAS_GATED_Y
+    else:
+        S = 576
+        x = _meta(frames, S, D)
+        vae_block.fused_vae_block(
+            x, _meta(D), _meta(D), _meta(D, 3 * D), _meta(3 * D),
+            _meta(D, D), _meta(D), _meta(D), _meta(D), _meta(D, Hd),
+            _meta(Hd), _meta(Hd, D), _meta(D), _meta(S, 16), 2)
+        fc1, fc2 = block.EPI_BIAS_BF16_GELU, block.EPI_BIAS_BF16_RESID
+    M = frames * S
+    ld = M if M >= block.F32_FWD_ROWS else 0
+    assert (fc1, (Hd, ld) if ld else (M, Hd), 0, ld) in strides
+    assert (fc2, (M, D), ld, 0) in strides
