@@ -1320,20 +1320,40 @@ def f32_int8_phase(timer, rows):
         kern, plain, lib, lib_desc, by, fl = make()
         m = measure(timer, name, label + ", fp32", kern, plain, lib, by, fl,
                     rel_tol=F32_TOL, flops_per_s=F32_FLOPS_PER_S)
-        f32_record(rows, name, label, main,
-                   dict(m, launches=None, library=lib_desc + ", fp32"))
+        rec = dict(m, launches=None, library=lib_desc + ", fp32")
+        if name == "fused_mha_token_major" and "temporal" not in label:
+            rec["launch_split"] = attn_sdpa_f32_split(kern, label, fl, m)
+        f32_record(rows, name, label, main, rec)
         del kern, plain, lib
 
 
-F32_KERNELS = ("gemm_f32_kernel", "attn_frame_f32_kernel",
-               "attn_window_f32_kernel", "attn_temporal_f32_kernel",
-               "ln_mod_kernelIf", "attn_sdpa_rows_f32_kernel",
-               "attn_sdpa_tiled_f32_kernel", "attn_frame_bwd_f32_q",
+def attn_sdpa_f32_split(kern, label, fl, m):
+    """#16 fp32 by launch (`[split]`): its one attn_sdpa_f32 launch's ms and
+    FFMA TFLOP/s (4 S^2 d a head), beside the row's bound and fp32 SDPA's
+    time from `measure`."""
+    split = launch_split(kern, f"fused_mha_token_major [{label}, fp32]", [])
+    ms = next(e["ms"] for e in split
+              if e.get("kernel") == "gtax_attn_sdpa_f32")
+    log(f"[split]   #16 fp32 {label}: gtax_attn_sdpa_f32 {ms:.4f} ms, "
+        f"{fl / 1e9:.2f} GFLOP at {fl / ms / 1e9:.1f} TFLOP/s; bound "
+        f"{m['bound_ms']:.4f} ms ({m['bound_by']}), fp32 SDPA "
+        f"{m['library_ms']:.4f} ms")
+    return split
+
+
+F32_KERNELS = ("attn_frame_f32_kernel", "attn_window_f32_kernel",
+               "attn_temporal_f32_kernel", "ln_mod_kernelIf",
+               "attn_sdpa_rows_f32_kernel", "attn_sdpa_f32_tile_kernel",
+               "attn_sdpa_f32_wide_kernel", "attn_frame_bwd_f32_q",
                "attn_frame_bwd_f32_k", "attn_temporal_bwd_f32_kernel",
                "gate_bwd_kernelIfE", "ln_mod_bwd_kernelILi16EfE",
-               "gemm_f32_bwd_kernel", "gemm_f32_fwd_kernel")
-# the fp32 GEMMs whose main loop [sass] reads (FFMA share, operand reuse)
-F32_GEMMS = ("gemm_f32_fwd_kernel", "gemm_f32_bwd_kernel")
+               "gemm_f32_bwd_kernel", "gemm_f32_fwd_kernel",
+               "gemm_f32_serve_kernel")
+# the fp32 kernels whose main loop [sass] reads (FFMA share, operand
+# reuse): the GEMMs' forms and the `pallas` attention's tiled body
+F32_GEMMS = ("gemm_f32_fwd_kernel", "gemm_f32_bwd_kernel",
+             "gemm_f32_serve_kernel", "attn_sdpa_f32_tile_kernel",
+             "attn_sdpa_f32_wide_kernel")
 # the fp32 pairs, pair_q_kernel<hd, temporal, exact, float>: 2 x 2 x 2
 F32_PAIRS = re.compile(r"pair_q_kernelILi\d+ELb\dELb\dEfE")
 # the compiler's no-op GMMA: where ptxas injects a warpgroup.arrive before

@@ -1,9 +1,10 @@
 // The fp32 SIMT attention body as device functions, shared by the fp32
-// frame attention (attn_frame.cu attn_frame_f32, one block per unit), the
-// fp32 paired int8 kernels (pair_q_f32.cu, units strided over a
-// cooperative grid) and the fp32 form of the `pallas` backend's attention
-// (attn_sdpa.cu attn_sdpa_tiled_f32). A unit's arithmetic does not depend
-// on which block takes it, so every caller gives the same bits.
+// frame attention (attn_frame.cu attn_frame_f32, one block per unit) and
+// the fp32 paired int8 kernels (pair_q_f32.cu, units strided over a
+// cooperative grid; the `pallas` backend's fp32 attention has a body of
+// its own, attn_sdpa.cu attn_sdpa_f32_tile_kernel). A unit's arithmetic
+// does not depend on which block takes it, so every caller gives the same
+// bits.
 //
 // Nothing is rounded to a narrower type (gtax's kernels at x.dtype =
 // float32: every astype is a no-op, probabilities included), and no

@@ -29,9 +29,8 @@
 //    16-row tile would waste 11/16 of its work): K and V whole in shared
 //    memory (K rows padded by two elements so a warp's lanes, one key each,
 //    hit distinct banks) and one warp per query row on the fp32 pipes.
-// The fp32 form (gtax_attn_sdpa_f32, below) has a body of each kind too,
-// both on the CUDA cores.
-#include "attn_f32.cuh"
+// The fp32 form (gtax_attn_sdpa_f32, below) has a warp-row body and a
+// tiled one, both on the CUDA cores.
 #include "attn_frame.cuh"
 
 namespace {
@@ -298,12 +297,459 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const float* bias,
 //
 // The fp32 form (gtax's _attn_kernel / _mha_kernel at q.dtype = float32:
 // probs.astype(q.dtype) is a no-op, so nothing is rounded): the warp-row
-// body over fp32 rows for short rows, and for longer ones the tiled fp32
-// SIMT body of the fp32 frame attention (attn_f32.cuh attn_f32_unit), 64
-// query rows a block and the keys in 64-key tiles (one head's fp32 K and V
-// at S = 576 take 295 KB, more than a block's 227 KB), scores
-// fp32(q . k * scale + bias), exact expf, PV summed in fp32, an fp32
-// output. No tensor-core instruction: TF32 would keep three digits.
+// body over fp32 rows for short rows, and for longer ones a tiled fp32
+// SIMT body in two forms by S (below): scores fp32(q . k * scale + bias),
+// exact expf, an online softmax over key tiles whose PV sums are divided
+// by the row's sum once, PV summed in fp32, an fp32 output. No
+// tensor-core instruction: TF32 would keep three digits.
+//
+// Bound: operations, 67 TFLOP/s of fp32 FFMA (4 S^2 d a head: 8.15 GFLOP
+// at the VAE shape). The tiled body replaced csrc/attn_f32.cuh's unit
+// here, which ran at a third of that: 4x4 register tiles, shared-memory
+// bound, 64-row tiles that padded S = 144 to 192 and made 2.18 waves at
+// 576. Both forms:
+//  - land Q, K and V rows in shared memory as they lie in global memory,
+//    16-byte cp.async copies (rows past S zero-filled); K and V stream
+//    through a ring of key tiles, the next tiles' copies in flight during
+//    this tile's FFMAs; a thread holds 8 query rows (ty + RG i:
+//    neighbouring threads of a warp on neighbouring rows) and reads Q and
+//    K rows as float4 along d; row strides of HD + 4 floats put the rows a
+//    phase reads in distinct banks; a row's max and sum are reduced by
+//    shuffles within the threads that hold it, its scale factors stay in
+//    the threads that hold its outputs.
+//  - Below 576 tokens (sdpa_f32_body 1, attn_sdpa_f32_tile_kernel): 48
+//    query rows (RG 6, 96 threads) over 48-key tiles, three stages: at
+//    S = 144 a head's K and V lie whole in shared memory, loaded at once,
+//    no padded work, 240 blocks two an SM (99 KB each); a thread 8 rows by
+//    3 keys (tx + 16 c) and by HD / 16 output dims, the probabilities
+//    through shared memory (P^T).
+//  - From 576 tokens (body 2, attn_sdpa_f32_wide_kernel): 128 query rows
+//    (RG 32, 256 threads) over 64-key tiles, two stages, two blocks an SM
+//    (102 KB each); a thread 4 rows by 8 keys and by HD / 8 output dims
+//    (below). At S = 576 a head's last query tile is half full: 480
+//    blocks, 432 of work.
+
+// The tile's shape: RG row groups of 8 rows, KC keys a thread, STAGES key
+// tiles in the ring.
+template <int HD>
+struct SdpaF32 {
+  static constexpr int RG = 6, KC = 3, STAGES = 3;
+  static constexpr int TR = 8;             // query rows a thread
+  static constexpr int THREADS = RG * 16;  // 16 threads a row group
+  static constexpr int QT = RG * TR;       // query rows a block
+  static constexpr int KT = 16 * KC;       // keys a tile
+  static constexpr int CW = HD / 16;       // output dims a thread
+  static constexpr int LD = HD + 4;        // Q and K rows
+  static constexpr int LDP = QT + 4;       // P^T rows
+  static constexpr size_t kFloats = (size_t)QT * LD +
+                                    (size_t)STAGES * KT * (LD + HD) +
+                                    (size_t)KT * LDP;
+  static constexpr size_t smem() { return kFloats * sizeof(float); }
+};
+
+// ---- the tiled bodies' shared parts, over a shape T (SdpaF32 or
+// SdpaF32Wide): T::THREADS threads; the block's T::QT Q rows (T::LD floats
+// apart) in shared memory, then a ring of T::STAGES key tiles of T::KT
+// keys, each its K rows (T::LD apart) and its V rows (HD apart).
+
+// one (row of N, head) of K and V as a tiled body reads them
+struct F32Keys {
+  const float* k;
+  const float* v;
+  int k_ld, v_ld, S;
+};
+
+// rows p0 .. p0 + rows - 1 of src (token stride ld) to dst (row stride
+// ldd), 16 bytes a cp.async, rows past S zero-filled
+template <int HD, class T>
+__device__ __forceinline__ void f32_stage(float* dst, int ldd,
+                                          const float* src, int ld, int p0,
+                                          int rows, int S) {
+  constexpr int CH = HD / 4;
+  for (int c = threadIdx.x; c < rows * CH; c += T::THREADS) {
+    const int r = c / CH, d = c % CH * 4, p = p0 + r;
+    cp_async16(dst + r * ldd + d, src + (size_t)min(p, S - 1) * ld + d,
+               p < S ? 16 : 0);
+  }
+}
+
+// key tile t's stage of the ring: its K rows, then (KT * LD on) its V rows
+template <int HD, class T>
+__device__ __forceinline__ float* f32_ring_stage(float* ring, int t) {
+  return ring + (t % T::STAGES) * T::KT * (T::LD + HD);
+}
+
+template <int HD, class T>
+__device__ __forceinline__ void f32_load_tile(float* ring, int t,
+                                              const F32Keys& kv) {
+  float* ks = f32_ring_stage<HD, T>(ring, t);
+  f32_stage<HD, T>(ks, T::LD, kv.k, kv.k_ld, t * T::KT, T::KT, kv.S);
+  f32_stage<HD, T>(ks + T::KT * T::LD, HD, kv.v, kv.v_ld, t * T::KT, T::KT,
+                   kv.S);
+}
+
+// Q's rows q0 .. q0 + QT - 1 and the first STAGES - 1 key tiles in flight
+template <int HD, class T>
+__device__ __forceinline__ void f32_prologue(float* qs, float* ring,
+                                             const float* qn, int q_ld,
+                                             int q0, int tiles,
+                                             const F32Keys& kv) {
+  f32_stage<HD, T>(qs, T::LD, qn, q_ld, q0, T::QT, kv.S);
+#pragma unroll
+  for (int s = 0; s < T::STAGES - 1; ++s) {
+    if (s < tiles) f32_load_tile<HD, T>(ring, s, kv);
+    cp_async_commit();  // empty groups keep the wait count uniform
+  }
+}
+
+// waits for key tile t, sets tile t + STAGES - 1 in flight into the stage
+// tile t - 1 left; tile t's stage
+template <int HD, class T>
+__device__ __forceinline__ const float* f32_next_tile(float* ring, int t,
+                                                      int tiles,
+                                                      const F32Keys& kv) {
+  cp_async_wait<T::STAGES - 2>();
+  __syncthreads();  // tile t landed; every thread left tile t - 1
+  if (t + T::STAGES - 1 < tiles)
+    f32_load_tile<HD, T>(ring, t + T::STAGES - 1, kv);
+  cp_async_commit();
+  return f32_ring_stage<HD, T>(ring, t);
+}
+
+template <int TR, int CW>
+__device__ __forceinline__ void f32_init_rows(float (&o)[TR][CW],
+                                              float (&m)[TR],
+                                              float (&l)[TR]) {
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CW; ++c) o[i][c] = 0.f;
+  }
+}
+
+// a row's outputs divided by its sum once: CW / CV vectors of CV floats,
+// vector g at dst + GS g
+template <int CW, int CV, int GS>
+__device__ __forceinline__ void f32_store_row(float* dst,
+                                              const float (&o)[CW],
+                                              float l) {
+#pragma unroll
+  for (int g = 0; g < CW / CV; ++g) {
+    if constexpr (CV == 4)
+      *reinterpret_cast<float4*>(dst + GS * g) =
+          make_float4(o[4 * g] / l, o[4 * g + 1] / l, o[4 * g + 2] / l,
+                      o[4 * g + 3] / l);
+    else
+      *reinterpret_cast<float2*>(dst + GS * g) =
+          make_float2(o[2 * g] / l, o[2 * g + 1] / l);
+  }
+}
+
+// CW contiguous floats (4 or 2) of shared memory
+template <int CW>
+__device__ __forceinline__ void lds_cw(const float* p, float (&v)[CW]) {
+  if constexpr (CW == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+  } else {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    v[0] = f.x, v[1] = f.y;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(SdpaF32<HD>::THREADS)
+    attn_sdpa_f32_tile_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ bias,
+                              float* __restrict__ out, int S, int q_ld,
+                              int k_ld, int v_ld, int o_ld, float scale) {
+  using T = SdpaF32<HD>;
+  constexpr int RG = T::RG, KC = T::KC, TR = T::TR, QT = T::QT, KT = T::KT,
+                CW = T::CW, LD = T::LD, LDP = T::LDP;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                        // [QT][LD]: Q rows
+  float* ring = qs + QT * LD;             // the key tiles
+  float* pt = ring + T::STAGES * KT * (LD + HD);  // [KT][LDP]: P^T
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int q0 = blockIdx.x * QT;
+  const size_t hc = (size_t)blockIdx.y * HD, n = blockIdx.z;
+  const F32Keys kv{k + n * S * k_ld + hc, v + n * S * v_ld + hc, k_ld, v_ld,
+                   S};
+  float* on = out + n * S * o_ld + hc;
+  const int tiles = (S + KT - 1) / KT;
+  f32_prologue<HD, T>(qs, ring, q + n * S * q_ld + hc, q_ld, q0, tiles, kv);
+
+  float o[TR][CW], m[TR], l[TR];
+  f32_init_rows(o, m, l);
+  // a row past S reads bias row S - 1; its output is not stored
+  const float* brow[TR];
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+    brow[i] = bias == nullptr
+                  ? nullptr
+                  : bias + (size_t)min(q0 + ty + RG * i, S - 1) * S;
+
+  for (int t = 0; t < tiles; ++t) {
+    const float* ks = f32_next_tile<HD, T>(ring, t, tiles, kv);
+    const float* vs = ks + KT * LD;
+
+    float s[TR][KC];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int c = 0; c < KC; ++c) s[i][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      float4 a[TR], b[KC];
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+        a[i] = *reinterpret_cast<const float4*>(qs + (ty + RG * i) * LD + d);
+#pragma unroll
+      for (int c = 0; c < KC; ++c)
+        b[c] = *reinterpret_cast<const float4*>(ks + (tx + 16 * c) * LD + d);
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          s[i][c] = fmaf(a[i].x, b[c].x, s[i][c]);
+          s[i][c] = fmaf(a[i].y, b[c].y, s[i][c]);
+          s[i][c] = fmaf(a[i].z, b[c].z, s[i][c]);
+          s[i][c] = fmaf(a[i].w, b[c].w, s[i][c]);
+        }
+    }
+    // the online softmax, a row at a time: scores fp32(q . k * scale +
+    // bias), -inf past S; the row's max and sum over its 16 lanes; its
+    // outputs rescaled. Written out in each body: as one shared
+    // __device__ step this body ran 8-12% slower (256 more instructions
+    // at the same FFMAs; PERF.md section 6).
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        const int key = t * KT + tx + 16 * c;
+        const float sc = __fmul_rn(s[i][c], scale);
+        s[i][c] = key >= S            ? -INFINITY
+                  : brow[i] == nullptr ? sc
+                                       : __fadd_rn(sc, brow[i][key]);
+        mx = fmaxf(mx, s[i][c]);
+      }
+#pragma unroll
+      for (int w = 8; w > 0; w >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float mn = fmaxf(m[i], mx);  // finite: key t KT is below S
+      const float alpha = expf(m[i] - mn);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        s[i][c] = expf(s[i][c] - mn);
+        sum += s[i][c];
+      }
+#pragma unroll
+      for (int w = 8; w > 0; w >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, w);
+      l[i] = l[i] * alpha + sum;
+      m[i] = mn;
+#pragma unroll
+      for (int c = 0; c < CW; ++c) o[i][c] *= alpha;
+    }
+
+    // P^T through shared memory: key j's row of the block's probabilities
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      float* dst = pt + (tx + 16 * c) * LDP + ty * TR;
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+      *reinterpret_cast<float4*>(dst + 4) =
+          make_float4(s[4][c], s[5][c], s[6][c], s[7][c]);
+    }
+    __syncthreads();  // P^T of the tile is whole
+
+#pragma unroll 4
+    for (int j = 0; j < KT; ++j) {
+      const float4 p0 = *reinterpret_cast<const float4*>(pt + j * LDP +
+                                                         ty * TR);
+      const float4 p1 = *reinterpret_cast<const float4*>(pt + j * LDP +
+                                                         ty * TR + 4);
+      const float p[TR] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      float vv[CW];
+      lds_cw<CW>(vs + j * HD + tx * CW, vv);
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int c = 0; c < CW; ++c) o[i][c] = fmaf(p[i], vv[c], o[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int r = q0 + ty + RG * i;
+    if (r < S)
+      f32_store_row<CW, CW, 0>(on + (size_t)r * o_ld + tx * CW, o[i], l[i]);
+  }
+}
+
+// The tiled body's 128-row form (attn_sdpa_f32_wide_kernel, from
+// SDPA_F32_WIDE_MIN_S tokens): RG row groups of TX = 8 threads, a thread TR
+// query rows (ty + RG i) by KC = 8 keys (tx + 8 c) of a 64-key tile and the
+// same rows by HD / 8 dims (tx * 4 + 32 g ..) of the output; a row's
+// probabilities reach the threads of its outputs by shuffles within its 8
+// lanes, not through shared memory, so Q and two stages of K and V leave
+// room for two blocks an SM. QK^T holds a d-slice's row float4s in
+// registers and streams the keys'. The shape (SdpaF32Wide): 128 rows of
+// 256 threads, 4 rows a thread, two blocks an SM (16 warps). Shapes were
+// timed at S = 576 from an exploration harness not kept (PERF.md section
+// 6; gtax_torch/tools/attn_sweep.py --f32 times the one kept): 8
+// rows a thread (four FFMAs a loaded value, but 255 registers: 8 warps an
+// SM) ran 0.3233 ms, 4 rows 0.3085, 144- and 96-row tiles and 32-key
+// tiles 0.32-0.54; the 64-row 4x4 body it replaced 0.3393.
+template <int HD>
+struct SdpaF32Wide {
+  static constexpr int RG = 32, TR = 4, TX = 8, KC = 8;
+  static constexpr int STAGES = 2, BLOCKS = 2;
+  static constexpr int THREADS = RG * TX;
+  static constexpr int QT = RG * TR;
+  static constexpr int KT = TX * KC;
+  static constexpr int CW = HD / TX;  // output dims a thread
+  static constexpr int LD = HD + 4;
+  static constexpr size_t smem() {
+    return ((size_t)QT * LD + (size_t)STAGES * KT * (LD + HD)) *
+           sizeof(float);
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(SdpaF32Wide<HD>::THREADS,
+                                  SdpaF32Wide<HD>::BLOCKS)
+    attn_sdpa_f32_wide_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ bias,
+                              float* __restrict__ out, int S, int q_ld,
+                              int k_ld, int v_ld, int o_ld, float scale) {
+  using T = SdpaF32Wide<HD>;
+  constexpr int RG = T::RG, TR = T::TR, TX = T::TX, KC = T::KC, QT = T::QT,
+                KT = T::KT, CW = T::CW, LD = T::LD;
+  static_assert(CW % 4 == 0 && T::THREADS % 32 == 0,
+                "float4 output dims, whole warps");
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;             // [QT][LD]: Q rows
+  float* ring = qs + QT * LD;  // the key tiles
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int q0 = blockIdx.x * QT;
+  const size_t hc = (size_t)blockIdx.y * HD, n = blockIdx.z;
+  const F32Keys kv{k + n * S * k_ld + hc, v + n * S * v_ld + hc, k_ld, v_ld,
+                   S};
+  float* on = out + n * S * o_ld + hc;
+  const int tiles = (S + KT - 1) / KT;
+  f32_prologue<HD, T>(qs, ring, q + n * S * q_ld + hc, q_ld, q0, tiles, kv);
+
+  float o[TR][CW], m[TR], l[TR];
+  f32_init_rows(o, m, l);
+
+  for (int t = 0; t < tiles; ++t) {
+    const float* ks = f32_next_tile<HD, T>(ring, t, tiles, kv);
+    const float* vs = ks + KT * LD;
+
+    float s[TR][KC];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int c = 0; c < KC; ++c) s[i][c] = 0.f;
+    // a 4-deep slice of d: the thread's rows' float4s held, its keys'
+    // streamed
+#pragma unroll 2
+    for (int d = 0; d < HD; d += 4) {
+      float4 a[TR];
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+        a[i] = *reinterpret_cast<const float4*>(qs + (ty + RG * i) * LD + d);
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        const float4 b =
+            *reinterpret_cast<const float4*>(ks + (tx + TX * c) * LD + d);
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          s[i][c] = fmaf(a[i].x, b.x, s[i][c]);
+          s[i][c] = fmaf(a[i].y, b.y, s[i][c]);
+          s[i][c] = fmaf(a[i].z, b.z, s[i][c]);
+          s[i][c] = fmaf(a[i].w, b.w, s[i][c]);
+        }
+      }
+    }
+    // the online softmax, a row at a time, as the 48-row body's over the
+    // row's TX lanes
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      // a row past S reads bias row S - 1; its output is not stored
+      const float* brow =
+          bias == nullptr ? nullptr
+                          : bias + (size_t)min(q0 + ty + RG * i, S - 1) * S;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        const int key = t * KT + tx + TX * c;
+        const float sc = __fmul_rn(s[i][c], scale);
+        s[i][c] = key >= S         ? -INFINITY
+                  : brow == nullptr ? sc
+                                    : __fadd_rn(sc, brow[key]);
+        mx = fmaxf(mx, s[i][c]);
+      }
+#pragma unroll
+      for (int w = TX / 2; w > 0; w >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float mn = fmaxf(m[i], mx);  // finite: key t KT is below S
+      const float alpha = expf(m[i] - mn);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        s[i][c] = expf(s[i][c] - mn);
+        sum += s[i][c];
+      }
+#pragma unroll
+      for (int w = TX / 2; w > 0; w >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, w);
+      l[i] = l[i] * alpha + sum;
+      m[i] = mn;
+#pragma unroll
+      for (int c = 0; c < CW; ++c) o[i][c] *= alpha;
+    }
+
+    // PV: key src + TX c's probabilities from lane src of the row group
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+#pragma unroll 2
+      for (int src = 0; src < TX; ++src) {
+        const float* vr = vs + (src + TX * c) * HD + tx * 4;
+        float vv[CW];
+#pragma unroll
+        for (int g = 0; g < CW / 4; ++g) {
+          const float4 f = *reinterpret_cast<const float4*>(vr + 4 * TX * g);
+          vv[4 * g] = f.x, vv[4 * g + 1] = f.y, vv[4 * g + 2] = f.z,
+                 vv[4 * g + 3] = f.w;
+        }
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const float p = __shfl_sync(0xffffffffu, s[i][c], src, TX);
+#pragma unroll
+          for (int e = 0; e < CW; ++e) o[i][e] = fmaf(p, vv[e], o[i][e]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int r = q0 + ty + RG * i;
+    if (r < S)
+      f32_store_row<CW, 4, 4 * TX>(on + (size_t)r * o_ld + tx * 4, o[i],
+                                   l[i]);
+  }
+}
 
 template <int HD>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -317,56 +763,52 @@ __global__ void __launch_bounds__(kWarps * 32)
                        scale);
 }
 
+// the tiled body at one shape (the grid: query tiles x heads x rows)
 template <int HD>
-__global__ void __launch_bounds__(kF32Threads)
-    attn_sdpa_tiled_f32_kernel(const float* __restrict__ q,
-                               const float* __restrict__ k,
-                               const float* __restrict__ v,
-                               const float* __restrict__ bias,
-                               float* __restrict__ out, int S, int q_ld,
-                               int k_ld, int v_ld, int o_ld, float scale) {
-  extern __shared__ __align__(16) float fsm[];
-  const size_t hc = (size_t)blockIdx.y * HD, n = blockIdx.z;
-  const float* qn = q + n * S * q_ld + hc;
-  const float* kn = k + n * S * k_ld + hc;
-  const float* vn = v + n * S * v_ld + hc;
-  float* on = out + n * S * o_ld + hc;
-  auto score = [=](float s, int r, int key) {
-    const float sc = __fmul_rn(s, scale);
-    return bias == nullptr
-               ? sc
-               : __fadd_rn(sc, bias[(size_t)min(r, S - 1) * S + key]);
-  };
-  attn_f32_unit<HD>(
-      fsm, S, blockIdx.x * kF32Rows,
-      [=](int p, int d) {
-        return *reinterpret_cast<const float2*>(qn + (size_t)p * q_ld + d);
-      },
-      [=](int p, int d) {
-        return *reinterpret_cast<const float2*>(kn + (size_t)p * k_ld + d);
-      },
-      [=](int p, int d) {
-        return *reinterpret_cast<const float4*>(vn + (size_t)p * v_ld + d);
-      },
-      score, [=](int r, int c, float o) { on[(size_t)r * o_ld + c] = o; });
+int launch_f32_tile(const float* q, const float* k, const float* v,
+                    const float* bias, float* out, int N, int S, int H,
+                    int q_ld, int k_ld, int v_ld, int o_ld, float scale,
+                    cudaStream_t st) {
+  using T = SdpaF32<HD>;
+  static size_t opted = 48 * 1024;
+  const cudaError_t e =
+      opt_in_smem(attn_sdpa_f32_tile_kernel<HD>, T::smem(), opted);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + T::QT - 1) / T::QT, H, N);
+  attn_sdpa_f32_tile_kernel<HD><<<grid, T::THREADS, T::smem(), st>>>(
+      q, k, v, bias, out, S, q_ld, k_ld, v_ld, o_ld, scale);
+  return (int)cudaGetLastError();
 }
 
+// the tiled body's 128-row form
+template <int HD>
+int launch_f32_wide(const float* q, const float* k, const float* v,
+                    const float* bias, float* out, int N, int S, int H,
+                    int q_ld, int k_ld, int v_ld, int o_ld, float scale,
+                    cudaStream_t st) {
+  using W = SdpaF32Wide<HD>;
+  static size_t opted = 48 * 1024;
+  const cudaError_t e =
+      opt_in_smem(attn_sdpa_f32_wide_kernel<HD>, W::smem(), opted);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + W::QT - 1) / W::QT, H, N);
+  attn_sdpa_f32_wide_kernel<HD><<<grid, W::THREADS, W::smem(), st>>>(
+      q, k, v, bias, out, S, q_ld, k_ld, v_ld, o_ld, scale);
+  return (int)cudaGetLastError();
+}
+
+// body: 0 warp rows, 1 the tiled body's 48-row tiles, 2 its 128-row tiles
 template <int HD>
 int launch_f32(const float* q, const float* k, const float* v,
                const float* bias, float* out, int N, int S, int H, int q_ld,
-               int k_ld, int v_ld, int o_ld, int tiled, float scale,
+               int k_ld, int v_ld, int o_ld, int body, float scale,
                cudaStream_t st) {
-  if (tiled) {
-    static size_t opted = 48 * 1024;
-    constexpr size_t smem = attn_f32_smem<HD>();
-    const cudaError_t e =
-        opt_in_smem(attn_sdpa_tiled_f32_kernel<HD>, smem, opted);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((S + kF32Rows - 1) / kF32Rows, H, N);
-    attn_sdpa_tiled_f32_kernel<HD><<<grid, kF32Threads, smem, st>>>(
-        q, k, v, bias, out, S, q_ld, k_ld, v_ld, o_ld, scale);
-    return (int)cudaGetLastError();
-  }
+  if (body == 1)
+    return launch_f32_tile<HD>(q, k, v, bias, out, N, S, H, q_ld, k_ld,
+                               v_ld, o_ld, scale, st);
+  if (body == 2)
+    return launch_f32_wide<HD>(q, k, v, bias, out, N, S, H, q_ld, k_ld,
+                               v_ld, o_ld, scale, st);
   static size_t opted = 48 * 1024;
   const size_t smem = rows_smem<HD, float>(S);
   const cudaError_t e =
@@ -420,20 +862,22 @@ GTAX_ENTRY gtax_attn_sdpa(const void* q, const void* k, const void* v,
 }
 
 // The fp32 form: gtax_attn_sdpa's arguments over fp32 q, k, v and out;
-// tiled: 1 for the tiled SIMT body (the caller's rule for the tensor-core
-// body's lengths), 0 for warp rows. The tiled body reads q and k 8 bytes
-// and v 16 bytes at a time (lds multiples of 4, pointers 16-byte
-// aligned); warp rows read 8 bytes (lds even, pointers 8-byte aligned).
+// body (the caller's rule by S, gtax_torch/kernels/attention.py
+// sdpa_f32_body): 0 warp rows, 1 the tiled body's 48-row tiles, 2 its
+// 128-row tiles. The tiled body reads q, k, v and writes out 16 bytes at
+// a time (lds multiples of 4, pointers 16-byte aligned); warp rows read 8
+// bytes (lds even, pointers 8-byte aligned).
 GTAX_ENTRY gtax_attn_sdpa_f32(const void* q, const void* k, const void* v,
                               const void* bias, void* out, int N, int S,
                               int num_heads, int hd, int q_ld, int k_ld,
-                              int v_ld, int o_ld, int tiled, float scale,
+                              int v_ld, int o_ld, int body, float scale,
                               void* stream) {
-  const int align = tiled ? 4 : 2;
-  if (N <= 0 || S <= 0 || num_heads <= 0 || q_ld < num_heads * hd ||
+  const int align = body ? 4 : 2;
+  if (N <= 0 || S <= 0 || num_heads <= 0 || body < 0 || body > 2 ||
+      q_ld < num_heads * hd ||
       k_ld < num_heads * hd || v_ld < num_heads * hd ||
       o_ld < num_heads * hd || q_ld % align || k_ld % align || v_ld % align ||
-      o_ld % 2 ||
+      o_ld % align ||
       (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) %
        (4 * align)))
     return (int)cudaErrorInvalidValue;
@@ -446,10 +890,10 @@ GTAX_ENTRY gtax_attn_sdpa_f32(const void* q, const void* k, const void* v,
   switch (hd) {
     case 32:
       return launch_f32<32>(qp, kp, vp, b, o, N, S, num_heads, q_ld, k_ld,
-                            v_ld, o_ld, tiled, scale, st);
+                            v_ld, o_ld, body, scale, st);
     case 64:
       return launch_f32<64>(qp, kp, vp, b, o, N, S, num_heads, q_ld, k_ld,
-                            v_ld, o_ld, tiled, scale, st);
+                            v_ld, o_ld, body, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -21,7 +21,7 @@
 // with acc + bias also stored to C2: the residuals y and h1) and EPI_DGELU
 // (u = gelu'(h1) * acc to C, gelu(h1) to C2, with h1 = aux fp32, and each
 // 64-row slab's column sums of u to colsum, the partials of db1).
-// Operand forms: OP_NN, C = A @ B (the forwards; gemm_f32_kernel);
+// Operand forms: OP_NN, C = A @ B (the forwards);
 // OP_NT (trans_b), C = A @ W^T with W (N, K) row-major, the backward's
 // dY @ W^T read from W's rows; OP_TN, C = A^T @ B over the token rows
 // (gtax_gemm_f32_wgrad, the weight gradients): A (K, M) and B (K, N)
@@ -31,20 +31,32 @@
 // Bound: operations, 67 TFLOP/s of fp32 FFMA on the H100 SXM, at every
 // main-path shape but the 144-row step's products, where the fp32
 // weights (8-32 MB a product) come close.
-// OP_NN design below 720 rows (the serving step's 144-288, a prefill's
-// 576; gemm_f32_kernel): 64x64 output tiles of 256 threads, each thread
-// a 4x4 register tile (rows ty*4 .., columns tx*4 ..), K walked in
-// 16-deep steps through two shared-memory stages filled by cp.async (the
-// next step's copies in flight during this step's FFMAs). A thread reads
-// its A rows as float4 along K and its B columns as float4 along N (a
-// denoise step's 144 rows: 48-192 blocks), with K cut into chunks where
-// the wrapper passes one (gtax_torch/kernels/block.py f32_chunk: the
-// fewest chunks giving 8 blocks an SM): each (tile, chunk) block sums its
-// chunk into an fp32 partial, and a second kernel adds the partials in
-// chunk order and runs the epilogue.
-// OP_NN from 720 rows (five DiT frames of 144 up to training's 11,520,
-// the VAE's 1,152-3,456; gemm_f32_fwd_kernel): A k-major, as the backward
-// stages it: 128x128
+// OP_NN in two forms; the caller picks one a call (the argument
+// fwd_form; gtax_torch/kernels/block.py f32_fwd_form, the rule by rows
+// and weights that gtax_torch/tools/gemm_sweep.py --f32 --forms measured
+// on the card).
+// The serving form (a denoise step's 144-288 rows;
+// gemm_f32_serve_kernel, kServe*): 48-row tiles (a step's 144 rows in
+// three) by 64 columns, 192 threads of 4 x 4 outputs, four blocks an SM;
+// A's rows and B's k rows land as they lie by 16-byte cp.async copies
+// into a 3-stage ring of 32-deep steps. K is cut into the chunks of a
+// thread-block cluster (at most 8, gtax_torch/kernels/block.py
+// f32_serve_chunk): each block sums its chunk into registers, stores it to
+// its own shared memory, and after the cluster's barrier adds its share
+// of the tile's rows from every block's partial through distributed
+// shared memory in chunk order, then runs the epilogue: no partial
+// through device memory, no second launch, one fixed order of sums.
+// Shapes were timed at 144, 288 and 576 rows from an exploration harness
+// not kept (PERF.md section 6): 144-row tiles that read each weight
+// once a column tile, 8 x 4 and 8 x 8 outputs a thread, 16- and 32-deep
+// steps; the small tile's four blocks an SM (24 warps) ran fastest on
+// each of the twelve products. It replaced a 64x64 tile whose partials
+// went through device memory to a second kernel (gtax_torch/tools/
+// gemm_sweep.py --f32 from the older tree, in turns: 1.003-1.39x at the
+// plan's chunks).
+// The k-major form (a prefill's rows, five DiT frames of 144 up to
+// training's 11,520, the VAE's 1,152-3,456; gemm_f32_fwd_kernel): A
+// k-major, as the backward stages it: 128x128
 // tiles, two blocks an SM, 32-row steps through a two-stage cp.async ring
 // whose copies come from pointers set up once; A's rows copied transposed
 // first (f32_transpose_kernel) unless the caller stores them k-major, as
@@ -72,6 +84,8 @@
 // then the chunks in order; no atomics), so two calls agree bit for bit,
 // and a given element's products are added in the same order in every
 // form, so the forms' bits agree on the same values.
+#include <cooperative_groups.h>
+
 #include <initializer_list>
 
 #include "gemm_epi.cuh"
@@ -79,16 +93,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int BK = 16;      // K depth of a stage
-constexpr int kLdA = BK + 4;  // A rows padded: the two row groups of a
-                              // warp's loads fall in different banks
-
-constexpr int kTile = 64;     // gemm_f32_kernel's output tile, square
-
-struct Stages {
-  float a[2][kTile][kLdA];
-  float b[2][BK][kTile];
-};
+constexpr int BK = 16;  // the K granule: K and its chunks are multiples
 
 // The backward's forms (gemm_f32_bwd_kernel), by epilogue: a 128-row
 // tile of TW columns, a cp.async ring of STAGES steps of KS token rows,
@@ -241,79 +246,138 @@ __device__ __forceinline__ void store4(const F32Args& e, int gm, int gn,
   }
 }
 
-// One 64 x 64 output tile a block of A @ B, over K chunk blockIdx.z (its
-// partial, EPI_F32, at C + z M N); thread (ty, tx) = (tid / 16, tid % 16)
-// holds rows 4 ty + r and columns 4 tx + c.
+// The forward's serving form (gemm_f32_serve_kernel): a kServeTile x
+// kServeTN tile of kServeThreads threads (12 row groups by 16 column
+// groups, 4 x 4 outputs each), a ring of kServeStages steps of kServeKS k
+// rows, kServeBlocks blocks an SM; K in at most kServeMaxCluster chunks,
+// one a block of a cluster.
+constexpr int kServeTile = 48, kServeRG = 12, kServeTN = 64, kServeKS = 32;
+constexpr int kServeStages = 3, kServeBlocks = 4, kServeMaxCluster = 8;
+constexpr int kServeThreads = kServeRG * 16;
+constexpr int kServeLdA = kServeKS + 4;  // A rows: 9 16-byte slots apart
+constexpr int kServeLdR = kServeTN + 4;  // the partial's rows
+struct ServeStage {
+  float a[kServeTile][kServeLdA];  // A rows as they lie
+  float b[kServeKS][kServeTN];     // B's k rows
+};
+constexpr size_t kServeSmem = kServeStages * sizeof(ServeStage);
+static_assert(kServeTile == kServeRG * 4 && kServeTN == 16 * 4 &&
+                  kServeSmem >= kServeTile * kServeLdR * sizeof(float),
+              "4 x 4 outputs a thread; the cluster's partial reuses the ring");
+
+// C = epilogue(A @ B), A (M, K) and B (K, N) row-major: block x of the
+// grid is column tile x / splits and K chunk x % splits (its cluster rank:
+// the cluster is the tile's `splits` blocks), y the row tile. Thread (ty,
+// tx) holds rows ty * 4 .. and columns tx * 4 ..: a 4-deep slice of K is
+// four float4 loads of A's rows and four of B for 64 FFMAs. A's rows and
+// B's k rows land as they lie by 16-byte cp.async copies; a chunk's steps
+// past its end (K a multiple of 16, not of kServeKS) are zero-filled.
 template <int EPI>
-__global__ void __launch_bounds__(kThreads)
-    gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                    F32Args e) {
-  constexpr int BM = kTile, BN = kTile, TM = 4, TN = 4;
-  __shared__ __align__(16) Stages sm;
+__global__ void __launch_bounds__(kServeThreads, kServeBlocks)
+    gemm_f32_serve_kernel(const float* __restrict__ A,
+                          const float* __restrict__ B, F32Args e) {
+  namespace cg = cooperative_groups;
+  constexpr int KS = kServeKS, STAGES = kServeStages, TN = kServeTN;
+  extern __shared__ __align__(16) unsigned char serve_smem[];
+  ServeStage* ring = reinterpret_cast<ServeStage*>(serve_smem);
+  const int splits = e.K / e.k_chunk;
+  const int chunk = blockIdx.x % splits;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * kServeTile;
+  const int n0 = blockIdx.x / splits * TN;
   const int M = e.M, N = e.N, K = e.K;
-  const int k_begin = blockIdx.z * e.k_chunk;
-  if constexpr (EPI == EPI_F32) e.C += (size_t)blockIdx.z * M * N;
+  const int k_begin = chunk * e.k_chunk, k_end = k_begin + e.k_chunk;
+  const int steps = (e.k_chunk + KS - 1) / KS;
 
   auto load = [&](int s, int k0) {  // stage s: A rows, B rows of step k0
-    for (int c = tid; c < BM * BK / 4; c += kThreads) {
-      const int r = c / (BK / 4), kq = c % (BK / 4) * 4, gm = m0 + r;
-      cp_async16(&sm.a[s][r][kq], A + (size_t)min(gm, M - 1) * K + k0 + kq,
-                 gm < M ? 16 : 0);
+    ServeStage& st = ring[s];
+    for (int c = tid; c < kServeTile * KS / 4; c += kServeThreads) {
+      const int r = c / (KS / 4), kq = c % (KS / 4) * 4;
+      const int gm = m0 + r, k = k0 + kq;
+      const bool ok = gm < M && k < k_end;
+      cp_async16(&st.a[r][kq], ok ? A + (size_t)gm * K + k : A,
+                 ok ? 16 : 0);
     }
-    for (int c = tid; c < BK * BN / 4; c += kThreads) {
-      const int r = c / (BN / 4), nq = c % (BN / 4) * 4, gn = n0 + nq;
-      cp_async16(&sm.b[s][r][nq], B + (size_t)(k0 + r) * N + min(gn, N - 4),
-                 gn < N ? 16 : 0);
+    for (int c = tid; c < KS * TN / 4; c += kServeThreads) {
+      const int r = c / (TN / 4), nq = c % (TN / 4) * 4;
+      const int gn = n0 + nq, k = k0 + r;
+      const bool ok = gn < N && k < k_end;
+      cp_async16(&st.b[r][nq], ok ? B + (size_t)k * N + gn : B,
+                 ok ? 16 : 0);
     }
-    cp_async_commit();
   };
 
-  float acc[TM][TN];
+  float acc[4][4];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  const int steps = e.k_chunk / BK;
-  load(0, k_begin);
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load(s, k_begin + s * KS);
+    cp_async_commit();  // empty groups keep the wait count uniform
+  }
   for (int kt = 0; kt < steps; ++kt) {
-    if (kt + 1 < steps)
-      load((kt + 1) & 1, k_begin + (kt + 1) * BK);
-    else
-      cp_async_commit();  // an empty group keeps the wait count uniform
-    cp_async_wait<1>();
-    __syncthreads();
-    const int s = kt & 1;
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // step kt landed; every thread left step kt - 1
+    const int next = kt + STAGES - 1;
+    if (next < steps) load(next % STAGES, k_begin + next * KS);
+    cp_async_commit();
+    const ServeStage& st = ring[kt % STAGES];
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 4) {
-      float a[TM][4];
+    for (int kk = 0; kk < KS; kk += 4) {
+      float a[4][4];
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
-        ld4(&sm.a[s][ty * 4 + i][kk], a[i]);
+      for (int i = 0; i < 4; ++i) ld4(&st.a[ty * 4 + i][kk], a[i]);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        float b[TN];
-        ld4(&sm.b[s][kk + k][tx * 4], b);
+        float b[4];
+        ld4(&st.b[kk + k][tx * 4], b);
 #pragma unroll
-        for (int i = 0; i < TM; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < TN; ++j)
+          for (int j = 0; j < 4; ++j)
             acc[i][j] = fmaf(a[i][k], b[j], acc[i][j]);
       }
     }
-    __syncthreads();  // every thread is done with stage s before its refill
   }
 
-  const int gn = n0 + tx * 4;
+  if (splits == 1) {
+    const int gn = n0 + tx * 4;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= M || gn >= N) continue;
-    float v[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
-    store4<EPI>(e, gm, gn, v);
+    for (int i = 0; i < 4; ++i) {
+      const int gm = m0 + ty * 4 + i;
+      if (gm < M && gn < N) store4<EPI>(e, gm, gn, acc[i]);
+    }
+    return;
   }
+  // the chunk's partial to this block's shared memory (the ring is idle),
+  // then this block's rows of the tile from every chunk's, in chunk order
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(serve_smem);  // [kServeTile][LdR]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    st4(red + (ty * 4 + i) * kServeLdR + tx * 4, acc[i]);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int rows = (kServeTile + splits - 1) / splits;
+  const int r0 = chunk * rows;
+  for (int g = tid; g < rows * (TN / 4); g += kServeThreads) {
+    const int r = r0 + g / (TN / 4), c = g % (TN / 4) * 4;
+    const int gm = m0 + r, gc = n0 + c;
+    if (r >= kServeTile || gm >= M || gc >= N) continue;
+    float v[4];
+    ld4(cluster.map_shared_rank(red, 0) + r * kServeLdR + c, v);
+    for (int z = 1; z < splits; ++z) {
+      float w[4];
+      ld4(cluster.map_shared_rank(red, z) + r * kServeLdR + c, w);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] += w[j];
+    }
+    store4<EPI>(e, gm, gc, v);
+  }
+  cluster.sync();  // every block's partial stays until all have read it
 }
 
 // The backward's products, C = A^T @ B over the token rows with A (K, M)
@@ -439,13 +503,13 @@ __global__ void __launch_bounds__(kThreads, BwdShape<EPI>::BLOCKS)
   }
 }
 
-// The forward product at training and VAE rows (gemm_f32_fwd_kernel,
-// M >= kFwdRows): a 128 x TW tile a block over a ring of STAGES steps of
-// KS k rows, BLOCKS blocks an SM (8 x 8 outputs a thread, in at most 128
-// registers), A k-major (K, lda) as the backward's token rows lie: the
-// entry point copies a row-major A transposed first (f32_transpose_kernel),
-// or the caller hands it over k-major (the fc1 epilogue's transposed store
-// of the GELU rows that fc2 reads). Two blocks of 128 x 128 an SM beat one
+// The forward product at prefill, training and VAE rows
+// (gemm_f32_fwd_kernel, the k-major form): a 128 x TW tile a block over a
+// ring of STAGES steps of KS k rows, BLOCKS blocks an SM (8 x 8 outputs a
+// thread, in at most 128 registers), A k-major (K, lda) as the backward's
+// token rows lie: the entry point copies a row-major A transposed first
+// (f32_transpose_kernel), or the caller hands it over k-major (the fc1
+// epilogue's transposed store of the GELU rows that fc2 reads). Two blocks of 128 x 128 an SM beat one
 // of 128 x 256 at the VAE's rows (27 row tiles) and matched it at 11,520;
 // A staged from its (M, K) rows, through registers or by 4-byte cp.async,
 // ran below k-major A; loading k + 1's operands while k's FFMAs ran moved
@@ -454,12 +518,6 @@ __global__ void __launch_bounds__(kThreads, BwdShape<EPI>::BLOCKS)
 struct FwdShape {
   static constexpr int TW = 128, KS = 32, STAGES = 2, BLOCKS = 2;
 };
-// From kFwdRows rows the form beat gemm_f32_kernel's tiles at the plan's
-// chunks on each of the four products at 720, 1,152 and 1,440 rows
-// (1.13-1.49x); at 576 the out-projection lost (0.91x; PERF.md section 6;
-// gtax_torch/tools/gemm_sweep.py --f32 on a copy of the tree with
-// kFwdRows 576, NVIDIA H100 80GB HBM3, 700 W).
-constexpr int kFwdRows = 720;  // five DiT frames of 144 rows
 
 struct FwdStage {
   float a[FwdShape::KS][kBwdTile];
@@ -656,25 +714,32 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One call below kFwdRows: the 64x64 tile over the whole of K, or, with
-// e.k_chunk < K, its partials (EPI_F32 into part) and the reduction.
+// gemm_f32_serve_kernel over K / e.k_chunk chunks, a cluster of them a
+// column tile (the ring's shared memory opted into at its first launch)
 template <int EPI>
-int launch(const float* A, const float* B, const F32Args& e, float* part,
-           cudaStream_t st) {
+int launch_serve(const float* A, const float* B, const F32Args& e,
+                 cudaStream_t st) {
+  static size_t opted = 48 * 1024;
+  const cudaError_t err =
+      opt_in_smem(gemm_f32_serve_kernel<EPI>, kServeSmem, opted);
+  if (err != cudaSuccess) return (int)err;
   const int splits = e.K / e.k_chunk;
-  const dim3 grid((e.N + kTile - 1) / kTile, (e.M + kTile - 1) / kTile,
-                  splits);
-  if (splits > 1) {
-    F32Args p = e;
-    p.C = part;
-    gemm_f32_kernel<EPI_F32><<<grid, kThreads, 0, st>>>(A, B, p);
-    const long long groups = (long long)e.M * (e.N / 4);
-    f32_reduce_kernel<EPI>
-        <<<(unsigned)((groups + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-            part, splits, e);
-  } else {
-    gemm_f32_kernel<EPI><<<grid, kThreads, 0, st>>>(A, B, e);
-  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((e.N + kServeTN - 1) / kServeTN * splits,
+                     (e.M + kServeTile - 1) / kServeTile, 1);
+  cfg.blockDim = dim3(kServeThreads, 1, 1);
+  cfg.dynamicSmemBytes = kServeSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t launched =
+      cudaLaunchKernelEx(&cfg, gemm_f32_serve_kernel<EPI>, A, B, e);
+  if (launched != cudaSuccess) return (int)launched;
   return (int)cudaGetLastError();
 }
 
@@ -743,7 +808,7 @@ int launch_fwd_kernel(const float* A, const float* B, const F32Args& e,
   return (int)cudaGetLastError();
 }
 
-// The forward at M >= kFwdRows: A (M, K) row-major (e.lda 0) copied
+// The forward's k-major form: A (M, K) row-major (e.lda 0) copied
 // transposed into ws ((K, M4), M4 = M rounded up to 4) first, or given
 // k-major (e.lda); then the product over ceil(K / e.k_chunk) chunks, their
 // partials (after the copy in ws) added in chunk order by the reduction
@@ -776,12 +841,12 @@ constexpr bool kGeluEpi =
     EPI == EPI_BIAS_GELU_ERF || EPI == EPI_BIAS_GELU_ERF_H ||
     EPI == EPI_BIAS_BF16_GELU;
 
-// the forward's launch by form: gemm_f32_fwd_kernel from kFwdRows rows,
-// else gemm_f32_kernel's tiles
+// the forward's launch by form: gemm_f32_serve_kernel, or (fwd)
+// gemm_f32_fwd_kernel
 template <int EPI>
-int launch_any(const float* A, const float* B, const F32Args& e, float* ws,
-               cudaStream_t st) {
-  if (e.M < kFwdRows) return launch<EPI>(A, B, e, ws, st);
+int launch_any(const float* A, const float* B, const F32Args& e, bool fwd,
+               float* ws, cudaStream_t st) {
+  if (!fwd) return launch_serve<EPI>(A, B, e, st);
   if constexpr (kGeluEpi<EPI>) {
     if (e.ldc) return launch_fwd<EPI, true>(A, B, e, ws, st);
   }
@@ -806,31 +871,38 @@ bool aligned16(std::initializer_list<const void*> ptrs) {
 // also store acc + bias to C2 (M, N); with trans_b, EPI_F32, or EPI_DGELU:
 // C = u = gelu'(aux) * acc, C2 = gelu(aux), aux (M, N) fp32, colsum
 // (ceil(M / 64), N) the column sums of u over each 64-row slab, K one pass.
-// k_chunk: K, or a K chunk (a multiple of 16 dividing K) whose partials go
-// to part, (K / k_chunk, M, N) fp32, before the epilogue adds them in order.
-// trans_b: part a workspace of K M4 + K N floats (A^T, its rows padded to
-// M4 = M rounded up to 4, and W^T), then the partials' (K / k_chunk) M N
-// where K is split. The forward from kFwdRows rows (gemm_f32_fwd_kernel):
-// k_chunk any multiple of 16 up to K (ceil(K / k_chunk) chunks, the last
-// one short); lda 0, A (M, K) row-major, copied transposed to the start
-// of part (K M4 floats), or lda > 0, A given k-major, (K, lda), lda >= M a
-// multiple of 4; ldc > 0 (a GELU epilogue): C stored transposed, (N, ldc),
-// ldc >= M a multiple of 4, rows past M zero (C2 stays (M, N)); the
-// partials follow the copy in part. Below kFwdRows, lda = ldc = 0.
+// k_chunk: K, or a K chunk (a multiple of 16 dividing K) whose partials are
+// added in order before the epilogue: on the serving form (fwd_form 0) at
+// most kServeMaxCluster chunks, through the cluster's shared memory (part
+// unused); with trans_b through part, (K / k_chunk, M, N) fp32.
+// trans_b (fwd_form 0): part a workspace of K M4 + K N floats (A^T, its
+// rows padded to M4 = M rounded up to 4, and W^T), then the partials' (K /
+// k_chunk) M N where K is split. fwd_form 1, the k-major form
+// (gemm_f32_fwd_kernel): k_chunk any multiple of 16 up to K (ceil(K /
+// k_chunk) chunks, the last one short); lda 0, A (M, K) row-major, copied
+// transposed to the start of part (K M4 floats), or lda > 0, A given
+// k-major, (K, lda), lda >= M a multiple of 4; ldc > 0 (a GELU epilogue):
+// C stored transposed, (N, ldc), ldc >= M a multiple of 4, rows past M
+// zero (C2 stays (M, N)); the partials follow the copy in part. fwd_form
+// 0: lda = ldc = 0.
 GTAX_ENTRY gtax_gemm_f32(const void* A, const void* B, void* C, void* C2,
                          const void* aux, void* colsum, const void* bias,
                          int bias_f32, const void* resid, const void* gate,
                          int gate_stride, int M, int N, int K, int S, int epi,
                          int trans_b, int k_chunk, int lda, int ldc,
-                         void* part, void* stream) {
-  const bool fwd = !trans_b && M >= kFwdRows;
+                         int fwd_form, void* part, void* stream) {
+  const bool fwd = !trans_b && fwd_form == 1;
+  const bool serve = !trans_b && fwd_form == 0;
   if (M <= 0 || N <= 0 || K <= 0 || N % 4 || K % BK || S <= 0 ||
+      fwd_form < 0 || fwd_form > 1 || (trans_b && fwd_form) ||
+      (serve && k_chunk > 0 && K / k_chunk > kServeMaxCluster) ||
       !aligned16({A, B, C, C2, aux, resid, gate, part}) || gate_stride % 4 ||
       k_chunk <= 0 || k_chunk % BK || k_chunk > K ||
       (!fwd && (K % k_chunk || lda || ldc)) ||
       (fwd && (lda < 0 || (lda && (lda < M || lda % 4)) || ldc < 0 ||
                (ldc && (ldc < M || ldc % 4)))) ||
-      ((k_chunk < K || trans_b || (fwd && !lda)) && part == nullptr))
+      (((k_chunk < K && !serve) || trans_b || (fwd && !lda)) &&
+       part == nullptr))
     return (int)cudaErrorInvalidValue;
   const bool has_bias = epi != EPI_F32 && epi != EPI_DGELU;
   const bool has_resid = epi == EPI_BIAS_GATED || epi == EPI_BIAS_GATED_Y ||
@@ -876,7 +948,7 @@ GTAX_ENTRY gtax_gemm_f32(const void* A, const void* B, void* C, void* C2,
   switch (epi) {
 #define GTAX_F32_CASE(E) \
   case E:                \
-    return launch_any<E>(a, b, e, p, st);
+    return launch_any<E>(a, b, e, fwd, p, st);
     GTAX_F32_CASE(EPI_F32)
     GTAX_F32_CASE(EPI_BIAS_BF16)
     GTAX_F32_CASE(EPI_BIAS_GELU_TANH)
@@ -919,19 +991,21 @@ GTAX_ENTRY gtax_gemm_f32_wgrad(const void* A, const void* B, void* C, int M,
 // The temporal branch's qkv product with rope in its epilogue, in fp32:
 // q, k, v (M, D) = the three column thirds of A (M, D) @ B (D, 3D), rope
 // (fp32, sincosf) on q and k at the row's window slot q_off + (r / S) % n_q
-// of freqs ((slots, hd) fp32), nothing rounded; K split as gtax_gemm_f32's
-// (part: (D / k_chunk, M, 3D) fp32; from kFwdRows rows A's transposed
-// copy, D M4 floats, then ceil(D / k_chunk) partials).
+// of freqs ((slots, hd) fp32), nothing rounded; the form and the K split
+// as gtax_gemm_f32's (fwd 0: at most kServeMaxCluster chunks, part unused;
+// fwd 1: A's transposed copy in part, D M4 floats, then ceil(D / k_chunk)
+// partials).
 GTAX_ENTRY gtax_gemm_f32_rope_qkv(const void* A, const void* B, void* q,
                                   void* k, void* v, const void* freqs, int M,
                                   int D, int S, int n_q, int q_off, int hd,
-                                  int k_chunk, void* part, void* stream) {
+                                  int k_chunk, int fwd, void* part,
+                                  void* stream) {
   if (M <= 0 || D <= 0 || D % BK || S <= 0 || n_q <= 0 || q_off < 0 ||
       hd <= 0 || hd % 4 || D % hd || freqs == nullptr || q == nullptr ||
       k == nullptr || v == nullptr || !aligned16({A, B, q, k, v, part}) ||
-      k_chunk <= 0 || k_chunk % BK || k_chunk > D ||
-      (M < kFwdRows && D % k_chunk) ||
-      ((k_chunk < D || M >= kFwdRows) && part == nullptr))
+      k_chunk <= 0 || k_chunk % BK || k_chunk > D || fwd < 0 || fwd > 1 ||
+      (!fwd && (D % k_chunk || D / k_chunk > kServeMaxCluster)) ||
+      (fwd && part == nullptr))
     return (int)cudaErrorInvalidValue;
   F32Args e{};
   e.C = static_cast<float*>(q);
@@ -947,7 +1021,7 @@ GTAX_ENTRY gtax_gemm_f32_rope_qkv(const void* A, const void* B, void* q,
   e.K = D;
   e.k_chunk = k_chunk;
   return launch_any<EPI_ROPE_QKV>(static_cast<const float*>(A),
-                                  static_cast<const float*>(B), e,
+                                  static_cast<const float*>(B), e, fwd,
                                   static_cast<float*>(part),
                                   (cudaStream_t)stream);
 }

@@ -22,8 +22,8 @@ tokens or more, its warp-per-row body for shorter ones
 (`sdpa_tensor_cores`). In fp32 (gtax's kernels at q.dtype = float32, where
 the probabilities' cast is a no-op) the same rule picks between the fp32
 form's tiled SIMT body and its warp rows, both on the CUDA cores, nothing
-rounded below fp32. Each wrapper counts its kernel launches in
-`launches`.
+rounded below fp32; the tiled body's tiles by S (`sdpa_f32_body`). Each
+wrapper counts its kernel launches in `launches`.
 """
 
 from __future__ import annotations
@@ -127,6 +127,32 @@ def sdpa_tensor_cores(S: int) -> bool:
     return S >= SDPA_TENSOR_CORES_MIN_S
 
 
+# the fp32 form's tiled body by S (csrc/attn_sdpa.cu): 48 query rows over
+# 48-key tiles up to SDPA_F32_WIDE_MIN_S - 1 tokens
+# (attn_sdpa_f32_tile_kernel; at the spatial S = 144 a head's K and V
+# whole in shared memory, 240 blocks at one frame), 128 query rows over
+# 64-key tiles from it (attn_sdpa_f32_wide_kernel, 4 x 8 a thread; the
+# VAE's S = 576). The threshold gives the least summed time over S = 32 ..
+# 577 (`python -m gtax_torch.tools.attn_sweep --f32-bodies`, both bodies
+# in turns, NVIDIA H100 80GB HBM3, 700 W: the 48-row body 1.03-1.13x the
+# faster at 160-384, the 128-row one 1.245x at 576; below 576 the winner
+# follows the grid's waves more than S: the 128-row body at 64, 128 and
+# 145; PERF.md section 6); F32_ROWS_BY_BODY: the query rows of a block of
+# each
+SDPA_F32_WIDE_MIN_S = 576
+F32_ROWS_BY_BODY = {1: 48, 2: 128}
+
+
+def sdpa_f32_body(S: int) -> int:
+    """The fp32 form's body for rows of S tokens, as the C entry takes it:
+    0 warp rows (below SDPA_TENSOR_CORES_MIN_S, the bf16 rule), 1 the
+    tiled body's 48-row tiles, 2 its 128-row tiles (from
+    SDPA_F32_WIDE_MIN_S)."""
+    if not sdpa_tensor_cores(S):
+        return 0
+    return 2 if S >= SDPA_F32_WIDE_MIN_S else 1
+
+
 def _token_rows(t, S, width, align):
     """t (..., S, width) as rows of S tokens with token stride ld and row
     stride S * ld, as the kernel reads them: ld a multiple of `align`
@@ -167,6 +193,7 @@ def _launch(q, k, v, mask, causal, S, num_heads, d):
                   f"{tuple(k.shape)}, {tuple(v.shape)}")
     _need(d in (32, 64), lambda: f"head dim {d}: the kernel takes 32 or 64")
     tc = sdpa_tensor_cores(S)
+    body = sdpa_f32_body(S) if dt == torch.float32 else int(tc)
     align = _align(tc, dt)
     (q, q_ld), (k, k_ld), (v, v_ld) = (_token_rows(t, S, width, align)
                                        for t in (q, k, v))
@@ -177,7 +204,7 @@ def _launch(q, k, v, mask, causal, S, num_heads, d):
     name = "gtax_attn_sdpa_f32" if dt == torch.float32 else "gtax_attn_sdpa"
     build.launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  _ptr(bias), out.data_ptr(), N, S, num_heads, d, q_ld,
-                 k_ld, v_ld, width, int(tc), 1.0 / d**0.5, _stream(q))
+                 k_ld, v_ld, width, body, 1.0 / d**0.5, _stream(q))
     return out
 
 
@@ -190,8 +217,9 @@ def fused_sdpa(q, k, v, mask=None, causal=False):
     Replaces gtax/kernels/attention.py fused_sdpa (:130; _fused_sdpa_flat,
     pallas_call at :90, body _attn_kernel :60). On the card: one launch of
     attn_sdpa, a block per (query tile, row): 128 rows on the tensor cores,
-    or 64 on the warp-per-row body for short rows (fp32: 64 rows of the
-    tiled SIMT body, or warp rows). Bound: bytes."""
+    or 64 on the warp-per-row body for short rows (fp32: 48 or 128 rows of
+    the tiled SIMT body by S, or warp rows). Bound: bytes (fp32:
+    operations)."""
     S, d = q.shape[-2], q.shape[-1]
     if _unsupported(mask, S):
         return None

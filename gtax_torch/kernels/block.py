@@ -309,19 +309,15 @@ def small_plan(M, N, K, sms, tile_n, k_step, max_rows, max_splits,
     return chunk if small < tiled else 0
 
 
-# gemm_f32's tiling below F32_FWD_ROWS rows (csrc/gemm_f32.cu
-# gemm_f32_kernel): the tile's rows and columns, its k-step, the most K
-# chunks a split product takes, and the blocks an SM a split aims for
-# (`python -m gtax_torch.tools.gemm_sweep --f32`, NVIDIA H100 80GB HBM3,
-# 700 W: at the serving rows every product ran fastest, or within 6% of
-# it, at the fewest chunks giving 8 blocks an SM; 3 of the 64x64 tile's
-# blocks fit on an SM at once)
-F32_TILE, F32_K_STEP, F32_MAX_SPLITS, F32_BLOCKS_PER_SM = 64, 16, 8, 8
+# gemm_f32's K step (csrc/gemm_f32.cu BK: K and its chunks are multiples)
+# and the most K chunks a split product takes
+F32_K_STEP, F32_MAX_SPLITS = 16, 8
 
 
-# gemm_f32's forward from F32_FWD_ROWS rows (csrc/gemm_f32.cu
-# gemm_f32_fwd_kernel, FwdShape and kFwdRows): five DiT frames' 720 rows
-# up to training's 11,520, and the VAE's 1,152-3,456, on 128x128 tiles of
+# gemm_f32's forward, k-major form, from F32_FWD_ROWS rows (csrc/gemm_f32.cu
+# gemm_f32_fwd_kernel, FwdShape; f32_fwd_form below): five DiT frames'
+# 720 rows up to training's 11,520, the VAE's 1,152-3,456, and from 432
+# rows the wide products, on 128x128 tiles of
 # 32-row k-steps, two blocks an SM, over A stored k-major; K of more than
 # F32_FWD_SPLIT_STEPS steps, or tiles that leave an SM's slots idle, are
 # split by f32_fwd_chunk (`python -m gtax_torch.tools.gemm_sweep --f32`,
@@ -360,32 +356,73 @@ def f32_fwd_chunk(M, N, K, sms):
     return K if best[1] == 1 else best[2] * F32_FWD_K_STEP
 
 
-def f32_fwd_ld(dtype, M) -> int:
-    """The row stride of a k-major copy of an (M, K) fp32 operand of the
-    forward from F32_FWD_ROWS rows (M rounded up to 4), which fc1's GELU
-    rows are stored as for fc2; 0 where that form does not run."""
-    if dtype == torch.float32 and M >= F32_FWD_ROWS:
+# The forward's form (f32_fwd_form): k-major from F32_FWD_ROWS rows, and
+# from F32_FWD_ROWS_WIDE rows for a product of at least
+# F32_FWD_WIDE_WEIGHTS weights (qkv, fc1 and fc2 at D = 1,024; the
+# 1,024 x 1,024 out-projection stays on the serving form below 720 rows);
+# below, the serving form (`python -m gtax_torch.tools.gemm_sweep --f32
+# --forms`, both forms in turns at 144, 288, 432, 576 and 719 rows,
+# NVIDIA H100 80GB HBM3, 700 W: for each group the threshold of least
+# summed time; at 576 rows qkv 0.1034 against 0.1437 ms, fc1 0.1397
+# against 0.1647, fc2 0.1400 against 0.1706, the out-projection 0.0593
+# against 0.0485; PERF.md section 6)
+F32_FWD_ROWS_WIDE, F32_FWD_WIDE_WEIGHTS = 432, 3 * 2**20
+
+
+def f32_fwd_form(M, N, K) -> bool:
+    """Whether gemm_f32's forward runs its k-major form for an (M, K) @
+    (K, N) product: the rule the C entry takes as its argument fwd_form."""
+    return M >= F32_FWD_ROWS or (M >= F32_FWD_ROWS_WIDE
+                                 and N * K >= F32_FWD_WIDE_WEIGHTS)
+
+
+def f32_fwd_ld(dtype, M, N, K) -> int:
+    """The row stride of a k-major copy of the (M, N) fp32 output of fc1
+    (an (M, K) @ (K, N) product; fc2's weights are as many) where the
+    k-major form runs both: M rounded up to 4, the stride fc1's GELU rows
+    are stored at for fc2; 0 where it does not."""
+    if dtype == torch.float32 and f32_fwd_form(M, N, K):
         return _cdiv(M, 4) * 4
     return 0
 
 
+# gemm_f32's forward, serving form (csrc/gemm_f32.cu
+# gemm_f32_serve_kernel, kServe*): 48-row tiles (a denoise step's 144 rows
+# in three) by 64 columns, four blocks an SM, K cut into the chunks of a
+# thread-block cluster of at most F32_MAX_CLUSTER blocks that add their
+# partials through distributed shared memory in chunk order; a split aims
+# for F32_SERVE_FILL blocks an SM in chunks of at most F32_SERVE_SPLIT_STEPS
+# k-steps (`python -m gtax_torch.tools.gemm_sweep --f32`, NVIDIA H100 80GB
+# HBM3, 700 W: the fastest chunk count at each product of 144 rows, and
+# within 1.3% of it at 288; PERF.md section 6)
+F32_SERVE_TILE, F32_SERVE_TILE_N, F32_SERVE_BLOCKS = 48, 64, 4
+F32_MAX_CLUSTER, F32_SERVE_FILL, F32_SERVE_SPLIT_STEPS = 8, 2.5, 32
+
+
+def f32_serve_chunk(M, N, K, sms):
+    """K chunk of the forward's serving form: of the chunk counts s (whole
+    k-steps dividing K, s <= F32_MAX_CLUSTER, one a block of the column
+    tile's cluster) whose chunks are at most F32_SERVE_SPLIT_STEPS k-steps
+    deep, the fewest whose tiles x s blocks give F32_SERVE_FILL blocks an
+    SM, else the most there are. At a denoise step's 144 rows qkv (144
+    tiles) takes 4 chunks, the out-projection and fc2 (48) 8, fc1 (192) 2;
+    at two frames' 288 rows qkv and fc1 2, the out-projection 4, fc2 8."""
+    steps = K // F32_K_STEP
+    tiles = _cdiv(M, F32_SERVE_TILE) * _cdiv(N, F32_SERVE_TILE_N)
+    counts = [s for s in range(1, F32_MAX_CLUSTER + 1) if steps % s == 0]
+    for s in counts:
+        if (steps // s <= F32_SERVE_SPLIT_STEPS
+                and tiles * s >= F32_SERVE_FILL * sms):
+            return K // s
+    return K // counts[-1]
+
+
 def f32_chunk(M, N, K, sms):
     """K chunk of an fp32 GEMM (K: one pass, no split): f32_fwd_chunk from
-    F32_FWD_ROWS rows; below, the 64x64 tile over the fewest K chunks
-    (whole k-steps dividing K, at most F32_MAX_SPLITS) that give
-    F32_BLOCKS_PER_SM blocks an SM, or the most chunks there are: at a
-    denoise step's 144 rows the out-projection and fc2 make 48 blocks
-    unsplit, qkv 144, fc1 192."""
-    if M >= F32_FWD_ROWS:
+    the k-major form (f32_fwd_form), else f32_serve_chunk."""
+    if f32_fwd_form(M, N, K):
         return f32_fwd_chunk(M, N, K, sms)
-    blocks = _cdiv(M, F32_TILE) * _cdiv(N, F32_TILE)
-    chunk = K
-    for c in range(2, F32_MAX_SPLITS + 1):
-        if blocks * (K // chunk) >= F32_BLOCKS_PER_SM * sms:
-            break
-        if K % (c * F32_K_STEP) == 0:
-            chunk = K // c
-    return chunk
+    return f32_serve_chunk(M, N, K, sms)
 
 
 # gemm_f32's backward forms (csrc/gemm_f32.cu gemm_f32_bwd_kernel: A @
@@ -566,7 +603,7 @@ F32_SLAB = 64
 
 def launch_gemm_f32(a, w, out, M, N, K, epi, bias=None, resid=None,
                     gate=None, S=1, k_chunk=None, out2=None, aux=None,
-                    colsum=None, trans_b=False, lda=0, ldc=0):
+                    colsum=None, trans_b=False, lda=0, ldc=0, fwd=None):
     """out = epilogue(a @ w), or a @ w^T with trans_b (w stored (N, K)),
     all fp32, on the CUDA cores (gemm_f32): each of F32_EPILOGUES stores
     its value before the bf16 epilogue's rounding (EPI_BIAS_BF16: acc +
@@ -576,12 +613,14 @@ def launch_gemm_f32(a, w, out, M, N, K, epi, bias=None, resid=None,
     slabs' column sums of u in colsum). trans_b takes EPI_F32 and
     EPI_DGELU, run on transposed copies of a and w in a workspace.
     k_chunk: f32_plan's by default (EPI_DGELU: K, one pass); below K, the
-    chunks' partials go through an (M, N) fp32 workspace a chunk and are
-    added in order before the epilogue. From F32_FWD_ROWS rows (the
-    forward on gemm_f32_fwd_kernel): a row-major `a` is copied transposed
-    into the workspace first, or lda > 0 hands `a` over k-major, (K, lda);
-    ldc > 0 (a GELU epilogue) stores out transposed, (N, ldc) (f32_fwd_ld
-    gives both strides)."""
+    chunks' partials are added in order before the epilogue: on the
+    serving form (at most F32_MAX_CLUSTER chunks) through a thread-block
+    cluster's shared memory, else through an (M, N) fp32 workspace a
+    chunk. fwd: the forward's form, f32_fwd_form's by default
+    (True: the k-major form, gemm_f32_fwd_kernel, whatever M): a row-major
+    `a` is copied transposed into the workspace first, or lda > 0 hands
+    `a` over k-major, (K, lda); ldc > 0 (a GELU epilogue) stores out
+    transposed, (N, ldc) (f32_fwd_ld gives both strides)."""
     _need(epi in F32_EPILOGUES and (out2 is not None) == (epi in TWO_OUTPUTS)
           and (not trans_b or epi in (EPI_F32, EPI_DGELU))
           and (trans_b or epi != EPI_DGELU),
@@ -590,13 +629,14 @@ def launch_gemm_f32(a, w, out, M, N, K, epi, bias=None, resid=None,
                   + (" with a second output" if out2 is not None else ""))
     if epi == EPI_DGELU:
         k_chunk = K
-    k_chunk, part = _f32_split(a, M, N, K, k_chunk, trans_b, lda)
+    fwd = not trans_b and (f32_fwd_form(M, N, K) if fwd is None else fwd)
+    k_chunk, part = _f32_split(a, M, N, K, k_chunk, trans_b, lda, fwd)
     build.launch(
         "gtax_gemm_f32", a.data_ptr(), w.data_ptr(), out.data_ptr(),
         _ptr(out2), _ptr(aux), _ptr(colsum), _ptr(bias),
         int(bias is not None and bias.dtype == torch.float32), _ptr(resid),
         _ptr(gate), 0 if gate is None else gate.stride(0), M, N, K, S, epi,
-        int(trans_b), k_chunk, lda, ldc, _ptr(part), _stream(a))
+        int(trans_b), k_chunk, lda, ldc, int(fwd), _ptr(part), _stream(a))
 
 
 def gemm_any(a, w, out, M, N, K, epi, **kw):
@@ -652,18 +692,23 @@ def launch_attn_window(q, k, v, out, B, T, S, D, num_heads, bits):
                  out.data_ptr(), B, T, S, D, num_heads, bits, _stream(q))
 
 
-def _f32_split(a, M, N, K, k_chunk=None, trans_b=False, lda=0):
+def _f32_split(a, M, N, K, k_chunk=None, trans_b=False, lda=0, fwd=None):
     """(k_chunk, fp32 workspace or None) of an fp32 GEMM launch: f32_plan's
     K chunk by default; one (M, N) partial a chunk where there is more than
-    one, after the transposed copies of a, its rows padded to a multiple of
-    4 (K M4; the forward from F32_FWD_ROWS rows unless lda hands a over
+    one (the forward's k-major form, fwd, f32_fwd_form's by default; or
+    trans_b), after the transposed copies of a, its rows padded to a
+    multiple of 4 (K M4; the k-major form unless lda hands a over
     k-major), and (trans_b) of w (K N)."""
+    if fwd is None:
+        fwd = not trans_b and f32_fwd_form(M, N, K)
     if k_chunk is None:
         k_chunk = f32_plan(M, N, K, a.device, trans_b)
-    n = _cdiv(K, k_chunk) * M * N if k_chunk < K else 0
+    # on the serving form a split's partials stay in the cluster
+    split = k_chunk < K and (trans_b or fwd)
+    n = _cdiv(K, k_chunk) * M * N if split else 0
     if trans_b:
         n += K * (_cdiv(M, 4) * 4 + N)
-    elif M >= F32_FWD_ROWS and not lda:
+    elif fwd and not lda:
         n += K * _cdiv(M, 4) * 4
     part = None
     if n:
@@ -672,15 +717,17 @@ def _f32_split(a, M, N, K, k_chunk=None, trans_b=False, lda=0):
 
 
 def launch_gemm_f32_rope_qkv(mod, qkv_w, q, k, v, freqs, S, n_q, q_off, hd,
-                             k_chunk=None):
+                             k_chunk=None, fwd=None):
     """launch_gemm_rope_qkv in fp32 (gemm_f32's rope epilogue): q, k, v
-    fp32, nothing rounded; K split as launch_gemm_f32's (from F32_FWD_ROWS
-    rows after mod's transposed copy)."""
+    fp32, nothing rounded; the form and the K split as launch_gemm_f32's
+    (the k-major form after mod's transposed copy)."""
     M, D = mod.shape
-    k_chunk, part = _f32_split(mod, M, 3 * D, D, k_chunk)
+    fwd = f32_fwd_form(M, 3 * D, D) if fwd is None else fwd
+    k_chunk, part = _f32_split(mod, M, 3 * D, D, k_chunk, fwd=fwd)
     build.launch("gtax_gemm_f32_rope_qkv", mod.data_ptr(), qkv_w.data_ptr(),
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), freqs.data_ptr(),
-                 M, D, S, n_q, q_off, hd, k_chunk, _ptr(part), _stream(mod))
+                 M, D, S, n_q, q_off, hd, k_chunk, int(fwd), _ptr(part),
+                 _stream(mod))
 
 
 def launch_attn_temporal_f32(qkv, freqs, out, B, n_q, q_off, S, D,
@@ -830,9 +877,9 @@ def fused_mlp_branch(x, shift, scale, gate, w1, b1, w2, b2,
     _check_bias("b1", b1, Hd)
     _check_bias("b2", b2, D)
     mod = _modulate_cuda(x, shift, scale)
-    # fp32 from F32_FWD_ROWS rows: fc1 stores the GELU rows k-major, as
+    # fp32 on the k-major form: fc1 stores the GELU rows k-major, as
     # fc2's form reads them
-    ld = f32_fwd_ld(x.dtype, N * S)
+    ld = f32_fwd_ld(x.dtype, N * S, Hd, D)
     h = torch.empty((Hd, ld) if ld else (N * S, Hd), dtype=x.dtype,
                     device=x.device)
     h1 = (torch.empty((N * S, Hd), dtype=x.dtype, device=x.device)

@@ -117,9 +117,9 @@ def fused_vae_block(x, ln1_w, ln1_b, qkv_w, qkv_b, out_w, out_b, ln2_w,
     gemm_any(att, out_w, xm, M, D, D, EPI_BIAS_BF16_RESID, bias=out_b,
              resid=x)
     _blk.launch_ln_mod(xm, h, M, D, S, LN_AFFINE, ln2_w, ln2_b)
-    # fp32 from F32_FWD_ROWS rows: fc1 stores the GELU rows k-major, as
+    # fp32 on the k-major form: fc1 stores the GELU rows k-major, as
     # fc2's form reads them
-    ld = _blk.f32_fwd_ld(dt, M)
+    ld = _blk.f32_fwd_ld(dt, M, Hd, D)
     hh = torch.empty((Hd, ld) if ld else (M, Hd), dtype=dt, device=dev)
     gemm_any(h, w1, hh, M, Hd, D, EPI_BIAS_BF16_GELU, bias=b1,
              **({"ldc": ld} if ld else {}))

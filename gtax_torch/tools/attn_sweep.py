@@ -13,8 +13,20 @@ beside autograd's backward of one fp32 SDPA call (no TF32). --f32-bwd
 runs that part alone; it uses only launch_attn_frame_bwd's arguments,
 which every version of the port has, so two checkouts' tiles are
 compared in turns: `PYTHONPATH=<checkout> python <this file> --f32-bwd`.
+--f32 times the fp32 forward alone: the `pallas` attention's fp32 form
+(fused_sdpa / fused_mha_token_major on fp32 tensors: its tiled SIMT body
+from 32 tokens) at S = 32 .. 577 in both layouts, with its FFMA TFLOP/s
+(4 S^2 d a head), beside one fp32 SDPA call (no TF32) and its bound at
+67 TFLOP/s; it calls only the public wrappers, so `PYTHONPATH=<checkout>
+python <this file> --f32` times another checkout's body in turns.
+--f32-bodies times the fp32 forward's two tiled bodies (48- and 128-row
+tiles) against each other, in turns, at S = 32 .. 577 token-major, and
+prints the length from which the 128-row body gives the least summed
+time over those lengths: the threshold `attention.SDPA_F32_WIDE_MIN_S`
+holds.
 
-    python -m gtax_torch.tools.attn_sweep [--f32-bwd] [--out FILE]
+    python -m gtax_torch.tools.attn_sweep [--f32 | --f32-bodies |
+                                           --f32-bwd] [--out FILE]
 
 The layouts are fused_sdpa's heads-first (N * 16 rows of (S, 64)) and
 fused_mha_token_major's token-major ((N, S, 1024), 16 heads of 64), with N
@@ -223,10 +235,128 @@ def bwd_f32(n_frames=80, S=144, rot=HD):
             "library_ms": lib_ms}
 
 
+F32_LENGTHS = (32, 48, 64, 96, 143, 144, 145, 288, 576, 577)
+F32_PEAK = 67e12  # fp32 FFMA, H100 SXM
+
+
+def f32_sweep():
+    """The fp32 forward by S in both layouts (no mask): the wrapper's
+    CUDA-event ms, its useful TFLOP/s, its error against the plain fp32
+    version (over its largest magnitude), fp32 SDPA's ms and the bound."""
+    from gtax_torch.kernels import attention as kattn
+
+    F = torch.nn.functional
+    gen = np.random.default_rng(14)
+    rows = []
+    for layout in ("heads_first", "token_major"):
+        for S in F32_LENGTHS:
+            N = rows_of(S)
+            shape = (N * H, S, HD) if layout == "heads_first" else (
+                N, S, H * HD)
+            q, k, v = (torch.from_numpy(gen.standard_normal(shape).astype(
+                np.float32)).cuda() for _ in range(3))
+            bias = kattn.build_bias(S, None, False, "cuda")
+            if layout == "heads_first":
+                def fn():
+                    return kattn.fused_sdpa(q, k, v)
+                ref = kattn.sdpa_plain(q, k, v, bias)
+                lib = (q, k, v)
+            else:
+                def fn():
+                    return kattn.fused_mha_token_major(q, k, v, H)
+                ref = kattn.mha_token_major_plain(q, k, v, bias, H)
+                lib = tuple(t.view(N, S, H, HD).transpose(1, 2)
+                            for t in (q, k, v))
+            got = fn()
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max() / ref.abs().max())
+            ms = median_ms(fn)
+            lib_ms = median_ms(lambda: F.scaled_dot_product_attention(*lib))
+            flops = 4 * N * H * S * S * HD
+            bound = flops / F32_PEAK * 1e3
+            print(f"[attn f32] {layout:11s} S={S:3d} rows={N * H:4d}: "
+                  f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), fp32 "
+                  f"SDPA {lib_ms:.4f} ms, bound {bound:.4f} ms; max|err| / "
+                  f"max|ref| {err:.3g}", flush=True)
+            rows.append({"layout": layout, "S": S, "N": N, "ms": ms,
+                         "tflops": flops / ms / 1e9, "library_ms": lib_ms,
+                         "bound_ms": bound, "rel_err": err})
+    return rows
+
+
+FORM_LENGTHS = (32, 48, 64, 96, 128, 143, 144, 145, 160, 176, 191, 192, 240,
+                288, 384, 576, 577)
+
+
+def f32_bodies():
+    """The fp32 forward's two tiled bodies against each other at each S of
+    FORM_LENGTHS, token-major (the main path's layout, no mask): the
+    48-row body (1) and the 128-row body (2) by direct launches of
+    gtax_attn_sdpa_f32, in turns (1, 2, 2, 1; each body's time the mean of
+    its two). Prints the faster at each S and the threshold the times
+    set: the measured S from which body 2 gives the least summed time over
+    the measured lengths (kernels.attention.SDPA_F32_WIDE_MIN_S holds
+    it)."""
+    from gtax_torch.kernels import attention as kattn
+    from gtax_torch.kernels import build
+
+    gen = np.random.default_rng(16)
+    rows = []
+    for S in FORM_LENGTHS:
+        N = rows_of(S)
+        q, k, v = (torch.from_numpy(gen.standard_normal(
+            (N, S, H * HD)).astype(np.float32)).cuda() for _ in range(3))
+        out = torch.empty_like(q)
+        ref = kattn.mha_token_major_plain(
+            q, k, v, kattn.build_bias(S, None, False, "cuda"), H)
+
+        def call(body):
+            def fn():
+                build.launch("gtax_attn_sdpa_f32", q.data_ptr(),
+                             k.data_ptr(), v.data_ptr(), None,
+                             out.data_ptr(), N, S, H, HD, H * HD, H * HD,
+                             H * HD, H * HD, body, 1.0 / HD**0.5,
+                             torch.cuda.current_stream().cuda_stream)
+                return out
+            return fn
+
+        errs = [float((call(b)() - ref).abs().max() / ref.abs().max())
+                for b in (1, 2)]
+        a1 = median_ms(call(1))
+        b1 = median_ms(call(2))
+        b2 = median_ms(call(2))
+        a2 = median_ms(call(1))
+        tile, wide = (a1 + a2) / 2, (b1 + b2) / 2
+        pick = kattn.sdpa_f32_body(S)
+        print(f"[attn f32 bodies] S={S:3d} rows={N * H:4d}: 48-row "
+              f"{a1:.4f} / {a2:.4f} ms, 128-row {b1:.4f} / {b2:.4f} ms: "
+              f"{'128-row' if wide < tile else '48-row'} "
+              f"{max(tile, wide) / min(tile, wide):.3f}x (the rule's body "
+              f"{pick}); max|err| / max|ref| {errs[0]:.3g} / {errs[1]:.3g}",
+              flush=True)
+        rows.append({"S": S, "N": N, "tile_ms": [a1, a2],
+                     "wide_ms": [b1, b2], "body": pick, "rel_err": errs})
+    def total(T):
+        return sum(sum(r["wide_ms"] if T is not None and r["S"] >= T
+                       else r["tile_ms"]) for r in rows)
+
+    threshold = min([*FORM_LENGTHS, None], key=total)
+    print(f"[attn f32 bodies] threshold: the 128-row body from "
+          f"{threshold if threshold else 'none of these'} tokens "
+          f"(SDPA_F32_WIDE_MIN_S {kattn.SDPA_F32_WIDE_MIN_S})", flush=True)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--f32-bwd", action="store_true",
-                    help="time the fp32 attention backward alone")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--f32", action="store_true",
+                      help="time the fp32 forward alone")
+    mode.add_argument("--f32-bodies", action="store_true",
+                      help="time the fp32 forward's two tiled bodies "
+                      "against each other by S")
+    mode.add_argument("--f32-bwd", action="store_true",
+                      help="time the fp32 attention backward alone")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -239,7 +369,11 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    if args.f32_bwd:
+    if args.f32:
+        result = {"card": card, "f32": f32_sweep()}
+    elif args.f32_bodies:
+        result = {"card": card, "f32_bodies": f32_bodies()}
+    elif args.f32_bwd:
         result = {"card": card, "bwd_f32": bwd_f32()}
     else:
         result = {"card": card, "rows": sweep(), "phases": phases(),

@@ -11,12 +11,17 @@ the four int8 products (fc2 in K groups of 512) at 144 and 288 rows at
 every K chunk the tile takes, beside one `torch._int_mm` of the whole
 product on a column-major weight, the plan's (`quant.s8_chunk`) marked;
 or, with --f32, the fp32 GEMM (`block.launch_gemm_f32`, fp32 FFMA) at the
-four serving products at 144, 288, 576 and 720 rows, at 1,152 and 1,440
-(the VAE at two frames, training at B=2), the VAE's at 2,304 and 3,456
+four serving products at 144, 288, 432, 576 and 720 rows (each row marked
+with the form that runs it: the serving form's 48-row tiles, or the
+k-major form by `block.f32_fwd_form`; a checkout put first
+on the path times its own forms, so an older tree's 64x64 tile runs
+beside this tree's serving form in turns),
+at 1,152 and 1,440 (the VAE at two frames, training at B=2), the VAE's
+at 2,304 and 3,456
 rows and the training step's forward products (fc1 1,024 ->
 4,096, fc2 4,096 -> 1,024, qkv 1,024 -> 3,072, out 1,024 -> 1,024) at
 11,520 rows, at every K chunk count it takes (1-8 chunks: of whole
-16-deep steps dividing K, or from the forward's F32_FWD_ROWS of whole
+16-deep steps dividing K, or on the forward's k-major form of whole
 32-row steps, the last one short; a row-major A, which that form copies
 transposed first), beside one cuBLAS SGEMM of the same product (no TF32:
 strict_matmul), the plan's (`block.f32_plan`) marked; then the fp32
@@ -28,7 +33,17 @@ count from 1 to 8, the plan's (`backward.wgrad_f32_plan`) marked, each
 beside one cuBLAS SGEMM of the same product.
 
     python -m gtax_torch.tools.gemm_sweep [--wgrad-splits | --small |
-                                           --int8 | --f32] [--out FILE]
+                                           --int8 | --f32 [--forms]
+                                           [--rows M,..]]
+                                          [--out FILE]
+
+--rows 144,288,576 restricts --f32 to the forward's products at those
+rows (no backward). --f32 --forms times the forward's two forms against
+each other at 144, 288, 432, 576 and 719 rows (or --rows), in turns, and
+prints the row count from which the k-major form gives the least summed
+time, for each product and for the two groups of `block.f32_fwd_form`
+(the thresholds `block.F32_FWD_ROWS_WIDE` and `block.F32_FWD_ROWS`
+hold).
 
 It uses only `launch_gemm`'s arguments that every version of the port has,
 so it can time another checkout's kernel as well: put that checkout first
@@ -228,33 +243,44 @@ def int8_sweep():
     return rows
 
 
-def f32_chunks(block, M, K):
-    """The K chunks the checkout's gemm_f32 takes at M rows, by chunk
-    count 1-8: from its F32_FWD_ROWS (the forward's k-major form) chunks
-    of whole 32-row steps, the last one short; below (or in a checkout
-    without that form) whole 16-row steps dividing K."""
-    if M >= getattr(block, "F32_FWD_ROWS", M + 1):
-        step, steps = block.F32_FWD_K_STEP, -(-K // block.F32_FWD_K_STEP)
-        chunks = [min(K, -(-steps // s) * step)
-                  for s in range(1, block.F32_MAX_SPLITS + 1)]
-        return sorted(set(chunks), reverse=True)
+def f32_form(block, M, N, K):
+    """The form of the checkout's fp32 forward for an (M, K) @ (K, N)
+    product: "k-major" by its rule (f32_fwd_form, or from its
+    F32_FWD_ROWS); else "serving" (48-row tiles, K over a cluster) where
+    the checkout has that form, else "64x64" (the tile it replaced)."""
+    rule = getattr(block, "f32_fwd_form", None)
+    if (rule(M, N, K) if rule
+            else M >= getattr(block, "F32_FWD_ROWS", M + 1)):
+        return "k-major"
+    return "serving" if hasattr(block, "f32_serve_chunk") else "64x64"
+
+
+def f32_chunks(block, M, N, K):
+    """The K chunks the checkout's gemm_f32 takes for an (M, K) @ (K, N)
+    product, by chunk count 1-8: on the forward's k-major form chunks of
+    whole 32-row steps, the last one short; else whole 16-row steps
+    dividing K."""
+    if f32_form(block, M, N, K) == "k-major":
+        return f32_chunks_k_major(block, K)
     step = block.F32_K_STEP
     return [K // s for s in range(1, block.F32_MAX_SPLITS + 1)
             if K % (s * step) == 0]
 
 
-def f32_sweep():
+def f32_sweep(only_rows=None):
     from gtax_torch.kernels import block
 
     gen = np.random.default_rng(13)
     rows = []
     shapes = [(N, K, what, M) for N, K, _, what in SERVING
-              for M in (144, 288, 576, 720)]
+              for M in (144, 288, 432, 576, 720)]
     shapes += [(N, K, "mid " + what, M) for N, K, _, what in SERVING
                for M in (1152, 1440)]
     shapes += [(N, K, "VAE " + what, M) for N, K, _, what in SERVING
                for M in (2304, 3456)]
     shapes += [(N, K, "train " + what, BWD_ROWS) for N, K, _, what in SERVING]
+    if only_rows:
+        shapes = [x for x in shapes if x[3] in only_rows]
     for N, K, what, M in shapes:
         w = torch.from_numpy(gen.standard_normal((K, N)).astype(
             np.float32) * 0.02).cuda()
@@ -264,7 +290,7 @@ def f32_sweep():
         plan = block.f32_plan(M, N, K, a.device)
         lib = median_ms(lambda: torch.matmul(a, w))
         ref = torch.matmul(a, w)
-        for chunk in f32_chunks(block, M, K):
+        for chunk in f32_chunks(block, M, N, K):
             splits = -(-K // chunk)
             ms = median_ms(lambda: block.launch_gemm_f32(
                 a, w, out, M, N, K, block.EPI_F32, k_chunk=chunk))
@@ -272,16 +298,114 @@ def f32_sweep():
             mark = "  <- plan" if chunk == plan else ""
             tflops = 2 * M * N * K / ms / 1e9
             lib_tf = 2 * M * N * K / lib / 1e9
-            print(f"[f32] {what:8s} M={M} N={N} K={K} {splits} chunks of "
-                  f"{chunk}: {ms:.4f} ms ({tflops:.1f} TFLOP/s), cuBLAS "
-                  f"SGEMM {lib:.4f} ms ({lib_tf:.1f} TFLOP/s), max|diff| / "
-                  f"max|ref| {err:.3g}{mark}", flush=True)
-            rows.append({"what": what, "M": M, "N": N, "K": K,
+            form = f32_form(block, M, N, K)
+            print(f"[f32] {what:8s} M={M} N={N} K={K} {form} form, {splits} "
+                  f"chunks of {chunk}: {ms:.4f} ms ({tflops:.1f} TFLOP/s), "
+                  f"cuBLAS SGEMM {lib:.4f} ms ({lib_tf:.1f} TFLOP/s), "
+                  f"max|diff| / max|ref| {err:.3g}{mark}", flush=True)
+            rows.append({"what": what, "M": M, "N": N, "K": K, "form": form,
                          "k_chunk": chunk, "splits": splits, "ms": ms,
                          "tflops": tflops, "library_ms": lib,
                          "library_tflops": lib_tf, "rel_err": err,
                          "plan": chunk == plan})
     return rows
+
+
+FORM_ROWS = (144, 288, 432, 576, 719)  # one to four frames, and below 720
+
+
+def f32_forms(rows=FORM_ROWS):
+    """The fp32 forward's two forms at the four serving products at each
+    row count below the k-major form's 720 rows: the serving form at its
+    plan (f32_serve_chunk) and the k-major form at its plan (f32_fwd_chunk)
+    and at each of its chunk counts, timed in turns (serving, k-major,
+    k-major, serving; each form's time the mean of its two). Prints the
+    winner of each product, and the thresholds the times set, for each
+    product and for the two groups of block.f32_fwd_form (products of at
+    least F32_FWD_WIDE_WEIGHTS weights, and the rest): the measured row
+    count from which the k-major form gives the least summed time over
+    the measured rows (none: the serving form at every one)."""
+    from gtax_torch.kernels import block
+
+    gen = np.random.default_rng(15)
+    sms = block.sm_count(torch.device("cuda"))
+    out_rows = []
+    for M in rows:
+        for N, K, _, what in SERVING:
+            w = torch.from_numpy(gen.standard_normal((K, N)).astype(
+                np.float32) * 0.02).cuda()
+            a = torch.from_numpy(gen.standard_normal((M, K)).astype(
+                np.float32)).cuda()
+            out = torch.empty((M, N), dtype=torch.float32, device="cuda")
+            ref = torch.matmul(a, w)
+            serve_chunk = block.f32_serve_chunk(M, N, K, sms)
+            fwd_chunk = block.f32_fwd_chunk(M, N, K, sms)
+
+            def call(fwd, chunk):
+                return lambda: block.launch_gemm_f32(
+                    a, w, out, M, N, K, block.EPI_F32, k_chunk=chunk,
+                    fwd=fwd)
+
+            errs = []
+            for fwd, chunk in ((False, serve_chunk), (True, fwd_chunk)):
+                call(fwd, chunk)()
+                errs.append(float((out - ref).abs().max()
+                                  / ref.abs().max()))
+            s1 = median_ms(call(False, serve_chunk))
+            k1 = median_ms(call(True, fwd_chunk))
+            k2 = median_ms(call(True, fwd_chunk))
+            s2 = median_ms(call(False, serve_chunk))
+            serve, kmaj = (s1 + s2) / 2, (k1 + k2) / 2
+            by_chunk = {c: median_ms(call(True, c))
+                        for c in f32_chunks_k_major(block, K)}
+            best = min(by_chunk, key=by_chunk.get)
+            lib = median_ms(lambda: torch.matmul(a, w))
+            print(f"[f32 forms] {what:8s} M={M} N={N} K={K}: serving "
+                  f"{s1:.4f} / {s2:.4f} ms ({-(-K // serve_chunk)} chunks), "
+                  f"k-major {k1:.4f} / {k2:.4f} ms ({-(-K // fwd_chunk)} "
+                  f"chunks; its fastest {by_chunk[best]:.4f} at "
+                  f"{-(-K // best)}), cuBLAS SGEMM {lib:.4f} ms: "
+                  f"{'k-major' if kmaj < serve else 'serving'} "
+                  f"{max(serve, kmaj) / min(serve, kmaj):.3f}x; max|diff| / "
+                  f"max|ref| {errs[0]:.3g} / {errs[1]:.3g}", flush=True)
+            out_rows.append({"what": what, "M": M, "N": N, "K": K,
+                             "serving_ms": [s1, s2], "k_major_ms": [k1, k2],
+                             "serving_chunk": serve_chunk,
+                             "k_major_chunk": fwd_chunk,
+                             "k_major_by_chunk": by_chunk,
+                             "library_ms": lib, "rel_err": errs})
+    wide = block.F32_FWD_WIDE_WEIGHTS
+    groups = {what: [r for r in out_rows if r["what"] == what]
+              for _, _, _, what in SERVING}
+    groups[f"weights >= {wide}"] = [r for r in out_rows
+                                    if r["N"] * r["K"] >= wide]
+    groups[f"weights < {wide}"] = [r for r in out_rows
+                                   if r["N"] * r["K"] < wide]
+    for name, group in groups.items():
+        if group:
+            print(f"[f32 forms] threshold, {name}: the k-major form from "
+                  f"{least_sum_threshold(group, rows)} rows", flush=True)
+    print(f"[f32 forms] the rule (block.f32_fwd_form): k-major from "
+          f"{block.F32_FWD_ROWS_WIDE} rows for weights >= {wide}, from "
+          f"{block.F32_FWD_ROWS} for the rest", flush=True)
+    return out_rows
+
+
+def least_sum_threshold(group, rows):
+    """The row count T of `rows` (or None: none) for which serving below T
+    and k-major from T gives `group` the least summed time."""
+    def total(T):
+        return sum(sum(r["k_major_ms"] if T is not None and r["M"] >= T
+                       else r["serving_ms"]) for r in group)
+    return min([*sorted(rows), None], key=total)
+
+
+def f32_chunks_k_major(block, K):
+    """The k-major form's K chunks by chunk count 1-8 (whole 32-row steps,
+    the last one short)."""
+    step, steps = block.F32_FWD_K_STEP, -(-K // block.F32_FWD_K_STEP)
+    return sorted({min(K, -(-steps // s) * step)
+                   for s in range(1, block.F32_MAX_SPLITS + 1)}, reverse=True)
 
 
 # the fp32 backward's products at B=16 (11,520 rows): (N, K, epi, what)
@@ -378,6 +502,11 @@ def main():
     mode.add_argument("--f32", action="store_true",
                       help="time the fp32 GEMM's K chunks and the fp32 "
                       "backward's products instead")
+    ap.add_argument("--rows", help="with --f32: only the forward's products "
+                    "at these row counts (comma-separated), no backward")
+    ap.add_argument("--forms", action="store_true",
+                    help="with --f32: the forward's two forms in turns "
+                    "below 720 rows (--rows: at these), and the threshold")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -390,8 +519,13 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    rows = tuple(int(r) for r in args.rows.split(",")) if args.rows else None
     run = (wgrad_splits if args.wgrad_splits else small_sweep if args.small
            else int8_sweep if args.int8
+           else (lambda: f32_forms(rows or FORM_ROWS))
+           if args.f32 and args.forms
+           else (lambda: f32_sweep(set(rows)))
+           if args.f32 and args.rows
            else (lambda: f32_sweep() + f32_bwd_sweep()) if args.f32
            else sweep)
     result = {"card": card, "rows": run()}

@@ -10,8 +10,11 @@ fixed seeded inputs; and every serving call again at x.dtype = float32
 of #1-#4 and #6-#11), named "... fp32", and the fp32 emit_train forwards
 of #1-#3 at B=4, T=5 (the fp32 training step's forward products); the
 ViT-VAE block `fused_vae_block` (#5) at the encode's 4 frames and the
-decode's 6 of 576 tokens, in bf16 and fp32; and #2 `fused_mlp_branch`'s
-fp32 emit_train at the fp32 training step's B=16 (80 frames, 11,520 rows).
+decode's 6 of 576 tokens, in bf16 and fp32; the `pallas` attention
+`fused_mha_token_major` (#16) at the spatial (5, 144, 1024), VAE (6, 576,
+1024) and masked temporal (144, 5, 1024) shapes, in bf16 and fp32; and #2
+`fused_mlp_branch`'s fp32 emit_train at the fp32 training step's B=16 (80
+frames, 11,520 rows).
 
     PYTHONPATH=<checkout> python <this file> --save FILE   # outputs
     python <this file> --compare FILE_A FILE_B             # bits
@@ -55,6 +58,7 @@ def _rand(gen, shape, std=1.0):
 def cases():
     """name -> a call of one wrapper on its inputs."""
     from gtax_torch.core import rope
+    from gtax_torch.kernels import attention as kattn
     from gtax_torch.kernels import block, pair, quant, vae_block
 
     sf = rope.axial_freqs(rope.pixel_freqs(HD // 2, 256.0), (9, 16),
@@ -141,6 +145,11 @@ def cases():
     for N in (4, 6):
         out[f"vae_block N={N}"] = (vae_block.fused_vae_block, (
             _rand(gen, (N, 576, D)), *ln[0], *vw, *ln[1], *vm, vf, H))
+    gen = np.random.default_rng(715)  # the `pallas` attention (#15, #16)
+    for n, S_, mask in ((5, S, None), (6, 576, None), (S, 5, valid)):
+        qkv = [_rand(gen, (n, S_, D)) for _ in range(3)]
+        out[f"mha_token_major S={S_}"] = (kattn.fused_mha_token_major,
+                                           (*qkv, H, mask))
     for k, (fn, a) in list(out.items()):  # the serving calls in fp32
         if "emit_train" not in k:
             out[f"{k} fp32"] = (fn, tuple(_f32(a)))

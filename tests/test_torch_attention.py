@@ -165,6 +165,42 @@ def test_sdpa_body_by_length(S, tensor_cores):
     assert kattn.sdpa_tensor_cores(S) is tensor_cores
 
 
+@pytest.mark.parametrize("S,body", [
+    (5, 0), (31, 0), (32, 1), (48, 1), (100, 1), (143, 1), (144, 1),
+    (145, 1), (288, 1), (575, 1), (576, 2), (577, 2)])
+def test_sdpa_f32_body_by_length(S, body):
+    """The fp32 form's body by S alone: warp rows below the tensor-core
+    rule's 32 tokens; the tiled body's 48-row tiles (48-key tiles, K and V
+    of a head whole in shared memory at the spatial S = 144) below 576
+    tokens, its 128-row tiles (64-key tiles through the ring) from 576 (the
+    VAE's S: 5 query tiles a head, the last half full)."""
+    assert kattn.SDPA_F32_WIDE_MIN_S == 576
+    assert kattn.sdpa_f32_body(S) == body
+    assert (body > 0) == kattn.sdpa_tensor_cores(S)
+
+
+def test_sdpa_f32_tiles_match_the_kernel_source():
+    """The query rows of each tiled form (F32_ROWS_BY_BODY) are the
+    kernel's: row groups times rows a thread (csrc/attn_sdpa.cu SdpaF32,
+    attn_sdpa_f32_tile_kernel's shape for body 1; SdpaF32Wide,
+    attn_sdpa_f32_wide_kernel's for body 2), each launched by its body."""
+    import re
+
+    from gtax_torch.kernels import build
+
+    src = (build.CSRC / "attn_sdpa.cu").read_text()
+    narrow = re.search(r"struct SdpaF32 \{\s*static constexpr int RG = "
+                       r"(\d+),.*?static constexpr int TR = (\d+);", src,
+                       re.S)
+    wide = re.search(r"struct SdpaF32Wide \{\s*static constexpr int RG = "
+                     r"(\d+), TR = (\d+),", src)
+    for body, m in ((1, narrow), (2, wide)):
+        assert int(m.group(1)) * int(m.group(2)) \
+            == kattn.F32_ROWS_BY_BODY[body]
+    assert re.search(r"if \(body == 1\)\s*return launch_f32_tile<HD>", src)
+    assert re.search(r"if \(body == 2\)\s*return launch_f32_wide<HD>", src)
+
+
 def test_token_rows_per_body():
     """A q/k/v column slice of a fused qkv row is read in place by both
     bodies; a slice 4 bytes past a 16-byte boundary only by the warp-row

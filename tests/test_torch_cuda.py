@@ -1463,12 +1463,15 @@ EPILOGUES_F32 = [block.EPI_F32, block.EPI_BIAS_BF16, block.EPI_BIAS_GELU_TANH,
                  block.EPI_BIAS_GATED, block.EPI_BIAS_BF16_RESID]
 
 
-@pytest.mark.parametrize("M", [144, 576, 3472, 2310, 11520, 1440])
+@pytest.mark.parametrize("M", [144, 200, 288, 576, 719, 3472, 2310, 11520,
+                               1440])
 @pytest.mark.parametrize("epi", EPILOGUES_F32)
 def test_gemm_f32_epilogues(cuda, epi, M):
     """gemm_f32 against the fp32 product (torch.matmul, no TF32) through
-    each epilogue stored unrounded, at a step's 144 rows, a prefill's 576
-    (64x64 tiles, K split), and from 720 rows on the forward's k-major
+    each epilogue stored unrounded, at a step's 144 and 288 rows, 200 (the
+    last 48-row tile ragged), a prefill's 576 and 719 (the last row below
+    720) on the serving form (48 x 64 tiles, K split over a cluster), and
+    from 720 rows on the forward's k-major
     form (128x128 tiles, two an SM, A copied transposed): 3,456 + 16
     (unsplit), 2,310 (the last row tile ragged, K split over 152 tiles),
     training at B=2's 1,440 (K split over 96 tiles) and the training
@@ -1512,6 +1515,65 @@ def test_gemm_f32_epilogues(cuda, epi, M):
     assert torch.equal(again, out)
 
 
+@pytest.mark.parametrize("M", [288, 432, 576, 700])
+@pytest.mark.parametrize("N,K,epi", [
+    (3072, 1024, block.EPI_F32),               # qkv
+    (1024, 1024, block.EPI_BIAS_BF16_RESID),   # the out-projection
+    (4096, 1024, block.EPI_BIAS_GELU_TANH),    # fc1
+    (1024, 4096, block.EPI_BIAS_GATED),        # fc2
+])
+def test_gemm_f32_forms_below_720(cuda, M, N, K, epi):
+    """Below 720 rows both forms of the fp32 forward (the serving form and
+    the k-major one, each at its own plan's chunks) against the fp32
+    product, each bit-stable; a call with no form given takes
+    block.f32_fwd_form's (k-major from 432 rows for qkv, fc1 and fc2, not
+    for the out-projection) and gives that form's bits; and the rope
+    epilogue on both forms at the prefill's 576 rows."""
+    gen = np.random.default_rng(318 + M + N + K)
+    S, f32 = 144, torch.float32
+    a, w = _rand(gen, (M, K), 1.0, f32), _rand(gen, (K, N), 0.03, f32)
+    bias = _rand(gen, (N,), 0.1, f32)
+    x = _rand(gen, (M, N), 1.0, f32)
+    gate = _rand(gen, (-(-M // S), N), 0.5, f32)
+    u = block.mm32(a, w) + bias
+    ref = {block.EPI_F32: u - bias, block.EPI_BIAS_BF16_RESID: x + u,
+           block.EPI_BIAS_GELU_TANH: block.gelu_tanh32(u),
+           block.EPI_BIAS_GATED:
+               x + gate.repeat_interleave(S, 0)[:M] * u}[epi]
+    sms = block.sm_count(a.device)
+    outs = {}
+    for fwd in (False, True):
+        chunk = (block.f32_fwd_chunk if fwd else block.f32_serve_chunk)(
+            M, N, K, sms)
+        got, again = (torch.empty((M, N), dtype=f32, device="cuda")
+                      for _ in range(2))
+        for out in (got, again):
+            block.launch_gemm_f32(a, w, out, M, N, K, epi, bias=bias,
+                                  resid=x, gate=gate, S=S, k_chunk=chunk,
+                                  fwd=fwd)
+        torch.cuda.synchronize()
+        _close32(got, ref)
+        assert torch.equal(got, again)
+        outs[fwd] = got
+    default = torch.empty_like(ref)
+    block.launch_gemm_f32(a, w, default, M, N, K, epi, bias=bias, resid=x,
+                          gate=gate, S=S)
+    torch.cuda.synchronize()
+    assert torch.equal(default, outs[block.f32_fwd_form(M, N, K)])
+    if M == 576 and N == 3072:  # the prefill's rope product
+        f = rope.temporal_rope_freqs(torch.arange(4),
+                                     rope.lang_freqs(64)).cuda()
+        want = block.rope_qkv_plain(block.mm32(a, w), f, S, 4, 0, f32)
+        for fwd in (False, True):
+            qkv = tuple(torch.empty((M, K), dtype=f32, device="cuda")
+                        for _ in range(3))
+            block.launch_gemm_f32_rope_qkv(a, w, *qkv, f, S, 4, 0, 64,
+                                           fwd=fwd)
+            torch.cuda.synchronize()
+            for g, r in zip(qkv, want):
+                _close32(g, r)
+
+
 @pytest.mark.parametrize("M,N,K,epi", [
     (2310, 1008, 1024, block.EPI_BIAS_GELU_TANH),   # ragged M, ldc 2,312;
     #                                                 K split (152 tiles)
@@ -1527,7 +1589,7 @@ def test_gemm_f32_fwd_k_major(cuda, M, N, K, epi):
     read of that C k-major equals the row-major product's bits."""
     gen = np.random.default_rng(315 + M + N + K)
     f32 = torch.float32
-    ld = block.f32_fwd_ld(f32, M)
+    ld = block.f32_fwd_ld(f32, M, N, K)
     a, w = _rand(gen, (M, K), 1.0, f32), _rand(gen, (K, N), 0.03, f32)
     bias = _rand(gen, (N,), 0.1, f32)
     two = epi in block.TWO_OUTPUTS
@@ -1659,12 +1721,14 @@ def test_fp32_refusals_on_the_card(cuda):
 
 def test_fp32_kernels_use_no_tensor_cores(cuda):
     """The fp32 kernels, the training ones included (gemm_f32's training
-    epilogues are instantiations of gemm_f32_kernel, its trans_b and wgrad
-    forms of gemm_f32_bwd_kernel), are FFMA only: cuobjdump's SASS of the
-    built library has no HMMA or HGMMA (any type, TF32 included) in them,
-    and FFMAs, each kernel named here found by name; the fp32 pairs hold
-    the int8 tensor cores' IGMMA and no HMMA / HGMMA but the compiler's
-    no-op GMMA (an HGMMA into RZ from a zero descriptor that ptxas emits
+    epilogues are instantiations of its two forward forms, its trans_b and
+    wgrad forms of gemm_f32_bwd_kernel; the serving rows' form
+    gemm_f32_serve_kernel and the `pallas` attention's tiled forms
+    attn_sdpa_f32_tile_kernel and _wide_kernel among them), are FFMA only:
+    cuobjdump's SASS of the built library has no HMMA or HGMMA (any type,
+    TF32 included) in them, and FFMAs, each kernel named here found by
+    name; the fp32 pairs hold the int8 tensor cores' IGMMA and no HMMA /
+    HGMMA but the compiler's no-op GMMA (an HGMMA into RZ from a zero descriptor that ptxas emits
     with an injected warpgroup.arrive, as in the int8 GEMM); the bf16
     kernels' HGMMA is there, as a control."""
     import re
@@ -1682,13 +1746,14 @@ def test_fp32_kernels_use_no_tensor_cores(cuda):
     sass = subprocess.run([tool, "-sass", str(build.build())],
                           capture_output=True, text=True, check=True).stdout
     funcs = sass.split("Function : ")[1:]
-    names = ("gemm_f32_kernel", "attn_frame_f32_kernel",
-             "attn_window_f32_kernel", "attn_temporal_f32_kernel",
-             "ln_mod_kernelIf", "attn_sdpa_rows_f32_kernel",
-             "attn_sdpa_tiled_f32_kernel", "attn_frame_bwd_f32_q",
+    names = ("attn_frame_f32_kernel", "attn_window_f32_kernel",
+             "attn_temporal_f32_kernel", "ln_mod_kernelIf",
+             "attn_sdpa_rows_f32_kernel", "attn_sdpa_f32_tile_kernel",
+             "attn_sdpa_f32_wide_kernel", "attn_frame_bwd_f32_q",
              "attn_frame_bwd_f32_k", "attn_temporal_bwd_f32_kernel",
              "gate_bwd_kernelIfE", "ln_mod_bwd_kernelILi16EfE",
-             "gemm_f32_bwd_kernel", "gemm_f32_fwd_kernel")
+             "gemm_f32_bwd_kernel", "gemm_f32_fwd_kernel",
+             "gemm_f32_serve_kernel")
     heads = [f.split("\n", 1)[0] for f in funcs]
     assert all(any(n in h for h in heads) for n in names), [
         n for n in names if not any(n in h for h in heads)]
@@ -1931,23 +1996,31 @@ def test_int8_f32_emit_train_kernels(cuda, kind):
         assert torch.equal(a, c)
 
 
+@pytest.mark.parametrize("hd", [32, HD])
 @pytest.mark.parametrize("layout", ["heads_first", "token_major"])
-@pytest.mark.parametrize("S", [5, 31, 32, 100, S_DIT, S_VAE])
-def test_attn_sdpa_f32_kernel(cuda, S, layout):
+@pytest.mark.parametrize("S", [5, 31, 32, 48, 96, 100, 143, S_DIT, 145,
+                               288, S_VAE, 577])
+def test_attn_sdpa_f32_kernel(cuda, S, layout, hd):
     """#15 / #16 in fp32 (attn_sdpa's fp32 form: warp rows below
-    SDPA_TENSOR_CORES_MIN_S, the tiled SIMT body from it) with no mask,
-    causal, the temporal valid | eye mask and a fully masked row, within
-    F32_TOL of the plain fp32 version; the token-major q/k/v are strided
-    views of one fused qkv row, bit-equal to contiguous copies; fp32 out."""
+    SDPA_TENSOR_CORES_MIN_S, the tiled SIMT body from it: 48-row tiles over
+    48-key tiles to 144 tokens, 128-row tiles over 64-key tiles above, so
+    S = 48, 96, 143, 144 and 145, 288, 576, 577 sit on and beside the
+    tiles' edges) at head dims 32 and 64, with no mask, causal, the
+    temporal valid | eye mask and a fully masked row, within F32_TOL of
+    the plain fp32 version; the token-major q/k/v are strided views of one
+    fused qkv row, bit-equal to contiguous copies (and the heads-first
+    call to a second call); fp32 out."""
     from gtax_torch.kernels import attention as kattn
 
-    gen = np.random.default_rng(390 + S)
+    gen = np.random.default_rng(390 + S + hd)
     f32 = torch.float32
+    heads = D // HD  # 16 heads of 64, or of 32 over half the width
+    width = heads * hd
     if layout == "heads_first":
-        q, k, v = (_rand(gen, (2, 3, S, HD), 1.0, f32) for _ in range(3))
+        q, k, v = (_rand(gen, (2, 3, S, hd), 1.0, f32) for _ in range(3))
     else:
-        qkv = _rand(gen, (3, S, 3 * D), 1.0, f32)
-        q, k, v = qkv.split(D, dim=-1)
+        qkv = _rand(gen, (3, S, 3 * width), 1.0, f32)
+        q, k, v = qkv.split(width, dim=-1)
     for kind in ("none", "causal", "temporal", "masked_row"):
         mask, causal = _sdpa_mask(kind, S), kind == "causal"
         bias = kattn.build_bias(S, mask, causal, "cuda")
@@ -1955,17 +2028,18 @@ def test_attn_sdpa_f32_kernel(cuda, S, layout):
             before = kattn.fused_sdpa.launches
             got = kattn.fused_sdpa(q, k, v, mask=mask, causal=causal)
             assert kattn.fused_sdpa.launches == before + 1
-            ref = kattn.sdpa_plain(*(t.reshape(-1, S, HD) for t in (q, k, v)),
+            ref = kattn.sdpa_plain(*(t.reshape(-1, S, hd) for t in (q, k, v)),
                                    bias).reshape(got.shape)
             again = kattn.fused_sdpa(q, k, v, mask=mask, causal=causal)
         else:
-            got = kattn.fused_mha_token_major(q, k, v, H, mask=mask,
+            got = kattn.fused_mha_token_major(q, k, v, heads, mask=mask,
                                               causal=causal)
-            ref = kattn.mha_token_major_plain(q, k, v, bias, H)
+            ref = kattn.mha_token_major_plain(q, k, v, bias, heads)
             again = kattn.fused_mha_token_major(
-                q.contiguous(), k.contiguous(), v.contiguous(), H, mask=mask,
-                causal=causal)
+                q.contiguous(), k.contiguous(), v.contiguous(), heads,
+                mask=mask, causal=causal)
         torch.cuda.synchronize()
+        assert got.dtype == f32
         _close32(got, ref)
         assert torch.equal(got, again), kind
 

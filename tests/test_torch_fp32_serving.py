@@ -69,12 +69,13 @@ def test_fp32_training_taken_on_both_devices(dtype, device_type):
 def test_fp32_entry_points_bound():
     """Every fp32 kernel's C entry point has its ctypes signature, with as
     many arguments as csrc/ declares (the library is built on the card):
-    the fp32 GEMM's with the training epilogues' outputs and trans_b, the
+    the fp32 GEMM's (and its rope form's) with the training epilogues'
+    outputs, trans_b and the forward's form (fwd_form), the
     frame attention's with its q/k/v stores, the temporal one's with the
     full window's fp32 Q/K/V outputs, the fp32 pairs', the fp32 `pallas`
     attention's, and the fp32 training kernels' (the weight gradient, the
     row-wise and attention backwards)."""
-    want = {"gtax_gemm_f32": 22, "gtax_gemm_f32_rope_qkv": 15,
+    want = {"gtax_gemm_f32": 23, "gtax_gemm_f32_rope_qkv": 16,
             "gtax_attn_frame_f32": 12,
             "gtax_attn_temporal_window_f32": 11,
             "gtax_attn_temporal_f32": 16, "gtax_pair_q_f32": 48,
@@ -120,12 +121,16 @@ def test_fp32_epilogue_table():
 
 
 @pytest.mark.parametrize("M,N,K,chunk", [
-    (144, 1024, 1024, 128),   # the step's out-projection: 48 blocks x 8
-    (144, 1024, 4096, 512),   # the step's fc2
-    (144, 3072, 1024, 128),   # qkv: 144 blocks x 8
-    (288, 3072, 1024, 128),   # two frames' qkv: 240 blocks x 8
-    (576, 3072, 1024, 256),   # the prefill's qkv: 432 blocks x 4
-    (576, 4096, 1024, 512),   # the prefill's fc1: 576 blocks x 2
+    (144, 1024, 1024, 128),   # the step's out-projection: 48 tiles x 8
+    (144, 1024, 4096, 512),   # the step's fc2: 48 tiles x 8
+    (288, 1024, 4096, 512),   # two frames' fc2: chunks of 32 steps
+    (576, 1024, 4096, 704),   # the prefill's fc2, k-major: 6 chunks
+    (576, 1024, 1024, 512),   # its out-projection, serving: 192 tiles x 2
+    (144, 3072, 1024, 256),   # qkv: 144 tiles x 4
+    (288, 3072, 1024, 512),   # two frames' qkv: 288 tiles x 2
+    (288, 4096, 1024, 512),   # two frames' fc1: 32 steps, 384 tiles x 2
+    (576, 3072, 1024, 512),   # the prefill's qkv, k-major: 120 tiles x 2
+    (576, 4096, 1024, 352),   # its fc1: 160 tiles, 3 chunks of 11 steps
     (720, 3072, 1024, 352),   # five frames: 144 tiles, 3 chunks of 11 steps
     (2304, 3072, 1024, 1024),  # the VAE encode's qkv: 432 tiles, K of 32
     (3456, 4096, 1024, 1024),  # the VAE decode's fc1: 864 tiles
@@ -133,15 +138,18 @@ def test_fp32_epilogue_table():
     (144, 1024, 1040, 208),   # K of 65 steps: five chunks of 13
 ])
 def test_f32_split_plan(M, N, K, chunk):
-    """gemm_f32's K chunk on 132 SMs. Below 720 rows: the fewest
-    whole-step chunks dividing K that give 8 of the 64x64 tile's blocks an
-    SM (or the most there are). From 720 rows (the forward's k-major
-    form, two blocks an SM): unsplit where K is at most 32 steps of 32 and
-    the tiles fill the 264 slots, else the count of at most 8 chunks of
-    whole 32-row steps (the last one short) with the fewest wave-steps."""
+    """gemm_f32's K chunk on 132 SMs. On the serving form (48 x 64 tiles,
+    K over a cluster): the fewest whole-step chunks dividing K, at most 8
+    and at most 32 steps of 16 deep, whose blocks give 2.5 an SM (330),
+    else the most there are. On the
+    forward's k-major form (block.f32_fwd_form: from 720 rows, from 432
+    for qkv, fc1 and fc2; two blocks an SM): unsplit where K is at most 32
+    steps of 32 and the tiles fill the 264 slots, else the count of at
+    most 8 chunks of whole 32-row steps (the last one short) with the
+    fewest wave-steps."""
     got = block.f32_chunk(M, N, K, 132)
     assert got == chunk
-    if M >= block.F32_FWD_ROWS:
+    if block.f32_fwd_form(M, N, K):
         assert got == K or got % block.F32_FWD_K_STEP == 0
         assert -(-K // got) <= block.F32_MAX_SPLITS
     else:
@@ -150,9 +158,11 @@ def test_f32_split_plan(M, N, K, chunk):
 
 
 def test_f32_fwd_constants_match_the_kernel_source():
-    """block's constants of gemm_f32's forward from 720 rows are the
-    kernel's (csrc/gemm_f32.cu FwdShape, kFwdRows): the tile's rows
-    (kBwdTile) and columns, its 32-row step and its blocks an SM."""
+    """block's constants of gemm_f32's forward k-major form are the
+    kernel's (csrc/gemm_f32.cu FwdShape): the tile's rows (kBwdTile) and
+    columns, its 32-row step and its blocks an SM; the kernel runs where
+    the caller's rule (block.f32_fwd_form) asks for it, from F32_FWD_ROWS
+    rows."""
     import re
 
     src = (build.CSRC / "gemm_f32.cu").read_text()
@@ -163,9 +173,89 @@ def test_f32_fwd_constants_match_the_kernel_source():
     assert int(shape.group(3)) == block.F32_FWD_BLOCKS
     assert int(re.search(r"constexpr int kBwdTile = (\d+);", src).group(1)) \
         == block.F32_FWD_TILE
-    assert int(re.search(r"constexpr int kFwdRows = (\d+);", src).group(1)) \
-        == block.F32_FWD_ROWS
+    assert "const bool fwd = !trans_b && fwd_form == 1;" in src
+    assert not block.f32_fwd_form(block.F32_FWD_ROWS - 1, 1024, 1024)
+    assert block.f32_fwd_form(block.F32_FWD_ROWS, 1024, 1024)
     assert block.F32_FWD_K_STEP % block.F32_K_STEP == 0
+
+
+@pytest.mark.parametrize("M,N,K,k_major", [
+    (144, 3072, 1024, False),  # a denoise step: the serving form
+    (288, 4096, 1024, False),
+    (431, 1024, 4096, False),
+    (432, 3072, 1024, True),   # three frames' qkv, fc1 and fc2: k-major
+    (432, 1024, 4096, True),
+    (576, 4096, 1024, True),   # the prefill's
+    (576, 1024, 1024, False),  # but its out-projection
+    (719, 1024, 1024, False),
+    (720, 1024, 1024, True),   # five frames: every product
+    (700, 64, 64, False),
+])
+def test_f32_fwd_form(M, N, K, k_major):
+    """Which form of gemm_f32's forward a product runs on: the k-major
+    form from F32_FWD_ROWS (720) rows, and from F32_FWD_ROWS_WIDE (432)
+    for products of at least F32_FWD_WIDE_WEIGHTS (3 Mi) weights: qkv,
+    fc1 and fc2 at D = 1,024, not the out-projection; and, where fc1 and
+    fc2 both run k-major, fc1's GELU rows are stored k-major for fc2."""
+    assert block.f32_fwd_form(M, N, K) == k_major
+    want = -(-M // 4) * 4 if k_major else 0
+    assert block.f32_fwd_ld(torch.float32, M, N, K) == want
+
+
+@pytest.mark.parametrize("M", [1, 144, 200, 288, 576, 719])
+@pytest.mark.parametrize("N,K", [(1024, 1024), (3072, 1024), (4096, 1024),
+                                 (1024, 4096), (1000, 1040)])
+def test_f32_serve_plan(M, N, K):
+    """The serving form's plan (f32_serve_chunk) on 132 SMs: its K chunks
+    (K / chunk of them, whole 16-row steps) cover K once, in order; their
+    count, the cluster's size, is at most F32_MAX_CLUSTER (8); a chunk is
+    at most F32_SERVE_SPLIT_STEPS steps deep and its blocks give
+    F32_SERVE_FILL an SM unless no count of at most 8 does; its 48-row
+    tiles cover the rows, the last one holding at least one. Counts picked
+    by hand at a denoise step's 144 rows: qkv 4, out-projection and fc2 8,
+    fc1 2; at 288: qkv and fc1 2, out-projection 4, fc2 8."""
+    chunk = block.f32_serve_chunk(M, N, K, 132)
+    splits = K // chunk
+    assert splits * chunk == K and chunk % block.F32_K_STEP == 0
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == K
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert 1 <= splits <= block.F32_MAX_CLUSTER == 8
+    row_tiles = -(-M // block.F32_SERVE_TILE)
+    assert (row_tiles - 1) * block.F32_SERVE_TILE < M \
+        <= row_tiles * block.F32_SERVE_TILE
+    blocks = row_tiles * -(-N // block.F32_SERVE_TILE_N) * splits
+    most = max(s for s in range(1, 9) if (K // block.F32_K_STEP) % s == 0)
+    deep = chunk // block.F32_K_STEP <= block.F32_SERVE_SPLIT_STEPS
+    assert (blocks >= block.F32_SERVE_FILL * 132 and deep) or splits == most
+    picked = {144: {(1024, 1024): 8, (3072, 1024): 4, (4096, 1024): 2,
+                    (1024, 4096): 8},
+              288: {(1024, 1024): 4, (3072, 1024): 2, (4096, 1024): 2,
+                    (1024, 4096): 8}}
+    if (N, K) in picked.get(M, {}):
+        assert splits == picked[M][N, K]
+
+
+def test_f32_serve_constants_match_the_kernel_source():
+    """block's constants of gemm_f32's serving form are the kernel's
+    (csrc/gemm_f32.cu kServe*): the tile's rows and columns, its blocks an
+    SM and the largest cluster; it runs where the caller asks for no
+    k-major form, and its k-step is a multiple of the K granule (BK)."""
+    import re
+
+    src = (build.CSRC / "gemm_f32.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"\b{name} = (\d+)[,;]", src).group(1))
+
+    assert const("kServeTile") == block.F32_SERVE_TILE
+    assert const("kServeTN") == block.F32_SERVE_TILE_N
+    assert const("kServeBlocks") == block.F32_SERVE_BLOCKS
+    assert const("kServeMaxCluster") == block.F32_MAX_CLUSTER
+    assert const("BK") == block.F32_K_STEP
+    assert const("kServeKS") % const("BK") == 0
+    assert const("kServeTile") // const("kServeRG") in (4, 8)
+    assert "if (!fwd) return launch_serve<EPI>" in src
 
 
 def _meta(*shape, dtype=torch.float32):
