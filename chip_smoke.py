@@ -9,9 +9,10 @@ Phases (any failure exits nonzero and prints no result line):
      cuobjdump's SASS of the library, where the fp32 kernels (F32_KERNELS)
      must hold FFMAs and no tensor-core instruction (no TF32), and the
      fp32 pairs (F32_PAIRS) the int8 IGMMA and no HMMA / HGMMA but the
-     compiler's no-op GMMA (NOOP_GMMA, also in every int8 GEMM); the fp32
-     GEMMs' main loops (gemm_f32_fwd_kernel, gemm_f32_bwd_kernel): FFMAs
-     of the loop's instructions and how many reuse an operand;
+     compiler's no-op GMMA (NOOP_GMMA, also in every int8 GEMM); the main
+     loops of the fp32 GEMMs and attention bodies (F32_GEMMS, the frame
+     attention's query tiles among them): FFMAs of the loop's
+     instructions and how many reuse an operand;
   3. kernels: each of the sixteen kernel wrappers (five bf16 and four
      int8 W8A8 serving wrappers, the two paired int8 half-blocks, the two
      attention kernels of the `pallas` backend, three training backwards)
@@ -58,12 +59,19 @@ Phases (any failure exits nonzero and prints no result line):
      their plain versions within F32_TOL (1e-4) of the plain output's
      largest magnitude, timed beside the plain version and the fp32
      library composite (no TF32), the bound from the bytes and 67 TFLOP/s
-     of fp32 FFMA; the MLP and the VAE block split by launch. Rows 6-11,
+     of fp32 FFMA; the MLP, the VAE block and #1 at the step split by
+     launch (#1's attention launch with its TFLOP/s and bound); the fp32
+     frame attention alone (`[kernel] attn_frame_f32`: its rope pass and
+     attention at the step's one frame, 80 frames and the VAE's 6 frames
+     of 576) within F32_TOL of its plain version, two calls bit-equal,
+     beside one fp32 SDPA call on the roped q/k/v, its FFMA TFLOP/s and
+     query tile. Rows 6-11,
      15 and 16 in fp32: the int8 wrappers and pairs over fp32
      activations within INT8_F32_TOL (2**-6, the int8 rule) of the plain
      output's largest magnitude, with each fp32 output's share of elements
      beyond 1e-4 of it printed, each pair bit-equal to its fp32 sequential
-     wrappers in both GELU modes; the fp32 `pallas` attention at the
+     wrappers in both GELU modes, and #10 fp32 by phase (the fp32 probe
+     copy is built beside the library); the fp32 `pallas` attention at the
      model's three shapes within F32_TOL; timed beside the fp32 library
      composites, the bound from the bytes, the int8 ops and fp32 FFMA.
      The fp32 training forms at B=16 (`[kernel] ... fp32` after the bf16
@@ -260,6 +268,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -367,6 +376,15 @@ def spatial_freqs():
 
     return rope.axial_freqs(rope.pixel_freqs(HD // 2, 256.0), (9, 16),
                             pixel=True).reshape(S_DIT, HD).cuda()
+
+
+def vae_freqs():
+    """The VAE's axial rope table over its 18x32 patch grid, on the first
+    half of a head, (576, 32)."""
+    from gtax_torch.core import rope
+
+    return rope.axial_freqs(rope.pixel_freqs(HD // 4, 576.0), (18, 32),
+                            pixel=True).reshape(S_VAE, HD // 2).cuda()
 
 
 def temporal_freqs(T):
@@ -1018,6 +1036,7 @@ def pair_phase(timer, rows):
         rows[name]["pair_vs_sequential"] = by_n
     from gtax_torch.tools.split import pair_phases
 
+    PROBES.join()
     for kind, name in (("spatial", "fused_spatial_pair_q"),
                        ("temporal", "fused_temporal_pair_q")):
         rows[name]["phase_split"] = pair_phases(kind, 1, log=log)
@@ -1229,10 +1248,13 @@ def f32_phase(timer, rows):
     composite (cuBLAS SGEMM under strict_matmul: no TF32; SDPA in fp32),
     the bound from the bytes and the fp32 FFMA peak. Recorded in each
     row's "fp32"; its launches come from `[e2e fp32]`."""
-    # the GEMMs' flops by launch, for the split of the VAE block and the MLP
+    # the GEMMs' flops by launch, for the split of the VAE block, the MLP
+    # and the spatial branch at the step
     gemms = {"fused_vae_block": [2 * 6 * S_VAE * D * n
                                  for n in (3 * D, D, 4 * D, 4 * D)],
-             "fused_mlp_branch": [2 * S_DIT * D * 4 * D] * 2}
+             "fused_mlp_branch": [2 * S_DIT * D * 4 * D] * 2,
+             "fused_spatial_branch": [2 * S_DIT * D * 3 * D,
+                                      2 * S_DIT * D * D]}
     for name, label, make in kernel_cases(torch.float32):
         kern, plain, lib, lib_desc, by, fl = make()
         m = measure(timer, name, label, kern, plain, lib, by, fl,
@@ -1249,8 +1271,86 @@ def f32_phase(timer, rows):
                 log(f"[split]   attn_frame_f32's share of #5 fp32: "
                     f"{100 * share:.1f}% ({sum(e['ms'] for e in att):.4f} ms)")
                 rows[name]["fp32"]["attn_frame_f32_share"] = share
+            if name == "fused_spatial_branch":
+                rows[name]["fp32"]["attention"] = frame_f32_split(split, 1,
+                                                                  S_DIT)
         del kern, plain, lib
+    frame_f32_phase(timer, rows)
     f32_int8_phase(timer, rows)
+
+
+def frame_f32_split(split, N, S):
+    """attn_frame_f32's launch (its rope pass and its attention) in a
+    launch split of #1 fp32: its ms, FFMA TFLOP/s (4 S^2 d a head) and
+    bound (those FLOPs at 67 TFLOP/s, or the qkv rows read and the output
+    written at 3.35 TB/s), printed."""
+    fl = 4 * N * H * S * S * HD
+    bms, by_what = bound_ms(N * S * 4 * D * 4, fl,
+                            flops_per_s=F32_FLOPS_PER_S)
+    ms = next(e["ms"] for e in split
+              if e.get("kernel") == "gtax_attn_frame_f32")
+    log(f"[split]   attn_frame_f32 (rope pass + attention) {ms:.4f} ms, "
+        f"{fl / 1e9:.3f} GFLOP at {fl / ms / 1e9:.1f} TFLOP/s; bound "
+        f"{bms:.4f} ms ({by_what})")
+    return {"ms": ms, "bound_ms": bms, "bound_by": by_what,
+            "tflops": fl / ms / 1e9}
+
+
+def frame_f32_phase(timer, rows):
+    """attn_frame_f32 alone (`[kernel] attn_frame_f32 ... fp32`) at a
+    denoise step's one frame, the training step's 80 frames (both 144
+    tokens, DiT-S/2's full-d rope) and the VAE decode's 6 frames of 576
+    (its rope on half a head): against its plain version (the rope and
+    block.attend_frames in fp32) within F32_TOL of the plain output's
+    largest magnitude, two calls bit-equal, timed beside one fp32 SDPA call
+    on the same roped q/k/v (the library) and its bound. Recorded in #1's
+    "fp32" "attn_frame_f32"."""
+    from gtax_torch.core.rope import apply_rotary_emb
+    from gtax_torch.kernels import block
+
+    F = torch.nn.functional
+    f32 = torch.float32
+    rec = {}
+    for N, S, f in ((1, S_DIT, spatial_freqs()), (80, S_DIT, spatial_freqs()),
+                    (6, S_VAE, vae_freqs())):
+        gen = np.random.default_rng(60 + N)
+        rot = f.shape[-1]
+        qkv = rand(gen, (N * S, 3 * D), 1.0, f32)
+
+        def kern():
+            out = torch.empty((N * S, D), dtype=f32, device="cuda")
+            block.launch_attn_frame_f32(qkv, f, out, N, S, D, H, rot)
+            return out
+
+        def roped():
+            q, k, v = (t.reshape(N, S, H, HD) for t in qkv.split(D, -1))
+            return (*(torch.cat([apply_rotary_emb(f[:, None, :],
+                                                  t[..., :rot]),
+                                 t[..., rot:]], -1) for t in (q, k)), v)
+
+        def plain():
+            return block.attend_frames(*roped(), f32).reshape(N * S, D)
+
+        lib_in = tuple(t.transpose(1, 2).contiguous() for t in roped())
+        label = f"({N}, {S}, {D}) rot {rot}, fp32"
+        fl = 4 * N * H * S * S * HD
+        m = measure(timer, "attn_frame_f32", label, kern, plain,
+                    lambda: F.scaled_dot_product_attention(*lib_in),
+                    nbytes(qkv, f) + N * S * D * 4, fl, rel_tol=F32_TOL,
+                    flops_per_s=F32_FLOPS_PER_S)
+        shape = block.f32_frame_shape(S, H, N,
+                                       block.f32_frame_slots(qkv.device))
+        log(f"[kernel] attn_frame_f32 {label}: {fl / m['ms'] / 1e9:.1f} "
+            f"TFLOP/s; query tile {shape} ({block.f32_frame_rows(shape)} "
+            f"rows, {-(-S // block.f32_frame_rows(shape)) * H * N} units); "
+            f"fp32 SDPA on the roped q/k/v {m['library_ms']:.4f} ms")
+        if not m["two_calls_bit_equal"]:
+            fail(f"attn_frame_f32 [{label}]: two calls on the same inputs "
+                 "differ")
+        rec[label] = dict(m, tflops=fl / m["ms"] / 1e9, query_tile=shape,
+                          library="SDPA on the roped q/k/v, fp32")
+        del qkv, lib_in
+    rows["fused_spatial_branch"]["fp32"]["attn_frame_f32"] = rec
 
 
 # the fp32 pairs at the step's shapes, in both GELU modes: (name, label,
@@ -1316,6 +1416,12 @@ def f32_int8_phase(timer, rows):
             m, launches=None, library=lib_desc + ", fp32",
             sequential_ms=seq_ms, sequential_bit_equal=equal))
         del kern, plain, lib, seq
+    # #10 fp32 by phase, on the fp32 probe copy built beside the library
+    from gtax_torch.tools.split import pair_phases
+
+    PROBES.join()
+    rows["fused_spatial_pair_q"]["fp32"]["phase_split"] = pair_phases(
+        "spatial", 1, log=log, dt=f32)
     for name, replaces, label, main, make in attention_cases(f32):
         kern, plain, lib, lib_desc, by, fl = make()
         m = measure(timer, name, label + ", fp32", kern, plain, lib, by, fl,
@@ -1341,7 +1447,8 @@ def attn_sdpa_f32_split(kern, label, fl, m):
     return split
 
 
-F32_KERNELS = ("attn_frame_f32_kernel", "attn_window_f32_kernel",
+F32_KERNELS = ("attn_frame_f32_kernel", "attn_rope_f32_kernel",
+               "attn_window_f32_kernel",
                "attn_temporal_f32_kernel", "ln_mod_kernelIf",
                "attn_sdpa_rows_f32_kernel", "attn_sdpa_f32_tile_kernel",
                "attn_sdpa_f32_wide_kernel", "attn_frame_bwd_f32_q",
@@ -1350,10 +1457,11 @@ F32_KERNELS = ("attn_frame_f32_kernel", "attn_window_f32_kernel",
                "gemm_f32_bwd_kernel", "gemm_f32_fwd_kernel",
                "gemm_f32_serve_kernel")
 # the fp32 kernels whose main loop [sass] reads (FFMA share, operand
-# reuse): the GEMMs' forms and the `pallas` attention's tiled body
+# reuse): the GEMMs' forms, the `pallas` attention's tiled body and the
+# frame attention's query tiles
 F32_GEMMS = ("gemm_f32_fwd_kernel", "gemm_f32_bwd_kernel",
              "gemm_f32_serve_kernel", "attn_sdpa_f32_tile_kernel",
-             "attn_sdpa_f32_wide_kernel")
+             "attn_sdpa_f32_wide_kernel", "attn_frame_f32_kernel")
 # the fp32 pairs, pair_q_kernel<hd, temporal, exact, float>: 2 x 2 x 2
 F32_PAIRS = re.compile(r"pair_q_kernelILi\d+ELb\dELb\dEfE")
 # the compiler's no-op GMMA: where ptxas injects a warpgroup.arrive before
@@ -5144,6 +5252,23 @@ def _importable(name):
         return False
 
 
+def build_probes():
+    """The pair's phase-probe copies (bf16 and fp32; split.py's `[split]`
+    by phase), built while the library builds and the phases before them
+    run; a failure here surfaces again where a split needs its copy."""
+    from gtax_torch.kernels import build
+    from gtax_torch.tools.split import pair_probe
+
+    try:
+        build.pair_probe_library()
+        pair_probe(torch.float32)
+    except Exception as e:  # noqa: BLE001 (raised again where it is used)
+        log(f"[build] a probe copy failed here, built again where used: {e}")
+
+
+PROBES = threading.Thread(target=build_probes, daemon=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5162,6 +5287,7 @@ def main():
         f"device {name}; count {torch.cuda.device_count()}")
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
     t0 = time.perf_counter()
+    PROBES.start()  # the pair's probe copies, compiled beside the library
     lib = build.build()
     build.library()
     log(f"[build] {lib.relative_to(build.BUILD_DIR.parent.parent)} in "

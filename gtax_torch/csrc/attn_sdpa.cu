@@ -31,6 +31,7 @@
 //    hit distinct banks) and one warp per query row on the fp32 pipes.
 // The fp32 form (gtax_attn_sdpa_f32, below) has a warp-row body and a
 // tiled one, both on the CUDA cores.
+#include "attn_f32.cuh"
 #include "attn_frame.cuh"
 
 namespace {
@@ -304,10 +305,11 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const float* bias,
 // tensor-core instruction: TF32 would keep three digits.
 //
 // Bound: operations, 67 TFLOP/s of fp32 FFMA (4 S^2 d a head: 8.15 GFLOP
-// at the VAE shape). The tiled body replaced csrc/attn_f32.cuh's unit
-// here, which ran at a third of that: 4x4 register tiles, shared-memory
-// bound, 64-row tiles that padded S = 144 to 192 and made 2.18 waves at
-// 576. Both forms:
+// at the VAE shape). The tiled body replaced a 64-row SIMT unit here,
+// which ran at a third of that: 4x4 register tiles, shared-memory bound,
+// 64-row tiles that padded S = 144 to 192 and made 2.18 waves at 576. Both
+// forms (their staging, ring and row init in attn_f32.cuh, which the fp32
+// frame attention shares):
 //  - land Q, K and V rows in shared memory as they lie in global memory,
 //    16-byte cp.async copies (rows past S zero-filled); K and V stream
 //    through a ring of key tiles, the next tiles' copies in flight during
@@ -345,119 +347,8 @@ struct SdpaF32 {
                                     (size_t)STAGES * KT * (LD + HD) +
                                     (size_t)KT * LDP;
   static constexpr size_t smem() { return kFloats * sizeof(float); }
+  static __device__ __forceinline__ void sync() { __syncthreads(); }
 };
-
-// ---- the tiled bodies' shared parts, over a shape T (SdpaF32 or
-// SdpaF32Wide): T::THREADS threads; the block's T::QT Q rows (T::LD floats
-// apart) in shared memory, then a ring of T::STAGES key tiles of T::KT
-// keys, each its K rows (T::LD apart) and its V rows (HD apart).
-
-// one (row of N, head) of K and V as a tiled body reads them
-struct F32Keys {
-  const float* k;
-  const float* v;
-  int k_ld, v_ld, S;
-};
-
-// rows p0 .. p0 + rows - 1 of src (token stride ld) to dst (row stride
-// ldd), 16 bytes a cp.async, rows past S zero-filled
-template <int HD, class T>
-__device__ __forceinline__ void f32_stage(float* dst, int ldd,
-                                          const float* src, int ld, int p0,
-                                          int rows, int S) {
-  constexpr int CH = HD / 4;
-  for (int c = threadIdx.x; c < rows * CH; c += T::THREADS) {
-    const int r = c / CH, d = c % CH * 4, p = p0 + r;
-    cp_async16(dst + r * ldd + d, src + (size_t)min(p, S - 1) * ld + d,
-               p < S ? 16 : 0);
-  }
-}
-
-// key tile t's stage of the ring: its K rows, then (KT * LD on) its V rows
-template <int HD, class T>
-__device__ __forceinline__ float* f32_ring_stage(float* ring, int t) {
-  return ring + (t % T::STAGES) * T::KT * (T::LD + HD);
-}
-
-template <int HD, class T>
-__device__ __forceinline__ void f32_load_tile(float* ring, int t,
-                                              const F32Keys& kv) {
-  float* ks = f32_ring_stage<HD, T>(ring, t);
-  f32_stage<HD, T>(ks, T::LD, kv.k, kv.k_ld, t * T::KT, T::KT, kv.S);
-  f32_stage<HD, T>(ks + T::KT * T::LD, HD, kv.v, kv.v_ld, t * T::KT, T::KT,
-                   kv.S);
-}
-
-// Q's rows q0 .. q0 + QT - 1 and the first STAGES - 1 key tiles in flight
-template <int HD, class T>
-__device__ __forceinline__ void f32_prologue(float* qs, float* ring,
-                                             const float* qn, int q_ld,
-                                             int q0, int tiles,
-                                             const F32Keys& kv) {
-  f32_stage<HD, T>(qs, T::LD, qn, q_ld, q0, T::QT, kv.S);
-#pragma unroll
-  for (int s = 0; s < T::STAGES - 1; ++s) {
-    if (s < tiles) f32_load_tile<HD, T>(ring, s, kv);
-    cp_async_commit();  // empty groups keep the wait count uniform
-  }
-}
-
-// waits for key tile t, sets tile t + STAGES - 1 in flight into the stage
-// tile t - 1 left; tile t's stage
-template <int HD, class T>
-__device__ __forceinline__ const float* f32_next_tile(float* ring, int t,
-                                                      int tiles,
-                                                      const F32Keys& kv) {
-  cp_async_wait<T::STAGES - 2>();
-  __syncthreads();  // tile t landed; every thread left tile t - 1
-  if (t + T::STAGES - 1 < tiles)
-    f32_load_tile<HD, T>(ring, t + T::STAGES - 1, kv);
-  cp_async_commit();
-  return f32_ring_stage<HD, T>(ring, t);
-}
-
-template <int TR, int CW>
-__device__ __forceinline__ void f32_init_rows(float (&o)[TR][CW],
-                                              float (&m)[TR],
-                                              float (&l)[TR]) {
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CW; ++c) o[i][c] = 0.f;
-  }
-}
-
-// a row's outputs divided by its sum once: CW / CV vectors of CV floats,
-// vector g at dst + GS g
-template <int CW, int CV, int GS>
-__device__ __forceinline__ void f32_store_row(float* dst,
-                                              const float (&o)[CW],
-                                              float l) {
-#pragma unroll
-  for (int g = 0; g < CW / CV; ++g) {
-    if constexpr (CV == 4)
-      *reinterpret_cast<float4*>(dst + GS * g) =
-          make_float4(o[4 * g] / l, o[4 * g + 1] / l, o[4 * g + 2] / l,
-                      o[4 * g + 3] / l);
-    else
-      *reinterpret_cast<float2*>(dst + GS * g) =
-          make_float2(o[2 * g] / l, o[2 * g + 1] / l);
-  }
-}
-
-// CW contiguous floats (4 or 2) of shared memory
-template <int CW>
-__device__ __forceinline__ void lds_cw(const float* p, float (&v)[CW]) {
-  if constexpr (CW == 4) {
-    const float4 f = *reinterpret_cast<const float4*>(p);
-    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
-  } else {
-    const float2 f = *reinterpret_cast<const float2*>(p);
-    v[0] = f.x, v[1] = f.y;
-  }
-}
 
 template <int HD>
 __global__ void __launch_bounds__(SdpaF32<HD>::THREADS)
@@ -577,7 +468,7 @@ __global__ void __launch_bounds__(SdpaF32<HD>::THREADS)
                                                          ty * TR + 4);
       const float p[TR] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
       float vv[CW];
-      lds_cw<CW>(vs + j * HD + tx * CW, vv);
+      lds_n<CW>(vs + j * HD + tx * CW, vv);
 #pragma unroll
       for (int i = 0; i < TR; ++i)
 #pragma unroll
@@ -620,6 +511,7 @@ struct SdpaF32Wide {
     return ((size_t)QT * LD + (size_t)STAGES * KT * (LD + HD)) *
            sizeof(float);
   }
+  static __device__ __forceinline__ void sync() { __syncthreads(); }
 };
 
 template <int HD>

@@ -146,6 +146,16 @@ __device__ __forceinline__ float2 rope_pair_cs(float2 x, float c0, float s0,
                                                float c1, float s1) {
   return make_float2(x.x * c0 + (-x.y) * s0, x.y * c1 + x.x * s1);
 }
+// rope_pair_cs with its roundings fixed: each component's first product
+// fused into its sum, the second rounded first (x c0 + (-y s0)), whatever
+// code surrounds it, so that two kernels roping the same values give the
+// same bits (the fp32 frame attention's rope pass and the fp32 spatial
+// pair's qkv epilogue; the compiler may fuse either product of
+// rope_pair_cs's sums).
+__device__ __forceinline__ float2 rope_pair_fma(float2 x, float4 f) {
+  return make_float2(fmaf(x.x, f.x, __fmul_rn(-x.y, f.y)),
+                     fmaf(x.y, f.z, __fmul_rn(x.x, f.w)));
+}
 __device__ __forceinline__ float2 rope_pair_t_cs(float2 u, float c0,
                                                  float s0, float c1,
                                                  float s1) {

@@ -63,6 +63,10 @@ enum Epi {
   EPI_BIAS_GELU_F32_H = 5,
   EPI_BIAS_GELU_ERF_F32_H = 6,
   EPI_BIAS_GATED_F32_Y = 7,
+  // the fp32 spatial pair's qkv product: EPI_F32 with q and k (the first
+  // two thirds of the columns) roped, each pair of columns by its rope
+  // factors (Args::rope), as attn_frame_f32's rope pass ropes them
+  EPI_F32_ROPE = 8,
 };  // 1, 2 and 3 also store bf16(y + bias) to C2 when it is set
 
 // the epilogues whose second output is fp32
@@ -103,6 +107,10 @@ struct Args {
   // gate, rounded once; null otherwise (the pairs never set it); (M, N)
   // fp32 for epilogues 5-7
   bf16* C2;
+  // EPI_F32_ROPE: (S, rope_hd / 2) rope factors (cos, sin of a pair's two
+  // angles), row gm % S; a head's rope_hd columns roped whole
+  const float4* rope;
+  int rope_hd;
 };
 
 #ifdef GTAX_PAIR_PROBE
@@ -202,17 +210,30 @@ __device__ __forceinline__ float gelu_exact_rn(float h) {
                    erfcf(__fmul_rn(-h, 0.70710678118654752f)));
 }
 
+// EPI_F32_ROPE: the rope factors of output pair (gm, gn) (zero past the q
+// and k columns, which it leaves as they are)
+template <int EPI>
+__device__ __forceinline__ float4 rope_factor(const Args& p, int gm, int gn) {
+  if (EPI != EPI_F32_ROPE || gn >= p.N / 3 * 2)
+    return make_float4(0.f, 0.f, 0.f, 0.f);
+  return p.rope[(size_t)(gm % p.S) * (p.rope_hd / 2) + gn % p.rope_hd / 2];
+}
+
 // Output pair (gm, gn), (gm, gn + 1) from its folded fp32 sums: y = acc *
-// ws[col], then the epilogue, each op rounded once.
+// ws[col], then the epilogue, each op rounded once (rf: EPI_F32_ROPE's
+// rope_factor of the pair, loaded by the caller).
 template <int EPI>
 __device__ __forceinline__ void store_out(const Args& p, int gm, int gn,
-                                          float f0, float f1) {
+                                          float f0, float f1,
+                                          float4 rf = {}) {
   const float y0 = __fmul_rn(f0, p.ws[gn]);
   const float y1 = __fmul_rn(f1, p.ws[gn + 1]);
   const size_t o = (size_t)gm * p.N + gn;
-  if (EPI == EPI_F32) {
-    *reinterpret_cast<float2*>(static_cast<float*>(p.C) + o) =
-        make_float2(y0, y1);
+  if (EPI == EPI_F32 || EPI == EPI_F32_ROPE) {
+    float2 y = make_float2(y0, y1);
+    if (EPI == EPI_F32_ROPE && gn < p.N / 3 * 2)
+      y = rope_pair_fma(y, rf);
+    *reinterpret_cast<float2*>(static_cast<float*>(p.C) + o) = y;
     return;
   }
   const float u0 = __fadd_rn(y0, load_bias(p.bias, p.bias_f32, gn));
@@ -337,7 +358,8 @@ __device__ __forceinline__ void unit(Ring& r, const CUtensorMap* ma,
               p, gm, gn,
               __fadd_rn(0.f, __fmul_rn(__int2float_rn(d[j][4 * q + 2 * h]), sa)),
               __fadd_rn(0.f,
-                        __fmul_rn(__int2float_rn(d[j][4 * q + 2 * h + 1]), sa)));
+                        __fmul_rn(__int2float_rn(d[j][4 * q + 2 * h + 1]), sa)),
+              rope_factor<EPI>(p, gm, gn));
         }
       }
     }
@@ -377,6 +399,9 @@ __device__ __forceinline__ void slice(const Args& p, int v) {
   const int gm = v / tiles * kSliceRows + threadIdx.x / Q;
   const int gn = v % tiles * BN + (threadIdx.x % Q) * 4;
   if (gm >= p.M) return;
+  // the rope factors first, so their reads overlap the partials'
+  const float4 rf0 = rope_factor<EPI>(p, gm, gn);
+  const float4 rf1 = rope_factor<EPI>(p, gm, gn + 2);
   const int4* src =
       reinterpret_cast<const int4*>(p.part + (size_t)gm * p.N + gn);
   const size_t zstride = (size_t)p.M * p.N / 4;  // int4s a partial
@@ -411,8 +436,8 @@ __device__ __forceinline__ void slice(const Args& p, int v) {
       ++g;
     }
   }
-  store_out<EPI>(p, gm, gn, f[0], f[1]);
-  store_out<EPI>(p, gm, gn + 2, f[2], f[3]);
+  store_out<EPI>(p, gm, gn, f[0], f[1], rf0);
+  store_out<EPI>(p, gm, gn + 2, f[2], f[3], rf1);
 }
 
 // The whole GEMM on a cooperative grid: its units strided over the blocks,

@@ -71,7 +71,9 @@ GTAX_ENTRY gtax_pair_q_blocks(int temporal, int hd, int S, int D) {
 // valid_mask: bit j = window slot j is real; kc_*: the K chunks of the
 // qkv, out-projection, fc1 and fc2 GEMMs (gemm_s8.cuh); ws: workspace of
 // at least the bytes workspace_layout gives; exact_gelu: fc1's GELU is
-// jax.nn.gelu(approximate=False) (1) or the tanh form (0).
+// jax.nn.gelu(approximate=False) (1) or the tanh form (0); attn_shape:
+// the fp32 spatial form's attention query tile (attn_f32.cuh
+// GTAX_F32_FRAME_SHAPES; unread by the bf16 forms and the temporal step).
 GTAX_ENTRY gtax_pair_q(GTAX_PAIR_PARAMS) {
   return pair_call<bf16>(blocks_hd<bf16>, launch_bf16, GTAX_PAIR_ARGS);
 }

@@ -24,7 +24,7 @@ namespace pairq {
 constexpr int kThreads = 256;
 static_assert(kThreads == kLnThreads && kThreads == kAttnWarps * 32 &&
                   kThreads == kTemporalWarps * 32 &&
-                  kThreads == kF32Threads && kThreads == gemm_s8::kThreads,
+                  kThreads == gemm_s8::kThreads,
               "the shared device functions assume 256 threads");
 constexpr int kGemms = 4;  // qkv, out-projection, fc1, fc2
 
@@ -62,6 +62,7 @@ struct PairArgs {
   int B, n_live, n_ctx, valid_mask;  // temporal
   unsigned long long* stamps;        // the phase probe's clock stamps
   int exact_gelu;                    // fc1's GELU: 1 exact, 0 tanh
+  int attn_shape;  // the fp32 spatial attention's query tile (attn_f32.cuh)
 };
 
 // The GEMMs' operands: A, the int8 activation rows, and B, the int8
@@ -184,6 +185,32 @@ __device__ __forceinline__ void quant_phase(const float* in, signed char* q,
     quant_rows_unit(in, q, s, G, u);
 }
 
+// The fp32 spatial attention phase: units (query tile of F::QT rows, head,
+// frame) strided over the cooperative grid, each on the first F::THREADS
+// threads of its block over the roped rows of a.qkv (rows 3D apart; q at
+// column 0, k at D, v at 2D) into a.att; the block's barrier after each
+// unit frees the shared memory for the next.
+template <int HD, class F>
+__device__ __forceinline__ void frame_f32_units(const PairArgs& a,
+                                                float* fsm) {
+  static_assert(F::THREADS <= kThreads, "a unit runs on part of a block");
+  const int S = a.S, D3 = 3 * a.D;
+  const int qtiles = (S + F::QT - 1) / F::QT;
+  const int units = qtiles * a.num_heads * (a.M / S);
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int qt = u % qtiles, hn = u / qtiles;
+    const int h = hn % a.num_heads, n = hn / a.num_heads;
+    if (threadIdx.x < F::THREADS) {
+      const float* base = a.qkv + (size_t)n * S * D3 + (size_t)h * HD;
+      frame_f32_unit<HD, F>(fsm, base, D3, base + a.D, D3, base + 2 * a.D,
+                            D3, a.att + (size_t)n * S * a.D + (size_t)h * HD,
+                            a.D, S, qt * F::QT, 1.0f / sqrtf((float)HD),
+                            [] {});  // phase 2's barrier is behind
+    }
+    __syncthreads();
+  }
+}
+
 // EXACT: fc1's GELU is the exact one (an instantiation of its own, so the
 // tanh form's kernel is the one the sequential wrappers' code makes). T:
 // the activations' type, bf16 or float (the fp32 forms: every device
@@ -206,10 +233,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int M = a.M, D = a.D, S = a.S;
   stamp(a, 0);
 
-  // the four GEMMs
-  const gemm_s8::Args qkv = gemm_args(a, 0, a.qkv, a.ms1, D, a.qkv_s,
-                                      nullptr, 0, nullptr, nullptr, 0, 3 * D,
-                                      D);
+  // the four GEMMs; the fp32 spatial form's qkv product ropes q and k in
+  // its epilogue by phase 1's factors (in a.h)
+  gemm_s8::Args qkv = gemm_args(a, 0, a.qkv, a.ms1, D, a.qkv_s, nullptr, 0,
+                                nullptr, nullptr, 0, 3 * D, D);
+  qkv.rope = reinterpret_cast<const float4*>(a.h);
+  qkv.rope_hd = HD;
   const gemm_s8::Args proj = gemm_args(a, 1, a.xm, a.as, D, a.out_s, a.out_b,
                                        a.out_b_f32, a.x, a.g1, a.g1_stride,
                                        D, D);
@@ -220,14 +249,25 @@ __global__ void __launch_bounds__(kThreads, 1)
                                       a.b2_f32, a.xm, a.g2, a.g2_stride, D,
                                       a.Hd);
 
-  // 1. LN/modulate -> int8
+  // 1. LN/modulate -> int8; the fp32 spatial form also reduces each rope
+  // angle once here, the factors of every (position, pair of dims) into
+  // a.h (free until fc1), for phase 2's epilogue
+  if constexpr (kF32 && !TEMPORAL) {
+    float4* cs = reinterpret_cast<float4*>(a.h);
+    for (int i = blockIdx.x * kThreads + threadIdx.x; i < S * (HD / 2);
+         i += gridDim.x * kThreads)
+      cs[i] = rope_factors(a.freqs + (size_t)(i / (HD / 2)) * HD +
+                           2 * (i % (HD / 2)));
+  }
   ln_phase(a, static_cast<const T*>(a.x), a.sh1, a.sc1, a.p1_stride, a.mq1,
            a.ms1, red, mod_row);
   stamp(a, 1);
   grid.sync();
   stamp(a, 2);
-  // 2. qkv GEMM, fp32 out
-  gemm_s8::gemm<gemm_s8::EPI_F32>(ring, &maps.a[0], &maps.b[0], qkv);
+  // 2. qkv GEMM, fp32 out (the fp32 spatial form's q and k roped)
+  gemm_s8::gemm<kF32 && !TEMPORAL ? gemm_s8::EPI_F32_ROPE
+                                  : gemm_s8::EPI_F32>(ring, &maps.a[0],
+                                                      &maps.b[0], qkv);
   stamp(a, 3);
   grid.sync();
   stamp(a, 4);
@@ -242,14 +282,15 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 nullptr, nullptr, nullptr, a.B, a.n_live,
                                 a.n_ctx, S, D, a.num_heads, a.valid_mask);
   } else if constexpr (kF32) {
-    const int qtiles = (S + kF32Rows - 1) / kF32Rows;
-    const int units = qtiles * a.num_heads * (M / S);
-    for (int u = blockIdx.x; u < units; u += gridDim.x) {
-      const int qt = u % qtiles, hn = u / qtiles;
-      attn_frame_f32_unit<HD>(reinterpret_cast<float*>(smem), a.qkv, a.freqs,
-                              a.att, S, D, HD, qt, hn % a.num_heads,
-                              hn / a.num_heads);
-      __syncthreads();
+    // the units of the call's query tile over the roped rows, each on its
+    // shape's first threads
+    switch (a.attn_shape) {
+#define GTAX_CASE(I, ...)                                              \
+  case I:                                                              \
+    frame_f32_units<HD, __VA_ARGS__>(a, reinterpret_cast<float*>(smem)); \
+    break;
+      GTAX_F32_FRAME_SHAPES(GTAX_CASE)
+#undef GTAX_CASE
     }
   } else {
     const int qtiles = (S + kAttnQTile - 1) / kAttnQTile;
@@ -300,13 +341,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // Dynamic shared memory: the GEMM ring (and its barriers) from a
 // 1024-aligned base; every other phase's buffers fit in the ring's data
-// (the fp32 frame attention's unit: 67 KB at head dim 64).
+// (the fp32 frame attention's largest shape: 110 KB at head dim 64).
 template <int HD, bool TEMPORAL, typename T>
 size_t smem_bytes(int S, int D) {
   size_t other = (64 + (size_t)D) * 4;
   if (!TEMPORAL)
     other = std::max(other, std::is_same<T, float>::value
-                                ? attn_f32_smem<HD>()
+                                ? f32_frame_smem<HD>()
                                 : attn_frame_smem<HD>(S));
   return other > (size_t)gemm_s8::kRingBytes ? 0
                                              : gemm_s8::kSmemBytes + 1024;
@@ -371,13 +412,13 @@ int launch_gelu(const PairArgs& a, const PairMaps& maps, cudaStream_t st) {
       void *ws, long long ws_bytes, int M, int S, int D, int Hd, int G,      \
       int num_heads, int B, int n_live, int n_ctx, int valid_mask,           \
       int kc_qkv, int kc_out, int kc_fc1, int kc_fc2, int exact_gelu,        \
-      void *stream
+      int attn_shape, void *stream
 #define GTAX_PAIR_ARGS                                                       \
   temporal, x, sh1, sc1, g1, sh2, sc2, g2, p1_stride, g1_stride, p2_stride,  \
       g2_stride, qkv_q, qkv_s, out_q, out_s, out_b, out_b_f32, w1_q, w1_s,   \
       b1, b1_f32, w2_q, w2_s, b2, b2_f32, freqs, k_ctx, v_ctx, out, ws,      \
       ws_bytes, M, S, D, Hd, G, num_heads, B, n_live, n_ctx, valid_mask,     \
-      kc_qkv, kc_out, kc_fc1, kc_fc2, exact_gelu, stream
+      kc_qkv, kc_out, kc_fc1, kc_fc2, exact_gelu, attn_shape, stream
 
 // The body of an entry point over activations of type T: checks the
 // shapes, carves the workspace, makes the GEMMs' tensor maps, and launches
@@ -397,6 +438,13 @@ int pair_call(int (*blocks)(int, int, int, int),
       (B <= 0 || n_live <= 0 || n_ctx <= 0 || n_live + n_ctx > kMaxT ||
        (size_t)B * n_live * S != (size_t)M || k_ctx == nullptr ||
        v_ctx == nullptr))
+    return (int)cudaErrorInvalidValue;
+  // the fp32 spatial attention's shape: one of S's kind; its rope factors
+  // (S x hd / 2 of 16 bytes) fit in the GELU rows' buffer
+  if (std::is_same<T, float>::value && !temporal &&
+      (!(D / num_heads == 32 ? f32_frame_shape_ok<32>(attn_shape, S)
+                             : f32_frame_shape_ok<64>(attn_shape, S)) ||
+       Hd < 2 * (D / num_heads)))
     return (int)cudaErrorInvalidValue;
   const int chunks[kGemms] = {kc_qkv, kc_out, kc_fc1, kc_fc2};
   int nk[kGemms][2];
@@ -452,7 +500,7 @@ int pair_call(int (*blocks)(int, int, int, int),
       static_cast<int*>(buf[12]),
       {kc_qkv, kc_out, kc_fc1, kc_fc2},
       M, S, D, Hd, G, num_heads, B, n_live, n_ctx, valid_mask, stamps,
-      exact_gelu};
+      exact_gelu, attn_shape};
   // the GEMMs' operands: the int8 rows of the workspace, and the weights
   PairMaps maps;
   const void* act[kGemms] = {a.mq1, a.aq, a.mq2, a.hq};

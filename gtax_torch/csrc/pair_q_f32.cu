@@ -11,10 +11,14 @@
 // bf16). The phases are the fp32 sequential kernels' device functions:
 // ln_mod_row over fp32 rows (ln_mod's mode 5), the int8 GEMM units with
 // the fp32 gated epilogue (gemm_s8's EPI_BIAS_GATED_F32), and the fp32
-// attention bodies on the CUDA cores: attn_frame_f32_unit (attn_f32.cuh,
-// 64-row query tiles whose fp32 K and V tiles fit in the GEMM ring's data
-// region) for the spatial branch and attn_temporal_unit<hd, float> over the
-// fp32 cache for the temporal step. So each pair is bit-equal to the fp32
+// attention bodies on the CUDA cores: for the spatial branch
+// attn_frame_f32's rope (each position's angles reduced once in phase 1,
+// q and k roped by the qkv product's epilogue, gemm_s8's EPI_F32_ROPE, as
+// attn_frame_f32's rope pass ropes them) and its units (attn_f32.cuh: the
+// call's query tile, from block.f32_frame_shape on the cooperative grid; a
+// head's K and V in the GEMM ring's data region; a unit on the first 192
+// or 128 threads of a block), attn_temporal_unit<hd, float> over the fp32
+// cache for the temporal step. So each pair is bit-equal to the fp32
 // sequential wrappers (#7 + #9, #6 + #9). The kernels hold the int8 tensor
 // cores' instructions and no bf16 or TF32 one.
 // Bound: bytes, the 12 MB of int8 weights at one or two frames. Each GELU

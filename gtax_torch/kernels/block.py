@@ -646,16 +646,82 @@ def gemm_any(a, w, out, M, N, K, epi, **kw):
     return launch_gemm(a, w, out, M, N, K, epi, **kw)
 
 
+# The fp32 frame attention's query tiles (csrc/attn_f32.cuh
+# GTAX_F32_FRAME_SHAPES, index for index): (whole, rows a thread, row
+# groups). Whole shapes (S <= F32_WHOLE_KEYS: a head's K and V whole in
+# shared memory, one softmax pass) take 16 lanes a row, 12 row groups, and
+# 24, 48 or 72 query rows (144 tokens in 6, 3 or 2 tiles); the ring shape
+# (S past it: 64-key tiles through a cp.async ring) 8 lanes a row, 4 rows a
+# thread, 64 query rows (576 tokens in 9). Within a kind a row's
+# arithmetic, so its bits, do not depend on the shape. Kept from the tiles
+# timed at the main path's calls (attn_sweep.py --f32-frame; PERF.md
+# section 6): at 144 tokens 24 rows the fastest at one frame, 48 at two and
+# four, 72 at eighty (16 and 18 rows, 36 rows, never the fastest, went); at
+# 576 the 64-row ring beside 96 and 144 rows. The fp32 pair takes each (at
+# most its 256 threads, buffers inside its GEMM ring).
+F32_FRAME_SHAPES = ((True, 2, 12), (True, 4, 12), (True, 6, 12),
+                    (False, 4, 16))
+F32_WHOLE_KEYS = 144
+# blocks of a whole shape an SM runs at once (up to 110 KB of shared
+# memory each at head dim 64): the rule's slots are this many per SM
+F32_FRAME_BLOCKS = 2
+
+
+def f32_frame_rows(shape: int) -> int:
+    """Query rows of a block of the fp32 frame attention's `shape`."""
+    _, tr, rg = F32_FRAME_SHAPES[shape]
+    return tr * rg
+
+
+def f32_frame_shape(S: int, heads: int, n_frames: int, slots: int) -> int:
+    """The query tile of an fp32 frame attention call: among the shapes of
+    S's kind, the largest tile whose units
+    ((query tile, head, frame)) fill one round of `slots` (the blocks the
+    card runs at once: F32_FRAME_BLOCKS an SM, or the pair's cooperative
+    grid, which takes its units one after another) to two thirds and no
+    further (fewer rows a thread leave shared memory the limit, so a tile
+    is cut only to fill the card); where none does, the tile of the fewest
+    rounds, the most units among them. One frame of 144 tokens at 16 heads
+    on 132 SMs: 24-row tiles, 96 units."""
+    whole = S <= F32_WHOLE_KEYS
+    kind = [i for i, sh in enumerate(F32_FRAME_SHAPES) if sh[0] == whole]
+
+    def units(i):
+        return _cdiv(S, f32_frame_rows(i)) * heads * n_frames
+
+    fill = [i for i in kind if 2 * slots <= 3 * units(i) <= 3 * slots]
+    if fill:
+        return max(fill, key=f32_frame_rows)
+    return min(kind, key=lambda i: (_cdiv(units(i), slots), -units(i)))
+
+
+def f32_frame_slots(device) -> int:
+    """The fp32 frame attention's blocks at once on `device`'s card (the
+    rule's slots for a launch of its own)."""
+    return F32_FRAME_BLOCKS * sm_count(device)
+
+
 def launch_attn_frame_f32(qkv, freqs, out, n_frames, S, D, num_heads, rot,
-                          qkv_out=None):
+                          qkv_out=None, shape=None):
     """The fp32 frame attention: qkv (n_frames * S, 3D) fp32 rows, rope on
     the first rot dims of each head's q and k, into out (n_frames * S, D)
-    fp32; nothing rounded. qkv_out: an optional (q, k, v) triple of fp32
-    outputs (the emit_train residuals: the roped q, k and the v)."""
+    fp32; nothing rounded. Two launches: a rope pass (each position's
+    angles reduced once, q and k roped into a workspace) and the attention
+    over the roped rows. qkv_out: an optional (q, k, v) triple of fp32
+    outputs (the emit_train residuals: the roped q, k and the v), which the
+    rope pass fills in place of the workspace. shape: the query tile
+    (F32_FRAME_SHAPES), f32_frame_shape's on the card by default."""
     q, k, v = qkv_out or (None, None, None)
+    ws = None
+    if q is None:
+        ws = torch.empty((n_frames * S, 2 * D), dtype=torch.float32,
+                         device=qkv.device)
+    if shape is None:
+        shape = f32_frame_shape(S, num_heads, n_frames,
+                                f32_frame_slots(qkv.device))
     build.launch("gtax_attn_frame_f32", qkv.data_ptr(), freqs.data_ptr(),
-                 out.data_ptr(), _ptr(q), _ptr(k), _ptr(v), n_frames, S, D,
-                 num_heads, rot, _stream(qkv))
+                 out.data_ptr(), _ptr(q), _ptr(k), _ptr(v), _ptr(ws),
+                 n_frames, S, D, num_heads, rot, shape, _stream(qkv))
 
 
 def launch_attn_frame(qkv, freqs, out, n_frames, S, D, num_heads, rot,

@@ -99,9 +99,9 @@ SIGNATURES = {
     # qkv, freqs, k_ctx, v_ctx, out, q_out, k_out, v_out, B, n_q, q_off, S,
     # D, num_heads, valid_mask, stream
     "gtax_attn_temporal_f32": (*(_P,) * 8, *(_I,) * 7, _P),
-    # qkv, freqs, out, q_out, k_out, v_out, n_frames, S, D, num_heads, rot,
-    # stream
-    "gtax_attn_frame_f32": (*(_P,) * 6, *(_I,) * 5, _P),
+    # qkv, freqs, out, q_out, k_out, v_out, ws, n_frames, S, D, num_heads,
+    # rot, shape, stream
+    "gtax_attn_frame_f32": (*(_P,) * 7, *(_I,) * 6, _P),
     # q, k, v, dout, cos, sin, dqkv, ao, n_frames, S, D, num_heads, rot,
     # stream
     "gtax_attn_frame_bwd": (*(_P,) * 8, *(_I,) * 5, _P),
@@ -117,16 +117,17 @@ SIGNATURES = {
     # p2_stride, g2_stride, qkv_q, qkv_s, out_q, out_s, out_b, out_b_f32,
     # w1_q, w1_s, b1, b1_f32, w2_q, w2_s, b2, b2_f32, freqs, k_ctx, v_ctx,
     # out, ws, ws_bytes, M, S, D, Hd, G, num_heads, B, n_live, n_ctx,
-    # valid_mask, kc_qkv, kc_out, kc_fc1, kc_fc2, exact_gelu, stream
+    # valid_mask, kc_qkv, kc_out, kc_fc1, kc_fc2, exact_gelu, attn_shape,
+    # stream
     "gtax_pair_q": (_I, *(_P,) * 7, *(_I,) * 4, *(_P,) * 5, _I,
                     *(_P,) * 3, _I, *(_P,) * 3, _I, *(_P,) * 5, _L,
-                    *(_I,) * 15, _P),
+                    *(_I,) * 16, _P),
     # temporal, hd, S, D -> the cooperative grid's blocks, or -error
     "gtax_pair_q_blocks": (_I, _I, _I, _I),
     # gtax_pair_q's arguments, over fp32 activations
     "gtax_pair_q_f32": (_I, *(_P,) * 7, *(_I,) * 4, *(_P,) * 5, _I,
                         *(_P,) * 3, _I, *(_P,) * 3, _I, *(_P,) * 5, _L,
-                        *(_I,) * 15, _P),
+                        *(_I,) * 16, _P),
     "gtax_pair_q_f32_blocks": (_I, _I, _I, _I),
     # q, k, v, bias, out, N, S, num_heads, hd, q_ld, k_ld, v_ld, o_ld,
     # tensor_cores, scale, stream

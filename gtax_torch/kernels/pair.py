@@ -134,17 +134,29 @@ def _f32(t):
     return int(t.dtype == torch.float32)
 
 
+def attn_shape(temporal, dtype, S, num_heads, n_frames, blocks):
+    """The query tile of the fp32 spatial pair's attention phase: the fp32
+    frame attention's rule (block.f32_frame_shape) on the pair's
+    cooperative grid; 0 (unread) for the other forms."""
+    if temporal or dtype != torch.float32:
+        return 0
+    return block.f32_frame_shape(S, num_heads, n_frames, blocks)
+
+
 def _launch(temporal, x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
             out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s, b2, freqs, k_ctx,
             v_ctx, num_heads, Hd, G, B=0, n_live=0, n_ctx=0, bits=0,
-            lib=None, extra=0, approx_gelu=True):
+            lib=None, extra=0, approx_gelu=True, shape=None):
     """One launch (of `lib`, else the library; x's dtype picks the bf16 or
     fp32 entry) with `extra` bytes past the workspace's buffers; fc1's GELU
-    the tanh form (approx_gelu) or the exact one; returns (out,
+    the tanh form (approx_gelu) or the exact one; shape: the fp32 spatial
+    attention's query tile, attn_shape's by default; returns (out,
     workspace)."""
     N, S, D = x.shape
     M = N * S
     blocks = grid_blocks(temporal, D // num_heads, S, D, x.dtype, lib)
+    if shape is None:
+        shape = attn_shape(temporal, x.dtype, S, num_heads, N, blocks)
     chunks = gemm_chunks(M, D, Hd, G, blocks)
     size = workspace_bytes(M, D, Hd, G, chunks, x.element_size()) + extra
     ws = torch.empty(size, dtype=torch.uint8, device=x.device)
@@ -160,7 +172,7 @@ def _launch(temporal, x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
         None if k_ctx is None else k_ctx.data_ptr(),
         None if v_ctx is None else v_ctx.data_ptr(), out.data_ptr(),
         ws.data_ptr(), size, M, S, D, Hd, G, num_heads, B, n_live, n_ctx,
-        bits, *chunks, int(not approx_gelu), _stream(x), lib=lib)
+        bits, *chunks, int(not approx_gelu), shape, _stream(x), lib=lib)
     return out, ws
 
 

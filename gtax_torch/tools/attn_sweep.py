@@ -23,10 +23,23 @@ python <this file> --f32` times another checkout's body in turns.
 tiles) against each other, in turns, at S = 32 .. 577 token-major, and
 prints the length from which the 128-row body gives the least summed
 time over those lengths: the threshold `attention.SDPA_F32_WIDE_MIN_S`
-holds.
+holds. --f32-frame times the fp32 frame attention alone
+(`block.launch_attn_frame_f32`: its rope pass and its attention, two
+launches) at the main path's shapes, (frames, S) = (1, 144), (2, 144),
+(4, 144), (80, 144) and (6, 576) (DiT-S/2's spatial rope, full-d; the
+VAE's, on half of a head), with each launch's device ms from a trace and
+its error against the plain fp32 attention on the roped
+q/k/v and whether two calls give the same bits, beside one fp32 SDPA call
+on the same roped q/k/v (no TF32) and the bound; it calls only the public
+wrapper, so `PYTHONPATH=<checkout> python <this file> --f32-frame` times
+another checkout in turns. Where the wrapper takes a query tile (`shape`),
+every tile of S's kind is timed too, each output held bit-equal to the
+rule's, and the fp32 spatial pair (#10, `pair._launch`) at one and two
+frames at each tile it takes, beside the rule's pick.
 
     python -m gtax_torch.tools.attn_sweep [--f32 | --f32-bodies |
-                                           --f32-bwd] [--out FILE]
+                                           --f32-bwd | --f32-frame]
+                                          [--out FILE]
 
 The layouts are fused_sdpa's heads-first (N * 16 rows of (S, 64)) and
 fused_mha_token_major's token-major ((N, S, 1024), 16 heads of 64), with N
@@ -347,6 +360,160 @@ def f32_bodies():
     return rows
 
 
+FRAME_CALLS = ((1, 144), (2, 144), (4, 144), (80, 144), (6, 576))
+
+
+def kernel_ms(fn, reps=5):
+    """Device ms of each kernel one call of fn launches, from a
+    torch.profiler trace of `reps` calls (L2 warm), by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key[:48]: getattr(ev, "self_device_time_total", 0.0) / 1e3
+            / reps for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def frame_freqs(S):
+    """The model's rope table at S: DiT-S/2's spatial one (S = 144, every
+    dim of a head), else the VAE's (S = 576, the first half of a head)."""
+    from gtax_torch.core import rope
+
+    if S == 144:
+        return rope.axial_freqs(rope.pixel_freqs(HD // 2, 256.0), (9, 16),
+                                pixel=True).reshape(S, HD).cuda()
+    return rope.axial_freqs(rope.pixel_freqs(HD // 4, 576.0), (18, 32),
+                            pixel=True).reshape(S, HD // 2).cuda()
+
+
+def f32_frame():
+    """attn_frame_f32 alone at FRAME_CALLS (module docstring): each call's
+    CUDA-event ms, FFMA TFLOP/s (4 S^2 d a head), error, bit stability,
+    bound (the larger of its bytes, qkv read and the output written, at
+    3.35 TB/s and its FLOPs at 67 TFLOP/s) and fp32 SDPA's ms on the roped
+    q/k/v; then, where the tree has query tiles, each tile's ms and the
+    fp32 spatial pair's by tile."""
+    import inspect
+
+    from gtax_torch.core.rope import apply_rotary_emb
+    from gtax_torch.kernels import block
+
+    F = torch.nn.functional
+    D = H * HD
+    shaped = "shape" in inspect.signature(
+        block.launch_attn_frame_f32).parameters
+    gen = np.random.default_rng(18)
+    rows = []
+    for N, S in FRAME_CALLS:
+        f = frame_freqs(S)
+        rot = f.shape[-1]
+        qkv = torch.from_numpy(gen.standard_normal((N * S, 3 * D)).astype(
+            np.float32)).cuda()
+        out = torch.empty((N * S, D), dtype=torch.float32, device="cuda")
+
+        def call(shape=None):
+            kw = {} if shape is None else {"shape": shape}
+            block.launch_attn_frame_f32(qkv, f, out, N, S, D, H, rot, **kw)
+            return out
+
+        q, k, v = (t.reshape(N, S, H, HD) for t in qkv.split(D, -1))
+
+        def roped(t):
+            return torch.cat([apply_rotary_emb(f[:, None, :], t[..., :rot]),
+                              t[..., rot:]], -1)
+
+        qr, kr = roped(q), roped(k)
+        ref = block.attend_frames(qr, kr, v, torch.float32).reshape(N * S, D)
+        got = call().clone()
+        again = call().clone()
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max() / ref.abs().max())
+        lib = tuple(t.transpose(1, 2).contiguous() for t in (qr, kr, v))
+        ms = median_ms(call)
+        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(*lib))
+        flops = 4 * N * H * S * S * HD
+        by = (N * S * 3 * D + N * S * D + S * rot) * 4
+        bound = max(flops / F32_PEAK, by / HBM_BYTES_PER_S) * 1e3
+        kernels = kernel_ms(call)
+        row = {"frames": N, "S": S, "rot": rot, "ms": ms,
+               "tflops": flops / ms / 1e9, "library_ms": lib_ms,
+               "bound_ms": bound, "rel_err": err,
+               "two_calls_bit_equal": bool(torch.equal(got, again)),
+               "kernels": kernels}
+        print(f"[attn f32 frame] ({N}, {S}, {D}) rot {rot}: {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), fp32 SDPA on the roped "
+              f"q/k/v {lib_ms:.4f} ms, bound {bound:.4f} ms; max|err| / "
+              f"max|ref| {err:.3g}; two calls bit-equal "
+              f"{row['two_calls_bit_equal']}; by kernel (a trace, L2 "
+              "warm): " + ", ".join(f"{k} {v:.4f} ms"
+                                    for k, v in kernels.items()),
+              flush=True)
+        if shaped:
+            pick = block.f32_frame_shape(S, H, N,
+                                       block.f32_frame_slots(qkv.device))
+            row["shape"] = pick
+            row["by_shape"] = {}
+            for i, (whole, _, _) in enumerate(block.F32_FRAME_SHAPES):
+                if whole != (S <= block.F32_WHOLE_KEYS):
+                    continue
+                t = median_ms(lambda i=i: call(i))
+                same = bool(torch.equal(call(i), got))
+                row["by_shape"][i] = {"ms": t, "bit_equal": same}
+                print(f"[attn f32 frame]   tile {i} "
+                      f"({block.f32_frame_rows(i)} rows, "
+                      f"{-(-S // block.f32_frame_rows(i)) * H * N} units): "
+                      f"{t:.4f} ms, bit-equal to the rule's tile {pick}: "
+                      f"{same}", flush=True)
+        rows.append(row)
+        del qkv, out, q, k, v, qr, kr, ref, lib
+    result = {"calls": rows}
+    if shaped:
+        result["pair"] = f32_pair_shapes()
+    return result
+
+
+def f32_pair_shapes():
+    """The fp32 spatial pair (#10) at one and two frames at each query tile
+    it takes (whole pair calls, CUDA-event medians), outputs bit-equal
+    across tiles, beside the rule's pick on its cooperative grid."""
+    from gtax_torch.kernels import block, pair
+    from gtax_torch.tools.split import pair_args
+
+    rows = {}
+    for N in (1, 2):
+        temporal, args = pair_args("spatial", N, dt=torch.float32)
+        x = args[0]
+        S, D = x.shape[1], x.shape[2]
+        blocks = pair.grid_blocks(False, HD, S, D, torch.float32)
+        pick = pair.attn_shape(False, torch.float32, S, H, N, blocks)
+        ref = pair._launch(temporal, *args)[0]
+        by = {}
+        for i, (whole, _, _) in enumerate(block.F32_FRAME_SHAPES):
+            if whole != (S <= block.F32_WHOLE_KEYS):
+                continue
+
+            def fn(i=i):
+                return pair._launch(temporal, *args, shape=i)[0]
+
+            t = median_ms(fn)
+            same = bool(torch.equal(fn(), ref))
+            by[i] = {"ms": t, "bit_equal": same}
+            print(f"[attn f32 pair] N={N} tile {i} "
+                  f"({block.f32_frame_rows(i)} rows, "
+                  f"{-(-S // block.f32_frame_rows(i)) * H * N} units on "
+                  f"{blocks} blocks): {t:.4f} ms, bit-equal to the rule's "
+                  f"tile {pick}: {same}", flush=True)
+        rows[N] = {"shape": pick, "blocks": blocks, "by_shape": by}
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -357,6 +524,8 @@ def main():
                       "against each other by S")
     mode.add_argument("--f32-bwd", action="store_true",
                       help="time the fp32 attention backward alone")
+    mode.add_argument("--f32-frame", action="store_true",
+                      help="time the fp32 frame attention alone")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -375,6 +544,8 @@ def main():
         result = {"card": card, "f32_bodies": f32_bodies()}
     elif args.f32_bwd:
         result = {"card": card, "bwd_f32": bwd_f32()}
+    elif args.f32_frame:
+        result = {"card": card, "f32_frame": f32_frame()}
     else:
         result = {"card": card, "rows": sweep(), "phases": phases(),
                   "bwd_phases": bwd_phases(), "bwd_phases_no_rope":

@@ -28,9 +28,11 @@ as its kernels read them. --save writes every output to FILE; --compare prints, 
 output (each of a call's outputs: the prefill's K/V cache, emit_train's
 q, k, v apart from the branch output), whether the two files hold the same
 bits (for an output that differs, the share of elements and the largest
-difference: a split-K sum adds in another order), then whether every
-int8, bf16 and fp32 output is bit-equal (naming the fp32 ones that
-differ), and exits 1 if an int8 output differs; --time
+difference, alone and over the first file's largest magnitude: a split-K
+sum adds in another order), then whether every int8, bf16 and fp32
+output is bit-equal (naming the fp32 ones that differ; the fp32 forms of
+the int8 wrappers are fp32 outputs), and exits 1 if an int8 output
+differs; --time
 prints each call's CUDA-event median (L2 flushed and the stream held 10 ms
 before each call) and, last, a JSON object of them. To compare speed, run
 --time for each checkout in turns (A, B, B, A).
@@ -217,7 +219,8 @@ def main():
         same = {"int8": True, "bf16": True, "fp32": True}
         moved = []  # the fp32 outputs that differ
         for k in sorted(set(a) | set(b)):
-            kind = ("int8" if "_q " in k else "fp32" if k.endswith("fp32")
+            # the fp32 forms of the int8 wrappers count as fp32 outputs
+            kind = ("fp32" if k.endswith("fp32") else "int8" if "_q " in k
                     else "bf16")
             if k not in a or k not in b:
                 same[kind] = False
@@ -229,9 +232,11 @@ def main():
                 note = ""
                 if not eq:
                     x, y = x.float(), y.float()
+                    d = (x - y).abs().max().item()
                     note = (f" ({(x != y).float().mean().item():.3%} of "
-                            f"elements, max |diff| "
-                            f"{(x - y).abs().max().item():.3g})")
+                            f"elements, max |diff| {d:.3g}, "
+                            f"{d / x.abs().max().item():.3g} of the largest "
+                            f"magnitude)")
                 name = k if len(a[k]) == 1 else f"{k} [{i}]"
                 if not eq and kind == "fp32":
                     moved.append(name)

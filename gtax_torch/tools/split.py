@@ -5,10 +5,14 @@ branches `fused_spatial_branch` (#1), `fused_mlp_branch` (#2) and
 branch by launch: `fused_temporal_branch` (#3) at emit_train (B=16, T=5,
 slot 0 padded) and at the prefill's emit_kv (576 rows), and
 `fused_temporal_branch_bwd` (#13, B=16, T=5), each with its attention
-launch's byte bound (`temporal_splits`).
+launch's byte bound (`temporal_splits`); with --f32 instead, the fp32
+step's spatial work: #1 fp32 at one frame by launch, with its attention
+launch's TFLOP/s and bound, and the fp32 pairs by phase, on a probe copy
+of csrc/pair_q_f32.cu (`f32_splits`).
 
-    python -m gtax_torch.tools.split [--temporal] [--out FILE]
+    python -m gtax_torch.tools.split [--temporal | --f32] [--out FILE]
     PYTHONPATH=<checkout> python <this file> --temporal   # another tree
+    PYTHONPATH=<checkout> python <this file> --f32        # another tree
 
 The launch split records CUDA events around each kernel launch of one
 call, and the gap from each launch's end event to the next one's start
@@ -133,9 +137,9 @@ def launch_split(fn, label, gemm_flops, log=print):
     return out
 
 
-def _rand(gen, shape, std=1.0):
+def _rand(gen, shape, std=1.0, dt=torch.bfloat16):
     a = gen.standard_normal(shape).astype(np.float32) * std
-    return torch.from_numpy(a).to("cuda", torch.bfloat16)
+    return torch.from_numpy(a).to("cuda", dt)
 
 
 def mlp_inputs(N, seed=10):
@@ -148,17 +152,17 @@ def mlp_inputs(N, seed=10):
             _rand(gen, (4 * D, D), 0.02), _rand(gen, (D,), 0.02))
 
 
-def attention_inputs(kind, N, seed=50):
+def attention_inputs(kind, N, seed=50, dt=torch.bfloat16):
     """The arguments of fused_spatial_branch ("spatial", N frames) or of
     fused_temporal_step ("temporal", B=N over a 4-frame cache, slot 0
-    padded), the step's shapes."""
+    padded), the step's shapes; activations and weights of type dt."""
     from gtax_torch.core import rope
 
     gen = np.random.default_rng(seed + N)
-    x = _rand(gen, (N, S, D))
-    mods = _rand(gen, (N, 3 * D), 0.5)
-    w = (_rand(gen, (D, 3 * D), 0.02), _rand(gen, (D, D), 0.02),
-         _rand(gen, (D,), 0.02))
+    x = _rand(gen, (N, S, D), dt=dt)
+    mods = _rand(gen, (N, 3 * D), 0.5, dt)
+    w = (_rand(gen, (D, 3 * D), 0.02, dt), _rand(gen, (D, D), 0.02, dt),
+         _rand(gen, (D,), 0.02, dt))
     head = (x, mods[:, :D], mods[:, D:2 * D], mods[:, 2 * D:], *w)
     if kind == "spatial":
         f = rope.axial_freqs(rope.pixel_freqs(HD // 2, 256.0), (9, 16),
@@ -167,7 +171,7 @@ def attention_inputs(kind, N, seed=50):
     n_ctx = 4
     f = rope.temporal_rope_freqs(torch.arange(n_ctx + 1),
                                  rope.lang_freqs(HD)).cuda()
-    kc, vc = (_rand(gen, (N * n_ctx * S, D)) for _ in range(2))
+    kc, vc = (_rand(gen, (N * n_ctx * S, D), dt=dt) for _ in range(2))
     return (*head, kc, vc, f, [False] + [True] * n_ctx, H, n_ctx)
 
 
@@ -244,24 +248,26 @@ def temporal_splits(log=print):
     return out
 
 
-def pair_args(kind, N, seed=92):
+def pair_args(kind, N, seed=92, dt=torch.bfloat16):
     """(temporal, the checked launch arguments of pair._launch) of one
     paired half-block over N frames: "spatial", or "temporal" (the step of
-    B=N elements over a 4-frame cache, slot 0 padded)."""
+    B=N elements over a 4-frame cache, slot 0 padded); activations, biases
+    and the cache of type dt (fp32: the fp32 pair, #10 / #11 at x.dtype =
+    float32)."""
     from gtax_torch.core import rope
     from gtax_torch.kernels import block, quant
 
     gen = np.random.default_rng(seed + N)
-    x = _rand(gen, (N, S, D))
-    mods = _rand(gen, (N, 6 * D), 0.5)
+    x = _rand(gen, (N, S, D), dt=dt)
+    mods = _rand(gen, (N, 6 * D), 0.5, dt)
     vec = [mods[:, i * D:(i + 1) * D] for i in range(6)]
 
     def qw(shape):
-        return quant.quantize_weight(_rand(gen, shape, 0.02))
+        return quant.quantize_weight(_rand(gen, shape, 0.02, dt))
 
-    w = (*qw((D, 3 * D)), *qw((D, D)), _rand(gen, (D,), 0.02),
-         *qw((D, 4 * D)), _rand(gen, (4 * D,), 0.02), *qw((4 * D, D)),
-         _rand(gen, (D,), 0.02))
+    w = (*qw((D, 3 * D)), *qw((D, D)), _rand(gen, (D,), 0.02, dt),
+         *qw((D, 4 * D)), _rand(gen, (4 * D,), 0.02, dt), *qw((4 * D, D)),
+         _rand(gen, (D,), 0.02, dt))
     G = 4 * D // quant._mlp_chunks(4 * D)
     if kind == "spatial":
         f = rope.axial_freqs(rope.pixel_freqs(HD // 2, 256.0), (9, 16),
@@ -270,23 +276,39 @@ def pair_args(kind, N, seed=92):
     n_ctx = 4
     f = rope.temporal_rope_freqs(torch.arange(n_ctx + 1),
                                  rope.lang_freqs(HD)).cuda()
-    kc, vc = (_rand(gen, (N * n_ctx * S, D)) for _ in range(2))
+    kc, vc = (_rand(gen, (N * n_ctx * S, D), dt=dt) for _ in range(2))
     bits = block.valid_bits([False] + [True] * n_ctx, n_ctx + 1)
     return True, (x, *vec, *w, f, kc, vc, H, 4 * D, G, N, 1, n_ctx, bits)
 
 
-def pair_phases(kind, N, iters=15, log=print):
-    """The probe copy's phase split of one pair call: per phase and per
-    grid barrier the median ms over `iters` calls, and the whole call's
-    median from the stamps. Returns {"phases": {...}, "barriers": [...],
-    "total_ms": ...}."""
-    from gtax_torch.kernels import build, pair
+def pair_probe(dt=torch.bfloat16):
+    """The probe copy of the pair's bf16 sources (build.pair_probe_library)
+    or, for dt fp32, of its fp32 sources, pair_q_f32.cu and
+    pair_q_f32_exact.cu, built here with GTAX_PAIR_PROBE (through
+    build.build and build._load, which every tree of the port has, so that
+    another checkout's fp32 pair is split as well)."""
+    from gtax_torch.kernels import build
 
-    temporal, args = pair_args(kind, N)
-    lib = build.pair_probe_library()
-    blocks = lib.gtax_pair_q_blocks(int(temporal), HD, S, D)
-    if blocks <= 0:
-        raise RuntimeError(f"gtax_pair_q_blocks: CUDA error {-blocks}")
+    if dt != torch.float32:
+        return build.pair_probe_library()
+    if "pair_f32" not in build._probes:
+        build._probes["pair_f32"] = build._load(
+            build.build(defines=("GTAX_PAIR_PROBE=1",),
+                        names=("pair_q_f32.cu", "pair_q_f32_exact.cu")),
+            ("gtax_pair_q_f32", "gtax_pair_q_f32_blocks"))
+    return build._probes["pair_f32"]
+
+
+def pair_phases(kind, N, iters=15, log=print, dt=torch.bfloat16):
+    """The probe copy's phase split of one pair call (dt: bf16, or the fp32
+    pair): per phase and per grid barrier the median ms over `iters`
+    calls, and the whole call's median from the stamps. Returns
+    {"phases": {...}, "barriers": [...], "total_ms": ...}."""
+    from gtax_torch.kernels import pair
+
+    temporal, args = pair_args(kind, N, dt=dt)
+    lib = pair_probe(dt)
+    blocks = pair.grid_blocks(temporal, HD, S, D, dt, lib)
     extra = blocks * STAMPS * 8
     ref = pair._launch(temporal, *args)[0]
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
@@ -327,7 +349,7 @@ def pair_phases(kind, N, iters=15, log=print):
            "gemm_units": {k: [float(np.median(x)) for x in v]
                           for k, v in unit.items()},
            "total_ms": float(np.median(total)), "blocks": blocks}
-    label = f"pair_q {kind} N={N}"
+    label = f"pair_q {kind} N={N}" + (", fp32" if dt == torch.float32 else "")
     log(f"[split] {label}: {blocks} blocks, {res['total_ms']:.4f} ms from "
         f"the first block's start to the last block's end (probe copy)")
     for p, name in enumerate(PHASES):
@@ -344,11 +366,48 @@ def pair_phases(kind, N, iters=15, log=print):
     return res
 
 
+F32_PEAK = 67e12  # fp32 FFMA, H100 SXM
+
+
+def f32_splits(log=print):
+    """The fp32 step's spatial work: #1 fp32 at one frame (144 rows) by
+    launch, with its attention launch's (gtax_attn_frame_f32: the rope
+    pass and the attention) TFLOP/s and bound (the larger of 4 S^2 d a
+    head at 67 TFLOP/s and its bytes, the qkv rows read and the output
+    written, at 3.35 TB/s); the fp32 pairs by phase (#10 at one and two
+    frames, #11 at one)."""
+    from gtax_torch.kernels import block
+
+    f32 = torch.float32
+    a = attention_inputs("spatial", 1, dt=f32)
+    split = launch_split(lambda: block.fused_spatial_branch(*a),
+                         f"fused_spatial_branch {S} rows, fp32",
+                         [2 * S * D * 3 * D, 2 * S * D * D], log)
+    ms = next(e["ms"] for e in split[:-1]
+              if e["kernel"] == "gtax_attn_frame_f32")
+    flops = 4 * H * S * S * HD
+    bound = max(flops / F32_PEAK, (S * 3 * D + S * D) * 4 / HBM_BYTES_PER_S)
+    attention = {"ms": ms, "tflops": flops / ms / 1e9,
+                 "bound_ms": bound * 1e3}
+    log(f"[split]   gtax_attn_frame_f32 (rope pass + attention) {ms:.4f} ms,"
+        f" {flops / 1e9:.3f} GFLOP at {attention['tflops']:.1f} TFLOP/s; "
+        f"bound {attention['bound_ms']:.4f} ms")
+    pairs = {f"{kind} N={N}": pair_phases(kind, N, log=log, dt=f32)
+             for kind, N in (("spatial", 1), ("spatial", 2),
+                             ("temporal", 1))}
+    return {"spatial": {"launch_split": split, "attention": attention},
+            "pair": pairs}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the JSON object here")
-    ap.add_argument("--temporal", action="store_true",
-                    help="split #3 and #13 instead (temporal_splits)")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--temporal", action="store_true",
+                      help="split #3 and #13 instead (temporal_splits)")
+    mode.add_argument("--f32", action="store_true",
+                      help="split the fp32 step's #1 and pairs instead "
+                      "(f32_splits)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("split: needs a CUDA device")
@@ -361,9 +420,10 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    if args.temporal:
+    if args.temporal or args.f32:
         with torch.inference_mode():
-            result = {"card": card, **temporal_splits()}
+            result = {"card": card, **(temporal_splits() if args.temporal
+                                       else f32_splits())}
         if args.out:
             with open(args.out, "w") as f:
                 json.dump(result, f)

@@ -1638,30 +1638,96 @@ def test_gemm_f32_rope_qkv(cuda, hd, T, n_q, q_off):
         _close32(a, b)
 
 
-@pytest.mark.parametrize("S", [S_DIT, S_VAE, 100])
-@pytest.mark.parametrize("hd,rot", [(64, 64), (64, 32), (32, 32)])
-def test_attn_frame_f32_kernel(cuda, S, hd, rot):
-    """attn_frame_f32 (keys in 64-key tiles, online softmax) against the
-    plain fp32 attention with rope on the first rot dims; S=100 leaves the
-    last query and key tiles ragged."""
+def _roped_f32(qkv, f, N, S, heads, hd, rot):
+    """The plain fp32 rope of qkv's q and k on the first rot dims of each
+    head, and its v, each (N, S, heads, hd)."""
     from gtax_torch.core.rope import apply_rotary_emb
 
+    q, k, v = (t.reshape(N, S, heads, hd) for t in qkv.split(heads * hd,
+                                                            dim=-1))
+
+    def rot_(t):
+        return torch.cat([apply_rotary_emb(f[:, None, :], t[..., :rot]),
+                          t[..., rot:]], -1)
+
+    return rot_(q), rot_(k), v
+
+
+@pytest.mark.parametrize("store", [False, True], ids=["serve", "store"])
+@pytest.mark.parametrize("S", [48, 96, 100, 143, S_DIT, 145, S_VAE])
+@pytest.mark.parametrize("hd,rot", [(32, 32), (32, 16), (64, 64), (64, 32),
+                                    (128, 128), (128, 64)])
+def test_attn_frame_f32_kernel(cuda, S, hd, rot, store):
+    """attn_frame_f32 (a rope pass, then the attention: up to 144 tokens a
+    head's keys whole and one softmax pass, past them 64-key tiles and an
+    online softmax) against the plain fp32 attention with rope on the
+    first rot dims, at the rule's query tile; S = 100, 143 and 145 leave
+    the last tiles ragged. store: the emit_train form, whose q/k/v outputs
+    are the roped q and k (within F32_TOL of the plain rope) and the v
+    (bit for bit), and whose output is the serving form's bits."""
     gen = np.random.default_rng(330 + S + hd + rot)
     N, heads, f32 = 2, D // hd, torch.float32
     qkv = _rand(gen, (N * S, 3 * D), 1.0, f32)
     f = torch.from_numpy(gen.uniform(-30, 30, (S, rot)).astype(
         np.float32)).cuda()
     out = torch.empty((N * S, D), dtype=f32, device="cuda")
-    block.launch_attn_frame_f32(qkv, f, out, N, S, D, heads, rot)
-    q, k, v = (t.reshape(N, S, heads, hd) for t in qkv.split(D, dim=-1))
-
-    def rot_(t):
-        return torch.cat([apply_rotary_emb(f[:, None, :], t[..., :rot]),
-                          t[..., rot:]], -1)
-
-    ref = block.attend_frames(rot_(q), rot_(k), v, f32).reshape(N * S, D)
+    emitted = tuple(torch.empty_like(out) for _ in range(3)) if store \
+        else None
+    block.launch_attn_frame_f32(qkv, f, out, N, S, D, heads, rot,
+                                qkv_out=emitted)
+    q, k, v = _roped_f32(qkv, f, N, S, heads, hd, rot)
+    ref = block.attend_frames(q, k, v, f32).reshape(N * S, D)
     torch.cuda.synchronize()
     _close32(out, ref)
+    if store:
+        serve = torch.empty_like(out)
+        block.launch_attn_frame_f32(qkv, f, serve, N, S, D, heads, rot)
+        torch.cuda.synchronize()
+        assert torch.equal(out, serve)
+        _close32(emitted[0], q.reshape(N * S, D))
+        _close32(emitted[1], k.reshape(N * S, D))
+        assert torch.equal(emitted[2], v.reshape(N * S, D))
+
+
+@pytest.mark.parametrize("S", [S_DIT, 100, S_VAE])
+@pytest.mark.parametrize("hd", [32, 64])
+def test_attn_frame_f32_query_tiles_bit_equal(cuda, S, hd):
+    """The fp32 frame attention's rows are the same bits at every query
+    tile of S's kind: one frame alone (the rule's tile for one frame)
+    against many frames (its tile for many), and every tile forced on the
+    many frames; the emit_train form's q/k/v too."""
+    gen = np.random.default_rng(175 + hd + S)
+    heads = D // hd
+    N = 8
+    qkv = _rand(gen, (N * S, 3 * D), 1.0, torch.float32)
+    rot = hd if S == S_DIT else hd // 2
+    f = torch.from_numpy(gen.uniform(0, 6.3, (S, rot)).astype(
+        np.float32)).cuda()
+    whole_kind = S <= block.F32_WHOLE_KEYS
+
+    def run(rows, shape=None):
+        n = rows.shape[0] // S
+        out = torch.empty((n * S, D), dtype=torch.float32, device="cuda")
+        emitted = tuple(torch.empty_like(out) for _ in range(3))
+        block.launch_attn_frame_f32(rows, f, out, n, S, D, heads, rot,
+                                    qkv_out=emitted, shape=shape)
+        return (out, *emitted)
+
+    slots = block.f32_frame_slots(cuda)
+    assert (block.f32_frame_shape(S, heads, 1, slots)
+            != block.f32_frame_shape(S, heads, N, slots)) or not whole_kind
+    whole = run(qkv)
+    for n in range(N):
+        part = run(qkv[n * S:(n + 1) * S].contiguous())
+        torch.cuda.synchronize()
+        for a, b in zip(whole, part):
+            assert torch.equal(a[n * S:(n + 1) * S], b), n
+    for i, (kind, _, _) in enumerate(block.F32_FRAME_SHAPES):
+        if kind == whole_kind:
+            forced = run(qkv, i)
+            torch.cuda.synchronize()
+            for a, b in zip(whole, forced):
+                assert torch.equal(a, b), i
 
 
 @pytest.mark.parametrize("valid", [None, [False, True, True, True, True,
@@ -1723,8 +1789,9 @@ def test_fp32_kernels_use_no_tensor_cores(cuda):
     """The fp32 kernels, the training ones included (gemm_f32's training
     epilogues are instantiations of its two forward forms, its trans_b and
     wgrad forms of gemm_f32_bwd_kernel; the serving rows' form
-    gemm_f32_serve_kernel and the `pallas` attention's tiled forms
-    attn_sdpa_f32_tile_kernel and _wide_kernel among them), are FFMA only:
+    gemm_f32_serve_kernel, the `pallas` attention's tiled forms
+    attn_sdpa_f32_tile_kernel and _wide_kernel, and the frame attention's
+    rope pass and its query tiles' bodies among them), are FFMA only:
     cuobjdump's SASS of the built library has no HMMA or HGMMA (any type,
     TF32 included) in them, and FFMAs, each kernel named here found by
     name; the fp32 pairs hold the int8 tensor cores' IGMMA and no HMMA /
@@ -1746,7 +1813,8 @@ def test_fp32_kernels_use_no_tensor_cores(cuda):
     sass = subprocess.run([tool, "-sass", str(build.build())],
                           capture_output=True, text=True, check=True).stdout
     funcs = sass.split("Function : ")[1:]
-    names = ("attn_frame_f32_kernel", "attn_window_f32_kernel",
+    names = ("attn_frame_f32_kernel", "attn_rope_f32_kernel",
+             "attn_window_f32_kernel",
              "attn_temporal_f32_kernel", "ln_mod_kernelIf",
              "attn_sdpa_rows_f32_kernel", "attn_sdpa_f32_tile_kernel",
              "attn_sdpa_f32_wide_kernel", "attn_frame_bwd_f32_q",

@@ -71,14 +71,15 @@ def test_fp32_entry_points_bound():
     many arguments as csrc/ declares (the library is built on the card):
     the fp32 GEMM's (and its rope form's) with the training epilogues'
     outputs, trans_b and the forward's form (fwd_form), the
-    frame attention's with its q/k/v stores, the temporal one's with the
+    frame attention's with its q/k/v stores, its workspace and its query
+    tile, the temporal one's with the
     full window's fp32 Q/K/V outputs, the fp32 pairs', the fp32 `pallas`
     attention's, and the fp32 training kernels' (the weight gradient, the
     row-wise and attention backwards)."""
     want = {"gtax_gemm_f32": 23, "gtax_gemm_f32_rope_qkv": 16,
-            "gtax_attn_frame_f32": 12,
+            "gtax_attn_frame_f32": 14,
             "gtax_attn_temporal_window_f32": 11,
-            "gtax_attn_temporal_f32": 16, "gtax_pair_q_f32": 48,
+            "gtax_attn_temporal_f32": 16, "gtax_pair_q_f32": 49,
             "gtax_pair_q_f32_blocks": 4, "gtax_attn_sdpa_f32": 16,
             "gtax_gemm_f32_wgrad": 8, "gtax_gate_bwd_f32": 11,
             "gtax_ln_mod_bwd_f32": 12, "gtax_attn_frame_bwd_f32": 15,
@@ -87,8 +88,9 @@ def test_fp32_entry_points_bound():
     for name, n in want.items():
         assert len(build.SIGNATURES[name]) == n, name
         assert f"GTAX_ENTRY {name}(" in src, name
-    # the pair's exact-GELU flag sits before its stream
-    assert len(build.SIGNATURES["gtax_pair_q"]) == 48
+    # the pair's exact-GELU flag and the fp32 attention's query tile sit
+    # before its stream
+    assert len(build.SIGNATURES["gtax_pair_q"]) == 49
     for name in want:
         params = src.split(f"GTAX_ENTRY {name}(", 1)[1].split(")", 1)[0]
         if "GTAX_PAIR_PARAMS" not in params:
@@ -256,6 +258,90 @@ def test_f32_serve_constants_match_the_kernel_source():
     assert const("kServeKS") % const("BK") == 0
     assert const("kServeTile") // const("kServeRG") in (4, 8)
     assert "if (!fwd) return launch_serve<EPI>" in src
+
+
+@pytest.mark.parametrize("n_frames,S", [(1, 144), (4, 144), (80, 144),
+                                         (6, 576)])
+def test_f32_frame_shape_rule(n_frames, S):
+    """The fp32 frame attention's query tile (block.f32_frame_shape) at the
+    main path's calls, 16 heads on 132 SMs (two blocks an SM): a tile of
+    S's kind (whole keys up to 144 tokens, the ring past them) whose tiles
+    cover S once, at most one ragged tile past S; at one frame the units
+    reach the SM count, or are the most that any tile of that kind runs in
+    one round of the SMs; the fp32 pair's pick (its 132-block grid, a unit
+    a block at a time) is the same rule's on that grid, and fills it in
+    one round where a tile can."""
+    from gtax_torch.kernels import pair
+
+    heads, sms = 16, 132
+    shape = block.f32_frame_shape(S, heads, n_frames,
+                                  block.F32_FRAME_BLOCKS * sms)
+    whole, _, _ = block.F32_FRAME_SHAPES[shape]
+    assert whole == (S <= block.F32_WHOLE_KEYS)
+    rows = block.f32_frame_rows(shape)
+    tiles = -(-S // rows)
+    assert (tiles - 1) * rows < S <= tiles * rows
+    kind = [i for i, sh in enumerate(block.F32_FRAME_SHAPES)
+            if sh[0] == whole]
+    if n_frames == 1:
+        units = [-(-S // block.f32_frame_rows(i)) * heads for i in kind]
+        one_round = max([u for u in units if u <= sms], default=0)
+        assert tiles * heads >= sms or tiles * heads == one_round
+    at = pair.attn_shape(False, torch.float32, S, heads, n_frames, sms)
+    assert at == block.f32_frame_shape(S, heads, n_frames, sms)
+    pair_units = -(-S // block.f32_frame_rows(at)) * heads * n_frames
+    if any(2 * sms <= 3 * -(-S // block.f32_frame_rows(i)) * heads
+           * n_frames <= 3 * sms for i in kind):
+        assert 2 * sms <= 3 * pair_units <= 3 * sms
+    assert pair.attn_shape(True, torch.float32, S, heads, n_frames, sms) == 0
+    assert pair.attn_shape(False, torch.bfloat16, S, heads, n_frames,
+                           sms) == 0
+
+
+def test_f32_frame_step_fills_the_card():
+    """A denoise step's one frame of 144 tokens at 16 heads runs on 96-144
+    units (not the 48 of 48-row tiles): on the card's 132 SMs and in the
+    fp32 pair's 132-block grid."""
+    from gtax_torch.kernels import pair
+
+    for shape in (block.f32_frame_shape(144, 16, 1,
+                                        block.F32_FRAME_BLOCKS * 132),
+                  pair.attn_shape(False, torch.float32, 144, 16, 1, 132)):
+        assert 96 <= -(-144 // block.f32_frame_rows(shape)) * 16 <= 144
+
+
+def test_f32_frame_shapes_match_the_kernel_source():
+    """block's list of the fp32 frame attention's query tiles is the
+    kernel's, index for index (csrc/attn_f32.cuh GTAX_F32_FRAME_SHAPES:
+    F32Whole<HD, rows a thread, row groups> and F32Ring<HD, row groups> of
+    4 rows a thread), the list the fp32 pair dispatches on too
+    (csrc/pair_q.cuh); the whole bodies' key count is F32_WHOLE_KEYS, 16
+    lanes by kF32WholeKC."""
+    import re
+
+    src = (build.CSRC / "attn_f32.cuh").read_text()
+    pair_src = (build.CSRC / "pair_q.cuh").read_text()
+
+    def shapes(text, macro):
+        body = text.split(f"#define {macro}(X)", 1)[1].split("\n\n", 1)[0]
+        out = {}
+        for i, kind, args in re.findall(
+                r"X\((\d+), F32(Whole|Ring)<HD, ([\d, ]+)>\)", body):
+            a = [int(x) for x in args.split(",")]
+            out[int(i)] = ((True, a[0], a[1]) if kind == "Whole"
+                           else (False, 4, a[0]))
+        return out
+
+    kernel = shapes(src, "GTAX_F32_FRAME_SHAPES")
+    assert kernel == dict(enumerate(block.F32_FRAME_SHAPES))
+    assert int(re.search(r"kF32FrameShapes = (\d+);", src).group(1)) \
+        == len(block.F32_FRAME_SHAPES)
+    ring = re.search(r"struct F32Ring \{\s*static constexpr int RG = RG_, "
+                     r"TR = (\d+),", src)
+    assert int(ring.group(1)) == 4
+    kc = int(re.search(r"kF32WholeKC = (\d+);", src).group(1))
+    assert 16 * kc == block.F32_WHOLE_KEYS
+    assert "GTAX_F32_FRAME_SHAPES(GTAX_CASE)" in pair_src
 
 
 def _meta(*shape, dtype=torch.float32):
