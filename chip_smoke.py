@@ -59,8 +59,9 @@ Phases (any failure exits nonzero and prints no result line):
      their plain versions within F32_TOL (1e-4) of the plain output's
      largest magnitude, timed beside the plain version and the fp32
      library composite (no TF32), the bound from the bytes and 67 TFLOP/s
-     of fp32 FFMA; the MLP, the VAE block and #1 at the step split by
-     launch (#1's attention launch with its TFLOP/s and bound); the fp32
+     of fp32 FFMA; the MLP, the VAE block, #1 and #4 at the step split by
+     launch (#1's attention launch with its TFLOP/s and bound, #4's
+     attn_step_f32 with its byte bound); the fp32
      frame attention alone (`[kernel] attn_frame_f32`: its rope pass and
      attention at the step's one frame, 80 frames and the VAE's 6 frames
      of 576) within F32_TOL of its plain version, two calls bit-equal,
@@ -1249,12 +1250,14 @@ def f32_phase(timer, rows):
     the bound from the bytes and the fp32 FFMA peak. Recorded in each
     row's "fp32"; its launches come from `[e2e fp32]`."""
     # the GEMMs' flops by launch, for the split of the VAE block, the MLP
-    # and the spatial branch at the step
+    # and the spatial and temporal branches at the step
     gemms = {"fused_vae_block": [2 * 6 * S_VAE * D * n
                                  for n in (3 * D, D, 4 * D, 4 * D)],
              "fused_mlp_branch": [2 * S_DIT * D * 4 * D] * 2,
              "fused_spatial_branch": [2 * S_DIT * D * 3 * D,
-                                      2 * S_DIT * D * D]}
+                                      2 * S_DIT * D * D],
+             "fused_temporal_step": [2 * S_DIT * D * 3 * D,
+                                     2 * S_DIT * D * D]}
     for name, label, make in kernel_cases(torch.float32):
         kern, plain, lib, lib_desc, by, fl = make()
         m = measure(timer, name, label, kern, plain, lib, by, fl,
@@ -1274,6 +1277,9 @@ def f32_phase(timer, rows):
             if name == "fused_spatial_branch":
                 rows[name]["fp32"]["attention"] = frame_f32_split(split, 1,
                                                                   S_DIT)
+            if name == "fused_temporal_step":
+                rows[name]["fp32"]["attention"] = temporal_step_f32_bound(
+                    split)
         del kern, plain, lib
     frame_f32_phase(timer, rows)
     f32_int8_phase(timer, rows)
@@ -1455,12 +1461,14 @@ F32_KERNELS = ("attn_frame_f32_kernel", "attn_rope_f32_kernel",
                "attn_frame_bwd_f32_k", "attn_temporal_bwd_f32_kernel",
                "gate_bwd_kernelIfE", "ln_mod_bwd_kernelILi16EfE",
                "gemm_f32_bwd_kernel", "gemm_f32_fwd_kernel",
-               "gemm_f32_serve_kernel")
+               "gemm_f32_serve_kernel", "gemm_f32_persist_kernel",
+               "attn_step_f32_kernel")
 # the fp32 kernels whose main loop [sass] reads (FFMA share, operand
 # reuse): the GEMMs' forms, the `pallas` attention's tiled body and the
 # frame attention's query tiles
 F32_GEMMS = ("gemm_f32_fwd_kernel", "gemm_f32_bwd_kernel",
-             "gemm_f32_serve_kernel", "attn_sdpa_f32_tile_kernel",
+             "gemm_f32_serve_kernel", "gemm_f32_persist_kernel",
+             "attn_sdpa_f32_tile_kernel",
              "attn_sdpa_f32_wide_kernel", "attn_frame_f32_kernel")
 # the fp32 pairs, pair_q_kernel<hd, temporal, exact, float>: 2 x 2 x 2
 F32_PAIRS = re.compile(r"pair_q_kernelILi\d+ELb\dELb\dEfE")
@@ -2200,6 +2208,15 @@ def attn_f32_split(split, M):
         f"({by_what}; {fl / 1e9:.1f} GFLOP at {fl / ms / 1e9:.1f} TFLOP/s)")
     return {"ms": ms, "bound_ms": bms, "gflop": fl / 1e9,
             "tflops": fl / ms / 1e9}
+
+
+def temporal_step_f32_bound(split):
+    """The attention launch (attn_step_f32) in a `[split]` of #4 fp32 at
+    the step, with its byte bound (gtax_torch/tools/split.py), printed
+    here."""
+    from gtax_torch.tools.split import temporal_step_f32_bound as bound
+
+    return bound(split, log=log)
 
 
 def temporal_attention_bound(split, M, emitted=0):

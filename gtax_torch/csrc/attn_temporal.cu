@@ -300,6 +300,104 @@ GTAX_ENTRY gtax_attn_temporal_window_f32(const void* q, const void* k,
   }
 }
 
+// The fp32 step of #4: attn_step_lane_f32, one thread a lane.
+template <int HD, int T>
+__global__ void __launch_bounds__(kWindowThreads)
+    attn_step_f32_kernel(const float* __restrict__ qkv,
+                         const float* __restrict__ freqs,
+                         const float* __restrict__ k_ctx,
+                         const float* __restrict__ v_ctx,
+                         float* __restrict__ out, int B, int q_off, int S,
+                         int D, int valid_mask) {
+  asm volatile("griddepcontrol.launch_dependents;");
+  attn_step_lane_f32<HD, T>(
+      (long long)blockIdx.x * kWindowThreads + threadIdx.x, qkv, freqs,
+      k_ctx, v_ctx, out, B, q_off, S, D, valid_mask);
+}
+
+template <int HD, int T>
+int launch_step_f32(const float* qkv, const float* freqs, const float* kc,
+                    const float* vc, float* out, int B, int q_off, int S,
+                    int D, int valid_mask, cudaStream_t st) {
+  const long long lanes = (long long)B * S * (D / kLaneDimsF32);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((lanes + kWindowThreads - 1) /
+                                kWindowThreads));
+  cfg.blockDim = dim3(kWindowThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];  // a programmatic dependent of the qkv product
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, attn_step_f32_kernel<HD, T>,
+                                           qkv, freqs, kc, vc, out, B, q_off,
+                                           S, D, valid_mask);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_step_f32_t(int T, const float* qkv, const float* freqs,
+                      const float* kc, const float* vc, float* out, int B,
+                      int q_off, int S, int D, int valid_mask,
+                      cudaStream_t st) {
+  switch (T) {
+#define GTAX_STEP_CASE(N)                                                \
+  case N:                                                                \
+    return launch_step_f32<HD, N>(qkv, freqs, kc, vc, out, B, q_off, S, D, \
+                                  valid_mask, st);
+    GTAX_STEP_CASE(1)
+    GTAX_STEP_CASE(2)
+    GTAX_STEP_CASE(3)
+    GTAX_STEP_CASE(4)
+    GTAX_STEP_CASE(5)
+    GTAX_STEP_CASE(6)
+    GTAX_STEP_CASE(7)
+    GTAX_STEP_CASE(8)
+#undef GTAX_STEP_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// #4's fp32 step: out (B n_q S, D) fp32 = the live frames' attention (the
+// fp32 qkv rows (B n_q S, 3D), rope on load at slots q_off ..) over the
+// fp32 cache k_ctx / v_ctx (B q_off S, D, post-rope) and themselves
+// (attn_step_lane_f32); every row 16-byte aligned, q_off + n_q <= kMaxT.
+GTAX_ENTRY gtax_attn_step_f32(const void* qkv, const void* freqs,
+                              const void* k_ctx, const void* v_ctx,
+                              void* out, int B, int n_q, int q_off, int S,
+                              int D, int num_heads, int valid_mask,
+                              void* stream) {
+  if (B <= 0 || n_q <= 0 || q_off < 0 || n_q + q_off > kMaxT || S <= 0 ||
+      num_heads <= 0 || D % num_heads || D % kLaneDimsF32 ||
+      (q_off > 0 && (k_ctx == nullptr || v_ctx == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  for (const void* p : {qkv, k_ctx, v_ctx, (const void*)out})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  const float* q = static_cast<const float*>(qkv);
+  const float* f = static_cast<const float*>(freqs);
+  const float* kc = static_cast<const float*>(k_ctx);
+  const float* vc = static_cast<const float*>(v_ctx);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int T = n_q + q_off;
+  switch (D / num_heads) {
+    case 32:
+      return launch_step_f32_t<32>(T, q, f, kc, vc, o, B, q_off, S, D,
+                                   valid_mask, st);
+    case 64:
+      return launch_step_f32_t<64>(T, q, f, kc, vc, o, B, q_off, S, D,
+                                   valid_mask, st);
+    case 128:
+      return launch_step_f32_t<128>(T, q, f, kc, vc, o, B, q_off, S, D,
+                                    valid_mask, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 GTAX_ENTRY gtax_attn_temporal_f32(const void* qkv, const void* freqs,
                                   const void* k_ctx, const void* v_ctx,
                                   void* out, void* q_out, void* k_out,

@@ -368,3 +368,108 @@ __device__ __forceinline__ void attn_window_lane_f32(
     if (live) *reinterpret_cast<float4*>(out + at(i)) = o;
   }
 }
+
+// The fp32 step (#4 at x.dtype = float32): the live frames' rows of the
+// fp32 qkv product (rope on load) against the fp32 cache of the context
+// slots (post-rope), one lane four dims (16 bytes) of a site's row, a
+// head's HD / 4 lanes an aligned group summing a score by a butterfly.
+// Each (slot, dim) angle is reduced once a lane (sincosf, a pair's second
+// angle taking the first's values where the table repeats it, as
+// rope_pair_t does) and the factors rope both the slot's q and its k. Keys
+// in window-slot order (context, then live slots <= the query's), scores
+// and softmax as attn_temporal_unit's, nothing rounded; only a score's
+// product order differs from attn_temporal_unit's (four in a lane, then
+// the lanes). T = q_off + n_q slots; the live frames are slots q_off ..
+// T - 1.
+template <int HD, int T>
+__device__ __forceinline__ void attn_step_lane_f32(
+    long long gl, const float* __restrict__ qkv,
+    const float* __restrict__ freqs, const float* __restrict__ k_ctx,
+    const float* __restrict__ v_ctx, float* __restrict__ out, int B,
+    int q_off, int S, int D, int valid_mask) {
+  constexpr int L = HD / kLaneDimsF32;
+  const int G = D / kLaneDimsF32, n_q = T - q_off;
+  const bool live = gl < (long long)B * S * G;
+  const long long site = live ? gl / G : 0;
+  const int col = (int)(gl - site * G) * kLaneDimsF32, hc = col % HD;
+  const long long b = site / S, s = site - b * S;
+  const float scale = 1.0f / sqrtf((float)HD);
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 q[T], k[T], v[T];  // by window slot; q at the live slots
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    q[t] = z;
+    // the cache is the grid before's input: the qkv rows, that grid's
+    // output, are read after its end (a no-op unless launched as its
+    // programmatic dependent)
+    if (t == q_off) asm volatile("griddepcontrol.wait;" ::: "memory");
+    if (t < q_off) {
+      const size_t o = ((size_t)(b * q_off + t) * S + s) * D + col;
+      k[t] = live ? __ldg(reinterpret_cast<const float4*>(k_ctx + o)) : z;
+      v[t] = live ? __ldg(reinterpret_cast<const float4*>(v_ctx + o)) : z;
+      continue;
+    }
+    const size_t row = (size_t)(b * n_q + (t - q_off)) * S + s;
+    const float* base = qkv + row * 3 * D + col;
+    const float4 qv =
+        live ? __ldg(reinterpret_cast<const float4*>(base)) : z;
+    const float4 kv =
+        live ? __ldg(reinterpret_cast<const float4*>(base + D)) : z;
+    v[t] = live ? __ldg(reinterpret_cast<const float4*>(base + 2 * D)) : z;
+    const float* fr = freqs + (size_t)t * HD + hc;
+    float c[4], sn[4];
+#pragma unroll
+    for (int i = 0; i < 4; i += 2) {
+      sincosf(fr[i], &sn[i], &c[i]);
+      if (fr[i + 1] == fr[i]) {
+        sn[i + 1] = sn[i];
+        c[i + 1] = c[i];
+      } else {
+        sincosf(fr[i + 1], &sn[i + 1], &c[i + 1]);
+      }
+    }
+    const float2 q0 = rope_pair_cs(make_float2(qv.x, qv.y), c[0], sn[0],
+                                   c[1], sn[1]);
+    const float2 q1 = rope_pair_cs(make_float2(qv.z, qv.w), c[2], sn[2],
+                                   c[3], sn[3]);
+    const float2 k0 = rope_pair_cs(make_float2(kv.x, kv.y), c[0], sn[0],
+                                   c[1], sn[1]);
+    const float2 k1 = rope_pair_cs(make_float2(kv.z, kv.w), c[2], sn[2],
+                                   c[3], sn[3]);
+    q[t] = make_float4(q0.x, q0.y, q1.x, q1.y);
+    k[t] = make_float4(k0.x, k0.y, k1.x, k1.y);
+  }
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+    if (i < q_off) continue;  // the live query slots
+    float sc[T];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      float acc = 0.f;  // the lane's four products, in order
+      acc = fmaf(q[i].x, k[j].x, acc);
+      acc = fmaf(q[i].y, k[j].y, acc);
+      acc = fmaf(q[i].z, k[j].z, acc);
+      acc = fmaf(q[i].w, k[j].w, acc);
+      sc[j] = group_sum<L>(acc) * scale + window_bias(valid_mask, i, j);
+      mx = fmaxf(mx, sc[j]);
+    }
+    float den = 0.f;
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      sc[j] = expf(sc[j] - mx);
+      den += sc[j];
+    }
+    float4 o = z;
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      const float pr = sc[j] / den;
+      o.x = fmaf(pr, v[j].x, o.x);
+      o.y = fmaf(pr, v[j].y, o.y);
+      o.z = fmaf(pr, v[j].z, o.z);
+      o.w = fmaf(pr, v[j].w, o.w);
+    }
+    const size_t r = (size_t)(b * n_q + (i - q_off)) * S + s;
+    if (live) *reinterpret_cast<float4*>(out + r * D + col) = o;
+  }
+}

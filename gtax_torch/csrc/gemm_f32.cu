@@ -31,13 +31,13 @@
 // Bound: operations, 67 TFLOP/s of fp32 FFMA on the H100 SXM, at every
 // main-path shape but the 144-row step's products, where the fp32
 // weights (8-32 MB a product) come close.
-// OP_NN in two forms; the caller picks one a call (the argument
-// fwd_form; gtax_torch/kernels/block.py f32_fwd_form, the rule by rows
-// and weights that gtax_torch/tools/gemm_sweep.py --f32 --forms measured
-// on the card).
-// The serving form (a denoise step's 144-288 rows;
-// gemm_f32_serve_kernel, kServe*): 48-row tiles (a step's 144 rows in
-// three) by 64 columns, 192 threads of 4 x 4 outputs, four blocks an SM;
+// OP_NN in three forms; the caller picks one a call (the argument
+// fwd_form; gtax_torch/kernels/block.py f32_form, the rule by rows and
+// weights that gtax_torch/tools/gemm_sweep.py --f32 --forms measured on
+// the card).
+// The serving form (the out-projection's 432-719 rows, below the k-major
+// form; gemm_f32_serve_kernel, kServe*): 48-row tiles by 64 columns, 192
+// threads of 4 x 4 outputs, four blocks an SM;
 // A's rows and B's k rows land as they lie by 16-byte cp.async copies
 // into a 3-stage ring of 32-deep steps. K is cut into the chunks of a
 // thread-block cluster (at most 8, gtax_torch/kernels/block.py
@@ -54,6 +54,25 @@
 // went through device memory to a second kernel (gtax_torch/tools/
 // gemm_sweep.py --f32 from the older tree, in turns: 1.003-1.39x at the
 // plan's chunks).
+// The persistent form (a denoise step's 144 and 288 rows: every product
+// below 432 rows; gemm_f32_persist_kernel, kPersist*): 48 x 128 tiles,
+// 128 threads of 6 x 8 outputs (a 4-deep slice of K is six float4 loads
+// of A's rows and eight of B for 192 FFMAs, 13.7 FFMAs a shared-memory
+// load where the serving form's 4 x 4 does 8), four blocks an SM, all
+// launched at once (a cooperative grid of one round); the (tile, K chunk)
+// units are dealt to the blocks in turn, and each block walks its units'
+// k-steps as one sequence through a 2-stage ring of 32-deep steps, so
+// the ring fills once a launch, not once a unit. A split tile's chunks
+// store their partials to a workspace and count themselves in; each
+// block then sums a share of the rows of the tiles whose chunks it made,
+// in chunk order, once their counts are complete, all of a sum's loads
+// in flight at once (block.f32_persist_chunk picks the chunks; the grid
+// does not change the bits). Launched as a programmatic dependent of the
+// grid before it (ln_mod, #4's step attention), its blocks load their
+// first weights before they wait for that grid's end. The shape was the
+// fastest of twelve timed
+// (gemm_sweep.py --persist-shapes, PERF.md section 6): at 144 rows qkv
+// 0.037 ms against the serving form's 0.044.
 // The k-major form (a prefill's rows, five DiT frames of 144 up to
 // training's 11,520, the VAE's 1,152-3,456; gemm_f32_fwd_kernel): A
 // k-major, as the backward stages it: 128x128
@@ -86,6 +105,7 @@
 // form, so the forms' bits agree on the same values.
 #include <cooperative_groups.h>
 
+#include <climits>
 #include <initializer_list>
 
 #include "gemm_epi.cuh"
@@ -141,6 +161,8 @@ struct F32Args {
   int lda;      // gemm_f32_bwd_kernel, gemm_f32_fwd_kernel (A k-major):
                 // A's row stride (at least M, a multiple of 4)
   int ldc;      // gemm_f32_fwd_kernel with C transposed: C's row stride
+  unsigned* flags;  // gemm_f32_persist_kernel (split K): two counters a
+                    // tile, zero before and after a launch
 };
 
 __device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
@@ -378,6 +400,294 @@ __global__ void __launch_bounds__(kServeThreads, kServeBlocks)
     store4<EPI>(e, gm, gc, v);
   }
   cluster.sync();  // every block's partial stays until all have read it
+}
+
+// The forward's persistent form (gemm_f32_persist_kernel): a kPersistTile
+// x kPersistTN tile of kPersistThreads threads (kPersistRG row groups by
+// 16 column groups; thread (ty, tx) holds rows ty + kPersistRG i, i <
+// kPersistR, and columns tx * 4 + 64 j, j < kPersistCJ, 4 each), a ring
+// of kPersistStages steps of kPersistKS k rows, kPersistBlocks blocks an
+// SM.
+// The shape is a macro so that gtax_torch/tools/gemm_sweep.py
+// --persist-shapes can time other shapes from copies built with
+// -DGTAX_PERSIST_*; the library is built with the defaults below.
+#ifndef GTAX_PERSIST_R
+#define GTAX_PERSIST_R 6
+#endif
+#ifndef GTAX_PERSIST_RG
+#define GTAX_PERSIST_RG 8
+#endif
+#ifndef GTAX_PERSIST_CJ
+#define GTAX_PERSIST_CJ 2
+#endif
+#ifndef GTAX_PERSIST_KS
+#define GTAX_PERSIST_KS 32
+#endif
+#ifndef GTAX_PERSIST_STAGES
+#define GTAX_PERSIST_STAGES 2
+#endif
+#ifndef GTAX_PERSIST_BLOCKS
+#define GTAX_PERSIST_BLOCKS 4
+#endif
+constexpr int kPersistR = GTAX_PERSIST_R, kPersistRG = GTAX_PERSIST_RG;
+constexpr int kPersistCJ = GTAX_PERSIST_CJ;
+constexpr int kPersistTile = kPersistR * kPersistRG;
+constexpr int kPersistTN = 64 * kPersistCJ;
+constexpr int kPersistKS = GTAX_PERSIST_KS;
+constexpr int kPersistStages = GTAX_PERSIST_STAGES;
+constexpr int kPersistBlocks = GTAX_PERSIST_BLOCKS;
+constexpr int kPersistThreads = kPersistRG * 16;
+constexpr int kPersistLdA = kPersistKS + 4;  // A rows: ty, ty + 1 apart
+constexpr unsigned kPersistSpins = 1u << 24;  // a wait this long traps
+constexpr int kPersistLoads = 8;  // a fix-up's partial loads in flight
+struct PersistStage {
+  float a[kPersistTile][kPersistLdA];  // A rows as they lie
+  float b[kPersistKS][kPersistTN];     // B's k rows
+};
+constexpr size_t kPersistSmem = kPersistStages * sizeof(PersistStage);
+static_assert(kPersistKS % BK == 0 && kPersistThreads % 32 == 0 &&
+                  kPersistStages >= 2,
+              "whole K granules a step, whole warps");
+
+// a release add of 1 at gpu scope: the block's writes before the barrier
+// that precedes it are seen by whoever acquires the count
+__device__ __forceinline__ void red_release(unsigned* p) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(p)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// C = epilogue(A @ B), A (M, K) and B (K, N) row-major, on a grid of
+// blocks that are all on the card at once (a cooperative launch). The
+// units, (tile, K chunk) with the chunks of a tile consecutive and the
+// tiles row tile by row tile, are dealt to the blocks in turn: block b
+// takes units b, b + G, b + 2G, .. (G = gridDim.x). A block walks its
+// units' k-steps as one sequence, so its cp.async ring runs on from one
+// unit into the next and fills once a launch. A unit of an unsplit
+// product stores its tile through the epilogue; a split unit stores its
+// partial to part (units x kPersistTile x kPersistTN floats, a unit's
+// tile dense) and then counts itself into its tile's first counter
+// (flags[2 tile]). When a block's units are done, it takes the same units'
+// indices as fix-up jobs: job (tile, q) waits until the tile's counter
+// holds its chunks, counts itself into the second counter (the job that
+// completes it zeroes both for the next launch), then sums its q-th share
+// of the tile's rows over the partials in chunk order and runs the
+// epilogue. Every element's sum is
+// the chunks' partials, each an FFMA chain in K order, added in chunk
+// order: the bits depend on k_chunk only, not on the grid or on timing
+// (and equal gemm_f32_serve_kernel's at the same k_chunk). No block waits
+// before its own units are done, and the cooperative launch puts every
+// block on the card, so each wait ends; one that does not traps.
+template <int EPI>
+__global__ void __launch_bounds__(kPersistThreads, kPersistBlocks)
+    gemm_f32_persist_kernel(const float* __restrict__ A,
+                            const float* __restrict__ B, F32Args e,
+                            float* __restrict__ part) {
+  constexpr int KS = kPersistKS, STAGES = kPersistStages;
+  constexpr int TM = kPersistTile, TN = kPersistTN, R = kPersistR;
+  constexpr int RG = kPersistRG, CJ = kPersistCJ, NT = kPersistThreads;
+  extern __shared__ __align__(16) unsigned char persist_smem[];
+  PersistStage* ring = reinterpret_cast<PersistStage*>(persist_smem);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int M = e.M, N = e.N, K = e.K, G = gridDim.x, b = blockIdx.x;
+  const int splits = (K + e.k_chunk - 1) / e.k_chunk;
+  const int col_tiles = (N + TN - 1) / TN;
+  const int units = (M + TM - 1) / TM * col_tiles * splits;
+  const int steps = (e.k_chunk + KS - 1) / KS;
+  const int mine = b < units ? (units - 1 - b) / G + 1 : 0;
+  const int total = mine * steps;
+  // a thread's 16-byte copies a step: A_COPIES of A's rows, B_COPIES of
+  // B's k rows, each at a fixed place of the stage (int offsets: the entry
+  // refuses an operand of 2^31 elements or more)
+  constexpr int A_CHUNKS = TM * KS / 4, B_CHUNKS = KS * TN / 4;
+  constexpr int A_COPIES = (A_CHUNKS + NT - 1) / NT;
+  constexpr int B_COPIES = (B_CHUNKS + NT - 1) / NT;
+
+  // the load cursor: unit lu's step lk, its tile's corner and K range
+  int lu = b, lk = 0, lm0 = 0, ln0 = 0, lk0 = 0, lke = 0;
+  auto start = [&]() {
+    const int t = lu / splits;
+    lm0 = t / col_tiles * TM;
+    ln0 = (t - t / col_tiles * col_tiles) * TN;
+    lk0 = (lu - t * splits) * e.k_chunk;
+    lke = min(K, lk0 + e.k_chunk);
+  };
+  // stage s: B's k rows of the cursor's step, then (load_a) A's rows and
+  // the cursor advanced
+  auto load_b = [&](int s) {
+    PersistStage& st = ring[s];
+    const int k0 = lk0 + lk * KS;
+#pragma unroll
+    for (int q = 0; q < B_COPIES; ++q) {
+      const int c = tid + q * NT;
+      if (B_CHUNKS % NT == 0 || c < B_CHUNKS) {
+        const int r = c / (TN / 4), nq = c % (TN / 4) * 4;
+        const int gn = ln0 + nq, k = k0 + r;
+        const bool ok = gn < N && k < lke;
+        cp_async16(&st.b[r][nq], B + (ok ? k * N + gn : 0), ok ? 16 : 0);
+      }
+    }
+  };
+  auto load_a = [&](int s) {
+    PersistStage& st = ring[s];
+    const int k0 = lk0 + lk * KS;
+#pragma unroll
+    for (int q = 0; q < A_COPIES; ++q) {
+      const int c = tid + q * NT;
+      if (A_CHUNKS % NT == 0 || c < A_CHUNKS) {
+        const int r = c / (KS / 4), kq = c % (KS / 4) * 4;
+        const int gm = lm0 + r, k = k0 + kq;
+        const bool ok = gm < M && k < lke;
+        cp_async16(&st.a[r][kq], A + (ok ? gm * K + k : 0), ok ? 16 : 0);
+      }
+    }
+    if (++lk == steps) {
+      lk = 0;
+      lu += G;
+      if (lu < units) start();
+    }
+  };
+
+  float acc[R][4 * CJ];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * CJ; ++j) acc[i][j] = 0.f;
+  // a programmatic dependent of this grid may launch now (its blocks
+  // wait for this grid's end before reading its output); this grid's
+  // first B rows (the weights) load before it waits for the grid before
+  // it, whose output A may be
+  asm volatile("griddepcontrol.launch_dependents;");
+  if (total) start();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < total) load_b(s);
+    if (s == 0) asm volatile("griddepcontrol.wait;" ::: "memory");
+    if (s < total) load_a(s);
+    cp_async_commit();  // empty groups keep the wait count uniform
+  }
+  // the stage a step reads (cs) and the one the next load fills (ls)
+  int it = 0, cs = 0, ls = STAGES - 1;
+  for (int j = 0, u = b; j < mine; ++j, u += G) {
+    for (int kt = 0; kt < steps; ++kt, ++it) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // step it landed; every thread left step it - 1
+      if (it + STAGES - 1 < total) {
+        load_b(ls);
+        load_a(ls);
+      }
+      cp_async_commit();
+      ls = ls == STAGES - 1 ? 0 : ls + 1;
+      const PersistStage& st = ring[cs];
+      cs = cs == STAGES - 1 ? 0 : cs + 1;
+#pragma unroll
+      for (int kk = 0; kk < KS; kk += 4) {
+        float a[R][4];
+#pragma unroll
+        for (int i = 0; i < R; ++i) ld4(&st.a[ty + RG * i][kk], a[i]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float bv[CJ][4];
+#pragma unroll
+          for (int h = 0; h < CJ; ++h)
+            ld4(&st.b[kk + k][64 * h + tx * 4], bv[h]);
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+#pragma unroll
+            for (int c = 0; c < 4 * CJ; ++c)
+              acc[i][c] = fmaf(a[i][k], bv[c / 4][c % 4], acc[i][c]);
+        }
+      }
+    }
+    // the unit's tile through the epilogue, or its partial
+    const int t = u / splits;
+    const int m0 = t / col_tiles * TM, n0 = t % col_tiles * TN;
+    if (splits == 1) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int gm = m0 + ty + RG * i;
+#pragma unroll
+        for (int h = 0; h < CJ; ++h) {
+          const int gn = n0 + 64 * h + tx * 4;
+          float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]};
+          if (gm < M && gn < N) store4<EPI>(e, gm, gn, v);
+        }
+      }
+    } else {
+      float* p = part + (size_t)u * TM * TN;
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int h = 0; h < CJ; ++h)
+          __stcg(reinterpret_cast<float4*>(p + (ty + RG * i) * TN + 64 * h +
+                                           tx * 4),
+                 make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                             acc[i][4 * h + 2], acc[i][4 * h + 3]));
+      __syncthreads();  // the whole partial is out before the count
+      if (tid == 0) red_release(e.flags + 2 * t);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int c = 0; c < 4 * CJ; ++c) acc[i][c] = 0.f;
+  }
+  if (splits == 1) return;
+
+  // the fix-up jobs: the q-th share of a tile's rows over its chunks
+  const int rows = (TM + splits - 1) / splits;
+  for (int job = b; job < units; job += G) {
+    const int t = job / splits, r0 = job % splits * rows;
+    const int m0 = t / col_tiles * TM, n0 = t % col_tiles * TN;
+    if (tid == 0) {
+      unsigned* f = e.flags + 2 * t;
+      for (unsigned spins = 0; ld_acquire(f) < (unsigned)splits;) {
+        __nanosleep(64);
+        if (++spins == kPersistSpins) __trap();
+      }
+      if (atomicAdd(f + 1, 1u) == (unsigned)splits - 1) {
+        atomicExch(f, 0u);  // every job of the tile has seen it complete
+        atomicExch(f + 1, 0u);
+      }
+    }
+    __syncthreads();
+    const float* p = part + (size_t)t * splits * TM * TN;
+    for (int g = tid; g < rows * (TN / 4); g += NT) {
+      const int r = r0 + g / (TN / 4), c = g % (TN / 4) * 4;
+      const int gm = m0 + r, gn = n0 + c;
+      if (r >= TM || gm >= M || gn >= N) continue;
+      // the chunks' partials kPersistLoads at a time, all loads issued
+      // before their sums, which run in chunk order
+      const float* q = p + r * TN + c;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int z0 = 0; z0 < splits; z0 += kPersistLoads) {
+        float4 w[kPersistLoads];
+#pragma unroll
+        for (int z = 0; z < kPersistLoads; ++z)
+          if (z0 + z < splits)
+            w[z] = __ldcg(reinterpret_cast<const float4*>(
+                q + (size_t)(z0 + z) * TM * TN));
+#pragma unroll
+        for (int z = 0; z < kPersistLoads; ++z) {
+          if (z0 + z >= splits) break;
+          if (z0 + z == 0) {
+            v[0] = w[z].x, v[1] = w[z].y, v[2] = w[z].z, v[3] = w[z].w;
+          } else {
+            v[0] += w[z].x, v[1] += w[z].y, v[2] += w[z].z, v[3] += w[z].w;
+          }
+        }
+      }
+      store4<EPI>(e, gm, gn, v);
+    }
+  }
 }
 
 // The backward's products, C = A^T @ B over the token rows with A (K, M)
@@ -743,6 +1053,38 @@ int launch_serve(const float* A, const float* B, const F32Args& e,
   return (int)cudaGetLastError();
 }
 
+// gemm_f32_persist_kernel on `blocks` blocks (at most one a unit): a
+// cooperative launch, so that every block is on the card at once (the
+// fix-up jobs wait for other blocks' units); a grid larger than the card
+// holds is refused
+template <int EPI>
+int launch_persist(const float* A, const float* B, const F32Args& e,
+                   int blocks, float* part, cudaStream_t st) {
+  static size_t opted = 48 * 1024;
+  const cudaError_t err =
+      opt_in_smem(gemm_f32_persist_kernel<EPI>, kPersistSmem, opted);
+  if (err != cudaSuccess) return (int)err;
+  const int units = (e.M + kPersistTile - 1) / kPersistTile *
+                    ((e.N + kPersistTN - 1) / kPersistTN) *
+                    ((e.K + e.k_chunk - 1) / e.k_chunk);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks < units ? blocks : units, 1, 1);
+  cfg.blockDim = dim3(kPersistThreads, 1, 1);
+  cfg.dynamicSmemBytes = kPersistSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &cfg, gemm_f32_persist_kernel<EPI>, A, B, e, part);
+  if (launched != cudaSuccess) return (int)launched;
+  return (int)cudaGetLastError();
+}
+
 // gemm_f32_bwd_kernel over `splits` K chunks of e.k_chunk (the ring's
 // shared memory opted into at its first launch)
 template <int EPI>
@@ -841,12 +1183,19 @@ constexpr bool kGeluEpi =
     EPI == EPI_BIAS_GELU_ERF || EPI == EPI_BIAS_GELU_ERF_H ||
     EPI == EPI_BIAS_BF16_GELU;
 
-// the forward's launch by form: gemm_f32_serve_kernel, or (fwd)
-// gemm_f32_fwd_kernel
+// the forward's forms (the C entry's fwd_form)
+constexpr int kFormServe = 0, kFormKMajor = 1, kFormPersist = 2;
+
+// the forward's launch by form: gemm_f32_serve_kernel,
+// gemm_f32_fwd_kernel, or gemm_f32_persist_kernel on `blocks` blocks
 template <int EPI>
-int launch_any(const float* A, const float* B, const F32Args& e, bool fwd,
-               float* ws, cudaStream_t st) {
-  if (!fwd) return launch_serve<EPI>(A, B, e, st);
+int launch_any(const float* A, const float* B, const F32Args& e, int form,
+               int blocks, float* ws, cudaStream_t st) {
+  if (form == kFormServe) return launch_serve<EPI>(A, B, e, st);
+  if constexpr (EPI != EPI_ROPE_QKV) {  // the rope product takes two forms
+    if (form == kFormPersist)
+      return launch_persist<EPI>(A, B, e, blocks, ws, st);
+  }
   if constexpr (kGeluEpi<EPI>) {
     if (e.ldc) return launch_fwd<EPI, true>(A, B, e, ws, st);
   }
@@ -884,23 +1233,36 @@ bool aligned16(std::initializer_list<const void*> ptrs) {
 // k-major, (K, lda), lda >= M a multiple of 4; ldc > 0 (a GELU epilogue):
 // C stored transposed, (N, ldc), ldc >= M a multiple of 4, rows past M
 // zero (C2 stays (M, N)); the partials follow the copy in part. fwd_form
-// 0: lda = ldc = 0.
+// 0: lda = ldc = 0. fwd_form 2, the persistent form
+// (gemm_f32_persist_kernel): K / k_chunk chunks (k_chunk dividing K) over
+// `blocks` blocks, at most the card's round (more are refused); where K is
+// split, part holds the units' partials (units x kPersistTile x
+// kPersistTN floats, units = ceil(M / kPersistTile) ceil(N / kPersistTN)
+// K / k_chunk) and flags two counters a tile (ceil(M / kPersistTile)
+// ceil(N / kPersistTN) tiles), zero before the launch and left zero by
+// it, which no launch on another stream uses at the same time; lda = ldc
+// = 0.
 GTAX_ENTRY gtax_gemm_f32(const void* A, const void* B, void* C, void* C2,
                          const void* aux, void* colsum, const void* bias,
                          int bias_f32, const void* resid, const void* gate,
                          int gate_stride, int M, int N, int K, int S, int epi,
                          int trans_b, int k_chunk, int lda, int ldc,
-                         int fwd_form, void* part, void* stream) {
-  const bool fwd = !trans_b && fwd_form == 1;
-  const bool serve = !trans_b && fwd_form == 0;
+                         int fwd_form, int blocks, void* flags, void* part,
+                         void* stream) {
+  const bool fwd = !trans_b && fwd_form == kFormKMajor;
+  const bool serve = !trans_b && fwd_form == kFormServe;
+  const bool persist = !trans_b && fwd_form == kFormPersist;
   if (M <= 0 || N <= 0 || K <= 0 || N % 4 || K % BK || S <= 0 ||
-      fwd_form < 0 || fwd_form > 1 || (trans_b && fwd_form) ||
+      fwd_form < 0 || fwd_form > 2 || (trans_b && fwd_form) ||
       (serve && k_chunk > 0 && K / k_chunk > kServeMaxCluster) ||
       !aligned16({A, B, C, C2, aux, resid, gate, part}) || gate_stride % 4 ||
       k_chunk <= 0 || k_chunk % BK || k_chunk > K ||
-      (!fwd && (K % k_chunk || lda || ldc)) ||
+      (!fwd && ((K % k_chunk && !persist) || lda || ldc)) ||
       (fwd && (lda < 0 || (lda && (lda < M || lda % 4)) || ldc < 0 ||
                (ldc && (ldc < M || ldc % 4)))) ||
+      (persist && (blocks <= 0 || (k_chunk < K && flags == nullptr) ||
+                   (long long)M * K >= INT_MAX ||
+                   (long long)K * N >= INT_MAX)) ||
       (((k_chunk < K && !serve) || trans_b || (fwd && !lda)) &&
        part == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -938,6 +1300,7 @@ GTAX_ENTRY gtax_gemm_f32(const void* A, const void* B, void* C, void* C2,
   e.k_chunk = k_chunk;
   e.lda = lda;
   e.ldc = ldc;
+  e.flags = static_cast<unsigned*>(flags);
   const float* a = static_cast<const float*>(A);
   const float* b = static_cast<const float*>(B);
   float* p = static_cast<float*>(part);
@@ -948,7 +1311,7 @@ GTAX_ENTRY gtax_gemm_f32(const void* A, const void* B, void* C, void* C2,
   switch (epi) {
 #define GTAX_F32_CASE(E) \
   case E:                \
-    return launch_any<E>(a, b, e, fwd, p, st);
+    return launch_any<E>(a, b, e, fwd_form, blocks, p, st);
     GTAX_F32_CASE(EPI_F32)
     GTAX_F32_CASE(EPI_BIAS_BF16)
     GTAX_F32_CASE(EPI_BIAS_GELU_TANH)
@@ -1021,7 +1384,7 @@ GTAX_ENTRY gtax_gemm_f32_rope_qkv(const void* A, const void* B, void* q,
   e.K = D;
   e.k_chunk = k_chunk;
   return launch_any<EPI_ROPE_QKV>(static_cast<const float*>(A),
-                                  static_cast<const float*>(B), e, fwd,
+                                  static_cast<const float*>(B), e, fwd, 0,
                                   static_cast<float*>(part),
                                   (cudaStream_t)stream);
 }

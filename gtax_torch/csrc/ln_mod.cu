@@ -13,17 +13,23 @@
 // memory and each row is read from L1 the second and third time. The int8
 // mode keeps its fp32 row in shared memory (never in device memory) between
 // the abs-max reduction and the rounding pass.
+#include <type_traits>
+
 #include "ln_mod.cuh"
 
 namespace {
 
-// one block per row; the body is ln_mod_row (ln_mod.cuh) over rows of T
+// one block per row; the body is ln_mod_row (ln_mod.cuh) over rows of T.
+// Over fp32 rows a programmatic dependent may launch at once (the fp32
+// persistent GEMM loads its first weights, then waits for this grid's end)
 template <typename T>
 __global__ void __launch_bounds__(kLnThreads)
     ln_mod_kernel(const T* __restrict__ x, void* __restrict__ out,
                   float* __restrict__ row_scale, const void* __restrict__ p0,
                   const void* __restrict__ p1, int D, int S, int p_stride,
                   int mode) {
+  if constexpr (std::is_same<T, float>::value)
+    asm volatile("griddepcontrol.launch_dependents;");
   __shared__ float red[33];
   extern __shared__ float mod_row[];  // D floats in mode 2
   ln_mod_row(x, out, row_scale, p0, p1, D, S, p_stride, mode, blockIdx.x,

@@ -323,7 +323,8 @@ F32_K_STEP, F32_MAX_SPLITS = 16, 8
 # split by f32_fwd_chunk (`python -m gtax_torch.tools.gemm_sweep --f32`,
 # NVIDIA H100 80GB HBM3, 700 W: within 4% of the fastest chunk count at
 # every product from 2,304 rows, 10-18% off it at some of 720-1,440, and
-# 1.13-1.49x gemm_f32_kernel's time there; PERF.md section 6)
+# 1.13-1.49x faster there than the 64x64 tile the serving form replaced;
+# PERF.md section 6)
 F32_FWD_ROWS, F32_FWD_TILE, F32_FWD_K_STEP, F32_FWD_BLOCKS = 720, 128, 32, 2
 F32_FWD_SPLIT_STEPS = 32
 
@@ -360,7 +361,8 @@ def f32_fwd_chunk(M, N, K, sms):
 # from F32_FWD_ROWS_WIDE rows for a product of at least
 # F32_FWD_WIDE_WEIGHTS weights (qkv, fc1 and fc2 at D = 1,024; the
 # 1,024 x 1,024 out-projection stays on the serving form below 720 rows);
-# below, the serving form (`python -m gtax_torch.tools.gemm_sweep --f32
+# below, the serving form (f32_form: the persistent form below 432 rows;
+# `python -m gtax_torch.tools.gemm_sweep --f32
 # --forms`, both forms in turns at 144, 288, 432, 576 and 719 rows,
 # NVIDIA H100 80GB HBM3, 700 W: for each group the threshold of least
 # summed time; at 576 rows qkv 0.1034 against 0.1437 ms, fc1 0.1397
@@ -387,14 +389,16 @@ def f32_fwd_ld(dtype, M, N, K) -> int:
 
 
 # gemm_f32's forward, serving form (csrc/gemm_f32.cu
-# gemm_f32_serve_kernel, kServe*): 48-row tiles (a denoise step's 144 rows
-# in three) by 64 columns, four blocks an SM, K cut into the chunks of a
+# gemm_f32_serve_kernel, kServe*): 48-row tiles by 64 columns, four blocks
+# an SM, K cut into the chunks of a
 # thread-block cluster of at most F32_MAX_CLUSTER blocks that add their
 # partials through distributed shared memory in chunk order; a split aims
 # for F32_SERVE_FILL blocks an SM in chunks of at most F32_SERVE_SPLIT_STEPS
 # k-steps (`python -m gtax_torch.tools.gemm_sweep --f32`, NVIDIA H100 80GB
 # HBM3, 700 W: the fastest chunk count at each product of 144 rows, and
-# within 1.3% of it at 288; PERF.md section 6)
+# within 1.3% of it at 288, when the form ran them; PERF.md section 6).
+# f32_form runs it for the out-projection at 432-719 rows; the step's
+# 144-288 rows went to the persistent form below
 F32_SERVE_TILE, F32_SERVE_TILE_N, F32_SERVE_BLOCKS = 48, 64, 4
 F32_MAX_CLUSTER, F32_SERVE_FILL, F32_SERVE_SPLIT_STEPS = 8, 2.5, 32
 
@@ -404,9 +408,11 @@ def f32_serve_chunk(M, N, K, sms):
     k-steps dividing K, s <= F32_MAX_CLUSTER, one a block of the column
     tile's cluster) whose chunks are at most F32_SERVE_SPLIT_STEPS k-steps
     deep, the fewest whose tiles x s blocks give F32_SERVE_FILL blocks an
-    SM, else the most there are. At a denoise step's 144 rows qkv (144
-    tiles) takes 4 chunks, the out-projection and fc2 (48) 8, fc1 (192) 2;
-    at two frames' 288 rows qkv and fc1 2, the out-projection 4, fc2 8."""
+    SM, else the most there are. f32_form runs the form for the
+    out-projection at 432-719 rows (at 576, 192 tiles: 2 chunks); at 144
+    and 288 rows the plan still gives the counts it ran there before the
+    persistent form (qkv 4 and 2, the out-projection 8 and 4, fc1 2, fc2
+    8), which gemm_sweep.py --f32 --forms times it at."""
     steps = K // F32_K_STEP
     tiles = _cdiv(M, F32_SERVE_TILE) * _cdiv(N, F32_SERVE_TILE_N)
     counts = [s for s in range(1, F32_MAX_CLUSTER + 1) if steps % s == 0]
@@ -417,12 +423,110 @@ def f32_serve_chunk(M, N, K, sms):
     return K // counts[-1]
 
 
-def f32_chunk(M, N, K, sms):
-    """K chunk of an fp32 GEMM (K: one pass, no split): f32_fwd_chunk from
-    the k-major form (f32_fwd_form), else f32_serve_chunk."""
+# gemm_f32's forward, persistent form (csrc/gemm_f32.cu
+# gemm_f32_persist_kernel, kPersist* / GTAX_PERSIST_*): 48 x 128 tiles of
+# 32-deep k-steps, four blocks an SM, one round of blocks at once walking
+# the (tile, K chunk) units dealt to them in turn; a split tile's partials
+# go through a workspace and are summed in chunk order. The shape was the
+# fastest of twelve at the step's products (`python -m
+# gtax_torch.tools.gemm_sweep --persist-shapes`, NVIDIA H100 80GB HBM3,
+# 700 W: 3 x 8 to 8 x 8 outputs a thread, 48- and 72-row tiles, 128-
+# and 256-column tiles, 16- and 32-deep steps, 2-4 ring stages, 2-4
+# blocks an SM; PERF.md section 6). f32_persist_chunk's model, from the same sweep: a block's
+# k-step takes (n + 1) / 2 times a lone block's when n blocks share its
+# SM, and a split unit costs F32_PERSIST_UNIT_STEPS lone steps more (its
+# partial stored, the fix-up's wait and its sums)
+F32_PERSIST_TILE, F32_PERSIST_TILE_N, F32_PERSIST_K_STEP = 48, 128, 32
+F32_PERSIST_BLOCKS, F32_PERSIST_MAX_SPLITS, F32_PERSIST_UNIT_STEPS = 4, 32, 3
+# the forward's forms: the C entry's fwd_form (f32_form)
+F32_FORM_SERVE, F32_FORM_K_MAJOR, F32_FORM_PERSIST = 0, 1, 2
+# the persistent form below this many rows, where the k-major form does
+# not run (`python -m gtax_torch.tools.gemm_sweep --f32 --forms`, the
+# three forms in turns, NVIDIA H100 80GB HBM3, 700 W: faster than the
+# serving form at each of the step's products at 144 and 288 rows, qkv
+# 0.0365 against 0.0445 ms at 144; PERF.md section 6); from 432 rows the
+# forms stay as they were
+F32_PERSIST_ROWS = 432
+
+
+def f32_form(M, N, K) -> int:
+    """The form gemm_f32's forward runs an (M, K) @ (K, N) product on (the
+    C entry's fwd_form): F32_FORM_K_MAJOR by f32_fwd_form, else
+    F32_FORM_PERSIST below F32_PERSIST_ROWS rows, else F32_FORM_SERVE."""
     if f32_fwd_form(M, N, K):
-        return f32_fwd_chunk(M, N, K, sms)
-    return f32_serve_chunk(M, N, K, sms)
+        return F32_FORM_K_MAJOR
+    if M < F32_PERSIST_ROWS:
+        return F32_FORM_PERSIST
+    return F32_FORM_SERVE
+
+
+def f32_persist_units(M, N, K, k_chunk) -> int:
+    """The persistent form's (tile, K chunk) units."""
+    return (_cdiv(M, F32_PERSIST_TILE) * _cdiv(N, F32_PERSIST_TILE_N)
+            * _cdiv(K, k_chunk))
+
+
+def f32_persist_chunk(M, N, K, sms):
+    """K chunk of the forward's persistent form: of the chunks of whole
+    16-row granules (the last one short) in 1 to F32_PERSIST_MAX_SPLITS
+    chunks, the one of least modeled time (the fewest chunks on a tie): a
+    block's units (ceil(units / blocks), the blocks f32_persist_grid's),
+    each its chunk's k-steps at (n + 1) / 2 a step, n = ceil(blocks /
+    sms) sharing an SM, plus F32_PERSIST_UNIT_STEPS where K is split. At
+    a denoise step's 144 rows qkv takes 7 chunks, the out-projection 16,
+    fc1 4, fc2 22; at 288 qkv 3, the out-projection and fc2 11, fc1 2."""
+    tiles = _cdiv(M, F32_PERSIST_TILE) * _cdiv(N, F32_PERSIST_TILE_N)
+    granules = _cdiv(K, F32_K_STEP)
+    best = None
+    for s in range(1, F32_PERSIST_MAX_SPLITS + 1):
+        chunk = _cdiv(granules, s) * F32_K_STEP
+        splits = _cdiv(K, chunk)
+        units = tiles * splits
+        blocks = min(units, F32_PERSIST_BLOCKS * sms)
+        cost = _cdiv(units, blocks) * (
+            _cdiv(chunk, F32_PERSIST_K_STEP) * (_cdiv(blocks, sms) + 1)
+            + (2 * F32_PERSIST_UNIT_STEPS if splits > 1 else 0))
+        if best is None or cost < best[0]:
+            best = (cost, chunk)
+    return best[1]
+
+
+def f32_persist_schedule(M, N, K, k_chunk, blocks):
+    """gemm_f32_persist_kernel's schedule, as the kernel walks it: for each
+    of min(blocks, units) blocks, its units in order, (row, column, k0,
+    k1) = the tile's first row and column and the chunk's K range, and its
+    fix-up jobs, (row, column, first row, end row, the chunks' K ranges in
+    the order their partials are summed); no jobs where K is one chunk."""
+    tm, tn = F32_PERSIST_TILE, F32_PERSIST_TILE_N
+    splits, cols = _cdiv(K, k_chunk), _cdiv(N, tn)
+    units = _cdiv(M, tm) * cols * splits
+    rows = _cdiv(tm, splits)
+    out = []
+    for b in range(min(blocks, units)):
+        mine, jobs = [], []
+        for u in range(b, units, min(blocks, units)):
+            t, c = divmod(u, splits)
+            m0, n0 = t // cols * tm, t % cols * tn
+            mine.append((m0, n0, c * k_chunk, min(K, (c + 1) * k_chunk)))
+            if splits > 1:
+                jobs.append((m0, n0, c * rows, min(tm, (c + 1) * rows),
+                             [(z * k_chunk, min(K, (z + 1) * k_chunk))
+                              for z in range(splits)]))
+        out.append((mine, jobs))
+    return out
+
+
+def f32_persist_grid(M, N, K, k_chunk, sms) -> int:
+    """The persistent form's blocks: one round of the card
+    (F32_PERSIST_BLOCKS an SM), or one a unit where there are fewer."""
+    return min(f32_persist_units(M, N, K, k_chunk), F32_PERSIST_BLOCKS * sms)
+
+
+def f32_chunk(M, N, K, sms):
+    """K chunk of an fp32 GEMM (K: one pass, no split) on the form f32_form
+    picks: f32_fwd_chunk, f32_persist_chunk or f32_serve_chunk."""
+    return (f32_serve_chunk, f32_fwd_chunk,
+            f32_persist_chunk)[f32_form(M, N, K)](M, N, K, sms)
 
 
 # gemm_f32's backward forms (csrc/gemm_f32.cu gemm_f32_bwd_kernel: A @
@@ -437,10 +541,7 @@ def f32_nt_chunk(M, N, K, sms):
     tiles give every SM F32_BWD_BLOCKS blocks (the training step's 11,520
     rows: 720-2,880 tiles), else the fewest K chunks (whole k-steps
     dividing K, at most F32_MAX_SPLITS) that do, or the most there are."""
-    def cdiv(a, b):
-        return -(-a // b)
-
-    tiles = cdiv(M, F32_BWD_TILE) * cdiv(N, F32_BWD_TILE_N)
+    tiles = _cdiv(M, F32_BWD_TILE) * _cdiv(N, F32_BWD_TILE_N)
     chunk = K
     for c in range(2, F32_MAX_SPLITS + 1):
         if tiles * (K // chunk) >= F32_BWD_BLOCKS * sms:
@@ -451,10 +552,16 @@ def f32_nt_chunk(M, N, K, sms):
 
 
 @functools.lru_cache(maxsize=None)
-def f32_plan(M, N, K, device, trans_b=False) -> int:
-    """f32_chunk (f32_nt_chunk with trans_b) on `device`'s SMs."""
-    return (f32_nt_chunk if trans_b else f32_chunk)(M, N, K,
-                                                    sm_count(device))
+def f32_plan(M, N, K, device, trans_b=False, form=None) -> int:
+    """f32_chunk (f32_nt_chunk with trans_b; the plan of `form` where one
+    is given) on `device`'s SMs."""
+    sms = sm_count(device)
+    if trans_b:
+        return f32_nt_chunk(M, N, K, sms)
+    if form is None:
+        return f32_chunk(M, N, K, sms)
+    return (f32_serve_chunk, f32_fwd_chunk, f32_persist_chunk)[form](
+        M, N, K, sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -603,7 +710,8 @@ F32_SLAB = 64
 
 def launch_gemm_f32(a, w, out, M, N, K, epi, bias=None, resid=None,
                     gate=None, S=1, k_chunk=None, out2=None, aux=None,
-                    colsum=None, trans_b=False, lda=0, ldc=0, fwd=None):
+                    colsum=None, trans_b=False, lda=0, ldc=0, fwd=None,
+                    blocks=None):
     """out = epilogue(a @ w), or a @ w^T with trans_b (w stored (N, K)),
     all fp32, on the CUDA cores (gemm_f32): each of F32_EPILOGUES stores
     its value before the bf16 epilogue's rounding (EPI_BIAS_BF16: acc +
@@ -612,15 +720,19 @@ def launch_gemm_f32(a, w, out, M, N, K, epi, bias=None, resid=None,
     EPI_DGELU's gelu(aux) with u = gelu'(aux) * acc in out and the 64-row
     slabs' column sums of u in colsum). trans_b takes EPI_F32 and
     EPI_DGELU, run on transposed copies of a and w in a workspace.
-    k_chunk: f32_plan's by default (EPI_DGELU: K, one pass); below K, the
-    chunks' partials are added in order before the epilogue: on the
-    serving form (at most F32_MAX_CLUSTER chunks) through a thread-block
-    cluster's shared memory, else through an (M, N) fp32 workspace a
-    chunk. fwd: the forward's form, f32_fwd_form's by default
-    (True: the k-major form, gemm_f32_fwd_kernel, whatever M): a row-major
-    `a` is copied transposed into the workspace first, or lda > 0 hands
-    `a` over k-major, (K, lda); ldc > 0 (a GELU epilogue) stores out
-    transposed, (N, ldc) (f32_fwd_ld gives both strides)."""
+    k_chunk: the form's plan by default (f32_plan; EPI_DGELU: K, one
+    pass); below K, the chunks' partials are added in order before the
+    epilogue: on the serving form (at most F32_MAX_CLUSTER chunks) through
+    a thread-block cluster's shared memory, on the persistent form through
+    a workspace of its units' tiles, else through an (M, N) fp32 workspace
+    a chunk. fwd: the forward's form (F32_FORM_*; False and True: the
+    serving and the k-major form), f32_form's by default. The k-major form
+    (gemm_f32_fwd_kernel, whatever M): a row-major `a` is copied
+    transposed into the workspace first, or lda > 0 hands `a` over
+    k-major, (K, lda); ldc > 0 (a GELU epilogue) stores out transposed,
+    (N, ldc) (f32_fwd_ld gives both strides). The persistent form
+    (gemm_f32_persist_kernel) runs on `blocks` blocks, f32_persist_grid's
+    (one round of the card) by default; the bits do not depend on them."""
     _need(epi in F32_EPILOGUES and (out2 is not None) == (epi in TWO_OUTPUTS)
           and (not trans_b or epi in (EPI_F32, EPI_DGELU))
           and (trans_b or epi != EPI_DGELU),
@@ -629,14 +741,38 @@ def launch_gemm_f32(a, w, out, M, N, K, epi, bias=None, resid=None,
                   + (" with a second output" if out2 is not None else ""))
     if epi == EPI_DGELU:
         k_chunk = K
-    fwd = not trans_b and (f32_fwd_form(M, N, K) if fwd is None else fwd)
-    k_chunk, part = _f32_split(a, M, N, K, k_chunk, trans_b, lda, fwd)
+    form = _f32_form(M, N, K, trans_b, fwd)
+    k_chunk, part = _f32_split(a, M, N, K, k_chunk, trans_b, lda, form)
+    flags = None
+    if form == F32_FORM_PERSIST:
+        if blocks is None:
+            blocks = f32_persist_grid(M, N, K, k_chunk, sm_count(a.device))
+        if k_chunk < K:
+            flags = _f32_flags(a, M, N)
     build.launch(
         "gtax_gemm_f32", a.data_ptr(), w.data_ptr(), out.data_ptr(),
         _ptr(out2), _ptr(aux), _ptr(colsum), _ptr(bias),
         int(bias is not None and bias.dtype == torch.float32), _ptr(resid),
         _ptr(gate), 0 if gate is None else gate.stride(0), M, N, K, S, epi,
-        int(trans_b), k_chunk, lda, ldc, int(fwd), _ptr(part), _stream(a))
+        int(trans_b), k_chunk, lda, ldc, form, blocks or 0, _ptr(flags),
+        _ptr(part), _stream(a))
+
+
+# the persistent form's counters (two a tile, zero between launches: the
+# kernel zeroes those it used), one buffer a device and stream
+_F32_FLAGS = {}
+
+
+def _f32_flags(a, M, N):
+    """The persistent form's zeroed counters for an (M, N) output on a's
+    device and current stream (the buffer grows to the largest call's)."""
+    n = 2 * _cdiv(M, F32_PERSIST_TILE) * _cdiv(N, F32_PERSIST_TILE_N)
+    key = (a.device, _stream(a))
+    flags = _F32_FLAGS.get(key)
+    if flags is None or flags.numel() < n:
+        flags = torch.zeros(max(n, 1024), dtype=torch.int32, device=a.device)
+        _F32_FLAGS[key] = flags
+    return flags
 
 
 def gemm_any(a, w, out, M, N, K, epi, **kw):
@@ -758,20 +894,33 @@ def launch_attn_window(q, k, v, out, B, T, S, D, num_heads, bits):
                  out.data_ptr(), B, T, S, D, num_heads, bits, _stream(q))
 
 
+def _f32_form(M, N, K, trans_b=False, fwd=None) -> int:
+    """The C entry's fwd_form of a launch: fwd as given (a bool: the
+    serving or the k-major form), else f32_form's; 0 with trans_b."""
+    if trans_b:
+        return F32_FORM_SERVE
+    return f32_form(M, N, K) if fwd is None else int(fwd)
+
+
 def _f32_split(a, M, N, K, k_chunk=None, trans_b=False, lda=0, fwd=None):
-    """(k_chunk, fp32 workspace or None) of an fp32 GEMM launch: f32_plan's
-    K chunk by default; one (M, N) partial a chunk where there is more than
-    one (the forward's k-major form, fwd, f32_fwd_form's by default; or
-    trans_b), after the transposed copies of a, its rows padded to a
-    multiple of 4 (K M4; the k-major form unless lda hands a over
-    k-major), and (trans_b) of w (K N)."""
-    if fwd is None:
-        fwd = not trans_b and f32_fwd_form(M, N, K)
+    """(k_chunk, fp32 workspace or None) of an fp32 GEMM launch: the plan's
+    K chunk of the form (fwd, as _f32_form reads it) by default; where
+    there is more than one, one (M, N) partial a chunk (the forward's
+    k-major form, or trans_b) or one tile a unit (the persistent form,
+    f32_persist_units x its tile), after the transposed copies of a, its
+    rows padded to a multiple of 4 (K M4; the k-major form unless lda
+    hands a over k-major), and (trans_b) of w (K N)."""
+    form = _f32_form(M, N, K, trans_b, fwd)
     if k_chunk is None:
-        k_chunk = f32_plan(M, N, K, a.device, trans_b)
+        k_chunk = f32_plan(M, N, K, a.device, trans_b,
+                           None if trans_b else form)
+    fwd = form == F32_FORM_K_MAJOR
     # on the serving form a split's partials stay in the cluster
     split = k_chunk < K and (trans_b or fwd)
     n = _cdiv(K, k_chunk) * M * N if split else 0
+    if form == F32_FORM_PERSIST and k_chunk < K:
+        n = (f32_persist_units(M, N, K, k_chunk) * F32_PERSIST_TILE
+             * F32_PERSIST_TILE_N)
     if trans_b:
         n += K * (_cdiv(M, 4) * 4 + N)
     elif fwd and not lda:
@@ -785,10 +934,11 @@ def _f32_split(a, M, N, K, k_chunk=None, trans_b=False, lda=0, fwd=None):
 def launch_gemm_f32_rope_qkv(mod, qkv_w, q, k, v, freqs, S, n_q, q_off, hd,
                              k_chunk=None, fwd=None):
     """launch_gemm_rope_qkv in fp32 (gemm_f32's rope epilogue): q, k, v
-    fp32, nothing rounded; the form and the K split as launch_gemm_f32's
-    (the k-major form after mod's transposed copy)."""
+    fp32, nothing rounded; the serving or the k-major form (f32_fwd_form's
+    by default; the rope product has no persistent form) and the K split
+    as launch_gemm_f32's (the k-major form after mod's transposed copy)."""
     M, D = mod.shape
-    fwd = f32_fwd_form(M, 3 * D, D) if fwd is None else fwd
+    fwd = f32_fwd_form(M, 3 * D, D) if fwd is None else bool(fwd)
     k_chunk, part = _f32_split(mod, M, 3 * D, D, k_chunk, fwd=fwd)
     build.launch("gtax_gemm_f32_rope_qkv", mod.data_ptr(), qkv_w.data_ptr(),
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), freqs.data_ptr(),
@@ -808,6 +958,17 @@ def launch_attn_temporal_f32(qkv, freqs, out, B, n_q, q_off, S, D,
                  _ptr(k_ctx), _ptr(v_ctx), out.data_ptr(), _ptr(q_out),
                  _ptr(k_out), _ptr(v_out), B, n_q, q_off, S, D, num_heads,
                  bits, _stream(qkv))
+
+
+def launch_attn_step_f32(qkv, freqs, out, B, n_q, q_off, S, D, num_heads,
+                         bits, k_ctx, v_ctx):
+    """#4's fp32 step attention (attn_step_f32: four dims a lane, each
+    angle's factors formed once for a slot's q and k): the live frames'
+    fp32 qkv rows, rope on load, over the fp32 cache; out fp32, nothing
+    rounded."""
+    build.launch("gtax_attn_step_f32", qkv.data_ptr(), freqs.data_ptr(),
+                 k_ctx.data_ptr(), v_ctx.data_ptr(), out.data_ptr(), B, n_q,
+                 q_off, S, D, num_heads, bits, _stream(qkv))
 
 
 def launch_attn_temporal(qkv, freqs, out, B, n_q, q_off, S, D, num_heads,
@@ -1015,7 +1176,10 @@ def _temporal_step_cuda(x, shift, scale, gate, qkv_w, out_w, out_b,
                         rope_freqs, num_heads, B, n_q, q_off, bits, k_ctx,
                         v_ctx):
     """The incremental step: ln_mod -> gemm (fp32 qkv) -> attn_temporal
-    (rope on load, step mode over the cache) -> gemm (gated residual)."""
+    (rope on load, step mode over the cache; in fp32 attn_step_f32) ->
+    gemm (gated residual). In fp32 the last three launch as programmatic
+    dependents, each loading what does not depend on the launch before it
+    (weights, the cache) before waiting for that launch's end."""
     N, S, D = x.shape
     check_temporal(D, num_heads, q_off + n_q, rope_freqs)
     _check_attn_weights(qkv_w, out_w, out_b, D, x.dtype)
@@ -1024,8 +1188,8 @@ def _temporal_step_cuda(x, shift, scale, gate, qkv_w, out_w, out_b,
     gemm_any(mod, qkv_w, qkv, N * S, 3 * D, D, EPI_F32)
     att = torch.empty((N * S, D), dtype=x.dtype, device=x.device)
     if x.dtype == torch.float32:
-        launch_attn_temporal_f32(qkv, rope_freqs, att, B, n_q, q_off, S, D,
-                                 num_heads, bits, k_ctx, v_ctx)
+        launch_attn_step_f32(qkv, rope_freqs, att, B, n_q, q_off, S, D,
+                             num_heads, bits, k_ctx, v_ctx)
     else:
         launch_attn_temporal(qkv, rope_freqs, att, B, n_q, q_off, S, D,
                              num_heads, bits, k_ctx, v_ctx)

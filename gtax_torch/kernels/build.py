@@ -58,10 +58,11 @@ SIGNATURES = {
     "gtax_gemm_s8_consts": (_P,),
     # A, B, q, k, v, freqs, M, D, S, n_q, q_off, hd, k_chunk, part, stream
     "gtax_gemm_rope_qkv": (*(_P,) * 6, *(_I,) * 7, _P, _P),
-    # gtax_gemm_bf16's arguments, over fp32 operands, with lda, ldc and
-    # the forward's form after k_chunk
+    # gtax_gemm_bf16's arguments, over fp32 operands, with lda, ldc, the
+    # forward's form, the persistent form's blocks and counters after
+    # k_chunk
     "gtax_gemm_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                      _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     # A, B, C, M, Ka, N, chunk, stream (gtax_gemm_wgrad's, over fp32)
     "gtax_gemm_f32_wgrad": (_P, _P, _P, _I, _I, _I, _I, _P),
     # A, B, q, k, v, freqs, M, D, S, n_q, q_off, hd, k_chunk, fwd, part,
@@ -99,6 +100,9 @@ SIGNATURES = {
     # qkv, freqs, k_ctx, v_ctx, out, q_out, k_out, v_out, B, n_q, q_off, S,
     # D, num_heads, valid_mask, stream
     "gtax_attn_temporal_f32": (*(_P,) * 8, *(_I,) * 7, _P),
+    # qkv, freqs, k_ctx, v_ctx, out, B, n_q, q_off, S, D, num_heads,
+    # valid_mask, stream
+    "gtax_attn_step_f32": (*(_P,) * 5, *(_I,) * 7, _P),
     # qkv, freqs, out, q_out, k_out, v_out, ws, n_frames, S, D, num_heads,
     # rot, shape, stream
     "gtax_attn_frame_f32": (*(_P,) * 7, *(_I,) * 6, _P),

@@ -245,9 +245,13 @@ def int8_sweep():
 
 def f32_form(block, M, N, K):
     """The form of the checkout's fp32 forward for an (M, K) @ (K, N)
-    product: "k-major" by its rule (f32_fwd_form, or from its
-    F32_FWD_ROWS); else "serving" (48-row tiles, K over a cluster) where
-    the checkout has that form, else "64x64" (the tile it replaced)."""
+    product: by its rule f32_form where it has one ("serving",
+    "k-major", "persistent"); else "k-major" by its rule (f32_fwd_form,
+    or from its F32_FWD_ROWS); else "serving" (48-row tiles, K over a
+    cluster) where the checkout has that form, else "64x64" (the tile it
+    replaced)."""
+    if hasattr(block, "f32_form"):
+        return ("serving", "k-major", "persistent")[block.f32_form(M, N, K)]
     rule = getattr(block, "f32_fwd_form", None)
     if (rule(M, N, K) if rule
             else M >= getattr(block, "F32_FWD_ROWS", M + 1)):
@@ -260,11 +264,24 @@ def f32_chunks(block, M, N, K):
     product, by chunk count 1-8: on the forward's k-major form chunks of
     whole 32-row steps, the last one short; else whole 16-row steps
     dividing K."""
-    if f32_form(block, M, N, K) == "k-major":
+    form = f32_form(block, M, N, K)
+    if form == "k-major":
         return f32_chunks_k_major(block, K)
+    if form == "persistent":
+        return f32_chunks_persist(block, K)
     step = block.F32_K_STEP
     return [K // s for s in range(1, block.F32_MAX_SPLITS + 1)
             if K % (s * step) == 0]
+
+
+def f32_chunks_persist(block, K):
+    """The persistent form's K chunks by chunk count, 1 to
+    F32_PERSIST_MAX_SPLITS (whole 16-row granules, the last chunk short)."""
+    step = block.F32_K_STEP
+    g = -(-K // step)
+    return sorted({-(-g // s) * step
+                   for s in range(1, block.F32_PERSIST_MAX_SPLITS + 1)},
+                  reverse=True)
 
 
 def f32_sweep(only_rows=None):
@@ -315,20 +332,29 @@ FORM_ROWS = (144, 288, 432, 576, 719)  # one to four frames, and below 720
 
 
 def f32_forms(rows=FORM_ROWS):
-    """The fp32 forward's two forms at the four serving products at each
+    """The fp32 forward's three forms at the four serving products at each
     row count below the k-major form's 720 rows: the serving form at its
-    plan (f32_serve_chunk) and the k-major form at its plan (f32_fwd_chunk)
-    and at each of its chunk counts, timed in turns (serving, k-major,
-    k-major, serving; each form's time the mean of its two). Prints the
-    winner of each product, and the thresholds the times set, for each
-    product and for the two groups of block.f32_fwd_form (products of at
-    least F32_FWD_WIDE_WEIGHTS weights, and the rest): the measured row
-    count from which the k-major form gives the least summed time over
-    the measured rows (none: the serving form at every one)."""
+    plan (f32_serve_chunk), the persistent form at its plan
+    (f32_persist_chunk) and the k-major form at its plan (f32_fwd_chunk),
+    timed in turns (serving, persistent, k-major, k-major, persistent,
+    serving; each form's time the mean of its two), and the persistent and
+    k-major forms at each of their chunk counts. Prints the winner of each
+    product, whether the persistent form gives the serving form's bits at
+    the serving form's chunks, and the thresholds the times set: for the
+    persistent form against the serving one below the k-major form, the
+    measured row count up to which it gives the least summed time; for
+    the k-major form, for each product and for the two groups of
+    block.f32_fwd_form (products of at least F32_FWD_WIDE_WEIGHTS
+    weights, and the rest), the measured row count from which it gives
+    the least summed time against the form the rule runs below it (none:
+    not at any)."""
     from gtax_torch.kernels import block
 
     gen = np.random.default_rng(15)
     sms = block.sm_count(torch.device("cuda"))
+    forms = {"serving": block.F32_FORM_SERVE,
+             "persistent": block.F32_FORM_PERSIST,
+             "k-major": block.F32_FORM_K_MAJOR}
     out_rows = []
     for M in rows:
         for N, K, _, what in SERVING:
@@ -338,42 +364,64 @@ def f32_forms(rows=FORM_ROWS):
                 np.float32)).cuda()
             out = torch.empty((M, N), dtype=torch.float32, device="cuda")
             ref = torch.matmul(a, w)
-            serve_chunk = block.f32_serve_chunk(M, N, K, sms)
-            fwd_chunk = block.f32_fwd_chunk(M, N, K, sms)
+            chunk = {name: block.f32_plan(M, N, K, a.device, form=f)
+                     for name, f in forms.items()}
 
-            def call(fwd, chunk):
+            def call(name, c=None):
                 return lambda: block.launch_gemm_f32(
-                    a, w, out, M, N, K, block.EPI_F32, k_chunk=chunk,
-                    fwd=fwd)
+                    a, w, out, M, N, K, block.EPI_F32,
+                    k_chunk=chunk[name] if c is None else c,
+                    fwd=forms[name])
 
-            errs = []
-            for fwd, chunk in ((False, serve_chunk), (True, fwd_chunk)):
-                call(fwd, chunk)()
-                errs.append(float((out - ref).abs().max()
-                                  / ref.abs().max()))
-            s1 = median_ms(call(False, serve_chunk))
-            k1 = median_ms(call(True, fwd_chunk))
-            k2 = median_ms(call(True, fwd_chunk))
-            s2 = median_ms(call(False, serve_chunk))
-            serve, kmaj = (s1 + s2) / 2, (k1 + k2) / 2
-            by_chunk = {c: median_ms(call(True, c))
-                        for c in f32_chunks_k_major(block, K)}
-            best = min(by_chunk, key=by_chunk.get)
+            errs = {}
+            for name in forms:
+                call(name)()
+                errs[name] = float((out - ref).abs().max()
+                                   / ref.abs().max())
+            call("serving")()
+            serve_bits = out.clone()
+            call("persistent", chunk["serving"])()
+            same_bits = bool(torch.equal(out, serve_bits))
+            ms = {name: [] for name in forms}
+            for name in (*forms, *reversed(forms)):
+                ms[name].append(median_ms(call(name)))
+            mean = {name: sum(t) / 2 for name, t in ms.items()}
+            by_chunk = {
+                "persistent": {c: median_ms(call("persistent", c))
+                               for c in f32_chunks_persist(block, K)},
+                "k-major": {c: median_ms(call("k-major", c))
+                            for c in f32_chunks_k_major(block, K)}}
             lib = median_ms(lambda: torch.matmul(a, w))
-            print(f"[f32 forms] {what:8s} M={M} N={N} K={K}: serving "
-                  f"{s1:.4f} / {s2:.4f} ms ({-(-K // serve_chunk)} chunks), "
-                  f"k-major {k1:.4f} / {k2:.4f} ms ({-(-K // fwd_chunk)} "
-                  f"chunks; its fastest {by_chunk[best]:.4f} at "
-                  f"{-(-K // best)}), cuBLAS SGEMM {lib:.4f} ms: "
-                  f"{'k-major' if kmaj < serve else 'serving'} "
-                  f"{max(serve, kmaj) / min(serve, kmaj):.3f}x; max|diff| / "
-                  f"max|ref| {errs[0]:.3g} / {errs[1]:.3g}", flush=True)
-            out_rows.append({"what": what, "M": M, "N": N, "K": K,
-                             "serving_ms": [s1, s2], "k_major_ms": [k1, k2],
-                             "serving_chunk": serve_chunk,
-                             "k_major_chunk": fwd_chunk,
-                             "k_major_by_chunk": by_chunk,
-                             "library_ms": lib, "rel_err": errs})
+            win = min(mean, key=mean.get)
+            best = {n: min(v, key=v.get) for n, v in by_chunk.items()}
+            print(f"[f32 forms] {what:8s} M={M} N={N} K={K}: "
+                  + ", ".join(f"{n} {t[0]:.4f} / {t[1]:.4f} ms "
+                              f"({-(-K // chunk[n])} chunks)"
+                              for n, t in ms.items())
+                  + "; fastest chunks: "
+                  + ", ".join(f"{n} {by_chunk[n][c]:.4f} at {-(-K // c)}"
+                              for n, c in best.items())
+                  + f"; cuBLAS SGEMM {lib:.4f} ms: {win}; max|diff| / "
+                  f"max|ref| "
+                  + " / ".join(f"{e:.3g}" for e in errs.values())
+                  + f"; persistent = serving bits at its chunks: "
+                  f"{same_bits}", flush=True)
+            out_rows.append({
+                "what": what, "M": M, "N": N, "K": K,
+                "serving_ms": ms["serving"], "persistent_ms": ms["persistent"],
+                "k_major_ms": ms["k-major"],
+                "serving_chunk": chunk["serving"],
+                "persistent_chunk": chunk["persistent"],
+                "k_major_chunk": chunk["k-major"],
+                "persistent_by_chunk": by_chunk["persistent"],
+                "k_major_by_chunk": by_chunk["k-major"],
+                "library_ms": lib, "rel_err": errs,
+                "persistent_serving_bits": same_bits})
+    for _, _, _, what in SERVING:
+        group = [r for r in out_rows if r["what"] == what]
+        print(f"[f32 forms] threshold, {what}: the persistent form below "
+              f"the serving one up to {persist_threshold(group, rows)} rows",
+              flush=True)
     wide = block.F32_FWD_WIDE_WEIGHTS
     groups = {what: [r for r in out_rows if r["what"] == what]
               for _, _, _, what in SERVING}
@@ -384,19 +432,38 @@ def f32_forms(rows=FORM_ROWS):
     for name, group in groups.items():
         if group:
             print(f"[f32 forms] threshold, {name}: the k-major form from "
-                  f"{least_sum_threshold(group, rows)} rows", flush=True)
-    print(f"[f32 forms] the rule (block.f32_fwd_form): k-major from "
+                  f"{least_sum_threshold(group, rows, block)} rows",
+                  flush=True)
+    print(f"[f32 forms] the rule (block.f32_form): the persistent form "
+          f"below {block.F32_PERSIST_ROWS} rows; k-major from "
           f"{block.F32_FWD_ROWS_WIDE} rows for weights >= {wide}, from "
-          f"{block.F32_FWD_ROWS} for the rest", flush=True)
+          f"{block.F32_FWD_ROWS} for the rest; else the serving form",
+          flush=True)
     return out_rows
 
 
-def least_sum_threshold(group, rows):
-    """The row count T of `rows` (or None: none) for which serving below T
-    and k-major from T gives `group` the least summed time."""
+def persist_threshold(group, rows):
+    """The largest row count T of `rows` (or None: none) for which the
+    persistent form up to T and the serving form past it give `group` the
+    least summed time."""
+    def total(T):
+        return sum(sum(r["persistent_ms"] if T is not None and r["M"] <= T
+                       else r["serving_ms"]) for r in group)
+    return min([None, *sorted(rows)], key=total)
+
+
+def least_sum_threshold(group, rows, block):
+    """The row count T of `rows` (or None: none) for which the form the
+    rule runs below the k-major one (the persistent form below
+    block.F32_PERSIST_ROWS, else the serving form) below T and k-major
+    from T give `group` the least summed time."""
+    def below(r):
+        return r["persistent_ms" if r["M"] < block.F32_PERSIST_ROWS
+                 else "serving_ms"]
+
     def total(T):
         return sum(sum(r["k_major_ms"] if T is not None and r["M"] >= T
-                       else r["serving_ms"]) for r in group)
+                       else below(r)) for r in group)
     return min([*sorted(rows), None], key=total)
 
 
@@ -490,6 +557,107 @@ def f32_bwd_sweep():
     return rows
 
 
+# the persistent form's shapes timed by --persist-shapes: (rows a thread,
+# row groups, float4 column groups a thread, k-step, ring stages, blocks
+# an SM), csrc/gemm_f32.cu's GTAX_PERSIST_R, _RG, _CJ, _KS, _STAGES,
+# _BLOCKS; the first is the library's
+PERSIST_SHAPES = ((6, 8, 2, 32, 2, 4), (6, 8, 2, 16, 3, 4),
+                  (6, 8, 2, 32, 3, 3), (6, 8, 2, 16, 2, 4),
+                  (6, 8, 2, 16, 3, 3), (6, 8, 2, 16, 4, 4),
+                  (8, 6, 2, 16, 3, 4), (6, 8, 4, 16, 3, 2),
+                  (6, 8, 4, 16, 3, 3), (4, 12, 4, 16, 3, 2),
+                  (6, 12, 2, 16, 3, 2), (3, 16, 2, 16, 3, 4))
+PERSIST_ROWS = (144, 288)
+
+
+def persist_shapes(shapes=PERSIST_SHAPES, rows=PERSIST_ROWS):
+    """The persistent form's shapes (PERSIST_SHAPES) at the step's four
+    products at 144 and 288 rows and each chunk count: each shape from a
+    copy of csrc/gemm_f32.cu built with its GTAX_PERSIST_* macros (all
+    built at once), launched on one round of its blocks (blocks an SM x
+    SMs). Prints each shape's times, its fastest chunk count beside the
+    library plan's (block.f32_persist_chunk, for the library's shape),
+    whether every shape gives the same bits at a chunk count (the tile
+    does not change a sum's order), and each shape's summed time at its
+    fastest counts and at the plan's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gtax_torch.kernels import block, build
+
+    names = ("R", "RG", "CJ", "KS", "STAGES", "BLOCKS")
+
+    def lib(shape):
+        defs = tuple(f"GTAX_PERSIST_{n}={v}" for n, v in zip(names, shape))
+        return build._load(build.build(defines=defs, names=("gemm_f32.cu",)),
+                           ("gtax_gemm_f32",))
+
+    with ThreadPoolExecutor(len(shapes)) as ex:
+        libs = list(ex.map(lib, shapes))
+    sms = block.sm_count(torch.device("cuda"))
+    gen = np.random.default_rng(17)
+    out_rows, bits = [], {}
+    for M in rows:
+        for N, K, _, what in SERVING:
+            w = torch.from_numpy(gen.standard_normal((K, N)).astype(
+                np.float32) * 0.02).cuda()
+            a = torch.from_numpy(gen.standard_normal((M, K)).astype(
+                np.float32)).cuda()
+            out = torch.empty((M, N), dtype=torch.float32, device="cuda")
+            ref = torch.matmul(a, w)
+            plan = block.f32_persist_chunk(M, N, K, sms)
+            for shape, lb in zip(shapes, libs):
+                r, rg, cj, _, _, per_sm = shape
+                tm, tn = r * rg, 64 * cj
+                tiles = -(-M // tm) * -(-N // tn)
+                flags = torch.zeros(2 * tiles, dtype=torch.int32,
+                                    device="cuda")
+                times = {}
+                for c in f32_chunks_persist(block, K):
+                    part = torch.empty(tiles * -(-K // c) * tm * tn,
+                                       device="cuda")
+
+                    def call(c=c, part=part):
+                        build.launch(
+                            "gtax_gemm_f32", a.data_ptr(), w.data_ptr(),
+                            out.data_ptr(), None, None, None, None, 0, None,
+                            None, 0, M, N, K, 1, block.EPI_F32, 0, c, 0, 0,
+                            block.F32_FORM_PERSIST, per_sm * sms,
+                            flags.data_ptr(), part.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream, lib=lb)
+
+                    call()
+                    torch.cuda.synchronize()
+                    err = float((out - ref).abs().max() / ref.abs().max())
+                    key = (M, what, c)
+                    bits.setdefault(key, out.clone())
+                    same = bool(torch.equal(bits[key], out))
+                    times[c] = median_ms(call)
+                    out_rows.append({"shape": shape, "what": what, "M": M,
+                                     "N": N, "K": K, "k_chunk": c,
+                                     "ms": times[c], "rel_err": err,
+                                     "same_bits": same, "plan": c == plan})
+                best = min(times, key=times.get)
+                print(f"[persist shapes] {what:8s} M={M} {shape}: "
+                      + ", ".join(f"{-(-K // c)}: {t:.4f}"
+                                  for c, t in times.items())
+                      + f" ms; fastest {-(-K // best)} chunks "
+                      f"({2 * M * N * K / times[best] / 1e9:.1f} TFLOP/s), "
+                      f"the plan {-(-K // plan)}", flush=True)
+    for shape in shapes:
+        mine = [r for r in out_rows if r["shape"] == shape]
+        fastest = {}
+        for r in mine:
+            k = (r["M"], r["what"])
+            fastest[k] = min(fastest.get(k, r["ms"]), r["ms"])
+        print(f"[persist shapes] {shape}: summed {sum(fastest.values()):.4f}"
+              f" ms at the fastest counts, "
+              f"{sum(r['ms'] for r in mine if r['plan']):.4f} at the plan's; "
+              f"same bits as the first shape: "
+              f"{all(r['same_bits'] for r in mine)}; largest max|diff| / "
+              f"max|ref| {max(r['rel_err'] for r in mine):.3g}", flush=True)
+    return out_rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -505,8 +673,12 @@ def main():
     ap.add_argument("--rows", help="with --f32: only the forward's products "
                     "at these row counts (comma-separated), no backward")
     ap.add_argument("--forms", action="store_true",
-                    help="with --f32: the forward's two forms in turns "
-                    "below 720 rows (--rows: at these), and the threshold")
+                    help="with --f32: the forward's three forms in turns "
+                    "below 720 rows (--rows: at these), and the thresholds")
+    mode.add_argument("--persist-shapes", action="store_true",
+                      help="time the fp32 persistent form's shapes at the "
+                      "step's products instead (copies built with other "
+                      "GTAX_PERSIST_* macros)")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -522,6 +694,8 @@ def main():
     rows = tuple(int(r) for r in args.rows.split(",")) if args.rows else None
     run = (wgrad_splits if args.wgrad_splits else small_sweep if args.small
            else int8_sweep if args.int8
+           else (lambda: persist_shapes(rows=rows or PERSIST_ROWS))
+           if args.persist_shapes
            else (lambda: f32_forms(rows or FORM_ROWS))
            if args.f32 and args.forms
            else (lambda: f32_sweep(set(rows)))

@@ -7,8 +7,9 @@ slot 0 padded) and at the prefill's emit_kv (576 rows), and
 `fused_temporal_branch_bwd` (#13, B=16, T=5), each with its attention
 launch's byte bound (`temporal_splits`); with --f32 instead, the fp32
 step's spatial work: #1 fp32 at one frame by launch, with its attention
-launch's TFLOP/s and bound, and the fp32 pairs by phase, on a probe copy
-of csrc/pair_q_f32.cu (`f32_splits`).
+launch's TFLOP/s and bound, #4 fp32 at one frame by launch, with its
+attention launch's byte bound, and the fp32 pairs by phase, on a probe
+copy of csrc/pair_q_f32.cu (`f32_splits`).
 
     python -m gtax_torch.tools.split [--temporal | --f32] [--out FILE]
     PYTHONPATH=<checkout> python <this file> --temporal   # another tree
@@ -369,20 +370,38 @@ def pair_phases(kind, N, iters=15, log=print, dt=torch.bfloat16):
 F32_PEAK = 67e12  # fp32 FFMA, H100 SXM
 
 
+def temporal_step_f32_bound(split, n_ctx=4, log=print):
+    """The attention launch in a launch split of #4 fp32 at one frame (144
+    rows over an n_ctx-frame fp32 cache; gtax_attn_step_f32, or an older
+    tree's gtax_attn_temporal_f32): its ms and byte bound (the live
+    frame's qkv rows and the cache's K and V read, the output written,
+    fp32, at 3.35 TB/s; its 4 T d FLOPs a query row and head are far
+    below), printed."""
+    name, ms = next((e["kernel"], e["ms"]) for e in split[:-1]
+                    if e["kernel"].startswith("gtax_attn_"))
+    by = (S * 3 * D + 2 * n_ctx * S * D + S * D) * 4
+    bound = 1e3 * by / HBM_BYTES_PER_S
+    log(f"[split]   {name} {ms:.4f} ms; bound {bound:.4f} ms "
+        f"(bytes; {by / 1e6:.2f} MB)")
+    return {"kernel": name, "ms": ms, "bound_ms": bound, "bytes": by}
+
+
 def f32_splits(log=print):
-    """The fp32 step's spatial work: #1 fp32 at one frame (144 rows) by
-    launch, with its attention launch's (gtax_attn_frame_f32: the rope
-    pass and the attention) TFLOP/s and bound (the larger of 4 S^2 d a
-    head at 67 TFLOP/s and its bytes, the qkv rows read and the output
-    written, at 3.35 TB/s); the fp32 pairs by phase (#10 at one and two
-    frames, #11 at one)."""
+    """The fp32 step's work: #1 fp32 at one frame (144 rows) by launch,
+    with its attention launch's (gtax_attn_frame_f32: the rope pass and
+    the attention) TFLOP/s and bound (the larger of 4 S^2 d a head at 67
+    TFLOP/s and its bytes, the qkv rows read and the output written, at
+    3.35 TB/s); #4 fp32 at one frame over a 4-frame cache by launch, with
+    its products' TFLOP/s and its attention launch's byte bound
+    (temporal_step_f32_bound); the fp32 pairs by phase (#10 at one and
+    two frames, #11 at one)."""
     from gtax_torch.kernels import block
 
     f32 = torch.float32
     a = attention_inputs("spatial", 1, dt=f32)
+    gemms = [2 * S * D * 3 * D, 2 * S * D * D]
     split = launch_split(lambda: block.fused_spatial_branch(*a),
-                         f"fused_spatial_branch {S} rows, fp32",
-                         [2 * S * D * 3 * D, 2 * S * D * D], log)
+                         f"fused_spatial_branch {S} rows, fp32", gemms, log)
     ms = next(e["ms"] for e in split[:-1]
               if e["kernel"] == "gtax_attn_frame_f32")
     flops = 4 * H * S * S * HD
@@ -392,10 +411,16 @@ def f32_splits(log=print):
     log(f"[split]   gtax_attn_frame_f32 (rope pass + attention) {ms:.4f} ms,"
         f" {flops / 1e9:.3f} GFLOP at {attention['tflops']:.1f} TFLOP/s; "
         f"bound {attention['bound_ms']:.4f} ms")
+    t = attention_inputs("temporal", 1, dt=f32)
+    step = launch_split(lambda: block.fused_temporal_step(*t),
+                        f"fused_temporal_step {S} rows, fp32", gemms, log)
     pairs = {f"{kind} N={N}": pair_phases(kind, N, log=log, dt=f32)
              for kind, N in (("spatial", 1), ("spatial", 2),
                              ("temporal", 1))}
     return {"spatial": {"launch_split": split, "attention": attention},
+            "temporal_step": {"launch_split": step,
+                              "attention": temporal_step_f32_bound(step,
+                                                                   log=log)},
             "pair": pairs}
 
 

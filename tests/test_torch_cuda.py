@@ -1523,12 +1523,13 @@ def test_gemm_f32_epilogues(cuda, epi, M):
     (1024, 4096, block.EPI_BIAS_GATED),        # fc2
 ])
 def test_gemm_f32_forms_below_720(cuda, M, N, K, epi):
-    """Below 720 rows both forms of the fp32 forward (the serving form and
-    the k-major one, each at its own plan's chunks) against the fp32
-    product, each bit-stable; a call with no form given takes
-    block.f32_fwd_form's (k-major from 432 rows for qkv, fc1 and fc2, not
-    for the out-projection) and gives that form's bits; and the rope
-    epilogue on both forms at the prefill's 576 rows."""
+    """Below 720 rows the three forms of the fp32 forward (the serving
+    form, the k-major one and the persistent one, each at its own plan's
+    chunks) against the fp32 product, each bit-stable; a call with no form
+    given takes block.f32_form's (k-major from 432 rows for qkv, fc1 and
+    fc2, not for the out-projection; the persistent form below 432) and
+    gives that form's bits; and the rope epilogue on its two forms at the
+    prefill's 576 rows."""
     gen = np.random.default_rng(318 + M + N + K)
     S, f32 = 144, torch.float32
     a, w = _rand(gen, (M, K), 1.0, f32), _rand(gen, (K, N), 0.03, f32)
@@ -1540,26 +1541,25 @@ def test_gemm_f32_forms_below_720(cuda, M, N, K, epi):
            block.EPI_BIAS_GELU_TANH: block.gelu_tanh32(u),
            block.EPI_BIAS_GATED:
                x + gate.repeat_interleave(S, 0)[:M] * u}[epi]
-    sms = block.sm_count(a.device)
     outs = {}
-    for fwd in (False, True):
-        chunk = (block.f32_fwd_chunk if fwd else block.f32_serve_chunk)(
-            M, N, K, sms)
+    for form in (block.F32_FORM_SERVE, block.F32_FORM_K_MAJOR,
+                 block.F32_FORM_PERSIST):
+        chunk = block.f32_plan(M, N, K, a.device, form=form)
         got, again = (torch.empty((M, N), dtype=f32, device="cuda")
                       for _ in range(2))
         for out in (got, again):
             block.launch_gemm_f32(a, w, out, M, N, K, epi, bias=bias,
                                   resid=x, gate=gate, S=S, k_chunk=chunk,
-                                  fwd=fwd)
+                                  fwd=form)
         torch.cuda.synchronize()
         _close32(got, ref)
         assert torch.equal(got, again)
-        outs[fwd] = got
+        outs[form] = got
     default = torch.empty_like(ref)
     block.launch_gemm_f32(a, w, default, M, N, K, epi, bias=bias, resid=x,
                           gate=gate, S=S)
     torch.cuda.synchronize()
-    assert torch.equal(default, outs[block.f32_fwd_form(M, N, K)])
+    assert torch.equal(default, outs[block.f32_form(M, N, K)])
     if M == 576 and N == 3072:  # the prefill's rope product
         f = rope.temporal_rope_freqs(torch.arange(4),
                                      rope.lang_freqs(64)).cuda()
@@ -1572,6 +1572,90 @@ def test_gemm_f32_forms_below_720(cuda, M, N, K, epi):
             torch.cuda.synchronize()
             for g, r in zip(qkv, want):
                 _close32(g, r)
+
+
+@pytest.mark.parametrize("M", [144, 200, 288, 431])
+@pytest.mark.parametrize("epi", EPILOGUES_F32)
+def test_gemm_f32_persist(cuda, epi, M):
+    """The fp32 forward's persistent form (gemm_f32_persist_kernel: one
+    round of blocks walking (tile, K chunk) units, split tiles summed
+    through a workspace in chunk order) through each serving epilogue
+    stored unrounded, at a step's 144 and 288 rows, 200 and 431 (the last
+    48-row tile ragged) and N = 1,000 (the last 128-column tile ragged):
+    within F32_TOL of the fp32 product at its plan's chunks; two calls the
+    same bits; the same bits on one block an SM as on the card's round;
+    unsplit within F32_TOL; and at the serving form's chunks the serving
+    form's bits (both add a chunk's products in K order, then the chunks
+    in order)."""
+    from gtax_torch.kernels.vae_block import gelu_erf32
+
+    gen = np.random.default_rng(330 + epi + M)
+    S, N, K, f32 = 144, 1000, 1024, torch.float32
+    a, w = _rand(gen, (M, K), 1.0, f32), _rand(gen, (K, N), 0.03, f32)
+    bias = _rand(gen, (N,), 0.1, f32)
+    x = _rand(gen, (M, N), 1.0, f32)
+    gate = _rand(gen, (-(-M // S), 2 * N), 0.5, f32)[:, :N]
+    u = block.mm32(a, w) + bias
+    ref = {block.EPI_F32: u - bias, block.EPI_BIAS_BF16: u,
+           block.EPI_BIAS_GELU_TANH: block.gelu_tanh32(u),
+           block.EPI_BIAS_GELU_ERF: block.gelu_exact32(u),
+           block.EPI_BIAS_BF16_GELU: gelu_erf32(u),
+           block.EPI_BIAS_GATED:
+               x + gate.repeat_interleave(S, 0)[:M] * u,
+           block.EPI_BIAS_BF16_RESID: x + u}[epi]
+    persist = block.F32_FORM_PERSIST
+    sms = block.sm_count(a.device)
+    chunk = block.f32_plan(M, N, K, a.device, form=persist)
+    assert chunk < K
+    kw = dict(bias=bias, resid=x, gate=gate, S=S, fwd=persist)
+
+    def run(**more):
+        out = torch.empty((M, N), dtype=f32, device="cuda")
+        block.launch_gemm_f32(a, w, out, M, N, K, epi, **{**kw, **more})
+        return out
+
+    got, again = run(), run()
+    one_an_sm = run(blocks=sms)
+    unsplit = run(k_chunk=K)
+    serve_chunk = block.f32_serve_chunk(M, N, K, sms)
+    at_serve = run(k_chunk=serve_chunk)
+    serve = run(k_chunk=serve_chunk, fwd=block.F32_FORM_SERVE)
+    torch.cuda.synchronize()
+    _close32(got, ref)
+    _close32(unsplit, ref)
+    assert torch.equal(got, again)
+    assert torch.equal(got, one_an_sm)
+    assert torch.equal(at_serve, serve)
+
+
+@pytest.mark.parametrize("n_ctx", [1, 2, 3, 4])
+@pytest.mark.parametrize("n_live", [1, 2, 4])
+def test_fp32_temporal_step_windows(cuda, n_ctx, n_live):
+    """#4 fused_temporal_step in fp32 (its products on the persistent
+    form, attn_temporal_f32 over the fp32 cache) against
+    temporal_step_plain within F32_TOL at n_ctx 1-4 context frames and
+    n_live 1, 2, 4 live frames (the exact step, and the pipelined
+    rollout's), slot 0 closed where the window has more than one slot;
+    two calls give the same bits."""
+    gen = np.random.default_rng(340 + 8 * n_ctx + n_live)
+    f32 = torch.float32
+
+    def r(shape, std=1.0):
+        return _rand(gen, shape, std, f32)
+
+    T = n_ctx + n_live
+    mods = r((n_live, 3 * D), 0.5)
+    args = (r((n_live, S_DIT, D)), mods[:, :D], mods[:, D:2 * D],
+            mods[:, 2 * D:], r((D, 3 * D), 0.02), r((D, D), 0.02),
+            r((D,), 0.02), r((n_ctx * S_DIT, D)), r((n_ctx * S_DIT, D)),
+            _temporal_freqs(T), [False] + [True] * (T - 1) if T > 1
+            else None, H, n_ctx)
+    got = block.fused_temporal_step(*args, n_live=n_live)
+    again = block.fused_temporal_step(*args, n_live=n_live)
+    ref = block.temporal_step_plain(*args, n_live=n_live)
+    torch.cuda.synchronize()
+    _close32(got, ref)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("M,N,K,epi", [
@@ -1736,9 +1820,9 @@ def test_attn_frame_f32_query_tiles_bit_equal(cuda, S, hd):
 @pytest.mark.parametrize("hd", [32, 64, 128])
 def test_attn_temporal_f32_kernels(cuda, hd, T, valid):
     """attn_temporal_window_f32 (four dims a lane) against attend_temporal
-    in fp32, and attn_temporal_f32's step over an fp32 cache: the last
-    frame of the window from the cached first T - 1 equals the window's
-    last frame within F32_TOL."""
+    in fp32, and attn_temporal_f32's step and #4's attn_step_f32 over an
+    fp32 cache: the last frame of the window from the cached first T - 1
+    equals the window's last frame within F32_TOL."""
     gen = np.random.default_rng(340 + hd + T)
     heads, B, f32 = D // hd, 2, torch.float32
     v = None if valid is None else valid[:T]
@@ -1764,8 +1848,12 @@ def test_attn_temporal_f32_kernels(cuda, hd, T, valid):
     zeros = torch.zeros((T, hd), dtype=f32, device="cuda")
     block.launch_attn_temporal_f32(qkv, zeros, step, B, 1, T - 1, S_DIT, D,
                                    heads, bits, kc, vc)
+    step4 = torch.empty_like(step)  # #4's fp32 step body
+    block.launch_attn_step_f32(qkv, zeros, step4, B, 1, T - 1, S_DIT, D,
+                               heads, bits, kc, vc)
     torch.cuda.synchronize()
     _close32(step, rows(ref)[:, -1].reshape(B * S_DIT, D))
+    _close32(step4, rows(ref)[:, -1].reshape(B * S_DIT, D))
 
 
 def test_fp32_refusals_on_the_card(cuda):
@@ -1788,8 +1876,9 @@ def test_fp32_refusals_on_the_card(cuda):
 def test_fp32_kernels_use_no_tensor_cores(cuda):
     """The fp32 kernels, the training ones included (gemm_f32's training
     epilogues are instantiations of its two forward forms, its trans_b and
-    wgrad forms of gemm_f32_bwd_kernel; the serving rows' form
-    gemm_f32_serve_kernel, the `pallas` attention's tiled forms
+    wgrad forms of gemm_f32_bwd_kernel; the serving rows' forms
+    gemm_f32_serve_kernel and gemm_f32_persist_kernel, the `pallas`
+    attention's tiled forms
     attn_sdpa_f32_tile_kernel and _wide_kernel, and the frame attention's
     rope pass and its query tiles' bodies among them), are FFMA only:
     cuobjdump's SASS of the built library has no HMMA or HGMMA (any type,
@@ -1821,7 +1910,8 @@ def test_fp32_kernels_use_no_tensor_cores(cuda):
              "attn_frame_bwd_f32_k", "attn_temporal_bwd_f32_kernel",
              "gate_bwd_kernelIfE", "ln_mod_bwd_kernelILi16EfE",
              "gemm_f32_bwd_kernel", "gemm_f32_fwd_kernel",
-             "gemm_f32_serve_kernel")
+             "gemm_f32_serve_kernel", "gemm_f32_persist_kernel",
+             "attn_step_f32_kernel")
     heads = [f.split("\n", 1)[0] for f in funcs]
     assert all(any(n in h for h in heads) for n in names), [
         n for n in names if not any(n in h for h in heads)]

@@ -70,16 +70,19 @@ def test_fp32_entry_points_bound():
     """Every fp32 kernel's C entry point has its ctypes signature, with as
     many arguments as csrc/ declares (the library is built on the card):
     the fp32 GEMM's (and its rope form's) with the training epilogues'
-    outputs, trans_b and the forward's form (fwd_form), the
+    outputs, trans_b and the forward's form (fwd_form; the fp32 GEMM's
+    also with the persistent form's blocks and counters), the
     frame attention's with its q/k/v stores, its workspace and its query
     tile, the temporal one's with the
-    full window's fp32 Q/K/V outputs, the fp32 pairs', the fp32 `pallas`
+    full window's fp32 Q/K/V outputs, #4's fp32 step attention's, the fp32
+    pairs', the fp32 `pallas`
     attention's, and the fp32 training kernels' (the weight gradient, the
     row-wise and attention backwards)."""
-    want = {"gtax_gemm_f32": 23, "gtax_gemm_f32_rope_qkv": 16,
+    want = {"gtax_gemm_f32": 25, "gtax_gemm_f32_rope_qkv": 16,
             "gtax_attn_frame_f32": 14,
             "gtax_attn_temporal_window_f32": 11,
-            "gtax_attn_temporal_f32": 16, "gtax_pair_q_f32": 49,
+            "gtax_attn_temporal_f32": 16, "gtax_attn_step_f32": 13,
+            "gtax_pair_q_f32": 49,
             "gtax_pair_q_f32_blocks": 4, "gtax_attn_sdpa_f32": 16,
             "gtax_gemm_f32_wgrad": 8, "gtax_gate_bwd_f32": 11,
             "gtax_ln_mod_bwd_f32": 12, "gtax_attn_frame_bwd_f32": 15,
@@ -123,27 +126,30 @@ def test_fp32_epilogue_table():
 
 
 @pytest.mark.parametrize("M,N,K,chunk", [
-    (144, 1024, 1024, 128),   # the step's out-projection: 48 tiles x 8
-    (144, 1024, 4096, 512),   # the step's fc2: 48 tiles x 8
-    (288, 1024, 4096, 512),   # two frames' fc2: chunks of 32 steps
+    (144, 1024, 1024, 64),    # the step's out-projection: 24 tiles x 16
+    (144, 1024, 4096, 192),   # the step's fc2: 24 tiles x 22
+    (288, 1024, 4096, 384),   # two frames' fc2: 48 tiles x 11
     (576, 1024, 4096, 704),   # the prefill's fc2, k-major: 6 chunks
     (576, 1024, 1024, 512),   # its out-projection, serving: 192 tiles x 2
-    (144, 3072, 1024, 256),   # qkv: 144 tiles x 4
-    (288, 3072, 1024, 512),   # two frames' qkv: 288 tiles x 2
-    (288, 4096, 1024, 512),   # two frames' fc1: 32 steps, 384 tiles x 2
+    (144, 3072, 1024, 160),   # qkv: 72 tiles x 7 (the last chunk 64)
+    (288, 3072, 1024, 352),   # two frames' qkv: 144 tiles x 3
+    (288, 4096, 1024, 512),   # two frames' fc1: 192 tiles x 2
     (576, 3072, 1024, 512),   # the prefill's qkv, k-major: 120 tiles x 2
     (576, 4096, 1024, 352),   # its fc1: 160 tiles, 3 chunks of 11 steps
     (720, 3072, 1024, 352),   # five frames: 144 tiles, 3 chunks of 11 steps
     (2304, 3072, 1024, 1024),  # the VAE encode's qkv: 432 tiles, K of 32
     (3456, 4096, 1024, 1024),  # the VAE decode's fc1: 864 tiles
     (3456, 1024, 4096, 704),   # its fc2: 216 tiles of 128 steps, 6 chunks
-    (144, 1024, 1040, 208),   # K of 65 steps: five chunks of 13
+    (144, 1024, 1040, 96),    # K of 65 granules: 11 chunks, the last 80
 ])
 def test_f32_split_plan(M, N, K, chunk):
-    """gemm_f32's K chunk on 132 SMs. On the serving form (48 x 64 tiles,
-    K over a cluster): the fewest whole-step chunks dividing K, at most 8
-    and at most 32 steps of 16 deep, whose blocks give 2.5 an SM (330),
-    else the most there are. On the
+    """gemm_f32's K chunk on 132 SMs, on the form block.f32_form picks. On
+    the persistent form (below 432 rows; 48 x 128 tiles, four blocks an
+    SM): f32_persist_chunk's, chunks of whole 16-row granules, the last
+    one short, at most 32. On the serving form (48 x 64 tiles, K over a
+    cluster): the fewest whole-step chunks dividing K, at most 8 and at
+    most 32 steps of 16 deep, whose blocks give 2.5 an SM (330), else the
+    most there are. On the
     forward's k-major form (block.f32_fwd_form: from 720 rows, from 432
     for qkv, fc1 and fc2; two blocks an SM): unsplit where K is at most 32
     steps of 32 and the tiles fill the 264 slots, else the count of at
@@ -151,9 +157,13 @@ def test_f32_split_plan(M, N, K, chunk):
     fewest wave-steps."""
     got = block.f32_chunk(M, N, K, 132)
     assert got == chunk
-    if block.f32_fwd_form(M, N, K):
+    form = block.f32_form(M, N, K)
+    if form == block.F32_FORM_K_MAJOR:
         assert got == K or got % block.F32_FWD_K_STEP == 0
         assert -(-K // got) <= block.F32_MAX_SPLITS
+    elif form == block.F32_FORM_PERSIST:
+        assert got % block.F32_K_STEP == 0
+        assert -(-K // got) <= block.F32_PERSIST_MAX_SPLITS
     else:
         assert K % got == 0 and got % block.F32_K_STEP == 0
         assert K // got <= block.F32_MAX_SPLITS
@@ -175,7 +185,11 @@ def test_f32_fwd_constants_match_the_kernel_source():
     assert int(shape.group(3)) == block.F32_FWD_BLOCKS
     assert int(re.search(r"constexpr int kBwdTile = (\d+);", src).group(1)) \
         == block.F32_FWD_TILE
-    assert "const bool fwd = !trans_b && fwd_form == 1;" in src
+    assert "const bool fwd = !trans_b && fwd_form == kFormKMajor;" in src
+    forms = re.search(r"constexpr int kFormServe = (\d+), kFormKMajor = "
+                      r"(\d+), kFormPersist = (\d+);", src)
+    assert tuple(int(g) for g in forms.groups()) == (
+        block.F32_FORM_SERVE, block.F32_FORM_K_MAJOR, block.F32_FORM_PERSIST)
     assert not block.f32_fwd_form(block.F32_FWD_ROWS - 1, 1024, 1024)
     assert block.f32_fwd_form(block.F32_FWD_ROWS, 1024, 1024)
     assert block.F32_FWD_K_STEP % block.F32_K_STEP == 0
@@ -241,8 +255,8 @@ def test_f32_serve_plan(M, N, K):
 def test_f32_serve_constants_match_the_kernel_source():
     """block's constants of gemm_f32's serving form are the kernel's
     (csrc/gemm_f32.cu kServe*): the tile's rows and columns, its blocks an
-    SM and the largest cluster; it runs where the caller asks for no
-    k-major form, and its k-step is a multiple of the K granule (BK)."""
+    SM and the largest cluster; it runs where the caller asks for the
+    serving form, and its k-step is a multiple of the K granule (BK)."""
     import re
 
     src = (build.CSRC / "gemm_f32.cu").read_text()
@@ -257,7 +271,134 @@ def test_f32_serve_constants_match_the_kernel_source():
     assert const("BK") == block.F32_K_STEP
     assert const("kServeKS") % const("BK") == 0
     assert const("kServeTile") // const("kServeRG") in (4, 8)
-    assert "if (!fwd) return launch_serve<EPI>" in src
+    assert "if (form == kFormServe) return launch_serve<EPI>" in src
+
+
+def test_f32_persist_constants_match_the_kernel_source():
+    """block's constants of gemm_f32's persistent form are the library's
+    (csrc/gemm_f32.cu GTAX_PERSIST_* defaults): the tile's rows (rows a
+    thread x row groups) and columns (64 a float4 column group), its
+    k-step and its blocks an SM (the launch bounds the one-round grid
+    counts on); the K granule is the C entry's, and a split unit's partial
+    is one tile."""
+    import re
+
+    src = (build.CSRC / "gemm_f32.cu").read_text()
+
+    def macro(name):
+        return int(re.search(rf"#define GTAX_PERSIST_{name} (\d+)",
+                             src).group(1))
+
+    assert macro("R") * macro("RG") == block.F32_PERSIST_TILE
+    assert 64 * macro("CJ") == block.F32_PERSIST_TILE_N
+    assert macro("KS") == block.F32_PERSIST_K_STEP
+    assert macro("BLOCKS") == block.F32_PERSIST_BLOCKS
+    assert block.F32_PERSIST_K_STEP % block.F32_K_STEP == 0
+    assert "__launch_bounds__(kPersistThreads, kPersistBlocks)" in src
+    assert "attr[0].id = cudaLaunchAttributeCooperative;" in src
+    assert "if (form == kFormPersist)" in src
+
+
+@pytest.mark.parametrize("M,N,K", [
+    (144, 3072, 1024), (144, 1024, 1024), (144, 4096, 1024),
+    (144, 1024, 4096), (288, 3072, 1024), (288, 1024, 1024),
+    (288, 4096, 1024), (288, 1024, 4096), (200, 1000, 1040),
+    (431, 1000, 1024), (48, 128, 32)])
+def test_f32_persist_units_cover_once(M, N, K):
+    """The persistent form's units at its plan's chunks (block.
+    f32_persist_schedule, the kernel's schedule) cover every (row, column,
+    k) of the product once: their tiles cover the rows and columns, each
+    tile's chunks cover K in order without overlap, and no unit is dealt
+    twice; a block takes units G apart (G the grid)."""
+    chunk = block.f32_persist_chunk(M, N, K, 132)
+    blocks = block.f32_persist_grid(M, N, K, chunk, 132)
+    sched = block.f32_persist_schedule(M, N, K, chunk, blocks)
+    assert len(sched) == blocks
+    units = [u for mine, _ in sched for u in mine]
+    assert len(units) == len(set(units)) == block.f32_persist_units(
+        M, N, K, chunk)
+    tm, tn = block.F32_PERSIST_TILE, block.F32_PERSIST_TILE_N
+    covered = np.zeros((-(-M // tm), -(-N // tn), K), dtype=np.int32)
+    for m0, n0, k0, k1 in units:
+        assert m0 % tm == 0 and n0 % tn == 0 and m0 < M and n0 < N
+        assert k0 < k1 <= K and k0 % block.F32_K_STEP == 0
+        covered[m0 // tm, n0 // tn, k0:k1] += 1
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("M,N,K", [
+    (144, 3072, 1024), (144, 1024, 1024), (288, 1024, 4096),
+    (200, 1000, 1040)])
+@pytest.mark.parametrize("blocks", [None, 132, 37])
+def test_f32_persist_chunks_summed_in_order(M, N, K, blocks):
+    """Each split tile's fix-up jobs split its rows between them, each row
+    once, and sum its chunks' partials in chunk order (K ranges ascending,
+    each one chunk), whichever blocks made them: the jobs' rows and
+    orders are the same on the plan's grid, one block an SM (132) and a
+    grid of 37 blocks, so an element's sum does not depend on the grid."""
+    chunk = block.f32_persist_chunk(M, N, K, 132)
+    splits = -(-K // chunk)
+    assert splits > 1
+    grid = blocks or block.f32_persist_grid(M, N, K, chunk, 132)
+    sched = block.f32_persist_schedule(M, N, K, chunk, grid)
+    want = [(z * chunk, min(K, (z + 1) * chunk)) for z in range(splits)]
+    rows = {}
+    for _, jobs in sched:
+        for m0, n0, r0, r1, order in jobs:
+            assert order == want
+            for r in range(r0, min(r1, block.F32_PERSIST_TILE)):
+                assert (m0, n0, r) not in rows
+                rows[m0, n0, r] = True
+    tiles = (-(-M // block.F32_PERSIST_TILE)
+             * -(-N // block.F32_PERSIST_TILE_N))
+    assert len(rows) == tiles * block.F32_PERSIST_TILE
+    base = block.f32_persist_schedule(M, N, K, chunk,
+                                      block.f32_persist_grid(M, N, K, chunk,
+                                                             132))
+    assert sorted(j[:4] for _, js in sched for j in js) == sorted(
+        j[:4] for _, js in base for j in js)
+
+
+@pytest.mark.parametrize("M", [144, 288])
+@pytest.mark.parametrize("N,K", [(3072, 1024), (1024, 1024), (4096, 1024),
+                                 (1024, 4096)])
+def test_f32_persist_grid_is_one_round(M, N, K):
+    """At a denoise step's 144 and 288 rows the persistent form launches at
+    most one round of resident blocks (F32_PERSIST_BLOCKS an SM on 132
+    SMs: 528), every block with a unit, and a whole number an SM where
+    there are units for all (the kernel's cooperative launch refuses a
+    grid past the card's round)."""
+    chunk = block.f32_persist_chunk(M, N, K, 132)
+    units = block.f32_persist_units(M, N, K, chunk)
+    grid = block.f32_persist_grid(M, N, K, chunk, 132)
+    assert grid == min(units, block.F32_PERSIST_BLOCKS * 132)
+    assert grid <= 528 and (grid == units or grid == 528)
+    sched = block.f32_persist_schedule(M, N, K, chunk, grid)
+    assert all(mine for mine, _ in sched)
+
+
+# the persistent form's chunk counts at the step's products, the fastest
+# or within 6% of it in `gemm_sweep.py --persist-shapes` (PERF.md section
+# 6, PR 22 run 9): 144 rows qkv 7, the out-projection 16, fc1 4 (each the
+# fastest), fc2 22 (16 fastest, 0.0410 against 0.0417 ms); 288 rows qkv 3
+# (7, 0.0646 against 0.0656), the out-projection 11 (8, 0.0258 against
+# 0.0274), fc1 2, fc2 11 (8, 0.0695 against 0.0707)
+@pytest.mark.parametrize("M,N,K,splits", [
+    (144, 3072, 1024, 7), (144, 1024, 1024, 16), (144, 4096, 1024, 4),
+    (144, 1024, 4096, 22), (288, 3072, 1024, 3), (288, 1024, 1024, 11),
+    (288, 4096, 1024, 2), (288, 1024, 4096, 11)])
+def test_f32_form_rule_follows_the_sweep(M, N, K, splits):
+    """The fp32 forward's form at the step's products is the persistent
+    one (faster than the serving form at each of them in `gemm_sweep.py
+    --f32 --forms`), at the chunk counts its plan models from the sweep;
+    from 432 rows the forms stay: k-major for qkv, fc1 and fc2, serving
+    for the out-projection below 720."""
+    assert block.f32_form(M, N, K) == block.F32_FORM_PERSIST
+    assert -(-K // block.f32_persist_chunk(M, N, K, 132)) == splits
+    assert block.f32_form(432, N, K) == (
+        block.F32_FORM_K_MAJOR if N * K >= block.F32_FWD_WIDE_WEIGHTS
+        else block.F32_FORM_SERVE)
+    assert block.f32_form(720, N, K) == block.F32_FORM_K_MAJOR
 
 
 @pytest.mark.parametrize("n_frames,S", [(1, 144), (4, 144), (80, 144),
