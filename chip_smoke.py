@@ -51,7 +51,12 @@ Phases (any failure exits nonzero and prints no result line):
      forward of int8-forward training) at the B=16 training shape: every
      output against the plain version, the output bit-equal to the call
      without emit_train, timed beside torch._int_mm composites, with the
-     int8 GEMMs' K plan at 11,520 rows. The exact GELU (approx_gelu=False)
+     int8 GEMMs' plan at 11,520 rows (form, tile, K chunks, int32 partial
+     MB: the training form and none); `[kernel] gemm_s8_train`: that form
+     alone at 11,520 rows, each of its four products (fc1 with the fused
+     requantization) bit-equal to the weight-streaming tile and held
+     against its plain version, timed beside the streaming tile, the
+     plain version and torch._int_mm (its row in the kernel table). The exact GELU (approx_gelu=False)
      of #2 (bf16), #9 and the pairs #10 / #11 at the step's shapes under the
      same 2**-6 rule, each pair bit-equal to its sequential wrappers in
      that mode (each row's "exact_gelu"). Rows 1-5 in fp32 (`[kernel] ...
@@ -136,7 +141,8 @@ Phases (any failure exits nonzero and prints no result line):
      encode (unfused, as gtax's trainer) is timed beside the fused one.
      Then the training modes, from the same DiT init and VAE:
      `[train int8]` (int8_forward, 3 steps: launches a micro-step #7 16,
-     #8 16, #9 32, #12 16, #13 16, #14 32 and none of #1-#3, asserted;
+     #8 16, #9 32, #12 16, #13 16, #14 32, gemm_s8_train 128 and none of
+     #1-#3, asserted;
      one micro-step's gradients against the bf16 forward's, GRAD_TOL;
      loss, step time, MFU, device busy and peak memory beside the bf16
      step's), `[train remat]` (remat: true; one B=16 micro-step's loss and
@@ -1965,23 +1971,165 @@ def train_kernel_cases(dt=torch.bfloat16):
 
 
 def s8_plans(name, M):
-    """{product: (K chunk, K chunks, int32 partial MB)} of the int8 GEMMs of
-    an int8 wrapper at M rows, as quant.s8_chunk plans them (logged)."""
+    """{product: quant.s8_plan_of (form, tile, K chunk, K chunks, int32
+    partial MB)} of the int8 GEMMs of an int8 wrapper at M rows (logged);
+    at training rows (from quant.S8_TRAIN_ROWS) every product must take
+    the training form and store no partial."""
     from gtax_torch.kernels import block, quant
 
     sms = block.sm_count(torch.device("cuda"))
     gemms = ({"fc1": (4 * D, D, D), "fc2": (D, 4 * D, 512)}
              if "mlp" in name else
              {"qkv": (3 * D, D, D), "out": (D, D, D)})
-    plans = {}
-    for what, (N, K, group) in gemms.items():
-        chunk = quant.s8_chunk(M, N, K, group, sms)
-        splits = -(-K // chunk)
-        plans[what] = {"k_chunk": chunk, "splits": splits,
-                       "partials_mb": (splits * M * N * 4 / 1e6
-                                       if splits > 1 else 0.0)}
+    plans = {what: quant.s8_plan_of(M, N, K, group, sms)
+             for what, (N, K, group) in gemms.items()}
     log(f"[kernel] {name} s8 plan at M={M}: {json.dumps(plans)}")
+    if M >= quant.S8_TRAIN_ROWS and any(
+            p["form"] != "train" or p["partials_mb"] for p in plans.values()):
+        fail(f"{name}: an int8 product at {M} rows is off the training form "
+             f"or stores a partial: {plans}")
     return plans
+
+
+S8_TRAIN_SOURCE = "gtax_torch/csrc/gemm_s8_train.cuh"
+S8_TRAIN_REPLACES = (
+    "gtax/kernels/quant.py:267 (_mlp_kernel_q: the fc1 and per-H-chunk fc2 "
+    "int8 dots and _quant_rows of the GELU rows; :91 _spatial_kernel_q and "
+    ":127 _temporal_kernel_q: _qdot), at training rows")
+
+
+# the outputs of each product as s8_train_phase's run() returns them
+S8_TRAIN_OUTPUTS = {"qkv": ("out",), "out": ("out", "y"),
+                    "fc1": ("h1", "hq", "hs"), "fc2": ("out", "y")}
+
+
+def s8_train_phase(timer, rows):
+    """`[kernel] gemm_s8_train`: the int8 GEMM's training form at the B=16
+    step's 11,520 rows, each of its four products as #7-#9 launch it (qkv
+    EPI_F32; out and fc2 the gated epilogue with emit_train's y, fc2 in
+    eight K groups of 512; fc1 with the requantization of its GELU rows
+    and h1) against the weight-streaming tile and quant_rows (bit for bit,
+    else a failure) and against its plain version (s8_fold_plain through
+    the epilogue's torch ops, bit equality printed), each output on its
+    own: a float output within 2**-6 of its largest magnitude, fc1's hs
+    (the row scales) each within 1e-6 of its own value, hq (requant_plain,
+    the card's tanhf against torch's GELU) within one int8 step; timed
+    beside the streaming tile, the plain version and one torch._int_mm of
+    the product; bound: the int8 operations against the bytes. Its
+    kernel-table row is fc1's (max_abs_err: the largest of every
+    product's outputs held by the absolute rule), with every product's."""
+    from gtax_torch.kernels import quant
+
+    gen = np.random.default_rng(560)
+    M, G = 80 * S_DIT, 512
+    f32, bf = torch.float32, torch.bfloat16
+    xs = rand(gen, (M, D))
+    gate = rand(gen, (80, 3 * D), 0.5)[:, :D]
+    g_rows = gate.float().repeat_interleave(S_DIT, 0)
+    prods = {}
+    for what, (N, K, group) in (("qkv", (3 * D, D, D)),
+                                ("out", (D, D, D)),
+                                ("fc1", (4 * D, D, D)),
+                                ("fc2", (D, 4 * D, G))):
+        q, sa = quant.quant_rows(rand(gen, (M, K), 1.0, f32), group)
+        w_q, w_s = quant.quantize_weight(rand(gen, (K, N), 0.02))
+        b = rand(gen, (N,), 0.02, f32)
+        if what == "qkv":
+            def run(form, q=q, sa=sa, w_q=w_q, w_s=w_s, N=N):
+                out = torch.empty((M, N), dtype=f32, device="cuda")
+                quant._gemm_s8(q, sa, w_q, w_s, out, quant.EPI_F32,
+                               form=form)
+                return (out,)
+
+            def plain(q=q, sa=sa, w_q=w_q, w_s=w_s):
+                return (quant.s8_fold_plain(q, sa, w_q, w_s),)
+            by = nbytes(q, sa, w_q, w_s) + M * N * 4
+        elif what == "fc1":
+            def run(form, q=q, sa=sa, w_q=w_q, w_s=w_s, b=b, N=N):
+                h1 = torch.empty((M, N), dtype=bf, device="cuda")
+                if form == "train":
+                    return (h1, *quant._fc1_quant_cuda(
+                        q, sa, w_q, w_s, b, quant.EPI_BIAS_GELU_F32, h1, G))
+                h = torch.empty((M, N), dtype=f32, device="cuda")
+                quant._gemm_s8(q, sa, w_q, w_s, h, quant.EPI_BIAS_GELU_F32,
+                               bias=b, out2=h1, form="stream")
+                return (h1, *quant._quant_rows_cuda(h, G))
+
+            def plain(q=q, sa=sa, w_q=w_q, w_s=w_s, b=b):
+                u = quant.s8_fold_plain(q, sa, w_q, w_s) + b
+                return (u.to(bf), *quant.requant_plain(u, True, G))
+            by = nbytes(q, sa, w_q, w_s, b) + M * N * 3 + M * N // G * 4
+        else:
+            def run(form, q=q, sa=sa, w_q=w_q, w_s=w_s, b=b):
+                out, y = (torch.empty((M, D), dtype=bf, device="cuda")
+                          for _ in range(2))
+                quant._gemm_s8(q, sa, w_q, w_s, out, quant.EPI_BIAS_GATED,
+                               bias=b, resid=xs, gate=gate, S=S_DIT,
+                               out2=y, form=form)
+                return out, y
+
+            def plain(q=q, sa=sa, w_q=w_q, w_s=w_s, b=b):
+                u = quant.s8_fold_plain(q, sa, w_q, w_s) + b
+                return (xs.float() + g_rows * u).to(bf), u.to(bf)
+            by = nbytes(q, sa, w_q, w_s, b, xs, gate) + 2 * M * D * 2
+        got, stream, ref = run("train"), run("stream"), plain()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(got, stream))
+        plain_same = all(torch.equal(a, c) for a, c in zip(got, ref))
+        errors = {}
+        for name, a, c in zip(S8_TRAIN_OUTPUTS[what], got, ref):
+            d, mag = (a.float() - c.float()).abs(), c.float().abs()
+            if a.dtype == torch.int8:  # int8 steps
+                e, tol = d.max().item(), 1.0
+            elif name == "hs":  # each scale to its own magnitude
+                e, tol = (d / mag).max().item(), 1e-6
+            else:
+                e, tol = d.max().item(), 2.0**-6 * mag.max().item()
+            errors[name] = {"err": e, "tol": tol,
+                            "rule": ("int8 steps" if a.dtype == torch.int8
+                                     else "relative, each element"
+                                     if name == "hs" else
+                                     "absolute, 2**-6 of the largest")}
+        err = max(v["err"] for k, v in errors.items()
+                  if v["rule"].startswith("absolute"))
+        ok = all(v["err"] <= v["tol"] for v in errors.values())
+        ms, stream_ms = timer(lambda: run("train")), timer(
+            lambda: run("stream"))
+        plain_ms = timer(plain)
+        lib_ms = timer(lambda q=q, w_q=w_q: torch._int_mm(q, w_q))
+        ops = 2 * M * N * K
+        bms, by_what = bound_ms(by, 0, ops)
+        prods[what] = {
+            "shape": f"M={M} N={N} K={K} group={group}", "ms": ms,
+            "stream_ms": stream_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bms, "bound_by": by_what,
+            "tops": ops / ms / 1e9, "max_abs_err": err, "errors": errors,
+            "bit_equal_to_stream": same, "bit_equal_to_plain": plain_same,
+            "tile": quant.s8_plan_of(M, N, K, group, 132)["tile"]}
+        log(f"[kernel] gemm_s8_train {what:4s} M={M} N={N} K={K} group="
+            f"{group}: ms={ms:.4f} ({ops / ms / 1e9:.0f} TOP/s, "
+            f"{100 * ops / ms / 1e9 / 1979:.1f}% of 1,979) stream_ms="
+            f"{stream_ms:.4f} plain_ms={plain_ms:.4f} torch._int_mm "
+            f"{lib_ms:.4f} bound_ms={bms:.4f} ({by_what}); bit-equal to the "
+            f"streaming tile: {same}; to the plain version: {plain_same}; "
+            "against it: " + ", ".join(
+                f"{k} {v['err']:.3g} (tol {v['tol']:.3g}, {v['rule']})"
+                for k, v in errors.items()))
+        if not same:
+            fail(f"gemm_s8_train {what}: differs from the streaming tile")
+        if not ok:
+            fail(f"gemm_s8_train {what} disagrees with its plain version: "
+                 f"{errors}")
+        del got, stream, ref, run, plain
+        torch.cuda.empty_cache()
+    main = prods["fc1"]
+    rows["gemm_s8_train"] = {
+        "name": "gemm_s8_train", "route": "cuda", "source": S8_TRAIN_SOURCE,
+        "replaces": S8_TRAIN_REPLACES, "launches": None,
+        **{k: main[k] for k in ("ms", "max_abs_err", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "shape")},
+        "library": "torch._int_mm (int32 out, no epilogue)",
+        "products": prods}
 
 
 def train_kernel_phase(rows, dt=torch.bfloat16):
@@ -2075,6 +2223,9 @@ def train_kernel_phase(rows, dt=torch.bfloat16):
                     temporal_attention_bound(split, M, 3))
         del kern, plain, lib
         torch.cuda.empty_cache()
+    if not f32:
+        with torch.no_grad():
+            s8_train_phase(timer, rows)
 
 
 # -------------------------------------------------------------- end to end
@@ -3461,7 +3612,9 @@ def train_phase(rows):
 # the training modes of configs/train_dit_actions.yaml beside `[train]`'s
 # bf16 `fused_all` step (its cuts, one DiT init and one VAE)
 INT8_TRAIN_PATH = {"fused_spatial_branch_q": 16, "fused_temporal_branch_q": 16,
-                   "fused_mlp_branch_q": 32, **BWD_PATH}  # a micro-step
+                   "fused_mlp_branch_q": 32, **BWD_PATH,  # a micro-step
+                   # their int8 products at 11,520 rows: two a call
+                   "gemm_s8_train": 2 * (16 + 16 + 32)}
 # the launches a backend's micro-step must make (True: some, False: none)
 BACKEND_PATH = {
     "xla": {},
@@ -3479,7 +3632,7 @@ def mode_wrappers():
 
     return {**train_wrappers(),
             **{name: getattr(quant, name) for name in INT8_TRAIN_PATH
-               if name.endswith("_q")}}
+               if name.endswith("_q") or name == "gemm_s8_train"}}
 
 
 def mode_trainer(ctx, tag, **overrides):
@@ -3556,6 +3709,8 @@ def train_int8_phase(ctx, rows):
     for name in ("fused_spatial_branch_q", "fused_temporal_branch_q",
                  "fused_mlp_branch_q"):
         rows[name]["train_launches"] = counts[name] // steps
+    # the training form's main path: a train step's launches
+    rows["gemm_s8_train"]["launches"] = counts["gemm_s8_train"] // steps
     for m in records:
         log(f"[{tag}] step {m['step']}: train_loss={m['train_loss']:.5g} "
             f"grad_norm={m['grad_norm']:.5g} step_time_s="
@@ -5334,8 +5489,8 @@ def main():
     multi["http_serve"] = timed("http serve", http_phase, rows)
     train = rows.pop("train")
     train["resume"] = rows.pop("train_resume")
-    if len(rows) != 16:
-        fail(f"the kernel table has {len(rows)} rows, not 16")
+    if len(rows) != 17:  # the sixteen TPU kernels' and gemm_s8_train's
+        fail(f"the kernel table has {len(rows)} rows, not 17")
     for row in rows.values():
         if not isinstance(row["launches"], int):
             fail(f"{row['name']}: no launch count from a main-path run")

@@ -219,15 +219,83 @@ __device__ __forceinline__ float4 rope_factor(const Args& p, int gm, int gn) {
   return p.rope[(size_t)(gm % p.S) * (p.rope_hd / 2) + gn % p.rope_hd / 2];
 }
 
-// Output pair (gm, gn), (gm, gn + 1) from its folded fp32 sums: y = acc *
-// ws[col], then the epilogue, each op rounded once (rf: EPI_F32_ROPE's
-// rope_factor of the pair, loaded by the caller).
+// What the epilogue of output pair (gm, gn), (gm, gn + 1) reads besides
+// its sums: the column scales, and (past EPI_F32) the bias and the gated
+// residual's x and gate.
+struct EpiIn {
+  float2 ws, b, x, g;
+};
+
+// a float of the kernel's read-only inputs; NC: through the non-coherent
+// path, which lets the compiler move the load across the epilogue's
+// stores (only for inputs no block of the launch writes)
+template <bool NC>
+__device__ __forceinline__ float ld_in(const float* a) {
+  if constexpr (NC)
+    return __ldg(a);
+  else
+    return *a;
+}
+template <bool NC>
+__device__ __forceinline__ float ld_in(const bf16* a) {
+  if constexpr (NC)
+    return bf2f(__ldg(a));
+  else
+    return bf2f(*a);
+}
+// two neighbouring elements of a row (8- or 4-byte aligned)
+template <bool NC>
+__device__ __forceinline__ float2 ld2_in(const float* a) {
+  const float2* v = reinterpret_cast<const float2*>(a);
+  if constexpr (NC)
+    return __ldg(v);
+  else
+    return *v;
+}
+template <bool NC>
+__device__ __forceinline__ float2 ld2_in(const bf16* a) {
+  const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(a);
+  if constexpr (NC)
+    return __bfloat1622float2(__ldg(v));
+  else
+    return __bfloat1622float2(*v);
+}
+
+template <int EPI, bool NC = false>
+__device__ __forceinline__ EpiIn epi_load(const Args& p, int gm, int gn) {
+  EpiIn in{};
+  in.ws = make_float2(ld_in<NC>(p.ws + gn), ld_in<NC>(p.ws + gn + 1));
+  if (EPI == EPI_F32 || EPI == EPI_F32_ROPE) return in;
+  in.b = p.bias_f32
+             ? make_float2(ld_in<NC>(static_cast<const float*>(p.bias) + gn),
+                           ld_in<NC>(static_cast<const float*>(p.bias) + gn +
+                                     1))
+             : make_float2(ld_in<NC>(static_cast<const bf16*>(p.bias) + gn),
+                           ld_in<NC>(static_cast<const bf16*>(p.bias) + gn +
+                                     1));
+  const size_t o = (size_t)gm * p.N + gn;
+  const size_t gi = (size_t)(gm / p.S) * p.gate_stride + gn;
+  if (EPI == EPI_BIAS_GATED_F32 || EPI == EPI_BIAS_GATED_F32_Y) {
+    const float* gate = static_cast<const float*>(p.gate) + gi;
+    in.x = ld2_in<NC>(static_cast<const float*>(p.resid) + o);
+    in.g = make_float2(ld_in<NC>(gate), ld_in<NC>(gate + 1));
+  } else if (EPI == EPI_BIAS_GATED) {
+    const bf16* gate = static_cast<const bf16*>(p.gate) + gi;
+    in.x = ld2_in<NC>(static_cast<const bf16*>(p.resid) + o);
+    in.g = make_float2(ld_in<NC>(gate), ld_in<NC>(gate + 1));
+  }
+  return in;
+}
+
+// Output pair (gm, gn), (gm, gn + 1) from its folded fp32 sums and its
+// inputs (epi_load): y = acc * ws[col], then the epilogue, each op rounded
+// once (rf: EPI_F32_ROPE's rope_factor of the pair, loaded by the caller).
 template <int EPI>
-__device__ __forceinline__ void store_out(const Args& p, int gm, int gn,
+__device__ __forceinline__ void epi_store(const Args& p, int gm, int gn,
                                           float f0, float f1,
-                                          float4 rf = {}) {
-  const float y0 = __fmul_rn(f0, p.ws[gn]);
-  const float y1 = __fmul_rn(f1, p.ws[gn + 1]);
+                                          const EpiIn& in, float4 rf = {}) {
+  const float y0 = __fmul_rn(f0, in.ws.x);
+  const float y1 = __fmul_rn(f1, in.ws.y);
   const size_t o = (size_t)gm * p.N + gn;
   if (EPI == EPI_F32 || EPI == EPI_F32_ROPE) {
     float2 y = make_float2(y0, y1);
@@ -236,8 +304,8 @@ __device__ __forceinline__ void store_out(const Args& p, int gm, int gn,
     *reinterpret_cast<float2*>(static_cast<float*>(p.C) + o) = y;
     return;
   }
-  const float u0 = __fadd_rn(y0, load_bias(p.bias, p.bias_f32, gn));
-  const float u1 = __fadd_rn(y1, load_bias(p.bias, p.bias_f32, gn + 1));
+  const float u0 = __fadd_rn(y0, in.b.x);
+  const float u1 = __fadd_rn(y1, in.b.y);
   if constexpr (c2_f32<EPI>())
     store_pair(reinterpret_cast<float*>(p.C2), o, u0, u1);
   else if (p.C2 != nullptr)
@@ -249,22 +317,23 @@ __device__ __forceinline__ void store_out(const Args& p, int gm, int gn,
     *reinterpret_cast<float2*>(static_cast<float*>(p.C) + o) =
         make_float2(gelu_exact_rn(u0), gelu_exact_rn(u1));
   } else if (EPI == EPI_BIAS_GATED_F32 || EPI == EPI_BIAS_GATED_F32_Y) {
-    const float2 x =
-        *reinterpret_cast<const float2*>(static_cast<const float*>(p.resid) + o);
-    const float* gate = static_cast<const float*>(p.gate) +
-                        (size_t)(gm / p.S) * p.gate_stride + gn;
     *reinterpret_cast<float2*>(static_cast<float*>(p.C) + o) =
-        make_float2(__fadd_rn(x.x, __fmul_rn(gate[0], u0)),
-                    __fadd_rn(x.y, __fmul_rn(gate[1], u1)));
+        make_float2(__fadd_rn(in.x.x, __fmul_rn(in.g.x, u0)),
+                    __fadd_rn(in.x.y, __fmul_rn(in.g.y, u1)));
   } else {
-    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-        static_cast<const bf16*>(p.resid) + o));
-    const bf16* gate = static_cast<const bf16*>(p.gate);
-    const size_t gi = (size_t)(gm / p.S) * p.gate_stride + gn;
     store_pair(static_cast<bf16*>(p.C), o,
-               __fadd_rn(x.x, __fmul_rn(bf2f(gate[gi]), u0)),
-               __fadd_rn(x.y, __fmul_rn(bf2f(gate[gi + 1]), u1)));
+               __fadd_rn(in.x.x, __fmul_rn(in.g.x, u0)),
+               __fadd_rn(in.x.y, __fmul_rn(in.g.y, u1)));
   }
+}
+
+// Output pair (gm, gn), (gm, gn + 1) from its folded fp32 sums: its
+// inputs, then the epilogue.
+template <int EPI>
+__device__ __forceinline__ void store_out(const Args& p, int gm, int gn,
+                                          float f0, float f1,
+                                          float4 rf = {}) {
+  epi_store<EPI>(p, gm, gn, f0, f1, epi_load<EPI>(p, gm, gn), rf);
 }
 
 // Work unit u of the GEMM: tile u / splits (row tile major), K chunk

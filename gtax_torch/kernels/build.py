@@ -84,6 +84,10 @@ SIGNATURES = {
     # M, N, K, S, epi, k_chunk, part, stream
     "gtax_gemm_s8": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I,
                      _I, _I, _I, _I, _P, _P),
+    # gtax_gemm_s8's arguments without k_chunk and part, then hq, hs,
+    # stream
+    "gtax_gemm_s8_train": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I,
+                           _I, _I, _I, _I, _I, _P, _P, _P),
     # a, q, scale, rows, cols, G, stream
     "gtax_quant_rows": (_P, _P, _P, _I, _I, _I, _P),
     # qkv, qkv_f32, freqs, out, out_f32, q_out, k_out, v_out, n_frames, S,

@@ -30,6 +30,11 @@ The tensor's device picks the path, as in block.py: a CPU tensor gets the
 plain version (`*_q_plain`), a CUDA tensor gets the sm_90a kernels of
 gtax_torch/csrc (`ln_mod` int8 mode, `gemm_s8`, `quant_rows`, and the
 fp32-output modes of `attn_frame` / `attn_temporal`) or an exception.
+The int8 GEMM has two forms, picked by rows (`s8_form`): below
+S8_TRAIN_ROWS the weight-streaming tile (`gemm_s8`: all rows of a step in
+one unit, split K), from it the training form (`gemm_s8_train`:
+persistent 128-row tiles, K whole, fc1's requantization in its epilogue);
+both give the same bits.
 The activations' dtype is x's: bf16, or fp32 (gtax's kernels at x.dtype =
 float32, as gtax serves dtype="float32" with int8): there every cast to
 x.dtype is a no-op, the int8 rows are quantized from fp32 values as in
@@ -143,6 +148,35 @@ def qdot(a32, w_q, w_s):
     return mm_int(q, w_q) * sa * w_s.reshape(-1)
 
 
+def s8_fold_plain(q, sa, w_q, w_s):
+    """The int8 product as the card's GEMMs fold it (the plain version of
+    gemm_s8 and gemm_s8_train before their epilogues): each K group's
+    exact sum times its row scale (sa: (M, groups)), added in group order
+    from 0, times the column scale."""
+    group = q.shape[-1] // sa.shape[-1]
+    acc = torch.zeros((*q.shape[:-1], w_q.shape[-1]), device=q.device)
+    for g in range(sa.shape[-1]):
+        cols = slice(g * group, (g + 1) * group)
+        acc = acc + mm_int(q[..., cols], w_q[cols]) * sa[..., g:g + 1]
+    return acc * w_s.reshape(-1)
+
+
+def requant_plain(u, approx_gelu, group):
+    """The MLP's hidden requantization: the GELU (tanh or exact) of the
+    fp32 fc1 rows u + b1, then per-row int8 in groups of `group` columns
+    (gtax's _quant_rows of each H-chunk). Returns (hq, hs)."""
+    return quant_rows(gelu32(approx_gelu)(u), group)
+
+
+def fc1_quant_plain(a32, w1_q, w1_s, b1, approx_gelu, group, dtype):
+    """The plain version of fc1's training form (gemm_s8_train with the
+    requantization in its epilogue): u = dequant(int8 rows of a32 @ w1_q)
+    + b1 in fp32; returns (h1 = u in dtype, hq, hs), hq and hs
+    requant_plain's of u."""
+    u = qdot(a32, w1_q, w1_s) + b1.float()
+    return (u.to(dtype), *requant_plain(u, approx_gelu, group))
+
+
 def _mlp_chunks(h: int) -> int:
     """gtax's H split for the int8 MLP: the largest of 8, 4, 2 whose chunk
     width is a multiple of 128, else 1 (gtax/kernels/quant.py
@@ -184,8 +218,8 @@ def mlp_branch_q_plain(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
     Hd = w1_q.shape[-1]
     nc = _mlp_chunks(Hd)
     G = Hd // nc
-    h = qdot(modulated32(x32, shift, scale), w1_q, w1_s) + b1.float()
-    hq, hs = quant_rows(gelu32(approx_gelu)(h), G)
+    h1, hq, hs = fc1_quant_plain(modulated32(x32, shift, scale), w1_q, w1_s,
+                                 b1, approx_gelu, G, x.dtype)
     acc = torch.zeros_like(x32)
     for c in range(nc):  # chunk order, as the TPU kernel's grid
         cols = slice(c * G, (c + 1) * G)
@@ -193,7 +227,7 @@ def mlp_branch_q_plain(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
     y = acc * w2_s.reshape(-1) + b2.float()
     out = _gated(x32, gate, y, x.dtype)
     if emit_train:  # h1 before the GELU, column by column as gtax's chunks
-        return out, h.to(x.dtype), y.to(x.dtype)
+        return out, h1, y.to(x.dtype)
     return out
 
 
@@ -289,6 +323,60 @@ def s8_chunk(M, N, K, group, blocks):
                    c.s8_splits)
 
 
+# The training form (csrc/gemm_s8_train.cuh: persistent, 128-row tiles, K
+# whole, each K group folded in registers): every int8 product from this
+# many rows takes it, the least row count from which it beats the
+# weight-streaming tile at all four products (gemm_sweep.py --int8);
+# below, the streaming tile, as the pairs (csrc/pair_q.cuh) always.
+S8_TRAIN_ROWS = 1440
+S8_TRAIN_K_STEP = 128  # its k-step (a K group is a whole number of them)
+# fc1's requantization group in the fused form (_mlp_chunks' 512 at H =
+# 4096): a cluster of two 128 x 256 tiles
+S8_QGROUP = 512
+# the epilogues the training form builds with several K groups (fc2's);
+# EPI_F32 it builds with one (qkv), the GELU ones with one and fc1's
+# requantization only (gemm_s8_train.cu)
+S8_TRAIN_GATED = (EPI_BIAS_GATED, EPI_BIAS_GATED_F32, EPI_BIAS_GATED_F32_Y)
+S8_TRAIN_GELU = (EPI_BIAS_GELU_F32, EPI_BIAS_GELU_ERF_F32,
+                 EPI_BIAS_GELU_F32_H, EPI_BIAS_GELU_ERF_F32_H)
+
+
+def s8_form(M):
+    """The int8 GEMM's form at M rows: "train" or "stream"."""
+    return "train" if M >= S8_TRAIN_ROWS else "stream"
+
+
+def s8_train_tile(N, K, group):
+    """The training form's tile columns for a product: 256 with one K
+    group (qkv, out, fc1: each B stage read for twice the products), 128
+    with several (fc2: the fp32 fold beside the int32 sums), as
+    gemm_sweep.py --int8 measured them; the kernel derives the same."""
+    return 256 if group == K else 128
+
+
+def s8_train_builds(epi, groups, requant):
+    """Whether the training form has a kernel for epilogue `epi` over
+    `groups` K groups, with fc1's requantization (requant) or without."""
+    if epi in S8_TRAIN_GELU:
+        return requant and groups == 1
+    return not requant and (epi in S8_TRAIN_GATED or groups == 1)
+
+
+def s8_plan_of(M, N, K, group, blocks):
+    """The int8 GEMM's plan at M rows: {"form", "tile" (rows, columns of
+    a tile or a unit), "k_chunk", "splits", "partials_mb" (the int32
+    partials the split stores)}."""
+    if s8_form(M) == "train":
+        return {"form": "train", "tile": [128, s8_train_tile(N, K, group)],
+                "k_chunk": K, "splits": 1, "partials_mb": 0.0}
+    c = build.gemm_consts()
+    chunk = s8_chunk(M, N, K, group, blocks)
+    splits = -(-K // chunk)
+    return {"form": "stream", "tile": [c.s8_rows, c.s8_n], "k_chunk": chunk,
+            "splits": splits,
+            "partials_mb": splits * M * N * 4 / 1e6 if splits > 1 else 0.0}
+
+
 # ------------------------------------------------------- kernel launches
 
 def _check_scale(name, s, n):
@@ -336,19 +424,67 @@ def _quant_rows_cuda(a, group):
     return q, s
 
 
+def _epi_args(out, bias, resid, gate):
+    """The epilogue's pointers of a gemm_s8 / gemm_s8_train launch: C,
+    bias, bias_f32, resid, gate, gate_stride."""
+    return (block._ptr(out), None if bias is None else bias.data_ptr(),
+            int(bias is not None and bias.dtype == F32),
+            None if resid is None else resid.data_ptr(),
+            None if gate is None else gate.data_ptr(),
+            0 if gate is None else gate.stride(0))
+
+
+def gemm_s8_train(a, sa, w_q, w_s, out, epi, bias=None, resid=None,
+                  gate=None, S=1, out2=None, hq=None, hs=None):
+    """The int8 GEMM's training form on CUDA tensors (csrc/gemm_s8_train.cuh):
+    _gemm_s8's arguments without the split; hq, hs: fc1's requantized GELU
+    rows ((M, N) int8, (M, N // S8_QGROUP) fp32; a GELU epilogue, one K
+    group, out None). Its tile is s8_train_tile's; a product it builds no
+    kernel for (s8_train_builds) raises.
+    Its plain versions: s8_fold_plain and the epilogue, fc1_quant_plain.
+    Counts its launches in `launches`."""
+    M, K = a.shape
+    N = w_q.shape[1]
+    group = K // sa.shape[1]
+    _need(a.is_cuda, lambda: "gemm_s8_train takes CUDA tensors")
+    tile = s8_train_tile(N, K, group)
+    _need(N % tile == 0 and s8_train_builds(epi, K // group, hq is not None),
+          lambda: f"gemm_s8_train: no kernel for epilogue {epi} at N={N}, "
+                  f"K={K} in groups of {group}"
+                  + (" with the requantization" if hq is not None else ""))
+    C, b, b32, r, g, gs = _epi_args(out, bias, resid, gate)
+    build.launch(
+        "gtax_gemm_s8_train", a.data_ptr(), w_q.data_ptr(), C,
+        block._ptr(out2), sa.data_ptr(), group, w_s.data_ptr(), b, b32, r, g,
+        gs, M, N, K, S, epi, block._ptr(hq), block._ptr(hs), _stream(a))
+    gemm_s8_train.launches += 1
+
+
+gemm_s8_train.launches = 0
+
+
 def _gemm_s8(a, sa, w_q, w_s, out, epi, bias=None, resid=None, gate=None,
-             S=1, k_chunk=None, out2=None):
+             S=1, k_chunk=None, out2=None, form=None):
     """out = epilogue(dequant(a @ w_q)); sa (M, K // group) row-group
     scales, the group width following from sa's shape; w_q in card_layout;
-    k_chunk: the split-K chunk, s8_chunk's by default; out2: the bf16
-    y + bias of the GELU epilogues / EPI_BIAS_GATED (emit_train), or the
-    fp32 one of epilogues 5-7."""
+    out2: the bf16 y + bias of the GELU epilogues / EPI_BIAS_GATED
+    (emit_train), or the fp32 one of epilogues 5-7. form: "stream" (the
+    weight-streaming tile, gemm_s8; k_chunk: its split-K chunk, s8_chunk's
+    by default) or "train" (gemm_s8_train), s8_form's by default."""
     M, K = a.shape
     N = w_q.shape[1]
     group = K // sa.shape[1]
     _need(group <= MAX_EXACT_K and group % 128 == 0,
           lambda: f"int8 K group of {group}: must be a multiple of 128 and "
                   f"at most {MAX_EXACT_K}")
+    form = form or s8_form(M)
+    _need(form in ("stream", "train"),
+          lambda: f"int8 GEMM form {form!r}: 'stream' or 'train'")
+    if form == "train":
+        _need(k_chunk is None,
+              lambda: "the training form takes K whole: no k_chunk")
+        gemm_s8_train(a, sa, w_q, w_s, out, epi, bias, resid, gate, S, out2)
+        return
     if k_chunk is None:
         k_chunk = s8_chunk(M, N, K, group, block.sm_count(a.device))
     splits = -(-K // k_chunk)
@@ -356,15 +492,27 @@ def _gemm_s8(a, sa, w_q, w_s, out, epi, bias=None, resid=None, gate=None,
     if splits > 1:
         part = torch.empty((splits, M, N), dtype=torch.int32,
                            device=a.device)
+    C, b, b32, r, g, gs = _epi_args(out, bias, resid, gate)
     build.launch(
-        "gtax_gemm_s8", a.data_ptr(), w_q.data_ptr(), out.data_ptr(),
-        block._ptr(out2), sa.data_ptr(), group, w_s.data_ptr(),
-        None if bias is None else bias.data_ptr(),
-        int(bias is not None and bias.dtype == F32),
-        None if resid is None else resid.data_ptr(),
-        None if gate is None else gate.data_ptr(),
-        0 if gate is None else gate.stride(0), M, N, K, S, epi, k_chunk,
-        block._ptr(part), _stream(a))
+        "gtax_gemm_s8", a.data_ptr(), w_q.data_ptr(), C, block._ptr(out2),
+        sa.data_ptr(), group, w_s.data_ptr(), b, b32, r, g, gs, M, N, K, S,
+        epi, k_chunk, block._ptr(part), _stream(a))
+
+
+def _fc1_quant_cuda(a, sa, w_q, w_s, bias, epi, h1, group):
+    """fc1 on the training form with the requantization of its GELU rows
+    in its epilogue: (hq (M, N) int8, hs (M, N // group) fp32), as
+    _quant_rows_cuda of epilogue `epi`'s output; h1: its second output
+    (y + bias, or None)."""
+    M, N = a.shape[0], w_q.shape[1]
+    _need(group == S8_QGROUP,
+          lambda: f"the fused requantization takes groups of {S8_QGROUP}, "
+                  f"not {group}")
+    hq = torch.empty((M, N), dtype=I8, device=a.device)
+    hs = torch.empty((M, N // group), dtype=F32, device=a.device)
+    gemm_s8_train(a, sa, w_q, w_s, None, epi, bias=bias, out2=h1, hq=hq,
+                  hs=hs)
+    return hq, hs
 
 
 def _qkv_cuda(x, shift, scale, qkv_q, qkv_s):
@@ -422,7 +570,8 @@ def fused_spatial_branch_q(x, shift, scale, gate, qkv_q, qkv_s, out_q,
     scales) -> gemm_s8 (fp32 qkv) -> attn_frame (fp32 out; with
     emit_train it also stores the bf16 q, k, v it attends with) ->
     quant_rows -> gemm_s8 (+bias, gated residual; with emit_train also the
-    bf16 y): 5 launches. Bound: the 4 MB of int8 qkv/out weights at the
+    bf16 y): 5 launches, the two products on gemm_s8_train from
+    S8_TRAIN_ROWS rows. Bound: the 4 MB of int8 qkv/out weights at the
     serving row counts (bytes), operations at training's."""
     block.forward_only("fused_spatial_branch_q", x, shift, scale, gate,
                        out_b)
@@ -466,8 +615,10 @@ def fused_mlp_branch_q(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
     GELU, fp32; with emit_train also the bf16 h1 before the GELU) ->
     quant_rows (one scale per row and chunk) -> gemm_s8 (K grouped by
     chunk, +b2, gated residual; with emit_train also the bf16 y): 4
-    launches. Bound: the 8 MB of int8 fc1/fc2 weights at serving row
-    counts (bytes), operations at training's."""
+    launches; from S8_TRAIN_ROWS rows, ln_mod -> gemm_s8_train (fc1 with
+    the requantization in its epilogue: no fp32 h) -> gemm_s8_train (fc2,
+    its K groups folded in registers): 3. Bound: the 8 MB of int8 fc1/fc2
+    weights at serving row counts (bytes), operations at training's."""
     block.forward_only("fused_mlp_branch_q", x, shift, scale, gate, b1, b2)
     if x.device.type == "cpu":
         return mlp_branch_q_plain(x, shift, scale, gate, w1_q, w1_s, b1,
@@ -480,12 +631,16 @@ def fused_mlp_branch_q(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
     _check_bias("b1", b1, Hd)
     _check_bias("b2", b2, D)
     mq, ms = _ln_mod_q(x, shift, scale)
-    h = torch.empty((N * S, Hd), dtype=F32, device=x.device)
     h1 = (torch.empty((N, S, Hd), dtype=x.dtype, device=x.device)
           if emit_train else None)
-    _gemm_s8(mq, ms, w1_q, w1_s, h, _gelu_epi(x, approx_gelu, emit_train),
-             bias=b1, out2=h1)
-    hq, hs = _quant_rows_cuda(h, Hd // _mlp_chunks(Hd))
+    G = Hd // _mlp_chunks(Hd)
+    epi = _gelu_epi(x, approx_gelu, emit_train)
+    if s8_form(N * S) == "train" and G == S8_QGROUP:
+        hq, hs = _fc1_quant_cuda(mq, ms, w1_q, w1_s, b1, epi, h1, G)
+    else:  # the training form builds its GELU epilogues fused only
+        h = torch.empty((N * S, Hd), dtype=F32, device=x.device)
+        _gemm_s8(mq, ms, w1_q, w1_s, h, epi, bias=b1, out2=h1, form="stream")
+        hq, hs = _quant_rows_cuda(h, G)
     out = torch.empty_like(x)
     y = torch.empty_like(x) if emit_train else None
     _gemm_s8(hq, hs, w2_q, w2_s, out, _gated_epi(x, emit_train), bias=b2,

@@ -7,9 +7,17 @@ the serving step's four bf16 products at 144 and 288 rows on the small-M
 path at every K chunk count (1, 2, 4, 8 chunks) whose cooperative grid
 fits on the card, and on the tiled path,
 beside cuBLAS, the plan's (`block.gemm_chunk`) marked; or, with --int8,
-the four int8 products (fc2 in K groups of 512) at 144 and 288 rows at
-every K chunk the tile takes, beside one `torch._int_mm` of the whole
-product on a column-major weight, the plan's (`quant.s8_chunk`) marked;
+the four int8 products (fc2 in K groups of 512) at 144-11,520 rows
+(`INT8_ROWS`: the step, B > 1 serving, training at B=2-16): on the
+weight-streaming tile at every K chunk it takes at 144 and 288 rows and
+at the plan's chunk (`quant.s8_chunk`, marked) past them, on the training
+form (`csrc/gemm_s8_train.cuh`) at its tile, bit-equal to the streaming
+tile (qkv, out and fc1 through EPI_F32, fc2 through its gated epilogue as
+#9 runs it in bf16), and fc1 with the requantization of its GELU rows (the
+streaming tile and quant_rows, or the training form's fused epilogue),
+each beside one `torch._int_mm` of the whole product on a column-major
+weight; then the row count from which the training form wins every
+product (the threshold `quant.S8_TRAIN_ROWS` holds);
 or, with --f32, the fp32 GEMM (`block.launch_gemm_f32`, fp32 FFMA) at the
 four serving products at 144, 288, 432, 576 and 720 rows (each row marked
 with the form that runs it: the serving form's 48-row tiles, or the
@@ -199,32 +207,54 @@ def small_sweep():
     return rows
 
 
-def int8_sweep():
+# the int8 products' rows: a denoise step (1-2 frames), the P=4 step and
+# B > 1 serving (4 and 8 frames), training at B=2, 4, 8 and 16 (10-80
+# frames of 144 tokens)
+INT8_ROWS = (144, 288, 576, 1152, 1440, 2880, 5760, 11520)
+
+
+def int8_sweep(only_rows=None):
     from gtax_torch.kernels import block, build, quant
 
     gen = np.random.default_rng(12)
     c = build.gemm_consts()
+    train = hasattr(quant, "S8_TRAIN_ROWS")  # a checkout with the form
+    sms = block.sm_count(torch.device("cuda"))
     rows = []
     for N, K, _, what in SERVING:
         group = 512 if what == "fc2" else K
         w_q, w_s = quant.quantize_weight(torch.from_numpy(
             gen.standard_normal((K, N)).astype(np.float32) * 0.02).cuda())
         w_cm = w_q.t().contiguous().t()  # column-major, as _int_mm is fed
-        for M in (144, 288):
+        b = torch.from_numpy(gen.standard_normal(N).astype(
+            np.float32) * 0.02).cuda()
+        for M in only_rows or INT8_ROWS:
             a32 = torch.from_numpy(gen.standard_normal((M, K)).astype(
                 np.float32)).cuda()
             q, sa = quant.quant_rows(a32, group)
             out = torch.empty((M, N), dtype=torch.float32, device="cuda")
-            plan = quant.s8_chunk(M, N, K, group, block.sm_count(a32.device))
+            epi, kw = quant.EPI_F32, {}
+            if group < K:  # fc2 with its epilogue in #9 (bf16): the
+                # training form builds no EPI_F32 over several K groups
+                epi, S = quant.EPI_BIAS_GATED, 144
+                out = out.to(torch.bfloat16)
+                kw = {"bias": b, "resid": a32[:, :N].to(torch.bfloat16),
+                      "gate": a32[:-(-M // S), :N].to(torch.bfloat16),
+                      "S": S}
+            plan = quant.s8_chunk(M, N, K, group, sms)
             lib = median_ms(lambda: torch._int_mm(q, w_cm))
             steps = K // c.s8_k_step
             cands = [k * c.s8_k_step for k in range(steps, 0, -1)
                      if (group == K or (group // c.s8_k_step) % k == 0)
                      and -(-steps // k) <= c.s8_splits]
+            if M > 288:  # past the serving rows, the plan's chunk alone
+                cands = [plan]
+            stream = {"form": "stream"} if train else {}
             ref = None
             for chunk in cands:
                 ms = median_ms(lambda: quant._gemm_s8(
-                    q, sa, w_q, w_s, out, quant.EPI_F32, k_chunk=chunk))
+                    q, sa, w_q, w_s, out, epi, k_chunk=chunk, **kw,
+                    **stream))
                 got = out.clone()
                 ref = got if ref is None else ref
                 equal = bool(torch.equal(got, ref))
@@ -232,15 +262,103 @@ def int8_sweep():
                 units = -(-M // c.s8_rows) * (N // c.s8_n) * splits
                 mark = "  <- plan" if chunk == plan else ""
                 print(f"[int8] {what:8s} M={M} N={N} K={K} group={group} "
-                      f"{splits} chunks of {chunk} ({units} units): "
-                      f"{ms:.4f} ms, torch._int_mm {lib:.4f} ms, bit-equal "
-                      f"to one chunk {equal}{mark}", flush=True)
+                      f"stream, {splits} chunks of {chunk} ({units} units): "
+                      f"{ms:.4f} ms, {2 * M * N * K / ms / 1e9:.0f} TOP/s, "
+                      f"torch._int_mm {lib:.4f} ms, bit-equal to the first "
+                      f"{equal}{mark}", flush=True)
                 rows.append({"what": what, "M": M, "N": N, "K": K,
-                             "group": group, "k_chunk": chunk,
-                             "splits": splits, "units": units, "ms": ms,
-                             "library_ms": lib, "bit_equal": equal,
-                             "plan": chunk == plan})
+                             "group": group, "form": "stream",
+                             "k_chunk": chunk, "splits": splits,
+                             "units": units, "ms": ms, "library_ms": lib,
+                             "bit_equal": equal, "plan": chunk == plan})
+            if train:
+                rows.append(int8_train_row(quant, what, q, sa, w_q, w_s,
+                                           out, epi, kw, ref, lib, M, N, K,
+                                           group))
+            if what == "fc1":  # with the GELU and the requantization
+                rows += int8_fc1_quant_rows(quant, q, sa, w_q, w_s, b, M,
+                                            train)
+    if train and not only_rows:
+        int8_threshold(quant, rows)
     return rows
+
+
+def int8_train_row(quant, what, q, sa, w_q, w_s, out, epi, kw, ref, lib, M,
+                   N, K, group):
+    """The training form (csrc/gemm_s8_train.cuh) of one product at its
+    tile, bit-equal to the streaming tile's output ref."""
+    tile = quant.s8_train_tile(N, K, group)
+    ms = median_ms(lambda: quant._gemm_s8(q, sa, w_q, w_s, out, epi,
+                                          form="train", **kw))
+    equal = bool(torch.equal(out, ref))
+    print(f"[int8] {what:8s} M={M} N={N} K={K} group={group} train, "
+          f"128 x {tile} tiles: {ms:.4f} ms, "
+          f"{2 * M * N * K / ms / 1e9:.0f} TOP/s, torch._int_mm "
+          f"{lib:.4f} ms, bit-equal to the streaming tile {equal}",
+          flush=True)
+    return {"what": what, "M": M, "N": N, "K": K, "group": group,
+            "form": "train", "tile_n": tile, "ms": ms, "library_ms": lib,
+            "bit_equal": equal, "plan": True}
+
+
+def int8_fc1_quant_rows(quant, q, sa, w_q, w_s, b, M, train):
+    """fc1 with its epilogue and the requantization of its GELU rows in
+    512-column groups: the streaming tile's GELU epilogue then quant_rows,
+    and (train) the training form's fused requantization; (hq, hs)
+    bit-equal."""
+    N = w_q.shape[1]
+    G = N // quant._mlp_chunks(N)
+    h = torch.empty((M, N), dtype=torch.float32, device="cuda")
+    stream = {"form": "stream"} if train else {}
+    res = {}
+
+    def unfused():
+        quant._gemm_s8(q, sa, w_q, w_s, h, quant.EPI_BIAS_GELU_F32, bias=b,
+                       **stream)
+        res["stream"] = quant._quant_rows_cuda(h, G)
+
+    def fused():
+        res["train"] = quant._fc1_quant_cuda(q, sa, w_q, w_s, b,
+                                             quant.EPI_BIAS_GELU_F32, None, G)
+
+    rows = []
+    for form, fn in (("stream", unfused), ("train", fused)):
+        if form == "train" and not train:
+            continue
+        ms = median_ms(fn)
+        fn()
+        equal = all(torch.equal(x, y) for x, y in zip(res[form],
+                                                       res["stream"]))
+        print(f"[int8] fc1+quant M={M} N={N} K={q.shape[1]} {form}: "
+              f"{ms:.4f} ms, bit-equal to the streaming tile + quant_rows "
+              f"{equal}", flush=True)
+        rows.append({"what": "fc1+quant", "M": M, "N": N, "K": q.shape[1],
+                     "form": form, "ms": ms, "bit_equal": equal,
+                     "plan": True})
+    return rows
+
+
+def int8_threshold(quant, rows):
+    """The least swept row count from which the training form (fc1 with
+    its requantization) beats the streaming tile
+    (at its plan's chunk) at every product, there and at every larger
+    row count, beside the one quant.S8_TRAIN_ROWS holds."""
+    best = {}
+    for r in rows:
+        if r["plan"]:
+            best[(r["what"], r["M"], r["form"])] = r["ms"]
+    wins = {}
+    for (what, M, form), ms in best.items():
+        if form == "train":
+            wins.setdefault(M, []).append(ms < best[(what, M, "stream")])
+    threshold = None
+    for M in sorted(wins, reverse=True):
+        if not all(wins[M]):
+            break
+        threshold = M
+    print(f"[int8] the training form wins every product from "
+          f"{threshold} rows (quant.S8_TRAIN_ROWS = {quant.S8_TRAIN_ROWS})",
+          flush=True)
 
 
 def f32_form(block, M, N, K):
@@ -671,7 +789,8 @@ def main():
                       help="time the fp32 GEMM's K chunks and the fp32 "
                       "backward's products instead")
     ap.add_argument("--rows", help="with --f32: only the forward's products "
-                    "at these row counts (comma-separated), no backward")
+                    "at these row counts (comma-separated), no backward; "
+                    "with --int8: only these rows")
     ap.add_argument("--forms", action="store_true",
                     help="with --f32: the forward's three forms in turns "
                     "below 720 rows (--rows: at these), and the thresholds")
@@ -693,7 +812,7 @@ def main():
     print(card, flush=True)
     rows = tuple(int(r) for r in args.rows.split(",")) if args.rows else None
     run = (wgrad_splits if args.wgrad_splits else small_sweep if args.small
-           else int8_sweep if args.int8
+           else (lambda: int8_sweep(rows)) if args.int8
            else (lambda: persist_shapes(rows=rows or PERSIST_ROWS))
            if args.persist_shapes
            else (lambda: f32_forms(rows or FORM_ROWS))

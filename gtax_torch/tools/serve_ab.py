@@ -3,9 +3,10 @@ bf16 step branches (`fused_spatial_branch`, `fused_mlp_branch`,
 `fused_temporal_step`), the bf16 prefill's `fused_temporal_branch` (and its
 emit_train mode at B=4, T=5, the training step's window), and the int8
 wrappers and pairs
-(`gtax_torch.kernels.quant`, `gtax_torch.kernels.pair`; `fused_mlp_branch_q`
-also in its emit_train mode at the B=16 training step's 11,520 rows), on
-fixed seeded inputs; and every serving call again at x.dtype = float32
+(`gtax_torch.kernels.quant`, `gtax_torch.kernels.pair`; the three
+int8 wrappers #7-#9 also in their emit_train mode at the B=2 and B=16
+training steps' 1,440 and 11,520 rows, in bf16 and fp32), on fixed seeded
+inputs; and every serving call again at x.dtype = float32
 (its bf16 inputs, biases and context cache cast to fp32: the fp32 forms
 of #1-#4 and #6-#11), named "... fp32", and the fp32 emit_train forwards
 of #1-#3 at B=4, T=5 (the fp32 training step's forward products); the
@@ -135,6 +136,27 @@ def cases():
     out[f"mlp_branch_q emit_train N={N}"] = (
         lambda *a: quant.fused_mlp_branch_q(*a, emit_train=True),
         (xt, mt[:, :D], mt[:, D:2 * D], mt[:, 2 * D:], *wm))
+    gen = np.random.default_rng(716)
+    wa = (*quant.quantize_weight(_rand(gen, (D, 3 * D), 0.02)),
+          *quant.quantize_weight(_rand(gen, (D, D), 0.02)),
+          _rand(gen, (D,), 0.02))
+    for N in (10, 80):  # #7 and #8 at B=2 and B=16 (T=5), #9 at B=2
+        xt = _rand(gen, (N, S, D))
+        mt = _rand(gen, (N, 3 * D), 0.5)
+        head = (xt, mt[:, :D], mt[:, D:2 * D], mt[:, 2 * D:])
+        out[f"spatial_branch_q emit_train N={N}"] = (
+            lambda *a: quant.fused_spatial_branch_q(*a, emit_train=True),
+            (*head, *wa, sf, H))
+        out[f"temporal_branch_q emit_train B={N // 5} T=5"] = (
+            lambda *a: quant.fused_temporal_branch_q(*a, emit_train=True),
+            (*head, *wa, tf, valid, H, 5))
+        if N == 10:
+            out[f"mlp_branch_q emit_train N={N}"] = (
+                lambda *a: quant.fused_mlp_branch_q(*a, emit_train=True),
+                (*head, *wm))
+    for k, (fn, a) in list(out.items()):  # int8-forward training in fp32
+        if "_q emit_train" in k:
+            out[f"{k} fp32"] = (fn, tuple(_f32(a)))
     gen = np.random.default_rng(713)  # the VAE block: encode, decode
     vf = rope.axial_freqs(rope.pixel_freqs(HD // 4, 576.0), (18, 32),
                           pixel=True).reshape(576, HD // 2).cuda()

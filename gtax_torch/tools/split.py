@@ -9,11 +9,18 @@ launch's byte bound (`temporal_splits`); with --f32 instead, the fp32
 step's spatial work: #1 fp32 at one frame by launch, with its attention
 launch's TFLOP/s and bound, #4 fp32 at one frame by launch, with its
 attention launch's byte bound, and the fp32 pairs by phase, on a probe
-copy of csrc/pair_q_f32.cu (`f32_splits`).
+copy of csrc/pair_q_f32.cu (`f32_splits`); with --int8-train instead,
+`fused_mlp_branch_q` (#9) and `fused_spatial_branch_q` (#7) in emit_train
+mode at the B=16 training step's 11,520 rows by launch, over bf16 and fp32
+x, with each int8 product's TOP/s, its plan (form, K chunks, int32
+partial MB) and one torch._int_mm of the same shape
+(`int8_train_splits`).
 
-    python -m gtax_torch.tools.split [--temporal | --f32] [--out FILE]
+    python -m gtax_torch.tools.split [--temporal | --f32 | --int8-train]
+                                     [--out FILE]
     PYTHONPATH=<checkout> python <this file> --temporal   # another tree
     PYTHONPATH=<checkout> python <this file> --f32        # another tree
+    PYTHONPATH=<checkout> python <this file> --int8-train # another tree
 
 The launch split records CUDA events around each kernel launch of one
 call, and the gap from each launch's end event to the next one's start
@@ -54,7 +61,9 @@ PHASES = ("ln_mod", "qkv", "attention", "quant", "out-proj", "ln_mod 2",
 GEMM_PHASES = (1, 4, 6, 8)  # qkv, out-proj, fc1, fc2 (0-based)
 STAMPS = 18 + 4 * len(GEMM_PHASES)  # csrc/pair_q.cuh kStamps
 GEMMS = ("gtax_gemm_bf16", "gtax_gemm_wgrad", "gtax_gemm_rope_qkv",
-         "gtax_gemm_f32", "gtax_gemm_f32_rope_qkv", "gtax_gemm_f32_wgrad")
+         "gtax_gemm_f32", "gtax_gemm_f32_rope_qkv", "gtax_gemm_f32_wgrad",
+         "gtax_gemm_s8", "gtax_gemm_s8_train")
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, H100 SXM
 
 
 def _cold(flush):
@@ -127,7 +136,9 @@ def launch_split(fn, label, gemm_flops, log=print):
         if name in GEMMS and flops:
             fl = flops.pop(0)
             entry["tflops"] = fl / ms / 1e9
-            extra = f", {fl / 1e9:.1f} GFLOP at {entry['tflops']:.0f} TFLOP/s"
+            unit = "OP" if "_s8" in name else "FLOP"  # int8: operations
+            extra = (f", {fl / 1e9:.1f} G{unit} at {entry['tflops']:.0f} "
+                     f"T{unit}/s")
         if gap is not None:
             gaps.append(gap)
             extra += f"; gap before it {gap:.4f} ms"
@@ -367,6 +378,101 @@ def pair_phases(kind, N, iters=15, log=print, dt=torch.bfloat16):
     return res
 
 
+def int8_train_args(kind, dt, seed=960):
+    """#7 ("spatial") or #9 ("mlp") at the B=16 training step's 80 frames
+    of 144 tokens (11,520 rows): its arguments, the int8 weights quantized
+    on the card by the checkout's own quant.quantize_weight, activations,
+    adaLN rows and biases of type dt."""
+    from gtax_torch.core import rope
+    from gtax_torch.kernels import quant
+
+    gen = np.random.default_rng(seed + (kind == "mlp"))
+    N = 80
+    x = _rand(gen, (N, S, D), dt=dt)
+    mods = _rand(gen, (N, 3 * D), 0.5, dt)
+    head = (x, mods[:, :D], mods[:, D:2 * D], mods[:, 2 * D:])
+
+    def qw(shape):
+        return quant.quantize_weight(_rand(gen, shape, 0.02, dt))
+
+    if kind == "mlp":
+        return (*head, *qw((D, 4 * D)), _rand(gen, (4 * D,), 0.02, dt),
+                *qw((4 * D, D)), _rand(gen, (D,), 0.02, dt))
+    f = rope.axial_freqs(rope.pixel_freqs(HD // 2, 256.0), (9, 16),
+                         pixel=True).reshape(S, HD).cuda()
+    return (*head, *qw((D, 3 * D)), *qw((D, D)), _rand(gen, (D,), 0.02, dt),
+            f, H)
+
+
+# (product, N, K, K group) of #7's and #9's int8 GEMMs
+INT8_PRODUCTS = {"spatial": (("qkv", 3 * D, D, D), ("out", D, D, D)),
+                 "mlp": (("fc1", 4 * D, D, D), ("fc2", D, 4 * D, 512))}
+
+
+def s8_plan_log(M, what, N, K, group, log=print):
+    """The checkout's plan of one int8 product at M rows
+    (quant.s8_plan_of where it has one: the form, its tile, K chunks and
+    int32 partial MB; else the streaming tile's quant.s8_chunk), logged."""
+    from gtax_torch.kernels import block, quant
+
+    sms = block.sm_count(torch.device("cuda"))
+    if hasattr(quant, "s8_plan_of"):
+        plan = quant.s8_plan_of(M, N, K, group, sms)
+    else:
+        chunk = quant.s8_chunk(M, N, K, group, sms)
+        splits = -(-K // chunk)
+        plan = {"form": "stream", "k_chunk": chunk, "splits": splits,
+                "partials_mb": (splits * M * N * 4 / 1e6 if splits > 1
+                                else 0.0)}
+    log(f"[split]   {what} plan at M={M}: {json.dumps(plan)}")
+    return plan
+
+
+def int_mm_row(M, what, N, K, log=print, seed=970):
+    """One torch._int_mm of an (M, K) @ (K, N) int8 product on a
+    column-major weight (as gemm_sweep.py feeds it): its ms and TOP/s,
+    logged."""
+    gen = np.random.default_rng(seed + N + K)
+    q = torch.from_numpy(gen.integers(-127, 128, (M, K), dtype=np.int8))
+    w = torch.from_numpy(gen.integers(-127, 128, (K, N), dtype=np.int8))
+    from gtax_torch.tools.gemm_sweep import median_ms
+
+    q, w = q.cuda(), w.cuda().t().contiguous().t()
+    ms = median_ms(lambda: torch._int_mm(q, w))
+    tops = 2 * M * N * K / ms / 1e9
+    log(f"[split]   {what} torch._int_mm M={M} N={N} K={K}: {ms:.4f} ms, "
+        f"{tops:.0f} TOP/s ({100 * tops * 1e12 / INT8_OPS_PER_S:.1f}% of "
+        f"1,979)")
+    return {"ms": ms, "tops": tops}
+
+
+def int8_train_splits(log=print):
+    """#9 fused_mlp_branch_q and #7 fused_spatial_branch_q in emit_train
+    mode at B=16 (11,520 rows) by launch, over bf16 and fp32 x, each int8
+    product's TOP/s; each product's plan (form, K chunks, int32 partial
+    MB); torch._int_mm of each product on the same shapes."""
+    from gtax_torch.kernels import quant
+
+    M = 80 * S
+    out = {}
+    for kind, fn in (("mlp", quant.fused_mlp_branch_q),
+                     ("spatial", quant.fused_spatial_branch_q)):
+        prods = INT8_PRODUCTS[kind]
+        for dt in (torch.bfloat16, torch.float32):
+            a = int8_train_args(kind, dt)
+            label = (f"{fn.__name__} emit_train B=16 ({M} rows)"
+                     + (", fp32" if dt == torch.float32 else ""))
+            out[label] = launch_split(
+                lambda: fn(*a, emit_train=True), label,
+                [2 * M * N * K for _, N, K, _ in prods], log)
+            del a
+        out[f"{kind} plans"] = {what: s8_plan_log(M, what, N, K, g, log)
+                                for what, N, K, g in prods}
+        out[f"{kind} int_mm"] = {what: int_mm_row(M, what, N, K, log)
+                                 for what, N, K, _ in prods}
+    return out
+
+
 F32_PEAK = 67e12  # fp32 FFMA, H100 SXM
 
 
@@ -433,6 +539,9 @@ def main():
     mode.add_argument("--f32", action="store_true",
                       help="split the fp32 step's #1 and pairs instead "
                       "(f32_splits)")
+    mode.add_argument("--int8-train", action="store_true",
+                      help="split #9 and #7 emit_train at B=16 instead "
+                      "(int8_train_splits)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("split: needs a CUDA device")
@@ -445,10 +554,11 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    if args.temporal or args.f32:
+    if args.temporal or args.f32 or args.int8_train:
+        run = (temporal_splits if args.temporal else f32_splits if args.f32
+               else int8_train_splits)
         with torch.inference_mode():
-            result = {"card": card, **(temporal_splits() if args.temporal
-                                       else f32_splits())}
+            result = {"card": card, **run()}
         if args.out:
             with open(args.out, "w") as f:
                 json.dump(result, f)

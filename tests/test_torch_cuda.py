@@ -262,15 +262,29 @@ def test_int8_gemm_second_store_bit_equal(cuda, epi, splits):
     assert torch.equal(out, ref)
 
 
+def _stream_too(monkeypatch, fn, args, kw, got):
+    """The same call on the weight-streaming tile (quant.S8_TRAIN_ROWS past
+    its rows): every output bit-equal to got's."""
+    monkeypatch.setattr(quant, "S8_TRAIN_ROWS", 1 << 30)
+    for a, b in zip(got, fn(*args, **kw)):
+        assert torch.equal(a, b)
+    monkeypatch.undo()
+
+
 @pytest.mark.parametrize("kind", ["spatial", "temporal", "temporal_padded",
-                                  "mlp"])
-def test_int8_emit_train_kernels(cuda, kind):
+                                  "mlp", "spatial B=16", "temporal B=16",
+                                  "mlp B=16"])
+def test_int8_emit_train_kernels(cuda, kind, monkeypatch):
     """The emit_train mode of the int8 wrappers (int8-forward training):
     every residual against the plain version's, and the output bit-equal
-    to the call without emit_train."""
+    to the call without emit_train. At B=16 (11,520 rows: the int8 GEMM's
+    training form, gemm_s8_train, two launches a call) every output is
+    also bit-equal to the weight-streaming tile's."""
     gen = np.random.default_rng(17)
+    train = kind.endswith("B=16")
+    kind = kind.split()[0]
     if kind == "mlp":
-        x, sh, sc, g = _branch_inputs(gen, 2, S_DIT)
+        x, sh, sc, g = _branch_inputs(gen, 80 if train else 2, S_DIT)
         args = (x, sh, sc, g, *_qweight(gen, (D, 4 * D), 0.02),
                 _rand(gen, (4 * D,), 0.02, torch.float32),
                 *_qweight(gen, (4 * D, D), 0.02),
@@ -278,7 +292,8 @@ def test_int8_emit_train_kernels(cuda, kind):
         fn, plain = quant.fused_mlp_branch_q, quant.mlp_branch_q_plain
     else:
         T = 5
-        N = 2 if kind == "spatial" else 2 * T
+        N = (80 if train else 2) if kind == "spatial" else (
+            16 if train else 2) * T
         x, sh, sc, g = _branch_inputs(gen, N, S_DIT)
         w = (*_qweight(gen, (D, 3 * D), 0.02), *_qweight(gen, (D, D), 0.02),
              _rand(gen, (D,), 0.02, torch.float32))
@@ -292,13 +307,19 @@ def test_int8_emit_train_kernels(cuda, kind):
             args = (x, sh, sc, g, *w, _temporal_freqs(T), valid, H, T)
             fn, plain = (quant.fused_temporal_branch_q,
                          quant.temporal_branch_q_plain)
+    before = quant.gemm_s8_train.launches
     got = fn(*args, emit_train=True)
+    rows = x.shape[0] * x.shape[1]
+    assert quant.gemm_s8_train.launches == before + 2 * (
+        rows >= quant.S8_TRAIN_ROWS)
     ref = plain(*args, emit_train=True)
     assert len(got) == len(ref) == (3 if kind == "mlp" else 5)
     for a, b in zip(got, ref):
         assert a.shape == b.shape and a.dtype == b.dtype
         _close(a, b)
     assert torch.equal(got[0], fn(*args))
+    if train:
+        _stream_too(monkeypatch, fn, args, {"emit_train": True}, got)
 
 
 def test_int8_wrappers_reject_what_kernels_do_not_take(cuda):
@@ -1021,16 +1042,6 @@ def test_gemm_bf16_small_m_layouts(cuda, M, trans_b, N, K):
         _close(out, ref)
 
 
-def _s8_plain(q, sa, w_q, w_s, group):
-    """The int8 product as the kernel folds it: each K group's exact sum
-    times its row scale, added in group order, times the column scale."""
-    acc = torch.zeros((q.shape[0], w_q.shape[1]), device=q.device)
-    for g in range(q.shape[1] // group):
-        cols = slice(g * group, (g + 1) * group)
-        acc = acc + quant.mm_int(q[:, cols], w_q[cols]) * sa[:, g:g + 1]
-    return acc * w_s.reshape(-1)
-
-
 @pytest.mark.parametrize("M", SMALL_M)
 @pytest.mark.parametrize("group", [None, 512], ids=["ungrouped", "grouped"])
 def test_gemm_s8_units(cuda, M, group):
@@ -1045,7 +1056,7 @@ def test_gemm_s8_units(cuda, M, group):
     q, sa = quant.quant_rows(_rand(gen, (M, K), 1.0, torch.float32), G)
     w_q, w_s = _qweight(gen, (K, N), 0.02)
     assert quant.is_card_layout(w_q)
-    ref = _s8_plain(q, sa, w_q, w_s, G)
+    ref = quant.s8_fold_plain(q, sa, w_q, w_s)
     for chunk in ((None, 512) if group else (None, 128, 256, 512, 1024)):
         out = torch.empty((M, N), dtype=torch.float32, device="cuda")
         quant._gemm_s8(q, sa, w_q, w_s, out, quant.EPI_F32, k_chunk=chunk)
@@ -1067,7 +1078,7 @@ def test_gemm_s8_epilogues(cuda, M):
     b = _rand(gen, (N,), 0.1, torch.float32)
     x = _rand(gen, (M, N))
     gate = _rand(gen, (-(-M // S), 2 * N), 0.5)[:, :N]
-    y = _s8_plain(q, sa, w_q, w_s, K) + b
+    y = quant.s8_fold_plain(q, sa, w_q, w_s) + b
     out = torch.empty((M, N), dtype=torch.float32, device="cuda")
     quant._gemm_s8(q, sa, w_q, w_s, out, quant.EPI_BIAS_GELU_F32, bias=b,
                    k_chunk=256)
@@ -1077,6 +1088,143 @@ def test_gemm_s8_epilogues(cuda, M):
                    resid=x, gate=gate, S=S, k_chunk=256)
     g = gate.float().repeat_interleave(S, 0)[:M]
     _close(res, (x.float() + g * y).to(torch.bfloat16))
+
+
+TRAIN_M = [1440, 11520, 11519]
+
+
+@pytest.mark.parametrize("M", TRAIN_M)
+@pytest.mark.parametrize("groups", [1, 8])
+@pytest.mark.parametrize("epi", range(8))
+def test_gemm_s8_train_bit_equal(cuda, epi, groups, M):
+    """The int8 GEMM's training form (gemm_s8_train) against the
+    weight-streaming tile (form="stream", its plan's K chunks), bit for
+    bit, for the epilogues it builds (C and the second output C2) at one
+    K group (K=1024, 128 x 256 tiles) and at fc2's eight (K=4096 in groups
+    of 512, 128 x 128), at 1,440 and 11,520 rows and a ragged 11,519; the
+    product also bit-equal to its plain version (s8_fold_plain). A
+    combination it builds no kernel for (EPI_F32 with several groups, a
+    GELU epilogue without fc1's requantization) raises, at the wrapper
+    and at the C entry."""
+    gen = np.random.default_rng(600 + 10 * epi + groups)
+    f32, bf = torch.float32, torch.bfloat16
+    N, K = 1024, 4096 if groups > 1 else 1024
+    G = K // groups
+    q, sa = quant.quant_rows(_rand(gen, (M, K), 1.0, f32), G)
+    w_q, w_s = _qweight(gen, (K, N), 0.02)
+    kw = {"bias": _rand(gen, (N,), 0.1, f32)} if epi else {}
+    if epi in (quant.EPI_BIAS_GATED, quant.EPI_BIAS_GATED_F32,
+               quant.EPI_BIAS_GATED_F32_Y):
+        dt = bf if epi == quant.EPI_BIAS_GATED else f32
+        kw.update(resid=_rand(gen, (M, N), 1.0, dt),
+                  gate=_rand(gen, (-(-M // S_DIT), 2 * N), 0.5, dt)[:, :N],
+                  S=S_DIT)
+    c2 = {1: bf, 2: bf, 3: bf, 5: f32, 6: f32, 7: f32}.get(epi)
+    built = quant.s8_train_builds(epi, groups, False)
+    assert built == (epi in quant.S8_TRAIN_GATED
+                     or (epi == quant.EPI_F32 and groups == 1))
+    outs = []
+    for form in ("stream", "train"):
+        out = torch.empty((M, N), dtype=bf if epi == 2 else f32,
+                          device="cuda")
+        out2 = None if c2 is None else torch.empty((M, N), dtype=c2,
+                                                   device="cuda")
+        before = quant.gemm_s8_train.launches
+        if form == "train" and not built:
+            with pytest.raises(ValueError, match="no kernel"):
+                quant._gemm_s8(q, sa, w_q, w_s, out, epi, out2=out2,
+                               form=form, **kw)
+            C, b, b32, r, g, gs = quant._epi_args(
+                out, kw.get("bias"), kw.get("resid"), kw.get("gate"))
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                build.launch(
+                    "gtax_gemm_s8_train", q.data_ptr(), w_q.data_ptr(), C,
+                    None if out2 is None else out2.data_ptr(),
+                    sa.data_ptr(), G, w_s.data_ptr(), b, b32, r, g, gs, M,
+                    N, K, kw.get("S", 1), epi, None, None,
+                    torch.cuda.current_stream().cuda_stream)
+            assert quant.gemm_s8_train.launches == before
+            continue
+        quant._gemm_s8(q, sa, w_q, w_s, out, epi, out2=out2, form=form,
+                       **kw)
+        assert quant.gemm_s8_train.launches == before + (form == "train")
+        outs.append((out, out2))
+    torch.cuda.synchronize()
+    for out, out2 in outs[1:]:
+        assert torch.equal(out, outs[0][0])
+        assert out2 is None or torch.equal(out2, outs[0][1])
+    if epi == quant.EPI_F32:
+        assert torch.equal(outs[0][0], quant.s8_fold_plain(q, sa, w_q, w_s))
+
+
+@pytest.mark.parametrize("M", TRAIN_M)
+@pytest.mark.parametrize("epi", [1, 3, 5, 6])
+def test_gemm_s8_train_fc1_requant(cuda, epi, M):
+    """fc1's training form with the requantization of its GELU rows in its
+    epilogue (a cluster of two 128 x 256 tiles a 512-column group) bit for
+    bit against the streaming tile's GELU epilogue then quant_rows: hq,
+    hs and h1 = y + b (bf16 for epilogues 1 and 3, also without it; fp32
+    for 5 and 6); within one int8 step of fc1_quant_plain's arithmetic
+    (the card's tanhf / erfcf against torch's GELU)."""
+    gen = np.random.default_rng(640 + M + epi)
+    f32 = torch.float32
+    K, N, G = D, 4 * D, 512
+    q, sa = quant.quant_rows(_rand(gen, (M, K), 1.0, f32), K)
+    w_q, w_s = _qweight(gen, (K, N), 0.02)
+    b = _rand(gen, (N,), 0.1, f32)
+    c2 = f32 if epi in (5, 6) else torch.bfloat16
+    h = torch.empty((M, N), dtype=f32, device="cuda")
+    h1 = torch.empty((M, N), dtype=c2, device="cuda")
+    quant._gemm_s8(q, sa, w_q, w_s, h, epi, bias=b, out2=h1, form="stream")
+    ref = (h1, *quant._quant_rows_cuda(h, G))
+    for emit in (True, False) if c2 != f32 else (True,):
+        got1 = torch.empty_like(h1) if emit else None
+        before = quant.gemm_s8_train.launches
+        hq, hs = quant._fc1_quant_cuda(q, sa, w_q, w_s, b, epi, got1, G)
+        torch.cuda.synchronize()
+        assert quant.gemm_s8_train.launches == before + 1
+        assert torch.equal(hq, ref[1]) and torch.equal(hs, ref[2]), emit
+        assert got1 is None or torch.equal(got1, ref[0])
+    u = quant.s8_fold_plain(q, sa, w_q, w_s) + b
+    pq, ps = quant.requant_plain(u, epi in (1, 5), G)
+    assert (hq.int() - pq.int()).abs().max().item() <= 1
+    torch.testing.assert_close(hs, ps, rtol=1e-6, atol=0)
+
+
+def test_gemm_s8_train_refuses(cuda):
+    """A product the training form builds no kernel for raises: EPI_F32 and
+    fc1's requantization over several K groups (the wrapper's check), K
+    groups with a k_chunk, and at the C entry N that is no multiple of the
+    tile and the fused requantization over several K groups
+    (cudaErrorInvalidValue)."""
+    gen = np.random.default_rng(660)
+    M, K, N = 1440, 4096, 1024
+    q, sa = quant.quant_rows(_rand(gen, (M, K), 1.0, torch.float32), 512)
+    w_q, w_s = _qweight(gen, (K, N), 0.02)
+    out = torch.empty((M, N), dtype=torch.float32, device="cuda")
+    hq = torch.empty((M, N), dtype=torch.int8, device="cuda")
+    hs = torch.empty((M, N // 512), dtype=torch.float32, device="cuda")
+    b = _rand(gen, (N,), 0.1, torch.float32)
+    with pytest.raises(ValueError, match="no kernel"):
+        quant.gemm_s8_train(q, sa, w_q, w_s, out, quant.EPI_F32)
+    with pytest.raises(ValueError, match="no kernel"):
+        quant.gemm_s8_train(q, sa, w_q, w_s, None, quant.EPI_BIAS_GELU_F32,
+                            bias=b, hq=hq, hs=hs)
+    with pytest.raises(ValueError, match="k_chunk"):
+        quant._gemm_s8(q, sa, w_q, w_s, out, quant.EPI_F32, form="train",
+                       k_chunk=512)
+    common = (q.data_ptr(), w_q.data_ptr())
+    for n, epi, quant_out in ((N - 64, quant.EPI_BIAS_GATED_F32, False),
+                              (N, quant.EPI_BIAS_GELU_F32, True)):
+        gated = None if quant_out else out.data_ptr()
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            build.launch(
+                "gtax_gemm_s8_train", *common,
+                None if quant_out else out.data_ptr(), None, sa.data_ptr(),
+                512, w_s.data_ptr(), b.data_ptr(), 1, gated, gated, N, M, n,
+                K, 1, epi, hq.data_ptr() if quant_out else None,
+                hs.data_ptr() if quant_out else None,
+                torch.cuda.current_stream().cuda_stream)
 
 
 def test_int8_wrappers_take_the_card_layout(cuda):
@@ -1986,12 +2134,13 @@ def test_int8_exact_gelu_kernels(cuda):
 
 # ------------------- fp32 int8 and fp32 `pallas` (#6-#11, #15 and #16)
 
-def _f32_q_case(kind, gen):
+def _f32_q_case(kind, gen, frames=None):
     """(wrapper, plain, args, kwargs) of one int8 branch at x.dtype =
     float32 (gtax serves fp32 with int8): fp32 activations, adaLN rows,
-    biases and context cache, the int8 weights quantized from bf16 draws."""
+    biases and context cache, the int8 weights quantized from bf16 draws;
+    frames: N (the temporal branch's in windows of 4), else the step's."""
     f32 = torch.float32
-    N = {"temporal": 4, "step": 2}.get(kind, 1)
+    N = frames or {"temporal": 4, "step": 2}.get(kind, 1)
     x = _rand(gen, (N, S_DIT, D), 1.0, f32)
     mods = _rand(gen, (N, 6 * D), 0.5, f32)
     head = (x, mods[:, :D], mods[:, D:2 * D], mods[:, 2 * D:3 * D])
@@ -2130,17 +2279,23 @@ def test_int8_f32_pair_grid(cuda):
 
 
 @pytest.mark.parametrize("kind", ["spatial", "mlp_tanh", "mlp_erf",
-                                  "temporal"])
-def test_int8_f32_emit_train_kernels(cuda, kind):
+                                  "temporal", "spatial B=16",
+                                  "mlp_tanh B=16", "mlp_erf B=16",
+                                  "temporal B=16"])
+def test_int8_f32_emit_train_kernels(cuda, kind, monkeypatch):
     """fp32 emit_train through the int8 wrappers (#7-#9, int8-forward
     training at compute_dtype float32): every residual fp32 and within
     2**-6 of the plain version's largest magnitude (the int8 rule); the
     output bit-equal to the call without emit_train (gemm_s8's epilogues
     5-7 and the attention's q/k/v stores change no value); two calls give
-    the same bits."""
+    the same bits. At 80 frames (11,520 rows, gemm_s8_train) every output
+    is also bit-equal to the weight-streaming tile's."""
+    train = kind.endswith("B=16")
+    kind = kind.split()[0]
     gen = np.random.default_rng({"spatial": 376, "mlp_tanh": 377,
-                                 "mlp_erf": 378, "temporal": 379}[kind])
-    fn, plain, args, kw = _f32_q_case(kind, gen)
+                                 "mlp_erf": 378, "temporal": 379}[kind]
+                                + 10 * train)
+    fn, plain, args, kw = _f32_q_case(kind, gen, 80 if train else None)
     kw = {k: v for k, v in kw.items() if k != "emit_kv"}
     got = fn(*args, **kw, emit_train=True)
     again = fn(*args, **kw, emit_train=True)
@@ -2152,6 +2307,8 @@ def test_int8_f32_emit_train_kernels(cuda, kind):
         assert a.dtype == b.dtype == torch.float32
         _close(a, b)
         assert torch.equal(a, c)
+    if train:
+        _stream_too(monkeypatch, fn, args, {**kw, "emit_train": True}, got)
 
 
 @pytest.mark.parametrize("hd", [32, HD])

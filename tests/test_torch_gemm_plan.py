@@ -13,6 +13,7 @@ the sources the kernels are built from.
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -346,3 +347,153 @@ def test_pair_entries_by_dtype():
             == build.SIGNATURES["gtax_pair_q"])
     assert (build.SIGNATURES["gtax_pair_q_f32_blocks"]
             == build.SIGNATURES["gtax_pair_q_blocks"])
+
+
+# ----------------------------------------- the int8 GEMM's training form
+
+def _train_constants():
+    """(tile rows, k-step, requantization group) as csrc/gemm_s8_train.cuh
+    defines them, and the source."""
+    src = (CSRC / "gemm_s8_train.cuh").read_text()
+    found = [re.search(rf"constexpr int {name} = (\d+);", src)
+             for name in ("BM", "BK", "kQGroup")]
+    assert all(found), "the training form's constants moved"
+    return (*(int(m.group(1)) for m in found), src)
+
+
+# qkv, out, fc1 with one K group; fc2 in eight of 512
+INT8_GROUPS = [(n, k, k) for n, k in SERVING[:3]] + [(1024, 4096, 512)]
+
+
+def test_s8_train_constants_match_the_kernel():
+    """The plan's view of the training form is the kernel's: 128-row tiles
+    of 256 columns with one K group and 128 with several (the C entry
+    derives the tile as s8_train_tile does), 128-byte k-steps, fc1's
+    requantization group covered by a cluster of two 256-column tiles,
+    and the entry's arguments those build.SIGNATURES binds."""
+    rows, k_step, qgroup, src = _train_constants()
+    assert (rows, k_step) == (128, quant.S8_TRAIN_K_STEP)
+    assert "TBN == 128 || TBN == 256" in src
+    assert qgroup == quant.S8_QGROUP
+    entry = (CSRC / "gemm_s8_train.cu").read_text()
+    assert "const int tile_n = p.n_groups == 1 ? 256 : 128;" in entry
+    assert quant.s8_train_tile(4096, 1024, 1024) == 256
+    assert quant.s8_train_tile(1024, 4096, 512) == 128
+    gelu = (CSRC / "gemm_s8_train_gelu.cu").read_text()
+    assert "constexpr int P = kQGroup / 256;" in gelu  # the cluster
+    assert gelu.count(", 256, P>(A, B, p, qo, st)") == len(quant.S8_TRAIN_GELU)
+    params = re.search(r"GTAX_ENTRY gtax_gemm_s8_train\(([^)]*)\)",
+                       entry).group(1)
+    assert len(params.split(",")) == len(
+        build.SIGNATURES["gtax_gemm_s8_train"])
+    assert "gtax_gemm_s8_train" in _entries(("gemm_s8_train.cu",))
+
+
+@pytest.mark.parametrize("epi", range(8))
+def test_s8_train_builds_the_path_s_kernels(epi):
+    """The training form builds the kernels #7-#9 launch and no other:
+    EPI_F32 with one K group (qkv), the gated epilogues with one or
+    several (out, fc2), the GELU epilogues with one and fc1's
+    requantization; the C entry refuses the rest as the wrapper does."""
+    gelu = epi in (quant.EPI_BIAS_GELU_F32, quant.EPI_BIAS_GELU_ERF_F32,
+                   quant.EPI_BIAS_GELU_F32_H, quant.EPI_BIAS_GELU_ERF_F32_H)
+    assert (epi in quant.S8_TRAIN_GELU) == gelu
+    assert (epi in quant.S8_TRAIN_GATED) == (epi in (2, 4, 7))
+    want = {(1, False): not gelu, (8, False): epi in (2, 4, 7),
+            (1, True): gelu, (8, True): False}
+    got = {k: quant.s8_train_builds(epi, *k) for k in want}
+    assert got == want
+    entry = (CSRC / "gemm_s8_train.cu").read_text()
+    assert "(epi == e::EPI_F32 && p.n_groups != 1)" in entry
+    assert "(quant ? (!gelu || p.n_groups != 1" in entry
+    assert ": (gelu || C == nullptr" in entry
+
+
+@pytest.mark.parametrize("M", [144, 288, 576, 1152])
+@pytest.mark.parametrize("N,K,group", INT8_GROUPS)
+def test_s8_form_keeps_the_streaming_tile_at_serving_rows(M, N, K, group,
+                                                          monkeypatch):
+    """A denoise step (1-2 frames), the P=4 step and B > 1 serving (4 and 8
+    frames) keep the weight-streaming tile for all four products:
+    s8_plan_of gives its unit, s8_plan's K chunk (within one K group), the
+    K chunks that covers and the int32 partials they store."""
+    assert M < quant.S8_TRAIN_ROWS and quant.s8_form(M) == "stream"
+    consts = build.GemmConsts(0, 0, 0, 0, 0, S8_ROWS, S8_N, S8_K, S8_SPLITS)
+    monkeypatch.setattr(build, "gemm_consts", lambda: consts)
+    quant.s8_chunk.cache_clear()
+    try:
+        plan = quant.s8_plan_of(M, N, K, group, 132)
+    finally:
+        quant.s8_chunk.cache_clear()
+    chunk = quant.s8_plan(M, N, K, group, 132, S8_ROWS, S8_N, S8_K,
+                          S8_SPLITS)
+    splits = -(-K // chunk)
+    assert plan == {"form": "stream", "tile": [S8_ROWS, S8_N],
+                    "k_chunk": chunk, "splits": splits,
+                    "partials_mb": (splits * M * N * 4 / 1e6
+                                    if splits > 1 else 0.0)}
+    assert group == K or group % chunk == 0
+
+
+@pytest.mark.parametrize("M", [11520, 11519])
+@pytest.mark.parametrize("N,K,group", INT8_GROUPS)
+def test_s8_form_at_training_rows(M, N, K, group):
+    """At B=16's 11,520 rows (and a ragged edge) every product takes the
+    training form: K whole (one chunk), no int32 partial, a 128-row tile
+    of 256 columns with one K group (qkv, out, fc1) and 128 with fc2's
+    eight."""
+    plan = quant.s8_plan_of(M, N, K, group, 132)
+    assert plan["form"] == "train"
+    assert (plan["k_chunk"], plan["splits"], plan["partials_mb"]) == (
+        K, 1, 0.0)
+    tile = plan["tile"][1]
+    assert plan["tile"][0] == 128 and N % tile == 0
+    assert tile == quant.s8_train_tile(N, K, group)
+    assert tile == (256 if group == K else 128)
+
+
+def test_the_pairs_keep_the_streaming_tile():
+    """The paired half-blocks (csrc/pair_q.cuh, one cooperative launch)
+    run the weight-streaming tile at every row count: they include
+    gemm_s8.cuh alone and plan with s8_chunk, never s8_form."""
+    head = (CSRC / "pair_q.cuh").read_text()
+    assert '#include "gemm_s8.cuh"' in head and "gemm_s8_train" not in head
+    src = Path(pair.__file__).read_text()
+    assert "quant.s8_chunk(" in src and "s8_form" not in src
+
+
+@pytest.mark.parametrize("K,group", [(1024, 1024), (4096, 512), (1024, 256)])
+def test_s8_train_folds_whole_groups_in_order(K, group):
+    """The kernel's fold (gemm_s8_train.cuh, read from its source): it
+    walks K in 128-byte k-steps, folds a group's int32 sums into fp32 at
+    the group's last k-step as f + float(acc) * sa[row, g] with g =
+    kt / gsteps, the streaming tile's rounding (gemm_s8.cuh), and its
+    entry refuses a group that is not whole k-steps. Then, on the CPU, the
+    plain version both kernels are held to (s8_fold_plain) against that
+    k-step walk, bit for bit: this part checks the plain version's
+    arithmetic only; the card test test_gemm_s8_train_bit_equal checks
+    the kernel's (fc2: eight groups of 512)."""
+    src = (CSRC / "gemm_s8_train.cuh").read_text()
+    fold = r"f\[(\w)\] = __fadd_rn\(f\[\1\], __fmul_rn\(__int2float_rn\("
+    assert "const int g = kt / gsteps;" in src and re.search(fold, src)
+    assert re.search(fold, (CSRC / "gemm_s8.cuh").read_text())
+    assert "group % BK" in (CSRC / "gemm_s8_train.cu").read_text()
+    step = quant.S8_TRAIN_K_STEP
+    assert group % step == 0 and K % group == 0
+    gsteps = group // step
+    gen = np.random.default_rng(K + group)
+    q = torch.from_numpy(gen.integers(-127, 128, (24, K))).to(torch.int8)
+    w = torch.from_numpy(gen.integers(-127, 128, (K, 96))).to(torch.int8)
+    sa = torch.from_numpy(np.exp(gen.uniform(-6, 6, (24, K // group)))
+                          .astype(np.float32))
+    ws = torch.from_numpy(gen.uniform(1e-3, 1e-2, 96).astype(np.float32))
+    f = torch.zeros((24, 96))
+    acc = None
+    for kt in range(K // step):  # the kernel's k-steps, in order
+        ks = slice(kt * step, (kt + 1) * step)
+        part = q[:, ks].long() @ w[ks].long()
+        acc = part if kt % gsteps == 0 else acc + part
+        if kt % gsteps == gsteps - 1:  # the group's last step: fold
+            g = kt // gsteps
+            f = f + acc.float() * sa[:, g:g + 1]
+    assert torch.equal(f * ws, quant.s8_fold_plain(q, sa, w, ws))

@@ -203,6 +203,62 @@ def test_mlp_branch_q_requantizes_per_chunk():
     check_int8(got, ref)
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("approx_gelu", [True, False], ids=["tanh", "erf"])
+def test_fc1_quant_plain_matches_gtax_quant_rows(approx_gelu, dtype):
+    """The plain version of fc1's training form (fc1_quant_plain: the fp32
+    u = dequant(int8 rows @ w1) + b1, h1 = u cast once to x's dtype, and
+    the GELU'd rows requantized in groups of 512 columns) against gtax's
+    _quant_rows of each 512-column chunk of the same GELU'd rows: bit for
+    bit, in both GELU modes."""
+    gen = np.random.default_rng(30 + approx_gelu)
+    tdt, _ = DTYPES[dtype]
+    Hd, G = 1024, 512
+    x = torch.from_numpy(gen.standard_normal((24, D)).astype(np.float32))
+    a32 = x.to(tdt).float()
+    jq, js = jquant.quantize_weight(jnp.asarray(
+        (gen.standard_normal((D, Hd)) * 0.2).astype(np.float32)))
+    w1_q, w1_s = (torch.from_numpy(np.array(t)) for t in (jq, js))
+    b1 = torch.from_numpy((gen.standard_normal(Hd) * 0.1).astype(
+        np.float32)).to(tdt)
+    h1, hq, hs = quant.fc1_quant_plain(a32, w1_q, w1_s, b1, approx_gelu, G,
+                                       tdt)
+    u = quant.qdot(a32, w1_q, w1_s) + b1.float()
+    assert h1.dtype == tdt and torch.equal(h1, u.to(tdt))
+    g = quant.gelu32(approx_gelu)(u).numpy()
+    assert hq.shape == (24, Hd) and hs.shape == (24, Hd // G)
+    for c in range(Hd // G):
+        cols = slice(c * G, (c + 1) * G)
+        rq, rs = jquant._quant_rows(jnp.asarray(g[:, cols]))
+        np.testing.assert_array_equal(hq[:, cols].numpy(), np.asarray(rq))
+        np.testing.assert_array_equal(hs[:, c].numpy(), np.asarray(rs)[:, 0])
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("approx_gelu", [True, False], ids=["tanh", "erf"])
+def test_mlp_branch_q_emit_train_matches_gtax(approx_gelu, dtype):
+    """mlp_branch_q_plain with emit_train (its fc1 through fc1_quant_plain)
+    against gtax's fused_mlp_branch_q with emit_train in interpret mode:
+    out, the pre-GELU h1 and y under the int8 rule, in both GELU modes;
+    the output bit-equal to the call without emit_train."""
+    inp = QInputs(3, dtype)
+    inp.branch(2)
+    inp.qweight((D, HID), 0.2)
+    inp.act((HID,), 0.1)
+    inp.qweight((HID, D), 0.1)
+    inp.act((D,), 0.1)
+    got = quant.mlp_branch_q_plain(*inp.t, approx_gelu=approx_gelu,
+                                   emit_train=True)
+    ref = jquant.fused_mlp_branch_q(*inp.j, approx_gelu=approx_gelu,
+                                    emit_train=True)
+    assert len(got) == len(ref) == 3
+    for name, a, b in zip(("out", "h1", "y"), got, ref):
+        assert a.dtype == inp.tdt, name
+        check_int8(a, b, dtype, name)
+    assert torch.equal(got[0], quant.mlp_branch_q_plain(
+        *inp.t, approx_gelu=approx_gelu))
+
+
 @pytest.mark.parametrize("chunk", [128, 256, 512])
 def test_int8_split_k_premise(chunk):
     """The card's int8 tile (csrc/gemm_s8.cuh) splits K into chunks and adds
