@@ -97,7 +97,22 @@ Phases (any failure exits nonzero and prints no result line):
      are zeroed just before this run and read just after it: all five bf16
      kernels must have launched. Then the incremental rollout against the
      full-window rollout on the card, and a depth-2 full-width rollout on
-     the card against the port's CPU rollout (plain versions);
+     the card against the port's CPU rollout (plain versions). The
+     generators run the compiled rollout (one CUDA graph a generated
+     frame, gtax_torch/sampling/graphs.py); each drive starts on a fresh
+     generator, whose first frame is the capture's warm-up, so the counts
+     are a generate's as before. `[graph]` (bf16, int8 paired and
+     sequential, fp32, fp32 int8, `pallas`; gtax_torch/tools/
+     rollout_graphs.py graph_turns): an eager frame under
+     set_sync_debug_mode("error"); two frames at 100 steps graphed,
+     torch.equal to the eager rollout, a second graphed rollout equal to
+     the first; s/frame in turns eager, graph, graph, eager; capture and
+     instantiate ms, the graph's nodes and its growth of the shared pool;
+     what a replay adds to the launch counts against an eager frame's
+     counts, and the port's kernels a trace of the replay shows against
+     the eager frame's, name by name (not under `pallas`, whose trace is
+     too long to read in the limit); the device profile of one graphed frame
+     (`[profile]`, busy as the union of its kernels' intervals);
      `[e2e fp32]`: the same generate with ServingConfig(dtype="float32")
      (the seeded weights, not cast) under `fused`: the fp32 forms of #1-#5
      launched exactly as often as the bf16 run's, incremental against full
@@ -247,7 +262,10 @@ Phases (any failure exits nonzero and prints no result line):
      "warm" loads it with nvcc off PATH and CUDA_HOME empty, "corrupt"
      meets a garbage artifact, fails to load it, builds and overwrites it;
      each one's AOT events against gtax's contract, its frame bit-equal to
-     the cold one's, and its seconds from start to first frame;
+     the cold one's, and its seconds from start to first frame; then the
+     warm one prewarms the [e2e] shape (events prewarm_start,
+     prewarm_done), which captures that shape's frame graph, and its next
+     generate of that shape replays it and captures nothing;
  12. `[http serve]`: gtax_torch.cli.serve at its defaults (int8 on the
      fused kernels) on port 0: /healthz, a /generate with a PNG made by
      zlib (its mp4, headers, and the launches of #5 and #7-#11 in it
@@ -2300,9 +2318,29 @@ def kernel_wrappers():
         for mod, names in WRAPPER_MODULES.items() for name in names}
 
 
+def device_busy_ms(prof):
+    """(the union of the traced device events' intervals, their summed
+    time), ms: programmatic dependents overlap the launch before them, so
+    only the union is a share of the wall time."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.time_range.end > ev.time_range.start)
+    union, summed, end = 0.0, 0.0, float("-inf")
+    for lo, hi in spans:
+        summed += hi - lo
+        if hi > end:
+            union += hi - max(lo, end)
+            end = hi
+    return union / 1e3, summed / 1e3
+
+
 def profile_device(fn, label, top=12):
     """torch.profiler over one call of fn (warmed up first): device time by
-    kernel and the device's busy share of the wall time. Informational: a
+    kernel and the device's busy share of the wall time (the union of its
+    events' intervals; their summed time beside it). Informational: a
     trace without device events prints "not measured"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2327,13 +2365,35 @@ def profile_device(fn, label, top=12):
         log(f"[profile] {label}: device time not measured (no CUDA events "
             "traced)")
         return None
-    busy = sum(us for us, _ in by_kernel.values()) / 1e6
+    busy, summed = device_busy_ms(prof)
     log(f"[profile] {label}: wall {wall * 1e3:.2f} ms, device busy "
-        f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%)")
+        f"{busy:.2f} ms ({100 * busy / (wall * 1e3):.1f}%, the union of "
+        f"its events; their summed time {summed:.2f} ms)")
     for key, (us, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[
             :top]:
         log(f"[profile]   {us / 1e3:9.3f} ms {n:6d}x  {key[:90]}")
-    return {"wall_ms": wall * 1e3, "device_busy_ms": busy * 1e3}
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_summed_ms": summed}
+
+
+def traced_kernels(fn, into=None):
+    """name -> launches of the kernels a torch.profiler trace of one call
+    of fn shows (ev.count; memcpy and memset with them), merged into
+    `into` by the larger count of each name: a trace may lose the last
+    events of a long graph replay, and never adds one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    into = {} if into is None else into
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            into[ev.key] = max(into.get(ev.key, 0), ev.count)
+    return into
 
 
 def launch_split(fn, label, gemm_flops):
@@ -2431,6 +2491,139 @@ def drive_path(gen, label, path, rows, record, inputs, expect=None):
     return counts
 
 
+def graph_phase(gen, label, summary):
+    """`[graph]` for one generator (rollout_graphs.graph_turns on the
+    [e2e] shape, whose graph its drive captured, then graph_launch_check):
+    fails on a difference, records the summary under `label`."""
+    from gtax_torch.tools.rollout_graphs import graph_turns, rollout_inputs
+
+    t0 = time.perf_counter()
+    inputs = rollout_inputs(gen)
+    try:
+        summary[label] = graph_turns(gen, label, inputs, log=log)
+    except (AssertionError, RuntimeError) as e:
+        fail(f"[graph] {label}: {type(e).__name__}: {e}")
+    if label in GRAPH_UNTRACED:
+        log(f"[graph] {label}: the launch check is not run (a replay's "
+            "trace of ~276,000 nodes takes ~25 s to read, too long for the "
+            "smoke's limit); the other modes check the same accounting")
+    else:
+        summary[label]["launch_check"] = graph_launch_check(gen, label)
+    lat, acts, nz = inputs
+    with torch.inference_mode():
+        summary[label]["profile"] = profile_device(
+            lambda: gen._rollout(gen.dit_params, lat, acts, None, 1,
+                                 nz[:, :1]),
+            f"{label}: one graphed frame ({gen.cfg.noise_steps + 1} "
+            f"steps, depth {gen.dit_cfg.depth})")
+    log(f"[time] graph {label}: {time.perf_counter() - t0:.1f} s")
+
+
+# traces of a frame, eager and replayed, graph_launch_check takes at most;
+# the modes it does not check
+GRAPH_TRACES = 4
+GRAPH_UNTRACED = ("pallas",)
+
+
+def port_kernel_pattern():
+    """A regex whose first match in a traced kernel's name is the name of
+    the port's kernel it is (a __global__ function of gtax_torch/csrc)."""
+    from gtax_torch.kernels import build
+
+    names = set()
+    for src in build.CSRC.glob("*.cu*"):
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)"
+            r"\s*\(", src.read_text()))
+    return re.compile(r"\b(" + "|".join(sorted(names)) + r")\s*[<(]")
+
+
+def graph_launch_check(gen, label):
+    """What a replay adds to the launch counts, held to the kernels the
+    graph runs: the steady graph of the family graph_turns used last, one
+    eager frame of its plan on its static inputs (the wrappers' counts and
+    a trace) against one replay of the graph alone (a trace). The counts
+    the replay adds must be the eager frame's, and the two traces must
+    hold the same kernels of the port (csrc's), each launched as often.
+    torch's and libcuda's kernels and copies are printed, not compared:
+    under capture a device copy may become libcuda's memcpy kernel. A
+    trace may lose the end of a long replay (seen on the H100: 54 of the
+    port's 22,848), so while the traces differ both are taken again, up
+    to GRAPH_TRACES times, each name's largest count kept."""
+    from gtax_torch.tools.rollout_graphs import pair_gate
+
+    _, held = next(reversed(gen._rollout.graphs.cache.items()))
+    fg = held[max(held, key=sum)]
+    fns = kernel_wrappers()
+    names = {id(fn): name for name, fn in fns.items()}
+    pattern = port_kernel_pattern()
+
+    def split(trace):
+        ours, other = {}, 0
+        for key, n in trace.items():
+            m = pattern.search(key)
+            if m:
+                ours[m.group(1)] = ours.get(m.group(1), 0) + n
+            else:
+                other += n
+        return ours, other
+
+    def eager_frame():
+        fg.plan.frame(fg.params, *fg.inputs)
+
+    with torch.inference_mode(), pair_gate(label):
+        before = {name: fn.launches for name, fn in fns.items()}
+        eager_trace = traced_kernels(eager_frame)
+        eager = {name: fn.launches - before[name]
+                 for name, fn in fns.items() if fn.launches != before[name]}
+        graph_trace = traced_kernels(fg.graph.replay)
+        traces = 1
+        while split(eager_trace)[0] != split(graph_trace)[0] and (
+                traces < GRAPH_TRACES):
+            traced_kernels(eager_frame, eager_trace)
+            traced_kernels(fg.graph.replay, graph_trace)
+            traces += 1
+    added = {names.get(id(fn), fn.__name__): n for fn, n in fg.launches}
+    (e_ours, e_other), (g_ours, g_other) = split(eager_trace), split(
+        graph_trace)
+    log(f"[graph] {label}: a replay adds {json.dumps(added)}; the eager "
+        f"frame counts {json.dumps(eager)}; the port's kernels traced "
+        f"({traces} trace(s) each, the most of each name), "
+        f"eager {sum(e_ours.values())}, graph {sum(g_ours.values())}, the "
+        f"same by name: {e_ours == g_ours} ({json.dumps(g_ours)}); torch's "
+        f"and libcuda's kernels and copies, eager {e_other}, graph "
+        f"{g_other}")
+    if not graph_trace:
+        log(f"[graph] {label}: the replay's kernels not traced")
+    elif e_ours != g_ours:
+        fail(f"[graph] {label}: the graph's kernels {g_ours}, the eager "
+             f"frame's {e_ours}")
+    if added != eager:
+        fail(f"[graph] {label}: a replay adds {added}, the eager frame "
+             f"counts {eager}")
+    return {"added": added, "port_kernels": g_ours,
+            "other_kernels_and_copies": g_other}
+
+
+def pair_gate_graphed(gen, summary):
+    """`[graph] int8-seq`: the int8 rollout with the pair's gate closed
+    (the sequential wrappers; bit-equal to the pairs) on a generator of
+    its own, beside the paired one's figures: s/frame graphed and eager."""
+    from gtax_torch.serving import VideoGenerator
+
+    seq = VideoGenerator(gen.dit_params, gen.vae_params, gen.cfg)
+    graph_phase(seq, "int8-seq", summary)
+    paired, alone = summary["int8"], summary["int8-seq"]
+    log("[graph] the pair's gate at B=1, s/frame (mean of two, in turns "
+        "within each): paired graph "
+        f"{np.mean(paired['graph_s_per_frame']):.4f} eager "
+        f"{np.mean(paired['eager_s_per_frame']):.4f}; sequential graph "
+        f"{np.mean(alone['graph_s_per_frame']):.4f} eager "
+        f"{np.mean(alone['eager_s_per_frame']):.4f}")
+    del seq
+    torch.cuda.empty_cache()
+
+
 def check_rollouts(gen, label, lat0, acts, nz):
     """Incremental against full-window rollout on the card, and a depth-2
     full-width rollout on the card against the port's CPU rollout (plain
@@ -2489,7 +2682,8 @@ def stacked_rollout(gen, lat0, acts, nz):
     unstack=False) (the stacked layout: full-window steps, no conditioning
     cache, no incremental decoding), bit-equal to the unstacked rollout
     without the conditioning cache on the same noise, with the launches of
-    each counted."""
+    each counted; both eager (a one-frame rollout's capture would be
+    replayed by nothing; `[graph]` holds the graphs to the eager frames)."""
     from gtax_torch.models import dit as dit_mod
     from gtax_torch.serving import VideoGenerator
 
@@ -2507,8 +2701,8 @@ def stacked_rollout(gen, lat0, acts, nz):
                 fn.launches = 0
             torch.cuda.synchronize()
             t = time.perf_counter()
-            out[label] = g._rollout(g.dit_params, lat0, acts, None, 1,
-                                    nz[:, :1])
+            out[label] = g._rollout.eager(g.dit_params, lat0, acts, None,
+                                          1, nz[:, :1])
             torch.cuda.synchronize()
             secs[label] = time.perf_counter() - t
             counts[label] = {n: fn.launches for n, fn in fns.items()
@@ -2659,7 +2853,7 @@ def int8_batched_step(gen8, rows, bf=torch.bfloat16):
         fail(f"int8 B=4 step disagrees with the B=1 step: {err} > {tol}")
 
 
-def pallas_path(gen, rows, inputs, lat0, acts, nz):
+def pallas_path(gen, rows, inputs, lat0, acts, nz, graphs):
     """`[e2e pallas]`: VideoGenerator(attention_backend="pallas") over the
     bf16 generator's weights: full-window rollouts through the unfused
     branches, every attention on fused_mha_token_major, counted by sequence
@@ -2695,6 +2889,7 @@ def pallas_path(gen, rows, inputs, lat0, acts, nz):
     if by_len != PALLAS_EXPECTED:
         fail(f"pallas path attention calls {by_len} != {PALLAS_EXPECTED}")
     rows["fused_mha_token_major"]["launches_by_sequence_length"] = by_len
+    graph_phase(genp, "pallas", graphs)
     t = torch.full((1, 5), 10, device="cuda")
     window = torch.cat([lat0, nz[:, :1]], dim=1)  # the first window
     with torch.inference_mode():
@@ -3077,7 +3272,7 @@ def approx_path(gen, rows, inputs, lat0, acts):
     return summary
 
 
-def e2e_fp32(rows, inputs, expect):
+def e2e_fp32(rows, inputs, expect, graphs):
     """`[e2e fp32]`: VideoGenerator(dtype="float32") at full width and
     depth under `fused` (the fp32 forms of #1-#5), the same prompt, actions
     and injected noise as the bf16 run, with every launch count zeroed
@@ -3100,6 +3295,7 @@ def e2e_fp32(rows, inputs, expect):
     counts = drive_path(gen, "fp32", BF16_PATH, rows, (), inputs, expect)
     for name in BF16_PATH:
         rows[name]["fp32"]["launches"] = counts[name]
+    graph_phase(gen, "fp32", graphs)
     f32 = torch.float32
     with torch.inference_mode():
         lat0 = encode_frames(gen.vae_params, gen.vae_cfg,
@@ -3133,7 +3329,8 @@ def e2e_fp32(rows, inputs, expect):
            "decode_ms": tm["decode_s"] * 1e3, "launches": counts,
            "depth2_err_over_max": errs}
     t1 = time.perf_counter()
-    out["modes"] = f32_serving_modes(gen, rows, inputs, lat0, acts, nz)
+    out["modes"] = f32_serving_modes(gen, rows, inputs, lat0, acts, nz,
+                                     graphs)
     log(f"[time] e2e fp32 int8 / pallas: {time.perf_counter() - t1:.1f} s")
     out["seconds"] = time.perf_counter() - t0
     log(f"[time] e2e fp32: {out['seconds']:.1f} s")
@@ -3174,7 +3371,7 @@ def f32_mode_expected(label):
             {S_VAE: 18})
 
 
-def f32_serving_modes(gen, rows, inputs, lat0, acts, nz):
+def f32_serving_modes(gen, rows, inputs, lat0, acts, nz, graphs):
     """`[e2e fp32]`, int8 and `pallas`: each F32_MODES generator over the
     fp32 generator's weights (not cast; int8: quantized from them, as gtax
     serves fp32 with int8), one generate of the same prompt, actions and
@@ -3248,6 +3445,7 @@ def f32_serving_modes(gen, rows, inputs, lat0, acts, nz):
                           "mha_by_length": dict(by_len),
                           "depth2_err_over_max": err / scale}
         if label == "int8 fused":  # #6 in fp32: the sequential B=4 step
+            graph_phase(g, "fp32-int8", graphs)
             int8_batched_step(g, rows, f32)
         del g, p2
         torch.cuda.empty_cache()
@@ -3282,16 +3480,20 @@ def end_to_end(rows):
     nz = torch.from_numpy(noise).cuda()
 
     bf16_counts = drive_path(gen, "bf16", BF16_PATH, rows, BF16_PATH, inputs)
+    graphs = {}
+    graph_phase(gen, "bf16", graphs)
     check_rollouts(gen, "bf16", lat0, acts, nz)
     stacked_rollout(gen, lat0, acts, nz)
     profile_frame(gen, lat0, acts, nz)
-    fp32 = e2e_fp32(rows, inputs, bf16_counts)
+    fp32 = e2e_fp32(rows, inputs, bf16_counts, graphs)
 
     # the same bf16 weights, quantized by the serving path
     gen8 = VideoGenerator(gen.dit_params, gen.vae_params,
                           dataclasses.replace(cfg, quantize="int8"))
     drive_path(gen8, "int8", INT8_PATH, rows, INT8_PATH[:5], inputs,
                INT8_EXPECTED)
+    graph_phase(gen8, "int8", graphs)
+    pair_gate_graphed(gen8, graphs)
     check_rollouts(gen8, "int8", lat0, acts, nz)
     profile_frame(gen8, lat0, acts, nz)
     int8_batched_step(gen8, rows)
@@ -3299,13 +3501,13 @@ def end_to_end(rows):
     del gen8
     torch.cuda.empty_cache()
 
-    pallas_path(gen, rows, inputs, lat0, acts, nz)
+    pallas_path(gen, rows, inputs, lat0, acts, nz, graphs)
     sdpa_path(rows)
     sdpa_path(rows, torch.float32)
     t0 = time.perf_counter()
     summary = approx_path(approx_generator(gen), rows, inputs, lat0, acts)
     log(f"[time] e2e approx: {time.perf_counter() - t0:.1f} s")
-    return {"approx": summary, "fp32": fp32}
+    return {"approx": summary, "fp32": fp32, "graph": graphs}
 
 
 # ------------------------------------------------------------- training
@@ -5163,17 +5365,51 @@ def aot_child(role, cache_dir, result):
     prompt, actions, n_frames = serving_inputs(1, n_prompt=1, n_frames=2)
     noise = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (1, 1, 16, 18, 32)).astype(np.float32))
+    graphs = gen._rollout.graphs
     seen = capture_rollout(gen)
     pixels = gen.generate(prompt, actions, n_frames, seed=0, noise=noise)
     first = time.time()
+    out = {"first_frame_at": first, "nvcc": build.find_nvcc(),
+           "events": [kind for kind, _ in gen._aot.events],
+           "artifacts": sorted(os.listdir(cache_dir)),
+           "pixels": list(pixels.shape),
+           "digest": digest({"pixels": torch.from_numpy(pixels),
+                             "latents": seen[-1]})}
+    if role == "warm":
+        out["prewarm"] = prewarm_check(gen, graphs)
     with open(result, "w") as f:
-        json.dump({"first_frame_at": first, "nvcc": build.find_nvcc(),
-                   "events": [kind for kind, _ in gen._aot.events],
-                   "artifacts": sorted(os.listdir(cache_dir)),
-                   "pixels": list(pixels.shape),
-                   "digest": digest({"pixels": torch.from_numpy(pixels),
-                                     "latents": seen[-1]})}, f)
+        json.dump(out, f)
     return 0
+
+
+def prewarm_check(gen, graphs):
+    """prewarm of the [e2e] shape (4 prompt frames, 6 in all, actions)
+    captures that shape's frame graph, and the next generate of that shape
+    replays it without capturing again."""
+    from gtax_torch.sampling import graphs as graphs_mod
+
+    n_events = len(gen._aot.events)
+    before = graphs.graphs()
+    gen.prewarm(num_frames=6, n_prompt=4, use_actions=True, wait=True)
+    after = graphs.graphs()
+    captured, real = [], graphs_mod.capture
+
+    def counted(*args):
+        captured.append(1)
+        return real(*args)
+
+    graphs_mod.capture = counted
+    try:
+        prompt, actions, n_frames = serving_inputs(1)
+        pixels = gen.generate(prompt, actions, n_frames, seed=1)
+    finally:
+        graphs_mod.capture = real
+    return {"events": [k for k, _ in gen._aot.events[n_events:]],
+            "graphs_by_prewarm": len(set(after) - set(before)),
+            "captures_in_generate": len(captured),
+            "same_graphs": all(graphs.graphs().get(k) is v
+                               for k, v in after.items()),
+            "pixels": list(pixels.shape)}
 
 
 def aot_phase():
@@ -5246,12 +5482,20 @@ def aot_phase():
             fail(f"[aot] {role}: events {o['events']}, want {want}")
         if o["digest"] != got["cold"]["digest"]:
             fail(f"[aot] {role}: its frame differs from the cold process's")
+    pre = got["warm"]["prewarm"]
+    log(f"[aot] warm: prewarm of the [e2e] shape then a generate of it: "
+        f"{json.dumps(pre)}")
+    if pre != {"events": ["prewarm_start", "prewarm_done"],
+               "graphs_by_prewarm": 1, "captures_in_generate": 0,
+               "same_graphs": True, "pixels": [1, 6, 360, 640, 3]}:
+        fail("[aot] prewarm did not leave the graph the next generate "
+             "replays")
     if got["warm"]["nvcc"] is not None:
         fail("[aot] the warm process could find nvcc")
     log("[aot] every process's latents and pixels bit-equal to the cold "
         "one's, from the same injected noise")
-    return {role: {k: got[role][k] for k in ("events", "seconds")}
-            for role in AOT_ROLES}
+    return {**{role: {k: got[role][k] for k in ("events", "seconds")}
+               for role in AOT_ROLES}, "prewarm": pre}
 
 
 # ------------------------------------------------------ the HTTP server
@@ -5500,7 +5744,8 @@ def main():
     log(f"[time] the whole smoke: {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": list(rows.values()), "train": train,
                     "temporal": temporal, "approx": e2e["approx"],
-                    "e2e_fp32": e2e["fp32"], "sass": sass, "multi": multi,
+                    "e2e_fp32": e2e["fp32"], "graph": e2e["graph"],
+                    "sass": sass, "multi": multi,
                     "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -28,11 +28,9 @@ wrapper counts its kernel launches in `launches`.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from gtax_torch.kernels import build
+from gtax_torch.kernels import build, capture
 from gtax_torch.kernels.block import (_desc, _need, _ptr, _stream,
                                       forward_only)
 
@@ -54,10 +52,13 @@ def _bias(S: int, mask, causal: bool, device) -> torch.Tensor:
     return torch.where(allow, 0.0, NEG_BIAS).float()
 
 
-@functools.lru_cache(maxsize=64)
 def _cached_bias(S, flags, shape, causal, device):
-    mask = None if flags is None else torch.tensor(flags).reshape(shape)
-    return _bias(S, mask, causal, "cpu").to(device)
+    def make(dev):
+        mask = None if flags is None else torch.tensor(flags).reshape(shape)
+        return _bias(S, mask, causal, "cpu").to(dev)
+
+    return capture.held(("attention_bias", S, flags, shape, causal), device,
+                        make)
 
 
 def build_bias(S: int, mask=None, causal: bool = False,
@@ -66,7 +67,8 @@ def build_bias(S: int, mask=None, causal: bool = False,
     key-validity or (S, S) mask, True = attend (gtax/kernels/attention.py
     _build_bias): 0 where allowed, -1e30 where not. A 1-D mask applies to
     every query row. A mask given on the host is turned into a bias on the
-    device once and kept, so the step does not copy it every call."""
+    device once and kept (capture.held), so the step does not copy it every
+    call."""
     if mask is not None:
         mask = _mask_tensor(mask)
         if mask.device.type != "cpu":
@@ -230,7 +232,7 @@ def fused_sdpa(q, k, v, mask=None, causal=False):
         return sdpa_plain(*flat, build_bias(S, mask, causal)).reshape(
             *lead, S, d)
     out = _launch(q, k, v, mask, causal, S, 1, d)
-    fused_sdpa.launches += 1
+    capture.launched(fused_sdpa)
     return out.reshape(*lead, S, d)
 
 
@@ -260,7 +262,7 @@ def fused_mha_token_major(q, k, v, num_heads, mask=None, causal=False):
     _need(HD % num_heads == 0,
           lambda: f"width {HD} is not a multiple of {num_heads} heads")
     out = _launch(q, k, v, mask, causal, S, num_heads, HD // num_heads)
-    fused_mha_token_major.launches += 1
+    capture.launched(fused_mha_token_major)
     return out.reshape(*lead, S, HD)
 
 

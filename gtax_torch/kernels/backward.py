@@ -53,7 +53,7 @@ import functools
 import torch
 
 from gtax_torch.core.rope import rotate_half
-from gtax_torch.kernels import block, build
+from gtax_torch.kernels import block, build, capture
 from gtax_torch.kernels.block import (
     EPI_BF16,
     EPI_DGELU,
@@ -477,7 +477,7 @@ def fused_spatial_branch_bwd(x, shift, scale, g, qkv_w, out_w, rope_freqs,
 
     out = _attn_branch_bwd_cuda(x, shift, scale, g, qkv_w, out_w, y, ct,
                                 attention)
-    fused_spatial_branch_bwd.launches += 1
+    capture.launched(fused_spatial_branch_bwd)
     return out
 
 
@@ -522,7 +522,7 @@ def fused_temporal_branch_bwd(x, shift, scale, g, qkv_w, out_w, rope_freqs,
 
     out = _attn_branch_bwd_cuda(x, shift, scale, g, qkv_w, out_w, y, ct,
                                 attention, mod)
-    fused_temporal_branch_bwd.launches += 1
+    capture.launched(fused_temporal_branch_bwd)
     return out
 
 
@@ -567,7 +567,7 @@ def fused_mlp_branch_bwd(x, shift, scale, g, w1, w2, h1, y, ct):
     dmod = _empty((M, D), x)
     block.gemm_any(dh1, w1, dmod, M, D, Hd, EPI_F32, trans_b=True)
     dx, dshift, dscale = ln_mod_bwd(x, dmod, scale, ct2, S)
-    fused_mlp_branch_bwd.launches += 1
+    capture.launched(fused_mlp_branch_bwd)
     return dx.reshape(N, S, D), dshift, dscale, dg, dW1, db1, dW2, db2
 
 

@@ -58,7 +58,7 @@ import functools
 import torch
 
 from gtax_torch.core.rope import apply_rotary_emb as rope
-from gtax_torch.kernels import build
+from gtax_torch.kernels import build, capture
 
 MOD_EPS = 1e-6
 LN_EPS = 1e-6
@@ -155,13 +155,19 @@ def valid_bits(valid, T: int) -> int:
 
 def temporal_bias(valid, T: int, device) -> torch.Tensor:
     """(T, T) additive mask of gtax temporal_preamble: causal, a key slot
-    open when valid or on the diagonal, -1e30 where closed."""
+    open when valid or on the diagonal, -1e30 where closed. Made once per
+    mask and device (capture.held): the denoise step copies nothing."""
     bits = valid_bits(valid, T)
-    ok = torch.tensor([bool(bits >> j & 1) for j in range(T)], device=device)
-    eye = torch.eye(T, dtype=torch.bool, device=device)
-    causal = torch.tril(torch.ones(T, T, dtype=torch.bool, device=device))
-    allow = causal & (ok[None, :] | eye)
-    return torch.where(allow, 0.0, -1e30).float()
+
+    def make(dev):
+        ok = torch.tensor([bool(bits >> j & 1) for j in range(T)],
+                          device=dev)
+        eye = torch.eye(T, dtype=torch.bool, device=dev)
+        causal = torch.tril(torch.ones(T, T, dtype=torch.bool, device=dev))
+        allow = causal & (ok[None, :] | eye)
+        return torch.where(allow, 0.0, -1e30).float()
+
+    return capture.held(("temporal_bias", bits, T), device, make)
 
 
 def rope_qkv_plain(qkv32, freqs, S, n_q, q_off, dtype):
@@ -758,21 +764,24 @@ def launch_gemm_f32(a, w, out, M, N, K, epi, bias=None, resid=None,
         _ptr(part), _stream(a))
 
 
-# the persistent form's counters (two a tile, zero between launches: the
-# kernel zeroes those it used), one buffer a device and stream
-_F32_FLAGS = {}
+# the persistent form's counters: two a tile, zero between launches (the
+# kernel zeroes those it used); one buffer of F32_FLAGS_WORDS, made once for
+# a device and stream, or for a CUDA graph's capture (capture.owned: its
+# replays share their counters with no other launch), and never replaced
+F32_FLAGS_WORDS = 1 << 14
 
 
 def _f32_flags(a, M, N):
     """The persistent form's zeroed counters for an (M, N) output on a's
-    device and current stream (the buffer grows to the largest call's)."""
+    device and current stream, or of the capture this thread is in."""
     n = 2 * _cdiv(M, F32_PERSIST_TILE) * _cdiv(N, F32_PERSIST_TILE_N)
-    key = (a.device, _stream(a))
-    flags = _F32_FLAGS.get(key)
-    if flags is None or flags.numel() < n:
-        flags = torch.zeros(max(n, 1024), dtype=torch.int32, device=a.device)
-        _F32_FLAGS[key] = flags
-    return flags
+    _need(n <= F32_FLAGS_WORDS,
+          lambda: f"gemm_f32: the persistent form at ({M}, {N}) needs {n} "
+                  f"tile counters, more than its {F32_FLAGS_WORDS}")
+    return capture.owned(
+        ("f32_flags", _stream(a)), a.device,
+        lambda dev: torch.zeros(F32_FLAGS_WORDS, dtype=torch.int32,
+                                device=dev))
 
 
 def gemm_any(a, w, out, M, N, K, epi, **kw):
@@ -1073,7 +1082,7 @@ def fused_spatial_branch(x, shift, scale, gate, qkv_w, out_w, out_b,
     gemm_any(att, out_w, out, N * S, D, D,
              EPI_BIAS_GATED_Y if emit_train else EPI_BIAS_GATED, bias=out_b,
              resid=x, gate=gate, S=S, out2=res and res[3])
-    fused_spatial_branch.launches += 1
+    capture.launched(fused_spatial_branch)
     return (out, *res) if emit_train else out
 
 
@@ -1122,7 +1131,7 @@ def fused_mlp_branch(x, shift, scale, gate, w1, b1, w2, b2,
     gemm_any(h, w2, out, N * S, D, Hd,
              EPI_BIAS_GATED_Y if emit_train else EPI_BIAS_GATED, bias=b2,
              resid=x, gate=gate, S=S, out2=y, **({"lda": ld} if ld else {}))
-    fused_mlp_branch.launches += 1
+    capture.launched(fused_mlp_branch)
     return (out, h1.reshape(N, S, Hd), y) if emit_train else out
 
 
@@ -1235,7 +1244,7 @@ def fused_temporal_branch(x, shift, scale, gate, qkv_w, out_w, out_b,
                                 rope_freqs, num_heads, n_frames,
                                 valid_bits(valid, n_frames), emit_kv,
                                 emit_train, emit_mod)
-    fused_temporal_branch.launches += 1
+    capture.launched(fused_temporal_branch)
     return out
 
 
@@ -1274,7 +1283,7 @@ def fused_temporal_step(x, shift, scale, gate, qkv_w, out_w, out_b, k_ctx,
                               rope_freqs, num_heads, B, n_live, n_ctx,
                               valid_bits(valid, n_ctx + n_live), k_ctx,
                               v_ctx)
-    fused_temporal_step.launches += 1
+    capture.launched(fused_temporal_step)
     return out
 
 

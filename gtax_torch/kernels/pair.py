@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from gtax_torch.kernels import block, build, quant
+from gtax_torch.kernels import block, build, capture, quant
 from gtax_torch.kernels.block import _check_branch, _check_mat, _need, _stream
 
 # int8 params and at most this many live frames take the pair
@@ -203,7 +203,7 @@ def fused_spatial_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
     out = _launch(False, x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s, out_q,
                   out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s, b2, rope_freqs,
                   None, None, num_heads, Hd, G, approx_gelu=approx_gelu)[0]
-    fused_spatial_pair_q.launches += 1
+    capture.launched(fused_spatial_pair_q)
     return out
 
 
@@ -250,7 +250,7 @@ def fused_temporal_pair_q(x, sh1, sc1, g1, sh2, sc2, g2, qkv_q, qkv_s,
                   out_s, out_b, w1_q, w1_s, b1, w2_q, w2_s, b2, rope_freqs,
                   k_ctx, v_ctx, num_heads, Hd, G, B, n_live, n_ctx,
                   block.valid_bits(valid, T), approx_gelu=approx_gelu)[0]
-    fused_temporal_pair_q.launches += 1
+    capture.launched(fused_temporal_pair_q)
     return out
 
 

@@ -55,7 +55,7 @@ import functools
 import torch
 
 from gtax_torch.core.rope import apply_rotary_emb as rope
-from gtax_torch.kernels import block, build
+from gtax_torch.kernels import block, build, capture
 from gtax_torch.kernels.block import (
     _check_bias,
     _check_branch,
@@ -457,7 +457,7 @@ def gemm_s8_train(a, sa, w_q, w_s, out, epi, bias=None, resid=None,
         "gtax_gemm_s8_train", a.data_ptr(), w_q.data_ptr(), C,
         block._ptr(out2), sa.data_ptr(), group, w_s.data_ptr(), b, b32, r, g,
         gs, M, N, K, S, epi, block._ptr(hq), block._ptr(hs), _stream(a))
-    gemm_s8_train.launches += 1
+    capture.launched(gemm_s8_train)
 
 
 gemm_s8_train.launches = 0
@@ -593,7 +593,7 @@ def fused_spatial_branch_q(x, shift, scale, gate, qkv_q, qkv_s, out_q,
         block.launch_attn_frame(qkv, rope_freqs, att, N, S, D, num_heads, d,
                                 qkv_out=res and res[:3])
     out = _out_cuda(att, x, gate, out_q, out_s, out_b, res and res[3])
-    fused_spatial_branch_q.launches += 1
+    capture.launched(fused_spatial_branch_q)
     return (out, *res) if emit_train else out
 
 
@@ -645,7 +645,7 @@ def fused_mlp_branch_q(x, shift, scale, gate, w1_q, w1_s, b1, w2_q, w2_s,
     y = torch.empty_like(x) if emit_train else None
     _gemm_s8(hq, hs, w2_q, w2_s, out, _gated_epi(x, emit_train), bias=b2,
              resid=x, gate=gate, S=S, out2=y)
-    fused_mlp_branch_q.launches += 1
+    capture.launched(fused_mlp_branch_q)
     return (out, h1, y) if emit_train else out
 
 
@@ -708,7 +708,7 @@ def fused_temporal_branch_q(x, shift, scale, gate, qkv_q, qkv_s, out_q,
                            out_b, rope_freqs, num_heads, N // n_frames,
                            n_frames, 0, valid_bits(valid, n_frames),
                            emit_kv=emit_kv, emit_train=emit_train)
-    fused_temporal_branch_q.launches += 1
+    capture.launched(fused_temporal_branch_q)
     return out
 
 
@@ -745,7 +745,7 @@ def fused_temporal_step_q(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
     out = _temporal_q_cuda(x, shift, scale, gate, qkv_q, qkv_s, out_q, out_s,
                            out_b, rope_freqs, num_heads, B, n_live, n_ctx,
                            valid_bits(valid, n_ctx + n_live), k_ctx, v_ctx)
-    fused_temporal_step_q.launches += 1
+    capture.launched(fused_temporal_step_q)
     return out
 
 

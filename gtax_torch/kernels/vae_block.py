@@ -22,6 +22,7 @@ import torch
 
 from gtax_torch.core.rope import apply_rotary_emb
 from gtax_torch.kernels import block as _blk
+from gtax_torch.kernels import capture
 from gtax_torch.kernels.block import (
     EPI_BIAS_BF16,
     EPI_BIAS_BF16_GELU,
@@ -126,7 +127,7 @@ def fused_vae_block(x, ln1_w, ln1_b, qkv_w, qkv_b, out_w, out_b, ln2_w,
     out = torch.empty_like(x)
     gemm_any(hh, w2, out, M, D, Hd, EPI_BIAS_BF16_RESID, bias=b2, resid=xm,
              **({"lda": ld} if ld else {}))
-    fused_vae_block.launches += 1
+    capture.launched(fused_vae_block)
     return out
 
 

@@ -24,6 +24,7 @@ import torch
 
 from gtax_torch.core import rope
 from gtax_torch.kernels import attention as kattn
+from gtax_torch.kernels import capture
 from gtax_torch.nn.layers import linear
 
 BACKENDS = ("xla", "pallas", "fused", "fused_mlp", "fused_all")
@@ -156,10 +157,13 @@ def temporal_axial_attention(params, x, rope_freqs, num_heads: int,
             return linear(params["out"], out, compute_dtype, reduce)
 
     if mask.dim() == 3:
-        mask = mask[:, None, None]  # (B, 1, 1, T, T)
+        mask = mask[:, None, None].to(x.device)  # (B, 1, 1, T, T)
+    else:  # on the device once per mask: the step copies nothing
+        mask = capture.held(("temporal_mask", tuple(mask.flatten().tolist())),
+                            x.device, mask.to)
     logits = torch.einsum("bqshd,bkshd->bshqk", q.float(), k.float()) * (
         1.0 / d**0.5)
-    logits = torch.where(mask.to(x.device), logits, -1e30)
+    logits = torch.where(mask, logits, -1e30)
     probs = _softmax(logits).to(q.dtype)
     out = torch.einsum("bshqk,bkshd->bqshd", probs.float(), v.float())
     out = out.to(q.dtype).reshape(B, T, H, W, width)

@@ -3,10 +3,12 @@ the exact rollout and its approximate serving modes (attention broadcast,
 the pyramid-pipelined rollout), the renoise diagnostic and the loss.
 
 gtax runs the frames x noise-steps loop nest as nested lax.scans over a
-FIXED max_frames-slot window; here both loops are Python loops over the
-same fixed window. Growing contexts (fewer prompt frames than
-max_frames - 1) left-pad the window with zeros and mask the padded slots
-out of temporal attention with `valid`.
+FIXED max_frames-slot window, jitted; here the frame loop is a Python loop
+over the same fixed window, and each frame of the exact rollout is a
+FramePlan's body: on the card one CUDA graph a frame (sampling/graphs.py,
+gtax's jit), on the CPU the same body run eagerly. Growing contexts
+(fewer prompt frames than max_frames - 1) left-pad the window with zeros
+and mask the padded slots out of temporal attention with `valid`.
 
 The per-step DDIM coefficients are fp32 numbers computed on the host with
 numpy float32 arithmetic (the same fp32 sqrt and division XLA runs), so the
@@ -58,20 +60,38 @@ def _coefs(alpha, alpha_next):
             np.sqrt(one - alpha_next))
 
 
-def _ddim_update(x, v, alpha, alpha_next, noise_idx: int):
-    """DDIM v-prediction update in fp32: recover x_start and the implied
-    noise from v, re-noise to alpha_next, or return x_start itself at the
-    final step. alpha/alpha_next: numpy float32 scalars or arrays that
-    broadcast against x. The single copy of the parity-critical math."""
+def _ddim_apply(x, v, coefs, final: bool):
+    """DDIM v-prediction update in fp32 with _coefs' six factors (Python
+    floats or tensors that broadcast against x): recover x_start and the
+    implied noise from v, re-noise to alpha_next, or return x_start itself
+    at the final step. The single copy of the parity-critical math."""
     x32, v = x.float(), v.float()
-    sa, s1a, sia, sia1, san, s1an = (
-        c.item() if c.ndim == 0 else torch.from_numpy(c).to(x.device)
-        for c in _coefs(alpha, alpha_next))
+    sa, s1a, sia, sia1, san, s1an = coefs
     x_start = sa * x32 - s1a * v
-    if noise_idx <= 0:
+    if final:
         return x_start
     x_noise = (sia * x32 - x_start) / sia1
     return san * x_start + s1an * x_noise
+
+
+def _ddim_update(x, v, alpha, alpha_next, noise_idx: int):
+    """_ddim_apply at alpha/alpha_next: numpy float32 scalars or arrays
+    that broadcast against x (arrays copied to x's device)."""
+    return _ddim_apply(x, v, tuple(
+        c.item() if c.ndim == 0 else torch.from_numpy(c).to(x.device)
+        for c in _coefs(alpha, alpha_next)), noise_idx <= 0)
+
+
+def _window_alphas(alphas_cumprod, B, T, stabilization_level, curr, nxt):
+    """(alpha, alpha_next) of a full-window step, (B, T, 1, 1, 1) float32:
+    the context at the stabilization level and already clean (alpha_next
+    1), the last frame from noise level curr to nxt."""
+    alpha = np.full((B, T), alphas_cumprod[stabilization_level], np.float32)
+    alpha[:, -1] = alphas_cumprod[curr]
+    alpha_next = np.ones((B, T), np.float32)
+    alpha_next[:, -1] = alphas_cumprod[nxt]
+    shape = (B, T, 1, 1, 1)
+    return alpha.reshape(shape), alpha_next.reshape(shape)
 
 
 def denoise_step(dit_fn, x, actions, valid, noise_idx: int,
@@ -85,14 +105,9 @@ def denoise_step(dit_fn, x, actions, valid, noise_idx: int,
     t = torch.full((B, T), stabilization_level, dtype=torch.int32)
     t[:, -1] = curr
     v = dit_fn(x, t.to(x.device), actions, valid).float()
-    alpha = np.full((B, T), alphas_cumprod[stabilization_level], np.float32)
-    alpha[:, -1] = alphas_cumprod[curr]
-    # context frames are already clean: alpha_next = 1 for them
-    alpha_next = np.ones((B, T), np.float32)
-    alpha_next[:, -1] = alphas_cumprod[nxt]
-    shape = (B, T, 1, 1, 1)
-    return _ddim_update(x, v, alpha.reshape(shape),
-                        alpha_next.reshape(shape), noise_idx), v
+    return _ddim_update(x, v, *_window_alphas(
+        alphas_cumprod, B, T, stabilization_level, curr, nxt),
+        noise_idx), v
 
 
 def _rows(tree, fn):
@@ -103,27 +118,19 @@ def _rows(tree, fn):
 
 
 def denoise_window(dit_fn, x, actions, valid, cfg: SamplerConfig,
-                   alphas_cumprod, noise_range, cond=None, incremental=None,
-                   cached=None):
+                   alphas_cumprod, noise_range, cached=None):
     """Run the whole reversed noise-step loop on one window; returns
     (window with its last frame denoised, v-prediction of the final step).
+    The loop of the renoise diagnostic and of attention broadcast; the
+    exact rollout runs FramePlan.frame.
 
     cached: optional (collect_fn, reuse_fn, cache0) triple enabling
-    attention broadcast when cfg.attn_broadcast > 1 (it then takes the
-    place of cond): collect_fn(x, t, a, valid) -> (v, cache);
-    reuse_fn(x, t, a, valid, cache) -> v. Step k of the loop (noise index
-    steps - k) recomputes when k % attn_broadcast == 0 or at the final
-    index, and reuses the cache otherwise.
-
-    cond: optional (cond_fn, apply_fn) pair (params bound): all adaLN head
-    outputs of the loop are computed up front — T-1 stabilization rows
-    plus one last row per noise level — instead of once per step.
-    cond_fn(t, a) -> mods; apply_fn(x, mods, valid) -> v.
-
-    incremental: optional (prefill_fn, step_fn) pair (params bound;
-    requires cond): the context rows are prefilled once (per-block temporal
-    K/V cache) and each step runs the last frame only. The context rows'
-    v is not computed in this mode and comes back as zeros."""
+    attention broadcast when cfg.attn_broadcast > 1: collect_fn(x, t, a,
+    valid) -> (v, cache); reuse_fn(x, t, a, valid, cache) -> v. Step k of
+    the loop (noise index steps - k) recomputes when k % attn_broadcast ==
+    0 or at the final index, and reuses the cache otherwise."""
+    steps = cfg.ddim_noise_steps
+    pick = None
     if cached is not None and cfg.attn_broadcast > 1:
         collect_fn, reuse_fn, cache0 = cached
         held = [cache0]
@@ -135,88 +142,118 @@ def denoise_window(dit_fn, x, actions, valid, cfg: SamplerConfig,
         def reuse(xx, tt, aa, vv):
             return reuse_fn(xx, tt, aa, vv, held[0])
 
-        steps, K = cfg.ddim_noise_steps, cfg.attn_broadcast
-        v = torch.zeros_like(x)
-        for k_iter in range(steps + 1):
-            noise_idx = steps - k_iter
-            fn = collect if k_iter % K == 0 or noise_idx <= 0 else reuse
-            x_pred, v = denoise_step(fn, x, actions, valid, noise_idx,
-                                     cfg.stabilization_level, noise_range,
-                                     alphas_cumprod)
-            x = torch.cat([x[:, :-1], x_pred[:, -1:]], dim=1)
-        return x, v
-
-    if cond is None:
-        if incremental is not None:
-            raise ValueError("incremental decoding requires cond")
-        v = torch.zeros_like(x)
-        for noise_idx in range(cfg.ddim_noise_steps, -1, -1):
-            x_pred, v = denoise_step(dit_fn, x, actions, valid, noise_idx,
-                                     cfg.stabilization_level, noise_range,
-                                     alphas_cumprod)
-            x = torch.cat([x[:, :-1], x_pred[:, -1:]], dim=1)
-        return x, v
-
-    cond_fn, apply_fn = cond
-    B, T = x.shape[:2]
-    dev = x.device
-    steps = cfg.ddim_noise_steps
-    n_lv = steps + 1
-    t_stab = torch.full((B, T), cfg.stabilization_level, dtype=torch.int32,
-                        device=dev)
-    mods_ctx = cond_fn(t_stab, actions)
-    # last-row mods for every noise index in loop order (steps -> 0), as one
-    # (steps+1)*B row batch
-    idxs = list(range(steps, -1, -1))
-    t_last = torch.from_numpy(
-        np.repeat(noise_range[idxs].astype(np.int32), B)).reshape(
-            n_lv * B, 1).to(dev)
-    a_last = None
-    if actions is not None:
-        a_last = actions[None, :, -1:, :].expand(
-            n_lv, B, 1, actions.shape[-1]).reshape(n_lv * B, 1, -1)
-    mods_all = _rows(cond_fn(t_last, a_last),
-                     lambda m: m.reshape((n_lv, B) + m.shape[1:]))
-
-    if incremental is not None:
-        prefill_fn, step_fn = incremental
-        kv = prefill_fn(x[:, :-1], _rows(mods_ctx, lambda m: m[:, :-1]),
-                        None if valid is None else valid[:-1])
-        x_last = x[:, -1:]
-        v_last = torch.zeros_like(x_last)
-        for k, noise_idx in enumerate(idxs):
-            v_last = step_fn(x_last, kv, _rows(mods_all, lambda m: m[k]),
-                             valid).float()
-            curr = int(noise_range[noise_idx])
-            nxt = int(noise_range[max(noise_idx - 1, 0)])
-            x_last = _ddim_update(x_last, v_last, alphas_cumprod[curr],
-                                  alphas_cumprod[nxt], noise_idx)
-        x = torch.cat([x[:, :-1], x_last], dim=1)
-        v = torch.cat([torch.zeros_like(x[:, :-1]), v_last], dim=1)
-        return x, v
+        def pick(k_iter, noise_idx):
+            recompute = k_iter % cfg.attn_broadcast == 0 or noise_idx <= 0
+            return collect if recompute else reuse
 
     v = torch.zeros_like(x)
-    for k, noise_idx in enumerate(idxs):
-        mods = {"blocks": [{key: torch.cat([w[key][:, :-1], l[key][k]],
-                                           dim=1)
-                            for key in w}
-                           for w, l in zip(mods_ctx["blocks"],
-                                           mods_all["blocks"])],
-                "final": torch.cat([mods_ctx["final"][:, :-1],
-                                    mods_all["final"][k]], dim=1)}
-
-        def call(xx, tt, aa, vv, mods=mods):
-            return apply_fn(xx, mods, vv)
-
-        x_pred, v = denoise_step(call, x, actions, valid, noise_idx,
+    for k_iter in range(steps + 1):
+        noise_idx = steps - k_iter
+        fn = dit_fn if pick is None else pick(k_iter, noise_idx)
+        x_pred, v = denoise_step(fn, x, actions, valid, noise_idx,
                                  cfg.stabilization_level, noise_range,
                                  alphas_cumprod)
         x = torch.cat([x[:, :-1], x_pred[:, -1:]], dim=1)
     return x, v
 
 
+class FramePlan:
+    """One generated frame of the exact rollout, for one (B, latent shape,
+    slot validity, actions) and the rollout's bound functions: every
+    per-step constant made once, on the device or as a Python float, and
+    `frame`, the frame's body, which copies nothing from the host and waits
+    on nothing, so a CUDA graph can capture it (sampling/graphs.py). On the
+    CPU the same body runs eagerly on the plain versions.
+
+    The three forms of make_rollout's exact rollout: incremental (cond and
+    incremental: dit_cond's rows, dit_prefill of the context, then the
+    last frame's steps, their DDIM factors Python floats); the full window
+    with the conditioning cache (cond: the rows, then dit_apply with them);
+    the full window without it (dit_fn with each step's timestep rows).
+    Under the full window each step's (B, W) DDIM factors are views of one
+    device array."""
+
+    def __init__(self, fns, cfg: SamplerConfig, alphas_cumprod, noise_range,
+                 B, W, valid, actions, device):
+        self.dit_fn, self.cond, self.incremental = fns
+        # a graph cache's family (sampling/graphs.py) and its member
+        self.family, self.valid_key = (B, W, actions, str(device)), valid
+        self.valid = torch.tensor(valid)
+        self.valid_ctx = self.valid[:-1]
+        steps = cfg.ddim_noise_steps
+        idxs = np.arange(steps, -1, -1)  # loop order
+        curr = noise_range[idxs]
+        nxt = noise_range[np.maximum(idxs - 1, 0)]
+        self.final = [int(i) <= 0 for i in idxs]
+        if self.cond is not None:
+            self.t_stab = torch.full((B, W), cfg.stabilization_level,
+                                     dtype=torch.int32, device=device)
+            # the last row's timestep at every noise index, as one
+            # (steps+1)*B row batch
+            self.t_last = torch.from_numpy(
+                np.repeat(curr.astype(np.int32), B)).reshape(-1, 1).to(device)
+        if self.incremental is not None:
+            self.coefs = [tuple(c.item() for c in _coefs(
+                alphas_cumprod[c_], alphas_cumprod[n_]))
+                for c_, n_ in zip(curr, nxt)]
+            return
+        self.coefs = torch.from_numpy(np.stack([
+            np.stack(_coefs(*_window_alphas(alphas_cumprod, B, W,
+                                            cfg.stabilization_level, c_,
+                                            n_)))
+            for c_, n_ in zip(curr, nxt)])).to(device)
+        t = np.full((steps + 1, B, W), cfg.stabilization_level, np.int32)
+        t[:, :, -1] = curr[:, None]
+        self.t = torch.from_numpy(t).to(device)
+
+    def frame(self, params, ctx, fresh, awin):
+        """ctx (B, W-1, C, H, W) and fresh (B, 1, C, H, W) float32, awin
+        (B, W, A) or None -> the denoised last frame, (B, 1, C, H, W)
+        float32."""
+        x = torch.cat([ctx, fresh], dim=1)
+        if self.cond is not None:
+            cond_fn, apply_fn = self.cond
+            n_lv = len(self.final)
+            B = x.shape[0]
+            mods_ctx = cond_fn(params, self.t_stab, awin)
+            a_last = None
+            if awin is not None:
+                a_last = awin[None, :, -1:, :].expand(
+                    n_lv, B, 1, awin.shape[-1]).reshape(n_lv * B, 1, -1)
+            mods_all = _rows(cond_fn(params, self.t_last, a_last),
+                             lambda m: m.reshape((n_lv, B) + m.shape[1:]))
+        if self.incremental is not None:
+            prefill_fn, step_fn = self.incremental
+            kv = prefill_fn(params, x[:, :-1],
+                            _rows(mods_ctx, lambda m: m[:, :-1]),
+                            self.valid_ctx)
+            x_last = x[:, -1:]
+            for k, coefs in enumerate(self.coefs):
+                v = step_fn(params, x_last, kv,
+                            _rows(mods_all, lambda m: m[k]),
+                            self.valid).float()
+                x_last = _ddim_apply(x_last, v, coefs, self.final[k])
+            return x_last
+        for k, final in enumerate(self.final):
+            if self.cond is not None:
+                mods = {"blocks": [
+                    {key: torch.cat([w[key][:, :-1], lr[key][k]], dim=1)
+                     for key in w}
+                    for w, lr in zip(mods_ctx["blocks"],
+                                     mods_all["blocks"])],
+                    "final": torch.cat([mods_ctx["final"][:, :-1],
+                                        mods_all["final"][k]], dim=1)}
+                v = apply_fn(params, x, mods, self.valid)
+            else:
+                v = self.dit_fn(params, x, self.t[k], awin, self.valid)
+            x_pred = _ddim_apply(x, v.float(), self.coefs[k].unbind(0),
+                                 final)
+            x = torch.cat([x[:, :-1], x_pred[:, -1:]], dim=1)
+        return x[:, -1:]
+
+
 def make_rollout(dit_fn, max_frames: int, cfg: SamplerConfig, pab=None,
-                 cond=None, incremental=None):
+                 cond=None, incremental=None, graphs=None):
     """Build the autoregressive rollout.
 
     dit_fn(params, x, t, actions, valid) -> v. Returns
@@ -235,66 +272,94 @@ def make_rollout(dit_fn, max_frames: int, cfg: SamplerConfig, pab=None,
 
     cond / incremental: optional (cond_fn, apply_fn) and (prefill_fn,
     step_fn) pairs (gtax_torch.models.dit.make_cond_fns /
-    make_incremental_fns), both reference-exact."""
+    make_incremental_fns), both reference-exact; incremental requires
+    cond.
+
+    graphs: a sampling.graphs.FrameGraphs (gtax's jit of the rollout):
+    on the card every frame of the exact rollout then runs as one CUDA
+    graph of its FramePlan, captured at its plan's first frame (which runs
+    eagerly as the capture's warm-up) and replayed after; on the CPU the
+    frames run eagerly. rollout.eager is the same rollout with every frame
+    run eagerly, rollout.graphs the cache."""
     abar, noise_range = cfg.tables()
     W = max_frames
+    use_pab = pab is not None and cfg.attn_broadcast > 1
+    if not use_pab and incremental is not None and cond is None:
+        raise ValueError("incremental decoding requires cond")
+    plans = {}
 
-    def rollout(params, prompt_latents, actions, generator, num_gen_frames,
-                noise=None):
-        B, n_prompt, C, H, Wd = prompt_latents.shape
-        if n_prompt < 1:
-            raise ValueError("need at least one prompt frame")
-        dev = prompt_latents.device
-        prompt_latents = prompt_latents.float()
-        n_ctx = min(n_prompt, W - 1)
-        ctx = prompt_latents[:, n_prompt - n_ctx:]
-        if n_ctx < W - 1:
-            pad = torch.zeros((B, W - 1 - n_ctx, C, H, Wd), device=dev)
-            ctx = torch.cat([pad, ctx], dim=1)
-        actions_padded = None
-        if actions is not None:
-            A = actions.shape[-1]
-            actions_padded = torch.cat(
-                [torch.zeros((B, W - 1, A), dtype=actions.dtype, device=dev),
-                 actions], dim=1)
-        bound_dit = (lambda x, t, a, v: dit_fn(params, x, t, a, v))  # noqa
-        bound_cond = bound_inc = None
-        if cond is not None:
-            bound_cond = (lambda t_, a_: cond[0](params, t_, a_),
-                          lambda x_, m_, v_: cond[1](params, x_, m_, v_))
-            if incremental is not None:
-                bound_inc = (
-                    lambda xc, mc, vc: incremental[0](params, xc, mc, vc),
-                    lambda xl, kv, ml, vv: incremental[1](params, xl, kv, ml,
-                                                          vv))
-        frames = []
-        for s in range(num_gen_frames):
-            i = n_prompt + s  # absolute index of the frame being generated
-            if noise is None:
-                fresh = torch.randn((B, 1, C, H, Wd), generator=generator,
-                                    device=dev).clamp(-cfg.noise_abs_max,
-                                                      cfg.noise_abs_max)
-            else:
-                fresh = noise[:, s:s + 1].to(dev).float()
-            window = torch.cat([ctx, fresh], dim=1)
-            # slot j holds frame i - (W-1) + j; valid iff that index >= 0
-            valid = torch.tensor([i - (W - 1) + j >= 0 for j in range(W)])
-            awin = (None if actions_padded is None
-                    else actions_padded[:, i:i + W])
-            cached = None
-            if pab is not None and cfg.attn_broadcast > 1:
-                cached = (
-                    lambda x_, t_, a_, v_: pab[0](params, x_, t_, a_, v_),
-                    lambda x_, t_, a_, v_, c_: pab[1](params, x_, t_, a_, v_,
-                                                      c_),
-                    pab[2](params, B, W))
-            window, _ = denoise_window(bound_dit, window, awin, valid, cfg,
-                                       abar, noise_range, cond=bound_cond,
-                                       incremental=bound_inc, cached=cached)
-            frames.append(window[:, -1:])
-            ctx = torch.cat([ctx[:, 1:], window[:, -1:]], dim=1)
-        return torch.cat([prompt_latents, *frames], dim=1)
+    def plan_for(B, valid, awin, device):
+        actions = None if awin is None else (awin.shape[-1], awin.dtype)
+        key = (B, valid, actions, str(device))
+        if key not in plans:
+            plans[key] = FramePlan((dit_fn, cond, incremental), cfg, abar,
+                                   noise_range, B, W, valid, actions, device)
+        return plans[key]
 
+    def loop(run):
+        def rollout(params, prompt_latents, actions, generator,
+                    num_gen_frames, noise=None):
+            B, n_prompt, C, H, Wd = prompt_latents.shape
+            if n_prompt < 1:
+                raise ValueError("need at least one prompt frame")
+            dev = prompt_latents.device
+            prompt_latents = prompt_latents.float()
+            n_ctx = min(n_prompt, W - 1)
+            ctx = prompt_latents[:, n_prompt - n_ctx:]
+            if n_ctx < W - 1:
+                pad = torch.zeros((B, W - 1 - n_ctx, C, H, Wd), device=dev)
+                ctx = torch.cat([pad, ctx], dim=1)
+            actions_padded = None
+            if actions is not None:
+                A = actions.shape[-1]
+                actions_padded = torch.cat(
+                    [torch.zeros((B, W - 1, A), dtype=actions.dtype,
+                                 device=dev), actions], dim=1)
+            frames = []
+            for s in range(num_gen_frames):
+                i = n_prompt + s  # absolute index of the frame generated
+                if noise is None:
+                    fresh = torch.randn((B, 1, C, H, Wd), generator=generator,
+                                        device=dev).clamp(-cfg.noise_abs_max,
+                                                          cfg.noise_abs_max)
+                else:
+                    fresh = noise[:, s:s + 1].to(dev).float()
+                # slot j holds frame i - (W-1) + j; valid iff that index >= 0
+                valid = tuple(i - (W - 1) + j >= 0 for j in range(W))
+                awin = (None if actions_padded is None
+                        else actions_padded[:, i:i + W])
+                if use_pab:
+                    cached = (
+                        lambda x_, t_, a_, v_: pab[0](params, x_, t_, a_, v_),
+                        lambda x_, t_, a_, v_, c_: pab[1](params, x_, t_, a_,
+                                                          v_, c_),
+                        pab[2](params, B, W))
+                    window, _ = denoise_window(
+                        lambda x_, t_, a_, v_: dit_fn(params, x_, t_, a_, v_),
+                        torch.cat([ctx, fresh], dim=1), awin,
+                        torch.tensor(valid), cfg, abar, noise_range,
+                        cached=cached)
+                    x_last = window[:, -1:]
+                else:
+                    x_last = run(plan_for(B, valid, awin, dev), params, ctx,
+                                 fresh, awin)
+                frames.append(x_last)
+                ctx = torch.cat([ctx[:, 1:], x_last], dim=1)
+            return torch.cat([prompt_latents, *frames], dim=1)
+
+        return rollout
+
+    def eager(plan, params, ctx, fresh, awin):
+        return plan.frame(params, ctx, fresh, awin)
+
+    def compiled(plan, params, ctx, fresh, awin):
+        if ctx.device.type != "cuda":
+            return plan.frame(params, ctx, fresh, awin)
+        return graphs.run(plan, params, ctx, fresh, awin)
+
+    rollout = loop(eager if graphs is None else compiled)
+    rollout.eager = loop(eager)
+    rollout.graphs = graphs
     return rollout
 
 

@@ -60,16 +60,21 @@ cache; every rank returns the same pixels. The two together are refused,
 as in gtax, and so is a mesh that does not fill the group (1x1 in a group
 of two among them).
 
+On one card the exact rollout is compiled, as gtax jits it: each
+generated frame runs as one CUDA graph of its frame body, captured at the
+first frame of its shape (batch, latent shape, valid slots, actions) and
+replayed after (gtax_torch.sampling.graphs); on the CPU the same body runs
+eagerly. No knob turns the graphs off, as none turns gtax's jit off.
+
 aot_dir (gtax_torch.aot): the kernel library comes from an AOT cache in
 that directory: the first process builds it with nvcc and saves it, later
 ones load it and need no nvcc. prewarm() runs encode, rollout and decode
 once on zeros in a background thread (gtax's prewarm), so a following
-generate() finds the library loaded and the card warm; generate() and
-prewarm serialise on the generator's lock. On the CPU there is nothing to
-build: the directory is made and prewarm still runs. Under mesh_model the
-cache is off, as gtax's (its GSPMD path keeps the jit; the port's runs no
-kernel). prewarm captures no CUDA graph: a difference by design until the
-rollout has graphs (ROADMAP.md).
+generate() finds the library loaded, the rollout's graph of that shape
+captured and the card warm; generate() and prewarm serialise on the
+generator's lock. On the CPU there is nothing to build: the directory is
+made and prewarm still runs. Under mesh_model the cache is off, as gtax's
+(its GSPMD path keeps the jit; the port's runs no kernel).
 
 Options that run: quantize "none" or "int8", any pipeline_depth and
 attn_broadcast gtax takes, every backend, either layout, mesh_data and
@@ -94,6 +99,7 @@ from gtax_torch.parallel import mesh as meshlib
 from gtax_torch.sampling.diffusion import (SamplerConfig,
                                            make_pipelined_rollout,
                                            make_rollout)
+from gtax_torch.sampling.graphs import FrameGraphs
 from gtax_torch.train.trainer import decode_frames, encode_frames
 from gtax_torch.utils.platform import resolve_device
 
@@ -157,7 +163,10 @@ def build_rollout(dit_cfg, cfg: ServingConfig, dtype, tp=None):
     under the fused backends; the pipelined rollout when pipeline_depth > 1
     (the cache serves its incremental decoding only). tp: the model axis of
     tensor-parallel params (dit_apply's); the rollout is then the full
-    window, with no conditioning cache, as gtax's under a model mesh.
+    window, with no conditioning cache, as gtax's under a model mesh. On
+    one card in one process the exact rollout runs each frame as a CUDA
+    graph (sampling/graphs.py, gtax's jit); the pipelined rollout,
+    attention broadcast and the mesh rollouts run eagerly.
     Returns rollout(params, prompt_latents, actions, generator,
     num_gen_frames, noise=None)."""
     sampler = SamplerConfig(ddim_noise_steps=cfg.noise_steps,
@@ -182,8 +191,11 @@ def build_rollout(dit_cfg, cfg: ServingConfig, dtype, tp=None):
             dit_fn, dit_cfg.max_frames, sampler,
             pipeline_depth=cfg.pipeline_depth, pab=pab, cond=cond,
             incremental=incremental)
+    graphs = None
+    if tp is None and cfg.mesh_data == 1:
+        graphs = FrameGraphs(dtype, cfg.quantize, backend, cfg.noise_steps)
     return make_rollout(dit_fn, dit_cfg.max_frames, sampler, pab=pab,
-                        cond=cond, incremental=incremental)
+                        cond=cond, incremental=incremental, graphs=graphs)
 
 
 class VideoGenerator:
@@ -280,8 +292,9 @@ class VideoGenerator:
                 wait: bool = False):
         """Run encode -> rollout -> decode once on zeros for one generate()
         shape, in a daemon thread (gtax's prewarm): the kernel library is
-        loaded (or built) from the AOT cache and the card warmed while the
-        caller prepares its prompt. Records prewarm_start, then
+        loaded (or built) from the AOT cache, the rollout's frame graph of
+        that shape captured and the card warmed while the caller prepares
+        its prompt. Records prewarm_start, then
         prewarm_done or prewarm_failed, in the cache's events; a failure
         never reaches the caller. wait=True joins the thread. Returns the
         thread, or None when aot_dir is unset (gtax's no-op)."""

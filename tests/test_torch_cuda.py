@@ -2631,3 +2631,36 @@ def test_temporal_branch_bwd_f32_windows(cuda, T, hd):
                        backward.temporal_branch_bwd_plain(*bargs)):
         assert torch.equal(a, b)
         _close32(a, p)
+
+
+# ------------------------------------------------- the compiled rollout
+
+@pytest.fixture(scope="module")
+def graph_base():
+    """The seeded fp32 generator the modes serve (rollout_graphs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from gtax_torch.tools import rollout_graphs
+    from gtax_torch.utils.platform import strict_matmul
+
+    strict_matmul()
+    return rollout_graphs.base_generator()
+
+
+@pytest.mark.parametrize("label", ["bf16", "bf16-fused_all", "int8",
+                                   "int8-seq", "fp32", "fp32-int8", "pallas",
+                                   "xla", "fused_mlp", "no-cond-cache",
+                                   "stacked"])
+def test_graphed_rollout_bit_equal_to_eager(graph_base, label):
+    """Each mode's compiled rollout at depth 2 (4 noise steps, two frames):
+    the first graphed rollout (its first frame the capture's warm-up),
+    and the replays after it, bit-equal to the eager rollout; two graphed
+    rollouts bit-equal; an eager frame makes no host sync."""
+    from gtax_torch.tools import rollout_graphs
+
+    gen = rollout_graphs.mode_generator(graph_base, label, 2, 4)
+    summary = rollout_graphs.graph_turns(
+        gen, label, rollout_graphs.rollout_inputs(graph_base))
+    assert summary["captured_here"]
+    (stats,) = summary["graphs"]
+    assert stats["nodes"] is None or stats["nodes"] > 0
